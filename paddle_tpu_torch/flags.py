@@ -1,0 +1,94 @@
+"""Global FLAGS registry (env-driven runtime configuration), the port's own copy.
+
+Counterpart of ``paddle_tpu/flags.py`` for the flags the serving path
+reads: the same names, defaults and ``FLAGS_<name>`` environment
+overrides (read when the flag is defined, gflags' init semantics).
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+from .errors import InvalidArgumentError, NotFoundError
+
+__all__ = ["define_flag", "set_flags", "flag"]
+
+
+@dataclass
+class _Flag:
+    name: str
+    value: object
+    type: type
+    help: str
+
+
+_REGISTRY: dict[str, _Flag] = {}
+
+
+def _coerce(value, typ):
+    if typ is bool and isinstance(value, str):
+        return value.strip().lower() in ("1", "true", "yes", "on")
+    return typ(value)
+
+
+def define_flag(name: str, default, help: str = ""):
+    """Register a flag; ``FLAGS_<name>`` in the environment overrides the
+    default."""
+    typ = type(default)
+    env = os.environ.get(f"FLAGS_{name}")
+    value = default if env is None else _coerce(env, typ)
+    _REGISTRY[name] = _Flag(name, value, typ, help)
+    return value
+
+
+def flag(name: str):
+    """Current value of a flag."""
+    try:
+        return _REGISTRY[name].value
+    except KeyError:
+        raise NotFoundError(f"unknown flag {name!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def set_flags(flags_map: dict):
+    """Update flag values with type checking."""
+    for name, value in flags_map.items():
+        f = _REGISTRY.get(name)
+        if f is None:
+            raise NotFoundError(f"unknown flag {name!r}; known: {sorted(_REGISTRY)}")
+        try:
+            f.value = _coerce(value, f.type)
+        except (TypeError, ValueError) as e:
+            raise InvalidArgumentError(
+                f"flag {name!r} expects {f.type.__name__}, got {value!r}") from e
+
+
+# nn/transformer.py _residual_norm — the post-norm residual-add + LayerNorm
+# pair goes through the fused kernel (ops/cuda/layernorm_residual.py);
+# off, the block computes norm(residual + y) op by op.
+define_flag("use_fused_layernorm", True,
+            "fused residual-add + LayerNorm kernel in post-norm blocks")
+
+# serving/batcher.py — the batch-axis bucket ladder: every assembled batch
+# is padded up to the smallest bucket that covers its rows.
+define_flag("serving_batch_buckets", "1,2,4,8",
+            "comma-separated ascending batch-axis bucket sizes for the "
+            "online serving batcher")
+
+# serving/batcher.py — bounded admission queue; full rejects (HTTP 429).
+define_flag("serving_queue_capacity", 256,
+            "max requests the serving batcher holds before rejecting "
+            "(backpressure: HTTP 429)")
+
+# serving/batcher.py — how long an open batch waits for more requests.
+define_flag("serving_batch_timeout_ms", 2.0,
+            "max ms the serving batcher waits to fill a batch beyond "
+            "its first request (0: dispatch immediately)")
+
+# serving/replica.py — worker threads in the replica pool.
+define_flag("serving_replicas", 1,
+            "replica worker threads serving the online batcher")
+
+# serving/batcher.py — default per-request deadline (0: none).
+define_flag("serving_default_deadline_ms", 0.0,
+            "default per-request serving deadline in ms (0: none); "
+            "expired requests error without dispatch")
