@@ -21,9 +21,20 @@
 // (stride 0 on broadcast dims), so a [B,1,1,Lk] padding mask is never
 // expanded. Causal tiles past a block's last row are skipped; ragged Lq
 // and Lk are masked, so any length works.
+//
+// Dropout (upscale in train): the softmax denominator sums the undropped
+// probabilities, then the kept ones are scaled by 1/(1-rate) on their way
+// into the accumulator, as in the TPU kernel. An entry is dropped where
+// its 32 Philox bits (philox.cuh, keyed by the seed the wrapper drew and
+// counted by (key column / 4, query row, batch*head)) fall below
+// rate * 2^32; one call covers 4 keys of a chunk. The TPU kernel re-seeded
+// its hardware PRNG per tile; the counter keying makes the mask
+// independent of tiling, so the backward kernels regenerate it exactly.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -35,17 +46,19 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-template <int D, int BK>
+template <int D, int BK, bool kDrop>
 __global__ void __launch_bounds__(kBlockQ * (D / 32))
     flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const float* __restrict__ bias,
                                int64_t sb, int64_t sh, int64_t sq, int64_t sk,
                                float* __restrict__ out, float* __restrict__ lse, int heads,
-                               int lq, int lk, float scale, int causal) {
+                               int lq, int lk, float scale, int causal,
+                               const uint32_t* __restrict__ seed, uint32_t threshold,
+                               float inv_keep) {
   constexpr int kTpr = D / 32;  // threads per query row
   constexpr int kVec = 8;       // float4 chunks of q / acc per thread (32 dims)
   constexpr int kRowVec = D / 4;
-  static_assert(BK % kChunk == 0, "tile must hold whole chunks");
+  static_assert(BK % kChunk == 0 && kChunk % 4 == 0, "tile must hold whole chunks");
   __shared__ float4 ks[BK * kRowVec];
   __shared__ float4 vs[BK * kRowVec];
 
@@ -72,6 +85,11 @@ __global__ void __launch_bounds__(kBlockQ * (D / 32))
   float l = 0.f;
   const float* brow =
       bias == nullptr ? nullptr : bias + b * sb + hd * sh + (int64_t)iq_safe * sq;
+  uint32_t key0 = 0, key1 = 0;
+  if (kDrop) {
+    key0 = seed[0];
+    key1 = seed[1];
+  }
 
   // causal: key ik is visible to row iq when ik <= iq + (lk - lq). Tiles past
   // the block's last row are skipped, but only when every row of the block
@@ -126,6 +144,19 @@ __global__ void __launch_bounds__(kBlockQ * (D / 32))
         psum += s[jj];
       }
       l = l * corr + psum;
+      if (kDrop) {  // the kept probabilities, upscaled, feed the accumulator
+#pragma unroll
+        for (int g = 0; g < kChunk / 4; ++g) {
+          const uint4 bits = ptt::philox4x32_10(
+              make_uint4((uint32_t)((k0 + j0) / 4 + g), (uint32_t)iq_safe, (uint32_t)bh, 0u),
+              key0, key1);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            float& p = s[4 * g + t];
+            p = ptt::word(bits, t) >= threshold ? p * inv_keep : 0.f;
+          }
+        }
+      }
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
         acc[c].x *= corr;
@@ -165,13 +196,17 @@ __global__ void __launch_bounds__(kBlockQ * (D / 32))
 template <int D, int BK>
 int launch(const void* q, const void* k, const void* v, const void* bias, int64_t sb, int64_t sh,
            int64_t sq, int64_t sk, void* out, void* lse, int batch, int heads, int lq, int lk,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, const void* seed, uint32_t threshold, float inv_keep,
+           cudaStream_t stream) {
   const dim3 grid((unsigned)(batch * heads), (unsigned)((lq + kBlockQ - 1) / kBlockQ));
   const dim3 block(kBlockQ * (D / 32));
-  flash_attention_fwd_kernel<D, BK><<<grid, block, 0, stream>>>(
+  auto* kernel = seed == nullptr ? flash_attention_fwd_kernel<D, BK, false>
+                                 : flash_attention_fwd_kernel<D, BK, true>;
+  kernel<<<grid, block, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(bias), sb, sh, sq, sk, static_cast<float*>(out),
-      static_cast<float*>(lse), heads, lq, lk, scale, causal);
+      static_cast<float*>(lse), heads, lq, lk, scale, causal,
+      static_cast<const uint32_t*>(seed), threshold, inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -179,24 +214,28 @@ int launch(const void* q, const void* k, const void* v, const void* bias, int64_
 
 // q/out [B*H, Lq, D], k/v [B*H, Lk, D], lse [B*H, Lq], all float32 and
 // contiguous; bias is NULL or float32 addressed as
-// bias[b*sb + h*sh + iq*sq + ik*sk]. Returns cudaGetLastError() after the launch.
+// bias[b*sb + h*sh + iq*sq + ik*sk]. seed is NULL (no dropout) or two
+// uint32 words on the device; an entry is kept where its Philox bits are
+// >= threshold and then scaled by inv_keep. Returns cudaGetLastError()
+// after the launch.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* bias, int64_t sb, int64_t sh, int64_t sq,
                                        int64_t sk, void* out, void* lse, int batch, int heads,
                                        int lq, int lk, int d, float scale, int causal,
+                                       const void* seed, uint32_t threshold, float inv_keep,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch * heads == 0 || lq == 0) return (int)cudaSuccess;
   switch (d) {
     case 32:
       return launch<32, 64>(q, k, v, bias, sb, sh, sq, sk, out, lse, batch, heads, lq, lk, scale,
-                            causal, s);
+                            causal, seed, threshold, inv_keep, s);
     case 64:
       return launch<64, 64>(q, k, v, bias, sb, sh, sq, sk, out, lse, batch, heads, lq, lk, scale,
-                            causal, s);
+                            causal, seed, threshold, inv_keep, s);
     case 128:
       return launch<128, 32>(q, k, v, bias, sb, sh, sq, sk, out, lse, batch, heads, lq, lk,
-                             scale, causal, s);
+                             scale, causal, seed, threshold, inv_keep, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,11 +1,13 @@
-"""BERT encoder (``paddle_tpu/models/bert.py:33-203``) on torch tensors.
+"""BERT encoder and pretraining model (``paddle_tpu/models/bert.py:33-272``) on torch tensors.
 
-The config, embeddings, post-norm encoder and pooler with the JAX
-package's parameter names, so ``paddle_tpu`` weights load by name
+The config, embeddings, post-norm encoder, pooler, the MLM + NSP
+pretraining heads and their criterion, with the JAX package's parameter
+names, so ``paddle_tpu`` weights load by name
 (:mod:`paddle_tpu_torch.convert`). Pipelining and sharding constraints
 are not ported. With ``use_flash_attention`` and sequences of at least
-``FLASH_ATTENTION_MIN_SEQ`` the attention runs the flash kernel; every
-encoder layer runs the fused residual-add + LayerNorm kernel twice.
+``FLASH_ATTENTION_MIN_SEQ`` the attention runs the flash kernels
+(forward, and dQ and dK/dV in the backward); every encoder layer runs the
+fused residual-add + LayerNorm kernels twice.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 
 __all__ = ["BertConfig", "bert_base_config", "bert_tiny_config", "BertEmbeddings",
-           "BertPooler", "BertModel"]
+           "BertPooler", "BertModel", "BertLMPredictionHead", "BertForPretraining",
+           "BertPretrainingCriterion"]
 
 
 @dataclass
@@ -126,3 +129,63 @@ class BertModel(nn.Module):
         emb = self.embeddings(input_ids, token_type_ids, position_ids)
         seq = self.encoder(emb, ext)
         return seq, self.pooler(seq)
+
+
+class BertLMPredictionHead(nn.Module):
+    """MLM head whose decoder weight is the input embedding table ``[V, H]``
+    (tied). The tied weight stays registered under the embeddings alone,
+    so the state dict names it once, as the JAX package's does."""
+
+    def __init__(self, cfg: BertConfig, embedding_weights, generator=None, device=None):
+        super().__init__()
+        self.transform = Linear(cfg.hidden_size, cfg.hidden_size, generator=generator,
+                                device=device)
+        self.activation = getattr(F, cfg.hidden_act)
+        self.layer_norm = LayerNorm(cfg.hidden_size, device=device)
+        # a plain attribute, not a second registration of the parameter
+        self.__dict__["decoder_weight"] = embedding_weights
+        self.decoder_bias = nn.Parameter(torch.zeros(cfg.vocab_size, device=device))
+
+    def forward(self, hidden_states, masked_positions=None):
+        if masked_positions is not None:
+            # the masked tokens' rows of the flat [B*L, H] hidden states
+            b, l, h = hidden_states.shape
+            hidden_states = F.gather(hidden_states.reshape(b * l, h), masked_positions)
+        x = self.layer_norm(self.activation(self.transform(hidden_states)))
+        return torch.matmul(x, self.decoder_weight.t()) + self.decoder_bias
+
+
+class BertForPretraining(nn.Module):
+    """MLM + next-sentence-prediction pretraining model:
+    ``forward(input_ids, token_type_ids=None, position_ids=None,
+    attention_mask=None, masked_positions=None) -> (prediction_scores,
+    seq_relationship_score)``."""
+
+    def __init__(self, cfg: BertConfig | None = None, generator=None, device=None, **kwargs):
+        super().__init__()
+        self.bert = BertModel(cfg, generator=generator, device=device, **kwargs)
+        cfg = self.bert.config
+        self.cls = BertLMPredictionHead(cfg, self.bert.embeddings.word_embeddings.weight,
+                                        generator=generator, device=device)
+        self.seq_relationship = Linear(cfg.hidden_size, 2, generator=generator, device=device)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None, attention_mask=None,
+                masked_positions=None):
+        seq, pooled = self.bert(input_ids, token_type_ids, position_ids, attention_mask)
+        return self.cls(seq, masked_positions), self.seq_relationship(pooled)
+
+
+class BertPretrainingCriterion(nn.Module):
+    """MLM + NSP loss: the mean cross entropy of each head (``ignore_index``
+    -100 masks MLM labels), the MLM term divided by ``masked_lm_scale``."""
+
+    def __init__(self, vocab_size):
+        super().__init__()
+        self.vocab_size = vocab_size
+
+    def forward(self, prediction_scores, seq_relationship_score, masked_lm_labels,
+                next_sentence_labels, masked_lm_scale=1.0):
+        mlm = F.cross_entropy(prediction_scores.reshape(-1, self.vocab_size),
+                              masked_lm_labels.reshape(-1))
+        nsp = F.cross_entropy(seq_relationship_score, next_sentence_labels.reshape(-1))
+        return mlm / masked_lm_scale + nsp

@@ -82,12 +82,16 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5):
+    """``generator`` draws the masks; None means the input's device's
+    default generator (``framework.random``)."""
+
+    def __init__(self, p=0.5, generator=None):
         super().__init__()
         self.p = p
+        self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, p=self.p, training=self.training)
+        return F.dropout(x, p=self.p, training=self.training, generator=self.generator)
 
     def extra_repr(self):
         return f"p={self.p}"

@@ -1,4 +1,4 @@
-"""Transformer encoder of the serving path (``paddle_tpu/nn/transformer.py``).
+"""Transformer encoder of the serving and training paths (``paddle_tpu/nn/transformer.py``).
 
 The non-cache attention path with its flash dispatch (``:290-327`` of the
 JAX module), the post-norm encoder layer whose residual-add + LayerNorm

@@ -4,8 +4,9 @@ Counterpart of ``paddle_tpu/ops/pallas/_platform.py``: where the JAX package
 asks whether it runs on a TPU, the port builds its kernels for the card.
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` at first use into
-``<repo>/build/paddle_tpu_torch/`` and named by a hash of its source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+``<repo>/build/paddle_tpu_torch/`` and named by a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once. PyTorch's own
 extension builder is not used: it compiles PyTorch's headers, which costs
 minutes a build; the C interface takes seconds.
@@ -25,7 +26,8 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "KERNEL_SOURCES", "nvcc_path", "library", "b
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "paddle_tpu_torch")
-KERNEL_SOURCES = ("layernorm_residual", "flash_attention")
+KERNEL_SOURCES = ("layernorm_residual", "layernorm_residual_bwd", "flash_attention",
+                  "flash_attention_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC")
@@ -46,8 +48,12 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 

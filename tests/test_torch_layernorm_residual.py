@@ -138,3 +138,117 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         tlnr.layernorm_residual_fwd(x, x, torch.empty(128, device="meta"),
                                     torch.empty(128, device="meta"))
+
+
+# -- backward ---------------------------------------------------------------
+
+
+def _grads_through_function(x, r, w, b, dy):
+    ts = [torch.from_numpy(a.copy()).requires_grad_() for a in (x, r, w, b)]
+    y = tlnr.layernorm_residual(*ts, EPS)
+    y.backward(torch.from_numpy(dy))
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("rows,h,block_r", [(37, 256, 16), (8, 768, 8), (3, 128, 2)])
+def test_plain_backward_matches_interpret_kernel_and_vjp_f32(rows, h, block_r):
+    """d_input, dw and db of the port's plain backward == the Pallas
+    backward kernel in interpret mode on the same saved statistics (row
+    blocks that do not divide the rows exercise its masked tail) and
+    ``jax.vjp`` of the JAX ``_reference``; through the autograd Function
+    the same gradient reaches x and the residual."""
+    import jax
+
+    x, r, w, b = _inputs(rows, h, seed=rows + 1)
+    dy = np.random.RandomState(rows).randn(rows, h).astype("f4")
+    _, mean, rstd = tlnr.layernorm_residual_fwd(*map(torch.from_numpy, (x, r, w, b)), EPS)
+    da, dwp, dbp = tlnr.layernorm_residual_bwd(*map(torch.from_numpy, (x, r, w)), mean, rstd,
+                                               torch.from_numpy(dy))
+    kda, kdw, kdb = lnr._pallas_bwd(*map(jnp.asarray, (x, r, w)),
+                                    jnp.asarray(mean.numpy()[:, None]),
+                                    jnp.asarray(rstd.numpy()[:, None]), jnp.asarray(dy),
+                                    interpret=True, block_r=block_r)
+    _, vjp = jax.vjp(lambda x, r, w, b: lnr._reference(x, r, w, b, EPS),
+                     *map(jnp.asarray, (x, r, w, b)))
+    vdx, vdr, vdw, vdb = vjp(jnp.asarray(dy))
+    tol = dict(rtol=1e-5, atol=1e-5)  # f32 sums in other orders
+    np.testing.assert_allclose(da.numpy(), np.asarray(kda), **tol)
+    np.testing.assert_allclose(dwp.sum(0).numpy(), np.asarray(kdw), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(dbp.sum(0).numpy(), np.asarray(kdb), rtol=1e-5, atol=1e-4)
+    gx, gr, gw, gb = _grads_through_function(x, r, w, b, dy)
+    for got, want in ((gx, vdx), (gr, vdr)):
+        np.testing.assert_allclose(got, np.asarray(want), **tol)
+    np.testing.assert_allclose(gw, np.asarray(vdw), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(gb, np.asarray(vdb), rtol=1e-5, atol=1e-4)
+
+
+def test_plain_backward_matches_interpret_kernel_bf16():
+    """bf16: both backwards compute in f32 from the same saved statistics
+    and round ``d_input`` once to bf16; they differ by the bf16 rounding
+    of ``x + res`` (the port rounds, XLA:CPU may keep the sum in f32 inside
+    its fusion), carried through ``x^ * c2``, plus one output rounding."""
+    rows, h = 21, 128
+    x, r, w, _ = _inputs(rows, h, seed=9)
+    dy = np.random.RandomState(9).randn(rows, h).astype("f4")
+    xb, rb, dyb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, r, dy))
+    _, kmean, krstd = lnr._pallas_fwd(xb, rb, jnp.asarray(w), jnp.asarray(w), EPS,
+                                      interpret=True)
+    kda, kdw, kdb = lnr._pallas_bwd(xb, rb, jnp.asarray(w), kmean, krstd, dyb, interpret=True,
+                                    block_r=8)
+    tb = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+          for a in (xb, rb, dyb)]
+    mean = torch.from_numpy(np.array(kmean)[:, 0])
+    rstd = torch.from_numpy(np.array(krstd)[:, 0])
+    da, dwp, dbp = tlnr.layernorm_residual_bwd(tb[0], tb[1], torch.from_numpy(w), mean, rstd,
+                                               tb[2])
+    assert da.dtype == torch.bfloat16 and dwp.dtype == torch.float32
+    got, want = da.float().numpy(), np.asarray(kda, np.float32)
+    a = np.asarray((xb + rb).astype(jnp.float32))
+    rs = rstd.numpy()[:, None]
+    wdy = np.abs(np.asarray(dyb, np.float32) * w)
+    # |d x^| <= ulp(a) * rstd, times |c2| <= max |w dy|, times rstd; and
+    # one bf16 rounding of the larger output
+    ulp_a = 2.0 ** -8 * np.abs(a).max(axis=-1, keepdims=True)
+    bound = (ulp_a * rs * wdy.max(axis=-1, keepdims=True) * rs
+             + 2.0 ** -8 * np.maximum(np.abs(got), np.abs(want)) + 1e-6)
+    assert np.all(np.abs(got - want) <= bound), (np.abs(got - want) - bound).max()
+    # dw sums dy * x^ over rows: the same x^ difference, relative 2**-8
+    np.testing.assert_allclose(dwp.sum(0).numpy(), np.asarray(kdw), rtol=2.0 ** -7,
+                               atol=2.0 ** -7 * np.abs(np.asarray(kdw)).max())
+    np.testing.assert_allclose(dbp.sum(0).numpy(), np.asarray(kdb), rtol=1e-5, atol=1e-5)
+
+
+def test_function_routes_through_the_kernel_entries(monkeypatch):
+    """The autograd wiring the card takes: the Function calls the forward
+    and backward entries (here standing in for the kernels with their
+    plain versions) and gives the gradients of plain autograd through the
+    unfused ``LayerNorm(x + res)``."""
+    calls = []
+    monkeypatch.setattr(tlnr, "layernorm_residual_fwd",
+                        lambda *a: calls.append("fwd") or tlnr._reference(*a))
+    monkeypatch.setattr(tlnr, "layernorm_residual_bwd",
+                        lambda *a: calls.append("bwd") or tlnr._reference_bwd(*a))
+    x, r, w, b = _inputs(5, 64, seed=11)
+    dy = np.random.RandomState(11).randn(5, 3, 64).astype("f4")
+    x, r = x.repeat(3, 0).reshape(5, 3, 64), r.repeat(3, 0).reshape(5, 3, 64)
+    got = _grads_through_function(x, r, w, b, dy)
+    assert calls == ["fwd", "bwd"]
+    ts = [torch.from_numpy(a.copy()).requires_grad_() for a in (x, r, w, b)]
+    torch.nn.functional.layer_norm(ts[0] + ts[1], (64,), ts[2], ts[3], EPS).backward(
+        torch.from_numpy(dy))
+    for g, t in zip(got, ts):
+        np.testing.assert_allclose(g, t.grad.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_backward_entry_refuses_non_cpu_tensors_and_counts_no_empty_launch():
+    meta = dict(device="meta")
+    x = torch.empty(4, 128, **meta)
+    w, stat = torch.empty(128, **meta), torch.empty(4, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlnr.layernorm_residual_bwd(x, x, w, stat, stat, x)
+    before = tlnr.BWD_LAUNCHES
+    empty = torch.empty(0, 128, **meta)
+    da, dwp, dbp = tlnr.layernorm_residual_bwd(empty, empty, w, torch.empty(0, **meta),
+                                               torch.empty(0, **meta), empty)
+    assert tlnr.BWD_LAUNCHES == before
+    assert da.shape == (0, 128) and dwp.shape == dbp.shape == (1, 128)

@@ -101,7 +101,9 @@ def test_predict_matches_predictor_run_and_padding_is_inert(server, predictor):
     stats = _call(srv.url + "/statz")[1]
     assert stats["batches"]["padded_rows"] >= 1
     assert stats["requests"]["completed"] >= 1
-    assert set(stats["kernel_launches"]) == {"layernorm_residual_fwd", "flash_attention_fwd"}
+    assert set(stats["kernel_launches"]) == {
+        "layernorm_residual_fwd", "layernorm_residual_bwd", "flash_attention_fwd",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
 
 
 def test_concurrent_requests_share_batches(server, predictor):
