@@ -9,8 +9,12 @@ against the receiving module's type and shape, and a missing or extra
 name raises. ``BertForPretraining`` ties its MLM decoder weight to the
 word embeddings; the JAX state dict lists it once, under
 ``bert.embeddings.word_embeddings.weight``, and so does the port's. An
-AdamW ``state_dict`` indexes its moments by the position of the
-parameter in ``model.parameters()``, the same order in both packages.
+AdamW ``state_dict`` indexes its moments (a Momentum one its
+``velocity_{i}``) by the position of the parameter in
+``model.parameters()``, the same order in both packages. A ResNet state
+dict holds the parameters and the batch norms' running ``_mean`` and
+``_variance`` buffers (267 entries for ResNet-50: 161 parameters, 106
+buffers), all checked the same way.
 """
 from __future__ import annotations
 
@@ -19,10 +23,12 @@ import torch
 
 from .framework.serialization import load
 from .models.bert import BertConfig, BertForPretraining, BertModel
+from .models.resnet import resnet50
 from .nn.layers import Embedding, LayerNorm, Linear
 
 __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_numpy",
-           "load_bert_pretraining", "adamw_state_from_numpy"]
+           "load_bert_pretraining", "adamw_state_from_numpy", "resnet_state_from_numpy",
+           "load_resnet", "momentum_state_from_numpy"]
 
 _TIED = ("cls.decoder_weight", "bert.embeddings.word_embeddings.weight")
 
@@ -34,11 +40,10 @@ _WEIGHT_SHAPES = {
 }
 
 
-def bert_state_from_numpy(np_state, model) -> dict:
-    """A state dict for ``model`` (a :class:`BertModel` or
-    :class:`BertForPretraining`) from the ``paddle_tpu`` model's state dict
-    of numpy arrays (as ``paddle_tpu.load(..., return_numpy=True)``
-    returns it)."""
+def _state_from_numpy(np_state, model) -> dict:
+    """A state dict for ``model`` from a ``paddle_tpu`` state dict of numpy
+    arrays (as ``paddle_tpu.load(..., return_numpy=True)`` returns it):
+    every name must be one of the model's, every shape fit."""
     modules = dict(model.named_modules())
     own = model.state_dict()
     missing = sorted(set(own) - set(np_state))
@@ -59,6 +64,13 @@ def bert_state_from_numpy(np_state, model) -> dict:
                              f"(wants {want})")
         out[name] = torch.as_tensor(np.asarray(arr), dtype=own[name].dtype)
     return out
+
+
+def bert_state_from_numpy(np_state, model) -> dict:
+    """A state dict for ``model`` (a :class:`BertModel` or
+    :class:`BertForPretraining`) from the ``paddle_tpu`` model's state dict
+    of numpy arrays."""
+    return _state_from_numpy(np_state, model)
 
 
 def load_bert(path, cfg: BertConfig | None = None, device=None) -> BertModel:
@@ -96,14 +108,29 @@ def load_bert_pretraining(path, cfg: BertConfig | None = None,
     return model if device is None else model.to(device)
 
 
-def adamw_state_from_numpy(np_state, optimizer) -> dict:
-    """A state dict for the port's ``optimizer`` (``Adam``/``AdamW``) from
-    a ``paddle_tpu`` one of numpy arrays: ``global_step`` and the moments
-    ``moment1_{i}``/``moment2_{i}`` of parameter ``i``, each checked
-    against the shape of the port's parameter ``i``."""
+def resnet_state_from_numpy(np_state, model) -> dict:
+    """A state dict for the port's :class:`~paddle_tpu_torch.models.ResNet`
+    from the ``paddle_tpu`` ResNet's state dict of numpy arrays: its
+    parameters and running statistics, by name."""
+    return _state_from_numpy(np_state, model)
+
+
+def load_resnet(path, model_fn=resnet50, device=None, **kwargs):
+    """The ResNet ``model_fn(**kwargs)`` holding the weights and running
+    statistics of a ``paddle_tpu.save`` file of a ``paddle_tpu`` ResNet's
+    ``state_dict()``."""
+    model = model_fn(**kwargs)
+    model.load_state_dict(resnet_state_from_numpy(load(path, return_numpy=True), model))
+    return model if device is None else model.to(device)
+
+
+def _accumulator_state(np_state, optimizer, names) -> dict:
+    """``global_step`` and, for each accumulator in ``names`` the state
+    holds, its ``{name}_{i}`` of parameter ``i``, each checked against the
+    shape of the port's parameter ``i``."""
     params = optimizer._parameter_list
     out = {"global_step": int(np_state["global_step"])}
-    for name in ("moment1", "moment2"):
+    for name in names:
         keys = [k for k in np_state if k.rsplit("_", 1)[0] == name]
         if not keys:
             continue
@@ -117,3 +144,16 @@ def adamw_state_from_numpy(np_state, optimizer) -> dict:
                                  f"{optimizer._param_names[i]} {tuple(p.shape)}")
             out[f"{name}_{i}"] = torch.as_tensor(arr, dtype=p.dtype)
     return out
+
+
+def adamw_state_from_numpy(np_state, optimizer) -> dict:
+    """A state dict for the port's ``optimizer`` (``Adam``/``AdamW``) from
+    a ``paddle_tpu`` one of numpy arrays: ``global_step`` and the moments
+    ``moment1_{i}``/``moment2_{i}``."""
+    return _accumulator_state(np_state, optimizer, ("moment1", "moment2"))
+
+
+def momentum_state_from_numpy(np_state, optimizer) -> dict:
+    """A state dict for the port's ``Momentum`` from a ``paddle_tpu`` one of
+    numpy arrays: ``global_step`` and the velocities ``velocity_{i}``."""
+    return _accumulator_state(np_state, optimizer, ("velocity",))

@@ -1,7 +1,7 @@
 """Global FLAGS registry (env-driven runtime configuration), the port's own copy.
 
-Counterpart of ``paddle_tpu/flags.py`` for the flags the serving path
-reads: the same names, defaults and ``FLAGS_<name>`` environment
+Counterpart of ``paddle_tpu/flags.py`` for the flags the port's paths
+read: the same names, defaults and ``FLAGS_<name>`` environment
 overrides (read when the flag is defined, gflags' init semantics).
 """
 from __future__ import annotations
@@ -67,6 +67,18 @@ def set_flags(flags_map: dict):
 # off, the block computes norm(residual + y) op by op.
 define_flag("use_fused_layernorm", True,
             "fused residual-add + LayerNorm kernel in post-norm blocks")
+
+# nn/layers.py fused_conv_bn_relu — admitted conv -> batch_norm -> relu
+# triples go through the fused kernels (ops/cuda/conv_bn_relu.py); off,
+# the triple runs as conv2d, batch_norm and relu op by op.
+define_flag("use_fused_conv_bn", True,
+            "fused conv + batch_norm + relu kernels for admitted triples")
+
+# optimizer Momentum — the update (with L2 decay folded in) goes through the
+# fused in-place kernel (ops/cuda/optimizer_update.py); off, the same
+# expression op by op.
+define_flag("use_fused_optimizer", True,
+            "fused in-place momentum / weight-decay update kernel")
 
 # serving/batcher.py — the batch-axis bucket ladder: every assembled batch
 # is padded up to the smallest bucket that covers its rows.

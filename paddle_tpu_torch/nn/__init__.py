@@ -1,6 +1,18 @@
 """Layers of the port (``paddle_tpu.nn``)."""
 from . import functional  # noqa: F401
-from .layers import Dropout, Embedding, LayerList, LayerNorm, Linear  # noqa: F401
+from .layers import (  # noqa: F401
+    AdaptiveAvgPool2D,
+    BatchNorm2D,
+    Conv2D,
+    Dropout,
+    Embedding,
+    LayerList,
+    LayerNorm,
+    Linear,
+    MaxPool2D,
+    Sequential,
+    fused_conv_bn_relu,
+)
 from .transformer import (  # noqa: F401
     MultiHeadAttention,
     TransformerEncoder,

@@ -7,6 +7,16 @@ approximate=False)`` in ``paddle_tpu/ops/kernels.py``; the losses follow
 nowhere, ``reduction="mean"`` divides by the valid labels). Random ops take
 an explicit ``torch.Generator``, by default their device's
 (:mod:`paddle_tpu_torch.framework.random`).
+
+The vision ops follow ``paddle_tpu/ops/kernels.py:699-877``: ``conv2d``
+takes OIHW weights in both layouts and Paddle's padding forms (an int,
+``[ph, pw]``, ``[top, bottom, left, right]``, ``[[top, bottom], [left,
+right]]``, ``"SAME"``, ``"VALID"``); ``max_pool2d`` pads with -inf;
+``batch_norm`` computes its statistics in its own tensor ops and blends
+the running buffers as Paddle does, ``momentum * running + (1 - momentum)
+* batch`` with the biased batch variance (``torch.nn.functional.batch_norm``
+weights the other way and keeps the unbiased variance, so it never sees
+the buffers).
 """
 from __future__ import annotations
 
@@ -16,7 +26,8 @@ import torch.nn.functional as _F
 from ..framework import random as _random
 
 __all__ = ["linear", "gelu", "relu", "tanh", "softmax", "layer_norm", "embedding", "dropout",
-           "gather", "cross_entropy", "softmax_with_cross_entropy"]
+           "gather", "cross_entropy", "softmax_with_cross_entropy", "conv2d", "conv_padding",
+           "batch_norm", "max_pool2d", "adaptive_avg_pool2d", "flatten"]
 
 
 def linear(x, weight, bias=None):
@@ -97,3 +108,110 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean", axis=-1):
     if reduction != "mean":
         raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
     return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)
+
+
+def _pair(v):
+    return tuple(int(a) for a in v) if isinstance(v, (list, tuple)) else (int(v), int(v))
+
+
+def conv_padding(padding):
+    """``[(top, bottom), (left, right)]`` from Paddle's numeric padding
+    forms (``kernels.py:708-718``); strings are :func:`conv2d`'s."""
+    if isinstance(padding, (list, tuple)):
+        if len(padding) == 2 and all(isinstance(q, (list, tuple)) for q in padding):
+            return [tuple(int(a) for a in padding[0]), tuple(int(a) for a in padding[1])]
+        if len(padding) == 2:
+            return [(int(padding[0]),) * 2, (int(padding[1]),) * 2]
+        if len(padding) == 4:
+            return [(int(padding[0]), int(padding[1])), (int(padding[2]), int(padding[3]))]
+        raise ValueError(f"conv2d: padding {padding!r} has no Paddle form")
+    return [(int(padding),) * 2] * 2
+
+
+def _same_padding(hw, kernel, stride, dilation):
+    """XLA's ``"SAME"``: the output is ``ceil(in / stride)``, the total
+    padding split with the smaller half first."""
+    pads = []
+    for n, k, s, d in zip(hw, kernel, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """2-D convolution with an OIHW ``weight`` for NCHW or NHWC ``x``."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode not in ("SAME", "VALID"):
+            raise ValueError(f"conv2d: padding {padding!r} is neither SAME nor VALID")
+        pads = (_same_padding(x.shape[2:], weight.shape[2:], stride, dilation)
+                if mode == "SAME" else [(0, 0), (0, 0)])
+    else:
+        pads = conv_padding(padding)
+    (top, bottom), (left, right) = pads
+    if top == bottom and left == right:
+        y = _F.conv2d(x, weight, bias, stride, (top, left), dilation, groups)
+    else:
+        y = _F.conv2d(_F.pad(x, (left, right, top, bottom)), weight, bias, stride, 0, dilation,
+                      groups)
+    return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+
+
+def batch_norm(x, running_mean, running_var, weight, bias, training=False, momentum=0.9,
+               epsilon=1e-5, data_format="NCHW"):
+    """Batch normalization over every axis but the channel one. In
+    training the biased batch statistics normalize ``x`` and are blended
+    into the running buffers in place (no gradient flows into them)."""
+    caxis = 1 if data_format in ("NCHW", "NCL", "NCDHW") else x.dim() - 1
+    axes = [i for i in range(x.dim()) if i != caxis]
+    shape = [1] * x.dim()
+    shape[caxis] = -1
+    xf = x.float()
+    if training:
+        mean = xf.mean(axes)
+        var = (xf - mean.reshape(shape)).square().mean(axes)
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+            running_var.copy_(momentum * running_var + (1 - momentum) * var)
+    else:
+        mean, var = running_mean, running_var
+    y = ((xf - mean.reshape(shape)) * torch.rsqrt(var + epsilon).reshape(shape)
+         * weight.reshape(shape) + bias.reshape(shape))
+    return y.to(x.dtype)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCHW"):
+    """Max pooling whose padding is -inf; ``ceil_mode`` pads the far edge
+    as ``kernels.py:816-822`` does."""
+    ks = _pair(kernel_size)
+    st = _pair(stride) if stride is not None else ks
+    p = _pair(padding)
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    extra = [0, 0]
+    if ceil_mode:
+        for i, (dim, k, s, pp) in enumerate(zip(x.shape[2:], ks, st, p)):
+            out_ceil = -(-(dim + 2 * pp - k) // s) + 1
+            extra[i] = max(0, (out_ceil - 1) * s + k - (dim + 2 * pp))
+    if extra == [0, 0] and p[0] <= ks[0] // 2 and p[1] <= ks[1] // 2:
+        y = _F.max_pool2d(x, ks, st, p)  # torch's own padding never wins a max
+    else:
+        x = _F.pad(x, (p[1], p[1] + extra[1], p[0], p[0] + extra[0]), value=float("-inf"))
+        y = _F.max_pool2d(x, ks, st)
+    return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """Mean over the windows ``[floor(i·H/oh), ceil((i+1)·H/oh))``, the
+    windows ``kernels.py:851`` takes."""
+    if data_format == "NHWC":
+        return _F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), output_size).permute(0, 2, 3, 1)
+    return _F.adaptive_avg_pool2d(x, output_size)
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    return torch.flatten(x, start_axis, stop_axis)

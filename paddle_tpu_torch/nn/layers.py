@@ -2,7 +2,9 @@
 
 ``torch.nn.Module``s with Paddle's attribute names and parameter layouts,
 so a ``paddle_tpu`` state dict loads by name: ``Linear.weight`` is
-``[in_features, out_features]`` as in Paddle (not torch's ``[out, in]``).
+``[in_features, out_features]`` as in Paddle (not torch's ``[out, in]``),
+``Conv2D.weight`` is OIHW in both data formats, and ``BatchNorm2D`` keeps
+its running statistics in the buffers ``_mean`` and ``_variance``.
 Random init takes an explicit ``torch.Generator``.
 """
 from __future__ import annotations
@@ -12,9 +14,11 @@ import math
 import torch
 from torch import nn
 
+from ..flags import flag
 from . import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "LayerList"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "LayerList", "Conv2D", "BatchNorm2D",
+           "MaxPool2D", "AdaptiveAvgPool2D", "Sequential", "fused_conv_bn_relu"]
 
 
 def _param(shape, device=None, dtype=torch.float32):
@@ -98,3 +102,103 @@ class Dropout(nn.Module):
 
 
 LayerList = nn.ModuleList
+# sublayers named "0", "1", ... as the JAX package's Sequential names them
+Sequential = nn.Sequential
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+class Conv2D(nn.Module):
+    """OIHW weight, KaimingUniform (``sqrt(6 / fan_in)``) from ``generator``;
+    the bias, unless ``bias_attr`` is False, uniform in ``1/sqrt(fan_in)``."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 dilation=1, groups=1, bias_attr=None, data_format="NCHW", generator=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self._attrs = dict(stride=stride, padding=padding, dilation=dilation, groups=groups)
+        self.data_format = data_format
+        fan_in = in_channels // groups * kh * kw
+        self.weight = _param((out_channels, in_channels // groups, kh, kw))
+        bound = math.sqrt(6.0 / fan_in)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+        if bias_attr is not False:
+            self.bias = _param((out_channels,))
+            with torch.no_grad():
+                self.bias.uniform_(-1.0 / math.sqrt(fan_in), 1.0 / math.sqrt(fan_in),
+                                   generator=generator)
+        else:
+            self.bias = None
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, data_format=self.data_format, **self._attrs)
+
+
+class BatchNorm2D(nn.Module):
+    """Scale ones, shift zeros; running ``_mean`` zeros and ``_variance``
+    ones, blended as ``momentum * running + (1 - momentum) * batch``."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, data_format="NCHW"):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.data_format = "NCHW" if data_format in ("NCHW", "NCL", "NCDHW") else "NHWC"
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("_mean", torch.zeros(num_features))
+        self.register_buffer("_variance", torch.ones(num_features))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight, self.bias,
+                            training=self.training, momentum=self.momentum,
+                            epsilon=self.epsilon, data_format=self.data_format)
+
+
+class MaxPool2D(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCHW"):
+        super().__init__()
+        self._attrs = dict(kernel_size=kernel_size, stride=stride, padding=padding,
+                           ceil_mode=ceil_mode, data_format=data_format)
+
+    def forward(self, x):
+        return F.max_pool2d(x, **self._attrs)
+
+
+class AdaptiveAvgPool2D(nn.Module):
+    def __init__(self, output_size, data_format="NCHW"):
+        super().__init__()
+        self.output_size = output_size
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.adaptive_avg_pool2d(x, self.output_size, data_format=self.data_format)
+
+
+def fused_conv_bn_relu(conv, bn, x):
+    """``relu(bn(conv(x)))``, through the fused kernels
+    (``FLAGS_use_fused_conv_bn``, ``ops/cuda/conv_bn_relu.py``) when the
+    triple is admissible as ``paddle_tpu/nn/layers.py:205-210`` admits it:
+    a bias-free, ungrouped, undilated :class:`Conv2D` feeding a
+    :class:`BatchNorm2D` of the same layout. In training the running
+    statistics are blended into ``bn``'s buffers in place, as
+    :func:`~paddle_tpu_torch.nn.functional.batch_norm` does."""
+    attrs = conv._attrs
+    if (flag("use_fused_conv_bn") and conv.bias is None and attrs["groups"] == 1
+            and _pair(attrs["dilation"]) == (1, 1) and isinstance(bn, BatchNorm2D)
+            and bn.data_format == ("NCHW" if conv.data_format == "NCHW" else "NHWC")):
+        from ..ops.cuda import conv_bn_relu as cbr
+
+        y, new_mean, new_var = cbr.conv_bn_relu(
+            x, conv.weight, bn.weight, bn.bias, bn._mean, bn._variance,
+            stride=attrs["stride"], padding=attrs["padding"], epsilon=bn.epsilon,
+            momentum=bn.momentum, training=bn.training, data_format=conv.data_format)
+        if bn.training:
+            with torch.no_grad():
+                bn._mean.copy_(new_mean)
+                bn._variance.copy_(new_var)
+        return y
+    return F.relu(bn(conv(x)))

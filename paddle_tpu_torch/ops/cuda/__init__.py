@@ -6,7 +6,7 @@ and :func:`reset_launch_counts` sets them to 0.
 """
 from __future__ import annotations
 
-from . import flash_attention, layernorm_residual
+from . import conv_bn_relu, flash_attention, layernorm_residual, optimizer_update
 
 __all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launch_counts"]
 
@@ -17,6 +17,13 @@ KERNEL_COUNTERS = {
     "flash_attention_fwd": (flash_attention, "LAUNCHES"),
     "flash_attention_bwd_dq": (flash_attention, "DQ_LAUNCHES"),
     "flash_attention_bwd_dkv": (flash_attention, "DKV_LAUNCHES"),
+    "conv_bn_relu_mm_affine_relu": (conv_bn_relu, "MM_AFFINE_RELU_LAUNCHES"),
+    "conv_bn_relu_mm_stats": (conv_bn_relu, "MM_STATS_LAUNCHES"),
+    "conv_bn_relu_centered_sumsq": (conv_bn_relu, "CENTERED_SUMSQ_LAUNCHES"),
+    "conv_bn_relu_bn_relu": (conv_bn_relu, "BN_RELU_LAUNCHES"),
+    "conv_bn_relu_bn_bwd_partials": (conv_bn_relu, "BN_BWD_PARTIALS_LAUNCHES"),
+    "conv_bn_relu_bn_bwd_dco": (conv_bn_relu, "BN_BWD_DCO_LAUNCHES"),
+    "momentum_update": (optimizer_update, "LAUNCHES"),
 }
 
 

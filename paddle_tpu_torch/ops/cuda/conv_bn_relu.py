@@ -1,0 +1,449 @@
+"""Fused conv2d + batch_norm + relu: the CUDA kernels, their plain versions and the op.
+
+Replaces ``paddle_tpu/ops/pallas/conv_bn_relu.py``. The conv is lowered to
+a matrix product once, outside the kernels (:func:`_as_matmul`: a 1x1
+stride-1 conv is its channels-last input, any other goes through
+``F.unfold``, whose patch features are ordered (cin, kh, kw) as the JAX
+package's ``conv_general_dilated_patches``), and six kernels do the rest:
+
+- eval, ``csrc/conv_bn_relu_mm.cu``: :func:`mm_affine_relu` computes
+  ``relu((p2 @ w2) * scale + shift)`` with the pre-activation kept out of
+  device memory (``_mm_affine_relu``, ``:306``);
+- training forward: :func:`mm_stats` (same source) computes ``co = p2 @
+  w2`` and per-tile channel sums (``_mm_stats``, ``:337``);
+  :func:`centered_sumsq` the centred per-channel sum of squares, two-pass
+  (``_centered_sumsq``, ``:370``); :func:`bn_relu` the normalize + relu
+  (``_bn_relu``, ``:399``); the last two in ``csrc/conv_bn_relu_bn.cu``;
+- training backward, same source: :func:`bn_bwd_partials` the sums of
+  ``dy_relu`` and ``dy_relu * co`` with the relu gate recomputed from
+  ``co`` (``_bn_bwd_partials``, ``:463``) and :func:`bn_bwd_dco` the
+  folded ``d_co = scale * dy_relu - k3 * co - b0`` (``_bn_bwd_dco``,
+  ``:496``). The matrix gradients ``d_co @ w2ᵀ`` and ``p2ᵀ @ d_co`` are
+  ``torch.matmul``, as the JAX package leaves them to ``jnp.dot``, and
+  autograd through ``F.unfold`` folds ``dp2`` back into ``dx``.
+
+Every reduction writes per-block partials that the wrapper adds up with
+``torch.sum``: no atomics. Nothing is padded: the kernels mask ragged M,
+K and N themselves. The TPU dispatch skipped convs with ``N * Cout < 512``
+(``_supported``, ``:621``); here every structurally admitted conv takes the
+kernels, so the launch counts hold at every batch size.
+
+A tensor on the CPU takes the plain versions (the ``_*_plain``
+functions); a tensor on the card launches the kernels or raises. The
+kernels take float32 only (bf16 comes with AMP).
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+import torch.nn.functional as _F
+
+from . import _build
+
+__all__ = ["conv_bn_relu", "mm_affine_relu", "mm_stats", "centered_sumsq", "bn_relu",
+           "bn_bwd_partials", "bn_bwd_dco"]
+
+#: kernel launches since the last reset (counted where each kernel launches)
+MM_AFFINE_RELU_LAUNCHES = 0
+MM_STATS_LAUNCHES = 0
+CENTERED_SUMSQ_LAUNCHES = 0
+BN_RELU_LAUNCHES = 0
+BN_BWD_PARTIALS_LAUNCHES = 0
+BN_BWD_DCO_LAUNCHES = 0
+_count_lock = threading.Lock()
+
+# blocks the reductions aim at: a few per SM of the card's 132, so each
+# partial is small next to the pass and the card stays full
+_REDUCE_BLOCKS = 2048
+_REDUCE_COLS = 32  # channels a reduction block (csrc/conv_bn_relu_bn.cu kCols)
+
+
+def _count(attr):
+    with _count_lock:
+        globals()[attr] += 1
+
+
+# -- plain versions -----------------------------------------------------------
+
+
+def _pre_act(co, scale, shift):
+    """``co * scale + shift`` as two rounded ops, the kernels' rounding."""
+    return co * scale + shift
+
+
+def _mm_affine_relu_plain(p2, w2, scale, shift):
+    return torch.relu(_pre_act(torch.matmul(p2, w2), scale, shift))
+
+
+def _mm_stats_plain(p2, w2):
+    """``(co, partial)`` with the partial ``[1, N]``: one tile of every row."""
+    co = torch.matmul(p2, w2)
+    return co, co.sum(0, keepdim=True)
+
+
+def _centered_sumsq_plain(co, mean):
+    return (co - mean).square().sum(0, keepdim=True)
+
+
+def _bn_relu_plain(co, scale, shift):
+    return torch.relu(_pre_act(co, scale, shift))
+
+
+def _gated(co, dy, scale, shift):
+    return torch.where(_pre_act(co, scale, shift) > 0, dy, torch.zeros_like(dy))
+
+
+def _bn_bwd_partials_plain(co, dy, scale, shift):
+    dyr = _gated(co, dy, scale, shift)
+    return dyr.sum(0, keepdim=True), (dyr * co).sum(0, keepdim=True)
+
+
+def _bn_bwd_dco_plain(co, dy, scale, shift, k3, b0):
+    return scale * _gated(co, dy, scale, shift) - k3 * co - b0
+
+
+# -- kernel entries -----------------------------------------------------------
+
+
+_VP = ctypes.c_void_p
+_I64, _INT = ctypes.c_int64, ctypes.c_int
+
+
+def _bind(lib, symbol, argtypes):
+    fn = getattr(_build.library(lib), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_kernel(name, mats, vecs, n):
+    """False for CPU tensors (the plain version runs); on the card, checks
+    what the kernel takes and returns True; raises on any other device.
+    The ``[N]`` vectors are checked on every device."""
+    if any(tuple(v.shape) != (n,) for v in vecs):
+        raise ValueError(f"{name}: per-channel vectors must be [{n}], got "
+                         f"{[tuple(v.shape) for v in vecs]}")
+    first = mats[0]
+    if first.device.type == "cpu" and all(t.device.type == "cpu" for t in mats + vecs):
+        return False
+    if first.device.type != "cuda" or any(t.device != first.device for t in mats + vecs):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    if any(t.dtype != torch.float32 for t in mats + vecs):
+        raise TypeError(f"{name}: the kernel takes float32, got "
+                        f"{sorted({str(t.dtype) for t in mats + vecs})}")
+    if not all(t.is_contiguous() for t in mats):
+        raise ValueError(f"{name}: the [M, N] operands must be contiguous")
+    return True
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_mm(name, p2, w2):
+    if p2.dim() != 2 or w2.dim() != 2 or p2.shape[1] != w2.shape[0]:
+        raise ValueError(f"{name}: p2 {tuple(p2.shape)} @ w2 {tuple(w2.shape)} is no [M, K] @ "
+                         "[K, N] product")
+
+
+def _check_mn(name, co, *others):
+    if co.dim() != 2 or any(t.shape != co.shape for t in others):
+        raise ValueError(f"{name}: operands {[tuple(t.shape) for t in (co,) + others]} must be "
+                         "one [M, N]")
+
+
+def mm_affine_relu(p2, w2, scale, shift):
+    """``relu((p2 @ w2) * scale + shift)`` for ``p2 [M, K]``, ``w2 [K, N]``
+    and ``[N]`` vectors: the kernel on the card, the plain version on the
+    CPU."""
+    _check_mm("mm_affine_relu", p2, w2)
+    m, n = p2.shape[0], w2.shape[1]
+    scale, shift = scale.contiguous(), shift.contiguous()
+    if not _on_kernel("mm_affine_relu", [p2, w2], [scale, shift], n):
+        return _mm_affine_relu_plain(p2, w2, scale, shift)
+    y = torch.empty(m, n, device=p2.device, dtype=torch.float32)
+    if m == 0 or n == 0:  # nothing is launched or counted
+        return y
+    with torch.cuda.device(p2.device):
+        err = _bind("conv_bn_relu_mm", "ptt_conv_mm_affine_relu",
+                    [_VP] * 5 + [_I64, _INT, _INT, _VP])(
+            p2.data_ptr(), w2.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(), m,
+            p2.shape[1], n, _stream(p2))
+    _build.check(err, "mm_affine_relu")
+    _count("MM_AFFINE_RELU_LAUNCHES")
+    return y
+
+
+def mm_stats(p2, w2):
+    """``(co, partial)``: ``co = p2 @ w2`` ``[M, N]`` and ``partial [tiles,
+    N]`` whose column sums are ``co``'s (one row per 128-row tile on the
+    card, one row on the CPU)."""
+    _check_mm("mm_stats", p2, w2)
+    m, n = p2.shape[0], w2.shape[1]
+    if not _on_kernel("mm_stats", [p2, w2], [], n):
+        return _mm_stats_plain(p2, w2)
+    co = torch.empty(m, n, device=p2.device, dtype=torch.float32)
+    if m == 0 or n == 0:  # nothing is launched or counted
+        return co, co.new_zeros(1, n)
+    lib = _build.library("conv_bn_relu_mm")
+    tiles = -(-m // lib.ptt_conv_mm_tile_rows())
+    partial = torch.empty(tiles, n, device=p2.device, dtype=torch.float32)
+    with torch.cuda.device(p2.device):
+        err = _bind("conv_bn_relu_mm", "ptt_conv_mm_stats", [_VP] * 4 + [_I64, _INT, _INT, _VP])(
+            p2.data_ptr(), w2.data_ptr(), co.data_ptr(), partial.data_ptr(), m, p2.shape[1], n,
+            _stream(p2))
+    _build.check(err, "mm_stats")
+    _count("MM_STATS_LAUNCHES")
+    return co, partial
+
+
+def _reduce_rows(m, n):
+    """Rows a reduction block walks (a multiple of its 8 warps), aiming at
+    about ``_REDUCE_BLOCKS`` blocks in all."""
+    col_tiles = -(-n // _REDUCE_COLS)
+    want = max(1, _REDUCE_BLOCKS // col_tiles)
+    per = -(-m // want)
+    return max(8, -(-per // 8) * 8)
+
+
+def centered_sumsq(co, mean):
+    """``partial [blocks, N]`` whose column sums are ``sum((co - mean)^2)``
+    per channel of ``co [M, N]``: the centred second pass of the batch
+    variance."""
+    _check_mn("centered_sumsq", co)
+    m, n = co.shape
+    mean = mean.contiguous()
+    if not _on_kernel("centered_sumsq", [co], [mean], n):
+        return _centered_sumsq_plain(co, mean)
+    if m == 0 or n == 0:  # nothing is launched or counted
+        return co.new_zeros(1, n)
+    per = _reduce_rows(m, n)
+    partial = torch.empty(-(-m // per), n, device=co.device, dtype=torch.float32)
+    with torch.cuda.device(co.device):
+        err = _bind("conv_bn_relu_bn", "ptt_bn_centered_sumsq", [_VP, _I64, _INT, _I64, _VP, _VP,
+                                                                 _VP])(
+            co.data_ptr(), m, n, per, mean.data_ptr(), partial.data_ptr(), _stream(co))
+    _build.check(err, "centered_sumsq")
+    _count("CENTERED_SUMSQ_LAUNCHES")
+    return partial
+
+
+def bn_relu(co, scale, shift):
+    """``relu(co * scale + shift)`` for ``co [M, N]``."""
+    _check_mn("bn_relu", co)
+    m, n = co.shape
+    scale, shift = scale.contiguous(), shift.contiguous()
+    if not _on_kernel("bn_relu", [co], [scale, shift], n):
+        return _bn_relu_plain(co, scale, shift)
+    y = torch.empty_like(co)
+    if m == 0 or n == 0:  # nothing is launched or counted
+        return y
+    with torch.cuda.device(co.device):
+        err = _bind("conv_bn_relu_bn", "ptt_bn_relu", [_VP, _I64, _INT, _VP, _VP, _VP, _VP])(
+            co.data_ptr(), m, n, scale.data_ptr(), shift.data_ptr(), y.data_ptr(), _stream(co))
+    _build.check(err, "bn_relu")
+    _count("BN_RELU_LAUNCHES")
+    return y
+
+
+def bn_bwd_partials(co, dy, scale, shift):
+    """``(partial_dy, partial_dyco)``, each ``[blocks, N]``, whose column
+    sums are ``sum(dy_relu)`` and ``sum(dy_relu * co)``, with ``dy_relu =
+    dy`` where ``co * scale + shift > 0`` and 0 elsewhere."""
+    _check_mn("bn_bwd_partials", co, dy)
+    m, n = co.shape
+    scale, shift = scale.contiguous(), shift.contiguous()
+    if not _on_kernel("bn_bwd_partials", [co, dy], [scale, shift], n):
+        return _bn_bwd_partials_plain(co, dy, scale, shift)
+    if m == 0 or n == 0:  # nothing is launched or counted
+        return co.new_zeros(1, n), co.new_zeros(1, n)
+    per = _reduce_rows(m, n)
+    pdy = torch.empty(-(-m // per), n, device=co.device, dtype=torch.float32)
+    pdyc = torch.empty_like(pdy)
+    with torch.cuda.device(co.device):
+        err = _bind("conv_bn_relu_bn", "ptt_bn_bwd_partials", [_VP, _VP, _I64, _INT, _I64] +
+                    [_VP] * 5)(
+            co.data_ptr(), dy.data_ptr(), m, n, per, scale.data_ptr(), shift.data_ptr(),
+            pdy.data_ptr(), pdyc.data_ptr(), _stream(co))
+    _build.check(err, "bn_bwd_partials")
+    _count("BN_BWD_PARTIALS_LAUNCHES")
+    return pdy, pdyc
+
+
+def bn_bwd_dco(co, dy, scale, shift, k3, b0):
+    """``scale * dy_relu - k3 * co - b0`` for ``co, dy [M, N]``."""
+    _check_mn("bn_bwd_dco", co, dy)
+    m, n = co.shape
+    vecs = [v.contiguous() for v in (scale, shift, k3, b0)]
+    if not _on_kernel("bn_bwd_dco", [co, dy], vecs, n):
+        return _bn_bwd_dco_plain(co, dy, *vecs)
+    dco = torch.empty_like(co)
+    if m == 0 or n == 0:  # nothing is launched or counted
+        return dco
+    with torch.cuda.device(co.device):
+        err = _bind("conv_bn_relu_bn", "ptt_bn_bwd_dco", [_VP, _VP, _I64, _INT] + [_VP] * 6)(
+            co.data_ptr(), dy.data_ptr(), m, n, *(v.data_ptr() for v in vecs), dco.data_ptr(),
+            _stream(co))
+    _build.check(err, "bn_bwd_dco")
+    _count("BN_BWD_DCO_LAUNCHES")
+    return dco
+
+
+# -- autograd -------------------------------------------------------------------
+
+
+class _TrainCore(torch.autograd.Function):
+    """``(y2, batch_mean, batch_var)`` of ``relu(batch_norm(p2 @ w2))`` with
+    batch statistics; the statistics feed only the detached running-stat
+    blend, so they carry no gradient (``_train_core``, ``:510-565``). The
+    module's entries are looked up at call time."""
+
+    @staticmethod
+    def forward(ctx, p2, w2, gamma, beta, eps):
+        m = p2.shape[0]
+        co, ps = mm_stats(p2, w2)
+        mean = ps.sum(0) / m
+        var = centered_sumsq(co, mean).sum(0) / m
+        rstd = torch.rsqrt(var + eps)
+        scale = gamma * rstd
+        shift = beta - mean * scale
+        y2 = bn_relu(co, scale, shift)
+        ctx.save_for_backward(p2, w2, co, mean, rstd, scale, shift)
+        ctx.mark_non_differentiable(mean, var)
+        return y2, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        p2, w2, co, mean, rstd, scale, shift = ctx.saved_tensors
+        m = co.shape[0]
+        dy = dy.contiguous()
+        pdy, pdyc = bn_bwd_partials(co, dy, scale, shift)
+        sum_dy, sum_dyc = pdy.sum(0), pdyc.sum(0)
+        dbeta = sum_dy
+        dgamma = (sum_dyc - mean * sum_dy) * rstd
+        k3 = scale * (dgamma / m) * rstd
+        b0 = scale * (sum_dy / m) - k3 * mean
+        dco = bn_bwd_dco(co, dy, scale, shift, k3, b0)
+        dp2 = torch.matmul(dco, w2.t()) if ctx.needs_input_grad[0] else None
+        dw2 = torch.matmul(p2.t(), dco) if ctx.needs_input_grad[1] else None
+        return dp2, dw2, dgamma, dbeta, None
+
+
+def _eval_expr(p2, w2, gamma, beta, mean, var, eps):
+    """The eval-mode function as plain torch ops (``_eval_expr``, ``:576``):
+    the eval backward differentiates this recompute."""
+    co = torch.matmul(p2, w2)
+    return torch.relu((co - mean) * torch.rsqrt(var + eps) * gamma + beta)
+
+
+class _EvalCore(torch.autograd.Function):
+    """``relu(batch_norm(p2 @ w2))`` with running statistics through
+    :func:`mm_affine_relu`; the backward is off the training path and
+    differentiates the plain recompute (``_eval_core_bwd``, ``:590``)."""
+
+    @staticmethod
+    def forward(ctx, p2, w2, gamma, beta, mean, var, eps):
+        rstd = torch.rsqrt(var + eps)
+        scale = gamma * rstd
+        y2 = mm_affine_relu(p2, w2, scale, beta - mean * scale)
+        ctx.save_for_backward(p2, w2, gamma, beta, mean, var)
+        ctx.eps = eps
+        return y2
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y2 = _eval_expr(*ins, ctx.eps)
+            grads = torch.autograd.grad(y2, ins, g)
+        return (*grads, None)
+
+
+# -- lowering and the op ------------------------------------------------------------
+
+
+def _pair(v):
+    return tuple(int(a) for a in v) if isinstance(v, (list, tuple)) else (int(v), int(v))
+
+
+def _norm_padding(padding):
+    """``[(top, bottom), (left, right)]``, or None for the string forms,
+    which take the unfused path (``_norm_padding``, ``:155``)."""
+    from ...nn import functional as F
+
+    return None if isinstance(padding, str) else F.conv_padding(padding)
+
+
+def _as_matmul(x, w, stride, pad, data_format):
+    """Lower the conv to ``p2 [M, K] @ w2 [K, Cout]`` (``_as_matmul``,
+    ``:177``). Returns ``(p2, w2, (n, oh, ow))``; the patch features are
+    ordered (cin, kh, kw), the OIHW weight's trailing axes."""
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    n, cin, h, wd = x.shape
+    cout, _, kh, kw = w.shape
+    sh, sw = _pair(stride)
+    (top, bottom), (left, right) = pad
+    oh = (h + top + bottom - kh) // sh + 1
+    ow = (wd + left + right - kw) // sw + 1
+    if (kh, kw) == (1, 1) and (sh, sw) == (1, 1) and pad == [(0, 0), (0, 0)]:
+        # a pointwise conv's "patches" are its input, channels last (a view
+        # when x is the channels-last output of the fused conv before it)
+        p2 = x.permute(0, 2, 3, 1).reshape(n * h * wd, cin)
+    else:
+        if top != bottom or left != right:
+            x = _F.pad(x, (left, right, top, bottom))
+            top = left = 0
+        p = _F.unfold(x, (kh, kw), padding=(top, left), stride=(sh, sw))  # [N, K, OH*OW]
+        p2 = p.transpose(1, 2).reshape(n * oh * ow, cin * kh * kw)
+    w2 = w.reshape(cout, cin * kh * kw).t()
+    return p2.contiguous(), w2.contiguous(), (n, oh, ow)
+
+
+def _supported(x, w, padding, data_format):
+    return (x.dim() == 4 and w.dim() == 4 and x.dtype == w.dtype
+            and _norm_padding(padding) is not None and data_format in ("NCHW", "NHWC"))
+
+
+def _reference(x, w, gamma, beta, mean, var, *, stride, padding, training, momentum, eps,
+               data_format):
+    """The unfused sequence conv2d -> batch_norm -> relu, for the forms the
+    fused path does not admit; the running statistics come back new."""
+    from ...nn import functional as F
+
+    new_mean, new_var = mean.clone(), var.clone()
+    co = F.conv2d(x, w, stride=stride, padding=padding, data_format=data_format)
+    y = F.batch_norm(co, new_mean, new_var, gamma, beta, training=training, momentum=momentum,
+                     epsilon=eps, data_format=data_format)
+    return torch.relu(y), new_mean, new_var
+
+
+def conv_bn_relu(x, weight, gamma, beta, running_mean, running_var, *, stride=1, padding=0,
+                 epsilon=1e-5, momentum=0.9, training=False, data_format="NCHW"):
+    """Fused ``relu(batch_norm(conv2d(x, weight)))`` for a bias-free,
+    ungrouped, undilated conv with an OIHW ``weight``.
+
+    Returns ``(y, new_running_mean, new_running_var)``: in training the
+    batch statistics (biased variance) blended as ``momentum * running +
+    (1 - momentum) * batch``, in eval the running statistics unchanged.
+    Differentiable in ``x``, ``weight``, ``gamma`` and ``beta``.
+    """
+    kw = dict(stride=stride, padding=padding, training=bool(training), momentum=float(momentum),
+              eps=float(epsilon), data_format=data_format)
+    if not _supported(x, weight, padding, data_format):
+        return _reference(x, weight, gamma, beta, running_mean, running_var, **kw)
+    p2, w2, (n, oh, ow) = _as_matmul(x, weight, stride, _norm_padding(padding), data_format)
+    gf, bf = gamma.float(), beta.float()
+    if training:
+        y2, bmean, bvar = _TrainCore.apply(p2, w2, gf, bf, float(epsilon))
+        new_mean = momentum * running_mean + (1 - momentum) * bmean.to(running_mean.dtype)
+        new_var = momentum * running_var + (1 - momentum) * bvar.to(running_var.dtype)
+    else:
+        y2 = _EvalCore.apply(p2, w2, gf, bf, running_mean.float(), running_var.float(),
+                             float(epsilon))
+        new_mean, new_var = running_mean, running_var
+    y = y2.reshape(n, oh, ow, weight.shape[0])
+    return (y.permute(0, 3, 1, 2) if data_format == "NCHW" else y), new_mean, new_var

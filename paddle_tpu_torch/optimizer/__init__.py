@@ -1,13 +1,18 @@
-"""Optimizers (``paddle_tpu/optimizer/__init__.py``): the base class, Adam and AdamW.
+"""Optimizers (``paddle_tpu/optimizer/__init__.py``): the base class, Momentum, Adam and AdamW.
 
 Each update follows the JAX package's expression order, not
 ``torch.optim``'s, so the two packages agree to rounding on the same
 gradients: Adam's ``param - lr * mhat / (sqrt(vhat) + eps)`` and AdamW's
 decoupled ``- lr * coeff * param_old`` after it (``:289-320``).
-Accumulators are per-parameter tensors on the parameter's device, named
-and indexed as the JAX package names them in ``state_dict``
-(``moment1_{i}``, ``moment2_{i}``, ``global_step``), so optimizer state
-carries across (:func:`paddle_tpu_torch.convert.adamw_state_from_numpy`).
+Momentum (``:230-277``) updates through the fused in-place kernel
+(``ops/cuda/optimizer_update.py``, ``FLAGS_use_fused_optimizer``), which
+folds a plain ``L2Decay`` in itself, so ``step`` then skips the separate
+decay pass (``:157-173``). Accumulators are per-parameter tensors on the
+parameter's device, named and indexed as the JAX package names them in
+``state_dict`` (``moment1_{i}``, ``moment2_{i}``, ``velocity_{i}``,
+``global_step``), so optimizer state carries across
+(:func:`paddle_tpu_torch.convert.adamw_state_from_numpy`,
+:func:`~paddle_tpu_torch.convert.momentum_state_from_numpy`).
 Parameters whose ``grad`` is None, or that do not require grad, are
 skipped, as the JAX package skips parameters without a gradient. The
 other optimizers, gradient clipping and the concrete LR schedules are not
@@ -18,10 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..flags import flag
+from ..ops.cuda import optimizer_update as _update
 from . import lr as lr  # noqa: F401
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "L2Decay", "lr"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW", "L2Decay", "lr"]
 
 
 class L2Decay:
@@ -80,22 +87,32 @@ class Optimizer:
         for p in self._parameter_list:
             p.grad = None
 
+    def _fused_decay_coeff(self):
+        """The L2-decay coefficient the update kernel folds in itself; None
+        when ``step`` applies the decay to the gradient first."""
+        return None
+
     @torch.no_grad()
     def step(self):
+        fused_wd = self._fused_decay_coeff()
         params_grads = []
         for i, p in enumerate(self._parameter_list):
             if p.grad is None or not p.requires_grad:
                 continue
             g = p.grad.to(p.dtype)
-            if self._weight_decay is not None and not isinstance(self, AdamW):
+            if self._weight_decay is not None and not isinstance(self, AdamW) and fused_wd is None:
                 g = self._weight_decay(p, g)
             params_grads.append((i, p, g))
         lr_value = self.get_lr()
         self._global_step += 1
         for i, p, g in params_grads:
-            p.copy_(self._apply_one(i, p, g, lr_value))
+            new_param = self._apply_one(i, p, g, lr_value)
+            if new_param is not p:  # an update in place returns the parameter itself
+                p.copy_(new_param)
 
     def _apply_one(self, index, param, grad, lr):
+        """The updated parameter: a new tensor, or ``param`` itself when the
+        update wrote it in place."""
         raise NotImplementedError
 
     def state_dict(self):
@@ -129,6 +146,39 @@ class Optimizer:
                 self._accumulators[name] = accs
         if "LR_Scheduler" in state and isinstance(self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
+
+
+class Momentum(Optimizer):
+    """operators/optimizers/momentum_op.cc (+ ``use_nesterov``): velocity
+    ``v = mu * v + g``, then ``param - lr * v`` (Nesterov: ``param - lr *
+    (g + mu * v)``), through the fused in-place kernel unless
+    ``FLAGS_use_fused_optimizer`` is off."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None, use_nesterov=False,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _fused_decay_coeff(self):
+        # only a plain, non-zero L2Decay folds into the kernel
+        if (not flag("use_fused_optimizer") or type(self._weight_decay) is not L2Decay
+                or not self._weight_decay.coeff):
+            return None
+        return self._weight_decay.coeff
+
+    def _apply_one(self, index, param, grad, lr):
+        vel = self._ensure_accumulator("velocity")
+        if flag("use_fused_optimizer"):
+            _update.fused_momentum_update(param, grad, vel[index], lr, momentum=self._momentum,
+                                          weight_decay=self._fused_decay_coeff() or 0.0,
+                                          use_nesterov=self._use_nesterov)
+            return param
+        v = self._momentum * vel[index] + grad
+        vel[index] = v
+        if self._use_nesterov:
+            return param - lr * (grad + self._momentum * v)
+        return param - lr * v
 
 
 class Adam(Optimizer):
