@@ -42,13 +42,29 @@ Phases, each fatal on failure:
    each forward launched 33 fused eval kernels, with a TF32 control;
 9. train ResNet-50 with Momentum through ``framework.jit.train_step``: one
    step at batch 2 against the CPU's plain path (loss, gradients, running
-   statistics; TF32 control), then 10 steps at bench.py's shape (batch
+   statistics; TF32 control), then 4 steps at bench.py's shape (batch
    128, lr 0.1, momentum 0.9, one fixed batch) whose losses must be finite
    and fall below the first, each launching exactly 33 of each training
-   conv kernel and 161 momentum updates; step time, images/s, peak memory
-   and a profiled step;
-10. print the card line, then one JSON line with every kernel's numbers;
-11. print ``{"ok": true, "device": {...}}`` as the last line.
+   conv kernel and 161 momentum updates;
+10. hold the int8 matmul kernel against a float64 product of the same int8
+    values (bit-equal) at the int8 serving path's shapes and two ragged
+    ones, and the max-pool backward kernel against its plain version
+    (bit-equal) at ResNet-50's stem, on a relu'd input full of ties and on
+    distinct values; time each with its bound and a library call;
+11. build the 12-layer 768/3072 feed-forward program (BERT-base's ``mul``s)
+    as a static program from a seed, run it in f32, calibrate it, rewrite it
+    to int8 and save it; serve the saved directory through
+    ``create_predictor(Config(dir))`` -> ``InferenceServer`` at buckets 8, 64
+    and 512; check every answer against the port's plain path on the CPU
+    from the same directory (with a control, one scale off by 1%, that the
+    limit must catch) and against the f32 program within the documented int8
+    envelope, and that each forward launched 25 int8 matmul kernels;
+12. train ResNet-50 again with ``FLAGS_use_pallas_pool_bwd`` on, the main
+    run: the parity step, then 10 steps that also launch the max-pool
+    backward kernel once each; step time and images/s beside the flag-off
+    run's, peak memory and a profiled step;
+13. print the card line, then one JSON line with every kernel's numbers;
+14. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero with no result when CUDA is absent or the package is not
 beside this script.
@@ -58,6 +74,7 @@ from __future__ import annotations
 import copy
 import json
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -69,6 +86,7 @@ import numpy as np
 # FP32 outside the tensor cores, which is what the kernels use.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12  # dense int8 on the tensor cores
 
 LN_ROWS, LN_H = 8 * 512, 768
 FLASH_B, FLASH_H, FLASH_D = 8, 12, 64
@@ -113,9 +131,9 @@ def time_ms(fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak=FP32_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -547,7 +565,7 @@ def make_requests(cfg, rng):
 
 _KERNEL_KINDS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "layernorm_residual_fwd", "layernorm_residual_bwd", "conv_mm", "bn_reduce",
-                 "bn_elementwise", "momentum")
+                 "bn_elementwise", "momentum", "int8_mm", "max_pool_bwd")
 
 
 def _kernel_kind(name):
@@ -1448,10 +1466,12 @@ def _fc_grad_error(model, ref_model):
     return max(float((a - b).abs().max()) for a, b in zip(g, r)) / s
 
 
-def rn_train_parity():
+def rn_train_parity(pool_kernel=False):
     """One Momentum step at batch 2 x 224 x 224 on the card and on the CPU
     (the plain path) from the same weights, then the same step with TF32
-    matmuls and convolutions, which the limits must catch."""
+    matmuls and convolutions, which the limits must catch. ``pool_kernel``
+    says whether ``FLAGS_use_pallas_pool_bwd`` is on (the caller sets it):
+    then the step also launches the max-pool backward kernel once."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1468,7 +1488,7 @@ def rn_train_parity():
     reset_launch_counts()
     loss = float(_rn_step_of(model)(*batch)["loss"])
     counts = launch_counts()
-    want = _rn_step_launches(1)
+    want = _rn_step_launches(1, pool_kernel)
     if counts != want:
         raise AssertionError(f"ResNet parity step launched {counts}; want {want}")
     readings = {"loss_err": abs(loss - cpu_loss), "grad_rel_err": _grad_errors(model, cpu_model),
@@ -1505,47 +1525,419 @@ def rn_train_parity():
     return readings, tf32
 
 
-def _rn_step_launches(steps):
+def _rn_step_launches(steps, pool_kernel=False):
     from paddle_tpu_torch.ops.cuda import KERNEL_COUNTERS
 
     want = {f"conv_bn_relu_{k}": RN_TRIPLES * steps for k in
             ("mm_stats", "centered_sumsq", "bn_relu", "bn_bwd_partials", "bn_bwd_dco")}
     want["momentum_update"] = RN_PARAMS * steps
+    want["max_pool2d_backward"] = steps if pool_kernel else 0  # the stem's pool
     return {name: want.get(name, 0) for name in KERNEL_COUNTERS}
 
 
-def train_resnet():
-    """ResNet-50 with Momentum: the parity step, then ``RN_STEPS`` timed
-    steps at batch 128 on one fixed batch. Returns kernel launches per name
-    over the timed steps."""
+RN_STEPS_FLAG_OFF = 4  # the run without the pool kernel, kept beside the main one
+
+
+def _rn_timed_run(steps, pool_kernel):
+    """``steps`` timed Momentum steps at batch 128 on one fixed batch from
+    the same seeds, with the launch counts the flag's setting must give.
+    Returns (step, batch, losses, ms of each step, host-clock ms a step,
+    launches, peak GiB)."""
     import torch
 
-    rn_train_parity()
-    torch.cuda.empty_cache()
     model = _resnet50(seed=1)
     step = _rn_step_of(model)
     rng = np.random.RandomState(15)
     batch = [torch.from_numpy(rng.randn(RN_B, 3, RN_HW, RN_HW).astype(np.float32)).cuda(),
              torch.from_numpy(rng.randint(0, RN_CLASSES, (RN_B,)).astype(np.int64)).cuda()]
-    losses, step_ms, wall_ms, counts, peak = _timed_steps(step, batch, RN_STEPS)
-    want = _rn_step_launches(RN_STEPS)
+    losses, step_ms, wall_ms, counts, peak = _timed_steps(step, batch, steps)
+    want = _rn_step_launches(steps, pool_kernel)
     if counts != want:
-        raise AssertionError(f"ResNet {RN_STEPS} steps launched {counts}; want {want}")
+        raise AssertionError(f"ResNet {steps} steps launched {counts}; want {want}")
     # at lr 0.1 with no warm-up the loss on one fixed batch falls for two
     # steps and then swings (7.54 -> 5.43 -> 8.54 -> 5.63 in one run, -> 8.12
     # in another: atomics in cuDNN's and the loss's backward make runs
     # differ), so the check asks that the steps lowered it below the first
-    # loss, not that the tenth is the lowest
+    # loss, not that the last is the lowest
     if not all(np.isfinite(losses)) or not min(losses[1:]) < losses[0]:
         raise AssertionError(f"ResNet losses not finite or not falling: {losses}")
-    mean_ms = float(np.mean(step_ms))
-    log(f"ResNet-50 {RN_STEPS} steps at batch {RN_B} x {RN_HW}^2, Momentum lr {RN_LR}: losses "
-        f"{', '.join(f'{x:.6f}' for x in losses)}")
-    log(f"ResNet-50 step {mean_ms:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}; host "
-        f"clock {wall_ms:.2f}), {RN_B / mean_ms * 1e3:.1f} images/s; peak device memory "
-        f"{peak:.1f} GiB; launches {counts}: {RN_TRIPLES} of each training conv kernel and "
-        f"{RN_PARAMS} momentum updates a step")
-    _profile_step(step, batch, "ResNet train step profiled")
+    return step, batch, losses, step_ms, wall_ms, counts, peak
+
+
+def train_resnet():
+    """ResNet-50 with Momentum. With ``FLAGS_use_pallas_pool_bwd`` off (the
+    default): the parity step and ``RN_STEPS_FLAG_OFF`` timed steps at batch
+    128. Then with the flag on, the main run: the parity step again and
+    ``RN_STEPS`` timed steps, each launching the max-pool backward kernel
+    once. Returns kernel launches per name over the flag-on timed steps."""
+    import torch
+
+    from paddle_tpu_torch.flags import set_flags
+
+    rn_train_parity()
+    torch.cuda.empty_cache()
+    _, _, off_losses, off_ms, _, _, _ = _rn_timed_run(RN_STEPS_FLAG_OFF, pool_kernel=False)
+    log(f"ResNet-50 flag off, {RN_STEPS_FLAG_OFF} steps: losses "
+        f"{', '.join(f'{x:.6f}' for x in off_losses)}")
+    torch.cuda.empty_cache()
+    set_flags({"use_pallas_pool_bwd": True})
+    try:
+        rn_train_parity(pool_kernel=True)
+        torch.cuda.empty_cache()
+        step, batch, losses, step_ms, wall_ms, counts, peak = _rn_timed_run(RN_STEPS,
+                                                                           pool_kernel=True)
+        mean_ms, off_mean = float(np.mean(step_ms)), float(np.mean(off_ms))
+        log(f"ResNet-50 {RN_STEPS} steps at batch {RN_B} x {RN_HW}^2, Momentum lr {RN_LR}, "
+            f"max-pool backward kernel on: losses {', '.join(f'{x:.6f}' for x in losses)}")
+        log(f"ResNet-50 step {mean_ms:.2f} ms with the pool kernel (min {min(step_ms):.2f}, max "
+            f"{max(step_ms):.2f}; host clock {wall_ms:.2f}), {RN_B / mean_ms * 1e3:.1f} images/s; "
+            f"with the flag off {off_mean:.2f} ms (min {min(off_ms):.2f}, max {max(off_ms):.2f} "
+            f"over {RN_STEPS_FLAG_OFF} steps), {RN_B / off_mean * 1e3:.1f} images/s; peak device "
+            f"memory {peak:.1f} GiB; launches {counts}: {RN_TRIPLES} of each training conv kernel, "
+            f"{RN_PARAMS} momentum updates and 1 max-pool backward a step")
+        _profile_step(step, batch, "ResNet train step profiled (pool kernel on)")
+    finally:
+        set_flags({"use_pallas_pool_bwd": False})
+    return counts
+
+
+# -- the int8 serving path and the pool backward --------------------------------
+
+# the served program: the part of BERT-base the int8 rewrite computes in int8
+# (a ``mul`` by a weight), at bert_base_config()'s widths and depth
+Q_HIDDEN, Q_FFN, Q_LAYERS, Q_CLASSES = 768, 3072, 12, 2
+Q_MULS = 2 * Q_LAYERS + 1
+Q_BUCKETS = (8, 64, 512)
+Q_CALIB_BATCHES, Q_CALIB_ROWS = 4, 64
+# the stem's pool at the training batch
+POOL_SHAPE, POOL_GEOM = (RN_B, 64, 112, 112), ((3, 3), (2, 2), (1, 1))
+
+
+def check_int8_matmul(m, k, n, label, timed=True):
+    """The int8 kernel at [m, k] @ [k, n] over the full -128..127 range, bit
+    for bit against the float64 product of the same values cast back (the
+    card has no integer matmul in PyTorch; exact below 2**53)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import int8_matmul as im
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    # enough operand sets to exceed the 50 MB L2: on the serving path every
+    # weight is read once a forward and comes from device memory
+    count = max(2, min(64, -(-60 * 2**20 // (m * k + k * n)))) if timed else 1
+    sets = [(torch.randint(-128, 128, (m, k), generator=g, device="cuda", dtype=torch.int8),
+             torch.randint(-128, 128, (k, n), generator=g, device="cuda", dtype=torch.int8))
+            for _ in range(count)]
+    x, w = sets[0]
+    out = im.int8_matmul(x, w)
+    ref = im._plain_int8_matmul(x, w)
+    torch.cuda.synchronize()
+    err = int((out.long() - ref.long()).abs().max())
+    if out.dtype != torch.int32 or err != 0:
+        raise AssertionError(f"int8_matmul {label} [{m}, {k}] @ [{k}, {n}]: differs from the "
+                             f"float64 product by {err}")
+    if min(int(x.min()), int(w.min())) != -128 or max(int(x.max()), int(w.max())) != 127:
+        raise AssertionError("the int8 operands do not span -128..127")
+    t_b, by = bound(m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS_PER_S)
+    entry = {"name": "int8_matmul", "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+             "replaces": "paddle_tpu/ops/pallas/int8_matmul.py:154", "shape": [m, k, n],
+             "label": label, "dtype": "int8", "max_abs_err": float(err),
+             "tolerance": "bit-equal to the float64 product", "bound_ms": t_b, "bound_by": by}
+    if not timed:
+        log(f"int8_matmul {label} [{m}, {k}] @ [{k}, {n}]: bit-equal")
+        return entry
+    iters = 100
+    ms = time_ms(im.int8_matmul, sets, iters)
+    plain_ms = time_ms(im._plain_int8_matmul, sets, 20)
+    try:  # the library call has shape limits of its own (M > 16, K and N multiples of 8)
+        lib_out = torch._int_mm(x, w)
+    except RuntimeError as e:
+        lib_ms, lib_note = None, f"torch._int_mm refuses the shape: {str(e).splitlines()[0][:90]}"
+    else:
+        if not torch.equal(lib_out, ref):
+            raise AssertionError(f"torch._int_mm {label} differs from the float64 product")
+        lib_ms, lib_note = time_ms(torch._int_mm, sets, iters), "torch._int_mm"
+    log(f"int8_matmul {label} [{m}, {k}] @ [{k}, {n}]: bit-equal; kernel {ms:.4f} ms "
+        f"({2 * m * k * n / ms / 1e9:.1f} TOP/s), plain (float64) {plain_ms:.4f} ms, library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} ({lib_note}), bound {t_b:.4f} ms "
+        f"({by})")
+    entry.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_note)
+    return entry
+
+
+def check_pool_backward(kind):
+    """The max-pool backward kernel at the stem's [128, 64, 112, 112], 3x3/2/1
+    against its plain version, bit for bit: on a relu output (zeros tie all
+    over) and on values that are distinct within every plane. torch's own
+    backward is the library yardstick; it keeps the first maximum too, and
+    adds an element's taps in another order, so it is held to 4 ulps of the
+    largest gradient entry."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.cuda import pool_backward as pb
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    ks, st, pad = POOL_GEOM
+    n, c, h, w = POOL_SHAPE
+    if kind == "relu":
+        x = torch.relu(torch.randn(POOL_SHAPE, generator=g, device="cuda"))
+    else:  # a permutation of 0 .. H*W-1 in every plane
+        x = torch.rand(n * c, h * w, generator=g, device="cuda").argsort(-1).float()
+        x = x.reshape(POOL_SHAPE)
+    xr = x.clone().requires_grad_()
+    y = PF.max_pool2d(xr, ks, st, pad)
+    dy = torch.randn(y.shape, generator=g, device="cuda")
+    yd = y.detach()
+    dx = pb.max_pool2d_backward(x, yd, dy, ks, st, pad)
+    ref = pb._plain_max_pool2d_backward(x, yd, dy, ks, st, pad)
+    (lib,) = torch.autograd.grad(y, xr, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    err = float((dx - ref).abs().max())
+    lib_err = float((dx - lib).abs().max())
+    ulp = float(torch.finfo(torch.float32).eps * ref.abs().max())
+    zeros = float((x == 0).float().mean())
+    if not torch.equal(dx, ref):
+        raise AssertionError(f"max_pool2d_backward ({kind}): differs from the plain version by "
+                             f"{err}")
+    if lib_err > 4 * ulp:
+        raise AssertionError(f"max_pool2d_backward ({kind}): {lib_err} from torch's backward, "
+                             f"beyond 4 ulps ({4 * ulp}): another tie rule?")
+    t_b, by = bound(4 * (2 * x.numel() + 2 * yd.numel()), 9 * x.numel())
+    args = [(x, yd, dy, ks, st, pad)]
+    ms = time_ms(pb.max_pool2d_backward, args, 20)
+    plain_ms = time_ms(pb._plain_max_pool2d_backward, args, 5)
+    lib_ms = time_ms(lambda: torch.autograd.grad(y, xr, dy, retain_graph=True), [()], 20)
+    log(f"max_pool2d_backward {list(POOL_SHAPE)} 3x3/2/1, {kind} input"
+        f"{f' ({zeros:.0%} of x is 0)' if kind == 'relu' else ''}: "
+        f"bit-equal to the plain version; {lib_err:.3g} from torch's backward (4 ulps = "
+        f"{4 * ulp:.3g}: the same first-maximum rule, another order of adding); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch's backward) {lib_ms:.4f} ms, "
+        f"bound {t_b:.4f} ms ({by})")
+    return {"name": "max_pool2d_backward", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/pool_backward.cu",
+            "replaces": "paddle_tpu/ops/pallas/pool_backward.py:244", "shape": list(POOL_SHAPE),
+            "geometry": "3x3 stride 2 padding 1", "input": kind, "dtype": "float32",
+            "max_abs_err": err, "tolerance": "bit-equal to the plain version",
+            "library_max_abs_err": lib_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_b, "bound_by": by, "library_ms": lib_ms}
+
+
+def check_new_kernels():
+    """Rows 15 and 16. The int8 kernel's counted entry stands at the largest
+    serving bucket's first product ([512, 768] @ [768, 3072]); every other
+    shape the served program gives it (three products at three buckets),
+    the 4096-row shapes and two ragged ones ride along under
+    ``also_checked``."""
+    import torch
+
+    mm = check_int8_matmul(Q_BUCKETS[-1], Q_HIDDEN, Q_FFN, "bucket 512, FFN in")
+    mm["also_checked"] = [
+        check_int8_matmul(Q_BUCKETS[-1], Q_FFN, Q_HIDDEN, "bucket 512, FFN out"),
+        check_int8_matmul(LN_ROWS, Q_HIDDEN, Q_FFN, "4096 rows, FFN in"),
+        check_int8_matmul(LN_ROWS, Q_FFN, Q_HIDDEN, "4096 rows, FFN out"),
+        check_int8_matmul(Q_BUCKETS[1], Q_HIDDEN, Q_FFN, "bucket 64, FFN in"),
+        check_int8_matmul(Q_BUCKETS[1], Q_FFN, Q_HIDDEN, "bucket 64, FFN out"),
+        check_int8_matmul(Q_BUCKETS[0], Q_HIDDEN, Q_FFN, "bucket 8, FFN in"),
+        check_int8_matmul(Q_BUCKETS[0], Q_FFN, Q_HIDDEN, "bucket 8, FFN out"),
+        check_int8_matmul(Q_BUCKETS[0], Q_HIDDEN, Q_CLASSES, "bucket 8, classifier"),
+        check_int8_matmul(Q_BUCKETS[1], Q_HIDDEN, Q_CLASSES, "bucket 64, classifier",
+                          timed=False),
+        check_int8_matmul(Q_BUCKETS[2], Q_HIDDEN, Q_CLASSES, "bucket 512, classifier",
+                          timed=False),
+        check_int8_matmul(37, 70, 130, "ragged", timed=False),
+        check_int8_matmul(300, 129, 257, "ragged", timed=False)]
+    pool = check_pool_backward("relu")
+    pool["also_checked"] = [check_pool_backward("distinct")]
+    torch.cuda.empty_cache()
+    return [mm, pool]
+
+
+def _build_ffn_program(static, ops):
+    x = static.data("x", [None, Q_HIDDEN], "float32")
+    h = x
+    for _ in range(Q_LAYERS):
+        a = static.nn.fc(h, Q_FFN, activation="gelu")
+        a = static.nn.fc(a, Q_HIDDEN)
+        h = static.nn.layer_norm(ops.add(h, a))
+    return x, static.nn.fc(h, Q_CLASSES)
+
+
+def _forward_ms(exe, program, scope, fetch_names, label):
+    """Device time of one forward per bucket, the rows already on the card
+    (CUDA events around 20 forwards). Returns ``{bucket: ms}``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for bucket in Q_BUCKETS:
+        x = torch.randn(bucket, Q_HIDDEN, generator=g, device="cuda")
+        out[bucket] = time_ms(lambda x: exe.run(program, feed={"x": x}, fetch_list=fetch_names,
+                                                scope=scope, return_numpy=False), [(x,)], 20)
+    log(f"{label} forward (ms a bucket): "
+        + ", ".join(f"{b}: {ms:.3f}" for b, ms in out.items()))
+    return out
+
+
+# int8 serving limits, against the port's plain path on the CPU from the same
+# directory. The accumulators are integers, so a row differs only by the
+# float ops between the products (f32 rounding: Q_ROW_RTOL of the largest
+# |logit|) unless that rounding sends one activation to the other side of a
+# quantization boundary on the card; from there on the row's later
+# activations round differently too, and the row moves by a share of the int8
+# noise itself. Such rows are few, so at least Q_ROW_SHARE of all rows must
+# be within Q_ROW_RTOL, and every row within Q_FLIP_RTOL. The limits sit
+# between the sound reading and a control that they must catch: the same
+# requests with the first product's activation scale off by 1%, which moves
+# every row.
+Q_ROW_RTOL, Q_ROW_SHARE, Q_FLIP_RTOL = 1e-5, 0.9, 0.05
+# against the f32 program: the JAX package's documented int8 envelope
+Q_F32_ENVELOPE = (0.05, 0.05)
+
+
+def _make_int8_model(dirname, reqs):
+    """Build the f32 program from a seed on the card, answer ``reqs`` with it,
+    time it, calibrate, rewrite to int8 and save into ``dirname``. Returns
+    (the f32 answers, the f32 forward's ms a bucket)."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import ops, slim, static
+
+    rng = np.random.RandomState(30)
+    calib = [{"x": rng.randn(Q_CALIB_ROWS, Q_HIDDEN).astype(np.float32)}
+             for _ in range(Q_CALIB_BATCHES)]
+    static.enable_static()
+    static.reset_default_programs()
+    try:
+        ptt.seed(0)
+        scope = static.Scope()
+        _, y = _build_ffn_program(static, ops)
+        exe = static.Executor()
+        exe.run_startup(scope=scope)
+        prog = static.default_main_program()
+        muls = [op for op in prog.global_block().ops if op.type == "mul"]
+        if len(muls) != Q_MULS:
+            raise AssertionError(f"the program has {len(muls)} muls, not {Q_MULS}")
+        weights = sum(scope.get(op.inputs["X"][1]).numel() for op in muls)
+        refs = [exe.run(prog, feed={"x": r["x"].astype(np.float32)}, fetch_list=[y],
+                        scope=scope)[0] for r in reqs]
+        f32_ms = _forward_ms(exe, prog, scope, [y.name], "f32 program")
+        t0 = time.perf_counter()
+        ptq = slim.PostTrainingQuantization(exe, prog, calib, scope=scope)
+        ptq.quantize()
+        ptq.save_int8_model(dirname, ["x"], [y])
+        log(f"int8 program: {Q_MULS} muls, {weights / 1e6:.1f} M weights; calibrated on "
+            f"{Q_CALIB_BATCHES} x {Q_CALIB_ROWS} rows, rewritten and saved in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        static.disable_static()
+        static.reset_default_programs()
+    del scope, exe, ptq
+    torch.cuda.empty_cache()
+    return refs, f32_ms
+
+
+def _row_errors(got, want):
+    """Each row's largest error over the answer's largest |entry|."""
+    return np.abs(got - want).max(axis=1) / np.abs(want).max()
+
+
+def _row_stats(errs):
+    q = np.quantile(errs, [0.5, 0.9, 0.99])
+    return (f"row errors median {q[0]:.3g}, 90% {q[1]:.3g}, 99% {q[2]:.3g}, max {errs.max():.3g}, "
+            f"{(errs <= Q_ROW_RTOL).mean():.1%} of rows within {Q_ROW_RTOL}")
+
+
+def serve_int8():
+    """Make the int8 model directory, then serve it as a user would: from the
+    directory alone. Returns kernel launches per name on the serving run."""
+    import torch
+
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.static.program import Program
+
+    rng = np.random.RandomState(31)
+    # three decimals: short JSON, and exactly the float32 values the server parses
+    reqs = [{"x": np.round(rng.randn(rows, Q_HIDDEN), 3)} for rows in (8, 5, 64, 40, 512, 300)]
+    with tempfile.TemporaryDirectory(prefix="ptt_int8_") as dirname:
+        refs, f32_ms = _make_int8_model(dirname, reqs)
+        pred = create_predictor(Config(dirname))
+        cpu_pred = create_predictor(Config(dirname), device="cpu")
+        meta = pred.quant_metadata()
+    types = [op.type for op in pred._program.global_block().ops]
+    if types.count("mul_int8") != Q_MULS or types.count("quantize_static") != Q_MULS \
+            or "mul" in types or "quant_dequant_static" in types:
+        raise AssertionError(f"the loaded program's ops are not the int8 rewrite's: {types}")
+    if len(meta["int8_weights"]) != Q_MULS:
+        raise AssertionError(f"{len(meta['int8_weights'])} int8 weights saved, not {Q_MULS}")
+    for n in pred._scope.var_names():
+        if pred._scope.get(n).device.type != "cuda":
+            raise AssertionError(f"{n} lies on {pred._scope.get(n).device}, not on the card")
+    for n in meta["int8_weights"]:
+        if pred._scope.get(n).dtype != torch.int8 or pred._scope.has(n[:-len("@int8")]):
+            raise AssertionError(f"{n}: not int8 in the scope, or a float copy lies beside it")
+    int8_bytes = sum(pred._scope.get(n).numel() for n in meta["int8_weights"])
+    log(f"loaded int8 program: {len(types)} ops, {Q_MULS} mul_int8, {int8_bytes / 1e6:.1f} MB of "
+        f"int8 weights on the card, no float copy")
+
+    answers, counts, forwards = _serve(pred, Q_BUCKETS, reqs, "int8 program")
+    fetch = pred.get_output_names()[0]
+    wants, row_errs = [], []
+    for i, (req, ans, ref) in enumerate(zip(reqs, answers, refs)):
+        a = req["x"].astype(np.float32)
+        got = np.asarray(ans[1]["outputs"][fetch], np.float32)
+        want = cpu_pred.run([a])[0]
+        wants.append(want)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"int8 request {i}: shape {got.shape} vs {want.shape} or not "
+                                 "finite")
+        errs = _row_errors(got, want)
+        row_errs.append(errs)
+        e32 = float(np.abs(got - ref).max())
+        env = Q_F32_ENVELOPE[0] * float(np.abs(ref).max()) + Q_F32_ENVELOPE[1]
+        log(f"int8 request {i} ({len(a)} rows): vs the CPU's plain path {_row_stats(errs)} of the "
+            f"largest |logit| {np.abs(want).max():.4g}; vs the f32 program {e32:.3g} (envelope "
+            f"{env:.3g})")
+        if e32 >= env:
+            raise AssertionError(f"int8 request {i}: {e32} from the f32 program, outside the "
+                                 f"envelope {env}")
+    row_errs = np.concatenate(row_errs)
+    share = float((row_errs <= Q_ROW_RTOL).mean())
+    log(f"int8 answers vs the CPU's plain path over {len(row_errs)} rows: {_row_stats(row_errs)} "
+        f"(limits: {Q_ROW_SHARE:.0%} of rows within {Q_ROW_RTOL}, every row within "
+        f"{Q_FLIP_RTOL})")
+    if share < Q_ROW_SHARE or row_errs.max() > Q_FLIP_RTOL:
+        raise AssertionError(f"int8 answers vs the CPU: {share:.1%} of rows within {Q_ROW_RTOL}, "
+                             f"worst row {row_errs.max()}")
+    want = {name: (Q_MULS * forwards if name == "int8_matmul" else 0) for name in counts}
+    if forwards <= 0 or counts != want:
+        raise AssertionError(f"int8 launches {counts} over {forwards} forwards; want {want}")
+    log(f"int8 program: {forwards} forwards, launches {counts}: {Q_MULS} int8 matmul kernels "
+        "each")
+
+    # control: the first product's activation scale off by 1%
+    ctrl = Program.from_dict(pred._program.to_dict())
+    first = next(op for op in ctrl.global_block().ops if op.type == "mul_int8")
+    first.attrs["scale_x"] *= 1.01
+    ctrl_errs = np.concatenate([
+        _row_errors(pred._exe.run(ctrl, feed={"x": req["x"].astype(np.float32)},
+                                  fetch_list=[fetch], scope=pred._scope)[0], want)
+        for req, want in zip(reqs, wants)])
+    ctrl_share = float((ctrl_errs <= Q_ROW_RTOL).mean())
+    log(f"int8 control (the first mul_int8's scale_x off by 1%): {_row_stats(ctrl_errs)}")
+    if not ctrl_share < Q_ROW_SHARE:
+        raise AssertionError(f"int8 control: {ctrl_share:.1%} of rows within {Q_ROW_RTOL} passes "
+                             f"the limit {Q_ROW_SHARE:.0%}: it cannot catch a scale 1% off")
+
+    int8_ms = _forward_ms(pred._exe, pred._program, pred._scope, [fetch], "int8 program")
+    log("forward device time, int8 beside f32 (ms): "
+        + ", ".join(f"bucket {b}: {int8_ms[b]:.3f} / {f32_ms[b]:.3f}" for b in Q_BUCKETS))
+    rng = np.random.RandomState(32)
+    for bucket in (Q_BUCKETS[0], Q_BUCKETS[-1]):
+        _profile_run(pred, [rng.randn(bucket, Q_HIDDEN).astype(np.float32)],
+                     f"int8 Predictor.run bucket {bucket}")
     return counts
 
 
@@ -1573,15 +1965,17 @@ def main() -> int:
     _build.build_all()
     log(f"built {', '.join(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s")
 
-    kernels = check_kernels() + check_resnet_kernels()
+    kernels = check_kernels() + check_resnet_kernels() + check_new_kernels()
     served = serve_bert()
     trained = train_bert()
     torch.cuda.empty_cache()
     rn_served = serve_resnet()
+    q_served = serve_int8()
+    torch.cuda.empty_cache()
     rn_trained = train_resnet()
     for k in kernels:
         name = k["name"]
-        k["launches_serving"] = served[name] + rn_served[name]
+        k["launches_serving"] = served[name] + rn_served[name] + q_served[name]
         k["launches_training"] = trained[name] + rn_trained[name]
         k["launches"] = k["launches_serving"] + k["launches_training"]
     print(card)

@@ -6,8 +6,11 @@ A package beside ``paddle_tpu`` that imports ``torch`` and never JAX or
 (``models.BertForPretraining`` through ``framework.jit.train_step`` with
 ``optimizer.AdamW``), with hand-written CUDA kernels (``ops/cuda``,
 sources in ``csrc/``) for flash attention and the fused residual-add +
-LayerNorm, forward and backward. Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``.
+LayerNorm, forward and backward. It serves and trains ResNet (fused conv +
+batch norm + relu, momentum and max-pool backward kernels) and serves saved
+static programs, float or post-training-quantized to int8 (``static``,
+``slim``, ``inference.create_predictor``; the int8 matmul kernel). Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from .flags import flag, set_flags  # noqa: F401
-from .framework import load, seed  # noqa: F401
+from .framework import load, save, seed  # noqa: F401

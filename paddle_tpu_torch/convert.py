@@ -14,7 +14,10 @@ AdamW ``state_dict`` indexes its moments (a Momentum one its
 ``model.parameters()``, the same order in both packages. A ResNet state
 dict holds the parameters and the batch norms' running ``_mean`` and
 ``_variance`` buffers (267 entries for ResNet-50: 161 parameters, 106
-buffers), all checked the same way.
+buffers), all checked the same way. A saved static program (an int8 one
+from post-training quantization, or any other) is carried over by
+:func:`int8_model_from_numpy`: the JSON program as it is, the parameters
+into a scope with the dtypes they were saved in.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from .nn.layers import Embedding, LayerNorm, Linear
 
 __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_numpy",
            "load_bert_pretraining", "adamw_state_from_numpy", "resnet_state_from_numpy",
-           "load_resnet", "momentum_state_from_numpy"]
+           "load_resnet", "momentum_state_from_numpy", "int8_model_from_numpy",
+           "load_int8_model"]
 
 _TIED = ("cls.decoder_weight", "bert.embeddings.word_embeddings.weight")
 
@@ -157,3 +161,41 @@ def momentum_state_from_numpy(np_state, optimizer) -> dict:
     """A state dict for the port's ``Momentum`` from a ``paddle_tpu`` one of
     numpy arrays: ``global_step`` and the velocities ``velocity_{i}``."""
     return _accumulator_state(np_state, optimizer, ("velocity",))
+
+
+def int8_model_from_numpy(program_dict, np_params, scope=None):
+    """The port's ``Program`` of a serialized one (``Program.to_dict()`` of
+    either package), its parameters set into ``scope`` (a new one when
+    None) as tensors of the dtypes they were saved in: int8 weights stay
+    int8 and no float copy of them is made. Every persistable variable an
+    op reads must be among ``np_params``. Returns ``(program, scope)``."""
+    from .static.executor import Scope
+    from .static.program import Program
+
+    program = Program.from_dict(program_dict)
+    scope = Scope() if scope is None else scope
+    block = program.global_block()
+    read = {n for op in block.ops for n in op.input_names()}
+    written = {n for op in block.ops for n in op.output_names()}
+    missing = sorted(n for n in read - written
+                     if block.has_var(n) and block.var(n).persistable
+                     and n not in np_params and n not in program._constants)
+    if missing:
+        raise KeyError(f"the saved parameters lack {missing}")
+    for name, arr in np_params.items():
+        arr = np.asarray(arr)
+        if block.has_var(name):
+            var = block.var(name)
+            if var.dtype != arr.dtype.name or list(var.shape) != list(arr.shape):
+                raise ValueError(f"parameter {name!r} is {arr.dtype.name}{list(arr.shape)}, the "
+                                 f"program declares {var.dtype}{var.shape}")
+        scope.set(name, arr)
+    return program, scope
+
+
+def load_int8_model(dirname, scope=None):
+    """``(program, feed_names, fetch_names)`` of a directory written by
+    ``save_inference_model`` / ``save_int8_model`` of either package."""
+    from .static.io import load_inference_model
+
+    return load_inference_model(dirname, None, scope=scope)

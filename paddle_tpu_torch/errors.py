@@ -13,6 +13,7 @@ __all__ = [
     "ResourceExhaustedError",
     "ExecutionTimeoutError",
     "UnavailableError",
+    "UnimplementedError",
 ]
 
 
@@ -45,3 +46,7 @@ class ExecutionTimeoutError(EnforceNotMet):
 class UnavailableError(EnforceNotMet):
     code = "UNAVAILABLE"
 
+
+
+class UnimplementedError(EnforceNotMet):
+    code = "UNIMPLEMENTED"

@@ -80,6 +80,21 @@ define_flag("use_fused_conv_bn", True,
 define_flag("use_fused_optimizer", True,
             "fused in-place momentum / weight-decay update kernel")
 
+# nn/functional.py max_pool2d — in training, admitted max pools take their
+# backward from the hand-written kernel (ops/cuda/pool_backward.py) instead
+# of torch's own; the gradient is the same first-max subgradient.
+define_flag("use_pallas_pool_bwd", False,
+            "hand-written max-pool backward kernel (the name is the JAX "
+            "package's, whose kernel is Pallas)")
+
+# ops/quantize_kernels.py mul_int8 / matmul_int8 — the int8 product goes
+# through the hand-written int8 kernel (ops/cuda/int8_matmul.py). The flag
+# chooses between exact routes and never changes a number; the card has no
+# second exact integer route, so off raises there.
+define_flag("use_int8_matmul", True,
+            "hand-written int8 x int8 -> int32 matmul kernel for "
+            "mul_int8 / matmul_int8")
+
 # serving/batcher.py — the batch-axis bucket ladder: every assembled batch
 # is padded up to the smallest bucket that covers its rows.
 define_flag("serving_batch_buckets", "1,2,4,8",

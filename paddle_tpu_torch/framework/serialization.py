@@ -1,18 +1,20 @@
 """Read ``paddle_tpu.save`` files (``paddle_tpu/framework/serialization.py``).
 
 The format is the magic line ``PTPU1\\n`` followed by a pickle of the saved
-object with numpy arrays as leaves. Reading only: the port writes no such
-files yet. Unpickling runs code the file names, so load only files this
+object with numpy arrays as leaves; :func:`save` writes it (tensors become
+numpy leaves) and :func:`load` reads it, so either package reads the
+other's files. Unpickling runs code the file names, so load only files this
 project wrote.
 """
 from __future__ import annotations
 
+import os
 import pickle
 
 import numpy as np
 import torch
 
-__all__ = ["load"]
+__all__ = ["save", "load"]
 
 _MAGIC = b"PTPU1\n"
 
@@ -25,6 +27,27 @@ def _to_tensor(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_tensor(v) for v in obj)
     return obj
+
+
+def _to_host(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def save(obj, path, protocol=4):
+    """Write a (nested) dict / list of tensors, arrays and plain values to
+    ``path`` in the ``paddle_tpu.save`` format."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_MAGIC)
+        pickle.dump(_to_host(obj), f, protocol=protocol)
 
 
 def load(path, return_numpy=False):

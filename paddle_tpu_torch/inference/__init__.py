@@ -1,2 +1,2 @@
 """Inference of the port."""
-from .predictor import Predictor  # noqa: F401
+from .predictor import Config, Predictor, ProgramPredictor, create_predictor  # noqa: F401

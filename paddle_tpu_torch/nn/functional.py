@@ -23,7 +23,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as _F
 
+from ..flags import flag as _flag
 from ..framework import random as _random
+from ..ops.cuda import pool_backward as _pool_backward
 
 __all__ = ["linear", "gelu", "relu", "tanh", "softmax", "layer_norm", "embedding", "dropout",
            "gather", "cross_entropy", "softmax_with_cross_entropy", "conv2d", "conv_padding",
@@ -184,25 +186,59 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False, momen
     return y.to(x.dtype)
 
 
+def _max_pool_forward(x, ks, st, p, extra):
+    if extra == [0, 0] and p[0] <= ks[0] // 2 and p[1] <= ks[1] // 2:
+        return _F.max_pool2d(x, ks, st, p)  # torch's own padding never wins a max
+    x = _F.pad(x, (p[1], p[1] + extra[1], p[0], p[0] + extra[0]), value=float("-inf"))
+    return _F.max_pool2d(x, ks, st)
+
+
+class _MaxPoolKernelBackward(torch.autograd.Function):
+    """Max pooling whose backward is the hand-written kernel
+    (``kernels.py:775-796`` ``_max_pool_fused``)."""
+
+    @staticmethod
+    def forward(ctx, x, ks, st, p):
+        y = _max_pool_forward(x, ks, st, p, [0, 0])
+        ctx.save_for_backward(x, y)
+        ctx.geometry = (ks, st, p)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y = ctx.saved_tensors
+        dx = _pool_backward.max_pool2d_backward(x.contiguous(), y.contiguous(),
+                                                dy.to(y.dtype).contiguous(), *ctx.geometry)
+        return dx, None, None, None
+
+
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCHW"):
     """Max pooling whose padding is -inf; ``ceil_mode`` pads the far edge
-    as ``kernels.py:816-822`` does."""
+    as ``kernels.py:816-822`` does. With ``FLAGS_use_pallas_pool_bwd`` on,
+    an admitted pool (``max_pool_backward_supported``) takes its backward
+    from the kernel of ``ops/cuda/pool_backward.py``."""
     ks = _pair(kernel_size)
     st = _pair(stride) if stride is not None else ks
     p = _pair(padding)
     if data_format == "NHWC":
         x = x.permute(0, 3, 1, 2)
+    extra = _ceil_extra(x.shape[2:], ks, st, p, ceil_mode)
+    if (_flag("use_pallas_pool_bwd") and x.requires_grad and torch.is_grad_enabled()
+            and _pool_backward.max_pool_backward_supported(x.shape, x.dtype, extra, data_format)):
+        y = _MaxPoolKernelBackward.apply(x, ks, st, p)
+    else:
+        y = _max_pool_forward(x, ks, st, p, extra)
+    return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+
+
+def _ceil_extra(spatial, ks, st, p, ceil_mode):
+    """Rows and columns ``ceil_mode`` adds at the far edge."""
     extra = [0, 0]
     if ceil_mode:
-        for i, (dim, k, s, pp) in enumerate(zip(x.shape[2:], ks, st, p)):
+        for i, (dim, k, s, pp) in enumerate(zip(spatial, ks, st, p)):
             out_ceil = -(-(dim + 2 * pp - k) // s) + 1
             extra[i] = max(0, (out_ceil - 1) * s + k - (dim + 2 * pp))
-    if extra == [0, 0] and p[0] <= ks[0] // 2 and p[1] <= ks[1] // 2:
-        y = _F.max_pool2d(x, ks, st, p)  # torch's own padding never wins a max
-    else:
-        x = _F.pad(x, (p[1], p[1] + extra[1], p[0], p[0] + extra[0]), value=float("-inf"))
-        y = _F.max_pool2d(x, ks, st)
-    return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+    return extra
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):

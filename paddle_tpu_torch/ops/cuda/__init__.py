@@ -6,7 +6,8 @@ and :func:`reset_launch_counts` sets them to 0.
 """
 from __future__ import annotations
 
-from . import conv_bn_relu, flash_attention, layernorm_residual, optimizer_update
+from . import (conv_bn_relu, flash_attention, int8_matmul, layernorm_residual, optimizer_update,
+               pool_backward)
 
 __all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launch_counts"]
 
@@ -24,6 +25,8 @@ KERNEL_COUNTERS = {
     "conv_bn_relu_bn_bwd_partials": (conv_bn_relu, "BN_BWD_PARTIALS_LAUNCHES"),
     "conv_bn_relu_bn_bwd_dco": (conv_bn_relu, "BN_BWD_DCO_LAUNCHES"),
     "momentum_update": (optimizer_update, "LAUNCHES"),
+    "int8_matmul": (int8_matmul, "LAUNCHES"),
+    "max_pool2d_backward": (pool_backward, "LAUNCHES"),
 }
 
 

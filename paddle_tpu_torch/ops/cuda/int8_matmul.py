@@ -1,0 +1,80 @@
+"""int8 x int8 -> int32 matrix product: the CUDA kernel and its plain version.
+
+Replaces ``paddle_tpu/ops/pallas/int8_matmul.py`` ``_pallas_matmul``:
+``x [M, K] int8 @ w [K, N] int8 -> [M, N] int32`` with exact 32-bit
+accumulation, the contraction of the deployed int8 programs' ``mul_int8``
+and ``matmul_int8`` ops. ``csrc/int8_matmul.cu`` runs it on the tensor
+cores (``mma.sync.m16n8k32``), packing ``w``'s K values into words while a
+tile is staged, and masks ragged edges with zeros, which is exact: any M, K
+and N, no padded copies and no size rule (the TPU kernel's ``M*N >= 32*128``
+cut-off was its tiling's). Memory bound at the serving shapes: the int32
+output is four bytes an element.
+
+The plain version is the int32 product on the CPU. The card has no integer
+matrix product in PyTorch, so there :func:`_plain_int8_matmul` multiplies
+the int8 values in float64 and casts back, exact while ``K * 2**14 <
+2**53``; it is the reference the kernel is held against, not a route of
+the port.
+
+A tensor on the CPU takes the plain version; a tensor on the card launches
+the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import _build
+
+__all__ = ["int8_matmul", "LAUNCHES"]
+
+#: kernel launches since the last reset (counted where the kernel launches)
+LAUNCHES = 0
+_count_lock = threading.Lock()
+
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_INT_MAX = 2 ** 31 - 1
+
+
+def _plain_int8_matmul(x, w):
+    """The exact product in tensor ops: int32 on the CPU, float64 cast back
+    elsewhere (every partial sum is an integer below 2**53)."""
+    if x.device.type == "cpu":
+        return x.to(torch.int32) @ w.to(torch.int32)
+    return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+
+
+@torch.no_grad()
+def int8_matmul(x, w):
+    """``x [M, K] int8 @ w [K, N] int8 -> [M, N] int32``, exact."""
+    global LAUNCHES
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)} and w {tuple(w.shape)} are not "
+                         f"[M, K] and [K, N]")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8_matmul takes int8 operands, got {x.dtype} and {w.dtype}")
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return _plain_int8_matmul(x, w)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError("int8_matmul: both operands must be on one CUDA device")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("int8_matmul: x and w must be contiguous (row-major)")
+    (m, k), n = x.shape, w.shape[1]
+    if max(m, k, n) > _INT_MAX:
+        raise ValueError(f"int8_matmul: an extent of {(m, k, n)} exceeds 32 bits")
+    if m == 0 or n == 0 or k == 0:  # nothing is launched or counted
+        return torch.zeros((m, n), dtype=torch.int32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        fn = _build.library("int8_matmul").ptt_int8_matmul
+        if fn.argtypes is None:
+            fn.argtypes = _ARGS
+            fn.restype = ctypes.c_int
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "int8_matmul")
+    with _count_lock:
+        LAUNCHES += 1
+    return out

@@ -1,0 +1,126 @@
+"""Max-pool2d backward: the CUDA kernel and its plain version.
+
+Replaces ``paddle_tpu/ops/pallas/pool_backward.py`` ``_max_pool2d_backward``:
+``dx`` of a max pooling from ``x``, the pooled ``y`` and ``dy``. A window's
+gradient goes to its first maximum in row-major tap order (first max wins,
+the subgradient of XLA's ``select_and_scatter`` and of the JAX kernel);
+padded taps never hold it. ``csrc/pool_backward.cu`` gathers: a block finds
+the first maximum of each window that reaches into its tile, then one thread
+per element of ``dx`` adds the ``dy`` of the windows it won, no atomics, so
+the result repeats bit for bit and equals
+:func:`_plain_max_pool2d_backward`, which adds the taps in the same order.
+Memory bound: x, y, dy read once, dx written once.
+
+``torch.nn.functional.max_pool2d`` keeps the index of the first maximum too
+(its forward replaces the running maximum only by a strictly greater value,
+on the CPU and on CUDA alike), so torch's own backward routes ties the same
+way; the port's rule does not rest on that.
+
+A tensor on the CPU takes the plain version; a tensor on the card launches
+the kernel or raises. float32 only for now.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import _build
+
+__all__ = ["max_pool2d_backward", "max_pool_backward_supported", "LAUNCHES"]
+
+#: kernel launches since the last reset (counted where the kernel launches)
+LAUNCHES = 0
+_count_lock = threading.Lock()
+
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def max_pool_backward_supported(x_shape, dtype, ceil_extra, data_format) -> bool:
+    """Gate of the kernel route (the JAX gate less its TPU test): NCHW 4-D
+    floating input, symmetric padding (no ``ceil_mode`` tail), no empty
+    axis."""
+    if data_format != "NCHW" or len(x_shape) != 4:
+        return False
+    if tuple(ceil_extra) != (0, 0):
+        return False
+    if not dtype.is_floating_point:
+        return False
+    return all(int(d) > 0 for d in x_shape)
+
+
+def _plain_max_pool2d_backward(x, y, dy, kernel, stride, padding):
+    """``dx`` in tensor ops: each tap of every window in row-major order
+    takes ``dy`` where it equals ``y`` and no earlier tap did, and is added
+    back at its place. The padding is NaN, which equals nothing."""
+    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
+    h, w = x.shape[2:]
+    oh, ow = y.shape[2:]
+    xp = torch.nn.functional.pad(x, (pw, pw, ph, ph), value=float("nan"))
+    dxp = torch.zeros_like(xp)
+    taken = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    zero = torch.zeros((), dtype=dy.dtype, device=dy.device)
+    for di in range(kh):
+        rows = slice(di, di + sh * (oh - 1) + 1, sh)
+        for dj in range(kw):
+            cols = slice(dj, dj + sw * (ow - 1) + 1, sw)
+            sel = (xp[:, :, rows, cols] == y) & ~taken
+            taken |= sel
+            dxp[:, :, rows, cols] += torch.where(sel, dy, zero)
+    return dxp[:, :, ph:ph + h, pw:pw + w].contiguous()
+
+
+def _pairs(kernel, stride, padding):
+    out = []
+    for name, v in (("kernel", kernel), ("stride", stride), ("padding", padding)):
+        v = tuple(int(a) for a in v)
+        if len(v) != 2:
+            raise ValueError(f"max_pool2d_backward: {name} must have two entries, got {v}")
+        out.append(v)
+    return out
+
+
+@torch.no_grad()
+def max_pool2d_backward(x, y, dy, kernel, stride, padding):
+    """``dx`` like ``x`` [N, C, H, W] for ``y = max_pool2d(x)`` and ``dy``
+    like ``y`` [N, C, OH, OW]; ``kernel``, ``stride`` and (symmetric)
+    ``padding`` are pairs."""
+    global LAUNCHES
+    kernel, stride, padding = _pairs(kernel, stride, padding)
+    if x.dim() != 4 or y.dim() != 4 or y.shape != dy.shape or x.shape[:2] != y.shape[:2]:
+        raise ValueError(f"max_pool2d_backward: x {tuple(x.shape)}, y {tuple(y.shape)} and dy "
+                         f"{tuple(dy.shape)} are not a pooling's [N, C, H, W] and [N, C, OH, OW]")
+    n, c, h, w = x.shape
+    oh, ow = y.shape[2:]
+    for dim, o, k, s, p in zip((h, w), (oh, ow), kernel, stride, padding):
+        if o != (dim + 2 * p - k) // s + 1:
+            raise ValueError(f"max_pool2d_backward: output extent {o} is not that of input "
+                             f"{dim}, kernel {k}, stride {s}, padding {p}")
+    tensors = (x, y, dy)
+    if all(t.device.type == "cpu" for t in tensors):
+        return _plain_max_pool2d_backward(x, y, dy, kernel, stride, padding)
+    if x.numel() == 0 or y.numel() == 0:  # nothing is launched or counted
+        return torch.zeros_like(x)
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError("max_pool2d_backward: all tensors must be on one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"max_pool2d_backward: the kernel takes float32, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("max_pool2d_backward: x, y and dy must be contiguous")
+    if kernel[0] * kernel[1] >= 0xffff:
+        raise ValueError(f"max_pool2d_backward: the kernel numbers a window's taps in 16 bits; "
+                         f"{kernel} has too many")
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        fn = _build.library("pool_backward").ptt_max_pool2d_backward
+        if fn.argtypes is None:
+            fn.argtypes = _ARGS
+            fn.restype = ctypes.c_int
+        err = fn(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), n * c, h, w, oh, ow,
+                 *kernel, *stride, *padding, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "max_pool2d_backward")
+    with _count_lock:
+        LAUNCHES += 1
+    return dx

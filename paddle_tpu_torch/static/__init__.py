@@ -1,0 +1,23 @@
+"""Static graph mode of the port (``paddle_tpu/static/``): the Program IR,
+the layer helpers that build a program, an eager interpreter that runs it,
+and the inference-model files. Enough to build, calibrate, quantize, save
+and serve a feed-forward program; control flow, ``append_backward`` and the
+static optimizers are not ported."""
+from . import io, nn  # noqa: F401
+from .executor import Executor, Scope, global_scope  # noqa: F401
+from .io import load_inference_model, save_inference_model  # noqa: F401
+from .program import (  # noqa: F401
+    Block,
+    OpDesc,
+    Program,
+    VarDesc,
+    Variable,
+    data,
+    default_main_program,
+    default_startup_program,
+    disable_static,
+    enable_static,
+    in_static_mode,
+    program_guard,
+    reset_default_programs,
+)

@@ -76,6 +76,32 @@ def test_kernels_build_from_package_sources_for_sm90a():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
 
 
+def test_every_kernel_source_is_built_counted_and_present():
+    """``KERNEL_SOURCES`` names every ``csrc/*.cu`` (the int8 matmul and the
+    max-pool backward among them), and every kernel has a launch counter."""
+    from paddle_tpu_torch.ops import cuda
+
+    on_disk = sorted(n[:-3] for n in os.listdir(os.path.join(PORT_DIR, "csrc"))
+                     if n.endswith(".cu"))
+    assert sorted(_build.KERNEL_SOURCES) == on_disk
+    assert {"int8_matmul", "pool_backward"} <= set(_build.KERNEL_SOURCES)
+    counts = cuda.launch_counts()
+    assert {"int8_matmul", "max_pool2d_backward"} <= set(counts)
+    cuda.reset_launch_counts()
+    assert set(cuda.launch_counts().values()) == {0}
+
+
+def test_program_predictor_without_a_card_raises(monkeypatch, tmp_path):
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.static import Executor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Executor()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_predictor(Config(str(tmp_path)))
+
+
 def test_chip_smoke_alone_fails_without_result(tmp_path):
     """Away from the package (and here, without CUDA) the smoke exits
     non-zero and prints nothing on stdout."""

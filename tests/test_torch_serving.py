@@ -105,7 +105,8 @@ def test_predict_matches_predictor_run_and_padding_is_inert(server, predictor):
         "layernorm_residual_fwd", "layernorm_residual_bwd", "flash_attention_fwd",
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv_bn_relu_mm_affine_relu",
         "conv_bn_relu_mm_stats", "conv_bn_relu_centered_sumsq", "conv_bn_relu_bn_relu",
-        "conv_bn_relu_bn_bwd_partials", "conv_bn_relu_bn_bwd_dco", "momentum_update"}
+        "conv_bn_relu_bn_bwd_partials", "conv_bn_relu_bn_bwd_dco", "momentum_update",
+        "int8_matmul", "max_pool2d_backward"}
 
 
 def test_concurrent_requests_share_batches(server, predictor):
