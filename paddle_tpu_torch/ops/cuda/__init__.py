@@ -2,14 +2,15 @@
 
 Every wrapper counts its kernel's launches in a module-level integer;
 :data:`KERNEL_COUNTERS` names them, :func:`launch_counts` reads them all
-and :func:`reset_launch_counts` sets them to 0.
+and :func:`reset_launch_counts` sets them to 0, and the counts beside them
+(:data:`OTHER_COUNTERS`: the tensors the momentum launches updated).
 """
 from __future__ import annotations
 
 from . import (conv_bn_relu, flash_attention, int8_matmul, layernorm_residual, optimizer_update,
                pool_backward)
 
-__all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNEL_COUNTERS", "OTHER_COUNTERS", "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> (the module holding its wrapper, the name of its count)
 KERNEL_COUNTERS = {
@@ -29,12 +30,15 @@ KERNEL_COUNTERS = {
     "max_pool2d_backward": (pool_backward, "LAUNCHES"),
 }
 
+#: counts that are not launches, set to 0 with them: (module, name)
+OTHER_COUNTERS = ((optimizer_update, "TENSORS"),)
+
 
 def launch_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in KERNEL_COUNTERS.values():
+    for mod, attr in (*KERNEL_COUNTERS.values(), *OTHER_COUNTERS):
         with mod._count_lock:
             setattr(mod, attr, 0)

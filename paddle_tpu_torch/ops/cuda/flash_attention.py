@@ -9,13 +9,14 @@ an additive bias broadcastable to ``[B, H, Lq, Lk]``, an optional causal
 mask, dropout on the attention probabilities, and the per-row logsumexp
 the backward recomputes the probabilities from.
 
-On the H100 the kernels are bound by arithmetic on the FP32 units
-(``4``, ``6`` and ``8 * B*H*Lq*Lk*D`` flops for the forward, dQ and dK/dV
-against a few MB of operands). The forward (``csrc/flash_attention.cu``)
-stages K/V tiles through shared memory for 64 query rows at a time and
-keeps the online-softmax state in registers; the dQ and dK/dV kernels
-(``csrc/flash_attention_bwd.cu``) do the same over key tiles and query
-tiles, each block writing its own rows, so no atomics. All three read the
+On the H100 the kernels are bound by arithmetic (``4``, ``6`` and ``8 *
+B*H*Lq*Lk*D`` flops for the forward, dQ and dK/dV against a few MB of
+operands). The forward (``csrc/flash_attention.cu``) runs on the FP32
+units: it stages K/V tiles through shared memory for 64 query rows at a
+time and keeps the online-softmax state in registers. The dQ and dK/dV
+kernels (``csrc/flash_attention_bwd.cu``) run their products on the tensor
+cores in 3xTF32 (f32-accurate), over key tiles and query tiles, each
+block writing its own rows, so no atomics. All three read the
 bias through its strides, so a padding mask stays ``[B, 1, 1, Lk]``. One
 set of kernels covers both TPU variants.
 

@@ -16,8 +16,16 @@ equals the plain version bit for bit. Every parameter takes the kernel,
 whatever its size: the TPU's ``size >= 128`` rule (``:131-135``) was its
 tiling's.
 
-A tensor on the CPU takes :func:`_plain_update` (and is written in
-place the same way); a tensor on the card launches the kernel or raises.
+The kernel updates many tensors in one launch: the JAX package's
+``pallas_call``s sit inside one compiled train step, where a launch from
+Python per parameter would leave the card idle between them.
+:func:`fused_momentum_update_multi` groups the tensors into launches of
+at most :data:`MAX_TENSORS` (:func:`launch_groups`) and passes each
+group's pointers and block prefix sums by value; :data:`LAUNCHES` counts
+launches and :data:`TENSORS` the tensors they updated.
+
+Tensors on the CPU take :func:`_plain_update` (written in place the same
+way); tensors on the card launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -28,14 +36,22 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_momentum_update", "LAUNCHES"]
+__all__ = ["fused_momentum_update", "fused_momentum_update_multi", "launch_groups",
+           "MAX_TENSORS", "CHUNK", "LAUNCHES", "TENSORS"]
 
-#: kernel launches since the last reset (counted where the kernel launches)
+#: tensors one launch updates at most, and elements a block owns: the
+#: kernel's ``kMaxTensors`` and ``kChunk`` (checked against the library)
+MAX_TENSORS = 110
+CHUNK = 8192
+
+#: kernel launches, and tensors they updated, since the last reset
+#: (counted where the kernel launches)
 LAUNCHES = 0
+TENSORS = 0
 _count_lock = threading.Lock()
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_float, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGS = [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _plain_update(param, grad, velocity, lr, mu, wd, nesterov):
@@ -48,39 +64,93 @@ def _plain_update(param, grad, velocity, lr, mu, wd, nesterov):
     return param - lr * v, v
 
 
+def launch_groups(numels, max_tensors=MAX_TENSORS, chunk=CHUNK):
+    """The launches for tensors of ``numels`` elements (each > 0), in order:
+    a list of ``(indices, block_starts)``, each group at most
+    ``max_tensors`` long, ``block_starts`` the prefix sums of
+    ``ceil(numel / chunk)`` over the group, from 0."""
+    groups, idx, starts = [], [], [0]
+    for i, n in enumerate(numels):
+        if n <= 0:
+            raise ValueError(f"launch_groups: tensor {i} has {n} elements")
+        blocks = -(-int(n) // chunk)
+        if idx and (len(idx) == max_tensors or starts[-1] + blocks > 2**31 - 1):
+            groups.append((idx, starts))
+            idx, starts = [], [0]
+        idx.append(i)
+        starts.append(starts[-1] + blocks)
+    if idx:
+        groups.append((idx, starts))
+    return groups
+
+
+def _entry():
+    lib = _build.library("optimizer_update")
+    fn = lib.ptt_momentum_update_multi
+    if fn.argtypes is None:
+        if (lib.ptt_momentum_max_tensors(), lib.ptt_momentum_chunk()) != (MAX_TENSORS, CHUNK):
+            raise RuntimeError("optimizer_update: MAX_TENSORS / CHUNK differ from the kernel's")
+        fn.argtypes = _ARGS
+        fn.restype = ctypes.c_int
+    return fn
+
+
 @torch.no_grad()
-def fused_momentum_update(param, grad, velocity, lr, momentum=0.9, weight_decay=0.0,
-                          use_nesterov=False):
-    """One momentum (+ L2 decay) step of ``param``, written over ``param``
-    and ``velocity``, which it returns. ``lr`` is a Python number."""
-    global LAUNCHES
+def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, weight_decay=0.0,
+                                use_nesterov=False):
+    """One momentum (+ L2 decay) step of every tensor of ``params``, written
+    over it and its velocity. ``lr`` is a Python number. On the card: one
+    launch a group of :func:`launch_groups`; empty tensors are skipped."""
+    global LAUNCHES, TENSORS
+    params, grads, velocities = list(params), list(grads), list(velocities)
+    if not len(params) == len(grads) == len(velocities):
+        raise ValueError(f"fused_momentum_update_multi: {len(params)} params, {len(grads)} "
+                         f"grads and {len(velocities)} velocities")
     mu, wd, lr = float(momentum), float(weight_decay), float(lr)
-    if not (param.shape == grad.shape == velocity.shape):
-        raise ValueError(f"fused_momentum_update: param {tuple(param.shape)}, grad "
-                         f"{tuple(grad.shape)} and velocity {tuple(velocity.shape)} differ")
-    tensors = (param, grad, velocity)
+    for p, g, v in zip(params, grads, velocities):
+        if not (p.shape == g.shape == v.shape):
+            raise ValueError(f"fused_momentum_update: param {tuple(p.shape)}, grad "
+                             f"{tuple(g.shape)} and velocity {tuple(v.shape)} differ")
+    tensors = params + grads + velocities
     if all(t.device.type == "cpu" for t in tensors):
-        new_p, new_v = _plain_update(param, grad, velocity, lr, mu, wd, use_nesterov)
-        param.copy_(new_p)
-        velocity.copy_(new_v)
-        return param, velocity
-    if param.device.type != "cuda" or any(t.device != param.device for t in tensors):
+        for p, g, v in zip(params, grads, velocities):
+            new_p, new_v = _plain_update(p, g, v, lr, mu, wd, use_nesterov)
+            p.copy_(new_p)
+            v.copy_(new_v)
+        return
+    dev = params[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("fused_momentum_update: all tensors must be on one CUDA device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"fused_momentum_update: the kernel takes float32, got "
-                        f"{[str(t.dtype) for t in tensors]}")
+                        f"{sorted({str(t.dtype) for t in tensors})}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_momentum_update: param, grad and velocity must be contiguous")
-    if param.numel() == 0:  # nothing is launched or counted
-        return param, velocity
-    with torch.cuda.device(param.device):
-        fn = _build.library("optimizer_update").ptt_momentum_update
-        if fn.argtypes is None:
-            fn.argtypes = _ARGS
-            fn.restype = ctypes.c_int
-        err = fn(param.data_ptr(), grad.data_ptr(), velocity.data_ptr(), param.numel(), lr, mu,
-                 wd, int(bool(use_nesterov)), torch.cuda.current_stream(param.device).cuda_stream)
-    _build.check(err, "fused_momentum_update")
-    with _count_lock:
-        LAUNCHES += 1
+    live = [i for i, p in enumerate(params) if p.numel() > 0]
+    if not live:  # nothing is launched or counted
+        return
+    groups = launch_groups([params[i].numel() for i in live])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        fn = _entry()
+        for idx, starts in groups:
+            sel = [live[j] for j in idx]
+            words = ([params[i].data_ptr() for i in sel] + [grads[i].data_ptr() for i in sel]
+                     + [velocities[i].data_ptr() for i in sel]
+                     + [params[i].numel() for i in sel] + starts)
+            table = (ctypes.c_int64 * len(words))(*words)
+            err = fn(table, len(sel), lr, mu, wd, int(bool(use_nesterov)), stream)
+            _build.check(err, "fused_momentum_update")
+            with _count_lock:
+                LAUNCHES += 1
+                TENSORS += len(sel)
+
+
+def fused_momentum_update(param, grad, velocity, lr, momentum=0.9, weight_decay=0.0,
+                          use_nesterov=False):
+    """One momentum (+ L2 decay) step of ``param``, written over ``param``
+    and ``velocity``, which it returns: :func:`fused_momentum_update_multi`
+    over a list of one."""
+    fused_momentum_update_multi([param], [grad], [velocity], lr, momentum, weight_decay,
+                                use_nesterov)
     return param, velocity

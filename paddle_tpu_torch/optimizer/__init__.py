@@ -4,13 +4,14 @@ Each update follows the JAX package's expression order, not
 ``torch.optim``'s, so the two packages agree to rounding on the same
 gradients: Adam's ``param - lr * mhat / (sqrt(vhat) + eps)`` and AdamW's
 decoupled ``- lr * coeff * param_old`` after it (``:289-320``).
-Momentum (``:230-277``) updates through the fused in-place kernel
-(``ops/cuda/optimizer_update.py``, ``FLAGS_use_fused_optimizer``), which
-folds a plain ``L2Decay`` in itself, so ``step`` then skips the separate
-decay pass (``:157-173``). Accumulators are per-parameter tensors on the
-parameter's device, named and indexed as the JAX package names them in
-``state_dict`` (``moment1_{i}``, ``moment2_{i}``, ``velocity_{i}``,
-``global_step``), so optimizer state carries across
+Momentum (``:230-277``) updates every parameter through one call of the
+fused in-place multi-tensor kernel (``ops/cuda/optimizer_update.py``,
+``FLAGS_use_fused_optimizer``), which folds a plain ``L2Decay`` in itself,
+so ``step`` then skips the separate decay pass (``:157-173``).
+Accumulators are per-parameter tensors on the parameter's device, named
+and indexed as the JAX package names them in ``state_dict``
+(``moment1_{i}``, ``moment2_{i}``, ``velocity_{i}``, ``global_step``), so
+optimizer state carries across
 (:func:`paddle_tpu_torch.convert.adamw_state_from_numpy`,
 :func:`~paddle_tpu_torch.convert.momentum_state_from_numpy`).
 Parameters whose ``grad`` is None, or that do not require grad, are
@@ -105,8 +106,13 @@ class Optimizer:
             params_grads.append((i, p, g))
         lr_value = self.get_lr()
         self._global_step += 1
+        self._apply_all(params_grads, lr_value)
+
+    def _apply_all(self, params_grads, lr):
+        """Update every ``(index, param, grad)`` of ``params_grads``: one
+        :meth:`_apply_one` each."""
         for i, p, g in params_grads:
-            new_param = self._apply_one(i, p, g, lr_value)
+            new_param = self._apply_one(i, p, g, lr)
             if new_param is not p:  # an update in place returns the parameter itself
                 p.copy_(new_param)
 
@@ -167,13 +173,21 @@ class Momentum(Optimizer):
             return None
         return self._weight_decay.coeff
 
+    def _apply_all(self, params_grads, lr):
+        """With ``FLAGS_use_fused_optimizer`` on, every parameter with a
+        gradient goes to the multi-tensor kernel in one call (a launch per
+        :data:`~paddle_tpu_torch.ops.cuda.optimizer_update.MAX_TENSORS`
+        parameters on the card); off, one plain update each."""
+        if not flag("use_fused_optimizer"):
+            return super()._apply_all(params_grads, lr)
+        vel = self._ensure_accumulator("velocity")
+        _update.fused_momentum_update_multi(
+            [p for _, p, _ in params_grads], [g for _, _, g in params_grads],
+            [vel[i] for i, _, _ in params_grads], lr, momentum=self._momentum,
+            weight_decay=self._fused_decay_coeff() or 0.0, use_nesterov=self._use_nesterov)
+
     def _apply_one(self, index, param, grad, lr):
         vel = self._ensure_accumulator("velocity")
-        if flag("use_fused_optimizer"):
-            _update.fused_momentum_update(param, grad, vel[index], lr, momentum=self._momentum,
-                                          weight_decay=self._fused_decay_coeff() or 0.0,
-                                          use_nesterov=self._use_nesterov)
-            return param
         v = self._momentum * vel[index] + grad
         vel[index] = v
         if self._use_nesterov:

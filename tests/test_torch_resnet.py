@@ -364,19 +364,22 @@ def _counting(calls, monkeypatch):
             calls[_name] = calls.get(_name, 0) + 1
             return _fn(*a, **k)
         monkeypatch.setattr(tcbr, name, counted)
-    fn = tou.fused_momentum_update
+    fn = tou.fused_momentum_update_multi
 
-    def momentum(*a, **k):
+    def momentum(params, *a, **k):
+        params = list(params)
         calls["momentum_update"] = calls.get("momentum_update", 0) + 1
-        return fn(*a, **k)
-    monkeypatch.setattr(tou, "fused_momentum_update", momentum)
+        calls["momentum_tensors"] = calls.get("momentum_tensors", []) + [params]
+        return fn(params, *a, **k)
+    monkeypatch.setattr(tou, "fused_momentum_update_multi", momentum)
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_training_and_eval_launch_every_new_kernel_entry(arch, monkeypatch):
     """A Momentum training step runs each training entry once per fused
-    triple and the update once per parameter; an eval forward runs the
-    eval entry once per triple and nothing else."""
+    triple and the multi-tensor update once, over every parameter in
+    order; an eval forward runs the eval entry once per triple and nothing
+    else."""
     calls = {}
     _counting(calls, monkeypatch)
     tm = ARCHS[arch][1](num_classes=CLASSES, generator=torch.Generator().manual_seed(0))
@@ -385,8 +388,10 @@ def test_training_and_eval_launch_every_new_kernel_entry(arch, monkeypatch):
     loss = float(step(*_batch())["loss"])
     n = TRIPLES[arch]
     assert np.isfinite(loss)
+    (updated,) = calls.pop("momentum_tensors")
+    assert [id(p) for p in updated] == [id(p) for p in tm.parameters()]
     assert calls == {"mm_stats": n, "centered_sumsq": n, "bn_relu": n, "bn_bwd_partials": n,
-                     "bn_bwd_dco": n, "momentum_update": len(list(tm.parameters()))}
+                     "bn_bwd_dco": n, "momentum_update": 1}
     assert all(p.grad is not None for p in tm.parameters())
     calls.clear()
     tm.eval()
