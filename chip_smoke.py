@@ -13,7 +13,10 @@ Phases, each fatal on failure:
    paths' shapes, and time the kernel, the plain version and one PyTorch
    library call that computes the same function (the yardstick; the port
    never calls it); the attention dropout mask of the forward, dQ and
-   dK/dV kernels must equal the plain version's bit for bit;
+   dK/dV kernels must equal the plain version's bit for bit, and the
+   LayerNorm backward must repeat its outputs bit for bit; the attention
+   forward is also timed against the port's unfused attention at L = 128
+   to 512;
 4. serve BERT-base (L=512, flash attention on, f32, random weights from a
    seed) through ``Predictor`` -> ``InferenceServer`` and wait for
    ``/healthz``;
@@ -72,6 +75,7 @@ beside this script.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import sys
 import tempfile
@@ -161,6 +165,12 @@ def device_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host_ms
+
+
+def device_ms_sets(fn, arg_sets, iters):
+    """:func:`device_ms` over calls that cycle through ``arg_sets``."""
+    it = itertools.cycle(arg_sets)
+    return device_ms(lambda: fn(*next(it)), iters)
 
 
 def bound(bytes_moved, flops, peak=FP32_FLOPS_PER_S):
@@ -279,29 +289,113 @@ def check_flash(seq, replaces):
         raise AssertionError(f"flash_attention L={seq}: max err {err}, lse err {lse_err} "
                              f"beyond atol {FLASH_ATOL}")
     nbytes = 4 * (4 * q.numel() + FLASH_B * seq + FLASH_B * FLASH_H * seq)
-    t_b, by = bound(nbytes, 4 * FLASH_B * FLASH_H * seq * seq * FLASH_D)
-    iters = 50 if seq <= 128 else 20
-    ms = time_ms(lambda q, k, v, bias: fa.flash_attention_fwd(q, k, v, bias, False, scale),
-                 sets, iters)
-    plain_ms = time_ms(lambda q, k, v, bias: fa._plain_attention(q, k, v, bias, False, scale),
-                       sets, iters)
-    lib_ms = time_ms(lambda q, k, v, bias: F.scaled_dot_product_attention(
+    flops = 4 * FLASH_B * FLASH_H * seq * seq * FLASH_D
+    t_b, by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)  # 3xTF32: three TF32 passes
+    t_b32, by32 = bound(nbytes, flops)
+    # device time behind a sleep kernel: at L=128 the host's launch cost is
+    # longer than the kernel, and CUDA events around back-to-back calls
+    # would time the host
+    iters = 100 if seq <= 128 else 30
+    ms, host_ms = device_ms_sets(lambda q, k, v, bias: fa.flash_attention_fwd(
+        q, k, v, bias, False, scale), sets, iters)
+    plain_ms, _ = device_ms_sets(lambda q, k, v, bias: fa._plain_attention(
+        q, k, v, bias, False, scale), sets, iters)
+    lib_ms, _ = device_ms_sets(lambda q, k, v, bias: F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias), sets, iters)
     log(f"flash_attention {shape}: max err {err:.3g}, lse err {lse_err:.3g} (atol {FLASH_ATOL}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-        f"bound {t_b:.4f} ms ({by})")
+        f"kernel {ms:.4f} ms of device time (host {host_ms:.4f} ms a call), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound 3xTF32 {t_b:.4f} ms ({by}), FP32 "
+        f"{t_b32:.4f} ms ({by32})")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "shape": list(shape), "dtype": "float32",
             "max_abs_err": max(err, lse_err), "tolerance": f"atol {FLASH_ATOL}", "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
-            "library_ms": lib_ms}
+            "kernel_ms": ms, "timing": "device time behind a sleep kernel",
+            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
+            "bound_note": "3xTF32: 3 x products / 495 TFLOP/s", "bound_fp32_ms": t_b32,
+            "bound_fp32_by": by32, "library_ms": lib_ms}
 
 
-def check_layernorm_bwd(dtype_name):
-    """The backward kernel at the training path's [16384, 768] against the
-    plain version on the same inputs and saved statistics (the forward's
-    statistics at this shape are checked by ``check_layernorm``)."""
+def check_flash_fwd_shape(batch, seq, lk, d, causal, rate):
+    """The forward at [batch, 12, seq, d] with ``lk`` keys, a pad bias,
+    causal or not, against the plain version with the same seed: out and
+    lse within ``FLASH_ATOL`` (untimed)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shape = (batch, FLASH_H, seq, d)
+    q = torch.randn(shape, generator=g, device="cuda")
+    k, v = (torch.randn(batch, FLASH_H, lk, d, generator=g, device="cuda") for _ in range(2))
+    bias = _pad_bias(g, batch, lk)
+    seed = fa._draw_seed(g, "cuda") if rate else None
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
+    pout, plse = fa._plain_fwd(q, k, v, bias, causal, scale, rate, seed)
+    torch.cuda.synchronize()
+    err = float((out - pout).abs().max())
+    lse_err = float((lse - plse).abs().max())
+    label = (f"flash_attention_fwd {list(shape)} Lk {lk}{' causal' if causal else ''} rate "
+             f"{rate}")
+    log(f"{label}: out err {err:.3g}, lse err {lse_err:.3g} (atol {FLASH_ATOL})")
+    if not (err <= FLASH_ATOL and lse_err <= FLASH_ATOL):
+        raise AssertionError(f"{label}: out err {err}, lse err {lse_err} beyond atol {FLASH_ATOL}")
+    return {"shape": list(shape), "keys": lk, "causal": causal, "dropout_rate": rate,
+            "max_abs_err": err, "lse_err": lse_err, "tolerance": f"atol {FLASH_ATOL}"}
+
+
+def check_attention_crossover(seqs=(128, 256, 384, 512)):
+    """The flash kernel against the port's unfused attention (the branch
+    ``MultiHeadAttention`` takes below ``FLASH_ATTENTION_MIN_SEQ``: two
+    matmuls, the mask added, the port's softmax) at [8, 12, L, 64] with a pad
+    bias: the forward alone (serving), and forward plus backward at rate 0
+    (training). Device time behind a sleep kernel, no limits: the numbers
+    for the dispatch threshold."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    def unfused(q, k, v, bias, scale):
+        scores = torch.matmul(q, k.transpose(-1, -2)) * scale + bias
+        return torch.matmul(PF.softmax(scores, axis=-1), v)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for seq in seqs:
+        shape = (FLASH_B, FLASH_H, seq, FLASH_D)
+        scale = FLASH_D ** -0.5
+        sets = [(*(torch.randn(shape, generator=g, device="cuda") for _ in range(4)),
+                 _pad_bias(g, FLASH_B, seq)) for _ in range(3)]
+        iters = 50 if seq <= 256 else 20
+        fwd = {"flash": device_ms_sets(lambda q, k, v, do, bias: fa.flash_attention_fwd(
+                   q, k, v, bias, False, scale), sets, iters)[0],
+               "unfused": device_ms_sets(lambda q, k, v, do, bias: unfused(q, k, v, bias, scale),
+                                         sets, iters)[0]}
+
+        def train(fn):
+            def step(q, k, v, do, bias):
+                ins = [t.detach().requires_grad_() for t in (q, k, v)]
+                torch.autograd.grad(fn(*ins, bias), ins, do)
+            return device_ms_sets(step, sets, iters)[0]
+
+        both = {"flash": train(lambda q, k, v, bias: fa.flash_attention(q, k, v, bias,
+                                                                         scale=scale)),
+                "unfused": train(lambda q, k, v, bias: unfused(q, k, v, bias, scale))}
+        log(f"attention at {list(shape)}, pad bias: forward flash {fwd['flash']:.4f} ms, unfused "
+            f"{fwd['unfused']:.4f} ms; forward + backward flash {both['flash']:.4f} ms, unfused "
+            f"{both['unfused']:.4f} ms")
+        rows.append({"shape": list(shape), "forward_ms": fwd, "forward_backward_ms": both})
+    return rows
+
+
+def check_layernorm_bwd(dtype_name, rows=TRAIN_ROWS, h=LN_H, timed=True):
+    """The backward kernel at [rows, h] (the training path's [16384, 768] by
+    default) against the plain version on the same inputs and saved
+    statistics (the forward's statistics at 768 are checked by
+    ``check_layernorm``), and against itself: a second run must give the
+    same ``da`` and dw/db partials bit for bit."""
     import torch
     import torch.nn.functional as F
 
@@ -309,16 +403,19 @@ def check_layernorm_bwd(dtype_name):
 
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(3)
-    dev, rows, h, eps = "cuda", TRAIN_ROWS, LN_H, 1e-5
+    dev, eps = "cuda", 1e-5
     w = torch.randn(h, generator=g, device=dev)
     b = torch.randn(h, generator=g, device=dev)
     sets = []
-    for _ in range(3):
+    for _ in range(3 if timed else 1):
         x, r, dy = (torch.randn(rows, h, generator=g, device=dev).to(dtype) for _ in range(3))
         _, mean, rstd = lnr.layernorm_residual_fwd(x, r, w, b, eps)
         sets.append((x, r, w, mean, rstd, dy))
     x, r, _, mean, rstd, dy = sets[0]
+    variant = lnr._bwd_plan(rows, h, dtype, lnr._sm_count(x.device.index))[0]
     da, dwp, dbp = lnr.layernorm_residual_bwd(*sets[0])
+    again = lnr.layernorm_residual_bwd(*sets[0])
+    repeats = all(torch.equal(a_, b_) for a_, b_ in zip((da, dwp, dbp), again))
     pa, pw, pb = lnr._reference_bwd(*sets[0])
     dw_err = float((dwp.sum(0) - pw.sum(0)).abs().max() / pw.abs().max())
     db_err = float((dbp.sum(0) - pb.sum(0)).abs().max() / pb.abs().max())
@@ -336,14 +433,32 @@ def check_layernorm_bwd(dtype_name):
         tol = f"da within 1 bf16 ulp of the largest term (read {ulps:.3f})"
     ok = ok and dw_err <= LN_PARAM_RTOL and db_err <= LN_PARAM_RTOL
     tol += f"; dw, db rtol {LN_PARAM_RTOL} of the largest entry"
+    label = f"layernorm_residual_bwd {dtype_name} [{rows}, {h}] ({variant} variant)"
     if not ok:
-        raise AssertionError(f"layernorm_residual_bwd {dtype_name}: da err {err}, dw {dw_err}, "
-                             f"db {db_err} beyond {tol}")
+        raise AssertionError(f"{label}: da err {err}, dw {dw_err}, db {db_err} beyond {tol}")
+    if not repeats:
+        raise AssertionError(f"{label}: a second run differs (da or the dw/db partials)")
+    entry = {"name": "layernorm_residual_bwd", "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/layernorm_residual_bwd.cu",
+             "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:219",
+             "shape": [rows, h], "dtype": dtype_name, "variant": variant, "max_abs_err": err,
+             "dw_rel_err": dw_err, "db_rel_err": db_err, "tolerance": tol,
+             "repeats_bit_for_bit": repeats}
+    if not timed:
+        log(f"{label}: da err {err:.3g}, dw {dw_err:.3g}, db {db_err:.3g} ({tol}); a second run "
+            "equal bit for bit")
+        return entry
     in_bytes = x.element_size()
     # x, res, dy read and da written; mean, rstd, w read; dw, db written (the
     # function's outputs: the kernel's per-block partials are its own choice)
     t_b, by = bound(rows * h * 4 * in_bytes + 8 * rows + 4 * h + 8 * h, 12 * rows * h)
     ms = time_ms(lnr.layernorm_residual_bwd, sets, 100)
+
+    def whole(*args):  # what the autograd Function runs: the kernel, then the two sums
+        _, dwp_, dbp_ = lnr.layernorm_residual_bwd(*args)
+        return dwp_.sum(0), dbp_.sum(0)
+
+    whole_ms = time_ms(whole, sets, 100)
     plain_ms = time_ms(lnr._reference_bwd, sets, 100)
     graphs = []
     for x_, r_, w_, _, _, dy_ in sets:
@@ -352,16 +467,12 @@ def check_layernorm_bwd(dtype_name):
         graphs.append((y, ins, dy_))
     lib_ms = time_ms(lambda y, ins, dy_: torch.autograd.grad(y, ins, dy_, retain_graph=True),
                      graphs, 100)
-    log(f"layernorm_residual_bwd {dtype_name} [{rows}, {h}]: da err {err:.3g}, dw {dw_err:.3g}, "
-        f"db {db_err:.3g} ({tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{lib_ms:.4f} ms, bound {t_b:.4f} ms ({by})")
-    return {"name": "layernorm_residual_bwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/layernorm_residual_bwd.cu",
-            "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:219",
-            "shape": [rows, h], "dtype": dtype_name, "max_abs_err": err,
-            "dw_rel_err": dw_err, "db_rel_err": db_err, "tolerance": tol, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
-            "library_ms": lib_ms}
+    log(f"{label}: da err {err:.3g}, dw {dw_err:.3g}, db {db_err:.3g} ({tol}); a second run "
+        f"equal bit for bit; kernel {ms:.4f} ms (with the two partial sums {whole_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by})")
+    entry.update(ms=ms, kernel_ms=ms, whole_backward_ms=whole_ms, plain_ms=plain_ms,
+                 bound_ms=t_b, bound_by=by, library_ms=lib_ms)
+    return entry
 
 
 def _pad_bias(g, batch, seq):
@@ -539,8 +650,10 @@ def check_flash_dropout_fwd():
     err = max(float((out - pout).abs().max()), float((lse - plse).abs().max()))
     if err > FLASH_ATOL:
         raise AssertionError(f"flash forward with dropout: err {err} beyond atol {FLASH_ATOL}")
-    t_b, by = bound(4 * (4 * q.numel() + TRAIN_B * TRAIN_SEQ + TRAIN_B * FLASH_H * TRAIN_SEQ),
-                    4 * TRAIN_B * FLASH_H * TRAIN_SEQ * TRAIN_SEQ * FLASH_D)
+    nbytes = 4 * (4 * q.numel() + TRAIN_B * TRAIN_SEQ + TRAIN_B * FLASH_H * TRAIN_SEQ)
+    flops = 4 * TRAIN_B * FLASH_H * TRAIN_SEQ * TRAIN_SEQ * FLASH_D
+    t_b, by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    t_b32, _ = bound(nbytes, flops)
     run = lambda q, k, v, bias, seed: fa.flash_attention_fwd(  # noqa: E731
         q, k, v, bias, False, scale, ATTN_DROPOUT, seed)
     ms = time_ms(run, sets, 10)
@@ -555,14 +668,14 @@ def check_flash_dropout_fwd():
     log(f"flash_attention_fwd {list(shape)} dropout {ATTN_DROPOUT}: err {err:.3g} (atol "
         f"{FLASH_ATOL}); kernel {ms:.4f} ms ({ms_nodrop:.4f} ms without dropout), plain "
         f"{plain_ms:.4f} ms, library (SDPA, dropout_p {ATTN_DROPOUT}, its own mask) "
-        f"{lib_ms:.4f} ms, bound {t_b:.4f} ms ({by})")
+        f"{lib_ms:.4f} ms, bound 3xTF32 {t_b:.4f} ms ({by}), FP32 {t_b32:.4f} ms")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/flash_attention.py:548", "shape": list(shape),
             "dtype": "float32", "dropout_rate": ATTN_DROPOUT, "max_abs_err": err,
             "tolerance": f"atol {FLASH_ATOL}", "ms": ms, "kernel_ms": ms,
             "kernel_ms_without_dropout": ms_nodrop, "plain_ms": plain_ms, "bound_ms": t_b,
-            "bound_by": by, "library_ms": lib_ms,
+            "bound_by": by, "bound_fp32_ms": t_b32, "library_ms": lib_ms,
             "library": f"scaled_dot_product_attention, dropout_p {ATTN_DROPOUT}, its own mask"}
 
 
@@ -572,19 +685,31 @@ def check_kernels():
     dtype the training path gives them (f32, batch 32 x L=512), the
     attention forward at the serving shape, as before. The other shapes and
     options checked ride along under ``also_checked``, without launch
-    counts: the LayerNorm forward at the serving shape and in bf16, the
+    counts: the LayerNorm forward at the serving shape and in bf16; its
+    backward in bf16 (timed), at a ragged [12345, 1024] in f32 and bf16 and
+    at [37, 4100], a width the row variant does not take (untimed); the
     attention forward at the training shape with dropout and at L=128
-    (where the TPU took its small variant), the dropout masks, and the
-    attention backward at rate 0 and causal at L=128 (timed), at D = 32 and
-    128 and at ragged causal shapes with Lq != Lk (untimed)."""
+    (where the TPU took its small variant), the dropout masks, at D = 32
+    and 128 and at ragged causal shapes with Lq != Lk (untimed), and
+    against the unfused attention at L = 128-512 (timed); the attention
+    backward at rate 0 and causal at L=128 (timed), at D = 32 and 128 and at
+    ragged causal shapes with Lq != Lk (untimed)."""
     ln = check_layernorm("float32", TRAIN_ROWS)
     ln["also_checked"] = [check_layernorm("float32", LN_ROWS),
                           check_layernorm("bfloat16", LN_ROWS)]
     ln_bwd = check_layernorm_bwd("float32")
-    ln_bwd["also_checked"] = [check_layernorm_bwd("bfloat16")]
+    ln_bwd["also_checked"] = [check_layernorm_bwd("bfloat16"),
+                              check_layernorm_bwd("float32", 12345, 1024, timed=False),
+                              check_layernorm_bwd("bfloat16", 12345, 1024, timed=False),
+                              check_layernorm_bwd("float32", 37, 4100, timed=False)]
     fa = check_flash(SEQ_LEN, "paddle_tpu/ops/pallas/flash_attention.py:548")
     fa["also_checked"] = [check_flash(128, "paddle_tpu/ops/pallas/flash_attention.py:370"),
-                          check_flash_dropout_fwd(), {"dropout_masks": check_dropout_masks()}]
+                          check_flash_dropout_fwd(), {"dropout_masks": check_dropout_masks()},
+                          check_flash_fwd_shape(4, 256, 256, 32, True, ATTN_DROPOUT),
+                          check_flash_fwd_shape(4, 256, 256, 128, True, ATTN_DROPOUT),
+                          check_flash_fwd_shape(2, 300, 257, 64, True, 0.0),
+                          check_flash_fwd_shape(2, 257, 300, 32, True, ATTN_DROPOUT),
+                          {"crossover_vs_unfused": check_attention_crossover()}]
     tiled = ("paddle_tpu/ops/pallas/flash_attention.py:765",
              "paddle_tpu/ops/pallas/flash_attention.py:815")
     small = ("paddle_tpu/ops/pallas/flash_attention.py:433",) * 2
@@ -630,7 +755,7 @@ _KERNEL_KINDS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attenti
 
 
 def _kernel_kind(name):
-    n = name.lower()
+    n = name.lower().replace("_row_kernel", "_kernel")  # the LayerNorm backward's row variant
     for kind in _KERNEL_KINDS:
         if f"{kind}_kernel" in n:
             return kind
@@ -1023,8 +1148,9 @@ def train_bert():
     mean_ms = float(np.mean(step_ms))
     log(f"{TRAIN_STEPS} steps at batch {TRAIN_B} x L={TRAIN_SEQ}, {TRAIN_PRED} masked a row, "
         f"dropout {cfg.hidden_dropout_prob}: losses {', '.join(f'{x:.6f}' for x in losses)}")
-    log(f"step {mean_ms:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}; host clock "
-        f"{wall_ms:.2f}), {tokens / mean_ms * 1e3:.0f} tokens/s; peak device memory "
+    log(f"step {mean_ms:.2f} ms (median {float(np.median(step_ms)):.2f}, min {min(step_ms):.2f}, "
+        f"max {max(step_ms):.2f}; host clock {wall_ms:.2f}), {tokens / mean_ms * 1e3:.0f} "
+        f"tokens/s; peak device memory "
         f"{peak:.1f} GiB; launches {counts}: "
         f"{2 * layers} + {2 * layers} LayerNorm, {layers} attention forward, {layers} dQ, "
         f"{layers} dK/dV a step")
@@ -2059,7 +2185,8 @@ def serve_int8():
 
 
 # the sources rewritten last, whose registers and spills the run logs
-PTXAS_SOURCES = ("flash_attention_bwd", "optimizer_update")
+PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "layernorm_residual_bwd",
+                 "optimizer_update")
 
 
 def start_ptxas(names=PTXAS_SOURCES):

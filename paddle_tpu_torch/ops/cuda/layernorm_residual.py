@@ -13,8 +13,10 @@ memory, and takes the variance two-pass over those registers. The
 backward (``csrc/layernorm_residual_bwd.cu``) recomputes ``x + res`` the
 same way, keeps the ``dw``/``db`` partials of a run of rows in registers
 and writes them per block; :func:`layernorm_residual` sums them, as the
-JAX package sums its per-tile partials. No atomics, so gradients repeat
-bit for bit.
+JAX package sums its per-tile partials. It has two variants, which
+:func:`_bwd_plan` picks with its grid: a warp a row for the widths that fit
+a warp's registers (BERT's 768), and a block a row for the rest. No
+atomics, so gradients repeat bit for bit.
 
 :func:`layernorm_residual` is a ``torch.autograd.Function`` over the two
 entries. A tensor on the CPU takes the plain versions (:func:`_reference`
@@ -24,6 +26,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -35,9 +38,15 @@ __all__ = ["layernorm_residual", "layernorm_residual_fwd", "layernorm_residual_b
 
 _MAX_H = 16384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# rows one backward block walks: ~1024 blocks at BERT's 16384 rows, so the
+# the backward's block variant: ~1024 blocks at BERT's 16384 rows, so the
 # partials add ~4% to the kernel's traffic and the card stays full
 _BWD_MAX_BLOCKS = 1024
+# the backward's row variant (a warp a row, 16-byte accesses): widest row,
+# warps a block and blocks an SM; it takes H a multiple of 32 lanes times 16
+# bytes of the dtype
+_ROW_MAX_H = 1024
+_ROW_WARPS = 8
+_ROW_BLOCKS_PER_SM = 1
 
 #: kernel launches since the last reset (counted where each kernel launches)
 LAUNCHES = 0
@@ -70,6 +79,28 @@ def _reference_bwd(x2, r2, w, mean, rstd, dy2):
     c2 = (wdy * xhat).mean(dim=-1, keepdim=True)
     da = rstd[:, None] * (wdy - c1 - xhat * c2)
     return da.to(x2.dtype), (dy * xhat).sum(0, keepdim=True), dy.sum(0, keepdim=True)
+
+
+def _bwd_plan(rows, h, dtype, sm_count):
+    """The backward kernel's variant and grid for ``rows >= 1`` rows of
+    ``h`` values of ``dtype`` on a card of ``sm_count`` SMs: ``(variant,
+    rows_per_block, nblocks)``, ``variant`` ``"row"`` (a warp a row; the C
+    entry takes it by the same rule) or ``"block"`` (a block a row), and
+    ``nblocks = ceil(rows / rows_per_block)`` partial rows."""
+    width = 32 * 16 // dtype.itemsize
+    if h % width == 0 and h <= _ROW_MAX_H:
+        variant = "row"
+        nblocks = min(-(-rows // _ROW_WARPS), _ROW_BLOCKS_PER_SM * sm_count)
+    else:
+        variant = "block"
+        nblocks = min(rows, _BWD_MAX_BLOCKS)
+    per_block = -(-rows // nblocks)
+    return variant, per_block, -(-rows // per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _bind(lib, symbol, argtypes):
@@ -163,8 +194,10 @@ def layernorm_residual_bwd(x2, r2, w, mean, rstd, dy2):
     if mean.dtype != torch.float32 or rstd.dtype != torch.float32:
         raise TypeError("layernorm_residual_bwd: mean/rstd must be float32")
     w = w.float().contiguous()
-    per_block = -(-rows // min(rows, _BWD_MAX_BLOCKS))
-    nblocks = -(-rows // per_block)
+    variant, per_block, nblocks = _bwd_plan(rows, h, x2.dtype, _sm_count(x2.device.index))
+    if variant == "row" and any(t.data_ptr() % 16 for t in (x2, r2, dy2, w)):
+        raise ValueError("layernorm_residual_bwd: x, residual, dy and weight must be 16-byte "
+                         "aligned")
     da = torch.empty_like(x2)
     dwp = torch.empty(nblocks, h, device=x2.device, dtype=torch.float32)
     dbp = torch.empty(nblocks, h, device=x2.device, dtype=torch.float32)

@@ -252,3 +252,36 @@ def test_backward_entry_refuses_non_cpu_tensors_and_counts_no_empty_launch():
                                                torch.empty(0, **meta), empty)
     assert tlnr.BWD_LAUNCHES == before
     assert da.shape == (0, 128) and dwp.shape == dbp.shape == (1, 128)
+
+
+@pytest.mark.parametrize("rows,h,dtype,variant", [
+    (16384, 768, torch.float32, "row"), (16384, 768, torch.bfloat16, "row"),
+    (12345, 1024, torch.float32, "row"), (1, 768, torch.float32, "row"),
+    (7, 256, torch.bfloat16, "row"), (37, 4100, torch.float32, "block"),
+    (37, 100, torch.float32, "block"), (5, 384, torch.bfloat16, "block"),
+    (5, 1152, torch.float32, "block"), (2000, 16384, torch.float32, "block")])
+def test_backward_plan_picks_the_variant_and_grid(rows, h, dtype, variant):
+    """The row variant takes H a multiple of 32 lanes x 16 bytes up to 1024;
+    its grid is a fixed number of blocks an SM (fewer for few rows), the
+    block variant's up to 1024 blocks; every partial row covers >= 1 row."""
+    sms = 132
+    got, per_block, nblocks = tlnr._bwd_plan(rows, h, dtype, sms)
+    assert got == variant
+    assert per_block >= 1 and (nblocks - 1) * per_block < rows <= nblocks * per_block
+    if variant == "row":
+        assert nblocks == min(-(-rows // tlnr._ROW_WARPS), tlnr._ROW_BLOCKS_PER_SM * sms)
+    else:
+        assert nblocks <= tlnr._BWD_MAX_BLOCKS
+
+
+def test_backward_plan_mirrors_the_kernel_source():
+    """The C entry picks the variant by the same rule: its constants equal
+    the wrapper's."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tlnr.__file__), "..", "..", "csrc",
+                            "layernorm_residual_bwd.cu")).read()
+    consts = dict(re.findall(r"constexpr int (kRow\w+) = (\d+);", src))
+    assert int(consts["kRowWarps"]) == tlnr._ROW_WARPS
+    assert int(consts["kRowMaxH"]) == tlnr._ROW_MAX_H

@@ -13,6 +13,9 @@ from zero, to 10 mantissa bits) and a product is ``hi*hi + hi*lo + lo*hi``
 accumulated in f32. The emulation below computes the backward with that
 arithmetic on the CPU and shows that it stays within the kernels' limit
 (``FLASH_ATOL`` of ``chip_smoke.py``) of float64, where single TF32 does not.
+The forward kernel computes its two products the same way, with an online
+softmax over tiles of keys; its emulation is held against float64 and the
+JAX package's attention.
 """
 import sys
 
@@ -24,6 +27,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from paddle_tpu.ops.pallas import optimizer_update as _  # noqa: E402,F401
+from paddle_tpu.ops.pallas.flash_attention import flash_attention as jax_flash  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa  # noqa: E402
 from paddle_tpu_torch.ops.cuda import optimizer_update as tou  # noqa: E402
 
@@ -189,5 +193,63 @@ def test_3xtf32_attention_backward_stays_within_the_limit_and_tf32_does_not():
     for passes in (3, 1):
         got = _bwd_emulated(*args[:4], args[4], True, scale, passes)
         errs[passes] = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
+    assert errs[3] <= FLASH_ATOL, errs
+    assert errs[1] > FLASH_ATOL, errs
+
+
+# -- the attention forward in 3xTF32 ------------------------------------------------
+
+
+def _fwd_emulated(q, k, v, bias, causal, scale, passes, bk):
+    """(out, lse) as the forward kernel computes them: over tiles of ``bk``
+    keys, S = q k^T through :func:`mm_tf32`, scaled, masked with -1e30 and
+    biased; the running max m rescales the running sum l and the output by
+    exp(m_old - m_new) a tile, and P v goes through :func:`mm_tf32` too."""
+    lq, lk = q.shape[-2], k.shape[-2]
+    m = torch.full(q.shape[:-1], -1e30)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, lk, bk):
+        kt, vt = k[..., k0:k0 + bk, :], v[..., k0:k0 + bk, :]
+        s = mm_tf32(q, kt.transpose(-1, -2), passes) * scale
+        if causal:
+            keep = (torch.arange(lq)[:, None] + (lk - lq)
+                    >= torch.arange(k0, k0 + kt.shape[-2])[None, :])
+            s = torch.where(keep, s, torch.full_like(s, -1e30))
+        s = s + bias[..., k0:k0 + bk]
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + mm_tf32(p, vt, passes)
+        m = m_new
+    lsafe = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / lsafe[..., None], m + torch.log(lsafe)
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 2, 128, 64), False), ((2, 2, 128, 64), True),
+                                          ((1, 2, 512, 64), False)])
+def test_3xtf32_attention_forward_stays_within_the_limit_and_tf32_does_not(shape, causal):
+    """A pad bias, the kernel's 32-key tiles at D = 64: the 3xTF32 forward's
+    out and lse are within ``FLASH_ATOL`` of float64, and its out of the JAX
+    package's attention on the same numpy inputs; single TF32 is not."""
+    rng = np.random.RandomState(22 + shape[2])
+    b, h, l, d = shape
+    q, k, v = (rng.randn(b, h, l, d).astype("f4") for _ in range(3))
+    lens = rng.randint(l // 2, l + 1, size=b)
+    bias = ((1.0 - (np.arange(l)[None, :] < lens[:, None])) * -1e4).astype("f4")[:, None, None]
+    scale = d ** -0.5
+    t64 = [torch.from_numpy(a).double() for a in (q, k, v, bias)]
+    want = tfa._plain_attention(*t64, causal, scale)
+    want_lse = torch.logsumexp(tfa._scores(t64[0], t64[1], t64[3], causal, scale), dim=-1)
+    jax_out = np.asarray(jax_flash(q, k, v, bias=bias, causal=causal))
+    args = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    errs = {}
+    for passes in (3, 1):
+        out, lse = _fwd_emulated(*args, causal, scale, passes, bk=32)
+        errs[passes] = max(float((out.double() - want).abs().max()),
+                           float((lse.double() - want_lse).abs().max()))
+        if passes == 3:
+            assert float(np.abs(out.numpy() - jax_out).max()) <= FLASH_ATOL
     assert errs[3] <= FLASH_ATOL, errs
     assert errs[1] > FLASH_ATOL, errs
