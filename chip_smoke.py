@@ -36,9 +36,11 @@ Phases, each fatal on failure:
    and, from ``torch.profiler``, where one step's time goes;
 7. hold the ResNet path's kernels (fused conv + batch norm + relu, the
    momentum update) against their plain versions at ResNet-50's shapes
-   (layer1's 3x3 conv at batch 128; the stem, a ragged shape, the serving
-   batch and all 161 parameters besides), timing each with its bound and a
-   library call;
+   (layer1's 3x3 conv at batch 128, with a one-pass TF32 control the conv
+   limit must catch; the stem, a ragged shape, the serving batch 32, the
+   33 products of a batch-1 and a batch-8 forward with their split-K calls
+   counted, and all 161 parameters besides), timing each with its bound
+   and a library call;
 8. serve ResNet-50 (224 x 224, eval, f32, random weights from a seed)
    through ``Predictor`` -> ``InferenceServer`` at buckets 1, 8 and 32,
    check every answer against the port's plain forward on the CPU and that
@@ -756,6 +758,7 @@ _KERNEL_KINDS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attenti
 
 def _kernel_kind(name):
     n = name.lower().replace("_row_kernel", "_kernel")  # the LayerNorm backward's row variant
+    n = n.replace("conv_mm_reduce_kernel", "conv_mm_kernel")  # split-K's second pass
     for kind in _KERNEL_KINDS:
         if f"{kind}_kernel" in n:
             return kind
@@ -1182,9 +1185,10 @@ RN_TRIPLES = 33  # fused conv + bn + relu: the stem, conv1/bn1 and conv2/bn2 of 
 RN_PARAMS = 161
 # layer1's 3x3 conv at batch 128: the counted entry of the six conv kernels
 CONV_M, CONV_K, CONV_N = RN_B * 56 * 56, 64 * 9, 64
-# products of K float32 terms, relative to the largest output: room for
-# another summation order than cuBLAS's (the kernel's sequential FMA chain
-# over K read bit-equal to cuBLAS's on the H100)
+# products of K float32 terms, relative to the largest output: room for the
+# kernels' 3xTF32 products (about 21 bits of each operand, summed in another
+# order than cuBLAS's) against the plain f32 product; one TF32 pass (11 bits)
+# lands past it, which check_conv_mm's control requires
 CONV_MM_RTOL = 2e-5
 # channel sums of M float32 terms in another order: relative to the
 # channel's sum of |terms|
@@ -1220,10 +1224,21 @@ def _conv_sets(g, m, k, n, count):
     return out
 
 
-def check_conv_mm(m, k, n, label, timed=True):
+def _conv_bounds(m, k, n, out_vectors):
+    """(3xTF32 bound ms, by what, FP32 bound ms) of one conv product with
+    ``out_vectors`` [N] vectors besides p2, w2 and the [M, N] output."""
+    flops = 2 * m * k * n
+    moved = 4 * (m * k + k * n + m * n + out_vectors * n)
+    t, by = bound(moved, flops, peak=TF32_FLOPS_PER_S / 3)
+    return t, by, bound(moved, flops)[0]
+
+
+def check_conv_mm(m, k, n, label, timed=True, tf32_control=False):
     """Rows 8 and 9 (``conv_bn_relu_mm.cu``) at [m, k] @ [k, n] against the
     plain versions on the same inputs: the eval affine + relu output, and
-    the training ``co`` with its channel sums."""
+    the training ``co`` with its channel sums, which must repeat bit for
+    bit. With ``tf32_control``, ``torch.matmul`` in one TF32 pass on the
+    same inputs must land past ``CONV_MM_RTOL``."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr
@@ -1234,6 +1249,7 @@ def check_conv_mm(m, k, n, label, timed=True):
     y = cbr.mm_affine_relu(p2, w2, scale, shift)
     y_ref = cbr._mm_affine_relu_plain(p2, w2, scale, shift)
     co, part = cbr.mm_stats(p2, w2)
+    co2, part2 = cbr.mm_stats(p2, w2)
     co_ref, part_ref = cbr._mm_stats_plain(p2, w2)
     torch.cuda.synchronize()
     err8 = _rel(y, y_ref)
@@ -1244,19 +1260,34 @@ def check_conv_mm(m, k, n, label, timed=True):
     if err8 > CONV_MM_RTOL or err9 > CONV_MM_RTOL or sum_err > CONV_SUM_RTOL:
         raise AssertionError(f"conv matmul {label} [{m}, {k}] @ [{k}, {n}]: affine+relu err "
                              f"{err8}, co err {err9}, sums err {sum_err} beyond {tol9}")
-    flops = 2 * m * k * n
-    b8, by8 = bound(4 * (m * k + k * n + m * n + 2 * n), flops + 3 * m * n)
-    b9, by9 = bound(4 * (m * k + k * n + m * n + n), flops + m * n)
+    if not (torch.equal(co, co2) and torch.equal(part, part2)):
+        raise AssertionError(f"conv matmul {label}: a second mm_stats run differs")
+    b8, by8, f8 = _conv_bounds(m, k, n, 2)
+    b9, by9, f9 = _conv_bounds(m, k, n, 0)
     e8 = {"name": "conv_bn_relu_mm_affine_relu", "route": "cuda", "source": _CONV_SRC,
           "replaces": f"{_CBR}:306", "shape": [m, k, n], "label": label, "dtype": "float32",
           "max_abs_err": float((y - y_ref).abs().max()), "rel_err": err8, "tolerance": tol8,
-          "bound_ms": b8, "bound_by": by8}
+          "bound_ms": b8, "bound_by": by8, "bound_fp32_ms": f8,
+          "splits": cbr._split_k(m, k, n)[0]}
     e9 = {"name": "conv_bn_relu_mm_stats", "route": "cuda", "source": _CONV_SRC,
           "replaces": f"{_CBR}:337", "shape": [m, k, n], "label": label, "dtype": "float32",
           "max_abs_err": float((co - co_ref).abs().max()), "rel_err": err9,
-          "sums_rel_err": sum_err, "tolerance": tol9, "bound_ms": b9, "bound_by": by9}
+          "sums_rel_err": sum_err, "tolerance": tol9, "bound_ms": b9, "bound_by": by9,
+          "bound_fp32_ms": f9, "repeats_bit_for_bit": True}
+    if tf32_control:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = _rel(torch.matmul(p2, w2), co_ref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"conv matmul {label}: TF32 control (torch.matmul, one TF32 pass) err {tf32:.3g} "
+            f"(limit {CONV_MM_RTOL}; the kernel read {err9:.3g})")
+        if not tf32 > CONV_MM_RTOL:
+            raise AssertionError(f"conv matmul TF32 control {tf32} passes {CONV_MM_RTOL}: the "
+                                 "limit cannot tell 3xTF32 from TF32")
+        e8["tf32_control_rel_err"] = e9["tf32_control_rel_err"] = tf32
     if timed:
-        iters = max(5, min(50, int(3e11 / flops)))
+        iters = max(5, min(50, int(1.5e11 / (m * k * n))))
         e8["ms"] = e8["kernel_ms"] = time_ms(cbr.mm_affine_relu, sets, iters)
         e8["plain_ms"] = time_ms(cbr._mm_affine_relu_plain, sets, iters)
         e9["ms"] = e9["kernel_ms"] = time_ms(lambda p, w, s_, b_: cbr.mm_stats(p, w), sets, iters)
@@ -1266,12 +1297,91 @@ def check_conv_mm(m, k, n, label, timed=True):
         e8["library"] = e9["library"] = "torch.matmul(p2, w2), f32, TF32 off (the product alone)"
         log(f"conv matmul {label} [{m}, {k}] @ [{k}, {n}]: affine+relu err {err8:.3g}, co err "
             f"{err9:.3g}, sums {sum_err:.3g} ({tol9}); affine+relu {e8['ms']:.4f} ms (bound "
-            f"{b8:.4f}, {by8}), stats {e9['ms']:.4f} ms (bound {b9:.4f}), plain "
-            f"{e8['plain_ms']:.4f} / {e9['plain_ms']:.4f} ms, torch.matmul {lib:.4f} ms")
+            f"{b8:.4f} {by8} in 3xTF32, FP32 {f8:.4f}), stats {e9['ms']:.4f} ms (bound "
+            f"{b9:.4f}), plain {e8['plain_ms']:.4f} / {e9['plain_ms']:.4f} ms, torch.matmul "
+            f"{lib:.4f} ms")
     else:
         log(f"conv matmul {label} [{m}, {k}] @ [{k}, {n}]: affine+relu err {err8:.3g}, co err "
             f"{err9:.3g}, sums {sum_err:.3g} ({tol9})")
     return e8, e9
+
+
+def _rn50_fused_products(batch, hw=RN_HW):
+    """(M, K, N) of ResNet-50's 33 fused conv + bn + relu products at
+    ``batch`` images of ``hw`` x ``hw``: the stem, then each bottleneck's
+    conv1 (1x1) and conv2 (3x3, stride 2 in the first block of layers 2-4)."""
+    hw //= 2
+    out = [(batch * hw * hw, 3 * 7 * 7, 64)]
+    hw //= 2  # the stem's max pool
+    cin = 64
+    for width, blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)):
+        for i in range(blocks):
+            out.append((batch * hw * hw, cin, width))
+            hw //= stride if i == 0 else 1
+            out.append((batch * hw * hw, 9 * width, width))
+            cin = 4 * width
+    return out
+
+
+def check_conv_serving(batch, per_product=True):
+    """Row 8b: the 33 fused eval products of a ResNet-50 forward at serving
+    batch ``batch``, each against its plain version, the split-K calls
+    counted against the planner's; then the device time of the 33 kernel
+    calls in a row against 33 ``torch.matmul`` calls (the L2 cannot hold
+    the weights of all 33), and with ``per_product`` each product's."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    shapes = _rn50_fused_products(batch)
+    if len(shapes) != RN_TRIPLES:
+        raise AssertionError(f"{len(shapes)} fused products, not {RN_TRIPLES}")
+    sets = [_conv_sets(g, m, k, n, 1)[0] for m, k, n in shapes]
+    splits0 = cbr.MM_AFFINE_RELU_SPLITS
+    worst, worst_abs = 0.0, 0.0
+    for (m, k, n), args in zip(shapes, sets):
+        y, y_ref = cbr.mm_affine_relu(*args), cbr._mm_affine_relu_plain(*args)
+        err = _rel(y, y_ref)
+        if err > CONV_MM_RTOL:
+            raise AssertionError(f"conv product [{m}, {k}] @ [{k}, {n}] at batch {batch}: err "
+                                 f"{err} beyond {CONV_MM_RTOL}")
+        worst, worst_abs = max(worst, err), max(worst_abs, float((y - y_ref).abs().max()))
+    splits = cbr.MM_AFFINE_RELU_SPLITS - splits0
+    want = sum(cbr._split_k(*s)[0] > 1 for s in shapes)
+    if splits != want:
+        raise AssertionError(f"{splits} of the {len(shapes)} products took split-K; the planner "
+                             f"splits {want}")
+    per = []
+    if per_product:
+        for (m, k, n), (p2, w2, sc, sh) in zip(shapes, sets):
+            kms = device_ms(lambda: cbr.mm_affine_relu(p2, w2, sc, sh), 20)[0]
+            lms = device_ms(lambda: torch.matmul(p2, w2), 20)[0]
+            per.append((m, k, n, cbr._split_k(m, k, n)[0], kms, lms))
+    ms = device_ms(lambda: [cbr.mm_affine_relu(*a) for a in sets], 10)[0]
+    plain = device_ms(lambda: [cbr._mm_affine_relu_plain(*a) for a in sets], 10)[0]
+    lib = device_ms(lambda: [torch.matmul(a[0], a[1]) for a in sets], 10)[0]
+    bounds = [_conv_bounds(m, k, n, 2) for m, k, n in shapes]
+    b, f = sum(x[0] for x in bounds), sum(x[2] for x in bounds)
+    by = max(("bytes", "operations"), key=lambda w: sum(x[0] for x in bounds if x[1] == w))
+    for m, k, n, s, kms, lms in per:
+        log(f"  bucket {batch} product [{m}, {k}] @ [{k}, {n}], {s} slice(s): kernel {kms:.4f} "
+            f"ms, torch.matmul {lms:.4f} ms")
+    log(f"ResNet-50 bucket {batch}, {len(shapes)} fused products: err {worst:.3g} (limit "
+        f"{CONV_MM_RTOL}), {splits} took split-K; device time in a row {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {b:.4f} ms (3xTF32; FP32 {f:.4f})")
+    entry = {"name": "conv_bn_relu_mm_affine_relu", "route": "cuda", "source": _CONV_SRC,
+             "replaces": f"{_CBR}:306", "label": f"ResNet-50 serving batch {batch}: the "
+             f"{len(shapes)} fused products in a row, device time", "shape": shapes,
+             "dtype": "float32", "max_abs_err": worst_abs, "rel_err": worst,
+             "tolerance": f"rtol {CONV_MM_RTOL} of each product's largest output",
+             "splits": splits, "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+             "library": "torch.matmul(p2, w2) for each product, f32, TF32 off",
+             "bound_ms": b, "bound_by": by, "bound_fp32_ms": f}
+    if per:
+        entry["per_product"] = [dict(zip(("m", "k", "n", "slices", "ms", "library_ms"), r))
+                                for r in per]
+    return entry
 
 
 def check_bn_passes(m, n, label, timed=True, mean_offset=1.0, std=1.0):
@@ -1494,17 +1604,21 @@ def check_resnet_kernels():
     """One entry per kernel of the ResNet path (rows 8-14) at layer1's 3x3
     conv at batch 128 (the momentum update at ResNet-50's largest
     parameter); the stem (K = 147), a ragged shape (M, N off every tile,
-    N % 4 != 0), row 8 at the serving batch, the large-mean variance and
-    all 161 parameters ride along under ``also_checked``."""
+    N % 4 != 0), layer4's K = 4608, row 8 at the serving batch 32 and the
+    33 products of batches 1 and 8, the large-mean variance and all 161
+    parameters ride along under ``also_checked``."""
     import torch
 
-    e8, e9 = check_conv_mm(CONV_M, CONV_K, CONV_N, "layer1 3x3, batch 128")
+    e8, e9 = check_conv_mm(CONV_M, CONV_K, CONV_N, "layer1 3x3, batch 128", tf32_control=True)
     s8, s9 = check_conv_mm(RN_B * 112 * 112, 3 * 7 * 7, 64, "stem 7x7, batch 128")
     r8, r9 = check_conv_mm(12345, 147, 70, "ragged", timed=False)
+    d8, d9 = check_conv_mm(RN_B * 7 * 7, 9 * 512, 512, "layer4 3x3, batch 128 (K = 4608)",
+                           timed=False)
     v8, _ = check_conv_mm(RN_BUCKETS[-1] * 56 * 56, CONV_K, CONV_N,
                           f"layer1 3x3, serving batch {RN_BUCKETS[-1]}")
-    e8["also_checked"] = [s8, r8, v8]
-    e9["also_checked"] = [s9, r9]
+    e8["also_checked"] = [s8, r8, d8, v8, check_conv_serving(RN_BUCKETS[0]),
+                          check_conv_serving(RN_BUCKETS[1], per_product=False)]
+    e9["also_checked"] = [s9, r9, d9]
     bn = check_bn_passes(CONV_M, CONV_N, "layer1 3x3, batch 128")
     ragged = check_bn_passes(12345, 70, "ragged", timed=False)
     large = check_bn_passes(CONV_M, CONV_N, "mean ~100, std ~0.1", timed=False,
@@ -1552,6 +1666,7 @@ def serve_resnet():
 
     from paddle_tpu_torch.inference import Predictor
     from paddle_tpu_torch.jit_api import InputSpec
+    from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr
 
     specs = [InputSpec([None, 3, RN_HW, RN_HW], "float32", "image")]
     model = _resnet50(seed=0)
@@ -1579,8 +1694,13 @@ def serve_resnet():
     want = {name: want.get(name, 0) for name in counts}
     if forwards <= 0 or counts != want:
         raise AssertionError(f"ResNet launches {counts} over {forwards} forwards; want {want}")
+    splits = cbr.MM_AFFINE_RELU_SPLITS
+    at_one = sum(cbr._split_k(*s)[0] > 1 for s in _rn50_fused_products(RN_BUCKETS[0]))
+    if not at_one <= splits <= RN_TRIPLES * forwards:
+        raise AssertionError(f"ResNet serving: {splits} split-K products over {forwards} "
+                             f"forwards; the bucket-1 forward alone splits {at_one}")
     log(f"ResNet-50: {forwards} forwards, launches {counts}: {RN_TRIPLES} fused eval kernels "
-        "each")
+        f"each; {splits} of them took split-K")
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -1831,10 +1951,12 @@ def train_resnet():
         mean_ms, off_mean = float(np.mean(step_ms)), float(np.mean(off_ms))
         log(f"ResNet-50 {RN_STEPS} steps at batch {RN_B} x {RN_HW}^2, Momentum lr {RN_LR}, "
             f"max-pool backward kernel on: losses {', '.join(f'{x:.6f}' for x in losses)}")
-        log(f"ResNet-50 step {mean_ms:.2f} ms with the pool kernel (min {min(step_ms):.2f}, max "
-            f"{max(step_ms):.2f}; host clock {wall_ms:.2f}), {RN_B / mean_ms * 1e3:.1f} images/s; "
-            f"with the flag off {off_mean:.2f} ms (min {min(off_ms):.2f}, max {max(off_ms):.2f} "
-            f"over {RN_STEPS_FLAG_OFF} steps), {RN_B / off_mean * 1e3:.1f} images/s; peak device "
+        log(f"ResNet-50 step {mean_ms:.2f} ms with the pool kernel (median "
+            f"{float(np.median(step_ms)):.2f}, min {min(step_ms):.2f}, max {max(step_ms):.2f}; "
+            f"host clock {wall_ms:.2f}), {RN_B / mean_ms * 1e3:.1f} images/s; with the flag off "
+            f"{off_mean:.2f} ms (median {float(np.median(off_ms)):.2f}, min {min(off_ms):.2f}, max "
+            f"{max(off_ms):.2f} over {RN_STEPS_FLAG_OFF} steps), {RN_B / off_mean * 1e3:.1f} "
+            f"images/s; peak device "
             f"memory {peak:.1f} GiB; launches {counts}: {RN_TRIPLES} of each training conv kernel, "
             f"{_rn_momentum_launches()} momentum launches updating {RN_PARAMS} tensors and 1 "
             "max-pool backward a step")
@@ -2186,7 +2308,9 @@ def serve_int8():
 
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "layernorm_residual_bwd",
-                 "optimizer_update")
+                 "optimizer_update", "conv_bn_relu_mm")
+# of those, the sources whose kernels must not spill
+NO_SPILL_SOURCES = ("conv_bn_relu_mm",)
 
 
 def start_ptxas(names=PTXAS_SOURCES):
@@ -2244,6 +2368,8 @@ def finish_ptxas(tmp, procs):
         report[name] = kernels
         for kname, info in kernels.items():
             log(f"ptxas {name}.cu {kname}: {info}")
+            if name in NO_SPILL_SOURCES and (info.get("spill_stores") or info.get("spill_loads")):
+                raise AssertionError(f"{name}.cu {kname} spills: {info}")
     shutil.rmtree(tmp, ignore_errors=True)
     return report
 

@@ -52,7 +52,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
-#include "tf32x3.cuh"
+#include "attention_staging.cuh"
 
 namespace {
 

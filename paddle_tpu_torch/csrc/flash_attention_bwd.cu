@@ -24,9 +24,9 @@
 // in exchange every block writes only its own rows, so no atomics and the
 // gradients repeat bit for bit.
 //
-// Design (the 3xTF32 helpers and the split staging are in tf32x3.cuh, shared
-// with the forward). A block is 4 warps and owns 64 rows: query rows in the
-// dQ kernel, key rows in the dK/dV kernel; each warp owns 16 of them. The block's own
+// Design (the 3xTF32 helpers are in tf32x3.cuh and the split staging in
+// attention_staging.cuh, both shared with the forward). A block is 4 warps
+// and owns 64 rows: query rows in the dQ kernel, key rows in the dK/dV kernel; each warp owns 16 of them. The block's own
 // rows (q and dO, or k and v) sit in shared memory for the whole kernel; the
 // other operand (k and v, or q, dO, lse and delta) streams through in tiles
 // of BS rows (32 at D = 64). Every operand is split into hi/lo once, as it
@@ -76,7 +76,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
-#include "tf32x3.cuh"
+#include "attention_staging.cuh"
 
 namespace {
 

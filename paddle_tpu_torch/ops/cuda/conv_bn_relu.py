@@ -8,7 +8,9 @@ package's ``conv_general_dilated_patches``), and six kernels do the rest:
 
 - eval, ``csrc/conv_bn_relu_mm.cu``: :func:`mm_affine_relu` computes
   ``relu((p2 @ w2) * scale + shift)`` with the pre-activation kept out of
-  device memory (``_mm_affine_relu``, ``:306``);
+  device memory (``_mm_affine_relu``, ``:306``); where its output tiles
+  would not fill the card (serving at small batch) it splits K
+  (:func:`_split_k`) and a second kernel adds the slices in order;
 - training forward: :func:`mm_stats` (same source) computes ``co = p2 @
   w2`` and per-tile channel sums (``_mm_stats``, ``:337``);
   :func:`centered_sumsq` the centred per-channel sum of squares, two-pass
@@ -22,11 +24,13 @@ package's ``conv_general_dilated_patches``), and six kernels do the rest:
   ``torch.matmul``, as the JAX package leaves them to ``jnp.dot``, and
   autograd through ``F.unfold`` folds ``dp2`` back into ``dx``.
 
-Every reduction writes per-block partials that the wrapper adds up with
-``torch.sum``: no atomics. Nothing is padded: the kernels mask ragged M,
-K and N themselves. The TPU dispatch skipped convs with ``N * Cout < 512``
-(``_supported``, ``:621``); here every structurally admitted conv takes the
-kernels, so the launch counts hold at every batch size.
+The two products run on the tensor cores in 3xTF32 (f32-accurate, not
+bit-equal to ``torch.matmul``). Every reduction writes per-block partials
+that the wrapper adds up with ``torch.sum``: no atomics. Nothing is
+padded: the kernels mask ragged M, K and N themselves. The TPU dispatch
+skipped convs with ``N * Cout < 512`` (``_supported``, ``:621``); here
+every structurally admitted conv takes the kernels, so the launch counts
+hold at every batch size.
 
 A tensor on the CPU takes the plain versions (the ``_*_plain``
 functions); a tensor on the card launches the kernels or raises. The
@@ -52,7 +56,21 @@ CENTERED_SUMSQ_LAUNCHES = 0
 BN_RELU_LAUNCHES = 0
 BN_BWD_PARTIALS_LAUNCHES = 0
 BN_BWD_DCO_LAUNCHES = 0
+#: calls of :func:`mm_affine_relu` that took split-K (each also counts one
+#: ``MM_AFFINE_RELU_LAUNCHES``)
+MM_AFFINE_RELU_SPLITS = 0
 _count_lock = threading.Lock()
+
+# the GEMM's tiles (csrc/conv_bn_relu_mm.cu kBM, kBN, kBK): output rows and
+# columns a block, and the depth of one slab of K
+_TILE_ROWS, _TILE_COLS, _SLAB = 128, 64, 32
+# split-K: a wave is the blocks the card holds at once, 2 an SM (85.5 KB of
+# shared memory each) on the H100's 132 (a batch-8 ResNet-50 forward's 33
+# products ran faster on the card planned for 264 blocks than for 132); a
+# slice walks at least _MIN_SLICE_SLABS slabs, so that its work outweighs
+# its ring's start and its share of the workspace (2 and 1 were no faster)
+_WAVE = 264
+_MIN_SLICE_SLABS = 4
 
 # blocks the reductions aim at: a few per SM of the card's 132, so each
 # partial is small next to the pass and the card stays full
@@ -149,6 +167,12 @@ def _check_mm(name, p2, w2):
                          "[K, N] product")
 
 
+def _aligned(t):
+    """``t``, or a copy of it when its base is off 16 bytes: the conv GEMM
+    copies its operands in 16-byte chunks."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_mn(name, co, *others):
     if co.dim() != 2 or any(t.shape != co.shape for t in others):
         raise ValueError(f"{name}: operands {[tuple(t.shape) for t in (co,) + others]} must be "
@@ -167,13 +191,23 @@ def mm_affine_relu(p2, w2, scale, shift):
     y = torch.empty(m, n, device=p2.device, dtype=torch.float32)
     if m == 0 or n == 0:  # nothing is launched or counted
         return y
+    k = p2.shape[1]
+    p2, w2 = _aligned(p2), _aligned(w2)
+    slices, per = _split_k(m, k, n)
     with torch.cuda.device(p2.device):
-        err = _bind("conv_bn_relu_mm", "ptt_conv_mm_affine_relu",
-                    [_VP] * 5 + [_I64, _INT, _INT, _VP])(
-            p2.data_ptr(), w2.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(), m,
-            p2.shape[1], n, _stream(p2))
+        args = (p2.data_ptr(), w2.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr())
+        if slices == 1:
+            err = _bind("conv_bn_relu_mm", "ptt_conv_mm_affine_relu",
+                        [_VP] * 5 + [_I64, _INT, _INT, _VP])(*args, m, k, n, _stream(p2))
+        else:
+            ws = torch.empty(slices, m, n, device=p2.device, dtype=torch.float32)
+            err = _bind("conv_bn_relu_mm", "ptt_conv_mm_affine_relu_split",
+                        [_VP] * 6 + [_I64, _INT, _INT, _INT, _INT, _VP])(
+                *args, ws.data_ptr(), m, k, n, slices, per, _stream(p2))
     _build.check(err, "mm_affine_relu")
     _count("MM_AFFINE_RELU_LAUNCHES")
+    if slices > 1:
+        _count("MM_AFFINE_RELU_SPLITS")
     return y
 
 
@@ -189,6 +223,7 @@ def mm_stats(p2, w2):
     if m == 0 or n == 0:  # nothing is launched or counted
         return co, co.new_zeros(1, n)
     lib = _build.library("conv_bn_relu_mm")
+    p2, w2 = _aligned(p2), _aligned(w2)
     tiles = -(-m // lib.ptt_conv_mm_tile_rows())
     partial = torch.empty(tiles, n, device=p2.device, dtype=torch.float32)
     with torch.cuda.device(p2.device):
@@ -198,6 +233,20 @@ def mm_stats(p2, w2):
     _build.check(err, "mm_stats")
     _count("MM_STATS_LAUNCHES")
     return co, partial
+
+
+def _split_k(m, k, n):
+    """``(slices, slice_slabs)`` for the eval product ``[m, k] @ [k, n]``:
+    one slice when its output tiles fill a wave of the card; else enough
+    slices of whole slabs to fill one, none shorter than
+    ``_MIN_SLICE_SLABS`` slabs unless K is, and none empty."""
+    tiles = -(-m // _TILE_ROWS) * -(-n // _TILE_COLS)
+    slabs = -(-k // _SLAB)
+    if tiles >= _WAVE:
+        return 1, slabs
+    want = -(-_WAVE // tiles)
+    per = min(slabs, max(_MIN_SLICE_SLABS, slabs // want))
+    return -(-slabs // per), per
 
 
 def _reduce_rows(m, n):
