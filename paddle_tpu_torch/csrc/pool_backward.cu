@@ -1,51 +1,92 @@
 // Max-pool2d backward, for Hopper (sm_90a).
 //
 // Replaces paddle_tpu/ops/pallas/pool_backward.py _pool_bwd_kernel /
-// _max_pool2d_backward: dx [N, C, H, W] from x, the pooled y [N, C, OH, OW]
-// and dy. A window's gradient goes to its first maximum in row-major tap
-// order (first max wins); padded taps never hold it.
+// _max_pool2d_backward: dx from x, the pooled y and dy. A window's gradient
+// goes to its first maximum in row-major tap order (first max wins);
+// padded taps never hold it.
 //
 // Bound on the H100: device memory. x, y and dy are read once and dx is
 // written once for a handful of compares an element.
 //
-// Design: a gather, so overlapping windows need no atomics and the result
-// repeats bit for bit. A block of 256 threads owns a 32 x 32 tile of one
-// plane of dx and works in two steps. First its threads share out the
-// windows that reach into the tile and find each window's first tap that
-// equals y in row-major order; the tap's number goes to shared memory. All
-// taps are read, not only those up to the hit: a scan that stops makes every
-// load wait for the compare before it. Then each thread takes four elements
-// (h, w) of one column, walks the at most ceil(kh/sh) * ceil(kw/sw) windows
-// that contain each in rising tap order (di, then dj: the order in which the
-// plain version adds its taps) and adds dy[oh, ow] where the window's first
-// tap is its own. Neighbouring blocks are neighbouring tiles of one plane.
-// The usual geometries (3x3/2, 2x2/2, 3x3/1) are compiled with window and
-// stride as constants; any other runs the same code on run-time values.
+// Two layouts, one rule. x, y, dy (and the dx written) are either NCHW
+// (the JAX package's layout) or channels-last, the NCHW view of an NHWC
+// buffer: the layout in which the fused conv of ResNet's stem hands its
+// output to the pool, and in which its backward wants the gradient back.
 //
-// How it came here, at [128, 64, 112, 112] 3x3/2/1 on an H100 at 700 W
-// against a bound of 0.31 ms: one thread per element that re-read its
-// windows' earlier taps took 2.5-2.9 ms, bound by its instructions (every
-// warp walks the longest path of its lanes); finding each window's first tap
-// once per block 1.96 ms; reading all taps at once and ordering the blocks
-// along memory 1.64 ms; 32 x 32 tiles with four elements a thread 1.19 ms
-// (a block is three dependent reads long, y, x, dy, so fewer and larger
-// blocks wait less). The TPU kernel's one-hot matmuls, H phase splits and
-// -1e38 padding were work-arounds for its compiler and have no counterpart
-// here.
+// Design: a gather, so overlapping windows need no atomics and the result
+// repeats bit for bit. A block owns a tile of dx and works in three steps,
+// all from shared memory:
+//   1. it copies the x the tile's windows read (the tile with its halo)
+//      and the y and dy of those windows into shared memory by cp.async,
+//      16 bytes a copy, all in flight at once;
+//   2. its threads share out the windows and find each window's first tap
+//      that equals y (all taps are compared, last to first, so no compare
+//      waits for another; the first hit in row-major order is what stays);
+//      the tap's number goes to shared memory;
+//   3. each thread takes four elements of dx, walks the at most
+//      ceil(kh/sh) * ceil(kw/sw) windows that contain each in rising tap
+//      order (di, then dj: the order in which the plain version adds its
+//      taps), adds dy where the window's first tap is its own, and writes
+//      the four with one 16-byte store.
+// NCHW: a 32 x 32 tile of four planes, a thread four neighbouring columns
+// of a row in each (the index arithmetic is shared by the planes).
+// Channels-last: an 8 x 16 tile of pixels and 32 channels, a thread
+// four neighbouring channels of a pixel; neighbouring threads take
+// neighbouring channels, so every copy and store is contiguous with no
+// transpose (C = 64 is 256 bytes a pixel). 16-byte copies need W and OW
+// (NCHW), or C (channels-last), to be multiples of 4 and 16-byte aligned
+// tensors; otherwise the same code copies 4 bytes at a time and stores
+// element by element. The usual geometries (3x3/2, 2x2/2, 3x3/1) are
+// compiled with window and stride as constants; any other runs the same
+// code on run-time values.
+//
+// Why shared memory: a block that read x from device memory a 4-byte tap
+// at a time per window, and dy by scattered gathers, was three dependent
+// reads long and ran at a quarter of the card's memory rate; staging the
+// tile once keeps every read 16 bytes and in flight at once. Why two
+// layouts: converting the stem's channels-last tensors to NCHW and the
+// gradient back moved about 2 GB around the kernel. The TPU kernel's
+// one-hot matmuls, H phase splits and -1e38 padding were work-arounds for
+// its compiler and have no counterpart here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 32;
-constexpr int kRows = 4;  // rows of the tile a thread takes, kTileH / kRows apart
-constexpr int kThreads = kTileW * kTileH / kRows;
-constexpr unsigned kNoTap = 0xffff;  // no tap equals y (a NaN window)
+constexpr int kThreads = 256;
+constexpr int kPlaneTH = 32, kPlaneTW = 32;     // NCHW tile: rows, columns of a plane
+constexpr int kPlanes = 4;                      // NCHW planes a block
+constexpr int kPixTH = 8, kPixTW = 16, kCB = 32;  // channels-last tile: rows, columns, channels
+constexpr unsigned kNoTap = 0xffff;             // no tap equals y (a NaN window)
+constexpr int kMaxSmem = 227 * 1024;
 
 struct Geometry {
-  int h, w, oh, ow, kh, kw, sh, sw, ph, pw;
+  int n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw;
 };
+
+// windows of stride s and extent k that can reach a run of `tile` positions
+__host__ __device__ constexpr int windows_across(int tile, int k, int s) {
+  return (tile + k - 2) / s + 1;
+}
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+// shared memory of a block: NCHW kPlanes times x [XR][XS], y and dy
+// [WH][YS] floats and the taps [WH * WW]; channels-last x [XR * XC][kCB], y and dy [WH * WW][kCB]
+// floats and the taps [WH * WW][kCB]
+__host__ __device__ constexpr int smem_bytes(bool channels_last, int kh, int kw, int sh, int sw) {
+  return channels_last
+             ? 4 * kCB *
+                       (((windows_across(kPixTH, kh, sh) - 1) * sh + kh) *
+                            ((windows_across(kPixTW, kw, sw) - 1) * sw + kw) +
+                        2 * windows_across(kPixTH, kh, sh) * windows_across(kPixTW, kw, sw)) +
+                   2 * kCB * windows_across(kPixTH, kh, sh) * windows_across(kPixTW, kw, sw)
+             : kPlanes * (4 * (((windows_across(kPlaneTH, kh, sh) - 1) * sh + kh) *
+                                   round4((windows_across(kPlaneTW, kw, sw) - 1) * sw + kw + 3) +
+                               2 * windows_across(kPlaneTH, kh, sh) *
+                                   round4(windows_across(kPlaneTW, kw, sw) + 3)) +
+                          2 * windows_across(kPlaneTH, kh, sh) * windows_across(kPlaneTW, kw, sw));
+}
 
 // first window that reaches position lo of the padded axis: ceil((lo - k + 1) / s), at least 0
 __device__ __forceinline__ int first_window(int lo, int k, int s) {
@@ -53,110 +94,368 @@ __device__ __forceinline__ int first_window(int lo, int k, int s) {
   return a <= 0 ? 0 : (a + s - 1) / s;
 }
 
-// KH, KW, SH, SW: the window and stride at compile time, or 0 to read g's
-template <int KH, int KW, int SH, int SW>
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from device memory to shared memory, of which the first
+// `bytes` are read and the rest filled with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The windows that reach a tile [h0, h0 + th) x [w0, w0 + tw): rows oh_lo
+// .. oh_lo + wh - 1, columns ow_lo .. ow_lo + ww - 1; the x they read,
+// inside the plane: rows [xr0, xr1), columns [xc0, xc1); hb, wb: the
+// padded region's first row and column (the origin of the staged x).
+struct Reach {
+  int oh_lo, ow_lo, wh, ww, hb, wb, xr0, xr1, xc0, xc1;
+  __device__ Reach(const Geometry& g, int h0, int w0, int th, int tw, int kh, int kw, int sh,
+                   int sw) {
+    oh_lo = first_window(h0 + g.ph, kh, sh);
+    ow_lo = first_window(w0 + g.pw, kw, sw);
+    const int oh_hi = min(g.oh - 1, (h0 + th - 1 + g.ph) / sh);
+    const int ow_hi = min(g.ow - 1, (w0 + tw - 1 + g.pw) / sw);
+    wh = max(oh_hi - oh_lo + 1, 0);
+    ww = max(ow_hi - ow_lo + 1, 0);
+    hb = oh_lo * sh - g.ph;
+    wb = ow_lo * sw - g.pw;
+    xr0 = max(hb, 0);
+    xr1 = min(g.h, oh_hi * sh - g.ph + kh);
+    xc0 = max(wb, 0);
+    xc1 = min(g.w, ow_hi * sw - g.pw + kw);
+  }
+};
+
+// NCHW, kPlanes planes a block. KH, KW, SH, SW: the window and stride at
+// compile time, or 0 to read g's. VEC: W and OW multiples of 4, tensors
+// 16-byte aligned.
+template <int KH, int KW, int SH, int SW, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    max_pool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                        const float* __restrict__ dy, float* __restrict__ dx, Geometry g) {
-  extern __shared__ uint16_t first_tap[];  // [windows down the tile][windows across it]
+    pool_bwd_nchw_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                         const float* __restrict__ dy, float* __restrict__ dx, Geometry g,
+                         int64_t plane0) {
+  extern __shared__ __align__(16) float smem[];
   const int kh = KH ? KH : g.kh, kw = KW ? KW : g.kw;
   const int sh = SH ? SH : g.sh, sw = SW ? SW : g.sw;
-  // neighbouring blocks are neighbouring tiles of one plane, so the card
-  // reads and writes memory in order
-  const int h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
-  const int64_t plane = blockIdx.z;
-  const float* xp = x + plane * g.h * g.w;
-  const float* yp = y + plane * g.oh * g.ow;
-  const float* dyp = dy + plane * g.oh * g.ow;
+  const int WH = windows_across(kPlaneTH, kh, sh), WW = windows_across(kPlaneTW, kw, sw);
+  const int XS = round4((WW - 1) * sw + kw + 3), YS = round4(WW + 3);
+  // per plane: x [XR][XS], y and dy [WH][YS]; then the taps [kPlanes][WH * WW]
+  const int XP = ((WH - 1) * sh + kh) * XS, YP = WH * YS;
+  float* xs = smem;
+  float* ys = xs + kPlanes * XP;
+  float* dys = ys + kPlanes * YP;
+  uint16_t* taps = reinterpret_cast<uint16_t*>(dys + kPlanes * YP);
+  // neighbouring blocks are neighbouring tiles of the same planes
+  const int h0 = blockIdx.y * kPlaneTH, w0 = blockIdx.x * kPlaneTW;
+  const int64_t first = plane0 + (int64_t)blockIdx.z * kPlanes;
+  const int planes = (int)min((int64_t)kPlanes, (int64_t)g.n * g.c - first);
+  const float* xp = x + first * g.h * g.w;
+  const float* yp = y + first * g.oh * g.ow;
+  const float* dyp = dy + first * g.oh * g.ow;
+  const int64_t xstride = (int64_t)g.h * g.w, ystride = (int64_t)g.oh * g.ow;
+  const Reach a(g, h0, w0, kPlaneTH, kPlaneTW, kh, kw, sh, sw);
+  // the staged rows start at a 16-byte boundary of the plane's row
+  const int xcb = VEC ? a.xc0 & ~3 : a.xc0, ycb = VEC ? a.ow_lo & ~3 : a.ow_lo;
 
-  // the windows that reach into this tile
-  const int oh_lo = first_window(h0 + g.ph, kh, sh);
-  const int ow_lo = first_window(w0 + g.pw, kw, sw);
-  const int oh_hi = min(g.oh - 1, (h0 + kTileH - 1 + g.ph) / sh);
-  const int ow_hi = min(g.ow - 1, (w0 + kTileW - 1 + g.pw) / sw);
-  const int ch = max(oh_hi - oh_lo + 1, 0), cw = max(ow_hi - ow_lo + 1, 0);
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  for (int i = tid; i < ch * cw; i += kThreads) {
-    const int oh = oh_lo + i / cw, ow = ow_lo + i % cw;
-    const float yv = yp[oh * g.ow + ow];
-    const int hh0 = oh * sh - g.ph, ww0 = ow * sw - g.pw;
-    // every tap is read whether or not an earlier one hit, last to first, so
-    // that the loads do not wait for each other's compares and the first
-    // hit in row-major order is what remains
-    unsigned tap = kNoTap;
+  // 1. stage x, y and dy of every plane
+  {
+    const int xq = VEC ? (a.xc1 - xcb + 3) / 4 : a.xc1 - a.xc0;
+    const int yq = VEC ? (a.ow_lo + a.ww - ycb + 3) / 4 : a.ww;
+    const int xrows = a.xr1 - a.xr0, step = VEC ? 4 : 1;
+    for (int i = threadIdx.x; i < planes * xrows * xq; i += kThreads) {
+      const int p = i / (xrows * xq), rq = i % (xrows * xq);
+      const int r = a.xr0 + rq / xq, q = rq % xq;
+      float* dst = xs + p * XP + (r - a.hb) * XS + step * q;
+      const float* src = xp + p * xstride + (int64_t)r * g.w + xcb + step * q;
+      if (VEC) cp_async16(dst, src, 16);
+      else cp_async4(dst, src, 4);
+    }
+    for (int i = threadIdx.x; i < planes * a.wh * yq; i += kThreads) {
+      const int p = i / (a.wh * yq), rq = i % (a.wh * yq);
+      const int r = rq / yq, q = rq % yq;
+      const int64_t at = p * ystride + (int64_t)(a.oh_lo + r) * g.ow + ycb + step * q;
+      const int off = p * YP + r * YS + step * q;
+      if (VEC) {
+        cp_async16(ys + off, yp + at, 16);
+        cp_async16(dys + off, dyp + at, 16);
+      } else {
+        cp_async4(ys + off, yp + at, 4);
+        cp_async4(dys + off, dyp + at, 4);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. each window's first tap that equals y, in every plane
+  const int windows = a.wh * a.ww;
+  for (int i = threadIdx.x; i < windows; i += kThreads) {
+    const int oi = i / a.ww, oj = i % a.ww;
+    const int hh0 = a.hb + oi * sh, ww0 = a.wb + oj * sw;
+    float yv[kPlanes];
+    unsigned tap[kPlanes];
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      yv[p] = ys[p * YP + oi * YS + a.ow_lo - ycb + oj];
+      tap[p] = kNoTap;
+    }
 #pragma unroll
     for (int di = kh - 1; di >= 0; --di) {
       const int hh = hh0 + di;
 #pragma unroll
       for (int dj = kw - 1; dj >= 0; --dj) {
-        const int ww = ww0 + dj;
+        const int wc = ww0 + dj;
         // padding never holds the maximum
-        if (hh >= 0 && hh < g.h && ww >= 0 && ww < g.w && xp[hh * g.w + ww] == yv)
-          tap = di * kw + dj;
+        if (hh >= 0 && hh < g.h && wc >= 0 && wc < g.w) {
+          const float* xv = xs + (hh - a.hb) * XS + wc - xcb;
+#pragma unroll
+          for (int p = 0; p < kPlanes; ++p)
+            if (xv[p * XP] == yv[p]) tap[p] = di * kw + dj;
+        }
       }
     }
-    first_tap[i] = (uint16_t)tap;
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) taps[p * windows + i] = (uint16_t)tap[p];
   }
   __syncthreads();
 
-  const int w = w0 + threadIdx.x;
-  if (w >= g.w) return;
-  const int wq = w + g.pw;  // position in the padded plane
+  // 3. four neighbouring elements of one row a thread, in every plane
+  const int h = h0 + threadIdx.x / (kPlaneTW / 4);
+  const int w = w0 + 4 * (threadIdx.x % (kPlaneTW / 4));
+  if (h >= g.h || w >= g.w) return;
+  const int hq = h + g.ph;  // position in the padded plane
+  float out[kPlanes][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int h = h0 + threadIdx.y + r * (kTileH / kRows);
-    if (h >= g.h) break;
-    const int hq = h + g.ph;
-    float acc = 0.f;
+  for (int e = 0; e < 4; ++e) {
+    const int wq = w + e + g.pw;
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) out[p][e] = 0.f;
     for (int di = hq % sh; di < kh && di <= hq; di += sh) {
       const int oh = (hq - di) / sh;
       if (oh >= g.oh) continue;
       for (int dj = wq % sw; dj < kw && dj <= wq; dj += sw) {
         const int ow = (wq - dj) / sw;
         if (ow >= g.ow) continue;
-        if (first_tap[(oh - oh_lo) * cw + (ow - ow_lo)] == di * kw + dj)
-          acc = __fadd_rn(acc, dyp[oh * g.ow + ow]);
+        const int win = (oh - a.oh_lo) * a.ww + ow - a.ow_lo;
+        const int at = (oh - a.oh_lo) * YS + ow - ycb;
+        const unsigned tap = di * kw + dj;
+#pragma unroll
+        for (int p = 0; p < kPlanes; ++p)
+          if (taps[p * windows + win] == tap) out[p][e] = __fadd_rn(out[p][e], dys[p * YP + at]);
       }
     }
-    dx[plane * g.h * g.w + h * g.w + w] = acc;
   }
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) {
+    if (p >= planes) break;
+    float* dst = dx + (first + p) * xstride + (int64_t)h * g.w + w;
+    if (VEC) {
+      *reinterpret_cast<float4*>(dst) = make_float4(out[p][0], out[p][1], out[p][2], out[p][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (w + e < g.w) dst[e] = out[p][e];
+    }
+  }
+}
+
+// Channels-last: element (n, c, h, w) at ((n * H + h) * W + w) * C + c.
+// VEC: C a multiple of 4, tensors 16-byte aligned.
+template <int KH, int KW, int SH, int SW, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    pool_bwd_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                         const float* __restrict__ dy, float* __restrict__ dx, Geometry g,
+                         int64_t image0) {
+  extern __shared__ __align__(16) float smem[];
+  const int kh = KH ? KH : g.kh, kw = KW ? KW : g.kw;
+  const int sh = SH ? SH : g.sh, sw = SW ? SW : g.sw;
+  const int WH = windows_across(kPixTH, kh, sh), WW = windows_across(kPixTW, kw, sw);
+  const int XC = (WW - 1) * sw + kw, XR = (WH - 1) * sh + kh;
+  float* xs = smem;
+  float* ys = xs + XR * XC * kCB;
+  float* dys = ys + WH * WW * kCB;
+  uint16_t* taps = reinterpret_cast<uint16_t*>(dys + WH * WW * kCB);
+  const int chunks = (g.c + kCB - 1) / kCB;
+  // neighbouring blocks are the channel chunks of one tile, then
+  // neighbouring tiles of one row
+  const int c0 = blockIdx.x % chunks * kCB;
+  const int w0 = blockIdx.x / chunks * kPixTW, h0 = blockIdx.y * kPixTH;
+  const int64_t img = image0 + blockIdx.z;
+  const float* xi = x + img * g.h * g.w * g.c;
+  const float* yi = y + img * g.oh * g.ow * g.c;
+  const float* dyi = dy + img * g.oh * g.ow * g.c;
+  const Reach a(g, h0, w0, kPixTH, kPixTW, kh, kw, sh, sw);
+  constexpr int kQ = VEC ? kCB / 4 : kCB;  // copies a pixel
+
+  // 1. stage x, y and dy: pixel by pixel, kCB channels each (zeros past C)
+  const int xcols = a.xc1 - a.xc0;
+  for (int i = threadIdx.x; i < (a.xr1 - a.xr0) * xcols * kQ; i += kThreads) {
+    const int p = i / kQ, q = i % kQ;
+    const int r = a.xr0 + p / xcols, col = a.xc0 + p % xcols;
+    const int cc = c0 + (VEC ? 4 * q : q);
+    float* dst = xs + ((r - a.hb) * XC + col - a.wb) * kCB + (VEC ? 4 * q : q);
+    const float* src = cc < g.c ? xi + ((int64_t)r * g.w + col) * g.c + cc : xi;
+    if (VEC) cp_async16(dst, src, cc < g.c ? 16 : 0);
+    else cp_async4(dst, src, cc < g.c ? 4 : 0);
+  }
+  for (int i = threadIdx.x; i < a.wh * a.ww * kQ; i += kThreads) {
+    const int p = i / kQ, q = i % kQ;
+    const int cc = c0 + (VEC ? 4 * q : q);
+    const int64_t at = ((int64_t)(a.oh_lo + p / a.ww) * g.ow + a.ow_lo + p % a.ww) * g.c + cc;
+    const int off = p * kCB + (VEC ? 4 * q : q);
+    if (VEC) {
+      cp_async16(ys + off, cc < g.c ? yi + at : yi, cc < g.c ? 16 : 0);
+      cp_async16(dys + off, cc < g.c ? dyi + at : dyi, cc < g.c ? 16 : 0);
+    } else {
+      cp_async4(ys + off, cc < g.c ? yi + at : yi, cc < g.c ? 4 : 0);
+      cp_async4(dys + off, cc < g.c ? dyi + at : dyi, cc < g.c ? 4 : 0);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. each window's first tap that equals y, four channels a thread
+  for (int i = threadIdx.x; i < a.wh * a.ww * (kCB / 4); i += kThreads) {
+    const int win = i / (kCB / 4), q = i % (kCB / 4);
+    const float4 yv = *reinterpret_cast<const float4*>(ys + win * kCB + 4 * q);
+    const int hh0 = a.hb + win / a.ww * sh, ww0 = a.wb + win % a.ww * sw;
+    unsigned t0 = kNoTap, t1 = kNoTap, t2 = kNoTap, t3 = kNoTap;
+#pragma unroll
+    for (int di = kh - 1; di >= 0; --di) {
+      const int hh = hh0 + di;
+#pragma unroll
+      for (int dj = kw - 1; dj >= 0; --dj) {
+        const int wc = ww0 + dj;
+        if (hh >= 0 && hh < g.h && wc >= 0 && wc < g.w) {  // padding never holds the maximum
+          const float4 xv =
+              *reinterpret_cast<const float4*>(xs + ((hh - a.hb) * XC + wc - a.wb) * kCB + 4 * q);
+          const unsigned tap = di * kw + dj;
+          if (xv.x == yv.x) t0 = tap;
+          if (xv.y == yv.y) t1 = tap;
+          if (xv.z == yv.z) t2 = tap;
+          if (xv.w == yv.w) t3 = tap;
+        }
+      }
+    }
+    *reinterpret_cast<uint2*>(taps + win * kCB + 4 * q) = make_uint2(t0 | t1 << 16, t2 | t3 << 16);
+  }
+  __syncthreads();
+
+  // 3. four neighbouring channels of one pixel a thread
+  for (int i = threadIdx.x; i < kPixTH * kPixTW * (kCB / 4); i += kThreads) {
+    const int p = i / (kCB / 4), q = i % (kCB / 4);
+    const int h = h0 + p / kPixTW, w = w0 + p % kPixTW, cc = c0 + 4 * q;
+    if (h >= g.h || w >= g.w || cc >= g.c) continue;
+    const int hq = h + g.ph, wq = w + g.pw;  // position in the padded plane
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    for (int di = hq % sh; di < kh && di <= hq; di += sh) {
+      const int oh = (hq - di) / sh;
+      if (oh >= g.oh) continue;
+      for (int dj = wq % sw; dj < kw && dj <= wq; dj += sw) {
+        const int ow = (wq - dj) / sw;
+        if (ow >= g.ow) continue;
+        const int win = (oh - a.oh_lo) * a.ww + ow - a.ow_lo;
+        const uint2 t = *reinterpret_cast<const uint2*>(taps + win * kCB + 4 * q);
+        const float4 d = *reinterpret_cast<const float4*>(dys + win * kCB + 4 * q);
+        const unsigned tap = di * kw + dj;
+        if ((t.x & 0xffffu) == tap) a0 = __fadd_rn(a0, d.x);
+        if ((t.x >> 16) == tap) a1 = __fadd_rn(a1, d.y);
+        if ((t.y & 0xffffu) == tap) a2 = __fadd_rn(a2, d.z);
+        if ((t.y >> 16) == tap) a3 = __fadd_rn(a3, d.w);
+      }
+    }
+    float* dst = dx + ((img * g.h + h) * g.w + w) * g.c + cc;
+    if (VEC) {
+      *reinterpret_cast<float4*>(dst) = make_float4(a0, a1, a2, a3);
+    } else {
+      const float v[4] = {a0, a1, a2, a3};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (cc + e < g.c) dst[e] = v[e];
+    }
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int KH, int KW, int SH, int SW, bool VEC>
+int run(bool channels_last, const float* x, const float* y, const float* dy, float* dx,
+           const Geometry& g, cudaStream_t s) {
+  auto* kernel = channels_last ? pool_bwd_nhwc_kernel<KH, KW, SH, SW, VEC>
+                               : pool_bwd_nchw_kernel<KH, KW, SH, SW, VEC>;
+  const int smem = smem_bytes(channels_last, g.kh, g.kw, g.sh, g.sw);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  // the grid's z axis takes at most 65535 images (groups of kPlanes planes):
+  // more go in further launches
+  const int64_t count = channels_last ? g.n : ((int64_t)g.n * g.c + kPlanes - 1) / kPlanes;
+  const int tiles_h = channels_last ? (g.h + kPixTH - 1) / kPixTH : (g.h + kPlaneTH - 1) / kPlaneTH;
+  const int64_t across = channels_last
+                             ? (int64_t)((g.w + kPixTW - 1) / kPixTW) * ((g.c + kCB - 1) / kCB)
+                             : (g.w + kPlaneTW - 1) / kPlaneTW;
+  for (int64_t z0 = 0; z0 < count; z0 += 65535) {
+    const int64_t z = count - z0 < 65535 ? count - z0 : 65535;
+    kernel<<<dim3((unsigned)across, (unsigned)tiles_h, (unsigned)z), kThreads, smem, s>>>(
+        x, y, dy, dx, g, channels_last ? z0 : z0 * kPlanes);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int KH, int KW, int SH, int SW>
+int launch(bool channels_last, bool vec, const float* x, const float* y, const float* dy,
+           float* dx, const Geometry& g, cudaStream_t s) {
+  return vec ? run<KH, KW, SH, SW, true>(channels_last, x, y, dy, dx, g, s)
+             : run<KH, KW, SH, SW, false>(channels_last, x, y, dy, dx, g, s);
 }
 
 }  // namespace
 
-// dx [planes, H, W] from x [planes, H, W] and y, dy [planes, OH, OW], all
-// float32 and contiguous. Returns cudaGetLastError() after the launch.
+// dx from x [N, C, H, W] and y, dy [N, C, OH, OW], all float32 and laid out
+// alike: NCHW-contiguous (channels_last 0) or channels-last (1, element
+// (n, c, h, w) at ((n * H + h) * W + w) * C + c); dx is written in the same
+// layout. Returns cudaGetLastError() after the launch.
 extern "C" int ptt_max_pool2d_backward(const void* x, const void* y, const void* dy, void* dx,
-                                       int64_t planes, int h, int w, int oh, int ow, int kh,
-                                       int kw, int sh, int sw, int ph, int pw, void* stream) {
-  if (planes <= 0 || h <= 0 || w <= 0 || oh <= 0 || ow <= 0 || kh <= 0 || kw <= 0 || sh <= 0 ||
-      sw <= 0 || ph < 0 || pw < 0)
+                                       int n, int c, int h, int w, int oh, int ow, int kh, int kw,
+                                       int sh, int sw, int ph, int pw, int channels_last,
+                                       void* stream) {
+  if (n <= 0 || c <= 0 || h <= 0 || w <= 0 || oh <= 0 || ow <= 0 || kh <= 0 || kw <= 0 ||
+      sh <= 0 || sw <= 0 || ph < 0 || pw < 0 || (int64_t)kh * kw >= (int64_t)kNoTap)
     return (int)cudaErrorInvalidValue;
-  const int64_t tiles_h = (h + kTileH - 1) / kTileH, tiles_w = (w + kTileW - 1) / kTileW;
-  // one 16-bit tap number for every window that can reach into a tile
-  const int64_t windows = (int64_t)((kTileH + kh - 2) / sh + 1) * ((kTileW + kw - 2) / sw + 1);
-  if (tiles_h > 65535 || (int64_t)kh * kw >= (int64_t)kNoTap || windows * 2 > 48 * 1024)
+  const bool cl = channels_last != 0;
+  const int64_t tiles_h = cl ? (h + kPixTH - 1) / kPixTH : (h + kPlaneTH - 1) / kPlaneTH;
+  const int64_t across = cl ? (int64_t)((w + kPixTW - 1) / kPixTW) * ((c + kCB - 1) / kCB)
+                            : (w + kPlaneTW - 1) / kPlaneTW;
+  // a tile's windows and halo must fit in shared memory (3x3/2: 35 KB NCHW,
+  // 41 KB channels-last); a window bigger than 64 x 64 does not
+  if (tiles_h > 65535 || across > 0x7fffffff || kh > 64 || kw > 64 ||
+      smem_bytes(cl, kh, kw, sh, sw) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const Geometry g{h, w, oh, ow, kh, kw, sh, sw, ph, pw};
-  const dim3 block(kTileW, kTileH / kRows);
-  const size_t smem = (size_t)windows * 2;
+  const Geometry g{n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw};
+  const auto *xp = static_cast<const float*>(x), *yp = static_cast<const float*>(y);
+  const auto* dyp = static_cast<const float*>(dy);
+  auto* dxp = static_cast<float*>(dx);
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(dy) && aligned16(dx) &&
+                   (cl ? c % 4 == 0 : w % 4 == 0 && ow % 4 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the grid's z axis takes at most 65535 planes: more go in further launches
-  for (int64_t p0 = 0; p0 < planes; p0 += 65535) {
-    const int64_t count = planes - p0 < 65535 ? planes - p0 : 65535;
-    const dim3 grid((unsigned)tiles_w, (unsigned)tiles_h, (unsigned)count);
-    const auto* xp = static_cast<const float*>(x) + p0 * h * w;
-    const auto* yp = static_cast<const float*>(y) + p0 * oh * ow;
-    const auto* dyp = static_cast<const float*>(dy) + p0 * oh * ow;
-    auto* dxp = static_cast<float*>(dx) + p0 * h * w;
-    if (kh == 3 && kw == 3 && sh == 2 && sw == 2)
-      max_pool_bwd_kernel<3, 3, 2, 2><<<grid, block, smem, s>>>(xp, yp, dyp, dxp, g);
-    else if (kh == 2 && kw == 2 && sh == 2 && sw == 2)
-      max_pool_bwd_kernel<2, 2, 2, 2><<<grid, block, smem, s>>>(xp, yp, dyp, dxp, g);
-    else if (kh == 3 && kw == 3 && sh == 1 && sw == 1)
-      max_pool_bwd_kernel<3, 3, 1, 1><<<grid, block, smem, s>>>(xp, yp, dyp, dxp, g);
-    else
-      max_pool_bwd_kernel<0, 0, 0, 0><<<grid, block, smem, s>>>(xp, yp, dyp, dxp, g);
-  }
-  return (int)cudaGetLastError();
+  if (kh == 3 && kw == 3 && sh == 2 && sw == 2)
+    return launch<3, 3, 2, 2>(cl, vec, xp, yp, dyp, dxp, g, s);
+  if (kh == 2 && kw == 2 && sh == 2 && sw == 2)
+    return launch<2, 2, 2, 2>(cl, vec, xp, yp, dyp, dxp, g, s);
+  if (kh == 3 && kw == 3 && sh == 1 && sw == 1)
+    return launch<3, 3, 1, 1>(cl, vec, xp, yp, dyp, dxp, g, s);
+  return launch<0, 0, 0, 0>(cl, vec, xp, yp, dyp, dxp, g, s);
 }

@@ -206,9 +206,14 @@ class _MaxPoolKernelBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # x keeps its layout when it is NCHW or channels-last (the fused
+        # stem conv's output); y and dy are brought to it where they differ
         x, y = ctx.saved_tensors
-        dx = _pool_backward.max_pool2d_backward(x.contiguous(), y.contiguous(),
-                                                dy.to(y.dtype).contiguous(), *ctx.geometry)
+        layout = _pool_backward.memory_layout(x)
+        if layout is None:
+            x, layout = x.contiguous(), "nchw"
+        y, dy = (_pool_backward.to_layout(t, layout) for t in (y, dy.to(y.dtype)))
+        dx = _pool_backward.max_pool2d_backward(x, y, dy, *ctx.geometry)
         return dx, None, None, None
 
 

@@ -4,7 +4,7 @@ Every wrapper counts its kernel's launches in a module-level integer;
 :data:`KERNEL_COUNTERS` names them, :func:`launch_counts` reads them all
 and :func:`reset_launch_counts` sets them to 0, and the counts beside them
 (:data:`OTHER_COUNTERS`: the tensors the momentum launches updated, the
-eval conv products that took split-K).
+eval conv products and the int8 products that took split-K).
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ KERNEL_COUNTERS = {
 }
 
 #: counts that are not launches, set to 0 with them: (module, name)
-OTHER_COUNTERS = ((optimizer_update, "TENSORS"), (conv_bn_relu, "MM_AFFINE_RELU_SPLITS"))
+OTHER_COUNTERS = ((optimizer_update, "TENSORS"), (conv_bn_relu, "MM_AFFINE_RELU_SPLITS"),
+                  (int8_matmul, "SPLITS"))
 
 
 def launch_counts() -> dict:

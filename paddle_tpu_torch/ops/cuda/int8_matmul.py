@@ -4,11 +4,14 @@ Replaces ``paddle_tpu/ops/pallas/int8_matmul.py`` ``_pallas_matmul``:
 ``x [M, K] int8 @ w [K, N] int8 -> [M, N] int32`` with exact 32-bit
 accumulation, the contraction of the deployed int8 programs' ``mul_int8``
 and ``matmul_int8`` ops. ``csrc/int8_matmul.cu`` runs it on the tensor
-cores (``mma.sync.m16n8k32``), packing ``w``'s K values into words while a
-tile is staged, and masks ragged edges with zeros, which is exact: any M, K
-and N, no padded copies and no size rule (the TPU kernel's ``M*N >= 32*128``
-cut-off was its tiling's). Memory bound at the serving shapes: the int32
-output is four bytes an element.
+cores (``mma.sync.m16n8k32``) from a ring of 64-deep K slabs filled by
+``cp.async``, packing ``w``'s K values on the way to the fragments, and
+masks ragged edges with zeros, which is exact: any M, K and N, no padded
+copies and no size rule (the TPU kernel's ``M*N >= 32*128`` cut-off was its
+tiling's). Where the output tiles do not fill the card it splits K
+(:func:`_split_k`, the plan the C side makes too) and adds the slices into
+a zeroed output by integer atomics, exact in any order. Memory bound at the
+serving shapes: the int32 output is four bytes an element.
 
 The plain version is the int32 product on the CPU. The card has no integer
 matrix product in PyTorch, so there :func:`_plain_int8_matmul` multiplies
@@ -28,14 +31,40 @@ import torch
 
 from . import _build
 
-__all__ = ["int8_matmul", "LAUNCHES"]
+__all__ = ["int8_matmul", "LAUNCHES", "SPLITS"]
 
 #: kernel launches since the last reset (counted where the kernel launches)
 LAUNCHES = 0
+#: launches that split K (each also counts one in ``LAUNCHES``)
+SPLITS = 0
 _count_lock = threading.Lock()
+
+# the kernel's tiles (csrc/int8_matmul.cu kBM, kBN, kBK): output rows and
+# columns a block, and the depth of one slab of K
+_TILE_ROWS, _TILE_COLS, _SLAB = 128, 128, 128
+# split-K (kWave, kMinSliceSlabs): split when the output tiles are fewer
+# than the card's 132 SMs, into at most as many slices as make one block an
+# SM (a second block an SM from more slices cost more in zeroing and atomic
+# adds than it gained on the H100), none much shallower than
+# _MIN_SLICE_SLABS slabs
+_WAVE = 132
+_MIN_SLICE_SLABS = 2
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _INT_MAX = 2 ** 31 - 1
+
+
+def _split_k(m, k, n):
+    """``(slices, slice_slabs)`` of ``[m, k] @ [k, n]``: one slice when its
+    output tiles are at least ``_WAVE``; else as many slices of whole slabs
+    as make ``_WAVE`` blocks, but no more than slices of
+    ``_MIN_SLICE_SLABS`` slabs would make, and none empty.
+    ``csrc/int8_matmul.cu`` ``plan`` is the same."""
+    tiles = -(-m // _TILE_ROWS) * -(-n // _TILE_COLS)
+    slabs = -(-k // _SLAB)
+    want = 1 if tiles >= _WAVE else max(1, min(_WAVE // tiles, -(-slabs // _MIN_SLICE_SLABS)))
+    per = -(-slabs // want)
+    return -(-slabs // per), per
 
 
 def _plain_int8_matmul(x, w):
@@ -49,7 +78,7 @@ def _plain_int8_matmul(x, w):
 @torch.no_grad()
 def int8_matmul(x, w):
     """``x [M, K] int8 @ w [K, N] int8 -> [M, N] int32``, exact."""
-    global LAUNCHES
+    global LAUNCHES, SPLITS
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"int8_matmul: x {tuple(x.shape)} and w {tuple(w.shape)} are not "
                          f"[M, K] and [K, N]")
@@ -77,4 +106,5 @@ def int8_matmul(x, w):
     _build.check(err, "int8_matmul")
     with _count_lock:
         LAUNCHES += 1
+        SPLITS += _split_k(m, k, n)[0] > 1
     return out

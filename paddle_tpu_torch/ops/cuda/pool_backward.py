@@ -4,12 +4,19 @@ Replaces ``paddle_tpu/ops/pallas/pool_backward.py`` ``_max_pool2d_backward``:
 ``dx`` of a max pooling from ``x``, the pooled ``y`` and ``dy``. A window's
 gradient goes to its first maximum in row-major tap order (first max wins,
 the subgradient of XLA's ``select_and_scatter`` and of the JAX kernel);
-padded taps never hold it. ``csrc/pool_backward.cu`` gathers: a block finds
-the first maximum of each window that reaches into its tile, then one thread
-per element of ``dx`` adds the ``dy`` of the windows it won, no atomics, so
-the result repeats bit for bit and equals
+padded taps never hold it. ``csrc/pool_backward.cu`` gathers: a block
+stages a tile of ``x`` with its halo and the ``y``/``dy`` of the windows
+that reach it in shared memory, finds each window's first maximum there,
+then adds for each element of ``dx`` the ``dy`` of the windows it won, no
+atomics, so the result repeats bit for bit and equals
 :func:`_plain_max_pool2d_backward`, which adds the taps in the same order.
 Memory bound: x, y, dy read once, dx written once.
+
+Two layouts (:func:`memory_layout`): NCHW-contiguous, the JAX package's,
+and channels-last, the NCHW view of an NHWC buffer, in which ResNet's fused
+stem conv hands its output to the pool. ``x``, ``y`` and ``dy`` must share
+one (:func:`_plan_layout`); ``dx`` comes back in it, so a channels-last
+route moves no tensor to another layout.
 
 ``torch.nn.functional.max_pool2d`` keeps the index of the first maximum too
 (its forward replaces the running maximum only by a strictly greater value,
@@ -28,13 +35,45 @@ import torch
 
 from . import _build
 
-__all__ = ["max_pool2d_backward", "max_pool_backward_supported", "LAUNCHES"]
+__all__ = ["max_pool2d_backward", "max_pool_backward_supported", "memory_layout", "LAUNCHES"]
 
 #: kernel launches since the last reset (counted where the kernel launches)
 LAUNCHES = 0
 _count_lock = threading.Lock()
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_INT_MAX = 2 ** 31 - 1
+
+
+def memory_layout(t):
+    """``"nchw"`` for an NCHW-contiguous 4-D tensor, ``"nhwc"`` for a
+    channels-last one (the NCHW view of an NHWC buffer), else None. A tensor
+    that is both (C == 1, or H == W == 1) is ``"nchw"``."""
+    if t.dim() != 4:
+        return None
+    if t.is_contiguous():
+        return "nchw"
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return "nhwc"
+    return None
+
+
+def _plan_layout(x, y, dy):
+    """The one layout that ``x``, ``y`` and ``dy`` share, which ``dx`` is
+    written in: NCHW if all three are NCHW-contiguous, else channels-last if
+    all three are channels-last; raises when they lie otherwise."""
+    for layout, fmt in (("nchw", torch.contiguous_format), ("nhwc", torch.channels_last)):
+        if all(t.is_contiguous(memory_format=fmt) for t in (x, y, dy)):
+            return layout
+    raise ValueError(f"max_pool2d_backward: x, y and dy must be all NCHW-contiguous or all "
+                     f"channels-last; they lie as {[memory_layout(t) for t in (x, y, dy)]}")
+
+
+def to_layout(t, layout):
+    """``t`` itself when it lies in ``layout`` already, else a copy that
+    does."""
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+    return t if t.is_contiguous(memory_format=fmt) else t.contiguous(memory_format=fmt)
 
 
 def max_pool_backward_supported(x_shape, dtype, ceil_extra, data_format) -> bool:
@@ -84,8 +123,9 @@ def _pairs(kernel, stride, padding):
 @torch.no_grad()
 def max_pool2d_backward(x, y, dy, kernel, stride, padding):
     """``dx`` like ``x`` [N, C, H, W] for ``y = max_pool2d(x)`` and ``dy``
-    like ``y`` [N, C, OH, OW]; ``kernel``, ``stride`` and (symmetric)
-    ``padding`` are pairs."""
+    like ``y`` [N, C, OH, OW], in the layout the three share (NCHW or
+    channels-last; raises on a mix); ``kernel``, ``stride`` and
+    (symmetric) ``padding`` are pairs."""
     global LAUNCHES
     kernel, stride, padding = _pairs(kernel, stride, padding)
     if x.dim() != 4 or y.dim() != 4 or y.shape != dy.shape or x.shape[:2] != y.shape[:2]:
@@ -98,28 +138,30 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
             raise ValueError(f"max_pool2d_backward: output extent {o} is not that of input "
                              f"{dim}, kernel {k}, stride {s}, padding {p}")
     tensors = (x, y, dy)
+    layout = _plan_layout(x, y, dy)
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
     if all(t.device.type == "cpu" for t in tensors):
-        return _plain_max_pool2d_backward(x, y, dy, kernel, stride, padding)
+        return _plain_max_pool2d_backward(x, y, dy, kernel, stride, padding).contiguous(
+            memory_format=fmt)
     if x.numel() == 0 or y.numel() == 0:  # nothing is launched or counted
-        return torch.zeros_like(x)
+        return torch.zeros_like(x, memory_format=fmt)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError("max_pool2d_backward: all tensors must be on one CUDA device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"max_pool2d_backward: the kernel takes float32, got "
                         f"{[str(t.dtype) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("max_pool2d_backward: x, y and dy must be contiguous")
-    if kernel[0] * kernel[1] >= 0xffff:
-        raise ValueError(f"max_pool2d_backward: the kernel numbers a window's taps in 16 bits; "
-                         f"{kernel} has too many")
-    dx = torch.empty_like(x)
+    if max(kernel) > 64 or max(n, c, h, w) > _INT_MAX or x.numel() // n > _INT_MAX:
+        raise ValueError(f"max_pool2d_backward: the kernel takes windows up to 64 x 64 and "
+                         f"extents and images below 2**31; got {kernel} over {tuple(x.shape)}")
+    dx = torch.empty_like(x, memory_format=fmt)
     with torch.cuda.device(x.device):
         fn = _build.library("pool_backward").ptt_max_pool2d_backward
         if fn.argtypes is None:
             fn.argtypes = _ARGS
             fn.restype = ctypes.c_int
-        err = fn(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), n * c, h, w, oh, ow,
-                 *kernel, *stride, *padding, torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, h, w, oh, ow,
+                 *kernel, *stride, *padding, int(layout == "nhwc"),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "max_pool2d_backward")
     with _count_lock:
         LAUNCHES += 1
