@@ -34,6 +34,18 @@ Phases, each fatal on failure:
    and fall, each launching exactly 24 + 24 LayerNorm (forward, backward),
    12 attention forward, 12 dQ and 12 dK/dV kernels; step time, tokens/s
    and, from ``torch.profiler``, where one step's time goes;
+6a. AMP: hold the bf16 kernels (the LayerNorm forward and backward in bf16
+   and its mixed case, a bf16 x on an f32 residual; the three bf16
+   attention kernels at [32, 12, 512, 64] with dropout 0.1 and a pad
+   bias, at rate 0, at L = 128 causal and at other head dims and ragged
+   shapes) against their plain versions in bf16 ulps, timed beside bf16
+   SDPA; then one BERT-base step under ``auto_cast`` (O1, and O2 through
+   ``decorate``) at dropout 0, batch 2 x L=512, against the CPU's plain
+   path under the same scope (the f32 step as the control the limit on
+   differing gradient entries must catch); then bench's phase-2 step under
+   ``auto_cast`` for 10 steps (losses finite and falling, the bf16
+   attention and LayerNorm kernels launched, median step, tokens/s, peak
+   memory) and a profiled step whose matrix products must all be bf16;
 7. hold the ResNet path's kernels (fused conv + batch norm + relu, the
    momentum update) against their plain versions at ResNet-50's shapes
    (layer1's 3x3 conv at batch 128, with a one-pass TF32 control the conv
@@ -80,6 +92,7 @@ beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -255,8 +268,8 @@ def check_layernorm(dtype_name, rows):
     log(f"layernorm_residual {dtype_name} [{rows}, {LN_H}]: max err {err:.3g}, stats "
         f"{stat_err:.3g} ({tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{lib_ms:.4f} ms, bound {t_b:.4f} ms ({by})")
-    return {"name": "layernorm_residual_fwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/layernorm_residual.cu",
+    return {"name": "layernorm_residual_fwd" + ("" if dtype == torch.float32 else "_bf16"),
+            "route": "cuda", "source": "paddle_tpu_torch/csrc/layernorm_residual.cu",
             "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:188",
             "shape": [rows, LN_H], "dtype": dtype_name, "max_abs_err": err,
             "stats_err": stat_err, "tolerance": tol, **ulps, "ms": ms, "kernel_ms": ms,
@@ -444,7 +457,8 @@ def check_layernorm_bwd(dtype_name, rows=TRAIN_ROWS, h=LN_H, timed=True):
         raise AssertionError(f"{label}: da err {err}, dw {dw_err}, db {db_err} beyond {tol}")
     if not repeats:
         raise AssertionError(f"{label}: a second run differs (da or the dw/db partials)")
-    entry = {"name": "layernorm_residual_bwd", "route": "cuda",
+    entry = {"name": "layernorm_residual_bwd" + ("" if dtype == torch.float32 else "_bf16"),
+             "route": "cuda",
              "source": "paddle_tpu_torch/csrc/layernorm_residual_bwd.cu",
              "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:219",
              "shape": [rows, h], "dtype": dtype_name, "variant": variant, "max_abs_err": err,
@@ -686,13 +700,14 @@ def check_flash_dropout_fwd():
 
 
 def check_kernels():
-    """One entry per kernel of the serving and training paths. The
+    """One entry per f32 kernel of the serving and training paths (the bf16
+    ones: ``check_amp_kernels``). The
     LayerNorm kernels and the attention backward stand at the shape and
     dtype the training path gives them (f32, batch 32 x L=512), the
     attention forward at the serving shape, as before. The other shapes and
     options checked ride along under ``also_checked``, without launch
     counts: the LayerNorm forward at the serving shape and in bf16; its
-    backward in bf16 (timed), at a ragged [12345, 1024] in f32 and bf16 and
+    backward at a ragged [12345, 1024] in f32 and bf16 and
     at [37, 4100], a width the row variant does not take (untimed); the
     attention forward at the training shape with dropout and at L=128
     (where the TPU took its small variant), the dropout masks, at D = 32
@@ -704,8 +719,7 @@ def check_kernels():
     ln["also_checked"] = [check_layernorm("float32", LN_ROWS),
                           check_layernorm("bfloat16", LN_ROWS)]
     ln_bwd = check_layernorm_bwd("float32")
-    ln_bwd["also_checked"] = [check_layernorm_bwd("bfloat16"),
-                              check_layernorm_bwd("float32", 12345, 1024, timed=False),
+    ln_bwd["also_checked"] = [check_layernorm_bwd("float32", 12345, 1024, timed=False),
                               check_layernorm_bwd("bfloat16", 12345, 1024, timed=False),
                               check_layernorm_bwd("float32", 37, 4100, timed=False)]
     fa = check_flash(SEQ_LEN, "paddle_tpu/ops/pallas/flash_attention.py:548")
@@ -756,8 +770,10 @@ def make_requests(cfg, rng):
 
 
 _KERNEL_KINDS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                 "layernorm_residual_fwd", "layernorm_residual_bwd", "conv_mm", "bn_reduce",
-                 "bn_elementwise", "momentum", "int8_mm", "pool_bwd")
+                 "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+                 "flash_attention_bwd_dkv_bf16", "layernorm_residual_fwd",
+                 "layernorm_residual_bwd", "conv_mm", "bn_reduce", "bn_elementwise", "momentum",
+                 "int8_mm", "pool_bwd")
 
 
 def _kernel_kind(name):
@@ -767,14 +783,15 @@ def _kernel_kind(name):
                                                                       "pool_bwd_kernel")
     for kind in _KERNEL_KINDS:
         if f"{kind}_kernel" in n:
-            return kind
+            # one LayerNorm template takes both dtypes: its bf16 instances apart
+            return kind + ("_bf16" if kind.startswith("layernorm") and "bfloat16" in n else "")
     if "memcpy" in n or "memset" in n:
         return "memcpy"
     if "im2col" in n or "col2im" in n:
         return "im2col/col2im"
     if "conv" in n or "cudnn" in n or "implicit" in n or "wgrad" in n or "dgrad" in n:
         return "cudnn conv"
-    if "gemm" in n or "cutlass" in n or "xmma" in n:
+    if "gemm" in n or "cutlass" in n or "xmma" in n or n.startswith("nvjet"):
         return "matmul"
     return "other"
 
@@ -1116,7 +1133,8 @@ def _timed_steps(step, batch, steps):
 
 def _profile_step(step, batch, label):
     """One training step under ``torch.profiler``: wall time, the device's
-    busy share, kernel time by kind and the top kernels."""
+    busy share, kernel time by kind and the top kernels. Returns the
+    profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1127,6 +1145,7 @@ def _profile_step(step, batch, label):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     _log_profile(prof, wall, label, top=10)
+    return prof
 
 
 def train_bert():
@@ -1178,6 +1197,473 @@ def train_bert():
     log(f"AdamW update alone: {wall:.3f} ms wall, device busy {sum(by_kind.values()):.3f} ms "
         f"in {events} device events")
     return counts
+
+
+# -- AMP: bf16 kernels, the AMP step against the CPU, BERT trained under auto_cast --
+
+BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
+# the bf16 attention kernels against their plain versions, in bf16 ulps of
+# the largest output: both round P (or dS) to bf16 at the TPU kernels'
+# points and sum in f32 in other orders (read 0.06-1 on the H100)
+FLASH_BF16_ULPS = 2.0
+# the residual LayerNorm's mixed case (bf16 x, f32 residual; the f32 kernel
+# rounded back to bf16) against the plain version: the output and dx in bf16
+# ulps of their largest entry, the residual's f32 gradient relative to its
+# largest entry
+LN_MIXED_ULPS, LN_MIXED_RTOL = 1.0, 1e-5
+_FLASH_SRC_BF16 = "paddle_tpu_torch/csrc/flash_attention_bf16.cu"
+_FLASH_BWD_SRC_BF16 = "paddle_tpu_torch/csrc/flash_attention_bwd_bf16.cu"
+_FA = "paddle_tpu/ops/pallas/flash_attention.py"
+
+
+def bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps of the largest |want|."""
+    return float((got.float() - want.float()).abs().max() / bf16_ulp(want.float().abs().max()))
+
+
+def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, timed=True):
+    """The three bf16 attention kernels at [batch, 12, seq, d] (keys ``lk``,
+    default ``seq``) with a bf16 pad bias (the mask in q's dtype, as under
+    AMP), against the plain versions with the same dropout seed: the output
+    and each gradient within ``FLASH_BF16_ULPS`` bf16 ulps of the largest
+    entry, lse within ``FLASH_ATOL``. Timed: each kernel, the whole
+    backward, the plain forward and backward, and bf16 SDPA forward and
+    backward (the same mask and dropout rate, its own dropout mask) as the
+    library. Returns the forward's, the dQ and the dK/dV entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    lk = seq if lk is None else lk
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shape, kshape = (batch, FLASH_H, seq, d), (batch, FLASH_H, lk, d)
+    scale = d ** -0.5
+
+    def make():
+        q, do = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn(kshape, generator=g, device="cuda").bfloat16() for _ in range(2))
+        bias = _pad_bias(g, batch, lk).bfloat16()
+        seed = fa._draw_seed(g, "cuda") if rate else None
+        return q, k, v, bias, do, seed
+
+    sets = [make() for _ in range(3 if timed else 1)]
+    q, k, v, bias, do, seed = sets[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
+    pout, plse = fa._plain_fwd(q, k, v, bias, causal, scale, rate, seed)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, seed)
+    pq, pk, pv = fa._plain_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, seed)
+    torch.cuda.synchronize()
+    if not all(t.dtype == torch.bfloat16 for t in (out, dq, dk, dv)) or lse.dtype != torch.float32:
+        raise AssertionError("bf16 attention: outputs not bf16 or lse not f32")
+    pairs_ = {"out": (out, pout), "dq": (dq, pq), "dk": (dk, pk), "dv": (dv, pv)}
+    errs = {n: bf16_ulps(a, b_) for n, (a, b_) in pairs_.items()}
+    abs_errs = {n: float((a.float() - b_.float()).abs().max()) for n, (a, b_) in pairs_.items()}
+    lse_err = float((lse - plse).abs().max())
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, dq, dk, dv))
+    label = (f"bf16 attention {list(shape)}{f' Lk {lk}' if lk != seq else ''} rate {rate}"
+             f"{' causal' if causal else ''}")
+    tol = f"{FLASH_BF16_ULPS} bf16 ulps of the largest entry, lse atol {FLASH_ATOL}"
+    if not finite or max(errs.values()) > FLASH_BF16_ULPS or lse_err > FLASH_ATOL:
+        raise AssertionError(f"{label}: ulps {errs}, lse err {lse_err}, finite {finite}; "
+                             f"beyond {tol}")
+    pairs = sum(max(0, min(lk, i + lk - seq + 1)) for i in range(seq)) if causal else seq * lk
+    bhld = batch * FLASH_H * pairs * d
+    qb, kb = 2 * q.numel(), 2 * k.numel()  # bf16 bytes
+    stats = 8 * batch * FLASH_H * seq + 2 * batch * lk  # lse, delta f32; the bf16 pad bias
+    io = {"fwd": 2 * qb + 2 * kb + 4 * batch * FLASH_H * seq + 2 * batch * lk,  # q, k, v, out, lse
+          "dq": 3 * qb + 2 * kb + stats, "dkv": 2 * qb + 4 * kb + stats,
+          "all": 3 * qb + 4 * kb + stats}
+    ops = {"fwd": 4 * bhld, "dq": 6 * bhld, "dkv": 8 * bhld, "all": 10 * bhld}
+    bounds = {n: bound(io[n], ops[n], BF16_FLOPS_PER_S) for n in io}
+    common = {"route": "cuda", "shape": list(shape), "keys": lk, "dtype": "bfloat16",
+              "dropout_rate": rate, "causal": causal, "tolerance": tol,
+              "bound_note": "bf16 products / 989 TFLOP/s, bf16 bytes / 3.35 TB/s"}
+    entries = [dict(name="flash_attention_fwd_bf16", source=_FLASH_SRC_BF16, replaces=replaces[0],
+                    max_abs_err=abs_errs["out"], max_err_ulps=errs["out"], lse_err=lse_err,
+                    bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1], **common)]
+    for name, key, rep in (("flash_attention_bwd_dq_bf16", ("dq",), replaces[1]),
+                           ("flash_attention_bwd_dkv_bf16", ("dk", "dv"), replaces[2])):
+        b_ = bounds["dq" if name.endswith("dq_bf16") else "dkv"]
+        entries.append(dict(name=name, source=_FLASH_BWD_SRC_BF16, replaces=rep,
+                            max_abs_err=max(abs_errs[k_] for k_ in key),
+                            max_err_ulps=max(errs[k_] for k_ in key), bound_ms=b_[0],
+                            bound_by=b_[1], **common))
+    if not timed:
+        log(f"{label}: ulps {', '.join(f'{k_} {v_:.3f}' for k_, v_ in errs.items())}, lse err "
+            f"{lse_err:.3g} ({tol})")
+        return tuple(entries)
+
+    def fwd(q, k, v, bias, do, seed):
+        return fa.flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
+
+    outs = [fwd(*s) for s in sets]
+    bsets = [(q_, k_, v_, b_, lse_, (do_.float() * o_.float()).sum(-1).reshape(-1, seq), do_,
+              causal, scale, rate, seed_, o_)
+             for (q_, k_, v_, b_, do_, seed_), (o_, lse_) in zip(sets, outs)]
+    small = seq <= 128  # the host's launch cost is longer than the kernel: time behind a sleep
+    iters = 100 if small else 20
+
+    def timer(fn, arg_sets, n=iters):
+        return device_ms_sets(fn, arg_sets, n)[0] if small else time_ms(fn, arg_sets, n)
+
+    ms = {"fwd": timer(fwd, sets),
+          "dq": timer(lambda *a: fa.flash_attention_bwd_dq(*a[:-1]), bsets),
+          "dkv": timer(lambda *a: fa.flash_attention_bwd_dkv(*a[:-1]), bsets),
+          "all": timer(lambda q_, k_, v_, b_, lse_, dl, do_, c, sc, r, sd, o_:
+                       fa.flash_attention_bwd(q_, k_, v_, b_, o_, lse_, do_, c, sc, r, sd),
+                       bsets)}
+    plain_fwd = timer(lambda q, k, v, bias, do, seed: fa._plain_fwd(q, k, v, bias, causal, scale,
+                                                                    rate, seed), sets, 5)
+    plain_bwd = timer(lambda q_, k_, v_, b_, lse_, dl, do_, c, sc, r, sd, o_:
+                      fa._plain_bwd(q_, k_, v_, b_, o_, lse_, do_, c, sc, r, sd), bsets, 5)
+    causal_mask = (torch.full((seq, lk), -1e30, device="cuda").triu(lk - seq + 1).bfloat16()
+                   if causal else None)
+
+    def sdpa_mask(b_):
+        return b_ if causal_mask is None else b_ + causal_mask
+
+    lib_fwd = timer(lambda q, k, v, bias, do, seed: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=sdpa_mask(bias), dropout_p=rate), sets)
+    graphs = []
+    for q_, k_, v_, b_, do_, _seed in sets:
+        ins = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+        graphs.append((F.scaled_dot_product_attention(*ins, attn_mask=sdpa_mask(b_),
+                                                      dropout_p=rate), ins, do_))
+    lib_bwd = timer(lambda o, ins, do_: torch.autograd.grad(o, ins, do_, retain_graph=True),
+                    graphs)
+    log(f"{label}: ulps {', '.join(f'{k_} {v_:.3f}' for k_, v_ in errs.items())}, lse err "
+        f"{lse_err:.3g} ({tol}); forward {ms['fwd']:.4f} ms (bound {bounds['fwd'][0]:.4f}, "
+        f"{bounds['fwd'][1]}), dQ {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f}), dK/dV "
+        f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f}), whole backward {ms['all']:.4f} (bound "
+        f"{bounds['all'][0]:.4f}); plain forward {plain_fwd:.4f}, backward {plain_bwd:.4f}; "
+        f"library (bf16 SDPA, dropout_p {rate}, its own mask) forward {lib_fwd:.4f}, backward "
+        f"{lib_bwd:.4f} ms{' (device time behind a sleep kernel)' if small else ''}")
+    total = {"ms": ms["all"], "plain_ms": plain_bwd, "library_ms": lib_bwd,
+             "library": "bf16 scaled_dot_product_attention backward", "bound_ms": bounds["all"][0]}
+    entries[0].update(ms=ms["fwd"], kernel_ms=ms["fwd"], plain_ms=plain_fwd, library_ms=lib_fwd,
+                      library=f"bf16 scaled_dot_product_attention, dropout_p {rate}")
+    for e, key in zip(entries[1:], ("dq", "dkv")):
+        e.update(ms=ms[key], kernel_ms=ms[key], plain_ms=plain_bwd, library_ms=None,
+                 backward_total=total)
+    return tuple(entries)
+
+
+def check_layernorm_mixed(rows=TRAIN_ROWS):
+    """The residual LayerNorm's mixed case, the first encoder layer's under
+    AMP: a bf16 x (the attention output) on an f32 residual (the embedding
+    output) through the op, which takes both to f32, runs the f32 kernels
+    and rounds the output back to bf16; the gradient of x comes back bf16,
+    the residual's f32. Against the plain version of the same computation;
+    the f32 kernels launch once each and the bf16 ones not at all."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.cuda import layernorm_residual as lnr
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    w, b = (torch.randn(LN_H, generator=g, device="cuda") for _ in range(2))
+    sets = [(torch.randn(rows, LN_H, generator=g, device="cuda").bfloat16(),
+             torch.randn(rows, LN_H, generator=g, device="cuda"),
+             torch.randn(rows, LN_H, generator=g, device="cuda").bfloat16()) for _ in range(3)]
+    x, r, dy = sets[0]
+    xs, rs = x.detach().requires_grad_(), r.detach().requires_grad_()
+    reset_launch_counts()
+    y = lnr.layernorm_residual(xs, rs, w, b)
+    y.backward(dy)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want_counts = {"layernorm_residual_fwd": 1, "layernorm_residual_bwd": 1}
+    py, mean, rstd = lnr._reference(x.float(), r, w, b, 1e-5)
+    pa, _, _ = lnr._reference_bwd(x.float(), r, w, mean, rstd, dy.float())
+    torch.cuda.synchronize()
+    errs = {"y_ulps": bf16_ulps(y, py.bfloat16()), "dx_ulps": bf16_ulps(xs.grad, pa.bfloat16()),
+            "dres_rel": float((rs.grad - pa).abs().max() / pa.abs().max())}
+    dtypes = (y.dtype, xs.grad.dtype, rs.grad.dtype)
+    tol = (f"y and dx {LN_MIXED_ULPS} bf16 ulp of the largest entry, the residual's gradient "
+           f"rtol {LN_MIXED_RTOL}")
+    if (dtypes != (torch.bfloat16, torch.bfloat16, torch.float32) or counts != want_counts
+            or errs["y_ulps"] > LN_MIXED_ULPS or errs["dx_ulps"] > LN_MIXED_ULPS
+            or errs["dres_rel"] > LN_MIXED_RTOL):
+        raise AssertionError(f"mixed LayerNorm: {errs}, dtypes {dtypes}, launches {counts} "
+                             f"(want {want_counts}); beyond {tol}")
+
+    def op(x_, r_, dy_):
+        return lnr.layernorm_residual(x_, r_, w, b)
+
+    ms = time_ms(op, sets, 100)
+    plain_ms = time_ms(lambda x_, r_, dy_: lnr._reference(x_.float(), r_, w, b, 1e-5)[0]
+                       .bfloat16(), sets, 100)
+    # x and y bf16, the residual f32, read and written once; w, b, the statistics
+    t_b, by = bound(rows * LN_H * (2 + 4 + 2) + 8 * rows + 8 * LN_H, 9 * rows * LN_H)
+    log(f"mixed LayerNorm [{rows}, {LN_H}] bf16 x + f32 residual: {errs} ({tol}); launches "
+        f"{counts}; forward {ms:.4f} ms (the casts and the f32 kernel), plain {plain_ms:.4f} ms, "
+        f"bound {t_b:.4f} ms ({by})")
+    return {"name": "layernorm_residual_fwd", "case": "bf16 x + f32 residual (layer 0 under "
+            "AMP): the f32 kernels, output rounded to bf16", "shape": [rows, LN_H],
+            **errs, "tolerance": tol, "launches": counts, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_b, "bound_by": by}
+
+
+def check_amp_kernels():
+    """Entries for the bf16 kernels of the AMP path: the LayerNorm forward
+    and backward in bf16 at the training path's [16384, 768] (with the
+    mixed case and the serving shape under ``also_checked``), and the three
+    bf16 attention kernels at [32, 12, 512, 64] with dropout 0.1 and a pad
+    bias (also at rate 0 and at the short L = 128, causal, where the TPU
+    took its small variants; at D = 32 and 128 and at ragged causal shapes
+    untimed)."""
+    ln = check_layernorm("bfloat16", TRAIN_ROWS)
+    ln["also_checked"] = [check_layernorm_mixed()]
+    ln_bwd = check_layernorm_bwd("bfloat16")
+    rows = (f"{_FA}:548", f"{_FA}:765", f"{_FA}:815")
+    small = (f"{_FA}:370", f"{_FA}:433", f"{_FA}:433")
+    fwd, dq, dkv = check_flash_bf16(TRAIN_B, TRAIN_SEQ, ATTN_DROPOUT, False, rows)
+    for extra in (check_flash_bf16(TRAIN_B, TRAIN_SEQ, 0.0, False, rows),
+                  check_flash_bf16(FLASH_B, 128, ATTN_DROPOUT, True, small),
+                  check_flash_bf16(4, 256, ATTN_DROPOUT, True, rows, d=32, timed=False),
+                  check_flash_bf16(4, 256, ATTN_DROPOUT, False, rows, d=128, timed=False),
+                  check_flash_bf16(2, 300, ATTN_DROPOUT, True, rows, lk=257, timed=False),
+                  check_flash_bf16(2, 257, 0.0, True, rows, lk=300, d=32, timed=False)):
+        for entry, e in zip((fwd, dq, dkv), extra):
+            entry.setdefault("also_checked", []).append(e)
+    return [ln, ln_bwd, fwd, dq, dkv]
+
+
+# The AMP step against the port's plain path on the CPU under the same
+# auto_cast (BERT-base, dropout 0, batch 2 x L=512, the same weights, the
+# attention through its kernels' plain versions). In bf16 the two devices
+# part the way any two bf16 runs do: a product's output rounds to the
+# other side of a bf16 step where the f32 sums differ in their last bits
+# (0.04-0.17% of entries), and 12 layers carry that to the noise of bf16
+# itself, as far as the f32 step is from either (read on the H100: loss
+# 2.1e-3, gradient rel L2 0.021; the f32 step 1.5e-3, 0.022). So the loss
+# and the gradient's relative L2 are held to about 2.5 times the bf16
+# reading, which catches a wrong kernel or a dropped gradient, not a
+# missing cast. What the f32 step cannot match is bf16 values: the share of
+# gradient entries that differ from the CPU's in any bit (read 0.830; the
+# f32 step 1.000, never a bf16 value) is held at about the geometric mean
+# of the two, and amp_train_parity requires the f32 step to fail it.
+AMP_LIMITS = {"O1": {"loss": 5e-3, "grad_rel_l2": 0.05},
+              "O2": {"loss": 1e-2, "grad_rel_l2": 0.15}}
+AMP_GRAD_DIFFERING = 0.91
+
+
+def _amp_loss_fn(loss_fn, level):
+    from paddle_tpu_torch import amp
+
+    def amp_loss(m, *batch):
+        with amp.auto_cast(level=level):
+            return loss_fn(m, *batch)
+    return amp_loss
+
+
+def _grad_l2(model, ref_model):
+    """Against ``ref_model``'s gradients: the relative L2 error of the whole
+    gradient (every parameter), the share of its entries (those not 0 on
+    both sides) that differ in any bit, and the worst entry relative to the largest gradient entry of its
+    layer with the parameter's name (reported: bf16 rounds a layer's
+    largest entries by up to 2**-9)."""
+    num = den = 0.0
+    differ = total = 0
+    scale, worst = {}, (0.0, "")
+    pairs = list(zip(model.named_parameters(), ref_model.named_parameters()))
+    for (n, p), (_, pr) in pairs:
+        if p.grad is None or pr.grad is None:
+            raise AssertionError(f"{n}: no gradient ({'card' if p.grad is None else 'CPU'})")
+        layer = n.rpartition(".")[0]
+        scale[layer] = max(scale.get(layer, 0.0), float(pr.grad.float().abs().max()))
+    for (n, p), (_, pr) in pairs:
+        d = p.grad.cpu().double() - pr.grad.double()
+        num += float(d.square().sum())
+        den += float(pr.grad.double().square().sum())
+        live = (p.grad.cpu() != 0) | (pr.grad != 0)  # both 0 (a row no token used) says nothing
+        differ += int((d != 0).sum())
+        total += int(live.sum())
+        e = float(d.abs().max()) / max(scale[n.rpartition(".")[0]], 1e-30)
+        worst = max(worst, (e, n))
+    return (num / den) ** 0.5, differ / total, worst
+
+
+@contextlib.contextmanager
+def _cpu_kernel_route():
+    """CPU tensors take the attention kernels' route with each kernel
+    replaced by its plain version (``_plain_fwd``, ``_plain_bwd``): the
+    card's arithmetic on the CPU. The CPU's own route differentiates
+    ``_plain_attention``, which rounds the normalized weights as the JAX
+    package's plain path does, where the kernels round the probabilities
+    before normalizing (``_fwd_core``) and dS before its products; in bf16
+    that alone moves a BERT-base step as far as leaving out the cast."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    saved = (fa._use_kernel, fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dkv)
+
+    def dq(q, k, v, b, lse, delta, do, *rest):
+        return fa._plain_bwd(q, k, v, b, None, lse, do, *rest)[0]
+
+    def dkv(q, k, v, b, lse, delta, do, *rest):
+        return fa._plain_bwd(q, k, v, b, None, lse, do, *rest)[1:]
+
+    fa._use_kernel = lambda q: True
+    fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = (
+        fa._plain_fwd, dq, dkv)
+    try:
+        yield
+    finally:
+        (fa._use_kernel, fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+         fa.flash_attention_bwd_dkv) = saved
+
+
+def _amp_launches(level, layers, steps=1):
+    """Launches of one AMP step of BERT: the bf16 attention kernels; at O1
+    layer 0's first residual LayerNorm is the mixed case (the f32 kernels),
+    every other the bf16 kernels; at O2 all are bf16."""
+    f32_ln = 1 if level == "O1" else 0
+    want = {"flash_attention_fwd_bf16": layers, "flash_attention_bwd_dq_bf16": layers,
+            "flash_attention_bwd_dkv_bf16": layers,
+            "layernorm_residual_fwd": f32_ln, "layernorm_residual_bwd": f32_ln,
+            "layernorm_residual_fwd_bf16": 2 * layers - f32_ln,
+            "layernorm_residual_bwd_bf16": 2 * layers - f32_ln}
+    return {k: v * steps for k, v in want.items() if v}
+
+
+def amp_train_parity():
+    """One BERT-base step at dropout 0, batch 2 x L=512, under
+    ``auto_cast`` (O1), on the card and on the CPU's plain path from the
+    same weights, the attention through its kernels' plain versions
+    (``_cpu_kernel_route``); the f32 step on the card as the control the
+    limits must catch; then one O2 step (``decorate``), held the same way
+    against its own CPU step. Returns the readings."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import bert_base_config
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = bert_base_config()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    model, loss_fn = _pretraining(cfg, seed=0)
+    batch = pretraining_batch(cfg, 2, TRAIN_SEQ, TRAIN_PRED, np.random.RandomState(8))
+    control = copy.deepcopy(model)
+    control_loss = float(_step_of(control, loss_fn)(*batch)["loss"])
+    readings, layers = {}, cfg.num_hidden_layers
+    for level in ("O1", "O2"):
+        card = copy.deepcopy(model)
+        if level == "O2":
+            amp.decorate(card, level="O2")
+        cpu = copy.deepcopy(card)
+        amp_loss = _amp_loss_fn(loss_fn, level)
+        t0 = time.perf_counter()
+        with _cpu_kernel_route():
+            cpu_loss = float(_step_of(cpu, amp_loss, device="cpu")(*batch)["loss"])
+        cpu_s = time.perf_counter() - t0
+        reset_launch_counts()
+        loss = float(_step_of(card, amp_loss)(*batch)["loss"])
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = _amp_launches(level, layers)
+        if counts != want:
+            raise AssertionError(f"AMP {level} parity step launched {counts}; want {want}")
+        l2, differ, worst = _grad_l2(card, cpu)
+        c_l2, c_differ, c_worst = _grad_l2(control, cpu)
+        lim = AMP_LIMITS[level]
+        r = {"loss": loss, "cpu_loss": cpu_loss, "loss_err": abs(loss - cpu_loss),
+             "grad_rel_l2": l2, "grad_differing": differ, "worst_entry": worst,
+             "control_loss_err": abs(control_loss - cpu_loss), "control_grad_rel_l2": c_l2,
+             "control_grad_differing": c_differ, "control_worst_entry": c_worst,
+             "cpu_step_s": cpu_s, "limits": dict(lim, grad_differing=AMP_GRAD_DIFFERING)}
+        readings[level] = r
+        log(f"AMP {level} parity step: card loss {loss:.6f}, CPU (plain path, {cpu_s:.1f} s) "
+            f"{cpu_loss:.6f}: loss err {r['loss_err']:.3g} (atol {lim['loss']}), gradient rel "
+            f"L2 {l2:.3g} (limit {lim['grad_rel_l2']}), entries differing {differ:.4f} (limit "
+            f"{AMP_GRAD_DIFFERING}), worst entry {worst[0]:.3g} of its layer's largest at "
+            f"{worst[1]}; f32 control on the card: loss err {r['control_loss_err']:.3g}, "
+            f"gradient rel L2 {c_l2:.3g}, entries differing {c_differ:.4f}, worst entry "
+            f"{c_worst[0]:.3g} at {c_worst[1]}; launches {counts}")
+        del card, cpu
+    for level, r in readings.items():  # every reading is logged before any limit fails
+        lim = AMP_LIMITS[level]
+        if not (np.isfinite(r["loss"]) and r["loss_err"] <= lim["loss"]
+                and r["grad_rel_l2"] <= lim["grad_rel_l2"]
+                and r["grad_differing"] <= AMP_GRAD_DIFFERING):
+            raise AssertionError(f"AMP {level} parity step beyond its limits: {r}")
+        if not r["control_grad_differing"] > AMP_GRAD_DIFFERING:
+            raise AssertionError(f"AMP {level}: the f32 control passes the limit on differing "
+                                 f"entries {AMP_GRAD_DIFFERING}: {r}")
+    return readings
+
+
+def _gemm_kernels(prof):
+    """Matrix-product kernels of a profile: {name: (ms, calls)}."""
+    out = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and _kernel_kind(e.key) == "matmul":
+            t = getattr(e, "device_time_total", None)
+            out[e.key] = ((e.cuda_time_total if t is None else t) / 1e3, e.count)
+    return out
+
+
+def _gemm_dtype(name):
+    """The operand type a cuBLAS/CUTLASS kernel's name carries: "bf16",
+    "f32" (full f32 or TF32), or "unknown"."""
+    n = name.lower()
+    if "bf16" in n or n.startswith("nvjet_tst") or "bfloat16" in n:
+        return "bf16"
+    if any(s in n for s in ("f32f32_f32f32", "sgemm", "tf32", "nvjet_sss", "_s1688", "<float")):
+        return "f32"
+    return "unknown"
+
+
+def train_bert_amp():
+    """bench.py's phase-2 BERT step under ``auto_cast`` (O1): batch 32 x
+    L=512, 80 masked a row, dropout 0.1, AdamW, one fixed batch; 10 timed
+    steps whose losses must be finite and fall, each launching the three
+    bf16 attention kernels once a layer and the residual LayerNorms (layer
+    0's first the mixed case, on the f32 kernels, the rest bf16); the
+    median step, tokens/s and peak memory; one profiled step by kernel
+    kind, whose matrix products must all be bf16 (JAX's dtype trace keeps
+    no product in f32 under O1). Returns the launches over the timed steps."""
+    import torch
+
+    from paddle_tpu_torch.models import bert_base_config
+
+    readings = amp_train_parity()
+    cfg = bert_base_config()  # hidden and attention dropout 0.1
+    cfg.use_flash_attention = True
+    model, loss_fn = _pretraining(cfg, seed=1)
+    step = _step_of(model, _amp_loss_fn(loss_fn, "O1"))
+    batch = [torch.from_numpy(a).cuda() for a in
+             pretraining_batch(cfg, TRAIN_B, TRAIN_SEQ, TRAIN_PRED, np.random.RandomState(9))]
+    losses, step_ms, wall_ms, counts, peak = _timed_steps(step, batch, TRAIN_STEPS)
+    layers = cfg.num_hidden_layers
+    want = _amp_launches("O1", layers, TRAIN_STEPS)
+    want = {k: want.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"AMP: {TRAIN_STEPS} steps launched {counts}; want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"AMP losses not finite or not falling: {losses}")
+    tokens = TRAIN_B * TRAIN_SEQ
+    median = float(np.median(step_ms))
+    log(f"AMP (O1, bf16) {TRAIN_STEPS} steps at batch {TRAIN_B} x L={TRAIN_SEQ}: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}")
+    log(f"AMP step {float(np.mean(step_ms)):.2f} ms (median {median:.2f}, min {min(step_ms):.2f}, "
+        f"max {max(step_ms):.2f}; host clock {wall_ms:.2f}), {tokens / median * 1e3:.0f} tokens/s "
+        f"at the median; peak device memory {peak:.1f} GiB; launches a step "
+        f"{ {k: v // TRAIN_STEPS for k, v in counts.items() if v} }")
+    prof = _profile_step(step, batch, "AMP train step profiled")
+    gemms = _gemm_kernels(prof)
+    by_dtype = {}
+    for name, (ms, _calls) in gemms.items():
+        by_dtype[_gemm_dtype(name)] = by_dtype.get(_gemm_dtype(name), 0.0) + ms
+    log("AMP train step, matrix-product kernels (name, ms, calls, operand type): "
+        + "; ".join(f"{n[:90]} {ms:.3f} {c} {_gemm_dtype(n)}" for n, (ms, c) in
+                    sorted(gemms.items(), key=lambda kv: -kv[1][0])))
+    log(f"AMP train step, matrix-product time by operand type (ms): {by_dtype}")
+    if not by_dtype.get("bf16") or set(by_dtype) != {"bf16"}:
+        raise AssertionError(f"AMP step's matrix products not all bf16: {by_dtype}")
+    return counts, {"parity": readings, "step_ms_median": median,
+                    "tokens_per_s": tokens / median * 1e3, "peak_gib": peak,
+                    "gemm_ms_by_dtype": by_dtype, "losses": losses}
 
 
 # -- the ResNet path -----------------------------------------------------------
@@ -2479,8 +2965,9 @@ def serve_int8():
 
 
 # the sources rewritten last, whose registers and spills the run logs
-PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "layernorm_residual_bwd",
-                 "optimizer_update", "conv_bn_relu_mm", "int8_matmul", "pool_backward")
+PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
+                 "flash_attention_bwd_bf16", "layernorm_residual_bwd", "optimizer_update",
+                 "conv_bn_relu_mm", "int8_matmul", "pool_backward")
 # of those, the sources whose kernels must not spill
 NO_SPILL_SOURCES = ("conv_bn_relu_mm", "int8_matmul", "pool_backward")
 
@@ -2572,9 +3059,11 @@ def main() -> int:
     log(f"built {', '.join(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s")
     registers = finish_ptxas(*ptxas)
 
-    kernels = check_kernels() + check_resnet_kernels() + check_new_kernels()
+    kernels = check_kernels() + check_amp_kernels() + check_resnet_kernels() + check_new_kernels()
     served = serve_bert()
     trained = train_bert()
+    torch.cuda.empty_cache()
+    amp_trained, amp = train_bert_amp()
     torch.cuda.empty_cache()
     rn_served = serve_resnet()
     q_served = serve_int8()
@@ -2583,13 +3072,13 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served[name] + rn_served[name] + q_served[name]
-        k["launches_training"] = trained[name] + rn_trained[name]
+        k["launches_training"] = trained[name] + amp_trained[name] + rn_trained[name]
         k["launches"] = k["launches_serving"] + k["launches_training"]
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "amp_bert_training": amp}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,8 +9,12 @@ sources in ``csrc/``) for flash attention and the fused residual-add +
 LayerNorm, forward and backward. It serves and trains ResNet (fused conv +
 batch norm + relu, momentum and max-pool backward kernels) and serves saved
 static programs, float or post-training-quantized to int8 (``static``,
-``slim``, ``inference.create_predictor``; the int8 matmul kernel). Entry
-points run on the CUDA card unless the caller passes ``device="cpu"``.
+``slim``, ``inference.create_predictor``; the int8 matmul kernel). ``amp``
+is the JAX package's mixed precision: ``auto_cast`` (O1 and O2, bf16),
+``GradScaler`` and ``decorate``; under it BERT trains through the bf16
+attention and LayerNorm kernels. Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``.
 """
+from . import amp  # noqa: F401
 from .flags import flag, set_flags  # noqa: F401
 from .framework import load, save, seed  # noqa: F401

@@ -21,12 +21,16 @@ class TrainStepFn:
     on ``loss_fn(model, *batch)``. Numpy or CPU inputs move to the step's
     device; the model moves there once, at construction. TF32 is switched
     off for matrix products and convolutions, so float32 stays float32 on
-    the card."""
+    the card, and so is cuBLAS's reduced-precision reduction of bf16
+    products, so a bf16 product's split-K sums stay f32 as the JAX
+    package's ``preferred_element_type=f32`` keeps them. AMP is the
+    caller's: ``loss_fn`` may run the model under ``amp.auto_cast``."""
 
     def __init__(self, model, optimizer, loss_fn, device=None):
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.model = model.to(self.device)
         self.optimizer = optimizer
         self.loss_fn = loss_fn

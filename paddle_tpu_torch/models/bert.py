@@ -152,7 +152,7 @@ class BertLMPredictionHead(nn.Module):
             b, l, h = hidden_states.shape
             hidden_states = F.gather(hidden_states.reshape(b * l, h), masked_positions)
         x = self.layer_norm(self.activation(self.transform(hidden_states)))
-        return torch.matmul(x, self.decoder_weight.t()) + self.decoder_bias
+        return F.matmul(x, self.decoder_weight, transpose_y=True) + self.decoder_bias
 
 
 class BertForPretraining(nn.Module):
@@ -188,4 +188,4 @@ class BertPretrainingCriterion(nn.Module):
         mlm = F.cross_entropy(prediction_scores.reshape(-1, self.vocab_size),
                               masked_lm_labels.reshape(-1))
         nsp = F.cross_entropy(seq_relationship_score, next_sentence_labels.reshape(-1))
-        return mlm / masked_lm_scale + nsp
+        return F.mean(mlm) / masked_lm_scale + F.mean(nsp)

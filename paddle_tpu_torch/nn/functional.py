@@ -17,6 +17,14 @@ the running buffers as Paddle does, ``momentum * running + (1 - momentum)
 * batch`` with the biased batch variance (``torch.nn.functional.batch_norm``
 weights the other way and keeps the unbiased variance, so it never sees
 the buffers).
+
+Every op hands its inputs to :func:`~paddle_tpu_torch.framework.autograd.amp_cast`
+under the JAX op type's name (``"linear"``, ``"matmul"``, ``"softmax"``,
+``"cross_entropy"``, ``"conv2d"``, ...; ``embedding`` is
+``"lookup_table"``, ``max_pool2d`` ``"pool2d"``, :func:`mean`
+``"reduce_mean"``), so an :func:`paddle_tpu_torch.amp.auto_cast` scope
+casts them as the JAX package's dispatcher does; ``layer_norm`` and
+``batch_norm`` keep f32 statistics and return their input's dtype.
 """
 from __future__ import annotations
 
@@ -25,20 +33,39 @@ import torch.nn.functional as _F
 
 from ..flags import flag as _flag
 from ..framework import random as _random
+from ..framework.autograd import amp_cast
 from ..ops.cuda import pool_backward as _pool_backward
 
-__all__ = ["linear", "gelu", "relu", "tanh", "softmax", "layer_norm", "embedding", "dropout",
+__all__ = ["linear", "matmul", "mean", "gelu", "relu", "tanh", "softmax", "layer_norm", "embedding", "dropout",
            "gather", "cross_entropy", "softmax_with_cross_entropy", "conv2d", "conv_padding",
            "batch_norm", "max_pool2d", "adaptive_avg_pool2d", "flatten"]
 
 
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with Paddle's ``[in_features, out_features]`` weight."""
+    x, weight, bias = amp_cast("linear", [x, weight, bias])
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
 
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    """``x @ y`` with either operand's last two axes swapped first."""
+    x, y = amp_cast("matmul", [x, y])
+    if transpose_x:
+        x = x.transpose(-1, -2)
+    if transpose_y:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
+
+
+def mean(x, axis=None, keepdim=False):
+    """The mean over ``axis`` (all axes when None)."""
+    (x,) = amp_cast("reduce_mean", [x])
+    return x.mean() if axis is None else x.mean(axis, keepdim=keepdim)
+
+
 def gelu(x, approximate=False):
+    (x,) = amp_cast("gelu", [x])
     return _F.gelu(x, approximate="tanh" if approximate else "none")
 
 
@@ -51,16 +78,24 @@ def tanh(x):
 
 
 def softmax(x, axis=-1):
+    (x,) = amp_cast("softmax", [x])
     return torch.softmax(x, dim=axis)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` axes: f32 statistics,
+    the output in ``x``'s dtype (``kernels.py:963``)."""
+    x, weight, bias = amp_cast("layer_norm", [x, weight, bias])
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
-    return _F.layer_norm(x, list(normalized_shape), weight, bias, epsilon)
+    if x.dtype == torch.float32 and all(p is None or p.dtype == x.dtype for p in (weight, bias)):
+        return _F.layer_norm(x, list(normalized_shape), weight, bias, epsilon)
+    f32 = [None if p is None else p.float() for p in (x, weight, bias)]
+    return _F.layer_norm(f32[0], list(normalized_shape), f32[1], f32[2], epsilon).to(x.dtype)
 
 
 def embedding(x, weight, padding_idx=None):
+    weight, x = amp_cast("lookup_table", [weight, x])
     return _F.embedding(x, weight, padding_idx=padding_idx)
 
 
@@ -69,7 +104,8 @@ def dropout(x, p=0.5, training=True, generator=None):
     mask comes from ``generator`` (default: the device's default
     generator)."""
     if not training or p == 0.0:
-        return x
+        return x  # not dispatched, so not cast, as in the JAX package
+    (x,) = amp_cast("dropout", [x])
     gen = _random.default_generator(x.device) if generator is None else generator
     keep = torch.rand(x.shape, device=x.device, generator=gen) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
@@ -94,6 +130,7 @@ def _picked_logp(logits, label, axis, ignore_index):
 
 def softmax_with_cross_entropy(logits, label, axis=-1, ignore_index=-100):
     """Per-example loss with the class axis kept (size 1)."""
+    logits, label = amp_cast("softmax_with_cross_entropy", [logits, label])
     loss, _ = _picked_logp(logits, label, axis, ignore_index)
     return loss
 
@@ -101,6 +138,7 @@ def softmax_with_cross_entropy(logits, label, axis=-1, ignore_index=-100):
 def cross_entropy(input, label, ignore_index=-100, reduction="mean", axis=-1):
     """Softmax cross entropy over hard labels; ``reduction`` is ``"mean"``
     (over the valid labels, at least 1), ``"sum"`` or ``"none"``."""
+    input, label = amp_cast("cross_entropy", [input, label])
     loss, valid = _picked_logp(input, label, axis, ignore_index)
     loss = loss.squeeze(axis)
     if reduction == "none":
@@ -142,7 +180,10 @@ def _same_padding(hw, kernel, stride, dilation):
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
-    """2-D convolution with an OIHW ``weight`` for NCHW or NHWC ``x``."""
+    """2-D convolution with an OIHW ``weight`` for NCHW or NHWC ``x``. A
+    ``bias`` of another dtype than the (cast) product is added after it, as
+    the JAX package adds it (an f32 bias promotes a bf16 product)."""
+    x, weight = amp_cast("conv2d", [x, weight])
     stride, dilation = _pair(stride), _pair(dilation)
     if data_format == "NHWC":
         x = x.permute(0, 3, 1, 2)
@@ -155,11 +196,14 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     else:
         pads = conv_padding(padding)
     (top, bottom), (left, right) = pads
+    fused_bias = bias if bias is None or bias.dtype == x.dtype else None
     if top == bottom and left == right:
-        y = _F.conv2d(x, weight, bias, stride, (top, left), dilation, groups)
+        y = _F.conv2d(x, weight, fused_bias, stride, (top, left), dilation, groups)
     else:
-        y = _F.conv2d(_F.pad(x, (left, right, top, bottom)), weight, bias, stride, 0, dilation,
-                      groups)
+        y = _F.conv2d(_F.pad(x, (left, right, top, bottom)), weight, fused_bias, stride, 0,
+                      dilation, groups)
+    if bias is not None and fused_bias is None:
+        y = y + bias.reshape(1, -1, 1, 1)
     return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
 
 
@@ -168,6 +212,8 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False, momen
     """Batch normalization over every axis but the channel one. In
     training the biased batch statistics normalize ``x`` and are blended
     into the running buffers in place (no gradient flows into them)."""
+    x, weight, bias, mean_in, var_in = amp_cast(
+        "batch_norm", [x, weight, bias, running_mean, running_var])
     caxis = 1 if data_format in ("NCHW", "NCL", "NCDHW") else x.dim() - 1
     axes = [i for i in range(x.dim()) if i != caxis]
     shape = [1] * x.dim()
@@ -180,7 +226,7 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False, momen
             running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
             running_var.copy_(momentum * running_var + (1 - momentum) * var)
     else:
-        mean, var = running_mean, running_var
+        mean, var = mean_in, var_in
     y = ((xf - mean.reshape(shape)) * torch.rsqrt(var + epsilon).reshape(shape)
          * weight.reshape(shape) + bias.reshape(shape))
     return y.to(x.dtype)
@@ -222,6 +268,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_for
     as ``kernels.py:816-822`` does. With ``FLAGS_use_pallas_pool_bwd`` on,
     an admitted pool (``max_pool_backward_supported``) takes its backward
     from the kernel of ``ops/cuda/pool_backward.py``."""
+    (x,) = amp_cast("pool2d", [x])
     ks = _pair(kernel_size)
     st = _pair(stride) if stride is not None else ks
     p = _pair(padding)

@@ -190,10 +190,18 @@ def fused_conv_bn_relu(conv, bn, x):
     if (flag("use_fused_conv_bn") and conv.bias is None and attrs["groups"] == 1
             and _pair(attrs["dilation"]) == (1, 1) and isinstance(bn, BatchNorm2D)
             and bn.data_format == ("NCHW" if conv.data_format == "NCHW" else "NHWC")):
+        from ..amp import _enabled as _amp_scope
         from ..ops.cuda import conv_bn_relu as cbr
 
+        # as the unfused path autocasts the conv (a white op) and not the
+        # batch norm: x and the weight take the AMP dtype, gamma, beta and
+        # the running statistics stay f32 (paddle_tpu/nn/layers.py:214-228)
+        weight = conv.weight
+        scope = _amp_scope()
+        if scope is not None and "conv2d" in scope[1]:
+            x, weight = (t.to(scope[0]) if t.dtype == torch.float32 else t for t in (x, weight))
         y, new_mean, new_var = cbr.conv_bn_relu(
-            x, conv.weight, bn.weight, bn.bias, bn._mean, bn._variance,
+            x, weight, bn.weight, bn.bias, bn._mean, bn._variance,
             stride=attrs["stride"], padding=attrs["padding"], epsilon=bn.epsilon,
             momentum=bn.momentum, training=bn.training, data_format=conv.data_format)
         if bn.training:

@@ -91,19 +91,20 @@ class MultiHeadAttention(nn.Module):
         k = self._shape(self.k_proj(key))
         v = self._shape(self.v_proj(value))
         scale = float(self.head_dim) ** -0.5
+        # in q's dtype, bf16 under AMP, as the JAX package makes it
         mask = _convert_attention_mask(attn_mask, q.dtype)
         if self.use_flash_attention and k.shape[2] >= FLASH_ATTENTION_MIN_SEQ:
             out = flash_attention.flash_attention(
                 q, k, v, bias=mask, scale=scale,
                 dropout_rate=self.dropout if self.training else 0.0)
         else:
-            scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+            scores = F.matmul(q, k, transpose_y=True) * scale
             if mask is not None:
                 scores = scores + mask
             weights = F.softmax(scores, axis=-1)
             if self.dropout:
                 weights = F.dropout(weights, p=self.dropout, training=self.training)
-            out = torch.matmul(weights, v)
+            out = F.matmul(weights, v)
         b, l = out.shape[0], out.shape[2]
         return self.out_proj(out.transpose(1, 2).reshape(b, l, self.embed_dim))
 

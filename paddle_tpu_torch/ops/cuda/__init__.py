@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one module each beside its plain version.
 
-Every wrapper counts its kernel's launches in a module-level integer;
+Every wrapper counts its kernel's launches in a module-level integer (one
+for each dtype a kernel takes: the bf16 LayerNorm and attention kernels
+count apart from the float32 ones);
 :data:`KERNEL_COUNTERS` names them, :func:`launch_counts` reads them all
 and :func:`reset_launch_counts` sets them to 0, and the counts beside them
 (:data:`OTHER_COUNTERS`: the tensors the momentum launches updated, the
@@ -20,6 +22,11 @@ KERNEL_COUNTERS = {
     "flash_attention_fwd": (flash_attention, "LAUNCHES"),
     "flash_attention_bwd_dq": (flash_attention, "DQ_LAUNCHES"),
     "flash_attention_bwd_dkv": (flash_attention, "DKV_LAUNCHES"),
+    "layernorm_residual_fwd_bf16": (layernorm_residual, "BF16_LAUNCHES"),
+    "layernorm_residual_bwd_bf16": (layernorm_residual, "BF16_BWD_LAUNCHES"),
+    "flash_attention_fwd_bf16": (flash_attention, "BF16_LAUNCHES"),
+    "flash_attention_bwd_dq_bf16": (flash_attention, "BF16_DQ_LAUNCHES"),
+    "flash_attention_bwd_dkv_bf16": (flash_attention, "BF16_DKV_LAUNCHES"),
     "conv_bn_relu_mm_affine_relu": (conv_bn_relu, "MM_AFFINE_RELU_LAUNCHES"),
     "conv_bn_relu_mm_stats": (conv_bn_relu, "MM_STATS_LAUNCHES"),
     "conv_bn_relu_centered_sumsq": (conv_bn_relu, "CENTERED_SUMSQ_LAUNCHES"),

@@ -34,7 +34,11 @@ hold at every batch size.
 
 A tensor on the CPU takes the plain versions (the ``_*_plain``
 functions); a tensor on the card launches the kernels or raises. The
-kernels take float32 only (bf16 comes with AMP).
+kernels take float32 only; under AMP the op takes bf16 ``x`` and
+``weight`` (``nn/layers.py`` ``fused_conv_bn_relu``), which the plain
+versions run as the JAX package's ``_reference`` does: the product
+rounded to bf16, the statistics and their sums in f32, the activation and
+its gradient in bf16.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import threading
 import torch
 import torch.nn.functional as _F
 
+from ...framework.autograd import amp_cast
 from . import _build
 
 __all__ = ["conv_bn_relu", "mm_affine_relu", "mm_stats", "centered_sumsq", "bn_relu",
@@ -92,21 +97,22 @@ def _pre_act(co, scale, shift):
 
 
 def _mm_affine_relu_plain(p2, w2, scale, shift):
-    return torch.relu(_pre_act(torch.matmul(p2, w2), scale, shift))
+    return torch.relu(_pre_act(torch.matmul(p2, w2), scale, shift)).to(p2.dtype)
 
 
 def _mm_stats_plain(p2, w2):
-    """``(co, partial)`` with the partial ``[1, N]``: one tile of every row."""
+    """``(co, partial)`` with the f32 partial ``[1, N]``: one tile of every
+    row."""
     co = torch.matmul(p2, w2)
-    return co, co.sum(0, keepdim=True)
+    return co, co.float().sum(0, keepdim=True)
 
 
 def _centered_sumsq_plain(co, mean):
-    return (co - mean).square().sum(0, keepdim=True)
+    return (co.float() - mean).square().sum(0, keepdim=True)
 
 
 def _bn_relu_plain(co, scale, shift):
-    return torch.relu(_pre_act(co, scale, shift))
+    return torch.relu(_pre_act(co, scale, shift)).to(co.dtype)
 
 
 def _gated(co, dy, scale, shift):
@@ -114,12 +120,12 @@ def _gated(co, dy, scale, shift):
 
 
 def _bn_bwd_partials_plain(co, dy, scale, shift):
-    dyr = _gated(co, dy, scale, shift)
-    return dyr.sum(0, keepdim=True), (dyr * co).sum(0, keepdim=True)
+    dyr = _gated(co, dy, scale, shift).float()
+    return dyr.sum(0, keepdim=True), (dyr * co.float()).sum(0, keepdim=True)
 
 
 def _bn_bwd_dco_plain(co, dy, scale, shift, k3, b0):
-    return scale * _gated(co, dy, scale, shift) - k3 * co - b0
+    return (scale * _gated(co, dy, scale, shift) - k3 * co - b0).to(co.dtype)
 
 
 # -- kernel entries -----------------------------------------------------------
@@ -480,6 +486,8 @@ def conv_bn_relu(x, weight, gamma, beta, running_mean, running_var, *, stride=1,
     (1 - momentum) * batch``, in eval the running statistics unchanged.
     Differentiable in ``x``, ``weight``, ``gamma`` and ``beta``.
     """
+    x, weight, gamma, beta, running_mean, running_var = amp_cast(
+        "fused_conv_bn_relu", [x, weight, gamma, beta, running_mean, running_var])
     kw = dict(stride=stride, padding=padding, training=bool(training), momentum=float(momentum),
               eps=float(epsilon), data_format=data_format)
     if not _supported(x, weight, padding, data_format):

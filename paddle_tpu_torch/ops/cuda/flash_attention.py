@@ -11,14 +11,19 @@ the backward recomputes the probabilities from.
 
 On the H100 the kernels are bound by arithmetic (``4``, ``6`` and ``8 *
 B*H*Lq*Lk*D`` flops for the forward, dQ and dK/dV against a few MB of
-operands). The forward (``csrc/flash_attention.cu``) runs on the FP32
-units: it stages K/V tiles through shared memory for 64 query rows at a
-time and keeps the online-softmax state in registers. The dQ and dK/dV
-kernels (``csrc/flash_attention_bwd.cu``) run their products on the tensor
-cores in 3xTF32 (f32-accurate), over key tiles and query tiles, each
-block writing its own rows, so no atomics. All three read the
-bias through its strides, so a padding mask stays ``[B, 1, 1, Lk]``. One
-set of kernels covers both TPU variants.
+operands). Two sets of kernels take the two dtypes. float32: the forward
+(``csrc/flash_attention.cu``) and the dQ and dK/dV kernels
+(``csrc/flash_attention_bwd.cu``) run their products on the tensor cores in
+3xTF32 (f32-accurate). bfloat16, the AMP path: the same three designs on
+``mma.sync`` bf16 in one pass (``csrc/flash_attention_bf16.cu``,
+``csrc/flash_attention_bwd_bf16.cu``), with the TPU kernels' rounding
+points: the probabilities and dS rounded to bf16 before the products that
+take them, every output rounded once; ``lse`` and ``delta`` stay f32. Each
+stages K/V (or Q/dO) tiles through shared memory for 64 rows at a time,
+keeps the online-softmax state in registers and writes only its own rows,
+so no atomics. All read the bias through its strides (as f32), so a
+padding mask stays ``[B, 1, 1, Lk]``. One set of kernels a dtype covers
+both TPU variants; float16 is refused.
 
 Dropout: an entry ``(b, h, iq, ik)`` is dropped where its 32 random bits
 are below ``rate * 2**32`` (``_drop_threshold`` of the JAX package) and
@@ -41,20 +46,39 @@ import threading
 import torch
 
 from ...framework import random as _random
+from ...framework.autograd import amp_cast
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "philox4x32_10",
-           "dropout_keep_mask", "LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"]
+           "dropout_keep_mask", "LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "BF16_LAUNCHES",
+           "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
+# keys a tile of the bf16 forward kernel at every head dim (BK of
+# csrc/flash_attention_bf16.cu), whose online softmax _plain_fwd follows
+_KEY_TILE = 64
 
-#: kernel launches since the last reset (counted where each kernel launches)
+#: kernel launches since the last reset (counted where each kernel launches):
+#: the float32 kernels, and the bfloat16 ones beside them
 LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BF16_DQ_LAUNCHES = 0
+BF16_DKV_LAUNCHES = 0
 _count_lock = threading.Lock()
+# the kernels' library and count by entry and dtype
+_KERNELS = {
+    ("flash_attention_fwd", torch.float32): ("flash_attention", "LAUNCHES"),
+    ("flash_attention_bwd_dq", torch.float32): ("flash_attention_bwd", "DQ_LAUNCHES"),
+    ("flash_attention_bwd_dkv", torch.float32): ("flash_attention_bwd", "DKV_LAUNCHES"),
+    ("flash_attention_fwd", torch.bfloat16): ("flash_attention_bf16", "BF16_LAUNCHES"),
+    ("flash_attention_bwd_dq", torch.bfloat16): ("flash_attention_bwd_bf16", "BF16_DQ_LAUNCHES"),
+    ("flash_attention_bwd_dkv", torch.bfloat16): ("flash_attention_bwd_bf16",
+                                                   "BF16_DKV_LAUNCHES"),
+}
 
 # -- Philox4x32-10 on int64 tensors holding uint32 values --------------------
 
@@ -147,25 +171,75 @@ def _plain_attention(q, k, v, bias, causal, scale, rate=0.0, seed=None):
 
 
 def _plain_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0, seed=None):
-    """``(out, lse)`` of the plain version, as :func:`flash_attention_fwd`
-    returns them (``lse`` f32 ``[B*H, Lq]``)."""
+    """``(out, lse)`` as :func:`flash_attention_fwd` returns them (``lse``
+    f32 ``[B*H, Lq]``), with the forward kernels' arithmetic: the online
+    softmax over tiles of :data:`_KEY_TILE` keys (a running row max, the
+    sums rescaled as it grows), the unnormalized probabilities rounded to
+    v's dtype before P V (``p_acc.astype(vt.dtype)`` of ``_fwd_core``),
+    the output divided by the row sum and rounded once, ``lse = m +
+    log(l)``. In bf16 this rounds where the kernels round, which
+    :func:`_plain_attention` (the normalized weights rounded, as the JAX
+    package's plain path rounds them) does not."""
     scale = float(q.shape[-1]) ** -0.5 if scale is None else scale
-    out = _plain_attention(q, k, v, bias, causal, scale, dropout_rate, seed)
-    lse = torch.logsumexp(_scores(q, k, bias, causal, scale).float(), dim=-1)
-    return out, lse.reshape(-1, q.shape[2])
+    s = _scores(q, k, bias, causal, scale)
+    b, h, lq, lk = s.shape
+    keep = dropout_keep_mask(seed, b, h, lq, lk, dropout_rate) if dropout_rate > 0.0 else None
+    ct = s.dtype
+    m = torch.full((b, h, lq, 1), _NEG_INF, dtype=ct, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, lq, q.shape[3], dtype=ct, device=q.device)
+    for t0 in range(0, lk, _KEY_TILE):
+        st = s[..., t0:t0 + _KEY_TILE]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)  # the undropped probabilities
+        if keep is not None:
+            p = torch.where(keep[..., t0:t0 + _KEY_TILE], p * (1.0 / (1.0 - dropout_rate)),
+                            torch.zeros_like(p))
+        vt = v[..., t0:t0 + _KEY_TILE, :]
+        acc = acc * corr + torch.matmul(p.to(v.dtype).to(ct), vt.to(ct))
+        m = m_new
+    lsafe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (acc / lsafe).to(q.dtype)
+    return out, (m + torch.log(lsafe)).reshape(-1, lq)
 
 
 def _plain_bwd(q, k, v, bias, out, lse, dout, causal=False, scale=None, dropout_rate=0.0,
                seed=None):
-    """``(dq, dk, dv)`` of the plain version: autograd through
-    :func:`_plain_attention` with the same mask (``out`` and ``lse`` are
-    not needed, taken for the kernel entry's signature)."""
+    """``(dq, dk, dv)`` of the plain version, with the kernels' arithmetic
+    (``_dq_core`` / ``_dkv_core`` of the JAX package): ``delta =
+    rowsum(dout * out)`` and the probabilities in at least f32, ``dS`` and
+    the dropped probabilities rounded to q's dtype before the products that
+    take them, each gradient rounded to its input's dtype once. ``out``
+    None recomputes it; ``lse`` is not needed (the softmax recomputes it)
+    and is taken for the kernel entry's signature."""
     scale = float(q.shape[-1]) ** -0.5 if scale is None else scale
-    with torch.enable_grad():
-        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        o = _plain_attention(*qkv, None if bias is None else bias.detach(), causal, scale,
-                             dropout_rate, seed)
-        return torch.autograd.grad(o, qkv, dout)
+    if out is None:
+        out = _plain_fwd(q, k, v, bias, causal, scale, dropout_rate, seed)[0]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = _scores(q, k, bias, causal, scale)
+    p = torch.softmax(s, dim=-1)  # a row that sees no key comes out uniform
+    dp = torch.matmul(dout.to(ct), v.to(ct).transpose(-1, -2))
+    pv = p
+    if dropout_rate > 0.0:
+        b, h, lq, lk = p.shape
+        keep = dropout_keep_mask(seed, b, h, lq, lk, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pv = torch.where(keep, p * inv, torch.zeros_like(p))
+        dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
+    delta = (dout.to(ct) * out.to(ct)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if causal:  # masked scores pass no gradient
+        lq, lk = s.shape[-2], s.shape[-1]
+        iq = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        ik = torch.arange(lk, device=q.device)[None, :]
+        ds = torch.where(iq >= ik, ds, torch.zeros_like(ds))
+    ds = ds.to(q.dtype).to(ct)
+    dq = (torch.matmul(ds, k.to(ct)) * scale).to(q.dtype)
+    dk = (torch.matmul(ds.transpose(-1, -2), q.to(ct)) * scale).to(k.dtype)
+    dv = torch.matmul(pv.to(v.dtype).to(ct).transpose(-1, -2), dout.to(ct)).to(v.dtype)
+    return dq, dk, dv
 
 
 # -- kernel entries -----------------------------------------------------------
@@ -183,7 +257,7 @@ _ARGTYPES = {
 def _bind(lib, name):
     fn = getattr(_build.library(lib), f"ptt_{name}")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES[name.removesuffix("_bf16")]
         fn.restype = ctypes.c_int
     return fn
 
@@ -199,22 +273,25 @@ def _check(q, k, v, bias):
         raise ValueError(f"flash_attention: bias must be rank 4, got {tuple(bias.shape)}")
 
 
-def _kernel_args(name, q, k, v, bias, causal, scale, dropout_rate, seed, tensors):
+def _kernel_args(name, q, k, v, bias, causal, scale, dropout_rate, seed, tensors, stats=()):
     """Checks shared by the three entries; returns the C arguments before
     the outputs (q, k, v, bias and its strides) and after them (shape,
     scale, causal, dropout), and the f32 bias they point into, which the
-    caller holds until the kernel is launched."""
+    caller holds until the kernel is launched. ``tensors`` (q, k, v and
+    dout) are all float32 or all bfloat16; ``stats`` (lse, delta) float32."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+    if (q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors)
+            or any(t.dtype != torch.float32 for t in stats)):
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16 q, k, v (one dtype) and "
+                        f"float32 statistics, got {[str(t.dtype) for t in tensors + stats]}")
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors + stats):
         raise ValueError(f"{name}: q, k, v must be on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name}: the kernel takes float32 q, k, v")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
     if lk == 0:
         raise ValueError(f"{name}: no keys")
-    for t in tensors:
+    for t in tensors + stats:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: q, k, v must be contiguous and 16-byte aligned")
     if bias is not None:
@@ -238,13 +315,23 @@ def _kernel_args(name, q, k, v, bias, causal, scale, dropout_rate, seed, tensors
     return [q.data_ptr(), k.data_ptr(), v.data_ptr(), *head], tail, bias
 
 
+def _launch(name, dtype, args):
+    """Launch the entry ``name``'s kernel for ``dtype`` on ``args`` and count
+    it."""
+    lib, counter = _KERNELS[(name, dtype)]
+    symbol = name if dtype == torch.float32 else f"{name}_bf16"
+    err = _bind(lib, symbol)(*args)
+    _build.check(err, symbol)
+    with _count_lock:
+        globals()[counter] += 1
+
+
 def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0,
                         seed=None):
-    """``(out, lse)`` on the card: ``out`` ``[B, H, Lq, D]`` and the f32
-    logsumexp ``lse`` ``[B*H, Lq]``; with ``dropout_rate > 0`` the
-    probabilities are dropped with the mask of ``seed`` (int32 ``[2]`` on
-    the device). CUDA tensors only."""
-    global LAUNCHES
+    """``(out, lse)`` on the card: ``out`` ``[B, H, Lq, D]`` in q's dtype
+    (float32 or bfloat16) and the f32 logsumexp ``lse`` ``[B*H, Lq]``; with
+    ``dropout_rate > 0`` the probabilities are dropped with the mask of
+    ``seed`` (int32 ``[2]`` on the device). CUDA tensors only."""
     _check(q, k, v, bias)
     b, h, lq, _ = q.shape
     if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
@@ -256,12 +343,8 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_ra
     out = torch.empty_like(q)
     lse = torch.empty(b * h, lq, device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
-        err = _bind("flash_attention", "flash_attention_fwd")(
-            *head, out.data_ptr(), lse.data_ptr(), *tail)
+        _launch("flash_attention_fwd", q.dtype, [*head, out.data_ptr(), lse.data_ptr(), *tail])
     del bias32  # launched: the stream orders any reuse of its memory after the kernel
-    _build.check(err, "flash_attention_fwd")
-    with _count_lock:
-        LAUNCHES += 1
     return out, lse
 
 
@@ -272,7 +355,7 @@ def _bwd_args(name, q, k, v, bias, lse, delta, dout, causal, scale, dropout_rate
         raise ValueError(f"{name}: dout must be shaped as q, lse and delta [B*H, Lq]")
     scale = float(d) ** -0.5 if scale is None else scale
     head, tail, bias32 = _kernel_args(name, q, k, v, bias, causal, scale, dropout_rate, seed,
-                                      (q, k, v, dout, lse, delta))
+                                      (q, k, v, dout), (lse, delta))
     return head + [dout.data_ptr(), lse.data_ptr(), delta.data_ptr()], tail, bias32
 
 
@@ -281,7 +364,6 @@ def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=
     """``dq`` on the card (the dQ kernel) from the forward's ``lse``,
     ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) and the forward's
     dropout ``seed``. CUDA tensors only."""
-    global DQ_LAUNCHES
     b, h, lq, _ = q.shape
     if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
         return torch.zeros_like(q)
@@ -289,11 +371,8 @@ def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=
                                    causal, scale, dropout_rate, seed)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _bind("flash_attention_bwd", "flash_attention_bwd_dq")(*head, dq.data_ptr(), *tail)
+        _launch("flash_attention_bwd_dq", q.dtype, [*head, dq.data_ptr(), *tail])
     del bias32  # held past the allocation of dq, which could otherwise reuse its memory
-    _build.check(err, "flash_attention_bwd_dq")
-    with _count_lock:
-        DQ_LAUNCHES += 1
     return dq
 
 
@@ -301,7 +380,6 @@ def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal=False, scale
                             dropout_rate=0.0, seed=None):
     """``(dk, dv)`` on the card (the dK/dV kernel); arguments as
     :func:`flash_attention_bwd_dq`. CUDA tensors only."""
-    global DKV_LAUNCHES
     b, h, lq, _ = q.shape
     if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
         return torch.zeros_like(k), torch.zeros_like(v)
@@ -309,25 +387,21 @@ def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal=False, scale
                                    causal, scale, dropout_rate, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _bind("flash_attention_bwd", "flash_attention_bwd_dkv")(
-            *head, dk.data_ptr(), dv.data_ptr(), *tail)
+        _launch("flash_attention_bwd_dkv", q.dtype, [*head, dk.data_ptr(), dv.data_ptr(), *tail])
     del bias32  # held past the allocation of dk and dv, as in the dQ entry
-    _build.check(err, "flash_attention_bwd_dkv")
-    with _count_lock:
-        DKV_LAUNCHES += 1
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, bias, out, lse, dout, causal=False, scale=None,
                         dropout_rate=0.0, seed=None):
     """``(dq, dk, dv)`` on the card from the forward's ``out`` and ``lse``
-    and the output gradient ``dout``: ``delta = rowsum(dout * out)`` as
-    one torch op (as the JAX package leaves it to XLA), then the dQ and
+    and the output gradient ``dout``: ``delta = rowsum(dout * out)`` in f32
+    as one torch op (as the JAX package leaves it to XLA), then the dQ and
     the dK/dV kernels with the forward's dropout ``seed``. CUDA tensors
     only."""
     if out.shape != q.shape:
         raise ValueError("flash_attention_bwd: out must be shaped as q")
-    delta = (dout * out).sum(-1).reshape(-1, q.shape[2])
+    delta = (dout.float() * out.float()).sum(-1).reshape(-1, q.shape[2])
     args = (q, k, v, bias, lse, delta, dout, causal, scale, dropout_rate, seed)
     dq = flash_attention_bwd_dq(*args)
     dk, dv = flash_attention_bwd_dkv(*args)
@@ -376,9 +450,13 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0
     ``dropout_rate > 0`` drops attention probabilities (upscale in train)
     with a seed drawn once from ``generator`` (default: the device's
     default generator, ``framework.random``). CPU tensors take the plain
-    version; CUDA tensors launch the kernels.
+    version; CUDA tensors launch the kernels of their dtype (float32 or,
+    under AMP, bfloat16).
     """
+    q, k, v, bias = amp_cast("flash_attention", [q, k, v, bias])
     _check(q, k, v, bias)
+    if q.device.type != "cpu" and q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: the kernels take float32 or bfloat16, got {q.dtype}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: q is on {q.device}; the kernels need a CUDA device "
                          "and the plain version the CPU")

@@ -31,10 +31,11 @@ import threading
 
 import torch
 
+from ...framework.autograd import amp_cast
 from . import _build
 
 __all__ = ["layernorm_residual", "layernorm_residual_fwd", "layernorm_residual_bwd",
-           "LAUNCHES", "BWD_LAUNCHES"]
+           "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES"]
 
 _MAX_H = 16384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,10 +49,19 @@ _ROW_MAX_H = 1024
 _ROW_WARPS = 8
 _ROW_BLOCKS_PER_SM = 1
 
-#: kernel launches since the last reset (counted where each kernel launches)
+#: kernel launches since the last reset (counted where each kernel launches):
+#: float32 and, beside them, bfloat16
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
+
+
+def _count(attr, dtype):
+    with _count_lock:
+        name = attr if dtype == torch.float32 else f"BF16_{attr}"
+        globals()[name] += 1
 
 
 def _reference(x2, r2, w, b, eps):
@@ -129,10 +139,10 @@ def _check(x2, r2, *params):
 
 
 def _check_kernel(x2, tensors):
-    if x2.device.type != "cuda" or any(t.device != x2.device for t in tensors):
-        raise ValueError("layernorm_residual: all tensors must be on one CUDA device")
     if x2.dtype not in _DTYPES:
         raise TypeError(f"layernorm_residual: kernel takes float32/bfloat16, got {x2.dtype}")
+    if x2.device.type != "cuda" or any(t.device != x2.device for t in tensors):
+        raise ValueError("layernorm_residual: all tensors must be on one CUDA device")
     h = x2.shape[1]
     if not 0 < h <= _MAX_H:
         raise ValueError(f"layernorm_residual: kernel takes 0 < H <= {_MAX_H}, got {h}")
@@ -141,7 +151,6 @@ def _check_kernel(x2, tensors):
 def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
     """``(y, mean, rstd)`` for ``[rows, H]`` inputs: the kernel on the card,
     :func:`_reference` on the CPU."""
-    global LAUNCHES
     _check(x2, r2, w, b)
     if x2.device.type == "cpu":
         return _reference(x2, r2, w, b, eps)
@@ -164,8 +173,7 @@ def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
             mean.data_ptr(), rstd.data_ptr(), rows, x2.shape[1], float(eps),
             _DTYPES[x2.dtype], stream)
     _build.check(err, "layernorm_residual_fwd")
-    with _count_lock:
-        LAUNCHES += 1
+    _count("LAUNCHES", x2.dtype)
     return y, mean, rstd
 
 
@@ -174,7 +182,6 @@ def layernorm_residual_bwd(x2, r2, w, mean, rstd, dy2):
     forward's f32 ``mean``/``rstd``: ``da`` is the gradient of both ``x``
     and the residual, the partials ``[nblocks, H]`` f32 sum to ``dw`` and
     ``db``. The kernel on the card, :func:`_reference_bwd` on the CPU."""
-    global BWD_LAUNCHES
     _check(x2, r2, w)
     if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
         raise ValueError(f"layernorm_residual_bwd: dy {tuple(dy2.shape)} {dy2.dtype} does not "
@@ -208,8 +215,7 @@ def layernorm_residual_bwd(x2, r2, w, mean, rstd, dy2):
             dy2.data_ptr(), da.data_ptr(), dwp.data_ptr(), dbp.data_ptr(), rows, h, per_block,
             _DTYPES[x2.dtype], stream)
     _build.check(err, "layernorm_residual_bwd")
-    with _count_lock:
-        BWD_LAUNCHES += 1
+    _count("BWD_LAUNCHES", x2.dtype)
     return da, dwp, dbp
 
 
@@ -234,8 +240,20 @@ class _LayerNormResidual(torch.autograd.Function):
 def layernorm_residual(x, residual, weight, bias, epsilon=1e-5):
     """Fused ``LayerNorm(x + residual)`` over the last dimension of any-rank
     ``x``, differentiable in all four inputs; ``weight``/``bias`` are the
-    affine parameters ``[H]``."""
+    affine parameters ``[H]``.
+
+    ``x`` and ``residual`` may differ in float dtype, as the first encoder
+    layer's do under AMP (a bf16 attention output on the f32 embedding
+    output): the sum is promoted, the statistics are f32 and the output
+    takes ``x``'s dtype (``_reference``,
+    ``paddle_tpu/ops/pallas/layernorm_residual.py:110-119``). Both go to
+    the promoted dtype and the output is rounded back to ``x``'s, which is
+    that computation; autograd gives each input its gradient in its own
+    dtype."""
+    x, residual, weight, bias = amp_cast("fused_layernorm_residual",
+                                         [x, residual, weight, bias])
     h = x.shape[-1]
-    y = _LayerNormResidual.apply(x.reshape(-1, h), residual.reshape(-1, h), weight, bias,
-                                 float(epsilon))
-    return y.reshape(x.shape)
+    ct = torch.promote_types(x.dtype, residual.dtype)
+    y = _LayerNormResidual.apply(x.reshape(-1, h).to(ct), residual.reshape(-1, h).to(ct),
+                                 weight, bias, float(epsilon))
+    return y.reshape(x.shape).to(x.dtype)

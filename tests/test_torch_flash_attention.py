@@ -13,6 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
 from paddle_tpu.ops.pallas.flash_attention import flash_attention as jax_flash  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa  # noqa: E402
 
@@ -264,3 +267,157 @@ def test_function_routes_through_the_kernel_entries(monkeypatch, rate, causal):
             assert a is None
         else:
             np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=1e-5)
+
+
+# -- bfloat16 (the AMP path) --------------------------------------------------------
+
+
+def _bf16_ulp(ref):
+    """One bf16 ulp of the largest entry of ``ref``."""
+    return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+
+
+def _bf16_case(bias_kind, lq, lk, d, seed):
+    b, h = 2, 3
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, lq, d).astype("f4")
+    k, v = (rng.randn(b, h, lk, d).astype("f4") for _ in range(2))
+    do = rng.randn(b, h, lq, d).astype("f4")
+    if bias_kind == "pad":
+        lens = rng.randint(lk // 2, lk + 1, size=b)
+        keep = np.arange(lk)[None, :] < lens[:, None]
+        bias = ((1.0 - keep) * -1e4).astype("f4")[:, None, None, :]
+    else:
+        bias = rng.randn(b, h, lq, lk).astype("f4")
+    return q, k, v, bias, do
+
+
+def _to_bf16(a):
+    return torch.from_numpy(a).bfloat16()
+
+
+@pytest.mark.parametrize("lq,lk,d", [(16, 16, 32), (128, 128, 64), (24, 40, 32), (40, 24, 32)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", ["pad", "full"])
+def test_bf16_forward_and_backward_match_jax(bias_kind, causal, lq, lk, d):
+    """bf16 q, k, v and bias (the mask in q's dtype, as under AMP) against
+    the JAX package's ``flash_attention`` on the same bf16 arrays (its jnp
+    path, ``_plain_attention``) and ``jax.vjp``: the output and the
+    gradients come back bf16. Both round the probabilities to bf16 before
+    P V and the output once; the autograd route through the plain version
+    matches to 1 bf16 ulp of the largest entry (read: 0.25 forward, 0.5
+    backward). The plain backward the kernels are held against on the card
+    (``_plain_bwd``, dS rounded to bf16 before its products as the TPU
+    kernels round it, where the vjp keeps it f32) matches to 3 ulps (read:
+    2), and the plain forward to 1."""
+    q, k, v, bias, do = _bf16_case(bias_kind, lq, lk, d, seed=lq + lk + d)
+    j = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, bias, do)]
+    want, vjp = jax.vjp(lambda q_, k_, v_: jax_flash(q_, k_, v_, bias=j[3], causal=causal),
+                        *j[:3])
+    want = np.asarray(want.astype(jnp.float32))
+    want_grads = [np.asarray(g.astype(jnp.float32)) for g in vjp(j[4])]
+    ts = [_to_bf16(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*ts, bias=_to_bf16(bias), causal=causal)
+    out.backward(_to_bf16(do))
+    assert out.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in ts)
+
+    def err(got, ref):
+        return np.abs(got.detach().float().numpy() - ref).max() / _bf16_ulp(ref)
+
+    assert err(out, want) <= 1
+    for t, g in zip(ts, want_grads):
+        assert err(t.grad, g) <= 1
+    bq, bk, bv, bb, bdo = (_to_bf16(a) for a in (q, k, v, bias, do))
+    pout, lse = tfa._plain_fwd(bq, bk, bv, bb, causal)
+    assert pout.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert err(pout, want) <= 1
+    for got, g in zip(tfa._plain_bwd(bq, bk, bv, bb, pout, lse, bdo, causal), want_grads):
+        assert got.dtype == torch.bfloat16 and err(got, g) <= 3
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_bf16_function_routes_through_the_kernel_entries(monkeypatch, rate):
+    """The card's autograd wiring on bf16 with the kernel entries standing
+    in for the kernels (their plain versions): bf16 output and gradients,
+    ``delta`` handed to the dQ entry in f32 (from the bf16 ``out`` and
+    ``dout``), and the plain backward's values."""
+    q, k, v, bias, do = _bf16_case("pad", 20, 20, 32, seed=21)
+    calls, deltas = [], []
+    plain_bwd = tfa._plain_bwd
+
+    def dq_entry(q, k, v, b, lse, delta, do, *a):
+        calls.append("dq")
+        deltas.append(delta)
+        return plain_bwd(q, k, v, b, None, lse, do, *a)[0]
+
+    def dkv_entry(q, k, v, b, lse, delta, do, *a):
+        calls.append("dkv")
+        return plain_bwd(q, k, v, b, None, lse, do, *a)[1:]
+
+    monkeypatch.setattr(tfa, "_use_kernel", lambda q: True)
+    monkeypatch.setattr(tfa, "flash_attention_fwd",
+                        lambda *a: calls.append("fwd") or tfa._plain_fwd(*a))
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", dq_entry)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dkv", dkv_entry)
+    ts = [_to_bf16(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*ts, bias=_to_bf16(bias), dropout_rate=rate,
+                              generator=torch.Generator().manual_seed(3))
+    out.backward(_to_bf16(do))
+    assert calls == ["fwd", "dq", "dkv"]
+    assert out.dtype == torch.bfloat16 and deltas[0].dtype == torch.float32
+    want_delta = (_to_bf16(do).float() * out.detach().float()).sum(-1).reshape(-1, 20)
+    assert torch.equal(deltas[0], want_delta)
+    seed = tfa._draw_seed(torch.Generator().manual_seed(3), "cpu") if rate else None
+    want = plain_bwd(*(_to_bf16(a) for a in (q, k, v, bias)), out.detach(), None, _to_bf16(do),
+                     False, None, rate, seed)
+    for t, w in zip(ts, want):
+        assert t.grad.dtype == torch.bfloat16 and torch.equal(t.grad, w)
+
+
+def test_bf16_reaches_the_kernel_path_and_float16_is_refused():
+    """On ``meta`` tensors bf16 goes to the kernel entries, which refuse a
+    tensor off the card; float16 has no kernel and raises TypeError before
+    anything else, as does a dtype mix."""
+    bf = torch.empty(1, 2, 16, 32, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(bf, bf, bf)
+    stat = torch.empty(2, 16, device="meta")
+    for entry in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            entry(bf, bf, bf, None, stat, stat, bf)
+    half = bf.half()
+    with pytest.raises(TypeError):
+        tfa.flash_attention(half, half, half)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(bf, bf, bf.float())
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd_dq(bf, bf, bf, None, stat.bfloat16(), stat, bf)
+
+
+def test_bf16_cpu_calls_count_no_launch():
+    q, k, v = (_to_bf16(a) for a in _qkv(1, 2, 16, 32, seed=3))
+    before = {n: getattr(tfa, n) for n in tfa.__all__ if n.endswith("LAUNCHES")}
+    tfa.flash_attention(q, k, v)
+    assert {n: getattr(tfa, n) for n in before} == before
+
+
+def test_plain_forward_follows_the_bf16_kernels_key_tile():
+    """``_plain_fwd`` runs the online softmax over tiles of ``_KEY_TILE``
+    keys, the bf16 forward kernel's ``BK`` at every head dim (its launch
+    table in ``csrc/flash_attention_bf16.cu``); in f32 the tiling moves
+    nothing beyond rounding, so the plain forward equals the softmax."""
+    import os
+    import re
+
+    from paddle_tpu_torch.ops.cuda import _build
+
+    with open(os.path.join(_build.CSRC_DIR, "flash_attention_bf16.cu")) as f:
+        src = f.read()
+    tiles = {int(bk) for _, bk in re.findall(r"launch<(\d+), (\d+), (?:true|false)>", src)}
+    assert tiles == {tfa._KEY_TILE}
+    q, k, v = (torch.from_numpy(a).double() for a in _qkv(2, 2, 150, 32, seed=40))
+    out, lse = tfa._plain_fwd(q, k, v, causal=True)
+    torch.testing.assert_close(out, tfa._plain_attention(q, k, v, None, True, 32 ** -0.5),
+                               atol=1e-12, rtol=0)
+    s = tfa._scores(q, k, None, True, 32 ** -0.5)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(-1, 150), atol=1e-12, rtol=0)

@@ -285,3 +285,103 @@ def test_backward_plan_mirrors_the_kernel_source():
     consts = dict(re.findall(r"constexpr int (kRow\w+) = (\d+);", src))
     assert int(consts["kRowWarps"]) == tlnr._ROW_WARPS
     assert int(consts["kRowMaxH"]) == tlnr._ROW_MAX_H
+
+
+# -- mixed dtypes (AMP's first encoder layer) ----------------------------------------
+
+
+def _mixed_grads(x, r, w, b, dy):
+    """Output and gradients of the port's op on a bf16 x and an f32
+    residual (the bf16 attention output on the f32 embedding output)."""
+    ts = [torch.from_numpy(x).bfloat16().requires_grad_(),
+          torch.from_numpy(r).requires_grad_(), torch.from_numpy(w).requires_grad_(),
+          torch.from_numpy(b).requires_grad_()]
+    y = tlnr.layernorm_residual(*ts, EPS)
+    y.backward(torch.from_numpy(dy).bfloat16())
+    return y, ts
+
+
+@pytest.mark.parametrize("rows,h", [(37, 256), (8, 768), (3, 128)])
+def test_mixed_bf16_x_and_f32_residual_match_jax_reference_and_vjp(rows, h):
+    """bf16 x + f32 residual, as the JAX ``_reference`` takes them: the sum
+    promoted to f32, f32 statistics, the output in x's dtype; the backward
+    gives x its gradient in bf16 and the residual in f32. Against
+    ``_reference`` and ``jax.vjp`` on the same arrays: the output to 1 bf16
+    ulp of its largest entry (both normalize in f32 and round once), dx to
+    1 bf16 ulp of its largest, the residual's gradient, dw and db to 1e-5
+    (f32 sums in other orders)."""
+    import jax
+
+    x, r, w, b = _inputs(rows, h, seed=rows + 5)
+    dy = np.random.RandomState(rows + 6).randn(rows, h).astype("f4")
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    want, vjp = jax.vjp(lambda x_, r_, w_, b_: lnr._reference(x_, r_, w_, b_, EPS),
+                        jx, *map(jnp.asarray, (r, w, b)))
+    wdx, wdr, wdw, wdb = (np.asarray(g.astype(jnp.float32)) for g in
+                          vjp(jnp.asarray(dy).astype(jnp.bfloat16)))
+    assert want.dtype == jnp.bfloat16
+    y, ts = _mixed_grads(x, r, w, b, dy)
+    assert y.dtype == torch.bfloat16
+    assert ts[0].grad.dtype == torch.bfloat16 and ts[1].grad.dtype == torch.float32
+
+    def ulp(a):
+        return 2.0 ** (np.floor(np.log2(np.abs(a).max())) - 7)
+
+    want = np.asarray(want.astype(jnp.float32))
+    assert np.abs(y.detach().float().numpy() - want).max() <= ulp(want)
+    assert np.abs(ts[0].grad.float().numpy() - wdx).max() <= ulp(wdx)
+    for t, g in zip(ts[1:], (wdr, wdw, wdb)):
+        np.testing.assert_allclose(t.grad.numpy(), g, rtol=1e-5,
+                                   atol=1e-5 * np.abs(g).max())
+
+
+def test_mixed_dtypes_take_the_f32_kernel_entries_and_round_back(monkeypatch):
+    """The card's route for the mixed case: both inputs go to f32, the f32
+    forward and backward entries run (here their plain versions), and the
+    output rounds back to bf16; the gradient of x rounds to bf16 on its way
+    back. Equal, bit for bit, to the CPU route."""
+    x, r, w, b = _inputs(6, 128, seed=31)
+    dy = np.random.RandomState(32).randn(6, 128).astype("f4")
+    want_y, want = _mixed_grads(x, r, w, b, dy)
+    seen = []
+    monkeypatch.setattr(tlnr, "layernorm_residual_fwd",
+                        lambda *a: seen.append(tuple(t.dtype for t in a[:2]))
+                        or tlnr._reference(*a))
+    monkeypatch.setattr(tlnr, "layernorm_residual_bwd",
+                        lambda *a: seen.append(a[-1].dtype) or tlnr._reference_bwd(*a))
+    got_y, got = _mixed_grads(x, r, w, b, dy)
+    assert seen == [(torch.float32, torch.float32), torch.float32]
+    assert torch.equal(got_y, want_y)
+    for g, t in zip(got, want):
+        assert torch.equal(g.grad, t.grad)
+
+
+def test_bf16_and_mixed_reach_the_kernel_path_and_float16_is_refused():
+    """On ``meta`` tensors bf16 and the mixed case go to the kernel
+    entries, which refuse a tensor off the card; float16 has no kernel and
+    raises TypeError first."""
+    w = torch.empty(128, device="meta")
+    bf = torch.empty(4, 128, device="meta", dtype=torch.bfloat16)
+    for r in (bf, bf.float()):
+        with pytest.raises(ValueError, match="CUDA"):
+            tlnr.layernorm_residual(bf, r, w, w)
+    half = bf.half()
+    with pytest.raises(TypeError):
+        tlnr.layernorm_residual(half, half, w, w)
+    with pytest.raises(TypeError):
+        tlnr.layernorm_residual_bwd(half, half, w, w[:4], w[:4], half)
+
+
+def test_bf16_kernel_launches_count_apart():
+    """The bf16 forward and backward kernels have counts of their own
+    beside the f32 ones, all listed in ``KERNEL_COUNTERS``."""
+    from paddle_tpu_torch.ops import cuda
+
+    names = {"layernorm_residual_fwd_bf16": "BF16_LAUNCHES",
+             "layernorm_residual_bwd_bf16": "BF16_BWD_LAUNCHES"}
+    for name, attr in names.items():
+        assert cuda.KERNEL_COUNTERS[name] == (tlnr, attr)
+    before = [tlnr.LAUNCHES, tlnr.BF16_LAUNCHES]
+    tlnr._count("LAUNCHES", torch.bfloat16)
+    tlnr._count("LAUNCHES", torch.float32)
+    assert [tlnr.LAUNCHES, tlnr.BF16_LAUNCHES] == [before[0] + 1, before[1] + 1]
