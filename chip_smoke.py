@@ -37,9 +37,12 @@ Phases, each fatal on failure:
 6a. AMP: hold the bf16 kernels (the LayerNorm forward and backward in bf16
    and its mixed case, a bf16 x on an f32 residual; the three bf16
    attention kernels at [32, 12, 512, 64] with dropout 0.1 and a pad
-   bias, at rate 0, at L = 128 causal and at other head dims and ragged
-   shapes) against their plain versions in bf16 ulps, timed beside bf16
-   SDPA; then one BERT-base step under ``auto_cast`` (O1, and O2 through
+   bias, at rate 0, at L = 128 causal and at other head dims, biases and
+   ragged shapes) against their plain versions in bf16 ulps, timed beside
+   bf16 SDPA, with the forward's stored dropout mask equal to the plain
+   mask bit for bit and the backward repeating its gradients bit for bit
+   (the wgmma kernels' ``-Xptxas -v`` summaries are printed on stdout);
+   then one BERT-base step under ``auto_cast`` (O1, and O2 through
    ``decorate``) at dropout 0, batch 2 x L=512, against the CPU's plain
    path under the same scope (the f32 step as the control the limit on
    differing gradient entries must catch); then bench's phase-2 step under
@@ -1221,15 +1224,23 @@ def bf16_ulps(got, want):
     return float((got.float() - want.float()).abs().max() / bf16_ulp(want.float().abs().max()))
 
 
-def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, timed=True):
+def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, timed=True,
+                     bias_kind="pad"):
     """The three bf16 attention kernels at [batch, 12, seq, d] (keys ``lk``,
     default ``seq``) with a bf16 pad bias (the mask in q's dtype, as under
-    AMP), against the plain versions with the same dropout seed: the output
-    and each gradient within ``FLASH_BF16_ULPS`` bf16 ulps of the largest
-    entry, lse within ``FLASH_ATOL``. Timed: each kernel, the whole
-    backward, the plain forward and backward, and bf16 SDPA forward and
-    backward (the same mask and dropout rate, its own dropout mask) as the
-    library. Returns the forward's, the dQ and the dK/dV entries."""
+    AMP; ``bias_kind`` "full" takes a random f32 [B, H, Lq, Lk] bias read per
+    entry, "none" none), through the route autograd takes: the forward
+    storing its dropout mask, the dQ kernel computing delta, the dK/dV kernel
+    after it, both reading the stored mask. Against the plain versions with
+    the same seed: the output and each gradient within ``FLASH_BF16_ULPS``
+    bf16 ulps of the largest entry, lse within ``FLASH_ATOL``. Bit for bit:
+    the stored mask against ``dropout_keep_mask`` (the entries the rows can
+    see) and the backward against a second run of itself. Timed, all in
+    device time behind a sleep kernel: each kernel as the route runs it,
+    the whole backward, the plain forward and backward, and bf16 SDPA
+    forward and backward (the same mask and dropout rate, its own dropout
+    mask) as the library, its backward read three times (median and
+    range). Returns the forward's, the dQ and the dK/dV entries."""
     import torch
     import torch.nn.functional as F
 
@@ -1243,26 +1254,47 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
     def make():
         q, do = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(2))
         k, v = (torch.randn(kshape, generator=g, device="cuda").bfloat16() for _ in range(2))
-        bias = _pad_bias(g, batch, lk).bfloat16()
+        bias = {"pad": lambda: _pad_bias(g, batch, lk).bfloat16(), "none": lambda: None,
+                "full": lambda: torch.randn(batch, FLASH_H, seq, lk, generator=g,
+                                            device="cuda")}[bias_kind]()
         seed = fa._draw_seed(g, "cuda") if rate else None
         return q, k, v, bias, do, seed
 
+    def fwd(q, k, v, bias, do, seed):
+        """(out, lse, the mask the forward stored or None)"""
+        res = fa.flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
+        return res if rate else (*res, None)
+
     sets = [make() for _ in range(3 if timed else 1)]
     q, k, v, bias, do, seed = sets[0]
-    out, lse = fa.flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
+    out, lse, keep = fwd(*sets[0])
     pout, plse = fa._plain_fwd(q, k, v, bias, causal, scale, rate, seed)
-    dq, dk, dv = fa.flash_attention_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, seed)
-    pq, pk, pv = fa._plain_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, seed)
+    grads = fa.flash_attention_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, keep)
+    again = fa.flash_attention_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, keep)
+    plain = fa._plain_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, seed)
     torch.cuda.synchronize()
+    dq, dk, dv = grads
     if not all(t.dtype == torch.bfloat16 for t in (out, dq, dk, dv)) or lse.dtype != torch.float32:
         raise AssertionError("bf16 attention: outputs not bf16 or lse not f32")
-    pairs_ = {"out": (out, pout), "dq": (dq, pq), "dk": (dk, pk), "dv": (dv, pv)}
+    label = (f"bf16 attention {list(shape)}{f' Lk {lk}' if lk != seq else ''} rate {rate}"
+             f"{' causal' if causal else ''}{f' bias {bias_kind}' if bias_kind != 'pad' else ''}")
+    bits = {"repeats": all(torch.equal(a, b_) for a, b_ in zip(grads, again))}
+    if rate:
+        want = fa.dropout_keep_mask(seed, batch, FLASH_H, seq, lk, rate)
+        got = fa.unpack_keep(keep, batch, FLASH_H, seq, lk)
+        if causal:  # the forward skips the key tiles a block's rows cannot see
+            vis = torch.arange(seq, device="cuda")[:, None] + (lk - seq) >= \
+                torch.arange(lk, device="cuda")[None, :]
+            want, got = want & vis, got & vis
+        bits["mask_entries_differing"] = int((want != got).sum())
+    if not bits["repeats"] or bits.get("mask_entries_differing", 0):
+        raise AssertionError(f"{label}: bit-for-bit checks failed: {bits}")
+    pairs_ = {"out": (out, pout), "dq": (dq, plain[0]), "dk": (dk, plain[1]),
+              "dv": (dv, plain[2])}
     errs = {n: bf16_ulps(a, b_) for n, (a, b_) in pairs_.items()}
     abs_errs = {n: float((a.float() - b_.float()).abs().max()) for n, (a, b_) in pairs_.items()}
     lse_err = float((lse - plse).abs().max())
     finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, dq, dk, dv))
-    label = (f"bf16 attention {list(shape)}{f' Lk {lk}' if lk != seq else ''} rate {rate}"
-             f"{' causal' if causal else ''}")
     tol = f"{FLASH_BF16_ULPS} bf16 ulps of the largest entry, lse atol {FLASH_ATOL}"
     if not finite or max(errs.values()) > FLASH_BF16_ULPS or lse_err > FLASH_ATOL:
         raise AssertionError(f"{label}: ulps {errs}, lse err {lse_err}, finite {finite}; "
@@ -1270,15 +1302,22 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
     pairs = sum(max(0, min(lk, i + lk - seq + 1)) for i in range(seq)) if causal else seq * lk
     bhld = batch * FLASH_H * pairs * d
     qb, kb = 2 * q.numel(), 2 * k.numel()  # bf16 bytes
-    stats = 8 * batch * FLASH_H * seq + 2 * batch * lk  # lse, delta f32; the bf16 pad bias
-    io = {"fwd": 2 * qb + 2 * kb + 4 * batch * FLASH_H * seq + 2 * batch * lk,  # q, k, v, out, lse
-          "dq": 3 * qb + 2 * kb + stats, "dkv": 2 * qb + 4 * kb + stats,
-          "all": 3 * qb + 4 * kb + stats}
+    bias_b = {"pad": 2 * batch * lk, "none": 0, "full": 4 * batch * FLASH_H * seq * lk}[bias_kind]
+    # what the function needs; the stored dropout mask is this design's own
+    # traffic (the TPU kernels draw it again), reported beside the bound
+    mask_b = 4 * keep.numel() if rate else 0
+    stats = 8 * batch * FLASH_H * seq + bias_b  # lse, delta f32; the bias
+    io = {"fwd": 2 * qb + 2 * kb + 4 * batch * FLASH_H * seq + bias_b,  # q k v out lse
+          "dq": 4 * qb + 2 * kb + stats,  # q, dO, O (delta), dq; k, v
+          "dkv": 2 * qb + 4 * kb + stats,
+          "all": 4 * qb + 4 * kb + stats}
     ops = {"fwd": 4 * bhld, "dq": 6 * bhld, "dkv": 8 * bhld, "all": 10 * bhld}
     bounds = {n: bound(io[n], ops[n], BF16_FLOPS_PER_S) for n in io}
     common = {"route": "cuda", "shape": list(shape), "keys": lk, "dtype": "bfloat16",
-              "dropout_rate": rate, "causal": causal, "tolerance": tol,
-              "bound_note": "bf16 products / 989 TFLOP/s, bf16 bytes / 3.35 TB/s"}
+              "dropout_rate": rate, "causal": causal, "bias": bias_kind, "tolerance": tol,
+              "bit_for_bit": bits, "stored_mask_bytes": mask_b,
+              "bound_note": "bf16 products / 989 TFLOP/s, the bytes the function needs / "
+                            "3.35 TB/s (not the stored mask)"}
     entries = [dict(name="flash_attention_fwd_bf16", source=_FLASH_SRC_BF16, replaces=replaces[0],
                     max_abs_err=abs_errs["out"], max_err_ulps=errs["out"], lse_err=lse_err,
                     bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1], **common)]
@@ -1289,39 +1328,45 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
                             max_abs_err=max(abs_errs[k_] for k_ in key),
                             max_err_ulps=max(errs[k_] for k_ in key), bound_ms=b_[0],
                             bound_by=b_[1], **common))
+    msg = (f"{label}: ulps {', '.join(f'{k_} {v_:.3f}' for k_, v_ in errs.items())}, lse err "
+           f"{lse_err:.3g} ({tol}); bit for bit {bits}")
     if not timed:
-        log(f"{label}: ulps {', '.join(f'{k_} {v_:.3f}' for k_, v_ in errs.items())}, lse err "
-            f"{lse_err:.3g} ({tol})")
+        log(msg)
         return tuple(entries)
 
-    def fwd(q, k, v, bias, do, seed):
-        return fa.flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
+    outs = [fwd(*s_) for s_ in sets]
+    deltas = [fa.flash_attention_bwd_dq_delta(q_, k_, v_, b_, lse_, o_, do_, causal, scale, rate,
+                                              kp)[1]
+              for (q_, k_, v_, b_, do_, _), (o_, lse_, kp) in zip(sets, outs)]
+    bsets = [(q_, k_, v_, b_, lse_, o_, dl, do_, seed_, kp)
+             for (q_, k_, v_, b_, do_, seed_), (o_, lse_, kp), dl in zip(sets, outs, deltas)]
+    iters = 100 if seq <= 128 else 20
 
-    outs = [fwd(*s) for s in sets]
-    bsets = [(q_, k_, v_, b_, lse_, (do_.float() * o_.float()).sum(-1).reshape(-1, seq), do_,
-              causal, scale, rate, seed_, o_)
-             for (q_, k_, v_, b_, do_, seed_), (o_, lse_) in zip(sets, outs)]
-    small = seq <= 128  # the host's launch cost is longer than the kernel: time behind a sleep
-    iters = 100 if small else 20
-
-    def timer(fn, arg_sets, n=iters):
-        return device_ms_sets(fn, arg_sets, n)[0] if small else time_ms(fn, arg_sets, n)
+    def timer(fn, arg_sets, n=iters):  # device ms, the host's launch cost hidden
+        return device_ms_sets(fn, arg_sets, n)[0]
 
     ms = {"fwd": timer(fwd, sets),
-          "dq": timer(lambda *a: fa.flash_attention_bwd_dq(*a[:-1]), bsets),
-          "dkv": timer(lambda *a: fa.flash_attention_bwd_dkv(*a[:-1]), bsets),
-          "all": timer(lambda q_, k_, v_, b_, lse_, dl, do_, c, sc, r, sd, o_:
-                       fa.flash_attention_bwd(q_, k_, v_, b_, o_, lse_, do_, c, sc, r, sd),
-                       bsets)}
-    plain_fwd = timer(lambda q, k, v, bias, do, seed: fa._plain_fwd(q, k, v, bias, causal, scale,
-                                                                    rate, seed), sets, 5)
-    plain_bwd = timer(lambda q_, k_, v_, b_, lse_, dl, do_, c, sc, r, sd, o_:
-                      fa._plain_bwd(q_, k_, v_, b_, o_, lse_, do_, c, sc, r, sd), bsets, 5)
+          "dq": timer(lambda q_, k_, v_, b_, lse_, o_, dl, do_, sd, kp:
+                      fa.flash_attention_bwd_dq_delta(q_, k_, v_, b_, lse_, o_, do_, causal,
+                                                      scale, rate, kp), bsets),
+          "dkv": timer(lambda q_, k_, v_, b_, lse_, o_, dl, do_, sd, kp:
+                       fa.flash_attention_bwd_dkv(q_, k_, v_, b_, lse_, dl, do_, causal, scale,
+                                                  rate, kp), bsets),
+          "all": timer(lambda q_, k_, v_, b_, lse_, o_, dl, do_, sd, kp:
+                       fa.flash_attention_bwd(q_, k_, v_, b_, o_, lse_, do_, causal, scale, rate,
+                                              kp), bsets)}
+    plain_fwd = timer(lambda q, k, v, bias, do, seed: fa._plain_fwd(
+        q, k, v, bias, causal, scale, rate, seed), sets, 5)
+    plain_bwd = timer(lambda q_, k_, v_, b_, lse_, o_, dl, do_, sd, kp:
+                      fa._plain_bwd(q_, k_, v_, b_, o_, lse_, do_, causal, scale, rate, sd),
+                      bsets, 5)
     causal_mask = (torch.full((seq, lk), -1e30, device="cuda").triu(lk - seq + 1).bfloat16()
                    if causal else None)
 
     def sdpa_mask(b_):
-        return b_ if causal_mask is None else b_ + causal_mask
+        if b_ is not None:
+            b_ = b_.to(torch.bfloat16)
+        return b_ if causal_mask is None else (causal_mask if b_ is None else b_ + causal_mask)
 
     lib_fwd = timer(lambda q, k, v, bias, do, seed: F.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask(bias), dropout_p=rate), sets)
@@ -1330,16 +1375,19 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
         ins = [t.detach().requires_grad_() for t in (q_, k_, v_)]
         graphs.append((F.scaled_dot_product_attention(*ins, attn_mask=sdpa_mask(b_),
                                                       dropout_p=rate), ins, do_))
-    lib_bwd = timer(lambda o, ins, do_: torch.autograd.grad(o, ins, do_, retain_graph=True),
-                    graphs)
-    log(f"{label}: ulps {', '.join(f'{k_} {v_:.3f}' for k_, v_ in errs.items())}, lse err "
-        f"{lse_err:.3g} ({tol}); forward {ms['fwd']:.4f} ms (bound {bounds['fwd'][0]:.4f}, "
-        f"{bounds['fwd'][1]}), dQ {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f}), dK/dV "
-        f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f}), whole backward {ms['all']:.4f} (bound "
-        f"{bounds['all'][0]:.4f}); plain forward {plain_fwd:.4f}, backward {plain_bwd:.4f}; "
-        f"library (bf16 SDPA, dropout_p {rate}, its own mask) forward {lib_fwd:.4f}, backward "
-        f"{lib_bwd:.4f} ms{' (device time behind a sleep kernel)' if small else ''}")
+    lib_bwds = sorted(timer(lambda o, ins, do_: torch.autograd.grad(o, ins, do_,
+                                                                    retain_graph=True), graphs)
+                      for _ in range(3))
+    lib_bwd = lib_bwds[1]
+    log(f"{msg}; forward {ms['fwd']:.4f} ms (bound {bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}), "
+        f"dQ with delta {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f}), dK/dV {ms['dkv']:.4f} "
+        f"(bound {bounds['dkv'][0]:.4f}), whole backward {ms['all']:.4f} (bound "
+        f"{bounds['all'][0]:.4f}); plain forward {plain_fwd:.4f}, backward "
+        f"{plain_bwd:.4f}; library (bf16 SDPA, dropout_p {rate}, its own mask) forward "
+        f"{lib_fwd:.4f}, backward {lib_bwd:.4f} (median of {', '.join(f'{t:.4f}' for t in lib_bwds)})"
+        f" ms; device time behind a sleep kernel; stored mask {mask_b} bytes")
     total = {"ms": ms["all"], "plain_ms": plain_bwd, "library_ms": lib_bwd,
+             "library_ms_readings": lib_bwds,
              "library": "bf16 scaled_dot_product_attention backward", "bound_ms": bounds["all"][0]}
     entries[0].update(ms=ms["fwd"], kernel_ms=ms["fwd"], plain_ms=plain_fwd, library_ms=lib_fwd,
                       library=f"bf16 scaled_dot_product_attention, dropout_p {rate}")
@@ -1423,7 +1471,11 @@ def check_amp_kernels():
                   check_flash_bf16(4, 256, ATTN_DROPOUT, True, rows, d=32, timed=False),
                   check_flash_bf16(4, 256, ATTN_DROPOUT, False, rows, d=128, timed=False),
                   check_flash_bf16(2, 300, ATTN_DROPOUT, True, rows, lk=257, timed=False),
-                  check_flash_bf16(2, 257, 0.0, True, rows, lk=300, d=32, timed=False)):
+                  check_flash_bf16(2, 257, 0.0, True, rows, lk=300, d=32, timed=False),
+                  check_flash_bf16(2, 300, ATTN_DROPOUT, True, rows, lk=257, timed=False,
+                                   bias_kind="full"),
+                  check_flash_bf16(2, 257, ATTN_DROPOUT, False, rows, lk=300, d=128,
+                                   timed=False, bias_kind="none")):
         for entry, e in zip((fwd, dq, dkv), extra):
             entry.setdefault("also_checked", []).append(e)
     return [ln, ln_bwd, fwd, dq, dkv]
@@ -1493,25 +1545,37 @@ def _cpu_kernel_route():
     package's plain path does, where the kernels round the probabilities
     before normalizing (``_fwd_core``) and dS before its products; in bf16
     that alone moves a BERT-base step as far as leaving out the cast."""
+    import torch
+
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
-    saved = (fa._use_kernel, fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-             fa.flash_attention_bwd_dkv)
+    names = ("_use_kernel", "flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dq_delta", "flash_attention_bwd_dkv")
+    saved = {n: getattr(fa, n) for n in names}
 
-    def dq(q, k, v, b, lse, delta, do, *rest):
-        return fa._plain_bwd(q, k, v, b, None, lse, do, *rest)[0]
+    def fwd(q, k, v, b, causal, scale, rate, seed):
+        res = fa._plain_fwd(q, k, v, b, causal, scale, rate, seed)
+        # bf16 with dropout hands its backward a mask: here the seed, which
+        # the plain backward draws the same mask from
+        return (*res, seed) if q.dtype == torch.bfloat16 and rate else res
 
-    def dkv(q, k, v, b, lse, delta, do, *rest):
-        return fa._plain_bwd(q, k, v, b, None, lse, do, *rest)[1:]
+    def dq(q, k, v, b, lse, delta, do, causal, scale, rate, seed):
+        return fa._plain_bwd(q, k, v, b, None, lse, do, causal, scale, rate, seed)[0]
 
-    fa._use_kernel = lambda q: True
-    fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = (
-        fa._plain_fwd, dq, dkv)
+    def dq_delta(q, k, v, b, lse, out, do, causal, scale, rate, seed):
+        delta = (do.float() * out.float()).sum(-1).reshape(-1, q.shape[2])
+        return fa._plain_bwd(q, k, v, b, out, lse, do, causal, scale, rate, seed)[0], delta
+
+    def dkv(q, k, v, b, lse, delta, do, causal, scale, rate, seed):
+        return fa._plain_bwd(q, k, v, b, None, lse, do, causal, scale, rate, seed)[1:]
+
+    for n, fn in zip(names, (lambda q: True, fwd, dq, dq_delta, dkv)):
+        setattr(fa, n, fn)
     try:
         yield
     finally:
-        (fa._use_kernel, fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-         fa.flash_attention_bwd_dkv) = saved
+        for n, fn in saved.items():
+            setattr(fa, n, fn)
 
 
 def _amp_launches(level, layers, steps=1):
@@ -3058,6 +3122,9 @@ def main() -> int:
     _build.build_all()
     log(f"built {', '.join(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s")
     registers = finish_ptxas(*ptxas)
+    for src in ("flash_attention_bf16", "flash_attention_bwd_bf16"):  # the wgmma kernels
+        for kname, info in registers[src].items():
+            print(f"ptxas {src}.cu {kname}: {json.dumps(info)}")
 
     kernels = check_kernels() + check_amp_kernels() + check_resnet_kernels() + check_new_kernels()
     served = serve_bert()

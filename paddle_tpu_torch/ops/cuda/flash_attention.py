@@ -14,16 +14,18 @@ B*H*Lq*Lk*D`` flops for the forward, dQ and dK/dV against a few MB of
 operands). Two sets of kernels take the two dtypes. float32: the forward
 (``csrc/flash_attention.cu``) and the dQ and dK/dV kernels
 (``csrc/flash_attention_bwd.cu``) run their products on the tensor cores in
-3xTF32 (f32-accurate). bfloat16, the AMP path: the same three designs on
-``mma.sync`` bf16 in one pass (``csrc/flash_attention_bf16.cu``,
-``csrc/flash_attention_bwd_bf16.cu``), with the TPU kernels' rounding
-points: the probabilities and dS rounded to bf16 before the products that
-take them, every output rounded once; ``lse`` and ``delta`` stay f32. Each
-stages K/V (or Q/dO) tiles through shared memory for 64 rows at a time,
-keeps the online-softmax state in registers and writes only its own rows,
-so no atomics. All read the bias through its strides (as f32), so a
-padding mask stays ``[B, 1, 1, Lk]``. One set of kernels a dtype covers
-both TPU variants; float16 is refused.
+3xTF32 (f32-accurate) on ``mma.sync``, 64 rows a block, staging K/V (or
+Q/dO) tiles through shared memory. bfloat16, the AMP path: the forward
+(``csrc/flash_attention_bf16.cu``) and the dQ and dK/dV kernels
+(``csrc/flash_attention_bwd_bf16.cu``) run on ``wgmma`` from tiles that TMA
+loads into rings of shared-memory stages, persistent blocks of 128 rows,
+with the TPU kernels' rounding points: the probabilities and dS rounded to
+bf16 before the products that take them, every output rounded once;
+``lse`` and ``delta`` stay f32, and the bf16 dQ kernel computes ``delta``
+itself. Every kernel keeps the online-softmax state in registers and
+writes only its own rows, so no atomics. All read the bias through its
+strides (as f32), so a padding mask stays ``[B, 1, 1, Lk]``. One set of
+kernels a dtype covers both TPU variants; float16 is refused.
 
 Dropout: an entry ``(b, h, iq, ik)`` is dropped where its 32 random bits
 are below ``rate * 2**32`` (``_drop_threshold`` of the JAX package) and
@@ -31,8 +33,11 @@ the kept ones are scaled by ``1 / (1 - rate)``. The bits are Philox4x32-10
 (``csrc/philox.cuh``) under a 64-bit seed drawn once per call from an
 explicit ``torch.Generator``, counted by ``(ik // 4, iq, b*H + h, 0)``,
 word ``ik % 4``: a pure function of the seed and the coordinates, so every
-kernel regenerates the forward's mask whatever its tiling, and
-:func:`philox4x32_10` computes the same bits with integer tensor ops.
+f32 kernel regenerates the forward's mask whatever its tiling, and
+:func:`philox4x32_10` computes the same bits with integer tensor ops. The
+bf16 forward stores the mask it drew, one bit an entry
+(:func:`keep_words`), and the bf16 backward reads it instead of drawing it
+twice more.
 
 :func:`flash_attention` takes the plain version, with autograd through it,
 for tensors on the CPU, and a ``torch.autograd.Function`` over the kernel
@@ -50,15 +55,17 @@ from ...framework.autograd import amp_cast
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "philox4x32_10",
-           "dropout_keep_mask", "LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "BF16_LAUNCHES",
-           "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES"]
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_delta", "flash_attention_bwd_dkv",
+           "philox4x32_10", "dropout_keep_mask", "keep_words", "unpack_keep", "LAUNCHES",
+           "DQ_LAUNCHES", "DKV_LAUNCHES", "BF16_LAUNCHES", "BF16_DQ_LAUNCHES",
+           "BF16_DKV_LAUNCHES"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
-# keys a tile of the bf16 forward kernel at every head dim (BK of
-# csrc/flash_attention_bf16.cu), whose online softmax _plain_fwd follows
-_KEY_TILE = 64
+# keys a tile of the bf16 forward kernel by head dim (BN of
+# csrc/flash_attention_bf16.cu's launch_d), whose online softmax _plain_fwd
+# follows; other head dims (the CPU's) take the widest
+_KEY_TILES = {32: 128, 64: 128, 128: 64}
 
 #: kernel launches since the last reset (counted where each kernel launches):
 #: the float32 kernels, and the bfloat16 ones beside them
@@ -173,7 +180,7 @@ def _plain_attention(q, k, v, bias, causal, scale, rate=0.0, seed=None):
 def _plain_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0, seed=None):
     """``(out, lse)`` as :func:`flash_attention_fwd` returns them (``lse``
     f32 ``[B*H, Lq]``), with the forward kernels' arithmetic: the online
-    softmax over tiles of :data:`_KEY_TILE` keys (a running row max, the
+    softmax over tiles of :data:`_KEY_TILES` keys (a running row max, the
     sums rescaled as it grows), the unnormalized probabilities rounded to
     v's dtype before P V (``p_acc.astype(vt.dtype)`` of ``_fwd_core``),
     the output divided by the row sum and rounded once, ``lse = m +
@@ -188,16 +195,17 @@ def _plain_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0, s
     m = torch.full((b, h, lq, 1), _NEG_INF, dtype=ct, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(b, h, lq, q.shape[3], dtype=ct, device=q.device)
-    for t0 in range(0, lk, _KEY_TILE):
-        st = s[..., t0:t0 + _KEY_TILE]
+    tile = _KEY_TILES.get(q.shape[3], 128)
+    for t0 in range(0, lk, tile):
+        st = s[..., t0:t0 + tile]
         m_new = torch.maximum(m, st.amax(-1, keepdim=True))
         corr = torch.exp(m - m_new)
         p = torch.exp(st - m_new)
         l = l * corr + p.sum(-1, keepdim=True)  # the undropped probabilities
         if keep is not None:
-            p = torch.where(keep[..., t0:t0 + _KEY_TILE], p * (1.0 / (1.0 - dropout_rate)),
+            p = torch.where(keep[..., t0:t0 + tile], p * (1.0 / (1.0 - dropout_rate)),
                             torch.zeros_like(p))
-        vt = v[..., t0:t0 + _KEY_TILE, :]
+        vt = v[..., t0:t0 + tile, :]
         acc = acc * corr + torch.matmul(p.to(v.dtype).to(ct), vt.to(ct))
         m = m_new
     lsafe = torch.where(l == 0.0, torch.ones_like(l), l)
@@ -246,18 +254,25 @@ def _plain_bwd(q, k, v, bias, out, lse, dout, causal=False, scale=None, dropout_
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _COMMON = [_VP] * 4 + [_I64] * 4
-_TAIL = [_I32] * 5 + [ctypes.c_float, _I32, _VP, ctypes.c_uint32, ctypes.c_float, _VP]
+_SHAPE = [_I32] * 5 + [ctypes.c_float, _I32]  # batch, heads, lq, lk, d, scale, causal
+_TAIL = _SHAPE + [_VP, ctypes.c_uint32, ctypes.c_float, _VP]  # seed, threshold, 1/keep, stream
+# the bf16 backward reads the forward's stored mask in place of the seed
+_TAIL_KEEP = _SHAPE + [_VP, ctypes.c_float, _VP]
 _ARGTYPES = {
     "flash_attention_fwd": _COMMON + [_VP, _VP] + _TAIL,
     "flash_attention_bwd_dq": _COMMON + [_VP] * 4 + _TAIL,
     "flash_attention_bwd_dkv": _COMMON + [_VP] * 5 + _TAIL,
+    "flash_attention_fwd_bf16": _COMMON + [_VP] * 3 + _TAIL,  # out, lse, the mask's words
+    # dout, lse, delta (written), out and dq
+    "flash_attention_bwd_dq_bf16": _COMMON + [_VP] * 5 + _TAIL_KEEP,
+    "flash_attention_bwd_dkv_bf16": _COMMON + [_VP] * 5 + _TAIL_KEEP,
 }
 
 
 def _bind(lib, name):
     fn = getattr(_build.library(lib), f"ptt_{name}")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name.removesuffix("_bf16")]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -273,12 +288,26 @@ def _check(q, k, v, bias):
         raise ValueError(f"flash_attention: bias must be rank 4, got {tuple(bias.shape)}")
 
 
-def _kernel_args(name, q, k, v, bias, causal, scale, dropout_rate, seed, tensors, stats=()):
-    """Checks shared by the three entries; returns the C arguments before
-    the outputs (q, k, v, bias and its strides) and after them (shape,
-    scale, causal, dropout), and the f32 bias they point into, which the
-    caller holds until the kernel is launched. ``tensors`` (q, k, v and
-    dout) are all float32 or all bfloat16; ``stats`` (lse, delta) float32."""
+def keep_words(b, h, lq, lk, device):
+    """An empty int32 ``[b*h, lq, ceil(lk / 32)]`` tensor for the bf16
+    kernels' stored dropout mask: bit ``ik % 32`` of word ``ik // 32`` of
+    row ``iq`` is set where entry ``(iq, ik)`` is kept."""
+    return torch.empty(b * h, lq, (lk + 31) // 32, dtype=torch.int32, device=device)
+
+
+def unpack_keep(keep, b, h, lq, lk):
+    """The bool ``[b, h, lq, lk]`` mask a :func:`keep_words` tensor holds."""
+    bits = torch.arange(32, device=keep.device, dtype=torch.int32)
+    mask = (keep.unsqueeze(-1) >> bits) & 1  # [b*h, lq, words, 32]
+    return mask.reshape(b * h, lq, -1)[..., :lk].reshape(b, h, lq, lk).bool()
+
+
+def _kernel_args(name, q, k, v, bias, causal, scale, tensors, stats=()):
+    """Checks shared by the entries; returns the C arguments before the
+    outputs (q, k, v, bias and its strides) and the shape, scale and causal
+    flag after them, and the f32 bias they point into, which the caller
+    holds until the kernel is launched. ``tensors`` (q, k, v and dout) are
+    all float32 or all bfloat16; ``stats`` (lse, delta) float32."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if (q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors)
@@ -302,25 +331,42 @@ def _kernel_args(name, q, k, v, bias, causal, scale, dropout_rate, seed, tensors
         head = [bias.data_ptr(), *bias.stride()]
     else:
         head = [None, 0, 0, 0, 0]
-    rate = float(dropout_rate)
-    if rate > 0.0:
-        if seed is None or seed.shape != (2,) or seed.dtype != torch.int32 \
-                or seed.device != q.device:
-            raise ValueError(f"{name}: dropout needs the int32 seed [2] on the device of q")
-        drop = [seed.data_ptr(), _drop_threshold(rate), 1.0 / (1.0 - rate)]
-    else:
-        drop = [None, 0, 1.0]
-    tail = [b, h, lq, lk, d, float(scale), int(bool(causal)), *drop,
-            torch.cuda.current_stream(q.device).cuda_stream]
+    tail = [b, h, lq, lk, d, float(scale), int(bool(causal))]
     return [q.data_ptr(), k.data_ptr(), v.data_ptr(), *head], tail, bias
 
 
+def _seed_args(name, q, dropout_rate, seed):
+    """The dropout arguments of the kernels that draw the mask: the seed,
+    the drop threshold and the kept entries' scale."""
+    rate = float(dropout_rate)
+    if rate == 0.0:
+        return [None, 0, 1.0]
+    if seed is None or seed.shape != (2,) or seed.dtype != torch.int32 or seed.device != q.device:
+        raise ValueError(f"{name}: dropout needs the int32 seed [2] on the device of q")
+    return [seed.data_ptr(), _drop_threshold(rate), 1.0 / (1.0 - rate)]
+
+
+def _keep_args(name, q, k, dropout_rate, keep):
+    """The dropout arguments of the bf16 backward kernels, which read the
+    mask the bf16 forward stored (:func:`keep_words`), and the kept
+    entries' scale."""
+    rate = float(dropout_rate)
+    if rate == 0.0:
+        return [None, 1.0]
+    b, h, lq, _ = q.shape
+    if (keep is None or keep.dtype != torch.int32 or keep.device != q.device
+            or keep.shape != (b * h, lq, (k.shape[2] + 31) // 32) or not keep.is_contiguous()):
+        raise ValueError(f"{name}: the bfloat16 backward reads the dropout mask the bfloat16 "
+                         "forward returned, keep_words(B, H, Lq, Lk) on the device of q")
+    return [keep.data_ptr(), 1.0 / (1.0 - rate)]
+
+
 def _launch(name, dtype, args):
-    """Launch the entry ``name``'s kernel for ``dtype`` on ``args`` and count
-    it."""
+    """Launch the entry ``name``'s kernel for ``dtype`` on ``args`` and the
+    current stream, and count it."""
     lib, counter = _KERNELS[(name, dtype)]
     symbol = name if dtype == torch.float32 else f"{name}_bf16"
-    err = _bind(lib, symbol)(*args)
+    err = _bind(lib, symbol)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(err, symbol)
     with _count_lock:
         globals()[counter] += 1
@@ -331,44 +377,56 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_ra
     """``(out, lse)`` on the card: ``out`` ``[B, H, Lq, D]`` in q's dtype
     (float32 or bfloat16) and the f32 logsumexp ``lse`` ``[B*H, Lq]``; with
     ``dropout_rate > 0`` the probabilities are dropped with the mask of
-    ``seed`` (int32 ``[2]`` on the device). CUDA tensors only."""
+    ``seed`` (int32 ``[2]`` on the device). bfloat16 with dropout returns
+    ``(out, lse, keep)``: the kernel also stores the mask it drew
+    (:func:`keep_words`), which the bfloat16 backward reads in place of the
+    seed. CUDA tensors only."""
     _check(q, k, v, bias)
     b, h, lq, _ = q.shape
-    if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
-        return torch.empty_like(q), q.new_empty(b * h, lq, dtype=torch.float32)
-    if scale is None:
-        scale = float(q.shape[-1]) ** -0.5
-    head, tail, bias32 = _kernel_args("flash_attention_fwd", q, k, v, bias, causal, scale,
-                                      dropout_rate, seed, (q, k, v))
-    out = torch.empty_like(q)
-    lse = torch.empty(b * h, lq, device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        _launch("flash_attention_fwd", q.dtype, [*head, out.data_ptr(), lse.data_ptr(), *tail])
-    del bias32  # launched: the stream orders any reuse of its memory after the kernel
-    return out, lse
+    stores = q.dtype == torch.bfloat16 and float(dropout_rate) > 0.0
+    out, lse = torch.empty_like(q), q.new_empty(b * h, lq, dtype=torch.float32)
+    keep = keep_words(b, h, lq, k.shape[2], q.device) if stores else None
+    if b * h and lq:  # else no query rows: nothing is launched or counted
+        if scale is None:
+            scale = float(q.shape[-1]) ** -0.5
+        head, tail, bias32 = _kernel_args("flash_attention_fwd", q, k, v, bias, causal, scale,
+                                          (q, k, v))
+        outs = [out.data_ptr(), lse.data_ptr()]
+        if q.dtype == torch.bfloat16:
+            outs.append(None if keep is None else keep.data_ptr())
+        tail += _seed_args("flash_attention_fwd", q, dropout_rate, seed)
+        with torch.cuda.device(q.device):
+            _launch("flash_attention_fwd", q.dtype, [*head, *outs, *tail])
+        del bias32  # launched: the stream orders any reuse of its memory after the kernel
+    return (out, lse, keep) if stores else (out, lse)
 
 
-def _bwd_args(name, q, k, v, bias, lse, delta, dout, causal, scale, dropout_rate, seed):
+def _bwd_args(name, q, k, v, bias, lse, delta, dout, causal, scale, more=()):
     _check(q, k, v, bias)
     b, h, lq, d = q.shape
     if dout.shape != q.shape or lse.shape != (b * h, lq) or delta.shape != (b * h, lq):
         raise ValueError(f"{name}: dout must be shaped as q, lse and delta [B*H, Lq]")
     scale = float(d) ** -0.5 if scale is None else scale
-    head, tail, bias32 = _kernel_args(name, q, k, v, bias, causal, scale, dropout_rate, seed,
-                                      (q, k, v, dout), (lse, delta))
+    head, tail, bias32 = _kernel_args(name, q, k, v, bias, causal, scale,
+                                      (q, k, v, dout, *more), (lse, delta))
     return head + [dout.data_ptr(), lse.data_ptr(), delta.data_ptr()], tail, bias32
 
 
 def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=None,
                            dropout_rate=0.0, seed=None):
-    """``dq`` on the card (the dQ kernel) from the forward's ``lse``,
-    ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) and the forward's
-    dropout ``seed``. CUDA tensors only."""
+    """``dq`` on the card (the float32 dQ kernel) from the forward's
+    ``lse``, ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) and the
+    forward's dropout ``seed``. The bfloat16 dQ kernel computes delta
+    itself: :func:`flash_attention_bwd_dq_delta`. CUDA tensors only."""
     b, h, lq, _ = q.shape
     if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
         return torch.zeros_like(q)
     head, tail, bias32 = _bwd_args("flash_attention_bwd_dq", q, k, v, bias, lse, delta, dout,
-                                   causal, scale, dropout_rate, seed)
+                                   causal, scale)
+    if q.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd_dq: the bfloat16 dQ kernel computes delta itself; "
+                        "call flash_attention_bwd_dq_delta")
+    tail += _seed_args("flash_attention_bwd_dq", q, dropout_rate, seed)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _launch("flash_attention_bwd_dq", q.dtype, [*head, dq.data_ptr(), *tail])
@@ -376,15 +434,47 @@ def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=
     return dq
 
 
+def flash_attention_bwd_dq_delta(q, k, v, bias, lse, out, dout, causal=False, scale=None,
+                                 dropout_rate=0.0, keep=None):
+    """``(dq, delta)`` on the card from bfloat16 operands: the bf16 dQ
+    kernel computes ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) for
+    the query rows it owns, uses it and returns it for the dK/dV kernel.
+    With dropout it reads the mask ``keep`` the bf16 forward returned. CUDA
+    tensors only."""
+    b, h, lq, _ = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd_dq_delta: the fused delta takes bfloat16, got "
+                        f"{q.dtype}")
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd_dq_delta: out must be shaped and typed as q")
+    delta = torch.empty(b * h, lq, device=q.device, dtype=torch.float32)
+    if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
+        return torch.zeros_like(q), delta
+    head, tail, bias32 = _bwd_args("flash_attention_bwd_dq", q, k, v, bias, lse, delta, dout,
+                                   causal, scale, (out,))
+    tail += _keep_args("flash_attention_bwd_dq", q, k, dropout_rate, keep)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_bwd_dq", q.dtype, [*head, out.data_ptr(), dq.data_ptr(), *tail])
+    del bias32
+    return dq, delta
+
+
 def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal=False, scale=None,
-                            dropout_rate=0.0, seed=None):
-    """``(dk, dv)`` on the card (the dK/dV kernel); arguments as
-    :func:`flash_attention_bwd_dq`. CUDA tensors only."""
+                            dropout_rate=0.0, drop=None):
+    """``(dk, dv)`` on the card (the dK/dV kernel) from the forward's
+    ``lse``, ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) and, with
+    dropout, ``drop``: the forward's seed in float32, the mask the forward
+    returned in bfloat16. CUDA tensors only."""
     b, h, lq, _ = q.shape
     if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
         return torch.zeros_like(k), torch.zeros_like(v)
     head, tail, bias32 = _bwd_args("flash_attention_bwd_dkv", q, k, v, bias, lse, delta, dout,
-                                   causal, scale, dropout_rate, seed)
+                                   causal, scale)
+    if q.dtype == torch.bfloat16:
+        tail += _keep_args("flash_attention_bwd_dkv", q, k, dropout_rate, drop)
+    else:
+        tail += _seed_args("flash_attention_bwd_dkv", q, dropout_rate, drop)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         _launch("flash_attention_bwd_dkv", q.dtype, [*head, dk.data_ptr(), dv.data_ptr(), *tail])
@@ -393,16 +483,24 @@ def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal=False, scale
 
 
 def flash_attention_bwd(q, k, v, bias, out, lse, dout, causal=False, scale=None,
-                        dropout_rate=0.0, seed=None):
+                        dropout_rate=0.0, drop=None):
     """``(dq, dk, dv)`` on the card from the forward's ``out`` and ``lse``
-    and the output gradient ``dout``: ``delta = rowsum(dout * out)`` in f32
-    as one torch op (as the JAX package leaves it to XLA), then the dQ and
-    the dK/dV kernels with the forward's dropout ``seed``. CUDA tensors
-    only."""
+    and the output gradient ``dout``, with dropout from ``drop`` (the
+    forward's seed in float32, the mask it returned in bfloat16): the dQ
+    kernel, then the dK/dV kernel. ``delta = rowsum(dout * out)`` (f32)
+    comes in bfloat16 from the dQ kernel itself
+    (:func:`flash_attention_bwd_dq_delta`) and in float32 from one torch op
+    before it (as the JAX package leaves it to XLA). CUDA tensors only."""
     if out.shape != q.shape:
         raise ValueError("flash_attention_bwd: out must be shaped as q")
+    if q.dtype == torch.bfloat16:
+        dq, delta = flash_attention_bwd_dq_delta(q, k, v, bias, lse, out, dout, causal, scale,
+                                                 dropout_rate, drop)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal, scale,
+                                         dropout_rate, drop)
+        return dq, dk, dv
     delta = (dout.float() * out.float()).sum(-1).reshape(-1, q.shape[2])
-    args = (q, k, v, bias, lse, delta, dout, causal, scale, dropout_rate, seed)
+    args = (q, k, v, bias, lse, delta, dout, causal, scale, dropout_rate, drop)
     dq = flash_attention_bwd_dq(*args)
     dk, dv = flash_attention_bwd_dkv(*args)
     return dq, dk, dv
@@ -414,17 +512,21 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale, rate, seed):
-        out, lse = flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
-        ctx.save_for_backward(q, k, v, bias, out, lse, seed)
+        if q.dtype == torch.bfloat16 and rate > 0.0:
+            # the bf16 forward returns the mask it drew, which its backward reads
+            out, lse, drop = flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
+        else:
+            (out, lse), drop = flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed), seed
+        ctx.save_for_backward(q, k, v, bias, out, lse, drop)
         ctx.cfg = (causal, scale, rate)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, out, lse, seed = ctx.saved_tensors
+        q, k, v, bias, out, lse, drop = ctx.saved_tensors
         causal, scale, rate = ctx.cfg
         dq, dk, dv = flash_attention_bwd(q, k, v, bias, out, lse, dout.contiguous(), causal,
-                                         scale, rate, seed)
+                                         scale, rate, drop)
         dbias = None
         if bias is not None and ctx.needs_input_grad[3]:
             # exact dbias through the plain recompute, as the JAX package

@@ -338,40 +338,140 @@ def test_bf16_forward_and_backward_match_jax(bias_kind, causal, lq, lk, d):
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 def test_bf16_function_routes_through_the_kernel_entries(monkeypatch, rate):
     """The card's autograd wiring on bf16 with the kernel entries standing
-    in for the kernels (their plain versions): bf16 output and gradients,
-    ``delta`` handed to the dQ entry in f32 (from the bf16 ``out`` and
-    ``dout``), and the plain backward's values."""
+    in for the kernels (their plain versions): bf16 output and gradients;
+    with dropout the forward returns a ``keep_words`` mask and both
+    backward entries are handed that mask in place of the seed; the dQ
+    entry is handed ``out`` (it computes delta itself, f32) and the dK/dV
+    entry the delta it returned; and the plain backward's values."""
     q, k, v, bias, do = _bf16_case("pad", 20, 20, 32, seed=21)
-    calls, deltas = [], []
+    calls, keeps, deltas, seeds = [], [], [], []
     plain_bwd = tfa._plain_bwd
 
-    def dq_entry(q, k, v, b, lse, delta, do, *a):
-        calls.append("dq")
-        deltas.append(delta)
-        return plain_bwd(q, k, v, b, None, lse, do, *a)[0]
+    def fwd_entry(q, k, v, b, causal, scale, rate, seed):
+        calls.append("fwd")
+        seeds.append(seed)
+        out = tfa._plain_fwd(q, k, v, b, causal, scale, rate, seed)
+        if not rate:
+            return out
+        keeps.append(tfa.keep_words(q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.device))
+        return (*out, keeps[-1])
 
-    def dkv_entry(q, k, v, b, lse, delta, do, *a):
+    def dq_entry(q, k, v, b, lse, out, do, causal, scale, rate, keep):
+        calls.append("dq")
+        keeps.append(keep)
+        delta = (do.float() * out.float()).sum(-1).reshape(-1, q.shape[2])
+        deltas.append(delta)
+        return plain_bwd(q, k, v, b, out, lse, do, causal, scale, rate, seeds[0])[0], delta
+
+    def dkv_entry(q, k, v, b, lse, delta, do, causal, scale, rate, drop):
         calls.append("dkv")
-        return plain_bwd(q, k, v, b, None, lse, do, *a)[1:]
+        keeps.append(drop)
+        deltas.append(delta)
+        return plain_bwd(q, k, v, b, None, lse, do, causal, scale, rate, seeds[0])[1:]
 
     monkeypatch.setattr(tfa, "_use_kernel", lambda q: True)
-    monkeypatch.setattr(tfa, "flash_attention_fwd",
-                        lambda *a: calls.append("fwd") or tfa._plain_fwd(*a))
-    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", dq_entry)
+    monkeypatch.setattr(tfa, "flash_attention_fwd", fwd_entry)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq_delta", dq_entry)
     monkeypatch.setattr(tfa, "flash_attention_bwd_dkv", dkv_entry)
     ts = [_to_bf16(a).requires_grad_() for a in (q, k, v)]
     out = tfa.flash_attention(*ts, bias=_to_bf16(bias), dropout_rate=rate,
                               generator=torch.Generator().manual_seed(3))
     out.backward(_to_bf16(do))
     assert calls == ["fwd", "dq", "dkv"]
-    assert out.dtype == torch.bfloat16 and deltas[0].dtype == torch.float32
-    want_delta = (_to_bf16(do).float() * out.detach().float()).sum(-1).reshape(-1, 20)
-    assert torch.equal(deltas[0], want_delta)
+    assert out.dtype == torch.bfloat16
+    if rate:
+        assert keeps[0].dtype == torch.int32 and keeps[0].shape == (2 * 3, 20, 1)
+        assert keeps[1] is keeps[0] and keeps[2] is keeps[0]
+    else:
+        assert keeps == [None, None]
+    assert deltas[1] is deltas[0] and deltas[0].dtype == torch.float32
     seed = tfa._draw_seed(torch.Generator().manual_seed(3), "cpu") if rate else None
     want = plain_bwd(*(_to_bf16(a) for a in (q, k, v, bias)), out.detach(), None, _to_bf16(do),
                      False, None, rate, seed)
     for t, w in zip(ts, want):
         assert t.grad.dtype == torch.bfloat16 and torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bf16_backward_folds_delta_into_the_dq_kernel(monkeypatch, dtype):
+    """On ``meta`` tensors, with the entries' launches recorded: the bf16
+    backward computes no delta in torch (no op runs before the dQ kernel)
+    and hands the dQ entry ``out`` and an f32 ``[B*H, Lq]`` delta to write,
+    which the dK/dV entry then reads; the f32 route still computes delta in
+    torch and hands it to both kernels, with no ``out``."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    b, h, lq, lk, d = 2, 3, 24, 40, 32
+    q, do, out = (torch.empty(b, h, lq, d, device="meta", dtype=dtype) for _ in range(3))
+    k, v = (torch.empty(b, h, lk, d, device="meta", dtype=dtype) for _ in range(2))
+    lse = torch.empty(b * h, lq, device="meta")
+    ops, launches = [], []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    def head(name, q, k, v, bias, lse, delta, dout, causal, scale, more=()):
+        return [q, k, v, bias, lse, delta, dout, *more], [], None
+
+    monkeypatch.setattr(tfa, "_bwd_args", head)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(tfa, "_launch", lambda name, dt, args: launches.append((name, dt, args,
+                                                                              len(ops))))
+    with Record():
+        tfa.flash_attention_bwd(q, k, v, None, out, lse, do)
+    names = [name for name, *_ in launches]
+    assert names == ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
+    dq_args, dkv_args = launches[0][2], launches[1][2]
+    delta = dq_args[5]
+    assert delta.shape == (b * h, lq) and delta.dtype == torch.float32
+    assert dkv_args[5] is delta
+    before_dq = set(ops[:launches[0][3]])
+    if dtype == torch.bfloat16:
+        assert not {"aten.mul", "aten.sum"} & set(ops)
+        assert dq_args[7] is out  # delta from out, in the kernel
+    else:
+        assert {"aten.mul", "aten.sum"} <= before_dq
+        assert all(a is not out for a in dq_args)
+
+
+def test_bf16_backward_takes_the_stored_mask_in_place_of_the_seed(monkeypatch):
+    """The bf16 backward entries read the mask the bf16 forward returned:
+    with dropout they refuse a missing mask or the seed in its place, and
+    at rate 0 they need none; the bf16 dQ kernel computes delta itself, so
+    the dQ entry that is handed a delta refuses bfloat16."""
+    b, h, lq, lk, d = 2, 3, 24, 40, 32
+    q = torch.zeros(b, h, lq, d, dtype=torch.bfloat16)
+    k = torch.zeros(b, h, lk, d, dtype=torch.bfloat16)
+    keep = tfa.keep_words(b, h, lq, lk, "cpu")
+    assert tfa._keep_args("dkv", q, k, 0.25, keep) == [keep.data_ptr(), 1.0 / 0.75]
+    assert tfa._keep_args("dkv", q, k, 0.0, None) == [None, 1.0]
+    seed = torch.zeros(2, dtype=torch.int32)
+    for bad in (None, seed, keep[:, :, :1].contiguous()):  # none, the seed, a word short
+        with pytest.raises(ValueError, match="dropout mask"):
+            tfa._keep_args("dkv", q, k, 0.25, bad)
+    monkeypatch.setattr(tfa, "_bwd_args", lambda *a, **kw: ([], [], None))
+    stat = torch.zeros(b * h, lq)
+    with pytest.raises(TypeError, match="flash_attention_bwd_dq_delta"):
+        tfa.flash_attention_bwd_dq(q, k, k, None, stat, stat, q)
+
+
+def test_stored_mask_words_unpack_to_entries():
+    """``unpack_keep`` reads entry (iq, ik) from bit ik % 32 of word ik // 32,
+    the layout the bf16 forward stores and the backward reads."""
+    b, h, lq, lk = 1, 2, 3, 40
+    want = torch.from_numpy(np.random.RandomState(5).rand(b, h, lq, lk) < 0.5)
+    words = torch.zeros(b * h, lq, 2, dtype=torch.int64)
+    flat = want.reshape(b * h, lq, lk)
+    for ik in range(lk):
+        words[..., ik // 32] |= flat[..., ik].long() << (ik % 32)
+    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    keep = tfa.keep_words(b, h, lq, lk, "cpu")
+    assert keep.shape == words.shape and keep.dtype == torch.int32
+    assert torch.equal(tfa.unpack_keep(words, b, h, lq, lk), want)
 
 
 def test_bf16_reaches_the_kernel_path_and_float16_is_refused():
@@ -402,10 +502,11 @@ def test_bf16_cpu_calls_count_no_launch():
 
 
 def test_plain_forward_follows_the_bf16_kernels_key_tile():
-    """``_plain_fwd`` runs the online softmax over tiles of ``_KEY_TILE``
-    keys, the bf16 forward kernel's ``BK`` at every head dim (its launch
-    table in ``csrc/flash_attention_bf16.cu``); in f32 the tiling moves
-    nothing beyond rounding, so the plain forward equals the softmax."""
+    """``_plain_fwd`` runs the online softmax over tiles of ``_KEY_TILES``
+    keys, the bf16 forward kernel's ``BN`` at each head dim (its launch
+    table, ``launch_d`` in ``csrc/flash_attention_bf16.cu``); in f32 the
+    tiling moves nothing beyond rounding, so the plain forward equals the
+    softmax."""
     import os
     import re
 
@@ -413,8 +514,9 @@ def test_plain_forward_follows_the_bf16_kernels_key_tile():
 
     with open(os.path.join(_build.CSRC_DIR, "flash_attention_bf16.cu")) as f:
         src = f.read()
-    tiles = {int(bk) for _, bk in re.findall(r"launch<(\d+), (\d+), (?:true|false)>", src)}
-    assert tiles == {tfa._KEY_TILE}
+    (d_, bn_d, bn_else), = re.findall(r"constexpr int BN = D == (\d+) \? (\d+) : (\d+);", src)
+    tiles = {d: int(bn_d) if d == int(d_) else int(bn_else) for d in tfa._HEAD_DIMS}
+    assert tiles == tfa._KEY_TILES
     q, k, v = (torch.from_numpy(a).double() for a in _qkv(2, 2, 150, 32, seed=40))
     out, lse = tfa._plain_fwd(q, k, v, causal=True)
     torch.testing.assert_close(out, tfa._plain_attention(q, k, v, None, True, 32 ** -0.5),
