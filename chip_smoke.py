@@ -87,6 +87,21 @@ Phases, each fatal on failure:
     run: the parity step, then 10 steps that also launch the max-pool
     backward kernel once each; step time and images/s beside the flag-off
     run's, peak memory and a profiled step;
+12a. ResNet-50 under AMP (``auto_cast``, O1), with the bf16 kernels held
+    in step 3 against their plain versions (rows 8-13 in bf16 from
+    ``conv_bn_relu_mm_bf16.cu`` and the bf16 instances of
+    ``conv_bn_relu_bn.cu``, and the bf16 max-pool backward, bit-equal, at
+    ResNet-50's shapes, the stem with K padded to 152, ragged shapes and the
+    serving products with split-K, each timed beside bf16 ``torch.matmul``,
+    ``torch.var`` or torch's pool backward): one O1 step at batch 2 against
+    the CPU's plain path (the f32 step the control the limits must catch),
+    then bench.py's step under ``auto_cast`` with the pool kernel on, 10
+    steps at batch 128 whose losses must be finite and fall below the first,
+    each launching every training conv kernel 33 times in bf16 and never in
+    float32 and the bf16 pool backward once; the median step, images/s, peak
+    memory and a profiled step in which no fused conv product runs outside
+    the bf16 kernel; then one eval forward under ``auto_cast`` at batch 32
+    (33 bf16 eval kernels) against the CPU's plain path;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -775,19 +790,22 @@ def make_requests(cfg, rng):
 _KERNEL_KINDS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
                  "flash_attention_bwd_dkv_bf16", "layernorm_residual_fwd",
-                 "layernorm_residual_bwd", "conv_mm", "bn_reduce", "bn_elementwise", "momentum",
-                 "int8_mm", "pool_bwd")
+                 "layernorm_residual_bwd", "conv_mm", "conv_mm_bf16", "bn_reduce",
+                 "bn_elementwise", "momentum", "int8_mm", "pool_bwd")
+# templates that take both dtypes: their bf16 instances count apart
+_TEMPLATE_KINDS = ("layernorm_residual_fwd", "layernorm_residual_bwd", "bn_reduce",
+                   "bn_elementwise", "pool_bwd")
 
 
 def _kernel_kind(name):
     n = name.lower().replace("_row_kernel", "_kernel")  # the LayerNorm backward's row variant
     n = n.replace("conv_mm_reduce_kernel", "conv_mm_kernel")  # split-K's second pass
+    n = n.replace("conv_mm_bf16_reduce_kernel", "conv_mm_bf16_kernel")
     n = n.replace("pool_bwd_nchw_kernel", "pool_bwd_kernel").replace("pool_bwd_nhwc_kernel",
                                                                       "pool_bwd_kernel")
     for kind in _KERNEL_KINDS:
         if f"{kind}_kernel" in n:
-            # one LayerNorm template takes both dtypes: its bf16 instances apart
-            return kind + ("_bf16" if kind.startswith("layernorm") and "bfloat16" in n else "")
+            return kind + ("_bf16" if kind in _TEMPLATE_KINDS and "bfloat16" in n else "")
     if "memcpy" in n or "memset" in n:
         return "memcpy"
     if "im2col" in n or "col2im" in n:
@@ -1940,24 +1958,28 @@ def check_conv_serving(batch, per_product=True):
     return entry
 
 
-def check_bn_passes(m, n, label, timed=True, mean_offset=1.0, std=1.0):
+def check_bn_passes(m, n, label, timed=True, mean_offset=1.0, std=1.0, dtype="float32"):
     """Rows 10-13 (``conv_bn_relu_bn.cu``) over a [m, n] conv output against
     the plain versions: the centred sum of squares, normalize + relu and
     the two backward passes (the relu gate recomputed from co: the
     elementwise passes round as the plain version does, so they must equal
-    it bit for bit)."""
+    it bit for bit). ``dtype`` is co's and dy's (and y's); the vectors, the
+    sums and d_co are float32 in both."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr
 
     g = torch.Generator(device="cuda").manual_seed(22)
+    dt = getattr(torch, dtype)
+    es = dt.itemsize  # bytes of an element of co, dy and y
+    sfx, tag = ("_bf16", "bf16 ") if dt == torch.bfloat16 else ("", "")
 
     def make():
         co = (torch.randn(m, n, generator=g, device="cuda") * std
-              + torch.randn(n, generator=g, device="cuda") * mean_offset)
-        dy = torch.randn(m, n, generator=g, device="cuda")
-        mean = co.mean(0)
-        rstd = torch.rsqrt(co.var(0, unbiased=False) + 1e-5)
+              + torch.randn(n, generator=g, device="cuda") * mean_offset).to(dt)
+        dy = torch.randn(m, n, generator=g, device="cuda").to(dt)
+        mean = co.float().mean(0)
+        rstd = torch.rsqrt(co.float().var(0, unbiased=False) + 1e-5)
         gamma = torch.rand(n, generator=g, device="cuda") + 0.5
         beta = torch.randn(n, generator=g, device="cuda") * 0.1
         scale = gamma * rstd
@@ -1978,50 +2000,58 @@ def check_bn_passes(m, n, label, timed=True, mean_offset=1.0, std=1.0):
     dco = cbr.bn_bwd_dco(co, dy, scale, shift, k3, b0)
     dco_ref = cbr._bn_bwd_dco_plain(co, dy, scale, shift, k3, b0)
     torch.cuda.synchronize()
-    err10 = float(((ss - ss_ref).abs() / ss_ref.abs()).max())
-    err10_64 = float(((ss.double() - ss64).abs() / ss64).max())
-    gated = cbr._gated(co, dy, scale, shift)
+    if y.dtype != dt or dco.dtype != torch.float32 or ss.dtype != torch.float32:
+        raise AssertionError(f"{tag}batch-norm passes {label}: dtypes y {y.dtype}, dco "
+                             f"{dco.dtype}, sums {ss.dtype}")
+    # a channel whose values all round to one bf16 value sums to 0 in all
+    # three: the relative error is then 0, not 0 / 0
+    err10 = float(((ss - ss_ref).abs() / ss_ref.abs().clamp_min(1e-30)).max())
+    err10_64 = float(((ss.double() - ss64).abs() / ss64.clamp_min(1e-30)).max())
+    gated = cbr._gated(co, dy, scale, shift).float()
     err12 = max(_sum_rel(pdy.sum(0), rdy.sum(0), gated),
-                _sum_rel(pdyc.sum(0), rdyc.sum(0), gated * co))
-    err11 = float((y - y_ref).abs().max())
+                _sum_rel(pdyc.sum(0), rdyc.sum(0), gated * co.float()))
+    err11 = float((y.float() - y_ref.float()).abs().max())
     err13 = float((dco - dco_ref).abs().max())
     tol10 = (f"rtol {CONV_SUM_RTOL} of the plain version's sum (and of a float64 centred sum: "
              f"read {err10_64:.3g})")
     tol12 = f"rtol {CONV_SUM_RTOL} of the channel's sum of |terms|"
     if not (err10 <= CONV_SUM_RTOL and err10_64 <= CONV_SUM_RTOL and err11 == 0.0
             and err12 <= CONV_SUM_RTOL and err13 == 0.0):
-        raise AssertionError(f"batch-norm passes {label} [{m}, {n}]: sumsq {err10} (f64 "
+        raise AssertionError(f"{tag}batch-norm passes {label} [{m}, {n}]: sumsq {err10} (f64 "
                              f"{err10_64}), bn_relu {err11}, partials {err12}, dco {err13} "
                              f"beyond {tol10} / bit-exact / {tol12} / bit-exact")
-    vec = 8 * n
+    vec = 8 * n  # two float32 vectors
     entries = [
-        {"name": "conv_bn_relu_centered_sumsq", "source": _BN_SRC, "replaces": f"{_CBR}:370",
-         "max_abs_err": float((ss - ss_ref).abs().max()), "rel_err": err10,
-         "rel_err_vs_float64": err10_64, "tolerance": tol10,
-         "bound": bound(4 * (m * n + 2 * n), 3 * m * n)},
-        {"name": "conv_bn_relu_bn_relu", "source": _BN_SRC, "replaces": f"{_CBR}:399",
+        {"name": f"conv_bn_relu_centered_sumsq{sfx}", "source": _BN_SRC,
+         "replaces": f"{_CBR}:370", "max_abs_err": float((ss - ss_ref).abs().max()),
+         "rel_err": err10, "rel_err_vs_float64": err10_64, "tolerance": tol10,
+         "bound": bound(es * m * n + 8 * n, 3 * m * n)},
+        {"name": f"conv_bn_relu_bn_relu{sfx}", "source": _BN_SRC, "replaces": f"{_CBR}:399",
          "max_abs_err": err11, "tolerance": "bit-exact (the same rounding of co * scale + shift)",
-         "bound": bound(4 * (2 * m * n) + vec, 3 * m * n)},
-        {"name": "conv_bn_relu_bn_bwd_partials", "source": _BN_SRC, "replaces": f"{_CBR}:463",
+         "bound": bound(es * 2 * m * n + vec, 3 * m * n)},
+        {"name": f"conv_bn_relu_bn_bwd_partials{sfx}", "source": _BN_SRC,
+         "replaces": f"{_CBR}:463",
          "max_abs_err": max(float((pdy.sum(0) - rdy.sum(0)).abs().max()),
                             float((pdyc.sum(0) - rdyc.sum(0)).abs().max())),
-         "rel_err": err12, "tolerance": tol12,
-         "bound": bound(4 * (2 * m * n + 2 * n) + vec, 5 * m * n)},
-        {"name": "conv_bn_relu_bn_bwd_dco", "source": _BN_SRC, "replaces": f"{_CBR}:496",
+         "rel_err": err12, "tolerance": tol12, "bound": bound(es * 2 * m * n + 8 * n + vec,
+                                                              5 * m * n)},
+        {"name": f"conv_bn_relu_bn_bwd_dco{sfx}", "source": _BN_SRC, "replaces": f"{_CBR}:496",
          "max_abs_err": err13, "tolerance": "bit-exact (the same rounding, gate included)",
-         "bound": bound(4 * (3 * m * n) + 2 * vec, 7 * m * n)},
+         "bound": bound((2 * es + 4) * m * n + 2 * vec, 7 * m * n)},  # d_co float32
     ]
     for e in entries:
-        e.update({"route": "cuda", "shape": [m, n], "label": label, "dtype": "float32"})
+        e.update({"route": "cuda", "shape": [m, n], "label": label, "dtype": dtype})
         e["bound_ms"], e["bound_by"] = e.pop("bound")
     if not timed:
-        log(f"batch-norm passes {label} [{m}, {n}]: sumsq err {err10:.3g} (f64 {err10_64:.3g}), "
-            f"bn_relu {err11}, partials {err12:.3g}, dco {err13} (bit-exact where stated)")
+        log(f"{tag}batch-norm passes {label} [{m}, {n}]: sumsq err {err10:.3g} (f64 "
+            f"{err10_64:.3g}), bn_relu {err11}, partials {err12:.3g}, dco {err13} (bit-exact "
+            "where stated)")
         return entries
     runs = [
         (lambda co, dy, mean, s_, b_, k3, b0: cbr.centered_sumsq(co, mean),
          lambda co, dy, mean, s_, b_, k3, b0: cbr._centered_sumsq_plain(co, mean),
-         lambda co, dy, mean, s_, b_, k3, b0: torch.var(co, 0, unbiased=False), "torch.var"),
+         lambda co, dy, mean, s_, b_, k3, b0: torch.var(co, 0, unbiased=False),
+         f"torch.var in {dtype}"),
         (lambda co, dy, mean, s_, b_, k3, b0: cbr.bn_relu(co, s_, b_),
          lambda co, dy, mean, s_, b_, k3, b0: cbr._bn_relu_plain(co, s_, b_), None,
          "none: no single PyTorch call computes relu(co * scale + shift)"),
@@ -2032,16 +2062,20 @@ def check_bn_passes(m, n, label, timed=True, mean_offset=1.0, std=1.0):
          lambda co, dy, mean, s_, b_, k3, b0: cbr._bn_bwd_dco_plain(co, dy, s_, b_, k3, b0),
          None, "none: no single PyTorch call computes the folded batch-norm backward"),
     ]
+    # device time behind a sleep kernel: a bf16 pass takes about as long as
+    # the host takes to enqueue it, so CUDA events around a loop of launches
+    # read the host's pace (0.021-0.044 ms in three runs of one kernel)
     for e, (kern, plain, lib, lib_name) in zip(entries, runs):
-        e["ms"] = e["kernel_ms"] = time_ms(kern, sets, 100)
-        e["plain_ms"] = time_ms(plain, sets, 20)
-        e["library_ms"] = time_ms(lib, sets, 100) if lib else None
+        e["ms"] = e["kernel_ms"] = device_ms_sets(kern, sets, 100)[0]
+        e["plain_ms"] = device_ms_sets(plain, sets, 20)[0]
+        e["library_ms"] = device_ms_sets(lib, sets, 100)[0] if lib else None
         e["library"] = lib_name
-    log(f"batch-norm passes {label} [{m}, {n}]: sumsq err {err10:.3g} (f64 {err10_64:.3g}), "
-        f"bn_relu {err11}, partials {err12:.3g}, dco {err13}; kernel ms "
+        e["timing"] = "device time behind a sleep kernel"
+    log(f"{tag}batch-norm passes {label} [{m}, {n}]: sumsq err {err10:.3g} (f64 "
+        f"{err10_64:.3g}), bn_relu {err11}, partials {err12:.3g}, dco {err13}; kernel ms "
         + ", ".join(f"{e['name'][13:]} {e['ms']:.4f} (bound {e['bound_ms']:.4f}, plain "
                     f"{e['plain_ms']:.4f})" for e in entries)
-        + f"; torch.var {entries[0]['library_ms']:.4f}")
+        + f"; {tag}torch.var {entries[0]['library_ms']:.4f}")
     return entries
 
 
@@ -2319,12 +2353,12 @@ def _rn_loss(m, x, y):
     return F.cross_entropy(m(x), y)
 
 
-def _rn_step_of(model, device=None):
+def _rn_step_of(model, device=None, loss_fn=_rn_loss):
     from paddle_tpu_torch.framework.jit import train_step
     from paddle_tpu_torch.optimizer import Momentum
 
     opt = Momentum(learning_rate=RN_LR, momentum=RN_MOMENTUM, parameters=model.parameters())
-    return train_step(model, opt, _rn_loss, device=device)
+    return train_step(model, opt, loss_fn, device=device)
 
 
 def _buffer_errors(model, ref_model):
@@ -2520,6 +2554,454 @@ def train_resnet():
     finally:
         set_flags({"use_pallas_pool_bwd": False})
     return counts
+
+
+# -- the ResNet path under AMP ---------------------------------------------------
+
+_CONV_BF16_SRC = "paddle_tpu_torch/csrc/conv_bn_relu_mm_bf16.cu"
+_POOL_SRC = "paddle_tpu_torch/csrc/pool_backward.cu"
+_POOL_TPU = "paddle_tpu/ops/pallas/pool_backward.py:244"
+# bf16 kernels against their plain versions, in bf16 ulps of the largest
+# output (bf16_ulp): co rounds a float32 sum taken in another order than
+# cuBLAS's, so an entry at a rounding boundary lands one ulp over (1); the
+# eval output applies the affine to that co and rounds again, which can add
+# an ulp of its own (2)
+CONV_BF16_CO_ULPS = 1.0
+CONV_BF16_Y_ULPS = 2.0
+RN_AMP_STEPS = 10
+
+
+def _ulps(got, want):
+    """max |got - want| in bf16 ulps of the largest |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / bf16_ulp(want.abs().max()))
+
+
+def _bf16_conv_bounds(m, k, n, out_bytes):
+    """(bound ms, by what) of one bf16 conv product: p2, w2 and the bf16
+    [M, N] output, plus ``out_bytes`` of float32 vectors."""
+    return bound(2 * (m * k + k * n + m * n) + out_bytes, 2 * m * k * n, peak=BF16_FLOPS_PER_S)
+
+
+def _conv_sets_bf16(g, m, k, n, count):
+    return [(p2.bfloat16(), w2.bfloat16(), s_, b_) for p2, w2, s_, b_ in
+            _conv_sets(g, m, k, n, count)]
+
+
+def check_conv_mm_bf16(m, k, n, label, timed=True):
+    """Rows 8 and 9 in bf16 (``conv_bn_relu_mm_bf16.cu``) at [m, k] @ [k, n]
+    against the plain versions on the same inputs, in bf16 ulps of the
+    largest output; the channel sums against a float64 sum of the kernel's
+    own rounded co (the sums are of the stored values), and a second run
+    must repeat co and the sums bit for bit. Timed beside bf16
+    ``torch.matmul``."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    sets = _conv_sets_bf16(g, m, k, n, 2 if timed else 1)
+    p2, w2, scale, shift = sets[0]
+    y = cbr.mm_affine_relu(p2, w2, scale, shift)
+    y_ref = cbr._mm_affine_relu_plain(p2, w2, scale, shift)
+    co, part = cbr.mm_stats(p2, w2)
+    co2, part2 = cbr.mm_stats(p2, w2)
+    co_ref, _ = cbr._mm_stats_plain(p2, w2)
+    torch.cuda.synchronize()
+    u8, u9 = _ulps(y, y_ref), _ulps(co, co_ref)
+    differ9 = float((co != co_ref).float().mean())
+    sum_err = _sum_rel(part.sum(0).double(), co.double().sum(0), co.float())
+    tol8 = f"{CONV_BF16_Y_ULPS} bf16 ulps of the largest output"
+    tol9 = (f"co {CONV_BF16_CO_ULPS} bf16 ulp of the largest output; channel sums "
+            f"{CONV_SUM_RTOL} of the channel's sum of |co| against float64 sums of the stored co")
+    if y.dtype != torch.bfloat16 or co.dtype != torch.bfloat16 or part.dtype != torch.float32:
+        raise AssertionError(f"bf16 conv matmul {label}: dtypes {y.dtype}, {co.dtype}, "
+                             f"{part.dtype}")
+    if u8 > CONV_BF16_Y_ULPS or u9 > CONV_BF16_CO_ULPS or sum_err > CONV_SUM_RTOL:
+        raise AssertionError(f"bf16 conv matmul {label} [{m}, {k}] @ [{k}, {n}]: affine+relu "
+                             f"{u8} ulps, co {u9} ulps, sums {sum_err} beyond {tol8} / {tol9}")
+    if not (torch.equal(co, co2) and torch.equal(part, part2)):
+        raise AssertionError(f"bf16 conv matmul {label}: a second mm_stats run differs")
+    b8, by8 = _bf16_conv_bounds(m, k, n, 8 * n)
+    b9, by9 = _bf16_conv_bounds(m, k, n, 4 * n)
+    e8 = {"name": "conv_bn_relu_mm_affine_relu_bf16", "route": "cuda", "source": _CONV_BF16_SRC,
+          "replaces": f"{_CBR}:306", "shape": [m, k, n], "label": label, "dtype": "bfloat16",
+          "max_abs_err": float((y.float() - y_ref.float()).abs().max()), "ulps": u8,
+          "tolerance": tol8, "bound_ms": b8, "bound_by": by8,
+          "splits": cbr._split_k(m, k, n)[0]}
+    e9 = {"name": "conv_bn_relu_mm_stats_bf16", "route": "cuda", "source": _CONV_BF16_SRC,
+          "replaces": f"{_CBR}:337", "shape": [m, k, n], "label": label, "dtype": "bfloat16",
+          "max_abs_err": float((co.float() - co_ref.float()).abs().max()), "ulps": u9,
+          "co_entries_differing": differ9, "sums_rel_err": sum_err, "tolerance": tol9,
+          "bound_ms": b9, "bound_by": by9, "repeats_bit_for_bit": True}
+    note = ""
+    if timed:
+        iters = max(5, min(50, int(1.5e11 / (m * k * n))))
+        e8["ms"] = e8["kernel_ms"] = time_ms(cbr.mm_affine_relu, sets, iters)
+        e8["plain_ms"] = time_ms(cbr._mm_affine_relu_plain, sets, iters)
+        e9["ms"] = e9["kernel_ms"] = time_ms(lambda p, w, s_, b_: cbr.mm_stats(p, w), sets, iters)
+        e9["plain_ms"] = time_ms(lambda p, w, s_, b_: cbr._mm_stats_plain(p, w), sets, iters)
+        lib = time_ms(lambda p, w, s_, b_: torch.matmul(p, w), sets, iters)
+        e8["library_ms"] = e9["library_ms"] = lib
+        e8["library"] = e9["library"] = "torch.matmul(p2, w2) in bf16 (the product alone)"
+        note = (f"; affine+relu {e8['ms']:.4f} ms (bound {b8:.4f} {by8}), stats {e9['ms']:.4f} "
+                f"ms (bound {b9:.4f}), plain {e8['plain_ms']:.4f} / {e9['plain_ms']:.4f} ms, "
+                f"bf16 torch.matmul {lib:.4f} ms")
+    log(f"bf16 conv matmul {label} [{m}, {k}] @ [{k}, {n}]: affine+relu {u8:.3g} ulps, co "
+        f"{u9:.3g} ulps ({differ9:.2e} of co differing), sums {sum_err:.3g} ({tol9}){note}")
+    return e8, e9
+
+
+def _rn50_fused_products_bf16(batch):
+    """:func:`_rn50_fused_products` as the bf16 lowering gives them: K
+    padded to a multiple of 8 (the stem's 147 to 152)."""
+    return [(m, -(-k // 8) * 8, n) for m, k, n in _rn50_fused_products(batch)]
+
+
+def check_conv_serving_bf16(batch):
+    """Row 8b in bf16: the 33 fused eval products of a ResNet-50 forward
+    at serving batch ``batch``, each against its plain version, the split-K
+    calls counted against the planner's, then the device time of the 33
+    kernel calls in a row against 33 bf16 ``torch.matmul`` calls."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr
+
+    g = torch.Generator(device="cuda").manual_seed(33)
+    shapes = _rn50_fused_products_bf16(batch)
+    sets = [_conv_sets_bf16(g, m, k, n, 1)[0] for m, k, n in shapes]
+    splits0 = cbr.MM_AFFINE_RELU_SPLITS
+    worst, worst_abs = 0.0, 0.0
+    for (m, k, n), args in zip(shapes, sets):
+        y, y_ref = cbr.mm_affine_relu(*args), cbr._mm_affine_relu_plain(*args)
+        u = _ulps(y, y_ref)
+        if u > CONV_BF16_Y_ULPS:
+            raise AssertionError(f"bf16 conv product [{m}, {k}] @ [{k}, {n}] at batch {batch}: "
+                                 f"{u} ulps beyond {CONV_BF16_Y_ULPS}")
+        worst = max(worst, u)
+        worst_abs = max(worst_abs, float((y.float() - y_ref.float()).abs().max()))
+    splits = cbr.MM_AFFINE_RELU_SPLITS - splits0
+    want = sum(cbr._split_k(*sh)[0] > 1 for sh in shapes)
+    if splits != want:
+        raise AssertionError(f"bf16: {splits} of the {len(shapes)} products took split-K; the "
+                             f"planner splits {want}")
+    ms = device_ms(lambda: [cbr.mm_affine_relu(*a) for a in sets], 10)[0]
+    plain = device_ms(lambda: [cbr._mm_affine_relu_plain(*a) for a in sets], 10)[0]
+    lib = device_ms(lambda: [torch.matmul(a[0], a[1]) for a in sets], 10)[0]
+    bounds = [_bf16_conv_bounds(m, k, n, 8 * n) for m, k, n in shapes]
+    b = sum(x[0] for x in bounds)
+    by = max(("bytes", "operations"), key=lambda w: sum(x[0] for x in bounds if x[1] == w))
+    log(f"ResNet-50 bucket {batch}, {len(shapes)} bf16 fused products: {worst:.3g} ulps (limit "
+        f"{CONV_BF16_Y_ULPS}), {splits} took split-K; device time in a row {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bf16 torch.matmul {lib:.4f} ms, bound {b:.4f} ms ({by})")
+    return {"name": "conv_bn_relu_mm_affine_relu_bf16", "route": "cuda", "source": _CONV_BF16_SRC,
+            "replaces": f"{_CBR}:306", "label": f"ResNet-50 serving batch {batch} under AMP: the "
+            f"{len(shapes)} fused products in a row, device time", "shape": shapes,
+            "dtype": "bfloat16", "max_abs_err": worst_abs, "ulps": worst,
+            "tolerance": f"{CONV_BF16_Y_ULPS} bf16 ulps of each product's largest output",
+            "splits": splits, "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library": "torch.matmul(p2, w2) in bf16 for each product", "bound_ms": b,
+            "bound_by": by}
+
+
+def check_pool_backward_bf16(layout, shape=None, timed=True):
+    """Row 16 in bf16 at the stem's [128, 64, 112, 112], 3x3/2/1, on a relu'd
+    input (zeros tie all over), in NCHW or the stem's channels-last layout
+    (``layout``): bit-equal to the plain version (float32 sums rounded once),
+    dx in x's layout; against ``aten.max_pool2d_with_indices_backward`` in
+    bf16, the library yardstick, to 4 bf16 ulps of the largest entry (the
+    same first-maximum rule)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import pool_backward as pb
+
+    g = torch.Generator(device="cuda").manual_seed(34)
+    ks, st, pad = POOL_GEOM
+    n, c, h, w = shape or POOL_SHAPE
+    x = torch.relu(torch.randn(n, h, w, c, generator=g, device="cuda")).bfloat16()
+    x = x.permute(0, 3, 1, 2)
+    if layout == "nchw":
+        x = x.contiguous()
+    y, idx = torch.nn.functional.max_pool2d(x, ks, st, pad, return_indices=True)
+    dy = torch.randn(y.shape, generator=g, device="cuda").bfloat16()
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+    y, dy = y.contiguous(memory_format=fmt), dy.contiguous(memory_format=fmt)
+    layouts = [pb.memory_layout(t) for t in (x, y, dy)]
+    if layouts != [layout] * 3:
+        raise AssertionError(f"bf16 max_pool2d_backward ({layout}): x, y, dy lie as {layouts}")
+    launches0 = pb.BF16_LAUNCHES
+    dx = pb.max_pool2d_backward(x, y, dy, ks, st, pad)
+    if pb.BF16_LAUNCHES != launches0 + 1:
+        raise AssertionError("bf16 max_pool2d_backward: the bf16 kernel was not counted")
+    ref = pb._plain_max_pool2d_backward(x, y, dy, ks, st, pad)
+    lib_fn = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731
+        dy, x, list(ks), list(st), list(pad), [1, 1], False, idx)
+    lib = lib_fn()
+    torch.cuda.synchronize()
+    lib_u = _ulps(dx, lib)
+    if dx.dtype != torch.bfloat16 or not torch.equal(dx, ref):
+        raise AssertionError(f"bf16 max_pool2d_backward ({layout}): {dx.dtype}, differs from "
+                             f"the plain version by {float((dx.float() - ref.float()).abs().max())}")
+    if pb.memory_layout(dx) != layout:
+        raise AssertionError(f"bf16 max_pool2d_backward: dx lies as {pb.memory_layout(dx)}")
+    if lib_u > 4:
+        raise AssertionError(f"bf16 max_pool2d_backward ({layout}): {lib_u} ulps from torch's "
+                             "backward: another tie rule?")
+    t_b, by = bound(2 * (2 * x.numel() + 2 * y.numel()), 9 * x.numel())
+    entry = {"name": "max_pool2d_backward_bf16", "route": "cuda", "source": _POOL_SRC,
+             "replaces": _POOL_TPU, "shape": [n, c, h, w], "geometry": "3x3 stride 2 padding 1",
+             "input": "relu", "layout": layout, "dtype": "bfloat16", "max_abs_err": 0.0,
+             "tolerance": "bit-equal to the plain version", "library_ulps": lib_u,
+             "bound_ms": t_b, "bound_by": by}
+    if timed:
+        args = [(x, y, dy, ks, st, pad)]
+        entry["ms"], entry["host_ms"] = device_ms_sets(pb.max_pool2d_backward, args, 20)
+        entry["kernel_ms"] = entry["ms"]
+        entry["plain_ms"] = device_ms_sets(pb._plain_max_pool2d_backward, args, 5)[0]
+        entry["library_ms"] = device_ms(lib_fn, 20)[0]
+        entry["library"] = "aten.max_pool2d_with_indices_backward in bf16, the same layout"
+        entry["timing"] = "device time behind a sleep kernel"
+    log(f"bf16 max_pool2d_backward {[n, c, h, w]} 3x3/2/1 ({layout}): bit-equal to the plain "
+        f"version; {lib_u:.3g} ulps from torch's backward"
+        + (f"; kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, library "
+           f"{entry['library_ms']:.4f} ms, bound {t_b:.4f} ms ({by})" if timed else ""))
+    return entry
+
+
+def check_resnet_kernels_bf16(timed=True):
+    """One entry per bf16 kernel of the ResNet path under AMP (rows 8-13 at
+    layer1's 3x3 conv at batch 128, row 16 at the stem's pool in its
+    channels-last layout); the stem (K padded to 152), ragged shapes (M and
+    N off every tile, N % 8 != 0, an odd N), layer4's K = 4608, row 8 at the
+    serving batch 32 and the 33 products of batches 1 and 8 (split-K), the
+    large-mean variance and the NCHW pool ride along under
+    ``also_checked``."""
+    import torch
+
+    e8, e9 = check_conv_mm_bf16(CONV_M, CONV_K, CONV_N, "layer1 3x3, batch 128", timed)
+    others = [check_conv_mm_bf16(RN_B * 112 * 112, 152, 64, "stem 7x7, batch 128, K 147 -> 152",
+                                 timed),
+              check_conv_mm_bf16(12345, 152, 70, "ragged", timed=False),
+              check_conv_mm_bf16(1000, 24, 37, "ragged, odd N", timed=False),
+              check_conv_mm_bf16(RN_B * 7 * 7, 9 * 512, 512, "layer4 3x3, batch 128 (K = 4608)",
+                                 timed=False),
+              check_conv_mm_bf16(RN_BUCKETS[-1] * 56 * 56, CONV_K, CONV_N,
+                                 f"layer1 3x3, serving batch {RN_BUCKETS[-1]}", timed)]
+    e8["also_checked"] = [o[0] for o in others] + [check_conv_serving_bf16(b)
+                                                   for b in RN_BUCKETS[:2]]
+    e9["also_checked"] = [o[1] for o in others]
+    bf16 = dict(dtype="bfloat16")
+    bn = check_bn_passes(CONV_M, CONV_N, "layer1 3x3, batch 128", timed, **bf16)
+    ragged = [check_bn_passes(12345, 70, "ragged", timed=False, **bf16),
+              check_bn_passes(12345, 37, "ragged, odd N", timed=False, **bf16)]
+    large = check_bn_passes(CONV_M, CONV_N, "mean ~100, std ~0.1", timed=False,
+                            mean_offset=100.0, std=0.1, **bf16)
+    for i, e in enumerate(bn):
+        e["also_checked"] = [r[i] for r in ragged]
+    bn[0]["also_checked"].append(large[0])
+    pool = check_pool_backward_bf16("nhwc", timed=timed)
+    pool["also_checked"] = [check_pool_backward_bf16("nchw", timed=timed),
+                            check_pool_backward_bf16("nchw", (2, 3, 15, 15), timed=False),
+                            check_pool_backward_bf16("nhwc", (2, 6, 15, 15), timed=False)]
+    torch.cuda.empty_cache()
+    return [e8, e9, *bn, pool]
+
+
+def _rn_amp_loss(m, x, y):
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast():
+        return _rn_loss(m, x, y)
+
+
+def _rn_amp_step_launches(steps):
+    """Launches of ``steps`` O1 steps with the pool kernel on: each training
+    conv kernel 33 times in bf16 and never in float32, the stem's pool
+    backward once in bf16, the float32 momentum update."""
+    from paddle_tpu_torch.ops.cuda import KERNEL_COUNTERS
+
+    want = {f"conv_bn_relu_{k}_bf16": RN_TRIPLES * steps for k in
+            ("mm_stats", "centered_sumsq", "bn_relu", "bn_bwd_partials", "bn_bwd_dco")}
+    want["momentum_update"] = _rn_momentum_launches() * steps
+    want["max_pool2d_backward_bf16"] = steps
+    return {name: want.get(name, 0) for name in KERNEL_COUNTERS}
+
+
+# The O1 ResNet step against the CPU's plain path, each limit between two
+# readings on an H100 (the bf16 step / the f32 step, which must fail it):
+# the loss (0.0060 / 0.1216) and the share of the gradient's entries (not 0
+# on both sides) that differ in any bit (0.9932 / 1.0000). At batch 2 this
+# random-init ResNet-50's logits reach ~5,000 and its batch norms see 98
+# values a channel in layer4: any two bf16 runs part in the gradient about
+# as far as bf16 is from f32 (relative L2 1.15 / 1.33), so the gradient's
+# relative L2 error is only a gross-fault limit.
+RN_AMP_LOSS_ATOL = 3e-2
+RN_AMP_GRAD_DIFFERING = 0.997
+RN_AMP_GRAD_REL_L2 = 2.0
+
+
+def rn_amp_train_parity():
+    """One Momentum step of ResNet-50 under ``auto_cast`` (O1) at batch 2 x
+    224 x 224, ``FLAGS_use_pallas_pool_bwd`` on (the caller sets it), on
+    the card and on the CPU's plain path from the same weights; the f32
+    step on the card as the control the limit must catch. Returns the
+    readings."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model = _resnet50(seed=2)
+    cpu_model, control = copy.deepcopy(model), copy.deepcopy(model)
+    rng = np.random.RandomState(16)
+    batch = [rng.randn(2, 3, RN_HW, RN_HW).astype(np.float32),
+             rng.randint(0, RN_CLASSES, (2,)).astype(np.int64)]
+    t0 = time.perf_counter()
+    cpu_loss = float(_rn_step_of(cpu_model, device="cpu", loss_fn=_rn_amp_loss)(*batch)["loss"])
+    cpu_s = time.perf_counter() - t0
+    control_loss = float(_rn_step_of(control)(*batch)["loss"])
+    reset_launch_counts()
+    loss = float(_rn_step_of(model, loss_fn=_rn_amp_loss)(*batch)["loss"])
+    counts = launch_counts()
+    want = _rn_amp_step_launches(1)
+    if counts != want:
+        raise AssertionError(f"ResNet AMP parity step launched {counts}; want {want}")
+    l2, differ, worst = _grad_l2(model, cpu_model)
+    c_l2, c_differ, c_worst = _grad_l2(control, cpu_model)
+    equal = sorted(((int((p.grad.cpu() == q.grad).sum()), n) for (n, p), (_, q) in
+                    zip(model.named_parameters(), cpu_model.named_parameters())), reverse=True)
+    r = {"loss": loss, "cpu_loss": cpu_loss, "loss_err": abs(loss - cpu_loss),
+         "grad_rel_l2": l2, "grad_differing": differ, "worst_entry": worst,
+         "control_loss_err": abs(control_loss - cpu_loss), "control_grad_rel_l2": c_l2,
+         "control_grad_differing": c_differ, "control_worst_entry": c_worst, "cpu_step_s": cpu_s,
+         "buffer_rel_err": _buffer_errors(model, cpu_model),
+         "control_buffer_rel_err": _buffer_errors(control, cpu_model),
+         "most_equal_entries": equal[:5],
+         "limits": {"loss": RN_AMP_LOSS_ATOL, "grad_rel_l2": RN_AMP_GRAD_REL_L2,
+                    "grad_differing": RN_AMP_GRAD_DIFFERING}}
+    log(f"ResNet AMP (O1) parity step: card loss {loss:.6f}, CPU (plain path, {cpu_s:.1f} s) "
+        f"{cpu_loss:.6f}: loss err {r['loss_err']:.3g} (atol {RN_AMP_LOSS_ATOL}), gradient rel L2 "
+        f"{l2:.3g} (limit {RN_AMP_GRAD_REL_L2}), entries differing {differ:.4f} (limit "
+        f"{RN_AMP_GRAD_DIFFERING}), worst entry {worst[0]:.3g} of its layer's largest at "
+        f"{worst[1]}, buffers {r['buffer_rel_err']}, bit-equal entries most in {equal[:5]}; f32 "
+        f"control on the card: loss err {r['control_loss_err']:.3g}, gradient rel L2 "
+        f"{c_l2:.3g}, entries differing {c_differ:.4f}, worst entry {c_worst[0]:.3g} at "
+        f"{c_worst[1]}, buffers {r['control_buffer_rel_err']}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if not (np.isfinite(loss) and r["loss_err"] <= RN_AMP_LOSS_ATOL
+            and l2 <= RN_AMP_GRAD_REL_L2 and differ <= RN_AMP_GRAD_DIFFERING):
+        raise AssertionError(f"ResNet AMP parity step beyond its limits: {r}")
+    if not (r["control_loss_err"] > RN_AMP_LOSS_ATOL and c_differ > RN_AMP_GRAD_DIFFERING):
+        raise AssertionError(f"ResNet AMP: the f32 control passes the limits on the loss "
+                             f"{RN_AMP_LOSS_ATOL} or on differing entries "
+                             f"{RN_AMP_GRAD_DIFFERING}: {r}")
+    return r
+
+
+def train_resnet_amp():
+    """bench.py's ResNet-50 step under ``auto_cast`` (O1): the parity step,
+    then batch 128 x 224², Momentum lr 0.1, momentum 0.9,
+    ``FLAGS_use_pallas_pool_bwd`` on, one fixed batch, ``RN_AMP_STEPS``
+    timed steps whose losses must be finite and fall below the first, with
+    exact launch counts (every fused conv kernel in bf16, none in float32;
+    the bf16 pool backward once a step); the median step, images/s, peak
+    memory; one profiled step by kernel kind, in which no fused conv
+    product runs outside the bf16 kernel. Returns (launches over the timed
+    steps, readings)."""
+    import torch
+
+    from paddle_tpu_torch.flags import set_flags
+
+    set_flags({"use_pallas_pool_bwd": True})
+    try:
+        parity = rn_amp_train_parity()
+        torch.cuda.empty_cache()
+        model = _resnet50(seed=1)
+        step = _rn_step_of(model, loss_fn=_rn_amp_loss)
+        rng = np.random.RandomState(15)
+        batch = [torch.from_numpy(rng.randn(RN_B, 3, RN_HW, RN_HW).astype(np.float32)).cuda(),
+                 torch.from_numpy(rng.randint(0, RN_CLASSES, (RN_B,)).astype(np.int64)).cuda()]
+        losses, step_ms, wall_ms, counts, peak = _timed_steps(step, batch, RN_AMP_STEPS)
+        want = _rn_amp_step_launches(RN_AMP_STEPS)
+        if counts != want:
+            raise AssertionError(f"ResNet AMP {RN_AMP_STEPS} steps launched {counts}; want {want}")
+        _rn_check_tensors(RN_AMP_STEPS, f"ResNet AMP {RN_AMP_STEPS} steps")
+        if not all(np.isfinite(losses)) or not min(losses[1:]) < losses[0]:
+            raise AssertionError(f"ResNet AMP losses not finite or not falling: {losses}")
+        median = float(np.median(step_ms))
+        log(f"ResNet-50 AMP (O1) {RN_AMP_STEPS} steps at batch {RN_B} x {RN_HW}^2, Momentum lr "
+            f"{RN_LR}, pool kernel on: losses {', '.join(f'{x:.6f}' for x in losses)}")
+        log(f"ResNet-50 AMP step {float(np.mean(step_ms)):.2f} ms (median {median:.2f}, min "
+            f"{min(step_ms):.2f}, max {max(step_ms):.2f}; host clock {wall_ms:.2f}), "
+            f"{RN_B / median * 1e3:.1f} images/s at the median; peak device memory {peak:.1f} GiB; "
+            f"launches a step { {k: v // RN_AMP_STEPS for k, v in counts.items() if v} }")
+        prof = _profile_step(step, batch, "ResNet AMP train step profiled (pool kernel on)")
+    finally:
+        set_flags({"use_pallas_pool_bwd": False})
+    by_kind, events = _device_time_by_kind(prof)
+    busy = sum(by_kind.values())
+    if by_kind.get("conv_mm", 0.0) > 0 or not by_kind.get("conv_mm_bf16"):
+        raise AssertionError(f"ResNet AMP step: fused conv products outside the bf16 kernel: "
+                             f"{by_kind}")
+    log(f"ResNet-50 AMP step: device busy {busy:.2f} ms in a profiled step, {busy / median:.1%} "
+        f"of the median step")
+    return counts, {"parity": parity, "step_ms_median": median, "step_ms": step_ms,
+                    "images_per_s": RN_B / median * 1e3, "peak_gib": peak, "losses": losses,
+                    "busy_ms": busy, "busy_share_of_median": busy / median,
+                    "device_ms_by_kind": by_kind, "device_events": events}
+
+
+# The eval forward under AMP against the CPU's plain path: max |logit error|
+# over the largest |logit|, a gross-fault limit about 3x the reading on an
+# H100 (0.0065); the f32 forward's error is logged beside it (0.0060): two
+# bf16 forwards of 53 layers part about as far as bf16 is from f32, so it is
+# no control a limit could reject
+RN_AMP_SERVE_RTOL = 2e-2
+
+
+def eval_resnet_amp():
+    """One ResNet-50 eval forward under ``auto_cast`` at serving batch 32 on
+    the card: 33 bf16 eval kernels (``mm_affine_relu_bf16``) and nothing
+    else; its logits against the CPU's plain path under the same scope
+    (the f32 forward's error logged beside); the forward's time. Returns
+    the launches of the one forward and the readings."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    batch = RN_BUCKETS[-1]
+    model = _resnet50(seed=0)
+    model.eval()
+    cpu_model = copy.deepcopy(model)
+    x = np.random.RandomState(17).randn(batch, 3, RN_HW, RN_HW).astype(np.float32)
+    with torch.no_grad(), amp.auto_cast():
+        want = cpu_model(torch.from_numpy(x)).float()
+    model.cuda()
+    xc = torch.from_numpy(x).cuda()
+    with torch.no_grad():
+        with amp.auto_cast():
+            reset_launch_counts()
+            got = model(xc).float().cpu()
+            counts = launch_counts()
+        control = model(xc).float().cpu()
+        with amp.auto_cast():
+            ms = time_ms(model, [(xc,)] * 2, 10)
+    wanted = {name: RN_TRIPLES if name == "conv_bn_relu_mm_affine_relu_bf16" else 0
+              for name in counts}
+    if counts != wanted:
+        raise AssertionError(f"ResNet AMP eval forward launched {counts}; want {wanted}")
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"ResNet AMP eval logits {tuple(got.shape)} not finite or not "
+                             f"{tuple(want.shape)}")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    c_err = float((control - want).abs().max()) / scale
+    log(f"ResNet-50 AMP eval forward, batch {batch}: logits err vs the CPU {err:.3g} of the "
+        f"largest |logit| {scale:.4g} (limit {RN_AMP_SERVE_RTOL}; the f32 forward {c_err:.3g}); "
+        f"{RN_TRIPLES} bf16 eval kernels; forward {ms:.3f} ms, {batch / ms * 1e3:.1f} images/s")
+    if err > RN_AMP_SERVE_RTOL:
+        raise AssertionError(f"ResNet AMP eval: err {err} beyond {RN_AMP_SERVE_RTOL}")
+    return counts, {"logits_rel_err": err, "f32_forward_rel_err": c_err, "forward_ms": ms}
 
 
 # -- the int8 serving path and the pool backward --------------------------------
@@ -3031,9 +3513,11 @@ def serve_int8():
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual_bwd", "optimizer_update",
-                 "conv_bn_relu_mm", "int8_matmul", "pool_backward")
+                 "conv_bn_relu_mm", "conv_bn_relu_mm_bf16", "conv_bn_relu_bn", "int8_matmul",
+                 "pool_backward")
 # of those, the sources whose kernels must not spill
-NO_SPILL_SOURCES = ("conv_bn_relu_mm", "int8_matmul", "pool_backward")
+NO_SPILL_SOURCES = ("conv_bn_relu_mm", "conv_bn_relu_mm_bf16", "conv_bn_relu_bn", "int8_matmul",
+                    "pool_backward")
 
 
 def start_ptxas(names=PTXAS_SOURCES):
@@ -3126,7 +3610,8 @@ def main() -> int:
         for kname, info in registers[src].items():
             print(f"ptxas {src}.cu {kname}: {json.dumps(info)}")
 
-    kernels = check_kernels() + check_amp_kernels() + check_resnet_kernels() + check_new_kernels()
+    kernels = (check_kernels() + check_amp_kernels() + check_resnet_kernels() + check_new_kernels()
+               + check_resnet_kernels_bf16())
     served = serve_bert()
     trained = train_bert()
     torch.cuda.empty_cache()
@@ -3136,16 +3621,22 @@ def main() -> int:
     q_served = serve_int8()
     torch.cuda.empty_cache()
     rn_trained = train_resnet()
+    torch.cuda.empty_cache()
+    rn_amp_trained, rn_amp = train_resnet_amp()
+    torch.cuda.empty_cache()
+    rn_amp_served, rn_amp["eval"] = eval_resnet_amp()
     for k in kernels:
         name = k["name"]
-        k["launches_serving"] = served[name] + rn_served[name] + q_served[name]
-        k["launches_training"] = trained[name] + amp_trained[name] + rn_trained[name]
+        k["launches_serving"] = (served[name] + rn_served[name] + q_served[name]
+                                 + rn_amp_served[name])
+        k["launches_training"] = (trained[name] + amp_trained[name] + rn_trained[name]
+                                  + rn_amp_trained[name])
         k["launches"] = k["launches_serving"] + k["launches_training"]
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
     print(card)
-    print(json.dumps({"kernels": kernels, "amp_bert_training": amp}))
+    print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

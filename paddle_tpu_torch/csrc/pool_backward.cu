@@ -8,6 +8,14 @@
 // Bound on the H100: device memory. x, y and dy are read once and dx is
 // written once for a handful of compares an element.
 //
+// float32 or bf16 (the stem's pool under AMP): x, y, dy and dx share one type.
+// bf16 taps are compared exactly (widened to float32, which changes no value),
+// the taps an element won are added in float32 and the sum is rounded once to
+// bf16 at the store, as the TPU kernel computes in float32 and rounds at its
+// store (pool_backward.py:131-135, :196). bf16 stages its quads of 4 values
+// with 8-byte copies, and copies element by element where float32 copies 4
+// bytes (cp.async copies no 2-byte piece).
+//
 // Two layouts, one rule. x, y, dy (and the dx written) are either NCHW
 // (the JAX package's layout) or channels-last, the NCHW view of an NHWC
 // buffer: the layout in which the fused conv of ResNet's stem hands its
@@ -48,6 +56,7 @@
 // gradient back moved about 2 GB around the kernel. The TPU kernel's
 // one-hot matmuls, H phase splits and -1e38 padding were work-arounds for
 // its compiler and have no counterpart here.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,20 +80,21 @@ __host__ __device__ constexpr int windows_across(int tile, int k, int s) {
 
 __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 
-// shared memory of a block: NCHW kPlanes times x [XR][XS], y and dy
-// [WH][YS] floats and the taps [WH * WW]; channels-last x [XR * XC][kCB], y and dy [WH * WW][kCB]
-// floats and the taps [WH * WW][kCB]
-__host__ __device__ constexpr int smem_bytes(bool channels_last, int kh, int kw, int sh, int sw) {
+// shared memory of a block, elements of `es` bytes: NCHW kPlanes times x
+// [XR][XS], y and dy [WH][YS] elements and the taps [WH * WW]; channels-last
+// x [XR * XC][kCB], y and dy [WH * WW][kCB] elements and the taps [WH * WW][kCB]
+__host__ __device__ constexpr int smem_bytes(bool channels_last, int kh, int kw, int sh, int sw,
+                                             int es) {
   return channels_last
-             ? 4 * kCB *
+             ? es * kCB *
                        (((windows_across(kPixTH, kh, sh) - 1) * sh + kh) *
                             ((windows_across(kPixTW, kw, sw) - 1) * sw + kw) +
                         2 * windows_across(kPixTH, kh, sh) * windows_across(kPixTW, kw, sw)) +
                    2 * kCB * windows_across(kPixTH, kh, sh) * windows_across(kPixTW, kw, sw)
-             : kPlanes * (4 * (((windows_across(kPlaneTH, kh, sh) - 1) * sh + kh) *
-                                   round4((windows_across(kPlaneTW, kw, sw) - 1) * sw + kw + 3) +
-                               2 * windows_across(kPlaneTH, kh, sh) *
-                                   round4(windows_across(kPlaneTW, kw, sw) + 3)) +
+             : kPlanes * (es * (((windows_across(kPlaneTH, kh, sh) - 1) * sh + kh) *
+                                    round4((windows_across(kPlaneTW, kw, sw) - 1) * sw + kw + 3) +
+                                2 * windows_across(kPlaneTH, kh, sh) *
+                                    round4(windows_across(kPlaneTW, kw, sw) + 3)) +
                           2 * windows_across(kPlaneTH, kh, sh) * windows_across(kPlaneTW, kw, sw));
 }
 
@@ -111,6 +121,56 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes)
                "r"(bytes)
                : "memory");
 }
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// four neighbouring elements (16 or 8 bytes), zeros where !in
+__device__ __forceinline__ void copy_quad(float* dst, const float* src, bool in) {
+  cp_async16(dst, src, in ? 16 : 0);
+}
+__device__ __forceinline__ void copy_quad(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
+  cp_async8(dst, src, in ? 8 : 0);
+}
+
+// one element, a zero where !in; cp.async has no 2-byte copy, so bf16 loads
+// and stores it
+__device__ __forceinline__ void copy_one(float* dst, const float* src, bool in) {
+  cp_async4(dst, src, in ? 4 : 0);
+}
+__device__ __forceinline__ void copy_one(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
+  *dst = in ? *src : __ushort_as_bfloat16(0);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// four neighbouring elements from shared memory (16- or 8-byte aligned), widened
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// four float32 sums to device memory in one store, rounded once to T
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
@@ -139,35 +199,36 @@ struct Reach {
   }
 };
 
-// NCHW, kPlanes planes a block. KH, KW, SH, SW: the window and stride at
-// compile time, or 0 to read g's. VEC: W and OW multiples of 4, tensors
-// 16-byte aligned.
-template <int KH, int KW, int SH, int SW, bool VEC>
+// NCHW, kPlanes planes a block, elements of type T. KH, KW, SH, SW: the
+// window and stride at compile time, or 0 to read g's. VEC: W and OW
+// multiples of 4, tensors 16-byte aligned.
+template <typename T, int KH, int KW, int SH, int SW, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    pool_bwd_nchw_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                         const float* __restrict__ dy, float* __restrict__ dx, Geometry g,
+    pool_bwd_nchw_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                         const T* __restrict__ dy, T* __restrict__ dx, Geometry g,
                          int64_t plane0) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int kh = KH ? KH : g.kh, kw = KW ? KW : g.kw;
   const int sh = SH ? SH : g.sh, sw = SW ? SW : g.sw;
   const int WH = windows_across(kPlaneTH, kh, sh), WW = windows_across(kPlaneTW, kw, sw);
   const int XS = round4((WW - 1) * sw + kw + 3), YS = round4(WW + 3);
   // per plane: x [XR][XS], y and dy [WH][YS]; then the taps [kPlanes][WH * WW]
   const int XP = ((WH - 1) * sh + kh) * XS, YP = WH * YS;
-  float* xs = smem;
-  float* ys = xs + kPlanes * XP;
-  float* dys = ys + kPlanes * YP;
+  T* xs = smem;
+  T* ys = xs + kPlanes * XP;
+  T* dys = ys + kPlanes * YP;
   uint16_t* taps = reinterpret_cast<uint16_t*>(dys + kPlanes * YP);
   // neighbouring blocks are neighbouring tiles of the same planes
   const int h0 = blockIdx.y * kPlaneTH, w0 = blockIdx.x * kPlaneTW;
   const int64_t first = plane0 + (int64_t)blockIdx.z * kPlanes;
   const int planes = (int)min((int64_t)kPlanes, (int64_t)g.n * g.c - first);
-  const float* xp = x + first * g.h * g.w;
-  const float* yp = y + first * g.oh * g.ow;
-  const float* dyp = dy + first * g.oh * g.ow;
+  const T* xp = x + first * g.h * g.w;
+  const T* yp = y + first * g.oh * g.ow;
+  const T* dyp = dy + first * g.oh * g.ow;
   const int64_t xstride = (int64_t)g.h * g.w, ystride = (int64_t)g.oh * g.ow;
   const Reach a(g, h0, w0, kPlaneTH, kPlaneTW, kh, kw, sh, sw);
-  // the staged rows start at a 16-byte boundary of the plane's row
+  // the staged rows start at a 4-element boundary of the plane's row
   const int xcb = VEC ? a.xc0 & ~3 : a.xc0, ycb = VEC ? a.ow_lo & ~3 : a.ow_lo;
 
   // 1. stage x, y and dy of every plane
@@ -178,10 +239,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < planes * xrows * xq; i += kThreads) {
       const int p = i / (xrows * xq), rq = i % (xrows * xq);
       const int r = a.xr0 + rq / xq, q = rq % xq;
-      float* dst = xs + p * XP + (r - a.hb) * XS + step * q;
-      const float* src = xp + p * xstride + (int64_t)r * g.w + xcb + step * q;
-      if (VEC) cp_async16(dst, src, 16);
-      else cp_async4(dst, src, 4);
+      T* dst = xs + p * XP + (r - a.hb) * XS + step * q;
+      const T* src = xp + p * xstride + (int64_t)r * g.w + xcb + step * q;
+      if (VEC) copy_quad(dst, src, true);
+      else copy_one(dst, src, true);
     }
     for (int i = threadIdx.x; i < planes * a.wh * yq; i += kThreads) {
       const int p = i / (a.wh * yq), rq = i % (a.wh * yq);
@@ -189,11 +250,11 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t at = p * ystride + (int64_t)(a.oh_lo + r) * g.ow + ycb + step * q;
       const int off = p * YP + r * YS + step * q;
       if (VEC) {
-        cp_async16(ys + off, yp + at, 16);
-        cp_async16(dys + off, dyp + at, 16);
+        copy_quad(ys + off, yp + at, true);
+        copy_quad(dys + off, dyp + at, true);
       } else {
-        cp_async4(ys + off, yp + at, 4);
-        cp_async4(dys + off, dyp + at, 4);
+        copy_one(ys + off, yp + at, true);
+        copy_one(dys + off, dyp + at, true);
       }
     }
   }
@@ -209,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
     unsigned tap[kPlanes];
 #pragma unroll
     for (int p = 0; p < kPlanes; ++p) {
-      yv[p] = ys[p * YP + oi * YS + a.ow_lo - ycb + oj];
+      yv[p] = widen(ys[p * YP + oi * YS + a.ow_lo - ycb + oj]);
       tap[p] = kNoTap;
     }
 #pragma unroll
@@ -220,10 +281,10 @@ __global__ void __launch_bounds__(kThreads)
         const int wc = ww0 + dj;
         // padding never holds the maximum
         if (hh >= 0 && hh < g.h && wc >= 0 && wc < g.w) {
-          const float* xv = xs + (hh - a.hb) * XS + wc - xcb;
+          const T* xv = xs + (hh - a.hb) * XS + wc - xcb;
 #pragma unroll
           for (int p = 0; p < kPlanes; ++p)
-            if (xv[p * XP] == yv[p]) tap[p] = di * kw + dj;
+            if (widen(xv[p * XP]) == yv[p]) tap[p] = di * kw + dj;
         }
       }
     }
@@ -254,39 +315,41 @@ __global__ void __launch_bounds__(kThreads)
         const unsigned tap = di * kw + dj;
 #pragma unroll
         for (int p = 0; p < kPlanes; ++p)
-          if (taps[p * windows + win] == tap) out[p][e] = __fadd_rn(out[p][e], dys[p * YP + at]);
+          if (taps[p * windows + win] == tap)
+            out[p][e] = __fadd_rn(out[p][e], widen(dys[p * YP + at]));
       }
     }
   }
 #pragma unroll
   for (int p = 0; p < kPlanes; ++p) {
     if (p >= planes) break;
-    float* dst = dx + (first + p) * xstride + (int64_t)h * g.w + w;
+    T* dst = dx + (first + p) * xstride + (int64_t)h * g.w + w;
     if (VEC) {
-      *reinterpret_cast<float4*>(dst) = make_float4(out[p][0], out[p][1], out[p][2], out[p][3]);
+      store4(dst, out[p][0], out[p][1], out[p][2], out[p][3]);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (w + e < g.w) dst[e] = out[p][e];
+        if (w + e < g.w) store1(dst + e, out[p][e]);
     }
   }
 }
 
 // Channels-last: element (n, c, h, w) at ((n * H + h) * W + w) * C + c.
 // VEC: C a multiple of 4, tensors 16-byte aligned.
-template <int KH, int KW, int SH, int SW, bool VEC>
+template <typename T, int KH, int KW, int SH, int SW, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    pool_bwd_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                         const float* __restrict__ dy, float* __restrict__ dx, Geometry g,
+    pool_bwd_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                         const T* __restrict__ dy, T* __restrict__ dx, Geometry g,
                          int64_t image0) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int kh = KH ? KH : g.kh, kw = KW ? KW : g.kw;
   const int sh = SH ? SH : g.sh, sw = SW ? SW : g.sw;
   const int WH = windows_across(kPixTH, kh, sh), WW = windows_across(kPixTW, kw, sw);
   const int XC = (WW - 1) * sw + kw, XR = (WH - 1) * sh + kh;
-  float* xs = smem;
-  float* ys = xs + XR * XC * kCB;
-  float* dys = ys + WH * WW * kCB;
+  T* xs = smem;
+  T* ys = xs + XR * XC * kCB;
+  T* dys = ys + WH * WW * kCB;
   uint16_t* taps = reinterpret_cast<uint16_t*>(dys + WH * WW * kCB);
   const int chunks = (g.c + kCB - 1) / kCB;
   // neighbouring blocks are the channel chunks of one tile, then
@@ -294,9 +357,9 @@ __global__ void __launch_bounds__(kThreads)
   const int c0 = blockIdx.x % chunks * kCB;
   const int w0 = blockIdx.x / chunks * kPixTW, h0 = blockIdx.y * kPixTH;
   const int64_t img = image0 + blockIdx.z;
-  const float* xi = x + img * g.h * g.w * g.c;
-  const float* yi = y + img * g.oh * g.ow * g.c;
-  const float* dyi = dy + img * g.oh * g.ow * g.c;
+  const T* xi = x + img * g.h * g.w * g.c;
+  const T* yi = y + img * g.oh * g.ow * g.c;
+  const T* dyi = dy + img * g.oh * g.ow * g.c;
   const Reach a(g, h0, w0, kPixTH, kPixTW, kh, kw, sh, sw);
   constexpr int kQ = VEC ? kCB / 4 : kCB;  // copies a pixel
 
@@ -306,10 +369,10 @@ __global__ void __launch_bounds__(kThreads)
     const int p = i / kQ, q = i % kQ;
     const int r = a.xr0 + p / xcols, col = a.xc0 + p % xcols;
     const int cc = c0 + (VEC ? 4 * q : q);
-    float* dst = xs + ((r - a.hb) * XC + col - a.wb) * kCB + (VEC ? 4 * q : q);
-    const float* src = cc < g.c ? xi + ((int64_t)r * g.w + col) * g.c + cc : xi;
-    if (VEC) cp_async16(dst, src, cc < g.c ? 16 : 0);
-    else cp_async4(dst, src, cc < g.c ? 4 : 0);
+    T* dst = xs + ((r - a.hb) * XC + col - a.wb) * kCB + (VEC ? 4 * q : q);
+    const T* src = cc < g.c ? xi + ((int64_t)r * g.w + col) * g.c + cc : xi;
+    if (VEC) copy_quad(dst, src, cc < g.c);
+    else copy_one(dst, src, cc < g.c);
   }
   for (int i = threadIdx.x; i < a.wh * a.ww * kQ; i += kThreads) {
     const int p = i / kQ, q = i % kQ;
@@ -317,11 +380,11 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t at = ((int64_t)(a.oh_lo + p / a.ww) * g.ow + a.ow_lo + p % a.ww) * g.c + cc;
     const int off = p * kCB + (VEC ? 4 * q : q);
     if (VEC) {
-      cp_async16(ys + off, cc < g.c ? yi + at : yi, cc < g.c ? 16 : 0);
-      cp_async16(dys + off, cc < g.c ? dyi + at : dyi, cc < g.c ? 16 : 0);
+      copy_quad(ys + off, cc < g.c ? yi + at : yi, cc < g.c);
+      copy_quad(dys + off, cc < g.c ? dyi + at : dyi, cc < g.c);
     } else {
-      cp_async4(ys + off, cc < g.c ? yi + at : yi, cc < g.c ? 4 : 0);
-      cp_async4(dys + off, cc < g.c ? dyi + at : dyi, cc < g.c ? 4 : 0);
+      copy_one(ys + off, cc < g.c ? yi + at : yi, cc < g.c);
+      copy_one(dys + off, cc < g.c ? dyi + at : dyi, cc < g.c);
     }
   }
   cp_async_wait_all();
@@ -330,7 +393,7 @@ __global__ void __launch_bounds__(kThreads)
   // 2. each window's first tap that equals y, four channels a thread
   for (int i = threadIdx.x; i < a.wh * a.ww * (kCB / 4); i += kThreads) {
     const int win = i / (kCB / 4), q = i % (kCB / 4);
-    const float4 yv = *reinterpret_cast<const float4*>(ys + win * kCB + 4 * q);
+    const float4 yv = load4(ys + win * kCB + 4 * q);
     const int hh0 = a.hb + win / a.ww * sh, ww0 = a.wb + win % a.ww * sw;
     unsigned t0 = kNoTap, t1 = kNoTap, t2 = kNoTap, t3 = kNoTap;
 #pragma unroll
@@ -340,8 +403,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int dj = kw - 1; dj >= 0; --dj) {
         const int wc = ww0 + dj;
         if (hh >= 0 && hh < g.h && wc >= 0 && wc < g.w) {  // padding never holds the maximum
-          const float4 xv =
-              *reinterpret_cast<const float4*>(xs + ((hh - a.hb) * XC + wc - a.wb) * kCB + 4 * q);
+          const float4 xv = load4(xs + ((hh - a.hb) * XC + wc - a.wb) * kCB + 4 * q);
           const unsigned tap = di * kw + dj;
           if (xv.x == yv.x) t0 = tap;
           if (xv.y == yv.y) t1 = tap;
@@ -369,7 +431,7 @@ __global__ void __launch_bounds__(kThreads)
         if (ow >= g.ow) continue;
         const int win = (oh - a.oh_lo) * a.ww + ow - a.ow_lo;
         const uint2 t = *reinterpret_cast<const uint2*>(taps + win * kCB + 4 * q);
-        const float4 d = *reinterpret_cast<const float4*>(dys + win * kCB + 4 * q);
+        const float4 d = load4(dys + win * kCB + 4 * q);
         const unsigned tap = di * kw + dj;
         if ((t.x & 0xffffu) == tap) a0 = __fadd_rn(a0, d.x);
         if ((t.x >> 16) == tap) a1 = __fadd_rn(a1, d.y);
@@ -377,26 +439,26 @@ __global__ void __launch_bounds__(kThreads)
         if ((t.y >> 16) == tap) a3 = __fadd_rn(a3, d.w);
       }
     }
-    float* dst = dx + ((img * g.h + h) * g.w + w) * g.c + cc;
+    T* dst = dx + ((img * g.h + h) * g.w + w) * g.c + cc;
     if (VEC) {
-      *reinterpret_cast<float4*>(dst) = make_float4(a0, a1, a2, a3);
+      store4(dst, a0, a1, a2, a3);
     } else {
       const float v[4] = {a0, a1, a2, a3};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (cc + e < g.c) dst[e] = v[e];
+        if (cc + e < g.c) store1(dst + e, v[e]);
     }
   }
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int KH, int KW, int SH, int SW, bool VEC>
-int run(bool channels_last, const float* x, const float* y, const float* dy, float* dx,
-           const Geometry& g, cudaStream_t s) {
-  auto* kernel = channels_last ? pool_bwd_nhwc_kernel<KH, KW, SH, SW, VEC>
-                               : pool_bwd_nchw_kernel<KH, KW, SH, SW, VEC>;
-  const int smem = smem_bytes(channels_last, g.kh, g.kw, g.sh, g.sw);
+template <typename T, int KH, int KW, int SH, int SW, bool VEC>
+int run(bool channels_last, const T* x, const T* y, const T* dy, T* dx, const Geometry& g,
+        cudaStream_t s) {
+  auto* kernel = channels_last ? pool_bwd_nhwc_kernel<T, KH, KW, SH, SW, VEC>
+                               : pool_bwd_nchw_kernel<T, KH, KW, SH, SW, VEC>;
+  const int smem = smem_bytes(channels_last, g.kh, g.kw, g.sh, g.sw, (int)sizeof(T));
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -415,11 +477,44 @@ int run(bool channels_last, const float* x, const float* y, const float* dy, flo
   return (int)cudaGetLastError();
 }
 
-template <int KH, int KW, int SH, int SW>
-int launch(bool channels_last, bool vec, const float* x, const float* y, const float* dy,
-           float* dx, const Geometry& g, cudaStream_t s) {
-  return vec ? run<KH, KW, SH, SW, true>(channels_last, x, y, dy, dx, g, s)
-             : run<KH, KW, SH, SW, false>(channels_last, x, y, dy, dx, g, s);
+template <typename T, int KH, int KW, int SH, int SW>
+int launch(bool channels_last, bool vec, const T* x, const T* y, const T* dy, T* dx,
+           const Geometry& g, cudaStream_t s) {
+  return vec ? run<T, KH, KW, SH, SW, true>(channels_last, x, y, dy, dx, g, s)
+             : run<T, KH, KW, SH, SW, false>(channels_last, x, y, dy, dx, g, s);
+}
+
+// The checks and the dispatch on the geometry of both entries
+template <typename T>
+int pool_backward(const void* x, const void* y, const void* dy, void* dx, int n, int c, int h,
+                  int w, int oh, int ow, int kh, int kw, int sh, int sw, int ph, int pw,
+                  int channels_last, void* stream) {
+  if (n <= 0 || c <= 0 || h <= 0 || w <= 0 || oh <= 0 || ow <= 0 || kh <= 0 || kw <= 0 ||
+      sh <= 0 || sw <= 0 || ph < 0 || pw < 0 || (int64_t)kh * kw >= (int64_t)kNoTap)
+    return (int)cudaErrorInvalidValue;
+  const bool cl = channels_last != 0;
+  const int64_t tiles_h = cl ? (h + kPixTH - 1) / kPixTH : (h + kPlaneTH - 1) / kPlaneTH;
+  const int64_t across = cl ? (int64_t)((w + kPixTW - 1) / kPixTW) * ((c + kCB - 1) / kCB)
+                            : (w + kPlaneTW - 1) / kPlaneTW;
+  // a tile's windows and halo must fit in shared memory (3x3/2 in float32:
+  // 35 KB NCHW, 41 KB channels-last); a window bigger than 64 x 64 does not
+  if (tiles_h > 65535 || across > 0x7fffffff || kh > 64 || kw > 64 ||
+      smem_bytes(cl, kh, kw, sh, sw, (int)sizeof(T)) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g{n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw};
+  const auto *xp = static_cast<const T*>(x), *yp = static_cast<const T*>(y);
+  const auto* dyp = static_cast<const T*>(dy);
+  auto* dxp = static_cast<T*>(dx);
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(dy) && aligned16(dx) &&
+                   (cl ? c % 4 == 0 : w % 4 == 0 && ow % 4 == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kh == 3 && kw == 3 && sh == 2 && sw == 2)
+    return launch<T, 3, 3, 2, 2>(cl, vec, xp, yp, dyp, dxp, g, s);
+  if (kh == 2 && kw == 2 && sh == 2 && sw == 2)
+    return launch<T, 2, 2, 2, 2>(cl, vec, xp, yp, dyp, dxp, g, s);
+  if (kh == 3 && kw == 3 && sh == 1 && sw == 1)
+    return launch<T, 3, 3, 1, 1>(cl, vec, xp, yp, dyp, dxp, g, s);
+  return launch<T, 0, 0, 0, 0>(cl, vec, xp, yp, dyp, dxp, g, s);
 }
 
 }  // namespace
@@ -432,30 +527,16 @@ extern "C" int ptt_max_pool2d_backward(const void* x, const void* y, const void*
                                        int n, int c, int h, int w, int oh, int ow, int kh, int kw,
                                        int sh, int sw, int ph, int pw, int channels_last,
                                        void* stream) {
-  if (n <= 0 || c <= 0 || h <= 0 || w <= 0 || oh <= 0 || ow <= 0 || kh <= 0 || kw <= 0 ||
-      sh <= 0 || sw <= 0 || ph < 0 || pw < 0 || (int64_t)kh * kw >= (int64_t)kNoTap)
-    return (int)cudaErrorInvalidValue;
-  const bool cl = channels_last != 0;
-  const int64_t tiles_h = cl ? (h + kPixTH - 1) / kPixTH : (h + kPlaneTH - 1) / kPlaneTH;
-  const int64_t across = cl ? (int64_t)((w + kPixTW - 1) / kPixTW) * ((c + kCB - 1) / kCB)
-                            : (w + kPlaneTW - 1) / kPlaneTW;
-  // a tile's windows and halo must fit in shared memory (3x3/2: 35 KB NCHW,
-  // 41 KB channels-last); a window bigger than 64 x 64 does not
-  if (tiles_h > 65535 || across > 0x7fffffff || kh > 64 || kw > 64 ||
-      smem_bytes(cl, kh, kw, sh, sw) > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const Geometry g{n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw};
-  const auto *xp = static_cast<const float*>(x), *yp = static_cast<const float*>(y);
-  const auto* dyp = static_cast<const float*>(dy);
-  auto* dxp = static_cast<float*>(dx);
-  const bool vec = aligned16(x) && aligned16(y) && aligned16(dy) && aligned16(dx) &&
-                   (cl ? c % 4 == 0 : w % 4 == 0 && ow % 4 == 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kh == 3 && kw == 3 && sh == 2 && sw == 2)
-    return launch<3, 3, 2, 2>(cl, vec, xp, yp, dyp, dxp, g, s);
-  if (kh == 2 && kw == 2 && sh == 2 && sw == 2)
-    return launch<2, 2, 2, 2>(cl, vec, xp, yp, dyp, dxp, g, s);
-  if (kh == 3 && kw == 3 && sh == 1 && sw == 1)
-    return launch<3, 3, 1, 1>(cl, vec, xp, yp, dyp, dxp, g, s);
-  return launch<0, 0, 0, 0>(cl, vec, xp, yp, dyp, dxp, g, s);
+  return pool_backward<float>(x, y, dy, dx, n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw,
+                              channels_last, stream);
+}
+
+// The same with x, y, dy and dx in bf16: the taps added in float32, each
+// element of dx rounded once.
+extern "C" int ptt_max_pool2d_backward_bf16(const void* x, const void* y, const void* dy,
+                                            void* dx, int n, int c, int h, int w, int oh, int ow,
+                                            int kh, int kw, int sh, int sw, int ph, int pw,
+                                            int channels_last, void* stream) {
+  return pool_backward<__nv_bfloat16>(x, y, dy, dx, n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw,
+                                      channels_last, stream);
 }

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one module each beside its plain version.
 
 Every wrapper counts its kernel's launches in a module-level integer (one
-for each dtype a kernel takes: the bf16 LayerNorm and attention kernels
-count apart from the float32 ones);
+for each dtype a kernel takes: the bf16 LayerNorm, attention, fused conv
+and max-pool backward kernels count apart from the float32 ones);
 :data:`KERNEL_COUNTERS` names them, :func:`launch_counts` reads them all
 and :func:`reset_launch_counts` sets them to 0, and the counts beside them
 (:data:`OTHER_COUNTERS`: the tensors the momentum launches updated, the
@@ -33,9 +33,16 @@ KERNEL_COUNTERS = {
     "conv_bn_relu_bn_relu": (conv_bn_relu, "BN_RELU_LAUNCHES"),
     "conv_bn_relu_bn_bwd_partials": (conv_bn_relu, "BN_BWD_PARTIALS_LAUNCHES"),
     "conv_bn_relu_bn_bwd_dco": (conv_bn_relu, "BN_BWD_DCO_LAUNCHES"),
+    "conv_bn_relu_mm_affine_relu_bf16": (conv_bn_relu, "BF16_MM_AFFINE_RELU_LAUNCHES"),
+    "conv_bn_relu_mm_stats_bf16": (conv_bn_relu, "BF16_MM_STATS_LAUNCHES"),
+    "conv_bn_relu_centered_sumsq_bf16": (conv_bn_relu, "BF16_CENTERED_SUMSQ_LAUNCHES"),
+    "conv_bn_relu_bn_relu_bf16": (conv_bn_relu, "BF16_BN_RELU_LAUNCHES"),
+    "conv_bn_relu_bn_bwd_partials_bf16": (conv_bn_relu, "BF16_BN_BWD_PARTIALS_LAUNCHES"),
+    "conv_bn_relu_bn_bwd_dco_bf16": (conv_bn_relu, "BF16_BN_BWD_DCO_LAUNCHES"),
     "momentum_update": (optimizer_update, "LAUNCHES"),
     "int8_matmul": (int8_matmul, "LAUNCHES"),
     "max_pool2d_backward": (pool_backward, "LAUNCHES"),
+    "max_pool2d_backward_bf16": (pool_backward, "BF16_LAUNCHES"),
 }
 
 #: counts that are not launches, set to 0 with them: (module, name)

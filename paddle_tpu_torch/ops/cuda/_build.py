@@ -28,8 +28,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "paddle_tpu_torch")
 KERNEL_SOURCES = ("layernorm_residual", "layernorm_residual_bwd", "flash_attention",
                   "flash_attention_bwd", "flash_attention_bf16", "flash_attention_bwd_bf16",
-                  "conv_bn_relu_mm", "conv_bn_relu_bn", "optimizer_update", "int8_matmul",
-                  "pool_backward")
+                  "conv_bn_relu_mm", "conv_bn_relu_mm_bf16", "conv_bn_relu_bn",
+                  "optimizer_update", "int8_matmul", "pool_backward")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC")

@@ -24,21 +24,30 @@ package's ``conv_general_dilated_patches``), and six kernels do the rest:
   ``torch.matmul``, as the JAX package leaves them to ``jnp.dot``, and
   autograd through ``F.unfold`` folds ``dp2`` back into ``dx``.
 
-The two products run on the tensor cores in 3xTF32 (f32-accurate, not
+The float32 products run on the tensor cores in 3xTF32 (f32-accurate, not
 bit-equal to ``torch.matmul``). Every reduction writes per-block partials
-that the wrapper adds up with ``torch.sum``: no atomics. Nothing is
-padded: the kernels mask ragged M, K and N themselves. The TPU dispatch
+that the wrapper adds up with ``torch.sum``: no atomics. Nothing float32
+is padded: the kernels mask ragged M, K and N themselves. The TPU dispatch
 skipped convs with ``N * Cout < 512`` (``_supported``, ``:621``); here
 every structurally admitted conv takes the kernels, so the launch counts
 hold at every batch size.
 
+bf16 (the op under AMP takes bf16 ``x`` and ``weight`` and float32 gamma,
+beta and statistics: ``nn/layers.py`` ``fused_conv_bn_relu``): the two
+products are ``csrc/conv_bn_relu_mm_bf16.cu`` (bf16 ``mma.sync`` with
+float32 sums), the four passes bf16 instances of
+``csrc/conv_bn_relu_bn.cu``; each counts its launches apart from the
+float32 kernel's. They round where the TPU kernels round: ``co`` to bf16
+once, its channel sums taken from the rounded values (``:245-250``), the
+affine, the statistics and every sum in float32, ``y`` rounded once;
+``d_co`` stays float32 (``:501``) and the matrix gradients are float32
+products rounded once to the operands' type (``:560-561``). bf16 rows
+reach the GEMM in 16-byte chunks, so :func:`_as_matmul` pads K with zeros
+to a multiple of 8 (the stem's 147 to 152). float16 is refused, as the
+TPU kernels never took it.
+
 A tensor on the CPU takes the plain versions (the ``_*_plain``
-functions); a tensor on the card launches the kernels or raises. The
-kernels take float32 only; under AMP the op takes bf16 ``x`` and
-``weight`` (``nn/layers.py`` ``fused_conv_bn_relu``), which the plain
-versions run as the JAX package's ``_reference`` does: the product
-rounded to bf16, the statistics and their sums in f32, the activation and
-its gradient in bf16.
+functions); a tensor on the card launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -54,21 +63,32 @@ from . import _build
 __all__ = ["conv_bn_relu", "mm_affine_relu", "mm_stats", "centered_sumsq", "bn_relu",
            "bn_bwd_partials", "bn_bwd_dco"]
 
-#: kernel launches since the last reset (counted where each kernel launches)
+#: kernel launches since the last reset (counted where each kernel launches),
+#: float32 and bf16 apart
 MM_AFFINE_RELU_LAUNCHES = 0
 MM_STATS_LAUNCHES = 0
 CENTERED_SUMSQ_LAUNCHES = 0
 BN_RELU_LAUNCHES = 0
 BN_BWD_PARTIALS_LAUNCHES = 0
 BN_BWD_DCO_LAUNCHES = 0
-#: calls of :func:`mm_affine_relu` that took split-K (each also counts one
-#: ``MM_AFFINE_RELU_LAUNCHES``)
+BF16_MM_AFFINE_RELU_LAUNCHES = 0
+BF16_MM_STATS_LAUNCHES = 0
+BF16_CENTERED_SUMSQ_LAUNCHES = 0
+BF16_BN_RELU_LAUNCHES = 0
+BF16_BN_BWD_PARTIALS_LAUNCHES = 0
+BF16_BN_BWD_DCO_LAUNCHES = 0
+#: calls of :func:`mm_affine_relu` that took split-K, in either type (each
+#: also counts one launch of its type)
 MM_AFFINE_RELU_SPLITS = 0
 _count_lock = threading.Lock()
 
-# the GEMM's tiles (csrc/conv_bn_relu_mm.cu kBM, kBN, kBK): output rows and
-# columns a block, and the depth of one slab of K
+# the GEMM's tiles (csrc/conv_bn_relu_mm.cu kBM, kBN, kBK; the bf16 GEMM,
+# csrc/conv_bn_relu_mm_bf16.cu, has the same): output rows and columns a
+# block, and the depth of one slab of K
 _TILE_ROWS, _TILE_COLS, _SLAB = 128, 64, 32
+# bf16 rows reach the bf16 GEMM in 16-byte chunks: K a multiple of 8
+# (:func:`_as_matmul` pads it), w2's rows padded to a multiple of 8 columns
+_BF16_ALIGN = 8
 # split-K: a wave is the blocks the card holds at once, 2 an SM (85.5 KB of
 # shared memory each) on the H100's 132 (a batch-8 ResNet-50 forward's 33
 # products ran faster on the card planned for 264 blocks than for 132); a
@@ -83,9 +103,9 @@ _REDUCE_BLOCKS = 2048
 _REDUCE_COLS = 32  # channels a reduction block (csrc/conv_bn_relu_bn.cu kCols)
 
 
-def _count(attr):
+def _count(attr, dtype=torch.float32):
     with _count_lock:
-        globals()[attr] += 1
+        globals()[("BF16_" if dtype == torch.bfloat16 else "") + attr] += 1
 
 
 # -- plain versions -----------------------------------------------------------
@@ -125,7 +145,9 @@ def _bn_bwd_partials_plain(co, dy, scale, shift):
 
 
 def _bn_bwd_dco_plain(co, dy, scale, shift, k3, b0):
-    return (scale * _gated(co, dy, scale, shift) - k3 * co - b0).to(co.dtype)
+    """float32 whatever ``co``'s type, as the TPU kernel writes it
+    (``:501``): the matrix gradients take it unrounded."""
+    return scale * _gated(co, dy, scale, shift).float() - k3 * co.float() - b0
 
 
 # -- kernel entries -----------------------------------------------------------
@@ -145,8 +167,9 @@ def _bind(lib, symbol, argtypes):
 
 def _on_kernel(name, mats, vecs, n):
     """False for CPU tensors (the plain version runs); on the card, checks
-    what the kernel takes and returns True; raises on any other device.
-    The ``[N]`` vectors are checked on every device."""
+    what the kernels take (matrices all float32 or all bf16, the vectors
+    float32) and returns True; raises on any other device. The ``[N]``
+    vectors are checked on every device."""
     if any(tuple(v.shape) != (n,) for v in vecs):
         raise ValueError(f"{name}: per-channel vectors must be [{n}], got "
                          f"{[tuple(v.shape) for v in vecs]}")
@@ -155,12 +178,19 @@ def _on_kernel(name, mats, vecs, n):
         return False
     if first.device.type != "cuda" or any(t.device != first.device for t in mats + vecs):
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
-    if any(t.dtype != torch.float32 for t in mats + vecs):
-        raise TypeError(f"{name}: the kernel takes float32, got "
-                        f"{sorted({str(t.dtype) for t in mats + vecs})}")
+    if (first.dtype not in (torch.float32, torch.bfloat16)
+            or any(t.dtype != first.dtype for t in mats)
+            or any(v.dtype != torch.float32 for v in vecs)):
+        raise TypeError(f"{name}: the kernels take float32 or bf16 matrices of one type and "
+                        f"float32 vectors, got {[str(t.dtype) for t in mats]} and "
+                        f"{sorted({str(v.dtype) for v in vecs})}")
     if not all(t.is_contiguous() for t in mats):
         raise ValueError(f"{name}: the [M, N] operands must be contiguous")
     return True
+
+
+def _bf16(t):
+    return t.dtype == torch.bfloat16
 
 
 def _stream(t):
@@ -185,59 +215,83 @@ def _check_mn(name, co, *others):
                          "one [M, N]")
 
 
+def _mm_lib(p2):
+    """(library, symbol prefix) of the conv GEMM for ``p2``'s type."""
+    return ("conv_bn_relu_mm_bf16", "ptt_conv_mm_bf16_") if _bf16(p2) else (
+        "conv_bn_relu_mm", "ptt_conv_mm_")
+
+
+def _mm_operands(name, p2, w2):
+    """``(p2, w2, ld)`` as the GEMM copies them: bases on 16 bytes; in
+    bf16, K a multiple of 8 (raises otherwise: :func:`_as_matmul` pads it)
+    and w2's rows padded with zero columns to a multiple of 8, their length
+    in ``ld``, the bf16 entries' extra argument (empty for float32)."""
+    p2, w2 = _aligned(p2), _aligned(w2)
+    if not _bf16(p2):
+        return p2, w2, ()
+    if p2.shape[1] % _BF16_ALIGN:
+        raise ValueError(f"{name}: the bf16 kernel takes K a multiple of {_BF16_ALIGN}, got "
+                         f"{p2.shape[1]} (pad it with zeros, as _as_matmul does)")
+    extra = -w2.shape[1] % _BF16_ALIGN
+    return p2, (_F.pad(w2, (0, extra)) if extra else w2), (w2.shape[1] + extra,)
+
+
 def mm_affine_relu(p2, w2, scale, shift):
     """``relu((p2 @ w2) * scale + shift)`` for ``p2 [M, K]``, ``w2 [K, N]``
-    and ``[N]`` vectors: the kernel on the card, the plain version on the
+    (both float32 or both bf16; the output in their type) and float32
+    ``[N]`` vectors: the kernel on the card, the plain version on the
     CPU."""
     _check_mm("mm_affine_relu", p2, w2)
     m, n = p2.shape[0], w2.shape[1]
     scale, shift = scale.contiguous(), shift.contiguous()
     if not _on_kernel("mm_affine_relu", [p2, w2], [scale, shift], n):
         return _mm_affine_relu_plain(p2, w2, scale, shift)
-    y = torch.empty(m, n, device=p2.device, dtype=torch.float32)
+    y = torch.empty(m, n, device=p2.device, dtype=p2.dtype)
     if m == 0 or n == 0:  # nothing is launched or counted
         return y
     k = p2.shape[1]
-    p2, w2 = _aligned(p2), _aligned(w2)
+    p2, w2, ld = _mm_operands("mm_affine_relu", p2, w2)
+    lib, sym = _mm_lib(p2)
     slices, per = _split_k(m, k, n)
     with torch.cuda.device(p2.device):
         args = (p2.data_ptr(), w2.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr())
         if slices == 1:
-            err = _bind("conv_bn_relu_mm", "ptt_conv_mm_affine_relu",
-                        [_VP] * 5 + [_I64, _INT, _INT, _VP])(*args, m, k, n, _stream(p2))
+            err = _bind(lib, sym + "affine_relu", [_VP] * 5 + [_I64] + [_INT] * (2 + len(ld))
+                        + [_VP])(*args, m, k, n, *ld, _stream(p2))
         else:
             ws = torch.empty(slices, m, n, device=p2.device, dtype=torch.float32)
-            err = _bind("conv_bn_relu_mm", "ptt_conv_mm_affine_relu_split",
-                        [_VP] * 6 + [_I64, _INT, _INT, _INT, _INT, _VP])(
-                *args, ws.data_ptr(), m, k, n, slices, per, _stream(p2))
+            err = _bind(lib, sym + "affine_relu_split", [_VP] * 6 + [_I64] +
+                        [_INT] * (4 + len(ld)) + [_VP])(
+                *args, ws.data_ptr(), m, k, n, *ld, slices, per, _stream(p2))
     _build.check(err, "mm_affine_relu")
-    _count("MM_AFFINE_RELU_LAUNCHES")
+    _count("MM_AFFINE_RELU_LAUNCHES", p2.dtype)
     if slices > 1:
         _count("MM_AFFINE_RELU_SPLITS")
     return y
 
 
 def mm_stats(p2, w2):
-    """``(co, partial)``: ``co = p2 @ w2`` ``[M, N]`` and ``partial [tiles,
-    N]`` whose column sums are ``co``'s (one row per 128-row tile on the
-    card, one row on the CPU)."""
+    """``(co, partial)``: ``co = p2 @ w2`` ``[M, N]`` in the operands' type
+    and the float32 ``partial [tiles, N]`` whose column sums are ``co``'s
+    (one row per 128-row tile on the card, one row on the CPU)."""
     _check_mm("mm_stats", p2, w2)
     m, n = p2.shape[0], w2.shape[1]
     if not _on_kernel("mm_stats", [p2, w2], [], n):
         return _mm_stats_plain(p2, w2)
-    co = torch.empty(m, n, device=p2.device, dtype=torch.float32)
+    co = torch.empty(m, n, device=p2.device, dtype=p2.dtype)
     if m == 0 or n == 0:  # nothing is launched or counted
-        return co, co.new_zeros(1, n)
-    lib = _build.library("conv_bn_relu_mm")
-    p2, w2 = _aligned(p2), _aligned(w2)
-    tiles = -(-m // lib.ptt_conv_mm_tile_rows())
+        return co, co.new_zeros(1, n, dtype=torch.float32)
+    k = p2.shape[1]
+    p2, w2, ld = _mm_operands("mm_stats", p2, w2)
+    lib, sym = _mm_lib(p2)
+    tiles = -(-m // getattr(_build.library(lib), sym + "tile_rows")())
     partial = torch.empty(tiles, n, device=p2.device, dtype=torch.float32)
     with torch.cuda.device(p2.device):
-        err = _bind("conv_bn_relu_mm", "ptt_conv_mm_stats", [_VP] * 4 + [_I64, _INT, _INT, _VP])(
-            p2.data_ptr(), w2.data_ptr(), co.data_ptr(), partial.data_ptr(), m, p2.shape[1], n,
+        err = _bind(lib, sym + "stats", [_VP] * 4 + [_I64] + [_INT] * (2 + len(ld)) + [_VP])(
+            p2.data_ptr(), w2.data_ptr(), co.data_ptr(), partial.data_ptr(), m, k, n, *ld,
             _stream(p2))
     _build.check(err, "mm_stats")
-    _count("MM_STATS_LAUNCHES")
+    _count("MM_STATS_LAUNCHES", p2.dtype)
     return co, partial
 
 
@@ -264,30 +318,41 @@ def _reduce_rows(m, n):
     return max(8, -(-per // 8) * 8)
 
 
+_BN_ARGS = {"centered_sumsq": [_VP, _I64, _INT, _I64, _VP, _VP, _VP],
+            "relu": [_VP, _I64, _INT, _VP, _VP, _VP, _VP],
+            "bwd_partials": [_VP, _VP, _I64, _INT, _I64] + [_VP] * 5,
+            "bwd_dco": [_VP, _VP, _I64, _INT] + [_VP] * 6}
+
+
+def _bn_symbol(name, co):
+    """The batch-norm pass ``ptt_bn_<name>`` for ``co``'s type."""
+    return _bind("conv_bn_relu_bn", f"ptt_bn_{name}" + ("_bf16" if _bf16(co) else ""),
+                 _BN_ARGS[name])
+
+
 def centered_sumsq(co, mean):
-    """``partial [blocks, N]`` whose column sums are ``sum((co - mean)^2)``
-    per channel of ``co [M, N]``: the centred second pass of the batch
-    variance."""
+    """``partial [blocks, N]`` (float32) whose column sums are ``sum((co -
+    mean)^2)`` per channel of ``co [M, N]``: the centred second pass of the
+    batch variance."""
     _check_mn("centered_sumsq", co)
     m, n = co.shape
     mean = mean.contiguous()
     if not _on_kernel("centered_sumsq", [co], [mean], n):
         return _centered_sumsq_plain(co, mean)
     if m == 0 or n == 0:  # nothing is launched or counted
-        return co.new_zeros(1, n)
+        return co.new_zeros(1, n, dtype=torch.float32)
     per = _reduce_rows(m, n)
     partial = torch.empty(-(-m // per), n, device=co.device, dtype=torch.float32)
     with torch.cuda.device(co.device):
-        err = _bind("conv_bn_relu_bn", "ptt_bn_centered_sumsq", [_VP, _I64, _INT, _I64, _VP, _VP,
-                                                                 _VP])(
-            co.data_ptr(), m, n, per, mean.data_ptr(), partial.data_ptr(), _stream(co))
+        err = _bn_symbol("centered_sumsq", co)(co.data_ptr(), m, n, per, mean.data_ptr(),
+                                               partial.data_ptr(), _stream(co))
     _build.check(err, "centered_sumsq")
-    _count("CENTERED_SUMSQ_LAUNCHES")
+    _count("CENTERED_SUMSQ_LAUNCHES", co.dtype)
     return partial
 
 
 def bn_relu(co, scale, shift):
-    """``relu(co * scale + shift)`` for ``co [M, N]``."""
+    """``relu(co * scale + shift)`` for ``co [M, N]``, in ``co``'s type."""
     _check_mn("bn_relu", co)
     m, n = co.shape
     scale, shift = scale.contiguous(), shift.contiguous()
@@ -297,53 +362,54 @@ def bn_relu(co, scale, shift):
     if m == 0 or n == 0:  # nothing is launched or counted
         return y
     with torch.cuda.device(co.device):
-        err = _bind("conv_bn_relu_bn", "ptt_bn_relu", [_VP, _I64, _INT, _VP, _VP, _VP, _VP])(
-            co.data_ptr(), m, n, scale.data_ptr(), shift.data_ptr(), y.data_ptr(), _stream(co))
+        err = _bn_symbol("relu", co)(co.data_ptr(), m, n, scale.data_ptr(), shift.data_ptr(),
+                                     y.data_ptr(), _stream(co))
     _build.check(err, "bn_relu")
-    _count("BN_RELU_LAUNCHES")
+    _count("BN_RELU_LAUNCHES", co.dtype)
     return y
 
 
 def bn_bwd_partials(co, dy, scale, shift):
-    """``(partial_dy, partial_dyco)``, each ``[blocks, N]``, whose column
-    sums are ``sum(dy_relu)`` and ``sum(dy_relu * co)``, with ``dy_relu =
-    dy`` where ``co * scale + shift > 0`` and 0 elsewhere."""
+    """``(partial_dy, partial_dyco)``, each float32 ``[blocks, N]``, whose
+    column sums are ``sum(dy_relu)`` and ``sum(dy_relu * co)``, with
+    ``dy_relu = dy`` where ``co * scale + shift > 0`` and 0 elsewhere."""
     _check_mn("bn_bwd_partials", co, dy)
     m, n = co.shape
     scale, shift = scale.contiguous(), shift.contiguous()
     if not _on_kernel("bn_bwd_partials", [co, dy], [scale, shift], n):
         return _bn_bwd_partials_plain(co, dy, scale, shift)
     if m == 0 or n == 0:  # nothing is launched or counted
-        return co.new_zeros(1, n), co.new_zeros(1, n)
+        return (co.new_zeros(1, n, dtype=torch.float32),
+                co.new_zeros(1, n, dtype=torch.float32))
     per = _reduce_rows(m, n)
     pdy = torch.empty(-(-m // per), n, device=co.device, dtype=torch.float32)
     pdyc = torch.empty_like(pdy)
     with torch.cuda.device(co.device):
-        err = _bind("conv_bn_relu_bn", "ptt_bn_bwd_partials", [_VP, _VP, _I64, _INT, _I64] +
-                    [_VP] * 5)(
+        err = _bn_symbol("bwd_partials", co)(
             co.data_ptr(), dy.data_ptr(), m, n, per, scale.data_ptr(), shift.data_ptr(),
             pdy.data_ptr(), pdyc.data_ptr(), _stream(co))
     _build.check(err, "bn_bwd_partials")
-    _count("BN_BWD_PARTIALS_LAUNCHES")
+    _count("BN_BWD_PARTIALS_LAUNCHES", co.dtype)
     return pdy, pdyc
 
 
 def bn_bwd_dco(co, dy, scale, shift, k3, b0):
-    """``scale * dy_relu - k3 * co - b0`` for ``co, dy [M, N]``."""
+    """``scale * dy_relu - k3 * co - b0`` for ``co, dy [M, N]``, float32
+    whatever their type (``_bn_bwd_dco``, ``:501``)."""
     _check_mn("bn_bwd_dco", co, dy)
     m, n = co.shape
     vecs = [v.contiguous() for v in (scale, shift, k3, b0)]
     if not _on_kernel("bn_bwd_dco", [co, dy], vecs, n):
         return _bn_bwd_dco_plain(co, dy, *vecs)
-    dco = torch.empty_like(co)
+    dco = torch.empty(m, n, device=co.device, dtype=torch.float32)
     if m == 0 or n == 0:  # nothing is launched or counted
         return dco
     with torch.cuda.device(co.device):
-        err = _bind("conv_bn_relu_bn", "ptt_bn_bwd_dco", [_VP, _VP, _I64, _INT] + [_VP] * 6)(
-            co.data_ptr(), dy.data_ptr(), m, n, *(v.data_ptr() for v in vecs), dco.data_ptr(),
-            _stream(co))
+        err = _bn_symbol("bwd_dco", co)(co.data_ptr(), dy.data_ptr(), m, n,
+                                        *(v.data_ptr() for v in vecs), dco.data_ptr(),
+                                        _stream(co))
     _build.check(err, "bn_bwd_dco")
-    _count("BN_BWD_DCO_LAUNCHES")
+    _count("BN_BWD_DCO_LAUNCHES", co.dtype)
     return dco
 
 
@@ -381,9 +447,13 @@ class _TrainCore(torch.autograd.Function):
         dgamma = (sum_dyc - mean * sum_dy) * rstd
         k3 = scale * (dgamma / m) * rstd
         b0 = scale * (sum_dy / m) - k3 * mean
-        dco = bn_bwd_dco(co, dy, scale, shift, k3, b0)
-        dp2 = torch.matmul(dco, w2.t()) if ctx.needs_input_grad[0] else None
-        dw2 = torch.matmul(p2.t(), dco) if ctx.needs_input_grad[1] else None
+        dco = bn_bwd_dco(co, dy, scale, shift, k3, b0)  # float32
+        # float32 products of the float32 d_co, each rounded once to its
+        # operand's type (``_train_core_bwd``, ``:560-561``)
+        dp2 = (torch.matmul(dco, w2.float().t()).to(p2.dtype) if ctx.needs_input_grad[0]
+               else None)
+        dw2 = (torch.matmul(p2.float().t(), dco).to(w2.dtype) if ctx.needs_input_grad[1]
+               else None)
         return dp2, dw2, dgamma, dbeta, None
 
 
@@ -432,10 +502,14 @@ def _norm_padding(padding):
     return None if isinstance(padding, str) else F.conv_padding(padding)
 
 
-def _as_matmul(x, w, stride, pad, data_format):
+def _as_matmul(x, w, stride, pad, data_format, k_multiple=1):
     """Lower the conv to ``p2 [M, K] @ w2 [K, Cout]`` (``_as_matmul``,
     ``:177``). Returns ``(p2, w2, (n, oh, ow))``; the patch features are
-    ordered (cin, kh, kw), the OIHW weight's trailing axes."""
+    ordered (cin, kh, kw), the OIHW weight's trailing axes. With
+    ``k_multiple``, K is padded with zero features (zero columns of p2,
+    zero rows of w2) up to a multiple of it, which changes no product; the
+    pad writes the patches once where ``reshape`` copied them, and autograd
+    drops the padding's gradients."""
     if data_format == "NHWC":
         x = x.permute(0, 3, 1, 2)
     n, cin, h, wd = x.shape
@@ -444,17 +518,22 @@ def _as_matmul(x, w, stride, pad, data_format):
     (top, bottom), (left, right) = pad
     oh = (h + top + bottom - kh) // sh + 1
     ow = (wd + left + right - kw) // sw + 1
+    k = cin * kh * kw
+    extra = -k % k_multiple
     if (kh, kw) == (1, 1) and (sh, sw) == (1, 1) and pad == [(0, 0), (0, 0)]:
         # a pointwise conv's "patches" are its input, channels last (a view
         # when x is the channels-last output of the fused conv before it)
         p2 = x.permute(0, 2, 3, 1).reshape(n * h * wd, cin)
+        p2 = _F.pad(p2, (0, extra)) if extra else p2
     else:
         if top != bottom or left != right:
             x = _F.pad(x, (left, right, top, bottom))
             top = left = 0
         p = _F.unfold(x, (kh, kw), padding=(top, left), stride=(sh, sw))  # [N, K, OH*OW]
-        p2 = p.transpose(1, 2).reshape(n * oh * ow, cin * kh * kw)
-    w2 = w.reshape(cout, cin * kh * kw).t()
+        p = p.transpose(1, 2)
+        p2 = (_F.pad(p, (0, extra)) if extra else p).reshape(n * oh * ow, k + extra)
+    w2 = w.reshape(cout, k).t()
+    w2 = _F.pad(w2, (0, 0, 0, extra)) if extra else w2
     return p2.contiguous(), w2.contiguous(), (n, oh, ow)
 
 
@@ -492,7 +571,8 @@ def conv_bn_relu(x, weight, gamma, beta, running_mean, running_var, *, stride=1,
               eps=float(epsilon), data_format=data_format)
     if not _supported(x, weight, padding, data_format):
         return _reference(x, weight, gamma, beta, running_mean, running_var, **kw)
-    p2, w2, (n, oh, ow) = _as_matmul(x, weight, stride, _norm_padding(padding), data_format)
+    p2, w2, (n, oh, ow) = _as_matmul(x, weight, stride, _norm_padding(padding), data_format,
+                                     k_multiple=_BF16_ALIGN if _bf16(x) else 1)
     gf, bf = gamma.float(), beta.float()
     if training:
         y2, bmean, bvar = _TrainCore.apply(p2, w2, gf, bf, float(epsilon))

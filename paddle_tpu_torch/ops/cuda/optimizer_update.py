@@ -56,12 +56,20 @@ _ARGS = [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_float, ctypes.c_
 
 def _plain_update(param, grad, velocity, lr, mu, wd, nesterov):
     """``(new_param, new_velocity)``: the update's expression, op by op
-    (``_jnp_update``)."""
-    g = grad + wd * param if wd else grad
-    v = mu * velocity + g
-    if nesterov:
-        return param - lr * (g + mu * v), v
-    return param - lr * v, v
+    (``_jnp_update``), with its scalars rounded where the JAX package's
+    train step rounds them: ``mu`` and ``wd`` are weak Python scalars there,
+    taken in the parameter's type, while ``lr`` is a float32 array, so the
+    last product and difference are float32, rounded once to the
+    parameter's type. For float32 parameters all of this is float32 (the
+    kernel's arithmetic, bit for bit); for bf16 (O2) it is ``_jnp_update``'s
+    rounding (a Python ``mu`` in torch would multiply in float32)."""
+    dt = param.dtype
+    mu_t, wd_t = (torch.tensor(c, dtype=dt) for c in (mu, wd))
+    g = grad + wd_t * param if wd else grad
+    v = mu_t * velocity + g
+    step = g + mu_t * v if nesterov else v
+    lr_t = torch.tensor(lr, dtype=torch.float32)
+    return (param.float() - lr_t * step.float()).to(dt), v
 
 
 def launch_groups(numels, max_tensors=MAX_TENSORS, chunk=CHUNK):

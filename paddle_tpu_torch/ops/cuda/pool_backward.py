@@ -23,8 +23,12 @@ route moves no tensor to another layout.
 on the CPU and on CUDA alike), so torch's own backward routes ties the same
 way; the port's rule does not rest on that.
 
-A tensor on the CPU takes the plain version; a tensor on the card launches
-the kernel or raises. float32 only for now.
+float32 or bf16 (the stem under AMP): the taps are compared in the type
+they come in (a bf16 ``x == y`` is exact), added in float32 and rounded
+once to the type at the store, as the TPU kernel does
+(``pool_backward.py:131-135``, ``:196``); bf16 launches count apart from
+float32's. A tensor on the CPU takes the plain version; a tensor on the
+card launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -35,10 +39,13 @@ import torch
 
 from . import _build
 
-__all__ = ["max_pool2d_backward", "max_pool_backward_supported", "memory_layout", "LAUNCHES"]
+__all__ = ["max_pool2d_backward", "max_pool_backward_supported", "memory_layout", "LAUNCHES",
+           "BF16_LAUNCHES"]
 
-#: kernel launches since the last reset (counted where the kernel launches)
+#: kernel launches since the last reset (counted where the kernel launches),
+#: float32 and bf16 apart
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
@@ -92,22 +99,26 @@ def max_pool_backward_supported(x_shape, dtype, ceil_extra, data_format) -> bool
 def _plain_max_pool2d_backward(x, y, dy, kernel, stride, padding):
     """``dx`` in tensor ops: each tap of every window in row-major order
     takes ``dy`` where it equals ``y`` and no earlier tap did, and is added
-    back at its place. The padding is NaN, which equals nothing."""
+    back at its place, in float32 for float32 and narrower types (the TPU
+    kernel's arithmetic, ``pool_backward.py:131-135``), rounded once to
+    ``x``'s type at the end. The padding is NaN, which equals nothing."""
     (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
     h, w = x.shape[2:]
     oh, ow = y.shape[2:]
     xp = torch.nn.functional.pad(x, (pw, pw, ph, ph), value=float("nan"))
-    dxp = torch.zeros_like(xp)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dxp = torch.zeros(xp.shape, dtype=acc, device=xp.device)
     taken = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
-    zero = torch.zeros((), dtype=dy.dtype, device=dy.device)
+    dyf = dy.to(acc)
+    zero = torch.zeros((), dtype=acc, device=dy.device)
     for di in range(kh):
         rows = slice(di, di + sh * (oh - 1) + 1, sh)
         for dj in range(kw):
             cols = slice(dj, dj + sw * (ow - 1) + 1, sw)
             sel = (xp[:, :, rows, cols] == y) & ~taken
             taken |= sel
-            dxp[:, :, rows, cols] += torch.where(sel, dy, zero)
-    return dxp[:, :, ph:ph + h, pw:pw + w].contiguous()
+            dxp[:, :, rows, cols] += torch.where(sel, dyf, zero)
+    return dxp[:, :, ph:ph + h, pw:pw + w].to(x.dtype).contiguous()
 
 
 def _pairs(kernel, stride, padding):
@@ -126,7 +137,7 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
     like ``y`` [N, C, OH, OW], in the layout the three share (NCHW or
     channels-last; raises on a mix); ``kernel``, ``stride`` and
     (symmetric) ``padding`` are pairs."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     kernel, stride, padding = _pairs(kernel, stride, padding)
     if x.dim() != 4 or y.dim() != 4 or y.shape != dy.shape or x.shape[:2] != y.shape[:2]:
         raise ValueError(f"max_pool2d_backward: x {tuple(x.shape)}, y {tuple(y.shape)} and dy "
@@ -147,15 +158,17 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
         return torch.zeros_like(x, memory_format=fmt)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError("max_pool2d_backward: all tensors must be on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"max_pool2d_backward: the kernel takes float32, got "
-                        f"{[str(t.dtype) for t in tensors]}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError(f"max_pool2d_backward: the kernel takes float32 or bf16, one type for "
+                        f"x, y and dy, got {[str(t.dtype) for t in tensors]}")
+    bf16 = x.dtype == torch.bfloat16
     if max(kernel) > 64 or max(n, c, h, w) > _INT_MAX or x.numel() // n > _INT_MAX:
         raise ValueError(f"max_pool2d_backward: the kernel takes windows up to 64 x 64 and "
                          f"extents and images below 2**31; got {kernel} over {tuple(x.shape)}")
     dx = torch.empty_like(x, memory_format=fmt)
     with torch.cuda.device(x.device):
-        fn = _build.library("pool_backward").ptt_max_pool2d_backward
+        lib = _build.library("pool_backward")
+        fn = lib.ptt_max_pool2d_backward_bf16 if bf16 else lib.ptt_max_pool2d_backward
         if fn.argtypes is None:
             fn.argtypes = _ARGS
             fn.restype = ctypes.c_int
@@ -164,5 +177,8 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "max_pool2d_backward")
     with _count_lock:
-        LAUNCHES += 1
+        if bf16:
+            BF16_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return dx

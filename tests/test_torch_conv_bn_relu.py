@@ -240,7 +240,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(entry):
 
 def test_plain_versions_count_no_launch():
     before = {k: getattr(tcbr, k) for k in dir(tcbr) if k.endswith("_LAUNCHES")}
-    assert len(before) == 6
+    assert len(before) == 12  # six kernels, float32 and bf16 apart
     p2, w2, co, dy, s, b, k3, b0 = _t(*_mats()[:4], *_mats()[4])
     tcbr.mm_affine_relu(p2, w2, s, b)
     tcbr.mm_stats(p2, w2)

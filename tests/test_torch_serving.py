@@ -108,7 +108,10 @@ def test_predict_matches_predictor_run_and_padding_is_inert(server, predictor):
         "conv_bn_relu_bn_bwd_partials", "conv_bn_relu_bn_bwd_dco", "momentum_update",
         "int8_matmul", "max_pool2d_backward", "layernorm_residual_fwd_bf16",
         "layernorm_residual_bwd_bf16", "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
-        "flash_attention_bwd_dkv_bf16"}
+        "flash_attention_bwd_dkv_bf16", "conv_bn_relu_mm_affine_relu_bf16",
+        "conv_bn_relu_mm_stats_bf16", "conv_bn_relu_centered_sumsq_bf16",
+        "conv_bn_relu_bn_relu_bf16", "conv_bn_relu_bn_bwd_partials_bf16",
+        "conv_bn_relu_bn_bwd_dco_bf16", "max_pool2d_backward_bf16"}
 
 
 def test_concurrent_requests_share_batches(server, predictor):
