@@ -34,12 +34,13 @@ Phases, each fatal on failure:
    and fall, each launching exactly 24 + 24 LayerNorm (forward, backward),
    12 attention forward, 12 dQ and 12 dK/dV kernels; step time, tokens/s
    and, from ``torch.profiler``, where one step's time goes;
-6a. AMP: hold the bf16 kernels (the LayerNorm forward and backward in bf16
-   and its mixed case, a bf16 x on an f32 residual; the three bf16
-   attention kernels at [32, 12, 512, 64] with dropout 0.1 and a pad
+6a. AMP: hold the bf16 kernels (the LayerNorm forward in bf16 and in its
+   mixed instance, a bf16 x on an f32 residual, at [16384, 768], at H =
+   1000 and 4096 and on rows of mean 100; its backward in bf16; the three
+   bf16 attention kernels at [32, 12, 512, 64] with dropout 0.1 and a pad
    bias, at rate 0, at L = 128 causal and at other head dims, biases and
    ragged shapes) against their plain versions in bf16 ulps, timed beside
-   bf16 SDPA, with the forward's stored dropout mask equal to the plain
+   bf16 SDPA and ``F.layer_norm``, with the forward's stored dropout mask equal to the plain
    mask bit for bit and the backward repeating its gradients bit for bit
    (the wgmma kernels' ``-Xptxas -v`` summaries are printed on stdout);
    then one BERT-base step under ``auto_cast`` (O1, and O2 through
@@ -236,62 +237,102 @@ def exact_bf16_layernorm(x, r, w, b, eps):
     return y, bf16_ulp(y.abs().maximum(t.abs()).maximum(b.double().abs()))
 
 
-def check_layernorm(dtype_name, rows):
-    """The forward kernel at [rows, 768] against the plain version: y, and
-    the saved f32 mean and rstd the backward reads."""
+def check_layernorm(dtype_name, rows, h=LN_H, res_dtype_name=None, mean_offset=0.0, std=1.0,
+                    timed=True):
+    """The forward kernel at [rows, h] against the plain version: y, and
+    the saved f32 mean and rstd the backward reads. ``res_dtype_name``
+    float32 under a bf16 x is the mixed instance; ``mean_offset`` and
+    ``std`` shape the rows (a large mean tests the two-pass variance);
+    which variant runs (a warp a row, a block a row) follows ``h``."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import layernorm_residual as lnr
 
     dtype = getattr(torch, dtype_name)
+    rdtype = getattr(torch, res_dtype_name or dtype_name)
+    mixed = rdtype != dtype
     g = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
-    w = torch.randn(LN_H, generator=g, device=dev)
-    b = torch.randn(LN_H, generator=g, device=dev)
-    sets = [(torch.randn(rows, LN_H, generator=g, device=dev).to(dtype),
-             torch.randn(rows, LN_H, generator=g, device=dev).to(dtype), w, b, 1e-5)
-            for _ in range(6)]
+    w = torch.randn(h, generator=g, device=dev)
+    b = torch.randn(h, generator=g, device=dev)
+    sets = [((torch.randn(rows, h, generator=g, device=dev) * std + mean_offset).to(dtype),
+             (torch.randn(rows, h, generator=g, device=dev) * std).to(rdtype), w, b, 1e-5)
+            for _ in range(6 if timed else 1)]
     x, r = sets[0][0], sets[0][1]
+    counter = ("MIXED_LAUNCHES" if mixed else "LAUNCHES" if dtype == torch.float32
+               else "BF16_LAUNCHES")
+    before = getattr(lnr, counter)
     y, mean, rstd = lnr.layernorm_residual_fwd(x, r, w, b, 1e-5)
+    if getattr(lnr, counter) != before + 1 or y.dtype != dtype:
+        raise AssertionError(f"layernorm_residual {dtype_name} on {rdtype}: {y.dtype}, the "
+                             f"{counter} kernel not counted")
     yp, mp, rp = lnr._reference(x, r, w, b, 1e-5)
     err = float((y.float() - yp.float()).abs().max())
     # mean absolute, rstd relative to its largest entry (~1/std of a row)
     stat_err = max(float((mean - mp).abs().max()), float((rstd - rp).abs().max() / rp.abs().max()))
     ulps = {}
-    if dtype == torch.float32:
+    # the mean's atol scales with it (f32 sums of values near mean_offset)
+    mean_tol = LN_F32_ATOL * max(1.0, mean_offset)
+    if dtype == torch.float32 and mean_offset:
+        # rows far from 0: y carries the f32 rounding of the sum (an ulp of
+        # the mean times rstd) in both; the kernel may be at most LN_F32_ATOL
+        # further from the exact (f64) answer than the plain version is
+        y64, _ = exact_bf16_layernorm(x, r, w, b, 1e-5)
+        ulps = {"kernel_vs_exact": float((y.double() - y64).abs().max()),
+                "plain_vs_exact": float((yp.double() - y64).abs().max())}
+        ok = (ulps["kernel_vs_exact"] <= ulps["plain_vs_exact"] + LN_F32_ATOL
+              and stat_err <= mean_tol)
+        tol = (f"kernel within plain + {LN_F32_ATOL} of the exact (f64) answer, mean atol "
+               f"{mean_tol}; " + ", ".join(f"{k} {v:.3g}" for k, v in ulps.items()))
+    elif dtype == torch.float32:
         ok = err <= LN_F32_ATOL and stat_err <= LN_F32_ATOL
         tol = f"y, mean atol {LN_F32_ATOL}, rstd rtol {LN_F32_ATOL}"
     else:
-        # both round x + res to bf16 alike and differ in the f32 order of the
-        # affine sum; the kernel may be at most one output ulp further from
-        # the exact answer than the plain version is
+        # both add x + res alike (bf16: rounded to bf16; mixed: in f32) and
+        # differ in the f32 order of the statistics and the affine; the
+        # kernel may be at most one output ulp further from the exact answer
+        # than the plain version is
         y64, ulp = exact_bf16_layernorm(x, r, w, b, 1e-5)
         ulps = {"kernel_vs_exact_ulps": float(((y.double() - y64).abs() / ulp).max()),
                 "plain_vs_exact_ulps": float(((yp.double() - y64).abs() / ulp).max()),
                 "kernel_vs_plain_ulps": float(((y.double() - yp.double()).abs() / ulp).max())}
         ok = (ulps["kernel_vs_exact_ulps"] <= ulps["plain_vs_exact_ulps"] + 1.0
-              and stat_err <= LN_F32_ATOL)
+              and stat_err <= mean_tol)
         tol = ("kernel within plain + 1 bf16 ulp of the exact (f64) answer, ulps of the largest "
                "affine term; " + ", ".join(f"{k} {v:.3f}" for k, v in ulps.items()))
     if not ok:
-        raise AssertionError(f"layernorm_residual {dtype_name}: max err {err} stats {stat_err} "
-                             f"beyond {tol}")
-    in_bytes = x.element_size()
-    t_b, by = bound(rows * LN_H * (3 * in_bytes) + 8 * rows + 8 * LN_H, 9 * rows * LN_H)
-    ms = time_ms(lnr.layernorm_residual_fwd, sets, 200)
-    plain_ms = time_ms(lnr._reference, sets, 200)
-    lib_ms = time_ms(lambda x, r, w, b, eps: F.layer_norm(x + r, (LN_H,), w.to(x.dtype),
-                                                         b.to(x.dtype), eps), sets, 200)
-    log(f"layernorm_residual {dtype_name} [{rows}, {LN_H}]: max err {err:.3g}, stats "
-        f"{stat_err:.3g} ({tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{lib_ms:.4f} ms, bound {t_b:.4f} ms ({by})")
-    return {"name": "layernorm_residual_fwd" + ("" if dtype == torch.float32 else "_bf16"),
-            "route": "cuda", "source": "paddle_tpu_torch/csrc/layernorm_residual.cu",
-            "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:188",
-            "shape": [rows, LN_H], "dtype": dtype_name, "max_abs_err": err,
-            "stats_err": stat_err, "tolerance": tol, **ulps, "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by, "library_ms": lib_ms}
+        raise AssertionError(f"layernorm_residual {dtype_name} on {rdtype} [{rows}, {h}], mean "
+                             f"{mean_offset}: max err {err} stats {stat_err} beyond {tol}")
+    variant = lnr._fwd_plan(h, dtype)
+    # x and y in x's type, the residual in its own, read and written once
+    t_b, by = bound(rows * h * (2 * x.element_size() + r.element_size()) + 8 * rows + 8 * h,
+                    9 * rows * h)
+    name = "layernorm_residual_fwd" + ("_mixed" if mixed else "" if dtype == torch.float32
+                                       else "_bf16")
+    entry = {"name": name, "route": "cuda", "source": "paddle_tpu_torch/csrc/layernorm_residual.cu",
+             "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:188",
+             "shape": [rows, h], "dtype": dtype_name, "residual_dtype": str(rdtype)[6:],
+             "variant": variant, "mean_offset": mean_offset, "std": std, "max_abs_err": err,
+             "stats_err": stat_err, "tolerance": tol, **ulps, "bound_ms": t_b, "bound_by": by}
+    note = ""
+    if timed:
+        # device time behind a sleep kernel: at these sizes the wrapper's host
+        # work would pace CUDA events around a loop of calls
+        ms = device_ms_sets(lnr.layernorm_residual_fwd, sets, 50)[0]
+        plain_ms = device_ms_sets(lnr._reference, sets, 20)[0]
+        # one PyTorch call chain of the same function: the add (promoted
+        # for the mixed case), F.layer_norm, the output in x's type
+        lib_ms = device_ms_sets(lambda x, r, w, b, eps: F.layer_norm(
+            x + r, (h,), w.to(r.dtype), b.to(r.dtype), eps).to(x.dtype), sets, 50)[0]
+        entry.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     library="F.layer_norm(x + res) in the sum's type, cast to x's",
+                     timing="device time behind a sleep kernel, inputs cycled past L2")
+        note = (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{t_b:.4f} ms ({by})")
+    log(f"layernorm_residual {dtype_name} on {rdtype} [{rows}, {h}] ({variant} variant, mean "
+        f"{mean_offset}, std {std}): max err {err:.3g}, stats {stat_err:.3g} ({tol}){note}")
+    return entry
 
 
 def check_flash(seq, replaces):
@@ -735,7 +776,9 @@ def check_kernels():
     ragged causal shapes with Lq != Lk (untimed)."""
     ln = check_layernorm("float32", TRAIN_ROWS)
     ln["also_checked"] = [check_layernorm("float32", LN_ROWS),
-                          check_layernorm("bfloat16", LN_ROWS)]
+                          check_layernorm("bfloat16", LN_ROWS)] + [
+        check_layernorm("float32", LN_ROWS, h, timed=False) for h in (1000, 4096)] + [
+        check_layernorm("float32", LN_ROWS, mean_offset=100.0, std=0.1, timed=False)]
     ln_bwd = check_layernorm_bwd("float32")
     ln_bwd["also_checked"] = [check_layernorm_bwd("float32", 12345, 1024, timed=False),
                               check_layernorm_bwd("bfloat16", 12345, 1024, timed=False),
@@ -800,12 +843,15 @@ _TEMPLATE_KINDS = ("layernorm_residual_fwd", "layernorm_residual_bwd", "bn_reduc
 def _kernel_kind(name):
     n = name.lower().replace("_row_kernel", "_kernel")  # the LayerNorm backward's row variant
     n = n.replace("conv_mm_reduce_kernel", "conv_mm_kernel")  # split-K's second pass
-    n = n.replace("conv_mm_bf16_reduce_kernel", "conv_mm_bf16_kernel")
     n = n.replace("pool_bwd_nchw_kernel", "pool_bwd_kernel").replace("pool_bwd_nhwc_kernel",
                                                                       "pool_bwd_kernel")
     for kind in _KERNEL_KINDS:
         if f"{kind}_kernel" in n:
-            return kind + ("_bf16" if kind in _TEMPLATE_KINDS and "bfloat16" in n else "")
+            if kind not in _TEMPLATE_KINDS or "bfloat16" not in n:
+                return kind
+            # the LayerNorm forward's mixed instance: a bf16 x on an f32 residual
+            mixed = kind == "layernorm_residual_fwd" and "bfloat16, float" in n
+            return kind + ("_mixed" if mixed else "_bf16")
     if "memcpy" in n or "memset" in n:
         return "memcpy"
     if "im2col" in n or "col2im" in n:
@@ -1227,8 +1273,8 @@ BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet
 # the largest output: both round P (or dS) to bf16 at the TPU kernels'
 # points and sum in f32 in other orders (read 0.06-1 on the H100)
 FLASH_BF16_ULPS = 2.0
-# the residual LayerNorm's mixed case (bf16 x, f32 residual; the f32 kernel
-# rounded back to bf16) against the plain version: the output and dx in bf16
+# the residual LayerNorm's mixed case through the op (bf16 x, f32 residual;
+# the mixed forward, the f32 backward) against the plain version: the output and dx in bf16
 # ulps of their largest entry, the residual's f32 gradient relative to its
 # largest entry
 LN_MIXED_ULPS, LN_MIXED_RTOL = 1.0, 1e-5
@@ -1418,10 +1464,13 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
 def check_layernorm_mixed(rows=TRAIN_ROWS):
     """The residual LayerNorm's mixed case, the first encoder layer's under
     AMP: a bf16 x (the attention output) on an f32 residual (the embedding
-    output) through the op, which takes both to f32, runs the f32 kernels
-    and rounds the output back to bf16; the gradient of x comes back bf16,
-    the residual's f32. Against the plain version of the same computation;
-    the f32 kernels launch once each and the bf16 ones not at all."""
+    output) through the op, whose forward is the mixed kernel (no cast
+    pass: the f32 sum, f32 statistics, y rounded to bf16 once) and whose
+    backward takes x and dy to f32 for the f32 backward kernel; the
+    gradient of x comes back bf16, the residual's f32. Against the plain
+    version of the same computation; the mixed forward and the f32
+    backward launch once each and nothing else. Returns the mixed
+    forward's kernel entry (timed by check_layernorm) with this reading."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1429,16 +1478,14 @@ def check_layernorm_mixed(rows=TRAIN_ROWS):
 
     g = torch.Generator(device="cuda").manual_seed(12)
     w, b = (torch.randn(LN_H, generator=g, device="cuda") for _ in range(2))
-    sets = [(torch.randn(rows, LN_H, generator=g, device="cuda").bfloat16(),
-             torch.randn(rows, LN_H, generator=g, device="cuda"),
-             torch.randn(rows, LN_H, generator=g, device="cuda").bfloat16()) for _ in range(3)]
-    x, r, dy = sets[0]
+    x, r, dy = (torch.randn(rows, LN_H, generator=g, device="cuda").to(dt)
+                for dt in (torch.bfloat16, torch.float32, torch.bfloat16))
     xs, rs = x.detach().requires_grad_(), r.detach().requires_grad_()
     reset_launch_counts()
     y = lnr.layernorm_residual(xs, rs, w, b)
     y.backward(dy)
     counts = {k: v for k, v in launch_counts().items() if v}
-    want_counts = {"layernorm_residual_fwd": 1, "layernorm_residual_bwd": 1}
+    want_counts = {"layernorm_residual_fwd_mixed": 1, "layernorm_residual_bwd": 1}
     py, mean, rstd = lnr._reference(x.float(), r, w, b, 1e-5)
     pa, _, _ = lnr._reference_bwd(x.float(), r, w, mean, rstd, dy.float())
     torch.cuda.synchronize()
@@ -1453,33 +1500,33 @@ def check_layernorm_mixed(rows=TRAIN_ROWS):
         raise AssertionError(f"mixed LayerNorm: {errs}, dtypes {dtypes}, launches {counts} "
                              f"(want {want_counts}); beyond {tol}")
 
-    def op(x_, r_, dy_):
-        return lnr.layernorm_residual(x_, r_, w, b)
-
-    ms = time_ms(op, sets, 100)
-    plain_ms = time_ms(lambda x_, r_, dy_: lnr._reference(x_.float(), r_, w, b, 1e-5)[0]
-                       .bfloat16(), sets, 100)
-    # x and y bf16, the residual f32, read and written once; w, b, the statistics
-    t_b, by = bound(rows * LN_H * (2 + 4 + 2) + 8 * rows + 8 * LN_H, 9 * rows * LN_H)
-    log(f"mixed LayerNorm [{rows}, {LN_H}] bf16 x + f32 residual: {errs} ({tol}); launches "
-        f"{counts}; forward {ms:.4f} ms (the casts and the f32 kernel), plain {plain_ms:.4f} ms, "
-        f"bound {t_b:.4f} ms ({by})")
-    return {"name": "layernorm_residual_fwd", "case": "bf16 x + f32 residual (layer 0 under "
-            "AMP): the f32 kernels, output rounded to bf16", "shape": [rows, LN_H],
-            **errs, "tolerance": tol, "launches": counts, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": t_b, "bound_by": by}
+    log(f"mixed LayerNorm [{rows}, {LN_H}] bf16 x + f32 residual through the op, forward and "
+        f"backward: {errs} ({tol}); launches {counts}")
+    entry = check_layernorm("bfloat16", rows, res_dtype_name="float32")
+    entry["through_the_op"] = {**errs, "tolerance": tol, "launches": counts}
+    return entry
 
 
 def check_amp_kernels():
     """Entries for the bf16 kernels of the AMP path: the LayerNorm forward
-    and backward in bf16 at the training path's [16384, 768] (with the
-    mixed case and the serving shape under ``also_checked``), and the three
+    in bf16 and in its mixed instance and the backward in bf16 at the
+    training path's [16384, 768] (the block variant at H = 1000 and 4096 and
+    rows of mean 100 under ``also_checked``), and the three
     bf16 attention kernels at [32, 12, 512, 64] with dropout 0.1 and a pad
     bias (also at rate 0 and at the short L = 128, causal, where the TPU
     took its small variants; at D = 32 and 128 and at ragged causal shapes
     untimed)."""
     ln = check_layernorm("bfloat16", TRAIN_ROWS)
-    ln["also_checked"] = [check_layernorm_mixed()]
+    ln_mixed = check_layernorm_mixed()
+    # the block variant (H = 1000 off the 16-byte width, H = 4096 past a
+    # warp's registers) and rows with a large mean, untimed
+    ln["also_checked"] = [check_layernorm("bfloat16", LN_ROWS, h, timed=False)
+                          for h in (1000, 4096)] + [
+        check_layernorm("bfloat16", LN_ROWS, mean_offset=100.0, std=0.1, timed=False)]
+    ln_mixed["also_checked"] = [
+        check_layernorm("bfloat16", LN_ROWS, h, res_dtype_name="float32", timed=False)
+        for h in (1000, 4096)] + [check_layernorm("bfloat16", LN_ROWS, res_dtype_name="float32",
+                                                  mean_offset=100.0, std=0.1, timed=False)]
     ln_bwd = check_layernorm_bwd("bfloat16")
     rows = (f"{_FA}:548", f"{_FA}:765", f"{_FA}:815")
     small = (f"{_FA}:370", f"{_FA}:433", f"{_FA}:433")
@@ -1496,7 +1543,7 @@ def check_amp_kernels():
                                    timed=False, bias_kind="none")):
         for entry, e in zip((fwd, dq, dkv), extra):
             entry.setdefault("also_checked", []).append(e)
-    return [ln, ln_bwd, fwd, dq, dkv]
+    return [ln, ln_mixed, ln_bwd, fwd, dq, dkv]
 
 
 # The AMP step against the port's plain path on the CPU under the same
@@ -1598,12 +1645,13 @@ def _cpu_kernel_route():
 
 def _amp_launches(level, layers, steps=1):
     """Launches of one AMP step of BERT: the bf16 attention kernels; at O1
-    layer 0's first residual LayerNorm is the mixed case (the f32 kernels),
-    every other the bf16 kernels; at O2 all are bf16."""
+    layer 0's first residual LayerNorm is the mixed case (the mixed forward
+    and the f32 backward), every other the bf16 kernels; at O2 all are
+    bf16."""
     f32_ln = 1 if level == "O1" else 0
     want = {"flash_attention_fwd_bf16": layers, "flash_attention_bwd_dq_bf16": layers,
             "flash_attention_bwd_dkv_bf16": layers,
-            "layernorm_residual_fwd": f32_ln, "layernorm_residual_bwd": f32_ln,
+            "layernorm_residual_fwd_mixed": f32_ln, "layernorm_residual_bwd": f32_ln,
             "layernorm_residual_fwd_bf16": 2 * layers - f32_ln,
             "layernorm_residual_bwd_bf16": 2 * layers - f32_ln}
     return {k: v * steps for k, v in want.items() if v}
@@ -1701,7 +1749,8 @@ def train_bert_amp():
     L=512, 80 masked a row, dropout 0.1, AdamW, one fixed batch; 10 timed
     steps whose losses must be finite and fall, each launching the three
     bf16 attention kernels once a layer and the residual LayerNorms (layer
-    0's first the mixed case, on the f32 kernels, the rest bf16); the
+    0's first the mixed case, the mixed forward and the f32 backward, the
+    rest bf16); the
     median step, tokens/s and peak memory; one profiled step by kernel
     kind, whose matrix products must all be bf16 (JAX's dtype trace keeps
     no product in f32 under O1). Returns the launches over the timed steps."""
@@ -1743,9 +1792,12 @@ def train_bert_amp():
     log(f"AMP train step, matrix-product time by operand type (ms): {by_dtype}")
     if not by_dtype.get("bf16") or set(by_dtype) != {"bf16"}:
         raise AssertionError(f"AMP step's matrix products not all bf16: {by_dtype}")
+    by_kind, events = _device_time_by_kind(prof)  # logged by _profile_step
+    busy = sum(by_kind.values())
     return counts, {"parity": readings, "step_ms_median": median,
                     "tokens_per_s": tokens / median * 1e3, "peak_gib": peak,
-                    "gemm_ms_by_dtype": by_dtype, "losses": losses}
+                    "gemm_ms_by_dtype": by_dtype, "losses": losses, "busy_ms": busy,
+                    "device_ms_by_kind": by_kind, "device_events": events}
 
 
 # -- the ResNet path -----------------------------------------------------------
@@ -2628,7 +2680,7 @@ def check_conv_mm_bf16(m, k, n, label, timed=True):
           "replaces": f"{_CBR}:306", "shape": [m, k, n], "label": label, "dtype": "bfloat16",
           "max_abs_err": float((y.float() - y_ref.float()).abs().max()), "ulps": u8,
           "tolerance": tol8, "bound_ms": b8, "bound_by": by8,
-          "splits": cbr._split_k(m, k, n)[0]}
+          "splits": cbr._split_k_bf16(m, k, n, cbr._sm_count(0))[0]}
     e9 = {"name": "conv_bn_relu_mm_stats_bf16", "route": "cuda", "source": _CONV_BF16_SRC,
           "replaces": f"{_CBR}:337", "shape": [m, k, n], "label": label, "dtype": "bfloat16",
           "max_abs_err": float((co.float() - co_ref.float()).abs().max()), "ulps": u9,
@@ -2660,9 +2712,11 @@ def _rn50_fused_products_bf16(batch):
 
 def check_conv_serving_bf16(batch):
     """Row 8b in bf16: the 33 fused eval products of a ResNet-50 forward
-    at serving batch ``batch``, each against its plain version, the split-K
-    calls counted against the planner's, then the device time of the 33
-    kernel calls in a row against 33 bf16 ``torch.matmul`` calls."""
+    at serving batch ``batch``, each against its plain version and run a
+    second time bit-equal (the split-K reduce adds the slices in slice
+    order whichever block arrives last), the split-K calls counted against
+    the planner's, then the device time of the 33 kernel calls in a row
+    against 33 bf16 ``torch.matmul`` calls."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr
@@ -2678,13 +2732,16 @@ def check_conv_serving_bf16(batch):
         if u > CONV_BF16_Y_ULPS:
             raise AssertionError(f"bf16 conv product [{m}, {k}] @ [{k}, {n}] at batch {batch}: "
                                  f"{u} ulps beyond {CONV_BF16_Y_ULPS}")
+        if not torch.equal(y, cbr.mm_affine_relu(*args)):
+            raise AssertionError(f"bf16 conv product [{m}, {k}] @ [{k}, {n}] at batch {batch}: "
+                                 "a second run differs")
         worst = max(worst, u)
         worst_abs = max(worst_abs, float((y.float() - y_ref.float()).abs().max()))
-    splits = cbr.MM_AFFINE_RELU_SPLITS - splits0
-    want = sum(cbr._split_k(*sh)[0] > 1 for sh in shapes)
+    splits = (cbr.MM_AFFINE_RELU_SPLITS - splits0) // 2  # each product ran twice
+    want = sum(cbr._split_k_bf16(*sh, cbr._sm_count(0))[0] > 1 for sh in shapes)
     if splits != want:
         raise AssertionError(f"bf16: {splits} of the {len(shapes)} products took split-K; the "
-                             f"planner splits {want}")
+                             f"bf16 planner splits {want}")
     ms = device_ms(lambda: [cbr.mm_affine_relu(*a) for a in sets], 10)[0]
     plain = device_ms(lambda: [cbr._mm_affine_relu_plain(*a) for a in sets], 10)[0]
     lib = device_ms(lambda: [torch.matmul(a[0], a[1]) for a in sets], 10)[0]
@@ -2699,7 +2756,8 @@ def check_conv_serving_bf16(batch):
             f"{len(shapes)} fused products in a row, device time", "shape": shapes,
             "dtype": "bfloat16", "max_abs_err": worst_abs, "ulps": worst,
             "tolerance": f"{CONV_BF16_Y_ULPS} bf16 ulps of each product's largest output",
-            "splits": splits, "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+            "splits": splits, "repeats_bit_for_bit": True, "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain, "library_ms": lib,
             "library": "torch.matmul(p2, w2) in bf16 for each product", "bound_ms": b,
             "bound_by": by}
 
@@ -2771,15 +2829,20 @@ def check_pool_backward_bf16(layout, shape=None, timed=True):
 def check_resnet_kernels_bf16(timed=True):
     """One entry per bf16 kernel of the ResNet path under AMP (rows 8-13 at
     layer1's 3x3 conv at batch 128, row 16 at the stem's pool in its
-    channels-last layout); the stem (K padded to 152), ragged shapes (M and
-    N off every tile, N % 8 != 0, an odd N), layer4's K = 4608, row 8 at the
-    serving batch 32 and the 33 products of batches 1 and 8 (split-K), the
-    large-mean variance and the NCHW pool ride along under
-    ``also_checked``."""
+    channels-last layout); the stem (K padded to 152), layer2's and
+    layer3's 3x3 convs (N = 128 and 256: tiles of the other widths), ragged
+    shapes (M and N off every tile, N % 8 != 0, an odd N), layer4's K =
+    4608 (N = 512: two column tiles), row 8 at the serving batch 32 and the
+    33 products of batches 1 and 8 (split-K), the large-mean variance and
+    the NCHW pool ride along under ``also_checked``."""
     import torch
 
     e8, e9 = check_conv_mm_bf16(CONV_M, CONV_K, CONV_N, "layer1 3x3, batch 128", timed)
     others = [check_conv_mm_bf16(RN_B * 112 * 112, 152, 64, "stem 7x7, batch 128, K 147 -> 152",
+                                 timed),
+              check_conv_mm_bf16(RN_B * 28 * 28, 9 * 128, 128, "layer2 3x3, batch 128 (N = 128)",
+                                 timed),
+              check_conv_mm_bf16(RN_B * 14 * 14, 9 * 256, 256, "layer3 3x3, batch 128 (N = 256)",
                                  timed),
               check_conv_mm_bf16(12345, 152, 70, "ragged", timed=False),
               check_conv_mm_bf16(1000, 24, 37, "ragged, odd N", timed=False),
@@ -3512,7 +3575,8 @@ def serve_int8():
 
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
-                 "flash_attention_bwd_bf16", "layernorm_residual_bwd", "optimizer_update",
+                 "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
+                 "optimizer_update",
                  "conv_bn_relu_mm", "conv_bn_relu_mm_bf16", "conv_bn_relu_bn", "int8_matmul",
                  "pool_backward")
 # of those, the sources whose kernels must not spill
@@ -3606,7 +3670,9 @@ def main() -> int:
     _build.build_all()
     log(f"built {', '.join(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s")
     registers = finish_ptxas(*ptxas)
-    for src in ("flash_attention_bf16", "flash_attention_bwd_bf16"):  # the wgmma kernels
+    # the wgmma kernels, and the LayerNorm forward's warp-a-row instances
+    for src in ("flash_attention_bf16", "flash_attention_bwd_bf16", "conv_bn_relu_mm_bf16",
+                "layernorm_residual"):
         for kname, info in registers[src].items():
             print(f"ptxas {src}.cu {kname}: {json.dumps(info)}")
 

@@ -1,8 +1,11 @@
 // Hopper's asynchronous machinery for the bf16 attention kernels
 // (csrc/flash_attention_bf16.cu, the forward; csrc/flash_attention_bwd_bf16.cu,
-// dQ and dK/dV): TMA tile loads into shared memory completed on mbarriers,
-// warpgroup products (wgmma) on bf16 operands read from those tiles, and the
-// forward's dropout draws.
+// dQ and dK/dV) and the bf16 conv GEMM (csrc/conv_bn_relu_mm_bf16.cu): TMA
+// tile loads into shared memory completed on mbarriers, warpgroup products
+// (wgmma) on bf16 operands read from those tiles, and the forward's dropout
+// draws. The attention reads 3-D tensor maps ([heads, rows, D]); the GEMM
+// 2-D ones ([rows, cols] with a row stride), whose MN-major operand spans
+// several 64-column panels in one product (desc_mn).
 //
 // Tiles. A [rows, D] bf16 tile of a [heads, L, D] tensor is loaded by one
 // TMA copy per 64-column panel (D = 128 is two panels, D = 64 one, D = 32 one
@@ -105,6 +108,41 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// box (c0, c1) of a 2-D tensor map into dst, completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// src into box (c0, c1) of a 2-D tensor map, in this thread's bulk group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's writes to shared memory visible to the TMA unit's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // rows [r0, r0 + R) of head bh, every panel, into tile ([kN][R][kW])
 template <int D, int R>
 __device__ __forceinline__ void tma_tile(bf16* tile, const CUtensorMap* map, uint64_t* bar, int r0,
@@ -124,6 +162,17 @@ __device__ __forceinline__ uint64_t desc(const bf16* p) {
   constexpr uint64_t kSbo = 8 * kRowBytes;                // bytes between 8-row groups
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((kSbo >> 4) << 32) |
          (kLayout << 62);
+}
+
+// the descriptor of an MN-major operand of 64-column panels ([k][64]
+// bf16, 128-byte swizzle) lying panel_bytes apart from p (a k16 step is
+// the next 16 rows): the leading byte offset steps from one 64-column
+// panel to the next, so one product spans them all; 8-row groups sit 1024
+// bytes apart
+__device__ __forceinline__ uint64_t desc_mn(const bf16* p, uint32_t panel_bytes) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((panel_bytes >> 4) & 0x3FFF) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -403,6 +452,25 @@ inline int tensor_map(CUtensorMap* map, const void* base, int heads, int rows, i
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// the tensor map of a row-major [rows, cols] bf16 matrix whose rows lie
+// row_elems apart (a multiple of 8), in boxes of box_cols (64: one
+// 128-byte swizzled row) x box_rows; what lies past rows or cols loads as
+// zeros. Returns a cudaError_t.
+inline int tensor_map_2d(CUtensorMap* map, const void* base, int64_t rows, int cols,
+                         int64_t row_elems, int box_cols, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_elems * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,8 @@
 
 Every wrapper counts its kernel's launches in a module-level integer (one
 for each dtype a kernel takes: the bf16 LayerNorm, attention, fused conv
-and max-pool backward kernels count apart from the float32 ones);
+and max-pool backward kernels count apart from the float32 ones, and the
+LayerNorm forward's mixed instance apart from both);
 :data:`KERNEL_COUNTERS` names them, :func:`launch_counts` reads them all
 and :func:`reset_launch_counts` sets them to 0, and the counts beside them
 (:data:`OTHER_COUNTERS`: the tensors the momentum launches updated, the
@@ -24,6 +25,7 @@ KERNEL_COUNTERS = {
     "flash_attention_bwd_dkv": (flash_attention, "DKV_LAUNCHES"),
     "layernorm_residual_fwd_bf16": (layernorm_residual, "BF16_LAUNCHES"),
     "layernorm_residual_bwd_bf16": (layernorm_residual, "BF16_BWD_LAUNCHES"),
+    "layernorm_residual_fwd_mixed": (layernorm_residual, "MIXED_LAUNCHES"),
     "flash_attention_fwd_bf16": (flash_attention, "BF16_LAUNCHES"),
     "flash_attention_bwd_dq_bf16": (flash_attention, "BF16_DQ_LAUNCHES"),
     "flash_attention_bwd_dkv_bf16": (flash_attention, "BF16_DKV_LAUNCHES"),

@@ -22,7 +22,9 @@ package's ``conv_general_dilated_patches``), and six kernels do the rest:
   folded ``d_co = scale * dy_relu - k3 * co - b0`` (``_bn_bwd_dco``,
   ``:496``). The matrix gradients ``d_co @ w2ᵀ`` and ``p2ᵀ @ d_co`` are
   ``torch.matmul``, as the JAX package leaves them to ``jnp.dot``, and
-  autograd through ``F.unfold`` folds ``dp2`` back into ``dx``.
+  :class:`_Unfold`'s backward folds ``dp2`` back into ``dx``, adding the
+  overlapping patches in float32 (XLA's patch VJP; on the CPU a bf16
+  ``F.fold`` would round as it adds).
 
 The float32 products run on the tensor cores in 3xTF32 (f32-accurate, not
 bit-equal to ``torch.matmul``). Every reduction writes per-block partials
@@ -34,16 +36,18 @@ hold at every batch size.
 
 bf16 (the op under AMP takes bf16 ``x`` and ``weight`` and float32 gamma,
 beta and statistics: ``nn/layers.py`` ``fused_conv_bn_relu``): the two
-products are ``csrc/conv_bn_relu_mm_bf16.cu`` (bf16 ``mma.sync`` with
-float32 sums), the four passes bf16 instances of
+products are ``csrc/conv_bn_relu_mm_bf16.cu`` (``wgmma`` with float32 sums
+from a TMA ring, persistent blocks; split-K at small M planned for its own
+resident blocks by :func:`_split_k_bf16`), the four passes bf16 instances of
 ``csrc/conv_bn_relu_bn.cu``; each counts its launches apart from the
 float32 kernel's. They round where the TPU kernels round: ``co`` to bf16
 once, its channel sums taken from the rounded values (``:245-250``), the
 affine, the statistics and every sum in float32, ``y`` rounded once;
 ``d_co`` stays float32 (``:501``) and the matrix gradients are float32
 products rounded once to the operands' type (``:560-561``). bf16 rows
-reach the GEMM in 16-byte chunks, so :func:`_as_matmul` pads K with zeros
-to a multiple of 8 (the stem's 147 to 152). float16 is refused, as the
+reach the GEMM by TMA, whose rows must lie a multiple of 16 bytes apart, so
+:func:`_as_matmul` pads K with zeros to a multiple of 8 (the stem's 147 to
+152). float16 is refused, as the
 TPU kernels never took it.
 
 A tensor on the CPU takes the plain versions (the ``_*_plain``
@@ -52,6 +56,7 @@ functions); a tensor on the card launches the kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -82,13 +87,28 @@ BF16_BN_BWD_DCO_LAUNCHES = 0
 MM_AFFINE_RELU_SPLITS = 0
 _count_lock = threading.Lock()
 
-# the GEMM's tiles (csrc/conv_bn_relu_mm.cu kBM, kBN, kBK; the bf16 GEMM,
-# csrc/conv_bn_relu_mm_bf16.cu, has the same): output rows and columns a
-# block, and the depth of one slab of K
+# the float32 GEMM's tiles (csrc/conv_bn_relu_mm.cu kBM, kBN, kBK): output
+# rows and columns a block, and the depth of one slab of K
 _TILE_ROWS, _TILE_COLS, _SLAB = 128, 64, 32
-# bf16 rows reach the bf16 GEMM in 16-byte chunks: K a multiple of 8
-# (:func:`_as_matmul` pads it), w2's rows padded to a multiple of 8 columns
+# bf16 rows reach the bf16 GEMM by TMA, 16-byte row strides: K a multiple
+# of 8 (:func:`_as_matmul` pads it), w2's rows padded to a multiple of 8
+# columns
 _BF16_ALIGN = 8
+# the bf16 GEMM (csrc/conv_bn_relu_mm_bf16.cu): the depth of one slab
+# (kBK), the rows a consumer warpgroup owns (kWgRows, also the rows of one
+# row of channel sums) and the persistent blocks an SM (kBlocksPerSm)
+_BF16_SLAB = 64
+_BF16_WG_ROWS = 128
+_BF16_BLOCKS_PER_SM = 1
+# bf16 split-K (measured on the H100: a sweep of every split of ResNet-50's
+# serving products at batches 1, 8 and 32): a split pays a work item's
+# fixed cost (its first slab's wait, its epilogue) and the in-launch reduce
+# (its partial stores, the wait for every slice, a share of the rows read
+# back), in slabs a block loads; it pays off only on a card mostly left
+# empty, at most one tile for _BF16_SPLIT_SHARE of the blocks
+_BF16_ITEM_SLABS = 6
+_BF16_REDUCE_SLABS = 14
+_BF16_SPLIT_SHARE = 4
 # split-K: a wave is the blocks the card holds at once, 2 an SM (85.5 KB of
 # shared memory each) on the H100's 132 (a batch-8 ResNet-50 forward's 33
 # products ran faster on the card planned for 264 blocks than for 132); a
@@ -252,12 +272,19 @@ def mm_affine_relu(p2, w2, scale, shift):
     k = p2.shape[1]
     p2, w2, ld = _mm_operands("mm_affine_relu", p2, w2)
     lib, sym = _mm_lib(p2)
-    slices, per = _split_k(m, k, n)
+    slices, per = (_split_k_bf16(m, k, n, _sm_count(p2.device.index)) if _bf16(p2)
+                   else _split_k(m, k, n))
     with torch.cuda.device(p2.device):
         args = (p2.data_ptr(), w2.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr())
         if slices == 1:
             err = _bind(lib, sym + "affine_relu", [_VP] * 5 + [_I64] + [_INT] * (2 + len(ld))
                         + [_VP])(*args, m, k, n, *ld, _stream(p2))
+        elif _bf16(p2):  # the ordered reduce in the same launch, on zeroed counters
+            ws = torch.empty(slices, m, n, device=p2.device, dtype=torch.float32)
+            bm, bn = _bf16_tile(n)
+            ctr = _counters(p2.device, 4 * -(-m // bm) * -(-n // bn))
+            err = _bind(lib, sym + "affine_relu_split", [_VP] * 7 + [_I64] + [_INT] * 5 + [_VP])(
+                *args, ws.data_ptr(), ctr.data_ptr(), m, k, n, *ld, slices, per, _stream(p2))
         else:
             ws = torch.empty(slices, m, n, device=p2.device, dtype=torch.float32)
             err = _bind(lib, sym + "affine_relu_split", [_VP] * 6 + [_I64] +
@@ -296,7 +323,8 @@ def mm_stats(p2, w2):
 
 
 def _split_k(m, k, n):
-    """``(slices, slice_slabs)`` for the eval product ``[m, k] @ [k, n]``:
+    """``(slices, slice_slabs)`` for the float32 eval product ``[m, k] @
+    [k, n]``:
     one slice when its output tiles fill a wave of the card; else enough
     slices of whole slabs to fill one, none shorter than
     ``_MIN_SLICE_SLABS`` slabs unless K is, and none empty."""
@@ -307,6 +335,61 @@ def _split_k(m, k, n):
     want = -(-_WAVE // tiles)
     per = min(slabs, max(_MIN_SLICE_SLABS, slabs // want))
     return -(-slabs // per), per
+
+
+def _bf16_tile(n):
+    """``(rows, cols)`` of the bf16 GEMM's output tile for ``N = n``: two
+    consumer warpgroups of 128 rows by 64 or 128 columns, one above the
+    other up to N = 128, side by side past it (the C source's ``launch``
+    picks the same)."""
+    if n <= 64:
+        return 2 * _BF16_WG_ROWS, 64
+    if n <= 128:
+        return 2 * _BF16_WG_ROWS, 128
+    return _BF16_WG_ROWS, 256
+
+
+def _split_k_bf16(m, k, n, sm_count):
+    """``(slices, slice_slabs)`` for the bf16 eval product ``[m, k] @ [k,
+    n]`` on a card of ``sm_count`` SMs. A split runs in one wave of the
+    kernel's persistent blocks (tiles x slices of them at most: its reduce
+    waits for every slice of a tile in the same launch), so the shortest
+    slices of whole 64-deep slabs (none empty) that fit one wave; it is
+    taken where the tiles leave most of the card empty and its slices, an
+    item's fixed cost and the reduce cost fewer slabs a block than the
+    unsplit rounds of whole tiles do."""
+    bm, bn = _bf16_tile(n)
+    tiles = -(-m // bm) * -(-n // bn)
+    slabs = -(-k // _BF16_SLAB)
+    wave = sm_count * _BF16_BLOCKS_PER_SM
+    unsplit = -(-tiles // wave) * (slabs + _BF16_ITEM_SLABS)
+    if tiles * _BF16_SPLIT_SHARE <= wave:
+        for per in range(1, slabs):
+            slices = -(-slabs // per)
+            if tiles * slices <= wave:
+                if per + _BF16_ITEM_SLABS + _BF16_REDUCE_SLABS < unsplit:
+                    return slices, per
+                break
+    return 1, slabs
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_split_counters = {}  # device -> int32 counters of the bf16 split-K reduce, zero between launches
+
+
+def _counters(device, count):
+    """At least ``count`` zero int32 counters on ``device`` for the bf16
+    split-K's in-launch reduce; the kernel leaves them zero, so one buffer
+    serves every launch on the device's stream."""
+    buf = _split_counters.get(device)
+    if buf is None or buf.numel() < count:
+        buf = _split_counters[device] = torch.zeros(max(count, 4096), dtype=torch.int32,
+                                                    device=device)
+    return buf
 
 
 def _reduce_rows(m, n):
@@ -529,12 +612,34 @@ def _as_matmul(x, w, stride, pad, data_format, k_multiple=1):
         if top != bottom or left != right:
             x = _F.pad(x, (left, right, top, bottom))
             top = left = 0
-        p = _F.unfold(x, (kh, kw), padding=(top, left), stride=(sh, sw))  # [N, K, OH*OW]
+        p = _Unfold.apply(x, (kh, kw), (top, left), (sh, sw))  # [N, K, OH*OW]
         p = p.transpose(1, 2)
         p2 = (_F.pad(p, (0, extra)) if extra else p).reshape(n * oh * ow, k + extra)
     w2 = w.reshape(cout, k).t()
     w2 = _F.pad(w2, (0, 0, 0, extra)) if extra else w2
     return p2.contiguous(), w2.contiguous(), (n, oh, ow)
+
+
+class _Unfold(torch.autograd.Function):
+    """``F.unfold`` whose backward adds the overlapping patches' gradients
+    in float32 and rounds once to bf16, as XLA's VJP of
+    ``conv_general_dilated_patches`` does. torch's CPU ``F.fold`` adds bf16
+    in bf16; CUDA's ``col2im`` already adds in float32, so on the card the
+    fold runs as it is."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, padding, stride):
+        ctx.geom = (tuple(x.shape[-2:]), kernel, padding, stride)
+        return _F.unfold(x, kernel, padding=padding, stride=stride)
+
+    @staticmethod
+    def backward(ctx, dp):
+        size, kernel, padding, stride = ctx.geom
+        if dp.device.type == "cpu" and _bf16(dp):
+            dx = _F.fold(dp.float(), size, kernel, padding=padding, stride=stride).bfloat16()
+        else:
+            dx = _F.fold(dp, size, kernel, padding=padding, stride=stride)
+        return dx, None, None, None
 
 
 def _supported(x, w, padding, data_format):

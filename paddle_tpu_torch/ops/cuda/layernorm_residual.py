@@ -9,7 +9,13 @@ inputs and statistics, plus per-block ``dw``/``db`` partials).
 On the H100 both kernels are bound by device memory: a few flops per
 element read or written. The forward (``csrc/layernorm_residual.cu``)
 keeps each row in registers, so the sum ``x + res`` never goes to device
-memory, and takes the variance two-pass over those registers. The
+memory, and takes the variance two-pass over those registers. It has two
+variants, which :func:`_fwd_plan` names by the kernel's own rule: a warp a
+row, read and written in 16-byte pieces, for the widths that fit a warp's
+registers (BERT's 768), and a block a row for the rest. Beside its f32 and
+bf16 instances it has a mixed one, a bf16 ``x`` on an f32 residual with a
+bf16 output (the first encoder layer's case under AMP), which adds in f32
+and rounds ``y`` once, with no cast pass. The
 backward (``csrc/layernorm_residual_bwd.cu``) recomputes ``x + res`` the
 same way, keeps the ``dw``/``db`` partials of a run of rows in registers
 and writes them per block; :func:`layernorm_residual` sums them, as the
@@ -35,10 +41,17 @@ from ...framework.autograd import amp_cast
 from . import _build
 
 __all__ = ["layernorm_residual", "layernorm_residual_fwd", "layernorm_residual_bwd",
-           "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES"]
+           "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "MIXED_LAUNCHES"]
 
 _MAX_H = 16384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward's instances by (x, residual) dtype: the C entry's `dtype`
+_FWD_DTYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+               (torch.bfloat16, torch.float32): 2}
+# the forward's row variant (a warp a row, 16-byte accesses of x): widest
+# row and warps a block (csrc/layernorm_residual.cu kRowMaxH, kRowWarps)
+_FWD_ROW_MAX_H = 1024
+_FWD_ROW_WARPS = 8
 # the backward's block variant: ~1024 blocks at BERT's 16384 rows, so the
 # partials add ~4% to the kernel's traffic and the card stays full
 _BWD_MAX_BLOCKS = 1024
@@ -50,25 +63,31 @@ _ROW_WARPS = 8
 _ROW_BLOCKS_PER_SM = 1
 
 #: kernel launches since the last reset (counted where each kernel launches):
-#: float32 and, beside them, bfloat16
+#: float32 and, beside them, bfloat16 and the mixed forward (a bf16 x on
+#: an f32 residual)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BF16_BWD_LAUNCHES = 0
+MIXED_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
-def _count(attr, dtype):
+def _count(attr, dtype, res_dtype=None):
     with _count_lock:
-        name = attr if dtype == torch.float32 else f"BF16_{attr}"
+        if res_dtype is not None and res_dtype != dtype:
+            name = f"MIXED_{attr}"
+        else:
+            name = attr if dtype == torch.float32 else f"BF16_{attr}"
         globals()[name] += 1
 
 
 def _reference(x2, r2, w, b, eps):
-    """The plain forward: the add in the input dtype, f32 statistics, the
-    output cast back to the input dtype (``_reference`` / ``_fwd_kernel``
-    of the JAX package). Returns ``(y, mean, rstd)`` with f32
-    ``mean``/``rstd`` of shape ``[rows]``."""
+    """The plain forward: the add in the input dtype (promoted, for a bf16
+    ``x`` on an f32 residual), f32 statistics, the output cast back to
+    ``x``'s dtype (``_reference`` / ``_fwd_kernel`` of the JAX package).
+    Returns ``(y, mean, rstd)`` with f32 ``mean``/``rstd`` of shape
+    ``[rows]``."""
     a = (x2 + r2).float()
     mean = a.mean(dim=-1, keepdim=True)
     var = (a - mean).square().mean(dim=-1, keepdim=True)
@@ -89,6 +108,18 @@ def _reference_bwd(x2, r2, w, mean, rstd, dy2):
     c2 = (wdy * xhat).mean(dim=-1, keepdim=True)
     da = rstd[:, None] * (wdy - c1 - xhat * c2)
     return da.to(x2.dtype), (dy * xhat).sum(0, keepdim=True), dy.sum(0, keepdim=True)
+
+
+def _fwd_plan(h, dtype):
+    """The forward kernel's variant for rows of ``h`` values of ``x``'s
+    ``dtype`` (the mixed instance goes by its bf16 ``x``): ``"row"`` (a
+    warp a row; the C entry takes it by the same rule) when ``h`` is a
+    multiple of 32 lanes x 16 bytes of ``x`` and at most
+    ``_FWD_ROW_MAX_H``, else ``"block"`` (a block a row). The grid is the
+    kernel's: the blocks the card holds at once, each warp walking its
+    share of the rows."""
+    width = 32 * 16 // dtype.itemsize
+    return "row" if h % width == 0 and h <= _FWD_ROW_MAX_H else "block"
 
 
 def _bwd_plan(rows, h, dtype, sm_count):
@@ -126,7 +157,9 @@ _FWD_ARGS = [_VP] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_
 _BWD_ARGS = [_VP] * 9 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]
 
 
-def _check(x2, r2, *params):
+def _check(x2, r2, *params, mixed=False):
+    """Shapes, and the residual's dtype: ``x``'s, or (``mixed``, the
+    forward) f32 under a bf16 ``x``."""
     if x2.dim() != 2 or r2.shape != x2.shape:
         raise ValueError(f"layernorm_residual: x {tuple(x2.shape)} and residual "
                          f"{tuple(r2.shape)} must be the same [rows, H]")
@@ -134,7 +167,8 @@ def _check(x2, r2, *params):
     if any(p.shape != (h,) for p in params):
         raise ValueError(f"layernorm_residual: weight/bias must be [{h}], got "
                          f"{[tuple(p.shape) for p in params]}")
-    if r2.dtype != x2.dtype:
+    if r2.dtype != x2.dtype and not (
+            mixed and (x2.dtype, r2.dtype) == (torch.bfloat16, torch.float32)):
         raise ValueError(f"layernorm_residual: x is {x2.dtype}, residual {r2.dtype}")
 
 
@@ -148,10 +182,18 @@ def _check_kernel(x2, tensors):
         raise ValueError(f"layernorm_residual: kernel takes 0 < H <= {_MAX_H}, got {h}")
 
 
+def _aligned(t):
+    """``t``, or a copy of it when its base is off 16 bytes (the row
+    variant reads w and b 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
-    """``(y, mean, rstd)`` for ``[rows, H]`` inputs: the kernel on the card,
-    :func:`_reference` on the CPU."""
-    _check(x2, r2, w, b)
+    """``(y, mean, rstd)`` for ``[rows, H]`` inputs, ``y`` in ``x``'s
+    dtype; the residual is of ``x``'s dtype, or f32 under a bf16 ``x`` (the
+    mixed instance). The kernel on the card, :func:`_reference` on the
+    CPU."""
+    _check(x2, r2, w, b, mixed=True)
     if x2.device.type == "cpu":
         return _reference(x2, r2, w, b, eps)
     rows = x2.shape[0]
@@ -161,8 +203,11 @@ def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
     _check_kernel(x2, (r2, w, b))
     if not (x2.is_contiguous() and r2.is_contiguous()):
         raise ValueError("layernorm_residual: x and residual must be contiguous")
-    w = w.float().contiguous()
-    b = b.float().contiguous()
+    w = _aligned(w.float().contiguous())
+    b = _aligned(b.float().contiguous())
+    if (_fwd_plan(x2.shape[1], x2.dtype) == "row"
+            and any(t.data_ptr() % 16 for t in (x2, r2))):
+        raise ValueError("layernorm_residual: x and residual must be 16-byte aligned")
     y = torch.empty_like(x2)
     mean = torch.empty(rows, device=x2.device, dtype=torch.float32)
     rstd = torch.empty(rows, device=x2.device, dtype=torch.float32)
@@ -171,9 +216,9 @@ def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
         err = _bind("layernorm_residual", "ptt_layernorm_residual_fwd", _FWD_ARGS)(
             x2.data_ptr(), r2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), rows, x2.shape[1], float(eps),
-            _DTYPES[x2.dtype], stream)
+            _FWD_DTYPES[(x2.dtype, r2.dtype)], stream)
     _build.check(err, "layernorm_residual_fwd")
-    _count("LAUNCHES", x2.dtype)
+    _count("LAUNCHES", x2.dtype, r2.dtype)
     return y, mean, rstd
 
 
@@ -221,7 +266,10 @@ def layernorm_residual_bwd(x2, r2, w, mean, rstd, dy2):
 
 class _LayerNormResidual(torch.autograd.Function):
     """Forward and backward through the two entries above (the module's
-    names are looked up at call time)."""
+    names are looked up at call time). The mixed case saves its bf16 ``x``
+    and f32 residual as they are; its backward takes both, and ``dy``, to
+    f32 for the f32 backward entry and gives ``x`` its gradient in bf16,
+    the residual its gradient in f32."""
 
     @staticmethod
     def forward(ctx, x2, r2, w, b, eps):
@@ -233,8 +281,10 @@ class _LayerNormResidual(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2, r2, w, mean, rstd = ctx.saved_tensors
-        da, dwp, dbp = layernorm_residual_bwd(x2, r2, w, mean, rstd, dy.contiguous())
-        return da, da, dwp.sum(0).to(w.dtype), dbp.sum(0).to(ctx.b_dtype), None
+        xt = x2.to(r2.dtype)
+        da, dwp, dbp = layernorm_residual_bwd(xt, r2, w, mean, rstd,
+                                              dy.to(r2.dtype).contiguous())
+        return da.to(x2.dtype), da, dwp.sum(0).to(w.dtype), dbp.sum(0).to(ctx.b_dtype), None
 
 
 def layernorm_residual(x, residual, weight, bias, epsilon=1e-5):
@@ -246,14 +296,17 @@ def layernorm_residual(x, residual, weight, bias, epsilon=1e-5):
     layer's do under AMP (a bf16 attention output on the f32 embedding
     output): the sum is promoted, the statistics are f32 and the output
     takes ``x``'s dtype (``_reference``,
-    ``paddle_tpu/ops/pallas/layernorm_residual.py:110-119``). Both go to
-    the promoted dtype and the output is rounded back to ``x``'s, which is
-    that computation; autograd gives each input its gradient in its own
-    dtype."""
+    ``paddle_tpu/ops/pallas/layernorm_residual.py:110-119``). A bf16 ``x``
+    on an f32 residual takes the mixed kernel as they are; any other mix
+    goes to the promoted dtype and the output is rounded back to ``x``'s,
+    which is the same computation. Autograd gives each input its gradient
+    in its own dtype."""
     x, residual, weight, bias = amp_cast("fused_layernorm_residual",
                                          [x, residual, weight, bias])
     h = x.shape[-1]
-    ct = torch.promote_types(x.dtype, residual.dtype)
-    y = _LayerNormResidual.apply(x.reshape(-1, h).to(ct), residual.reshape(-1, h).to(ct),
+    xt = rt = torch.promote_types(x.dtype, residual.dtype)
+    if (x.dtype, residual.dtype) == (torch.bfloat16, torch.float32):
+        xt = x.dtype  # the mixed instance: no cast
+    y = _LayerNormResidual.apply(x.reshape(-1, h).to(xt), residual.reshape(-1, h).to(rt),
                                  weight, bias, float(epsilon))
     return y.reshape(x.shape).to(x.dtype)

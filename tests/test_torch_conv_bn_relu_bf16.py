@@ -194,11 +194,11 @@ def _operands(geom, seed=0):
 def test_op_bf16_gradients_match_jax_vjp_of_the_fused_kernels(geom, training):
     """The whole op on bf16 x and weight against ``jax.vjp`` of ``_fused(...,
     interpret=True, force=True)``: y, the running statistics, dw and dx.
-    dw is bit-equal (read: bit-equal); dx too where the patches are the
-    input (1x1). A KxK conv folds its patches' gradients back: on the CPU
-    torch's bf16 ``F.fold`` rounds as it adds where XLA adds in float32
-    (ROADMAP Queue C; CUDA's col2im adds in float32), so dx is held to 2
-    ulps of its largest entry there (read: 1 and 2)."""
+    dw and dx are bit-equal (read: bit-equal). A KxK conv folds its
+    patches' gradients back in float32 and rounds once, as XLA's patch VJP
+    does (``_Unfold``); folding in bf16, as torch's CPU ``F.fold`` does,
+    put dx up to 2 ulps of its largest entry off (51% of the entries of the
+    3x3 case)."""
     n, c, h, co, k, s, p = GEOMS[geom]
     x, w, g, b, m, v, dy = _operands(GEOMS[geom])
     kw = dict(stride=s, padding=p, training=training, momentum=0.9, eps=1e-5,
@@ -219,13 +219,35 @@ def test_op_bf16_gradients_match_jax_vjp_of_the_fused_kernels(geom, training):
     dx, dw = _f32(ts[0].grad), _f32(ts[1].grad)
     jdx, jdw = _f32(want[0]), _f32(want[1])
     np.testing.assert_array_equal(dw, jdw)
-    if k == 1:
-        np.testing.assert_array_equal(dx, jdx)
-    else:
-        assert np.abs(dx - jdx).max() <= 2 * _ulp(np.abs(jdx).max())
+    np.testing.assert_array_equal(dx, jdx)
     for t, ref in zip(ts[2:], want[2:]):
         ref = np.asarray(ref)
         np.testing.assert_allclose(t.grad.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("geom", ["3x3_s2", "3x3", "7x7_s2"])
+def test_patch_gradient_folds_bf16_in_float32_as_xla(geom):
+    """The lowering's patch gradient alone: ``dx`` of ``_as_matmul``'s p2
+    against ``jax.vjp`` of the JAX package's ``_as_matmul``
+    (``conv_general_dilated_patches``), whose VJP adds the overlapping
+    patches in float32 and rounds once. Bit-equal; a fold that adds in bf16
+    differs in most entries of a 3x3 conv."""
+    n, c, h, k, s, p = {"3x3_s2": (2, 3, 17, 3, 2, 1), "3x3": (2, 8, 9, 3, 1, 1),
+                        "7x7_s2": (1, 3, 20, 7, 2, 3)}[geom]
+    rng = np.random.RandomState(5)
+    x = rng.randn(n, c, h, h).astype("f4")
+    w = np.zeros((4, c, k, k), "f4")
+    pad = [(p, p), (p, p)]
+    oh = (h + 2 * p - k) // s + 1
+    dp = rng.randn(n * oh * oh, c * k * k).astype("f4")
+    p2, vjp = jax.vjp(lambda a: cbr._as_matmul(a, _jb(w), s, pad, "NCHW")[0], _jb(x))
+    want = _f32(vjp(_jb(dp))[0])
+    tx = _tb(x).requires_grad_()
+    tp2, _, _ = tcbr._as_matmul(tx, _tb(w), s, pad, "NCHW")
+    tp2.backward(_tb(dp))
+    np.testing.assert_array_equal(_f32(tp2), _f32(p2))
+    assert tx.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(tx.grad), want)
 
 
 # -- the K padding ------------------------------------------------------------------

@@ -336,24 +336,119 @@ def test_mixed_bf16_x_and_f32_residual_match_jax_reference_and_vjp(rows, h):
 
 
 def test_mixed_dtypes_take_the_f32_kernel_entries_and_round_back(monkeypatch):
-    """The card's route for the mixed case: both inputs go to f32, the f32
-    forward and backward entries run (here their plain versions), and the
-    output rounds back to bf16; the gradient of x rounds to bf16 on its way
-    back. Equal, bit for bit, to the CPU route."""
+    """The card's route for the mixed case: the forward entry takes the
+    bf16 x and the f32 residual as they are (the mixed kernel, no cast
+    pass) and returns a bf16 output; the Function saves them uncast; the
+    backward takes x and dy to f32 for the f32 backward entry and rounds
+    the gradient of x back to bf16. Equal, bit for bit, to the CPU route."""
     x, r, w, b = _inputs(6, 128, seed=31)
     dy = np.random.RandomState(32).randn(6, 128).astype("f4")
     want_y, want = _mixed_grads(x, r, w, b, dy)
     seen = []
-    monkeypatch.setattr(tlnr, "layernorm_residual_fwd",
-                        lambda *a: seen.append(tuple(t.dtype for t in a[:2]))
-                        or tlnr._reference(*a))
+
+    def fwd(*a):
+        seen.append(("fwd", a[0].dtype, a[1].dtype))
+        out = tlnr._reference(*a)
+        seen.append(("y", out[0].dtype))
+        return out
+
+    monkeypatch.setattr(tlnr, "layernorm_residual_fwd", fwd)
     monkeypatch.setattr(tlnr, "layernorm_residual_bwd",
-                        lambda *a: seen.append(a[-1].dtype) or tlnr._reference_bwd(*a))
+                        lambda *a: seen.append(("bwd", a[0].dtype, a[1].dtype, a[-1].dtype))
+                        or tlnr._reference_bwd(*a))
     got_y, got = _mixed_grads(x, r, w, b, dy)
-    assert seen == [(torch.float32, torch.float32), torch.float32]
+    assert seen == [("fwd", torch.bfloat16, torch.float32), ("y", torch.bfloat16),
+                    ("bwd", torch.float32, torch.float32, torch.float32)]
     assert torch.equal(got_y, want_y)
     for g, t in zip(got, want):
         assert torch.equal(g.grad, t.grad)
+
+
+@pytest.mark.parametrize("rows,h", [(37, 256), (8, 768), (5, 1000)])
+def test_mixed_entry_matches_jax_reference(rows, h):
+    """The mixed forward entry's plain version on a bf16 x and an f32
+    residual against the JAX ``_reference`` on the same arrays: the sum in
+    f32 (bf16 x widened, no rounding), f32 statistics, y rounded to bf16
+    once; to 1 bf16 ulp of the largest output (f32 sums in other orders),
+    mean and rstd to 1e-5."""
+    x, r, w, b = _inputs(rows, h, seed=rows + 40)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16()
+    y, mean, rstd = tlnr.layernorm_residual_fwd(tx, torch.from_numpy(r), torch.from_numpy(w),
+                                                torch.from_numpy(b), EPS)
+    assert y.dtype == torch.bfloat16 and mean.dtype == rstd.dtype == torch.float32
+    want = np.asarray(lnr._reference(jx, jnp.asarray(r), jnp.asarray(w), jnp.asarray(b), EPS)
+                      .astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(y.float().numpy() - want).max() <= ulp
+    a = np.asarray(jx.astype(jnp.float32)) + r  # the f32 sum, unrounded
+    np.testing.assert_allclose(mean.numpy(), a.mean(-1), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(rstd.numpy(), 1 / np.sqrt(a.var(-1) + EPS), rtol=1e-5)
+    # the bf16 instance rounds the sum first: the mixed case must not
+    ybf, _, _ = tlnr.layernorm_residual_fwd(tx, torch.from_numpy(r).bfloat16(),
+                                            torch.from_numpy(w), torch.from_numpy(b), EPS)
+    assert not torch.equal(ybf, y)
+
+
+def test_mixed_entry_refuses_off_cpu_and_other_mixes_and_counts_apart():
+    """The mixed forward entry goes to the kernel path off the CPU, which
+    refuses a tensor not on a CUDA device; only a bf16 x on an f32 residual
+    is a mixed instance (an f32 x on a bf16 residual is refused by the
+    entry); the plain version counts no launch, and the mixed launches
+    count apart, listed in ``KERNEL_COUNTERS``."""
+    from paddle_tpu_torch.ops import cuda
+
+    w = torch.empty(768, device="meta")
+    xb = torch.empty(4, 768, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlnr.layernorm_residual_fwd(xb, xb.float(), w, w)
+    with pytest.raises(ValueError, match="residual"):
+        tlnr.layernorm_residual_fwd(torch.zeros(4, 128), torch.zeros(4, 128).bfloat16(),
+                                    torch.ones(128), torch.zeros(128))
+    with pytest.raises(ValueError, match="residual"):  # the backward takes one dtype
+        tlnr.layernorm_residual_bwd(torch.zeros(4, 128).bfloat16(), torch.zeros(4, 128),
+                                    torch.ones(128), torch.zeros(4), torch.ones(4),
+                                    torch.zeros(4, 128).bfloat16())
+    assert cuda.KERNEL_COUNTERS["layernorm_residual_fwd_mixed"] == (tlnr, "MIXED_LAUNCHES")
+    before = (tlnr.LAUNCHES, tlnr.BF16_LAUNCHES, tlnr.MIXED_LAUNCHES)
+    x, r, wn, b = _inputs(4, 256, seed=1)
+    tlnr.layernorm_residual_fwd(torch.from_numpy(x).bfloat16(), torch.from_numpy(r),
+                                torch.from_numpy(wn), torch.from_numpy(b))
+    assert (tlnr.LAUNCHES, tlnr.BF16_LAUNCHES, tlnr.MIXED_LAUNCHES) == before
+    tlnr._count("LAUNCHES", torch.bfloat16, torch.float32)
+    assert (tlnr.LAUNCHES, tlnr.BF16_LAUNCHES, tlnr.MIXED_LAUNCHES) == (
+        before[0], before[1], before[2] + 1)
+
+
+@pytest.mark.parametrize("h,dtype,variant", [
+    (768, torch.float32, "row"), (768, torch.bfloat16, "row"), (1024, torch.float32, "row"),
+    (128, torch.float32, "row"), (256, torch.bfloat16, "row"), (384, torch.bfloat16, "block"),
+    (1000, torch.bfloat16, "block"), (1152, torch.float32, "block"),
+    (4096, torch.bfloat16, "block"), (100, torch.float32, "block"),
+    (16384, torch.float32, "block")])
+def test_forward_plan_picks_the_variant(h, dtype, variant):
+    """The forward's row variant takes H a multiple of 32 lanes x 16 bytes
+    of x (128 f32, 256 bf16; the mixed instance goes by its bf16 x) up to
+    1024; every other width takes the block variant."""
+    assert tlnr._fwd_plan(h, dtype) == variant
+
+
+def test_forward_plan_mirrors_the_kernel_source():
+    """The forward's C entry picks the variant by the same rule: its
+    constants equal the wrapper's, and its three instances are the
+    wrapper's dtype codes."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tlnr.__file__), "..", "..", "csrc",
+                            "layernorm_residual.cu")).read()
+    consts = dict(re.findall(r"constexpr int (kRow\w+) = (\d+);", src))
+    assert int(consts["kRowWarps"]) == tlnr._FWD_ROW_WARPS
+    assert int(consts["kRowMaxH"]) == tlnr._FWD_ROW_MAX_H
+    codes = re.findall(r"if \(dtype == (\d)\) return launch<(\w+), (\w+)>", src)
+    names = {torch.float32: "float", torch.bfloat16: "bf16"}
+    assert {int(c): (tx, tr) for c, tx, tr in codes} == {
+        code: (names[xd], names[rd]) for (xd, rd), code in tlnr._FWD_DTYPES.items()}
 
 
 def test_bf16_and_mixed_reach_the_kernel_path_and_float16_is_refused():

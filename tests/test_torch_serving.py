@@ -107,7 +107,8 @@ def test_predict_matches_predictor_run_and_padding_is_inert(server, predictor):
         "conv_bn_relu_mm_stats", "conv_bn_relu_centered_sumsq", "conv_bn_relu_bn_relu",
         "conv_bn_relu_bn_bwd_partials", "conv_bn_relu_bn_bwd_dco", "momentum_update",
         "int8_matmul", "max_pool2d_backward", "layernorm_residual_fwd_bf16",
-        "layernorm_residual_bwd_bf16", "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+        "layernorm_residual_bwd_bf16", "layernorm_residual_fwd_mixed",
+        "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
         "flash_attention_bwd_dkv_bf16", "conv_bn_relu_mm_affine_relu_bf16",
         "conv_bn_relu_mm_stats_bf16", "conv_bn_relu_centered_sumsq_bf16",
         "conv_bn_relu_bn_relu_bf16", "conv_bn_relu_bn_bwd_partials_bf16",
