@@ -103,6 +103,21 @@ Phases, each fatal on failure:
     memory and a profiled step in which no fused conv product runs outside
     the bf16 kernel; then one eval forward under ``auto_cast`` at batch 32
     (33 bf16 eval kernels) against the CPU's plain path;
+12b. the compiled step (``train_step(jit=True)``, ``eval_step``: CUDA graphs
+    through ``runtime/compiled.py``): bench's BERT-base AMP step and
+    ResNet-50 AMP step, each first held from one state over 3 calls (the
+    eager first step and 2 replays) against the same calls run eagerly,
+    bit for bit wherever an eager control repeats itself bit for bit, with
+    BERT's dropout masks and attention seeds equal to the eager step's and
+    different between replays, a replay at lr 0 leaving every weight
+    bit-identical and one at the lr moving them; then the eager
+    (``jit=False``) and the captured step side by side from the same
+    weights, 10 steps each (median, host clock, device busy, peak memory,
+    launches a step, which must be equal); ``eval_step`` of ResNet-50 under
+    AMP at batch 1 and 8 (captured logits bit-equal to eager, wall against
+    busy); and the refusals: a capture that cannot be made raises and no
+    step runs eagerly in its place, and ``GradScaler`` raises inside a
+    compiled step;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1086,12 +1101,14 @@ def _pretraining(cfg, seed):
     return model, loss_fn
 
 
-def _step_of(model, loss_fn, device=None):
+def _step_of(model, loss_fn, device=None, jit=False):
+    """bench.py's BERT step: AdamW lr 1e-4. ``jit=False`` (the eager step)
+    unless the caller asks for the compiled one."""
     from paddle_tpu_torch.framework.jit import train_step
     from paddle_tpu_torch.optimizer import AdamW
 
     return train_step(model, AdamW(learning_rate=1e-4, parameters=model.parameters()), loss_fn,
-                      device=device)
+                      device=device, jit=jit)
 
 
 def _grad_errors(model, ref_model):
@@ -2151,6 +2168,7 @@ def check_momentum(shapes, label, variants, timed=True):
     g = torch.Generator(device="cuda").manual_seed(23)
     mk = lambda: [torch.randn(s, generator=g, device="cuda") for s in shapes]  # noqa: E731
     params, grads, vels = mk(), mk(), mk()
+    lr = torch.full((), RN_LR, dtype=torch.float32, device="cuda")  # read by pointer, as a step's
     launches = len(ou.launch_groups([int(np.prod(s)) for s in shapes]))
     diff = 0
     for nesterov, wd in variants:
@@ -2158,7 +2176,7 @@ def check_momentum(shapes, label, variants, timed=True):
         want = [ou._plain_update(a, b, c, RN_LR, RN_MOMENTUM, wd, nesterov)
                 for a, b, c in zip(p, grads, v)]
         before = ou.LAUNCHES
-        ou.fused_momentum_update_multi(p, grads, v, RN_LR, RN_MOMENTUM, wd, nesterov)
+        ou.fused_momentum_update_multi(p, grads, v, lr, RN_MOMENTUM, wd, nesterov)
         torch.cuda.synchronize()
         if ou.LAUNCHES - before != launches:
             raise AssertionError(f"momentum update {label}: {ou.LAUNCHES - before} launches, "
@@ -2174,7 +2192,7 @@ def check_momentum(shapes, label, variants, timed=True):
              "source": "paddle_tpu_torch/csrc/optimizer_update.cu",
              "replaces": "paddle_tpu/ops/pallas/optimizer_update.py:167", "label": label,
              "parameters": len(shapes), "elements": n, "launches_per_update": launches,
-             "dtype": "float32",
+             "dtype": "float32", "lr": "float32 read from device memory",
              "variants": [{"nesterov": a, "weight_decay": b} for a, b in variants],
              "max_abs_err": 0.0, "elements_differing": 0, "tolerance": "bit-exact",
              "bound_ms": b_ms, "bound_by": by}
@@ -2195,7 +2213,7 @@ def check_momentum(shapes, label, variants, timed=True):
         return sets[turn[0] % copies]
 
     def kernel_all():
-        ou.fused_momentum_update_multi(*next_set(), RN_LR, RN_MOMENTUM)
+        ou.fused_momentum_update_multi(*next_set(), lr, RN_MOMENTUM)
 
     def plain_all():
         for a, b, c in zip(*next_set()):
@@ -2405,12 +2423,14 @@ def _rn_loss(m, x, y):
     return F.cross_entropy(m(x), y)
 
 
-def _rn_step_of(model, device=None, loss_fn=_rn_loss):
+def _rn_step_of(model, device=None, loss_fn=_rn_loss, jit=False):
+    """bench.py's ResNet step: Momentum lr 0.1, momentum 0.9. ``jit=False``
+    (the eager step) unless the caller asks for the compiled one."""
     from paddle_tpu_torch.framework.jit import train_step
     from paddle_tpu_torch.optimizer import Momentum
 
     opt = Momentum(learning_rate=RN_LR, momentum=RN_MOMENTUM, parameters=model.parameters())
-    return train_step(model, opt, loss_fn, device=device)
+    return train_step(model, opt, loss_fn, device=device, jit=jit)
 
 
 def _buffer_errors(model, ref_model):
@@ -3067,6 +3087,686 @@ def eval_resnet_amp():
     return counts, {"logits_rel_err": err, "f32_forward_rel_err": c_err, "forward_ms": ms}
 
 
+# -- the compiled step: captured CUDA graphs (runtime/compiled.py) -------------------
+
+COMPILED_STEPS = 10  # timed steps of each of the eager and the captured step
+PARITY_CALLS = 3  # the compiled step's eager first step and 2 replays
+PARITY_SEED = 21
+# BERT's AMP step does not repeat itself bit for bit on the card: torch's
+# embedding backward over the position and token-type ids differs run to
+# run, and two eager runs of 3 steps part in 80% of the weights. Its
+# captured losses are held to an atol near the geometric mean of the
+# captured reading and the stale-input control, read on an NVIDIA H100
+# 80GB HBM3 at 700.00 W:
+# captured 1.24e-3 and 9.6e-4 (eager against eager 1.19e-3 and 1.62e-3),
+# stale 3.0
+BERT_COMPILED_LOSS_ATOL = 5e-2
+# AdamW's moments after the 3 calls, relative L2 distance captured/eager,
+# by the same rule, read on the same card: captured 2.7e-3 (eager against
+# eager 2.44e-3), stale 0.269
+BERT_COMPILED_MOMENT_RTOL = 3e-2
+
+
+@contextlib.contextmanager
+def _recorded_draws():
+    """Every random draw of the port (``framework.random.draw``: dropout
+    masks, attention seeds) copied as it is made. Eager draws go to the
+    list last appended to ``rec["eager"]``; the draws a capture records go
+    to ``rec["graph"]`` as copies the graph itself makes, so after each
+    replay they hold that replay's draws."""
+    import torch
+
+    from paddle_tpu_torch.framework import random as prandom
+
+    rec = {"eager": [], "graph": []}
+    orig = prandom.draw
+
+    def recording(device, generator, fn):
+        out = orig(device, generator, fn)
+        if torch.cuda.is_current_stream_capturing():
+            rec["graph"].append(out.clone())
+        elif rec["eager"]:
+            rec["eager"][-1].append(out.clone())
+        return out
+
+    prandom.draw = recording
+    try:
+        yield rec
+    finally:
+        prandom.draw = orig
+
+
+def _snapshot(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _differing(a, b):
+    """Entries of two lists of tensors that differ in any bit."""
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def _same_draws(a, b):
+    return len(a) == len(b) and all(torch_equal(x, y) for x, y in zip(a, b))
+
+
+def torch_equal(x, y):
+    import torch
+
+    return x.shape == y.shape and bool(torch.equal(x, y))
+
+
+# launch counter (ops/cuda KERNEL_COUNTERS, less a "_bf16") -> the kind its
+# kernel has in a profile (_kernel_kind); the others are named alike
+_COUNTER_KINDS = {"conv_bn_relu_mm_affine_relu": "conv_mm", "conv_bn_relu_mm_stats": "conv_mm",
+                  "conv_bn_relu_centered_sumsq": "bn_reduce",
+                  "conv_bn_relu_bn_bwd_partials": "bn_reduce",
+                  "conv_bn_relu_bn_relu": "bn_elementwise",
+                  "conv_bn_relu_bn_bwd_dco": "bn_elementwise", "momentum_update": "momentum",
+                  "int8_matmul": "int8_mm", "max_pool2d_backward": "pool_bwd"}
+
+
+def _counter_kind(name):
+    base, bf16 = (name[:-len("_bf16")], "_bf16") if name.endswith("_bf16") else (name, "")
+    return _COUNTER_KINDS.get(base, base) + bf16
+
+
+def _booked_by_kind(counts):
+    out = {}
+    for name, n in counts.items():
+        if n:
+            kind = _counter_kind(name)
+            out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def _profiled_launches(prof):
+    """Launches of the port's kernels that a profile saw run on the card, by
+    kind: in a replayed graph too, where no wrapper counts. The f32 split-K
+    reduce is the second kernel of one counted launch and is left out."""
+    from paddle_tpu_torch.ops.cuda import KERNEL_COUNTERS
+
+    ours = {_counter_kind(n) for n in KERNEL_COUNTERS}
+    out = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") or "conv_mm_reduce" in e.key:
+            continue
+        kind = _kernel_kind(e.key)
+        if kind in ours:
+            out[kind] = out.get(kind, 0) + e.count
+    return out
+
+
+def _check_profiled_launches(prof, booked, label):
+    """The port's kernels the profile saw run equal, kind by kind, the
+    launches the wrappers and the store booked over the same call (a graph
+    that dropped or repeated a launch would part them). Returns the
+    profile's counts."""
+    seen, want = _profiled_launches(prof), _booked_by_kind(booked)
+    if seen != want or not seen:
+        raise AssertionError(f"{label}: the profile saw the port's kernels run {seen}; "
+                             f"the counters booked {want}")
+    return seen
+
+
+def _rel_l2(a, b):
+    """Relative L2 distance of two lists of tensors, over all their
+    entries (float64 sums)."""
+    num = sum(float((x.double() - y.double()).square().sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().square().sum()) for y in b)
+    return (num / den) ** 0.5 if den else float(num > 0)
+
+
+def compiled_parity(make_model, make_step, batches, label, lr, draws, loss_atol,
+                    moment_rtol):
+    """From identical weights and generator state, ``PARITY_CALLS`` calls on
+    the batches ``b0, b1, b0`` of: the compiled step (its eager first step,
+    then replays); the same calls run eagerly (``TrainStepFn.eager``: the
+    same arithmetic, no graph); those eager calls once more (the repeat:
+    whether eager repeats itself bit for bit); and eager calls on ``b0``
+    three times (the stale-input control: what a replay that missed its
+    new batch would compute). Where the repeat is bit-exact the captured
+    losses and weights must equal the eager ones bit for bit; else each
+    captured loss must lie within ``loss_atol`` of the eager one, and the
+    stale control beyond it. The optimizer's accumulators (AdamW's
+    moments, Momentum's velocities) are held the same way (bit for bit, or
+    a relative L2 distance within ``moment_rtol`` with the stale control
+    beyond it), and every run's host and device step counts must both be
+    ``PARITY_CALLS`` (a graph that froze the step count would leave the
+    device's behind). With ``draws``, every random draw of the
+    captured calls must equal the eager step's and every draw of the second
+    replay differ from the first's (a frozen seed would repeat it). Then a
+    replay at lr 0 must leave every weight bit-identical and one at ``lr``
+    move them (a frozen lr would not). Returns the readings."""
+    from paddle_tpu_torch.framework import random as prandom
+
+    base = make_model()
+    order = (batches[0], batches[1], batches[0])
+    runs = {}
+    with _recorded_draws() as rec:
+        for name in ("captured", "eager", "repeat", "stale"):
+            model = copy.deepcopy(base)
+            step = make_step(model)
+            prandom.seed(PARITY_SEED)
+            losses, step_draws, grads = [], [], None
+            for i in range(PARITY_CALLS):
+                rec["eager"].append([])
+                b = batches[0] if name == "stale" else order[i]
+                out = step(*b) if name == "captured" else step.eager(*b)
+                losses.append(float(out["loss"]))
+                step_draws.append([g.clone() for g in rec["graph"]]
+                                  if name == "captured" and i else rec["eager"][-1])
+                if i == 0 and name in ("eager", "repeat"):
+                    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            opt = step.optimizer
+            runs[name] = {"losses": losses, "params": _snapshot(model), "grads": grads,
+                          "moments": [a.clone() for accs in opt._accumulators.values()
+                                      for a in accs],
+                          "step_count": (opt._global_step, int(opt._step_t)),
+                          "draws": step_draws if draws and name in ("captured", "eager")
+                          else None}
+            rec["graph"].clear()
+            rec["eager"].clear()
+            if name == "captured":
+                runs[name].update(step=step, model=model)
+            del step, model
+    cap, eag, rep, stale = (runs.pop(k) for k in ("captured", "eager", "repeat", "stale"))
+    entries = cap["step"].store.entries()
+    r = {"losses_captured": cap["losses"], "losses_eager": eag["losses"],
+         "losses_repeat": rep["losses"], "losses_stale": stale["losses"],
+         "loss_err": max(abs(a - b) for a, b in zip(cap["losses"], eag["losses"])),
+         "repeat_loss_err": max(abs(a - b) for a, b in zip(rep["losses"], eag["losses"])),
+         "stale_loss_err": abs(stale["losses"][1] - eag["losses"][1]),
+         "loss_atol": loss_atol,
+         "params_differing": _differing(cap["params"], eag["params"]),
+         "repeat_params_differing": _differing(rep["params"], eag["params"]),
+         "params": sum(int(p.numel()) for p in cap["params"]),
+         "step_counts": {"captured": cap["step_count"], "eager": eag["step_count"]},
+         "moments_differing": _differing(cap["moments"], eag["moments"]),
+         "repeat_moments_differing": _differing(rep["moments"], eag["moments"]),
+         "moments": sum(int(a.numel()) for a in cap["moments"]),
+         "moment_err": _rel_l2(cap["moments"], eag["moments"]),
+         "repeat_moment_err": _rel_l2(rep["moments"], eag["moments"]),
+         "stale_moment_err": _rel_l2(stale["moments"], eag["moments"]),
+         "moment_rtol": moment_rtol,
+         "repeat_first_grads_differing": sorted(
+             n for n in eag["grads"] if not torch_equal(eag["grads"][n], rep["grads"][n])),
+         "store": {"entries": len(entries), "hits": cap["step"].store.hits,
+                   "misses": cap["step"].store.misses,
+                   "cache_keys": [e.cache_key for e in entries.values()]}}
+    repeat_exact = r["repeat_loss_err"] == 0 and r["repeat_params_differing"] == 0
+    if draws:
+        r["draws_a_step"] = len(eag["draws"][0])
+        r["draws_equal_eager"] = [_same_draws(c, e) for c, e in zip(cap["draws"], eag["draws"])]
+        r["replay_draws_differing"] = sum(not torch_equal(a, b) for a, b in
+                                          zip(cap["draws"][1], cap["draws"][2]))
+    eag = rep = stale = None
+    step, model = cap["step"], cap["model"]
+    before = _snapshot(model)
+    step.optimizer.set_lr(0.0)
+    step(*batches[0])
+    r["lr0_params_differing"] = _differing(before, _snapshot(model))
+    step.optimizer.set_lr(lr)
+    step(*batches[0])
+    r["lr_params_differing"] = _differing(before, _snapshot(model))
+    log(f"{label} parity, calls on b0, b1, b0 from one state: losses captured "
+        f"{r['losses_captured']}, eager {r['losses_eager']}, eager repeat "
+        f"{r['losses_repeat']}, stale (b0 thrice) {r['losses_stale']}; loss err captured/eager "
+        f"{r['loss_err']:.3g}, repeat/eager {r['repeat_loss_err']:.3g}, stale/eager "
+        f"{r['stale_loss_err']:.3g} (atol {loss_atol}); weights differing captured/eager "
+        f"{r['params_differing']}, repeat/eager {r['repeat_params_differing']} of "
+        f"{r['params']}; first-step gradients differing repeat/eager "
+        f"{len(r['repeat_first_grads_differing'])}: {r['repeat_first_grads_differing'][:12]}; "
+        f"draws equal to the eager step's {r.get('draws_equal_eager')}, differing between "
+        f"replays {r.get('replay_draws_differing')} of {r.get('draws_a_step')}; a replay at lr 0 "
+        f"moved {r['lr0_params_differing']} weights, one at lr {lr} "
+        f"{r['lr_params_differing']}; store {r['store']}; step counts (host, device) "
+        f"{r['step_counts']}; accumulator entries differing captured/eager "
+        f"{r['moments_differing']}, repeat/eager {r['repeat_moments_differing']} of "
+        f"{r['moments']}, relative L2 captured/eager {r['moment_err']:.3g}, repeat/eager "
+        f"{r['repeat_moment_err']:.3g}, stale/eager {r['stale_moment_err']:.3g} "
+        f"(rtol {moment_rtol})")
+    if draws and (not all(r["draws_equal_eager"]) or not r["draws_a_step"]):
+        raise AssertionError(f"{label}: the captured step's random draws differ from the "
+                             f"eager step's from the same generator state: {r}")
+    if draws and r["replay_draws_differing"] != r["draws_a_step"]:
+        raise AssertionError(f"{label}: only {r['replay_draws_differing']} of "
+                             f"{r['draws_a_step']} draws differ between consecutive replays: "
+                             "a frozen seed")
+    if r["lr0_params_differing"] != 0 or r["lr_params_differing"] == 0:
+        raise AssertionError(f"{label}: the replayed lr is frozen: {r}")
+    if repeat_exact and (r["loss_err"] or r["params_differing"]):
+        raise AssertionError(f"{label}: the captured steps part from the eager ones, which "
+                             f"repeat themselves bit for bit: {r}")
+    if not repeat_exact and not r["loss_err"] <= loss_atol < r["stale_loss_err"]:
+        raise AssertionError(f"{label}: captured loss err {r['loss_err']} or the stale "
+                             f"control's {r['stale_loss_err']} against atol {loss_atol}: {r}")
+    if r["stale_loss_err"] == 0:
+        raise AssertionError(f"{label}: the stale-input control equals the eager run: {r}")
+    if set(r["step_counts"].values()) != {(PARITY_CALLS, PARITY_CALLS)}:
+        raise AssertionError(f"{label}: host and device step counts {r['step_counts']} after "
+                             f"{PARITY_CALLS} calls")
+    if repeat_exact and r["moments_differing"]:
+        raise AssertionError(f"{label}: {r['moments_differing']} optimizer accumulator entries "
+                             "part from the eager run's, which repeats itself bit for bit")
+    if not repeat_exact and not r["moment_err"] <= moment_rtol < r["stale_moment_err"]:
+        raise AssertionError(f"{label}: accumulators' relative L2 distance captured/eager "
+                             f"{r['moment_err']}, stale control {r['stale_moment_err']}, "
+                             f"against {moment_rtol}")
+    return r
+
+
+def _step_device_ms(step, batch, iters=COMPILED_STEPS):
+    """Device ms a step with the host hidden behind a sleep kernel
+    (:func:`device_ms`), and its host ms."""
+    return device_ms(lambda: step(*batch), iters)
+
+
+def compiled_timing(make_model, make_step, batch, label, units, unit_name):
+    """The eager step (``jit=False``) and the compiled one (``jit=True``)
+    from the same weights, ``COMPILED_STEPS`` timed steps each after a first
+    step (the compiled one's eager first step and capture): median step,
+    host clock, device busy in a profiled step, device time with the host
+    hidden, peak memory, launch counts a step, which must be equal, and
+    the port's kernels a profiled step saw run, which must equal what its
+    counters booked. Returns (the captured run's launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    out = {}
+    for name, jit in (("eager", False), ("captured", True)):
+        torch.cuda.empty_cache()
+        model = make_model()
+        step = make_step(model, jit)
+        prandom.seed(PARITY_SEED)
+        losses, step_ms, wall_ms, counts, peak = _timed_steps(step, batch, COMPILED_STEPS)
+        reset_launch_counts()
+        prof = _profile_step(step, batch, f"{label} {name} step profiled")
+        profiled = _check_profiled_launches(prof, launch_counts(), f"{label} {name}")
+        by_kind, events = _device_time_by_kind(prof)
+        dev_ms, host_ms = _step_device_ms(step, batch)
+        median = float(np.median(step_ms))
+        out[name] = {"losses": losses, "step_ms": step_ms, "step_ms_median": median,
+                     "host_clock_ms": wall_ms, "busy_ms": sum(by_kind.values()),
+                     "device_events": events, "device_ms_host_hidden": dev_ms,
+                     "host_ms_a_call": host_ms, "peak_gib": peak,
+                     f"{unit_name}_per_s": units / median * 1e3,
+                     "launches_a_step": {k: v // COMPILED_STEPS for k, v in counts.items() if v},
+                     "launches_profiled": profiled, "counts": counts}
+        if not all(np.isfinite(losses)) or not min(losses[1:]) < losses[0]:
+            raise AssertionError(f"{label} {name}: losses not finite or not falling: {losses}")
+        log(f"{label} {name} (jit={jit}): {COMPILED_STEPS} steps, median {median:.3f} ms "
+            f"(mean {float(np.mean(step_ms)):.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f}; "
+            f"host clock {wall_ms:.3f}), {units / median * 1e3:.1f} {unit_name}/s; device busy "
+            f"{out[name]['busy_ms']:.3f} ms in {events} device events of a profiled step; "
+            f"{dev_ms:.3f} device ms a step with the host hidden ({host_ms:.3f} host ms a "
+            f"call); peak {peak:.2f} GiB; launches a step {out[name]['launches_a_step']}, seen "
+            f"run by the profiler {profiled}")
+        del model, step, prof
+    if out["captured"]["counts"] != out["eager"]["counts"]:
+        raise AssertionError(f"{label}: the captured steps launched {out['captured']['counts']}, "
+                             f"the eager ones {out['eager']['counts']}")
+    counts = out["captured"].pop("counts")
+    out["eager"].pop("counts")
+    return counts, out
+
+
+def compiled_bert_amp():
+    """bench.py's BERT-base step under ``auto_cast`` (O1, batch 32 x L=512,
+    80 masked a row, dropout 0.1, AdamW lr 1e-4) through
+    ``train_step(jit=True)``: the parity calls with their draws, then the
+    eager and the captured step side by side. Returns (the captured run's
+    launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.models import bert_base_config
+
+    cfg = bert_base_config()  # hidden and attention dropout 0.1
+    cfg.use_flash_attention = True
+    base, loss_fn = _pretraining(cfg, seed=1)
+    loss_fn = _amp_loss_fn(loss_fn, "O1")
+    batch = [torch.from_numpy(a).cuda() for a in
+             pretraining_batch(cfg, TRAIN_B, TRAIN_SEQ, TRAIN_PRED, np.random.RandomState(9))]
+
+    def make_model():
+        return copy.deepcopy(base)
+
+    other = [torch.from_numpy(a).cuda() for a in
+             pretraining_batch(cfg, TRAIN_B, TRAIN_SEQ, TRAIN_PRED, np.random.RandomState(10))]
+    parity = compiled_parity(make_model, lambda m: _step_of(m, loss_fn, jit=True),
+                             (batch, other), "BERT AMP compiled step", 1e-4, draws=True,
+                             loss_atol=BERT_COMPILED_LOSS_ATOL,
+                             moment_rtol=BERT_COMPILED_MOMENT_RTOL)
+    torch.cuda.empty_cache()
+    counts, timing = compiled_timing(make_model, lambda m, jit: _step_of(m, loss_fn, jit=jit),
+                                     batch, "BERT AMP", TRAIN_B * TRAIN_SEQ, "tokens")
+    want = _amp_launches("O1", cfg.num_hidden_layers, COMPILED_STEPS)
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"BERT AMP compiled: {counts}; want {want}")
+    return counts, {"parity": parity, **timing}
+
+
+def compiled_resnet_amp():
+    """bench.py's ResNet-50 step under ``auto_cast`` (O1, batch 128 x 224²,
+    Momentum lr 0.1 / 0.9, the pool kernel on) through
+    ``train_step(jit=True)``: the parity calls, then the eager and the
+    captured step side by side. Returns (the captured run's launches,
+    readings)."""
+    import torch
+
+    from paddle_tpu_torch.flags import set_flags
+
+    rng = np.random.RandomState(15)
+    batch = [torch.from_numpy(rng.randn(RN_B, 3, RN_HW, RN_HW).astype(np.float32)).cuda(),
+             torch.from_numpy(rng.randint(0, RN_CLASSES, (RN_B,)).astype(np.int64)).cuda()]
+    base = _resnet50(seed=1)
+    set_flags({"use_pallas_pool_bwd": True})
+    try:
+        other = [torch.from_numpy(rng.randn(RN_B, 3, RN_HW, RN_HW).astype(np.float32)).cuda(),
+                 torch.from_numpy(rng.randint(0, RN_CLASSES, (RN_B,)).astype(np.int64)).cuda()]
+        parity = compiled_parity(
+            lambda: copy.deepcopy(base),
+            lambda m: _rn_step_of(m, loss_fn=_rn_amp_loss, jit=True), (batch, other),
+            "ResNet-50 AMP compiled step", RN_LR, draws=False, loss_atol=0.0, moment_rtol=0.0)
+        torch.cuda.empty_cache()
+        counts, timing = compiled_timing(
+            lambda: copy.deepcopy(base),
+            lambda m, jit: _rn_step_of(m, loss_fn=_rn_amp_loss, jit=jit), batch, "ResNet-50 AMP",
+            RN_B, "images")
+    finally:
+        set_flags({"use_pallas_pool_bwd": False})
+    if counts != _rn_amp_step_launches(COMPILED_STEPS):
+        raise AssertionError(f"ResNet AMP compiled: {counts}")
+    return counts, {"parity": parity, **timing}
+
+
+COMPILED_EVAL_BATCHES = (1, 8)
+COMPILED_EVAL_CALLS = 20
+
+
+def compiled_eval_resnet_amp():
+    """``eval_step`` of ResNet-50 under ``auto_cast`` at batch 1 and 8 (the
+    bf16 eval kernel with split-K, row 8d): the captured forward bit-equal
+    to the eager one (``jit=False``), with the same launches and split-K
+    calls a forward, and the launches a profiled forward saw run equal to
+    the booked ones; wall a call (host clock to the answer on the card)
+    against the device's busy time. Returns (the captured forwards'
+    launches, readings)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework.jit import eval_step
+    from paddle_tpu_torch.ops.cuda import KERNEL_COUNTERS, launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.cuda import counts as all_counts
+
+    def forward(m, x):
+        with amp.auto_cast():
+            return m(x)
+
+    model = _resnet50(seed=0)
+    total, out = {}, {}
+    for batch in COMPILED_EVAL_BATCHES:
+        x = torch.from_numpy(np.random.RandomState(18 + batch).randn(
+            batch, 3, RN_HW, RN_HW).astype(np.float32)).cuda()
+        steps = {"eager": eval_step(model, forward, jit=False),
+                 "captured": eval_step(model, forward, jit=True)}
+        r = {}
+        steps["captured"](x)  # the eager first run and the capture
+        for name, step in steps.items():
+            step(x)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = step(x)
+            torch.cuda.synchronize()
+            counts = all_counts()
+            t0 = time.perf_counter()
+            for _ in range(COMPILED_EVAL_CALLS):
+                step(x)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / COMPILED_EVAL_CALLS
+            reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(x)
+                torch.cuda.synchronize()
+            profiled = _check_profiled_launches(prof, launch_counts(),
+                                                f"ResNet AMP eval_step batch {batch} {name}")
+            by_kind, events = _device_time_by_kind(prof)
+            r[name] = {"logits": got, "counts": counts, "wall_ms": wall,
+                       "busy_ms": sum(by_kind.values()), "device_events": events,
+                       "launches_profiled": profiled}
+        e, c = r["eager"], r["captured"]
+        if c["counts"] != e["counts"] or e["counts"]["conv_bn_relu_mm_affine_relu_bf16"] != \
+                RN_TRIPLES:
+            raise AssertionError(f"ResNet AMP eval_step batch {batch}: captured launched "
+                                 f"{c['counts']}, eager {e['counts']}")
+        if not torch.equal(c["logits"], e["logits"]) or not torch.isfinite(c["logits"]).all():
+            raise AssertionError(f"ResNet AMP eval_step batch {batch}: the captured logits differ "
+                                 "from the eager ones or are not finite")
+        splits = c["counts"]["conv_bn_relu.MM_AFFINE_RELU_SPLITS"]
+        out[f"batch_{batch}"] = {n: {k: v for k, v in r[n].items() if k not in ("logits",
+                                                                                "counts")}
+                                 for n in r}
+        out[f"batch_{batch}"]["split_k_products"] = splits
+        log(f"ResNet-50 AMP eval_step batch {batch}: captured logits bit-equal to eager, "
+            f"{RN_TRIPLES} bf16 eval launches ({splits} split-K) a forward in both; wall a call "
+            f"eager {e['wall_ms']:.3f} ms, captured {c['wall_ms']:.3f} ms; device busy eager "
+            f"{e['busy_ms']:.3f} ms ({e['device_events']} events), captured "
+            f"{c['busy_ms']:.3f} ms ({c['device_events']} events)")
+        for k in KERNEL_COUNTERS:  # the one replayed forward's
+            total[k] = total.get(k, 0) + c["counts"][k]
+        del steps, r
+    return total, out
+
+
+def check_capture_refusals():
+    """On the card nothing gives way to eager: a step that draws from a
+    generator its capture did not register raises ``CaptureError`` after
+    its one real first step, and the next call raises before it runs
+    anything, with no graph stored and the weights as that first step left
+    them; a ``GradScaler`` inside a compiled step raises. Returns the
+    readings."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.runtime.compiled import CaptureError
+
+    own = torch.Generator(device="cuda").manual_seed(3)
+    model = torch.nn.Linear(64, 64)
+
+    def loss_fn(m, x):
+        return F.dropout(m(x), 0.5, generator=own).square().mean()
+
+    step = train_step(model, Momentum(learning_rate=0.1, parameters=model.parameters()),
+                      loss_fn)
+    x = torch.randn(8, 64, device="cuda")
+    errors, weights = [], []
+    for _ in range(2):
+        try:
+            step(x)
+        except CaptureError as e:
+            errors.append(str(e)[:200])
+        else:
+            raise AssertionError("a step drawing from an unregistered generator was captured")
+        torch.cuda.synchronize()
+        weights.append(_snapshot(model))
+    opt = step.optimizer
+    if (len(step.store) or (opt._global_step, int(opt._step_t)) != (1, 1)
+            or _differing(*weights) or "failed before" not in errors[1]):
+        raise AssertionError(f"after a refused capture and a second call: {len(step.store)} "
+                             f"graphs, step counts {opt._global_step} and {int(opt._step_t)} "
+                             f"(want 0, 1 and 1), {_differing(*weights)} weights moved by the "
+                             f"second call; errors {errors}")
+    scaler = amp.GradScaler()
+
+    def scaled(m, x):
+        scaler.unscale_(step.optimizer)
+        return m(x).square().mean()
+
+    try:
+        train_step(model, step.optimizer, scaled)(x)
+    except RuntimeError as e:
+        scaler_error = str(e)[:200]
+    else:
+        raise AssertionError("GradScaler ran inside a compiled step")
+    log(f"capture refusals: unregistered generator -> {errors[0]}; its second call -> "
+        f"{errors[1]}; GradScaler -> {scaler_error}")
+    return {"unregistered_generator": errors, "grad_scaler": scaler_error}
+
+
+FEATURE_WIDTH, FEATURE_ROWS, FEATURE_DROPOUT = 1024, 256, 0.1
+
+
+def compiled_features():
+    """``grad_accum_steps=2`` (two captured variants, accumulate and
+    accumulate + apply, sharing one buffer) and ``recompute=True``
+    (``torch.utils.checkpoint`` with the port's draws taped) captured on
+    the card: an MLP with dropout drawn through the port, AdamW lr 1e-3,
+    calls on ``b0, b1, b0, b1`` from one state and generator seed, the
+    captured step's losses, weights, moments and draws held bit for bit
+    against the same calls run eagerly (``TrainStepFn.eager``), its step
+    counts against the calls that applied the optimizer, and its draws new
+    at each replay. Returns the readings."""
+    import torch
+
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.manual_seed(5)
+    base = torch.nn.Sequential(torch.nn.Linear(FEATURE_WIDTH, FEATURE_WIDTH), torch.nn.ReLU(),
+                               torch.nn.Linear(FEATURE_WIDTH, FEATURE_WIDTH)).cuda()
+
+    def loss_fn(m, x, t):
+        h = F.dropout(torch.relu(m[0](x)), FEATURE_DROPOUT)
+        return (m[2](h) - t).square().mean()
+
+    rng = np.random.RandomState(23)
+    batches = [[torch.from_numpy(rng.randn(FEATURE_ROWS, FEATURE_WIDTH).astype(np.float32)).cuda()
+                for _ in range(2)] for _ in range(2)]
+    order = (batches[0], batches[1], batches[0], batches[1])
+    out = {}
+    # feature: (its arguments, the calls of the four that apply the optimizer,
+    # the captured variants)
+    for feature, (kw, applies, variants) in {
+            "grad_accum_steps=2": (dict(grad_accum_steps=2), 2, 2),
+            "grad_accum_steps=2 grad_accum_avg=False":
+                (dict(grad_accum_steps=2, grad_accum_avg=False), 2, 2),
+            "recompute=True": (dict(recompute=True), 4, 1)}.items():
+        runs = {}
+        with _recorded_draws() as rec:
+            for name in ("captured", "eager"):
+                model = copy.deepcopy(base)
+                step = train_step(model, AdamW(learning_rate=1e-3, parameters=model.parameters()),
+                                  loss_fn, **kw)
+                prandom.seed(PARITY_SEED)
+                losses, draws = [], []
+                for i, b in enumerate(order):
+                    rec["eager"].append([])
+                    out_i = step(*b) if name == "captured" else step.eager(*b)
+                    losses.append(float(out_i["loss"]))
+                    torch.cuda.synchronize()
+                    if name == "eager" or i < variants:  # a first run: eager draws
+                        draws.append(rec["eager"][-1])
+                    else:  # the draws the replayed graph (one of variants) recorded
+                        per = len(rec["graph"]) // variants
+                        v = i % variants
+                        draws.append([g.clone() for g in rec["graph"][v * per:(v + 1) * per]])
+                opt = step.optimizer
+                runs[name] = {"losses": losses, "params": _snapshot(model), "draws": draws,
+                              "moments": [a.clone() for accs in opt._accumulators.values()
+                                          for a in accs],
+                              "step_count": (opt._global_step, int(opt._step_t)),
+                              "graphs": len(step.store)}
+                rec["graph"].clear()
+                rec["eager"].clear()
+                del step, model
+        c, e = runs["captured"], runs["eager"]
+        r = {"losses_captured": c["losses"], "losses_eager": e["losses"],
+             "params_differing": _differing(c["params"], e["params"]),
+             "moments_differing": _differing(c["moments"], e["moments"]),
+             "draws_equal_eager": [_same_draws(a, b) for a, b in zip(c["draws"], e["draws"])],
+             "draws_a_call": [len(d) for d in c["draws"]],
+             "step_counts": {"captured": c["step_count"], "eager": e["step_count"]},
+             "graphs": c["graphs"]}
+        # the last call against the one two before: the same variant
+        r["replay_draws_differing"] = sum(not torch_equal(a, b) for a, b in
+                                          zip(c["draws"][-3], c["draws"][-1]))
+        log(f"compiled {feature}: losses captured {c['losses']}, eager {e['losses']}; weights "
+            f"differing {r['params_differing']}, moments differing {r['moments_differing']}; "
+            f"draws a call {r['draws_a_call']}, equal to eager {r['draws_equal_eager']}, "
+            f"differing between the last call and the one two before "
+            f"{r['replay_draws_differing']}; step counts "
+            f"(host, device) {r['step_counts']}; {r['graphs']} graphs")
+        if (c["losses"] != e["losses"] or r["params_differing"] or r["moments_differing"]
+                or not all(r["draws_equal_eager"]) or not all(r["draws_a_call"])
+                or r["replay_draws_differing"] != r["draws_a_call"][-1]
+                or set(r["step_counts"].values()) != {(applies, applies)}
+                or r["graphs"] != variants):
+            raise AssertionError(f"compiled {feature}: the captured calls part from the eager "
+                                 f"ones: {r}")
+        out[feature] = r
+    return out
+
+
+BIAS_T = 10000  # steps at which the card's bias correction is read
+
+
+def bias_correction_on_card():
+    """AdamW's compiled bias correction ``1 - beta**t`` (float32 ``beta``,
+    int32 ``t``, as ``Adam._bias_corrections`` computes it) on the card
+    against the CPU's, which equals the JAX compiled step's on the CPU
+    (``tests/test_torch_compiled.py``), for t = 1..``BIAS_T``: the steps
+    where they differ and by how many float32 ulps of the CPU's value.
+    Logged, not held: CUDA's ``powf`` is another rounding of the same
+    power. Returns the readings."""
+    import torch
+
+    out = {}
+    t_card = list(torch.arange(1, BIAS_T + 1, dtype=torch.int32, device="cuda"))
+    t_cpu = list(torch.arange(1, BIAS_T + 1, dtype=torch.int32))
+    for beta in (0.9, 0.999):
+        # 0-dim operands, as the optimizer's (a vector of t may take
+        # another pow on the CPU)
+        b = torch.full((), beta, dtype=torch.float32, device="cuda")
+        card = torch.stack([1 - b**t for t in t_card]).cpu()
+        b = b.cpu()
+        cpu = torch.stack([1 - b**t for t in t_cpu])
+        diff = (card != cpu).nonzero().flatten()
+        ulps = (np.abs(card.numpy().astype(np.float64) - cpu.numpy())
+                / np.spacing(np.abs(cpu.numpy())))
+        out[str(beta)] = {"t_differing": int(diff.numel()), "of": BIAS_T,
+                          "first_t": [int(i) + 1 for i in diff[:8]],
+                          "max_ulps": float(ulps.max())}
+        log(f"bias correction 1 - {beta}**t on the card against the CPU, t = 1..{BIAS_T}: "
+            f"{out[str(beta)]}")
+    return out
+
+
+def compiled_steps():
+    """Phase 12b. Returns (the captured runs' launches, readings)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    bert_counts, bert = compiled_bert_amp()
+    torch.cuda.empty_cache()
+    rn_counts, rn = compiled_resnet_amp()
+    torch.cuda.empty_cache()
+    eval_counts, ev = compiled_eval_resnet_amp()
+    features = compiled_features()
+    refusals = check_capture_refusals()
+    bias = bias_correction_on_card()
+    counts = {k: bert_counts.get(k, 0) + rn_counts.get(k, 0) + eval_counts.get(k, 0)
+              for k in bert_counts}
+    return counts, {"bert_amp": bert, "resnet_amp": rn, "resnet_amp_eval": ev,
+                    "features": features, "refusals": refusals, "bias_correction": bias}
+
+
 # -- the int8 serving path and the pool backward --------------------------------
 
 # the served program: the part of BERT-base the int8 rewrite computes in int8
@@ -3691,18 +4391,22 @@ def main() -> int:
     rn_amp_trained, rn_amp = train_resnet_amp()
     torch.cuda.empty_cache()
     rn_amp_served, rn_amp["eval"] = eval_resnet_amp()
+    torch.cuda.empty_cache()
+    compiled_counts, compiled = compiled_steps()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (served[name] + rn_served[name] + q_served[name]
                                  + rn_amp_served[name])
         k["launches_training"] = (trained[name] + amp_trained[name] + rn_trained[name]
                                   + rn_amp_trained[name])
-        k["launches"] = k["launches_serving"] + k["launches_training"]
+        k["launches_compiled"] = compiled_counts[name]  # replayed in CUDA graphs
+        k["launches"] = k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
     print(card)
-    print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp}))
+    print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
+                      "compiled": compiled}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -16,7 +16,10 @@ package's (``:128-227``): ``unscale_`` multiplies every gradient by ``1 /
 scale`` and records whether any is not finite; ``step`` skips the
 optimizer on such a step; ``update`` grows the scale after
 ``incr_every_n_steps`` good steps and shrinks it after
-``decr_every_n_nan_or_inf`` bad ones. :func:`decorate` at ``O2`` casts a
+``decr_every_n_nan_or_inf`` bad ones. That found-inf decision is a host
+``bool``: inside a compiled step (``train_step(jit=True)``) ``unscale_``
+raises, as a Python ``bool`` of a tracer raises in the JAX step; a step
+with a ``GradScaler`` runs with ``jit=False``. :func:`decorate` at ``O2`` casts a
 model's float32 parameters to the AMP dtype unless ``master_weight`` is
 set.
 """
@@ -28,6 +31,7 @@ import threading
 import torch
 
 from ..framework import autograd
+from ..runtime import compiled as _compiled
 
 __all__ = ["auto_cast", "amp_guard", "GradScaler", "AmpScaler", "decorate",
            "WHITE_LIST", "BLACK_LIST"]
@@ -147,7 +151,12 @@ class GradScaler:
     def unscale_(self, optimizer):
         """Multiply every gradient by ``1 / scale`` (not a division: on the
         card the two round differently) and record whether any is not
-        finite (``amp_check_finite_and_scale``)."""
+        finite (``amp_check_finite_and_scale``). Raises inside a compiled
+        step: the decision waits for the device, which a CUDA graph cannot."""
+        if _compiled.in_compiled_step():
+            raise RuntimeError("GradScaler: the found-inf decision is a host bool and cannot "
+                               "run inside a compiled step (train_step(jit=True)); build the "
+                               "step with jit=False")
         if not self._enable:
             self._found_inf = False
             return

@@ -32,7 +32,10 @@
 // starts aligned then), and a scalar tail or a scalar walk elsewhere.
 // Every product and sum is rounded on its own (__fmul_rn, __fadd_rn,
 // __fsub_rn), never contracted into an FMA, so the result equals the plain
-// version's expression order bit for bit. lr is passed by value.
+// version's expression order bit for bit. lr is read from device memory
+// (one float32 the caller writes before the launch, the train step's lr
+// tensor), so a launch captured in a CUDA graph takes each replay's lr; mu
+// and wd are constants of the optimizer and go by value.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,8 +52,9 @@ struct TensorTable {
   int64_t n[kMaxTensors];
   int32_t block_start[kMaxTensors + 1];  // prefix sums of ceil(n / kChunk)
 };
-// the table, the count and the three scalars together
-static_assert(sizeof(TensorTable) + 4 * sizeof(float) <= 4096, "kernel parameters exceed 4 KB");
+// the table, the count, the lr pointer and the two scalars together
+static_assert(sizeof(TensorTable) + 2 * sizeof(float) + 2 * sizeof(void*) <= 4096,
+              "kernel parameters exceed 4 KB");
 
 template <bool WD, bool NESTEROV>
 __device__ __forceinline__ void update(float& p, float g, float& v, float lr, float mu, float wd) {
@@ -62,8 +66,9 @@ __device__ __forceinline__ void update(float& p, float g, float& v, float lr, fl
 
 template <bool WD, bool NESTEROV>
 __global__ void __launch_bounds__(kThreads)
-    momentum_kernel(const __grid_constant__ TensorTable t, int count, float lr, float mu,
-                    float wd) {
+    momentum_kernel(const __grid_constant__ TensorTable t, int count,
+                    const float* __restrict__ lr_ptr, float mu, float wd) {
+  const float lr = *lr_ptr;
   // the last tensor whose first block is at or before this one
   const int blk = (int)blockIdx.x;
   int lo = 0, hi = count - 1;
@@ -113,11 +118,11 @@ extern "C" int ptt_momentum_chunk() { return kChunk; }
 // and velocity. `table` is one int64 array on the host of 5 * count + 1
 // words: the count param pointers, the count grad pointers, the count
 // velocity pointers, the count sizes (each > 0), then the count + 1 prefix
-// sums of ceil(size / chunk) starting at 0. Returns cudaGetLastError()
-// after the launch.
-extern "C" int ptt_momentum_update_multi(const int64_t* table, int count, float lr, float mu,
-                                         float wd, int nesterov, void* stream) {
-  if (count <= 0 || count > kMaxTensors) return (int)cudaErrorInvalidValue;
+// sums of ceil(size / chunk) starting at 0. `lr` points to one float32 in
+// device memory. Returns cudaGetLastError() after the launch.
+extern "C" int ptt_momentum_update_multi(const int64_t* table, int count, const float* lr,
+                                         float mu, float wd, int nesterov, void* stream) {
+  if (count <= 0 || count > kMaxTensors || lr == nullptr) return (int)cudaErrorInvalidValue;
   TensorTable t;
   for (int i = 0; i < count; ++i) {
     t.p[i] = reinterpret_cast<float*>(table[i]);

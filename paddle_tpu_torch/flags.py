@@ -95,6 +95,13 @@ define_flag("use_int8_matmul", True,
             "hand-written int8 x int8 -> int32 matmul kernel for "
             "mul_int8 / matmul_int8")
 
+# runtime/compiled.py GraphStore — the bound of every store of captured
+# CUDA graphs (framework/jit.py train_step and eval_step), read at insert
+# time so set_flags applies to live stores; evictions are counted per store.
+define_flag("compiled_cache_capacity", 128,
+            "LRU bound of every store of captured steps (train step / eval "
+            "step); evictions counted per store")
+
 # serving/batcher.py — the batch-axis bucket ladder: every assembled batch
 # is padded up to the smallest bucket that covers its rows.
 define_flag("serving_batch_buckets", "1,2,4,8",

@@ -106,8 +106,8 @@ def dropout(x, p=0.5, training=True, generator=None):
     if not training or p == 0.0:
         return x  # not dispatched, so not cast, as in the JAX package
     (x,) = amp_cast("dropout", [x])
-    gen = _random.default_generator(x.device) if generator is None else generator
-    keep = torch.rand(x.shape, device=x.device, generator=gen) >= p
+    keep = _random.draw(x.device, generator, lambda gen: torch.rand(
+        x.shape, device=x.device, generator=gen) >= p)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

@@ -8,13 +8,18 @@ LayerNorm forward's mixed instance apart from both);
 and :func:`reset_launch_counts` sets them to 0, and the counts beside them
 (:data:`OTHER_COUNTERS`: the tensors the momentum launches updated, the
 eval conv products and the int8 products that took split-K).
+:func:`counts` reads both kinds and :func:`add_counts` adds to them: a
+step captured in a CUDA graph (``runtime/compiled.py``) takes back what
+its wrappers counted while the capture recorded, and launched nothing,
+and adds it again at each replay, which launches those kernels.
 """
 from __future__ import annotations
 
 from . import (conv_bn_relu, flash_attention, int8_matmul, layernorm_residual, optimizer_update,
                pool_backward)
 
-__all__ = ["KERNEL_COUNTERS", "OTHER_COUNTERS", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNEL_COUNTERS", "OTHER_COUNTERS", "launch_counts", "reset_launch_counts",
+           "counts", "add_counts"]
 
 #: kernel name -> (the module holding its wrapper, the name of its count)
 KERNEL_COUNTERS = {
@@ -60,3 +65,29 @@ def reset_launch_counts() -> None:
     for mod, attr in (*KERNEL_COUNTERS.values(), *OTHER_COUNTERS):
         with mod._count_lock:
             setattr(mod, attr, 0)
+
+
+def _every_counter():
+    """count name -> (module, attribute), the launches' and the others'
+    (named ``<module>.<attribute>``)."""
+    out = dict(KERNEL_COUNTERS)
+    for mod, attr in OTHER_COUNTERS:
+        out[f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}"] = (mod, attr)
+    return out
+
+
+def counts() -> dict:
+    """Every count: the launches of :func:`launch_counts` and the
+    :data:`OTHER_COUNTERS`."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _every_counter().items()}
+
+
+def add_counts(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``delta`` (names as :func:`counts` gives them) to
+    the counts."""
+    every = _every_counter()
+    for name, n in delta.items():
+        if n:
+            mod, attr = every[name]
+            with mod._count_lock:
+                setattr(mod, attr, getattr(mod, attr) + sign * n)

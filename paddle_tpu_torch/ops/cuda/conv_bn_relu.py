@@ -384,11 +384,18 @@ _split_counters = {}  # device -> int32 counters of the bf16 split-K reduce, zer
 def _counters(device, count):
     """At least ``count`` zero int32 counters on ``device`` for the bf16
     split-K's in-launch reduce; the kernel leaves them zero, so one buffer
-    serves every launch on the device's stream."""
+    serves every launch on the device's stream. The buffer is made once, at
+    the most a split can ask for (4 a tile, and a split's tiles fit one wave
+    of :func:`_split_k_bf16`), and never replaced: a launch captured in a
+    CUDA graph keeps its address for every replay."""
     buf = _split_counters.get(device)
-    if buf is None or buf.numel() < count:
-        buf = _split_counters[device] = torch.zeros(max(count, 4096), dtype=torch.int32,
+    if buf is None:
+        most = 4 * _sm_count(device.index) * _BF16_BLOCKS_PER_SM
+        buf = _split_counters[device] = torch.zeros(max(most, 4096), dtype=torch.int32,
                                                     device=device)
+    if buf.numel() < count:
+        raise ValueError(f"mm_affine_relu: a split of {count // 4} tiles is more than one wave; "
+                         f"the counters hold {buf.numel() // 4}")
     return buf
 
 

@@ -142,10 +142,8 @@ def _draw_seed(generator, device):
     """Two random int32 words (one 64-bit Philox key) on ``device``, drawn
     from ``generator`` (default: the device's own, ``framework.random``)
     without waiting for the device."""
-    gen = _random.default_generator(device) if generator is None else generator
-    seed = torch.randint(-2**31, 2**31, (2,), dtype=torch.int32, device=gen.device,
-                         generator=gen)
-    return seed.to(device)
+    return _random.draw(device, generator, lambda gen: torch.randint(
+        -2**31, 2**31, (2,), dtype=torch.int32, device=gen.device, generator=gen).to(device))
 
 
 # -- plain versions -----------------------------------------------------------

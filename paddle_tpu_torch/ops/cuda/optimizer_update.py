@@ -24,6 +24,12 @@ at most :data:`MAX_TENSORS` (:func:`launch_groups`) and passes each
 group's pointers and block prefix sums by value; :data:`LAUNCHES` counts
 launches and :data:`TENSORS` the tensors they updated.
 
+``lr`` reaches the kernel as a pointer to one float32 in device memory:
+the train step's lr tensor, which it writes before each step, so a launch
+captured in a CUDA graph reads each replay's lr where a value passed by
+value would stay the one of the capture. A Python ``lr`` is written to a
+new 0-dim tensor on the card first, which a capture refuses.
+
 Tensors on the CPU take :func:`_plain_update` (written in place the same
 way); tensors on the card launch the kernel or raise.
 """
@@ -50,7 +56,7 @@ LAUNCHES = 0
 TENSORS = 0
 _count_lock = threading.Lock()
 
-_ARGS = [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_float, ctypes.c_float,
+_ARGS = [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
          ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -68,7 +74,7 @@ def _plain_update(param, grad, velocity, lr, mu, wd, nesterov):
     g = grad + wd_t * param if wd else grad
     v = mu_t * velocity + g
     step = g + mu_t * v if nesterov else v
-    lr_t = torch.tensor(lr, dtype=torch.float32)
+    lr_t = lr.float() if isinstance(lr, torch.Tensor) else torch.tensor(lr, dtype=torch.float32)
     return (param.float() - lr_t * step.float()).to(dt), v
 
 
@@ -107,14 +113,17 @@ def _entry():
 def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, weight_decay=0.0,
                                 use_nesterov=False):
     """One momentum (+ L2 decay) step of every tensor of ``params``, written
-    over it and its velocity. ``lr`` is a Python number. On the card: one
+    over it and its velocity. ``lr`` is a Python number or a 0-dim float32
+    tensor on the tensors' device (the train step's). On the card: one
     launch a group of :func:`launch_groups`; empty tensors are skipped."""
     global LAUNCHES, TENSORS
     params, grads, velocities = list(params), list(grads), list(velocities)
     if not len(params) == len(grads) == len(velocities):
         raise ValueError(f"fused_momentum_update_multi: {len(params)} params, {len(grads)} "
                          f"grads and {len(velocities)} velocities")
-    mu, wd, lr = float(momentum), float(weight_decay), float(lr)
+    mu, wd = float(momentum), float(weight_decay)
+    if not isinstance(lr, torch.Tensor):
+        lr = float(lr)
     for p, g, v in zip(params, grads, velocities):
         if not (p.shape == g.shape == v.shape):
             raise ValueError(f"fused_momentum_update: param {tuple(p.shape)}, grad "
@@ -137,6 +146,7 @@ def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, wei
     live = [i for i, p in enumerate(params) if p.numel() > 0]
     if not live:  # nothing is launched or counted
         return
+    lr = _lr_on(dev, lr)
     groups = launch_groups([params[i].numel() for i in live])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -147,11 +157,24 @@ def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, wei
                      + [velocities[i].data_ptr() for i in sel]
                      + [params[i].numel() for i in sel] + starts)
             table = (ctypes.c_int64 * len(words))(*words)
-            err = fn(table, len(sel), lr, mu, wd, int(bool(use_nesterov)), stream)
+            err = fn(table, len(sel), lr.data_ptr(), mu, wd, int(bool(use_nesterov)), stream)
             _build.check(err, "fused_momentum_update")
             with _count_lock:
                 LAUNCHES += 1
                 TENSORS += len(sel)
+
+
+def _lr_on(dev, lr):
+    """``lr`` as the one float32 in ``dev``'s memory the kernel reads."""
+    if isinstance(lr, torch.Tensor):
+        if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
+            raise ValueError(f"fused_momentum_update: lr must be one float32 on {dev}, got "
+                             f"{lr.dtype} {tuple(lr.shape)} on {lr.device}")
+        return lr
+    if torch.cuda.is_current_stream_capturing():
+        raise ValueError("fused_momentum_update: a Python lr would stay the capture's in every "
+                         "replay; pass the lr as a float32 tensor on the card")
+    return torch.full((), lr, dtype=torch.float32, device=dev)
 
 
 def fused_momentum_update(param, grad, velocity, lr, momentum=0.9, weight_decay=0.0,

@@ -18,8 +18,26 @@ Parameters whose ``grad`` is None, or that do not require grad, are
 skipped, as the JAX package skips parameters without a gradient. The
 other optimizers, gradient clipping and the concrete LR schedules are not
 ported yet.
+
+Accumulators are updated in place (``copy_``), so they keep their storage
+from step to step, as a step captured in a CUDA graph needs. Called on its
+own, ``step`` takes the lr and the step count as Python numbers, as the
+JAX package's eager optimizer does (Adam's bias correction ``1 -
+beta**t`` and AdamW's ``lr * coeff`` then in float64); so does the train
+step with ``jit=False``, and so does a direct ``step()`` on an optimizer a
+compiled train step also drives. Inside the compiled train step
+(``framework/jit.py``, ``jit=True``) they are device tensors
+(:meth:`Optimizer._use_device_scalars`, :meth:`Optimizer._scalars_on_device`):
+the step count an int32 the step advances on the device, the lr a float32
+the train step writes before each step, as the JAX compiled step feeds its
+traced ``_global_step`` and ``lr`` (``paddle_tpu/framework/jit.py:155-173,
+441``); those scalars are then float32 computations, as there. Once made,
+the device step count advances with every ``step``, so it stays equal to
+the host's.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -68,6 +86,12 @@ class Optimizer:
         # accumulators: name -> list of tensors aligned with the parameters
         self._accumulators: dict[str, list] = {}
         self._global_step = 0
+        # the train step's scalars on the device (_use_device_scalars): the
+        # step count (int32, advanced by step) and the lr (float32), read by
+        # step inside _scalars_on_device
+        self._step_t = None
+        self._lr_t = None
+        self._on_device = False
 
     def _ensure_accumulator(self, name):
         if name not in self._accumulators:
@@ -88,6 +112,31 @@ class Optimizer:
         for p in self._parameter_list:
             p.grad = None
 
+    def _use_device_scalars(self, device):
+        """Make the step count and the lr as 0-dim tensors on ``device``
+        (int32 and float32), unless there already: from now on ``step``
+        advances the count there, and inside :meth:`_scalars_on_device`
+        reads both there (the lr as :meth:`_write_lr` wrote it)."""
+        device = torch.device(device)
+        if self._step_t is None or self._step_t.device != device:
+            self._step_t = torch.tensor(self._global_step, dtype=torch.int32, device=device)
+            self._lr_t = torch.tensor(self.get_lr(), dtype=torch.float32, device=device)
+
+    @contextlib.contextmanager
+    def _scalars_on_device(self, on=True):
+        """With ``on``, ``step`` inside takes the lr and the step count from
+        the tensors :meth:`_use_device_scalars` made (the compiled train
+        step's); else the Python numbers."""
+        prev, self._on_device = self._on_device, bool(on)
+        try:
+            yield
+        finally:
+            self._on_device = prev
+
+    def _write_lr(self):
+        """Write :meth:`get_lr` into the device lr, rounded to float32."""
+        self._lr_t.fill_(self.get_lr())
+
     def _fused_decay_coeff(self):
         """The L2-decay coefficient the update kernel folds in itself; None
         when ``step`` applies the decay to the gradient first."""
@@ -104,7 +153,9 @@ class Optimizer:
             if self._weight_decay is not None and not isinstance(self, AdamW) and fused_wd is None:
                 g = self._weight_decay(p, g)
             params_grads.append((i, p, g))
-        lr_value = self.get_lr()
+        if self._step_t is not None:
+            self._step_t.add_(1)  # the device count keeps with the host's
+        lr_value = self._lr_t if self._on_device else self.get_lr()
         self._global_step += 1
         self._apply_all(params_grads, lr_value)
 
@@ -132,8 +183,11 @@ class Optimizer:
 
     def set_state_dict(self, state):
         """Load a :meth:`state_dict` (tensors or numpy arrays): each
-        accumulator goes to its parameter's device and dtype."""
+        accumulator goes to its parameter's device and dtype, copied into
+        the accumulator already there, which keeps its storage."""
         self._global_step = int(state.get("global_step", 0))
+        if self._step_t is not None:
+            self._step_t.fill_(self._global_step)
         names = {k.rsplit("_", 1)[0] for k in state if k not in ("global_step", "LR_Scheduler")}
         for name in names:
             accs = []
@@ -148,7 +202,11 @@ class Optimizer:
                                      f"parameter {self._param_names[i]} {tuple(p.shape)}")
                 accs.append(a.to(device=p.device, dtype=p.dtype).clone())
                 i += 1
-            if accs:
+            old = self._accumulators.get(name)
+            if old is not None and len(old) == len(accs):
+                for a, new in zip(old, accs):
+                    a.copy_(new)
+            elif accs:
                 self._accumulators[name] = accs
         if "LR_Scheduler" in state and isinstance(self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
@@ -189,7 +247,7 @@ class Momentum(Optimizer):
     def _apply_one(self, index, param, grad, lr):
         vel = self._ensure_accumulator("velocity")
         v = self._momentum * vel[index] + grad
-        vel[index] = v
+        vel[index].copy_(v)
         if self._use_nesterov:
             return param - lr * (grad + self._momentum * v)
         return param - lr * v
@@ -203,15 +261,34 @@ class Adam(Optimizer):
                  name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._bias_correction = None
+
+    def _bias_corrections(self):
+        """``(1 - beta1**t, 1 - beta2**t)``: float64 from the host step
+        count, or float32 0-dim tensors from the device one, as the JAX
+        train step computes them (a weak ``beta`` to the power of its int32
+        ``_global_step``: float32, bit-equal to torch's ``pow`` of a float32
+        ``beta`` and an int32 ``t`` on the CPU; CUDA's float32 ``pow``
+        differs from it at some ``t``, ROADMAP.md Queue C)."""
+        if not self._on_device:
+            t = self._global_step
+            return 1 - self._beta1**t, 1 - self._beta2**t
+        t = self._step_t
+        return tuple(1 - torch.full((), b, dtype=torch.float32, device=t.device)**t
+                     for b in (self._beta1, self._beta2))
+
+    def _apply_all(self, params_grads, lr):
+        self._bias_correction = self._bias_corrections()  # once a step
+        super()._apply_all(params_grads, lr)
 
     def _apply_one(self, index, param, grad, lr):
-        m = self._ensure_accumulator("moment1")
-        v = self._ensure_accumulator("moment2")
-        t = self._global_step
-        m[index] = self._beta1 * m[index] + (1 - self._beta1) * grad
-        v[index] = self._beta2 * v[index] + (1 - self._beta2) * grad * grad
-        mhat = m[index] / (1 - self._beta1**t)
-        vhat = v[index] / (1 - self._beta2**t)
+        m = self._ensure_accumulator("moment1")[index]
+        v = self._ensure_accumulator("moment2")[index]
+        bc1, bc2 = self._bias_correction
+        m.copy_(self._beta1 * m + (1 - self._beta1) * grad)
+        v.copy_(self._beta2 * v + (1 - self._beta2) * grad * grad)
+        mhat = m / bc1
+        vhat = v / bc2
         return param - lr * mhat / (torch.sqrt(vhat) + self._epsilon)
 
 
@@ -228,6 +305,13 @@ class AdamW(Adam):
         self._wd_coeff = float(weight_decay) if isinstance(weight_decay, (int, float)) \
             else getattr(weight_decay, "coeff", 0.0)
         self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_decay = None
+
+    def _apply_all(self, params_grads, lr):
+        # lr * coeff once a step: float32 from the device lr (the JAX train
+        # step's), float64 from a Python one (its eager optimizer's)
+        self._lr_decay = lr * self._wd_coeff
+        super()._apply_all(params_grads, lr)
 
     def _apply_one(self, index, param, grad, lr):
         decay = True
@@ -235,5 +319,5 @@ class AdamW(Adam):
             decay = self._apply_decay_param_fun(self._param_names[index])
         new_param = super()._apply_one(index, param, grad, lr)
         if decay and self._wd_coeff:
-            new_param = new_param - lr * self._wd_coeff * param
+            new_param = new_param - self._lr_decay * param
         return new_param

@@ -449,7 +449,7 @@ def _jax_step_flow(monkeypatch, model, opt, loss_fn, batch):
 def _port_step_flow(monkeypatch, build, make_opt, loss_fn, batch):
     with _port_flow(monkeypatch) as rec:
         model = build()
-        step = train_step(model, make_opt(model), loss_fn, device="cpu")
+        step = train_step(model, make_opt(model), loss_fn, jit=False, device="cpu")
         step(*[torch.from_numpy(a) for a in batch])
     return _recorded(rec)
 

@@ -9,6 +9,7 @@ cross through ``paddle_tpu.save`` and the port's reader
 The JAX loss and gradients come from ``jax.value_and_grad`` over the JAX
 model (its train step's own construction), jitted to keep the file fast.
 """
+import copy
 from collections import OrderedDict
 
 import numpy as np
@@ -168,22 +169,54 @@ def test_loss_and_every_gradient_match_jax(saved):
         assert err <= GRAD_ATOL_OF_MAX * scale[name.rpartition(".")[0]], (name, err)
 
 
-def test_three_adamw_steps_match_jax_train_step(saved):
-    jm, path = saved
+def _three_adamw_losses(jm, path, jit):
+    """The losses of three AdamW steps on one batch through the JAX and the
+    port's ``train_step`` with the same ``jit``."""
     batch = _batch(_config(bert_tiny_config), seed=2)
     jstep = jax_jit.train_step(jm, jax_opt.AdamW(learning_rate=1e-3, parameters=jm.parameters()),
-                               _loss_fn(JaxCriterion(jm.bert.config.vocab_size)))
+                               _loss_fn(JaxCriterion(jm.bert.config.vocab_size)), jit=jit)
     want = [float(np.asarray(jstep(*batch)["loss"])) for _ in range(3)]
     tm = _port_model(path)
     tstep = train_step(tm, port_opt.AdamW(learning_rate=1e-3, parameters=tm.parameters()),
                        _loss_fn(BertPretrainingCriterion(tm.bert.config.vocab_size)),
-                       device="cpu")
+                       jit=jit, device="cpu")
     got = [float(tstep(*batch)["loss"]) for _ in range(3)]
     assert tstep.sync() is tstep
     assert got[2] < got[0]
+    return got, want
+
+
+def test_three_adamw_steps_match_jax_train_step(saved):
+    """Each package's eager step (``jit=False``), the optimizer's scalars
+    Python numbers in both."""
+    jm, path = saved
+    got, want = _three_adamw_losses(jm, path, jit=False)
     # Adam turns rounding-level gradient differences into lr-sized steps
     # on near-zero gradients, so three steps agree to ~1e-4, not to ulps
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+
+
+# the compiled steps' three losses (about 7.8): read 4.8e-7, 0, 0 apart with
+# 64-bit types off in JAX, the package's own setting; with them on (this
+# harness's) the JAX step's bias correction is float64, the parent's
+# arithmetic, and they read 4.8e-7, 4.8e-6, 7.6e-6 apart
+COMPILED_LOSS_ATOL = 2e-6
+
+
+def test_three_adamw_steps_match_jax_train_step_compiled(saved, tmp_path):
+    """The ``jit=True`` twin: the port's compiled step against the JAX
+    compiled step, whose traced int32 step count and float32 lr make
+    AdamW's bias correction and ``lr * coeff`` float32 computations, as the
+    port's device scalars do. With the repaired scalars the three losses
+    agree 100 times closer than the eager steps' limit; the JAX step with
+    float64 bias corrections (64-bit types on) is the control beyond it."""
+    jm, path = saved
+    control = copy.deepcopy(jm)
+    with jax.enable_x64(False):
+        got, want = _three_adamw_losses(jm, path, jit=True)
+    np.testing.assert_allclose(got, want, atol=COMPILED_LOSS_ATOL, rtol=0)
+    _, want_f64 = _three_adamw_losses(control, path, jit=True)
+    assert max(abs(a - b) for a, b in zip(got, want_f64)) > COMPILED_LOSS_ATOL
 
 
 def _twin_params(seed=0, shapes=((5, 7), (7,), (3, 4, 2))):
