@@ -18,13 +18,19 @@ Phases, each fatal on failure:
    forward is also timed against the port's unfused attention at L = 128
    to 512;
 4. serve BERT-base (L=512, flash attention on, f32, random weights from a
-   seed) through ``Predictor`` -> ``InferenceServer`` and wait for
-   ``/healthz``;
+   seed) through ``Predictor`` -> ``InferenceServer`` with 2 replicas and
+   wait for ``/healthz``: warmup must capture one CUDA graph a bucket
+   (``runtime/compiled.py``), shared by the replicas;
 5. POST requests of 1-4 rows, some padded, some concurrent; check every
-   answer against the port's plain forward of the same weights on the CPU
-   and that each forward launched 24 LayerNorm and 12 attention kernels;
-   then, as a control, run the same requests with TF32 matmuls on and
-   require the limits to catch them;
+   answer against the port's plain forward of the same weights on the CPU,
+   that each forward launched 24 LayerNorm and 12 attention kernels, and
+   that the requests captured nothing (``extra_compiles() == 0``, ``/statz``
+   ``compiles``); then, as a control, run the same requests with TF32
+   matmuls on and require the limits to catch them; then ``Predictor.run``
+   captured against eager at every bucket (wall and device busy, the
+   kernels a profiled replay ran equal to the booked launches), and 2 x 20
+   concurrent replays of one bucket bit-equal to solo ones while a third
+   thread captures a new shape (each served model does the same);
 6. train BERT-base pretraining (MLM + NSP, AdamW lr 1e-4) through
    ``framework.jit.train_step``: one step at dropout 0, batch 2 x L=512,
    whose loss and every gradient must match the port's plain path on the
@@ -60,7 +66,8 @@ Phases, each fatal on failure:
 8. serve ResNet-50 (224 x 224, eval, f32, random weights from a seed)
    through ``Predictor`` -> ``InferenceServer`` at buckets 1, 8 and 32,
    check every answer against the port's plain forward on the CPU and that
-   each forward launched 33 fused eval kernels, with a TF32 control;
+   each forward launched 33 fused eval kernels, with a TF32 control, and
+   the compiled-serving checks of step 5;
 9. train ResNet-50 with Momentum through ``framework.jit.train_step``: one
    step at batch 2 against the CPU's plain path (loss, gradients, running
    statistics; TF32 control), then 4 steps at bench.py's shape (batch
@@ -83,7 +90,9 @@ Phases, each fatal on failure:
     and 512; check every answer against the port's plain path on the CPU
     from the same directory (with a control, one scale off by 1%, that the
     limit must catch) and against the f32 program within the documented int8
-    envelope, and that each forward launched 25 int8 matmul kernels;
+    envelope, and that each forward launched 25 int8 matmul kernels; the
+    compiled-serving checks of step 5, through the static executor's graphs,
+    and a bias replaced through ``Scope.set`` showing in the next answer;
 12. train ResNet-50 again with ``FLAGS_use_pallas_pool_bwd`` on, the main
     run: the parity step, then 10 steps that also launch the max-pool
     backward kernel once each; step time and images/s beside the flag-off
@@ -115,9 +124,10 @@ Phases, each fatal on failure:
     weights, 10 steps each (median, host clock, device busy, peak memory,
     launches a step, which must be equal); ``eval_step`` of ResNet-50 under
     AMP at batch 1 and 8 (captured logits bit-equal to eager, wall against
-    busy); and the refusals: a capture that cannot be made raises and no
+    busy); the refusals: a capture that cannot be made raises and no
     step runs eagerly in its place, and ``GradScaler`` raises inside a
-    compiled step;
+    compiled step; and AdamW's bias correction on the card bit-equal to the
+    CPU's at every t up to 10,000;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -903,15 +913,27 @@ def _device_time_by_kind(prof):
     return by_kind, events
 
 
+SERVE_REPLICAS = 2  # worker threads of every served model, sharing one graph per bucket
+
+
 def _serve(pred, buckets, reqs, label):
-    """Serve ``pred`` behind ``InferenceServer`` on ``buckets``, wait for
-    ``/healthz``, POST ``reqs`` (feeds by input name): the first two alone,
-    the rest at once. Returns (answers, kernel launches over the requests,
-    forwards run for them); the server is drained and stopped."""
+    """Serve ``pred`` behind ``InferenceServer`` with ``SERVE_REPLICAS``
+    workers on ``buckets``, wait for ``/healthz``, POST ``reqs`` (feeds by
+    input name): the first two alone, the rest at once. Warmup must capture
+    each bucket once (the store's misses equal the buckets, whatever the
+    replica count) and the requests none (``extra_compiles() == 0``,
+    ``/statz`` ``compiles``). Returns (answers, kernel launches over the
+    requests, forwards run for them, readings); the server is drained and
+    stopped."""
+    import torch
+
     from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from paddle_tpu_torch.serving import InferenceServer
 
-    srv = InferenceServer(pred, port=0, buckets=buckets, batch_timeout_ms=5.0)
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    srv = InferenceServer(pred, port=0, replicas=SERVE_REPLICAS, buckets=buckets,
+                          batch_timeout_ms=5.0)
     t0 = time.perf_counter()
     srv.start()
     answers = [None] * len(reqs)
@@ -919,8 +941,16 @@ def _serve(pred, buckets, reqs, label):
         status, health = _http(srv.url + "/healthz")
         if status != 200:
             raise AssertionError(f"/healthz answered {status}: {health}")
+        reserved = torch.cuda.memory_reserved()
+        readings = {"replicas": SERVE_REPLICAS, "graphs": len(pred.store),
+                    "misses_after_warmup": pred.store.misses,
+                    "reserved_before_warmup_mib": reserved0 / 2**20,
+                    "reserved_after_warmup_mib": reserved / 2**20}
         log(f"{label} server ready at {srv.url} after {time.perf_counter() - t0:.1f} s "
-            f"(warmup over buckets {buckets})")
+            f"(warmup over buckets {buckets}, {SERVE_REPLICAS} replicas): {readings}")
+        if pred.store.misses != len(buckets) or len(pred.store) != len(buckets):
+            raise AssertionError(f"{label}: warmup captured {pred.store.misses} graphs "
+                                 f"({len(pred.store)} stored) for {len(buckets)} buckets")
         batches0 = srv.batcher.stats["batches"]
         reset_launch_counts()
 
@@ -940,6 +970,7 @@ def _serve(pred, buckets, reqs, label):
             t.join(600)
         counts = launch_counts()
         forwards = srv.batcher.stats["batches"] - batches0
+        compiles = _http(srv.url + "/statz")[1]["compiles"]
     finally:
         srv.stop(drain=True)
     if srv.pool.alive:
@@ -948,23 +979,50 @@ def _serve(pred, buckets, reqs, label):
         if ans is None or ans[0] != 200:
             raise AssertionError(f"{label} request {i} failed: {ans and ans[0]} "
                                  f"{ans and str(ans[1])[:300]}")
-    return answers, counts, forwards
+    readings.update(misses_after_requests=pred.store.misses, hits=pred.store.hits,
+                    extra_compiles=srv.pool.extra_compiles(), statz_compiles=compiles)
+    log(f"{label}: after {len(reqs)} requests in {forwards} batches: {readings}")
+    if (pred.store.misses != len(buckets) or readings["extra_compiles"]
+            or compiles != {"buckets": len(buckets), "unexpected": 0}):
+        raise AssertionError(f"{label}: the requests captured graphs after warmup: {readings}")
+    return answers, counts, forwards, readings
 
 
-def _profile_run(pred, feed, label):
-    """One ``Predictor.run`` under ``torch.profiler`` (host inputs and
-    outputs included): wall time, the device's busy share, kernel time by
-    kind and the top kernels."""
+PROFILE_ATTEMPTS = 3
+
+
+def _profile_run(fn, feed, label):
+    """One call of ``fn(feed)`` (a ``Predictor.run``, host inputs and outputs
+    included, or its eager counterpart) under ``torch.profiler``: the port's
+    kernels the profile saw run must equal the launches booked over the
+    call. The tracer now and then misses a few of the first kernels of a
+    profile (1 of ~25 profiled forwards on the H100), so a profile that
+    parts from the booking is taken again, up to ``PROFILE_ATTEMPTS`` times;
+    a graph that dropped or repeated a launch parts every time. Logs kernel
+    time by kind and the top kernels; returns (wall ms, device busy ms,
+    device events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pred.run(feed)
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    fn(feed)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pred.run(feed)  # ends in a copy to the host, so the device is done
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    _log_profile(prof, wall_ms, label)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(feed)  # ends in a copy to the host, so the device is done
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            _check_profiled_launches(prof, launch_counts(), label)
+            break
+        except AssertionError as e:
+            if attempt == PROFILE_ATTEMPTS:
+                raise
+            log(f"{label}: profile {attempt} of {PROFILE_ATTEMPTS} parts from the booking, "
+                f"taken again: {e}")
+    return _log_profile(prof, wall_ms, label)
 
 
 def _log_profile(prof, wall_ms, label, top=6):
@@ -976,12 +1034,102 @@ def _log_profile(prof, wall_ms, label, top=6):
                     sorted(by_kind.items(), key=lambda kv: -kv[1])))
     log(f"{label}, top kernels (name, ms, calls): "
         + "; ".join(f"{n} {t:.3f} {c}" for n, t, c in _top_kernels(prof, top)))
+    return wall_ms, busy, events
+
+
+SERVE_TIMED_RUNS = 10  # Predictor.run calls a side and a bucket for the mean wall
+
+
+def _captured_vs_eager(pred, feeds, eager, label):
+    """``Predictor.run`` (a replayed graph) against ``eager`` (the same
+    forward run op by op from the same host inputs to the same host
+    outputs) at each bucket of ``feeds`` ({bucket: host feed}): the mean
+    wall of ``SERVE_TIMED_RUNS`` calls (host clock; each call ends in a copy
+    to the host) and the device busy time of a profiled call, side by side.
+    The two answers are logged against each other. Returns the readings by
+    bucket."""
+    out = {}
+    for bucket, feed in feeds.items():
+        r = {}
+        for side, fn in (("eager", eager), ("captured", pred.run)):
+            ans = fn(feed)
+            t0 = time.perf_counter()
+            for _ in range(SERVE_TIMED_RUNS):
+                fn(feed)
+            wall = (time.perf_counter() - t0) * 1e3 / SERVE_TIMED_RUNS
+            _, busy, events = _profile_run(fn, feed, f"{label} {side} bucket {bucket}")
+            r[side] = {"wall_ms": wall, "busy_ms": busy, "device_events": events}
+            r[f"{side}_answer"] = ans
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(r.pop("eager_answer"),
+                                                               r.pop("captured_answer")))
+        r["max_abs_diff"] = diff
+        out[bucket] = r
+        e, c = r["eager"], r["captured"]
+        log(f"{label} bucket {bucket}: Predictor.run wall eager {e['wall_ms']:.3f} ms, captured "
+            f"{c['wall_ms']:.3f} ms; device busy eager {e['busy_ms']:.3f} ms, captured "
+            f"{c['busy_ms']:.3f} ms; answers apart by {diff:.3g}")
+    return out
+
+
+CONCURRENT_RUNS = 20  # runs of each of two threads replaying one bucket
+
+
+def _concurrent_replays(pred, make_feed, bucket, off_ladder, label):
+    """Two clones of ``pred`` replay one ``bucket`` in two threads,
+    ``CONCURRENT_RUNS`` distinct inputs each, while a third thread captures
+    a new shape (``off_ladder`` rows) under that traffic: every concurrent
+    answer must be bit-equal to its input's answer replayed alone, and the
+    capture must neither fail nor spoil a replay. Returns the readings."""
+    feeds = [[make_feed(bucket, 1000 * t + i) for i in range(CONCURRENT_RUNS)] for t in range(2)]
+    solo = [[pred.run(f) for f in per] for per in feeds]
+    got = [[None] * CONCURRENT_RUNS for _ in range(2)]
+    errors, started = [], threading.Event()
+    captured = {}
+    misses0 = pred.store.misses
+
+    def replay(t, clone):
+        try:
+            for i, f in enumerate(feeds[t]):
+                got[t][i] = clone.run(f)
+                if i == 1:
+                    started.set()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def capture(clone):
+        try:
+            started.wait(60)
+            captured["answer"] = clone.run(make_feed(off_ladder, 99))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=replay, args=(t, pred.clone())) for t in range(2)]
+    threads.append(threading.Thread(target=capture, args=(pred.clone(),)))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{label}: concurrent replays failed: {errors!r}")
+    same = sum(all(np.array_equal(a, b) for a, b in zip(got[t][i], solo[t][i]))
+               for t in range(2) for i in range(CONCURRENT_RUNS))
+    again = pred.run(make_feed(off_ladder, 99))
+    cap_diff = max(float(np.abs(a - b).max()) for a, b in zip(captured["answer"], again))
+    r = {"bucket": bucket, "runs": 2 * CONCURRENT_RUNS, "bit_equal_to_solo": same,
+         "captured_under_traffic": pred.store.misses - misses0, "off_ladder_rows": off_ladder,
+         "capture_vs_its_replay": cap_diff}
+    log(f"{label}: concurrent replays {r}")
+    if same != 2 * CONCURRENT_RUNS or r["captured_under_traffic"] != 1 or \
+            not all(np.isfinite(a).all() for a in captured["answer"]):
+        raise AssertionError(f"{label}: concurrent replays part from solo ones: {r}")
+    return r
 
 
 def profile_forward(pred, seq_len):
     """Time of one BERT forward per bucket (inputs already on the card,
-    CUDA events around 20 forwards), then where the time goes at the
-    smallest and the largest bucket through ``Predictor.run``."""
+    CUDA events around 20 forwards of the module, eagerly), then
+    ``Predictor.run`` captured against eager at every bucket
+    (:func:`_captured_vs_eager`). Returns the latter's readings."""
     import torch
 
     rng = np.random.RandomState(5)
@@ -992,14 +1140,34 @@ def profile_forward(pred, seq_len):
             ms = time_ms(pred.module, [(ids, types)] * 3, 20)
         log(f"forward bucket {bucket} ({bucket * seq_len} tokens): {ms:.3f} ms, "
             f"{bucket * seq_len / ms * 1e3:.0f} tokens/s")
-    for bucket in (BUCKETS[0], BUCKETS[-1]):
-        feed = [rng.randint(1, 1000, (bucket, seq_len)).astype(np.int64),
-                np.zeros((bucket, seq_len), np.int64)]
-        _profile_run(pred, feed, f"Predictor.run bucket {bucket}")
+    feeds = {b: [rng.randint(1, 1000, (b, seq_len)).astype(np.int64),
+                 np.zeros((b, seq_len), np.int64)] for b in BUCKETS}
+    return _captured_vs_eager(pred, feeds, _eager_module_run(pred), "BERT-base")
+
+
+def _eager_module_run(pred):
+    """``pred.run``'s eager counterpart: the module op by op on the host
+    feeds moved to the card, its outputs copied to the host."""
+    import torch
+
+    def run(feed):
+        with torch.no_grad():
+            outs = pred.module(*[torch.from_numpy(a).cuda() for a in feed])
+        outs = (outs,) if isinstance(outs, torch.Tensor) else outs
+        return [o.cpu().numpy() for o in outs]
+
+    return run
+
+
+def _bert_feed(bucket, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, 1000, (bucket, SEQ_LEN)).astype(np.int64),
+            np.zeros((bucket, SEQ_LEN), np.int64)]
 
 
 def serve_bert():
-    """Phases 4-5. Returns kernel launches per name on the serving run."""
+    """Phases 4-5. Returns (kernel launches per name on the serving run,
+    readings)."""
     import torch
 
     from paddle_tpu_torch.inference import Predictor
@@ -1015,7 +1183,7 @@ def serve_bert():
     cpu_pred = Predictor(copy.deepcopy(model), specs, fetches, device="cpu")
     pred = Predictor(model, specs, fetches)
     reqs = make_requests(cfg, np.random.RandomState(3))
-    answers, counts, forwards = _serve(pred, BUCKETS, reqs, "BERT-base")
+    answers, counts, forwards, readings = _serve(pred, BUCKETS, reqs, "BERT-base")
     wants = []
     for i, (req, ans) in enumerate(zip(reqs, answers)):
         got = [np.asarray(ans[1]["outputs"][n], np.float32) for n in fetches]
@@ -1040,14 +1208,16 @@ def serve_bert():
     log(f"{forwards} forwards, launches {counts}: {2 * layers} LayerNorm + {layers} attention "
         "kernels each")
     tf32_control(pred, reqs, wants)
-    profile_forward(pred, SEQ_LEN)
-    return counts
+    readings["by_bucket"] = profile_forward(pred, SEQ_LEN)
+    readings["concurrent"] = _concurrent_replays(pred, _bert_feed, 2, 3, "BERT-base")
+    return counts, readings
 
 
 def tf32_control(pred, reqs, wants):
     """The same requests through ``Predictor.run`` with TF32 matmuls on (the
     precision the predictor switches off), against the same CPU answers:
-    the serving limits must catch that blur."""
+    the serving limits must catch that blur. The TF32 setting keys new
+    graphs, so these runs capture anew and do not replay the f32 ones."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -2321,7 +2491,8 @@ def _resnet50(seed):
 
 def serve_resnet():
     """ResNet-50 behind ``Predictor`` -> ``InferenceServer`` at buckets 1,
-    8 and 32. Returns kernel launches per name on the serving run."""
+    8 and 32. Returns (kernel launches per name on the serving run,
+    readings)."""
     import torch
 
     from paddle_tpu_torch.inference import Predictor
@@ -2334,7 +2505,7 @@ def serve_resnet():
     pred = Predictor(model, specs, ["logits"])
     rng = np.random.RandomState(13)
     reqs = [{"image": _images(rng, rows)} for rows in (1, 6, 3, 20)]
-    answers, counts, forwards = _serve(pred, RN_BUCKETS, reqs, "ResNet-50")
+    answers, counts, forwards, readings = _serve(pred, RN_BUCKETS, reqs, "ResNet-50")
     wants, worst = [], 0.0
     for i, (req, ans) in enumerate(zip(reqs, answers)):
         req = req["image"]
@@ -2374,14 +2545,20 @@ def serve_resnet():
     if not tf32 > RN_SERVE_RTOL:
         raise AssertionError(f"ResNet TF32 control {tf32} passes the serving limit "
                              f"{RN_SERVE_RTOL}: it cannot catch it")
-    profile_resnet_forward(pred)
-    return counts
+    readings["by_bucket"] = profile_resnet_forward(pred)
+    readings["concurrent"] = _concurrent_replays(pred, _rn_feed, 8, 5, "ResNet-50")
+    return counts, readings
+
+
+def _rn_feed(bucket, seed):
+    return [np.random.RandomState(seed).randn(bucket, 3, RN_HW, RN_HW).astype(np.float32)]
 
 
 def profile_resnet_forward(pred):
     """Forward time per bucket (inputs on the card, CUDA events around 10
-    forwards), then ``Predictor.run`` at the smallest and largest bucket
-    under ``torch.profiler``."""
+    forwards of the module, eagerly), then ``Predictor.run`` captured
+    against eager at every bucket (:func:`_captured_vs_eager`). Returns the
+    latter's readings."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -2390,10 +2567,8 @@ def profile_resnet_forward(pred):
         with torch.inference_mode():
             ms = time_ms(pred.module, [(x,)] * 2, 10)
         log(f"ResNet-50 forward bucket {bucket}: {ms:.3f} ms, {bucket / ms * 1e3:.1f} images/s")
-    rng = np.random.RandomState(6)
-    for bucket in (RN_BUCKETS[0], RN_BUCKETS[-1]):
-        _profile_run(pred, [rng.randn(bucket, 3, RN_HW, RN_HW).astype(np.float32)],
-                     f"ResNet Predictor.run bucket {bucket}")
+    feeds = {b: _rn_feed(b, 6 + b) for b in RN_BUCKETS}
+    return _captured_vs_eager(pred, feeds, _eager_module_run(pred), "ResNet-50")
 
 
 # Training parity limits against the CPU's plain path (batch 2 x 224 x 224),
@@ -3718,33 +3893,38 @@ BIAS_T = 10000  # steps at which the card's bias correction is read
 
 
 def bias_correction_on_card():
-    """AdamW's compiled bias correction ``1 - beta**t`` (float32 ``beta``,
-    int32 ``t``, as ``Adam._bias_corrections`` computes it) on the card
-    against the CPU's, which equals the JAX compiled step's on the CPU
-    (``tests/test_torch_compiled.py``), for t = 1..``BIAS_T``: the steps
-    where they differ and by how many float32 ulps of the CPU's value.
-    Logged, not held: CUDA's ``powf`` is another rounding of the same
-    power. Returns the readings."""
+    """AdamW's compiled bias correction ``1 - beta**t`` on the card, as
+    ``Adam._bias_corrections`` computes it there (``optimizer._bias_correction``:
+    the power of the float32 ``beta`` widened and the int32 ``t`` in
+    float64, rounded once to float32), for t = 1..``BIAS_T`` on 0-dim
+    operands, as the optimizer's: it must equal the same formula on the CPU
+    bit for bit at every t. Logs where it differs from the CPU's float32
+    ``pow`` (the JAX compiled step's value) and by how many float32 ulps.
+    Returns the readings."""
     import torch
+
+    from paddle_tpu_torch.optimizer import _bias_correction
 
     out = {}
     t_card = list(torch.arange(1, BIAS_T + 1, dtype=torch.int32, device="cuda"))
     t_cpu = list(torch.arange(1, BIAS_T + 1, dtype=torch.int32))
     for beta in (0.9, 0.999):
-        # 0-dim operands, as the optimizer's (a vector of t may take
-        # another pow on the CPU)
-        b = torch.full((), beta, dtype=torch.float32, device="cuda")
-        card = torch.stack([1 - b**t for t in t_card]).cpu()
-        b = b.cpu()
-        cpu = torch.stack([1 - b**t for t in t_cpu])
-        diff = (card != cpu).nonzero().flatten()
-        ulps = (np.abs(card.numpy().astype(np.float64) - cpu.numpy())
-                / np.spacing(np.abs(cpu.numpy())))
-        out[str(beta)] = {"t_differing": int(diff.numel()), "of": BIAS_T,
-                          "first_t": [int(i) + 1 for i in diff[:8]],
-                          "max_ulps": float(ulps.max())}
-        log(f"bias correction 1 - {beta}**t on the card against the CPU, t = 1..{BIAS_T}: "
-            f"{out[str(beta)]}")
+        card = torch.stack([_bias_correction(beta, t) for t in t_card]).cpu()
+        f64 = torch.stack([_bias_correction(beta, t) for t in t_cpu])
+        b = torch.full((), beta, dtype=torch.float32)
+        f32 = torch.stack([1 - b**t for t in t_cpu])  # 0-dim, as the CPU step's
+        apart = (card != f64).nonzero().flatten()
+        diff = (card != f32).nonzero().flatten()
+        ulps = (np.abs(card.numpy().astype(np.float64) - f32.numpy())
+                / np.spacing(np.abs(f32.numpy())))
+        out[str(beta)] = {"t_differing_from_cpu_float64_route": int(apart.numel()),
+                          "t_differing_from_cpu_float32_pow": int(diff.numel()), "of": BIAS_T,
+                          "t_float32_pow": [int(i) + 1 for i in diff[:8]],
+                          "max_ulps_float32_pow": float(ulps.max())}
+        log(f"bias correction 1 - {beta}**t on the card, t = 1..{BIAS_T}: {out[str(beta)]}")
+        if apart.numel():
+            raise AssertionError(f"bias correction {beta}: the card parts from the CPU's float64 "
+                                 f"route at t = {[int(i) + 1 for i in apart[:8]]}")
     return out
 
 
@@ -4093,12 +4273,14 @@ def _build_ffn_program(static, ops):
 
 
 def _forward_ms(exe, program, scope, fetch_names, label):
-    """Host-paced wall time of one forward per bucket, the rows already on
-    the card: CUDA events around 20 forwards enqueued as fast as the
-    executor's Python goes. The executor waits on the card within a
-    forward, so this is not device time (a reading behind a sleep kernel
-    came out host-paced too); the device's busy time comes from the
-    profiled runs (:func:`_profile_run`). Returns ``{bucket: ms}``."""
+    """Time of one forward per bucket, the rows already on the card: CUDA
+    events around 20 forwards enqueued back to back. Each forward is a
+    replay of the executor's graph for the bucket (the first call of a
+    bucket captures it) and a copy of the fetches on the card, so the card
+    no longer waits on the executor's Python between ops as it did when
+    the executor interpreted each forward; where the host enqueues a replay
+    faster than the card runs it, this is the card's time. Returns
+    ``{bucket: ms}``."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -4107,7 +4289,7 @@ def _forward_ms(exe, program, scope, fetch_names, label):
         x = torch.randn(bucket, Q_HIDDEN, generator=g, device="cuda")
         out[bucket] = time_ms(lambda x: exe.run(program, feed={"x": x}, fetch_list=fetch_names,
                                                 scope=scope, return_numpy=False), [(x,)], 20)
-    log(f"{label} forward, host-paced wall ms a bucket: "
+    log(f"{label} forward, replayed, ms a bucket: "
         + ", ".join(f"{b}: {ms:.3f}" for b, ms in out.items()))
     return out
 
@@ -4184,7 +4366,8 @@ def _row_stats(errs):
 
 def serve_int8():
     """Make the int8 model directory, then serve it as a user would: from the
-    directory alone. Returns kernel launches per name on the serving run."""
+    directory alone. Returns (kernel launches per name on the serving run,
+    readings)."""
     import torch
 
     from paddle_tpu_torch.inference import Config, create_predictor
@@ -4214,7 +4397,7 @@ def serve_int8():
     log(f"loaded int8 program: {len(types)} ops, {Q_MULS} mul_int8, {int8_bytes / 1e6:.1f} MB of "
         f"int8 weights on the card, no float copy")
 
-    answers, counts, forwards = _serve(pred, Q_BUCKETS, reqs, "int8 program")
+    answers, counts, forwards, readings = _serve(pred, Q_BUCKETS, reqs, "int8 program")
     fetch = pred.get_output_names()[0]
     wants, row_errs = [], []
     for i, (req, ans, ref) in enumerate(zip(reqs, answers, refs)):
@@ -4263,14 +4446,62 @@ def serve_int8():
         raise AssertionError(f"int8 control: {ctrl_share:.1%} of rows within {Q_ROW_RTOL} passes "
                              f"the limit {Q_ROW_SHARE:.0%}: it cannot catch a scale 1% off")
 
+    readings["weight_replaced"] = _replace_weight(pred, reqs[0]["x"].astype(np.float32))
     int8_ms = _forward_ms(pred._exe, pred._program, pred._scope, [fetch], "int8 program")
-    log("forward host-paced wall ms, int8 beside f32: "
+    log("forward ms, replayed, int8 beside f32: "
         + ", ".join(f"bucket {b}: {int8_ms[b]:.3f} / {f32_ms[b]:.3f}" for b in Q_BUCKETS))
-    rng = np.random.RandomState(32)
-    for bucket in (Q_BUCKETS[0], Q_BUCKETS[-1]):
-        _profile_run(pred, [rng.randn(bucket, Q_HIDDEN).astype(np.float32)],
-                     f"int8 Predictor.run bucket {bucket}")
-    return counts
+    feeds = {b: _q_feed(b, 32 + b) for b in Q_BUCKETS}
+    readings["by_bucket"] = _captured_vs_eager(pred, feeds, _eager_program_run(pred),
+                                               "int8 program")
+    readings["concurrent"] = _concurrent_replays(pred, _q_feed, 64, 100, "int8 program")
+    return counts, readings
+
+
+def _q_feed(bucket, seed):
+    return [np.random.RandomState(seed).randn(bucket, Q_HIDDEN).astype(np.float32)]
+
+
+def _eager_program_run(pred):
+    """``pred.run``'s eager counterpart: the executor's interpreter on the
+    host feeds moved to the card, the fetches copied to the host."""
+    import torch
+
+    block = pred._program.global_block()
+
+    def run(feed):
+        with torch.no_grad():
+            env = {n: torch.from_numpy(a).cuda() for n, a in zip(pred.get_input_names(), feed)}
+            out = pred._exe._interpret(block, env, pred._scope, pred.get_output_names())
+        return [t.cpu().numpy() for t in out]
+
+    return run
+
+
+def _replace_weight(pred, a):
+    """Add 1 to the last product's bias through ``Scope.set``: the next
+    answer must follow it (the scope's new generation keys a new graph, so
+    the old graph, which reads the old tensor, does not replay), and setting
+    the old tensor back must bring the old answer back. Returns the
+    readings."""
+    ops = pred._program.global_block().ops
+    name = next(op.inputs["X"][1] for op in reversed(ops) if op.type == "elementwise_add")
+    old = pred._scope.get(name)
+    misses0 = pred.store.misses
+    before = pred.run([a])[0]
+    pred._scope.set(name, old + 1.0)
+    try:
+        after = pred.run([a])[0]
+    finally:
+        pred._scope.set(name, old)
+    pred.run([a])  # the capture; then a replay, as ``before`` was
+    back = pred.run([a])[0]
+    err = float(np.abs(after - (before + 1.0)).max())
+    r = {"bias": name, "max_err_vs_old_plus_1": err, "restored_bit_equal": bool(
+        np.array_equal(back, before)), "captures": pred.store.misses - misses0}
+    log(f"int8 program: a weight replaced through Scope.set: {r}")
+    if err > 1e-4 or not r["restored_bit_equal"] or r["captures"] != 2:
+        raise AssertionError(f"int8 program: the replaced weight did not show: {r}")
+    return r
 
 
 # the sources rewritten last, whose registers and spills the run logs
@@ -4378,13 +4609,14 @@ def main() -> int:
 
     kernels = (check_kernels() + check_amp_kernels() + check_resnet_kernels() + check_new_kernels()
                + check_resnet_kernels_bf16())
-    served = serve_bert()
+    served, serving = {}, {}
+    served["bert"], serving["bert"] = serve_bert()
     trained = train_bert()
     torch.cuda.empty_cache()
     amp_trained, amp = train_bert_amp()
     torch.cuda.empty_cache()
-    rn_served = serve_resnet()
-    q_served = serve_int8()
+    served["resnet"], serving["resnet"] = serve_resnet()
+    served["int8"], serving["int8"] = serve_int8()
     torch.cuda.empty_cache()
     rn_trained = train_resnet()
     torch.cuda.empty_cache()
@@ -4395,8 +4627,7 @@ def main() -> int:
     compiled_counts, compiled = compiled_steps()
     for k in kernels:
         name = k["name"]
-        k["launches_serving"] = (served[name] + rn_served[name] + q_served[name]
-                                 + rn_amp_served[name])
+        k["launches_serving"] = sum(c[name] for c in served.values()) + rn_amp_served[name]
         k["launches_training"] = (trained[name] + amp_trained[name] + rn_trained[name]
                                   + rn_amp_trained[name])
         k["launches_compiled"] = compiled_counts[name]  # replayed in CUDA graphs
@@ -4406,7 +4637,7 @@ def main() -> int:
             k["ptxas"] = registers[src]
     print(card)
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
-                      "compiled": compiled}))
+                      "compiled": compiled, "serving": serving}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ __all__ = [
     "EnforceNotMet",
     "InvalidArgumentError",
     "NotFoundError",
+    "PreconditionNotMetError",
     "ResourceExhaustedError",
     "ExecutionTimeoutError",
     "UnavailableError",
@@ -33,6 +34,10 @@ class InvalidArgumentError(EnforceNotMet):
 
 class NotFoundError(EnforceNotMet):
     code = "NOT_FOUND"
+
+
+class PreconditionNotMetError(EnforceNotMet):
+    code = "PRECONDITION_NOT_MET"
 
 
 class ResourceExhaustedError(EnforceNotMet):

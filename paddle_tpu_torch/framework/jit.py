@@ -38,7 +38,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import resolve_device
-from ..runtime.compiled import GraphStore, clone_outputs, compiled_step
+from ..runtime.compiled import GraphStore, clone_outputs, compiled_step, precision_key
 from . import random as _random
 
 __all__ = ["TrainStepFn", "EvalStepFn", "train_step", "eval_step"]
@@ -163,13 +163,14 @@ class TrainStepFn:
 
     def _compiled(self, variant, batch):
         opt = self.optimizer
-        sig = (self._instance, len(opt._parameter_list), variant) + _signature(batch)
+        sig = ((self._instance, len(opt._parameter_list), variant, precision_key())
+               + _signature(batch))
         entry = self.store.lookup(sig)
         if entry is not None:
-            out = self.store.replay(entry, *batch)
+            out = self.store.replay(entry, *batch, read=clone_outputs)
             if variant != "accumulate":
                 opt._global_step += 1  # the host's count; the graph advanced the device's
-            return out.clone()
+            return out
         inputs = [b.clone() for b in batch]  # the graph's static inputs
         with compiled_step():
             loss = _first_run(self.device, lambda: self._body(variant, inputs))
@@ -239,8 +240,11 @@ class EvalStepFn:
     """``step(*batch)``: ``fn(model, *batch)`` (default ``model(*batch)``)
     in eval mode without gradients, the model's training mode restored
     after. With ``jit=True`` on the card, one captured graph per input
-    signature, through a store of captured steps as the train step's;
-    replays hand back copies of the outputs."""
+    signature (shapes, dtypes and :func:`~paddle_tpu_torch.runtime.compiled.precision_key`),
+    through a store of captured steps as the train step's; replays hand
+    back copies of the outputs. Threads may call one step together (the
+    clones of a ``Predictor`` do): a signature is captured once, and each
+    replay answers its own input."""
 
     def __init__(self, model, fn=None, jit=True, device=None):
         self.device = resolve_device(device)
@@ -256,25 +260,39 @@ class EvalStepFn:
             return self.fn(self.model, *batch) if self.fn is not None else self.model(*batch)
 
     def __call__(self, *batch):
-        batch = [_to_device(b, self.device) for b in batch]
+        return self.run(batch)
+
+    def run(self, batch, read=None):
+        """The step on ``batch`` (tensors or numpy arrays), its outputs
+        passed through ``read`` (a copy to the host, say; by default a
+        replay's outputs are cloned and an eager run's returned as they
+        are). A captured signature's inputs may stay on the host: the
+        replay copies them into its static buffers."""
+        keep = (lambda out: out) if read is None else read
         was_training = self.model.training
         self.model.eval()
         try:
-            if not self.jit:
-                return self._run(batch)
-            if not _captures(self.device):
+            if not (self.jit and _captures(self.device)):
+                batch = [_to_device(b, self.device) for b in batch]
+                if not self.jit:
+                    return keep(self._run(batch))
                 with compiled_step():
-                    return self._run(batch)
-            sig = (self._instance,) + _signature(batch)
-            entry = self.store.lookup(sig)
-            if entry is not None:
-                return clone_outputs(self.store.replay(entry, *batch))
-            inputs = [b.clone() for b in batch]
-            with compiled_step():
-                out = _first_run(self.device, lambda: self._run(inputs))
-                self.store.capture(sig, lambda *x: self._run(x), inputs,
-                                   _random.graph_generators(self.device))
-            return out
+                    return keep(self._run(batch))
+            batch = [torch.from_numpy(np.ascontiguousarray(b)) if isinstance(b, np.ndarray)
+                     else b for b in batch]
+            sig = (self._instance, precision_key()) + _signature(batch)
+            entry = self.store.find(sig)
+            if entry is None:
+                with self.store.capturing:
+                    entry = self.store.lookup(sig)
+                    if entry is None:
+                        inputs = [b.to(self.device, copy=True) for b in batch]
+                        with compiled_step():
+                            out = _first_run(self.device, lambda: self._run(inputs))
+                            self.store.capture(sig, lambda *x: self._run(x), inputs,
+                                               _random.graph_generators(self.device))
+                        return keep(out)
+            return self.store.replay(entry, *batch, read=read or clone_outputs)
         finally:
             if was_training:
                 self.model.train()

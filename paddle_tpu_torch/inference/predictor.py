@@ -2,13 +2,20 @@
 
 Two predictors with the interface the serving stack uses
 (``get_input_names``, ``get_output_names``, ``input_spec``, ``run(list of
-numpy) -> list of numpy``, ``clone()``): :class:`Predictor` wraps an
-``nn.Module`` and the ``InputSpec``s of its positional inputs;
+numpy) -> list of numpy``, ``clone()``, ``store``): :class:`Predictor`
+wraps an ``nn.Module`` and the ``InputSpec``s of its positional inputs;
 :class:`ProgramPredictor`, which ``create_predictor(Config(dir))`` returns,
 loads a saved static program (``static.io.save_inference_model`` or
 ``slim`` ``save_int8_model`` of either package), runs the load-time passes
-and interprets it with the static executor. Both run on the CUDA card unless
+and runs it with the static executor. Both run on the CUDA card unless
 the caller passes ``device="cpu"``.
+
+On the card both replay a CUDA graph per input signature (a serving
+bucket): ``Predictor`` through ``framework.jit.eval_step``'s
+:class:`~paddle_tpu_torch.framework.jit.EvalStepFn`, ``ProgramPredictor``
+through its executor. ``store`` is that step's or executor's store of
+graphs; a predictor and its clones share it, so N replicas capture each
+bucket once (``paddle_tpu/inference/predictor.py:156-176``).
 """
 from __future__ import annotations
 
@@ -19,13 +26,17 @@ import torch
 
 from ..device import resolve_device
 from ..errors import InvalidArgumentError
+from ..framework.jit import EvalStepFn
 from ..jit_api import InputSpec
 
 __all__ = ["Predictor", "Config", "ProgramPredictor", "create_predictor"]
 
 
 class Predictor:
-    """Runs ``module(*inputs)`` in eval mode under ``torch.inference_mode()``.
+    """Runs ``module(*inputs)`` in eval mode without gradients, through an
+    :class:`~paddle_tpu_torch.framework.jit.EvalStepFn`: on the card its
+    first run of an input signature runs eagerly and is captured, later
+    runs replay the graph.
 
     ``input_spec`` names and shapes the module's positional inputs;
     ``output_names`` names its outputs (a tensor or a tuple of them).
@@ -36,15 +47,19 @@ class Predictor:
 
     def __init__(self, module, input_spec, output_names, device=None):
         self.device = resolve_device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.input_spec = list(input_spec)
         names = [s.name for s in self.input_spec]
         if any(n is None for n in names) or len(set(names)) != len(names):
             raise InvalidArgumentError(f"every InputSpec needs a distinct name, got {names}")
         self._feed_names = names
         self._fetch_names = list(output_names)
-        self.module = module.to(self.device).eval()
+        self._step = EvalStepFn(module.eval(), device=self.device)  # TF32 off
+        self.module = self._step.model
+
+    @property
+    def store(self):
+        """The graphs of this predictor and its clones."""
+        return self._step.store
 
     def get_input_names(self):
         return list(self._feed_names)
@@ -53,8 +68,9 @@ class Predictor:
         return list(self._fetch_names)
 
     def clone(self):
-        """A replica sharing the module (and so its weights on the device):
-        N clones serve N worker threads from one copy of the weights."""
+        """A replica sharing the module (and so its weights on the device)
+        and the store of graphs: N clones serve N worker threads from one
+        copy of the weights and one graph per bucket."""
         return copy.copy(self)
 
     def run(self, inputs):
@@ -63,16 +79,15 @@ class Predictor:
         if len(inputs) != len(self._feed_names):
             raise InvalidArgumentError(
                 f"expected {len(self._feed_names)} inputs {self._feed_names}, got {len(inputs)}")
-        with torch.inference_mode():
-            feeds = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in inputs]
-            outs = self.module(*feeds)
-            if isinstance(outs, torch.Tensor):
-                outs = (outs,)
-            if len(outs) != len(self._fetch_names):
-                raise InvalidArgumentError(
-                    f"module returned {len(outs)} outputs, expected {self._fetch_names}")
-            return [o.cpu().numpy() for o in outs]
+        return self._step.run([np.ascontiguousarray(a) for a in inputs], read=self._to_host)
+
+    def _to_host(self, outs):
+        if isinstance(outs, torch.Tensor):
+            outs = (outs,)
+        if len(outs) != len(self._fetch_names):
+            raise InvalidArgumentError(
+                f"module returned {len(outs)} outputs, expected {self._fetch_names}")
+        return [o.to("cpu", copy=True).numpy() for o in outs]
 
 
 class Config:
@@ -100,7 +115,8 @@ class ProgramPredictor:
     The parameters load into a scope of the predictor's own, on its device,
     with the dtypes they were saved in (int8 weights stay int8). ``clone()``
     shares program, scope and executor, so N replicas hold one copy of the
-    weights. TF32 is switched off for matrix products and convolutions.
+    weights and one graph per bucket. TF32 is switched off for matrix
+    products and convolutions.
     """
 
     def __init__(self, config: Config, device=None):
@@ -137,6 +153,11 @@ class ProgramPredictor:
     def get_output_names(self):
         return list(self._fetch_names)
 
+    @property
+    def store(self):
+        """The executor's graphs, shared by this predictor's clones."""
+        return self._exe.store
+
     def quant_metadata(self):
         """Scale metadata of a loaded int8 model (its ``__quant__.json``):
         bits, per-var scales, int8 weight names. None for a float model."""
@@ -146,7 +167,7 @@ class ProgramPredictor:
 
     def clone(self):
         """A replica sharing the program, the scope (and so the weights on
-        the device) and the executor."""
+        the device) and the executor (and so its graphs)."""
         return copy.copy(self)
 
     def run(self, inputs):

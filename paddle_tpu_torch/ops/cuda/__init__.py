@@ -11,15 +11,22 @@ eval conv products and the int8 products that took split-K).
 :func:`counts` reads both kinds and :func:`add_counts` adds to them: a
 step captured in a CUDA graph (``runtime/compiled.py``) takes back what
 its wrappers counted while the capture recorded, and launched nothing,
-and adds it again at each replay, which launches those kernels.
+and adds it again at each replay, which launches those kernels. What the
+capture counted is read from a tally of the capture's stream
+(:func:`tallied`), so the launches other threads count during a capture
+(replicas replaying other graphs) are neither taken back nor booked to
+the captured graph, and the backward kernels the autograd engine launches
+for a captured train step are.
 """
 from __future__ import annotations
 
-from . import (conv_bn_relu, flash_attention, int8_matmul, layernorm_residual, optimizer_update,
-               pool_backward)
+import contextlib
+
+from . import (_tally, conv_bn_relu, flash_attention, int8_matmul, layernorm_residual,
+               optimizer_update, pool_backward)
 
 __all__ = ["KERNEL_COUNTERS", "OTHER_COUNTERS", "launch_counts", "reset_launch_counts",
-           "counts", "add_counts"]
+           "counts", "add_counts", "tallied"]
 
 #: kernel name -> (the module holding its wrapper, the name of its count)
 KERNEL_COUNTERS = {
@@ -90,4 +97,30 @@ def add_counts(delta: dict, sign: int = 1) -> None:
         if n:
             mod, attr = every[name]
             with mod._count_lock:
-                setattr(mod, attr, getattr(mod, attr) + sign * n)
+                _tally.bump(vars(mod), attr, sign * n)
+
+
+@contextlib.contextmanager
+def tallied(stream=None):
+    """Yield a dict that, when the block ends, holds what the block counted
+    (names as :func:`counts` gives them): every count bumped on ``stream``
+    (a capture's, on the card, whatever thread bumps it), or with no
+    stream every count this thread bumped; not what other streams or
+    threads counted meanwhile."""
+    raw = {}
+    if stream is not None:
+        _tally._by_stream[stream.cuda_stream] = raw
+    else:
+        prev = getattr(_tally._local, "tally", None)
+        _tally._local.tally = raw
+    out = {}
+    try:
+        yield out
+    finally:
+        if stream is not None:
+            del _tally._by_stream[stream.cuda_stream]
+        else:
+            _tally._local.tally = prev
+        names = {(mod.__name__, attr): name for name, (mod, attr) in _every_counter().items()}
+        for key, n in raw.items():
+            out[names[key]] = out.get(names[key], 0) + n

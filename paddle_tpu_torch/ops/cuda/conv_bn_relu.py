@@ -64,6 +64,7 @@ import torch.nn.functional as _F
 
 from ...framework.autograd import amp_cast
 from . import _build
+from ._tally import bump
 
 __all__ = ["conv_bn_relu", "mm_affine_relu", "mm_stats", "centered_sumsq", "bn_relu",
            "bn_bwd_partials", "bn_bwd_dco"]
@@ -125,7 +126,7 @@ _REDUCE_COLS = 32  # channels a reduction block (csrc/conv_bn_relu_bn.cu kCols)
 
 def _count(attr, dtype=torch.float32):
     with _count_lock:
-        globals()[("BF16_" if dtype == torch.bfloat16 else "") + attr] += 1
+        bump(globals(), ("BF16_" if dtype == torch.bfloat16 else "") + attr)
 
 
 # -- plain versions -----------------------------------------------------------

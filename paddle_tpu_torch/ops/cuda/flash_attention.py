@@ -53,6 +53,7 @@ import torch
 from ...framework import random as _random
 from ...framework.autograd import amp_cast
 from . import _build
+from ._tally import bump
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_delta", "flash_attention_bwd_dkv",
@@ -367,7 +368,7 @@ def _launch(name, dtype, args):
     err = _bind(lib, symbol)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(err, symbol)
     with _count_lock:
-        globals()[counter] += 1
+        bump(globals(), counter)
 
 
 def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0,

@@ -30,6 +30,7 @@ import threading
 import torch
 
 from . import _build
+from ._tally import bump
 
 __all__ = ["int8_matmul", "LAUNCHES", "SPLITS"]
 
@@ -78,7 +79,6 @@ def _plain_int8_matmul(x, w):
 @torch.no_grad()
 def int8_matmul(x, w):
     """``x [M, K] int8 @ w [K, N] int8 -> [M, N] int32``, exact."""
-    global LAUNCHES, SPLITS
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"int8_matmul: x {tuple(x.shape)} and w {tuple(w.shape)} are not "
                          f"[M, K] and [K, N]")
@@ -105,6 +105,6 @@ def int8_matmul(x, w):
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_matmul")
     with _count_lock:
-        LAUNCHES += 1
-        SPLITS += _split_k(m, k, n)[0] > 1
+        bump(globals(), "LAUNCHES")
+        bump(globals(), "SPLITS", int(_split_k(m, k, n)[0] > 1))
     return out

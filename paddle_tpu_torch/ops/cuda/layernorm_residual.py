@@ -39,6 +39,7 @@ import torch
 
 from ...framework.autograd import amp_cast
 from . import _build
+from ._tally import bump
 
 __all__ = ["layernorm_residual", "layernorm_residual_fwd", "layernorm_residual_bwd",
            "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "MIXED_LAUNCHES"]
@@ -79,7 +80,7 @@ def _count(attr, dtype, res_dtype=None):
             name = f"MIXED_{attr}"
         else:
             name = attr if dtype == torch.float32 else f"BF16_{attr}"
-        globals()[name] += 1
+        bump(globals(), name)
 
 
 def _reference(x2, r2, w, b, eps):

@@ -41,6 +41,7 @@ import threading
 import torch
 
 from . import _build
+from ._tally import bump
 
 __all__ = ["fused_momentum_update", "fused_momentum_update_multi", "launch_groups",
            "MAX_TENSORS", "CHUNK", "LAUNCHES", "TENSORS"]
@@ -116,7 +117,6 @@ def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, wei
     over it and its velocity. ``lr`` is a Python number or a 0-dim float32
     tensor on the tensors' device (the train step's). On the card: one
     launch a group of :func:`launch_groups`; empty tensors are skipped."""
-    global LAUNCHES, TENSORS
     params, grads, velocities = list(params), list(grads), list(velocities)
     if not len(params) == len(grads) == len(velocities):
         raise ValueError(f"fused_momentum_update_multi: {len(params)} params, {len(grads)} "
@@ -160,8 +160,8 @@ def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, wei
             err = fn(table, len(sel), lr.data_ptr(), mu, wd, int(bool(use_nesterov)), stream)
             _build.check(err, "fused_momentum_update")
             with _count_lock:
-                LAUNCHES += 1
-                TENSORS += len(sel)
+                bump(globals(), "LAUNCHES")
+                bump(globals(), "TENSORS", len(sel))
 
 
 def _lr_on(dev, lr):

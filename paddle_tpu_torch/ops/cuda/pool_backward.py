@@ -38,6 +38,7 @@ import threading
 import torch
 
 from . import _build
+from ._tally import bump
 
 __all__ = ["max_pool2d_backward", "max_pool_backward_supported", "memory_layout", "LAUNCHES",
            "BF16_LAUNCHES"]
@@ -137,7 +138,6 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
     like ``y`` [N, C, OH, OW], in the layout the three share (NCHW or
     channels-last; raises on a mix); ``kernel``, ``stride`` and
     (symmetric) ``padding`` are pairs."""
-    global LAUNCHES, BF16_LAUNCHES
     kernel, stride, padding = _pairs(kernel, stride, padding)
     if x.dim() != 4 or y.dim() != 4 or y.shape != dy.shape or x.shape[:2] != y.shape[:2]:
         raise ValueError(f"max_pool2d_backward: x {tuple(x.shape)}, y {tuple(y.shape)} and dy "
@@ -177,8 +177,5 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "max_pool2d_backward")
     with _count_lock:
-        if bf16:
-            BF16_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
+        bump(globals(), "BF16_LAUNCHES" if bf16 else "LAUNCHES")
     return dx

@@ -46,7 +46,9 @@ def _qdq(x, scale, bit_length):
 @register_op("quant_dequant_static")
 def quant_dequant_static(x, *, scale, bit_length=8):
     """PTQ simulation op with a calibrated constant scale."""
-    return _qdq(x, torch.tensor(scale, dtype=x.dtype, device=x.device), bit_length)
+    # filled on x's device, not copied from the host: a host-to-device copy
+    # cannot be captured into a CUDA graph
+    return _qdq(x, torch.full((), float(scale), dtype=x.dtype, device=x.device), bit_length)
 
 
 @register_op("quantize_static")

@@ -253,6 +253,19 @@ class Momentum(Optimizer):
         return param - lr * v
 
 
+def _bias_correction(beta, t):
+    """``1 - beta**t`` as a float32 0-dim tensor on ``t``'s device, the
+    power correctly rounded: ``beta`` rounded to float32 and widened, raised
+    to the int32 ``t`` in float64 (about a double ulp from the exact power
+    on the card and on the CPU), rounded once to float32, subtracted from 1
+    in float32. It equals the JAX step's float32 value (glibc's ``powf`` on
+    the CPU) at every ``t`` up to 100,000 for beta 0.9, 0.98 and 0.99; for
+    0.999 at all but t = 2958 and 3606, where ``powf`` misrounds by an ulp
+    (``tests/test_torch_serving_compiled.py``)."""
+    b = torch.full((), beta, dtype=torch.float32, device=t.device).double()
+    return 1 - (b ** t.double()).float()
+
+
 class Adam(Optimizer):
     """operators/optimizers/adam_op.cc"""
 
@@ -267,15 +280,18 @@ class Adam(Optimizer):
         """``(1 - beta1**t, 1 - beta2**t)``: float64 from the host step
         count, or float32 0-dim tensors from the device one, as the JAX
         train step computes them (a weak ``beta`` to the power of its int32
-        ``_global_step``: float32, bit-equal to torch's ``pow`` of a float32
-        ``beta`` and an int32 ``t`` on the CPU; CUDA's float32 ``pow``
-        differs from it at some ``t``, ROADMAP.md Queue C)."""
+        ``_global_step``: float32). On the CPU that is torch's float32
+        ``pow`` of a float32 ``beta`` and an int32 ``t``, bit-equal to the
+        JAX step's. On the card, :func:`_bias_correction`: CUDA's float32
+        ``pow`` rounds otherwise at some ``t`` (ROADMAP.md Queue C)."""
         if not self._on_device:
             t = self._global_step
             return 1 - self._beta1**t, 1 - self._beta2**t
         t = self._step_t
-        return tuple(1 - torch.full((), b, dtype=torch.float32, device=t.device)**t
-                     for b in (self._beta1, self._beta2))
+        if t.device.type == "cpu":
+            return tuple(1 - torch.full((), b, dtype=torch.float32)**t
+                         for b in (self._beta1, self._beta2))
+        return tuple(_bias_correction(b, t) for b in (self._beta1, self._beta2))
 
     def _apply_all(self, params_grads, lr):
         self._bias_correction = self._bias_corrections()  # once a step

@@ -15,8 +15,17 @@ of kernel launches from Python:
 - **Counters:** ``hits``, ``misses`` and ``evictions`` of each store.
 - **Entry:** the graph (which owns its private memory pool), its static
   input buffers (the caller's batch is copied into them before each
-  replay) and its outputs (rewritten by each replay, so callers hand back
-  copies).
+  replay), its outputs (rewritten by each replay, so callers hand back
+  copies) and a lock: copying in, replaying and reading the outputs out
+  are one unit, so threads that replay one entry (the clones of a
+  predictor, which share its store) each get the answer to their own
+  input.
+- **One capture at a time:** a caller that finds no entry takes the
+  store's ``capturing`` lock and looks again (:meth:`GraphStore.find`,
+  then :meth:`GraphStore.lookup` under the lock), so N threads that miss
+  one signature together capture it once. Captures run in
+  ``thread_local`` error mode: other threads' replays and copies go on
+  during a capture.
 - **No demote-to-eager:** where the JAX store demotes a failed AOT
   dispatch to ``jax.jit``, a capture that fails raises
   :class:`CaptureError`, and so does a failed replay. A step that cannot be
@@ -26,8 +35,16 @@ of kernel launches from Python:
 - **Launch accounting:** the kernel wrappers count launches
   (``ops/cuda`` :func:`~paddle_tpu_torch.ops.cuda.counts`). Capture records
   the launches and launches nothing, so the store takes back what the
-  wrappers counted during it, keeps it, and adds it again at each replay,
-  which launches those kernels: the counts stay those of executed steps.
+  wrappers counted on the capture's stream
+  (:func:`~paddle_tpu_torch.ops.cuda.tallied`; the backward's kernels
+  too, which the autograd engine launches from its own thread), keeps it,
+  and adds it again at each replay, which launches those kernels: the
+  counts stay those of executed steps, also while other threads launch
+  and replay.
+
+:class:`CompileWatch` counts the captures a store makes after a warmup
+(``paddle_tpu/runtime/compiled.py:411-461``): a serving pool captures
+every bucket at warmup and then expects none.
 
 While a step body runs for a compiled step (its first, eager run and its
 capture) :func:`in_compiled_step` is true: a host decision inside it, such
@@ -38,15 +55,20 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import logging
 import threading
 
 import torch
 
+from ..errors import PreconditionNotMetError
 from ..flags import flag
 from ..ops import cuda as _kernels
 
-__all__ = ["CaptureError", "CapturedStep", "GraphStore", "cache_capacity", "compiled_step",
-           "in_compiled_step", "clone_outputs"]
+__all__ = ["CaptureError", "CapturedStep", "GraphStore", "CompileWatch", "cache_capacity",
+           "compiled_step", "in_compiled_step", "clone_outputs", "precision_key"]
+
+
+_log = logging.getLogger(__name__)
 
 
 class CaptureError(RuntimeError):
@@ -80,6 +102,14 @@ def in_compiled_step() -> bool:
     return getattr(_region, "on", False)
 
 
+def precision_key() -> tuple:
+    """The settings a captured cuBLAS or cuDNN call bakes in: TF32 in
+    matrix products and in convolutions. Part of every signature, so a
+    graph captured with TF32 off never replays for a caller who switched it
+    on."""
+    return (bool(torch.backends.cuda.matmul.allow_tf32), bool(torch.backends.cudnn.allow_tf32))
+
+
 def clone_outputs(out):
     """``out`` with every tensor in it (alone, in a tuple, list or dict)
     copied: a replay rewrites the captured outputs in place."""
@@ -95,9 +125,10 @@ def clone_outputs(out):
 class CapturedStep:
     """One captured step: ``graph`` replays it on ``inputs`` (static
     buffers) into ``outputs``; ``counts`` are the kernel launches one
-    replay makes."""
+    replay makes; ``lock`` makes a replay and the read of its outputs one
+    unit."""
 
-    __slots__ = ("sig", "cache_key", "graph", "inputs", "outputs", "counts")
+    __slots__ = ("sig", "cache_key", "graph", "inputs", "outputs", "counts", "lock")
 
     def __init__(self, sig, cache_key, graph, inputs, outputs, counts):
         self.sig = sig
@@ -106,6 +137,7 @@ class CapturedStep:
         self.inputs = inputs
         self.outputs = outputs
         self.counts = counts
+        self.lock = threading.Lock()
 
 
 class GraphStore:
@@ -117,6 +149,7 @@ class GraphStore:
         self._entries: dict = {}
         self._refused: dict = {}  # sig -> why its capture failed
         self._lock = threading.Lock()
+        self.capturing = threading.RLock()  # held from a miss to its capture
         self.hits = self.misses = self.evictions = 0
 
     def __len__(self):
@@ -135,13 +168,21 @@ class GraphStore:
         """The entry of ``sig`` (made the most recently used), counted as a
         hit, or None, counted as a miss. Raises :class:`CaptureError` if a
         capture of ``sig`` failed before: the caller runs nothing."""
+        return self._get(sig, count_miss=True)
+
+    def find(self, sig):
+        """:meth:`lookup` that counts no miss: the look before a caller
+        takes :attr:`capturing` and looks again with :meth:`lookup`."""
+        return self._get(sig, count_miss=False)
+
+    def _get(self, sig, count_miss):
         with self._lock:
             if sig in self._refused:
                 raise CaptureError(f"{self.key_of(sig)}: its capture failed before "
                                    f"({self._refused[sig]}); it is not run eagerly instead")
             entry = self._entries.pop(sig, None)
             if entry is None:
-                self.misses += 1
+                self.misses += count_miss
                 return None
             self._entries[sig] = entry
             self.hits += 1
@@ -163,15 +204,19 @@ class GraphStore:
         replays copy their arguments into. Nothing runs: the caller has run
         the step itself first, which also built the kernels and library
         plans. Raises :class:`CaptureError` if the capture fails, and
-        remembers ``sig`` as refused."""
+        remembers ``sig`` as refused. The capture runs in ``thread_local``
+        error mode: another thread's CUDA calls during it (a replay, a copy
+        to the host) neither fail nor spoil it."""
         key = self.key_of(sig)
-        before = _kernels.counts()
         graph = torch.cuda.CUDAGraph()
+        # a stream of its own: captures of two stores may record at once
+        stream = torch.cuda.Stream() if torch.cuda.is_available() else None
         try:
-            for gen in generators:
-                graph.register_generator_state(gen)
-            with torch.cuda.graph(graph):
-                outputs = fn(*inputs)
+            with _kernels.tallied(stream) as counts:
+                for gen in generators:
+                    graph.register_generator_state(gen)
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                    outputs = fn(*inputs)
         except Exception as e:
             why = f"{type(e).__name__}: {e}"
             with self._lock:
@@ -179,28 +224,73 @@ class GraphStore:
             raise CaptureError(f"{key}: the step could not be captured into a CUDA graph "
                                f"({why}); it is not run eagerly instead") from e
         finally:
-            after = _kernels.counts()
-            counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
             _kernels.add_counts(counts, -1)  # the capture launched nothing
         entry = CapturedStep(sig, key, graph, list(inputs), outputs, counts)
         self._insert(entry)
         return entry
 
-    def replay(self, entry, *args):
-        """Copy ``args`` into the entry's static inputs, replay its graph
-        and count its launches; returns the entry's outputs (which the next
-        replay overwrites). Raises :class:`CaptureError` if the replay
-        fails."""
+    def replay(self, entry, *args, read=None):
+        """Copy ``args`` (on the card or the host) into the entry's static
+        inputs, replay its graph, count its launches and return
+        ``read(outputs)``, all under the entry's lock; ``read`` copies the
+        outputs out (:func:`clone_outputs`, or to the host). Without
+        ``read``, the entry's outputs themselves, which the next replay
+        overwrites. Raises :class:`CaptureError` if the replay fails."""
         if len(args) != len(entry.inputs):
             raise ValueError(f"{entry.cache_key}: {len(args)} inputs, captured with "
                              f"{len(entry.inputs)}")
-        for buf, a in zip(entry.inputs, args):
-            if a is not buf:
-                buf.copy_(a, non_blocking=True)
-        try:
-            entry.graph.replay()
-        except Exception as e:
-            raise CaptureError(f"{entry.cache_key}: the replay failed "
-                               f"({type(e).__name__}: {e})") from e
-        _kernels.add_counts(entry.counts)
-        return entry.outputs
+        with entry.lock:
+            for buf, a in zip(entry.inputs, args):
+                if a is not buf:
+                    buf.copy_(a, non_blocking=True)
+            try:
+                entry.graph.replay()
+            except Exception as e:
+                raise CaptureError(f"{entry.cache_key}: the replay failed "
+                                   f"({type(e).__name__}: {e})") from e
+            _kernels.add_counts(entry.counts)
+            return entry.outputs if read is None else read(entry.outputs)
+
+
+class CompileWatch:
+    """Captures after a warmup (``paddle_tpu/runtime/compiled.py``
+    ``CompileWatch``): :meth:`arm` after warmup snapshots ``read()`` (a
+    store's ``misses``); any growth after it is an unexpected capture,
+    which :meth:`note` counts into :attr:`noted` and logs, where the JAX
+    package bumps a monitor counter and records a flight event (the port
+    has neither yet). ``note`` is an atomic read-compare-bump: workers
+    that see the same capture count it once."""
+
+    def __init__(self, read):
+        self._read = read
+        self._baseline = None
+        self._seen = 0
+        self.noted = 0
+        self._lock = threading.Lock()
+
+    def arm(self):
+        self._baseline = self._read()
+        self._seen = 0
+        return self
+
+    @property
+    def armed(self) -> bool:
+        return self._baseline is not None
+
+    def extra(self) -> int:
+        """Captures since :meth:`arm`: steady state keeps this 0."""
+        if self._baseline is None:
+            raise PreconditionNotMetError("extra_compiles() before warmup(): nothing to compare")
+        return self._read() - self._baseline
+
+    def note(self, **fields):
+        """Count and log any growth since the last note (nothing when
+        flat)."""
+        with self._lock:
+            extra = self.extra()
+            grew = extra - self._seen
+            if grew <= 0:
+                return
+            self._seen = extra
+            self.noted += grew
+        _log.warning("unexpected graph capture after warmup (%d in all): %s", extra, fields)

@@ -1,10 +1,15 @@
 """Replica pool: worker threads serving one shared module (``paddle_tpu/serving/replica.py``).
 
 Each worker pulls assembled batches from a :class:`DynamicBatcher` and runs
-them on a ``Predictor.clone()``; the clones share one module, so N
-workers hold one copy of the weights on the card. Warmup runs one
-zero-filled batch of every bucket before traffic (the first kernel calls
-build and load the CUDA libraries), so ``/healthz`` can gate on it.
+them on a ``Predictor.clone()``; the clones share one module and one store
+of graphs, so N workers hold one copy of the weights on the card and one
+graph per bucket. Warmup runs one zero-filled batch of every bucket before
+traffic, which on the card captures that bucket's graph, then arms a
+:class:`~paddle_tpu_torch.runtime.compiled.CompileWatch` over the
+predictor's store: a capture after warmup (a feed off the bucket ladder, a
+program or weight replaced) is counted as unexpected
+(:meth:`ReplicaPool.extra_compiles`, ``/statz`` ``compiles``).
+``/healthz`` gates on warmup.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import numpy as np
 
 from ..errors import InvalidArgumentError
 from ..flags import flag
+from ..runtime.compiled import CompileWatch
 
 __all__ = ["ReplicaPool", "predictor_input_specs"]
 
@@ -54,14 +60,17 @@ class ReplicaPool:
         self._live = threading.Event()  # cleared = paused
         self._live.set()
         self.warmed = False
+        store = predictor.store  # the clones share it
+        self._watch = CompileWatch(lambda: store.misses)
 
     def _synthetic_feed(self, bucket):
         return {name: np.zeros((bucket,) + feat, dtype=dtype)
                 for name, (feat, dtype) in self._specs.items()}
 
     def warmup(self):
-        """Run one zero batch of every bucket on a clone of replica 0.
-        Idempotent."""
+        """Run one zero batch of every bucket on a clone of replica 0 (the
+        clones share its graphs), then arm the capture watch: any later
+        capture is unexpected. Idempotent."""
         if self.warmed:
             return self
         pred = self._preds[0].clone()
@@ -69,21 +78,30 @@ class ReplicaPool:
         for bucket in self.batcher.buckets:
             feed = self._synthetic_feed(bucket)
             pred.run([feed[n] for n in names])
+        self._watch.arm()
         self.warmed = True
         return self
+
+    def extra_compiles(self) -> int:
+        """Captures since warmup: steady-state serving keeps this 0."""
+        return self._watch.extra()
+
+    def unexpected_compiles(self) -> int:
+        """Captures after warmup that the workers noted."""
+        return self._watch.noted
 
     def start(self):
         if self._threads:
             return self
         self._stop.clear()
         for i, pred in enumerate(self._preds):
-            t = threading.Thread(target=self._worker, args=(pred,),
+            t = threading.Thread(target=self._worker, args=(i, pred),
                                  name=f"ptt-serving-replica-{i}", daemon=True)
             t.start()
             self._threads.append(t)
         return self
 
-    def _worker(self, pred):
+    def _worker(self, idx, pred):
         names = pred.get_input_names()
         batcher = self.batcher
         while True:
@@ -100,7 +118,15 @@ class ReplicaPool:
             except Exception as e:  # noqa: BLE001 — the worker must survive
                 batcher.fail(batch, e)
                 continue
+            if self.warmed:
+                self._note_unexpected_compiles(idx, batch.bucket)
             batcher.complete(batch, outs)
+
+    def _note_unexpected_compiles(self, replica_idx, bucket):
+        """The bucket ladder's bound broke (a feed escaped the buckets, or
+        the program or a weight changed): count it, once however many
+        workers see it."""
+        self._watch.note(replica=replica_idx, bucket=bucket)
 
     def pause(self):
         """Stop handing out batches; in-flight dispatches finish and queued

@@ -8,8 +8,9 @@ A stdlib ``ThreadingHTTPServer`` exposing:
   in the queue, **400** malformed request, **503** draining or not ready.
 - ``GET /healthz`` — readiness: 200 once every bucket has run (warmup) and
   the server is not draining; 503 otherwise.
-- ``GET /statz`` — queue depth, batch fill, request counters and the
-  kernel launch counts.
+- ``GET /statz`` — queue depth, batch fill, request counters, the kernel
+  launch counts and ``compiles``: the buckets and the unexpected graph
+  captures after warmup.
 
 ``stop(drain=True)`` refuses new work (503), flushes what is queued
 through the replicas, answers the waiting handlers, then closes.
@@ -240,5 +241,7 @@ class InferenceServer:
                         "padded_rows": s["slots"] - s["rows"],
                         "mean_fill": round(s["rows"] / s["slots"], 4) if s["slots"] else 0.0,
                         "last_fill": round(s["last_fill"], 4)},
+            "compiles": {"buckets": len(self.batcher.buckets),
+                         "unexpected": self.pool.unexpected_compiles()},
             "kernel_launches": launch_counts(),
         }

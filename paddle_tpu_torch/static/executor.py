@@ -1,17 +1,32 @@
-"""Static-graph executor (``paddle_tpu/static/executor.py``): an eager interpreter.
+"""Static-graph executor (``paddle_tpu/static/executor.py``): an interpreter, captured once per signature on the card.
 
-``Executor.run`` walks the program's global block op by op, looks each op
-up in the registry and keeps the values in a dictionary. The JAX executor
-lowers a whole block to one compiled module behind plan and executable
-caches; this card's counterpart of that (a CUDA graph per feed shape) is
-not ported, so there is nothing to cache or count here and every op is one
-or more launches. Scope values are torch tensors on the executor's device:
-the CUDA card unless the caller names another (no card and no name
-raises), and a value set from the host moves there once, when it is first
-read, not per run. Control-flow ops (``while``, ``cond``, ``scan``) raise
+The interpreter (:meth:`Executor._interpret`) walks the program's global
+block op by op, looks each op up in the registry and keeps the values in a
+dictionary. The JAX executor lowers a whole block to one compiled module
+per (plan key, fetch names, feed names, feed shapes and dtypes,
+persistables) through its ``CompiledStore`` (``:699-760, 860-890``). On
+the card the port interprets the first run of each signature eagerly and
+captures that interpretation into a CUDA graph over static feed buffers
+(``runtime/compiled.py`` ``GraphStore("executor")``, one per executor);
+later runs of the signature copy their feeds in and replay it. The
+signature is the program's ``_identity_token`` and ``_version``, the fetch
+and feed names, each feed's shape and dtype after the block's cast, the
+TF32 settings and the scope's identity and generation. A capture or replay
+that fails raises ``CaptureError``; nothing runs eagerly in its place. On
+the CPU every run is the interpreter.
+
+Scope values are torch tensors on the executor's device: the CUDA card
+unless the caller names another (no card and no name raises), and a value
+set from the host moves there once, when it is first read, not per run. A
+graph reads the scope's tensors where they lay at its capture, so
+replacing a value (:meth:`Scope.set` of a name already there, or
+:meth:`Scope.clear`) starts a new generation and the next run captures
+again. Control-flow ops (``while``, ``cond``, ``scan``) raise
 ``UnimplementedError``.
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -19,25 +34,36 @@ import torch
 from ..device import resolve_device
 from ..errors import InvalidArgumentError, NotFoundError, UnimplementedError
 from ..framework.dtype import torch_dtype
+from ..framework.jit import _captures, _first_run, _signature
 from ..ops.registry import kernel
+from ..runtime.compiled import GraphStore, clone_outputs, compiled_step, precision_key
 from .program import default_main_program, default_startup_program
 
 __all__ = ["Scope", "global_scope", "Executor"]
 
 _BLOCK_OPS = ("while", "cond", "scan")
 
+_scope_tokens = itertools.count()
+
 
 class Scope:
-    """name -> tensor map (``framework/scope.h``)."""
+    """name -> tensor map (``framework/scope.h``). ``_token`` names the
+    scope for the life of the process; ``_generation`` grows whenever a
+    value a graph may have read is replaced or dropped."""
 
     def __init__(self):
         self._vars: dict = {}
+        self._token = next(_scope_tokens)
+        self._generation = 0
 
     def set(self, name, value):
         """Store ``value`` (a tensor, or anything ``torch.as_tensor`` takes;
-        numpy arrays are copied) under ``name``."""
+        numpy arrays are copied) under ``name``; replacing a value starts a
+        new generation."""
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(np.array(value))
+        if name in self._vars:
+            self._generation += 1
         self._vars[name] = value if isinstance(value, torch.Tensor) else torch.as_tensor(value)
 
     def get(self, name):
@@ -66,6 +92,7 @@ class Scope:
 
     def clear(self):
         self._vars.clear()
+        self._generation += 1
 
 
 _global_scope = Scope()
@@ -76,12 +103,14 @@ def global_scope() -> Scope:
 
 
 class Executor:
-    """Runs programs on ``device`` (``None``: the CUDA card, or raise)."""
+    """Runs programs on ``device`` (``None``: the CUDA card, or raise);
+    on the card through :attr:`store`, a graph per signature."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.store = GraphStore("executor")  # shared by a predictor's clones
 
     def run_startup(self, startup_program=None, scope=None):
         """Run the startup program's ``init_param`` ops: each parameter not
@@ -98,9 +127,10 @@ class Executor:
 
     @torch.no_grad()
     def run(self, program=None, feed=None, fetch_list=None, scope=None, return_numpy=True):
-        """Interpret ``program``'s global block on ``feed`` (name -> array or
+        """Run ``program``'s global block on ``feed`` (name -> array or
         tensor) and return the fetched values, numpy arrays on the host
-        unless ``return_numpy=False`` (then tensors on the device)."""
+        unless ``return_numpy=False`` (then tensors on the device, copies
+        of a graph's outputs)."""
         program = program or default_main_program()
         feed = feed or {}
         scope = scope or global_scope()
@@ -109,13 +139,39 @@ class Executor:
         for cname, cval in program._constants.items():
             if not scope.has(cname):
                 scope.set(cname, cval)
-        env = {}
+        names = list(feed)
+        values = []
         for name, value in feed.items():
             dtype = torch_dtype(block.var(name).dtype) if block.has_var(name) else None
             if not isinstance(value, torch.Tensor):
                 value = torch.from_numpy(np.ascontiguousarray(value))
-            env[name] = value.to(device=self.device, dtype=dtype)
+            values.append(value.to(dtype=dtype))
+        read = _to_host if return_numpy else clone_outputs
 
+        def interpret(*feeds):
+            return self._interpret(block, dict(zip(names, feeds)), scope, fetch_names)
+
+        if not _captures(self.device):
+            return read(interpret(*[v.to(self.device) for v in values]))
+        sig = ((program._identity_token, program._version, tuple(fetch_names), tuple(names))
+               + _signature(values) + (precision_key(), scope._token, scope._generation))
+        store = self.store
+        entry = store.find(sig)
+        if entry is None:
+            with store.capturing:
+                entry = store.lookup(sig)
+                if entry is None:
+                    inputs = [v.to(self.device, copy=True) for v in values]
+                    with compiled_step():
+                        out = _first_run(self.device, lambda: interpret(*inputs))
+                        store.capture(sig, interpret, inputs)
+                    return read(out)
+        return store.replay(entry, *values, read=read)
+
+    def _interpret(self, block, env, scope, fetch_names):
+        """The global block's ops on ``env`` (the feeds, on the device):
+        the fetched tensors. The one body of a CPU run, a first run and a
+        capture."""
         def value_of(name):
             if name in env:
                 return env[name]
@@ -135,5 +191,10 @@ class Executor:
             for n, v in zip(op.outputs.get("Out", []), results):
                 if n:
                     env[n] = v
-        fetched = [value_of(n) for n in fetch_names]
-        return [t.cpu().numpy() for t in fetched] if return_numpy else fetched
+        return [value_of(n) for n in fetch_names]
+
+
+def _to_host(fetched):
+    """The fetches as numpy arrays of their own (a CPU tensor's ``numpy()``
+    would share the memory a later replay rewrites)."""
+    return [t.to("cpu", copy=True).numpy() for t in fetched]

@@ -5,12 +5,14 @@ name-keyed input and output lists and attributes; a variable is symbolic
 (name, shape, dtype, flags) and holds no storage. ``to_dict`` /
 ``from_dict`` keep the JAX package's JSON layout key for key, so a program
 either package serialized loads in the other. The port's executor
-interprets the global block op by op; nested blocks exist in the layout,
-but the control-flow ops that would use them are not ported.
+interprets the global block op by op (on the card, once per feed
+signature, into a CUDA graph); nested blocks exist in the layout, but the
+control-flow ops that would use them are not ported.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Any, Dict, List
 
 import numpy as np
@@ -160,6 +162,10 @@ class Block:
                     ops=[op.to_dict() for op in self.ops])
 
 
+# process-unique program identities (paddle_tpu/static/program.py:249)
+_program_tokens = itertools.count()
+
+
 class Program:
     def __init__(self):
         self.blocks = [Block(self, 0)]
@@ -167,6 +173,9 @@ class Program:
         self._version = 0
         self.random_seed = None
         self._constants = {}
+        # the executor keys its graphs by this, not id(): a freed program's
+        # id may come back for a new one
+        self._identity_token = next(_program_tokens)
 
     def global_block(self) -> Block:
         return self.blocks[0]
