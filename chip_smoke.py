@@ -128,6 +128,26 @@ Phases, each fatal on failure:
     step runs eagerly in its place, and ``GradScaler`` raises inside a
     compiled step; and AdamW's bias correction on the card bit-equal to the
     CPU's at every t up to 10,000;
+12c. Transformer-base seq2seq (37,000-token vocabulary, 512 wide, 6 + 6
+    layers; ``models.TransformerSeq2Seq``) under ``auto_cast`` (O1): after
+    rows 1, 1b, 2 and 2b are held at its LayerNorm shape [4096, 512] in
+    step 3 (f32, bf16 and mixed, forward and backward, timed), one f32
+    teacher-forced forward at batch 2 against the CPU's (TF32 control) and
+    one AMP step against the CPU's plain path (the f32 step the control);
+    then 10 eager and 10 captured steps (``train_step(jit=True)``) at 64
+    pairs x 64 + 64 tokens, Adam(0.9, 0.98, 1e-9), the pad-masked cross
+    entropy, each launching the 30 residual LayerNorms forward and backward
+    exactly (the first of each stack mixed); medians, target tokens/s,
+    busy share, device time by kind, peak memory;
+12d. greedy decoding (16 sources to 32 tokens) and beam search (beam 4, 4
+    sources) of seeded Transformer-base weights in f32 eval: tokens and
+    beam steps equal to the CPU's up to the first position whose CPU
+    top-two margin is under a limit, 12 + 18 LayerNorms a decode step, ms a
+    step and a token;
+12e. ERNIE-base (``ernie_base_config()``, flash on) pretrained under
+    ``auto_cast`` at bench's phase-2 shape with ``knowledge_masking``'s
+    spans: 10 eager and 10 captured steps with the bf16 attention and
+    LayerNorm kernels' launches exact;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -556,26 +576,30 @@ def check_layernorm_bwd(dtype_name, rows=TRAIN_ROWS, h=LN_H, timed=True):
     # x, res, dy read and da written; mean, rstd, w read; dw, db written (the
     # function's outputs: the kernel's per-block partials are its own choice)
     t_b, by = bound(rows * h * 4 * in_bytes + 8 * rows + 4 * h + 8 * h, 12 * rows * h)
-    ms = time_ms(lnr.layernorm_residual_bwd, sets, 100)
+    # device time behind a sleep kernel: at [4096, 512] the wrapper's host
+    # work would pace CUDA events around a loop of calls
+    ms = device_ms_sets(lnr.layernorm_residual_bwd, sets, 100)[0]
 
     def whole(*args):  # what the autograd Function runs: the kernel, then the two sums
         _, dwp_, dbp_ = lnr.layernorm_residual_bwd(*args)
         return dwp_.sum(0), dbp_.sum(0)
 
-    whole_ms = time_ms(whole, sets, 100)
-    plain_ms = time_ms(lnr._reference_bwd, sets, 100)
+    whole_ms = device_ms_sets(whole, sets, 100)[0]
+    plain_ms = device_ms_sets(lnr._reference_bwd, sets, 100)[0]
     graphs = []
     for x_, r_, w_, _, _, dy_ in sets:
         ins = [t.detach().requires_grad_() for t in (x_, r_, w_, b)]
         y = F.layer_norm(ins[0] + ins[1], (h,), ins[2].to(dtype), ins[3].to(dtype), eps)
         graphs.append((y, ins, dy_))
-    lib_ms = time_ms(lambda y, ins, dy_: torch.autograd.grad(y, ins, dy_, retain_graph=True),
-                     graphs, 100)
+    lib_ms = device_ms_sets(lambda y, ins, dy_: torch.autograd.grad(y, ins, dy_,
+                                                                    retain_graph=True),
+                            graphs, 100)[0]
     log(f"{label}: da err {err:.3g}, dw {dw_err:.3g}, db {db_err:.3g} ({tol}); a second run "
         f"equal bit for bit; kernel {ms:.4f} ms (with the two partial sums {whole_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {t_b:.4f} ms ({by})")
     entry.update(ms=ms, kernel_ms=ms, whole_backward_ms=whole_ms, plain_ms=plain_ms,
-                 bound_ms=t_b, bound_by=by, library_ms=lib_ms)
+                 bound_ms=t_b, bound_by=by, library_ms=lib_ms,
+                 timing="device time behind a sleep kernel, inputs cycled")
     return entry
 
 
@@ -1648,7 +1672,7 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
     return tuple(entries)
 
 
-def check_layernorm_mixed(rows=TRAIN_ROWS):
+def check_layernorm_mixed(rows=TRAIN_ROWS, h=LN_H):
     """The residual LayerNorm's mixed case, the first encoder layer's under
     AMP: a bf16 x (the attention output) on an f32 residual (the embedding
     output) through the op, whose forward is the mixed kernel (no cast
@@ -1664,8 +1688,8 @@ def check_layernorm_mixed(rows=TRAIN_ROWS):
     from paddle_tpu_torch.ops.cuda import layernorm_residual as lnr
 
     g = torch.Generator(device="cuda").manual_seed(12)
-    w, b = (torch.randn(LN_H, generator=g, device="cuda") for _ in range(2))
-    x, r, dy = (torch.randn(rows, LN_H, generator=g, device="cuda").to(dt)
+    w, b = (torch.randn(h, generator=g, device="cuda") for _ in range(2))
+    x, r, dy = (torch.randn(rows, h, generator=g, device="cuda").to(dt)
                 for dt in (torch.bfloat16, torch.float32, torch.bfloat16))
     xs, rs = x.detach().requires_grad_(), r.detach().requires_grad_()
     reset_launch_counts()
@@ -1687,9 +1711,9 @@ def check_layernorm_mixed(rows=TRAIN_ROWS):
         raise AssertionError(f"mixed LayerNorm: {errs}, dtypes {dtypes}, launches {counts} "
                              f"(want {want_counts}); beyond {tol}")
 
-    log(f"mixed LayerNorm [{rows}, {LN_H}] bf16 x + f32 residual through the op, forward and "
+    log(f"mixed LayerNorm [{rows}, {h}] bf16 x + f32 residual through the op, forward and "
         f"backward: {errs} ({tol}); launches {counts}")
-    entry = check_layernorm("bfloat16", rows, res_dtype_name="float32")
+    entry = check_layernorm("bfloat16", rows, h, res_dtype_name="float32")
     entry["through_the_op"] = {**errs, "tolerance": tol, "launches": counts}
     return entry
 
@@ -3564,6 +3588,7 @@ def compiled_timing(make_model, make_step, batch, label, units, unit_name):
         median = float(np.median(step_ms))
         out[name] = {"losses": losses, "step_ms": step_ms, "step_ms_median": median,
                      "host_clock_ms": wall_ms, "busy_ms": sum(by_kind.values()),
+                     "device_ms_by_kind": by_kind,
                      "device_events": events, "device_ms_host_hidden": dev_ms,
                      "host_ms_a_call": host_ms, "peak_gib": peak,
                      f"{unit_name}_per_s": units / median * 1e3,
@@ -3945,6 +3970,493 @@ def compiled_steps():
               for k in bert_counts}
     return counts, {"bert_amp": bert, "resnet_amp": rn, "resnet_amp_eval": ev,
                     "features": features, "refusals": refusals, "bias_correction": bias}
+
+
+# -- Transformer-base seq2seq and ERNIE-base (BASELINE.json's fifth config) ----------
+
+# Transformer-base (Vaswani et al. 2017): 512 wide, 8 heads, 6 + 6 layers, FFN
+# 2048, dropout 0.1, over WMT14 En-De's shared 37,000-token vocabulary
+S2S_VOCAB, S2S_D, S2S_HEADS, S2S_LAYERS, S2S_FFN, S2S_DROPOUT = 37000, 512, 8, 6, 2048, 0.1
+S2S_B, S2S_SRC, S2S_TGT = 64, 64, 64  # pairs a step, source and target tokens a pair
+S2S_ROWS = S2S_B * S2S_TGT  # the LayerNorm rows of the decoder: [4096, 512]
+S2S_LR = 1e-4  # constant: the paper's Noam schedule waits for the schedulers
+S2S_BOS, S2S_EOS, S2S_PAD = 0, 1, 2  # TransformerSeq2Seq's defaults
+# post-norm residual LayerNorms a forward: 2 an encoder layer, 3 a decoder layer;
+# under AMP the first of each stack adds a bf16 sublayer output to the f32
+# embedding sum (the mixed forward, the f32 backward)
+S2S_ENC_NORMS, S2S_DEC_NORMS = 2 * S2S_LAYERS, 3 * S2S_LAYERS
+# The AMP step at batch 2 against the CPU's plain path under the same
+# auto_cast, read on an NVIDIA H100 80GB HBM3 at 700.00 W: loss 1.6e-4
+# apart, gradient rel L2 0.0139, 0.762 of the gradient entries differing in
+# some bit; the f32 step (the control) 8.2e-5, 0.0197, 1.000. As for BERT
+# the loss and L2 limits (about 6 and 2.5 times the reading) catch gross
+# faults only; the share of differing entries is held near the geometric
+# mean of the two readings, which the f32 control must fail. The f32
+# teacher-forced logits read 1.4e-6 of the largest |logit| from the CPU's,
+# TF32 (the control) 1.03e-3.
+S2S_AMP_LIMITS = {"loss": 1e-3, "grad_rel_l2": 0.035}
+S2S_AMP_GRAD_DIFFERING = 0.87
+S2S_LOGITS_RTOL = 3e-5
+# decoding: the card's greedy tokens, and the hypotheses each beam step
+# keeps, must equal the CPU's at every step before the first whose CPU
+# margin is under this: the top-two logits' gap (greedy), the gap between
+# the last total kept and the first dropped (beam). It is ~700 times the
+# f32 logits' card-vs-CPU error at batch 2 (1.4e-6 of the largest |logit|,
+# PERF.md section 2) and ~10 times that error summed over 31 steps.
+S2S_MARGIN = 1e-3
+S2S_GREEDY_B, S2S_BEAM_B, S2S_BEAM, S2S_DECODE_LEN = 16, 4, 4, 32
+# ERNIE-base at bench's BERT phase 2: batch 32 x 512, 80 masked a row
+ERNIE_MASK_ID = 3  # ERNIE 1.0's [MASK]
+
+
+def _seq2seq(seed, dropout=S2S_DROPOUT):
+    import torch
+
+    from paddle_tpu_torch.models import TransformerSeq2Seq
+
+    return TransformerSeq2Seq(S2S_VOCAB, S2S_VOCAB, d_model=S2S_D, nhead=S2S_HEADS,
+                              num_layers=S2S_LAYERS, dim_feedforward=S2S_FFN, dropout=dropout,
+                              generator=torch.Generator().manual_seed(seed))
+
+
+def s2s_batch(batch, rng):
+    """A synthetic translation batch: source ids with seeded pad tails (at
+    least half of each row real), the target fed in (BOS first) and the
+    target to predict (EOS after the last real token, pads after that)."""
+    src = rng.randint(3, S2S_VOCAB, (batch, S2S_SRC)).astype(np.int64)
+    body = rng.randint(3, S2S_VOCAB, (batch, S2S_TGT)).astype(np.int64)
+    tin = np.concatenate([np.full((batch, 1), S2S_BOS, np.int64), body[:, :-1]], axis=1)
+    tout = body.copy()
+    for i in range(batch):
+        n = rng.randint(S2S_SRC // 2, S2S_SRC + 1)
+        src[i, n:] = S2S_PAD
+        t = rng.randint(S2S_TGT // 2, S2S_TGT + 1)
+        tout[i, t - 1], tout[i, t:], tin[i, t:] = S2S_EOS, S2S_PAD, S2S_PAD
+    return [src, tin, tout]
+
+
+def _s2s_loss(m, src, tin, tout):
+    """The pad-masked cross entropy of tests/test_book.py's WMT14 test."""
+    from paddle_tpu_torch.nn import functional as F
+
+    logits = m(src, tin)
+    mask = (tout != S2S_PAD).float()
+    ce = F.cross_entropy(logits.reshape(-1, S2S_VOCAB), tout.reshape(-1), reduction="none")
+    return (ce * mask.reshape(-1)).sum() / mask.sum()
+
+
+def _s2s_step_of(model, loss_fn, device=None, jit=False):
+    """Adam(0.9, 0.98, 1e-9) at a constant lr, the paper's moments."""
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.optimizer import Adam
+
+    return train_step(model, Adam(learning_rate=S2S_LR, beta1=0.9, beta2=0.98, epsilon=1e-9,
+                                  parameters=model.parameters()), loss_fn, device=device, jit=jit)
+
+
+def _s2s_launches(amp, steps=1, backward=True):
+    """LayerNorm launches of ``steps`` seq2seq steps (forwards when not
+    ``backward``): every residual norm of the encoder and decoder, in f32,
+    or under AMP the mixed case at the first norm of each stack and bf16
+    at the rest."""
+    norms = S2S_ENC_NORMS + S2S_DEC_NORMS
+    if amp:
+        want = {"layernorm_residual_fwd_mixed": 2, "layernorm_residual_fwd_bf16": norms - 2}
+        if backward:
+            want.update(layernorm_residual_bwd=2, layernorm_residual_bwd_bf16=norms - 2)
+    else:
+        want = {"layernorm_residual_fwd": norms}
+        if backward:
+            want["layernorm_residual_bwd"] = norms
+    return {k: v * steps for k, v in want.items()}
+
+
+def check_layernorm_h512():
+    """Rows 1, 1b, 2 and 2b at the seq2seq path's [4096, 512] (H = 512, the
+    width no other path gives them): f32, bf16 and the mixed case (through
+    the op, forward and backward), each with the existing limits, timed
+    beside its bound and ``F.layer_norm``. Returns {kernel name: entry}."""
+    out = {"layernorm_residual_fwd": check_layernorm("float32", S2S_ROWS, S2S_D),
+           "layernorm_residual_fwd_bf16": check_layernorm("bfloat16", S2S_ROWS, S2S_D),
+           "layernorm_residual_fwd_mixed": check_layernorm_mixed(S2S_ROWS, S2S_D),
+           "layernorm_residual_bwd": check_layernorm_bwd("float32", S2S_ROWS, S2S_D),
+           "layernorm_residual_bwd_bf16": check_layernorm_bwd("bfloat16", S2S_ROWS, S2S_D)}
+    for e in out.values():
+        e["path"] = "Transformer-base seq2seq"
+    return out
+
+
+def s2s_parity():
+    """Transformer-base at dropout 0 and batch 2, from one set of weights:
+    one f32 teacher-forced forward on the card against the CPU's (the
+    logits relative to the largest; TF32 the control), and one AMP step
+    (O1) on the card against the CPU's plain path under the same
+    ``auto_cast`` (loss, the gradient's relative L2 and the share of its
+    entries that differ in any bit; the f32 step the control), with the
+    card's LayerNorm launches exact. Every reading is logged before a
+    limit fails. Returns the readings."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model = _seq2seq(seed=0, dropout=0.0)
+    batch = s2s_batch(2, np.random.RandomState(30))
+    cpu_model = copy.deepcopy(model).eval()
+    card_model = copy.deepcopy(model).cuda().eval()
+    src, tin = (torch.from_numpy(a) for a in batch[:2])
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = cpu_model(src, tin)
+        cpu_s = time.perf_counter() - t0
+        reset_launch_counts()
+        got = card_model(src.cuda(), tin.cuda()).cpu()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = card_model(src.cuda(), tin.cuda()).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    scale = float(want.abs().max())
+    r = {"logits_rel_err": float((got - want).abs().max()) / scale,
+         "tf32_logits_rel_err": float((tf32 - want).abs().max()) / scale,
+         "logits_rtol": S2S_LOGITS_RTOL, "cpu_forward_s": cpu_s}
+    if counts != _s2s_launches(False, backward=False):
+        raise AssertionError(f"seq2seq f32 forward launched {counts}")
+    del card_model
+    control = copy.deepcopy(model)
+    control_loss = float(_s2s_step_of(control, _s2s_loss)(*batch)["loss"])
+    amp_loss = _amp_loss_fn(_s2s_loss, "O1")
+    cpu = copy.deepcopy(model)
+    t0 = time.perf_counter()
+    cpu_loss = float(_s2s_step_of(cpu, amp_loss, device="cpu")(*batch)["loss"])
+    r["cpu_amp_step_s"] = time.perf_counter() - t0
+    card = copy.deepcopy(model)
+    reset_launch_counts()
+    loss = float(_s2s_step_of(card, amp_loss)(*batch)["loss"])
+    amp_counts = {k: v for k, v in launch_counts().items() if v}
+    l2, differ, worst = _grad_l2(card, cpu)
+    c_l2, c_differ, c_worst = _grad_l2(control, cpu)
+    r.update(loss=loss, cpu_loss=cpu_loss, loss_err=abs(loss - cpu_loss), grad_rel_l2=l2,
+             grad_differing=differ, worst_entry=worst,
+             control_loss_err=abs(control_loss - cpu_loss), control_grad_rel_l2=c_l2,
+             control_grad_differing=c_differ, control_worst_entry=c_worst,
+             limits=dict(S2S_AMP_LIMITS, grad_differing=S2S_AMP_GRAD_DIFFERING),
+             launches=amp_counts)
+    log(f"seq2seq parity at batch 2: f32 logits rel err {r['logits_rel_err']:.3g} (rtol "
+        f"{S2S_LOGITS_RTOL}; TF32 control {r['tf32_logits_rel_err']:.3g}; CPU forward "
+        f"{cpu_s:.1f} s); AMP O1 step: card loss {loss:.6f}, CPU {cpu_loss:.6f} "
+        f"({r['cpu_amp_step_s']:.1f} s): loss err {r['loss_err']:.3g}, gradient rel L2 "
+        f"{l2:.3g}, entries differing {differ:.4f}, worst entry {worst[0]:.3g} at {worst[1]}; "
+        f"f32 control: loss err {r['control_loss_err']:.3g}, rel L2 {c_l2:.3g}, differing "
+        f"{c_differ:.4f}; launches {amp_counts}")
+    if amp_counts != _s2s_launches(True):
+        raise AssertionError(f"seq2seq AMP parity step launched {amp_counts}; want "
+                             f"{_s2s_launches(True)}")
+    if not r["logits_rel_err"] <= S2S_LOGITS_RTOL < r["tf32_logits_rel_err"]:
+        raise AssertionError(f"seq2seq f32 logits: {r['logits_rel_err']} (TF32 control "
+                             f"{r['tf32_logits_rel_err']}) against rtol {S2S_LOGITS_RTOL}")
+    lim = S2S_AMP_LIMITS
+    if not (np.isfinite(loss) and r["loss_err"] <= lim["loss"]
+            and l2 <= lim["grad_rel_l2"] and differ <= S2S_AMP_GRAD_DIFFERING):
+        raise AssertionError(f"seq2seq AMP parity step beyond its limits: {r}")
+    if not c_differ > S2S_AMP_GRAD_DIFFERING:
+        raise AssertionError(f"seq2seq AMP: the f32 control passes the limit on differing "
+                             f"entries {S2S_AMP_GRAD_DIFFERING}: {r}")
+    return r
+
+
+def train_seq2seq_amp():
+    """Phase 12c. Transformer-base (37,000-token vocabulary, dropout 0.1)
+    trained under ``auto_cast`` (O1) at 64 pairs x 64 + 64 tokens with
+    Adam(0.9, 0.98, 1e-9), the pad-masked cross entropy, through
+    ``train_step``: the parity checks at batch 2, then 10 eager steps and
+    10 captured ones (``jit=True``: the eager first step, then replays) from
+    one set of weights, each launching exactly 30 residual LayerNorms
+    forward and backward (2 mixed). Returns (eager launches, captured
+    launches, readings)."""
+    import torch
+
+    parity = s2s_parity()
+    torch.cuda.empty_cache()
+    base = _seq2seq(seed=1)
+    batch = [torch.from_numpy(a).cuda() for a in s2s_batch(S2S_B, np.random.RandomState(31))]
+    loss_fn = _amp_loss_fn(_s2s_loss, "O1")
+    counts, timing = compiled_timing(lambda: copy.deepcopy(base),
+                                     lambda m, jit: _s2s_step_of(m, loss_fn, jit=jit), batch,
+                                     "seq2seq AMP", S2S_B * S2S_TGT, "target_tokens")
+    want = _s2s_launches(True, COMPILED_STEPS)
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"seq2seq AMP: {COMPILED_STEPS} steps launched {counts}; want "
+                             f"{want}")
+    eager = {k: v * COMPILED_STEPS for k, v in timing["eager"]["launches_a_step"].items()}
+    real = int((batch[2] != S2S_PAD).sum())
+    for run in timing.values():
+        run["busy_share"] = run["busy_ms"] / run["step_ms_median"]
+        run["real_target_tokens_per_s"] = real / run["step_ms_median"] * 1e3
+    log(f"seq2seq AMP: {real} of {S2S_B * S2S_TGT} target positions real; median step eager "
+        f"{timing['eager']['step_ms_median']:.3f} ms, captured "
+        f"{timing['captured']['step_ms_median']:.3f} ms (busy share "
+        f"{timing['captured']['busy_share']:.1%}); device ms by kind, captured: "
+        f"{ {k: round(v, 3) for k, v in timing['captured']['device_ms_by_kind'].items()} }")
+    return eager, counts, {"parity": parity, **timing, "real_target_tokens": real}
+
+
+def _greedy_margins(model, src, ys):
+    """The CPU model's top-two margin of the logits that chose each of
+    ``ys``' tokens after BOS, ``[B, T - 1]``."""
+    import torch
+
+    with torch.no_grad():
+        logits = model.decode_logits(model.encode(src), model._pad_mask(src), ys[:, :-1])
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).numpy()
+
+
+@contextlib.contextmanager
+def _recorded_beam_steps():
+    """Every ``beam_search_step`` the seq2seq model calls, recorded as
+    (the top k + 1 flat totals, parents, tokens) on the host, the op itself
+    unchanged."""
+    import torch
+
+    from paddle_tpu_torch.models import seq2seq as s2s
+    from paddle_tpu_torch.ops import registry
+
+    rec = []
+    step = registry.kernel("beam_search_step")
+
+    def recording(logp, scores, *, beam_size, first_step=False, **kw):
+        out = step(logp, scores, beam_size=beam_size, first_step=first_step, **kw)
+        b, k, v = logp.shape
+        total = scores[:, :, None] + logp
+        if first_step:
+            total = torch.cat([total[:, :1], torch.full_like(total[:, 1:], float("-inf"))], 1)
+        top = total.reshape(b, k * v).topk(beam_size + 1, dim=1).values
+        rec.append((top.cpu(), out[1].cpu(), out[2].cpu()))
+        return out
+
+    orig = s2s.kernel
+    s2s.kernel = lambda name: recording if name == "beam_search_step" else orig(name)
+    try:
+        yield rec
+    finally:
+        s2s.kernel = orig
+
+
+def _beam_hypotheses(rec):
+    """The hypotheses (token tuples) each recorded beam step keeps, as a
+    sorted list a row: ``[rows][steps]``. Two runs that keep the same
+    hypotheses in another slot order compare equal."""
+    rows, k = rec[0][1].shape
+    hyps = [[()] * k for _ in range(rows)]
+    out = [[] for _ in range(rows)]
+    for _, parent, token in rec:
+        for r in range(rows):
+            hyps[r] = [hyps[r][int(parent[r, j])] + (int(token[r, j]),) for j in range(k)]
+            out[r].append(sorted(hyps[r]))
+    return out
+
+
+def _held(card, cpu, margins):
+    """Positions (``[rows][positions]`` of comparable items) at which the
+    card must agree with the CPU: in each row, every one before the first
+    with a CPU margin under ``S2S_MARGIN``. Returns (held, positions, held
+    ones that differ)."""
+    held = bad = 0
+    for r, row in enumerate(margins):
+        low = np.nonzero(row < S2S_MARGIN)[0]
+        n = int(low[0]) if len(low) else len(row)
+        held += n
+        bad += sum(card[r][i] != cpu[r][i] for i in range(n))
+    return held, margins.size, bad
+
+
+def decode_seq2seq():
+    """Phase 12d. Transformer-base in f32 eval from seeded weights: greedy
+    decoding of 16 sources to 32 tokens and beam search (beam 4) of 4
+    sources to 32, on the card and on the CPU; the card's tokens (greedy)
+    and the hypotheses each beam step keeps must equal the CPU's at every
+    step before the first whose CPU margin is under
+    ``S2S_MARGIN``, and at least a quarter of the positions must be held so
+    (the check must not pass on nothing); each
+    decode launches exactly 12 LayerNorms for the encoder and 18 a step.
+    Returns (launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model = _seq2seq(seed=2).eval()
+    rng = np.random.RandomState(32)
+    cpu = copy.deepcopy(model)
+    card = model.cuda()
+    steps = S2S_DECODE_LEN - 1
+    want_counts = {"layernorm_residual_fwd": S2S_ENC_NORMS + S2S_DEC_NORMS * steps}
+    total, out = {}, {}
+    for kind, b in (("greedy", S2S_GREEDY_B), ("beam", S2S_BEAM_B)):
+        src = torch.from_numpy(s2s_batch(b, rng)[0])
+        if kind == "greedy":
+            run = lambda m, x: m.greedy_decode(x, max_len=S2S_DECODE_LEN)  # noqa: E731
+        else:
+            run = lambda m, x: m.beam_search(x, S2S_BEAM, S2S_DECODE_LEN)  # noqa: E731
+        with _recorded_beam_steps() as card_steps:  # the first run: also cuBLAS's plans
+            got = run(card, src.cuda())
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        timed = run(card, src.cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in launch_counts().items() if v}
+        repeats = all(torch.equal(a, b) for a, b in zip(
+            (got,) if kind == "greedy" else got, (timed,) if kind == "greedy" else timed))
+        if counts != want_counts:
+            raise AssertionError(f"seq2seq {kind} decode launched {counts}; want {want_counts}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        t0 = time.perf_counter()
+        with _recorded_beam_steps() as cpu_steps:
+            want = run(cpu, src)
+        cpu_s = time.perf_counter() - t0
+        if kind == "greedy":
+            margins = _greedy_margins(cpu, src, want)
+            held, positions, bad = _held(got.cpu().numpy()[:, 1:].tolist(),
+                                         want.numpy()[:, 1:].tolist(), margins)
+            extra = {}
+        else:
+            # a step's margin: the last kept total less the first dropped one
+            top = torch.stack([t for t, _, _ in cpu_steps], 1)  # [B, T, k + 1]
+            margins = (top[..., -2] - top[..., -1]).numpy()
+            held, positions, bad = _held(_beam_hypotheses(card_steps),
+                                         _beam_hypotheses(cpu_steps), margins)
+            # rows held at every step: the same final hypotheses and scores
+            full = [r for r in range(b) if (margins[r] >= S2S_MARGIN).all()]
+            seqs, scores = (t.cpu() for t in got)
+
+            def final(sq, sc, r):
+                return sorted(zip(sc[r].tolist(), map(tuple, sq[:, r].T.tolist())))
+
+            pairs = [(final(seqs, scores, r), final(*want, r)) for r in full]
+            extra = {"rows_held_whole": len(full),
+                     "final_scores_err": max((abs(a[0] - c[0]) for g, w in pairs
+                                              for a, c in zip(g, w)), default=None),
+                     "final_sequences_equal": all([a[1] for a in g] == [c[1] for c in w]
+                                                  for g, w in pairs)}
+            if not extra["final_sequences_equal"]:
+                raise AssertionError(f"beam search: rows held at every step end apart: {extra}")
+        rows = got.shape[0] if kind == "greedy" else b
+        out[kind] = {"ms": ms, "ms_per_step": ms / steps, "ms_per_token": ms / (steps * rows),
+                     "tokens_per_s": steps * rows / ms * 1e3, "rows": rows, "steps": steps,
+                     "positions_held": held, "positions": positions, "mismatches_held": bad,
+                     "min_cpu_margin": float(margins.min()), "cpu_s": cpu_s,
+                     "timed_run_equals_checked": repeats, "launches": counts, **extra}
+        log(f"seq2seq {kind} decode ({rows} rows to {S2S_DECODE_LEN} tokens): {ms:.1f} ms on "
+            f"the card, {ms / steps:.3f} ms a step, {ms / (steps * rows):.4f} ms a token "
+            f"(CPU {cpu_s:.1f} s); {held} of {positions} positions held to the CPU's (margin >= "
+            f"{S2S_MARGIN}), {bad} differ; the timed run equal to the checked one: {repeats}; "
+            f"launches {counts}; {extra}")
+        if bad or held < positions / 4:
+            raise AssertionError(f"seq2seq {kind} decode: {bad} of {held} held positions differ "
+                                 f"from the CPU's ({positions} in all)")
+    return total, out
+
+
+def _ernie_batch(cfg, rng, seed):
+    """bench's phase-2 shape with ERNIE's masking: ids, segment ids, spans
+    of 1-4 tokens (a quarter of them single tokens), ``knowledge_masking``
+    at 0.15 from a seeded generator, the first ``TRAIN_PRED`` masked
+    positions of each row predicted (masks past them restored; a row with
+    fewer pads its positions with ignored labels at its position 0)."""
+    import torch
+
+    from paddle_tpu_torch.models import knowledge_masking
+
+    b, l = TRAIN_B, TRAIN_SEQ
+    ids = rng.randint(5, cfg.vocab_size, (b, l)).astype(np.int64)
+    spans = np.zeros((b, l), np.int64)
+    for r in range(b):
+        j, sid = 0, 1
+        while j < l:
+            n = rng.randint(1, 5)
+            spans[r, j:j + n] = 0 if n == 1 else sid
+            j, sid = j + n, sid + 1
+    masked, mask = knowledge_masking(torch.from_numpy(ids), torch.from_numpy(spans),
+                                     ERNIE_MASK_ID, torch.Generator().manual_seed(seed))
+    masked, mask = masked.numpy().copy(), mask.numpy()
+    pos = np.zeros((b, TRAIN_PRED), np.int64)
+    labels = np.full((b, TRAIN_PRED), -100, np.int64)
+    counts = []
+    for r in range(b):
+        where = np.nonzero(mask[r])[0]
+        counts.append(len(where))
+        masked[r, where[TRAIN_PRED:]] = ids[r, where[TRAIN_PRED:]]
+        where = where[:TRAIN_PRED]
+        pos[r, :len(where)] = where + r * l
+        pos[r, len(where):] = r * l
+        labels[r, :len(where)] = ids[r, where]
+    types = rng.randint(0, 2, (b, l)).astype(np.int64)
+    nsp = rng.randint(0, 2, (b, 1)).astype(np.int64)
+    return [masked, types, pos.ravel(), labels.ravel(), nsp], counts
+
+
+def train_ernie_amp():
+    """Phase 12e. ERNIE-base (``ernie_base_config()``, flash on) pretrained
+    under ``auto_cast`` (O1) at batch 32 x 512, 80 predictions a row from
+    ``knowledge_masking``, AdamW lr 1e-4, dropout 0.1: 10 eager and 10
+    captured steps from one set of weights, each launching the three bf16
+    attention kernels once a layer and the residual LayerNorms (layer 0's
+    first mixed, the rest bf16) exactly. Returns (eager launches, captured
+    launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.models import (BertPretrainingCriterion, ErnieForPretraining,
+                                         ernie_base_config)
+
+    cfg = ernie_base_config()
+    cfg.use_flash_attention = True
+    base = ErnieForPretraining(cfg, generator=torch.Generator().manual_seed(3))
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+
+    def loss_fn(m, ids, types, pos, mlm, nsp):
+        pred, rel = m(ids, types, masked_positions=pos)
+        return crit(pred, rel, mlm, nsp)
+
+    arrays, masked = _ernie_batch(cfg, np.random.RandomState(33), seed=34)
+    batch = [torch.from_numpy(a).cuda() for a in arrays]
+    amp_loss = _amp_loss_fn(loss_fn, "O1")
+    counts, timing = compiled_timing(lambda: copy.deepcopy(base),
+                                     lambda m, jit: _step_of(m, amp_loss, jit=jit), batch,
+                                     "ERNIE AMP", TRAIN_B * TRAIN_SEQ, "tokens")
+    want = _amp_launches("O1", cfg.num_hidden_layers, COMPILED_STEPS)
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"ERNIE AMP: {counts}; want {want}")
+    eager = {k: v * COMPILED_STEPS for k, v in timing["eager"]["launches_a_step"].items()}
+    stats = {"masked_a_row_min": min(masked), "masked_a_row_max": max(masked),
+             "masked_a_row_mean": float(np.mean(masked)),
+             "rows_under_80": sum(c < TRAIN_PRED for c in masked)}
+    log(f"ERNIE AMP: knowledge masking {stats}; median step eager "
+        f"{timing['eager']['step_ms_median']:.3f} ms, captured "
+        f"{timing['captured']['step_ms_median']:.3f} ms")
+    return eager, counts, {"masking": stats, **timing}
+
+
+def train_seq2seq_and_ernie():
+    """Phases 12c-12e. Returns ({"training", "compiled", "serving"}: launches,
+    readings)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    s2s_eager, s2s_captured, s2s = train_seq2seq_amp()
+    torch.cuda.empty_cache()
+    dec_counts, dec = decode_seq2seq()
+    torch.cuda.empty_cache()
+    er_eager, er_captured, ernie = train_ernie_amp()
+    torch.cuda.empty_cache()
+
+    def add(*ds):
+        return {k: sum(d.get(k, 0) for d in ds) for d in ds for k in d}
+
+    return ({"training": add(s2s_eager, er_eager), "compiled": add(s2s_captured, er_captured),
+             "serving": dec_counts},
+            {"seq2seq_amp": s2s, "seq2seq_decode": dec, "ernie_amp": ernie})
 
 
 # -- the int8 serving path and the pool backward --------------------------------
@@ -4609,6 +5121,8 @@ def main() -> int:
 
     kernels = (check_kernels() + check_amp_kernels() + check_resnet_kernels() + check_new_kernels()
                + check_resnet_kernels_bf16())
+    for name, entry in check_layernorm_h512().items():  # new shapes of rows 1, 1b, 2, 2b
+        next(k for k in kernels if k["name"] == name).setdefault("also_checked", []).append(entry)
     served, serving = {}, {}
     served["bert"], serving["bert"] = serve_bert()
     trained = train_bert()
@@ -4625,19 +5139,22 @@ def main() -> int:
     rn_amp_served, rn_amp["eval"] = eval_resnet_amp()
     torch.cuda.empty_cache()
     compiled_counts, compiled = compiled_steps()
+    s2s_counts, s2s = train_seq2seq_and_ernie()
     for k in kernels:
         name = k["name"]
-        k["launches_serving"] = sum(c[name] for c in served.values()) + rn_amp_served[name]
+        k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
+                                 + s2s_counts["serving"].get(name, 0))
         k["launches_training"] = (trained[name] + amp_trained[name] + rn_trained[name]
-                                  + rn_amp_trained[name])
-        k["launches_compiled"] = compiled_counts[name]  # replayed in CUDA graphs
+                                  + rn_amp_trained[name] + s2s_counts["training"].get(name, 0))
+        # replayed in CUDA graphs
+        k["launches_compiled"] = compiled_counts[name] + s2s_counts["compiled"].get(name, 0)
         k["launches"] = k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
     print(card)
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
-                      "compiled": compiled, "serving": serving}))
+                      "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,7 +11,10 @@ word embeddings; the JAX state dict lists it once, under
 ``bert.embeddings.word_embeddings.weight``, and so does the port's. An
 AdamW ``state_dict`` indexes its moments (a Momentum one its
 ``velocity_{i}``) by the position of the parameter in
-``model.parameters()``, the same order in both packages. A ResNet state
+``model.parameters()``, the same order in both packages. ERNIE's state
+dict is BERT's (its pretraining model ties the same weight). A
+``TransformerSeq2Seq`` state dict holds its parameters and the
+``pos_enc`` buffer, which must equal the port's own table. A ResNet state
 dict holds the parameters and the batch norms' running ``_mean`` and
 ``_variance`` buffers (267 entries for ResNet-50: 161 parameters, 106
 buffers), all checked the same way. A saved static program (an int8 one
@@ -25,12 +28,15 @@ import numpy as np
 import torch
 
 from .framework.serialization import load
-from .models.bert import BertConfig, BertForPretraining, BertModel
+from .models.bert import (BertConfig, BertForPretraining, BertModel, ErnieForPretraining,
+                          ernie_base_config)
 from .models.resnet import resnet50
+from .models.seq2seq import TransformerSeq2Seq
 from .nn.layers import Embedding, LayerNorm, Linear
 
 __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_numpy",
-           "load_bert_pretraining", "adamw_state_from_numpy", "resnet_state_from_numpy",
+           "load_bert_pretraining", "load_ernie_pretraining", "seq2seq_state_from_numpy",
+           "load_seq2seq", "adamw_state_from_numpy", "resnet_state_from_numpy",
            "load_resnet", "momentum_state_from_numpy", "int8_model_from_numpy",
            "load_int8_model"]
 
@@ -109,6 +115,42 @@ def load_bert_pretraining(path, cfg: BertConfig | None = None,
     model = BertForPretraining(cfg or BertConfig())
     model.load_state_dict(bert_pretraining_state_from_numpy(load(path, return_numpy=True),
                                                             model))
+    return model if device is None else model.to(device)
+
+
+def load_ernie_pretraining(path, cfg: BertConfig | None = None,
+                           device=None) -> ErnieForPretraining:
+    """An :class:`ErnieForPretraining` (``ernie_base_config()`` unless
+    ``cfg``) holding the weights of a ``paddle_tpu.save`` file of a
+    ``paddle_tpu`` ``ErnieForPretraining.state_dict()``."""
+    model = ErnieForPretraining(cfg or ernie_base_config())
+    model.load_state_dict(bert_pretraining_state_from_numpy(load(path, return_numpy=True),
+                                                            model))
+    return model if device is None else model.to(device)
+
+
+def seq2seq_state_from_numpy(np_state, model: TransformerSeq2Seq) -> dict:
+    """A state dict for the port's :class:`TransformerSeq2Seq` from the
+    ``paddle_tpu`` model's state dict of numpy arrays: every parameter by
+    name and shape, and the ``pos_enc`` buffer, which must equal the
+    port's own table bit for bit (both compute it in float64 and round
+    once)."""
+    if "pos_enc" in np_state:
+        own = model.pos_enc.detach().cpu().numpy()
+        got = np.asarray(np_state["pos_enc"])
+        if got.shape != own.shape or not np.array_equal(got, own):
+            raise ValueError("pos_enc differs from the port's positional encoding of shape "
+                             f"{own.shape}")
+    return _state_from_numpy(np_state, model)
+
+
+def load_seq2seq(path, device=None, **model_kwargs) -> TransformerSeq2Seq:
+    """A :class:`TransformerSeq2Seq` of ``model_kwargs`` (``src_vocab``,
+    ``tgt_vocab``, ``d_model``, ...: the saved model's) holding the weights
+    of a ``paddle_tpu.save`` file of a ``paddle_tpu`` ``TransformerSeq2Seq``'s
+    ``state_dict()``."""
+    model = TransformerSeq2Seq(**model_kwargs)
+    model.load_state_dict(seq2seq_state_from_numpy(load(path, return_numpy=True), model))
     return model if device is None else model.to(device)
 
 

@@ -7,8 +7,12 @@ from .bert import (  # noqa: F401
     BertModel,
     BertPooler,
     BertPretrainingCriterion,
+    ErnieForPretraining,
+    ErnieModel,
     bert_base_config,
     bert_tiny_config,
+    ernie_base_config,
+    knowledge_masking,
 )
 from .resnet import (  # noqa: F401
     BasicBlock,
@@ -20,3 +24,4 @@ from .resnet import (  # noqa: F401
     resnet101,
     resnet152,
 )
+from .seq2seq import TransformerSeq2Seq  # noqa: F401

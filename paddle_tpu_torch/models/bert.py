@@ -1,4 +1,4 @@
-"""BERT encoder and pretraining model (``paddle_tpu/models/bert.py:33-272``) on torch tensors.
+"""BERT encoder and pretraining model (``paddle_tpu/models/bert.py:33-272``) and ERNIE (``:419-475``) on torch tensors.
 
 The config, embeddings, post-norm encoder, pooler, the MLM + NSP
 pretraining heads and their criterion, with the JAX package's parameter
@@ -7,7 +7,10 @@ names, so ``paddle_tpu`` weights load by name
 are not ported. With ``use_flash_attention`` and sequences of at least
 ``FLASH_ATTENTION_MIN_SEQ`` the attention runs the flash kernels
 (forward, and dQ and dK/dV in the backward); every encoder layer runs the
-fused residual-add + LayerNorm kernels twice.
+fused residual-add + LayerNorm kernels twice. ERNIE 1.0 is this encoder
+with relu and an 18,000-token vocabulary; what sets it apart is its
+pretraining data, whole entities and phrases masked together
+(:func:`knowledge_masking`).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 
 __all__ = ["BertConfig", "bert_base_config", "bert_tiny_config", "BertEmbeddings",
            "BertPooler", "BertModel", "BertLMPredictionHead", "BertForPretraining",
-           "BertPretrainingCriterion"]
+           "BertPretrainingCriterion", "ernie_base_config", "ErnieModel",
+           "ErnieForPretraining", "knowledge_masking"]
 
 
 @dataclass
@@ -189,3 +193,55 @@ class BertPretrainingCriterion(nn.Module):
                               masked_lm_labels.reshape(-1))
         nsp = F.cross_entropy(seq_relationship_score, next_sentence_labels.reshape(-1))
         return F.mean(mlm) / masked_lm_scale + F.mean(nsp)
+
+
+# -- ERNIE ------------------------------------------------------------------------
+
+
+def ernie_base_config() -> BertConfig:
+    """ERNIE 1.0 base: the BERT-base encoder (12 layers, 768, 12 heads) with
+    relu and an 18,000-token vocabulary."""
+    return BertConfig(hidden_act="relu", vocab_size=18000)
+
+
+class ErnieModel(BertModel):
+    """The ERNIE 1.0 encoder: :class:`BertModel` with the ERNIE defaults."""
+
+    def __init__(self, cfg: BertConfig | None = None, generator=None, device=None, **kwargs):
+        super().__init__(cfg or ernie_base_config(), generator=generator, device=device,
+                         **kwargs)
+
+
+class ErnieForPretraining(BertForPretraining):
+    """MLM (+ NSP) pretraining over :class:`ErnieModel`'s defaults; pair it
+    with :func:`knowledge_masking`."""
+
+    def __init__(self, cfg: BertConfig | None = None, generator=None, device=None, **kwargs):
+        super().__init__(cfg or ernie_base_config(), generator=generator, device=device,
+                         **kwargs)
+
+
+def _span_mask(spans, draw, mask_prob):
+    """The mask of :func:`knowledge_masking` from its uniform ``draw [B, L]``:
+    a span (tokens sharing a span id > 0 in a run; 0 is a one-token span)
+    is masked iff its first token drew below ``mask_prob``, and every later
+    member takes the head's decision (the JAX package's scan along L)."""
+    b, l = spans.shape
+    col = torch.arange(l, device=spans.device)[None, :]
+    key = torch.where(spans > 0, spans, l + col)
+    first = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=spans.device),
+                       key[:, 1:] != key[:, :-1]], dim=1)
+    head = torch.cummax(torch.where(first, col, torch.zeros_like(col)), dim=1).values
+    return torch.gather(draw, 1, head) < mask_prob
+
+
+def knowledge_masking(ids, spans, mask_id, key, mask_prob=0.15):
+    """ERNIE's entity/phrase-level masking: whole spans masked together.
+
+    ``ids [B, L]``; ``spans [B, L]`` span ids (tokens sharing one belong to
+    one entity or phrase; 0 is a one-token span); ``key`` the
+    ``torch.Generator`` (on ``ids``' device) of the uniform draw. Returns
+    ``(masked_ids, mask [B, L] bool)``."""
+    draw = torch.rand(tuple(ids.shape), generator=key, device=ids.device)
+    mask = _span_mask(spans, draw, mask_prob)
+    return torch.where(mask, torch.full_like(ids, mask_id), ids), mask

@@ -1,5 +1,5 @@
 """Layers of the port (``paddle_tpu.nn``)."""
-from . import functional  # noqa: F401
+from . import functional, initializer  # noqa: F401
 from .layers import (  # noqa: F401
     AdaptiveAvgPool2D,
     BatchNorm2D,
@@ -15,6 +15,9 @@ from .layers import (  # noqa: F401
 )
 from .transformer import (  # noqa: F401
     MultiHeadAttention,
+    Transformer,
+    TransformerDecoder,
+    TransformerDecoderLayer,
     TransformerEncoder,
     TransformerEncoderLayer,
 )

@@ -1,6 +1,7 @@
 """Parameter initializers (``paddle_tpu/nn/initializer.py``) for static programs.
 
-Each draws from the CPU's default generator of
+Each draws from ``generator`` when the caller passes one (a layer's own),
+else from the CPU's default generator of
 :mod:`paddle_tpu_torch.framework.random` (``seed(value)`` restarts it), so
 a program's startup is reproducible; the streams differ from the JAX
 package's, so parity tests carry weights across as numpy.
@@ -14,24 +15,45 @@ import torch
 from ..framework import random as _random
 from ..framework.dtype import torch_dtype
 
-__all__ = ["Initializer", "Constant", "XavierUniform", "KaimingUniform"]
+__all__ = ["Initializer", "Constant", "Normal", "XavierUniform", "KaimingUniform"]
 
 
 class Initializer:
-    def __call__(self, shape, dtype="float32"):
+    """``init(shape, dtype="float32", generator=None, device=None)``: a
+    new tensor on ``device`` (the CPU by default), drawn from ``generator``
+    (a generator of that device) or the device's default one."""
+
+    def __call__(self, shape, dtype="float32", generator=None, device=None):
         raise NotImplementedError
+
+
+def _generator(generator, device):
+    return generator if generator is not None else _random.default_generator(device)
 
 
 class Constant(Initializer):
     def __init__(self, value=0.0):
         self.value = value
 
-    def __call__(self, shape, dtype="float32"):
-        return torch.full(tuple(shape), self.value, dtype=torch_dtype(dtype))
+    def __call__(self, shape, dtype="float32", generator=None, device=None):
+        return torch.full(tuple(shape), self.value, dtype=torch_dtype(dtype), device=device)
 
 
-def _uniform(shape, dtype, low, high):
-    u = torch.rand(tuple(shape), dtype=torch_dtype(dtype), generator=_random.default_generator())
+class Normal(Initializer):
+    """``N(mean, std**2)`` (``paddle_tpu/nn/initializer.py:31-37``)."""
+
+    def __init__(self, mean=0.0, std=1.0):
+        self.mean, self.std = mean, std
+
+    def __call__(self, shape, dtype="float32", generator=None, device=None):
+        z = torch.randn(tuple(shape), dtype=torch_dtype(dtype), device=device,
+                        generator=_generator(generator, device))
+        return z * self.std + self.mean
+
+
+def _uniform(shape, dtype, low, high, generator=None, device=None):
+    u = torch.rand(tuple(shape), dtype=torch_dtype(dtype), device=device,
+                   generator=_generator(generator, device))
     return u * (high - low) + low
 
 
@@ -51,10 +73,10 @@ class XavierUniform(Initializer):
     def __init__(self, fan_in=None, fan_out=None):
         self.fan_in, self.fan_out = fan_in, fan_out
 
-    def __call__(self, shape, dtype="float32"):
+    def __call__(self, shape, dtype="float32", generator=None, device=None):
         fi, fo = _fans(shape)
         limit = math.sqrt(6.0 / ((self.fan_in or fi) + (self.fan_out or fo)))
-        return _uniform(shape, dtype, -limit, limit)
+        return _uniform(shape, dtype, -limit, limit, generator, device)
 
 
 class KaimingUniform(Initializer):
@@ -62,11 +84,11 @@ class KaimingUniform(Initializer):
         self.fan_in = fan_in
         self.negative_slope = negative_slope
 
-    def __call__(self, shape, dtype="float32"):
+    def __call__(self, shape, dtype="float32", generator=None, device=None):
         fi = self.fan_in or _fans(shape)[0]
         gain = math.sqrt(2.0 / (1 + self.negative_slope ** 2))
         limit = gain * math.sqrt(3.0 / fi)
-        return _uniform(shape, dtype, -limit, limit)
+        return _uniform(shape, dtype, -limit, limit, generator, device)
 
 
 def _resolve(init, is_bias=False):

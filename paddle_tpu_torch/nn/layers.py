@@ -16,6 +16,7 @@ from torch import nn
 
 from ..flags import flag
 from . import functional as F
+from .initializer import Initializer
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "LayerList", "Conv2D", "BatchNorm2D",
            "MaxPool2D", "AdaptiveAvgPool2D", "Sequential", "fused_conv_bn_relu"]
@@ -26,19 +27,36 @@ def _param(shape, device=None, dtype=torch.float32):
 
 
 class Linear(nn.Module):
-    def __init__(self, in_features, out_features, bias_attr=None, generator=None,
-                 device=None):
+    """``weight_attr`` and ``bias_attr``: an
+    :class:`~paddle_tpu_torch.nn.initializer.Initializer` draws the tensor
+    from ``generator``; None means XavierUniform for the weight and zeros
+    for the bias; ``bias_attr=False`` leaves the bias out. ``name`` is
+    accepted for the JAX signature and not kept."""
+
+    def __init__(self, in_features, out_features, weight_attr=None, bias_attr=None, name=None,
+                 generator=None, device=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _param((in_features, out_features), device)
-        bound = math.sqrt(6.0 / (in_features + out_features))  # XavierUniform
-        with torch.no_grad():
-            self.weight.uniform_(-bound, bound, generator=generator)
-        if bias_attr is not False:
+        shape = (in_features, out_features)
+        if isinstance(weight_attr, Initializer):
+            self.weight = nn.Parameter(weight_attr(shape, generator=generator, device=device))
+        elif weight_attr is None:
+            self.weight = _param(shape, device)
+            bound = math.sqrt(6.0 / (in_features + out_features))  # XavierUniform
+            with torch.no_grad():
+                self.weight.uniform_(-bound, bound, generator=generator)
+        else:
+            raise TypeError(f"Linear: weight_attr must be an Initializer, got {weight_attr!r}")
+        if bias_attr is False:
+            self.bias = None
+        elif isinstance(bias_attr, Initializer):
+            self.bias = nn.Parameter(bias_attr((out_features,), generator=generator,
+                                               device=device))
+        elif bias_attr is None:
             self.bias = nn.Parameter(torch.zeros(out_features, device=device))
         else:
-            self.bias = None
+            raise TypeError(f"Linear: bias_attr must be an Initializer or False, got {bias_attr!r}")
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -48,15 +66,26 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, padding_idx=None, generator=None,
-                 device=None):
+    """The table ``[num_embeddings, embedding_dim]``, drawn by ``weight_attr``
+    (an :class:`~paddle_tpu_torch.nn.initializer.Initializer`) or N(0, 1)
+    when it is None, from ``generator``. ``sparse`` and ``name`` are
+    accepted for the JAX signature and not kept."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None, sparse=False,
+                 weight_attr=None, name=None, generator=None, device=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
-        self.weight = _param((num_embeddings, embedding_dim), device)
-        with torch.no_grad():
-            self.weight.normal_(0.0, 1.0, generator=generator)
+        shape = (num_embeddings, embedding_dim)
+        if weight_attr is None:
+            self.weight = _param(shape, device)
+            with torch.no_grad():
+                self.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(weight_attr, Initializer):
+            self.weight = nn.Parameter(weight_attr(shape, generator=generator, device=device))
+        else:
+            raise TypeError(f"Embedding: weight_attr must be an Initializer, got {weight_attr!r}")
 
     def forward(self, x):
         return F.embedding(x, self.weight, padding_idx=self.padding_idx)

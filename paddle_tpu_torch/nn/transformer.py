@@ -1,10 +1,12 @@
-"""Transformer encoder of the serving and training paths (``paddle_tpu/nn/transformer.py``).
+"""Transformer stack of the serving, training and seq2seq paths (``paddle_tpu/nn/transformer.py``).
 
 The non-cache attention path with its flash dispatch (``:290-327`` of the
-JAX module), the post-norm encoder layer whose residual-add + LayerNorm
-pairs go through the fused kernel (``_residual_norm``, ``:28-43``), and
-the encoder stack. Incremental KV caches, ring/Ulysses attention and the
-decoder are not ported yet.
+JAX module; a separate key and value make it cross-attention), the
+post-norm encoder and decoder layers whose residual-add + LayerNorm pairs
+go through the fused kernel (``_residual_norm``, ``:28-43``), the encoder
+and decoder stacks and the encoder-decoder ``Transformer`` (``:576-704``).
+Incremental KV caches (a ``cache`` argument raises), ``kdim``/``vdim``,
+``need_weights`` and ring/Ulysses attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from . import functional as F
 from .layers import Dropout, LayerList, LayerNorm, Linear
 
 __all__ = ["FLASH_ATTENTION_MIN_SEQ", "MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "TransformerDecoderLayer", "TransformerDecoder", "Transformer"]
 
 # Key length from which use_flash_attention dispatches to the flash kernel.
 # The value is the JAX package's; the H100 crossover is not measured yet.
@@ -61,11 +63,21 @@ def _convert_attention_mask(attn_mask, dtype):
 
 
 class MultiHeadAttention(nn.Module):
-    """Scaled dot-product multi-head attention, the non-cache path."""
+    """Scaled dot-product multi-head attention, the non-cache path, with the
+    JAX signature. What is not ported raises: ``kdim``/``vdim`` other than
+    ``embed_dim``, ``need_weights``, ring and Ulysses attention."""
 
-    def __init__(self, embed_dim, num_heads, dropout=0.0, use_flash_attention=False,
-                 generator=None, device=None):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None, vdim=None,
+                 need_weights=False, weight_attr=None, bias_attr=None, use_ring_attention=False,
+                 use_flash_attention=False, use_ulysses_attention=False, generator=None,
+                 device=None):
         super().__init__()
+        if (kdim or embed_dim) != embed_dim or (vdim or embed_dim) != embed_dim:
+            raise NotImplementedError("MultiHeadAttention: kdim/vdim other than embed_dim are "
+                                      "not ported yet")
+        if need_weights or use_ring_attention or use_ulysses_attention:
+            raise NotImplementedError("MultiHeadAttention: need_weights, ring and Ulysses "
+                                      "attention are not ported")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.dropout = dropout
@@ -73,7 +85,8 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         if self.head_dim * num_heads != embed_dim:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
-        kw = dict(generator=generator, device=device)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, generator=generator,
+                  device=device)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(embed_dim, embed_dim, **kw)
         self.v_proj = Linear(embed_dim, embed_dim, **kw)
@@ -84,7 +97,10 @@ class MultiHeadAttention(nn.Module):
         b, l = x.shape[0], x.shape[1]
         return x.reshape(b, l, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
 
-    def forward(self, query, key=None, value=None, attn_mask=None):
+    def forward(self, query, key=None, value=None, attn_mask=None, cache=None):
+        if cache is not None:
+            raise NotImplementedError("MultiHeadAttention: incremental KV caches are not "
+                                      "ported yet (ROADMAP.md Queue A item 7)")
         key = query if key is None else key
         value = key if value is None else value
         q = self._shape(self.q_proj(query))
@@ -165,3 +181,119 @@ class TransformerEncoder(nn.Module):
         if self.norm is not None:
             out = self.norm(out)
         return out
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Decoder block: self-attention, cross-attention over ``memory`` and an
+    FFN. ``with_cross_attention=False`` builds a decoder-only block: no
+    cross-attention parameters exist at all, and ``memory`` may be
+    omitted. ``weight_attr`` and ``bias_attr`` go to every Linear."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1, activation="relu",
+                 attn_dropout=None, act_dropout=None, normalize_before=False,
+                 weight_attr=None, bias_attr=None, with_cross_attention=True, generator=None,
+                 device=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        kw = dict(generator=generator, device=device)
+        lin = dict(weight_attr=weight_attr, bias_attr=bias_attr, **kw)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=attn_dropout, **lin)
+        if with_cross_attention:
+            self.cross_attn = MultiHeadAttention(d_model, nhead, dropout=attn_dropout, **lin)
+            self.norm2 = LayerNorm(d_model, device=device)
+            self.dropout2 = Dropout(dropout)
+        else:
+            self.cross_attn = None
+        self.linear1 = Linear(d_model, dim_feedforward, **lin)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, **lin)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.norm3 = LayerNorm(d_model, device=device)
+        self.dropout1 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def _sublayer(self, norm, dropout, x, fn):
+        """``x`` plus ``fn`` of it, pre-norm (``x + dropout(fn(norm(x)))``) or
+        post-norm (``norm(x + dropout(fn(x)))``, the fused kernel)."""
+        if self.normalize_before:
+            return x + dropout(fn(norm(x)))
+        return _residual_norm(norm, x, dropout(fn(x)))
+
+    def forward(self, tgt, memory=None, tgt_mask=None, memory_mask=None, cache=None):
+        if cache is not None:
+            raise NotImplementedError("TransformerDecoderLayer: incremental KV caches are not "
+                                      "ported yet (ROADMAP.md Queue A item 7)")
+        tgt = self._sublayer(self.norm1, self.dropout1, tgt,
+                             lambda x: self.self_attn(x, x, x, tgt_mask))
+        if self.cross_attn is not None:
+            if memory is None:
+                raise ValueError("this TransformerDecoderLayer was built with cross-attention; "
+                                 "pass memory (or build it with with_cross_attention=False "
+                                 "for decoder-only use)")
+            tgt = self._sublayer(self.norm2, self.dropout2, tgt,
+                                 lambda x: self.cross_attn(x, memory, memory, memory_mask))
+        return self._sublayer(self.norm3, self.dropout3, tgt, lambda x: self.linear2(
+            self.dropout(self.activation(self.linear1(x)))))
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([decoder_layer] + [copy.deepcopy(decoder_layer)
+                                                   for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+        out = tgt
+        for layer in self.layers:
+            out = layer(out, memory, tgt_mask, memory_mask)
+        if self.norm is not None:
+            out = self.norm(out)
+        return out
+
+
+class Transformer(nn.Module):
+    """The encoder-decoder transformer; the defaults are Transformer-base
+    (512 wide, 8 heads, 6 + 6 layers, FFN 2048). As in the JAX package each
+    stack deep-copies one layer, so its layers start from equal weights."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6, num_decoder_layers=6,
+                 dim_feedforward=2048, dropout=0.1, activation="relu", attn_dropout=None,
+                 act_dropout=None, normalize_before=False, custom_encoder=None,
+                 custom_decoder=None, generator=None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation, attn_dropout, act_dropout,
+                normalize_before, **kw)
+            enc_norm = LayerNorm(d_model, device=device) if normalize_before else None
+            self.encoder = TransformerEncoder(enc_layer, num_encoder_layers, enc_norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation, attn_dropout, act_dropout,
+                normalize_before, **kw)
+            dec_norm = LayerNorm(d_model, device=device) if normalize_before else None
+            self.decoder = TransformerDecoder(dec_layer, num_decoder_layers, dec_norm)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None, memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length, device=None):
+        """The additive causal mask ``[length, length]``: float32, -1e9 above
+        the diagonal, 0 elsewhere, made on ``device`` (a capture on the card
+        copies nothing from the host)."""
+        return torch.full((length, length), -1e9, dtype=torch.float32,
+                          device=device).triu_(1)

@@ -2,14 +2,14 @@
 
 The hand-written CUDA kernels live in :mod:`.cuda`; the op kernels a saved
 Program names are registered in :mod:`.registry` by :mod:`.kernels` and
-:mod:`.quantize_kernels`. The functions here are the mode-aware front: under
+:mod:`.quantize_kernels`, and the beam search pair by :mod:`.beam_search`. The functions here are the mode-aware front: under
 ``static.enable_static()`` a call on a symbolic ``Variable`` appends an
 ``OpDesc`` to the default program, otherwise it computes on torch tensors.
 Only the ops the ported static programs use are here.
 """
 from __future__ import annotations
 
-from . import kernels, quantize_kernels  # noqa: F401  (register their ops)
+from . import beam_search, kernels, quantize_kernels  # noqa: F401  (register their ops)
 from .registry import kernel
 
 __all__ = ["add", "matmul", "mul", "reshape", "relu", "gelu", "layer_norm", "conv2d"]
