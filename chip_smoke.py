@@ -135,10 +135,13 @@ Phases, each fatal on failure:
     teacher-forced forward at batch 2 against the CPU's (TF32 control) and
     one AMP step against the CPU's plain path (the f32 step the control);
     then 10 eager and 10 captured steps (``train_step(jit=True)``) at 64
-    pairs x 64 + 64 tokens, Adam(0.9, 0.98, 1e-9), the pad-masked cross
-    entropy, each launching the 30 residual LayerNorms forward and backward
-    exactly (the first of each stack mixed); medians, target tokens/s,
-    busy share, device time by kind, peak memory;
+    pairs x 64 + 64 tokens, Adam(0.9, 0.98, 1e-9) under
+    ``NoamDecay(512, 4000)`` (taken up at step 1000) with
+    ``ClipGradByGlobalNorm(1.0)``, the pad-masked cross entropy, each
+    launching the 30 residual LayerNorms forward and backward exactly (the
+    first of each stack mixed), each step's lr the schedule's (on the card
+    the float32 the step wrote before its replay) with one capture;
+    medians, target tokens/s, busy share, device time by kind, peak memory;
 12d. greedy decoding (16 sources to 32 tokens) and beam search (beam 4, 4
     sources) of seeded Transformer-base weights in f32 eval: tokens and
     beam steps equal to the CPU's up to the first position whose CPU
@@ -148,6 +151,20 @@ Phases, each fatal on failure:
     ``auto_cast`` at bench's phase-2 shape with ``knowledge_masking``'s
     spans: 10 eager and 10 captured steps with the bf16 attention and
     LayerNorm kernels' launches exact;
+12f. ``BASELINE.json``'s first config: the MNIST LeNet-5 built as a static
+    program (``nets.simple_img_conv_pool`` twice, ``static.nn.fc`` x 3,
+    ``softmax_with_cross_entropy``, ``mean``, ``accuracy``) and trained by
+    ``static.optimizer.SGD`` through ``append_backward`` on synthetic MNIST
+    at batch 64 with ``FLAGS_use_pallas_pool_bwd`` on: after the max-pool
+    backward kernel is held at LeNet's two pool shapes in step 10 (rows
+    16e/16f), 200 steps through the executor's graph: one capture, two
+    pool-backward launches a step, the first 5 losses against the CPU
+    interpreter from the same startup weights (a control at lr 0 must
+    fail), accuracy on a held-out batch above a bar, a replay at lr 0 (the
+    lr written in place into the scope, as ``set_lr`` does) moving no
+    parameter and one at the lr moving all, with no new capture; step ms
+    captured against eager, images/s, and the forward alone (what each
+    grad op's re-run of its forward costs);
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -3979,7 +3996,11 @@ def compiled_steps():
 S2S_VOCAB, S2S_D, S2S_HEADS, S2S_LAYERS, S2S_FFN, S2S_DROPOUT = 37000, 512, 8, 6, 2048, 0.1
 S2S_B, S2S_SRC, S2S_TGT = 64, 64, 64  # pairs a step, source and target tokens a pair
 S2S_ROWS = S2S_B * S2S_TGT  # the LayerNorm rows of the decoder: [4096, 512]
-S2S_LR = 1e-4  # constant: the paper's Noam schedule waits for the schedulers
+# the paper's schedule, NoamDecay(d_model=512, warmup_steps=4000, learning_rate=1.0),
+# and ClipGradByGlobalNorm(1.0). The timed runs take the schedule up at step 1000
+# (lr 1.75e-4, rising): from step 1 their 11 steps would run at 1.7e-7 to 1.9e-6,
+# too little for the falling-loss check to see through dropout's noise.
+S2S_WARMUP, S2S_CLIP, S2S_NOAM_START = 4000, 1.0, 1000
 S2S_BOS, S2S_EOS, S2S_PAD = 0, 1, 2  # TransformerSeq2Seq's defaults
 # post-norm residual LayerNorms a forward: 2 an encoder layer, 3 a decoder layer;
 # under AMP the first of each stack adds a bf16 sublayer output to the f32
@@ -4045,13 +4066,81 @@ def _s2s_loss(m, src, tin, tout):
     return (ce * mask.reshape(-1)).sum() / mask.sum()
 
 
-def _s2s_step_of(model, loss_fn, device=None, jit=False):
-    """Adam(0.9, 0.98, 1e-9) at a constant lr, the paper's moments."""
-    from paddle_tpu_torch.framework.jit import train_step
-    from paddle_tpu_torch.optimizer import Adam
+def _noam_lr(step, d_model=S2S_D, warmup=S2S_WARMUP, base=1.0):
+    """``paddle_tpu/optimizer/lr.py`` ``NoamDecay.get_lr``, copied: the value
+    the port's schedule must give at ``step``."""
+    step = max(step, 1)
+    return base * d_model**-0.5 * min(step**-0.5, step * warmup**-1.5)
 
-    return train_step(model, Adam(learning_rate=S2S_LR, beta1=0.9, beta2=0.98, epsilon=1e-9,
-                                  parameters=model.parameters()), loss_fn, device=device, jit=jit)
+
+class _NoamStep:
+    """A train step under ``NoamDecay``: each call runs the step, keeps the
+    lr the optimizer read (under ``jit=True`` a copy of the float32 on the
+    card that the step wrote before its replay; else the host float) and the
+    schedule's step, then advances the schedule."""
+
+    def __init__(self, step, sched, record):
+        self.step, self.sched = step, sched
+        self.record = record  # {"lrs": [...], "epochs": [...], "store": ...}
+        record.update(lrs=[], epochs=[], store=step.store)
+
+    def __call__(self, *batch):
+        out = self.step(*batch)
+        opt = self.step.optimizer
+        self.record["lrs"].append(opt._lr_t.clone() if self.step.jit else opt.get_lr())
+        self.record["epochs"].append(self.sched.last_epoch)
+        self.sched.step()
+        return out
+
+
+def _s2s_step_of(model, loss_fn, device=None, jit=False, start=0, record=None):
+    """Adam(0.9, 0.98, 1e-9), the paper's moments, under
+    ``NoamDecay(512, 4000, 1.0)`` from step ``start`` (0: the first) with
+    ``ClipGradByGlobalNorm(1.0)``; ``record`` (a dict) receives the lrs
+    (:class:`_NoamStep`)."""
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.optimizer import Adam, ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+
+    sched = NoamDecay(d_model=S2S_D, warmup_steps=S2S_WARMUP, learning_rate=1.0,
+                      last_epoch=start - 1)
+    opt = Adam(learning_rate=sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+               parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(S2S_CLIP))
+    step = train_step(model, opt, loss_fn, device=device, jit=jit)
+    return _NoamStep(step, sched, {} if record is None else record)
+
+
+def _check_noam(records):
+    """The lr each step of the seq2seq runs read: eagerly the schedule's
+    float, captured the float32 on the card equal to that float rounded to
+    float32 (``_noam_lr``, the JAX package's formula), a new value at every
+    step; and the captured run's store one graph, captured once. Returns
+    the readings."""
+    import torch
+
+    out = {}
+    for name, rec in records.items():
+        want = [_noam_lr(e) for e in rec["epochs"]]
+        if name == "captured":
+            got = torch.stack(rec["lrs"]).cpu().numpy().tolist()
+            want = [float(np.float32(w)) for w in want]
+        else:
+            got = rec["lrs"]
+        store = rec["store"]
+        if got != want or len(set(want)) != len(want):
+            raise AssertionError(f"seq2seq {name}: the steps read lrs {got[:4]}...; the "
+                                 f"schedule gives {want[:4]}...")
+        if name == "captured" and (len(store) != 1 or store.misses != 1):
+            raise AssertionError(f"seq2seq captured under Noam: {len(store)} graphs, "
+                                 f"{store.misses} captures; want one of each")
+        out[name] = {"steps": len(got), "first_lr": got[0], "last_lr": got[-1],
+                     "schedule_steps": [rec["epochs"][0], rec["epochs"][-1]],
+                     "graphs": len(store), "captures": store.misses}
+    log(f"seq2seq under NoamDecay(512, 4000) from step {S2S_NOAM_START}: every step's lr "
+        f"equals the schedule's ({out['captured']['steps']} captured steps read the float32 "
+        f"on the card, {out['captured']['first_lr']:.6g} to {out['captured']['last_lr']:.6g}); "
+        f"one graph, captured once")
+    return out
 
 
 def _s2s_launches(amp, steps=1, backward=True):
@@ -4168,11 +4257,13 @@ def s2s_parity():
 def train_seq2seq_amp():
     """Phase 12c. Transformer-base (37,000-token vocabulary, dropout 0.1)
     trained under ``auto_cast`` (O1) at 64 pairs x 64 + 64 tokens with
-    Adam(0.9, 0.98, 1e-9), the pad-masked cross entropy, through
+    Adam(0.9, 0.98, 1e-9) under ``NoamDecay(512, 4000)`` with
+    ``ClipGradByGlobalNorm(1.0)``, the pad-masked cross entropy, through
     ``train_step``: the parity checks at batch 2, then 10 eager steps and
     10 captured ones (``jit=True``: the eager first step, then replays) from
     one set of weights, each launching exactly 30 residual LayerNorms
-    forward and backward (2 mixed). Returns (eager launches, captured
+    forward and backward (2 mixed), every step's lr the schedule's (on the
+    card its float32) with one capture. Returns (eager launches, captured
     launches, readings)."""
     import torch
 
@@ -4181,9 +4272,14 @@ def train_seq2seq_amp():
     base = _seq2seq(seed=1)
     batch = [torch.from_numpy(a).cuda() for a in s2s_batch(S2S_B, np.random.RandomState(31))]
     loss_fn = _amp_loss_fn(_s2s_loss, "O1")
-    counts, timing = compiled_timing(lambda: copy.deepcopy(base),
-                                     lambda m, jit: _s2s_step_of(m, loss_fn, jit=jit), batch,
-                                     "seq2seq AMP", S2S_B * S2S_TGT, "target_tokens")
+    records = {"eager": {}, "captured": {}}
+    counts, timing = compiled_timing(
+        lambda: copy.deepcopy(base),
+        lambda m, jit: _s2s_step_of(m, loss_fn, jit=jit, start=S2S_NOAM_START,
+                                    record=records["captured" if jit else "eager"]),
+        batch, "seq2seq AMP", S2S_B * S2S_TGT, "target_tokens")
+    noam = _check_noam(records)
+    del records
     want = _s2s_launches(True, COMPILED_STEPS)
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError(f"seq2seq AMP: {COMPILED_STEPS} steps launched {counts}; want "
@@ -4198,7 +4294,8 @@ def train_seq2seq_amp():
         f"{timing['captured']['step_ms_median']:.3f} ms (busy share "
         f"{timing['captured']['busy_share']:.1%}); device ms by kind, captured: "
         f"{ {k: round(v, 3) for k, v in timing['captured']['device_ms_by_kind'].items()} }")
-    return eager, counts, {"parity": parity, **timing, "real_target_tokens": real}
+    return eager, counts, {"parity": parity, **timing, "real_target_tokens": real,
+                           "noam": noam}
 
 
 def _greedy_margins(model, src, ys):
@@ -4457,6 +4554,304 @@ def train_seq2seq_and_ernie():
     return ({"training": add(s2s_eager, er_eager), "compiled": add(s2s_captured, er_captured),
              "serving": dec_counts},
             {"seq2seq_amp": s2s, "seq2seq_decode": dec, "ernie_amp": ernie})
+
+
+# -- BASELINE.json's first config: the MNIST LeNet as a static program, SGD --------
+
+LENET_B, LENET_STEPS, LENET_LR, LENET_SEED = 64, 200, 0.05, 16
+LENET_PARITY_STEPS = 5  # steps held against the CPU interpreter
+LENET_EAGER_STEPS = 20  # steps of the interpreter run eagerly on the card, timed
+LENET_TIMED = 50  # replays of the forward program, timed
+# LeNet's pools: [64, 6, 28, 28] -> [64, 6, 14, 14] and [64, 16, 10, 10] -> [64, 16, 5, 5]
+LENET_POOLS = ((LENET_B, 6, 28, 28), (LENET_B, 16, 10, 10))
+# The card's losses against the CPU interpreter's from the same weights and
+# batches; the control is the CPU's run at lr 0 (the update ignored), whose
+# losses part from the trained ones at the second step.
+LENET_LOSS_ATOL = 1e-4
+LENET_ACC_BAR = 0.9  # accuracy on the 512 held-out synthetic images after 200 steps
+
+
+def _lenet_programs(train):
+    """(main, startup, loss, acc) of the LeNet-5 program (the JAX package's
+    ``models/lenet.py`` widths), with ``static.optimizer.SGD``'s training
+    ops when ``train``. Two builds name their parameters alike (``param_0``
+    ... ``param_9``), so a forward-only build reads a training build's
+    scope."""
+    from paddle_tpu_torch import nets, ops, static
+
+    main, startup = static.Program(), static.Program()
+    static.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            img = static.data("img", [None, 1, 28, 28], "float32")
+            label = static.data("label", [None, 1], "int64")
+            h = nets.simple_img_conv_pool(img, 6, 3, 2, 2, conv_padding=1, act="relu")
+            h = nets.simple_img_conv_pool(h, 16, 5, 2, 2, act="relu")
+            h = static.nn.fc(h, 120, activation="relu")
+            h = static.nn.fc(h, 84, activation="relu")
+            logits = static.nn.fc(h, 10)
+            loss = ops.mean(ops.softmax_with_cross_entropy(logits, label))
+            acc = ops.accuracy(ops.softmax(logits), label)
+            if train:
+                static.optimizer.SGD(learning_rate=LENET_LR).minimize(loss)
+    finally:
+        static.disable_static()
+    return main, startup, loss, acc
+
+
+def check_pool_backward_lenet(shape):
+    """Rows 16e/16f: the max-pool backward kernel at one of LeNet's pools
+    (2x2, stride 2, no padding) on a relu'd input (whole windows of zeros
+    tie), bit-equal to its plain version and within 4 ulps of
+    ``aten.max_pool2d_with_indices_backward`` (the library yardstick: the
+    same first-maximum rule, another order of adding), each timed in device
+    time behind a sleep kernel, with the bound of the table's rule
+    ``4·(|x|+|y|+|dy|+|dx|)`` bytes."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import pool_backward as pb
+
+    g = torch.Generator(device="cuda").manual_seed(40 + shape[1])
+    ks = st = (2, 2)
+    pad = (0, 0)
+    x = torch.relu(torch.randn(shape, generator=g, device="cuda"))
+    y, idx = torch.nn.functional.max_pool2d(x, ks, st, pad, return_indices=True)
+    dy = torch.randn(y.shape, generator=g, device="cuda")
+    dx = pb.max_pool2d_backward(x, y, dy, ks, st, pad)
+    ref = pb._plain_max_pool2d_backward(x, y, dy, ks, st, pad)
+    lib_fn = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731
+        dy, x, list(ks), list(st), list(pad), [1, 1], False, idx)
+    lib = lib_fn()
+    torch.cuda.synchronize()
+    err = float((dx - ref).abs().max())
+    lib_err = float((dx - lib).abs().max())
+    ulp = float(torch.finfo(torch.float32).eps * ref.abs().max())
+    if not torch.equal(dx, ref):
+        raise AssertionError(f"max_pool2d_backward {list(shape)} 2x2/2: {err} from the plain "
+                             "version")
+    if lib_err > 4 * ulp:
+        raise AssertionError(f"max_pool2d_backward {list(shape)} 2x2/2: {lib_err} from torch's "
+                             f"backward, beyond 4 ulps ({4 * ulp})")
+    t_b, by = bound(4 * (2 * x.numel() + 2 * y.numel()), 4 * x.numel())
+    args = [(x, y, dy, ks, st, pad)]
+    ms, host_ms = device_ms_sets(pb.max_pool2d_backward, args, 50)
+    plain_ms = device_ms_sets(pb._plain_max_pool2d_backward, args, 20)[0]
+    lib_ms = device_ms(lib_fn, 50)[0]
+    entry = {"name": "max_pool2d_backward", "row": "16e" if shape[1] == 6 else "16f",
+             "path": "MNIST LeNet static program", "shape": list(shape),
+             "geometry": "2x2 stride 2 padding 0", "input": "relu", "layout": "nchw",
+             "dtype": "float32", "max_abs_err": err,
+             "tolerance": "bit-equal to the plain version", "library_max_abs_err": lib_err,
+             "zeros_share": float((x == 0).float().mean()), "ms": ms, "kernel_ms": ms,
+             "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
+             "library_ms": lib_ms,
+             "library": "aten.max_pool2d_with_indices_backward at the same shape",
+             "timing": "device time behind a sleep kernel"}
+    log(f"max_pool2d_backward {list(shape)} 2x2/2/0 (LeNet, row {entry['row']}): bit-equal to "
+        f"the plain version, {lib_err:.3g} from torch's backward; kernel {ms:.4f} ms device "
+        f"(host {host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {t_b:.5f} ms ({by})")
+    return entry
+
+
+def _lenet_run(exe, program, feeds, fetch, scope):
+    """``exe.run`` of ``program`` on each of ``feeds`` (device tensors kept
+    on the device); returns the fetches stacked, on the host."""
+    import torch
+
+    outs = [exe.run(program, feed=f, fetch_list=fetch, scope=scope, return_numpy=False)
+            for f in feeds]
+    return [torch.stack([o[i] for o in outs]).cpu().numpy() for i in range(len(fetch))]
+
+
+def _lenet_interpret_ms(exe, program, feeds, fetch, scope, steps):
+    """The executor's interpreter run eagerly on the card (no graph), ``steps``
+    steps timed with CUDA events and the host clock: (median ms, host ms a
+    step, launches a step)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    block, names = program.global_block(), [v.name for v in fetch]
+    with torch.no_grad():
+        exe._interpret(block, dict(feeds[0]), scope, names)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i in range(steps):
+            exe._interpret(block, dict(feeds[i % len(feeds)]), scope, names)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    return float(np.median(ms)), host, {k: v // steps for k, v in launch_counts().items() if v}
+
+
+def train_lenet_static():
+    """Phase 12f. The LeNet-5 program trained by static SGD on the card
+    through the executor's graph, ``FLAGS_use_pallas_pool_bwd`` on. Returns
+    (the launches of the 200 steps, readings)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import convert, static
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    main, startup, loss, acc = _lenet_programs(train=True)
+    fwd, _, fwd_loss, fwd_acc = _lenet_programs(train=False)
+    train_set, test_set = MNIST(mode="train"), MNIST(mode="test")
+    images = torch.from_numpy(train_set.images).cuda()  # the data set on the card, once
+    labels = torch.from_numpy(train_set.labels).reshape(-1, 1).cuda()
+    n_batches = len(train_set) // LENET_B
+    feeds = [{"img": images[i * LENET_B:(i + 1) * LENET_B],
+              "label": labels[i * LENET_B:(i + 1) * LENET_B]} for i in range(n_batches)]
+    ops_count = len(main.global_block().ops)
+    grad_ops = sum(o.type.startswith("grad::") for o in main.global_block().ops)
+    set_flags({"use_pallas_pool_bwd": True})
+    try:
+        ptt.seed(LENET_SEED)
+        scope = static.Scope()
+        exe = static.Executor()
+        exe.run_startup(startup, scope=scope)
+        init = {n: scope.numpy(n) for n in scope.var_names()}
+
+        # the CPU interpreter from the same weights: trained, and at lr 0
+        host_feeds = [{k: v.cpu().numpy() for k, v in f.items()}
+                      for f in feeds[:LENET_PARITY_STEPS]]
+        cpu = {}
+        for name, lr in (("trained", None), ("control", 0.0)):
+            cscope = convert.scope_from_numpy(init, device="cpu")
+            if lr is not None:
+                cscope.get("learning_rate_0").fill_(lr)
+            cexe = static.Executor("cpu")
+            cpu[name] = [float(cexe.run(main, feed=f, fetch_list=[loss], scope=cscope)[0])
+                         for f in host_feeds]
+
+        # 200 steps through the executor's graph, the counts set to 0 just
+        # before: the first runs eagerly and is captured, the rest replay
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [exe.run(main, feed=feeds[0], fetch_list=[loss, acc], scope=scope,
+                        return_numpy=False)]
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(LENET_STEPS)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i in range(1, LENET_STEPS):
+            outs.append(exe.run(main, feed=feeds[i % n_batches], fetch_list=[loss, acc],
+                                scope=scope, return_numpy=False))
+            ev[i].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (LENET_STEPS - 1)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        losses = torch.stack([o[0] for o in outs]).cpu().numpy()
+        accs = torch.stack([o[1] for o in outs]).cpu().numpy()
+        step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(LENET_STEPS - 1)]
+        graphs, captures, replays = len(exe.store), exe.store.misses, exe.store.hits
+
+        # the lr is read by the graph from the scope's tensor, written in place
+        # (as set_lr does): a replay at lr 0 moves no parameter, one at the lr
+        # moves them, and neither captures again
+        params = [n for n in scope.var_names() if n.startswith("param_")]
+        lr_t = scope.get("learning_rate_0")
+        moved = []
+        for lr in (0.0, LENET_LR):
+            before = [scope.get(n).clone() for n in params]
+            lr_t.fill_(lr)
+            exe.run(main, feed=feeds[1], fetch_list=[loss, acc], scope=scope,
+                    return_numpy=False)
+            moved.append(sum(not torch.equal(scope.get(n), b) for n, b in zip(params, before)))
+        lr_captures = exe.store.misses - captures
+
+        # one replay profiled: device busy by kind
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            exe.run(main, feed=feeds[0], fetch_list=[loss, acc], scope=scope,
+                    return_numpy=False)
+            torch.cuda.synchronize()
+        by_kind, events = _device_time_by_kind(prof)
+
+        # the forward alone (what the grad ops' re-run of their forwards costs
+        # at most) and the held-out accuracy, through another executor's graphs
+        fexe = static.Executor()
+        _lenet_run(fexe, fwd, feeds[:1], [fwd_loss, fwd_acc], scope)
+        torch.cuda.synchronize()
+        f0, f1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        f0.record()
+        for i in range(LENET_TIMED):
+            fexe.run(fwd, feed=feeds[i % n_batches], fetch_list=[fwd_loss, fwd_acc], scope=scope,
+                     return_numpy=False)
+        f1.record()
+        torch.cuda.synchronize()
+        fwd_ms = f0.elapsed_time(f1) / LENET_TIMED
+        test = {"img": torch.from_numpy(test_set.images).cuda(),
+                "label": torch.from_numpy(test_set.labels).reshape(-1, 1).cuda()}
+        test_loss, test_acc = (float(v[0]) for v in _lenet_run(fexe, fwd, [test],
+                                                                 [fwd_loss, fwd_acc], scope))
+
+        # the same steps run eagerly on the card (the interpreter, no graph)
+        escope = convert.scope_from_numpy({n: scope.numpy(n) for n in scope.var_names()})
+        eager_ms, eager_host_ms, eager_launches = _lenet_interpret_ms(
+            exe, main, feeds, [loss, acc], escope, LENET_EAGER_STEPS)
+    finally:
+        set_flags({"use_pallas_pool_bwd": False})
+
+    card5 = losses[:LENET_PARITY_STEPS].tolist()
+    err = max(abs(a - b) for a, b in zip(card5, cpu["trained"]))
+    control_err = max(abs(a - b) for a, b in zip(card5, cpu["control"]))
+    median = float(np.median(step_ms))
+    r = {"steps": LENET_STEPS, "batch": LENET_B, "lr": LENET_LR, "ops": ops_count,
+         "grad_ops": grad_ops, "graphs": graphs, "captures": captures, "replays": replays,
+         "launches": counts, "losses_first": card5, "cpu_losses": cpu["trained"],
+         "control_losses": cpu["control"], "loss_err": err, "control_loss_err": control_err,
+         "loss_atol": LENET_LOSS_ATOL, "loss_last_20_mean": float(losses[-20:].mean()),
+         "train_acc_last_20_mean": float(accs[-20:].mean()), "test_loss": test_loss,
+         "test_acc": test_acc, "test_acc_bar": LENET_ACC_BAR,
+         "first_step_and_capture_ms": first_ms, "captured_step_ms_median": median,
+         "captured_step_ms_min": min(step_ms), "captured_host_clock_ms": wall_ms,
+         "images_per_s": LENET_B / median * 1e3, "busy_ms": sum(by_kind.values()),
+         "device_ms_by_kind": by_kind, "device_events": events,
+         "params_moved_at_lr_0_then_lr": moved, "eager_step_ms_median": eager_ms,
+         "eager_host_ms": eager_host_ms,
+         "eager_launches_a_step": eager_launches, "forward_ms_captured": fwd_ms,
+         "forward_share_of_step": fwd_ms / median}
+    log(f"LeNet static SGD ({ops_count} ops, {grad_ops} grad ops): {LENET_STEPS} steps at "
+        f"batch {LENET_B}, {graphs} graph ({captures} capture, {replays} replays); launches "
+        f"{counts}; first losses {[round(x, 6) for x in card5]}, CPU {cpu['trained']} (err "
+        f"{err:.3g}, atol {LENET_LOSS_ATOL}; lr-0 control err {control_err:.3g}); last 20 mean "
+        f"loss {r['loss_last_20_mean']:.4f}, train acc {r['train_acc_last_20_mean']:.4f}; "
+        f"held-out acc {test_acc:.4f} (bar {LENET_ACC_BAR}), loss {test_loss:.4f}; first step "
+        f"and capture {first_ms:.1f} ms; captured step {median:.4f} ms median between CUDA "
+        f"events (min {min(step_ms):.4f}; host clock {wall_ms:.4f} a replay), "
+        f"{r['images_per_s']:.0f} images/s, busy "
+        f"{r['busy_ms']:.4f} ms in {events} device events; eager {eager_ms:.3f} ms (host "
+        f"{eager_host_ms:.3f}); replays at lr 0 and {LENET_LR} moved {moved} of "
+        f"{len(params)} parameters; the forward alone captured {fwd_ms:.4f} ms "
+        f"({r['forward_share_of_step']:.1%} of the step)")
+    if graphs != 1 or captures != 1 or replays != LENET_STEPS - 1:
+        raise AssertionError(f"LeNet: {graphs} graphs, {captures} captures, {replays} replays "
+                             f"in {LENET_STEPS} steps; want 1, 1, {LENET_STEPS - 1}")
+    if counts != {"max_pool2d_backward": 2 * LENET_STEPS}:
+        raise AssertionError(f"LeNet: {LENET_STEPS} steps launched {counts}; want "
+                             f"max_pool2d_backward x {2 * LENET_STEPS}")
+    if moved != [0, len(params)] or lr_captures:
+        raise AssertionError(f"LeNet: replays at lr 0 and {LENET_LR} moved {moved} of "
+                             f"{len(params)} parameters and captured {lr_captures} graphs")
+    if eager_launches != {"max_pool2d_backward": 2}:
+        raise AssertionError(f"LeNet eager: launches a step {eager_launches}")
+    if not err <= LENET_LOSS_ATOL < control_err:
+        raise AssertionError(f"LeNet: the card's first losses {err} from the CPU's (atol "
+                             f"{LENET_LOSS_ATOL}; the lr-0 control {control_err} must fail)")
+    if not (np.isfinite(losses).all() and r["loss_last_20_mean"] < losses[0]
+            and test_acc > LENET_ACC_BAR):
+        raise AssertionError(f"LeNet: did not train: {r}")
+    return counts, r
 
 
 # -- the int8 serving path and the pool backward --------------------------------
@@ -4769,7 +5164,8 @@ def check_new_kernels():
         check_int8_matmul(Q_BUCKETS[0], Q_FFN, Q_CLASSES, "split-K, N = 2", timed=False)]
     mm["also_checked"] += [check_int8_forward(b) for b in Q_BUCKETS]
     pool = check_pool_backward(POOL_KINDS[0])
-    pool["also_checked"] = [check_pool_backward(kind) for kind in POOL_KINDS[1:]]
+    pool["also_checked"] = ([check_pool_backward(kind) for kind in POOL_KINDS[1:]]
+                            + [check_pool_backward_lenet(shape) for shape in LENET_POOLS])
     torch.cuda.empty_cache()
     return [mm, pool]
 
@@ -5140,6 +5536,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     compiled_counts, compiled = compiled_steps()
     s2s_counts, s2s = train_seq2seq_and_ernie()
+    torch.cuda.empty_cache()
+    lenet_counts, lenet = train_lenet_static()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -5148,13 +5546,17 @@ def main() -> int:
                                   + rn_amp_trained[name] + s2s_counts["training"].get(name, 0))
         # replayed in CUDA graphs
         k["launches_compiled"] = compiled_counts[name] + s2s_counts["compiled"].get(name, 0)
-        k["launches"] = k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
+        # the LeNet program's steps, replayed from the static executor's graph
+        k["launches_static"] = lenet_counts.get(name, 0)
+        k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
+                         + k["launches_static"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
     print(card)
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
-                      "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s}))
+                      "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s,
+                      "lenet_static": lenet}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

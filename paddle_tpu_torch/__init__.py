@@ -12,7 +12,10 @@ static programs, float or post-training-quantized to int8 (``static``,
 ``slim``, ``inference.create_predictor``; the int8 matmul kernel). ``amp``
 is the JAX package's mixed precision: ``auto_cast`` (O1 and O2, bf16),
 ``GradScaler`` and ``decorate``; under it BERT trains through the bf16
-attention and LayerNorm kernels. Entry points run on the CUDA card unless
+attention and LayerNorm kernels. Static programs train too
+(``static.append_backward``, ``static.optimizer``: the MNIST LeNet through
+the max-pool backward kernel), and dygraph steps take SGD, the lr
+schedules and the gradient clips. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """
 from . import amp  # noqa: F401

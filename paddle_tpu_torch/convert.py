@@ -20,13 +20,17 @@ dict holds the parameters and the batch norms' running ``_mean`` and
 buffers), all checked the same way. A saved static program (an int8 one
 from post-training quantization, or any other) is carried over by
 :func:`int8_model_from_numpy`: the JSON program as it is, the parameters
-into a scope with the dtypes they were saved in.
+into a scope with the dtypes they were saved in. A JAX scope's
+persistables (name -> numpy, a training program's parameters, velocities,
+moments and lr) go into a port scope by :func:`scope_from_numpy`, so both
+executors start a program from the same values.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .framework.serialization import load
 from .models.bert import (BertConfig, BertForPretraining, BertModel, ErnieForPretraining,
                           ernie_base_config)
@@ -38,7 +42,7 @@ __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_nu
            "load_bert_pretraining", "load_ernie_pretraining", "seq2seq_state_from_numpy",
            "load_seq2seq", "adamw_state_from_numpy", "resnet_state_from_numpy",
            "load_resnet", "momentum_state_from_numpy", "int8_model_from_numpy",
-           "load_int8_model"]
+           "load_int8_model", "scope_from_numpy"]
 
 _TIED = ("cls.decoder_weight", "bert.embeddings.word_embeddings.weight")
 
@@ -241,3 +245,17 @@ def load_int8_model(dirname, scope=None):
     from .static.io import load_inference_model
 
     return load_inference_model(dirname, None, scope=scope)
+
+
+def scope_from_numpy(np_vars, scope=None, device=None):
+    """``scope`` (a new one when None) holding each ``name -> array`` of
+    ``np_vars`` (a ``paddle_tpu`` scope's values as numpy) as a tensor of
+    its dtype on ``device`` (the card unless the caller names another), a
+    copy of its own. Returns the scope."""
+    from .static.executor import Scope
+
+    device = resolve_device(device)
+    scope = Scope() if scope is None else scope
+    for name, arr in np_vars.items():
+        scope.set(name, torch.from_numpy(np.array(arr)).to(device))
+    return scope

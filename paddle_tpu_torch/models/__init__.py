@@ -14,6 +14,7 @@ from .bert import (  # noqa: F401
     ernie_base_config,
     knowledge_masking,
 )
+from .lenet import LeNet  # noqa: F401
 from .resnet import (  # noqa: F401
     BasicBlock,
     BottleneckBlock,

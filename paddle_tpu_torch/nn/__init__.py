@@ -6,6 +6,7 @@ from .layers import (  # noqa: F401
     Conv2D,
     Dropout,
     Embedding,
+    Flatten,
     LayerList,
     LayerNorm,
     Linear,

@@ -19,7 +19,7 @@ from . import functional as F
 from .initializer import Initializer
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "LayerList", "Conv2D", "BatchNorm2D",
-           "MaxPool2D", "AdaptiveAvgPool2D", "Sequential", "fused_conv_bn_relu"]
+           "MaxPool2D", "AdaptiveAvgPool2D", "Flatten", "Sequential", "fused_conv_bn_relu"]
 
 
 def _param(shape, device=None, dtype=torch.float32):
@@ -205,6 +205,19 @@ class AdaptiveAvgPool2D(nn.Module):
 
     def forward(self, x):
         return F.adaptive_avg_pool2d(x, self.output_size, data_format=self.data_format)
+
+
+class Flatten(nn.Module):
+    """Axes ``start_axis`` to ``stop_axis`` merged into one (by default all
+    but the batch axis)."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return F.flatten(x, self.start_axis, self.stop_axis)
 
 
 def fused_conv_bn_relu(conv, bn, x):

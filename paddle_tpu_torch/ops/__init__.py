@@ -9,10 +9,15 @@ Only the ops the ported static programs use are here.
 """
 from __future__ import annotations
 
+import torch
+
 from . import beam_search, kernels, quantize_kernels  # noqa: F401  (register their ops)
 from .registry import kernel
 
-__all__ = ["add", "matmul", "mul", "reshape", "relu", "gelu", "layer_norm", "conv2d"]
+__all__ = ["add", "subtract", "multiply", "divide", "maximum", "minimum", "square", "sqrt",
+           "sum", "mean", "matmul", "mul", "reshape", "relu", "gelu", "softmax", "layer_norm",
+           "conv2d", "max_pool2d", "avg_pool2d", "softmax_with_cross_entropy", "topk",
+           "accuracy", "full"]
 
 
 def _run(name, *tensors, **attrs):
@@ -27,6 +32,83 @@ def _run(name, *tensors, **attrs):
 
 def add(x, y):
     return _run("elementwise_add", x, y)
+
+
+def subtract(x, y):
+    return _run("elementwise_sub", x, y)
+
+
+def multiply(x, y):
+    return _run("elementwise_mul", x, y)
+
+
+def divide(x, y):
+    return _run("elementwise_div", x, y)
+
+
+def maximum(x, y):
+    return _run("elementwise_max", x, y)
+
+
+def minimum(x, y):
+    return _run("elementwise_min", x, y)
+
+
+def square(x):
+    return _run("square", x)
+
+
+def sqrt(x):
+    return _run("sqrt", x)
+
+
+def sum(x, axis=None, keepdim=False):
+    return _run("reduce_sum", x, dim=axis, keep_dim=keepdim)
+
+
+def mean(x, axis=None, keepdim=False):
+    return _run("reduce_mean", x, dim=axis, keep_dim=keepdim)
+
+
+def softmax(x, axis=-1):
+    return _run("softmax", x, axis=axis)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCHW"):
+    return _run("pool2d", x, kernel_size=kernel_size, stride=stride, padding=padding,
+                pooling_type="max", ceil_mode=ceil_mode, data_format=data_format)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, exclusive=True,
+               data_format="NCHW"):
+    return _run("pool2d", x, kernel_size=kernel_size, stride=stride, padding=padding,
+                pooling_type="avg", ceil_mode=ceil_mode, exclusive=exclusive,
+                data_format=data_format)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1, ignore_index=-100):
+    return _run("softmax_with_cross_entropy", logits, label, soft_label=soft_label, axis=axis,
+                ignore_index=ignore_index)
+
+
+def topk(x, k, axis=-1, largest=True, sorted=True):
+    return _run("top_k", x, k=k, axis=axis, largest=largest, sorted=sorted)
+
+
+def accuracy(input, label, k=1):
+    """The share of rows whose label is among ``input``'s top ``k``."""
+    _, idx = topk(input, k)
+    return _run("accuracy", idx, label)
+
+
+def full(shape, fill_value, dtype=None):
+    """A host tensor (a constant once a static op takes it): float32 for a
+    float, int64 for an int, bool for a bool, unless ``dtype`` (a torch
+    dtype) says."""
+    if dtype is None:
+        dtype = (torch.bool if isinstance(fill_value, bool) else
+                 torch.int64 if isinstance(fill_value, int) else torch.float32)
+    return torch.full(tuple(shape), fill_value, dtype=dtype)
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):

@@ -1,4 +1,4 @@
-"""Optimizers (``paddle_tpu/optimizer/__init__.py``): the base class, Momentum, Adam and AdamW.
+"""Optimizers (``paddle_tpu/optimizer/__init__.py``): the base class, SGD, Momentum, Adam and AdamW, the gradient clips and the decays.
 
 Each update follows the JAX package's expression order, not
 ``torch.optim``'s, so the two packages agree to rounding on the same
@@ -15,9 +15,19 @@ optimizer state carries across
 (:func:`paddle_tpu_torch.convert.adamw_state_from_numpy`,
 :func:`~paddle_tpu_torch.convert.momentum_state_from_numpy`).
 Parameters whose ``grad`` is None, or that do not require grad, are
-skipped, as the JAX package skips parameters without a gradient. The
-other optimizers, gradient clipping and the concrete LR schedules are not
-ported yet.
+skipped, as the JAX package skips parameters without a gradient.
+
+``step`` works in the JAX order (``:153-181``): the weight decay
+(``L2Decay``, ``L1Decay``) is added to each gradient first, then
+``grad_clip`` (:class:`ClipGradByValue`, :class:`ClipGradByNorm`,
+:class:`ClipGradByGlobalNorm`) sees the decayed gradients, then the lr is
+read and the update applied. The clips are tensor ops with no host
+decision (``torch.where``, never ``.item()``), so inside a captured step
+the norms and factors stay on the card; the global norm sums squares in
+float32. Momentum folds its L2 decay into the kernel only without a clip,
+since the clip must see the decayed gradient (``:245-255``). Adagrad,
+Adadelta, RMSProp, Adamax, Lamb, the wrappers and per-parameter
+regularizers are not ported yet.
 
 Accumulators are updated in place (``copy_``), so they keep their storage
 from step to step, as a step captured in a CUDA graph needs. Called on its
@@ -47,7 +57,67 @@ from ..ops.cuda import optimizer_update as _update
 from . import lr as lr  # noqa: F401
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW", "L2Decay", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "L1Decay", "L2Decay", "lr"]
+
+
+# -- gradient clipping (paddle_tpu/optimizer/__init__.py:33-72) --------------
+
+
+def _clip_factor(norm, clip_norm):
+    """``clip_norm / max(norm, 1e-12)`` where ``norm > clip_norm``, else 1,
+    in ``norm``'s dtype, on its device, with no host decision. The quotient
+    is a true division of two tensors (a Python float over a tensor would
+    multiply by a reciprocal)."""
+    scaled = torch.full_like(norm, clip_norm) / torch.clamp_min(norm, 1e-12)
+    return torch.where(norm > clip_norm, scaled, torch.ones_like(norm))
+
+
+class ClipGradBase:
+    def __call__(self, params_grads):
+        raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
+    """Each gradient entry clamped to ``[min, max]`` (``min`` defaults to
+    ``-max``)."""
+
+    def __init__(self, max, min=None):
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def __call__(self, params_grads):
+        return [(p, torch.clamp(g, self.min, self.max)) for p, g in params_grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    """Each gradient scaled to an L2 norm of at most ``clip_norm``, its norm
+    taken in its own dtype."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        return [(p, g * _clip_factor(torch.sqrt(torch.sum(g * g)), self.clip_norm))
+                for p, g in params_grads]
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
+    """All gradients scaled by one factor so that their joint L2 norm, the
+    squares summed in float32, is at most ``clip_norm``."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        if not params_grads:
+            return params_grads
+        global_sq = sum(torch.sum(g.float() ** 2) for _, g in params_grads)
+        factor = _clip_factor(torch.sqrt(global_sq), self.clip_norm)
+        return [(p, g * factor.to(g.dtype)) for p, g in params_grads]
+
+
+# -- regularizers (paddle_tpu/optimizer/__init__.py:77-91) -------------------
 
 
 class L2Decay:
@@ -56,6 +126,14 @@ class L2Decay:
 
     def __call__(self, param, grad):
         return grad + self.coeff * param
+
+
+class L1Decay:
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+    def __call__(self, param, grad):
+        return grad + self.coeff * torch.sign(param)
 
 
 def _resolve_weight_decay(weight_decay):
@@ -75,14 +153,13 @@ class Optimizer:
                  grad_clip=None, name=None):
         if parameters is None:
             raise ValueError("parameters must be provided (dygraph mode)")
-        if grad_clip is not None:
-            raise NotImplementedError("gradient clipping is not ported yet")
         items = list(parameters)
         self._param_names = [it[0] if isinstance(it, tuple) else f"param_{i}"
                              for i, it in enumerate(items)]
         self._parameter_list = [it[1] if isinstance(it, tuple) else it for it in items]
         self._learning_rate = learning_rate
         self._weight_decay = _resolve_weight_decay(weight_decay)
+        self._grad_clip = grad_clip
         # accumulators: name -> list of tensors aligned with the parameters
         self._accumulators: dict[str, list] = {}
         self._global_step = 0
@@ -153,6 +230,9 @@ class Optimizer:
             if self._weight_decay is not None and not isinstance(self, AdamW) and fused_wd is None:
                 g = self._weight_decay(p, g)
             params_grads.append((i, p, g))
+        if self._grad_clip is not None:
+            clipped = self._grad_clip([((i, p), g) for i, p, g in params_grads])
+            params_grads = [(i, p, g) for (i, p), g in clipped]
         if self._step_t is not None:
             self._step_t.add_(1)  # the device count keeps with the host's
         lr_value = self._lr_t if self._on_device else self.get_lr()
@@ -212,6 +292,13 @@ class Optimizer:
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
 
 
+class SGD(Optimizer):
+    """operators/optimizers/sgd_op.cc: ``param - lr * grad``."""
+
+    def _apply_one(self, index, param, grad, lr):
+        return param - lr * grad
+
+
 class Momentum(Optimizer):
     """operators/optimizers/momentum_op.cc (+ ``use_nesterov``): velocity
     ``v = mu * v + g``, then ``param - lr * v`` (Nesterov: ``param - lr *
@@ -225,9 +312,10 @@ class Momentum(Optimizer):
         self._use_nesterov = use_nesterov
 
     def _fused_decay_coeff(self):
-        # only a plain, non-zero L2Decay folds into the kernel
-        if (not flag("use_fused_optimizer") or type(self._weight_decay) is not L2Decay
-                or not self._weight_decay.coeff):
+        # only a plain, non-zero L2Decay folds into the kernel, and only
+        # without a clip: the clip must see the decayed gradient
+        if (not flag("use_fused_optimizer") or self._grad_clip is not None
+                or type(self._weight_decay) is not L2Decay or not self._weight_decay.coeff):
             return None
         return self._weight_decay.coeff
 

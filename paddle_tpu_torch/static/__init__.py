@@ -1,9 +1,12 @@
 """Static graph mode of the port (``paddle_tpu/static/``): the Program IR,
-the layer helpers that build a program, an eager interpreter that runs it,
-and the inference-model files. Enough to build, calibrate, quantize, save
-and serve a feed-forward program; control flow, ``append_backward`` and the
-static optimizers are not ported."""
-from . import io, nn  # noqa: F401
+the layer helpers that build a program, autodiff that appends a program's
+gradient ops (``append_backward``, ``gradients``), the static optimizers
+(SGD, Momentum, Adam), an interpreter that runs it, captured once a
+signature on the card, and the inference-model files. Enough to build,
+train, calibrate, quantize, save and serve a feed-forward program; control
+flow (``while``, ``cond``, ``scan``) is not ported."""
+from . import io, nn, optimizer  # noqa: F401
+from .backward import append_backward, gradients  # noqa: F401
 from .executor import Executor, Scope, global_scope  # noqa: F401
 from .io import load_inference_model, save_inference_model  # noqa: F401
 from .program import (  # noqa: F401

@@ -23,6 +23,16 @@ replacing a value (:meth:`Scope.set` of a name already there, or
 :meth:`Scope.clear`) starts a new generation and the next run captures
 again. Control-flow ops (``while``, ``cond``, ``scan``) raise
 ``UnimplementedError``.
+
+Training programs (``append_backward``, the static optimizers): a
+``grad::<type>`` op re-runs the registered forward kernel on its inputs
+under autograd and takes ``torch.autograd.grad`` with the out-gradients
+(:func:`run_grad_op`), as the JAX executor takes ``jax.vjp``
+(``:568-614``). A value an op writes to a persistable variable (a
+parameter, a velocity or moment, ``adam_step``) is what later ops of the
+run read, and at the end of the run it is copied into the scope's own
+tensor (``copy_``), never put in its place: a graph then updates the
+scope at each replay, and the scope's generation does not move.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ from ..ops.registry import kernel
 from ..runtime.compiled import GraphStore, clone_outputs, compiled_step, precision_key
 from .program import default_main_program, default_startup_program
 
-__all__ = ["Scope", "global_scope", "Executor"]
+__all__ = ["Scope", "global_scope", "Executor", "run_grad_op"]
 
 _BLOCK_OPS = ("while", "cond", "scan")
 
@@ -180,18 +190,71 @@ class Executor:
             raise InvalidArgumentError(
                 f"variable {name!r} is neither fed, computed by an earlier op, nor in the scope")
 
+        written = {}  # persistable name -> its value after the run
         for op in block.ops:
-            if op.type in _BLOCK_OPS:
+            if op.type.removeprefix("grad::") in _BLOCK_OPS:
                 raise UnimplementedError(
                     f"control-flow op {op.type!r} is not ported: the executor interprets "
                     "the global block only")
             attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
-            out = kernel(op.type)(*[value_of(n) for n in op.inputs.get("X", [])], **attrs)
-            results = list(out) if isinstance(out, (tuple, list)) else [out]
-            for n, v in zip(op.outputs.get("Out", []), results):
-                if n:
-                    env[n] = v
-        return [value_of(n) for n in fetch_names]
+            in_names = op.inputs.get("X", [])
+            out_names = op.outputs.get("Out", [])
+            if op.type.startswith("grad::"):
+                n_in = op.attrs["__n_fwd_in__"]
+                results = run_grad_op(
+                    op.type[len("grad::"):], attrs, [value_of(n) for n in in_names[:n_in]],
+                    [env.get(n) if n else None for n in in_names[n_in:]],
+                    [bool(n) for n in out_names])
+            else:
+                out = kernel(op.type)(*[value_of(n) for n in in_names], **attrs)
+                results = list(out) if isinstance(out, (tuple, list)) else [out]
+            for n, v in zip(out_names, results):
+                if not n or v is None:
+                    continue
+                env[n] = v
+                if block.has_var(n) and block.var(n).persistable:
+                    written[n] = v
+        fetched = [value_of(n) for n in fetch_names]
+        for n, v in written.items():
+            if scope.has(n):
+                scope.on(n, self.device).copy_(v)
+            else:
+                scope.set(n, v)
+        return fetched
+
+
+def run_grad_op(fwd_type, attrs, fwd_in, out_grads, wanted):
+    """The gradients a ``grad::<fwd_type>`` op computes: the registered
+    forward kernel run again under autograd on ``fwd_in`` (the inputs
+    ``wanted`` marks, if floating, require grad), then ``torch.autograd.grad``
+    of its floating outputs with ``out_grads`` (None: zeros; an integer
+    output takes none). One entry per forward input: its gradient, zeros
+    where the output does not depend on it, None where it is not wanted or
+    not floating (labels, indices)."""
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_() if want and x.dtype.is_floating_point else x
+                  for x, want in zip(fwd_in, wanted)]
+        out = kernel(fwd_type)(*inputs, **attrs)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        ys, cots = [], []
+        for i, o in enumerate(outs):
+            if not (o.dtype.is_floating_point and o.requires_grad):
+                continue
+            g = out_grads[i] if i < len(out_grads) else None
+            ys.append(o)
+            cots.append(torch.zeros_like(o) if g is None else g.to(o.dtype))
+        diff = [x for x in inputs if x.requires_grad]
+        grads = (torch.autograd.grad(ys, diff, cots, allow_unused=True) if ys and diff
+                 else [None] * len(diff))
+    it = iter(grads)
+    results = []
+    for x in inputs:
+        if not x.requires_grad:
+            results.append(None)
+            continue
+        g = next(it)
+        results.append(torch.zeros_like(x) if g is None else g)
+    return results
 
 
 def _to_host(fetched):
