@@ -165,6 +165,28 @@ Phases, each fatal on failure:
     parameter and one at the lr moving all, with no new capture; step ms
     captured against eager, images/s, and the forward alone (what each
     grad op's re-run of its forward costs);
+12g. BERT-base pretraining under ``Lamb`` (lr 1e-4, decay 0.01, LayerNorm
+    weights and biases excluded) at bench's phase 2 under ``auto_cast``
+    (O1): its first step at batch 1 at dropout 0, and the loss after it,
+    against the CPU's plain path (the f32 step the control the loss limit
+    must catch); then the
+    captured step, an ``ExponentialMovingAverage(decay=0.999)`` updated
+    after each step, a checkpoint saved after step 3 (capture ms on the
+    step's thread, write seconds and bytes), 10 timed steps launching rows
+    1b, 2b, 3b, 6b and 7b exactly, ``ema.apply()`` keeping every
+    parameter's storage; the checked step (``FLAGS_check_nan_inf``, its own
+    graph) timed, then a NaN planted in an embedding row the batch reads:
+    ``FatalError`` naming the op, every parameter and moment bit-equal
+    after; the checkpoint restored into a fresh model and step: every leaf
+    bit-equal, no new capture, and the next loss, with the dropout
+    generator reseeded alike, bit-equal to the uninterrupted run's;
+12h. the dygraph LeNet at batch 64 on synthetic MNIST with the pool kernel
+    on: 20 captured steps under each of Adagrad, Adadelta, RMSProp
+    (centered, momentum 0.9), Adamax and Lookahead(Momentum) (whose update
+    launches the momentum kernel), one graph each, each held against the
+    same steps on the CPU (a half-lr control must fail), ``ModelAverage``
+    applied after the Lookahead run for the held-out accuracy; the step's
+    device time under each;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -4854,6 +4876,424 @@ def train_lenet_static():
     return counts, r
 
 
+# -- the rest of training: Lamb, EMA, the NaN check, checkpoints; the other optimizers --------
+
+LAMB_LR, LAMB_WD, LAMB_SEED, LAMB_EMA_DECAY = 1e-4, 0.01, 31, 0.999
+LAMB_SAVE_AT = 3  # the step the checkpoint is taken after
+LAMB_TIMED = COMPILED_STEPS  # captured steps timed, an EMA update after each
+LAMB_CHECKED_TIMED = 5  # checked replays timed
+LAMB_PARITY_B = 1  # one step on the card against the CPU's plain path, dropout 0
+# Lamb's first step at batch 1 x 512 under O1 on the card against the
+# CPU's plain path, read on an NVIDIA H100 80GB HBM3 at 700.00 W: the loss
+# after the update (a second step's, then a forward alone) 1.2e-3 apart,
+# the f32 step (the control) 3.54e-2; the limit sits near their geometric
+# mean, and the control must fail it. The rel L2 of the parameters' change
+# read 0.143 (the control 0.142): Lamb's first direction m/(sqrt(v)+eps) is
+# about sign(g), so entries whose gradient is near eps swing it either way;
+# it is a gross limit only.
+LAMB_LOSS_ATOL, LAMB_UPDATE_REL_L2 = 6.5e-3, 0.25
+LENET_OPT_STEPS = 20  # captured steps under each optimizer
+# the 20 captured losses under each optimizer against the CPU's 20 from the
+# same weights and batches, read on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# 2.4e-7 to 1.3e-6 apart; the controls at half the lr 0.113 (Adagrad) to
+# 0.956; the limit sits near the geometric mean of the worst reading and
+# the weakest control
+LENET_OPT_LOSS_ATOL = 3e-4
+LENET_OPT_HELD_OUT = 512  # held-out images for the accuracy under ModelAverage
+
+
+def _lamb_exclude(p):
+    """LAMB's BERT recipe: no decay on LayerNorm weights and on biases."""
+    return "norm" in p.name or "bias" in p.name
+
+
+def _lamb_step_of(model, loss_fn, device=None, jit=True):
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.optimizer import Lamb
+
+    opt = Lamb(learning_rate=LAMB_LR, lamb_weight_decay=LAMB_WD,
+               parameters=model.named_parameters(),
+               exclude_from_weight_decay_fn=_lamb_exclude)
+    return train_step(model, opt, loss_fn, device=device, jit=jit)
+
+
+def _bits_equal(a, b):
+    """Bit for bit (a NaN equals the same NaN)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _lamb_parity():
+    """Lamb's first step (batch 1 x 512, dropout 0, O1) through
+    ``train_step(jit=True)`` on the card and the same step on the CPU's
+    plain path (the attention kernels' plain versions) from the same
+    weights, then the loss after it (a forward); the f32 step on the card
+    the control. Returns the readings."""
+    import torch
+
+    from paddle_tpu_torch.models import bert_base_config
+
+    cfg = bert_base_config()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    model, loss_fn = _pretraining(cfg, seed=0)
+    batch = pretraining_batch(cfg, LAMB_PARITY_B, TRAIN_SEQ, TRAIN_PRED,
+                              np.random.RandomState(12))
+    amp_loss = _amp_loss_fn(loss_fn, "O1")
+    start = [p.detach().clone() for p in model.parameters()]
+    runs = {}
+    for name, fn, dev in (("cpu", amp_loss, "cpu"), ("card", amp_loss, None),
+                          ("control_f32", loss_fn, None)):
+        m = copy.deepcopy(model)
+        step = _lamb_step_of(m, fn, device=dev)
+        t0 = time.perf_counter()
+        route = _cpu_kernel_route() if dev == "cpu" else contextlib.nullcontext()
+        with route:
+            losses = [float(step(*batch)["loss"])]
+            with torch.no_grad():
+                m.train()
+                losses.append(float(fn(m, *[torch.from_numpy(a).to(step.device)
+                                            for a in batch])))
+        runs[name] = {"losses": losses, "s": time.perf_counter() - t0,
+                      "delta": [p.detach().cpu().double() - s.double()
+                                for p, s in zip(m.parameters(), start)]}
+        del m, step
+    ref = runs["cpu"]
+
+    def rel_l2(delta):
+        num = sum(float((d - r).square().sum()) for d, r in zip(delta, ref["delta"]))
+        return (num / sum(float(r.square().sum()) for r in ref["delta"])) ** 0.5
+
+    out = {}
+    for name in ("card", "control_f32"):
+        r = runs[name]
+        out[name] = {"losses": r["losses"], "loss_err": abs(r["losses"][-1] - ref["losses"][-1]),
+                     "update_rel_l2": rel_l2(r["delta"]), "s": r["s"]}
+    out["cpu"] = {"losses": ref["losses"], "s": ref["s"]}
+    out["limits"] = {"loss_atol": LAMB_LOSS_ATOL, "update_rel_l2": LAMB_UPDATE_REL_L2}
+    c, k = out["card"], out["control_f32"]
+    log(f"Lamb parity (BERT-base, batch {LAMB_PARITY_B} x {TRAIN_SEQ}, O1, dropout 0, a "
+        f"step and the loss after it): card losses {c['losses']}, CPU plain path "
+        f"{ref['losses']} ({ref['s']:.1f} s); loss err after the step {c['loss_err']:.3g} (atol "
+        f"{LAMB_LOSS_ATOL}), update rel L2 {c['update_rel_l2']:.3g} (limit "
+        f"{LAMB_UPDATE_REL_L2}); f32 control: loss err {k['loss_err']:.3g}, update rel L2 "
+        f"{k['update_rel_l2']:.3g}")
+    if not (np.isfinite(c["losses"]).all() and c["loss_err"] <= LAMB_LOSS_ATOL
+            and c["update_rel_l2"] <= LAMB_UPDATE_REL_L2):
+        raise AssertionError(f"Lamb parity beyond its limits: {out}")
+    if not k["loss_err"] > LAMB_LOSS_ATOL:
+        raise AssertionError(f"Lamb parity: the f32 control passes the loss limit: {out}")
+    return out
+
+
+def train_bert_lamb(adamw_ms=None):
+    """Phase 12g. BERT-base pretraining under ``Lamb`` at bench's phase 2
+    (O1, dropout 0.1) captured, an EMA updated after each step; the checked
+    step (``FLAGS_check_nan_inf``) and a planted NaN; a checkpoint taken
+    after step 3 and restored into a fresh model and step. Returns (the
+    launches of the timed steps, readings)."""
+    import os
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.errors import FatalError
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.models import bert_base_config
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import ExponentialMovingAverage
+
+    r = {"parity": _lamb_parity()}
+    torch.cuda.empty_cache()
+    cfg = bert_base_config()  # hidden and attention dropout 0.1
+    cfg.use_flash_attention = True
+    _, loss_fn = _pretraining(cfg, seed=1)
+    loss_fn = _amp_loss_fn(loss_fn, "O1")
+    batch = [torch.from_numpy(a).cuda() for a in
+             pretraining_batch(cfg, TRAIN_B, TRAIN_SEQ, TRAIN_PRED, np.random.RandomState(9))]
+    tokens = TRAIN_B * TRAIN_SEQ
+    tmp = tempfile.mkdtemp(prefix="ptt_lamb_ckpt_")
+    try:
+        model, _ = _pretraining(cfg, seed=LAMB_SEED)
+        step = _lamb_step_of(model, loss_fn)
+        ema = ExponentialMovingAverage(model.parameters(), decay=LAMB_EMA_DECAY)
+        losses = []
+        for _ in range(LAMB_SAVE_AT):
+            losses.append(float(step(*batch)["loss"]))
+            ema.update()
+        torch.cuda.synchronize()
+        path = os.path.join(tmp, f"step_{LAMB_SAVE_AT}")
+        saved = {n: t.detach().clone() for n, t in step.state_leaves()}  # the state saved
+        t0 = time.perf_counter()
+        step.save_checkpoint(path, step=LAMB_SAVE_AT, async_=True)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.wait_pending()
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        prandom.seed(PARITY_SEED)
+        resumed_ref = float(step(*batch)["loss"])
+
+        # timed: captured steps, each followed by an EMA update
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(LAMB_TIMED)]
+        t0 = time.perf_counter()
+        for e in ev:
+            e[0].record()
+            losses.append(step(*batch)["loss"])
+            e[1].record()
+            ema.update()
+            e[2].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / LAMB_TIMED
+        counts = {k: v for k, v in launch_counts().items() if v}
+        losses = [float(x) for x in losses]
+        step_ms = [e[0].elapsed_time(e[1]) for e in ev]
+        ema_ms = [e[1].elapsed_time(e[2]) for e in ev]
+        want = _amp_launches("O1", cfg.num_hidden_layers, LAMB_TIMED)
+        if counts != want:
+            raise AssertionError(f"Lamb: {LAMB_TIMED} captured steps launched {counts}; "
+                                 f"want {want}")
+        graphs = len(step.store)
+        ptrs = [p.data_ptr() for p in model.parameters()]
+        with ema.apply():
+            moved = sum(not torch.equal(p, e / (1 - ema._decay_prod))
+                        for p, e in zip(model.parameters(), ema._ema))
+            kept = [p.data_ptr() for p in model.parameters()] == ptrs
+        kept = kept and [p.data_ptr() for p in model.parameters()] == ptrs
+        median = float(np.median(step_ms))
+        r["captured"] = {"losses": losses, "step_ms": step_ms, "step_ms_median": median,
+                         "host_clock_ms": wall_ms, "tokens_per_s": tokens / median * 1e3,
+                         "adamw_step_ms_median": adamw_ms, "ema_update_ms": ema_ms,
+                         "ema_update_ms_median": float(np.median(ema_ms)),
+                         "launches_a_step": {k: v // LAMB_TIMED for k, v in counts.items()},
+                         "graphs": graphs}
+        log(f"BERT Lamb captured: {LAMB_TIMED} steps, median {median:.3f} ms (host clock "
+            f"{wall_ms:.3f} with the EMA), {tokens / median * 1e3:.1f} tokens/s; AdamW's "
+            f"captured step {adamw_ms} ms; EMA update median {float(np.median(ema_ms)):.3f} "
+            f"ms; launches a step {r['captured']['launches_a_step']}; losses {losses}")
+        # (at lr 1e-4 a Lamb step moves each tensor by 1e-4 of its norm: over
+        # 13 steps that is below dropout's noise, so only finiteness is held)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"Lamb: losses not finite: {losses}")
+        if graphs != 1 or not kept or moved:
+            raise AssertionError(f"Lamb: {graphs} graphs; ema.apply kept the storage {kept}, "
+                                 f"{moved} parameters not the averages under it")
+
+        # the checked step: its own graph; a NaN planted in a row the batch reads
+        set_flags({"check_nan_inf": True})
+        try:
+            step(*batch)  # the checked variant's first run and capture
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(LAMB_CHECKED_TIMED + 1)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            for i in range(LAMB_CHECKED_TIMED):
+                step(*batch)
+                ev[i + 1].record()
+            torch.cuda.synchronize()
+            checked_wall = (time.perf_counter() - t0) * 1e3 / LAMB_CHECKED_TIMED
+            checked_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(LAMB_CHECKED_TIMED)]
+            ops_checked = len(step._nan_names)
+            backward_ops = sum(n.endswith("_backward") for n in step._nan_names)
+            # every kernel of the step checked under its own name, as often as it launches
+            kernel_checks = {n: step._nan_names.count(n) for n in set(step._nan_names)
+                             if not n.startswith("aten::")}
+            table = model.bert.embeddings.word_embeddings.weight
+            row = int(batch[0][0, 0])
+            saved_row = table[row].detach().clone()
+            with torch.no_grad():
+                table[row, 0] = float("nan")
+            state = [t.detach().clone() for t in step._state_tensors()]
+            host_step = step.optimizer._global_step
+            try:
+                step(*batch)
+                raised = None
+            except FatalError as e:
+                raised = str(e)
+            same = all(_bits_equal(t, s) for t, s in zip(step._state_tensors(), state))
+            same = same and step.optimizer._global_step == host_step == int(
+                step.optimizer._step_t)
+            with torch.no_grad():
+                table[row].copy_(saved_row)
+            step(*batch)  # clean again: passes
+            checked_graphs = len(step.store)
+        finally:
+            set_flags({"check_nan_inf": False})
+        r["checked"] = {"step_ms": checked_ms, "step_ms_median": float(np.median(checked_ms)),
+                        "host_clock_ms": checked_wall, "ops_checked": ops_checked,
+                        "backward_ops_checked": backward_ops, "kernels_checked": kernel_checks,
+                        "graphs": checked_graphs,
+                        "planted_nan": raised, "state_kept": same}
+        log(f"BERT Lamb checked step (FLAGS_check_nan_inf): median "
+            f"{r['checked']['step_ms_median']:.3f} ms (host clock {checked_wall:.3f} with the "
+            f"verdict's read), {ops_checked} ops checked ({backward_ops} aten backward ops, "
+            f"kernels {kernel_checks}); "
+            f"graphs {checked_graphs}; planted NaN: {raised}; state bit-equal after: {same}")
+        if (raised is None or "aten::embedding" not in raised or not same
+                or checked_graphs != 2 or not backward_ops
+                or kernel_checks != r["captured"]["launches_a_step"]):
+            raise AssertionError(f"Lamb checked step: {r['checked']}")
+        del step, model, ema
+        torch.cuda.empty_cache()
+
+        # restore into a freshly built model and step (one step captured first)
+        model2, _ = _pretraining(cfg, seed=LAMB_SEED + 1)
+        step2 = _lamb_step_of(model2, loss_fn)
+        step2(*batch)
+        misses = step2.store.misses
+        t0 = time.perf_counter()
+        manifest = step2.load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        leaves = step2.state_leaves()
+        differ = [n for n, t in leaves if not _bits_equal(t.detach(), saved.get(n, t[None]))]
+        differ += sorted(set(saved) - {n for n, _ in leaves})
+        prandom.seed(PARITY_SEED)
+        resumed = float(step2(*batch)["loss"])
+        r["checkpoint"] = {"capture_ms": capture_ms, "write_s": write_s, "bytes": ckpt_bytes,
+                           "load_s": load_s, "leaves": len(saved), "leaves_differing": differ,
+                           "manifest_step": manifest["step"], "new_captures":
+                           step2.store.misses - misses, "next_loss": resumed,
+                           "next_loss_uninterrupted": resumed_ref}
+        log(f"BERT Lamb checkpoint after step {LAMB_SAVE_AT}: capture {capture_ms:.1f} ms on "
+            f"the step's thread, write {write_s:.2f} s, {ckpt_bytes} bytes, {len(saved)} leaves; "
+            f"restored into a fresh step in {load_s:.2f} s with {len(differ)} leaves differing, "
+            f"{r['checkpoint']['new_captures']} new captures; next loss {resumed!r}, "
+            f"uninterrupted {resumed_ref!r}")
+        if (differ or r["checkpoint"]["new_captures"] or resumed != resumed_ref
+                or manifest["step"] != LAMB_SAVE_AT
+                or step2.optimizer._global_step != LAMB_SAVE_AT + 1):
+            raise AssertionError(f"Lamb checkpoint: {r['checkpoint']}")
+        del step2, model2, saved
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, r
+
+
+def _lenet_optimizers():
+    """name -> a constructor over LeNet's parameters."""
+    from paddle_tpu_torch import optimizer as O
+
+    return {
+        "adagrad": lambda p, s=1.0: O.Adagrad(0.01 * s, parameters=p,
+                                              initial_accumulator_value=0.1),
+        "adadelta": lambda p, s=1.0: O.Adadelta(1.0 * s, parameters=p),
+        "rmsprop": lambda p, s=1.0: O.RMSProp(0.001 * s, parameters=p, centered=True,
+                                              momentum=0.9),
+        "adamax": lambda p, s=1.0: O.Adamax(0.002 * s, parameters=p),
+        "lookahead": lambda p, s=1.0: O.Lookahead(O.Momentum(0.05 * s, 0.9, parameters=p),
+                                                  alpha=0.5, k=5),
+    }
+
+
+def train_lenet_optimizers():
+    """Phase 12h. The dygraph LeNet at batch 64 on synthetic MNIST, pool
+    kernel on, 20 captured steps under each of Adagrad, Adadelta, RMSProp,
+    Adamax and Lookahead(Momentum), one graph each, each held against the
+    same 20 steps on the CPU (a half-lr control must fail); ModelAverage
+    accumulated over the Lookahead run and applied for the held-out
+    accuracy. Returns (the launches of the captured steps, readings)."""
+    import torch
+
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.models import LeNet
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import ModelAverage
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    train_set, test_set = MNIST(mode="train"), MNIST(mode="test")
+    batches = [(train_set.images[i * LENET_B:(i + 1) * LENET_B],
+                train_set.labels[i * LENET_B:(i + 1) * LENET_B].astype(np.int64))
+               for i in range(LENET_OPT_STEPS)]
+    card_batches = [[torch.from_numpy(a).cuda() for a in b] for b in batches]
+    held_x = torch.from_numpy(test_set.images[:LENET_OPT_HELD_OUT]).cuda()
+    held_y = torch.from_numpy(test_set.labels[:LENET_OPT_HELD_OUT].astype(np.int64)).cuda()
+    init = LeNet(generator=torch.Generator().manual_seed(LENET_SEED)).state_dict()
+
+    def loss_fn(m, x, y):
+        return F.cross_entropy(m(x), y)
+
+    def run(name, device, scale=1.0, average=None):
+        model = LeNet()
+        model.load_state_dict(init)
+        opt = _lenet_optimizers()[name](model.parameters(), scale)
+        step = train_step(model, opt, loss_fn, jit=True, device=device)
+        ma = average(model) if average else None
+        data = card_batches if device is None else batches
+        out = []
+        for b in data:
+            out.append(step(*b)["loss"])
+            if ma is not None:
+                ma.accumulate()
+        return [float(x) for x in out], model, step, ma
+
+    r, counts = {}, {}
+    set_flags({"use_pallas_pool_bwd": True})
+    try:
+        for name in _lenet_optimizers():
+            cpu = run(name, "cpu")[0]
+            control = run(name, "cpu", scale=0.5)[0]
+            reset_launch_counts()
+            average = ((lambda m: ModelAverage(0.15, m.parameters(), min_average_window=4,
+                                               max_average_window=8))
+                       if name == "lookahead" else None)
+            losses, model, step, ma = run(name, None, average=average)
+            torch.cuda.synchronize()
+            c = {k: v for k, v in launch_counts().items() if v}
+            want = {"max_pool2d_backward": 2 * LENET_OPT_STEPS}
+            if name == "lookahead":
+                want["momentum_update"] = LENET_OPT_STEPS
+            if c != want:
+                raise AssertionError(f"LeNet {name}: {LENET_OPT_STEPS} steps launched {c}; "
+                                     f"want {want}")
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+            err = float(np.abs(np.subtract(losses, cpu)).max())
+            control_err = float(np.abs(np.subtract(control, cpu)).max())
+            entry = {"losses": losses, "cpu_losses": cpu, "loss_err": err,
+                     "control_loss_err": control_err}
+            if ma is not None:
+                model.eval()
+                with torch.no_grad():
+                    acc = float((model(held_x).argmax(1) == held_y).float().mean())
+                    live = [p.detach().clone() for p in model.parameters()]
+                    with ma.apply():
+                        avg_acc = float((model(held_x).argmax(1) == held_y).float().mean())
+                    back = all(torch.equal(p, q) for p, q in zip(model.parameters(), live))
+                entry.update(held_out_acc=acc, held_out_acc_model_average=avg_acc,
+                             restored=back, windows=ma.old_num_accumulates)
+                if not back or not 0.0 <= avg_acc <= 1.0:
+                    raise AssertionError(f"LeNet ModelAverage: {entry}")
+            # then the step's device time (it trains on: the readings above come first)
+            ms, host_ms = device_ms(lambda: step(*card_batches[0]), 50)
+            entry.update(step_ms_host_hidden=ms, host_ms_a_call=host_ms, graphs=len(step.store))
+            r[name] = entry
+            log(f"LeNet {name}: {LENET_OPT_STEPS} captured steps, {ms:.4f} ms a step (device, "
+                f"host hidden; {host_ms:.4f} host ms a call), graphs {entry['graphs']}; losses "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}, {err:.3g} from the CPU's (atol "
+                f"{LENET_OPT_LOSS_ATOL}; half-lr control {control_err:.3g})"
+                + (f"; held-out accuracy {entry['held_out_acc']:.4f}, under ModelAverage "
+                   f"{entry['held_out_acc_model_average']:.4f}" if ma is not None else ""))
+            if not (err <= LENET_OPT_LOSS_ATOL < control_err and entry["graphs"] == 1
+                    and losses[-1] < losses[0]):
+                raise AssertionError(f"LeNet {name}: {entry}")
+            del model, step
+    finally:
+        set_flags({"use_pallas_pool_bwd": False})
+    return counts, r
+
+
 # -- the int8 serving path and the pool backward --------------------------------
 
 # the served program: the part of BERT-base the int8 rewrite computes in int8
@@ -5538,14 +5978,18 @@ def main() -> int:
     s2s_counts, s2s = train_seq2seq_and_ernie()
     torch.cuda.empty_cache()
     lenet_counts, lenet = train_lenet_static()
+    torch.cuda.empty_cache()
+    lamb_counts, lamb = train_bert_lamb(compiled["bert_amp"]["captured"]["step_ms_median"])
+    lenet_opt_counts, lenet_opt = train_lenet_optimizers()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
                                  + s2s_counts["serving"].get(name, 0))
         k["launches_training"] = (trained[name] + amp_trained[name] + rn_trained[name]
                                   + rn_amp_trained[name] + s2s_counts["training"].get(name, 0))
-        # replayed in CUDA graphs
-        k["launches_compiled"] = compiled_counts[name] + s2s_counts["compiled"].get(name, 0)
+        # replayed in CUDA graphs (BERT under Lamb, LeNet under the other optimizers too)
+        k["launches_compiled"] = (compiled_counts[name] + s2s_counts["compiled"].get(name, 0)
+                                  + lamb_counts.get(name, 0) + lenet_opt_counts.get(name, 0))
         # the LeNet program's steps, replayed from the static executor's graph
         k["launches_static"] = lenet_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
@@ -5556,7 +6000,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
                       "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s,
-                      "lenet_static": lenet}))
+                      "lenet_static": lenet, "bert_lamb": lamb, "lenet_optimizers": lenet_opt}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

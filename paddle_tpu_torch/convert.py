@@ -11,7 +11,8 @@ word embeddings; the JAX state dict lists it once, under
 ``bert.embeddings.word_embeddings.weight``, and so does the port's. An
 AdamW ``state_dict`` indexes its moments (a Momentum one its
 ``velocity_{i}``) by the position of the parameter in
-``model.parameters()``, the same order in both packages. ERNIE's state
+``model.parameters()``, the same order in both packages, and so does any
+other optimizer's (:func:`optimizer_state_from_numpy`). ERNIE's state
 dict is BERT's (its pretraining model ties the same weight). A
 ``TransformerSeq2Seq`` state dict holds its parameters and the
 ``pos_enc`` buffer, which must equal the port's own table. A ResNet state
@@ -42,7 +43,7 @@ __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_nu
            "load_bert_pretraining", "load_ernie_pretraining", "seq2seq_state_from_numpy",
            "load_seq2seq", "adamw_state_from_numpy", "resnet_state_from_numpy",
            "load_resnet", "momentum_state_from_numpy", "int8_model_from_numpy",
-           "load_int8_model", "scope_from_numpy"]
+           "load_int8_model", "scope_from_numpy", "optimizer_state_from_numpy"]
 
 _TIED = ("cls.decoder_weight", "bert.embeddings.word_embeddings.weight")
 
@@ -174,39 +175,44 @@ def load_resnet(path, model_fn=resnet50, device=None, **kwargs):
     return model if device is None else model.to(device)
 
 
-def _accumulator_state(np_state, optimizer, names) -> dict:
-    """``global_step`` and, for each accumulator in ``names`` the state
-    holds, its ``{name}_{i}`` of parameter ``i``, each checked against the
-    shape of the port's parameter ``i``."""
+def optimizer_state_from_numpy(np_state, optimizer) -> dict:
+    """A state dict for the port's ``optimizer`` (any of its optimizers,
+    ``Lookahead`` and its ``slow_{i}`` included) from a ``paddle_tpu`` one
+    of numpy arrays: ``global_step``, the lr scheduler's state if any, and
+    every accumulator ``{name}_{i}`` the state holds, one per parameter,
+    each checked against the shape of the port's parameter ``i`` and given
+    the dtype of the port's accumulator (the parameter's where it has none
+    yet)."""
     params = optimizer._parameter_list
     out = {"global_step": int(np_state["global_step"])}
-    for name in names:
+    if "LR_Scheduler" in np_state:
+        out["LR_Scheduler"] = np_state["LR_Scheduler"]
+    names = {k.rsplit("_", 1)[0] for k in np_state if k not in ("global_step", "LR_Scheduler")}
+    for name in sorted(names):
         keys = [k for k in np_state if k.rsplit("_", 1)[0] == name]
-        if not keys:
-            continue
         if sorted(keys) != sorted(f"{name}_{i}" for i in range(len(params))):
             raise KeyError(f"{name}: state holds {len(keys)} entries for {len(params)} "
                            "parameters")
+        own = optimizer._accumulators.get(name)
         for i, p in enumerate(params):
             arr = np.array(np_state[f"{name}_{i}"])
             if arr.shape != tuple(p.shape):
                 raise ValueError(f"{name}_{i}: shape {arr.shape} does not fit parameter "
                                  f"{optimizer._param_names[i]} {tuple(p.shape)}")
-            out[f"{name}_{i}"] = torch.as_tensor(arr, dtype=p.dtype)
+            out[f"{name}_{i}"] = torch.as_tensor(arr, dtype=own[i].dtype if own else p.dtype)
     return out
 
 
 def adamw_state_from_numpy(np_state, optimizer) -> dict:
-    """A state dict for the port's ``optimizer`` (``Adam``/``AdamW``) from
-    a ``paddle_tpu`` one of numpy arrays: ``global_step`` and the moments
-    ``moment1_{i}``/``moment2_{i}``."""
-    return _accumulator_state(np_state, optimizer, ("moment1", "moment2"))
+    """:func:`optimizer_state_from_numpy` for ``Adam``/``AdamW``:
+    ``global_step`` and the moments ``moment1_{i}``/``moment2_{i}``."""
+    return optimizer_state_from_numpy(np_state, optimizer)
 
 
 def momentum_state_from_numpy(np_state, optimizer) -> dict:
-    """A state dict for the port's ``Momentum`` from a ``paddle_tpu`` one of
-    numpy arrays: ``global_step`` and the velocities ``velocity_{i}``."""
-    return _accumulator_state(np_state, optimizer, ("velocity",))
+    """:func:`optimizer_state_from_numpy` for ``Momentum``: ``global_step``
+    and the velocities ``velocity_{i}``."""
+    return optimizer_state_from_numpy(np_state, optimizer)
 
 
 def int8_model_from_numpy(program_dict, np_params, scope=None):

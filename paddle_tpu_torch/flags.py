@@ -126,3 +126,21 @@ define_flag("serving_replicas", 1,
 define_flag("serving_default_deadline_ms", 0.0,
             "default per-request serving deadline in ms (0: none); "
             "expired requests error without dispatch")
+
+# framework/jit.py TrainStepFn + static/executor.py Executor.run — the train
+# step runs a checked variant whose every op's output is tested for NaN
+# (framework/nan_inf.py), and the executor scans what a run fetched and
+# wrote for NaN/Inf, each naming what made the first bad value.
+define_flag("check_nan_inf", False,
+            "scan step outputs for NaN/Inf and name the producing op")
+
+# framework/nan_inf.py — what a NaN/Inf found under check_nan_inf does.
+define_flag("check_nan_inf_action", "raise",
+            "on NaN/Inf detection: raise | warn (count+log, continue) | "
+            "dump (flight-recorder snapshot, then raise)")
+
+# distributed/checkpoint.py save — the serialize + fsync + publish of a
+# snapshot runs on a background writer thread.
+define_flag("checkpoint_async", True,
+            "serialize + fsync checkpoints in a background thread "
+            "(off the training step critical path)")

@@ -28,6 +28,26 @@ optimizer's own ``step()`` outside a train step, they stay Python
 numbers, the eager optimizer's.
 Gradients live in the graph's memory pool; the step sets them to None only
 at its start, where the capture records it, never between replays.
+
+The optimizer's accumulators are made when the step is built, as the JAX
+step's ``init_opt_state`` makes them (``:205-248``), so the state has its
+full shape from the start.
+
+``FLAGS_check_nan_inf`` (``:445-518``): with the flag on, a call runs the
+``checked`` variant of the step, a graph of its own, in which every op
+(and every hand-written kernel) is tested for NaN (``framework/nan_inf.py``).
+The state (parameters, buffers, accumulators, the device step count) is
+copied aside before the step; after it the host reads the verdict, and a
+NaN under ``check_nan_inf_action=raise`` copies the state back and raises
+``FatalError`` naming the first op that made one: the model and the
+optimizer are then as they were before the step, as the JAX step, which
+does not donate its state there, leaves them.
+
+Checkpoints (``:562-576``): :meth:`TrainStepFn.save_checkpoint` and
+:meth:`TrainStepFn.load_checkpoint` write and read the JAX step's state
+layout (``distributed/checkpoint.py``) under its leaf names
+(:meth:`TrainStepFn.state_leaves`); a load copies into the live tensors, so
+no graph is captured again.
 """
 from __future__ import annotations
 
@@ -38,7 +58,10 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import resolve_device
+from ..errors import FatalError
+from ..flags import flag
 from ..runtime.compiled import GraphStore, clone_outputs, compiled_step, precision_key
+from . import nan_inf
 from . import random as _random
 
 __all__ = ["TrainStepFn", "EvalStepFn", "train_step", "eval_step"]
@@ -134,6 +157,17 @@ class TrainStepFn:
             self._k = torch.tensor(float(self.grad_accum_steps), device=self.device)
         self.store = GraphStore("train_step")
         self._instance = next(_instances)
+        optimizer._init_accumulators()
+        # parameters the loss never reads (no gradient after the first
+        # backward): the JAX step's frozen ones (_freeze_unused_params)
+        self._unused = None
+        # the checked variant's verdict on the device, the names of its ops
+        # (per signature) and the copy of the state it restores from
+        self._nan_found = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._nan_first = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._nan_names = []
+        self._names_of = {}
+        self._saved = None
 
     def __call__(self, *batch):
         return self._step(batch, capture=self.jit and _captures(self.device))
@@ -151,36 +185,104 @@ class TrainStepFn:
                                                              "accumulate")
         if applies and self.jit:
             self.optimizer._write_lr()
+        checked = bool(flag("check_nan_inf"))
+        if checked:
+            saved = self._save_state()
         if capture:
-            loss = self._compiled(variant, batch)
+            loss = self._compiled(variant, batch, checked)
         elif self.jit:
             with compiled_step():
-                loss = self._body(variant, batch)
+                loss = self._run(variant, batch, checked)
         else:
-            loss = self._body(variant, batch)
+            loss = self._run(variant, batch, checked)
+        if checked:
+            self._judge(saved)
         self._calls_in_window = 0 if applies else self._calls_in_window + 1
         return {"loss": loss}
 
-    def _compiled(self, variant, batch):
+    def _compiled(self, variant, batch, checked=False):
         opt = self.optimizer
-        sig = ((self._instance, len(opt._parameter_list), variant, precision_key())
+        sig = ((self._instance, len(opt._parameter_list), variant, checked, precision_key())
                + _signature(batch))
         entry = self.store.lookup(sig)
         if entry is not None:
             out = self.store.replay(entry, *batch, read=clone_outputs)
+            self._nan_names = self._names_of.get(sig, [])
             if variant != "accumulate":
                 opt._global_step += 1  # the host's count; the graph advanced the device's
             return out
         inputs = [b.clone() for b in batch]  # the graph's static inputs
         with compiled_step():
-            loss = _first_run(self.device, lambda: self._body(variant, inputs))
-            host_step = opt._global_step
+            loss = _first_run(self.device, lambda: self._run(variant, inputs, checked))
+            host_step, names = opt._global_step, self._nan_names
             try:
-                self.store.capture(sig, lambda *x: self._body(variant, x), inputs,
+                self.store.capture(sig, lambda *x: self._run(variant, x, checked), inputs,
                                    _random.graph_generators(self.device))
+                self._names_of[sig] = self._nan_names
             finally:
                 opt._global_step = host_step  # the capture ran no step
+                self._nan_names = names  # the verdict read next is the first run's
         return loss
+
+    def _run(self, variant, batch, checked):
+        """:meth:`_body`, under :class:`~paddle_tpu_torch.framework.nan_inf.NanCheck`
+        when ``checked``, its verdict then written into the step's two
+        device scalars."""
+        if not checked:
+            return self._body(variant, batch)
+        with nan_inf.NanCheck() as check:
+            loss = self._body(variant, batch)
+        check.verdict_into(self._nan_found, self._nan_first)
+        self._nan_names = check.names
+        return loss
+
+    def _state_tensors(self):
+        """Every tensor of the step's state: parameters, buffers,
+        accumulators, the device step count and the gradient-merge
+        buffers."""
+        opt = self.optimizer
+        ts = {id(t): t for t in (*self.model.parameters(), *opt._parameter_list,
+                                 *self.model.buffers())}
+        for accs in opt._accumulators.values():
+            ts.update((id(a), a) for a in accs)
+        for t in (opt._step_t, *(self._acc or ())):
+            if t is not None:
+                ts[id(t)] = t
+        return list(ts.values())
+
+    def _save_state(self):
+        """Copy the state aside (into buffers kept between calls) for a
+        checked step; returns what :meth:`_restore` takes."""
+        live = self._state_tensors()
+        if self._saved is None or len(self._saved[0]) != len(live) or any(
+                a is not b for a, b in zip(self._saved[0], live)):
+            self._saved = (live, [torch.empty_like(t) for t in live])
+        with torch.no_grad():
+            torch._foreach_copy_(self._saved[1], live)
+        return self.optimizer._global_step
+
+    def _restore(self, host_step):
+        with torch.no_grad():
+            torch._foreach_copy_(self._saved[0], self._saved[1])
+        self.optimizer._global_step = host_step
+
+    def _judge(self, host_step):
+        """After a checked step: one read of the verdict; on a NaN, the
+        ``check_nan_inf_action`` policy, the state restored unless it is
+        ``warn``."""
+        if not bool(self._nan_found):
+            return
+        op = self._nan_names[int(self._nan_first)]
+        detail = (f"non-finite value produced inside the train step: nan generated by "
+                  f"primitive: {op}.")
+        try:
+            action = nan_inf.nan_event_action("train_step", detail)
+        except Exception:
+            self._restore(host_step)
+            raise
+        if action is not None:
+            self._restore(host_step)
+            raise FatalError(f"check_nan_inf: {detail}")
 
     def _body(self, variant, batch):
         """One step of ``variant`` ("step", "accumulate" or "apply") on
@@ -190,6 +292,9 @@ class TrainStepFn:
         self.model.train()
         loss = self._forward(batch)
         loss.backward()
+        if self._unused is None:
+            self._unused = {n for n, p in self.model.named_parameters()
+                            if p.requires_grad and p.grad is None}
         if variant == "step":
             with opt._scalars_on_device(self.jit):
                 opt.step()
@@ -234,6 +339,81 @@ class TrainStepFn:
         state apart from the model: here the model and optimizer are the
         state, updated in place, so there is nothing to write back."""
         return self
+
+    def state_leaves(self):
+        """``[(name, tensor)]``: the step's state under the leaf names of
+        the JAX step's state pytree (``jax.tree_util.keystr`` of
+        ``TrainStepFn.state``), in its flattening order: ``['buffers'][n]``,
+        ``['frozen'][n]`` (parameters that do not require grad, then those
+        the loss never reads), ``['gm']`` (gradient merge), ``['opt']
+        ['accums'][acc][i]`` and ``['opt']['step']``, ``['params'][n]``.
+        The step count and the merge count are int32 0-dim tensors made
+        from the host's counts; the rest are the live tensors."""
+        def key(*ks):
+            return "".join(f"[{k!r}]" for k in ks)
+
+        opt = self.optimizer
+        named = list(self.model.named_parameters())
+        unused = self._unused or set()
+        frozen = ([(n, p) for n, p in named if not p.requires_grad]
+                  + [(n, p) for n, p in named if p.requires_grad and n in unused])
+        params = [(n, p) for n, p in named if p.requires_grad and n not in unused]
+        out = [(key("buffers", n), b) for n, b in self.model.named_buffers()]
+        out += [(key("frozen", n), p) for n, p in frozen]
+        if self._acc is not None:
+            acc_of = {id(p): a for p, a in zip(opt._parameter_list, self._acc)}
+            out += [(key("gm", "acc", n), acc_of[id(p)]) for n, p in params]
+            out.append((key("gm", "count"),
+                        torch.tensor(self._calls_in_window, dtype=torch.int32)))
+        for name in sorted(opt._accumulators):
+            out += [(key("opt", "accums", name, i), a)
+                    for i, a in enumerate(opt._accumulators[name])]
+        out.append((key("opt", "step"), torch.tensor(opt._global_step, dtype=torch.int32)))
+        out += [(key("params", n), p) for n, p in params]
+        return out
+
+    def load_state_leaves(self, flat):
+        """Copy ``flat`` (leaf name -> array or tensor, every name of
+        :meth:`state_leaves` and no other, each of its shape) into the live
+        state, and set the host and device step counts (and the merge
+        count) from it. Raises ``KeyError`` or ``ValueError`` before
+        anything is written."""
+        leaves = self.state_leaves()
+        names = [n for n, _ in leaves]
+        missing, extra = sorted(set(names) - set(flat)), sorted(set(flat) - set(names))
+        if missing or extra:
+            raise KeyError(f"missing={missing[:5]} extra={extra[:5]}")
+        for name, t in leaves:
+            if tuple(np.shape(flat[name])) != tuple(t.shape):
+                raise ValueError(f"{name}: checkpoint shape {tuple(np.shape(flat[name]))} != "
+                                 f"live state shape {tuple(t.shape)}")
+        opt = self.optimizer
+        with torch.no_grad():
+            for name, t in leaves:
+                v = flat[name]
+                v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+                if name == "['opt']['step']":
+                    opt._global_step = int(v)
+                    if opt._step_t is not None:
+                        opt._step_t.fill_(opt._global_step)
+                elif name == "['gm']['count']":
+                    self._calls_in_window = int(v)
+                else:
+                    t.copy_(v)
+
+    def save_checkpoint(self, path, step=None, async_=None, keep=None):
+        """Snapshot the step's state (``distributed/checkpoint.py``; async
+        by default, ``FLAGS_checkpoint_async``)."""
+        from ..distributed import checkpoint as _ckpt
+
+        return _ckpt.save_train_step(self, path, step=step, async_=async_, keep=keep)
+
+    def load_checkpoint(self, path):
+        """Restore a snapshot written by ``save_checkpoint`` (of either
+        package) into the live state; returns the manifest."""
+        from ..distributed import checkpoint as _ckpt
+
+        return _ckpt.restore_train_step(self, path)
 
 
 class EvalStepFn:

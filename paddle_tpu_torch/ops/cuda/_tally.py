@@ -13,6 +13,7 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes, _get_current_dispatch_mode_stack
 
 _local = threading.local()
 _by_stream: dict = {}  # a capture's stream handle -> its tally, while it records
@@ -30,3 +31,20 @@ def bump(namespace, name, n=1):
     if tally is not None and n:
         key = (namespace["__name__"], name)
         tally[key] = tally.get(key, 0) + n
+
+
+def check_outputs(namespace, name, *tensors):
+    """Hand a kernel's outputs to the NaN check active on this thread
+    (``framework/nan_inf.py`` ``NanCheck``), if any, under the kernel's
+    name in ``KERNEL_COUNTERS`` (the count ``name`` of the module whose
+    globals are ``namespace``): a launch through ``ctypes`` is no aten op
+    that the check would see."""
+    for mode in _get_current_dispatch_mode_stack():
+        if getattr(mode, "checks_kernels", False):
+            from . import KERNEL_COUNTERS
+
+            kernel = next((k for k, (mod, attr) in KERNEL_COUNTERS.items()
+                           if attr == name and mod.__name__ == namespace["__name__"]), name)
+            with _disable_current_modes():
+                mode.note(kernel, tensors)
+            return

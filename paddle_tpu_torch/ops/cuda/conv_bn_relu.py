@@ -64,7 +64,7 @@ import torch.nn.functional as _F
 
 from ...framework.autograd import amp_cast
 from . import _build
-from ._tally import bump
+from ._tally import bump, check_outputs
 
 __all__ = ["conv_bn_relu", "mm_affine_relu", "mm_stats", "centered_sumsq", "bn_relu",
            "bn_bwd_partials", "bn_bwd_dco"]
@@ -124,9 +124,11 @@ _REDUCE_BLOCKS = 2048
 _REDUCE_COLS = 32  # channels a reduction block (csrc/conv_bn_relu_bn.cu kCols)
 
 
-def _count(attr, dtype=torch.float32):
+def _count(attr, dtype=torch.float32, outs=()):
+    name = ("BF16_" if dtype == torch.bfloat16 else "") + attr
     with _count_lock:
-        bump(globals(), ("BF16_" if dtype == torch.bfloat16 else "") + attr)
+        bump(globals(), name)
+    check_outputs(globals(), name, *outs)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -292,7 +294,7 @@ def mm_affine_relu(p2, w2, scale, shift):
                         [_INT] * (4 + len(ld)) + [_VP])(
                 *args, ws.data_ptr(), m, k, n, *ld, slices, per, _stream(p2))
     _build.check(err, "mm_affine_relu")
-    _count("MM_AFFINE_RELU_LAUNCHES", p2.dtype)
+    _count("MM_AFFINE_RELU_LAUNCHES", p2.dtype, (y,))
     if slices > 1:
         _count("MM_AFFINE_RELU_SPLITS")
     return y
@@ -319,7 +321,7 @@ def mm_stats(p2, w2):
             p2.data_ptr(), w2.data_ptr(), co.data_ptr(), partial.data_ptr(), m, k, n, *ld,
             _stream(p2))
     _build.check(err, "mm_stats")
-    _count("MM_STATS_LAUNCHES", p2.dtype)
+    _count("MM_STATS_LAUNCHES", p2.dtype, (co, partial))
     return co, partial
 
 
@@ -438,7 +440,7 @@ def centered_sumsq(co, mean):
         err = _bn_symbol("centered_sumsq", co)(co.data_ptr(), m, n, per, mean.data_ptr(),
                                                partial.data_ptr(), _stream(co))
     _build.check(err, "centered_sumsq")
-    _count("CENTERED_SUMSQ_LAUNCHES", co.dtype)
+    _count("CENTERED_SUMSQ_LAUNCHES", co.dtype, (partial,))
     return partial
 
 
@@ -456,7 +458,7 @@ def bn_relu(co, scale, shift):
         err = _bn_symbol("relu", co)(co.data_ptr(), m, n, scale.data_ptr(), shift.data_ptr(),
                                      y.data_ptr(), _stream(co))
     _build.check(err, "bn_relu")
-    _count("BN_RELU_LAUNCHES", co.dtype)
+    _count("BN_RELU_LAUNCHES", co.dtype, (y,))
     return y
 
 
@@ -480,7 +482,7 @@ def bn_bwd_partials(co, dy, scale, shift):
             co.data_ptr(), dy.data_ptr(), m, n, per, scale.data_ptr(), shift.data_ptr(),
             pdy.data_ptr(), pdyc.data_ptr(), _stream(co))
     _build.check(err, "bn_bwd_partials")
-    _count("BN_BWD_PARTIALS_LAUNCHES", co.dtype)
+    _count("BN_BWD_PARTIALS_LAUNCHES", co.dtype, (pdy, pdyc))
     return pdy, pdyc
 
 
@@ -500,7 +502,7 @@ def bn_bwd_dco(co, dy, scale, shift, k3, b0):
                                         *(v.data_ptr() for v in vecs), dco.data_ptr(),
                                         _stream(co))
     _build.check(err, "bn_bwd_dco")
-    _count("BN_BWD_DCO_LAUNCHES", co.dtype)
+    _count("BN_BWD_DCO_LAUNCHES", co.dtype, (dco,))
     return dco
 
 

@@ -53,7 +53,7 @@ import torch
 from ...framework import random as _random
 from ...framework.autograd import amp_cast
 from . import _build
-from ._tally import bump
+from ._tally import bump, check_outputs
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_delta", "flash_attention_bwd_dkv",
@@ -371,6 +371,12 @@ def _launch(name, dtype, args):
         bump(globals(), counter)
 
 
+def _checked(name, dtype, *outs):
+    """Hand the outputs of the entry ``name``'s kernel for ``dtype`` to the
+    NaN check (``_tally.check_outputs``)."""
+    check_outputs(globals(), _KERNELS[(name, dtype)][1], *outs)
+
+
 def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0,
                         seed=None):
     """``(out, lse)`` on the card: ``out`` ``[B, H, Lq, D]`` in q's dtype
@@ -396,6 +402,7 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_ra
         tail += _seed_args("flash_attention_fwd", q, dropout_rate, seed)
         with torch.cuda.device(q.device):
             _launch("flash_attention_fwd", q.dtype, [*head, *outs, *tail])
+        _checked("flash_attention_fwd", q.dtype, out, lse)
         del bias32  # launched: the stream orders any reuse of its memory after the kernel
     return (out, lse, keep) if stores else (out, lse)
 
@@ -429,6 +436,7 @@ def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _launch("flash_attention_bwd_dq", q.dtype, [*head, dq.data_ptr(), *tail])
+        _checked("flash_attention_bwd_dq", q.dtype, dq)
     del bias32  # held past the allocation of dq, which could otherwise reuse its memory
     return dq
 
@@ -455,6 +463,7 @@ def flash_attention_bwd_dq_delta(q, k, v, bias, lse, out, dout, causal=False, sc
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _launch("flash_attention_bwd_dq", q.dtype, [*head, out.data_ptr(), dq.data_ptr(), *tail])
+        _checked("flash_attention_bwd_dq", q.dtype, dq, delta)
     del bias32
     return dq, delta
 
@@ -477,6 +486,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal=False, scale
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         _launch("flash_attention_bwd_dkv", q.dtype, [*head, dk.data_ptr(), dv.data_ptr(), *tail])
+        _checked("flash_attention_bwd_dkv", q.dtype, dk, dv)
     del bias32  # held past the allocation of dk and dv, as in the dQ entry
     return dk, dv
 

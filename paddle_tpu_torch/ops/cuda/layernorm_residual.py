@@ -39,7 +39,7 @@ import torch
 
 from ...framework.autograd import amp_cast
 from . import _build
-from ._tally import bump
+from ._tally import bump, check_outputs
 
 __all__ = ["layernorm_residual", "layernorm_residual_fwd", "layernorm_residual_bwd",
            "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "MIXED_LAUNCHES"]
@@ -74,13 +74,14 @@ MIXED_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
-def _count(attr, dtype, res_dtype=None):
+def _count(attr, dtype, res_dtype=None, outs=()):
+    if res_dtype is not None and res_dtype != dtype:
+        name = f"MIXED_{attr}"
+    else:
+        name = attr if dtype == torch.float32 else f"BF16_{attr}"
     with _count_lock:
-        if res_dtype is not None and res_dtype != dtype:
-            name = f"MIXED_{attr}"
-        else:
-            name = attr if dtype == torch.float32 else f"BF16_{attr}"
         bump(globals(), name)
+    check_outputs(globals(), name, *outs)
 
 
 def _reference(x2, r2, w, b, eps):
@@ -219,7 +220,7 @@ def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
             mean.data_ptr(), rstd.data_ptr(), rows, x2.shape[1], float(eps),
             _FWD_DTYPES[(x2.dtype, r2.dtype)], stream)
     _build.check(err, "layernorm_residual_fwd")
-    _count("LAUNCHES", x2.dtype, r2.dtype)
+    _count("LAUNCHES", x2.dtype, r2.dtype, (y, mean, rstd))
     return y, mean, rstd
 
 
@@ -261,7 +262,7 @@ def layernorm_residual_bwd(x2, r2, w, mean, rstd, dy2):
             dy2.data_ptr(), da.data_ptr(), dwp.data_ptr(), dbp.data_ptr(), rows, h, per_block,
             _DTYPES[x2.dtype], stream)
     _build.check(err, "layernorm_residual_bwd")
-    _count("BWD_LAUNCHES", x2.dtype)
+    _count("BWD_LAUNCHES", x2.dtype, outs=(da, dwp, dbp))
     return da, dwp, dbp
 
 

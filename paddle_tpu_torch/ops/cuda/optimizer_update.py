@@ -41,7 +41,7 @@ import threading
 import torch
 
 from . import _build
-from ._tally import bump
+from ._tally import bump, check_outputs
 
 __all__ = ["fused_momentum_update", "fused_momentum_update_multi", "launch_groups",
            "MAX_TENSORS", "CHUNK", "LAUNCHES", "TENSORS"]
@@ -162,6 +162,8 @@ def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, wei
             with _count_lock:
                 bump(globals(), "LAUNCHES")
                 bump(globals(), "TENSORS", len(sel))
+            check_outputs(globals(), "LAUNCHES", *(params[i] for i in sel),
+                          *(velocities[i] for i in sel))
 
 
 def _lr_on(dev, lr):

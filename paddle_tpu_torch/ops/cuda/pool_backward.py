@@ -38,7 +38,7 @@ import threading
 import torch
 
 from . import _build
-from ._tally import bump
+from ._tally import bump, check_outputs
 
 __all__ = ["max_pool2d_backward", "max_pool_backward_supported", "memory_layout", "LAUNCHES",
            "BF16_LAUNCHES"]
@@ -178,4 +178,5 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
     _build.check(err, "max_pool2d_backward")
     with _count_lock:
         bump(globals(), "BF16_LAUNCHES" if bf16 else "LAUNCHES")
+    check_outputs(globals(), "BF16_LAUNCHES" if bf16 else "LAUNCHES", dx)
     return dx

@@ -25,9 +25,21 @@ read and the update applied. The clips are tensor ops with no host
 decision (``torch.where``, never ``.item()``), so inside a captured step
 the norms and factors stay on the card; the global norm sums squares in
 float32. Momentum folds its L2 decay into the kernel only without a clip,
-since the clip must see the decayed gradient (``:245-255``). Adagrad,
-Adadelta, RMSProp, Adamax, Lamb, the wrappers and per-parameter
-regularizers are not ported yet.
+since the clip must see the decayed gradient (``:245-255``). A parameter
+with a ``regularizer`` attribute (the slot the JAX ``Parameter`` keeps,
+``paddle_tpu/framework/tensor.py:435-442``) takes it in place of the
+global decay, under every optimizer, AdamW and Lamb included
+(``:165-172``); Momentum's kernel then leaves that parameter's decay out
+(``:262-268``).
+
+Adagrad, Adadelta, RMSProp, Adamax and Lamb (``:323-424``) keep the JAX
+constructor signatures, accumulator names and expression order. Adamax's
+``1 - beta1**t`` and Lamb's two corrections come, inside the compiled
+step, from the device step count as Adam's do; Lamb's trust ratio is two
+norms and a ``torch.where``, with no host read. Adagrad's ``moment`` starts
+at ``initial_accumulator_value`` on every path (the JAX train step starts
+it at 0: ROADMAP.md Queue C). The wrappers (EMA, ModelAverage, Lookahead)
+are in :mod:`.wrappers`.
 
 Accumulators are updated in place (``copy_``), so they keep their storage
 from step to step, as a step captured in a CUDA graph needs. Called on its
@@ -57,8 +69,9 @@ from ..ops.cuda import optimizer_update as _update
 from . import lr as lr  # noqa: F401
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm", "L1Decay", "L2Decay", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad", "Adadelta", "RMSProp",
+           "Adamax", "Lamb", "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "L1Decay", "L2Decay", "lr"]
 
 
 # -- gradient clipping (paddle_tpu/optimizer/__init__.py:33-72) --------------
@@ -170,10 +183,27 @@ class Optimizer:
         self._lr_t = None
         self._on_device = False
 
+    #: the accumulators a step keeps, by the JAX package's names
+    _ACCUMULATORS: tuple = ()
+
+    def _accumulator_names(self):
+        return self._ACCUMULATORS
+
+    def _new_accumulator(self, name, param):
+        return torch.zeros_like(param)
+
     def _ensure_accumulator(self, name):
         if name not in self._accumulators:
-            self._accumulators[name] = [torch.zeros_like(p) for p in self._parameter_list]
+            self._accumulators[name] = [self._new_accumulator(name, p)
+                                        for p in self._parameter_list]
         return self._accumulators[name]
+
+    def _init_accumulators(self):
+        """Make every accumulator a step keeps, as the JAX train step's
+        ``init_opt_state`` does before its first step, so a checkpoint of
+        the state names them before any step has run."""
+        for name in self._accumulator_names():
+            self._ensure_accumulator(name)
 
     def get_lr(self):
         if isinstance(self._learning_rate, LRScheduler):
@@ -227,7 +257,10 @@ class Optimizer:
             if p.grad is None or not p.requires_grad:
                 continue
             g = p.grad.to(p.dtype)
-            if self._weight_decay is not None and not isinstance(self, AdamW) and fused_wd is None:
+            reg = getattr(p, "regularizer", None)
+            if reg is not None:
+                g = reg(p, g)
+            elif self._weight_decay is not None and not isinstance(self, AdamW) and fused_wd is None:
                 g = self._weight_decay(p, g)
             params_grads.append((i, p, g))
         if self._grad_clip is not None:
@@ -311,6 +344,8 @@ class Momentum(Optimizer):
         self._momentum = momentum
         self._use_nesterov = use_nesterov
 
+    _ACCUMULATORS = ("velocity",)
+
     def _fused_decay_coeff(self):
         # only a plain, non-zero L2Decay folds into the kernel, and only
         # without a clip: the clip must see the decayed gradient
@@ -323,14 +358,21 @@ class Momentum(Optimizer):
         """With ``FLAGS_use_fused_optimizer`` on, every parameter with a
         gradient goes to the multi-tensor kernel in one call (a launch per
         :data:`~paddle_tpu_torch.ops.cuda.optimizer_update.MAX_TENSORS`
-        parameters on the card); off, one plain update each."""
+        parameters on the card); off, one plain update each. A parameter
+        with its own ``regularizer`` (applied in ``step``) goes to a call
+        of its own without the folded decay."""
         if not flag("use_fused_optimizer"):
             return super()._apply_all(params_grads, lr)
         vel = self._ensure_accumulator("velocity")
-        _update.fused_momentum_update_multi(
-            [p for _, p, _ in params_grads], [g for _, _, g in params_grads],
-            [vel[i] for i, _, _ in params_grads], lr, momentum=self._momentum,
-            weight_decay=self._fused_decay_coeff() or 0.0, use_nesterov=self._use_nesterov)
+        wd = self._fused_decay_coeff() or 0.0
+        groups = {}
+        for i, p, g in params_grads:
+            own = wd and getattr(p, "regularizer", None) is not None
+            groups.setdefault(0.0 if own else wd, []).append((i, p, g))
+        for coeff, group in groups.items():
+            _update.fused_momentum_update_multi(
+                [p for _, p, _ in group], [g for _, _, g in group], [vel[i] for i, _, _ in group],
+                lr, momentum=self._momentum, weight_decay=coeff, use_nesterov=self._use_nesterov)
 
     def _apply_one(self, index, param, grad, lr):
         vel = self._ensure_accumulator("velocity")
@@ -354,8 +396,27 @@ def _bias_correction(beta, t):
     return 1 - (b ** t.double()).float()
 
 
+def _bias_corrections(opt, betas):
+    """``1 - beta**t`` for each of ``betas``: float64 from ``opt``'s host
+    step count, or float32 0-dim tensors from its device one, as the JAX
+    train step computes them (a weak ``beta`` to the power of its int32
+    ``_global_step``: float32). On the CPU that is torch's float32 ``pow``
+    of a float32 ``beta`` and an int32 ``t``, bit-equal to the JAX step's.
+    On the card, :func:`_bias_correction`: CUDA's float32 ``pow`` rounds
+    otherwise at some ``t`` (ROADMAP.md Queue C)."""
+    if not opt._on_device:
+        t = opt._global_step
+        return tuple(1 - b**t for b in betas)
+    t = opt._step_t
+    if t.device.type == "cpu":
+        return tuple(1 - torch.full((), b, dtype=torch.float32)**t for b in betas)
+    return tuple(_bias_correction(b, t) for b in betas)
+
+
 class Adam(Optimizer):
     """operators/optimizers/adam_op.cc"""
+
+    _ACCUMULATORS = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  parameters=None, weight_decay=None, grad_clip=None, lazy_mode=False,
@@ -364,25 +425,8 @@ class Adam(Optimizer):
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._bias_correction = None
 
-    def _bias_corrections(self):
-        """``(1 - beta1**t, 1 - beta2**t)``: float64 from the host step
-        count, or float32 0-dim tensors from the device one, as the JAX
-        train step computes them (a weak ``beta`` to the power of its int32
-        ``_global_step``: float32). On the CPU that is torch's float32
-        ``pow`` of a float32 ``beta`` and an int32 ``t``, bit-equal to the
-        JAX step's. On the card, :func:`_bias_correction`: CUDA's float32
-        ``pow`` rounds otherwise at some ``t`` (ROADMAP.md Queue C)."""
-        if not self._on_device:
-            t = self._global_step
-            return 1 - self._beta1**t, 1 - self._beta2**t
-        t = self._step_t
-        if t.device.type == "cpu":
-            return tuple(1 - torch.full((), b, dtype=torch.float32)**t
-                         for b in (self._beta1, self._beta2))
-        return tuple(_bias_correction(b, t) for b in (self._beta1, self._beta2))
-
     def _apply_all(self, params_grads, lr):
-        self._bias_correction = self._bias_corrections()  # once a step
+        self._bias_correction = _bias_corrections(self, (self._beta1, self._beta2))  # once a step
         super()._apply_all(params_grads, lr)
 
     def _apply_one(self, index, param, grad, lr):
@@ -425,3 +469,162 @@ class AdamW(Adam):
         if decay and self._wd_coeff:
             new_param = new_param - self._lr_decay * param
         return new_param
+
+
+class Adagrad(Optimizer):
+    """operators/optimizers/adagrad_op.cc: ``moment += g * g``, then ``param
+    - lr * g / (sqrt(moment) + epsilon)``; ``moment`` starts at
+    ``initial_accumulator_value``."""
+
+    _ACCUMULATORS = ("moment",)
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None, weight_decay=None,
+                 grad_clip=None, initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _new_accumulator(self, name, param):
+        return torch.full_like(param, self._init_acc)
+
+    def _apply_one(self, index, param, grad, lr):
+        acc = self._ensure_accumulator("moment")[index]
+        acc.copy_(acc + grad * grad)
+        return param - lr * grad / (torch.sqrt(acc) + self._epsilon)
+
+
+class Adadelta(Optimizer):
+    """operators/optimizers/adadelta_op.cc"""
+
+    _ACCUMULATORS = ("avg_squared_grad", "avg_squared_update")
+
+    def __init__(self, learning_rate=1.0, epsilon=1e-6, rho=0.95, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _apply_one(self, index, param, grad, lr):
+        avg_sq = self._ensure_accumulator("avg_squared_grad")[index]
+        avg_up = self._ensure_accumulator("avg_squared_update")[index]
+        avg_sq.copy_(self._rho * avg_sq + (1 - self._rho) * grad * grad)
+        update = -torch.sqrt((avg_up + self._epsilon) / (avg_sq + self._epsilon)) * grad
+        avg_up.copy_(self._rho * avg_up + (1 - self._rho) * update * update)
+        return param + lr * update
+
+
+class RMSProp(Optimizer):
+    """operators/optimizers/rmsprop_op.cc (``centered``: the mean gradient's
+    square taken off the mean square)."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0, centered=False,
+                 parameters=None, weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
+        self._rho, self._epsilon, self._momentum, self._centered = rho, epsilon, momentum, centered
+
+    def _accumulator_names(self):
+        return ("mean_square", "momentum") + (("mean_grad",) if self._centered else ())
+
+    def _apply_one(self, index, param, grad, lr):
+        ms = self._ensure_accumulator("mean_square")[index]
+        mom = self._ensure_accumulator("momentum")[index]
+        ms.copy_(self._rho * ms + (1 - self._rho) * grad * grad)
+        if self._centered:
+            mg = self._ensure_accumulator("mean_grad")[index]
+            mg.copy_(self._rho * mg + (1 - self._rho) * grad)
+            denom = ms - mg**2 + self._epsilon
+        else:
+            denom = ms + self._epsilon
+        mom.copy_(self._momentum * mom + lr * grad / torch.sqrt(denom))
+        return param - mom
+
+
+class Adamax(Optimizer):
+    """operators/optimizers/adamax_op.cc: ``param - lr / (1 - beta1**t) * moment
+    / (inf_norm + epsilon)``."""
+
+    _ACCUMULATORS = ("moment", "inf_norm")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 parameters=None, weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lr_step = None
+
+    def _apply_all(self, params_grads, lr):
+        self._lr_step = lr / _bias_corrections(self, (self._beta1,))[0]  # once a step
+        super()._apply_all(params_grads, lr)
+
+    def _apply_one(self, index, param, grad, lr):
+        m = self._ensure_accumulator("moment")[index]
+        inf_norm = self._ensure_accumulator("inf_norm")[index]
+        m.copy_(self._beta1 * m + (1 - self._beta1) * grad)
+        inf_norm.copy_(torch.maximum(self._beta2 * inf_norm, torch.abs(grad)))
+        return param - self._lr_step * m / (inf_norm + self._epsilon)
+
+
+class _NamedParameter:
+    """A parameter seen with a ``name``: every other attribute is the
+    parameter's."""
+
+    __slots__ = ("name", "param")
+
+    def __init__(self, name, param):
+        self.name = name
+        self.param = param
+
+    def __getattr__(self, attr):
+        return getattr(self.param, attr)
+
+
+class Lamb(Optimizer):
+    """operators/optimizers/lamb_op.cc: Adam's direction ``r`` plus the
+    decay, ``u = r + wd * param``, scaled by the trust ratio ``|param| /
+    |u|`` (1 where either norm is 0), all on the tensors' device.
+    ``exclude_from_weight_decay_fn(param)`` turns the decay off for a
+    parameter; it receives the parameter as a :class:`_NamedParameter`,
+    whose ``name`` is the name the optimizer knows it by
+    (``named_parameters()`` or ``param_{i}``; a torch tensor's own ``name``
+    cannot be set) and whose other attributes are the parameter's, where
+    the JAX package passes its ``Parameter`` with its process-wide
+    ``name``."""
+
+    _ACCUMULATORS = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _apply_all(self, params_grads, lr):
+        self._bias_correction = _bias_corrections(self, (self._beta1, self._beta2))
+        super()._apply_all(params_grads, lr)
+
+    def _apply_one(self, index, param, grad, lr):
+        m = self._ensure_accumulator("moment1")[index]
+        v = self._ensure_accumulator("moment2")[index]
+        bc1, bc2 = self._bias_correction
+        m.copy_(self._beta1 * m + (1 - self._beta1) * grad)
+        v.copy_(self._beta2 * v + (1 - self._beta2) * grad * grad)
+        r = (m / bc1) / (torch.sqrt(v / bc2) + self._epsilon)
+        wd = self._lamb_wd
+        if self._exclude_fn is not None and self._exclude_fn(
+                _NamedParameter(self._param_names[index], self._parameter_list[index])):
+            wd = 0.0
+        update = r + wd * param
+        w_norm = torch.sqrt(torch.sum(param**2))
+        u_norm = torch.sqrt(torch.sum(update**2))
+        ok = (w_norm > 0) & (u_norm > 0)
+        # the quotient where it is taken; a 0 norm divides 1, so no NaN is
+        # made that the where throws away (FLAGS_check_nan_inf sees every op)
+        trust = torch.where(ok, w_norm / torch.where(ok, u_norm, torch.ones_like(u_norm)),
+                            torch.ones_like(w_norm))
+        return param - lr * trust * update
+
+
+from .wrappers import (  # noqa: E402  (wrappers.py subclasses Optimizer)
+    ExponentialMovingAverage, Lookahead, LookaheadOptimizer, ModelAverage)
+
+__all__ += ["ExponentialMovingAverage", "ModelAverage", "Lookahead", "LookaheadOptimizer"]

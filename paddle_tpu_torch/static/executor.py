@@ -33,6 +33,16 @@ parameter, a velocity or moment, ``adam_step``) is what later ops of the
 run read, and at the end of the run it is copied into the scope's own
 tensor (``copy_``), never put in its place: a graph then updates the
 scope at each replay, and the scope's generation does not move.
+
+``FLAGS_check_nan_inf`` (``:972-980``, ``:1075-1100``): with the flag on,
+the run scans what it fetched and the persistables it wrote for NaN/Inf
+(``isfinite``, so an inf counts) before they are written back, names the
+first bad variable and the op that wrote it, and acts by
+``FLAGS_check_nan_inf_action`` (``framework/nan_inf.py``); on ``raise``
+the scope keeps its values from before the run. A captured run keeps one
+graph, which then returns the written values instead of writing them:
+they are scanned after the replay and copied into the scope after the
+scan.
 """
 from __future__ import annotations
 
@@ -42,7 +52,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..errors import InvalidArgumentError, NotFoundError, UnimplementedError
+from ..errors import (FatalError, InvalidArgumentError, NotFoundError, UnimplementedError,
+                      op_error_context)
+from ..flags import flag
+from ..framework import nan_inf
 from ..framework.dtype import torch_dtype
 from ..framework.jit import _captures, _first_run, _signature
 from ..ops.registry import kernel
@@ -121,6 +134,7 @@ class Executor:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.store = GraphStore("executor")  # shared by a predictor's clones
+        self._written_of = {}  # sig -> names of the written values a scanned graph returns
 
     def run_startup(self, startup_program=None, scope=None):
         """Run the startup program's ``init_param`` ops: each parameter not
@@ -157,14 +171,25 @@ class Executor:
                 value = torch.from_numpy(np.ascontiguousarray(value))
             values.append(value.to(dtype=dtype))
         read = _to_host if return_numpy else clone_outputs
+        scan = bool(flag("check_nan_inf"))
+        written_names = []  # with scan: the names of the written values the run returns
 
         def interpret(*feeds):
-            return self._interpret(block, dict(zip(names, feeds)), scope, fetch_names)
+            return self._interpret(block, dict(zip(names, feeds)), scope, fetch_names,
+                                   written_names if scan else None)
+
+        def scanned(out):
+            fetched, written = out[:len(fetch_names)], dict(zip(written_names,
+                                                                out[len(fetch_names):]))
+            if self._scan_nan_inf(program, fetch_names, fetched, written):
+                self._write_back(scope, written)
+            return read(fetched)
 
         if not _captures(self.device):
-            return read(interpret(*[v.to(self.device) for v in values]))
+            out = interpret(*[v.to(self.device) for v in values])
+            return scanned(out) if scan else read(out)
         sig = ((program._identity_token, program._version, tuple(fetch_names), tuple(names))
-               + _signature(values) + (precision_key(), scope._token, scope._generation))
+               + _signature(values) + (precision_key(), scope._token, scope._generation, scan))
         store = self.store
         entry = store.find(sig)
         if entry is None:
@@ -175,12 +200,46 @@ class Executor:
                     with compiled_step():
                         out = _first_run(self.device, lambda: interpret(*inputs))
                         store.capture(sig, interpret, inputs)
-                    return read(out)
+                    self._written_of[sig] = list(written_names)
+                    return scanned(out) if scan else read(out)
+        if scan:
+            written_names[:] = self._written_of[sig]
+            return scanned(store.replay(entry, *values, read=clone_outputs))
         return store.replay(entry, *values, read=read)
 
-    def _interpret(self, block, env, scope, fetch_names):
+    def _write_back(self, scope, written):
+        """Copy each written persistable into the scope's own tensor (set
+        it, where the scope has none)."""
+        for n, v in written.items():
+            if scope.has(n):
+                scope.on(n, self.device).copy_(v)
+            else:
+                scope.set(n, v)
+
+    @staticmethod
+    def _scan_nan_inf(program, fetch_names, fetches, written):
+        """The post-run scan: True when every fetched and written floating
+        value is finite, or when ``warn`` lets a bad one pass; else raises
+        ``FatalError`` naming the first bad variable and the op that wrote
+        it (``paddle_tpu/static/executor.py`` ``_scan_nan_inf``)."""
+        bad = next((name for name, t in [*zip(fetch_names, fetches), *written.items()]
+                    if t.is_floating_point() and not bool(torch.isfinite(t).all())), None)
+        if bad is None:
+            return True
+        if nan_inf.nan_event_action(
+                f"var:{bad}", f"variable {bad!r} contains NaN/Inf after the block ran") is None:
+            return True
+        producer = next((op for op in program.global_block().ops
+                         if bad in [n for ns in op.outputs.values() for n in ns]), None)
+        raise FatalError(f"check_nan_inf: variable {bad!r} contains NaN/Inf after the block ran",
+                         op_context=op_error_context(producer) if producer is not None else None)
+
+    def _interpret(self, block, env, scope, fetch_names, written_names=None):
         """The global block's ops on ``env`` (the feeds, on the device):
-        the fetched tensors. The one body of a CPU run, a first run and a
+        the fetched tensors, written back into the scope. With
+        ``written_names`` (a list, filled here) the written persistables
+        are not written back but returned after the fetches, their names in
+        ``written_names``. The one body of a CPU run, a first run and a
         capture."""
         def value_of(name):
             if name in env:
@@ -215,11 +274,10 @@ class Executor:
                 if block.has_var(n) and block.var(n).persistable:
                     written[n] = v
         fetched = [value_of(n) for n in fetch_names]
-        for n, v in written.items():
-            if scope.has(n):
-                scope.on(n, self.device).copy_(v)
-            else:
-                scope.set(n, v)
+        if written_names is not None:
+            written_names[:] = list(written)
+            return fetched + list(written.values())
+        self._write_back(scope, written)
         return fetched
 
 
