@@ -187,6 +187,25 @@ Phases, each fatal on failure:
     same steps on the CPU (a half-lr control must fail), ``ModelAverage``
     applied after the Lookahead run for the held-out accuracy; the step's
     device time under each;
+12i. GPT-2 small at full width (``GPTConfig()``: 12 layers, 768 wide, 12
+    heads, 1024 positions, 50,304 tokens; 124,475,904 parameters from a
+    seed, eval, f32) through ``generation.GenerationEngine`` (16 slots, a
+    ring KV cache of 1024, prefill buckets 64-512: a CUDA graph each and one
+    decode graph) and ``serving.GenerationServer``: 4 prompts (17-500
+    tokens) decoded 64 greedy tokens, every step's logits against the
+    card's uncached forward over the generated sequence (3e-5 of the
+    largest; TF32 the control) and the tokens against its argmax where the
+    top-two gap is above 1e-3 (a mask blind to each query's own position
+    the control), one forward against the CPU's; a ring of 128 decoded
+    past its wrap against the forward under a window of 128 (129 the
+    control); graphs == buckets + 1 and no capture after; each bucket's
+    prefill and 3 decode steps replayed == eager bit for bit, timed both
+    ways with a profiled replay and the decode step's bound; 4,096 draws at
+    top-k 50 by a chi-square test; then 32 concurrent HTTP requests (4
+    streamed) on 16 slots, 8 of them equal to solo runs, ``/statz`` with no
+    unexpected capture, tokens/s and inter-token times; none of the port's
+    kernels runs on this path (pre-norm, cached: plain PyTorch, as the JAX
+    package's);
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -5294,6 +5313,463 @@ def train_lenet_optimizers():
     return counts, r
 
 
+# -- GPT-2 small generation: the ring KV cache, the engine's graphs, continuous serving -------
+
+GPT_SEED = 18
+GPT_DEVICE = "cuda"
+GPT_SLOTS, GPT_CACHE, GPT_BUCKETS = 16, 1024, (64, 128, 256, 512)
+GPT_PARAMS = 124_475_904  # GPT-2 small with the 50,304-token vocabulary
+GPT_PARITY_PROMPTS, GPT_NEW = (17, 100, 300, 500), 64
+# cached logits against the card's full forward, and the card's full forward
+# against the CPU's, relative to the largest |logit|: 12 layers of f32 sums
+# in another order sit ~1e-6 apart; a TF32 forward, the control, ~1e-3
+GPT_LOGITS_RTOL = 3e-5
+GPT_GAP = 1e-3  # tokens are held where the reference's top-two gap is above this
+GPT_WRAP_CACHE, GPT_WRAP_BUCKETS, GPT_WRAP_PROMPT, GPT_WRAP_NEW = 128, (32, 64, 128), 100, 100
+GPT_EQUAL_STEPS = 3  # decode steps held captured against eager from the same state
+GPT_SAMPLES, GPT_TOP_K, GPT_P_MIN = 4096, 50, 1e-3
+GPT_REQUESTS, GPT_STREAMED, GPT_SOLO = 32, 4, 8
+GPT_PROMPT_LENS, GPT_NEW_LENS = (16, 500), (16, 128)  # the served requests' ranges
+GPT_TIMED = 10  # calls a side for each mean wall
+_GPT_SRC = "paddle_tpu_torch/generation/engine.py"
+
+
+def _gpt_model():
+    """GPT-2 small (``GPTConfig()``) on the card from a seed, eval, its
+    window the cache's."""
+    import torch
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    gen = torch.Generator(device=GPT_DEVICE).manual_seed(GPT_SEED)
+    model = GPTForCausalLM(GPTConfig(attention_window=GPT_CACHE), generator=gen, device=GPT_DEVICE)
+    return model.eval()
+
+
+def _gpt_prompt(rng, n, vocab):
+    return [int(t) for t in rng.randint(3, vocab, size=n)]
+
+
+def _full_logits(model, ids, window, blind=False):
+    """The card's uncached forward over ``ids``: logits ``[T, V]`` under the
+    causal mask of width ``window`` (``blind``: each query also blind to its
+    own position, the mask-off-by-one control)."""
+    import torch
+
+    from paddle_tpu_torch.nn.transformer import causal_mask
+
+    t = len(ids)
+    mask = causal_mask(t, window=window, device=GPT_DEVICE)
+    if blind:
+        mask = mask + torch.diag(torch.full((t,), -1e9, device=GPT_DEVICE))
+    with torch.no_grad():
+        return model(torch.tensor([ids], device=GPT_DEVICE), attention_mask=mask)[0]
+
+
+def _rel_max(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@contextlib.contextmanager
+def _tf32():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tokens_held(tokens, full):
+    """(positions held, held ones whose token is not the full forward's
+    argmax): a position is held where the top-two gap is above
+    ``GPT_GAP``."""
+    import torch
+
+    top2 = full.topk(2, dim=-1).values.cpu()
+    held = (top2[:, 0] - top2[:, 1]) > GPT_GAP
+    wrong = held & (full.argmax(-1).cpu() != torch.tensor(tokens))
+    return int(held.sum()), int(wrong.sum())
+
+
+def _decode_logged(eng, slots, prompts, new):
+    """``prompts`` admitted into ``slots`` and decoded greedily to ``new``
+    tokens each, every row of logits kept (on the host): (tokens, logits
+    ``[new, V]``) by slot."""
+    import torch
+
+    toks, rows = {}, {}
+    for s, p in zip(slots, prompts):
+        toks[s] = [eng.admit(s, p, 0.0)]
+        rows[s] = [eng.last_logits[0].to("cpu", copy=True)]
+    last = np.zeros(eng.slots, np.int32)
+    temps = np.zeros(eng.slots, np.float32)
+    for _ in range(new - 1):
+        for s in slots:
+            last[s] = toks[s][-1]
+        nxt = eng.step(last, temps)
+        logits = eng.last_logits.to("cpu", copy=True)
+        for s in slots:
+            toks[s].append(int(nxt[s]))
+            rows[s].append(logits[s])
+    return toks, {s: torch.stack(r) for s, r in rows.items()}
+
+
+def _gpt_parity(model, eng):
+    """Step 1: 4 prompts decoded 64 greedy tokens through the engine against
+    the card's uncached forward over each generated sequence (TF32 and
+    mask-off-by-one controls), and one full forward against the CPU's."""
+    import torch
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(GPT_SEED)
+    prompts = [_gpt_prompt(rng, n, vocab) for n in GPT_PARITY_PROMPTS]
+    slots = list(range(len(prompts)))
+    toks, cached = _decode_logged(eng, slots, prompts, GPT_NEW)
+    err = tf32 = 0.0
+    held = wrong = wrong_blind = 0
+    longest = None
+    for s, p in zip(slots, prompts):
+        seq = p + toks[s][:-1]
+        full = _full_logits(model, seq, GPT_CACHE)[len(p) - 1:]
+        with _tf32():
+            full_tf32 = _full_logits(model, seq, GPT_CACHE)[len(p) - 1:]
+        blind = _full_logits(model, seq, GPT_CACHE, blind=True)[len(p) - 1:]
+        err = max(err, _rel_max(cached[s], full.cpu()))
+        tf32 = max(tf32, _rel_max(cached[s], full_tf32.cpu()))
+        h, w = _tokens_held(toks[s], full)
+        held, wrong = held + h, wrong + w
+        wrong_blind += _tokens_held(toks[s], blind)[1]
+        longest = seq
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        cpu = cpu_model(torch.tensor([longest]))[0]
+    card_cpu = _rel_max(_full_logits(model, longest, GPT_CACHE).cpu(), cpu)
+    with _tf32():
+        card_cpu_tf32 = _rel_max(_full_logits(model, longest, GPT_CACHE).cpu(), cpu)
+    del cpu_model
+    r = {"prompts": list(GPT_PARITY_PROMPTS), "new_tokens": GPT_NEW,
+         "cached_vs_full_rel": err, "control_tf32_rel": tf32, "limit_rel": GPT_LOGITS_RTOL,
+         "tokens_held": held, "tokens_compared": GPT_NEW * len(prompts),
+         "tokens_differing": wrong, "control_mask_off_by_one_differing": wrong_blind,
+         "card_vs_cpu_rel": card_cpu, "card_vs_cpu_control_tf32_rel": card_cpu_tf32}
+    log(f"gpt parity: {r}")
+    if not (err <= GPT_LOGITS_RTOL < tf32 and card_cpu <= GPT_LOGITS_RTOL < card_cpu_tf32):
+        raise AssertionError(f"gpt: logits limit {GPT_LOGITS_RTOL} missed, or a TF32 control "
+                             f"passed it: {r}")
+    if wrong or not wrong_blind or held < GPT_NEW * len(prompts) // 2:
+        raise AssertionError(f"gpt: greedy tokens part from the full forward's argmax at a "
+                             f"held position, the off-by-one mask agreed, or too few held: {r}")
+    return r
+
+
+def _gpt_ring_wrap(model):
+    """Step 2: a 100-token prompt decoded 100 tokens through a ring of 128
+    (it wraps at position 128) against the full forward under a window of
+    128; the window of 129 is the control."""
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    eng = GenerationEngine(model, slots=1, cache_len=GPT_WRAP_CACHE,
+                           prefill_buckets=GPT_WRAP_BUCKETS, seed=GPT_SEED,
+                           device=GPT_DEVICE).warmup()
+    prompt = _gpt_prompt(np.random.RandomState(GPT_SEED + 1), GPT_WRAP_PROMPT,
+                         model.config.vocab_size)
+    toks, cached = _decode_logged(eng, [0], [prompt], GPT_WRAP_NEW)
+    seq = prompt + toks[0][:-1]
+    full = _full_logits(model, seq, GPT_WRAP_CACHE)[len(prompt) - 1:]
+    wide = _full_logits(model, seq, GPT_WRAP_CACHE + 1)[len(prompt) - 1:]
+    held, wrong = _tokens_held(toks[0], full)
+    r = {"cache_len": GPT_WRAP_CACHE, "positions": [len(prompt), len(seq)],
+         "cached_vs_window_rel": _rel_max(cached[0], full.cpu()),
+         "control_window_plus_one_rel": _rel_max(cached[0], wide.cpu()),
+         "limit_rel": GPT_LOGITS_RTOL, "tokens_held": held, "tokens_differing": wrong,
+         "graphs": eng.graphs(), "extra_compiles": eng.extra_compiles()}
+    log(f"gpt ring wrap: {r}")
+    if not (r["cached_vs_window_rel"] <= GPT_LOGITS_RTOL < r["control_window_plus_one_rel"]) \
+            or wrong or r["graphs"] != len(GPT_WRAP_BUCKETS) + 1 or r["extra_compiles"]:
+        raise AssertionError(f"gpt: the ring past its wrap parts from the windowed forward: {r}")
+    return r
+
+
+def _snapshot_kv(eng):
+    return [t.clone() for t in eng.kv]
+
+
+def _restore_kv(eng, snap):
+    for t, s in zip(eng.kv, snap):
+        t.copy_(s)
+
+
+def _gpt_captured_vs_eager(eng, model):
+    """Step 3 and 6: every bucket's prefill and ``GPT_EQUAL_STEPS`` decode
+    steps at 16 busy slots replayed and run eagerly from the same state,
+    bit for bit; TTFT per bucket and the decode step timed both ways (host
+    clock, each call ending in the token's copy to the host); one profiled
+    decode replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(GPT_SEED + 2)
+    r = {"ttft_ms": {}}
+
+    def timed(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(GPT_TIMED):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / GPT_TIMED
+
+    for bucket in GPT_BUCKETS:
+        prompt = _gpt_prompt(rng, bucket, vocab)
+        snap = _snapshot_kv(eng)
+        got = (eng.admit(1, prompt), eng.last_logits.clone())
+        _restore_kv(eng, snap)
+        eng.jit = False
+        want = (eng.admit(1, prompt), eng.last_logits.clone())
+        eager_ms = timed(lambda: eng.admit(1, prompt))
+        eng.jit = True
+        captured_ms = timed(lambda: eng.admit(1, prompt))
+        if got[0] != want[0] or not torch.equal(got[1], want[1]):
+            raise AssertionError(f"gpt: the bucket {bucket} prefill replay parts from eager")
+        r["ttft_ms"][bucket] = {"captured": captured_ms, "eager": eager_ms}
+        log(f"gpt prefill bucket {bucket}: TTFT captured {captured_ms:.3f} ms, eager "
+            f"{eager_ms:.3f} ms (host clock, token on the host); replay == eager bit for bit")
+    # 16 busy slots
+    last = np.zeros(eng.slots, np.int32)
+    for s in range(eng.slots):
+        last[s] = eng.admit(s, _gpt_prompt(rng, int(rng.randint(GPT_PROMPT_LENS[0],
+                                                                GPT_PROMPT_LENS[1] + 1)), vocab))
+    temps = np.zeros(eng.slots, np.float32)
+    for _ in range(GPT_EQUAL_STEPS):
+        snap = _snapshot_kv(eng)
+        got = (eng.step(last, temps), eng.last_logits.clone())
+        after = _snapshot_kv(eng)
+        _restore_kv(eng, snap)
+        eng.jit = False
+        want = (eng.step(last, temps), eng.last_logits.clone())
+        eng.jit = True
+        if not (np.array_equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and all(torch.equal(a, b) for a, b in zip(after, eng.kv))):
+            raise AssertionError("gpt: a decode replay parts from the eager step from the "
+                                 "same state (tokens, logits or cache)")
+        last = got[0]
+        del snap, after
+    eng.jit = False
+    eager_ms = timed(lambda: eng.step(last, temps))
+    eng.jit = True
+    captured_ms = timed(lambda: eng.step(last, temps))
+    eng.step(last, temps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step(last, temps)
+        wall = (time.perf_counter() - t0) * 1e3
+    _, busy, events = _log_profile(prof, wall, "gpt decode replay (16 slots)")
+    by_kind = _device_time_by_kind(prof)[0]
+    if _profiled_launches(prof):
+        raise AssertionError(f"gpt: the decode step ran a port kernel: {_profiled_launches(prof)}")
+    bytes_moved = eng.param_nbytes() + eng.cache_nbytes()
+    r["decode"] = {"captured_ms": captured_ms, "eager_ms": eager_ms, "profiled_wall_ms": wall,
+                   "busy_ms": busy, "device_events": events, "by_kind_ms": by_kind,
+                   "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                   "bytes": bytes_moved, "tokens_per_s": eng.slots / captured_ms * 1e3}
+    log(f"gpt decode step at 16 busy slots: captured {captured_ms:.3f} ms, eager "
+        f"{eager_ms:.3f} ms (host clock, tokens on the host); bound {r['decode']['bound_ms']:.3f} ms "
+        f"({bytes_moved} bytes: the weights and the full 16 x {GPT_CACHE} window, once); "
+        f"replay == eager bit for bit over {GPT_EQUAL_STEPS} steps")
+    return r
+
+
+def _gpt_sampling(eng):
+    """Step 4: 4,096 draws at temperature 1, top-k 50 from one position's
+    logits: all inside the top 50, a chi-square test against the softmax
+    (the uniform over the top 50 the control it must reject); the greedy
+    rows of a mixed-temperature batch equal to pure greedy."""
+    import torch
+    from scipy import stats
+
+    from paddle_tpu_torch.generation import sample_logits
+
+    rows = eng.last_logits.clone()  # the last decode step's [16, V]
+    gen = torch.Generator(device=GPT_DEVICE).manual_seed(GPT_SEED)
+    draws = sample_logits(rows[0].expand(GPT_SAMPLES, -1).contiguous(), gen, 1.0,
+                          top_k=GPT_TOP_K).cpu().numpy()
+    top = rows[0].topk(GPT_TOP_K)
+    ids = top.indices.cpu().numpy()
+    z = top.values.double().cpu().numpy()
+    p = np.exp(z - z.max())
+    p /= p.sum()
+    inside = np.isin(draws, ids)
+    counts = np.array([(draws == i).sum() for i in ids], np.float64)
+    pval = stats.chisquare(counts, p * counts.sum()).pvalue
+    pval_uniform = stats.chisquare(counts).pvalue
+    temps = torch.tensor([0.0, 1.0, 0.0, 0.7] * (rows.shape[0] // 4), device=GPT_DEVICE)
+    mixed = sample_logits(rows, gen, temps, top_k=GPT_TOP_K).cpu()
+    greedy = sample_logits(rows, gen, 0.0).cpu()
+    g = (temps == 0).cpu()
+    r = {"draws": GPT_SAMPLES, "top_k": GPT_TOP_K, "outside_top_k": int((~inside).sum()),
+         "chi2_p": float(pval), "control_uniform_p": float(pval_uniform), "p_min": GPT_P_MIN,
+         "greedy_rows_equal": bool(torch.equal(mixed[g], greedy[g]))}
+    log(f"gpt sampling: {r}")
+    if r["outside_top_k"] or not pval > GPT_P_MIN > pval_uniform or not r["greedy_rows_equal"]:
+        raise AssertionError(f"gpt: sampling failed its checks: {r}")
+    return r
+
+
+def _stream(url, body, timeout=300):
+    """POST a streamed ``/generate``: (tokens, final line, arrival times of
+    the token lines)."""
+    req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, times, final = [], [], None
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for line in resp:
+            obj = json.loads(line)
+            if "token" in obj:
+                toks.append(obj["token"])
+                times.append(time.perf_counter())
+            else:
+                final = obj
+    return toks, final, times
+
+
+def _gpt_http(model, solo_eng):
+    """Step 5: ``GenerationServer`` with 16 slots, 32 concurrent requests
+    (prompts 16-500 tokens, 16-128 new, 4 streamed); 8 answers against solo
+    runs; ``/statz`` with no unexpected capture; tokens/s, TTFT and the
+    inter-token times."""
+    import torch
+
+    from paddle_tpu_torch.generation import GenerationEngine
+    from paddle_tpu_torch.serving import GenerationServer
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(GPT_SEED + 3)
+    reqs = [(_gpt_prompt(rng, int(rng.randint(GPT_PROMPT_LENS[0], GPT_PROMPT_LENS[1] + 1)),
+                         vocab),
+             int(rng.randint(GPT_NEW_LENS[0], GPT_NEW_LENS[1] + 1)))
+            for _ in range(GPT_REQUESTS)]
+    eng = GenerationEngine(model, slots=GPT_SLOTS, cache_len=GPT_CACHE,
+                           prefill_buckets=GPT_BUCKETS, seed=GPT_SEED, device=GPT_DEVICE)
+    srv = GenerationServer(eng, port=0, queue_capacity=2 * GPT_REQUESTS)
+    t0 = time.perf_counter()
+    srv.start()
+    warm_s = time.perf_counter() - t0
+    out = [None] * GPT_REQUESTS
+    gaps = []
+    try:
+        if _http(srv.url + "/healthz")[0] != 200:
+            raise AssertionError("gpt: /healthz not ready after warmup")
+
+        def post(i):
+            prompt, new = reqs[i]
+            body = {"prompt": prompt, "max_new_tokens": new, "temperature": 0.0}
+            if i < GPT_STREAMED:
+                toks, final, times = _stream(srv.url, dict(body, stream=True))
+                if final is None or final.get("tokens") != toks:
+                    raise AssertionError(f"gpt: stream {i} ended {final}")
+                gaps.extend(np.diff(times) * 1e3)
+                out[i] = toks
+            else:
+                status, ans = _http(srv.url + "/generate", body)
+                if status != 200:
+                    raise AssertionError(f"gpt: request {i} answered {status}: {ans}")
+                out[i] = ans["tokens"]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(GPT_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        statz = _http(srv.url + "/statz")[1]
+    finally:
+        srv.stop(drain=True)
+    if any(o is None for o in out):
+        raise AssertionError(f"gpt: {sum(o is None for o in out)} requests got no answer")
+    tokens = sum(len(o) for o in out)
+    solo = [solo_eng.generate([p], max_new_tokens=n, temperature=0.0)[0]
+            for p, n in reqs[:GPT_SOLO]]
+    same = sum(a == b for a, b in zip(out[:GPT_SOLO], solo))
+    r = {"requests": GPT_REQUESTS, "streamed": GPT_STREAMED, "warmup_s": warm_s,
+         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+         "inter_token_ms": {"p50": float(np.percentile(gaps, 50)),
+                            "p99": float(np.percentile(gaps, 99)), "count": len(gaps)},
+         "statz_latency": statz["latency"], "statz_compiles": statz["compiles"],
+         "solo_equal": f"{same}/{GPT_SOLO}", "extra_compiles": eng.extra_compiles(),
+         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"gpt HTTP: {r}")
+    if same != GPT_SOLO or statz["compiles"]["unexpected"] or eng.extra_compiles() \
+            or statz["compiles"]["programs"] != len(GPT_BUCKETS) + 1:
+        raise AssertionError(f"gpt: co-batched answers part from solo runs, or the requests "
+                             f"captured graphs: {r}")
+    return r
+
+
+def serve_gpt():
+    """Phase 12i. GPT-2 small at full width (``GPTConfig()``: 12 layers, 768
+    wide, 12 heads, 1024 positions, a 50,304-token vocabulary; 124,475,904
+    parameters from a seed, eval) through ``GenerationEngine`` (16 slots, a
+    ring of 1024, prefill buckets 64-512, f32) and ``GenerationServer``.
+    Returns (the port's kernel launches over the phase, which must be none:
+    the path is pre-norm and cached, plain PyTorch as in the JAX package;
+    readings)."""
+    import torch
+
+    from paddle_tpu_torch.generation import GenerationEngine
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _gpt_model()
+    params = sum(p.numel() for p in model.parameters())
+    if params != GPT_PARAMS:
+        raise AssertionError(f"gpt: {params} parameters, GPT-2 small has {GPT_PARAMS}")
+    reset_launch_counts()
+    eng = GenerationEngine(model, slots=GPT_SLOTS, cache_len=GPT_CACHE,
+                           prefill_buckets=GPT_BUCKETS, seed=GPT_SEED, device=GPT_DEVICE)
+    t0 = time.perf_counter()
+    eng.warmup()
+    r = {"params": params, "param_bytes": eng.param_nbytes(), "kv_cache_bytes": eng.cache_nbytes(),
+         "kv_bytes_per_token": eng.kv_bytes_per_token(), "warmup_s": time.perf_counter() - t0,
+         "graphs_after_warmup": eng.graphs()}
+    log(f"gpt engine warm: {r}")
+    if eng.graphs() != eng.expected_compiles() or eng.compile_count() != len(GPT_BUCKETS) + 1:
+        raise AssertionError(f"gpt: warmup captured {eng.graphs()} graphs for "
+                             f"{len(GPT_BUCKETS)} buckets + decode")
+    r["parity"] = _gpt_parity(model, eng)
+    r["ring_wrap"] = _gpt_ring_wrap(model)
+    r.update(_gpt_captured_vs_eager(eng, model))
+    r["sampling"] = _gpt_sampling(eng)
+    eng.reset()
+    r["http"] = _gpt_http(model, eng)
+    r["extra_compiles"] = eng.extra_compiles()
+    r["graphs"] = eng.graphs()
+    if r["extra_compiles"] or r["graphs"] != len(GPT_BUCKETS) + 1:
+        raise AssertionError(f"gpt: the engine captured after warmup: {r['extra_compiles']}")
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"gpt: the generation path launched the port's kernels: {counts}")
+    p = GPT_BUCKETS[-1]
+    cfg = model.config
+    h, f, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    flops = p * (2 * layers * (4 * h * h + 2 * h * f) + 4 * GPT_CACHE * h * layers
+                 + 2 * h * cfg.vocab_size)
+    r["prefill_bound_ms"] = {p: max(flops / FP32_FLOPS_PER_S,
+                                    eng.param_nbytes() / HBM_BYTES_PER_S) * 1e3}
+    r["prefill_flops"] = {p: flops}
+    r["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"gpt: phase done in {r['phase_s']:.1f} s, peak {r['peak_memory_gib']:.2f} GiB; "
+        f"prefill bound at {p}: {r['prefill_bound_ms'][p]:.3f} ms ({flops / 1e9:.1f} GFLOP)")
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts, r
+
+
 # -- the int8 serving path and the pool backward --------------------------------
 
 # the served program: the part of BERT-base the int8 rewrite computes in int8
@@ -5981,6 +6457,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lamb_counts, lamb = train_bert_lamb(compiled["bert_amp"]["captured"]["step_ms_median"])
     lenet_opt_counts, lenet_opt = train_lenet_optimizers()
+    gpt_counts, gpt = serve_gpt()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -5992,15 +6469,18 @@ def main() -> int:
                                   + lamb_counts.get(name, 0) + lenet_opt_counts.get(name, 0))
         # the LeNet program's steps, replayed from the static executor's graph
         k["launches_static"] = lenet_counts.get(name, 0)
+        # GPT-2 small's generation (pre-norm, cached attention): none, checked
+        k["launches_generation"] = gpt_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
-                         + k["launches_static"])
+                         + k["launches_static"] + k["launches_generation"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
     print(card)
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
                       "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s,
-                      "lenet_static": lenet, "bert_lamb": lamb, "lenet_optimizers": lenet_opt}))
+                      "lenet_static": lenet, "bert_lamb": lamb, "lenet_optimizers": lenet_opt,
+                      "gpt_generation": gpt}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ from .device import resolve_device
 from .framework.serialization import load
 from .models.bert import (BertConfig, BertForPretraining, BertModel, ErnieForPretraining,
                           ernie_base_config)
+from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.resnet import resnet50
 from .models.seq2seq import TransformerSeq2Seq
 from .nn.layers import Embedding, LayerNorm, Linear
@@ -43,7 +44,8 @@ __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_nu
            "load_bert_pretraining", "load_ernie_pretraining", "seq2seq_state_from_numpy",
            "load_seq2seq", "adamw_state_from_numpy", "resnet_state_from_numpy",
            "load_resnet", "momentum_state_from_numpy", "int8_model_from_numpy",
-           "load_int8_model", "scope_from_numpy", "optimizer_state_from_numpy"]
+           "load_int8_model", "scope_from_numpy", "optimizer_state_from_numpy",
+           "gpt_state_from_numpy", "load_gpt"]
 
 _TIED = ("cls.decoder_weight", "bert.embeddings.word_embeddings.weight")
 
@@ -156,6 +158,23 @@ def load_seq2seq(path, device=None, **model_kwargs) -> TransformerSeq2Seq:
     ``state_dict()``."""
     model = TransformerSeq2Seq(**model_kwargs)
     model.load_state_dict(seq2seq_state_from_numpy(load(path, return_numpy=True), model))
+    return model if device is None else model.to(device)
+
+
+def gpt_state_from_numpy(np_state, model: GPTForCausalLM) -> dict:
+    """A state dict for the port's :class:`~paddle_tpu_torch.models.GPTForCausalLM`
+    (or ``GPTModel``) from the ``paddle_tpu`` model's state dict of numpy
+    arrays, by name and shape."""
+    return _state_from_numpy(np_state, model)
+
+
+def load_gpt(path, cfg: GPTConfig | None = None, device=None) -> GPTForCausalLM:
+    """A :class:`GPTForCausalLM` of ``cfg`` (GPT-2 small unless given),
+    eval mode, holding the weights of a ``paddle_tpu.save`` file of a
+    ``paddle_tpu`` ``GPTForCausalLM.state_dict()``."""
+    model = GPTForCausalLM(cfg or GPTConfig())
+    model.load_state_dict(gpt_state_from_numpy(load(path, return_numpy=True), model))
+    model.eval()
     return model if device is None else model.to(device)
 
 

@@ -144,3 +144,74 @@ define_flag("check_nan_inf_action", "raise",
 define_flag("checkpoint_async", True,
             "serialize + fsync checkpoints in a background thread "
             "(off the training step critical path)")
+
+# generation/engine.py — capacity (tokens) of the ring KV cache of each
+# decode slot; past it the ring overwrites the oldest token (sliding-window
+# attention of this width, which the model computes when its
+# attention_window is the same).
+define_flag("generation_kv_cache_len", 256,
+            "per-slot ring KV cache capacity (tokens) for autoregressive "
+            "decoding; also the sliding attention window width")
+
+# generation/engine.py — storage dtype of the ring KV cache. The port keeps
+# float32; int8 (QuantizedStaticCache) raises UnimplementedError.
+define_flag("generation_kv_cache_dtype", "float32",
+            "KV cache storage dtype for decoding: float32 | int8 "
+            "(int8: per-head dynamic scales, ~4x fewer cache bytes)")
+
+# generation/engine.py — physical layout of the decode KV store. The port
+# keeps the per-slot ring; paged raises UnimplementedError.
+define_flag("kv_cache_layout", "ring",
+            "decode KV cache layout: ring (per-slot contiguous) | paged "
+            "(shared page pool + per-slot page tables with copy-on-write "
+            "prefix reuse)")
+
+# generation/engine.py — the prompt-length bucket ladder of prefill: a
+# prompt pads up to the smallest covering bucket, one captured graph each.
+define_flag("generation_prefill_buckets", "16,32,64,128",
+            "comma-separated ascending prompt-length buckets for "
+            "generation prefill; each bucket is one compiled shape")
+
+# generation/engine.py + serving/continuous.py — decode slots of the one
+# decode graph; a finished sequence vacates its slot mid-batch.
+define_flag("generation_decode_slots", 4,
+            "decode slots co-batched in the compiled generation step "
+            "(continuous batching admits into vacant slots mid-batch)")
+
+# generation/engine.py — default generation budget of a request.
+define_flag("generation_max_new_tokens", 64,
+            "default max tokens generated per request (requests may "
+            "override below the model's position limit)")
+
+# generation/engine.py — default sampling temperature; 0 = greedy. A
+# request's temperature is a device input of the graphs.
+define_flag("generation_temperature", 0.0,
+            "default sampling temperature (0: greedy argmax); "
+            "per-request override is compile-free")
+
+# generation/engine.py — top-k filter width (0: off); engine-wide, as it
+# shapes the captured graphs.
+define_flag("generation_top_k", 0,
+            "top-k sampling filter for generation (0: full distribution); "
+            "engine-level — changing it recompiles the decode step")
+
+# serving/continuous.py — bounded admission queue of generation requests
+# (full: QueueFullError, HTTP 429).
+define_flag("generation_queue_capacity", 128,
+            "max generation requests queued for decode slots before "
+            "rejecting (backpressure: HTTP 429)")
+
+# generation/engine.py check_memory_budget — the engine's weights and KV
+# cache against the card's memory (torch.cuda.mem_get_info) at
+# construction: off | warn | strict.
+define_flag("memory_budget_check", "warn",
+            "static peak-HBM admission before compile: off | warn | "
+            "strict (strict rejects over-budget programs and unsafe "
+            "donations with the high-water op named)")
+
+# serving/server.py GenerationServer — the backend's role. The port serves
+# generate; prefill and decode (the disaggregated tiers) raise
+# UnimplementedError.
+define_flag("backend_kind", "generate",
+            "generation backend role: generate | prefill | decode "
+            "(disaggregated fleets run distinct prefill/decode tiers)")

@@ -14,6 +14,15 @@ from .bert import (  # noqa: F401
     ernie_base_config,
     knowledge_masking,
 )
+from .gpt import (  # noqa: F401
+    GPTConfig,
+    GPTForCausalLM,
+    GPTModel,
+    gpt_tiny_config,
+    load_gpt_model,
+    save_gpt_model,
+    truncated_draft,
+)
 from .lenet import LeNet  # noqa: F401
 from .resnet import (  # noqa: F401
     BasicBlock,

@@ -1,27 +1,44 @@
-"""Transformer stack of the serving, training and seq2seq paths (``paddle_tpu/nn/transformer.py``).
+"""Transformer stack of the serving, training, seq2seq and generation paths (``paddle_tpu/nn/transformer.py``).
 
-The non-cache attention path with its flash dispatch (``:290-327`` of the
-JAX module; a separate key and value make it cross-attention), the
-post-norm encoder and decoder layers whose residual-add + LayerNorm pairs
-go through the fused kernel (``_residual_norm``, ``:28-43``), the encoder
-and decoder stacks and the encoder-decoder ``Transformer`` (``:576-704``).
-Incremental KV caches (a ``cache`` argument raises), ``kdim``/``vdim``,
-``need_weights`` and ring/Ulysses attention are not ported yet.
+The attention with its flash dispatch (``:290-327`` of the JAX module; a
+separate key and value make it cross-attention), the post-norm encoder and
+decoder layers whose residual-add + LayerNorm pairs go through the fused
+kernel (``_residual_norm``, ``:28-43``), the encoder and decoder stacks and
+the encoder-decoder ``Transformer`` (``:576-704``).
+
+Incremental decoding (``:74-108``, ``:251-388``): a ``cache`` argument is
+either the concat cache ``(k, v)`` of :meth:`MultiHeadAttention.gen_cache`,
+which grows by the step's keys and values, or a :class:`StaticCache`, the
+fixed-shape ring ``[B, H, C, D]`` of :meth:`MultiHeadAttention.gen_static_cache`.
+The JAX package writes the ring functionally; the port writes the step's
+keys and values into the cache tensors **in place** (``index_put_`` at each
+row's ``pos % C``, a span at ``(pos + t) % C``) and hands the same tensors
+back, so a CUDA graph that decodes through them writes the engine's
+persistent buffers. A cached call never takes the flash kernel (the JAX
+package's rule), and a pre-norm block runs plain LayerNorms: the GPT path
+launches none of the hand-written kernels. The int8 and paged caches exist
+as types and raise :class:`~paddle_tpu_torch.errors.UnimplementedError`.
+``kdim``/``vdim``, ``need_weights`` and ring/Ulysses attention are not
+ported yet.
 """
 from __future__ import annotations
 
 import copy
+from typing import Any, NamedTuple
 
 import torch
 from torch import nn
 
+from ..errors import UnimplementedError
 from ..flags import flag
 from ..ops.cuda import flash_attention, layernorm_residual
 from . import functional as F
 from .layers import Dropout, LayerList, LayerNorm, Linear
 
 __all__ = ["FLASH_ATTENTION_MIN_SEQ", "MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder", "TransformerDecoderLayer", "TransformerDecoder", "Transformer"]
+           "TransformerEncoder", "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
+           "StaticCache", "QuantizedStaticCache", "PagedStaticCache", "QuantizedPagedCache",
+           "causal_mask"]
 
 # Key length from which use_flash_attention dispatches to the flash kernel.
 # The value is the JAX package's; the H100 crossover is not measured yet.
@@ -62,10 +79,82 @@ def _convert_attention_mask(attn_mask, dtype):
     return attn_mask
 
 
+def causal_mask(length, window=None, dtype="float32", device=None):
+    """The additive causal mask ``[length, length]`` (-1e9 where masked);
+    ``window=W`` also masks keys more than ``W - 1`` positions behind the
+    query (sliding-window attention): the full-sequence equivalent of
+    decoding through a ring cache of capacity ``W``. Made on ``device``
+    (a capture on the card copies nothing from the host)."""
+    i = torch.arange(length, device=device)[:, None]
+    j = torch.arange(length, device=device)[None, :]
+    keep = j <= i
+    if window is not None:
+        keep = keep & (j > i - int(window))
+    return torch.where(keep, torch.zeros((), dtype=getattr(torch, dtype), device=device),
+                       torch.full((), -1e9, dtype=getattr(torch, dtype), device=device))
+
+
+class StaticCache(NamedTuple):
+    """The fixed-shape ring KV cache of ONE attention layer: ``k``/``v``
+    ``[B, H, C, D]`` (C the capacity) and ``pos [B]`` int32, the tokens each
+    row has written. A cached attention writes the step's keys and values at
+    ``pos % C`` in place; the caller's mask hides what is not yet written or
+    out of the window (``generation/cache.py``), and the caller advances
+    ``pos``."""
+
+    k: Any
+    v: Any
+    pos: Any
+
+
+class QuantizedStaticCache(NamedTuple):
+    """The int8 ring (int8 ``k``/``v`` with f32 per-head-vector scales
+    ``[B, H, C]``). Not ported: passing one raises
+    :class:`~paddle_tpu_torch.errors.UnimplementedError`."""
+
+    k: Any
+    v: Any
+    k_scale: Any
+    v_scale: Any
+    pos: Any
+
+
+class PagedStaticCache(NamedTuple):
+    """The ring over a shared page pool (``k``/``v`` ``[P, H, ps, D]``,
+    ``table [B, C // ps]``). Not ported: passing one raises."""
+
+    k: Any
+    v: Any
+    table: Any
+    pos: Any
+
+
+class QuantizedPagedCache(NamedTuple):
+    """The paged cache at int8 storage. Not ported: passing one raises."""
+
+    k: Any
+    v: Any
+    k_scale: Any
+    v_scale: Any
+    table: Any
+    pos: Any
+
+
+# the ROADMAP.md entries that bring the caches the port does not have
+_UNPORTED_CACHES = {
+    QuantizedStaticCache: "the int8 ring (ROADMAP.md Queue A item 3, entry 1)",
+    PagedStaticCache: "the paged layout (ROADMAP.md Queue A item 3, entry 2)",
+    QuantizedPagedCache: "the paged layout (ROADMAP.md Queue A item 3, entry 2)",
+}
+
+
 class MultiHeadAttention(nn.Module):
-    """Scaled dot-product multi-head attention, the non-cache path, with the
-    JAX signature. What is not ported raises: ``kdim``/``vdim`` other than
-    ``embed_dim``, ``need_weights``, ring and Ulysses attention."""
+    """Scaled dot-product multi-head attention with the JAX signature: the
+    plain and flash paths, and the cached paths of incremental decoding
+    (a :class:`StaticCache` ring written in place, or the ``(k, v)`` concat
+    cache). What is not ported raises: ``kdim``/``vdim`` other than
+    ``embed_dim``, ``need_weights``, ring and Ulysses attention, the int8 and
+    paged caches."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None, vdim=None,
                  need_weights=False, weight_attr=None, bias_attr=None, use_ring_attention=False,
@@ -98,18 +187,29 @@ class MultiHeadAttention(nn.Module):
         return x.reshape(b, l, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
 
     def forward(self, query, key=None, value=None, attn_mask=None, cache=None):
-        if cache is not None:
-            raise NotImplementedError("MultiHeadAttention: incremental KV caches are not "
-                                      "ported yet (ROADMAP.md Queue A item 7)")
+        """``out``, or ``(out, new_cache)`` when ``cache`` is given: the same
+        :class:`StaticCache` (its tensors written in place) or the grown
+        ``(k, v)``."""
+        if type(cache) in _UNPORTED_CACHES:
+            raise UnimplementedError(f"MultiHeadAttention: {type(cache).__name__} is not ported "
+                                     f"yet; it comes with {_UNPORTED_CACHES[type(cache)]}")
         key = query if key is None else key
         value = key if value is None else value
         q = self._shape(self.q_proj(query))
         k = self._shape(self.k_proj(key))
         v = self._shape(self.v_proj(value))
+        if isinstance(cache, StaticCache):
+            k, v, new_cache = self._update_static_cache(cache, k, v)
+        elif cache is not None:
+            pk, pv = cache
+            k = torch.cat([pk, k], dim=2)
+            v = torch.cat([pv, v], dim=2)
+            new_cache = (k, v)
         scale = float(self.head_dim) ** -0.5
         # in q's dtype, bf16 under AMP, as the JAX package makes it
         mask = _convert_attention_mask(attn_mask, q.dtype)
-        if self.use_flash_attention and k.shape[2] >= FLASH_ATTENTION_MIN_SEQ:
+        if (self.use_flash_attention and cache is None
+                and k.shape[2] >= FLASH_ATTENTION_MIN_SEQ):
             out = flash_attention.flash_attention(
                 q, k, v, bias=mask, scale=scale,
                 dropout_rate=self.dropout if self.training else 0.0)
@@ -122,7 +222,38 @@ class MultiHeadAttention(nn.Module):
                 weights = F.dropout(weights, p=self.dropout, training=self.training)
             out = F.matmul(weights, v)
         b, l = out.shape[0], out.shape[2]
-        return self.out_proj(out.transpose(1, 2).reshape(b, l, self.embed_dim))
+        out = self.out_proj(out.transpose(1, 2).reshape(b, l, self.embed_dim))
+        return out if cache is None else (out, new_cache)
+
+    def gen_cache(self, key, value=None, type=None):
+        """An empty concat cache ``(k, v)``, each ``[B, H, 0, D]``."""
+        shape = (key.shape[0], self.num_heads, 0, self.head_dim)
+        return (torch.zeros(shape, dtype=key.dtype, device=key.device),
+                torch.zeros(shape, dtype=key.dtype, device=key.device))
+
+    def gen_static_cache(self, batch, cache_len, dtype="float32", device=None):
+        """A zeroed :class:`StaticCache` of capacity ``cache_len``."""
+        shape = (int(batch), self.num_heads, int(cache_len), self.head_dim)
+        return StaticCache(torch.zeros(shape, dtype=getattr(torch, dtype), device=device),
+                           torch.zeros(shape, dtype=getattr(torch, dtype), device=device),
+                           torch.zeros((int(batch),), dtype=torch.int32, device=device))
+
+    @staticmethod
+    def _update_static_cache(cache, k, v):
+        """Write the step's ``k``/``v`` ``[B, H, T, D]`` into the ring in
+        place: row ``b`` writes its position ``t`` at ``(pos[b] + t) % C``
+        (decode is ``T = 1``). The index plane ``[B, T]`` addresses the
+        ``[B, C, H, D]`` view of each cache tensor, so the payload is laid
+        out ``[B, T, H, D]``, as the JAX scatter's split advanced indices
+        put it. Returns the whole windows and the cache."""
+        kc, vc, pos = cache
+        c, t = kc.shape[2], k.shape[2]
+        rows = torch.arange(kc.shape[0], device=kc.device)[:, None]
+        idx = torch.remainder(pos.to(torch.int64)[:, None]
+                              + torch.arange(t, device=kc.device)[None, :], c)
+        kc.transpose(1, 2)[rows, idx] = k.transpose(1, 2).to(kc.dtype)
+        vc.transpose(1, 2)[rows, idx] = v.transpose(1, 2).to(vc.dtype)
+        return kc, vc, cache
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -223,11 +354,18 @@ class TransformerDecoderLayer(nn.Module):
         return _residual_norm(norm, x, dropout(fn(x)))
 
     def forward(self, tgt, memory=None, tgt_mask=None, memory_mask=None, cache=None):
-        if cache is not None:
-            raise NotImplementedError("TransformerDecoderLayer: incremental KV caches are not "
-                                      "ported yet (ROADMAP.md Queue A item 7)")
-        tgt = self._sublayer(self.norm1, self.dropout1, tgt,
-                             lambda x: self.self_attn(x, x, x, tgt_mask))
+        """``tgt``, or ``(tgt, new_cache)`` when the self-attention's
+        ``cache`` is given (:meth:`MultiHeadAttention.forward`)."""
+        new_cache = []
+
+        def self_attn(x):
+            if cache is None:
+                return self.self_attn(x, x, x, tgt_mask)
+            out, c = self.self_attn(x, x, x, tgt_mask, cache)
+            new_cache.append(c)
+            return out
+
+        tgt = self._sublayer(self.norm1, self.dropout1, tgt, self_attn)
         if self.cross_attn is not None:
             if memory is None:
                 raise ValueError("this TransformerDecoderLayer was built with cross-attention; "
@@ -235,8 +373,9 @@ class TransformerDecoderLayer(nn.Module):
                                  "for decoder-only use)")
             tgt = self._sublayer(self.norm2, self.dropout2, tgt,
                                  lambda x: self.cross_attn(x, memory, memory, memory_mask))
-        return self._sublayer(self.norm3, self.dropout3, tgt, lambda x: self.linear2(
+        tgt = self._sublayer(self.norm3, self.dropout3, tgt, lambda x: self.linear2(
             self.dropout(self.activation(self.linear1(x)))))
+        return tgt if cache is None else (tgt, new_cache[0])
 
 
 class TransformerDecoder(nn.Module):

@@ -1,4 +1,5 @@
-"""Online serving of the port: batcher, replica pool, HTTP server."""
+"""Online serving of the port: batcher, replica pool, HTTP servers, and continuous
+batching of generation."""
 from .batcher import (  # noqa: F401
     DeadlineExceededError,
     DynamicBatcher,
@@ -6,5 +7,6 @@ from .batcher import (  # noqa: F401
     ServingClosedError,
     parse_buckets,
 )
+from .continuous import ContinuousBatcher, GenerationRequest  # noqa: F401
 from .replica import ReplicaPool, predictor_input_specs  # noqa: F401
-from .server import InferenceServer  # noqa: F401
+from .server import GenerationServer, InferenceServer  # noqa: F401

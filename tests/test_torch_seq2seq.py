@@ -181,12 +181,18 @@ def test_transformer_base_defaults_and_embedding_init():
 
 
 def test_kv_cache_and_missing_memory_raise():
+    """The int8 and paged caches raise, naming their ROADMAP entries (the
+    ring and concat caches are ported: ``tests/test_torch_gpt.py``)."""
+    from paddle_tpu_torch.errors import UnimplementedError
+    from paddle_tpu_torch.nn.transformer import PagedStaticCache, QuantizedStaticCache
+
     layer = port_nn.TransformerDecoderLayer(D, HEADS, FFN, dropout=0.0)
     x = torch.zeros(1, 3, D)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        layer(x, x, cache=(x, x))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        layer.self_attn(x, cache=(x, x))
+    q = QuantizedStaticCache(x, x, x, x, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 1"):
+        layer(x, x, cache=q)
+    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 2"):
+        layer.self_attn(x, cache=PagedStaticCache(x, x, x, q.pos))
     with pytest.raises(ValueError, match="with_cross_attention=False"):
         layer(x)
     with pytest.raises(NotImplementedError, match="kdim"):
