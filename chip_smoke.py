@@ -206,6 +206,25 @@ Phases, each fatal on failure:
     unexpected capture, tokens/s and inter-token times; none of the port's
     kernels runs on this path (pre-norm, cached: plain PyTorch, as the JAX
     package's);
+12j. the same GPT-2 small weights through the int8 ring and the paged layout
+    (``serve_gpt_paged``), each against an f32 ring of 16 x 1024: the int8
+    ring's bytes exactly 19,584 / 73,728 of the f32 ring's and equal to its
+    plan, ``quantize_kv`` on the card bit-equal to the CPU's on GPT-2's K/V
+    planes, 256 cached positions and a ring of 128 past its wrap within 5%
+    of the card's f32 forward's largest logit (the JAX package's envelope; a
+    4-bit grid the control it must catch), argmax equal wherever the f32
+    top-two gap exceeds twice the int8 error there, and its timings as
+    12i's; the paged layout in f32 (page 16, the default pool) bit-equal to
+    the ring where no full page is shared, a ring of 128 wrapped back into
+    pages the prefix index holds with the ring's tokens (copy-on-write; on a
+    pool of one window, eviction and the index's pressure valve),
+    prompts sharing a 256-token system prompt within 3e-5 of the ring's
+    logits, its decode step against the ring's; then 64 HTTP requests over
+    4 tenants (a 256-token system prompt each, 16-128 unique tokens, 32-128
+    new, 4 streamed) to a paged int8 server of 32 slots and to the f32 ring
+    at 16: 60 prefix hits in ``/statz`` ``paging``, answers checked for
+    length and EOS, tokens/s, TTFT and inter-token times; no capture after
+    warmup, none of the port's kernels launched;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -3638,9 +3657,20 @@ def compiled_timing(make_model, make_step, batch, label, units, unit_name):
         step = make_step(model, jit)
         prandom.seed(PARITY_SEED)
         losses, step_ms, wall_ms, counts, peak = _timed_steps(step, batch, COMPILED_STEPS)
-        reset_launch_counts()
-        prof = _profile_step(step, batch, f"{label} {name} step profiled")
-        profiled = _check_profiled_launches(prof, launch_counts(), f"{label} {name}")
+        # a profile that parts from the booking is taken again, as in
+        # _profile_run: the tracer now and then misses one of a step's first
+        # kernels; a step that dropped or repeated a launch parts every time
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            reset_launch_counts()
+            prof = _profile_step(step, batch, f"{label} {name} step profiled")
+            try:
+                profiled = _check_profiled_launches(prof, launch_counts(), f"{label} {name}")
+                break
+            except AssertionError as e:
+                if attempt == PROFILE_ATTEMPTS:
+                    raise
+                log(f"{label} {name}: profile {attempt} of {PROFILE_ATTEMPTS} parts from the "
+                    f"booking, taken again: {e}")
         by_kind, events = _device_time_by_kind(prof)
         dev_ms, host_ms = _step_device_ms(step, batch)
         median = float(np.median(step_ms))
@@ -3784,12 +3814,20 @@ def compiled_eval_resnet_amp():
                 step(x)
                 torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / COMPILED_EVAL_CALLS
-            reset_launch_counts()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                step(x)
-                torch.cuda.synchronize()
-            profiled = _check_profiled_launches(prof, launch_counts(),
-                                                f"ResNet AMP eval_step batch {batch} {name}")
+            label = f"ResNet AMP eval_step batch {batch} {name}"
+            for attempt in range(1, PROFILE_ATTEMPTS + 1):  # as _profile_run
+                reset_launch_counts()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    step(x)
+                    torch.cuda.synchronize()
+                try:
+                    profiled = _check_profiled_launches(prof, launch_counts(), label)
+                    break
+                except AssertionError as err:
+                    if attempt == PROFILE_ATTEMPTS:
+                        raise
+                    log(f"{label}: profile {attempt} of {PROFILE_ATTEMPTS} parts from the "
+                        f"booking, taken again: {err}")
             by_kind, events = _device_time_by_kind(prof)
             r[name] = {"logits": got, "counts": counts, "wall_ms": wall,
                        "busy_ms": sum(by_kind.values()), "device_events": events,
@@ -5770,6 +5808,436 @@ def serve_gpt():
     return counts, r
 
 
+# -- GPT-2 small: the int8 ring and the paged layout (phase 12j) ----------------------------
+
+GPT_PAGE = 16
+# int8 logits against the card's uncached f32 forward, relative to its
+# largest |logit|: the JAX package's int8 envelope (tests/test_quant_e2e.py:113)
+GPT_INT8_ENVELOPE = 0.05
+GPT_INT8_CONTROL_BNT = 7.0  # a 4-bit grid: the control read the envelope must catch
+GPT_SHARED_SUFFIXES, GPT_SHARED_NEW = (16, 40, 100, 128), 32  # prefix-reuse parity
+GPT_PAGED_SLOTS = 32  # the paged int8 server: twice the f32 ring's slots
+GPT_SYSTEM_PROMPTS, GPT_SYSTEM_LEN = 4, 256  # 16 full pages each
+GPT_PAGED_REQUESTS, GPT_PAGED_STREAMED, GPT_TENANTS = 64, 4, 4
+GPT_SUFFIX_LENS, GPT_PAGED_NEW_LENS = (16, 128), (32, 128)
+
+
+def _decode_forced(eng, slots, prompts, tokens):
+    """``prompts`` admitted into ``slots`` and decoded along the given
+    ``tokens`` (teacher forcing: each step is fed the given token, not the
+    engine's own): the logits of every position ``[len(tokens), V]`` by
+    slot, on the host."""
+    import torch
+
+    rows = {}
+    for s, p in zip(slots, prompts):
+        eng.admit(s, p, 0.0)
+        rows[s] = [eng.last_logits[0].to("cpu", copy=True)]
+    last = np.zeros(eng.slots, np.int32)
+    temps = np.zeros(eng.slots, np.float32)
+    for i in range(len(tokens[slots[0]]) - 1):
+        for s in slots:
+            last[s] = tokens[s][i]
+        eng.step(last, temps)
+        logits = eng.last_logits.to("cpu", copy=True)
+        for s in slots:
+            rows[s].append(logits[s])
+    return {s: torch.stack(r) for s, r in rows.items()}
+
+
+def _int8_read(model, prompts, toks, cached):
+    """(the largest error relative to the full forward's largest |logit|,
+    positions held, held positions whose argmax parts, positions): a
+    position is held where the f32 top-two gap is above twice the int8
+    logits' own largest error there, so equal argmaxes are implied."""
+    rel, held, wrong, n = 0.0, 0, 0, 0
+    for s, p in enumerate(prompts):
+        full = _full_logits(model, p + toks[s][:-1], GPT_CACHE)[len(p) - 1:].cpu()
+        rel = max(rel, _rel_max(cached[s], full))
+        err = (cached[s] - full).abs().amax(-1)
+        top2 = full.topk(2, dim=-1).values
+        h = (top2[:, 0] - top2[:, 1]) > 2 * err
+        held += int(h.sum())
+        wrong += int((h & (cached[s].argmax(-1) != full.argmax(-1))).sum())
+        n += full.shape[0]
+    return rel, held, wrong, n
+
+
+def _gpt_int8_ring(model, ring):
+    """12j step 1: the int8 ring, 16 slots x 1024: its bytes against the
+    f32 ring's and the plan; ``quantize_kv`` on the card bit-equal to the
+    CPU's on GPT-2's K/V planes; 256 cached positions and a ring of 128 past
+    its wrap within the int8 envelope of the card's f32 forward (a 4-bit
+    grid the control), argmax equal where implied; then the int8 engine's
+    timings (``_gpt_captured_vs_eager``)."""
+    import torch
+
+    from paddle_tpu_torch.generation import GenerationEngine
+    from paddle_tpu_torch.nn import transformer as ptf
+
+    vocab = model.config.vocab_size
+    t0 = time.perf_counter()
+    eng = GenerationEngine(model, slots=GPT_SLOTS, cache_len=GPT_CACHE,
+                           prefill_buckets=GPT_BUCKETS, kv_cache_dtype="int8", seed=GPT_SEED,
+                           device=GPT_DEVICE).warmup()
+    pos_bytes = 4 * GPT_SLOTS
+    cfg = model.config
+    per_token = eng.kv_bytes_per_token()  # 19,584 at GPT-2 small: 2 x 12 x 12 x (64 + 4)
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    r = {"warmup_s": time.perf_counter() - t0, "graphs": eng.graphs(),
+         "kv_bytes_per_token": per_token, "cache_bytes": eng.cache_nbytes(),
+         "f32_ring_cache_bytes": ring.cache_nbytes(),
+         "plan_bytes": eng.hbm_required_bytes() - eng.param_nbytes(),
+         "tensor_bytes": sum(t.numel() * t.element_size() for t in eng.kv)}
+    r["bytes_ratio"] = (r["f32_ring_cache_bytes"] - pos_bytes) / (r["cache_bytes"] - pos_bytes)
+    log(f"gpt int8 ring: {r}")
+    if not (r["cache_bytes"] == r["plan_bytes"] == r["tensor_bytes"]
+            == GPT_SLOTS * GPT_CACHE * per_token + pos_bytes
+            and per_token == 2 * cfg.num_hidden_layers * cfg.num_attention_heads * (head_dim + 4)
+            and (r["f32_ring_cache_bytes"] - pos_bytes) * per_token
+            == (r["cache_bytes"] - pos_bytes) * ring.kv_bytes_per_token()
+            and r["graphs"] == len(GPT_BUCKETS) + 1):
+        raise AssertionError(f"gpt int8: bytes or graphs off the plan: {r}")
+    # quantize_kv on the card against the CPU on the same K/V planes
+    rng = np.random.RandomState(GPT_SEED + 4)
+    ring.admit(0, _gpt_prompt(rng, GPT_BUCKETS[-1], vocab))
+    same = True
+    for plane in ring.kv[:2]:
+        x = plane[:, 0, :, :GPT_BUCKETS[-1]].contiguous()  # [L, H, 512, D]
+        q, s = ptf.quantize_kv(x)
+        qc, sc = ptf.quantize_kv(x.cpu())
+        same = same and torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    ring.reset()
+    r["quantize_kv_card_equals_cpu"] = same
+    # 256 cached positions against the card's uncached f32 forward
+    rs = np.random.RandomState(GPT_SEED)
+    prompts = [_gpt_prompt(rs, n, vocab) for n in GPT_PARITY_PROMPTS]
+    slots = list(range(len(prompts)))
+    toks, cached = _decode_logged(eng, slots, prompts, GPT_NEW)
+    rel, held, wrong, n = _int8_read(model, prompts, toks, cached)
+    # the control: the same read on a 4-bit grid, eager (a graph keeps the
+    # grid it was captured with)
+    eng.reset()
+    eng.jit = False
+    ptf.KV_QUANT_BNT = GPT_INT8_CONTROL_BNT
+    try:
+        control = _decode_forced(eng, slots, prompts, toks)
+    finally:
+        ptf.KV_QUANT_BNT = 127.0
+        eng.jit = True
+    rel_control = _int8_read(model, prompts, toks, control)[0]
+    eng.reset()
+    # past the wrap of a ring of 128
+    w8 = GenerationEngine(model, slots=1, cache_len=GPT_WRAP_CACHE,
+                          prefill_buckets=GPT_WRAP_BUCKETS, kv_cache_dtype="int8",
+                          seed=GPT_SEED, device=GPT_DEVICE).warmup()
+    wprompt = _gpt_prompt(np.random.RandomState(GPT_SEED + 1), GPT_WRAP_PROMPT, vocab)
+    wtoks, wcached = _decode_logged(w8, [0], [wprompt], GPT_WRAP_NEW)
+    wfull = _full_logits(model, wprompt + wtoks[0][:-1], GPT_WRAP_CACHE)[len(wprompt) - 1:].cpu()
+    werr = (wcached[0] - wfull).abs().amax(-1)
+    top2 = wfull.topk(2, dim=-1).values
+    wheld = (top2[:, 0] - top2[:, 1]) > 2 * werr
+    r.update({"positions": n, "int8_vs_f32_rel": rel, "control_4bit_rel": rel_control,
+              "envelope_rel": GPT_INT8_ENVELOPE, "argmax_held": held, "argmax_differing": wrong,
+              "wrap_rel": _rel_max(wcached[0], wfull), "wrap_held": int(wheld.sum()),
+              "wrap_differing": int((wheld & (wcached[0].argmax(-1) != wfull.argmax(-1))).sum()),
+              "wrap_graphs": w8.graphs(), "wrap_extra_compiles": w8.extra_compiles()})
+    del w8
+    log(f"gpt int8 read: {r}")
+    if not (same and rel <= GPT_INT8_ENVELOPE < rel_control and not wrong
+            and r["wrap_rel"] <= GPT_INT8_ENVELOPE and not r["wrap_differing"]
+            and r["wrap_graphs"] == len(GPT_WRAP_BUCKETS) + 1 and not r["wrap_extra_compiles"]):
+        raise AssertionError(f"gpt int8: outside the envelope, the 4-bit control inside it, an "
+                             f"implied argmax parted, or quantize_kv parted from the CPU: {r}")
+    r.update(_gpt_captured_vs_eager(eng, model))
+    r["extra_compiles"] = eng.extra_compiles()
+    if r["extra_compiles"] or eng.graphs() != len(GPT_BUCKETS) + 1:
+        raise AssertionError(f"gpt int8: the engine captured after warmup: {r}")
+    del eng
+    return r
+
+
+def _fill_slots(eng, rng, vocab):
+    """Every slot admitted with a prompt of 16-500 tokens; the last tokens."""
+    last = np.zeros(eng.slots, np.int32)
+    for s in range(eng.slots):
+        n = int(rng.randint(GPT_PROMPT_LENS[0], GPT_PROMPT_LENS[1] + 1))
+        last[s] = eng.admit(s, _gpt_prompt(rng, n, vocab))
+    return last
+
+
+def _gpt_paged_f32(model, ring):
+    """12j step 2: the paged layout in f32 (page 16, 16 slots, the default
+    pool): bit-equal to the ring where no full page is shared; a ring of 128
+    wrapped back into pages the prefix index holds (copy-on-write), tokens
+    equal to the ring's, and again on a pool of one window after another
+    prompt (LRU eviction at admission, the index forgetting the chain at
+    the wrap); prompts sharing a 256-token prefix, logits within
+    3e-5 of the ring's largest, tokens equal where its gap is above 1e-3;
+    the decode step captured, eager and against the ring's."""
+    import torch
+
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    vocab = model.config.vocab_size
+    kw = dict(kv_cache_layout="paged", kv_page_size=GPT_PAGE, seed=GPT_SEED, device=GPT_DEVICE)
+    t0 = time.perf_counter()
+    eng = GenerationEngine(model, slots=GPT_SLOTS, cache_len=GPT_CACHE,
+                           prefill_buckets=GPT_BUCKETS, **kw).warmup()
+    st = eng.paging_stats()
+    r = {"warmup_s": time.perf_counter() - t0, "graphs": eng.graphs(),
+         "pages": st["pages_total"], "page_nbytes": st["page_nbytes"],
+         "cache_bytes": eng.cache_nbytes(),
+         "plan_bytes": eng.hbm_required_bytes() - eng.param_nbytes()}
+    if not (r["pages"] == GPT_SLOTS * GPT_CACHE // GPT_PAGE
+            and r["page_nbytes"] == GPT_PAGE * ring.kv_bytes_per_token()
+            and r["cache_bytes"] == r["plan_bytes"] and r["graphs"] == len(GPT_BUCKETS) + 1):
+        raise AssertionError(f"gpt paged: pool or graphs off the plan: {r}")
+    # no full page shared: bit-equal to the ring
+    rs = np.random.RandomState(GPT_SEED)
+    prompts = [_gpt_prompt(rs, n, vocab) for n in GPT_PARITY_PROMPTS]
+    slots = list(range(len(prompts)))
+    ring.reset()
+    rtoks, rrows = _decode_logged(ring, slots, prompts, GPT_NEW)
+    ptoks, prows = _decode_logged(eng, slots, prompts, GPT_NEW)
+    r["unshared"] = {"tokens_equal": all(rtoks[s] == ptoks[s] for s in slots),
+                     "logits_bit_equal": all(torch.equal(rrows[s], prows[s]) for s in slots),
+                     "prefix_hits": eng.paging_stats()["prefix_index"]["hits"]}
+    # a ring of 128 decoded past its wrap, into pages the index holds; a
+    # pool of two windows has the pages to copy them (with one, the index
+    # would forget them instead: the pressure valve)
+    wkw = dict(slots=1, cache_len=GPT_WRAP_CACHE, prefill_buckets=GPT_WRAP_BUCKETS)
+    wring = GenerationEngine(model, seed=GPT_SEED, device=GPT_DEVICE, **wkw).warmup()
+    wpaged = GenerationEngine(model, kv_pool_pages=2 * GPT_WRAP_CACHE // GPT_PAGE, **wkw,
+                              **kw).warmup()
+    wprompt = _gpt_prompt(np.random.RandomState(GPT_SEED + 1), GPT_WRAP_PROMPT, vocab)
+    wr_toks, wr_rows = _decode_logged(wring, [0], [wprompt], GPT_WRAP_NEW)
+    wp_toks, wp_rows = _decode_logged(wpaged, [0], [wprompt], GPT_WRAP_NEW)
+    wst = wpaged.paging_stats()
+    # a pool of one window, another prompt's pages left in the index:
+    # admission evicts them (LRU) and the wrap takes the pressure valve
+    wvalve = GenerationEngine(model, kv_pool_pages=GPT_WRAP_CACHE // GPT_PAGE, **wkw,
+                              **kw).warmup()
+    other = _gpt_prompt(np.random.RandomState(GPT_SEED + 8), GPT_WRAP_PROMPT, vocab)
+    wvalve.generate([other], max_new_tokens=GPT_WRAP_CACHE - GPT_WRAP_PROMPT, temperature=0.0)
+    held = wvalve.paging_stats()["prefix_index"]["pages"]
+    wv_toks, wv_rows = _decode_logged(wvalve, [0], [wprompt], GPT_WRAP_NEW)
+    vst = wvalve.paging_stats()
+    r["wrap"] = {"tokens_equal": wr_toks[0] == wp_toks[0],
+                 "logits_max_abs_diff": float((wr_rows[0] - wp_rows[0]).abs().max()),
+                 "cow_copies": wst["cow_copies"], "index_pages": wst["prefix_index"]["pages"],
+                 "graphs": wpaged.graphs(), "extra_compiles": wpaged.extra_compiles(),
+                 "valve_tokens_equal": wr_toks[0] == wv_toks[0],
+                 "valve_logits_max_abs_diff": float((wr_rows[0] - wv_rows[0]).abs().max()),
+                 "valve_index_pages_before": held,
+                 "valve_evictions": vst["prefix_index"]["evictions"],
+                 "valve_cow_copies": vst["cow_copies"],
+                 "valve_extra_compiles": wvalve.extra_compiles()}
+    del wring, wpaged, wvalve
+    # prompts sharing a 256-token system prompt: the ring's tokens forced
+    # through the paged engine, which prefills only the suffixes
+    rs = np.random.RandomState(GPT_SEED + 5)
+    system = _gpt_prompt(rs, GPT_SYSTEM_LEN, vocab)
+    prompts = [system + _gpt_prompt(rs, n, vocab) for n in GPT_SHARED_SUFFIXES]
+    slots = list(range(len(prompts)))
+    ring.reset()
+    eng.reset()
+    rtoks, rrows = _decode_logged(ring, slots, prompts, GPT_SHARED_NEW)
+    prows = _decode_forced(eng, slots, prompts, rtoks)
+    rel, held, wrong = 0.0, 0, 0
+    for s in slots:
+        rel = max(rel, _rel_max(prows[s], rrows[s]))
+        top2 = rrows[s].topk(2, dim=-1).values
+        h = (top2[:, 0] - top2[:, 1]) > GPT_GAP
+        held += int(h.sum())
+        wrong += int((h & (prows[s].argmax(-1) != torch.tensor(rtoks[s]))).sum())
+    st = eng.paging_stats()
+    r["shared"] = {"prompts": [len(p) for p in prompts], "rel": rel, "limit_rel": GPT_LOGITS_RTOL,
+                   "tokens_held": held, "tokens_differing": wrong,
+                   "prefix_hits": st["prefix_index"]["hits"],
+                   "shared_tokens": st["per_tenant"]["default"]["shared_tokens"]}
+    log(f"gpt paged f32: {r}")
+    if not (r["unshared"]["tokens_equal"] and r["unshared"]["logits_bit_equal"]
+            and r["wrap"]["tokens_equal"] and r["wrap"]["cow_copies"] > 0
+            and not r["wrap"]["extra_compiles"] and r["wrap"]["valve_tokens_equal"]
+            and r["wrap"]["valve_evictions"] > r["wrap"]["valve_index_pages_before"] > 0
+            and not r["wrap"]["valve_extra_compiles"] and rel <= GPT_LOGITS_RTOL and not wrong
+            and r["shared"]["prefix_hits"] == len(prompts) - 1
+            and r["shared"]["shared_tokens"] == (len(prompts) - 1) * GPT_SYSTEM_LEN):
+        raise AssertionError(f"gpt paged: parts from the ring: {r}")
+    # the decode step at 16 busy slots: paged captured and eager, the ring's
+    rng = np.random.RandomState(GPT_SEED + 6)
+    ring.reset()
+    eng.reset()
+    last_r = _fill_slots(ring, rng, vocab)
+    last_p = _fill_slots(eng, np.random.RandomState(GPT_SEED + 6), vocab)
+    temps = np.zeros(GPT_SLOTS, np.float32)
+
+    def timed(e, last):
+        e.step(last, temps)
+        t = time.perf_counter()
+        for _ in range(GPT_TIMED):
+            e.step(last, temps)
+        return (time.perf_counter() - t) * 1e3 / GPT_TIMED
+
+    ring_ms = timed(ring, last_r)
+    captured_ms = timed(eng, last_p)
+    eng.jit = False
+    eager_ms = timed(eng, last_p)
+    eng.jit = True
+    captured2_ms, ring2_ms = timed(eng, last_p), timed(ring, last_r)
+    r["decode"] = {"captured_ms": [captured_ms, captured2_ms], "eager_ms": eager_ms,
+                   "ring_captured_ms": [ring_ms, ring2_ms]}
+    r["extra_compiles"] = eng.extra_compiles()
+    log(f"gpt paged f32 decode at 16 busy slots (host clock, tokens on the host): {r['decode']}")
+    if r["extra_compiles"]:
+        raise AssertionError(f"gpt paged: the engine captured after warmup: {r}")
+    ring.reset()
+    del eng
+    return r
+
+
+def _gpt_traffic(vocab):
+    """64 requests over 4 tenants: each a tenant's 256-token system prompt
+    (16 full pages) and 16-128 unique tokens, 32-128 new tokens; the first
+    4 streamed."""
+    rng = np.random.RandomState(GPT_SEED + 7)
+    systems = [_gpt_prompt(rng, GPT_SYSTEM_LEN, vocab) for _ in range(GPT_SYSTEM_PROMPTS)]
+    reqs = []
+    for i in range(GPT_PAGED_REQUESTS):
+        t = i % GPT_TENANTS
+        n = int(rng.randint(GPT_SUFFIX_LENS[0], GPT_SUFFIX_LENS[1] + 1))
+        reqs.append({"prompt": systems[t % GPT_SYSTEM_PROMPTS] + _gpt_prompt(rng, n, vocab),
+                     "max_new_tokens": int(rng.randint(GPT_PAGED_NEW_LENS[0],
+                                                       GPT_PAGED_NEW_LENS[1] + 1)),
+                     "temperature": 0.0, "tenant": f"tenant{t}"})
+    return reqs
+
+
+def _serve_traffic(srv, reqs, eos):
+    """``reqs`` posted at once to a started server: answers checked for
+    length and EOS; tokens/s (client clock), inter-token gaps of the
+    streamed ones, ``/statz``."""
+    out = [None] * len(reqs)
+    gaps = []
+
+    def post(i):
+        body = reqs[i]
+        if i < GPT_PAGED_STREAMED:
+            toks, final, times = _stream(srv.url, dict(body, stream=True))
+            if final is None or final.get("tokens") != toks:
+                raise AssertionError(f"gpt: stream {i} ended {final}")
+            gaps.extend(np.diff(times) * 1e3)
+            out[i] = toks
+        else:
+            status, ans = _http(srv.url + "/generate", body)
+            if status != 200:
+                raise AssertionError(f"gpt: request {i} answered {status}: {ans}")
+            out[i] = ans["tokens"]
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    statz = _http(srv.url + "/statz")[1]
+    bad = [i for i, (o, q) in enumerate(zip(out, reqs))
+           if o is None or not 1 <= len(o) <= q["max_new_tokens"]
+           or (len(o) < q["max_new_tokens"] and o[-1] != eos)]
+    if bad:
+        raise AssertionError(f"gpt: requests {bad} got no answer or a wrong length")
+    tokens = sum(len(o) for o in out)
+    return {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "inter_token_ms": {"p50": float(np.percentile(gaps, 50)),
+                               "p99": float(np.percentile(gaps, 99)), "count": len(gaps)},
+            "statz_latency": statz["latency"], "statz_compiles": statz["compiles"],
+            "paging": statz["paging"], "kv_cache_bytes": statz["generation"]["kv_cache_bytes"]}
+
+
+def _gpt_paged_http(model, ring):
+    """12j step 3: ``GenerationServer`` over a paged int8 engine (32 slots,
+    the default pool of 2048 + 1 pages) and over the f32 ring (16 slots),
+    the same 64 requests each; ``/statz`` ``paging``: 60 prefix hits."""
+    from paddle_tpu_torch.serving import GenerationServer
+
+    reqs = _gpt_traffic(model.config.vocab_size)
+    eos = model.config.eos_token_id
+    srv = GenerationServer(model, port=0, slots=GPT_PAGED_SLOTS, cache_len=GPT_CACHE,
+                           prefill_buckets=GPT_BUCKETS, kv_cache_dtype="int8",
+                           kv_cache_layout="paged", kv_page_size=GPT_PAGE,
+                           queue_capacity=2 * GPT_PAGED_REQUESTS, device=GPT_DEVICE)
+    t0 = time.perf_counter()
+    try:
+        srv.start()
+        warm_s = time.perf_counter() - t0
+        paged = _serve_traffic(srv, reqs, eos)
+        paged["extra_compiles"] = srv.engine.extra_compiles()
+    finally:
+        srv.stop(drain=True)
+    paged["warmup_s"] = warm_s
+    del srv
+    ring.reset()
+    rsrv = GenerationServer(ring, port=0, queue_capacity=2 * GPT_PAGED_REQUESTS)
+    try:
+        rsrv.start()
+        f32 = _serve_traffic(rsrv, reqs, eos)
+        f32["extra_compiles"] = ring.extra_compiles()
+    finally:
+        rsrv.stop(drain=True)
+    pg = paged["paging"]
+    prompt_tokens = sum(len(q["prompt"]) for q in reqs)
+    shared = sum(t["shared_tokens"] for t in pg["per_tenant"].values())
+    r = {"paged_int8_32_slots": paged, "ring_f32_16_slots": f32,
+         "prompt_tokens": prompt_tokens, "shared_tokens": shared,
+         "shared_share": shared / prompt_tokens}
+    log(f"gpt paged int8 HTTP: {r}")
+    hits = GPT_PAGED_REQUESTS - GPT_SYSTEM_PROMPTS
+    if not (pg["prefix_index"]["hits"] == hits and shared == hits * GPT_SYSTEM_LEN
+            and not paged["extra_compiles"] and not f32["extra_compiles"]
+            and not paged["statz_compiles"]["unexpected"]
+            and paged["statz_compiles"]["programs"] == len(GPT_BUCKETS) + 1
+            and paged["kv_cache_bytes"] == (pg["pages_total"] + 1) * pg["page_nbytes"]
+            + GPT_PAGED_SLOTS * (GPT_CACHE // GPT_PAGE * 4 + 4)):
+        raise AssertionError(f"gpt paged HTTP: prefix hits, bytes or captures off: {r}")
+    return r
+
+
+def serve_gpt_paged():
+    """Phase 12j. GPT-2 small (the weights of 12i, from its seed) through
+    the int8 ring, the paged layout in f32 and the paged layout in int8
+    behind ``GenerationServer``, each against the f32 ring (16 slots x 1024).
+    Returns (the port's kernel launches over the phase, which must be none;
+    readings)."""
+    import torch
+
+    from paddle_tpu_torch.generation import GenerationEngine
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _gpt_model()
+    reset_launch_counts()
+    ring = GenerationEngine(model, slots=GPT_SLOTS, cache_len=GPT_CACHE,
+                            prefill_buckets=GPT_BUCKETS, seed=GPT_SEED,
+                            device=GPT_DEVICE).warmup()
+    r = {"int8_ring": _gpt_int8_ring(model, ring), "paged_f32": _gpt_paged_f32(model, ring),
+         "http": _gpt_paged_http(model, ring)}
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"gpt 12j: the generation path launched the port's kernels: "
+                             f"{counts}")
+    r["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"gpt 12j: phase done in {r['phase_s']:.1f} s, peak {r['peak_memory_gib']:.2f} GiB")
+    del ring, model
+    torch.cuda.empty_cache()
+    return counts, r
+
+
 # -- the int8 serving path and the pool backward --------------------------------
 
 # the served program: the part of BERT-base the int8 rewrite computes in int8
@@ -6458,6 +6926,7 @@ def main() -> int:
     lamb_counts, lamb = train_bert_lamb(compiled["bert_amp"]["captured"]["step_ms_median"])
     lenet_opt_counts, lenet_opt = train_lenet_optimizers()
     gpt_counts, gpt = serve_gpt()
+    paged_counts, gpt_paged = serve_gpt_paged()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -6469,8 +6938,9 @@ def main() -> int:
                                   + lamb_counts.get(name, 0) + lenet_opt_counts.get(name, 0))
         # the LeNet program's steps, replayed from the static executor's graph
         k["launches_static"] = lenet_counts.get(name, 0)
-        # GPT-2 small's generation (pre-norm, cached attention): none, checked
-        k["launches_generation"] = gpt_counts.get(name, 0)
+        # GPT-2 small's generation (pre-norm, cached attention; the ring, the
+        # int8 ring and the paged layout, 12i and 12j): none, checked
+        k["launches_generation"] = gpt_counts.get(name, 0) + paged_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
@@ -6480,7 +6950,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
                       "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s,
                       "lenet_static": lenet, "bert_lamb": lamb, "lenet_optimizers": lenet_opt,
-                      "gpt_generation": gpt}))
+                      "gpt_generation": gpt, "gpt_int8_paged": gpt_paged}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

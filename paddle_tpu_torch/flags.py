@@ -153,18 +153,38 @@ define_flag("generation_kv_cache_len", 256,
             "per-slot ring KV cache capacity (tokens) for autoregressive "
             "decoding; also the sliding attention window width")
 
-# generation/engine.py — storage dtype of the ring KV cache. The port keeps
-# float32; int8 (QuantizedStaticCache) raises UnimplementedError.
+# generation/engine.py + nn/transformer.py QuantizedStaticCache — storage
+# dtype of the KV cache. int8 stores K/V as int8 with one dynamic abs-max
+# scale per head vector (quantized on the cache write, dequantized in the
+# attention read): (D + 4) / (4 D) of the float32 bytes, 3.76x fewer at
+# head_dim 64.
 define_flag("generation_kv_cache_dtype", "float32",
             "KV cache storage dtype for decoding: float32 | int8 "
             "(int8: per-head dynamic scales, ~4x fewer cache bytes)")
 
-# generation/engine.py — physical layout of the decode KV store. The port
-# keeps the per-slot ring; paged raises UnimplementedError.
+# generation/paging.py + nn/transformer.py PagedStaticCache — physical
+# layout of the decode KV store: ring (each slot its own window) or paged
+# (the same logical ring in fixed-size pages from one shared pool through
+# per-slot page tables, with copy-on-write prefix sharing across requests).
+# Greedy tokens are the same in both layouts.
 define_flag("kv_cache_layout", "ring",
             "decode KV cache layout: ring (per-slot contiguous) | paged "
             "(shared page pool + per-slot page tables with copy-on-write "
             "prefix reuse)")
+
+# generation/paging.py — tokens per KV page under the paged layout. Smaller
+# pages share more (a prefix must fill a whole page to be reused) but widen
+# the page tables; must divide generation_kv_cache_len.
+define_flag("generation_kv_page_size", 16,
+            "tokens per KV page under kv_cache_layout=paged; must "
+            "divide generation_kv_cache_len evenly")
+
+# generation/paging.py — usable pages in the shared pool (the trash page
+# comes on top). 0 sizes it at slots x pages_per_slot, the ring's worst
+# case; fewer pages bank on shared prefixes and short sequences.
+define_flag("generation_kv_pool_pages", 0,
+            "physical KV pages in the paged pool (0: slots x "
+            "pages_per_slot, the no-overcommit default)")
 
 # generation/engine.py — the prompt-length bucket ladder of prefill: a
 # prompt pads up to the smallest covering bucket, one captured graph each.

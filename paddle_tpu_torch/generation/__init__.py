@@ -1,18 +1,23 @@
 """Autoregressive decoding of the port (``paddle_tpu/generation``).
 
-- :mod:`generation.cache`: the ring KV cache ``(k, v, pos)`` and the masks
-  that make decoding through it equal a sliding-window full forward;
+- :mod:`generation.cache`: the ring KV cache ``(k, v, pos)`` (at int8
+  ``(k, v, k_scale, v_scale, pos)``) and the masks that make decoding
+  through it equal a sliding-window full forward;
+- :mod:`generation.paging`: the paged layout's shared page pool, page
+  tables and radix prefix index with copy-on-write (:class:`PagePool`,
+  :class:`PrefixIndex`, :func:`chain_hashes`);
 - :mod:`generation.sampling`: greedy / temperature / top-k sampling on the
   device, and the eager greedy ``decode_loop`` of the seq2seq model;
 - :mod:`generation.engine`: :class:`GenerationEngine`, a CUDA graph per
-  prefill bucket and one decode graph over every slot, with compile
-  accounting (``extra_compiles() == 0`` in steady state).
+  prefill bucket and one decode graph over every slot, ring or paged,
+  float32 or int8, with compile accounting (``extra_compiles() == 0`` in
+  steady state).
 
 Continuous batching over the engine and HTTP ``/generate`` live in
 :mod:`paddle_tpu_torch.serving.continuous` and
-:class:`paddle_tpu_torch.serving.GenerationServer`. The int8 and paged
-caches, the handoff wire formats and speculative decoding are not ported
-(ROADMAP.md Queue A item 3).
+:class:`paddle_tpu_torch.serving.GenerationServer`. Speculative decoding
+and the handoff wire formats are not ported (ROADMAP.md Queue A item 3,
+entries 3 and 4).
 
 Quickstart::
 
@@ -45,6 +50,16 @@ from .cache import (  # noqa: F401
     verify_mask,
 )
 from .engine import COMPILE_COUNTER, GenerationEngine, MemoryBudgetError  # noqa: F401
+from .paging import (  # noqa: F401
+    TRASH_PAGE,
+    PagePool,
+    PagePoolExhaustedError,
+    PrefixIndex,
+    chain_hashes,
+    init_paged_cache,
+    page_nbytes,
+    split_planes,
+)
 from .sampling import decode_loop, sample_logits, top_k_filter  # noqa: F401
 
 __all__ = [
@@ -54,4 +69,6 @@ __all__ = [
     "init_cache", "layer_caches", "stack_layer_caches", "fresh_layer_caches", "insert_slot",
     "insert_slot_kv", "cache_nbytes", "kv_bytes_per_token",
     "decode_mask", "prefill_mask", "verify_mask", "pad_slot_arrays",
+    "PagePool", "PagePoolExhaustedError", "PrefixIndex", "TRASH_PAGE", "chain_hashes",
+    "init_paged_cache", "page_nbytes", "split_planes",
 ]

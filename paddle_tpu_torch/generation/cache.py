@@ -1,13 +1,16 @@
-"""The engine's ring KV cache and its masks (``paddle_tpu/generation/cache.py:57-227``), float32.
+"""The engine's ring KV cache and its masks (``paddle_tpu/generation/cache.py:57-227``).
 
 An all-layers cache is ``(k [L, B, H, C, D], v [...], pos [B])`` with one
-``pos`` shared by every layer. The JAX package replaces these arrays
-functionally; the port writes them **in place** (a CUDA graph replays
-writes into the buffers it was captured with), so every helper that
-updates a cache returns the same tensors it was given:
+``pos`` shared by every layer; at int8 it is the 5-tuple ``(k, v, k_scale
+[L, B, H, C], v_scale, pos)`` with int8 values and f32 scale planes. Every
+helper dispatches on the tuple's arity. The JAX package replaces these
+arrays functionally; the port writes them **in place** (a CUDA graph
+replays writes into the buffers it was captured with), so every helper
+that updates a cache returns the same tensors it was given:
 
-- :func:`layer_caches` slices views, :class:`StaticCache` per layer, whose
-  writes land in the stacked tensors;
+- :func:`layer_caches` slices views, :class:`StaticCache` (or
+  :class:`QuantizedStaticCache`) per layer, whose writes land in the
+  stacked tensors;
 - :func:`insert_slot` / :func:`insert_slot_kv` install a prefilled slot by
   ``index_copy_`` with ``slot`` and ``length`` as device tensors, so one
   captured prefill serves every slot.
@@ -16,16 +19,15 @@ updates a cache returns the same tensors it was given:
 validity into one additive mask (-1e9): decoding through a ring of
 capacity ``C`` equals a full forward under ``causal_mask(T, window=C)``.
 The store may be wider than the window (the JAX package's speculative
-scratch margin), which :func:`verify_mask` serves. The int8 form (5-tuple
-with scale planes) raises :class:`~paddle_tpu_torch.errors.UnimplementedError`.
+scratch margin), which :func:`verify_mask` serves.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as _F
 
-from ..errors import UnimplementedError
-from ..nn.transformer import StaticCache
+from ..errors import InvalidArgumentError
+from ..nn.transformer import QuantizedStaticCache, StaticCache
 
 __all__ = [
     "init_cache", "layer_caches", "stack_layer_caches", "insert_slot",
@@ -39,44 +41,44 @@ NEG_INF = -1e9
 #: storage dtypes the KV cache supports (FLAGS_generation_kv_cache_dtype)
 KV_CACHE_DTYPES = ("float32", "int8")
 
-INT8_ENTRY = "the int8 ring (ROADMAP.md Queue A item 3, entry 1)"
-
-
-def _float32_only(dtype):
-    if str(dtype) == "int8":
-        raise UnimplementedError(f"an int8 KV cache is not ported yet; it comes with "
-                                 f"{INT8_ENTRY}")
-    if str(dtype) != "float32":
-        raise UnimplementedError(f"KV cache dtype {dtype!r}: the port keeps float32")
-
 
 def init_cache(num_layers, batch, num_heads, cache_len, head_dim, dtype="float32",
                device=None):
-    """Zeroed whole-model cache ``(k [L, B, H, C, D], v [...], pos [B] int32)``
-    on ``device``."""
-    _float32_only(dtype)
+    """Zeroed whole-model cache on ``device``: ``(k [L, B, H, C, D], v [...],
+    pos [B] int32)`` at float32; at int8 ``(k, v, k_scale [L, B, H, C],
+    v_scale, pos)`` with int8 values and f32 scales."""
+    if str(dtype) not in KV_CACHE_DTYPES:
+        raise InvalidArgumentError(f"KV cache dtype must be one of {KV_CACHE_DTYPES}, got "
+                                   f"{dtype!r}")
     shape = (int(num_layers), int(batch), int(num_heads), int(cache_len), int(head_dim))
+    pos = torch.zeros((int(batch),), dtype=torch.int32, device=device)
+    if str(dtype) == "int8":
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device), pos)
     return (torch.zeros(shape, dtype=torch.float32, device=device),
-            torch.zeros(shape, dtype=torch.float32, device=device),
-            torch.zeros((int(batch),), dtype=torch.int32, device=device))
+            torch.zeros(shape, dtype=torch.float32, device=device), pos)
 
 
 def layer_caches(*kv):
-    """Per-layer :class:`StaticCache` views of the stacked cache (``pos`` is
-    shared: every layer writes the same step)."""
+    """Per-layer views of the stacked cache (``pos`` is shared: every layer
+    writes the same step): :class:`StaticCache` for the 3-tuple,
+    :class:`QuantizedStaticCache` for the 5-tuple."""
     if len(kv) == 1:  # the whole-cache tuple as one argument
         kv = tuple(kv[0])
-    if len(kv) != 3:
-        _float32_only("int8")
-    k, v, pos = kv
-    return [StaticCache(k[i], v[i], pos) for i in range(k.shape[0])]
+    pos, arrays = kv[-1], kv[:-1]
+    cls = StaticCache if len(arrays) == 2 else QuantizedStaticCache
+    return [cls(*(a[i] for a in arrays), pos) for i in range(arrays[0].shape[0])]
 
 
 def stack_layer_caches(caches):
-    """``(k, v)`` stacked from per-layer caches. The engine never needs it:
-    its layers' caches are views of the stacked tensors and write them in
-    place."""
-    return (torch.stack([c.k for c in caches]), torch.stack([c.v for c in caches]))
+    """``(k, v)`` (or ``(k, v, k_scale, v_scale)``) stacked from per-layer
+    caches. The engine never needs it: its layers' caches are views of the
+    stacked tensors and write them in place."""
+    names = ("k", "v", "k_scale", "v_scale") if isinstance(caches[0], QuantizedStaticCache) \
+        else ("k", "v")
+    return tuple(torch.stack([getattr(c, n) for c in caches]) for n in names)
 
 
 def fresh_layer_caches(num_layers, batch, num_heads, cache_len, head_dim, dtype="float32",
@@ -91,25 +93,29 @@ def insert_slot(ck, cv, pos, slot, new_k, new_v, length):
     into decode slot ``slot`` and set its position to ``length``, in place.
     ``slot`` and ``length`` are integers or device tensors of one element
     (a captured prefill takes them as inputs). Returns ``(ck, cv, pos)``."""
-    slot = torch.as_tensor(slot, device=ck.device).reshape(1).to(torch.int64)
-    ck.index_copy_(1, slot, new_k.unsqueeze(1).to(ck.dtype))
-    cv.index_copy_(1, slot, new_v.unsqueeze(1).to(cv.dtype))
-    pos.index_copy_(0, slot, torch.as_tensor(length, device=pos.device).reshape(1)
-                    .to(pos.dtype))
-    return ck, cv, pos
+    return insert_slot_kv((ck, cv, pos), slot, (new_k, new_v), length)
 
 
 def insert_slot_kv(kv, slot, new_arrays, length):
-    """:func:`insert_slot` over the whole-cache tuple ``(k, v, pos)`` and the
-    slot's ``(new_k, new_v)``."""
-    if len(kv) != 3 or len(new_arrays) != 2:
-        _float32_only("int8")
-    return insert_slot(kv[0], kv[1], kv[2], slot, new_arrays[0], new_arrays[1], length)
+    """:func:`insert_slot` over the whole-cache tuple (3 or 5 tensors,
+    ``pos`` last) and the slot's matching planes (``[L, H, C, D]`` values,
+    ``[L, H, C]`` scales), in place. Returns ``kv``."""
+    pos = kv[-1]
+    if len(new_arrays) != len(kv) - 1:
+        raise InvalidArgumentError(f"{len(new_arrays)} slot planes for a cache of "
+                                   f"{len(kv) - 1}")
+    slot = torch.as_tensor(slot, device=pos.device).reshape(1).to(torch.int64)
+    for a, n in zip(kv[:-1], new_arrays):
+        a.index_copy_(1, slot, n.unsqueeze(1).to(a.dtype))
+    pos.index_copy_(0, slot, torch.as_tensor(length, device=pos.device).reshape(1)
+                    .to(pos.dtype))
+    return kv
 
 
 def cache_nbytes(kv) -> int:
-    """Device bytes the whole-model cache occupies (values + positions),
-    read off the real tensors."""
+    """Device bytes the whole-model cache occupies (values, scales at int8,
+    positions; a paged cache's pool, table and positions), read off the
+    real tensors."""
     return int(sum(a.numel() * a.element_size() for a in kv))
 
 

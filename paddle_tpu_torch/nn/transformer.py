@@ -6,20 +6,31 @@ decoder layers whose residual-add + LayerNorm pairs go through the fused
 kernel (``_residual_norm``, ``:28-43``), the encoder and decoder stacks and
 the encoder-decoder ``Transformer`` (``:576-704``).
 
-Incremental decoding (``:74-108``, ``:251-388``): a ``cache`` argument is
-either the concat cache ``(k, v)`` of :meth:`MultiHeadAttention.gen_cache`,
-which grows by the step's keys and values, or a :class:`StaticCache`, the
-fixed-shape ring ``[B, H, C, D]`` of :meth:`MultiHeadAttention.gen_static_cache`.
-The JAX package writes the ring functionally; the port writes the step's
-keys and values into the cache tensors **in place** (``index_put_`` at each
-row's ``pos % C``, a span at ``(pos + t) % C``) and hands the same tensors
-back, so a CUDA graph that decodes through them writes the engine's
-persistent buffers. A cached call never takes the flash kernel (the JAX
-package's rule), and a pre-norm block runs plain LayerNorms: the GPT path
-launches none of the hand-written kernels. The int8 and paged caches exist
-as types and raise :class:`~paddle_tpu_torch.errors.UnimplementedError`.
-``kdim``/``vdim``, ``need_weights`` and ring/Ulysses attention are not
-ported yet.
+Incremental decoding (``:74-205``, ``:251-505``): a ``cache`` argument is
+the concat cache ``(k, v)`` of :meth:`MultiHeadAttention.gen_cache`, which
+grows by the step's keys and values, or one of four fixed-shape caches:
+
+- :class:`StaticCache`, the ring ``[B, H, C, D]`` of
+  :meth:`MultiHeadAttention.gen_static_cache`;
+- :class:`QuantizedStaticCache`, the ring at int8 with one f32 scale per
+  written head vector (:func:`quantize_kv` on the write,
+  :func:`dequantize_kv` of the whole window on the read);
+- :class:`PagedStaticCache` and :class:`QuantizedPagedCache`, the same
+  logical ring over a shared page pool ``[P, H, ps, D]`` through a page
+  table ``[B, NP]``: the write scatters into the pool at ``(table[b, idx //
+  ps], idx % ps)``, the read gathers ``pool[table]`` back into the
+  ``[B, H, NP * ps, D]`` window.
+
+The JAX package writes these caches functionally; the port writes the
+step's keys and values (and scales) into the cache tensors **in place**
+(``index_put_`` at each row's ``pos % C``, a span at ``(pos + t) % C``) and
+hands the same tensors back, so a CUDA graph that decodes through them
+writes the engine's persistent buffers. A cached call never takes the
+flash kernel (the JAX package's rule), and a pre-norm block runs plain
+LayerNorms: the GPT path launches none of the hand-written kernels, and
+the quantized and paged reads and writes are plain PyTorch, as the JAX
+package's are plain ``jnp``. ``kdim``/``vdim``, ``need_weights`` and
+ring/Ulysses attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,7 +40,6 @@ from typing import Any, NamedTuple
 import torch
 from torch import nn
 
-from ..errors import UnimplementedError
 from ..flags import flag
 from ..ops.cuda import flash_attention, layernorm_residual
 from . import functional as F
@@ -38,7 +48,7 @@ from .layers import Dropout, LayerList, LayerNorm, Linear
 __all__ = ["FLASH_ATTENTION_MIN_SEQ", "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
            "StaticCache", "QuantizedStaticCache", "PagedStaticCache", "QuantizedPagedCache",
-           "causal_mask"]
+           "causal_mask", "quantize_kv", "dequantize_kv", "KV_QUANT_BNT", "KV_QUANT_EPS"]
 
 # Key length from which use_flash_attention dispatches to the flash kernel.
 # The value is the JAX package's; the H100 crossover is not measured yet.
@@ -108,9 +118,11 @@ class StaticCache(NamedTuple):
 
 
 class QuantizedStaticCache(NamedTuple):
-    """The int8 ring (int8 ``k``/``v`` with f32 per-head-vector scales
-    ``[B, H, C]``). Not ported: passing one raises
-    :class:`~paddle_tpu_torch.errors.UnimplementedError`."""
+    """:class:`StaticCache` at int8: ``k``/``v`` int8 ``[B, H, C, D]`` and
+    ``k_scale``/``v_scale`` f32 ``[B, H, C]``, one abs-max scale per written
+    head vector, computed when it is written (no calibration). The read
+    dequantizes the whole window; ring, mask and ``pos`` contracts are
+    :class:`StaticCache`'s."""
 
     k: Any
     v: Any
@@ -120,8 +132,14 @@ class QuantizedStaticCache(NamedTuple):
 
 
 class PagedStaticCache(NamedTuple):
-    """The ring over a shared page pool (``k``/``v`` ``[P, H, ps, D]``,
-    ``table [B, C // ps]``). Not ported: passing one raises."""
+    """:class:`StaticCache` semantics over a page pool: ``k``/``v``
+    ``[P, H, ps, D]`` are the whole pool of ONE layer, ``table`` ``[B, NP]``
+    int32 maps row ``b``'s logical ring pages to pool pages, ``pos [B]``.
+    Ring index ``pos % (NP * ps)`` splits into page ``// ps`` and offset
+    ``% ps``, so every mask carries over. Page 0 is the trash page that
+    vacant rows and unallocated pages point at; the pool's owner makes
+    every page a busy row writes private before the step
+    (``generation/paging.py``)."""
 
     k: Any
     v: Any
@@ -130,7 +148,8 @@ class PagedStaticCache(NamedTuple):
 
 
 class QuantizedPagedCache(NamedTuple):
-    """The paged cache at int8 storage. Not ported: passing one raises."""
+    """:class:`PagedStaticCache` at int8: int8 ``k``/``v`` ``[P, H, ps, D]``
+    and f32 scale pools ``k_scale``/``v_scale`` ``[P, H, ps]``."""
 
     k: Any
     v: Any
@@ -140,21 +159,43 @@ class QuantizedPagedCache(NamedTuple):
     pos: Any
 
 
-# the ROADMAP.md entries that bring the caches the port does not have
-_UNPORTED_CACHES = {
-    QuantizedStaticCache: "the int8 ring (ROADMAP.md Queue A item 3, entry 1)",
-    PagedStaticCache: "the paged layout (ROADMAP.md Queue A item 3, entry 2)",
-    QuantizedPagedCache: "the paged layout (ROADMAP.md Queue A item 3, entry 2)",
-}
+#: int8 grid half-width of the KV-cache quantization
+KV_QUANT_BNT = 127.0
+#: scale floor: an all-zero head vector must not dequantize to NaN
+KV_QUANT_EPS = 1e-8
+
+
+def quantize_kv(x):
+    """``[..., D]`` -> (int8 values, f32 abs-max scales ``[...]``): one
+    dynamic scale per trailing vector. The JAX order of operations (divide,
+    then multiply; ``torch.round`` rounds half to even as ``jnp.round``)."""
+    x = x.to(torch.float32)
+    scale = torch.clamp_min(x.abs().amax(dim=-1), KV_QUANT_EPS)
+    q = torch.round(torch.clamp(x / scale[..., None] * KV_QUANT_BNT, -KV_QUANT_BNT,
+                                KV_QUANT_BNT))
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.float32):
+    """Inverse of :func:`quantize_kv`: ``q * (scale / 127)``, the quotient
+    taken first, as the JAX package takes it. The int8 values widen inside
+    the product (exactly: ``|q| <= 127``), one pass over the window."""
+    return q * (scale[..., None] / KV_QUANT_BNT).to(dtype)
+
+
+def _ring_index(pos, t, store):
+    """``[B, T]`` ring indices ``(pos + j) % store`` of a ``t``-token write."""
+    return torch.remainder(pos.to(torch.int64)[:, None]
+                           + torch.arange(t, device=pos.device)[None, :], store)
 
 
 class MultiHeadAttention(nn.Module):
     """Scaled dot-product multi-head attention with the JAX signature: the
     plain and flash paths, and the cached paths of incremental decoding
     (a :class:`StaticCache` ring written in place, or the ``(k, v)`` concat
-    cache). What is not ported raises: ``kdim``/``vdim`` other than
-    ``embed_dim``, ``need_weights``, ring and Ulysses attention, the int8 and
-    paged caches."""
+    cache), the int8 and the paged caches. What is not ported raises:
+    ``kdim``/``vdim`` other than ``embed_dim``, ``need_weights``, ring and
+    Ulysses attention."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None, vdim=None,
                  need_weights=False, weight_attr=None, bias_attr=None, use_ring_attention=False,
@@ -190,15 +231,13 @@ class MultiHeadAttention(nn.Module):
         """``out``, or ``(out, new_cache)`` when ``cache`` is given: the same
         :class:`StaticCache` (its tensors written in place) or the grown
         ``(k, v)``."""
-        if type(cache) in _UNPORTED_CACHES:
-            raise UnimplementedError(f"MultiHeadAttention: {type(cache).__name__} is not ported "
-                                     f"yet; it comes with {_UNPORTED_CACHES[type(cache)]}")
         key = query if key is None else key
         value = key if value is None else value
         q = self._shape(self.q_proj(query))
         k = self._shape(self.k_proj(key))
         v = self._shape(self.v_proj(value))
-        if isinstance(cache, StaticCache):
+        if isinstance(cache, (StaticCache, QuantizedStaticCache, PagedStaticCache,
+                              QuantizedPagedCache)):
             k, v, new_cache = self._update_static_cache(cache, k, v)
         elif cache is not None:
             pk, pv = cache
@@ -238,22 +277,101 @@ class MultiHeadAttention(nn.Module):
                            torch.zeros(shape, dtype=getattr(torch, dtype), device=device),
                            torch.zeros((int(batch),), dtype=torch.int32, device=device))
 
-    @staticmethod
-    def _update_static_cache(cache, k, v):
+    @classmethod
+    def _update_static_cache(cls, cache, k, v):
         """Write the step's ``k``/``v`` ``[B, H, T, D]`` into the ring in
         place: row ``b`` writes its position ``t`` at ``(pos[b] + t) % C``
         (decode is ``T = 1``). The index plane ``[B, T]`` addresses the
         ``[B, C, H, D]`` view of each cache tensor, so the payload is laid
         out ``[B, T, H, D]``, as the JAX scatter's split advanced indices
-        put it. Returns the whole windows and the cache."""
+        put it. Returns the whole windows and the cache. The int8 and
+        paged caches go to their own writes."""
+        if isinstance(cache, QuantizedStaticCache):
+            return cls._update_quantized_cache(cache, k, v)
+        if isinstance(cache, (PagedStaticCache, QuantizedPagedCache)):
+            return cls._update_paged_cache(cache, k, v)
         kc, vc, pos = cache
-        c, t = kc.shape[2], k.shape[2]
         rows = torch.arange(kc.shape[0], device=kc.device)[:, None]
-        idx = torch.remainder(pos.to(torch.int64)[:, None]
-                              + torch.arange(t, device=kc.device)[None, :], c)
+        idx = _ring_index(pos, k.shape[2], kc.shape[2])
         kc.transpose(1, 2)[rows, idx] = k.transpose(1, 2).to(kc.dtype)
         vc.transpose(1, 2)[rows, idx] = v.transpose(1, 2).to(vc.dtype)
         return kc, vc, cache
+
+    @staticmethod
+    def _update_quantized_cache(cache, k, v):
+        """Int8 twin of :meth:`_update_static_cache`: the step's ``k``/``v``
+        quantize per head vector (:func:`quantize_kv`), and int8 values and
+        f32 scales land in place at the ring index the f32 cache would
+        write (scales through their ``[B, C, H]`` view). Returns the whole
+        windows dequantized in ``k``'s dtype; masked entries dequantize to
+        whatever they hold, and the caller's mask hides them."""
+        kc, vc, ks, vs, pos = cache
+        out_dtype = k.dtype
+        kq, ksc = quantize_kv(k)
+        vq, vsc = quantize_kv(v)
+        rows = torch.arange(kc.shape[0], device=kc.device)[:, None]
+        idx = _ring_index(pos, k.shape[2], kc.shape[2])
+        kc.transpose(1, 2)[rows, idx] = kq.transpose(1, 2)
+        vc.transpose(1, 2)[rows, idx] = vq.transpose(1, 2)
+        ks.transpose(1, 2)[rows, idx] = ksc.transpose(1, 2)
+        vs.transpose(1, 2)[rows, idx] = vsc.transpose(1, 2)
+        return dequantize_kv(kc, ks, out_dtype), dequantize_kv(vc, vs, out_dtype), cache
+
+    @staticmethod
+    def _paged_indices(table, pos, t, store, ps):
+        """Pool coordinates ``(page, offset)``, each ``[B, T]`` int64, of a
+        ``t``-token write from each row's ``pos``: the ring index ``(pos +
+        j) % store`` split by the page table."""
+        idx = _ring_index(pos, t, store)
+        rows = torch.arange(table.shape[0], device=table.device)[:, None]
+        return table[rows, idx // ps].to(torch.int64), torch.remainder(idx, ps)
+
+    @classmethod
+    def _update_paged_cache(cls, cache, k, v):
+        """Paged twin of :meth:`_update_static_cache`, f32 or int8: the
+        write scatters in place into the layer's pool at ``(page, offset)``
+        (values through the pool's ``[P, ps, H, D]`` view, scales through
+        ``[P, ps, H]``, so the payload is ``[B, T, H(, D)]``); the read
+        gathers each row's ``NP`` pages in one pass, as ``[B, H, NP, ps,
+        D]``, the ``[B, H, NP * ps, D]`` window the ring would hold.
+        The pool's owner made every written page private (copy-on-write)
+        before the step."""
+        quant = isinstance(cache, QuantizedPagedCache)
+        if quant:
+            kc, vc, ks, vs, table, pos = cache
+        else:
+            kc, vc, table, pos = cache
+        out_dtype = k.dtype
+        ps = kc.shape[2]
+        b, np_ = table.shape
+        store = np_ * ps
+        phys, off = cls._paged_indices(table, pos, k.shape[2], store, ps)
+        if quant:
+            kq, ksc = quantize_kv(k)
+            vq, vsc = quantize_kv(v)
+            kc.transpose(1, 2)[phys, off] = kq.transpose(1, 2)
+            vc.transpose(1, 2)[phys, off] = vq.transpose(1, 2)
+            ks.transpose(1, 2)[phys, off] = ksc.transpose(1, 2)
+            vs.transpose(1, 2)[phys, off] = vsc.transpose(1, 2)
+        else:
+            kc.transpose(1, 2)[phys, off] = k.transpose(1, 2).to(kc.dtype)
+            vc.transpose(1, 2)[phys, off] = v.transpose(1, 2).to(vc.dtype)
+        h, d = kc.shape[1], kc.shape[3]
+        # one gather straight into [B, H, NP, ps(, D)]: the page and head
+        # indices broadcast to [B, H, NP]
+        pages = table.to(torch.int64)[:, None, :]
+        heads = torch.arange(h, device=table.device)[None, :, None]
+
+        def window(pool):
+            return pool[pages, heads].reshape(b, h, store, d)
+
+        if quant:
+            def swindow(spool):
+                return spool[pages, heads].reshape(b, h, store)
+
+            return (dequantize_kv(window(kc), swindow(ks), out_dtype),
+                    dequantize_kv(window(vc), swindow(vs), out_dtype), cache)
+        return window(kc).to(out_dtype), window(vc).to(out_dtype), cache
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -9,7 +9,10 @@ serving queue's contracts: a bounded queue (:class:`QueueFullError`, HTTP
 :class:`ServingClosedError` after close, and drain. Growth of the engine's
 captures after warmup is noted through ``engine.watch``. Pass ``on_token``
 to :meth:`ContinuousBatcher.submit` to have every token delivered as it is
-decoded (``/generate``'s streaming mode).
+decoded (``/generate``'s streaming mode). Under the paged layout
+admission also waits for pages (``engine.has_capacity``), and every path
+that vacates a slot (finished, failed, stopped) returns its pages through
+``engine.release_slot``.
 
 The counters of :attr:`ContinuousBatcher.stats` and the latency samples of
 :meth:`ContinuousBatcher.quantiles` feed ``/statz``; the JAX package's
@@ -238,13 +241,20 @@ class ContinuousBatcher:
                 if not self._q:
                     return
                 free = next((s for s, r in enumerate(self._slots) if r is None), None)
-                if free is None or not engine.has_capacity(self._q[0].prompt):
+                if free is None:
+                    return
+                # paged layout: a vacant slot is not capacity, the page pool
+                # is. The head stays queued until finishing slots free pages.
+                # With no slot busy nothing will, and every page left is the
+                # prefix index's alone: admission evicts what it needs.
+                if self.live_slots and not engine.has_capacity(self._q[0].prompt):
                     return
                 req = self._q.popleft()
             midbatch = self.live_slots > 0
             try:
                 tok = engine.admit(free, req.prompt, req.temperature, tenant=req.tenant)
             except Exception as e:  # noqa: BLE001 — the loop must survive
+                engine.release_slot(free)  # pages a failed prefill may hold
                 self._count(errors=1)
                 req.done(error=e)
                 continue
@@ -253,6 +263,7 @@ class ContinuousBatcher:
                     # stop(drain=False) landed between the queue pop and the
                     # slot install: the request was promised a failure
                     self.stats["errors"] += 1
+                    engine.release_slot(free)
                     req.done(error=ServingClosedError(
                         "generation scheduler shut down before the request reached a "
                         "decode slot"))

@@ -22,9 +22,11 @@ Stdlib ``ThreadingHTTPServer``s. :class:`InferenceServer` exposes:
   with ``"stream": true`` chunked ndjson, one ``{"token": id}`` line a
   decoded token and a final ``{"done": true, ...}``; the statuses of
   ``/predict``.
-- ``GET /healthz``, ``GET /`` and ``GET /statz`` (requests, tokens/s, slot
-  occupancy, latency quantiles, the KV cache's bytes, and ``compiles``:
-  the graphs and the unexpected captures after warmup).
+- ``GET /healthz`` (with the KV layout), ``GET /`` and ``GET /statz``
+  (requests, tokens/s, slot occupancy, latency quantiles, the KV cache's
+  bytes, ``paging``: the page pool and the prefix index under the paged
+  layout, and ``compiles``: the graphs and the unexpected captures after
+  warmup).
 
 The JAX package's other routes (``/metrics``, ``/loadz``, ``/tracez``, ...)
 and the prefill/decode backend kinds wait for ROADMAP Queue A items 8 and 3.
@@ -419,15 +421,17 @@ class GenerationServer:
     ``model_or_engine`` is a ready engine or a causal LM (a
     ``GPTForCausalLM``), for which an engine is built from the
     ``generation_*`` flags and the keyword overrides (on ``device``, the
-    card unless named). ``start()`` warms by default, so ``/healthz``
+    card unless named; ``kv_cache_dtype``, ``kv_cache_layout``,
+    ``kv_page_size`` and ``kv_pool_pages`` pick the int8 and paged caches). ``start()`` warms by default, so ``/healthz``
     readiness means every prefill bucket and the decode step are captured.
     ``kind`` other than ``generate`` raises (the disaggregated tiers are not
     ported)."""
 
     def __init__(self, model_or_engine, port=0, host="127.0.0.1", slots=None, cache_len=None,
                  prefill_buckets=None, queue_capacity=None, max_new_tokens=None,
-                 temperature=None, top_k=None, kv_cache_dtype=None, draft_model=None,
-                 draft_k=None, kind=None, request_timeout_s=120.0, device=None):
+                 temperature=None, top_k=None, kv_cache_dtype=None, kv_cache_layout=None,
+                 kv_page_size=None, kv_pool_pages=None, draft_model=None, draft_k=None,
+                 kind=None, request_timeout_s=120.0, device=None):
         self.kind = str(kind if kind is not None else flag("backend_kind"))
         if self.kind in ("prefill", "decode"):
             raise UnimplementedError(
@@ -440,7 +444,9 @@ class GenerationServer:
             given = {"slots": slots, "cache_len": cache_len, "prefill_buckets": prefill_buckets,
                      "max_new_tokens": max_new_tokens, "temperature": temperature,
                      "top_k": top_k, "kv_cache_dtype": kv_cache_dtype,
-                     "draft_model": draft_model, "draft_k": draft_k, "device": device}
+                     "kv_cache_layout": kv_cache_layout, "kv_page_size": kv_page_size,
+                     "kv_pool_pages": kv_pool_pages, "draft_model": draft_model,
+                     "draft_k": draft_k, "device": device}
             bad = sorted(k for k, v in given.items() if v is not None)
             if bad:
                 raise InvalidArgumentError(
@@ -454,7 +460,9 @@ class GenerationServer:
                 model_or_engine, slots=slots, cache_len=cache_len,
                 prefill_buckets=prefill_buckets, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_k=top_k, kv_cache_dtype=kv_cache_dtype,
-                draft_model=draft_model, draft_k=draft_k, device=device)
+                kv_cache_layout=kv_cache_layout, kv_page_size=kv_page_size,
+                kv_pool_pages=kv_pool_pages, draft_model=draft_model, draft_k=draft_k,
+                device=device)
         self.scheduler = ContinuousBatcher(self.engine, queue_capacity=queue_capacity,
                                            kind=self.kind)
         self.request_timeout_s = request_timeout_s
@@ -544,6 +552,10 @@ class GenerationServer:
                 "hbm_required_bytes": e.hbm_required_bytes(),
                 "suggested_decode_slots": e.suggest_decode_slots(),
             },
+            # the paged layout's pool occupancy, copy-on-write traffic and
+            # prefix-index accounting, overall and per tenant (the ring
+            # reports its layout only)
+            "paging": e.paging_stats(),
             "latency": {name: sched.quantiles(name) for name in ("token", "ttft", "e2e")},
             "compiles": {
                 "prefill_buckets": len(e.prefill_buckets),

@@ -13,8 +13,8 @@ captured body again on its static inputs: graphs ``== expected_compiles()``
 after warmup and no more after traffic, as the JAX compile counter counts,
 tokens equal to the eager engine's, the persistent cache written in place;
 EOS and length stopping; validation; memory planning against the JAX
-engine's; and every path that is not ported raising
-``UnimplementedError``.
+engine's; speculative decoding and the handoff, which are not ported,
+raising ``UnimplementedError``, and the int8 and paged caches running.
 """
 import contextlib
 
@@ -353,13 +353,17 @@ def test_memory_planning_matches_the_jax_engine():
 
 
 def test_unported_paths_raise_naming_their_entries(monkeypatch):
+    """Speculative decoding (entry 3) and the handoff (entry 4) raise,
+    naming their entries; the int8 and paged caches (entries 1 and 2)
+    construct and run, from arguments and from the flags."""
     _, pm = _models()
     kw = dict(slots=1, cache_len=16, prefill_buckets=(8,), device="cpu")
-    for extra, entry in ((dict(draft_model=pm), "entry 3"), (dict(kv_cache_dtype="int8"),
-                                                              "entry 1"),
-                         (dict(kv_cache_layout="paged"), "entry 2")):
-        with pytest.raises(UnimplementedError, match=f"Queue A item 3, {entry}"):
-            GenerationEngine(pm, **kw, **extra)
+    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 3"):
+        GenerationEngine(pm, **kw, draft_model=pm)
+    for extra in (dict(kv_cache_dtype="int8"), dict(kv_cache_layout="paged"),
+                  dict(kv_cache_dtype="int8", kv_cache_layout="paged")):
+        eng = GenerationEngine(pm, **kw, **extra)
+        assert len(eng.generate([[5, 6, 7]], max_new_tokens=3)[0]) == 3
     eng = GenerationEngine(pm, **kw)
     calls = [
         (lambda: eng.spec_step([0], [0.0]), "entry 3"),
@@ -369,19 +373,19 @@ def test_unported_paths_raise_naming_their_entries(monkeypatch):
         (lambda: eng.admit_prefilled_pages(0, [], 2, 1), "entry 4"),
         (lambda: eng.expected_compiles("prefill"), "entry 4"),
         (lambda: eng.warmup(kind="decode"), "entry 4"),
-        (lambda: eng.prefill_export_pages([1, 2]), "entry 2"),
-        (lambda: eng.page_nbytes(), "entry 2"),
-        (lambda: eng.paging_stats(), "entry 2"),
-        (lambda: eng.known_page_hashes(["a"]), "entry 2"),
+        (lambda: eng.prefill_export_pages([1, 2]), "entry 4"),
     ]
     for call, entry in calls:
         with pytest.raises(UnimplementedError, match=f"Queue A item 3, {entry}"):
             call()
+    # the paging surface answers on the ring, as the JAX engine's does
+    assert eng.paging_stats() == {"layout": "ring"}
+    assert eng.known_page_hashes(["a"]) == set()
+    assert eng.page_nbytes() == 16 * eng.kv_bytes_per_token()
     from paddle_tpu_torch import flags
 
     monkeypatch.setattr(flags._REGISTRY["kv_cache_layout"], "value", "paged")
-    with pytest.raises(UnimplementedError, match="entry 2"):
-        GenerationEngine(pm, **kw)
+    assert GenerationEngine(pm, **kw).paging_stats()["layout"] == "paged"
 
 
 def test_the_engine_needs_a_card_unless_told_otherwise(monkeypatch):

@@ -11,7 +11,7 @@ functional, the port's in place); decoding through the cache against the
 full forward (``tests/test_generation.py:187-211``'s goldens) and against
 the JAX decode; the decoder layer's cached paths pre- and post-norm and the
 concat cache; the cache helpers; the saved directories; the layer-skip
-draft; and the caches that are not ported raising.
+draft; and the int8 and paged caches running through the attention.
 """
 import numpy as np
 import pytest
@@ -28,7 +28,6 @@ from paddle_tpu.nn import transformer as jtf  # noqa: E402
 
 from paddle_tpu_torch import convert  # noqa: E402
 from paddle_tpu_torch import models as pmodels  # noqa: E402
-from paddle_tpu_torch.errors import UnimplementedError  # noqa: E402
 from paddle_tpu_torch.generation import cache as pcache  # noqa: E402
 from paddle_tpu_torch.nn import transformer as ptf  # noqa: E402
 
@@ -353,20 +352,34 @@ def test_truncated_draft_matches_jax():
                                atol=LOGITS_ATOL)
 
 
-# -- what is not ported --------------------------------------------------------------
+# -- the int8 and paged caches --------------------------------------------------------
 
 
 def test_int8_and_paged_caches_raise_naming_their_entries():
-    mha = ptf.MultiHeadAttention(16, 2)
-    x = torch.zeros(1, 1, 16)
-    pos = torch.zeros(1, dtype=torch.int32)
-    cases = [(ptf.QuantizedStaticCache(x, x, x, x, pos), "entry 1"),
-             (ptf.PagedStaticCache(x, x, x, pos), "entry 2"),
-             (ptf.QuantizedPagedCache(x, x, x, x, x, pos), "entry 2")]
-    for cache, entry in cases:
-        with pytest.raises(UnimplementedError, match=f"Queue A item 3, {entry}"):
-            mha(x, cache=cache)
-    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 1"):
-        pcache.init_cache(1, 1, 1, 4, 4, dtype="int8")
-    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 1"):
-        pcache.layer_caches(x, x, x, x, pos)
+    """The int8 and paged caches, once refused, now run through the
+    attention: the f32 paged cache gives the ring's output bit for bit on
+    the same keys and values, the int8 ones within the quantization's
+    reach of it, and the int8 whole-model cache builds and slices."""
+    torch.manual_seed(0)
+    mha = ptf.MultiHeadAttention(16, 2).eval()
+    x = torch.randn(2, 3, 16)
+    pos = torch.tensor([0, 5], dtype=torch.int32)
+    ring = ptf.StaticCache(torch.zeros(2, 2, 8, 8), torch.zeros(2, 2, 8, 8), pos.clone())
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    paged = ptf.PagedStaticCache(torch.zeros(5, 2, 4, 8), torch.zeros(5, 2, 4, 8), table,
+                                 pos.clone())
+    with torch.no_grad():
+        want, _ = mha(x, cache=ring)
+        got, _ = mha(x, cache=paged)
+        q8 = mha(x, cache=ptf.QuantizedStaticCache(
+            torch.zeros(2, 2, 8, 8, dtype=torch.int8), torch.zeros(2, 2, 8, 8, dtype=torch.int8),
+            torch.zeros(2, 2, 8), torch.zeros(2, 2, 8), pos.clone()))[0]
+        p8 = mha(x, cache=ptf.QuantizedPagedCache(
+            torch.zeros(5, 2, 4, 8, dtype=torch.int8), torch.zeros(5, 2, 4, 8, dtype=torch.int8),
+            torch.zeros(5, 2, 4), torch.zeros(5, 2, 4), table, pos.clone()))[0]
+    assert torch.equal(got, want)
+    assert torch.equal(q8, p8)
+    assert 0 < float((q8 - want).abs().max()) < 0.05 * float(want.abs().max())
+    kv = pcache.init_cache(1, 1, 1, 4, 4, dtype="int8")
+    assert len(kv) == 5 and kv[0].dtype == torch.int8
+    assert isinstance(pcache.layer_caches(*kv)[0], ptf.QuantizedStaticCache)

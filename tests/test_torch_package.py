@@ -50,6 +50,14 @@ def test_no_jax_or_paddle_tpu_import(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+def test_scan_covers_every_generation_module():
+    """The paging module keeps its own copy of what it needs: the scan above
+    reaches it and every other module of ``generation/``."""
+    gen = os.path.join(PORT_DIR, "generation")
+    mods = {os.path.join(gen, n) for n in os.listdir(gen) if n.endswith(".py")}
+    assert os.path.join(gen, "paging.py") in mods and mods <= set(_port_files())
+
+
 def test_scan_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom paddle_tpu.flags import flag\nimport jax.numpy as jnp\n"

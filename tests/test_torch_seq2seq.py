@@ -181,18 +181,31 @@ def test_transformer_base_defaults_and_embedding_init():
 
 
 def test_kv_cache_and_missing_memory_raise():
-    """The int8 and paged caches raise, naming their ROADMAP entries (the
-    ring and concat caches are ported: ``tests/test_torch_gpt.py``)."""
-    from paddle_tpu_torch.errors import UnimplementedError
-    from paddle_tpu_torch.nn.transformer import PagedStaticCache, QuantizedStaticCache
+    """The int8 and paged caches run through a decoder layer's
+    self-attention (once they raised): the paged one as the ring does, bit
+    for bit. A layer without its memory and ``kdim`` still raise."""
+    from paddle_tpu_torch.nn.transformer import (
+        PagedStaticCache,
+        QuantizedStaticCache,
+        StaticCache,
+    )
 
-    layer = port_nn.TransformerDecoderLayer(D, HEADS, FFN, dropout=0.0)
-    x = torch.zeros(1, 3, D)
-    q = QuantizedStaticCache(x, x, x, x, torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 1"):
-        layer(x, x, cache=q)
-    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 2"):
-        layer.self_attn(x, cache=PagedStaticCache(x, x, x, q.pos))
+    layer = port_nn.TransformerDecoderLayer(D, HEADS, FFN, dropout=0.0).eval()
+    x = torch.randn(1, 3, D, generator=torch.Generator().manual_seed(1))
+    pos = torch.zeros(1, dtype=torch.int32)
+    hd = D // HEADS
+    with torch.no_grad():
+        q = QuantizedStaticCache(torch.zeros(1, HEADS, 4, hd, dtype=torch.int8),
+                                 torch.zeros(1, HEADS, 4, hd, dtype=torch.int8),
+                                 torch.zeros(1, HEADS, 4), torch.zeros(1, HEADS, 4), pos)
+        out8, c8 = layer(x, x, cache=q)
+        ring = layer.self_attn(x, cache=StaticCache(torch.zeros(1, HEADS, 4, hd),
+                                                    torch.zeros(1, HEADS, 4, hd), pos))[0]
+        paged = layer.self_attn(x, cache=PagedStaticCache(
+            torch.zeros(3, HEADS, 2, hd), torch.zeros(3, HEADS, 2, hd),
+            torch.tensor([[2, 1]], dtype=torch.int32), pos))[0]
+    assert c8 is q and out8.shape == x.shape and torch.isfinite(out8).all()
+    assert bool(q.k.any()) and torch.equal(paged, ring)
     with pytest.raises(ValueError, match="with_cross_attention=False"):
         layer(x)
     with pytest.raises(NotImplementedError, match="kdim"):
