@@ -225,6 +225,30 @@ Phases, each fatal on failure:
     at 16: 60 prefix hits in ``/statz`` ``paging``, answers checked for
     length and EOS, tokens/s, TTFT and inter-token times; no capture after
     warmup, none of the port's kernels launched;
+12k. the same GPT-2 small weights under speculative decoding and through
+    the disaggregated handoff (``serve_gpt_speculative``): a one-layer
+    ``truncated_draft``, ``draft_k`` 4, 16 slots x a ring of 1024, buckets
+    64-512; 4 prompts (17-500 tokens) decoded 64 greedy tokens with the
+    plain engine's tokens at every position before the first where the
+    plain run's top-two gap is at or below 1e-3 and each verify position's
+    logits within 3e-5 of the plain step's largest (TF32 the control the
+    limit must catch; the draft's own greedy chain the control the token
+    check must catch), and the same through a ring of 128 past its wrap; a
+    self-draft accepting at least 0.99 of its proposals; the truncated
+    draft's acceptance; the verify graph's position-0 samples at top-k 50
+    by the chi-square test of 12i; ``len(buckets) + 2`` graphs and none
+    after warmup; the draft graph, the verify graph and a whole round at
+    16 busy slots, captured and eager, a profiled replay of each, tokens a
+    round and ms an emitted token against the plain decode step, the
+    round's bound; 12i's 32 requests to a speculative server; a ``prefill``
+    and a ``decode`` server on the card, 8 requests through ``/prefill`` and
+    ``/generate_kv`` equal to the unified engine's under the same near-tie
+    rule, the prefill tier holding no decode cache, the ``PTKV`` slab's
+    bytes; a paged int8 pair (page 16) where a tenant's second request ships
+    its 256-token system prompt's pages header-only after
+    ``/prefix_known`` and the decode tier's ``/statz`` ``paging`` counts the
+    hits; a speculative decode tier admitting a ``PTKV`` slab with its
+    prompt; no capture after warmup, none of the port's kernels launched;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -5672,6 +5696,15 @@ def _stream(url, body, timeout=300):
     return toks, final, times
 
 
+def _gpt_requests(vocab):
+    """12i's 32 requests: (prompt of 16-500 tokens, 16-128 new)."""
+    rng = np.random.RandomState(GPT_SEED + 3)
+    return [(_gpt_prompt(rng, int(rng.randint(GPT_PROMPT_LENS[0], GPT_PROMPT_LENS[1] + 1)),
+                         vocab),
+             int(rng.randint(GPT_NEW_LENS[0], GPT_NEW_LENS[1] + 1)))
+            for _ in range(GPT_REQUESTS)]
+
+
 def _gpt_http(model, solo_eng):
     """Step 5: ``GenerationServer`` with 16 slots, 32 concurrent requests
     (prompts 16-500 tokens, 16-128 new, 4 streamed); 8 answers against solo
@@ -5682,12 +5715,7 @@ def _gpt_http(model, solo_eng):
     from paddle_tpu_torch.generation import GenerationEngine
     from paddle_tpu_torch.serving import GenerationServer
 
-    vocab = model.config.vocab_size
-    rng = np.random.RandomState(GPT_SEED + 3)
-    reqs = [(_gpt_prompt(rng, int(rng.randint(GPT_PROMPT_LENS[0], GPT_PROMPT_LENS[1] + 1)),
-                         vocab),
-             int(rng.randint(GPT_NEW_LENS[0], GPT_NEW_LENS[1] + 1)))
-            for _ in range(GPT_REQUESTS)]
+    reqs = _gpt_requests(model.config.vocab_size)
     eng = GenerationEngine(model, slots=GPT_SLOTS, cache_len=GPT_CACHE,
                            prefill_buckets=GPT_BUCKETS, seed=GPT_SEED, device=GPT_DEVICE)
     srv = GenerationServer(eng, port=0, queue_capacity=2 * GPT_REQUESTS)
@@ -6114,11 +6142,11 @@ def _gpt_traffic(vocab):
     return reqs
 
 
-def _serve_traffic(srv, reqs, eos):
-    """``reqs`` posted at once to a started server: answers checked for
-    length and EOS; tokens/s (client clock), inter-token gaps of the
-    streamed ones, ``/statz``."""
-    out = [None] * len(reqs)
+def _serve_traffic(srv, reqs, eos, out=None):
+    """``reqs`` posted at once to a started server: answers (into ``out``
+    when given) checked for length and EOS; tokens/s (client clock),
+    inter-token gaps of the streamed ones, ``/statz``."""
+    out = [None] * len(reqs) if out is None else out
     gaps = []
 
     def post(i):
@@ -6234,6 +6262,580 @@ def serve_gpt_paged():
     r["phase_s"] = time.perf_counter() - t_phase
     log(f"gpt 12j: phase done in {r['phase_s']:.1f} s, peak {r['peak_memory_gib']:.2f} GiB")
     del ring, model
+    torch.cuda.empty_cache()
+    return counts, r
+
+
+# -- GPT-2 small: speculative decoding and the disaggregated handoff (phase 12k) -------------
+
+GPT_DRAFT_K, GPT_DRAFT_LAYERS = 4, 1
+GPT_SELF_SLOTS, GPT_SELF_BUCKETS, GPT_SELF_MIN = 4, (512,), 0.99  # the self-draft's engine
+GPT_SPEC_ROUNDS = 12  # greedy rounds of 16 busy slots timed on the host clock
+GPT_DISAGG_REQUESTS, GPT_DISAGG_SLOTS = 8, 8
+GPT_SPEC_DECODE_SLOTS, GPT_SPEC_DECODE_SLABS = 4, 2
+
+
+def _spec_decode_logged(eng, slots, prompts, new):
+    """``prompts`` admitted into ``slots`` of a speculative engine and
+    decoded greedily by rounds to ``new`` tokens each, every emitted
+    token's logits kept (the prefill's for the first, then the verify
+    position that sampled it; on the host): (tokens, logits ``[new, V]``)
+    by slot."""
+    import torch
+
+    toks, rows = {}, {}
+    for s, p in zip(slots, prompts):
+        toks[s] = [eng.admit(s, p, 0.0)]
+        rows[s] = [eng.last_logits[0].to("cpu", copy=True)]
+    last = np.zeros(eng.slots, np.int32)
+    temps = np.zeros(eng.slots, np.float32)
+    active = list(slots)
+    while active:
+        for s in active:
+            last[s] = toks[s][-1]
+        ts, counts = eng.spec_step(last, temps, busy=active)
+        logits = eng.last_logits[active].to("cpu", copy=True)
+        for i, s in enumerate(active):
+            for j in range(int(counts[s])):
+                if len(toks[s]) < new:
+                    toks[s].append(int(ts[s, j]))
+                    rows[s].append(logits[i, j])
+        active = [s for s in active if len(toks[s]) < new]
+    return toks, {s: torch.stack(r) for s, r in rows.items()}
+
+
+def _held_against(toks, rows, ref_toks, ref_rows):
+    """(positions compared, tokens differing among them, the largest logit
+    error among them relative to the reference's largest |logit| at each
+    position): compared are the positions before the first where the
+    reference's top-two gap is at or below ``GPT_GAP`` (and inside both
+    runs), where the tokens must agree."""
+    n = min(len(toks), len(ref_toks))
+    top2 = ref_rows[:n].topk(2, dim=-1).values
+    ties = ((top2[:, 0] - top2[:, 1]) <= GPT_GAP).nonzero()
+    cover = int(ties[0, 0]) if len(ties) else n
+    wrong = sum(a != b for a, b in zip(toks[:cover], ref_toks[:cover]))
+    err = 0.0
+    if rows is not None and cover:
+        err = float(((rows[:cover] - ref_rows[:cover]).abs().amax(-1)
+                     / ref_rows[:cover].abs().amax(-1)).max())
+    return cover, int(wrong), err
+
+
+def _spec_parity(model, draft, plain, spec):
+    """12k step 1: the 4 parity prompts decoded 64 greedy tokens by the
+    speculative engine against the plain one (tokens before the first near
+    tie, each verify position's logits within ``GPT_LOGITS_RTOL``); the
+    TF32 control (the speculative engine run eagerly under TF32) must miss
+    the limit, and the draft's own greedy chain must part from the plain
+    tokens where the check holds them."""
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(GPT_SEED)
+    prompts = [_gpt_prompt(rng, n, vocab) for n in GPT_PARITY_PROMPTS]
+    slots = list(range(len(prompts)))
+    ref_toks, ref_rows = _decode_logged(plain, slots, prompts, GPT_NEW)
+    toks, rows = _spec_decode_logged(spec, slots, prompts, GPT_NEW)
+    spec.jit = False
+    try:
+        with _tf32():
+            t_toks, t_rows = _spec_decode_logged(spec, slots, prompts, GPT_NEW)
+    finally:
+        spec.jit = True
+    chain = GenerationEngine(draft, slots=len(prompts), cache_len=GPT_CACHE,
+                             prefill_buckets=GPT_BUCKETS, seed=GPT_SEED, device=GPT_DEVICE,
+                             jit=False)
+    d_toks, _ = _decode_logged(chain, slots, prompts, GPT_NEW)
+    del chain
+    held = wrong = control_wrong = 0
+    err = tf32 = 0.0
+    for s in slots:
+        cover, w, e = _held_against(toks[s], rows[s], ref_toks[s], ref_rows[s])
+        held, wrong, err = held + cover, wrong + w, max(err, e)
+        # the TF32 run compared where its own tokens still follow the plain run's
+        same = next((i for i, (a, b) in enumerate(zip(t_toks[s], ref_toks[s])) if a != b),
+                    GPT_NEW)
+        tf32 = max(tf32, _held_against(t_toks[s][:same], t_rows[s][:same],
+                                       ref_toks[s], ref_rows[s])[2])
+        control_wrong += _held_against(d_toks[s], None, ref_toks[s], ref_rows[s])[1]
+    r = {"prompts": list(GPT_PARITY_PROMPTS), "new_tokens": GPT_NEW,
+         "positions_held": held, "positions": GPT_NEW * len(prompts),
+         "tokens_differing": wrong, "verify_vs_plain_rel": err, "limit_rel": GPT_LOGITS_RTOL,
+         "control_tf32_rel": tf32, "control_draft_chain_differing": control_wrong}
+    log(f"gpt speculative parity: {r}")
+    if wrong or not err <= GPT_LOGITS_RTOL < tf32 or not control_wrong \
+            or held < GPT_NEW * len(prompts) // 2:
+        raise AssertionError(f"gpt 12k: speculative tokens or logits part from the plain "
+                             f"engine's, a control passed, or too few positions held: {r}")
+    return r, (prompts, ref_toks, ref_rows)
+
+
+def _spec_wrap_and_sampling(model, draft):
+    """12k steps 2 and 4: a speculative engine over a ring of 128 (16 slots,
+    top-k 50): a 100-token prompt decoded 100 greedy tokens past the wrap
+    against a plain engine of the same ring; then the verify graph's
+    position-0 draws at temperature 1 from 16 slots holding one state,
+    restored before each round: all inside the top 50 and passing the
+    chi-square test against the softmax of that position's logits (the
+    uniform over the top 50 the control it must reject)."""
+    import torch
+    from scipy import stats
+
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    kw = dict(cache_len=GPT_WRAP_CACHE, prefill_buckets=GPT_WRAP_BUCKETS, seed=GPT_SEED,
+              device=GPT_DEVICE)
+    spec = GenerationEngine(model, slots=GPT_SLOTS, top_k=GPT_TOP_K, draft_model=draft,
+                            draft_k=GPT_DRAFT_K, **kw).warmup()
+    plain = GenerationEngine(model, slots=1, **kw).warmup()
+    prompt = _gpt_prompt(np.random.RandomState(GPT_SEED + 1), GPT_WRAP_PROMPT,
+                         model.config.vocab_size)
+    ref_toks, ref_rows = _decode_logged(plain, [0], [prompt], GPT_WRAP_NEW)
+    toks, rows = _spec_decode_logged(spec, [0], [prompt], GPT_WRAP_NEW)
+    cover, wrong, err = _held_against(toks[0], rows[0], ref_toks[0], ref_rows[0])
+    wrap = {"cache_len": GPT_WRAP_CACHE, "store_len": spec.store_len,
+            "positions": [len(prompt), len(prompt) + GPT_WRAP_NEW], "positions_held": cover,
+            "tokens_differing": wrong, "verify_vs_plain_rel": err, "limit_rel": GPT_LOGITS_RTOL}
+    log(f"gpt speculative ring wrap: {wrap}")
+    if wrong or err > GPT_LOGITS_RTOL or cover < GPT_WRAP_NEW // 2:
+        raise AssertionError(f"gpt 12k: the speculative ring past its wrap parts from the "
+                             f"plain one: {wrap}")
+    # sampling: 16 slots, one state, restored before every round
+    base = _gpt_prompt(np.random.RandomState(GPT_SEED + 4), GPT_WRAP_BUCKETS[1],
+                       model.config.vocab_size)
+    last = np.array([spec.admit(s, base, 0.0) for s in range(spec.slots)], np.int32)
+    snap = [t.clone() for t in spec.kv + spec._kv_draft]
+    ones = np.ones(spec.slots, np.float32)
+    draws, row = [], None
+    for _ in range(GPT_SAMPLES // spec.slots):
+        for t, c in zip(spec.kv + spec._kv_draft, snap):
+            t.copy_(c)
+        ts, _ = spec.spec_step(last, ones)
+        draws.append(ts[:, 0].copy())
+        if row is None:
+            row = spec.last_logits[0, 0].to("cpu", copy=True)
+    draws = np.concatenate(draws)
+    top = row.topk(GPT_TOP_K)
+    ids = top.indices.numpy()
+    z = top.values.double().numpy()
+    p = np.exp(z - z.max())
+    p /= p.sum()
+    counts = np.array([(draws == i).sum() for i in ids], np.float64)
+    sampling = {"draws": int(draws.size), "top_k": GPT_TOP_K,
+                "outside_top_k": int((~np.isin(draws, ids)).sum()),
+                "chi2_p": float(stats.chisquare(counts, p * counts.sum()).pvalue),
+                "control_uniform_p": float(stats.chisquare(counts).pvalue), "p_min": GPT_P_MIN,
+                "extra_compiles": spec.extra_compiles()}
+    log(f"gpt speculative sampling (verify position 0): {sampling}")
+    if sampling["outside_top_k"] or not sampling["chi2_p"] > GPT_P_MIN > \
+            sampling["control_uniform_p"] or sampling["extra_compiles"]:
+        raise AssertionError(f"gpt 12k: the verify graph's draws failed their checks: "
+                             f"{sampling}")
+    del spec, plain, snap
+    torch.cuda.empty_cache()
+    return wrap, sampling
+
+
+def _spec_self_draft(model, ref):
+    """12k step 3: the target as its own draft accepts at least
+    ``GPT_SELF_MIN`` of its proposals on the parity prompts; its rounds
+    emit several tokens, so verify positions 1..k and the advance of
+    ``pos`` by a round's count are held here against the plain engine's
+    tokens and logits (``ref``: the prompts and the plain run of
+    :func:`_spec_parity`), under the same near-tie rule and limit."""
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    prompts, ref_toks, ref_rows = ref
+    eng = GenerationEngine(model, slots=GPT_SELF_SLOTS, cache_len=GPT_CACHE,
+                           prefill_buckets=GPT_SELF_BUCKETS, seed=GPT_SEED, device=GPT_DEVICE,
+                           draft_model=model, draft_k=GPT_DRAFT_K).warmup()
+    slots = list(range(len(prompts)))
+    toks, rows = _spec_decode_logged(eng, slots, prompts, GPT_NEW)
+    r = dict(eng.spec_stats(), param_bytes=eng.param_nbytes())
+    held = wrong = 0
+    err = 0.0
+    for s in slots:
+        cover, w, e = _held_against(toks[s], rows[s], ref_toks[s], ref_rows[s])
+        held, wrong, err = held + cover, wrong + w, max(err, e)
+    r.update(positions_held=held, positions=GPT_NEW * len(prompts), tokens_differing=wrong,
+             verify_vs_plain_rel=err, limit_rel=GPT_LOGITS_RTOL)
+    log(f"gpt self-draft: {r}")
+    if r["acceptance_rate"] is None or r["acceptance_rate"] < GPT_SELF_MIN \
+            or eng.extra_compiles():
+        raise AssertionError(f"gpt 12k: a self-draft accepted under {GPT_SELF_MIN}: {r}")
+    if wrong or err > GPT_LOGITS_RTOL or held < GPT_NEW * len(prompts) // 2:
+        raise AssertionError(f"gpt 12k: the self-draft's multi-token rounds part from the "
+                             f"plain engine's tokens or logits: {r}")
+    return r
+
+
+def _spec_timing(model, plain, spec):
+    """12k step 5: 16 busy slots; ``GPT_SPEC_ROUNDS`` greedy rounds on the
+    host clock (tokens a round, ms an emitted token) against the plain
+    decode step; the draft graph, the verify graph and a whole round timed
+    captured and eager (host clock, outputs on the card synchronized, or
+    the tokens on the host for a round), a profiled replay of each; the
+    round's bound: the target's weights and window once (verify), the
+    draft's weights and window once a chained step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(GPT_SEED + 2)
+    prompts = [_gpt_prompt(rng, int(rng.randint(GPT_PROMPT_LENS[0], GPT_PROMPT_LENS[1] + 1)),
+                           vocab) for _ in range(spec.slots)]
+    last = np.array([spec.admit(s, p) for s, p in enumerate(prompts)], np.int32)
+    plain_last = np.array([plain.admit(s, p) for s, p in enumerate(prompts)], np.int32)
+    temps = np.zeros(spec.slots, np.float32)
+    before = spec.spec_stats()
+    emitted, t0 = 0, time.perf_counter()
+    for _ in range(GPT_SPEC_ROUNDS):
+        ts, counts = spec.spec_step(last, temps)
+        last = ts[np.arange(spec.slots), counts - 1]
+        emitted += int(counts.sum())
+    rounds_ms = (time.perf_counter() - t0) * 1e3 / GPT_SPEC_ROUNDS
+    after = spec.spec_stats()
+    toks_t = torch.from_numpy(last.astype(np.int64))
+    temps_t = torch.from_numpy(temps)
+
+    def draft():
+        out = spec._dispatch("draft", (), spec._draft_body, [toks_t], read=lambda o: o,
+                             sample=False)
+        torch.cuda.synchronize()
+        return out
+
+    props = draft()[0].clone()
+
+    def verify():
+        spec._dispatch("verify", (), spec._verify_body, [toks_t, props, temps_t],
+                       read=lambda o: o)
+        torch.cuda.synchronize()
+
+    def rnd():
+        spec.spec_step(last, temps)
+
+    def timed(fn):
+        fn()
+        t = time.perf_counter()
+        for _ in range(GPT_TIMED):
+            fn()
+        return (time.perf_counter() - t) * 1e3 / GPT_TIMED
+
+    snap = [t.clone() for t in spec.kv + spec._kv_draft]
+    r = {}
+    for name, fn in (("draft", draft), ("verify", verify), ("round", rnd)):
+        row = {}
+        for side in ("eager", "captured"):
+            spec.jit = side == "captured"
+            row[f"{side}_ms"] = timed(fn)
+            for t, c in zip(spec.kv + spec._kv_draft, snap):
+                t.copy_(c)  # keep every call's positions inside the window
+        fn()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            wall = (time.perf_counter() - t) * 1e3
+        _, busy, events = _log_profile(prof, wall, f"gpt speculative {name} replay (16 slots)")
+        if _profiled_launches(prof):
+            raise AssertionError(f"gpt 12k: the {name} graph ran a port kernel: "
+                                 f"{_profiled_launches(prof)}")
+        row.update(profiled_wall_ms=wall, busy_ms=busy, device_events=events,
+                   by_kind_ms=_device_time_by_kind(prof)[0])
+        for t, c in zip(spec.kv + spec._kv_draft, snap):
+            t.copy_(c)
+        r[name] = row
+    del snap
+    step_ms = timed(lambda: plain.step(plain_last, temps))
+    draft_w = sum(p.numel() * p.element_size() for p in spec.draft_model.parameters())
+    draft_ring = sum(t.numel() * t.element_size() for t in spec._kv_draft)
+    target_bytes = (sum(p.numel() * p.element_size() for p in model.parameters())
+                    + sum(t.numel() * t.element_size() for t in spec.kv))
+    round_bytes = target_bytes + (GPT_DRAFT_K + 1) * (draft_w + draft_ring)
+    accepted = after["accepted"] - before["accepted"]
+    proposed = after["proposed"] - before["proposed"]
+    per_round = 1 + GPT_DRAFT_K * accepted / proposed
+    r.update({"rounds": GPT_SPEC_ROUNDS, "round_wall_ms": rounds_ms,
+              "tokens_emitted": emitted, "tokens_per_round_per_slot": per_round,
+              "acceptance_rate_16_slots": accepted / proposed,
+              "ms_per_emitted_token": rounds_ms / per_round, "plain_step_ms": step_ms,
+              "round_bytes": round_bytes, "round_bound_ms": round_bytes / HBM_BYTES_PER_S * 1e3,
+              "verify_bound_ms": target_bytes / HBM_BYTES_PER_S * 1e3,
+              "draft_bound_ms": (GPT_DRAFT_K + 1) * (draft_w + draft_ring)
+              / HBM_BYTES_PER_S * 1e3})
+    log(f"gpt speculative at 16 busy slots: round {rounds_ms:.3f} ms (host clock, tokens on "
+        f"the host), {per_round:.3f} tokens a round a slot, {r['ms_per_emitted_token']:.3f} ms "
+        f"an emitted token against the plain step's {step_ms:.3f} ms; draft "
+        f"{r['draft']['captured_ms']:.3f} / verify {r['verify']['captured_ms']:.3f} ms "
+        f"captured; round bound {r['round_bound_ms']:.3f} ms ({round_bytes} bytes)")
+    spec.reset()
+    plain.reset()
+    return r
+
+
+def _spec_http(model, spec):
+    """12k step 6: 12i's 32 requests to a speculative ``GenerationServer``
+    (16 slots); 8 answers against the engine's solo runs; ``/statz``
+    ``speculative`` and ``compiles``."""
+    from paddle_tpu_torch.serving import GenerationServer
+
+    reqs = [{"prompt": p, "max_new_tokens": n, "temperature": 0.0}
+            for p, n in _gpt_requests(model.config.vocab_size)]
+    out = [None] * len(reqs)
+    before = spec.spec_stats()
+    srv = GenerationServer(spec, port=0, queue_capacity=2 * GPT_REQUESTS)
+    try:
+        srv.start()
+        r = _serve_traffic(srv, reqs, model.config.eos_token_id, out)
+        statz = _http(srv.url + "/statz")[1]
+    finally:
+        srv.stop(drain=True)
+    solo = [spec.generate([q["prompt"]], max_new_tokens=q["max_new_tokens"],
+                          temperature=0.0)[0] for q in reqs[:GPT_SOLO]]
+    same = sum(a == b for a, b in zip(out[:GPT_SOLO], solo))
+    sp = statz["speculative"]
+    r.update({"solo_equal": f"{same}/{GPT_SOLO}", "speculative": sp,
+              "acceptance_rate": (sp["accepted"] - before["accepted"])
+              / max(sp["proposed"] - before["proposed"], 1),
+              "extra_compiles": spec.extra_compiles()})
+    log(f"gpt speculative HTTP: {r}")
+    if same != GPT_SOLO or statz["compiles"]["unexpected"] or spec.extra_compiles() \
+            or statz["compiles"]["programs"] != len(GPT_BUCKETS) + 2 or not sp["rounds"]:
+        raise AssertionError(f"gpt 12k: speculative answers part from solo runs, or the "
+                             f"requests captured graphs: {r}")
+    return r
+
+
+def _post_raw(url, data, timeout=300):
+    req = urllib.request.Request(url, data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.read(), resp.headers.get("Content-Type")
+
+
+def _spec_disagg_f32(model, plain, draft):
+    """12k step 7: a ``prefill`` and a ``decode`` server (f32 ring) on the
+    card; 8 of 12i's requests through ``/prefill`` then ``/generate_kv``
+    (client clock for each leg), answers held against the unified engine's
+    greedy run under the near-tie rule; the prefill tier holding no decode
+    cache, the slab's bytes, no capture after warmup; then a speculative
+    decode tier admitting two of the slabs with their prompts."""
+    from paddle_tpu_torch.generation import GenerationEngine, unpack_kv_slab
+    from paddle_tpu_torch.serving import GenerationServer
+
+    kw = dict(cache_len=GPT_CACHE, prefill_buckets=GPT_BUCKETS, seed=GPT_SEED,
+              device=GPT_DEVICE)
+    reqs = _gpt_requests(model.config.vocab_size)[:GPT_DISAGG_REQUESTS]
+    slots = list(range(len(reqs)))
+    ref_toks, ref_rows = _decode_logged(plain, slots, [p for p, _ in reqs],
+                                        max(n for _, n in reqs))
+    plain.reset()
+    pre = GenerationServer(GenerationEngine(model, slots=1, **kw), kind="prefill", port=0)
+    dec = GenerationServer(GenerationEngine(model, slots=GPT_DISAGG_SLOTS, **kw), kind="decode",
+                           port=0, queue_capacity=4 * GPT_DISAGG_REQUESTS)
+    slabs, answers, legs = [None] * len(reqs), [None] * len(reqs), []
+    try:
+        t0 = time.perf_counter()
+        pre.start()
+        dec.start()
+        warm_s = time.perf_counter() - t0
+
+        def client(i):
+            prompt, n = reqs[i]
+            body = json.dumps({"prompt": prompt, "max_new_tokens": n,
+                               "temperature": 0.0}).encode()
+            t = time.perf_counter()
+            status, slab, ctype = _post_raw(pre.url + "/prefill", body)
+            t1 = time.perf_counter()
+            status2, ans, _ = _post_raw(dec.url + "/generate_kv", slab)
+            legs.append(((t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3))
+            if status != 200 or status2 != 200 or not ctype.startswith(
+                    "application/x-ptpu-kv-slab"):
+                raise AssertionError(f"gpt 12k: handoff {i} answered {status}/{status2}")
+            slabs[i], answers[i] = slab, json.loads(ans)["tokens"]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        pz, dz = _http(pre.url + "/statz")[1], _http(dec.url + "/statz")[1]
+        pre_cache = pre.engine.cache_nbytes()
+    finally:
+        pre.stop(drain=False)
+        dec.stop(drain=True)
+    if any(a is None for a in answers):
+        raise AssertionError("gpt 12k: a disaggregated request got no answer")
+    held = wrong = 0
+    for s, a in enumerate(answers):
+        cover, w, _ = _held_against(a, None, ref_toks[s], ref_rows[s])
+        held, wrong = held + cover, wrong + w
+    planes, n, _, meta = unpack_kv_slab(slabs[0])
+    plane_bytes = sum(p.nbytes for p in planes)
+    r = {"requests": len(reqs), "warmup_s": warm_s, "wall_s": wall,
+         "tokens": sum(len(a) for a in answers),
+         "prefill_leg_ms": {"p50": float(np.percentile([x for x, _ in legs], 50)),
+                            "max": float(max(x for x, _ in legs))},
+         "decode_leg_ms": {"p50": float(np.percentile([y for _, y in legs], 50)),
+                           "max": float(max(y for _, y in legs))},
+         "slab_bytes": len(slabs[0]), "slab_plane_bytes": plane_bytes,
+         "positions_held": held, "tokens_differing": wrong,
+         "prefill_tier_cache_bytes": pre_cache, "prefill_compiles": pz["compiles"],
+         "decode_compiles": dz["compiles"], "decode_latency": dz["latency"]}
+    log(f"gpt disaggregated f32: {r}")
+    want_planes = 2 * model.config.num_hidden_layers * GPT_CACHE * model.config.hidden_size * 4
+    if wrong or pre_cache or plane_bytes != want_planes or pz["compiles"]["unexpected"] \
+            or dz["compiles"]["unexpected"] or pz["compiles"]["programs"] != len(GPT_BUCKETS) \
+            or dz["compiles"]["programs"] != 1 or held < r["tokens"] // 2:
+        raise AssertionError(f"gpt 12k: the disaggregated answers part from the unified "
+                             f"engine's, the prefill tier holds a cache, or a tier captured "
+                             f"after warmup: {r}")
+    # a speculative decode tier: the slab and its prompt (the draft's prefill)
+    sdec = GenerationServer(GenerationEngine(model, slots=GPT_SPEC_DECODE_SLOTS, draft_model=draft,
+                                             draft_k=GPT_DRAFT_K, **kw), kind="decode", port=0)
+    try:
+        sdec.start()
+        got = [json.loads(_post_raw(sdec.url + "/generate_kv", slabs[i])[1])["tokens"]
+               for i in range(GPT_SPEC_DECODE_SLABS)]
+        sz = _http(sdec.url + "/statz")[1]
+    finally:
+        sdec.stop(drain=True)
+    held = wrong = 0
+    for s, a in enumerate(got):
+        cover, w, _ = _held_against(a, None, ref_toks[s], ref_rows[s])
+        held, wrong = held + cover, wrong + w
+    r["speculative_decode_tier"] = {"slabs": len(got), "positions_held": held,
+                                    "tokens_differing": wrong, "compiles": sz["compiles"],
+                                    "speculative": sz["speculative"]}
+    log(f"gpt speculative decode tier: {r['speculative_decode_tier']}")
+    if wrong or sz["compiles"]["unexpected"] or not held \
+            or sz["compiles"]["programs"] != len(GPT_BUCKETS) + 2:
+        raise AssertionError(f"gpt 12k: the speculative decode tier parts from the unified "
+                             f"engine or captured after warmup: {r['speculative_decode_tier']}")
+    return r
+
+
+def _spec_disagg_paged(model):
+    """12k step 8: a paged int8 ``prefill``/``decode`` pair (page 16), each
+    of 4 tenants' first two requests of 12j's traffic: the second asks the
+    decode tier's ``/prefix_known`` and ships its 256-token system prompt's
+    16 pages header-only; ``/statz`` ``paging`` counts 4 hits; answers held
+    against an int8 ring engine's greedy run under the near-tie rule."""
+    from paddle_tpu_torch.generation import GenerationEngine, chain_hashes, unpack_kv_pages
+    from paddle_tpu_torch.serving import GenerationServer
+
+    kw = dict(cache_len=GPT_CACHE, prefill_buckets=GPT_BUCKETS, seed=GPT_SEED,
+              device=GPT_DEVICE, kv_cache_dtype="int8")
+    traffic = _gpt_traffic(model.config.vocab_size)
+    reqs = traffic[:GPT_TENANTS] + traffic[GPT_TENANTS:2 * GPT_TENANTS]
+    ring = GenerationEngine(model, slots=len(reqs), **kw).warmup()
+    ref_toks, ref_rows = _decode_logged(ring, list(range(len(reqs))),
+                                        [q["prompt"] for q in reqs],
+                                        max(q["max_new_tokens"] for q in reqs))
+    del ring
+    paged = dict(kw, kv_cache_layout="paged", kv_page_size=GPT_PAGE)
+    pre = GenerationServer(GenerationEngine(model, slots=1, **paged), kind="prefill", port=0)
+    dec = GenerationServer(GenerationEngine(model, slots=GPT_TENANTS, **paged), kind="decode",
+                           port=0)
+    answers, absent, wire = [], [], []
+    try:
+        pre.start()
+        dec.start()
+        pinned = [len(dec.engine._pinned)]  # host buffers pinned by warmup
+        for q in reqs:
+            known = _http(dec.url + "/prefix_known",
+                          {"hashes": chain_hashes(q["prompt"], GPT_PAGE)})[1]["known"]
+            body = json.dumps(dict(q, page_format=True, known_hashes=known)).encode()
+            _, blob, _ = _post_raw(pre.url + "/prefill", body)
+            slab = unpack_kv_pages(blob)
+            absent.append(sum(p["planes"] is None for p in slab.pages))
+            wire.append(len(blob))
+            answers.append(json.loads(_post_raw(dec.url + "/generate_kv", blob)[1])["tokens"])
+        dz = _http(dec.url + "/statz")[1]
+        pinned.append(len(dec.engine._pinned))
+    finally:
+        pre.stop(drain=False)
+        dec.stop(drain=True)
+    held = wrong = 0
+    for s, a in enumerate(answers):
+        cover, w, _ = _held_against(a, None, ref_toks[s], ref_rows[s])
+        held, wrong = held + cover, wrong + w
+    pg = dz["paging"]
+    r = {"requests": len(reqs), "header_only_pages": absent, "wire_bytes": wire,
+         "positions_held": held, "tokens_differing": wrong,
+         "prefix_hits": pg["prefix_index"]["hits"], "per_tenant": pg["per_tenant"],
+         "compiles": dz["compiles"], "pinned_buffers_warm_then_served": pinned}
+    log(f"gpt disaggregated paged int8: {r}")
+    system_pages = GPT_SYSTEM_LEN // GPT_PAGE
+    if wrong or absent != [0] * GPT_TENANTS + [system_pages] * GPT_TENANTS \
+            or r["prefix_hits"] != GPT_TENANTS or dz["compiles"]["unexpected"] \
+            or pinned[0] != pinned[1] \
+            or held < sum(len(a) for a in answers) // 2:
+        raise AssertionError(f"gpt 12k: the paged handoff missed its header-only pages, its "
+                             f"hits or the int8 ring's tokens, or pinned host memory after "
+                             f"warmup: {r}")
+    return r
+
+
+def serve_gpt_speculative():
+    """Phase 12k. GPT-2 small (the weights of 12i, from its seed) under
+    speculative decoding (a one-layer truncated draft, ``draft_k`` 4) and
+    through the disaggregated handoff, each against the plain engine (16
+    slots x 1024). Returns (the port's kernel launches over the phase,
+    which must be none; readings)."""
+    import torch
+
+    from paddle_tpu_torch.generation import GenerationEngine
+    from paddle_tpu_torch.models import truncated_draft
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _gpt_model()
+    draft = truncated_draft(model, GPT_DRAFT_LAYERS)
+    reset_launch_counts()
+    kw = dict(slots=GPT_SLOTS, cache_len=GPT_CACHE, prefill_buckets=GPT_BUCKETS, seed=GPT_SEED,
+              device=GPT_DEVICE)
+    plain = GenerationEngine(model, **kw).warmup()
+    spec = GenerationEngine(model, draft_model=draft, draft_k=GPT_DRAFT_K, **kw)
+    t0 = time.perf_counter()
+    spec.warmup()
+    r = {"draft_k": GPT_DRAFT_K, "draft_layers": GPT_DRAFT_LAYERS,
+         "store_len": spec.store_len, "warmup_s": time.perf_counter() - t0,
+         "graphs_after_warmup": spec.graphs(), "kv_cache_bytes": spec.cache_nbytes(),
+         "param_bytes": spec.param_nbytes()}
+    log(f"gpt speculative engine warm: {r}")
+    if spec.graphs() != spec.expected_compiles() != len(GPT_BUCKETS) + 2 \
+            or spec.compile_count() != len(GPT_BUCKETS) + 2:
+        raise AssertionError(f"gpt 12k: warmup captured {spec.graphs()} graphs for "
+                             f"{len(GPT_BUCKETS)} buckets + draft + verify")
+    r["parity"], ref = _spec_parity(model, draft, plain, spec)
+    r["acceptance_parity"] = spec.spec_stats()
+    r["ring_wrap"], r["sampling"] = _spec_wrap_and_sampling(model, draft)
+    r["self_draft"] = _spec_self_draft(model, ref)
+    del ref
+    torch.cuda.empty_cache()
+    spec.reset()
+    plain.reset()
+    r["timing"] = _spec_timing(model, plain, spec)
+    r["http"] = _spec_http(model, spec)
+    r["disagg_f32"] = _spec_disagg_f32(model, plain, draft)
+    del plain
+    torch.cuda.empty_cache()
+    r["disagg_paged_int8"] = _spec_disagg_paged(model)
+    r["extra_compiles"], r["graphs"] = spec.extra_compiles(), spec.graphs()
+    if r["extra_compiles"] or r["graphs"] != len(GPT_BUCKETS) + 2:
+        raise AssertionError(f"gpt 12k: the speculative engine captured after warmup: {r}")
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"gpt 12k: the generation path launched the port's kernels: "
+                             f"{counts}")
+    r["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"gpt 12k: phase done in {r['phase_s']:.1f} s, peak {r['peak_memory_gib']:.2f} GiB")
+    del spec, draft, model
     torch.cuda.empty_cache()
     return counts, r
 
@@ -6927,6 +7529,7 @@ def main() -> int:
     lenet_opt_counts, lenet_opt = train_lenet_optimizers()
     gpt_counts, gpt = serve_gpt()
     paged_counts, gpt_paged = serve_gpt_paged()
+    spec_counts, gpt_spec = serve_gpt_speculative()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -6939,8 +7542,10 @@ def main() -> int:
         # the LeNet program's steps, replayed from the static executor's graph
         k["launches_static"] = lenet_counts.get(name, 0)
         # GPT-2 small's generation (pre-norm, cached attention; the ring, the
-        # int8 ring and the paged layout, 12i and 12j): none, checked
-        k["launches_generation"] = gpt_counts.get(name, 0) + paged_counts.get(name, 0)
+        # int8 ring and the paged layout, 12i and 12j; speculative decoding
+        # and the handoff, 12k): none, checked
+        k["launches_generation"] = (gpt_counts.get(name, 0) + paged_counts.get(name, 0)
+                                    + spec_counts.get(name, 0))
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
@@ -6950,7 +7555,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
                       "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s,
                       "lenet_static": lenet, "bert_lamb": lamb, "lenet_optimizers": lenet_opt,
-                      "gpt_generation": gpt, "gpt_int8_paged": gpt_paged}))
+                      "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
+                      "gpt_speculative_handoff": gpt_spec}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -229,9 +229,29 @@ define_flag("memory_budget_check", "warn",
             "strict (strict rejects over-budget programs and unsafe "
             "donations with the high-water op named)")
 
-# serving/server.py GenerationServer — the backend's role. The port serves
-# generate; prefill and decode (the disaggregated tiers) raise
-# UnimplementedError.
+# generation/engine.py — speculative decoding. With a draft model (the
+# engine's draft_model=), every decode round runs the draft chain and ONE
+# target verify over draft_k + 1 positions instead of one target step a
+# token; greedy output is token-identical to the plain engine. The name
+# is kept for parity with the JAX flags, where the backend CLI reads it
+# beside --draft-dir; the port has no backend CLI yet, reads this flag
+# nowhere, and speculates whenever an engine is given a draft_model=.
+define_flag("speculative_enabled", False,
+            "kept for parity with the JAX flags; the port ignores it "
+            "(an engine speculates when given draft_model=) until the "
+            "backend CLI's --draft-dir is ported")
+
+# generation/engine.py — proposals per speculative round; engine-wide: k
+# shapes the draft and verify graphs and widens the ring store by k
+# scratch entries.
+define_flag("speculative_draft_k", 4,
+            "draft tokens proposed per speculative decoding round; "
+            "engine-level — changing it recompiles draft+verify")
+
+# serving/server.py GenerationServer — the backend's role: "generate"
+# serves /generate end to end; "prefill" runs only the bucketed forward and
+# answers the KV slab (POST /prefill); "decode" admits handed-off slabs
+# into decode slots (POST /generate_kv).
 define_flag("backend_kind", "generate",
             "generation backend role: generate | prefill | decode "
             "(disaggregated fleets run distinct prefill/decode tiers)")

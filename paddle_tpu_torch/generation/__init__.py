@@ -11,13 +11,17 @@
 - :mod:`generation.engine`: :class:`GenerationEngine`, a CUDA graph per
   prefill bucket and one decode graph over every slot, ring or paged,
   float32 or int8, with compile accounting (``extra_compiles() == 0`` in
-  steady state).
+  steady state); with a ``draft_model``, speculative decoding (a draft
+  graph and a verify graph a round); and the handoff primitives of the
+  disaggregated tiers (``prefill_export``, ``admit_prefilled`` and their
+  page-granular forms);
+- :mod:`generation.handoff`: the ``PTKV`` slab and ``PTKP`` page wire
+  formats, byte for byte the JAX package's.
 
-Continuous batching over the engine and HTTP ``/generate`` live in
+Continuous batching over the engine and HTTP ``/generate`` (and the
+``prefill`` and ``decode`` tiers' ``/prefill`` and ``/generate_kv``) live in
 :mod:`paddle_tpu_torch.serving.continuous` and
-:class:`paddle_tpu_torch.serving.GenerationServer`. Speculative decoding
-and the handoff wire formats are not ported (ROADMAP.md Queue A item 3,
-entries 3 and 4).
+:class:`paddle_tpu_torch.serving.GenerationServer`.
 
 Quickstart::
 
@@ -50,6 +54,16 @@ from .cache import (  # noqa: F401
     verify_mask,
 )
 from .engine import COMPILE_COUNTER, GenerationEngine, MemoryBudgetError  # noqa: F401
+from .handoff import (  # noqa: F401
+    HANDOFF_CONTENT_TYPE,
+    HANDOFF_PAGED_CONTENT_TYPE,
+    HandoffError,
+    PageSlab,
+    pack_kv_pages,
+    pack_kv_slab,
+    unpack_kv_pages,
+    unpack_kv_slab,
+)
 from .paging import (  # noqa: F401
     TRASH_PAGE,
     PagePool,
@@ -71,4 +85,6 @@ __all__ = [
     "decode_mask", "prefill_mask", "verify_mask", "pad_slot_arrays",
     "PagePool", "PagePoolExhaustedError", "PrefixIndex", "TRASH_PAGE", "chain_hashes",
     "init_paged_cache", "page_nbytes", "split_planes",
+    "HandoffError", "PageSlab", "pack_kv_slab", "unpack_kv_slab", "pack_kv_pages",
+    "unpack_kv_pages", "HANDOFF_CONTENT_TYPE", "HANDOFF_PAGED_CONTENT_TYPE",
 ]

@@ -1,9 +1,10 @@
-"""The generation engine: bucketed prefill + cached decode, as CUDA graphs (``paddle_tpu/generation/engine.py:87-1642``; ring and paged layouts, float32 and int8).
+"""The generation engine: bucketed prefill + cached decode, as CUDA graphs (``paddle_tpu/generation/engine.py:87-1642``; ring and paged layouts, float32 and int8, speculative decoding and the prefill/decode handoff).
 
 The JAX engine compiles one program per prefill bucket and one decode
 program over every slot, and replaces its cache arrays functionally. The
 port keeps the same split and the same compile accounting with CUDA graphs
-in two ``runtime/compiled.py`` stores:
+in ``runtime/compiled.py`` stores (``prefill``, ``decode``, ``draft``,
+``verify``):
 
 - **Persistent cache.** The engine owns its cache tensors for its
   lifetime: the ring ``k, v [L, S, H, C, D]`` (int8 values with f32 scale
@@ -23,6 +24,24 @@ in two ``runtime/compiled.py`` stores:
   the device. The first token is sampled from the last real position.
 - **One decode graph** over all ``S`` slots: last tokens and temperatures
   in, next tokens out.
+- **Speculative decoding** (``draft_model=``, ring layout): the store
+  widens to ``cache_len + draft_k`` entries, and a persistent draft ring of
+  the draft's layers shares the target's ``pos``. A prefill graph fills
+  both rings; a round is the **draft graph** (``k + 1`` chained greedy
+  draft steps over every slot, the proposals fed forward on the device)
+  and the **verify graph** (one target forward over ``[last | proposals]``
+  that writes the span at ``(pos + t) % store``, draws ``k + 1`` samples,
+  accepts the proposals' longest prefix equal to them and advances ``pos``
+  by the emitted count on the device). Greedy output equals the plain
+  engine's.
+- **The handoff** (the ``prefill`` and ``decode`` backend kinds): a graph
+  per bucket writes the window-wide planes into a persistent export buffer
+  (:meth:`~GenerationEngine.prefill_export`), copied to the host through a
+  pinned buffer before the lock is released; a decode tier installs them
+  with a pinned host-to-device copy and ``index_copy_``
+  (:meth:`~GenerationEngine.admit_prefilled`), or page by page under the
+  paged layout (:meth:`~GenerationEngine.admit_prefilled_pages`). A
+  prefill tier's warmup drops the decode cache: it holds no ring.
 - **Page management on the host, between replays** (paged): allocation,
   refcounts, the prefix index, copy-on-write and eviction are plain Python
   (:class:`~paddle_tpu_torch.generation.paging.PagePool`,
@@ -36,11 +55,12 @@ in two ``runtime/compiled.py`` stores:
   in matrix products) runs eagerly as the real call, then captures; the
   stores' misses are the JAX ``generation::compile`` counter
   (:data:`COMPILE_COUNTER`, :meth:`GenerationEngine.compile_count`).
-  :meth:`~GenerationEngine.warmup` makes exactly ``len(buckets) + 1`` (with
+  :meth:`~GenerationEngine.warmup` makes exactly
+  :meth:`~GenerationEngine.expected_compiles` of the backend kind (with
   prefix sharing off, so every bucket captures its own) and arms
   :attr:`~GenerationEngine.watch`; ``extra_compiles()`` must then stay 0.
 - **Sampling.** One ``torch.Generator`` on the card, registered with every
-  graph, so each replay draws anew.
+  graph that samples, so each replay draws anew.
 - **No host decision inside a graph.** Slots and lengths are gathered and
   ``index_copy_``'d as device tensors; positions are clamped on the device;
   the sampled tokens are copied out after the replay through a pinned
@@ -48,15 +68,15 @@ in two ``runtime/compiled.py`` stores:
   prefill and decode write the same cache.
 
 On the CPU (``device="cpu"``) the same bodies run eagerly at every call.
-Speculative decoding and the disaggregated prefill/decode kinds raise
-:class:`~paddle_tpu_torch.errors.UnimplementedError` naming their ROADMAP
-entries. The JAX engine's registry gauges and ``prefix_reuse`` flight
-events wait for the monitor (ROADMAP.md Queue A item 10); the accounting
-behind them is here (:meth:`GenerationEngine.paging_stats`).
+The JAX engine's registry gauges, ``spec_*`` counters and flight events
+wait for the monitor (ROADMAP.md Queue A item 10); the accounting behind
+them is here (:meth:`GenerationEngine.paging_stats`,
+:meth:`GenerationEngine.spec_stats`).
 """
 from __future__ import annotations
 
 import itertools
+import operator
 import threading
 import warnings
 from collections import deque
@@ -65,13 +85,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..errors import EnforceNotMet, InvalidArgumentError, UnimplementedError
+from ..errors import EnforceNotMet, InvalidArgumentError, PreconditionNotMetError
 from ..flags import flag
 from ..framework.jit import _captures, _first_run, _set_precision
 from ..runtime.compiled import CompileWatch, GraphStore, precision_key
 from ..serving.batcher import parse_buckets
 from . import cache as _cache
 from . import paging as _paging
+from .handoff import HandoffError
 from .sampling import sample_logits
 
 __all__ = ["GenerationEngine", "COMPILE_COUNTER", "MemoryBudgetError"]
@@ -79,9 +100,6 @@ __all__ = ["GenerationEngine", "COMPILE_COUNTER", "MemoryBudgetError"]
 #: the JAX package's counter of generation compiles; the port's count is
 #: the misses of an engine's two stores (:meth:`GenerationEngine.compile_count`)
 COMPILE_COUNTER = "generation::compile"
-
-_SPECULATIVE = "speculative decoding (ROADMAP.md Queue A item 3, entry 3)"
-_HANDOFF = "the disaggregated prefill/decode handoff (ROADMAP.md Queue A item 3, entry 4)"
 
 _instances = itertools.count()
 
@@ -112,8 +130,9 @@ class GenerationEngine:
     (and its int8 and paged forms) and ``cache_spec()``
     (:class:`~paddle_tpu_torch.models.GPTForCausalLM`). The two scheduler
     primitives are :meth:`admit` (prefill a prompt into a slot, return the
-    first token) and :meth:`step` (one token for every slot). ``device`` is
-    the card unless the caller names another (the model moves there);
+    first token) and :meth:`step` (one token for every slot), or with a
+    ``draft_model`` :meth:`spec_step` (one draft/verify round). ``device``
+    is the card unless the caller names another (the models move there);
     ``jit=False`` runs every call eagerly on the card too (the captured
     path's control)."""
 
@@ -122,9 +141,6 @@ class GenerationEngine:
                  kv_cache_dtype=None, kv_cache_layout=None, kv_page_size=None,
                  kv_pool_pages=None, draft_model=None, draft_k=None, seed=0, device=None,
                  jit=True):
-        if draft_model is not None:
-            raise UnimplementedError(f"GenerationEngine(draft_model=...): {_SPECULATIVE} is "
-                                     "not ported yet")
         self.kv_cache_dtype = str(kv_cache_dtype if kv_cache_dtype is not None
                                   else flag("generation_kv_cache_dtype"))
         if self.kv_cache_dtype not in _cache.KV_CACHE_DTYPES:
@@ -136,6 +152,12 @@ class GenerationEngine:
             raise InvalidArgumentError(f"kv_cache_layout must be ring | paged, got "
                                        f"{self.kv_cache_layout!r}")
         self.paged = self.kv_cache_layout == "paged"
+        self.speculative = draft_model is not None
+        self.draft_k = int(draft_k if draft_k is not None else flag("speculative_draft_k"))
+        if self.paged and self.speculative:
+            raise InvalidArgumentError(
+                "speculative decoding does not compose with kv_cache_layout=paged yet; run the "
+                "draft engine on the ring layout")
         self.device = resolve_device(device)
         _set_precision()
         self.model = model.to(self.device)
@@ -183,8 +205,14 @@ class GenerationEngine:
         spec = model.cache_spec()
         self._num_layers, self._num_heads, self._head_dim = (int(spec[0]), int(spec[1]),
                                                              int(spec[2]))
-        # no speculative scratch margin: the store is the window
-        self.store_len = self.cache_len
+        self.draft_model = None
+        if self.speculative:
+            self._check_draft(draft_model, cfg)
+            self.draft_model = draft_model.to(self.device)
+            draft_model.eval()
+        # the verify span writes k entries past the window: the ring store
+        # carries them as scratch, so no write lands on a live window entry
+        self.store_len = self.cache_len + (self.draft_k if self.speculative else 0)
         self.jit = bool(jit)
         self.check_memory_budget()
         self._gen = torch.Generator(device=self.device)
@@ -194,55 +222,101 @@ class GenerationEngine:
         # same cache, and /statz reads the pool
         self._lock = threading.RLock()
         self._kv = None
+        # slots the decode cache holds: all of them, or none on a prefill
+        # tier (set by warmup(kind="prefill"))
+        self._ring_slots = self.slots
+        self._export = None  # the prefill-export buffer, made at first use
         self._pinned = {}
         self.last_logits = None
         # warmup turns prefix sharing off: every bucket must capture its
         # own graph, not a shorter suffix's
         self._prefix_enabled = True
+        self._stats_lock = threading.Lock()
+        self._spec_rounds = self._spec_proposed = self._spec_accepted = 0
         self.reset()
-        self._stores = {label: GraphStore(f"generation_{label}") for label in ("prefill",
-                                                                               "decode")}
+        self._stores = {label: GraphStore(f"generation_{label}")
+                        for label in ("prefill", "decode", "draft", "verify")}
         self._instance = next(_instances)
         self.warmed = False
         self.watch = CompileWatch(self.compile_count)
+
+    def _check_draft(self, draft, cfg):
+        """The JAX engine's draft checks: ``draft_k >= 1``, the target's
+        vocabulary, and positions covering the target's (the draft decodes
+        the same positions; a shorter table would gather clamped
+        embeddings)."""
+        if self.draft_k < 1:
+            raise InvalidArgumentError(f"speculative draft_k must be >= 1, got {self.draft_k}")
+        dspec = draft.cache_spec()
+        self._draft_layers, self._draft_heads, self._draft_dim = (int(dspec[0]), int(dspec[1]),
+                                                                  int(dspec[2]))
+        dcfg = getattr(draft, "config", None)
+        self._draft_max_positions = int(getattr(dcfg, "max_position_embeddings", 1 << 30))
+        dvocab, tvocab = getattr(dcfg, "vocab_size", None), getattr(cfg, "vocab_size", None)
+        if dvocab is not None and tvocab is not None and int(dvocab) != int(tvocab):
+            raise InvalidArgumentError(f"draft model vocab ({dvocab}) must match the target "
+                                       f"({tvocab}); proposals are target token ids")
+        tmax = int(getattr(cfg, "max_position_embeddings", 1 << 30))
+        if self._draft_max_positions < tmax:
+            raise InvalidArgumentError(
+                f"draft max_position_embeddings ({self._draft_max_positions}) must cover the "
+                f"target's ({tmax}); the draft decodes the same positions")
 
     # -- state ------------------------------------------------------------------
 
     def reset(self):
         """Zero every slot (caches empty, positions 0) in place, so the
         graphs captured over the cache stay valid; a paged engine also
-        starts its pool, page tables and prefix index afresh."""
+        starts its pool, page tables and prefix index afresh. The cache is
+        made anew only when its slot count changed (a prefill tier's
+        warmup drops it)."""
         with self._lock:
-            if self._kv is None:
+            n = self._ring_slots
+            if self._kv is None or self._kv[-1].shape[0] != n:
+                self._kv = None  # the old cache goes before the new one is made
+                self._kv_draft = None
                 if self.paged:
+                    # a prefill tier (no slots) keeps only the trash page
                     self._kv = _paging.init_paged_cache(
                         self._num_layers, self._num_heads, self._head_dim, self.page_size,
-                        self._pool_usable(), self.slots, self._pages_per_slot,
+                        self._pool_usable() if n else 0, n, self._pages_per_slot,
                         self.kv_cache_dtype, self.device)
                     # the host mirror of the table: pinned, so _sync_table
                     # copies it straight to the card
                     self._table_buf = torch.full(
-                        (self.slots, self._pages_per_slot), _paging.TRASH_PAGE,
+                        (n, self._pages_per_slot), _paging.TRASH_PAGE,
                         dtype=torch.int32, pin_memory=self.device.type == "cuda")
                     self._table_host = self._table_buf.numpy()
                 else:
-                    self._kv = _cache.init_cache(self._num_layers, self.slots, self._num_heads,
+                    self._kv = _cache.init_cache(self._num_layers, n, self._num_heads,
                                                  self.store_len, self._head_dim,
                                                  self.kv_cache_dtype, self.device)
+                if self.speculative:
+                    # the draft ring: the draft's layers, no pos of its own
+                    # (the target's serves both: they hold the same history)
+                    self._kv_draft = _cache.init_cache(
+                        self._draft_layers, n, self._draft_heads, self.store_len,
+                        self._draft_dim, self.kv_cache_dtype, self.device)[:-1]
             else:
-                for a in self._kv:
+                for a in self._kv + (self._kv_draft or ()):
                     a.zero_()
             if self.paged:
                 self._kv[-2].fill_(_paging.TRASH_PAGE)
                 self._table_host[:] = _paging.TRASH_PAGE
-                self._pool = _paging.PagePool(self._pool_usable(), self.page_size)
-                self._index = _paging.PrefixIndex(self._pool)
-                self._pos_host = np.zeros(self.slots, np.int64)
-                self._slot_live = [False] * self.slots
-                self._slot_tenant = ["default"] * self.slots
+                self._pool = _paging.PagePool(self._pool_usable(), self.page_size) if n else None
+                self._index = _paging.PrefixIndex(self._pool) if n else None
+                self._pos_host = np.zeros(n, np.int64)
+                self._slot_live = [False] * n
+                self._slot_tenant = ["default"] * n
                 # per-tenant prefix accounting (prompt vs shared tokens)
                 self._prefix_tenants = {}
         return self
+
+    def _need_ring(self, what):
+        if not self._ring_slots:
+            raise PreconditionNotMetError(
+                f"{what}: this engine was warmed up as a prefill tier and holds no decode "
+                "cache; it serves prefill_export only")
 
     @property
     def kv(self):
@@ -253,8 +327,9 @@ class GenerationEngine:
 
     def cache_nbytes(self) -> int:
         """Device bytes the whole decode cache occupies (values, scales,
-        table, positions), read off the tensors."""
-        return _cache.cache_nbytes(self._kv)
+        table, positions, and the draft ring when speculative), read off
+        the tensors."""
+        return _cache.cache_nbytes(self._kv + (self._kv_draft or ()))
 
     def kv_bytes_per_token(self) -> int:
         """Cache bytes one decoded token occupies across all layers."""
@@ -264,9 +339,13 @@ class GenerationEngine:
     # -- memory planning --------------------------------------------------------
 
     def param_nbytes(self) -> int:
-        """Device bytes of the model's parameters and buffers."""
-        return int(sum(t.numel() * t.element_size()
-                       for t in itertools.chain(self.model.parameters(), self.model.buffers())))
+        """Device bytes of the model's parameters and buffers, and the
+        draft's when speculative (a tensor both hold, as in a self-draft,
+        once)."""
+        models = (self.model,) + ((self.draft_model,) if self.speculative else ())
+        tensors = {id(t): t for m in models
+                   for t in itertools.chain(m.parameters(), m.buffers())}
+        return int(sum(t.numel() * t.element_size() for t in tensors.values()))
 
     def _pool_usable(self, slots=None) -> int:
         """Usable pages (the trash page apart) of the pool for ``slots``
@@ -283,14 +362,19 @@ class GenerationEngine:
 
     def slot_nbytes(self, kv_cache_dtype=None) -> int:
         """Cache bytes one decode slot costs. Ring: ``store_len x
-        kv_bytes_per_token`` plus its position word. Paged: its window's
-        pages x ``page_nbytes`` plus its table row and position word."""
+        kv_bytes_per_token`` plus its position word, plus the draft ring's
+        when speculative. Paged: its window's pages x ``page_nbytes`` plus
+        its table row and position word."""
         dtype = str(kv_cache_dtype if kv_cache_dtype is not None else self.kv_cache_dtype)
         if self.paged:
             return (self._pages_per_slot * self.page_nbytes(dtype)
                     + self._pages_per_slot * 4 + 4)
-        return self.store_len * _cache.kv_bytes_per_token(
+        per = self.store_len * _cache.kv_bytes_per_token(
             self._num_layers, self._num_heads, self._head_dim, dtype) + 4
+        if self.speculative:
+            per += self.store_len * _cache.kv_bytes_per_token(
+                self._draft_layers, self._draft_heads, self._draft_dim, dtype)
+        return per
 
     def hbm_required_bytes(self, slots=None, kv_cache_dtype=None) -> int:
         """Device bytes the geometry holds resident: weights plus ``slots``
@@ -364,36 +448,76 @@ class GenerationEngine:
         return self.watch.extra()
 
     def expected_compiles(self, kind="generate") -> int:
-        """Graphs :meth:`warmup` captures: one per prefill bucket and the
-        decode graph, in every layout and dtype. The disaggregated kinds
-        raise."""
+        """Graphs :meth:`warmup` captures for a backend ``kind``, in every
+        layout and dtype: ``generate``, one per prefill bucket and the
+        decode graph (speculative: the draft and verify graphs);
+        ``prefill``, one export graph per bucket; ``decode``, the decode
+        graph (speculative: draft and verify, and a draft-prefill graph per
+        bucket, since a handed-off slab holds the target's cache only)."""
+        buckets = len(self.prefill_buckets)
+        decode = 2 if self.speculative else 1
         if kind == "generate":
-            return len(self.prefill_buckets) + 1
-        if kind in ("prefill", "decode"):
-            raise UnimplementedError(f"backend kind {kind!r}: {_HANDOFF} is not ported yet")
+            return buckets + decode
+        if kind == "prefill":
+            return buckets
+        if kind == "decode":
+            return decode + (buckets if self.speculative else 0)
         raise InvalidArgumentError(f"unknown backend kind {kind!r}; expected generate | "
                                    "prefill | decode")
 
     def warmup(self, kind="generate"):
-        """Capture exactly ``expected_compiles(kind)`` graphs (every bucket,
-        then the decode step), zero the cache, arm the watch. Prefix sharing
-        is off meanwhile: a bucket's pad prompt would otherwise share the
-        previous bucket's pages and prefill a shorter, captured suffix.
-        Idempotent."""
+        """Capture exactly ``expected_compiles(kind)`` graphs, zero the
+        cache, reset the speculative accounting, arm the watch. Prefix
+        sharing is off meanwhile: a bucket's pad prompt would otherwise
+        share the previous bucket's pages and prefill a shorter, captured
+        suffix. A prefill tier first drops the decode cache (it never
+        decodes). Idempotent."""
         if self.warmed:
             return self
         self.expected_compiles(kind)  # validates the kind loudly
         self._prefix_enabled = False
         try:
-            for bucket in self.prefill_buckets:
-                self.admit(0, [self.pad_id] * int(bucket))
-            self.step(np.zeros(self.slots, np.int32), np.zeros(self.slots, np.float32))
+            self._warmup_drive(kind)
         finally:
             self._prefix_enabled = True
         self.reset()  # warmup traffic must not look like live context
+        with self._stats_lock:
+            self._spec_rounds = self._spec_proposed = self._spec_accepted = 0
         self.watch.arm()
         self.warmed = True
         return self
+
+    def _warmup_drive(self, kind):
+        pad = self.pad_id
+        if kind == "prefill":
+            self._ring_slots = 0
+            self.reset()
+            for bucket in self.prefill_buckets:
+                self.prefill_export([pad] * int(bucket))
+            return
+        if kind == "generate":
+            for bucket in self.prefill_buckets:
+                self.admit(0, [pad] * int(bucket))
+        else:  # decode: the handoff's admission (no graph), and the draft's prefills
+            if self.speculative:
+                for bucket in self.prefill_buckets:
+                    self._admit_draft(0, [pad] * int(bucket))
+            self.admit_prefilled(0, self._fresh_slot_planes(), 1, 0,
+                                 prompt=[pad] if self.speculative else None)
+        zeros = np.zeros(self.slots, np.int32), np.zeros(self.slots, np.float32)
+        if self.speculative:
+            self.spec_step(*zeros)
+        else:
+            self.step(*zeros)
+
+    def _fresh_slot_planes(self):
+        """Zeroed window-wide planes of one slot on the host: warmup's
+        stand-in for a handed-off slab."""
+        shape = (self._num_layers, self._num_heads, self.cache_len, self._head_dim)
+        if self.kv_cache_dtype == "int8":
+            return (np.zeros(shape, np.int8), np.zeros(shape, np.int8),
+                    np.zeros(shape[:-1], np.float32), np.zeros(shape[:-1], np.float32))
+        return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
 
     # -- dispatch ---------------------------------------------------------------
 
@@ -402,24 +526,76 @@ class GenerationEngine:
         the stream's work is done."""
         if t.device.type != "cuda":
             return t.detach().numpy().copy()
-        buf = self._pinned.get((t.shape, t.dtype))
-        if buf is None:
-            buf = self._pinned[(t.shape, t.dtype)] = torch.empty(t.shape, dtype=t.dtype,
-                                                                 pin_memory=True)
+        buf = self._pinned_buf(t.shape, t.dtype)
         buf.copy_(t, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return buf.numpy().copy()
 
-    def _dispatch(self, label, key, body, inputs):
-        """``body(*inputs) -> (tokens, logits)`` through the label's store:
+    def _pinned_buf(self, shape, dtype):
+        """The pinned host buffer of ``(shape, dtype)``: a copy through it
+        blocks until it is done, so one buffer serves every call."""
+        key = (tuple(shape), dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(key[0], dtype=dtype, pin_memory=True)
+        return buf
+
+    def _upload(self, a, dtype=None):
+        """A host plane (numpy, or a tensor on the host) on the engine's
+        device, through a pinned buffer (a blocking copy); a tensor already
+        there is used as it is. A tensor on another card is refused: it
+        never takes a silent trip through the host."""
+        if isinstance(a, torch.Tensor):
+            if a.device == self.device:
+                return a if dtype is None else a.to(dtype)
+            if a.device.type != "cpu":
+                raise InvalidArgumentError(f"handoff plane on {a.device}; this engine runs on "
+                                           f"{self.device}")
+            a = a.detach().numpy()
+        a = np.asarray(a)
+        if a.dtype.kind not in "fiu":
+            raise HandoffError(f"handoff plane of dtype {a.dtype}; numeric planes only")
+        if self.device.type != "cuda":
+            # a copy of its own: a slab's bytes are read-only and shared
+            t = torch.from_numpy(np.array(a, copy=True))
+        else:
+            buf = self._pinned_buf(a.shape, torch.from_numpy(np.empty(0, a.dtype)).dtype)
+            buf.numpy()[...] = a
+            t = buf.to(self.device)
+        return t if dtype is None else t.to(dtype)
+
+    def _upload_pages(self, planes, pool):
+        """Shipped page planes (``[L, ...]`` host arrays, one a page) as
+        ``[L, n, ...]`` on the engine's device in ``pool``'s dtype. On the
+        card they go through one pinned buffer of a slot's whole window of
+        pages and a ``[:n]`` view of it: the count varies by request, and a
+        buffer a count would pin host memory for every count seen."""
+        arrays = [np.asarray(p) for p in planes]
+        for a in arrays:
+            if a.dtype.kind not in "fiu":
+                raise HandoffError(f"handoff plane of dtype {a.dtype}; numeric planes only")
+        if self.device.type != "cuda":
+            return self._upload(np.stack(arrays, axis=1), pool.dtype)
+        page = tuple(pool.shape[:1] + pool.shape[2:])
+        buf = self._pinned_buf((self._pages_per_slot,) + page, pool.dtype)
+        host = buf.numpy()
+        for i, a in enumerate(arrays):
+            host[i] = a
+        return buf[:len(arrays)].to(self.device).transpose(0, 1)
+
+    def _dispatch(self, label, key, body, inputs, read=None, sample=True):
+        """``body(*inputs)`` (a tuple of tensors) through the label's store:
         replayed when its signature was captured, else run eagerly (the
-        first run of a signature, then captured). Returns the tokens on the
-        host; :attr:`last_logits` holds the logits (a graph's output, which
+        first run of a signature, then captured; ``sample``: with the
+        engine's generator registered). Returns ``read(outputs)``, by
+        default the tokens ``outputs[0]`` on the host with
+        :attr:`last_logits` set to ``outputs[1]`` (a graph's output, which
         its next replay overwrites)."""
 
-        def read(out):
-            self.last_logits = out[1]
-            return self._host(out[0])
+        if read is None:
+            def read(out):
+                self.last_logits = out[1]
+                return self._host(out[0])
 
         with self._lock:
             if not (self.jit and _captures(self.device)):
@@ -435,26 +611,76 @@ class GenerationEngine:
                     if entry is None:
                         static = [x.to(self.device, copy=True) for x in inputs]
                         out = _first_run(self.device, lambda: body(*static))
-                        store.capture(sig, body, static, generators=[self._gen])
+                        store.capture(sig, body, static,
+                                      generators=[self._gen] if sample else [])
                         return read(out)
             return store.replay(entry, *inputs, read=read)
+
+    def _forward_fresh(self, model, dims, tokens, length):
+        """One bucketed forward of ``model`` (``dims``: its layers, heads,
+        head width) into zeroed window-wide caches: (logits ``[1, P, V]``,
+        the slot's planes ``[L, H, C, D]`` and, at int8, scales)."""
+        fresh = _cache.init_cache(dims[0], 1, dims[1], self.cache_len, dims[2],
+                                  self.kv_cache_dtype, tokens.device)
+        logits = self._forward_into(model, fresh, tokens, length)
+        return logits, tuple(a[:, 0] for a in fresh[:-1])
+
+    def _forward_into(self, model, cache, tokens, length):
+        """The bucketed prefill forward of ``tokens [1, P]`` written into
+        ``cache`` (one slot, positions from 0) under the prefill mask of
+        the true ``length``; returns the logits."""
+        p = tokens.shape[1]
+        mask = _cache.prefill_mask(p, self.cache_len, length)
+        limit = self.max_positions if model is self.model else self._draft_max_positions
+        pos_ids = torch.clamp(torch.arange(p, device=tokens.device), max=limit - 1)[None]
+        logits, _ = model(tokens, position_ids=pos_ids, attention_mask=mask,
+                          caches=_cache.layer_caches(cache))
+        return logits
+
+    def _install_draft(self, slot, tokens, length):
+        """The draft's prefill of the prompt, installed into its ring slot
+        (no position of its own to set)."""
+        _, planes = self._forward_fresh(
+            self.draft_model, (self._draft_layers, self._draft_heads, self._draft_dim), tokens,
+            length)
+        slot = slot.reshape(1).to(torch.int64)
+        for a, n in zip(self._kv_draft, _cache.pad_slot_arrays(planes, self.store_len)):
+            a.index_copy_(1, slot, n.unsqueeze(1).to(a.dtype))
+
+    def _sample_first(self, logits, length, temp):
+        last = logits[0].index_select(0, (length - 1).reshape(1))
+        return sample_logits(last, self._gen, temp, self.top_k), last
 
     @torch.no_grad()
     def _prefill_body(self, slot, tokens, length, temp):
         """The ring's bucketed forward over zeroed window-wide caches,
-        installed into ``slot``; the first token from the last real
-        position."""
-        p = tokens.shape[1]
-        fresh = _cache.init_cache(self._num_layers, 1, self._num_heads, self.cache_len,
-                                  self._head_dim, self.kv_cache_dtype, tokens.device)
-        mask = _cache.prefill_mask(p, self.cache_len, length)
-        pos_ids = torch.clamp(torch.arange(p, device=tokens.device),
-                              max=self.max_positions - 1)[None]
-        logits, _ = self.model(tokens, position_ids=pos_ids, attention_mask=mask,
-                               caches=_cache.layer_caches(fresh))
-        _cache.insert_slot_kv(self._kv, slot, tuple(a[:, 0] for a in fresh[:-1]), length)
-        last = logits[0].index_select(0, (length - 1).reshape(1))
-        return sample_logits(last, self._gen, temp, self.top_k), last
+        installed into ``slot`` (padded to the store); speculative: the
+        draft's prefill into its ring too, in the same graph. The first
+        token from the last real position."""
+        logits, planes = self._forward_fresh(
+            self.model, (self._num_layers, self._num_heads, self._head_dim), tokens, length)
+        _cache.insert_slot_kv(self._kv, slot, _cache.pad_slot_arrays(planes, self.store_len),
+                              length)
+        if self.speculative:
+            self._install_draft(slot, tokens, length)
+        return self._sample_first(logits, length, temp)
+
+    @torch.no_grad()
+    def _draft_prefill_body(self, slot, tokens, length):
+        """The draft-only prefill of a decode tier's speculative admission:
+        the handed-off slab holds the target's cache only."""
+        self._install_draft(slot, tokens, length)
+        return ()
+
+    @torch.no_grad()
+    def _export_body(self, tokens, length, temp):
+        """The prefill tier's forward: the persistent export buffer zeroed
+        and written by the bucketed forward (the decode cache untouched);
+        the first token from the last real position."""
+        for a in self._export:
+            a.zero_()
+        logits = self._forward_into(self.model, self._export, tokens, length)
+        return self._sample_first(logits, length, temp)
 
     @torch.no_grad()
     def _paged_prefill_body(self, slot, tokens, shared_len, suffix_len, total_len, temp):
@@ -474,8 +700,7 @@ class GenerationEngine:
         logits, _ = self.model(tokens, position_ids=pos_ids, attention_mask=mask,
                                caches=caches)
         pos.index_copy_(0, slot, total_len.to(pos.dtype))
-        last = logits[0].index_select(0, (suffix_len - 1).reshape(1))
-        return sample_logits(last, self._gen, temp, self.top_k), last
+        return self._sample_first(logits, suffix_len, temp)
 
     @torch.no_grad()
     def _decode_body(self, tokens, temps):
@@ -491,6 +716,55 @@ class GenerationEngine:
         pos.add_(1)
         last = logits[:, 0]
         return sample_logits(last, self._gen, temps, self.top_k), last
+
+    @torch.no_grad()
+    def _draft_body(self, tokens):
+        """The draft graph: ``k + 1`` chained greedy draft steps over every
+        slot. Step ``j`` writes its input's K/V at ``pos + j`` (so the draft
+        ring ends the round holding the whole chain, the last proposal
+        included) and feeds its argmax to the next step on the device.
+        Returns the proposals ``[S, k]``."""
+        pos = self._kv[-1]
+        cur, proposals = tokens, []
+        for j in range(self.draft_k + 1):
+            pj = pos + j
+            pos_ids = torch.clamp(pj.to(torch.int64), max=self._draft_max_positions - 1)[:, None]
+            mask = _cache.decode_mask(pj, self.store_len, window=self.cache_len)
+            logits, _ = self.draft_model(cur[:, None], position_ids=pos_ids,
+                                         attention_mask=mask,
+                                         caches=_cache.layer_caches(self._kv_draft + (pj,)))
+            cur = torch.argmax(logits[:, 0], dim=-1)
+            if j < self.draft_k:
+                proposals.append(cur)
+        return (torch.stack(proposals, dim=1),)
+
+    @torch.no_grad()
+    def _verify_body(self, tokens, proposals, temps):
+        """The verify graph: one target forward over ``[S, k + 1] = [last |
+        proposals]``, its K/V written at ``(pos + t) % store`` (the store's
+        scratch margin keeps the span off live window entries); ``k + 1``
+        samples ``ts``; the proposals' longest prefix equal to ``ts`` is
+        accepted and ``ts`` one past it is the correction or bonus token,
+        so a slot emits ``ts[:counts]``, ``counts = accepted + 1``, and
+        ``pos`` advances by it, all on the device. Entries written past
+        the accepted span stay masked until the next round overwrites
+        them."""
+        span = self.draft_k + 1
+        seq = torch.cat([tokens[:, None], proposals], dim=1)
+        pos = self._kv[-1]
+        steps = torch.arange(span, device=pos.device)
+        pos_ids = torch.clamp(pos.to(torch.int64)[:, None] + steps[None, :],
+                              max=self.max_positions - 1)
+        mask = _cache.verify_mask(pos, self.store_len, span, window=self.cache_len)
+        logits, _ = self.model(seq, position_ids=pos_ids, attention_mask=mask,
+                               caches=_cache.layer_caches(self._kv))
+        ts = torch.stack([sample_logits(logits[:, i], self._gen, temps, self.top_k)
+                          for i in range(span)], dim=1)
+        match = (proposals == ts[:, :self.draft_k]).to(torch.int32)
+        # int32, as the JAX engine pins it: pos keeps its dtype
+        counts = (torch.cumprod(match, dim=1).sum(dim=1) + 1).to(torch.int32)
+        pos.add_(counts)
+        return ts, counts, logits
 
     # -- scheduler primitives ---------------------------------------------------
 
@@ -523,6 +797,37 @@ class GenerationEngine:
             raise InvalidArgumentError(f"prompt token ids must lie in [0, {self.vocab_size})")
         return n
 
+    def check_handoff(self, length, first_token, prompt=None):
+        """A handed-off slab's scalars, checked before anything lands: the
+        length inside the window, the first token inside the vocabulary (it
+        feeds the next round's embedding gather, and a CUDA gather out of
+        range would fault the card), a riding prompt of ``length`` ids
+        inside the vocabulary. Returns ``(length, first_token, prompt)`` as
+        ints (``prompt`` a list, or None)."""
+        try:
+            length, tok = operator.index(length), operator.index(first_token)
+        except TypeError:
+            raise InvalidArgumentError(f"handoff length {length!r} and first token "
+                                       f"{first_token!r} must be integers") from None
+        if not 1 <= length <= self.cache_len:
+            raise InvalidArgumentError(f"handoff length {length} outside [1, {self.cache_len}]")
+        if self.vocab_size is not None and not 0 <= tok < self.vocab_size:
+            raise InvalidArgumentError(f"handoff first token {tok} outside "
+                                       f"[0, {self.vocab_size})")
+        if prompt is not None:
+            try:
+                prompt = [operator.index(t) for t in prompt]
+            except TypeError:
+                raise InvalidArgumentError("handoff prompt must be a list of token ids "
+                                           "(ints)") from None
+            if len(prompt) != length:
+                raise InvalidArgumentError(f"handoff prompt has {len(prompt)} tokens, the slab's "
+                                           f"length is {length}")
+            if self.vocab_size is not None and not all(0 <= t < self.vocab_size
+                                                       for t in prompt):
+                raise InvalidArgumentError(f"prompt token ids must lie in [0, {self.vocab_size})")
+        return length, tok, prompt
+
     def _padded(self, tokens):
         padded = np.full((1, self.bucket_for(len(tokens))), self.pad_id, np.int64)
         padded[0, :len(tokens)] = np.asarray(tokens, np.int64)
@@ -531,8 +836,10 @@ class GenerationEngine:
     def admit(self, slot, prompt, temperature=None, tenant=None) -> int:
         """Prefill ``prompt`` into ``slot`` and return the first sampled
         token. A ring slot's previous occupant is overwritten; a paged
-        slot's pages are released first. ``tenant`` labels the paged
+        slot's pages are released first; a speculative engine prefills the
+        draft's ring in the same graph. ``tenant`` labels the paged
         layout's prefix accounting; the ring ignores it."""
+        self._need_ring("admit")
         temp = self.default_temperature if temperature is None else float(temperature)
         if self.paged:
             return self._admit_paged(int(slot), prompt, temp, tenant)
@@ -547,8 +854,8 @@ class GenerationEngine:
         ``[S]`` (vacant slots: anything; their output is ignored). Paged:
         every busy slot's write page is made private first. Returns ``[S]``
         int32."""
-        toks = torch.from_numpy(np.asarray(tokens, np.int64).reshape(self.slots).copy())
-        ts = torch.from_numpy(np.asarray(temps, np.float32).reshape(self.slots).copy())
+        self._need_ring("step")
+        toks, ts = self._slot_inputs(tokens, temps)
         with self._lock:
             if self.paged:
                 self._prepare_decode_writes()
@@ -558,6 +865,249 @@ class GenerationEngine:
                     if live:
                         self._pos_host[s] += 1
         return out
+
+    def _slot_inputs(self, tokens, temps):
+        return (torch.from_numpy(np.asarray(tokens, np.int64).reshape(self.slots).copy()),
+                torch.from_numpy(np.asarray(temps, np.float32).reshape(self.slots).copy()))
+
+    def spec_step(self, tokens, temps, busy=None):
+        """One speculative round for every slot from host ``tokens``/``temps``
+        ``[S]``: the draft graph (``k`` proposals a slot) and the verify
+        graph (one target forward over the ``k + 1`` positions). Returns
+        ``(ts [S, k + 1], counts [S])`` int32: slot ``s`` produced
+        ``ts[s, :counts[s]]`` (the caller truncates at EOS or budget).
+        ``busy`` (slot indices; None: all) scopes the acceptance
+        accounting to the slots generating."""
+        if not self.speculative:
+            raise InvalidArgumentError("spec_step needs a draft model; construct the engine "
+                                       "with draft_model=")
+        self._need_ring("spec_step")
+        toks, temps_t = self._slot_inputs(tokens, temps)
+
+        def read(out):
+            self.last_logits = out[2]
+            return self._host(out[0]), self._host(out[1])
+
+        with self._lock:
+            # the proposals stay on the card: the draft graph's output is
+            # the verify graph's input
+            (proposals,) = self._dispatch("draft", (), self._draft_body, [toks],
+                                          read=lambda out: out, sample=False)
+            ts, counts = self._dispatch("verify", (), self._verify_body,
+                                        [toks, proposals, temps_t], read=read)
+        ts, counts = ts.astype(np.int32), counts.astype(np.int32)
+        n_busy = self.slots if busy is None else len(busy)
+        if n_busy:
+            accepted = int(counts.sum() - self.slots if busy is None
+                           else sum(int(counts[s]) - 1 for s in busy))
+            with self._stats_lock:
+                self._spec_rounds += 1
+                self._spec_proposed += self.draft_k * n_busy
+                self._spec_accepted += accepted
+        return ts, counts
+
+    def spec_stats(self) -> dict:
+        """Speculative accounting since the last warmup: rounds, proposed
+        and accepted draft tokens, the acceptance rate (``/statz``
+        ``speculative``)."""
+        with self._stats_lock:
+            rounds, proposed, accepted = (self._spec_rounds, self._spec_proposed,
+                                          self._spec_accepted)
+        return {"enabled": self.speculative,
+                "draft_k": self.draft_k if self.speculative else 0,
+                "rounds": rounds, "proposed": proposed, "accepted": accepted,
+                "acceptance_rate": round(accepted / proposed, 4) if proposed else None}
+
+    # -- the disaggregated handoff ----------------------------------------------
+
+    def prefill_export(self, prompt, temperature=None):
+        """The prefill tier's primitive: the bucketed forward into the
+        persistent export buffer (the decode cache untouched) and the first
+        sampled token. Returns ``(planes, length, first_token)``: the
+        window-wide planes (``[L, H, C, D]`` values; int8 also ``[L, H, C]``
+        scales) copied to the host through a pinned buffer before the lock
+        is released (the next export overwrites the buffer)."""
+        n = self.validate(prompt, 1)
+        temp = self.default_temperature if temperature is None else float(temperature)
+
+        def read(out):
+            self.last_logits = out[1]
+            return self._host(out[0]), tuple(self._host(a[:, 0]) for a in self._export[:-1])
+
+        with self._lock:
+            if self._export is None:
+                self._export = _cache.init_cache(self._num_layers, 1, self._num_heads,
+                                                 self.cache_len, self._head_dim,
+                                                 self.kv_cache_dtype, self.device)
+            tok, planes = self._dispatch(
+                "prefill", ("export", self.bucket_for(n)), self._export_body,
+                [self._padded(prompt), torch.tensor([n], dtype=torch.int64),
+                 torch.tensor([temp], dtype=torch.float32)], read=read)
+        return planes, n, int(tok[0])
+
+    def _admit_draft(self, slot, prompt):
+        """The draft-only prefill of ``prompt`` into draft slot ``slot``: a
+        speculative decode tier's half of a handoff admission."""
+        self.validate(prompt, 1)
+        self._dispatch("prefill", ("draft", self.bucket_for(len(prompt))),
+                       self._draft_prefill_body,
+                       [torch.tensor([int(slot)], dtype=torch.int64), self._padded(prompt),
+                        torch.tensor([len(prompt)], dtype=torch.int64)],
+                       read=lambda out: None, sample=False)
+
+    def admit_prefilled(self, slot, planes, length, first_token, prompt=None) -> int:
+        """Land a handed-off slab in decode slot ``slot``: the window-wide
+        planes padded to the store and installed in place (a pinned
+        host-to-device copy and ``index_copy_``), ``pos[slot]`` set on the
+        device. The prefill tier sampled the first token; it is checked
+        (:meth:`check_handoff`) and returned. A speculative engine needs the
+        ``prompt`` too (the slab holds the target's cache only) for the
+        draft's prefill. A paged engine splits the slab into anonymous
+        pages."""
+        self._need_ring("admit_prefilled")
+        length, first_token, prompt = self.check_handoff(length, first_token, prompt)
+        slot = int(slot)
+        if self.paged:
+            arity = len(self._kv) - 2
+            if len(planes) != arity:
+                raise InvalidArgumentError(
+                    f"handoff slab has {len(planes)} planes, this engine's {self.kv_cache_dtype} "
+                    f"cache needs {arity} (kv_cache_dtype mismatch between tiers?)")
+            per_page = _paging.split_planes(planes, self.page_size)
+            pages = [{"id": i, "hash": None, "planes": per_page[i]}
+                     for i in range(-(-length // self.page_size))]
+            return self.admit_prefilled_pages(slot, pages, length, first_token)
+        arity = len(self._kv) - 1
+        if len(planes) != arity:
+            raise InvalidArgumentError(
+                f"handoff slab has {len(planes)} planes, this engine's {self.kv_cache_dtype} "
+                f"cache needs {arity} (kv_cache_dtype mismatch between tiers?)")
+        if self.speculative and prompt is None:
+            raise InvalidArgumentError("a speculative decode tier needs the prompt tokens with "
+                                       "the KV slab (the draft ring must be prefilled)")
+        with self._lock:
+            try:
+                padded = _cache.pad_slot_arrays(tuple(self._upload(p) for p in planes),
+                                                self.store_len)
+            except ValueError as e:
+                raise InvalidArgumentError(f"handoff slab does not fit this engine: {e}") from None
+            for a, p in zip(self._kv[:-1], padded):
+                if tuple(p.shape) != tuple(a.shape[:1] + a.shape[2:]) or p.dtype != a.dtype:
+                    raise InvalidArgumentError(
+                        f"handoff slab plane {tuple(p.shape)}/{p.dtype} does not fit this "
+                        f"engine's cache {tuple(a.shape)}/{a.dtype}")
+            if self.speculative:
+                self._admit_draft(slot, prompt)
+            _cache.insert_slot_kv(self._kv, slot, padded, length)
+        return first_token
+
+    def prefill_export_pages(self, prompt, temperature=None, known_hashes=()):
+        """Page-granular :meth:`prefill_export`: the same forward, its slab
+        cut into pages with chain hashes. Returns ``(pages, length,
+        first_token)``, ``pages`` a list of ``{"id", "hash", "planes"}``
+        (the partial tail page's hash None); a page whose hash is in
+        ``known_hashes`` ships header-only (``planes`` None): the decode
+        tier maps it from its own prefix index."""
+        planes, n, tok = self.prefill_export(prompt, temperature)
+        ps = self.page_size
+        per_page = _paging.split_planes(planes, ps)
+        hashes = _paging.chain_hashes(prompt, ps)
+        known = set(known_hashes)
+        pages = []
+        for i in range(-(-n // ps)):
+            h = hashes[i] if i < len(hashes) else None
+            pages.append({"id": i, "hash": h,
+                          "planes": None if (h is not None and h in known) else per_page[i]})
+        return pages, n, int(tok)
+
+    def admit_prefilled_pages(self, slot, pages, length, first_token, page_size=None,
+                              tenant=None) -> int:
+        """Land a page-granular handoff in decode slot ``slot``: shipped
+        pages go into freshly allocated pool pages (a pinned copy and one
+        ``index_copy_`` a plane); header-only pages (``planes`` None) must
+        resolve through this engine's prefix index and are mapped
+        copy-on-write, retained before the allocation. The whole slab is
+        checked before anything is allocated: an unknown header-only page
+        refuses it with no page taken. Full shipped pages with hashes join
+        the index."""
+        if not self.paged:
+            raise InvalidArgumentError("page-granular handoff needs kv_cache_layout=paged on "
+                                       "the decode tier (ring tiers speak the slab format)")
+        self._need_ring("admit_prefilled_pages")
+        length, first_token, _ = self.check_handoff(length, first_token)
+        slot, ps = int(slot), self.page_size
+        if page_size is not None and int(page_size) != ps:
+            raise HandoffError(f"page-granular slab page_size {page_size} does not match this "
+                               f"engine's {ps}")
+        npages = -(-length // ps)
+        if len(pages) != npages:
+            raise HandoffError(f"page-granular slab carries {len(pages)} pages; length {length} "
+                               f"at page size {ps} needs {npages}")
+        arrays = self._kv[:-2]
+        hashes = [p.get("hash") for p in pages]
+        full = length // ps
+        chain = []  # the contiguous hashed prefix, resolved by a prefix walk
+        for h in hashes[:full]:
+            if h is None:
+                break
+            chain.append(h)
+        plan = []
+        for i, page in enumerate(pages):
+            planes = page.get("planes")
+            if planes is None:
+                plan.append(("map", i))
+                continue
+            if len(planes) != len(arrays):
+                raise HandoffError(f"page {i} carries {len(planes)} planes, this engine's "
+                                   f"{self.kv_cache_dtype} cache needs {len(arrays)}")
+            for a, p in zip(arrays, planes):
+                if tuple(np.shape(p)) != tuple(a.shape[:1] + a.shape[2:]):
+                    raise HandoffError(f"page {i} plane {tuple(np.shape(p))} does not match "
+                                       f"this engine's page {tuple(a.shape[:1] + a.shape[2:])}")
+            plan.append(("ship", i))
+        with self._lock:
+            mapped = self._index.match(chain)
+            for kind, i in plan:
+                if kind == "map" and i >= len(mapped):
+                    raise HandoffError(f"page {i} shipped header-only but this tier does not "
+                                       "hold its hash chain; the sender must ship the payload")
+            self.release_slot(slot)
+            # retain the mapped pages before allocating: the allocation may
+            # evict pages only the index holds, which these are until now
+            map_ids = [mapped[i] for k, i in plan if k == "map"]
+            for pid in map_ids:
+                self._pool.retain(pid)
+            try:
+                fresh = self._alloc_pages(sum(1 for k, _ in plan if k == "ship"))
+            except _paging.PagePoolExhaustedError:
+                for pid in map_ids:
+                    self._pool.release(pid)
+                raise
+            row = np.full(self._pages_per_slot, _paging.TRASH_PAGE, np.int32)
+            ship_ids, ship_planes = [], []
+            it = iter(fresh)
+            for kind, i in plan:
+                if kind == "map":
+                    row[i] = mapped[i]
+                else:
+                    row[i] = next(it)
+                    ship_ids.append(int(row[i]))
+                    ship_planes.append(pages[i]["planes"])
+            if ship_ids:
+                ids = torch.tensor(ship_ids, dtype=torch.int64, device=self.device)
+                for j, a in enumerate(arrays):
+                    a.index_copy_(1, ids, self._upload_pages([pl[j] for pl in ship_planes], a))
+            self._table_host[slot] = row
+            self._pos_host[slot] = length
+            self._slot_live[slot] = True
+            t = "default" if tenant is None else str(tenant)
+            self._slot_tenant[slot] = t
+            if self._prefix_enabled and full and all(h is not None for h in hashes[:full]):
+                self._index.insert(hashes[:full], [int(p) for p in row[:full]])
+            self._sync_table()
+            self._kv[-1][slot] = length
+            self._note_prefix(t, length, len(map_ids) * ps, len(map_ids))
+        return first_token
 
     # -- paged layout: host-side page management --------------------------------
     #
@@ -742,9 +1292,13 @@ class GenerationEngine:
 
     def paging_stats(self) -> dict:
         """The ``/statz`` ``paging`` block: the layout, the pool's occupancy
-        and the prefix index's accounting, overall and per tenant."""
+        and the prefix index's accounting, overall and per tenant (a
+        prefill tier's: its layout and page size, no pool)."""
         if not self.paged:
             return {"layout": self.kv_cache_layout}
+        if self._pool is None:
+            return {"layout": self.kv_cache_layout, "page_size": self.page_size,
+                    "pages_total": 0}
         with self._lock:
             per = {t: dict(st, hit_rate=round(st["shared_tokens"] / st["prompt_tokens"], 4)
                            if st["prompt_tokens"] else None)
@@ -767,7 +1321,7 @@ class GenerationEngine:
     def known_page_hashes(self, hashes):
         """The prefix of ``hashes`` this engine's index holds (empty on the
         ring)."""
-        if not self.paged:
+        if not self.paged or self._index is None:
             return set()
         with self._lock:
             return self._index.known(list(hashes))
@@ -811,34 +1365,21 @@ class GenerationEngine:
                     last[slot] = tok
             if not active:
                 continue
-            nxt = self.step(last, temps)
-            for slot in list(active):
+            if self.speculative:
+                ts, counts = self.spec_step(last, temps, busy=list(active))
+                emitted = {s: ts[s, :counts[s]] for s in active}
+            else:
+                nxt = self.step(last, temps)
+                emitted = {s: nxt[s:s + 1] for s in active}
+            for slot, toks in emitted.items():
                 idx, tokens = active[slot]
-                tokens.append(int(nxt[slot]))
-                last[slot] = nxt[slot]
+                for tok in toks:
+                    tokens.append(int(tok))
+                    last[slot] = tok
+                    if finished(tokens):
+                        break
                 if finished(tokens):
                     results[idx] = tokens
                     del active[slot]
                     self.release_slot(slot)
         return results
-
-    # -- not ported -------------------------------------------------------------
-
-    def spec_step(self, tokens, temps, busy=None):
-        raise UnimplementedError(f"spec_step: {_SPECULATIVE} is not ported yet")
-
-    def spec_stats(self) -> dict:
-        raise UnimplementedError(f"spec_stats: {_SPECULATIVE} is not ported yet")
-
-    def prefill_export(self, prompt, temperature=None):
-        raise UnimplementedError(f"prefill_export: {_HANDOFF} is not ported yet")
-
-    def admit_prefilled(self, slot, planes, length, first_token, prompt=None) -> int:
-        raise UnimplementedError(f"admit_prefilled: {_HANDOFF} is not ported yet")
-
-    def admit_prefilled_pages(self, slot, pages, length, first_token, page_size=None,
-                              tenant=None) -> int:
-        raise UnimplementedError(f"admit_prefilled_pages: {_HANDOFF} is not ported yet")
-
-    def prefill_export_pages(self, prompt, temperature=None, known_hashes=()):
-        raise UnimplementedError(f"prefill_export_pages: {_HANDOFF} is not ported yet")

@@ -9,4 +9,5 @@ from .batcher import (  # noqa: F401
 )
 from .continuous import ContinuousBatcher, GenerationRequest  # noqa: F401
 from .replica import ReplicaPool, predictor_input_specs  # noqa: F401
+from .router import Router  # noqa: F401
 from .server import GenerationServer, InferenceServer  # noqa: F401

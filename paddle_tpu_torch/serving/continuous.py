@@ -3,7 +3,12 @@
 The decode graph always runs all ``engine.slots`` rows; a sequence that hits
 EOS or its token budget vacates its slot mid-batch, and the next queued
 request is admitted into it at the next step (a prefill replay that
-installs the slot in place: nothing is captured anew). Admission follows the
+installs the slot in place: nothing is captured anew). A speculative engine
+runs a draft/verify round instead of a step: each busy slot emits 1 to
+``k + 1`` tokens, cut at its own EOS or budget. A decode tier takes
+handed-off slabs (:meth:`ContinuousBatcher.submit_prefilled`, and
+:meth:`~ContinuousBatcher.submit_prefilled_pages` for the page-granular
+form): admission installs the slab instead of running a prefill. Admission follows the
 serving queue's contracts: a bounded queue (:class:`QueueFullError`, HTTP
 429), deadlines that expire queued requests without dispatch,
 :class:`ServingClosedError` after close, and drain. Growth of the engine's
@@ -17,8 +22,7 @@ that vacates a slot (finished, failed, stopped) returns its pages through
 The counters of :attr:`ContinuousBatcher.stats` and the latency samples of
 :meth:`ContinuousBatcher.quantiles` feed ``/statz``; the JAX package's
 monitor registry, tracing spans and flight recorder are not ported (ROADMAP
-Queue A item 10), nor the handoff admissions (``submit_prefilled*``, which
-raise).
+Queue A item 10).
 """
 from __future__ import annotations
 
@@ -28,30 +32,34 @@ from collections import deque
 
 import numpy as np
 
-from ..errors import ExecutionTimeoutError, InvalidArgumentError, UnimplementedError
+from ..errors import ExecutionTimeoutError, InvalidArgumentError
 from ..flags import flag
+from ..generation.handoff import PageSlab
 from .batcher import DeadlineExceededError, QueueFullError, ServingClosedError
 
 __all__ = ["ContinuousBatcher", "GenerationRequest"]
-
-_HANDOFF = "the disaggregated prefill/decode handoff (ROADMAP.md Queue A item 3, entry 4)"
 
 # latency samples kept per series for /statz quantiles
 _SAMPLES = 4096
 
 
 class GenerationRequest:
-    """One submitted generation: the token prompt, its budget and sampling
-    override, the tokens produced so far and a completion event."""
+    """One submitted generation: the token prompt (or a handed-off slab
+    standing in for it), its budget and sampling override, the tokens
+    produced so far and a completion event."""
 
     __slots__ = ("prompt", "prompt_len", "max_new_tokens", "temperature", "deadline", "t_submit",
                  "t_first_token", "tokens", "finish_reason", "on_token", "error", "tenant",
-                 "_done")
+                 "handoff", "_done")
 
     def __init__(self, prompt, max_new_tokens, temperature, deadline, t_submit, on_token=None,
-                 tenant=None):
+                 tenant=None, handoff=None, prompt_len=None):
         self.prompt = prompt
-        self.prompt_len = len(prompt)
+        # a handed-off request knows its prompt's length from the slab even
+        # when the tokens did not ride along
+        self.prompt_len = len(prompt) if prompt_len is None else int(prompt_len)
+        # (planes, length, first_token) or a PageSlab: admission installs it
+        self.handoff = handoff
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.deadline = deadline  # absolute monotonic seconds, or None
@@ -169,6 +177,11 @@ class ContinuousBatcher:
                     if deadline_ms is not None and float(deadline_ms) > 0 else None)
         req = GenerationRequest(prompt, max_new, temperature, deadline, now, on_token=on_token,
                                 tenant=tenant)
+        return self._enqueue(req)
+
+    def _enqueue(self, req):
+        """The admission gate every submit shares: refused after close, 429
+        when the queue is full, else queued."""
         with self._lock:
             if self._closed:
                 raise ServingClosedError("generation scheduler is shut down; no new requests")
@@ -181,11 +194,60 @@ class ContinuousBatcher:
             self._not_empty.notify()
         return req
 
-    def submit_prefilled(self, *args, **kwargs):
-        raise UnimplementedError(f"submit_prefilled: {_HANDOFF} is not ported yet")
+    def _handoff_request(self, length, first_token, max_new_tokens, temperature, deadline_ms,
+                         on_token, prompt, tenant, handoff):
+        """A handed-off request, checked as ``submit`` checks a prompt: the
+        slab's scalars by the engine's :meth:`check_handoff` (the length
+        inside the window, the first token and a riding prompt inside the
+        vocabulary), a budget of at least one token inside the model's
+        positions."""
+        engine = self.engine
+        length, _, prompt = engine.check_handoff(length, first_token, prompt)
+        max_new = (engine.default_max_new_tokens if max_new_tokens is None
+                   else int(max_new_tokens))
+        if max_new < 1:
+            raise InvalidArgumentError(f"max_new_tokens must be >= 1, got {max_new}")
+        if length + max_new > engine.max_positions:
+            raise InvalidArgumentError(f"prompt ({length}) + max_new_tokens ({max_new}) exceeds "
+                                       f"max_position_embeddings {engine.max_positions}")
+        now = self._clock()
+        deadline = (now + float(deadline_ms) / 1e3
+                    if deadline_ms is not None and float(deadline_ms) > 0 else None)
+        return self._enqueue(GenerationRequest(
+            prompt, max_new, temperature, deadline, now, on_token=on_token, tenant=tenant,
+            handoff=handoff, prompt_len=length))
 
-    def submit_prefilled_pages(self, *args, **kwargs):
-        raise UnimplementedError(f"submit_prefilled_pages: {_HANDOFF} is not ported yet")
+    def submit_prefilled(self, planes, length, first_token, max_new_tokens=None,
+                         temperature=None, deadline_ms=None, on_token=None, prompt=None,
+                         tenant=None) -> GenerationRequest:
+        """Enqueue a handed-off generation: the prompt was prefilled on a
+        prefill tier and arrives as a slab (window-wide planes, the true
+        length, the first sampled token). Admission installs it instead of
+        running a prefill; the rest is the normal request path. A
+        speculative engine needs ``prompt`` (its draft ring is prefilled at
+        admission)."""
+        if self.engine.speculative and prompt is None:
+            raise InvalidArgumentError("a speculative decode tier needs the prompt tokens with "
+                                       "the KV slab (draft ring prefill at admission)")
+        length, first_token, _ = self.engine.check_handoff(length, first_token)
+        return self._handoff_request(length, first_token, max_new_tokens, temperature,
+                                     deadline_ms, on_token, prompt, tenant,
+                                     (planes, length, first_token))
+
+    def submit_prefilled_pages(self, slab, max_new_tokens=None, temperature=None,
+                               deadline_ms=None, on_token=None, tenant=None,
+                               prompt=None) -> GenerationRequest:
+        """Enqueue a page-granular handoff (a :class:`PageSlab`): admission
+        maps the pages this tier's prefix index holds copy-on-write and
+        installs the shipped ones. Needs ``kv_cache_layout=paged``."""
+        if not getattr(self.engine, "paged", False):
+            raise InvalidArgumentError("page-granular handoff needs kv_cache_layout=paged on "
+                                       "the decode tier")
+        if not isinstance(slab, PageSlab):
+            raise InvalidArgumentError(f"submit_prefilled_pages takes a PageSlab, got "
+                                       f"{type(slab).__name__}")
+        return self._handoff_request(slab.length, slab.first_token, max_new_tokens, temperature,
+                                     deadline_ms, on_token, prompt, tenant, slab)
 
     def generate(self, prompt, max_new_tokens=None, temperature=None, timeout=None) -> list:
         """Synchronous convenience: submit + wait."""
@@ -247,12 +309,24 @@ class ContinuousBatcher:
                 # is. The head stays queued until finishing slots free pages.
                 # With no slot busy nothing will, and every page left is the
                 # prefix index's alone: admission evicts what it needs.
-                if self.live_slots and not engine.has_capacity(self._q[0].prompt):
+                head = self._q[0]
+                if self.live_slots and not engine.has_capacity(
+                        head.prompt if head.handoff is None else head.prompt_len):
                     return
                 req = self._q.popleft()
             midbatch = self.live_slots > 0
             try:
-                tok = engine.admit(free, req.prompt, req.temperature, tenant=req.tenant)
+                if isinstance(req.handoff, PageSlab):
+                    slab = req.handoff
+                    tok = engine.admit_prefilled_pages(free, slab.pages, slab.length,
+                                                       slab.first_token,
+                                                       page_size=slab.page_size,
+                                                       tenant=req.tenant)
+                elif req.handoff is not None:
+                    planes, length, first = req.handoff
+                    tok = engine.admit_prefilled(free, planes, length, first, prompt=req.prompt)
+                else:
+                    tok = engine.admit(free, req.prompt, req.temperature, tenant=req.tenant)
             except Exception as e:  # noqa: BLE001 — the loop must survive
                 engine.release_slot(free)  # pages a failed prefill may hold
                 self._count(errors=1)
@@ -297,7 +371,12 @@ class ContinuousBatcher:
                 continue
             t0 = self._clock()
             try:
-                nxt = engine.step(self._last, self._temps)
+                if engine.speculative:
+                    # one draft/verify round: slot s emits ts[s, :counts[s]]
+                    ts, counts = engine.spec_step(self._last, self._temps, busy=busy)
+                else:
+                    nxt = engine.step(self._last, self._temps)
+                    ts, counts = nxt[:, None], np.ones(len(nxt), np.int32)
             except Exception as e:  # noqa: BLE001 — fail THESE, keep serving
                 for s in busy:
                     req, self._slots[s] = self._slots[s], None
@@ -305,22 +384,32 @@ class ContinuousBatcher:
                     self._count(errors=1)
                     req.done(error=e)
                 continue
-            self._observe("token", (self._clock() - t0) * 1e3)
+            dt_ms = (self._clock() - t0) * 1e3
             if self._watch.armed:
                 self._watch.note(slots=len(busy))
+            emitted = 0
             for s in busy:
                 req = self._slots[s]
                 if req is None or req.finished:  # stop(drain=False) race
                     self._slots[s] = None
                     engine.release_slot(s)
                     continue
-                self._deliver(req, nxt[s])
-                self._last[s] = nxt[s]
-                reason = self._finished_reason(req)
+                reason = None
+                for tok in ts[s, :counts[s]]:
+                    self._deliver(req, tok)
+                    self._last[s] = tok
+                    emitted += 1
+                    reason = self._finished_reason(req)
+                    if reason is not None:
+                        break
                 if reason is not None:
                     self._slots[s] = None
                     engine.release_slot(s)
                     self._complete(req, reason)
+            # what a stream waits between tokens: the step's time, or a
+            # round's spread over the tokens each busy stream emitted
+            self._observe("token", dt_ms * len(busy) / emitted
+                          if engine.speculative and emitted else dt_ms)
 
     # -- lifecycle ---------------------------------------------------------------
 

@@ -24,12 +24,21 @@ Stdlib ``ThreadingHTTPServer``s. :class:`InferenceServer` exposes:
   ``/predict``.
 - ``GET /healthz`` (with the KV layout), ``GET /`` and ``GET /statz``
   (requests, tokens/s, slot occupancy, latency quantiles, the KV cache's
-  bytes, ``paging``: the page pool and the prefix index under the paged
-  layout, and ``compiles``: the graphs and the unexpected captures after
-  warmup).
+  bytes, ``speculative``: the acceptance accounting, ``paging``: the page
+  pool and the prefix index under the paged layout, and ``compiles``: the
+  graphs and the unexpected captures after warmup).
+
+Its ``kind`` is the backend's role in a disaggregated fleet: ``generate``
+serves ``/generate``; ``prefill`` serves ``POST /prefill`` (the ``/generate``
+body, answered with the ``PTKV`` slab, or ``PTKP`` pages when the body says
+``"page_format": true``, the request's parameters riding in the header);
+``decode`` serves ``POST /generate_kv`` (the slab's bytes, either format,
+answered as ``/generate`` answers, streamed when the request asked). A path
+of another kind answers 404 naming the kind. Every kind serves ``POST
+/prefix_known`` (``{"hashes": [...]}`` -> the ones its prefix index holds).
 
 The JAX package's other routes (``/metrics``, ``/loadz``, ``/tracez``, ...)
-and the prefill/decode backend kinds wait for ROADMAP Queue A items 8 and 3.
+and its router wait for ROADMAP Queue A items 8 and 3 (entry 5).
 
 ``stop(drain=True)`` refuses new work (503), flushes what is queued, answers
 the waiting handlers, then closes.
@@ -44,8 +53,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from ..errors import InvalidArgumentError, UnimplementedError
+from ..errors import InvalidArgumentError
 from ..flags import flag
+from ..generation import handoff as _handoff
 from ..ops.cuda import launch_counts
 from .batcher import DeadlineExceededError, DynamicBatcher, QueueFullError, ServingClosedError
 from .continuous import ContinuousBatcher
@@ -79,6 +89,16 @@ class _BaseHandler(BaseHTTPRequestHandler):
         data = json.dumps(payload).encode("utf-8")
         self.send_response(status)
         self.send_header("Content-Type", "application/json; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        try:
+            self.wfile.write(data)
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+
+    def _reply_raw(self, status, data, ctype):
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         try:
@@ -291,6 +311,11 @@ class InferenceServer:
         }
 
 
+#: the one POST path each backend kind serves (a slab meant for a decode tier
+#: sent to a generate tier, or the reverse, answers 404 naming the kind)
+_KIND_ROUTES = {"generate": "/generate", "prefill": "/prefill", "decode": "/generate_kv"}
+
+
 class _GenerationHandler(_BaseHandler):
     def do_GET(self):
         path = self.path.split("?", 1)[0].rstrip("/") or "/"
@@ -301,7 +326,8 @@ class _GenerationHandler(_BaseHandler):
             self._reply(200, srv.statz())
         elif path == "/":
             self._reply(200, {"service": "paddle_tpu_torch generation", "kind": srv.kind,
-                              "routes": ["/generate (POST)", "/healthz", "/statz"]})
+                              "routes": [f"{_KIND_ROUTES[srv.kind]} (POST)",
+                                         "/prefix_known (POST)", "/healthz", "/statz"]})
         else:
             self._reply(404, {"error": f"unknown path {path!r}"})
 
@@ -310,16 +336,36 @@ class _GenerationHandler(_BaseHandler):
         raw = self._read_body()
         if raw is None:
             return
-        if path != "/generate":
+        if path == "/prefix_known":
+            self._prefix_known(raw)
+        elif path != _KIND_ROUTES[self._srv.kind]:
             self._reply(404, {"error": f"unknown path {path!r} (this backend's kind is "
                                        f"{self._srv.kind!r})"})
+        elif path == "/generate":
+            self._generate(raw)
+        elif path == "/prefill":
+            self._prefill(raw)
+        else:
+            self._generate_kv(raw)
+
+    def _prefix_known(self, raw):
+        """``{"hashes": [...]}`` -> ``{"known": [...], "layout"}``: the chain
+        hashes this backend's prefix index holds (none on the ring), so a
+        prefill tier ships those pages header-only."""
+        try:
+            body = json.loads(raw or b"{}")
+            hashes = [str(h) for h in (body.get("hashes") or [])]
+        except (ValueError, TypeError, AttributeError) as e:
+            self._reply(400, {"error": f"malformed body: {e}"})
             return
-        self._generate(raw)
+        eng = self._srv.engine
+        self._reply(200, {"known": sorted(eng.known_page_hashes(hashes)),
+                          "layout": eng.kv_cache_layout})
 
     @staticmethod
     def _parse_gen_body(raw) -> dict:
-        """The ``/generate`` JSON body's parameters; raises on malformed
-        input (400)."""
+        """The ``/generate`` (and ``/prefill``) JSON body's parameters;
+        raises on malformed input (400)."""
         body = json.loads(raw or b"{}")
         if not isinstance(body, dict):
             raise InvalidArgumentError('request body must be a JSON object with a "prompt" key')
@@ -337,7 +383,24 @@ class _GenerationHandler(_BaseHandler):
             "deadline_ms": float(deadline_ms) if deadline_ms is not None else None,
             "stream": bool(body.get("stream", False)),
             "tenant": str(body["tenant"]) if body.get("tenant") is not None else None,
+            "page_format": bool(body.get("page_format", False)),
+            "known_hashes": [str(h) for h in (body.get("known_hashes") or [])],
         }
+
+    def _wait_and_reply(self, srv, req):
+        """Block on a submitted request and answer ``{"tokens",
+        "finish_reason", "prompt_tokens"}`` (504 past its deadline, 500 on
+        a failed step)."""
+        try:
+            tokens = req.wait(srv.request_timeout_s)
+        except DeadlineExceededError as e:
+            self._reply(504, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 — a failed step must still answer
+            self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._reply(200, {"tokens": tokens, "finish_reason": req.finish_reason,
+                          "prompt_tokens": req.prompt_len})
 
     def _generate(self, raw):
         srv = self._srv
@@ -358,18 +421,104 @@ class _GenerationHandler(_BaseHandler):
             self._generate_stream(srv, submit)
             return
         req = self._try_submit(submit)
-        if req is None:
+        if req is not None:
+            self._wait_and_reply(srv, req)
+
+    def _prefill(self, raw):
+        """The prefill tier's leg: the bucketed forward, answered with the
+        slab (``PTKV``; ``PTKP`` pages with ``"page_format": true``, the
+        pages in ``"known_hashes"`` header-only). The request's generation
+        parameters, the prompt among them, and this tier's cache geometry
+        ride in the header, so the bytes can go on to a decode tier
+        unparsed."""
+        srv = self._srv
+        if not self._check_ready(srv):
             return
         try:
-            tokens = req.wait(srv.request_timeout_s)
-        except DeadlineExceededError as e:
-            self._reply(504, {"error": str(e)})
+            p = self._parse_gen_body(raw)
+            if p["page_format"] and not srv.engine.paged:
+                raise InvalidArgumentError("page_format needs kv_cache_layout=paged on the "
+                                           "prefill tier")
+            srv.engine.validate(p["prompt"], p["max_new_tokens"]
+                                if p["max_new_tokens"] is not None
+                                else srv.engine.default_max_new_tokens)
+        except (ValueError, TypeError, InvalidArgumentError) as e:
+            self._reply(400, {"error": str(e)})
             return
-        except Exception as e:  # noqa: BLE001 — a failed step must still answer
+        meta = {"params": {k: p[k] for k in ("prompt", "max_new_tokens", "temperature",
+                                             "deadline_ms", "stream", "tenant")},
+                "cache": srv.cache_geometry()}
+        try:
+            if p["page_format"]:
+                pages, length, first = srv.run_prefill_pages(p["prompt"], p["temperature"],
+                                                             known_hashes=p["known_hashes"])
+                blob = _handoff.pack_kv_pages(pages, length, first, srv.engine.page_size,
+                                              meta=meta)
+                ctype = _handoff.HANDOFF_PAGED_CONTENT_TYPE
+            else:
+                planes, length, first = srv.run_prefill(p["prompt"], p["temperature"])
+                blob = _handoff.pack_kv_slab(planes, length, first, meta=meta)
+                ctype = _handoff.HANDOFF_CONTENT_TYPE
+        except ServingClosedError as e:
+            self._reply(503, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 — a failed forward must still answer
             self._reply(500, {"error": f"{type(e).__name__}: {e}"})
             return
-        self._reply(200, {"tokens": tokens, "finish_reason": req.finish_reason,
-                          "prompt_tokens": req.prompt_len})
+        self._reply_raw(200, blob, ctype)
+
+    def _generate_kv(self, raw):
+        """The decode tier's leg: a handed-off slab (``PTKV`` or ``PTKP``,
+        told apart by magic) checked against this tier's cache geometry
+        and queued for a decode slot; the slab's riding parameters rebuild
+        the original request, streaming included. A malformed or foreign
+        slab answers 400 before anything lands in a slot."""
+        srv = self._srv
+        if not self._check_ready(srv):
+            return
+        eng = srv.engine
+        paged_wire = raw[:4] == b"PTKP"
+        try:
+            if paged_wire:
+                if not eng.paged:
+                    raise _handoff.HandoffError("page-granular slab needs kv_cache_layout=paged "
+                                                "on this decode tier (ring tiers speak PTKV)")
+                slab = _handoff.unpack_kv_pages(raw)
+                length, meta = slab.length, slab.meta
+                if slab.page_size != eng.page_size:
+                    raise _handoff.HandoffError(f"KV page slab page_size {slab.page_size} does "
+                                                f"not match this tier's {eng.page_size}")
+            else:
+                planes, length, first, meta = _handoff.unpack_kv_slab(raw)
+            mine = srv.cache_geometry()
+            theirs = meta.get("cache") or {}
+            bad = {k: (theirs.get(k), mine[k]) for k in mine if theirs.get(k) != mine[k]}
+            if bad:
+                raise _handoff.HandoffError(f"KV slab geometry does not match this decode "
+                                            f"tier: {bad} (sender vs receiver)")
+            if eng.speculative:
+                # the draft's prefill at admission needs a covering bucket
+                # here: refuse now, not out of the decode loop
+                eng.bucket_for(length)
+        except InvalidArgumentError as e:  # HandoffError among them
+            self._reply(400, {"error": str(e)})
+            return
+        p = dict(meta.get("params") or {})
+        kw = {"max_new_tokens": p.get("max_new_tokens"), "temperature": p.get("temperature"),
+              "deadline_ms": p.get("deadline_ms"), "prompt": p.get("prompt"),
+              "tenant": p.get("tenant")}
+        if paged_wire:
+            def submit(**extra):
+                return srv.scheduler.submit_prefilled_pages(slab, **kw, **extra)
+        else:
+            def submit(**extra):
+                return srv.scheduler.submit_prefilled(planes, length, first, **kw, **extra)
+        if bool(p.get("stream", False)):
+            self._generate_stream(srv, submit)
+            return
+        req = self._try_submit(submit)
+        if req is not None:
+            self._wait_and_reply(srv, req)
 
     def _generate_stream(self, srv, submit):
         """Chunked ndjson: one ``{"token": id}`` line per decoded token as
@@ -422,10 +571,18 @@ class GenerationServer:
     ``GPTForCausalLM``), for which an engine is built from the
     ``generation_*`` flags and the keyword overrides (on ``device``, the
     card unless named; ``kv_cache_dtype``, ``kv_cache_layout``,
-    ``kv_page_size`` and ``kv_pool_pages`` pick the int8 and paged caches). ``start()`` warms by default, so ``/healthz``
-    readiness means every prefill bucket and the decode step are captured.
-    ``kind`` other than ``generate`` raises (the disaggregated tiers are not
-    ported)."""
+    ``kv_page_size`` and ``kv_pool_pages`` pick the int8 and paged caches;
+    ``draft_model`` and ``draft_k`` speculative decoding). ``start()`` warms
+    by default, so ``/healthz`` readiness means every graph of the kind is
+    captured.
+
+    ``kind`` is the backend's role: ``generate`` serves ``/generate``;
+    ``prefill`` serves ``/prefill``, runs no decode loop and holds no decode
+    cache after warmup; ``decode`` serves ``/generate_kv``. Each warms
+    exactly ``engine.expected_compiles(kind)`` graphs. A prefill tier's
+    exports write one persistent buffer, so they run one at a time on the
+    engine's lock; ``/statz`` ``prefill`` counts the waiting and the
+    running one."""
 
     def __init__(self, model_or_engine, port=0, host="127.0.0.1", slots=None, cache_len=None,
                  prefill_buckets=None, queue_capacity=None, max_new_tokens=None,
@@ -433,13 +590,9 @@ class GenerationServer:
                  kv_page_size=None, kv_pool_pages=None, draft_model=None, draft_k=None,
                  kind=None, request_timeout_s=120.0, device=None):
         self.kind = str(kind if kind is not None else flag("backend_kind"))
-        if self.kind in ("prefill", "decode"):
-            raise UnimplementedError(
-                f"backend kind {self.kind!r}: the disaggregated prefill/decode handoff "
-                "(ROADMAP.md Queue A item 3, entry 4) is not ported yet")
-        if self.kind != "generate":
-            raise InvalidArgumentError(f"backend kind must be one of ['decode', 'generate', "
-                                       f"'prefill'], got {self.kind!r}")
+        if self.kind not in _KIND_ROUTES:
+            raise InvalidArgumentError(f"backend kind must be one of {sorted(_KIND_ROUTES)}, "
+                                       f"got {self.kind!r}")
         if hasattr(model_or_engine, "step") and hasattr(model_or_engine, "admit"):
             given = {"slots": slots, "cache_len": cache_len, "prefill_buckets": prefill_buckets,
                      "max_new_tokens": max_new_tokens, "temperature": temperature,
@@ -465,6 +618,11 @@ class GenerationServer:
                 device=device)
         self.scheduler = ContinuousBatcher(self.engine, queue_capacity=queue_capacity,
                                            kind=self.kind)
+        # a prefill tier's exports, one at a time: the waiting and running
+        # counts are its /statz pressure
+        self._prefill_lock = threading.Lock()
+        self._prefill_count_lock = threading.Lock()
+        self._prefill_waiting = self._prefill_active = 0
         self.request_timeout_s = request_timeout_s
         self._httpd = _HTTPServer((host, int(port)), _GenerationHandler)
         self._httpd.inference_server = self
@@ -484,9 +642,10 @@ class GenerationServer:
         return self.engine.warmed and not self.draining
 
     def start(self, warmup=True):
-        """Start the decode loop and the listener; warm unless
-        ``warmup=False``."""
-        self.scheduler.start()
+        """Start the decode loop (not on a prefill tier, which never
+        decodes) and the listener; warm unless ``warmup=False``."""
+        if self.kind != "prefill":
+            self.scheduler.start()
         if self._thread is None or not self._thread.is_alive():
             self._thread = threading.Thread(target=self._httpd.serve_forever,
                                             name=f"ptt-generation:{self.port}", daemon=True)
@@ -498,6 +657,45 @@ class GenerationServer:
     def warmup(self):
         self.engine.warmup(kind=self.kind)
         return self
+
+    def _exporting(self, fn):
+        """``fn()`` (an export) once no other export runs, counted as
+        waiting, then as running."""
+        if self.draining:
+            raise ServingClosedError("prefill backend draining")
+        with self._prefill_count_lock:
+            self._prefill_waiting += 1
+        running = False
+        try:
+            with self._prefill_lock:
+                with self._prefill_count_lock:
+                    self._prefill_waiting -= 1
+                    self._prefill_active += 1
+                    running = True
+                return fn()
+        finally:
+            with self._prefill_count_lock:
+                if running:
+                    self._prefill_active -= 1
+                else:
+                    self._prefill_waiting -= 1
+
+    def run_prefill(self, prompt, temperature=None):
+        """The prefill tier's forward: ``(planes, length, first_token)``."""
+        return self._exporting(lambda: self.engine.prefill_export(prompt, temperature))
+
+    def run_prefill_pages(self, prompt, temperature=None, known_hashes=()):
+        """:meth:`run_prefill` answered as chain-hashed pages, those in
+        ``known_hashes`` header-only."""
+        return self._exporting(lambda: self.engine.prefill_export_pages(
+            prompt, temperature, known_hashes=known_hashes))
+
+    def cache_geometry(self) -> dict:
+        """The slab contract both tiers of a handoff must agree on, checked
+        before anything is installed."""
+        e = self.engine
+        return {"layers": e._num_layers, "heads": e._num_heads, "head_dim": e._head_dim,
+                "cache_len": e.cache_len, "kv_dtype": e.kv_cache_dtype}
 
     def stop(self, drain=True, timeout=30.0):
         """Refuse new work (503), finish (``drain``) or fail what is queued
@@ -536,7 +734,7 @@ class GenerationServer:
         e, sched = self.engine, self.scheduler
         s = dict(sched.stats)
         uptime = max(time.monotonic() - self._t0, 1e-9)
-        return {
+        out = {
             **self.healthz(),
             "requests": {"submitted": s["requests"], "completed": s["responses"],
                          "rejected_429": s["rejected"], "deadline_expired": s["expired"],
@@ -552,6 +750,9 @@ class GenerationServer:
                 "hbm_required_bytes": e.hbm_required_bytes(),
                 "suggested_decode_slots": e.suggest_decode_slots(),
             },
+            # draft proposals accepted per round decide how many target
+            # forwards a token costs
+            "speculative": e.spec_stats(),
             # the paged layout's pool occupancy, copy-on-write traffic and
             # prefix-index accounting, overall and per tenant (the ring
             # reports its layout only)
@@ -559,9 +760,14 @@ class GenerationServer:
             "latency": {name: sched.quantiles(name) for name in ("token", "ttft", "e2e")},
             "compiles": {
                 "prefill_buckets": len(e.prefill_buckets),
-                "decode": 1,
+                "decode": 2 if e.speculative else 1,
                 "expected": e.expected_compiles(self.kind),
                 "programs": e.graphs(),
                 "unexpected": e.extra_compiles() if e.watch.armed else 0,
             },
         }
+        if self.kind == "prefill":
+            with self._prefill_count_lock:
+                out["prefill"] = {"waiting": self._prefill_waiting,
+                                  "active": self._prefill_active, "concurrency": 1}
+        return out

@@ -37,6 +37,7 @@ from paddle_tpu_torch.serving import (  # noqa: E402
     ContinuousBatcher,
     GenerationServer,
     QueueFullError,
+    Router,
     ServingClosedError,
 )
 
@@ -136,9 +137,13 @@ def test_invalid_requests_rejected_at_submit(model):
     for prompt, budget in (([], 2), ([1] * 9, 2), ([1, 2], 0), ([1, 999], 2)):
         with pytest.raises(InvalidArgumentError):
             sched.submit(prompt, max_new_tokens=budget)
-    with pytest.raises(UnimplementedError, match="entry 4"):
-        sched.submit_prefilled((), 2, 1)
-    with pytest.raises(UnimplementedError, match="entry 4"):
+    # the handoff submits refuse what submit refuses, and a slab of the
+    # other layout
+    with pytest.raises(InvalidArgumentError):
+        sched.submit_prefilled((), 0, 1)
+    with pytest.raises(InvalidArgumentError):
+        sched.submit_prefilled((), 2, 1, max_new_tokens=0)
+    with pytest.raises(InvalidArgumentError, match="paged"):
         sched.submit_prefilled_pages(None)
     sched.close(drain=False)
 
@@ -286,9 +291,18 @@ def test_generate_http_429_and_drain(model):
 
 
 def test_server_kinds_and_engine_kwargs(model):
-    for kind in ("prefill", "decode"):
-        with pytest.raises(UnimplementedError, match="entry 4"):
-            GenerationServer(_engine(model, slots=1), kind=kind)
+    for kind, route in (("prefill", "/prefill"), ("decode", "/generate_kv")):
+        srv = GenerationServer(_engine(model, slots=1), kind=kind)
+        assert srv.kind == kind and srv.cache_geometry()["cache_len"] == CACHE
+        try:
+            srv.start()
+            assert json.loads(urlopen(srv.url + "/").read())["routes"][0] == f"{route} (POST)"
+            status, raw = _post(srv.url, {"prompt": [5, 6]})
+            assert status == 404 and f"{kind!r}" in json.loads(raw)["error"]
+        finally:
+            srv.stop(drain=False)
+    with pytest.raises(UnimplementedError, match="entry 5"):
+        Router()
     with pytest.raises(InvalidArgumentError):
         GenerationServer(_engine(model, slots=1), kind="train")
     with pytest.raises(InvalidArgumentError, match="ready engine"):

@@ -13,8 +13,9 @@ captured body again on its static inputs: graphs ``== expected_compiles()``
 after warmup and no more after traffic, as the JAX compile counter counts,
 tokens equal to the eager engine's, the persistent cache written in place;
 EOS and length stopping; validation; memory planning against the JAX
-engine's; speculative decoding and the handoff, which are not ported,
-raising ``UnimplementedError``, and the int8 and paged caches running.
+engine's; speculative decoding and the handoff running through the calls
+that raised before they were ported (the router still raises), and the
+int8 and paged caches running.
 """
 import contextlib
 
@@ -353,31 +354,44 @@ def test_memory_planning_matches_the_jax_engine():
 
 
 def test_unported_paths_raise_naming_their_entries(monkeypatch):
-    """Speculative decoding (entry 3) and the handoff (entry 4) raise,
-    naming their entries; the int8 and paged caches (entries 1 and 2)
-    construct and run, from arguments and from the flags."""
+    """Speculative decoding (entry 3) and the handoff (entry 4) run through
+    the calls that raised before they were ported; the router (entry 5)
+    still raises, naming its entry; the int8 and paged caches (entries 1
+    and 2) construct and run, from arguments and from the flags."""
+    from paddle_tpu_torch.generation import PageSlab
+    from paddle_tpu_torch.serving import Router
+
     _, pm = _models()
     kw = dict(slots=1, cache_len=16, prefill_buckets=(8,), device="cpu")
-    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 3"):
-        GenerationEngine(pm, **kw, draft_model=pm)
+    spec = GenerationEngine(pm, **kw, draft_model=pm)
+    assert spec.speculative and spec.draft_k == 4 and spec.store_len == 20
     for extra in (dict(kv_cache_dtype="int8"), dict(kv_cache_layout="paged"),
                   dict(kv_cache_dtype="int8", kv_cache_layout="paged")):
         eng = GenerationEngine(pm, **kw, **extra)
         assert len(eng.generate([[5, 6, 7]], max_new_tokens=3)[0]) == 3
     eng = GenerationEngine(pm, **kw)
-    calls = [
-        (lambda: eng.spec_step([0], [0.0]), "entry 3"),
-        (lambda: eng.spec_stats(), "entry 3"),
-        (lambda: eng.prefill_export([1, 2]), "entry 4"),
-        (lambda: eng.admit_prefilled(0, (), 2, 1), "entry 4"),
-        (lambda: eng.admit_prefilled_pages(0, [], 2, 1), "entry 4"),
-        (lambda: eng.expected_compiles("prefill"), "entry 4"),
-        (lambda: eng.warmup(kind="decode"), "entry 4"),
-        (lambda: eng.prefill_export_pages([1, 2]), "entry 4"),
-    ]
-    for call, entry in calls:
-        with pytest.raises(UnimplementedError, match=f"Queue A item 3, {entry}"):
-            call()
+    with pytest.raises(InvalidArgumentError, match="draft model"):
+        eng.spec_step([0], [0.0])
+    assert eng.spec_stats()["enabled"] is False
+    first = spec.admit(0, [1, 2], 0.0)
+    ts, counts = spec.spec_step([first], [0.0])
+    assert ts.shape == (1, 5) and 1 <= counts[0] <= 5
+    assert spec.spec_stats()["rounds"] == 1
+    planes, n, tok = eng.prefill_export([1, 2])
+    assert n == 2 and len(planes) == 2 and planes[0].shape == (2, 4, 16, 16)
+    assert eng.admit_prefilled(0, planes, n, tok) == tok
+    with pytest.raises(InvalidArgumentError, match="paged"):
+        eng.admit_prefilled_pages(0, [], 2, 1)
+    assert eng.expected_compiles("prefill") == 1 and eng.expected_compiles("decode") == 1
+    assert spec.expected_compiles("decode") == 3
+    paged = GenerationEngine(pm, **kw, kv_cache_layout="paged", kv_page_size=4)
+    pages, n, tok = paged.prefill_export_pages([1, 2, 3, 4, 5])
+    assert [p["hash"] is not None for p in pages] == [True, False]
+    assert paged.admit_prefilled_pages(0, pages, n, tok, page_size=4) == tok
+    assert isinstance(PageSlab(pages, n, tok, 4, {}), tuple)
+    GenerationEngine(pm, **kw).warmup(kind="decode")
+    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 5"):
+        Router()
     # the paging surface answers on the ring, as the JAX engine's does
     assert eng.paging_stats() == {"layout": "ring"}
     assert eng.known_page_hashes(["a"]) == set()
