@@ -249,6 +249,26 @@ Phases, each fatal on failure:
     ``/prefix_known`` and the decode tier's ``/statz`` ``paging`` counts the
     hits; a speculative decode tier admitting a ``PTKV`` slab with its
     prompt; no capture after warmup, none of the port's kernels launched;
+    and one ``/prefill`` leg taken apart on the host clock (the forward, the
+    copy to the host, packing with the CRC, HTTP, unpacking);
+12l. the serving fleet (``serve_fleet``): GPT-2 small of 12i saved with
+    ``save_gpt_model`` and phase 11's int8 program saved anew, then five
+    processes of ``python -m paddle_tpu_torch.serving.backend`` on the card
+    (two ``predict`` backends at buckets 8, 64, 512, a ``generate`` backend,
+    a ``prefill`` and a ``decode`` tier of 16 slots x a ring of 1024) behind
+    an in-process ``serving.Router``: 6 clients x 20 ``/predict`` requests
+    straight to a backend and through the router, every answer held per row
+    against the CPU's plain path under phase 11's limits, each backend's
+    ``/statz`` booking 25 ``int8_matmul`` launches a forward; 16 greedy
+    ``/generate`` requests through the router, unified and then composed
+    from the tiers' ``/prefill`` and ``/generate_kv`` (the tiers' ``/statz``
+    and the router's legs counted), tokens equal to the in-process engine's
+    under 12i's near-tie rule; one predict backend SIGKILLed mid-burst with
+    every request answered 200 and an eviction; every ``/loadz`` without an
+    unexpected capture, the router's merged histogram counts equal to the
+    backends' own, ``/fleetz`` grouped by kind; SIGTERM -> drain -> exit 0
+    and no listener left; p50/p99 routed against direct, tokens/s unified
+    against disaggregated, the phase's seconds;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -6273,6 +6293,7 @@ GPT_SELF_SLOTS, GPT_SELF_BUCKETS, GPT_SELF_MIN = 4, (512,), 0.99  # the self-dra
 GPT_SPEC_ROUNDS = 12  # greedy rounds of 16 busy slots timed on the host clock
 GPT_DISAGG_REQUESTS, GPT_DISAGG_SLOTS = 8, 8
 GPT_SPEC_DECODE_SLOTS, GPT_SPEC_DECODE_SLABS = 4, 2
+HANDOFF_TIMED = 5  # lone /prefill legs taken apart on the host clock
 
 
 def _spec_decode_logged(eng, slots, prompts, new):
@@ -6612,6 +6633,73 @@ def _post_raw(url, data, timeout=300):
         return resp.status, resp.read(), resp.headers.get("Content-Type")
 
 
+def _handoff_breakdown(pre, dec, reqs):
+    """12k step 7b: where a lone ``/prefill`` leg's time goes, on the longest
+    prompt of ``reqs`` (host clock, ``HANDOFF_TIMED`` runs, medians): the
+    export (``prefill_export``: the bucket's forward and the first token's
+    read, then the planes' copies to the host through the pinned buffer,
+    split by timing the engine's host reads), packing the slab with its CRC
+    (and the CRC alone), the whole ``/prefill`` round trip (the rest of it
+    is HTTP: the request, the slab written, sent and read), unpacking with
+    the CRC check, and the ``/generate_kv`` leg of the same slab."""
+    import zlib
+
+    from paddle_tpu_torch.generation import pack_kv_slab, unpack_kv_slab
+
+    eng = pre.engine
+    prompt, n = max(reqs, key=lambda r: len(r[0]))
+    body = json.dumps({"prompt": prompt, "max_new_tokens": n, "temperature": 0.0}).encode()
+    meta = {"params": {"prompt": prompt, "max_new_tokens": n, "temperature": 0.0,
+                       "deadline_ms": None, "stream": False, "tenant": None},
+            "cache": pre.cache_geometry()}
+    reads, host = [], eng._host
+
+    def timed_host(t):
+        t0 = time.perf_counter()
+        out = host(t)
+        reads.append(time.perf_counter() - t0)
+        return out
+
+    rows = {k: [] for k in ("export", "forward", "d2h", "pack", "crc", "unpack", "prefill_leg",
+                            "http", "generate_kv_leg")}
+    eng._host = timed_host
+    try:
+        for _ in range(HANDOFF_TIMED):
+            reads.clear()
+            t0 = time.perf_counter()
+            planes, length, tok = eng.prefill_export(prompt, 0.0)
+            export = time.perf_counter() - t0
+            d2h = sum(reads[1:])  # the first read is the token's: it waits for the forward
+            t0 = time.perf_counter()
+            blob = pack_kv_slab(planes, length, tok, meta=meta)
+            pack = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            zlib.crc32(blob)
+            crc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            unpack_kv_slab(blob)
+            unpack = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            status, slab, _ = _post_raw(pre.url + "/prefill", body)
+            leg = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            status2, _, _ = _post_raw(dec.url + "/generate_kv", slab)
+            leg2 = time.perf_counter() - t0
+            if status != 200 or status2 != 200:
+                raise AssertionError(f"gpt 12k: a lone handoff answered {status}/{status2}")
+            for k, v in (("export", export), ("forward", export - d2h), ("d2h", d2h),
+                         ("pack", pack), ("crc", crc), ("unpack", unpack), ("prefill_leg", leg),
+                         ("http", leg - export - pack), ("generate_kv_leg", leg2)):
+                rows[k].append(v * 1e3)
+    finally:
+        del eng._host
+    r = {f"{k}_ms": float(np.median(v)) for k, v in rows.items()}
+    r.update(prompt_tokens=len(prompt), slab_bytes=len(blob), runs=HANDOFF_TIMED)
+    log(f"gpt handoff, one /prefill leg taken apart (host clock, median of {HANDOFF_TIMED}): "
+        f"{r}")
+    return r
+
+
 def _spec_disagg_f32(model, plain, draft):
     """12k step 7: a ``prefill`` and a ``decode`` server (f32 ring) on the
     card; 8 of 12i's requests through ``/prefill`` then ``/generate_kv``
@@ -6662,6 +6750,7 @@ def _spec_disagg_f32(model, plain, draft):
         wall = time.perf_counter() - t0
         pz, dz = _http(pre.url + "/statz")[1], _http(dec.url + "/statz")[1]
         pre_cache = pre.engine.cache_nbytes()
+        breakdown = _handoff_breakdown(pre, dec, reqs)
     finally:
         pre.stop(drain=False)
         dec.stop(drain=True)
@@ -6682,7 +6771,8 @@ def _spec_disagg_f32(model, plain, draft):
          "slab_bytes": len(slabs[0]), "slab_plane_bytes": plane_bytes,
          "positions_held": held, "tokens_differing": wrong,
          "prefill_tier_cache_bytes": pre_cache, "prefill_compiles": pz["compiles"],
-         "decode_compiles": dz["compiles"], "decode_latency": dz["latency"]}
+         "decode_compiles": dz["compiles"], "decode_latency": dz["latency"],
+         "prefill_concurrency": pz["prefill"]["concurrency"], "breakdown": breakdown}
     log(f"gpt disaggregated f32: {r}")
     want_planes = 2 * model.config.num_hidden_layers * GPT_CACHE * model.config.hidden_size * 4
     if wrong or pre_cache or plane_bytes != want_planes or pz["compiles"]["unexpected"] \
@@ -7398,6 +7488,429 @@ def _replace_weight(pred, a):
     return r
 
 
+# -- the serving fleet (phase 12l) -----------------------------------------------------------
+
+FLEET_CLIENTS, FLEET_PER_CLIENT = 6, 20
+FLEET_ROWS = (1, 2, 4, 8, 16)  # rows of the /predict requests, in turn
+FLEET_GEN_REQUESTS = 16  # 12i's first 16 requests
+FLEET_KILL_AFTER = 40  # answers of the burst before one predict backend is killed
+FLEET_BOOT_S = 300  # the longest a backend process may take to announce its port
+FLEET_PROBE_S = 5.0  # long: the kill must be found by the dispatch path, not a probe
+_FLEET_TIERS = {  # name: the backend CLI's arguments after --kind
+    "predict0": ["predict", "--replicas", "2", "--buckets", "8,64,512", "--batch-timeout-ms", "2"],
+    "predict1": ["predict", "--replicas", "2", "--buckets", "8,64,512", "--batch-timeout-ms", "2"],
+    "generate": ["generate", "--slots", "16"],
+    "prefill": ["prefill", "--slots", "1"],
+    "decode": ["decode", "--slots", "16"],
+}
+
+
+def _tail(path, n=3000):
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def _spawn_backend(tmp, name, model_dir, gpt_dir):
+    """``python -m paddle_tpu_torch.serving.backend`` for one tier of
+    ``_FLEET_TIERS``, its output in ``<tmp>/<name>.log``."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    kind, *extra = _FLEET_TIERS[name]
+    args = ["--kind", kind] + (["--model-dir", model_dir] if kind == "predict" else
+                               ["--gpt-dir", gpt_dir, "--cache-len", str(GPT_CACHE),
+                                "--prefill-buckets", ",".join(map(str, GPT_BUCKETS))]) + extra
+    if GPT_DEVICE == "cpu":  # a rehearsal on the CPU
+        args += ["--device", "cpu"]
+    b = {"name": name, "kind": kind, "log": os.path.join(tmp, f"{name}.log"),
+         "port_file": os.path.join(tmp, f"{name}.port"), "url": None, "t0": time.perf_counter()}
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(b["log"], "w") as out:
+        b["proc"] = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.serving.backend", *args, "--port-file",
+             b["port_file"]], cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return b
+
+
+def _await_backends(backends):
+    """Wait for every backend's port file (written after its warmup); a
+    backend that exits first fails the phase with its log."""
+    import os
+
+    deadline = time.monotonic() + FLEET_BOOT_S
+    pending = list(backends)
+    while pending:
+        for b in list(pending):
+            if os.path.exists(b["port_file"]):
+                with open(b["port_file"]) as f:
+                    b["url"] = f"http://127.0.0.1:{int(f.read())}"
+                b["ready_s"] = time.perf_counter() - b["t0"]
+                pending.remove(b)
+            elif b["proc"].poll() is not None:
+                raise AssertionError(f"fleet: backend {b['name']} exited {b['proc'].returncode} "
+                                     f"before it was ready:\n{_tail(b['log'])}")
+        if pending and time.monotonic() > deadline:
+            raise AssertionError(f"fleet: {[b['name'] for b in pending]} not ready after "
+                                 f"{FLEET_BOOT_S} s")
+        time.sleep(0.1)
+
+
+def _fleet_predict_requests():
+    """120 requests of 1-16 rows of the int8 program's input, three decimals
+    (short JSON, and exactly the float32 values the server parses)."""
+    rng = np.random.RandomState(41)
+    return [np.round(rng.randn(FLEET_ROWS[i % len(FLEET_ROWS)], Q_HIDDEN), 3)
+            for i in range(FLEET_CLIENTS * FLEET_PER_CLIENT)]
+
+
+def _cpu_answers(model_dir, reqs):
+    """The port's plain path on the CPU from the saved directory, every
+    request's rows (run in chunks of the largest bucket: the program's rows
+    are independent)."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    pred = create_predictor(Config(model_dir), device="cpu")
+    rows = np.concatenate([r.astype(np.float32) for r in reqs])
+    out = np.concatenate([pred.run([rows[i:i + Q_BUCKETS[-1]]])[0]
+                          for i in range(0, len(rows), Q_BUCKETS[-1])])
+    bounds = np.cumsum([0] + [len(r) for r in reqs])
+    return [out[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def _predict_burst(url, reqs, on_answer=None):
+    """``FLEET_CLIENTS`` clients at once, client c sending requests c, c + 6,
+    ...: (answers as ``(status, body)``, client ms each). ``on_answer(n)``
+    runs after the n-th answer."""
+    answers, ms = [None] * len(reqs), [None] * len(reqs)
+    done, lock = [0], threading.Lock()
+
+    def client(c):
+        for i in range(c, len(reqs), FLEET_CLIENTS):
+            t = time.perf_counter()
+            try:
+                answers[i] = _http(url + "/predict", {"inputs": {"x": reqs[i].tolist()}})
+            except (urllib.error.URLError, OSError) as e:  # a dropped connection fails too
+                answers[i] = (f"connection: {type(e).__name__}", {})
+            ms[i] = (time.perf_counter() - t) * 1e3
+            with lock:
+                done[0] += 1
+                n = done[0]
+            if on_answer is not None:
+                on_answer(n)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return answers, ms
+
+
+def _held_rows(answers, wants, label):
+    """Every answer 200 and held per row against the CPU's plain path under
+    phase 11's limits."""
+    errs = []
+    for i, (ans, want) in enumerate(zip(answers, wants)):
+        if ans is None or ans[0] != 200:
+            raise AssertionError(f"fleet {label}: request {i} answered {ans and ans[0]}: "
+                                 f"{ans and str(ans[1])[:300]}")
+        got = np.asarray(next(iter(ans[1]["outputs"].values())), np.float32)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"fleet {label}: request {i} {got.shape} vs {want.shape}, or "
+                                 "not finite")
+        errs.append(_row_errors(got, want))
+    errs = np.concatenate(errs)
+    share = float((errs <= Q_ROW_RTOL).mean())
+    if share < Q_ROW_SHARE or errs.max() > Q_FLIP_RTOL:
+        raise AssertionError(f"fleet {label}: {share:.1%} of rows within {Q_ROW_RTOL}, worst "
+                             f"row {errs.max()}")
+    return {"requests": len(answers), "rows": int(len(errs)), "share_within": share,
+            "worst_row": float(errs.max())}
+
+
+def _quantiles(ms):
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(np.mean(ms))}
+
+
+_STAGES = ("serving/queue_ms", "serving/assemble_ms", "serving/dispatch_ms", "serving/e2e_ms")
+
+
+def _stage_quantiles(before, after):
+    """Server-side p50/p99 of each ``/predict`` stage over the requests
+    between two sets of ``/histz`` snapshots (lists, one a backend): the
+    bucket counts' differences merged, quantiles interpolated inside the
+    registry's buckets."""
+    from paddle_tpu_torch.monitor import histogram_quantile, merge_histogram_snapshots
+
+    out = {}
+    for name in _STAGES:
+        snaps = []
+        for b, a in zip(before, after):
+            a = a[name]
+            b = b.get(name) or {"buckets": [0] * len(a["buckets"]), "sum": 0.0, "count": 0}
+            snaps.append({"bounds": a["bounds"], "sum": a["sum"] - b["sum"],
+                          "count": a["count"] - b["count"],
+                          "buckets": [x - y for x, y in zip(a["buckets"], b["buckets"])]})
+        h = merge_histogram_snapshots(snaps, name=name)
+        if h.count:
+            out[name] = {"p50_ms": histogram_quantile(h, 0.5),
+                         "p99_ms": histogram_quantile(h, 0.99), "count": h.count,
+                         "mean_ms": h.sum / h.count}
+    return out
+
+
+def _int8_launches(url):
+    """A predict backend's ``/statz``: (int8_matmul launches, forwards
+    dispatched for requests), every other kernel's launches required 0."""
+    sz = _http(url + "/statz")[1]
+    counts = sz["kernel_launches"]
+    if any(v for k, v in counts.items() if k != "int8_matmul"):
+        raise AssertionError(f"fleet: a predict backend launched other kernels: {counts}")
+    return counts.get("int8_matmul", 0), sz["batches"]["dispatched"]
+
+
+def _fleet_generate(url, reqs, refs, label):
+    """``reqs`` as concurrent greedy ``/generate`` requests: every answer
+    200 and its tokens the in-process engine's under 12i's near-tie rule.
+    Returns the readings."""
+    ref_toks, ref_rows = refs
+    answers = [None] * len(reqs)
+
+    def client(i):
+        prompt, n = reqs[i]
+        answers[i] = _http(url + "/generate", {"prompt": prompt, "max_new_tokens": n,
+                                               "temperature": 0.0})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    held = wrong = tokens = 0
+    for s, ans in enumerate(answers):
+        if ans is None or ans[0] != 200:
+            raise AssertionError(f"fleet {label}: /generate {s} answered {ans and ans[0]}: "
+                                 f"{ans and str(ans[1])[:300]}")
+        toks = ans[1]["tokens"]
+        cover, w, _ = _held_against(toks, None, ref_toks[s], ref_rows[s])
+        held, wrong, tokens = held + cover, wrong + w, tokens + len(toks)
+    r = {"requests": len(reqs), "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+         "positions_held": held, "tokens_differing": wrong}
+    if wrong or held < tokens // 2:
+        raise AssertionError(f"fleet {label}: the answers part from the in-process engine's: {r}")
+    return r
+
+
+def _fleet_accounting(router, live):
+    """Every live backend's ``/loadz`` without an unexpected capture; the
+    router's merged ``/statz`` counts equal to the sum of the backends' own
+    ``/histz`` counts for every ``serving/*`` histogram; ``/fleetz`` by
+    kind."""
+    loadz = {b["name"]: _http(b["url"] + "/loadz")[1] for b in live}
+    for name, lz in loadz.items():
+        if lz["compiles"]["unexpected"] or not lz["ready"] or lz["kind"] != _FLEET_TIERS[name][0]:
+            raise AssertionError(f"fleet: {name}'s /loadz after the traffic: {lz}")
+    merged = _http(router.url + "/statz")[1]["latency"]["backends_merged"]
+    own = {b["name"]: _http(b["url"] + "/histz")[1]["histograms"] for b in live}
+    sums = {}
+    for hists in own.values():
+        for name, snap in hists.items():
+            sums[name] = sums.get(name, 0) + snap["count"]
+    want = {n: c for n, c in sums.items() if c}
+    got = {n: row["count"] for n, row in merged.items()}
+    if got != want:
+        raise AssertionError(f"fleet: merged /statz counts {got} != the backends' own {want}")
+    router.probe_once()  # fresh snapshots for /fleetz
+    fz = _http(router.url + "/fleetz")[1]
+    kinds = {k: sorted(rows) for k, rows in fz["fleet"].items()}
+    for kind in ("predict", "generate", "decode"):
+        n = sum(_FLEET_TIERS[b["name"]][0] == kind for b in live)
+        if kind not in fz["fleet"] or any(row["backends"] != n
+                                          for row in fz["fleet"][kind].values()):
+            raise AssertionError(f"fleet: /fleetz does not group {n} {kind} backends: {fz}")
+    return {"loadz": loadz, "merged_counts": got, "fleetz_kinds": kinds,
+            "backends_scraped": fz["backends_scraped"], "fleetz": fz["fleet"]}
+
+
+def _closed(url):
+    import socket
+    from urllib.parse import urlsplit
+
+    u = urlsplit(url)
+    try:
+        socket.create_connection((u.hostname, u.port), timeout=2).close()
+    except OSError:
+        return True
+    return False
+
+
+def serve_fleet(card):
+    """Phase 12l. A fleet of backend processes on the card behind an
+    in-process ``Router``: two ``predict`` backends over the int8 program
+    of phase 11 (buckets 8, 64, 512), a ``generate`` backend and a
+    ``prefill`` and a ``decode`` tier of 12i's GPT-2 small (f32 ring). Six
+    clients x 20 ``/predict`` requests straight to a backend, then through
+    the router, then through the router while one predict backend is
+    SIGKILLed; 16 greedy ``/generate`` requests unified, then composed from
+    ``/prefill`` and ``/generate_kv``; the fleet's accounting; SIGTERM ->
+    drain -> exit 0. Returns (int8_matmul launches the predict backends
+    booked for the requests, readings)."""
+    import os
+    import shutil
+    import signal
+
+    import torch
+
+    from paddle_tpu_torch.generation import GenerationEngine
+    from paddle_tpu_torch.models import save_gpt_model
+    from paddle_tpu_torch.serving import Router
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ptt_fleet_")
+    model_dir, gpt_dir = os.path.join(tmp, "int8"), os.path.join(tmp, "gpt")
+    backends, router, r = [], None, {"card": card}
+    try:
+        model = _gpt_model()
+        save_gpt_model(model, gpt_dir)
+        _make_int8_model(model_dir, [])
+        r["saved_s"] = time.perf_counter() - t_phase
+        backends = [_spawn_backend(tmp, name, model_dir, gpt_dir) for name in _FLEET_TIERS]
+        by = {b["name"]: b for b in backends}
+        # while the processes boot: the CPU's answers and the engine's tokens
+        reqs = _fleet_predict_requests()
+        wants = [None]
+        cpu = threading.Thread(target=lambda: wants.__setitem__(0, _cpu_answers(model_dir, reqs)))
+        cpu.start()
+        gen_reqs = _gpt_requests(model.config.vocab_size)[:FLEET_GEN_REQUESTS]
+        eng = GenerationEngine(model, slots=len(gen_reqs), cache_len=GPT_CACHE,
+                               prefill_buckets=GPT_BUCKETS, seed=GPT_SEED, device=GPT_DEVICE)
+        eng.warmup()
+        refs = _decode_logged(eng, list(range(len(gen_reqs))), [p for p, _ in gen_reqs],
+                              max(n for _, n in gen_reqs))
+        del eng, model
+        torch.cuda.empty_cache()
+        cpu.join()
+        wants = wants[0]
+        _await_backends(backends)
+        r["ready_s"] = {b["name"]: b["ready_s"] for b in backends}
+        r["boot_s"] = time.perf_counter() - t_phase
+        log(f"fleet ({card}): 5 backend processes ready after {r['boot_s']:.1f} s of the phase "
+            f"(each from its start: {r['ready_s']})")
+        w0 = {n: _int8_launches(by[n]["url"]) for n in ("predict0", "predict1")}
+        h0 = [_http(by[n]["url"] + "/histz")[1]["histograms"] for n in ("predict0", "predict1")]
+        if any(b or not w or w % Q_MULS for w, b in w0.values()):
+            raise AssertionError(f"fleet: warmup launches of the predict backends {w0}")
+
+        # /predict straight to one backend, then through the router
+        answers, direct_ms = _predict_burst(by["predict0"]["url"], reqs)
+        r["direct"] = dict(_held_rows(answers, wants, "direct"), **_quantiles(direct_ms))
+        h1 = [_http(by[n]["url"] + "/histz")[1]["histograms"] for n in ("predict0", "predict1")]
+        r["direct"]["server_stages"] = _stage_quantiles(h0[:1], h1[:1])
+        router = Router(backends=[by[n]["url"] for n in ("predict0", "predict1", "generate")],
+                        probe_interval_s=FLEET_PROBE_S).start()
+        if router.healthy_count != 3:
+            raise AssertionError(f"fleet: the router admitted {router.healthz()}")
+        answers, routed_ms = _predict_burst(router.url, reqs)
+        r["routed"] = dict(_held_rows(answers, wants, "routed"), **_quantiles(routed_ms))
+        h2 = [_http(by[n]["url"] + "/histz")[1]["histograms"] for n in ("predict0", "predict1")]
+        r["routed"]["server_stages"] = _stage_quantiles(h1, h2)
+        r["routed"]["router_e2e"] = _http(router.url + "/statz")[1]["latency"]["router_e2e"]
+        launches = {}
+        for n in ("predict0", "predict1"):
+            got, batches = _int8_launches(by[n]["url"])
+            launches[n] = {"warmup": w0[n][0], "traffic": got - w0[n][0], "forwards": batches}
+            if got - w0[n][0] != Q_MULS * batches or not batches:
+                raise AssertionError(f"fleet: {n} launched int8_matmul {got - w0[n][0]} times "
+                                     f"over {batches} forwards, not {Q_MULS} each")
+        log(f"fleet ({card}): /predict of {len(reqs)} requests, {FLEET_CLIENTS} clients, client "
+            f"clock: straight to one backend p50 {r['direct']['p50_ms']:.2f} ms, p99 "
+            f"{r['direct']['p99_ms']:.2f}; through the router over two p50 "
+            f"{r['routed']['p50_ms']:.2f}, p99 {r['routed']['p99_ms']:.2f}; int8_matmul "
+            f"launches {launches}; server-side stages direct {r['direct']['server_stages']}, "
+            f"routed {r['routed']['server_stages']}, the router's own {r['routed']['router_e2e']}")
+
+        # /generate: the generate backend alone, then composed from the tiers
+        r["generate_unified"] = _fleet_generate(router.url, gen_reqs, refs, "unified")
+        submitted = _http(by["generate"]["url"] + "/statz")[1]["requests"]["submitted"]
+        router.add_backend(by["prefill"]["url"])
+        router.add_backend(by["decode"]["url"])
+        if not (router.has_kind("prefill") and router.has_kind("decode")):
+            raise AssertionError(f"fleet: the tiers are not in rotation: {router.statz()}")
+        r["generate_disagg"] = _fleet_generate(router.url, gen_reqs, refs, "disaggregated")
+        gz, dz = (_http(by[n]["url"] + "/statz")[1] for n in ("generate", "decode"))
+        legs = {b["url"]: b["completed"] for b in router.statz()["backends"]}
+        r["generate_disagg"].update(
+            generate_tier_submitted=gz["requests"]["submitted"] - submitted,
+            decode_tier_completed=dz["requests"]["completed"],
+            prefill_legs=legs[by["prefill"]["url"]], decode_legs=legs[by["decode"]["url"]],
+            decode_ttft=dz["latency"]["ttft"])
+        g = r["generate_disagg"]
+        if g["generate_tier_submitted"] or g["decode_tier_completed"] != len(gen_reqs) \
+                or g["prefill_legs"] != len(gen_reqs) or g["decode_legs"] != len(gen_reqs):
+            raise AssertionError(f"fleet: the router did not compose every /generate from the "
+                                 f"two tiers: {g}")
+        log(f"fleet ({card}): /generate of {len(gen_reqs)} greedy requests through the router: "
+            f"unified {r['generate_unified']['tokens_per_s']:.1f} tokens/s, disaggregated "
+            f"{r['generate_disagg']['tokens_per_s']:.1f}; {r['generate_disagg']}")
+
+        # kill -9 one predict backend mid-burst
+        evictions0 = router.statz()["fleet"]["evictions"]
+        victim = by["predict0"]
+
+        def kill(n):
+            if n == FLEET_KILL_AFTER:
+                os.kill(victim["proc"].pid, signal.SIGKILL)
+
+        answers, kill_ms = _predict_burst(router.url, reqs, on_answer=kill)
+        victim["proc"].wait(60)
+        fleet = router.statz()["fleet"]
+        r["kill"] = dict(_held_rows(answers, wants, "kill -9"), **_quantiles(kill_ms),
+                         evictions=fleet["evictions"] - evictions0, retries=fleet["retries"],
+                         victim_rc=victim["proc"].returncode)
+        if r["kill"]["evictions"] < 1 or victim["proc"].returncode != -signal.SIGKILL:
+            raise AssertionError(f"fleet: the SIGKILL was not survived by eviction: {r['kill']}")
+        got, batches = _int8_launches(by["predict1"]["url"])
+        launches["predict1"].update(traffic=got - w0["predict1"][0], forwards=batches)
+        if got - w0["predict1"][0] != Q_MULS * batches:
+            raise AssertionError(f"fleet: predict1 launched int8_matmul {got} times over "
+                                 f"{batches} forwards after the kill")
+        r["int8_launches"] = launches
+        log(f"fleet ({card}): predict0 SIGKILLed after {FLEET_KILL_AFTER} answers of the burst: "
+            f"every request answered 200, {r['kill']}")
+
+        live = [b for b in backends if b is not victim]
+        r["accounting"] = _fleet_accounting(router, live)
+
+        # teardown: SIGTERM -> drain -> exit 0, then the router
+        t0 = time.perf_counter()
+        for b in live:
+            b["proc"].send_signal(signal.SIGTERM)
+        rcs = {b["name"]: b["proc"].wait(120) for b in live}
+        router.stop(drain=True)
+        r["teardown_s"] = time.perf_counter() - t0
+        r["exit_codes"] = rcs
+        open_ports = [u for u in [b["url"] for b in backends] + [router.url] if not _closed(u)]
+        if any(rcs.values()) or open_ports:
+            raise AssertionError(f"fleet: exits {rcs}, listeners left {open_ports}:\n"
+                                 + "\n".join(_tail(b["log"], 800) for b in live))
+    finally:
+        if router is not None:
+            router.stop(drain=False)
+        for b in backends:
+            if b["proc"].poll() is None:
+                b["proc"].kill()
+                b["proc"].wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"fleet ({card}): phase 12l done in {r['phase_s']:.1f} s")
+    counts = {"int8_matmul": sum(v["traffic"] for v in r["int8_launches"].values())}
+    return counts, r
+
+
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
@@ -7530,6 +8043,8 @@ def main() -> int:
     gpt_counts, gpt = serve_gpt()
     paged_counts, gpt_paged = serve_gpt_paged()
     spec_counts, gpt_spec = serve_gpt_speculative()
+    torch.cuda.empty_cache()
+    fleet_counts, fleet = serve_fleet(card)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -7546,8 +8061,11 @@ def main() -> int:
         # and the handoff, 12k): none, checked
         k["launches_generation"] = (gpt_counts.get(name, 0) + paged_counts.get(name, 0)
                                     + spec_counts.get(name, 0))
+        # the predict backend processes of the fleet (12l), read from their /statz
+        k["launches_fleet"] = fleet_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
-                         + k["launches_static"] + k["launches_generation"])
+                         + k["launches_static"] + k["launches_generation"]
+                         + k["launches_fleet"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -7556,7 +8074,7 @@ def main() -> int:
                       "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s,
                       "lenet_static": lenet, "bert_lamb": lamb, "lenet_optimizers": lenet_opt,
                       "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
-                      "gpt_speculative_handoff": gpt_spec}))
+                      "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -229,17 +229,16 @@ define_flag("memory_budget_check", "warn",
             "strict (strict rejects over-budget programs and unsafe "
             "donations with the high-water op named)")
 
-# generation/engine.py — speculative decoding. With a draft model (the
-# engine's draft_model=), every decode round runs the draft chain and ONE
-# target verify over draft_k + 1 positions instead of one target step a
-# token; greedy output is token-identical to the plain engine. The name
-# is kept for parity with the JAX flags, where the backend CLI reads it
-# beside --draft-dir; the port has no backend CLI yet, reads this flag
-# nowhere, and speculates whenever an engine is given a draft_model=.
+# serving/backend.py — speculative decoding for a backend process. With a
+# draft model (the engine's draft_model=), every decode round runs the draft
+# chain and ONE target verify over draft_k + 1 positions instead of one
+# target step a token; greedy output is token-identical to the plain engine.
+# The backend CLI reads it beside --draft-dir (as --speculative does); an
+# engine built in-process speculates whenever it is given a draft_model=.
 define_flag("speculative_enabled", False,
-            "kept for parity with the JAX flags; the port ignores it "
-            "(an engine speculates when given draft_model=) until the "
-            "backend CLI's --draft-dir is ported")
+            "backend processes given --draft-dir decode speculatively "
+            "(like --speculative); in-process engines speculate when "
+            "given draft_model=")
 
 # generation/engine.py — proposals per speculative round; engine-wide: k
 # shapes the draft and verify graphs and widens the ring store by k
@@ -255,3 +254,43 @@ define_flag("speculative_draft_k", 4,
 define_flag("backend_kind", "generate",
             "generation backend role: generate | prefill | decode "
             "(disaggregated fleets run distinct prefill/decode tiers)")
+
+# serving/router.py — budget for the prefill leg of a disaggregated
+# /generate (prompt -> KV slab). The decode leg keeps the normal request
+# timeout: prefill is one bounded forward, decode an open-ended generation.
+define_flag("serving_handoff_timeout_s", 30.0,
+            "router timeout for the prefill->slab leg of a "
+            "disaggregated /generate handoff")
+
+# serving/router.py — period of the router's backend prober (GET /healthz +
+# /loadz per backend): the freshness of the load signals and the only way
+# back into rotation for an evicted backend.
+define_flag("serving_router_probe_interval_s", 1.0,
+            "seconds between router health/load probes of each backend; "
+            "also the re-admission latency for a recovered backend")
+
+# serving/router.py — distinct backends one request may be offered before
+# the router answers 503. Only connection failures and admission refusals
+# (503) retry; work a backend answered is never replayed.
+define_flag("serving_router_retries", 3,
+            "max distinct backends tried per routed request before 503 "
+            "(connection failures / admission rejects only)")
+
+# serving/router.py — TCP connect budget per dispatch attempt: a dead
+# backend costs milliseconds, then the next backend is tried.
+define_flag("serving_router_connect_timeout_ms", 1000.0,
+            "router->backend TCP connect timeout per attempt in ms")
+
+# serving/router.py — budget for one proxied request once a backend has it
+# (its queueing and dispatch there).
+define_flag("serving_router_request_timeout_s", 120.0,
+            "router->backend response timeout once a request is "
+            "dispatched (seconds)")
+
+# monitor/registry.py — per-family bound on labeled children: past it every
+# new label set collapses into the shared "other" series, so an unbounded
+# dimension (a hostile tenant header) cannot grow the registry. Read at
+# labels() time, so set_flags applies to live families.
+define_flag("metrics_max_series", 64,
+            "max distinct label sets per metric family before new sets "
+            "collapse into the shared 'other' overflow series")

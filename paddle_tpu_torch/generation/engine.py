@@ -68,9 +68,11 @@ in ``runtime/compiled.py`` stores (``prefill``, ``decode``, ``draft``,
   prefill and decode write the same cache.
 
 On the CPU (``device="cpu"``) the same bodies run eagerly at every call.
-The JAX engine's registry gauges, ``spec_*`` counters and flight events
-wait for the monitor (ROADMAP.md Queue A item 10); the accounting behind
-them is here (:meth:`GenerationEngine.paging_stats`,
+A speculative round bumps the registry's ``generation/spec_rounds_total``,
+``spec_proposed_total`` and ``spec_accepted_total``, and a capture after
+warmup ``serving/gen_unexpected_compiles``, as the JAX engine does. Its
+registry gauges and flight events wait for ROADMAP.md Queue A item 10; the
+accounting behind them is here (:meth:`GenerationEngine.paging_stats`,
 :meth:`GenerationEngine.spec_stats`).
 """
 from __future__ import annotations
@@ -88,6 +90,7 @@ from ..device import resolve_device
 from ..errors import EnforceNotMet, InvalidArgumentError, PreconditionNotMetError
 from ..flags import flag
 from ..framework.jit import _captures, _first_run, _set_precision
+from ..monitor import counter
 from ..runtime.compiled import CompileWatch, GraphStore, precision_key
 from ..serving.batcher import parse_buckets
 from . import cache as _cache
@@ -238,7 +241,7 @@ class GenerationEngine:
                         for label in ("prefill", "decode", "draft", "verify")}
         self._instance = next(_instances)
         self.warmed = False
-        self.watch = CompileWatch(self.compile_count)
+        self.watch = CompileWatch(self.compile_count, metric="serving/gen_unexpected_compiles")
 
     def _check_draft(self, draft, cfg):
         """The JAX engine's draft checks: ``draft_k >= 1``, the target's
@@ -904,6 +907,9 @@ class GenerationEngine:
                 self._spec_rounds += 1
                 self._spec_proposed += self.draft_k * n_busy
                 self._spec_accepted += accepted
+            counter("generation/spec_rounds_total").inc()
+            counter("generation/spec_proposed_total").inc(self.draft_k * n_busy)
+            counter("generation/spec_accepted_total").inc(accepted)
         return ts, counts
 
     def spec_stats(self) -> dict:

@@ -256,16 +256,19 @@ class CompileWatch:
     """Captures after a warmup (``paddle_tpu/runtime/compiled.py``
     ``CompileWatch``): :meth:`arm` after warmup snapshots ``read()`` (a
     store's ``misses``); any growth after it is an unexpected capture,
-    which :meth:`note` counts into :attr:`noted` and logs, where the JAX
-    package bumps a monitor counter and records a flight event (the port
-    has neither yet). ``note`` is an atomic read-compare-bump: workers
-    that see the same capture count it once."""
+    which :meth:`note` counts into :attr:`noted` and the registry counter
+    ``metric`` and logs (the JAX package also records a flight event; the
+    port has no flight recorder yet). ``note`` is an atomic
+    read-compare-bump: workers that see the same capture count it once."""
 
-    def __init__(self, read):
+    def __init__(self, read, metric="serving/unexpected_compiles"):
+        from ..monitor import counter
+
         self._read = read
         self._baseline = None
         self._seen = 0
         self.noted = 0
+        self._metric = counter(metric)
         self._lock = threading.Lock()
 
     def arm(self):
@@ -293,4 +296,5 @@ class CompileWatch:
                 return
             self._seen = extra
             self.noted += grew
+            self._metric.inc(grew)
         _log.warning("unexpected graph capture after warmup (%d in all): %s", extra, fields)

@@ -13,7 +13,10 @@
   are computed and dropped.
 
 On the card the bucket ladder bounds the batch shapes the kernels see.
-The counters in :attr:`DynamicBatcher.stats` feed ``/statz``.
+The counters in :attr:`DynamicBatcher.stats` feed ``/statz``; the JAX
+package's registry metrics (``serving/queue_ms``, ``assemble_ms`` and
+``e2e_ms``, labeled by kind, bucket and tenant, and the ``serving/*_total``
+counters) feed ``/loadz``, ``/histz`` and ``/metrics``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from ..errors import (
     UnavailableError,
 )
 from ..flags import flag
+from ..monitor import counter, gauge, histogram
 
 __all__ = ["DynamicBatcher", "QueueFullError", "DeadlineExceededError",
            "ServingClosedError", "parse_buckets"]
@@ -67,13 +71,15 @@ def parse_buckets(spec) -> tuple:
 class _Request:
     """One submitted prediction and the event its submitter waits on."""
 
-    __slots__ = ("inputs", "rows", "deadline", "t_submit", "result", "error", "_done")
+    __slots__ = ("inputs", "rows", "deadline", "t_submit", "tenant", "result", "error",
+                 "_done")
 
-    def __init__(self, inputs, rows, deadline, t_submit):
+    def __init__(self, inputs, rows, deadline, t_submit, tenant="default"):
         self.inputs = inputs
         self.rows = rows
         self.deadline = deadline  # absolute monotonic seconds, or None
         self.t_submit = t_submit
+        self.tenant = tenant  # a label of the stage histograms
         self.result = None
         self.error = None
         self._done = threading.Event()
@@ -98,13 +104,14 @@ class _Request:
 class _Batch:
     """An assembled, padded batch ready for one replica dispatch."""
 
-    __slots__ = ("requests", "bucket", "rows", "feed")
+    __slots__ = ("requests", "bucket", "rows", "feed", "t_ready")
 
-    def __init__(self, requests, bucket, rows, feed):
+    def __init__(self, requests, bucket, rows, feed, t_ready):
         self.requests = requests
         self.bucket = bucket  # padded batch-axis size (a ladder entry)
         self.rows = rows      # real rows (sum over requests)
         self.feed = feed      # name -> padded (bucket, *feature) array
+        self.t_ready = t_ready  # monotonic seconds when assembled
 
 
 class DynamicBatcher:
@@ -135,11 +142,30 @@ class DynamicBatcher:
         #: counters read by /statz (written under the lock)
         self.stats = {"requests": 0, "rejected": 0, "expired": 0, "responses": 0,
                       "errors": 0, "batches": 0, "rows": 0, "slots": 0, "last_fill": 0.0}
+        # the process registry's series (JAX names): /loadz, /histz, /metrics
+        self._m_depth = gauge("serving/queue_depth")
+        self._m_fill = gauge("serving/batch_fill")
+        self._m_requests = counter("serving/requests_total")
+        self._m_rejected = counter("serving/rejected_total")
+        self._m_expired = counter("serving/deadline_expired_total")
+        self._m_responses = counter("serving/responses_total")
+        self._m_errors = counter("serving/errors_total")
+        self._m_batches = counter("serving/batches_total")
+        self._m_rows = counter("serving/batched_rows_total")
+        self._m_slots = counter("serving/batch_slots_total")
+        self._m_pad = counter("serving/padded_rows_total")
+        self._h_queue = histogram("serving/queue_ms")
+        self._h_assemble = histogram("serving/assemble_ms")
+        self._h_e2e = histogram("serving/e2e_ms")
 
     def _count(self, **inc):
         with self._lock:
             for k, v in inc.items():
                 self.stats[k] += v
+        if "errors" in inc:
+            self._m_errors.inc(inc["errors"])
+        if "responses" in inc:
+            self._m_responses.inc(inc["responses"])
 
     @property
     def max_batch(self) -> int:
@@ -190,11 +216,12 @@ class DynamicBatcher:
 
     # -- client side ---------------------------------------------------------
 
-    def submit(self, inputs, deadline_ms=None) -> _Request:
+    def submit(self, inputs, deadline_ms=None, tenant=None) -> _Request:
         """Enqueue one request (feed name -> array with a leading batch
         axis) and return its handle; ``wait()`` on it. Raises
         :class:`QueueFullError` on a full queue and
-        :class:`ServingClosedError` after ``close()``."""
+        :class:`ServingClosedError` after ``close()``. ``tenant`` labels the
+        request's series of the stage histograms ("default" when unset)."""
         inputs = {n: np.asarray(v) for n, v in inputs.items()}
         rows = self._validate(inputs)
         if deadline_ms is None:
@@ -202,18 +229,22 @@ class DynamicBatcher:
             deadline_ms = d if d > 0 else None
         now = time.monotonic()
         deadline = now + float(deadline_ms) / 1e3 if deadline_ms is not None else None
-        req = _Request(inputs, rows, deadline, now)
+        req = _Request(inputs, rows, deadline, now,
+                       tenant="default" if tenant is None else str(tenant))
         with self._lock:
             if self._closed:
                 raise ServingClosedError("serving batcher is shut down; no new requests")
             if len(self._q) >= self.queue_capacity:
                 self.stats["rejected"] += 1
+                self._m_rejected.inc()
                 raise QueueFullError(
                     f"serving queue full ({self.queue_capacity} requests queued); "
                     "backpressure — retry with backoff")
             self._q.append(req)
+            self._m_depth.set(len(self._q))
             self.stats["requests"] += 1
             self._not_empty.notify()
+        self._m_requests.inc()
         return req
 
     # -- worker side ---------------------------------------------------------
@@ -223,6 +254,8 @@ class DynamicBatcher:
         while self._q and self._q[0].expired(now):
             req = self._q.popleft()
             self.stats["expired"] += 1
+            self._m_expired.inc()
+            self._m_depth.set(len(self._q))
             req.done(error=DeadlineExceededError(
                 f"request deadline passed after {(now - req.t_submit) * 1e3:.1f}ms in queue; "
                 "never dispatched"))
@@ -241,6 +274,7 @@ class DynamicBatcher:
                     self._pop_expired_locked(now)
                     if self._q:
                         first = self._q.popleft()
+                        self._m_depth.set(len(self._q))
                         break
                     if self._closed:
                         return None  # closed and fully drained
@@ -254,6 +288,7 @@ class DynamicBatcher:
                 else:
                     self._not_empty.wait()
 
+            t_first = time.monotonic()
             picked = [first]
             rows = first.rows
             window_end = time.monotonic() + self._batch_window_s()
@@ -265,6 +300,7 @@ class DynamicBatcher:
                     if rows + nxt.rows > self.max_batch:
                         break  # the next request would not fit: dispatch now
                     self._q.popleft()
+                    self._m_depth.set(len(self._q))
                     picked.append(nxt)
                     rows += nxt.rows
                     continue
@@ -278,15 +314,21 @@ class DynamicBatcher:
         # concatenation and padding outside the lock; a failure here fails
         # these requests and keeps the worker alive
         try:
-            return self._assemble(picked, rows)
+            return self._assemble(picked, rows, t_first)
         except Exception as e:  # noqa: BLE001 — workers must survive
             for req in picked:
                 req.done(error=e)
             self._count(errors=len(picked))
             return None
 
-    def _assemble(self, picked, rows):
+    def _assemble(self, picked, rows, t_first):
+        now = time.monotonic()
         bucket = next(b for b in self.buckets if b >= rows)
+        for req in picked:
+            # the labeled child propagates into the bare family, so /histz
+            # keeps exact totals
+            self._h_queue.labels(kind="predict", bucket=str(bucket), tenant=req.tenant).observe(
+                (now - req.t_submit) * 1e3)
         feed = {}
         for n in self.feed_names:
             arr = (picked[0].inputs[n] if len(picked) == 1
@@ -300,16 +342,26 @@ class DynamicBatcher:
             self.stats["rows"] += rows
             self.stats["slots"] += bucket
             self.stats["last_fill"] = rows / bucket
-        return _Batch(picked, bucket, rows, feed)
+        t_ready = time.monotonic()
+        self._h_assemble.observe((t_ready - t_first) * 1e3)
+        self._m_batches.inc()
+        self._m_rows.inc(rows)
+        self._m_slots.inc(bucket)
+        self._m_pad.inc(bucket - rows)
+        self._m_fill.set(rows / bucket)
+        return _Batch(picked, bucket, rows, feed, t_ready)
 
     def complete(self, batch, outputs):
         """Slice the padded per-fetch ``outputs`` back per request and
         complete each one; padding rows are dropped here."""
+        now = time.monotonic()
         outs = [np.asarray(o) for o in outputs]
         offset = 0
         for req in batch.requests:
             req.done(result=[o[offset:offset + req.rows] for o in outs])
             offset += req.rows
+            self._h_e2e.labels(kind="predict", bucket=str(batch.bucket),
+                               tenant=req.tenant).observe((now - req.t_submit) * 1e3)
         self._count(responses=len(batch.requests))
 
     def fail(self, batch, error):
@@ -344,6 +396,7 @@ class DynamicBatcher:
             dropped = [] if drain else list(self._q)
             if not drain:
                 self._q.clear()
+                self._m_depth.set(0)
             self._not_empty.notify_all()
         for req in dropped:
             req.done(error=ServingClosedError("serving batcher shut down before dispatch"))

@@ -20,9 +20,12 @@ that vacates a slot (finished, failed, stopped) returns its pages through
 ``engine.release_slot``.
 
 The counters of :attr:`ContinuousBatcher.stats` and the latency samples of
-:meth:`ContinuousBatcher.quantiles` feed ``/statz``; the JAX package's
-monitor registry, tracing spans and flight recorder are not ported (ROADMAP
-Queue A item 10).
+:meth:`ContinuousBatcher.quantiles` feed ``/statz``. The same events feed
+the process registry under the JAX names (``serving/gen_*_total``,
+``serving/gen_token_ms`` labeled by kind, ``gen_ttft_ms`` and
+``gen_e2e_ms`` by kind and tenant), which ``/loadz``, ``/histz`` and
+``/metrics`` read; the JAX package's tracing spans and flight recorder are
+not ported (ROADMAP Queue A item 10).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import numpy as np
 from ..errors import ExecutionTimeoutError, InvalidArgumentError
 from ..flags import flag
 from ..generation.handoff import PageSlab
+from ..monitor import counter, gauge, histogram
 from .batcher import DeadlineExceededError, QueueFullError, ServingClosedError
 
 __all__ = ["ContinuousBatcher", "GenerationRequest"]
@@ -122,15 +126,30 @@ class ContinuousBatcher:
         self.stats = {"requests": 0, "responses": 0, "rejected": 0, "expired": 0, "errors": 0,
                       "tokens": 0, "midbatch_admissions": 0}
         self._latency = {name: deque(maxlen=_SAMPLES) for name in ("token", "ttft", "e2e")}
+        # the process registry's series (JAX names), keyed like self.stats
+        self._m = {k: counter(f"serving/gen_{m}_total") for k, m in (
+            ("requests", "requests"), ("responses", "responses"), ("rejected", "rejected"),
+            ("expired", "expired"), ("errors", "errors"), ("tokens", "tokens"),
+            ("midbatch_admissions", "midbatch_admissions"))}
+        self._m_depth = gauge("serving/gen_queue_depth")
+        self._m_busy = gauge("serving/gen_slots_busy")
+        self._h = {name: histogram(f"serving/gen_{name}_ms") for name in ("token", "ttft", "e2e")}
 
     def _count(self, **inc):
         with self._lock:
             for k, v in inc.items():
                 self.stats[k] += v
+        for k, v in inc.items():
+            self._m[k].inc(v)
 
-    def _observe(self, name, ms):
+    def _observe(self, name, ms, tenant=None):
+        """A latency sample for ``/statz`` and the registry's histogram,
+        labeled by kind (and tenant, except the per-step ``token``: one step
+        serves slots of several tenants)."""
         with self._lock:
             self._latency[name].append(ms)
+        dims = {"kind": self.kind} if tenant is None else {"kind": self.kind, "tenant": tenant}
+        self._h[name].labels(**dims).observe(ms)
 
     def quantiles(self, name):
         """``{"p50_ms", "p99_ms", "count"}`` of the ``token`` (a decode
@@ -187,11 +206,14 @@ class ContinuousBatcher:
                 raise ServingClosedError("generation scheduler is shut down; no new requests")
             if len(self._q) >= self.queue_capacity:
                 self.stats["rejected"] += 1
+                self._m["rejected"].inc()
                 raise QueueFullError(f"generation queue full ({self.queue_capacity} requests "
                                      "queued); backpressure — retry with backoff")
             self._q.append(req)
+            self._m_depth.set(len(self._q))
             self.stats["requests"] += 1
             self._not_empty.notify()
+        self._m["requests"].inc()
         return req
 
     def _handoff_request(self, length, first_token, max_new_tokens, temperature, deadline_ms,
@@ -267,6 +289,8 @@ class ContinuousBatcher:
         while self._q and self._q[0].expired(now):
             req = self._q.popleft()
             self.stats["expired"] += 1
+            self._m["expired"].inc()
+            self._m_depth.set(len(self._q))
             req.done(error=DeadlineExceededError(
                 f"generation deadline passed after {(now - req.t_submit) * 1e3:.1f}ms in "
                 "queue; never admitted to a slot"))
@@ -289,7 +313,7 @@ class ContinuousBatcher:
 
     def _complete(self, req, reason):
         req.finish_reason = reason
-        self._observe("e2e", (self._clock() - req.t_submit) * 1e3)
+        self._observe("e2e", (self._clock() - req.t_submit) * 1e3, req.tenant)
         self._count(responses=1)
         req.done()
 
@@ -314,6 +338,7 @@ class ContinuousBatcher:
                         head.prompt if head.handoff is None else head.prompt_len):
                     return
                 req = self._q.popleft()
+                self._m_depth.set(len(self._q))
             midbatch = self.live_slots > 0
             try:
                 if isinstance(req.handoff, PageSlab):
@@ -337,13 +362,14 @@ class ContinuousBatcher:
                     # stop(drain=False) landed between the queue pop and the
                     # slot install: the request was promised a failure
                     self.stats["errors"] += 1
+                    self._m["errors"].inc()
                     engine.release_slot(free)
                     req.done(error=ServingClosedError(
                         "generation scheduler shut down before the request reached a "
                         "decode slot"))
                     continue
             req.t_first_token = self._clock()
-            self._observe("ttft", (req.t_first_token - req.t_submit) * 1e3)
+            self._observe("ttft", (req.t_first_token - req.t_submit) * 1e3, req.tenant)
             if midbatch:
                 self._count(midbatch_admissions=1)
             self._deliver(req, tok)
@@ -353,6 +379,7 @@ class ContinuousBatcher:
                 self._complete(req, reason)
                 continue
             self._slots[free] = req
+            self._m_busy.set(self.live_slots)
             self._last[free] = tok
             self._temps[free] = (engine.default_temperature if req.temperature is None
                                  else float(req.temperature))
@@ -410,6 +437,8 @@ class ContinuousBatcher:
             # round's spread over the tokens each busy stream emitted
             self._observe("token", dt_ms * len(busy) / emitted
                           if engine.speculative and emitted else dt_ms)
+            self._m_busy.set(self.live_slots)
+        self._m_busy.set(self.live_slots)
 
     # -- lifecycle ---------------------------------------------------------------
 
@@ -426,6 +455,7 @@ class ContinuousBatcher:
             if not drain:
                 dropped = list(self._q)
                 self._q.clear()
+                self._m_depth.set(0)
             self._not_empty.notify_all()
         for req in dropped:
             self._count(errors=1)
@@ -450,12 +480,14 @@ class ContinuousBatcher:
         with self._lock:
             dropped = list(self._q)
             self._q.clear()
+        self._m_depth.set(0)
         for s, req in enumerate(self._slots):
             if req is not None:
                 self._slots[s] = None
                 self.engine.release_slot(s)
                 if not req.finished:
                     dropped.append(req)
+        self._m_busy.set(0)
         for req in dropped:
             if not req.finished:
                 self._count(errors=1)

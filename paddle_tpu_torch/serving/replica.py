@@ -8,17 +8,21 @@ traffic, which on the card captures that bucket's graph, then arms a
 :class:`~paddle_tpu_torch.runtime.compiled.CompileWatch` over the
 predictor's store: a capture after warmup (a feed off the bucket ladder, a
 program or weight replaced) is counted as unexpected
-(:meth:`ReplicaPool.extra_compiles`, ``/statz`` ``compiles``).
-``/healthz`` gates on warmup.
+(:meth:`ReplicaPool.extra_compiles`, ``/statz`` ``compiles``, the
+``serving/unexpected_compiles`` counter that ``/loadz`` reads). Each
+dispatch's time observes ``serving/dispatch_ms``. ``/healthz`` gates on
+warmup.
 """
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 
 from ..errors import InvalidArgumentError
 from ..flags import flag
+from ..monitor import histogram
 from ..runtime.compiled import CompileWatch
 
 __all__ = ["ReplicaPool", "predictor_input_specs"]
@@ -60,8 +64,9 @@ class ReplicaPool:
         self._live = threading.Event()  # cleared = paused
         self._live.set()
         self.warmed = False
-        store = predictor.store  # the clones share it
+        self._store = store = predictor.store  # the clones share it
         self._watch = CompileWatch(lambda: store.misses)
+        self._h_dispatch = histogram("serving/dispatch_ms")
 
     def _synthetic_feed(self, bucket):
         return {name: np.zeros((bucket,) + feat, dtype=dtype)
@@ -85,6 +90,11 @@ class ReplicaPool:
     def extra_compiles(self) -> int:
         """Captures since warmup: steady-state serving keeps this 0."""
         return self._watch.extra()
+
+    def captures(self) -> int:
+        """Graphs the shared store has captured, warmup included (``/loadz``
+        ``jit_misses``)."""
+        return self._store.misses
 
     def unexpected_compiles(self) -> int:
         """Captures after warmup that the workers noted."""
@@ -118,6 +128,7 @@ class ReplicaPool:
             except Exception as e:  # noqa: BLE001 — the worker must survive
                 batcher.fail(batch, e)
                 continue
+            self._h_dispatch.observe((time.monotonic() - batch.t_ready) * 1e3)
             if self.warmed:
                 self._note_unexpected_compiles(idx, batch.bucket)
             batcher.complete(batch, outs)

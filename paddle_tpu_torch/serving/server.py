@@ -3,14 +3,27 @@
 Stdlib ``ThreadingHTTPServer``s. :class:`InferenceServer` exposes:
 
 - ``POST /predict`` — JSON ``{"inputs": {feed: nested list}, "deadline_ms":
-  optional}`` through the dynamic batcher; answers ``{"outputs": {fetch:
-  nested list}, "rows": n}``. **429** queue full, **504** deadline passed
-  in the queue, **400** malformed request, **503** draining or not ready.
+  optional, "tenant": optional}`` through the dynamic batcher; answers
+  ``{"outputs": {fetch: nested list}, "rows": n}``. **429** queue full,
+  **504** deadline passed in the queue, **400** malformed request, **503**
+  draining or not ready.
 - ``GET /healthz`` — readiness: 200 once every bucket has run (warmup) and
   the server is not draining; 503 otherwise.
 - ``GET /statz`` — queue depth, batch fill, request counters, the kernel
   launch counts and ``compiles``: the buckets and the unexpected graph
   captures after warmup.
+
+Both servers also serve the fleet's machine-oriented routes, which the
+router (:mod:`~paddle_tpu_torch.serving.router`) probes and merges:
+
+- ``GET /loadz`` — the load signal of :data:`LOADZ_SCHEMA_VERSION`, the
+  JAX package's keys exactly.
+- ``GET /histz`` — snapshots of every ``serving/*`` histogram of the
+  process registry (bounds, per-bucket counts, sum, count), which merge
+  exactly across backends of either package.
+- ``GET /metrics`` — the registry as Prometheus text; ``GET /metricz`` the
+  same, or ``{"metrics": registry_snapshot()}`` with ``?format=snapshot``
+  (what the router's prober scrapes for ``/fleetz``).
 
 :class:`GenerationServer` (``:740-1358``) serves a causal LM through a
 :class:`~paddle_tpu_torch.serving.continuous.ContinuousBatcher` over a
@@ -37,8 +50,12 @@ answered as ``/generate`` answers, streamed when the request asked). A path
 of another kind answers 404 naming the kind. Every kind serves ``POST
 /prefix_known`` (``{"hashes": [...]}`` -> the ones its prefix index holds).
 
-The JAX package's other routes (``/metrics``, ``/loadz``, ``/tracez``, ...)
-and its router wait for ROADMAP Queue A items 8 and 3 (entry 5).
+A prefill tier admits 4 exports at once, as the JAX tier does: the
+engine's lock serializes the device forward and the copy to the host, and
+the admitted exports pack their slabs and answer concurrently.
+
+The JAX package's ``/tracez``, ``/profilez`` and ``/sloz`` wait for ROADMAP
+Queue A item 10.
 
 ``stop(drain=True)`` refuses new work (503), flushes what is queued, answers
 the waiting handlers, then closes.
@@ -50,18 +67,57 @@ import queue as _queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
 from ..errors import InvalidArgumentError
 from ..flags import flag
 from ..generation import handoff as _handoff
+from ..monitor import (
+    PROMETHEUS_CONTENT_TYPE,
+    all_metrics,
+    counter,
+    prometheus_text,
+    registry_snapshot,
+)
 from ..ops.cuda import launch_counts
 from .batcher import DeadlineExceededError, DynamicBatcher, QueueFullError, ServingClosedError
 from .continuous import ContinuousBatcher
 from .replica import ReplicaPool
 
-__all__ = ["InferenceServer", "GenerationServer"]
+__all__ = ["InferenceServer", "GenerationServer", "LOADZ_SCHEMA_VERSION"]
+
+#: The load-signal schema of ``GET /loadz`` (``paddle_tpu/serving/server.py``),
+#: which the router probes instead of ``/statz``. Fields are only ever
+#: added, and an addition bumps the version. Every backend kind serves
+#: exactly these keys:
+#:
+#: - ``schema``      int   — schema version (currently 1)
+#: - ``kind``        str   — "predict" | "generate" | "prefill" | "decode"
+#:                            (the routes the router may send here)
+#: - ``ready``       bool  — warmed AND not draining (admission works)
+#: - ``draining``    bool  — shutdown in progress; admissions get 503
+#: - ``queue_depth`` int   — requests waiting for a batch, a slot or an
+#:                            export
+#: - ``queue_capacity`` int
+#: - ``load``        float — queue_depth / queue_capacity
+#: - ``mean_fill``   float|None — predict: batch-slot utilization
+#: - ``slot_occupancy`` float|None — generation kinds: busy share of the
+#:                            decode slots, or of a prefill tier's exports
+#: - ``compiles``    {"expected": int, "unexpected": int,
+#:                    "jit_misses": int} — per-process graph accounting
+LOADZ_SCHEMA_VERSION = 1
+
+#: exports a prefill tier admits at once (``paddle_tpu/serving/server.py``)
+PREFILL_CONCURRENCY = 4
+
+
+def _histz_payload() -> dict:
+    """``GET /histz``: the snapshot of every ``serving/*`` histogram of this
+    process, the feed of the router's exact cross-backend quantiles."""
+    return {"histograms": {name: m.snapshot() for name, m in all_metrics().items()
+                           if m.kind == "histogram" and name.startswith("serving/")}}
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -77,6 +133,10 @@ class _BaseHandler(BaseHTTPRequestHandler):
 
     server_version = "ptt-serving/1"
     protocol_version = "HTTP/1.1"  # every reply has a Content-Length (or is chunked)
+    # a reply is written as headers, then body: with Nagle's algorithm on, the
+    # body waits for the peer's delayed ACK of the headers (tens of ms a
+    # reply on a kept-alive connection, as the router's to its backends are)
+    disable_nagle_algorithm = True
 
     def log_message(self, *args):  # no per-request stderr lines
         pass
@@ -85,10 +145,11 @@ class _BaseHandler(BaseHTTPRequestHandler):
     def _srv(self):
         return self.server.inference_server
 
-    def _reply(self, status, payload):
-        data = json.dumps(payload).encode("utf-8")
+    def _reply(self, status, payload, ctype="application/json"):
+        body = payload if isinstance(payload, str) else json.dumps(payload)
+        data = body.encode("utf-8")
         self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=utf-8")
+        self.send_header("Content-Type", f"{ctype}; charset=utf-8")
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         try:
@@ -98,7 +159,7 @@ class _BaseHandler(BaseHTTPRequestHandler):
 
     def _reply_raw(self, status, data, ctype):
         self.send_response(status)
-        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Type", ctype or "application/json")
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         try:
@@ -124,6 +185,31 @@ class _BaseHandler(BaseHTTPRequestHandler):
             return False
         return True
 
+    def _get_common(self, path) -> bool:
+        """Serve the GET routes every server and the router share; True
+        when ``path`` was one of them."""
+        srv = self._srv
+        if path == "/healthz":
+            self._reply(200 if srv.ready else 503, srv.healthz())
+        elif path == "/statz":
+            self._reply(200, srv.statz())
+        elif path == "/loadz":
+            self._reply(200, srv.loadz())
+        elif path == "/histz":
+            self._reply(200, _histz_payload())
+        elif path == "/metrics":
+            self._reply(200, prometheus_text(), PROMETHEUS_CONTENT_TYPE)
+        elif path == "/metricz":
+            # Prometheus text by default; the snapshot is the router's feed
+            query = parse_qs(urlsplit(self.path).query)
+            if query.get("format", [""])[-1] == "snapshot":
+                self._reply(200, {"metrics": registry_snapshot()})
+            else:
+                self._reply_raw(200, prometheus_text().encode("utf-8"), PROMETHEUS_CONTENT_TYPE)
+        else:
+            return False
+        return True
+
     def _try_submit(self, fn):
         """Run an admission call, mapping the backpressure contract onto
         statuses: full queue 429, draining/closed 503, malformed 400. The
@@ -142,14 +228,12 @@ class _BaseHandler(BaseHTTPRequestHandler):
 class _ServingHandler(_BaseHandler):
     def do_GET(self):
         path = self.path.split("?", 1)[0].rstrip("/") or "/"
-        srv = self._srv
-        if path == "/healthz":
-            self._reply(200 if srv.ready else 503, srv.healthz())
-        elif path == "/statz":
-            self._reply(200, srv.statz())
-        elif path == "/":
+        if self._get_common(path):
+            return
+        if path == "/":
             self._reply(200, {"service": "paddle_tpu_torch serving",
-                              "routes": ["/predict (POST)", "/healthz", "/statz"]})
+                              "routes": ["/predict (POST)", "/healthz", "/statz", "/loadz",
+                                         "/histz", "/metrics", "/metricz"]})
         else:
             self._reply(404, {"error": f"unknown path {path!r}"})
 
@@ -176,10 +260,12 @@ class _ServingHandler(_BaseHandler):
             deadline_ms = body.get("deadline_ms")
             if deadline_ms is not None:
                 deadline_ms = float(deadline_ms)
+            tenant = body.get("tenant")
         except (ValueError, TypeError, InvalidArgumentError) as e:
             self._reply(400, {"error": str(e)})
             return
-        req = self._try_submit(lambda: srv.batcher.submit(inputs, deadline_ms=deadline_ms))
+        req = self._try_submit(lambda: srv.batcher.submit(inputs, deadline_ms=deadline_ms,
+                                                          tenant=tenant))
         if req is None:
             return
         try:
@@ -242,6 +328,9 @@ class InferenceServer:
         self._t0 = time.monotonic()
         self.draining = False
         self._stopped = False
+        from . import _register_live
+
+        _register_live(self)
 
     @property
     def url(self) -> str:
@@ -294,6 +383,31 @@ class InferenceServer:
             "queue_capacity": self.batcher.queue_capacity,
         }
 
+    def loadz(self) -> dict:
+        """The router's load signal (:data:`LOADZ_SCHEMA_VERSION`), from
+        counter reads alone. ``compiles``: ``expected`` the buckets,
+        ``unexpected`` the graph captures after warmup
+        (``serving/unexpected_compiles``), ``jit_misses`` every capture of
+        the predictor's store, the port's analog of the JAX package's jit
+        misses (the CPU captures none)."""
+        rows = counter("serving/batched_rows_total").value
+        slots = counter("serving/batch_slots_total").value
+        depth = self.batcher.queue_depth()
+        return {
+            "schema": LOADZ_SCHEMA_VERSION,
+            "kind": "predict",
+            "ready": self.ready,
+            "draining": self.draining,
+            "queue_depth": depth,
+            "queue_capacity": self.batcher.queue_capacity,
+            "load": round(depth / self.batcher.queue_capacity, 4),
+            "mean_fill": round(rows / slots, 4) if slots else None,
+            "slot_occupancy": None,
+            "compiles": {"expected": len(self.batcher.buckets),
+                         "unexpected": counter("serving/unexpected_compiles").value,
+                         "jit_misses": self.pool.captures()},
+        }
+
     def statz(self) -> dict:
         s = dict(self.batcher.stats)
         return {
@@ -320,14 +434,13 @@ class _GenerationHandler(_BaseHandler):
     def do_GET(self):
         path = self.path.split("?", 1)[0].rstrip("/") or "/"
         srv = self._srv
-        if path == "/healthz":
-            self._reply(200 if srv.ready else 503, srv.healthz())
-        elif path == "/statz":
-            self._reply(200, srv.statz())
-        elif path == "/":
+        if self._get_common(path):
+            return
+        if path == "/":
             self._reply(200, {"service": "paddle_tpu_torch generation", "kind": srv.kind,
                               "routes": [f"{_KIND_ROUTES[srv.kind]} (POST)",
-                                         "/prefix_known (POST)", "/healthz", "/statz"]})
+                                         "/prefix_known (POST)", "/healthz", "/statz", "/loadz",
+                                         "/histz", "/metrics", "/metricz"]})
         else:
             self._reply(404, {"error": f"unknown path {path!r}"})
 
@@ -579,10 +692,12 @@ class GenerationServer:
     ``kind`` is the backend's role: ``generate`` serves ``/generate``;
     ``prefill`` serves ``/prefill``, runs no decode loop and holds no decode
     cache after warmup; ``decode`` serves ``/generate_kv``. Each warms
-    exactly ``engine.expected_compiles(kind)`` graphs. A prefill tier's
-    exports write one persistent buffer, so they run one at a time on the
-    engine's lock; ``/statz`` ``prefill`` counts the waiting and the
-    running one."""
+    exactly ``engine.expected_compiles(kind)`` graphs. A prefill tier admits
+    :data:`PREFILL_CONCURRENCY` exports at once; the engine's lock runs
+    their forwards and copies to the host one at a time (they write one
+    persistent buffer), and the admitted ones pack and answer concurrently.
+    ``/statz`` ``prefill`` and ``/loadz`` count the waiting and the
+    admitted."""
 
     def __init__(self, model_or_engine, port=0, host="127.0.0.1", slots=None, cache_len=None,
                  prefill_buckets=None, queue_capacity=None, max_new_tokens=None,
@@ -618,9 +733,9 @@ class GenerationServer:
                 device=device)
         self.scheduler = ContinuousBatcher(self.engine, queue_capacity=queue_capacity,
                                            kind=self.kind)
-        # a prefill tier's exports, one at a time: the waiting and running
-        # counts are its /statz pressure
-        self._prefill_lock = threading.Lock()
+        # a prefill tier's exports, PREFILL_CONCURRENCY at once: the waiting
+        # and admitted counts are its /loadz and /statz pressure
+        self._prefill_sem = threading.BoundedSemaphore(PREFILL_CONCURRENCY)
         self._prefill_count_lock = threading.Lock()
         self._prefill_waiting = self._prefill_active = 0
         self.request_timeout_s = request_timeout_s
@@ -632,6 +747,9 @@ class GenerationServer:
         self._t0 = time.monotonic()
         self.draining = False
         self._stopped = False
+        from . import _register_live
+
+        _register_live(self)
 
     @property
     def url(self) -> str:
@@ -659,20 +777,24 @@ class GenerationServer:
         return self
 
     def _exporting(self, fn):
-        """``fn()`` (an export) once no other export runs, counted as
-        waiting, then as running."""
+        """``fn()`` (an export) once fewer than :data:`PREFILL_CONCURRENCY`
+        run, counted as waiting, then as running. A capture after warmup
+        is noted (a prefill tier has no decode loop to note it)."""
         if self.draining:
             raise ServingClosedError("prefill backend draining")
         with self._prefill_count_lock:
             self._prefill_waiting += 1
         running = False
         try:
-            with self._prefill_lock:
+            with self._prefill_sem:
                 with self._prefill_count_lock:
                     self._prefill_waiting -= 1
                     self._prefill_active += 1
                     running = True
-                return fn()
+                out = fn()
+                if self.engine.watch.armed:
+                    self.engine.watch.note(kind=self.kind)
+                return out
         finally:
             with self._prefill_count_lock:
                 if running:
@@ -730,6 +852,38 @@ class GenerationServer:
             "queue_capacity": self.scheduler.queue_capacity,
         }
 
+    def loadz(self) -> dict:
+        """The router's load signal (:data:`LOADZ_SCHEMA_VERSION`). On a
+        prefill tier ``queue_depth`` is the exports waiting and
+        ``slot_occupancy`` the running ones over the concurrency; on the
+        other kinds the slot queue and the busy slots. ``compiles``:
+        ``expected`` is ``engine.expected_compiles(kind)``, ``unexpected``
+        the captures after warmup (``serving/gen_unexpected_compiles``),
+        ``jit_misses`` every graph the engine captured, the port's analog of
+        the JAX package's jit misses (the CPU captures none)."""
+        if self.kind == "prefill":
+            with self._prefill_count_lock:
+                depth, active = self._prefill_waiting, self._prefill_active
+            occupancy = round(active / PREFILL_CONCURRENCY, 4)
+        else:
+            depth = self.scheduler.queue_depth()
+            occupancy = round(self.scheduler.occupancy(), 4)
+        cap = self.scheduler.queue_capacity
+        return {
+            "schema": LOADZ_SCHEMA_VERSION,
+            "kind": self.kind,
+            "ready": self.ready,
+            "draining": self.draining,
+            "queue_depth": depth,
+            "queue_capacity": cap,
+            "load": round(depth / cap, 4),
+            "mean_fill": None,
+            "slot_occupancy": occupancy,
+            "compiles": {"expected": self.engine.expected_compiles(self.kind),
+                         "unexpected": counter("serving/gen_unexpected_compiles").value,
+                         "jit_misses": self.engine.compile_count()},
+        }
+
     def statz(self) -> dict:
         e, sched = self.engine, self.scheduler
         s = dict(sched.stats)
@@ -769,5 +923,6 @@ class GenerationServer:
         if self.kind == "prefill":
             with self._prefill_count_lock:
                 out["prefill"] = {"waiting": self._prefill_waiting,
-                                  "active": self._prefill_active, "concurrency": 1}
+                                  "active": self._prefill_active,
+                                  "concurrency": PREFILL_CONCURRENCY}
         return out

@@ -31,7 +31,7 @@ from paddle_tpu.serving import GenerationServer as JServer  # noqa: E402
 
 from paddle_tpu_torch import convert  # noqa: E402
 from paddle_tpu_torch import models as pmodels  # noqa: E402
-from paddle_tpu_torch.errors import InvalidArgumentError, UnimplementedError  # noqa: E402
+from paddle_tpu_torch.errors import InvalidArgumentError  # noqa: E402
 from paddle_tpu_torch.generation import GenerationEngine  # noqa: E402
 from paddle_tpu_torch.serving import (  # noqa: E402
     ContinuousBatcher,
@@ -242,8 +242,11 @@ def test_generate_http_end_to_end(model):
         assert sz["latency"]["token"]["p99_ms"] >= 0
         assert sz["compiles"]["unexpected"] == 0 and sz["compiles"]["expected"] == 3
         assert sz["compiles"]["prefill_buckets"] == len(BUCKETS)
+        metrics = urlopen(srv.url + "/metrics")
+        assert metrics.headers["Content-Type"].startswith("text/plain; version=0.0.4")
+        assert "serving_gen_tokens_total" in metrics.read().decode()
         with pytest.raises(HTTPError) as ei:
-            urlopen(srv.url + "/metrics")
+            urlopen(srv.url + "/tracez")  # tracing is not ported
         assert ei.value.code == 404
     finally:
         srv.stop(drain=False)
@@ -301,8 +304,19 @@ def test_server_kinds_and_engine_kwargs(model):
             assert status == 404 and f"{kind!r}" in json.loads(raw)["error"]
         finally:
             srv.stop(drain=False)
-    with pytest.raises(UnimplementedError, match="entry 5"):
-        Router()
+    # the router fronts a generate-kind server: probed, admitted by kind,
+    # /generate proxied, stopped
+    srv = GenerationServer(_engine(model, slots=1), kind="generate").start()
+    router = Router(backends=[srv.url], probe_interval_s=0.05).start()
+    try:
+        assert router.healthy_count == 1 and router.backend_states()[0].kind == "generate"
+        status, out = _post_json(router.url, {"prompt": [5, 6], "max_new_tokens": 2,
+                                              "temperature": 0.0})
+        assert status == 200 and 1 <= len(out["tokens"]) <= 2
+        assert router.statz()["fleet"]["requests"] >= 1
+    finally:
+        router.stop()
+        srv.stop(drain=False)
     with pytest.raises(InvalidArgumentError):
         GenerationServer(_engine(model, slots=1), kind="train")
     with pytest.raises(InvalidArgumentError, match="ready engine"):

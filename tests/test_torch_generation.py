@@ -40,7 +40,6 @@ from paddle_tpu_torch import models as pmodels  # noqa: E402
 from paddle_tpu_torch.errors import (  # noqa: E402
     InvalidArgumentError,
     PreconditionNotMetError,
-    UnimplementedError,
 )
 from paddle_tpu_torch.generation import engine as pengine  # noqa: E402
 from paddle_tpu_torch.generation import sampling as psampling  # noqa: E402
@@ -354,10 +353,10 @@ def test_memory_planning_matches_the_jax_engine():
 
 
 def test_unported_paths_raise_naming_their_entries(monkeypatch):
-    """Speculative decoding (entry 3) and the handoff (entry 4) run through
-    the calls that raised before they were ported; the router (entry 5)
-    still raises, naming its entry; the int8 and paged caches (entries 1
-    and 2) construct and run, from arguments and from the flags."""
+    """Speculative decoding (entry 3), the handoff (entry 4) and the router
+    (entry 5) run through the calls that raised before they were ported;
+    the int8 and paged caches (entries 1 and 2) construct and run, from
+    arguments and from the flags."""
     from paddle_tpu_torch.generation import PageSlab
     from paddle_tpu_torch.serving import Router
 
@@ -390,8 +389,12 @@ def test_unported_paths_raise_naming_their_entries(monkeypatch):
     assert paged.admit_prefilled_pages(0, pages, n, tok, page_size=4) == tok
     assert isinstance(PageSlab(pages, n, tok, 4, {}), tuple)
     GenerationEngine(pm, **kw).warmup(kind="decode")
-    with pytest.raises(UnimplementedError, match="Queue A item 3, entry 5"):
-        Router()
+    router = Router(probe_interval_s=0.05).start()  # an empty fleet: up, not ready
+    try:
+        assert router.healthz()["ready"] is False and router.healthy_count == 0
+        assert router.loadz()["kind"] == "router"
+    finally:
+        router.stop()
     # the paging surface answers on the ring, as the JAX engine's does
     assert eng.paging_stats() == {"layout": "ring"}
     assert eng.known_page_hashes(["a"]) == set()

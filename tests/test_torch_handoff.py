@@ -20,6 +20,7 @@ import json
 import struct
 import sys
 import threading
+import time
 import zlib
 from urllib.error import HTTPError
 from urllib.request import Request, urlopen
@@ -517,26 +518,30 @@ def test_batcher_handoff_admissions(models):
 
 
 def test_concurrent_exports_run_one_at_a_time(models):
-    """Exports from 12 threads at once (a short switch interval) share the
-    one export buffer: each runs alone, each equals its solo export, and
-    the waiting and running counts return to 0."""
+    """Exports from 12 threads at once: the tier admits
+    ``PREFILL_CONCURRENCY`` of them (the others wait, as ``/loadz`` and
+    ``/statz`` count), the engine's lock runs their forwards one at a time
+    over the one export buffer, each equals its solo export, and the
+    waiting and running counts return to 0."""
+    from paddle_tpu_torch.serving.server import PREFILL_CONCURRENCY
+
     _, pm = models
     srv = GenerationServer(_engine(pm, slots=1), kind="prefill").warmup()
     eng = srv.engine
     prompts = _prompts(12, rng_seed=11)
     solo = [eng.prefill_export(p, 0.0) for p in prompts]
     inside, peak = [0], [0]
-    export = eng.prefill_export
+    dispatch = eng._dispatch
 
     def watched(*args, **kw):
         inside[0] += 1
         peak[0] = max(peak[0], inside[0])
         try:
-            return export(*args, **kw)
+            return dispatch(*args, **kw)
         finally:
             inside[0] -= 1
 
-    eng.prefill_export = watched
+    eng._dispatch = watched
     results = [None] * len(prompts)
 
     def client(i):
@@ -545,20 +550,57 @@ def test_concurrent_exports_run_one_at_a_time(models):
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
-        for t in threads:
-            t.start()
+        with eng._lock:  # hold the forwards until every client has arrived
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 30
+            while srv.loadz()["queue_depth"] < len(prompts) - PREFILL_CONCURRENCY \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+            lz = srv.loadz()
+            held = dict(srv.statz()["prefill"])
         for t in threads:
             t.join(60)
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
+    assert held == {"waiting": len(prompts) - PREFILL_CONCURRENCY,
+                    "active": PREFILL_CONCURRENCY, "concurrency": PREFILL_CONCURRENCY}
+    assert lz["queue_depth"] == len(prompts) - PREFILL_CONCURRENCY
+    assert lz["slot_occupancy"] == 1.0
     assert peak[0] == 1
     for (planes, n, tok), (want, wn, wtok) in zip(results, solo):
         assert (n, tok) == (wn, wtok)
         assert all(np.array_equal(a, b) for a, b in zip(planes, want))
-    assert srv.statz()["prefill"] == {"waiting": 0, "active": 0, "concurrency": 1}
+    assert srv.statz()["prefill"] == {"waiting": 0, "active": 0,
+                                      "concurrency": PREFILL_CONCURRENCY}
     srv.stop()
+
+
+def test_concurrent_prefill_slabs_equal_serial_ones(models):
+    """Slabs answered by 8 concurrent ``/prefill`` requests are byte-equal
+    to the same requests answered one at a time."""
+    _, pm = models
+    srv = GenerationServer(_engine(pm, slots=1), kind="prefill", queue_capacity=4).start()
+    try:
+        bodies = [{"prompt": p, "max_new_tokens": 3, "temperature": 0.0}
+                  for p in _prompts(8, rng_seed=5)]
+        serial = [_post(srv.url + "/prefill", b)[1] for b in bodies]
+        got = [None] * len(bodies)
+
+        def client(i):
+            got[i] = _post(srv.url + "/prefill", bodies[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert [g[0] for g in got] == [200] * len(bodies)
+        assert [g[1] for g in got] == serial
+    finally:
+        srv.stop(drain=False)
 
 
 def _post(url, data, timeout=60):
@@ -594,7 +636,7 @@ def test_prefill_kind_server_routes_and_slab(models):
         assert routes[0] == "/prefill (POST)"
         sz = json.loads(urlopen(srv.url + "/statz").read())
         assert sz["compiles"]["expected"] == len(BUCKETS) and sz["compiles"]["unexpected"] == 0
-        assert sz["prefill"] == {"waiting": 0, "active": 0, "concurrency": 1}
+        assert sz["prefill"] == {"waiting": 0, "active": 0, "concurrency": 4}
         assert sz["generation"]["kv_cache_bytes"] == 0 and srv.scheduler.alive == 0
     finally:
         srv.stop(drain=False)
