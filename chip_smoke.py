@@ -165,6 +165,25 @@ Phases, each fatal on failure:
     parameter and one at the lr moving all, with no new capture; step ms
     captured against eager, images/s, and the forward alone (what each
     grad op's re-run of its forward costs);
+12f2. the PTB-medium LSTM language model (Zaremba et al. 2014: vocabulary
+    10,000, 2 x LSTM 650 over ``scan`` of 35 steps, batch 20, dropout 0.5,
+    weights uniform +-0.05 from a seed, SGD lr 1.0 under a global-norm clip
+    of 5) as a static program (``static.nn.embedding``, ``lstm``,
+    ``dropout``, ``fc``) on a seeded token stream, through the executor's
+    graph: (a) at dropout 0 the first 3 captured losses within 1e-4
+    relative of the CPU interpreter and the parameters after them within
+    1e-5 of their largest entry (an lr-0 control must fail); (b) at
+    dropout 0.5 two replays of the forward on one batch differ, its
+    ``for_test`` clone's do not; (c) the greedy continuation (4 prompts of
+    5 tokens, 20 new) as a ``while_loop`` bounded by ``max_iters`` (a
+    captured masked scan) and unbounded (interpreted, counted in
+    ``store.uncaptured``), tokens equal to a host loop of the one-step
+    program; (d) a captured ``switch_case`` picks each of three branches
+    and a batch norm under ``cond`` moves its statistics only when taken;
+    (e) ``save_persistables`` after step 5, loaded into a fresh scope and
+    executor, gives step 6's loss bit for bit; (f) the captured step
+    against the interpreted one; none of the kernels launched, the phase's
+    seconds;
 12g. BERT-base pretraining under ``Lamb`` (lr 1e-4, decay 0.01, LayerNorm
     weights and biases excluded) at bench's phase 2 under ``auto_cast``
     (O1): its first step at batch 1 at dropout 0, and the loss after it,
@@ -4977,6 +4996,449 @@ def train_lenet_static():
     return counts, r
 
 
+# -- the PTB-medium LSTM language model as a static program (phase 12f2) ------------------
+
+# Zaremba, Sutskever and Vinyals (2014) section 4.1, the medium model (also
+# PaddlePaddle's models/language_model): vocabulary 10,000, 2 LSTM layers of
+# 650, 35 unrolled steps, batch 20, dropout 0.5 after the embedding and each
+# LSTM, weights uniform +-0.05, SGD at lr 1.0 under a global-norm clip of 5
+PTB_VOCAB, PTB_H, PTB_LAYERS, PTB_T, PTB_B = 10000, 650, 2, 35, 20
+PTB_DROPOUT, PTB_INIT, PTB_LR, PTB_CLIP, PTB_SEED = 0.5, 0.05, 1.0, 5.0, 22
+PTB_PARITY_STEPS = 3  # captured steps at dropout 0 held against the CPU interpreter
+PTB_LOSS_RTOL = 1e-4
+PTB_PARAM_RTOL = 1e-5  # of each parameter's largest entry, after the three steps
+PTB_SAVE_AT = 5  # the checkpoint is taken after this step, then step 6 is run twice
+PTB_TIMED = 20  # captured steps at dropout 0.5 timed between CUDA events
+PTB_EAGER_STEPS = 3  # steps of the interpreter run eagerly on the card, timed
+PTB_PROMPTS, PTB_PROMPT_LEN, PTB_NEW = 4, 5, 20
+
+
+def _ptb_lm_layers(static, ops, x, dropout):
+    """Embedding output ``x`` -> the LSTM layers (dropout after each) ->
+    the logits."""
+    x = static.nn.dropout(x, dropout)
+    for _ in range(PTB_LAYERS):
+        x, _ = static.nn.lstm(x, PTB_H)
+        x = static.nn.dropout(x, dropout)
+    return static.nn.fc(x, PTB_VOCAB, num_flatten_dims=2)
+
+
+def _ptb_program(dropout, train=True):
+    """(main, startup, loss) of the LM as a static program, with
+    ``static.optimizer.SGD``'s training ops under the clip when ``train``.
+    Every build names its parameters alike (``param_0`` the embedding,
+    ``param_1``-``param_6`` the LSTMs' ``w_ih``, ``w_hh``, ``b``, ``param_7``
+    and ``param_8`` the output layer)."""
+    from paddle_tpu_torch import ops, static
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm
+
+    main, startup = static.Program(), static.Program()
+    static.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            ids = static.data("ids", [PTB_B, PTB_T], "int64")
+            labels = static.data("labels", [PTB_B, PTB_T, 1], "int64")
+            logits = _ptb_lm_layers(static, ops, static.nn.embedding(ids, [PTB_VOCAB, PTB_H]),
+                                    dropout)
+            loss = ops.mean(ops.softmax_with_cross_entropy(logits, labels))
+            if train:
+                static.optimizer.SGD(PTB_LR, grad_clip=ClipGradByGlobalNorm(PTB_CLIP)).minimize(
+                    loss)
+    finally:
+        static.disable_static()
+    return main, startup, loss
+
+
+def _ptb_step(static, ops, tok, states):
+    """One step of both layers on ``tok`` ``[n]`` (a ``scan`` of length 1
+    each): the next token (``argmax``) and the layers' new ``h``, ``c``."""
+    n = tok.shape[0]
+    x = static.nn.embedding(ops.reshape(tok, [n, 1]), [PTB_VOCAB, PTB_H])
+    new_states = []
+    for k in range(PTB_LAYERS):
+        x, (h, c) = static.nn.lstm(x, PTB_H, init_h=states[2 * k], init_c=states[2 * k + 1])
+        new_states += [h, c]
+    logits = static.nn.fc(x, PTB_VOCAB, num_flatten_dims=2)
+    return ops.reshape(ops.argmax(logits, axis=-1), [n]), new_states
+
+
+def _ptb_greedy_program(bounded):
+    """(main, new tokens) of the greedy continuation: a ``while_loop`` over
+    ``PTB_PROMPT_LEN + PTB_NEW - 1`` steps fed the prompt's tokens, then
+    its own ``argmax``; ``bounded``: ``max_iters`` that trip count (a masked
+    scan, captured), else unbounded (the host reads the predicate)."""
+    from paddle_tpu_torch import ops, static
+
+    n, p = PTB_PROMPTS, PTB_PROMPT_LEN
+    n_iter = p + PTB_NEW - 1
+    main = static.Program()
+    static.enable_static()
+    try:
+        with static.program_guard(main, static.Program()):
+            prompt = static.data("prompt", [n, p], "int64")
+            ppos = np.arange(p, dtype=np.int64)[None, :]
+            opos = np.arange(p - 1, n_iter, dtype=np.int64)[None, :]
+
+            def body(i, tok, out, *states):
+                from_prompt = ops.sum(ops.where(ops.equal(ppos, i), prompt,
+                                                np.zeros((n, p), np.int64)), axis=1)
+                inp = ops.where(ops.less_than(i, np.int64(p)), from_prompt, tok)
+                nxt, new_states = _ptb_step(static, ops, inp, states)
+                out = ops.where(ops.equal(opos, i), ops.reshape(nxt, [n, 1]), out)
+                return [ops.add(i, np.int64(1)), nxt, out] + new_states
+
+            init = ([ops.full([], 0, "int64"), ops.full([n], 0, "int64"),
+                     ops.full([n, PTB_NEW], 0, "int64")]
+                    + [ops.zeros([n, PTB_H], "float32") for _ in range(2 * PTB_LAYERS)])
+            finals = static.nn.while_loop(lambda i, *rest: ops.less_than(i, np.int64(n_iter)),
+                                          body, init, max_iters=n_iter if bounded else None)
+    finally:
+        static.disable_static()
+    return main, finals[2]
+
+
+def _ptb_one_step_program():
+    """(main, feed names, fetches) of one step alone, for the host loop."""
+    from paddle_tpu_torch import ops, static
+
+    main = static.Program()
+    static.enable_static()
+    try:
+        with static.program_guard(main, static.Program()):
+            tok = static.data("tok", [PTB_PROMPTS], "int64")
+            states = [static.data(f"s{k}", [PTB_PROMPTS, PTB_H], "float32")
+                      for k in range(2 * PTB_LAYERS)]
+            nxt, new_states = _ptb_step(static, ops, tok, states)
+    finally:
+        static.disable_static()
+    return main, [nxt] + new_states
+
+
+def _ptb_branch_programs():
+    """A ``switch_case`` over a fed index (three branches) and a batch norm
+    under ``cond``, at the LM's ``[batch, hidden]``."""
+    from paddle_tpu_torch import ops, static
+
+    progs = {}
+    static.enable_static()
+    try:
+        for name in ("switch", "bn"):
+            main, startup = static.Program(), static.Program()
+            with static.program_guard(main, startup):
+                x = static.data("x", [PTB_B, PTB_H], "float32")
+                if name == "switch":
+                    idx = static.data("idx", [], "int64")
+                    out = static.nn.switch_case(idx, {0: lambda: ops.scale(x, 2.0),
+                                                      1: lambda: ops.tanh(x),
+                                                      2: lambda: ops.scale(x, -1.0, 0.5)})
+                else:
+                    pred = static.data("pred", [], "bool")
+                    out = static.nn.cond(pred, lambda: static.nn.batch_norm(x, momentum=0.5),
+                                         lambda: ops.scale(x, 1.0))
+            progs[name] = (main, startup, out)
+    finally:
+        static.disable_static()
+    return progs
+
+
+def _ptb_batches(n):
+    """``n`` batches of a token stream drawn uniformly from the vocabulary
+    with a seed (the PTB text is not in the repository): ids and the next
+    tokens as labels, as numpy."""
+    stream = np.random.RandomState(PTB_SEED).randint(0, PTB_VOCAB, size=n * PTB_B * PTB_T + 1)
+    out = []
+    for k in range(n):
+        s = stream[k * PTB_B * PTB_T:(k + 1) * PTB_B * PTB_T + 1]
+        out.append({"ids": s[:-1].reshape(PTB_B, PTB_T).astype(np.int64),
+                    "labels": s[1:].reshape(PTB_B, PTB_T, 1).astype(np.int64)})
+    return out
+
+
+def _ptb_weights(main, startup):
+    """The startup's values (the lr) with every parameter drawn uniform in
+    +-``PTB_INIT`` from ``PTB_SEED``, as numpy."""
+    from paddle_tpu_torch import static
+
+    scope = static.Scope()
+    static.Executor("cpu").run_startup(startup, scope=scope)
+    rng = np.random.RandomState(PTB_SEED)
+    values = {n: scope.numpy(n) for n in scope.var_names()}
+    for v in main.global_block().vars.values():
+        if v.is_parameter and v.name.startswith("param_"):
+            values[v.name] = rng.uniform(-PTB_INIT, PTB_INIT, v.shape).astype(np.float32)
+    return values
+
+
+def _ptb_steps(exe, main, loss, feeds, scope):
+    """Losses of ``exe.run`` of ``main`` on each feed, as floats."""
+    return [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]) for f in feeds]
+
+
+def _ptb_greedy(scope, prompts, dev):
+    """(tokens of the bounded loop, of the unbounded one, of the host loop
+    of the one-step program; readings): the same trained weights."""
+    import torch
+
+    from paddle_tpu_torch import static
+
+    exe = static.Executor()
+    out, r = {}, {}
+    for bounded in (True, False):
+        main, toks = _ptb_greedy_program(bounded)
+        before = exe.store.uncaptured
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(exe.run(main, feed={"prompt": prompts}, fetch_list=[toks], scope=scope)[0])
+            runs_ms = (time.perf_counter() - t0) * 1e3
+        key = "bounded" if bounded else "unbounded"
+        if not np.array_equal(runs[0], runs[1]):
+            raise AssertionError(f"PTB greedy {key}: two runs gave {runs}")
+        out[key] = runs[0]
+        r[f"{key}_ms"] = runs_ms
+        r[f"{key}_uncaptured_runs"] = exe.store.uncaptured - before
+    r["captures"], r["replays"] = exe.store.misses, exe.store.hits
+
+    main, fetch = _ptb_one_step_program()
+    sexe = static.Executor()
+    states = [torch.zeros(PTB_PROMPTS, PTB_H, device=dev) for _ in range(2 * PTB_LAYERS)]
+    prev, host = None, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PTB_PROMPT_LEN + PTB_NEW - 1):
+        feed = {"tok": torch.from_numpy(prompts[:, i]).to(dev) if i < PTB_PROMPT_LEN else prev}
+        feed.update({f"s{k}": s for k, s in enumerate(states)})
+        prev, *states = sexe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                                 return_numpy=False)
+        if i >= PTB_PROMPT_LEN - 1:
+            host.append(prev.cpu().numpy())
+    r["host_loop_ms"] = (time.perf_counter() - t0) * 1e3
+    r["host_loop_captures"] = sexe.store.misses
+    out["host_loop"] = np.stack(host, 1)
+    return out, r
+
+
+def _ptb_branches(dev):
+    """Check (d): a captured ``switch_case`` picks each branch, and a batch
+    norm under ``cond`` moves its running statistics only when its branch
+    is taken, both through one graph, on ``dev``. Returns readings."""
+    import torch
+
+    from paddle_tpu_torch import static
+
+    progs = _ptb_branch_programs()
+    g = torch.Generator(device=dev).manual_seed(PTB_SEED)
+    x = torch.randn(PTB_B, PTB_H, generator=g, device=dev) * 2.0 + 0.5
+    r = {}
+    main, _, out = progs["switch"]
+    scope, exe = static.Scope(), static.Executor()
+    want = {0: x * 2.0, 1: torch.tanh(x), 2: x * -1.0 + 0.5}
+    for i in (0, 1, 2, 0):
+        got = exe.run(main, feed={"x": x, "idx": np.int64(i)}, fetch_list=[out], scope=scope,
+                      return_numpy=False)[0]
+        if not torch.equal(got, want[i]):
+            raise AssertionError(f"PTB switch_case: index {i} gave "
+                                 f"{float((got - want[i]).abs().max())} from its branch")
+    r["switch_case"] = {"captures": exe.store.misses, "replays": exe.store.hits,
+                        "uncaptured": exe.store.uncaptured}
+    if (exe.store.misses, exe.store.hits, exe.store.uncaptured) != (1, 3, 0):
+        raise AssertionError(f"PTB switch_case: {r['switch_case']}; want one capture, three "
+                             "replays")
+
+    main, startup, out = progs["bn"]
+    scope, exe = static.Scope(), static.Executor()
+    exe.run_startup(startup, scope=scope)
+    names = sorted(v.name for v in main.global_block().vars.values() if v.is_parameter)
+    mean_name, var_name = names[2], names[3]  # scale, bias, running mean, running var
+    bm = x.mean(0)
+    bv = (x - bm).square().mean(0)
+    m, v = torch.zeros(PTB_H, device=dev), torch.ones(PTB_H, device=dev)
+    errs = []
+    for taken in (True, False, True):
+        exe.run(main, feed={"x": x, "pred": np.asarray(taken)}, fetch_list=[out], scope=scope,
+                return_numpy=False)
+        if taken:
+            m, v = 0.5 * m + 0.5 * bm, 0.5 * v + 0.5 * bv
+        errs.append(max(float((scope.get(mean_name) - m).abs().max()),
+                        float((scope.get(var_name) - v).abs().max())))
+    r["bn_under_cond"] = {"stat_errs": errs, "captures": exe.store.misses,
+                          "replays": exe.store.hits}
+    if max(errs) > 1e-5 or (exe.store.misses, exe.store.hits) != (1, 2):
+        raise AssertionError(f"PTB batch norm under cond: {r['bn_under_cond']}")
+    return r
+
+
+def train_ptb_lm_static():
+    """Phase 12f2. The PTB-medium LSTM language model as a static program
+    trained on the card through the executor's graph, with its greedy
+    continuation, branches and a checkpoint. Returns (the launches of the
+    phase's runs, readings)."""
+    import torch
+
+    from paddle_tpu_torch import convert, static
+    from paddle_tpu_torch.device import card_identity
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    card = card_identity()
+    main0, startup0, loss0 = _ptb_program(0.0)
+    main5, _, loss5 = _ptb_program(PTB_DROPOUT)
+    fwd5, _, floss5 = _ptb_program(PTB_DROPOUT, train=False)
+    init = _ptb_weights(main0, startup0)
+    host = _ptb_batches(max(PTB_TIMED, PTB_SAVE_AT) + 1)
+    feeds = [{k: torch.from_numpy(v).cuda() for k, v in f.items()} for f in host]
+    dev = feeds[0]["ids"].device
+    ops_count = sum(len(b.ops) for b in main5.blocks)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+
+    # (a) dropout 0: the first three steps captured on the card against the
+    # CPU interpreter from the same weights: the losses, and the parameters
+    # after them (an lr-0 control must fail the parameters' limit; the
+    # losses at this init move by less than 1e-6 in three steps)
+    scope0, exe0 = convert.scope_from_numpy(init), static.Executor()
+    card_losses = _ptb_steps(exe0, main0, loss0, feeds[:PTB_PARITY_STEPS], scope0)
+    params = sorted(n for n in init if n.startswith("param_"))
+    card_params = {n: scope0.numpy(n) for n in params}
+    cpu, cpu_params = {}, {}
+    for name, lr in (("trained", None), ("control", 0.0)):
+        cscope = convert.scope_from_numpy(init, device="cpu")
+        if lr is not None:
+            cscope.get("learning_rate_0").fill_(lr)
+        cpu[name] = _ptb_steps(static.Executor("cpu"), main0, loss0, host[:PTB_PARITY_STEPS],
+                               cscope)
+        cpu_params[name] = {n: cscope.numpy(n) for n in params}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu["trained"]))
+    param_err, control_err = (
+        max(float(np.abs(card_params[n] - want[n]).max() / np.abs(want[n]).max())
+            for n in params) for want in (cpu_params["trained"], cpu_params["control"]))
+
+    # (e) on to step 5, save_persistables, step 6; a fresh scope and executor
+    # load the checkpoint and run step 6 again
+    card_losses += _ptb_steps(exe0, main0, loss0, feeds[PTB_PARITY_STEPS:PTB_SAVE_AT], scope0)
+    with tempfile.TemporaryDirectory() as d:
+        static.save_persistables(exe0, d, main_program=main0, scope=scope0)
+        step6 = _ptb_steps(exe0, main0, loss0, feeds[PTB_SAVE_AT:PTB_SAVE_AT + 1], scope0)[0]
+        rscope, rexe = static.Scope(), static.Executor()
+        static.load_persistables(rexe, d, main_program=main0, scope=rscope)
+        resumed6 = _ptb_steps(rexe, main0, loss0, feeds[PTB_SAVE_AT:PTB_SAVE_AT + 1], rscope)[0]
+    graphs0 = (exe0.store.misses, exe0.store.hits)
+
+    # (f) the main path: dropout 0.5, one step eagerly and captured, then
+    # PTB_TIMED replays between CUDA events
+    scope5, exe5 = convert.scope_from_numpy(init), static.Executor()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [exe5.run(main5, feed=feeds[0], fetch_list=[loss5], scope=scope5,
+                     return_numpy=False)[0]]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(PTB_TIMED + 1)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(PTB_TIMED):
+        outs.append(exe5.run(main5, feed=feeds[1 + i], fetch_list=[loss5], scope=scope5,
+                             return_numpy=False)[0])
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / PTB_TIMED
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(PTB_TIMED)]
+    losses5 = torch.stack(outs).cpu().numpy()
+    graphs5 = (len(exe5.store), exe5.store.misses, exe5.store.hits, exe5.store.uncaptured)
+
+    # the same step interpreted eagerly on the card (no graph), on a copy
+    escope = convert.scope_from_numpy({n: scope5.numpy(n) for n in scope5.var_names()})
+    block = main5.global_block()
+    with torch.no_grad():
+        exe5._interpret(block, dict(feeds[0]), escope, [loss5.name])
+        torch.cuda.synchronize()
+        eev = [torch.cuda.Event(enable_timing=True) for _ in range(PTB_EAGER_STEPS + 1)]
+        t0 = time.perf_counter()
+        eev[0].record()
+        for i in range(PTB_EAGER_STEPS):
+            exe5._interpret(block, dict(feeds[i]), escope, [loss5.name])
+            eev[i + 1].record()
+        torch.cuda.synchronize()
+    eager_host_ms = (time.perf_counter() - t0) * 1e3 / PTB_EAGER_STEPS
+    eager_ms = [eev[i].elapsed_time(eev[i + 1]) for i in range(PTB_EAGER_STEPS)]
+
+    # (b) dropout under capture: the forward program replayed twice on one
+    # batch draws two masks; its for_test clone (dropout off) repeats
+    fexe, drop_losses = static.Executor(), {}
+    for name, prog in (("train", fwd5), ("for_test", fwd5.clone(for_test=True))):
+        drop_losses[name] = _ptb_steps(fexe, prog, floss5.name, [feeds[0]] * 3, scope5)
+
+    # (c) the greedy continuation from the trained weights
+    prompts = np.random.RandomState(PTB_SEED + 1).randint(
+        0, PTB_VOCAB, size=(PTB_PROMPTS, PTB_PROMPT_LEN)).astype(np.int64)
+    tokens, greedy = _ptb_greedy(scope5, prompts, dev)
+
+    # (d) branches
+    branches = _ptb_branches(dev)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    seconds = time.perf_counter() - t_phase
+
+    median = float(np.median(step_ms))
+    eager_median = float(np.median(eager_ms))
+    r = {"config": {"vocab": PTB_VOCAB, "hidden": PTB_H, "layers": PTB_LAYERS,
+                    "steps": PTB_T, "batch": PTB_B, "dropout": PTB_DROPOUT, "init": PTB_INIT,
+                    "lr": PTB_LR, "clip": PTB_CLIP},
+         "card": card, "ops": ops_count, "launches": counts,
+         "parity": {"card": card_losses[:PTB_PARITY_STEPS], "cpu": cpu["trained"],
+                    "rel": rel, "rtol": PTB_LOSS_RTOL, "param_err": param_err,
+                    "param_rtol": PTB_PARAM_RTOL, "control_lr0_param_err": control_err},
+         "checkpoint": {"losses_1_to_5": card_losses, "step6": step6, "resumed_step6": resumed6,
+                        "captures_replays": graphs0},
+         "dropout_replays": drop_losses,
+         "greedy": dict(greedy, tokens=tokens["bounded"].tolist()), "branches": branches,
+         "train": {"losses": losses5.tolist(), "graphs_captures_replays_uncaptured": graphs5,
+                   "first_step_and_capture_ms": first_ms, "captured_step_ms_median": median,
+                   "captured_step_ms_min": min(step_ms), "captured_host_clock_ms": host_ms,
+                   "tokens_per_s": PTB_B * PTB_T / median * 1e3,
+                   "interpreted_step_ms_median": eager_median,
+                   "interpreted_host_ms": eager_host_ms},
+         "seconds": seconds}
+    log(f"PTB-medium LM static ({card}; {ops_count} ops in {len(main5.blocks)} blocks): "
+        f"parity at dropout 0 card {card_losses[:PTB_PARITY_STEPS]} vs CPU {cpu['trained']} "
+        f"(rel {rel:.3g}, rtol {PTB_LOSS_RTOL}); parameters after them {param_err:.3g} of "
+        f"their largest entry (limit {PTB_PARAM_RTOL}; lr-0 control {control_err:.3g}); step 6 "
+        f"{step6!r} unbroken, {resumed6!r} resumed from save_persistables; dropout 0.5 "
+        f"replays {drop_losses['train']}, for_test {drop_losses['for_test']}; captured step "
+        f"{median:.3f} ms median between CUDA events (min {min(step_ms):.3f}, host clock "
+        f"{host_ms:.3f} a step, {r['train']['tokens_per_s']:.0f} tokens/s) against "
+        f"{eager_median:.1f} ms interpreted (host {eager_host_ms:.1f}); first step and capture "
+        f"{first_ms:.0f} ms; graphs/captures/replays/uncaptured {graphs5}; greedy "
+        f"{PTB_PROMPTS} x {PTB_NEW}: bounded {greedy['bounded_ms']:.1f} ms, unbounded "
+        f"{greedy['unbounded_ms']:.1f} ms (uncaptured runs {greedy['unbounded_uncaptured_runs']})"
+        f", host loop {greedy['host_loop_ms']:.1f} ms; branches {branches}; launches {counts}; "
+        f"{seconds:.1f} s")
+    if counts:
+        raise AssertionError(f"PTB LM: the phase launched {counts}; it runs none of the kernels")
+    if not (rel <= PTB_LOSS_RTOL and param_err <= PTB_PARAM_RTOL < control_err):
+        raise AssertionError(f"PTB LM: the card's losses {rel} from the CPU's (rtol "
+                             f"{PTB_LOSS_RTOL}), parameters {param_err} (limit {PTB_PARAM_RTOL}; "
+                             f"the lr-0 control {control_err} must fail)")
+    if step6 != resumed6:
+        raise AssertionError(f"PTB LM: step 6 {step6!r} unbroken, {resumed6!r} resumed")
+    d_train, d_test = drop_losses["train"], drop_losses["for_test"]
+    if not (np.isfinite(d_train).all() and d_train[1] != d_train[2]
+            and d_test[1] == d_test[2]):
+        raise AssertionError(f"PTB LM dropout under capture: replays {d_train}, for_test "
+                             f"{d_test}")
+    if not (np.array_equal(tokens["bounded"], tokens["unbounded"])
+            and np.array_equal(tokens["bounded"], tokens["host_loop"])
+            and tokens["bounded"].shape == (PTB_PROMPTS, PTB_NEW)):
+        raise AssertionError(f"PTB greedy: {tokens}")
+    if (greedy["bounded_uncaptured_runs"], greedy["unbounded_uncaptured_runs"]) != (0, 2):
+        raise AssertionError(f"PTB greedy: uncaptured runs {greedy}")
+    if graphs5 != (1, 1, PTB_TIMED, 0) or graphs0[0] != 1:
+        raise AssertionError(f"PTB LM: graphs {graphs5}, {graphs0}")
+    if not (np.isfinite(losses5).all() and abs(float(losses5[0]) - np.log(PTB_VOCAB)) < 0.1):
+        raise AssertionError(f"PTB LM: losses {losses5}")
+    return counts, r
+
 # -- the rest of training: Lamb, EMA, the NaN check, checkpoints; the other optimizers --------
 
 LAMB_LR, LAMB_WD, LAMB_SEED, LAMB_EMA_DECAY = 1e-4, 0.01, 31, 0.999
@@ -8038,6 +8500,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lenet_counts, lenet = train_lenet_static()
     torch.cuda.empty_cache()
+    ptb_counts, ptb = train_ptb_lm_static()
+    torch.cuda.empty_cache()
     lamb_counts, lamb = train_bert_lamb(compiled["bert_amp"]["captured"]["step_ms_median"])
     lenet_opt_counts, lenet_opt = train_lenet_optimizers()
     gpt_counts, gpt = serve_gpt()
@@ -8054,8 +8518,9 @@ def main() -> int:
         # replayed in CUDA graphs (BERT under Lamb, LeNet under the other optimizers too)
         k["launches_compiled"] = (compiled_counts[name] + s2s_counts["compiled"].get(name, 0)
                                   + lamb_counts.get(name, 0) + lenet_opt_counts.get(name, 0))
-        # the LeNet program's steps, replayed from the static executor's graph
-        k["launches_static"] = lenet_counts.get(name, 0)
+        # the LeNet program's steps, replayed from the static executor's graph,
+        # and the PTB LM's (12f2): none, checked
+        k["launches_static"] = lenet_counts.get(name, 0) + ptb_counts.get(name, 0)
         # GPT-2 small's generation (pre-norm, cached attention; the ring, the
         # int8 ring and the paged layout, 12i and 12j; speculative decoding
         # and the handoff, 12k): none, checked
@@ -8072,7 +8537,8 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": kernels, "amp_bert_training": amp, "amp_resnet": rn_amp,
                       "compiled": compiled, "serving": serving, "seq2seq_ernie": s2s,
-                      "lenet_static": lenet, "bert_lamb": lamb, "lenet_optimizers": lenet_opt,
+                      "lenet_static": lenet, "ptb_lm_static": ptb, "bert_lamb": lamb,
+                      "lenet_optimizers": lenet_opt,
                       "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
                       "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

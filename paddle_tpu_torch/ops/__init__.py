@@ -12,18 +12,23 @@ from __future__ import annotations
 import torch
 
 from . import beam_search, kernels, quantize_kernels  # noqa: F401  (register their ops)
+from ..framework.dtype import dtype_name, torch_dtype
 from .registry import kernel
 
 __all__ = ["add", "subtract", "multiply", "divide", "maximum", "minimum", "square", "sqrt",
            "sum", "mean", "matmul", "mul", "reshape", "relu", "gelu", "softmax", "layer_norm",
            "conv2d", "max_pool2d", "avg_pool2d", "softmax_with_cross_entropy", "topk",
-           "accuracy", "full"]
+           "accuracy", "full", "zeros", "scale", "equal", "not_equal", "less_than",
+           "less_equal", "greater_than", "greater_equal", "logical_and", "logical_or",
+           "logical_xor", "logical_not", "sigmoid", "tanh", "argmax", "cast", "transpose",
+           "concat", "split", "stack", "slice", "where", "assign", "batch_norm", "embedding",
+           "dropout", "uniform", "normal"]
 
 
 def _run(name, *tensors, **attrs):
     from ..static.program import Variable, in_static_mode
 
-    if in_static_mode() and any(isinstance(t, Variable) for t in tensors):
+    if in_static_mode() and (any(isinstance(t, Variable) for t in tensors) or not tensors):
         from ..static.op_append import append_static_op
 
         return append_static_op(name, tensors, attrs)
@@ -104,11 +109,15 @@ def accuracy(input, label, k=1):
 def full(shape, fill_value, dtype=None):
     """A host tensor (a constant once a static op takes it): float32 for a
     float, int64 for an int, bool for a bool, unless ``dtype`` (a torch
-    dtype) says."""
+    dtype or its name) says."""
     if dtype is None:
         dtype = (torch.bool if isinstance(fill_value, bool) else
                  torch.int64 if isinstance(fill_value, int) else torch.float32)
-    return torch.full(tuple(shape), fill_value, dtype=dtype)
+    return torch.full(tuple(shape), fill_value, dtype=torch_dtype(dtype))
+
+
+def zeros(shape, dtype=None):
+    return full(shape, 0.0, dtype)
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):
@@ -155,3 +164,124 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1, data
         shape[1 if data_format == "NCHW" else len(out.shape) - 1] = -1
         out = add(out, reshape(bias, shape))
     return out
+
+
+# -- control flow, recurrent layers and random ops --------------------------------
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True):
+    return _run("scale", x, scale=float(scale), bias=float(bias),
+                bias_after_scale=bias_after_scale)
+
+
+def _binary(name):
+    def fn(x, y):
+        return _run(name, x, y)
+
+    fn.__name__ = name
+    return fn
+
+
+equal = _binary("equal")
+not_equal = _binary("not_equal")
+less_than = _binary("less_than")
+less_equal = _binary("less_equal")
+greater_than = _binary("greater_than")
+greater_equal = _binary("greater_equal")
+logical_and = _binary("logical_and")
+logical_or = _binary("logical_or")
+logical_xor = _binary("logical_xor")
+
+
+def logical_not(x):
+    return _run("logical_not", x)
+
+
+def sigmoid(x):
+    return _run("sigmoid", x)
+
+
+def tanh(x):
+    return _run("tanh", x)
+
+
+def argmax(x, axis=None, keepdim=False, dtype="int64"):
+    return _run("arg_max", x, axis=axis, keepdims=keepdim, dtype=dtype_name(dtype))
+
+
+def cast(x, dtype):
+    return _run("cast", x, dtype=dtype_name(dtype))
+
+
+def transpose(x, perm):
+    return _run("transpose", x, perm=tuple(perm))
+
+
+def concat(xs, axis=0):
+    return _run("concat", *xs, axis=axis)
+
+
+def split(x, num_or_sections, axis=0):
+    sections = num_or_sections if isinstance(num_or_sections, int) else tuple(num_or_sections)
+    return list(_run("split", x, num_or_sections=sections, axis=axis))
+
+
+def stack(xs, axis=0):
+    return _run("stack", *xs, axis=axis)
+
+
+def slice(x, axes, starts, ends):
+    return _run("slice", x, axes=tuple(axes), starts=tuple(starts), ends=tuple(ends))
+
+
+def where(cond, x, y):
+    return _run("where", cond, x, y)
+
+
+def assign(x):
+    return _run("assign", x)
+
+
+def embedding(x, weight, padding_idx=None):
+    return _run("lookup_table", weight, x, padding_idx=-1 if padding_idx is None else padding_idx)
+
+
+def batch_norm(x, running_mean, running_var, weight, bias, training=False, momentum=0.9,
+               epsilon=1e-5, data_format="NCHW"):
+    """In a static program the op's running-statistics outputs are the
+    running variables themselves (``__inplace__``), so the executor writes
+    them back; eagerly the new statistics are copied into the buffers."""
+    from ..static.program import Variable, in_static_mode
+
+    attrs = dict(momentum=momentum, epsilon=epsilon, training=training,
+                 data_format=data_format)
+    if in_static_mode() and isinstance(x, Variable):
+        from ..static.op_append import append_static_op
+
+        alias = {1: running_mean.name, 2: running_var.name} if training else None
+        y, _, _ = append_static_op("batch_norm", [x, weight, bias, running_mean, running_var],
+                                   attrs, alias_outputs=alias)
+        return y
+    y, new_mean, new_var = kernel("batch_norm")(x, weight, bias, running_mean, running_var,
+                                                **attrs)
+    if training:
+        with torch.no_grad():
+            running_mean.copy_(new_mean)
+            running_var.copy_(new_var)
+    return y
+
+
+def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
+    if not training or p == 0.0:
+        return x
+    return _run("dropout", x, p=p, training=training, mode=mode)
+
+
+def uniform(shape, dtype=None, min=-1.0, max=1.0):
+    return _run("uniform_random", shape=tuple(shape), min=float(min), max=float(max),
+                dtype=dtype_name(dtype or "float32"))
+
+
+def normal(mean=0.0, std=1.0, shape=None):
+    return _run("gaussian_random", shape=tuple(shape), mean=float(mean), std=float(std),
+                dtype="float32")

@@ -4,9 +4,14 @@ Only the ops those programs hold: the ``mul``/``matmul`` products, the
 elementwise arithmetic, ``gelu``, ``relu``, ``square``, ``sqrt``, the sum
 and mean reductions, ``layer_norm``, ``reshape``, ``conv2d`` and
 ``pool2d``, ``softmax``, ``softmax_with_cross_entropy``, ``top_k`` and
-``accuracy``; and the ops ``append_backward`` and the static optimizers
-append: ``fill_any_like``, ``sum_n``, ``sgd``, ``momentum_update``,
-``adam_update`` and ``increment``. Each follows its JAX counterpart's
+``accuracy``; the ops of control flow and of recurrent programs (``scale``,
+the comparisons and logical ops, ``where``, ``cast``, ``assign``,
+``sigmoid``, ``tanh``, ``arg_max``, ``transpose``, ``concat``, ``stack``,
+``split``, ``slice``, ``lookup_table``, ``batch_norm``, ``fill_constant``)
+and the random ones (``dropout``, ``uniform_random``, ``gaussian_random``,
+``truncated_gaussian_random``); and the ops ``append_backward`` and the
+static optimizers append: ``fill_any_like``, ``sum_n``, ``sgd``,
+``momentum_update``, ``adam_update`` and ``increment``. Each follows its JAX counterpart's
 expression (``layer_norm`` computes mean, biased variance and ``rsqrt`` in
 its own tensor ops, scale and bias as a separate multiply and add).
 ``**kw`` swallows attributes a saved op carries that the kernel does not
@@ -19,6 +24,8 @@ import math
 
 import torch
 
+from ..framework import random as _random
+from ..framework.dtype import torch_dtype
 from .registry import register_op
 
 __all__ = []
@@ -279,3 +286,197 @@ def adam_update(param, grad, moment1, moment2, lr, step, *, beta1=0.9, beta2=0.9
 @register_op("increment")
 def increment(x, *, value=1.0):
     return torch.add(x, value)
+
+
+# -- control flow and recurrent programs (``kernels.py:20-60, 363-630``) -----------
+
+
+@register_op("scale")
+def scale(x, *, scale=1.0, bias=0.0, bias_after_scale=True):
+    if bias_after_scale:
+        return x * scale + bias
+    return (x + bias) * scale
+
+
+for _name, _fn in {"equal": torch.eq, "not_equal": torch.ne, "less_than": torch.lt,
+                   "less_equal": torch.le, "greater_than": torch.gt,
+                   "greater_equal": torch.ge, "logical_and": torch.logical_and,
+                   "logical_or": torch.logical_or, "logical_xor": torch.logical_xor}.items():
+    register_op(_name)(lambda x, y, _f=_fn, **kw: _f(x, y))
+
+
+@register_op("logical_not")
+def logical_not(x, **kw):
+    return torch.logical_not(x)
+
+
+@register_op("sigmoid")
+def sigmoid(x, **kw):
+    return torch.sigmoid(x)
+
+
+@register_op("tanh")
+def tanh(x, **kw):
+    return torch.tanh(x)
+
+
+@register_op("arg_max")
+def arg_max(x, *, axis=None, keepdims=False, dtype="int64"):
+    """The first index of the largest entry, as ``jnp.argmax``."""
+    out = torch.argmax(x, dim=axis, keepdim=keepdims if axis is not None else False)
+    return out.to(torch_dtype(dtype))
+
+
+@register_op("transpose")
+def transpose(x, *, perm):
+    return x.permute(*perm)
+
+
+@register_op("concat")
+def concat(*xs, axis=0):
+    return torch.cat(xs, dim=axis)
+
+
+@register_op("stack")
+def stack(*xs, axis=0):
+    return torch.stack(xs, dim=axis)
+
+
+@register_op("split", num_outputs=-1)
+def split(x, *, num_or_sections, axis=0):
+    """``num_or_sections`` equal parts (an int), or parts of the listed
+    sizes, one of which may be -1 (the rest)."""
+    total = x.shape[axis]
+    if isinstance(num_or_sections, int):
+        if total % num_or_sections:
+            raise ValueError(f"split: axis of size {total} does not divide into "
+                             f"{num_or_sections} equal parts")
+        sections = [total // num_or_sections] * num_or_sections
+    else:
+        sections = list(num_or_sections)
+        known = sum(s for s in sections if s not in (-1, None))
+        sections = [total - known if s in (-1, None) else s for s in sections]
+    return tuple(torch.split(x, sections, dim=axis))
+
+
+@register_op("slice")
+def slice_(x, *, axes, starts, ends, strides=None):
+    """Python slicing per axis (clamped ends, negative indices),
+    ``operators/slice_op.cc``."""
+    index = [slice(None)] * x.dim()
+    for ax, st, en, sd in zip(axes, starts, ends, strides or [1] * len(axes)):
+        index[ax] = slice(st, en, sd)
+    return x[tuple(index)]
+
+
+@register_op("where")
+def where(cond, x, y, **kw):
+    return torch.where(cond, x, y)
+
+
+@register_op("cast")
+def cast(x, *, dtype):
+    return x.to(torch_dtype(dtype))
+
+
+@register_op("assign")
+def assign(x, **kw):
+    return x.clone()
+
+
+@register_op("fill_constant")
+def fill_constant(*, shape, value, dtype="float32"):
+    return torch.full(tuple(shape), value, dtype=torch_dtype(dtype))
+
+
+@register_op("lookup_table")
+def lookup_table(w, ids, *, padding_idx=-1):
+    """Rows of ``w`` at ``ids`` (the embedding); the rows of
+    ``padding_idx`` are zeros."""
+    out = torch.nn.functional.embedding(ids, w)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
+
+
+@register_op("batch_norm", num_outputs=3)
+def batch_norm(x, scale, bias, mean, var, *, momentum=0.9, epsilon=1e-5, training=True,
+               data_format="NCHW"):
+    """``(y, new running mean, new running var)``, ``kernels.py:929-965``:
+    in training the biased batch statistics (float32) normalize ``x`` and
+    are blended into the running ones, ``momentum * running + (1 -
+    momentum) * batch``, with no gradient through the blend; in inference
+    the running statistics normalize."""
+    caxis = 1 if data_format == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != caxis)
+    shape = [1] * x.dim()
+    shape[caxis] = x.shape[caxis]
+    xf = x.float()
+    if training:
+        mu = xf.mean(axes)
+        varb = (xf - mu.reshape(shape)).square().mean(axes)
+        y = ((xf - mu.reshape(shape)) * torch.rsqrt(varb + epsilon).reshape(shape)
+             * scale.reshape(shape) + bias.reshape(shape))
+        mu, varb = mu.detach(), varb.detach()
+        return (y.to(x.dtype), momentum * mean + (1 - momentum) * mu,
+                momentum * var + (1 - momentum) * varb)
+    y = ((xf - mean.reshape(shape)) * torch.rsqrt(var + epsilon).reshape(shape)
+         * scale.reshape(shape) + bias.reshape(shape))
+    return y.to(x.dtype), mean, var
+
+
+# -- random ops (``kernels.py:1022-1030, 1272-1312``) ------------------------------
+# Each draws through ``framework.random.draw`` from ``generator`` (the
+# executor hands in its device's default generator), so a draw can be
+# recorded and handed back (the gradient of dropout sees the forward's
+# mask); on ``meta`` tensors (shape inference) nothing is drawn.
+
+
+def _draw(device, generator, fn):
+    if device is not None and device.type == "meta":
+        return fn(None)
+    return _random.draw(device, generator, fn)
+
+
+def _device_of(generator):
+    """Where a random op without tensor inputs draws: its generator's
+    device (the ambient default device without one)."""
+    return None if generator is None else generator.device
+
+
+@register_op("dropout")
+def dropout(x, *, p=0.5, training=True, mode="upscale_in_train", generator=None):
+    """Keep each entry with probability ``1 - p`` (``upscale_in_train``:
+    kept entries divided by ``1 - p``)."""
+    if not training or p == 0.0:
+        return x
+    keep = _draw(x.device, generator, lambda gen: torch.rand(
+        x.shape, device=x.device, generator=gen) >= p)
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros_like(x)).to(x.dtype)
+
+
+@register_op("uniform_random")
+def uniform_random(*, shape, min=-1.0, max=1.0, dtype="float32", generator=None):
+    dev = _device_of(generator)
+    u = _draw(dev, generator, lambda gen: torch.rand(
+        tuple(shape), dtype=torch_dtype(dtype), device=dev, generator=gen))
+    return u * (max - min) + min
+
+
+@register_op("gaussian_random")
+def gaussian_random(*, shape, mean=0.0, std=1.0, dtype="float32", generator=None):
+    dev = _device_of(generator)
+    return _draw(dev, generator, lambda gen: torch.randn(
+        tuple(shape), dtype=torch_dtype(dtype), device=dev, generator=gen)) * std + mean
+
+
+@register_op("truncated_gaussian_random")
+def truncated_gaussian_random(*, shape, mean=0.0, std=1.0, dtype="float32", generator=None):
+    """A standard normal truncated to [-2, 2] (``jax.random.truncated_normal``),
+    by the inverse CDF of a uniform draw, scaled by ``std`` around ``mean``."""
+    dev = _device_of(generator)
+    u = _draw(dev, generator, lambda gen: torch.rand(tuple(shape), device=dev, generator=gen))
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+    z = math.sqrt(2) * torch.erfinv(2 * (lo + u * (hi - lo)) - 1)
+    return (z.clamp(-2.0, 2.0) * std + mean).to(torch_dtype(dtype))

@@ -12,7 +12,10 @@ of kernel launches from Python:
   derives (instance, parameter count, variant, input shapes and dtypes),
   each with a stable ``cache_key`` of the form ``<label>#<hex>``.
 - **Bound:** ``FLAGS_compiled_cache_capacity``, read at insert time.
-- **Counters:** ``hits``, ``misses`` and ``evictions`` of each store.
+- **Counters:** ``hits``, ``misses`` and ``evictions`` of each store, and
+  ``uncaptured``: the runs its owner made without a graph because they
+  cannot be captured (a static program holding an unbounded ``while``,
+  whose trip count the host reads).
 - **Entry:** the graph (which owns its private memory pool), its static
   input buffers (the caller's batch is copied into them before each
   replay), its outputs (rewritten by each replay, so callers hand back
@@ -150,7 +153,7 @@ class GraphStore:
         self._refused: dict = {}  # sig -> why its capture failed
         self._lock = threading.Lock()
         self.capturing = threading.RLock()  # held from a miss to its capture
-        self.hits = self.misses = self.evictions = 0
+        self.hits = self.misses = self.evictions = self.uncaptured = 0
 
     def __len__(self):
         return len(self._entries)

@@ -9,8 +9,9 @@ attributes: the forward op's plus ``__n_fwd_in__``), and a ``sum_n`` where
 several consumers feed one variable's gradient. The executor evaluates a
 ``grad::<type>`` op by re-running the registered forward kernel under
 autograd (:func:`paddle_tpu_torch.static.executor.run_grad_op`), where the
-JAX executor takes ``jax.vjp`` of it. A loss that depends on a ``while``
-op's output raises, as there (the port has no ``while`` yet).
+JAX executor takes ``jax.vjp`` of it; a ``grad::cond`` or ``grad::scan``
+re-runs the op over its sub-blocks. A loss that depends on an unbounded
+``while`` op's output, wholly or in part, raises, as there.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Static-graph executor (``paddle_tpu/static/executor.py``): an interpreter, captured once per signature on the card.
 
-The interpreter (:meth:`Executor._interpret`) walks the program's global
-block op by op, looks each op up in the registry and keeps the values in a
-dictionary. The JAX executor lowers a whole block to one compiled module
+The interpreter (:class:`_BlockRunner`) walks the program's global block
+op by op, looks each op up in the registry and keeps the values in a
+dictionary; a control-flow op runs its sub-blocks the same way. The JAX
+executor lowers a whole block to one compiled module
 per (plan key, fetch names, feed names, feed shapes and dtypes,
 persistables) through its ``CompiledStore`` (``:699-760, 860-890``). On
 the card the port interprets the first run of each signature eagerly and
@@ -11,9 +12,11 @@ captures that interpretation into a CUDA graph over static feed buffers
 later runs of the signature copy their feeds in and replay it. The
 signature is the program's ``_identity_token`` and ``_version``, the fetch
 and feed names, each feed's shape and dtype after the block's cast, the
-TF32 settings and the scope's identity and generation. A capture or replay
-that fails raises ``CaptureError``; nothing runs eagerly in its place. On
-the CPU every run is the interpreter.
+TF32 settings and the scope's identity and generation (which covers the
+values sub-blocks read from the scope too). The capture registers the
+device's generator, so random ops draw anew at every replay. A capture or
+replay that fails raises ``CaptureError``; nothing runs eagerly in its
+place. On the CPU every run is the interpreter.
 
 Scope values are torch tensors on the executor's device: the CUDA card
 unless the caller names another (no card and no name raises), and a value
@@ -21,14 +24,28 @@ set from the host moves there once, when it is first read, not per run. A
 graph reads the scope's tensors where they lay at its capture, so
 replacing a value (:meth:`Scope.set` of a name already there, or
 :meth:`Scope.clear`) starts a new generation and the next run captures
-again. Control-flow ops (``while``, ``cond``, ``scan``) raise
-``UnimplementedError``.
+again.
+
+Control flow (``:357-660``): ``scan`` runs its body ``length`` times;
+``cond`` runs both branches and selects with ``torch.where`` on the
+predicate, which stays on the card; both are captured with the program. A
+``while`` reads its predicate on the host once per iteration, so a program
+that holds one (in any block) is interpreted on the card at every run,
+never captured, and each such run adds one to ``store.uncaptured``.
+Persistables a sub-block writes (batch norm's running statistics) thread
+out to the enclosing op, a loop's carried from iteration to iteration, a
+``cond``'s selected like its outputs, so the untaken branch's writes do not
+land; a write in a while's condition block raises.
 
 Training programs (``append_backward``, the static optimizers): a
 ``grad::<type>`` op re-runs the registered forward kernel on its inputs
 under autograd and takes ``torch.autograd.grad`` with the out-gradients
 (:func:`run_grad_op`), as the JAX executor takes ``jax.vjp``
-(``:568-614``). A value an op writes to a persistable variable (a
+(``:568-614``); a ``grad::cond`` or ``grad::scan`` re-runs the whole op
+over its sub-blocks the same way, and a ``grad::while`` raises. A random
+op's draws are kept per op and per loop iteration for the run, and the
+re-run of the forward takes them back: the gradient of a dropout sees the
+forward's mask. A value an op writes to a persistable variable (a
 parameter, a velocity or moment, ``adam_step``) is what later ops of the
 run read, and at the end of the run it is copied into the scope's own
 tensor (``copy_``), never put in its place: a graph then updates the
@@ -46,6 +63,7 @@ scan.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 
 import numpy as np
@@ -56,11 +74,13 @@ from ..errors import (FatalError, InvalidArgumentError, NotFoundError, Unimpleme
                       op_error_context)
 from ..flags import flag
 from ..framework import nan_inf
+from ..framework import random as _random
 from ..framework.dtype import torch_dtype
 from ..framework.jit import _captures, _first_run, _signature
 from ..ops.registry import kernel
 from ..runtime.compiled import GraphStore, clone_outputs, compiled_step, precision_key
-from .program import default_main_program, default_startup_program
+from .control_flow import BLOCK_ATTR_KEYS
+from .program import OpDesc, default_main_program, default_startup_program
 
 __all__ = ["Scope", "global_scope", "Executor", "run_grad_op"]
 
@@ -135,19 +155,32 @@ class Executor:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.store = GraphStore("executor")  # shared by a predictor's clones
         self._written_of = {}  # sig -> names of the written values a scanned graph returns
+        self._while_of = {}  # (program token, version) -> whether it holds an unbounded while
 
     def run_startup(self, startup_program=None, scope=None):
-        """Run the startup program's ``init_param`` ops: each parameter not
-        yet in the scope is drawn by its initializer."""
+        """Run the startup program (``paddle_tpu/static/executor.py:1101-1123``):
+        an ``init_param`` op draws a parameter not yet in the scope with
+        its initializer; any other registered op runs on the device on the
+        scope's values and sets its outputs, a random one drawing from the
+        device's default generator."""
         startup_program = startup_program or default_startup_program()
         scope = scope or global_scope()
         for op in startup_program.global_block().ops:
-            if op.type != "init_param":
-                raise UnimplementedError(
-                    f"startup op {op.type!r}: only init_param is ported")
-            name = op.outputs["Out"][0]
-            if not scope.has(name):
-                scope.set(name, op.attrs["initializer"](op.attrs["shape"], op.attrs["dtype"]))
+            out_names = op.outputs.get("Out", [])
+            if op.type == "init_param":
+                if not scope.has(out_names[0]):
+                    scope.set(out_names[0],
+                              op.attrs["initializer"](op.attrs["shape"], op.attrs["dtype"]))
+                continue
+            attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
+            if op.attrs.get("__rng__"):
+                attrs["generator"] = _random.default_generator(self.device)
+            with torch.device(self.device):
+                out = kernel(op.type)(*[scope.on(n, self.device)
+                                        for n in op.inputs.get("X", [])], **attrs)
+            for n, v in zip(out_names, list(out) if isinstance(out, (tuple, list)) else [out]):
+                if n:
+                    scope.set(n, v)
 
     @torch.no_grad()
     def run(self, program=None, feed=None, fetch_list=None, scope=None, return_numpy=True):
@@ -168,7 +201,8 @@ class Executor:
         for name, value in feed.items():
             dtype = torch_dtype(block.var(name).dtype) if block.has_var(name) else None
             if not isinstance(value, torch.Tensor):
-                value = torch.from_numpy(np.ascontiguousarray(value))
+                value = np.asarray(value)  # a 0-d feed stays 0-d
+                value = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape))
             values.append(value.to(dtype=dtype))
         read = _to_host if return_numpy else clone_outputs
         scan = bool(flag("check_nan_inf"))
@@ -185,7 +219,9 @@ class Executor:
                 self._write_back(scope, written)
             return read(fetched)
 
-        if not _captures(self.device):
+        uncapturable = self._uncapturable(program)
+        if uncapturable or not _captures(self.device):
+            self.store.uncaptured += uncapturable
             out = interpret(*[v.to(self.device) for v in values])
             return scanned(out) if scan else read(out)
         sig = ((program._identity_token, program._version, tuple(fetch_names), tuple(names))
@@ -199,13 +235,22 @@ class Executor:
                     inputs = [v.to(self.device, copy=True) for v in values]
                     with compiled_step():
                         out = _first_run(self.device, lambda: interpret(*inputs))
-                        store.capture(sig, interpret, inputs)
+                        store.capture(sig, interpret, inputs,
+                                      _random.graph_generators(self.device))
                     self._written_of[sig] = list(written_names)
                     return scanned(out) if scan else read(out)
         if scan:
             written_names[:] = self._written_of[sig]
             return scanned(store.replay(entry, *values, read=clone_outputs))
         return store.replay(entry, *values, read=read)
+
+    def _uncapturable(self, program):
+        """Whether ``program`` holds an unbounded ``while`` (looked up once
+        per program state)."""
+        key = (program._identity_token, program._version)
+        if key not in self._while_of:
+            self._while_of[key] = _holds_unbounded_while(program)
+        return self._while_of[key]
 
     def _write_back(self, scope, written):
         """Copy each written persistable into the scope's own tensor (set
@@ -239,46 +284,203 @@ class Executor:
         the fetched tensors, written back into the scope. With
         ``written_names`` (a list, filled here) the written persistables
         are not written back but returned after the fetches, their names in
-        ``written_names``. The one body of a CPU run, a first run and a
-        capture."""
-        def value_of(name):
-            if name in env:
-                return env[name]
-            if scope.has(name):
-                return scope.on(name, self.device)
-            raise InvalidArgumentError(
-                f"variable {name!r} is neither fed, computed by an earlier op, nor in the scope")
-
+        ``written_names``. The one body of a CPU run, a first run, a
+        capture and an uncaptured run."""
         written = {}  # persistable name -> its value after the run
-        for op in block.ops:
-            if op.type.removeprefix("grad::") in _BLOCK_OPS:
-                raise UnimplementedError(
-                    f"control-flow op {op.type!r} is not ported: the executor interprets "
-                    "the global block only")
-            attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
-            in_names = op.inputs.get("X", [])
-            out_names = op.outputs.get("Out", [])
-            if op.type.startswith("grad::"):
-                n_in = op.attrs["__n_fwd_in__"]
-                results = run_grad_op(
-                    op.type[len("grad::"):], attrs, [value_of(n) for n in in_names[:n_in]],
-                    [env.get(n) if n else None for n in in_names[n_in:]],
-                    [bool(n) for n in out_names])
-            else:
-                out = kernel(op.type)(*[value_of(n) for n in in_names], **attrs)
-                results = list(out) if isinstance(out, (tuple, list)) else [out]
-            for n, v in zip(out_names, results):
-                if not n or v is None:
-                    continue
-                env[n] = v
-                if block.has_var(n) and block.var(n).persistable:
-                    written[n] = v
-        fetched = [value_of(n) for n in fetch_names]
+        runner = _BlockRunner(block.program, scope, self.device)
+        runner.exec_block(block, env, written, ())
+        fetched = [runner.value(env, n) for n in fetch_names]
         if written_names is not None:
             written_names[:] = list(written)
             return fetched + list(written.values())
         self._write_back(scope, written)
         return fetched
+
+
+class _BlockRunner:
+    """One run of a program's blocks (``paddle_tpu/static/executor.py``
+    ``_BlockRunner``, ``:357-660``), eagerly on the executor's device.
+
+    ``path`` is the tuple of the enclosing loops' iteration indices: a
+    random op's draws are recorded under ``(path, __rng_id__)`` in a
+    :class:`~paddle_tpu_torch.framework.random.Tape`, and a gradient op
+    that re-runs the forward under the same key takes them back, as the
+    JAX executor hands a ``grad::`` op the forward's key
+    (``_op_key(base_key, op, it)``, ``:104-108``)."""
+
+    def __init__(self, program, scope, device):
+        self.program = program
+        self.scope = scope
+        self.device = device
+        self.tapes = {}
+
+    def value(self, env, name):
+        if name in env:
+            return env[name]
+        if self.scope.has(name):
+            return self.scope.on(name, self.device)
+        raise InvalidArgumentError(
+            f"variable {name!r} is neither fed, computed by an earlier op, nor in the scope")
+
+    def exec_block(self, block, env, written, path):
+        """``block``'s ops on ``env`` (updated in place); each persistable
+        an op writes goes into ``written`` (None: such a write raises, as
+        in a while's condition block)."""
+        for op in block.ops:
+            results = self._exec_op(op, env, written, path)
+            for n, v in zip(op.outputs.get("Out", []), results):
+                if not n or v is None:
+                    continue
+                env[n] = v
+                if block.has_var(n) and block.var(n).persistable:
+                    if written is None:
+                        raise NotImplementedError(
+                            f"op {op.type!r} writes persistable var {n!r} inside a "
+                            "while-condition block; stateful updates belong in the loop body")
+                    written[n] = v
+
+    def _exec_op(self, op, env, written, path):
+        attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
+        in_names = op.inputs.get("X", [])
+        if op.type in _BLOCK_OPS:
+            return getattr(self, f"_run_{op.type}")(op, env, written, path)
+        if not op.type.startswith("grad::"):
+            with self._rng(op, attrs, path):
+                out = kernel(op.type)(*[self.value(env, n) for n in in_names], **attrs)
+            return list(out) if isinstance(out, (tuple, list)) else [out]
+        fwd_type = op.type[len("grad::"):]
+        n_in = op.attrs["__n_fwd_in__"]
+        fwd_in = [self.value(env, n) for n in in_names[:n_in]]
+        out_grads = [env.get(n) if n else None for n in in_names[n_in:]]
+        wanted = [bool(n) for n in op.outputs.get("Out", [])]
+        if fwd_type == "while":
+            raise RuntimeError(
+                "while_loop is not reverse-differentiable (unbounded trip count); build "
+                "trainable loops with paddle_tpu_torch.static.nn.scan instead")
+        if fwd_type in _BLOCK_OPS:
+            fwd_op = OpDesc(fwd_type, {"X": in_names[:n_in]}, {"Out": []}, op.attrs)
+
+            def forward(*xs):
+                local = dict(env)
+                local.update(zip(in_names[:n_in], xs))
+                return getattr(self, f"_run_{fwd_type}")(fwd_op, local, {}, path)
+        else:
+            def forward(*xs):
+                with self._rng(op, attrs, path):
+                    return kernel(fwd_type)(*xs, **attrs)
+        return _vjp(forward, fwd_in, out_grads, wanted)
+
+    @contextlib.contextmanager
+    def _rng(self, op, attrs, path):
+        """A random op draws from the device's generator, recorded under
+        its key (or handed back, when the key was drawn before)."""
+        if not op.attrs.get("__rng__"):
+            yield
+            return
+        attrs["generator"] = _random.default_generator(self.device)
+        key = (path, op.attrs.get("__rng_id__", id(op)))
+        with _random.taped(self.tapes.setdefault(key, _random.Tape())):
+            yield
+
+    # -- the control-flow ops (``:402-513``) ----------------------------------------
+
+    def _merge_writes(self, env, written, sub_written, op):
+        if sub_written and written is None:
+            raise NotImplementedError(
+                f"op {op.type!r} writes persistable vars {sorted(sub_written)} inside a "
+                "while-condition block; stateful updates belong in the loop body")
+        env.update(sub_written)
+        if written is not None:
+            written.update(sub_written)
+
+    def _run_scan(self, op, env, written, path):
+        attrs = op.attrs
+        n_c, n_s = attrs["__n_carry__"], attrs["__n_seq__"]
+        in_names = op.inputs["X"]
+        body = self.program.blocks[attrs["__body_block__"]]
+        carry = [self.value(env, n) for n in in_names[:n_c]]
+        seqs = [self.value(env, n) for n in in_names[n_c:n_c + n_s]]
+        length = seqs[0].shape[0] if seqs else attrs["__length__"]
+        sub, sub_written = dict(env), {}  # persistable writes ride along as carries
+        ys = []
+        for it in range(length):
+            sub.update(zip(attrs["__carry_formals__"], carry))
+            sub.update(zip(attrs["__seq_formals__"], [s[it] for s in seqs]))
+            self.exec_block(body, sub, sub_written, path + (it,))
+            carry = [sub[n] for n in attrs["__carry_outs__"]]
+            ys.append([sub[n] for n in attrs["__y_outs__"]])
+        self._merge_writes(env, written, sub_written, op)
+        return carry + [torch.stack(y) for y in zip(*ys)]
+
+    def _run_while(self, op, env, written, path):
+        """The unbounded loop: the predicate is read on the host once per
+        iteration (the program runs uncaptured)."""
+        attrs = op.attrs
+        cond_blk = self.program.blocks[attrs["__cond_block__"]]
+        body = self.program.blocks[attrs["__body_block__"]]
+        carry = [self.value(env, n) for n in op.inputs["X"][:attrs["__n_loop__"]]]
+        sub, sub_written = dict(env), {}
+        it = 0
+        while True:
+            sub.update(zip(attrs["__cond_formals__"], carry))
+            self.exec_block(cond_blk, sub, None, path + (it,))
+            if not bool(sub[attrs["__cond_out__"]].reshape(())):
+                break
+            sub.update(zip(attrs["__body_formals__"], carry))
+            self.exec_block(body, sub, sub_written, path + (it,))
+            carry = [sub[n] for n in attrs["__body_outs__"]]
+            it += 1
+        self._merge_writes(env, written, sub_written, op)
+        return carry
+
+    def _run_cond(self, op, env, written, path):
+        """Both branches run and every output and every persistable either
+        branch writes is selected on the device predicate (the untaken
+        branch's writes do not land). A branch that holds an unbounded
+        while would run its loop even when not taken, so there the
+        predicate is read on the host and only the taken branch runs: such
+        a program runs uncaptured anyway."""
+        attrs = op.attrs
+        pred = self.value(env, op.inputs["X"][0]).reshape(()).to(torch.bool)
+        branches = [(self.program.blocks[attrs["__true_block__"]], attrs["__true_outs__"]),
+                    (self.program.blocks[attrs["__false_block__"]], attrs["__false_outs__"])]
+        if _holds_unbounded_while(self.program, [b.idx for b, _ in branches]):
+            blk, outs = branches[0] if bool(pred) else branches[1]
+            sub, sub_written = dict(env), {}
+            self.exec_block(blk, sub, sub_written, path)
+            self._merge_writes(env, written, sub_written, op)
+            return [sub[n] for n in outs]
+        runs = []
+        for blk, outs in branches:
+            sub, sub_written = dict(env), {}
+            self.exec_block(blk, sub, sub_written, path)
+            runs.append(([sub[n] for n in outs], sub_written))
+        (t_outs, t_w), (f_outs, f_w) = runs
+        selected = {}
+        for n in sorted(set(t_w) | set(f_w)):
+            t = t_w[n] if n in t_w else self.value(env, n)
+            f = f_w[n] if n in f_w else self.value(env, n)
+            selected[n] = torch.where(pred, t, f)
+        self._merge_writes(env, written, selected, op)
+        return [torch.where(pred, t, f) for t, f in zip(t_outs, f_outs)]
+
+
+def _holds_unbounded_while(program, block_idxs=(0,)):
+    """Whether the blocks (and the blocks nested in them) hold a ``while``
+    op: a loop whose trip count the host must read, so a run of them
+    cannot be captured."""
+    stack, seen = list(block_idxs), set()
+    while stack:
+        bi = stack.pop()
+        if bi in seen:
+            continue
+        seen.add(bi)
+        for op in program.blocks[bi].ops:
+            if op.type == "while":
+                return True
+            stack.extend(v for k, v in op.attrs.items()
+                         if k in BLOCK_ATTR_KEYS and isinstance(v, int))
+    return False
 
 
 def run_grad_op(fwd_type, attrs, fwd_in, out_grads, wanted):
@@ -289,10 +491,16 @@ def run_grad_op(fwd_type, attrs, fwd_in, out_grads, wanted):
     output takes none). One entry per forward input: its gradient, zeros
     where the output does not depend on it, None where it is not wanted or
     not floating (labels, indices)."""
+    return _vjp(lambda *xs: kernel(fwd_type)(*xs, **attrs), fwd_in, out_grads, wanted)
+
+
+def _vjp(forward, fwd_in, out_grads, wanted):
+    """:func:`run_grad_op` over any ``forward(*inputs)``: a kernel, or a
+    control-flow op run again over its sub-blocks."""
     with torch.enable_grad():
         inputs = [x.detach().requires_grad_() if want and x.dtype.is_floating_point else x
                   for x, want in zip(fwd_in, wanted)]
-        out = kernel(fwd_type)(*inputs, **attrs)
+        out = forward(*inputs)
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
         ys, cots = [], []
         for i, o in enumerate(outs):

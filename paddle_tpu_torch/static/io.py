@@ -1,9 +1,13 @@
-"""Static-graph model serialization (``paddle_tpu/static/io.py:91-167``).
+"""Static-graph model serialization (``paddle_tpu/static/io.py``).
 
 ``<dir>/__model__`` holds the pruned Program as JSON with its feed and fetch
 names, ``<dir>/__params__`` every persistable variable in one
 ``framework.serialization`` file: the JAX package's file names and keys, so
-a directory either package writes loads in the other.
+a directory either package writes loads in the other. ``save``/``load``
+write and read ``<path>.pdparams`` (the persistables) and ``<path>.pdmodel``
+(the program); ``save_persistables``/``load_persistables`` one file of
+persistables in a directory (``__params__`` unless named), the checkpoint
+of a static training run. Each takes the global scope unless given one.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ from ..framework import serialization
 from .executor import global_scope
 from .program import Program, default_main_program
 
-__all__ = ["save_inference_model", "load_inference_model"]
+__all__ = ["save", "load", "save_persistables", "load_persistables", "save_inference_model",
+           "load_inference_model"]
 
 _MODEL_FILENAME = "__model__"
 _PARAMS_FILENAME = "__params__"
@@ -29,6 +34,48 @@ def _persistable_dict(program, scope=None):
     # captured constants are authoritative over a same-named scope value
     out.update(program._constants)
     return out
+
+
+def save(program, model_path, protocol=4, scope=None):
+    """``paddle.static.save``: the program's persistables to
+    ``<model_path>.pdparams``, the program to ``<model_path>.pdmodel``."""
+    d = os.path.dirname(model_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    serialization.save(_persistable_dict(program, scope), model_path + ".pdparams")
+    with open(model_path + ".pdmodel", "wb") as f:
+        f.write(program.serialize_to_string())
+
+
+def load(program, model_path, executor=None, var_list=None, scope=None):
+    """``paddle.static.load``: the persistables of ``program`` (or of
+    ``var_list``) found in ``<model_path>.pdparams`` into the scope."""
+    state = serialization.load(model_path + ".pdparams", return_numpy=True)
+    scope = scope or global_scope()
+    names = ([v.name for v in var_list] if var_list is not None
+             else [v.name for v in program.list_vars() if v.persistable])
+    for name in names:
+        if name in state:
+            scope.set(name, state[name])
+    return program
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None, scope=None):
+    """``fluid.io.save_persistables``: every persistable of the program in
+    one file."""
+    main_program = main_program or default_main_program()
+    os.makedirs(dirname, exist_ok=True)
+    serialization.save(_persistable_dict(main_program, scope),
+                       os.path.join(dirname, filename or _PARAMS_FILENAME))
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None, scope=None):
+    """Every variable of a :func:`save_persistables` file into the scope."""
+    state = serialization.load(os.path.join(dirname, filename or _PARAMS_FILENAME),
+                               return_numpy=True)
+    scope = scope or global_scope()
+    for name, arr in state.items():
+        scope.set(name, arr)
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor, main_program=None,

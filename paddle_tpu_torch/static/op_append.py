@@ -5,8 +5,18 @@ The mode-aware front (:mod:`paddle_tpu_torch.ops`) calls
 dtype come from running the registered kernel on ``meta`` tensors (the
 counterpart of ``jax.eval_shape``), so there are no hand-written shape
 rules; a dynamic (-1) axis stands in as an unusual prime and is restored.
+An op without tensor inputs (a random op's ``shape`` attribute) runs there
+under ``torch.device("meta")``, so shape inference draws nothing.
+
+A random op (:data:`RNG_OPS`) gets the JAX package's ``__rng__`` and
+``__rng_id__`` attributes: the id is the op's place among the program's
+random ops, fixed at build time, and the executor keys the op's draws by
+it, so a ``grad::`` op (which copies the forward's attributes) takes back
+the forward's draws.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -17,6 +27,9 @@ from ..framework.dtype import dtype_name, torch_dtype
 from .program import Variable, default_main_program
 
 __all__ = ["append_static_op", "capture_constant"]
+
+# the random ops of the registry (``paddle_tpu/static/op_append.py:29-32``)
+RNG_OPS = {"dropout", "uniform_random", "gaussian_random", "truncated_gaussian_random"}
 
 # stands in for a -1 (batch) axis during the abstract run
 _DYN = 83
@@ -45,8 +58,11 @@ def capture_constant(t, block=None):
     return cvar
 
 
-def append_static_op(op_type, tensors, attrs):
-    """Append an OpDesc to the current block; returns its output Variable(s)."""
+def append_static_op(op_type, tensors, attrs, alias_outputs=None):
+    """Append an OpDesc to the current block; returns its output Variable(s).
+    ``alias_outputs`` (output index -> variable name) makes an output an
+    existing variable the op also reads (batch norm's running statistics),
+    recorded in the ``__inplace__`` attribute."""
     prog = default_main_program()
     block = prog.current_block()
     tensors = [t if isinstance(t, (Variable, torch.Tensor)) else torch.as_tensor(t)
@@ -55,7 +71,8 @@ def append_static_op(op_type, tensors, attrs):
                 for t in tensors]
     metas = [_meta_of(t) for t in tensors]
     try:
-        out = kernel(op_type)(*metas, **attrs)
+        with contextlib.nullcontext() if tensors else torch.device("meta"):
+            out = kernel(op_type)(*metas, **attrs)
     except Exception as e:  # noqa: BLE001 — any kernel error is a shape-inference failure here
         raise InvalidArgumentError(
             f"shape inference failed for operator {op_type!r} with input shapes "
@@ -64,12 +81,22 @@ def append_static_op(op_type, tensors, attrs):
     any_dynamic = any(isinstance(t, Variable) and t.shape and
                       any(d in (-1, None) for d in t.shape) for t in tensors)
     out_vars = []
-    for o in (list(out) if multi else [out]):
+    for i, o in enumerate(list(out) if multi else [out]):
+        if alias_outputs and i in alias_outputs:
+            out_vars.append(block.var(alias_outputs[i]))
+            continue
         shape = [(-1 if (any_dynamic and d == _DYN) else d) for d in o.shape]
         var = block.create_var(name=prog._unique_name(op_type), shape=shape,
                                dtype=dtype_name(o.dtype))
         var.stop_gradient = all((not isinstance(t, Variable)) or t.stop_gradient
                                 for t in tensors) or not o.dtype.is_floating_point
         out_vars.append(var)
-    block.append_op(op_type, {"X": in_names}, {"Out": [v.name for v in out_vars]}, dict(attrs))
+    desc_attrs = dict(attrs)
+    if alias_outputs:
+        desc_attrs["__inplace__"] = sorted(alias_outputs.values())
+    if op_type in RNG_OPS:
+        desc_attrs["__rng__"] = True
+        desc_attrs["__rng_id__"] = prog._rng_counter
+        prog._rng_counter += 1
+    block.append_op(op_type, {"X": in_names}, {"Out": [v.name for v in out_vars]}, desc_attrs)
     return tuple(out_vars) if multi else out_vars[0]

@@ -4,15 +4,17 @@
 name-keyed input and output lists and attributes; a variable is symbolic
 (name, shape, dtype, flags) and holds no storage. ``to_dict`` /
 ``from_dict`` keep the JAX package's JSON layout key for key, so a program
-either package serialized loads in the other. The port's executor
-interprets the global block op by op (on the card, once per feed
-signature, into a CUDA graph); nested blocks exist in the layout, but the
-control-flow ops that would use them are not ported.
+either package serialized loads in the other, nested blocks included: a
+control-flow op (``control_flow.py``) names its sub-blocks by index in the
+``BLOCK_ATTR_KEYS`` attributes. :func:`block_guard` makes a sub-block the
+current block, the one ops are appended to (``:354``, ``:460``), and a
+variable name resolves through the parent blocks (``:111``).
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
+import json
 from typing import Any, Dict, List
 
 import numpy as np
@@ -20,8 +22,8 @@ import numpy as np
 from ..framework.dtype import dtype_name
 
 __all__ = ["VarDesc", "OpDesc", "Block", "Variable", "Program", "default_main_program",
-           "default_startup_program", "reset_default_programs", "program_guard",
-           "enable_static", "disable_static", "in_static_mode", "data"]
+           "default_startup_program", "reset_default_programs", "program_guard", "block_guard",
+           "enable_static", "disable_static", "in_static_mode", "in_dynamic_mode", "data"]
 
 class VarDesc:
     def __init__(self, name, shape=None, dtype="float32", persistable=False,
@@ -173,6 +175,7 @@ class Program:
         self._version = 0
         self.random_seed = None
         self._constants = {}
+        self._rng_counter = 0  # the next random op's __rng_id__
         # the executor keys its graphs by this, not id(): a freed program's
         # id may come back for a new one
         self._identity_token = next(_program_tokens)
@@ -181,7 +184,15 @@ class Program:
         return self.blocks[0]
 
     def current_block(self) -> Block:
-        return self.blocks[0]
+        return self.blocks[_current_block_idx[-1]] if _current_block_idx else self.blocks[0]
+
+    def _create_block(self) -> Block:
+        """A new nested block whose parent is the current block: the unit a
+        control-flow op runs."""
+        blk = Block(self, len(self.blocks), self.current_block().idx)
+        self.blocks.append(blk)
+        self._version += 1
+        return blk
 
     def _unique_name(self, prefix):
         i = self._name_counter.get(prefix, 0)
@@ -191,6 +202,19 @@ class Program:
     def list_vars(self):
         for blk in self.blocks:
             yield from blk.vars.values()
+
+    def clone(self, for_test=False):
+        """A copy through ``to_dict``; ``for_test`` turns every op's
+        ``training`` attribute off, in every block (dropout becomes the
+        identity, batch norm reads its running statistics)."""
+        prog = Program.from_dict(self.to_dict())
+        if for_test:
+            for blk in prog.blocks:
+                for op in blk.ops:
+                    if "training" in op.attrs:
+                        op.attrs["training"] = False
+        prog._name_counter = dict(self._name_counter)
+        return prog
 
     # serialization ---------------------------------------------------------
     def to_dict(self):
@@ -218,6 +242,13 @@ class Program:
                                for k, v in data["constants"].items()}
         return prog
 
+    def serialize_to_string(self) -> bytes:
+        return json.dumps(self.to_dict()).encode()
+
+    @classmethod
+    def parse_from_string(cls, s: bytes):
+        return cls.from_dict(json.loads(s.decode()))
+
     def __repr__(self):
         n_ops = sum(len(b.ops) for b in self.blocks)
         return f"Program(blocks={len(self.blocks)}, ops={n_ops})"
@@ -227,6 +258,7 @@ class Program:
 
 _default_main_program = Program()
 _default_startup_program = Program()
+_current_block_idx: list = []
 _static_mode = [False]
 
 
@@ -242,6 +274,16 @@ def reset_default_programs():
     global _default_main_program, _default_startup_program
     _default_main_program = Program()
     _default_startup_program = Program()
+
+
+@contextlib.contextmanager
+def block_guard(block):
+    """Make ``block`` the current append target (control-flow sub-blocks)."""
+    _current_block_idx.append(block.idx)
+    try:
+        yield block
+    finally:
+        _current_block_idx.pop()
 
 
 @contextlib.contextmanager
@@ -267,6 +309,10 @@ def disable_static():
 
 def in_static_mode() -> bool:
     return _static_mode[0]
+
+
+def in_dynamic_mode() -> bool:
+    return not _static_mode[0]
 
 
 def data(name, shape, dtype="float32"):

@@ -313,6 +313,10 @@ def test_server_kinds_and_engine_kwargs(model):
         status, out = _post_json(router.url, {"prompt": [5, 6], "max_new_tokens": 2,
                                               "temperature": 0.0})
         assert status == 200 and 1 <= len(out["tokens"]) <= 2
+        # the router books a request in finish(), just after it relayed the answer
+        deadline = time.monotonic() + 15.0
+        while router.statz()["fleet"]["requests"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.02)
         assert router.statz()["fleet"]["requests"] >= 1
     finally:
         router.stop()

@@ -207,6 +207,29 @@ def _seen(status, out):
     return status, out.get("backend"), ("error" in out)
 
 
+def _wait(cond, timeout=5.0):
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return cond()
+
+
+def _settled(router, timeout=15.0):
+    """``router`` once it has booked every request it answered: no backend
+    has one in flight and the request counter has caught up with the
+    backends' ``completed`` counts. Both routers relay the answer first and
+    count it in ``finish()`` after, so a client holding its answer may read
+    the counters a moment too early; every script reads ``statz()``, the
+    stubs' hits and ``backend_states()`` only through this."""
+    def booked():
+        states = router.backend_states()
+        return (all(b.inflight == 0 for b in states)
+                and router.statz()["fleet"]["requests"] == sum(b.completed for b in states))
+
+    _wait(booked, timeout)
+    return router
+
+
 # -- the request scripts ------------------------------------------------------------------
 
 
@@ -216,6 +239,7 @@ def _p2c(R, make):
     router = R(backends=[light.url, heavy.url], probe_interval_s=30).start()
     try:
         seq = [_seen(*_post(router.url)) for _ in range(8)]
+        _settled(router)
         return {"seq": seq, "hits": [light.post_hits, heavy.post_hits],
                 "fleet": router.statz()["fleet"]}
     finally:
@@ -231,6 +255,7 @@ def _p2c_four(R, make):
     router = R(backends=[b.url for b in bs], probe_interval_s=30).start()
     try:
         seq = [_seen(*_post(router.url)) for _ in range(24)]
+        _settled(router)
         return {"seq": seq, "hits": [b.post_hits for b in bs], "fleet": router.statz()["fleet"]}
     finally:
         router.stop(drain=False)
@@ -244,7 +269,7 @@ def _connect_failure(R, make):
         healthy = router.healthy_count
         dead.stop()
         seq = [_seen(*_post(router.url)) for _ in range(4)]
-        states = {b.url: b for b in router.backend_states()}
+        states = {b.url: b for b in _settled(router).backend_states()}
         return {"healthy": healthy, "seq": seq, "dead_in_rotation": states[dead.url].in_rotation,
                 "dead_error": states[dead.url].last_error, "fleet": router.statz()["fleet"]}
     finally:
@@ -260,6 +285,7 @@ def _answered_errors(R, make):
         for status in (429, 400, 500, 504):
             a.post_status = b.post_status = status
             seq.append(_seen(*_post(router.url)))
+        _settled(router)
         return {"seq": seq, "hits": [a.post_hits, b.post_hits],
                 "rotation": [s.in_rotation for s in router.backend_states()],
                 "fleet": router.statz()["fleet"]}
@@ -275,11 +301,12 @@ def _admission_503(R, make):
     draining.draining = True
     try:
         seq = [_seen(*_post(router.url))]
-        states = {b.url: b for b in router.backend_states()}
+        states = {b.url: b for b in _settled(router).backend_states()}
         out = {"evicted": not states[draining.url].in_rotation,
                "error": states[draining.url].last_error}
         hits0 = draining.post_hits
         seq.append(_seen(*_post(router.url)))
+        _settled(router)
         out.update(seq=seq, knocked_again=draining.post_hits - hits0,
                    fleet=router.statz()["fleet"])
         return out
@@ -298,23 +325,17 @@ def _drain_mid_dispatch(R, make):
     router = R(backends=[b1.url, b2.url], probe_interval_s=30).start()
     try:
         seq = [_seen(*_post(router.url))]
+        _settled(router)
         hits = b1.post_hits
         b1.on_post = None
         b1.post_status = 503
         b2.queue_depth = 0
         seq.append(_seen(*_post(router.url)))
-        states = {b.url: b for b in router.backend_states()}
+        states = {b.url: b for b in _settled(router).backend_states()}
         return {"seq": seq, "b1_hits_first": hits, "b1_in_rotation": states[b1.url].in_rotation,
                 "fleet": router.statz()["fleet"]}
     finally:
         router.stop(drain=False)
-
-
-def _wait(cond, timeout=5.0):
-    deadline = time.monotonic() + timeout
-    while not cond() and time.monotonic() < deadline:
-        time.sleep(0.02)
-    return cond()
 
 
 def _readmission(R, make):
@@ -330,7 +351,7 @@ def _readmission(R, make):
         s.post_status = 200
         out["readmitted"] = _wait(lambda: router.healthy_count == 1)
         out["after"] = _seen(*_post(router.url))
-        fleet = router.statz()["fleet"]
+        fleet = _settled(router).statz()["fleet"]
         out["readmissions"], out["evictions"] = fleet["readmissions"], fleet["evictions"]
         out["no_backend"] = fleet["no_backend_503"]
         return out
@@ -343,7 +364,7 @@ def _no_backend(R, make):
     try:
         status, out = _post(router.url)
         return {"status": status, "no_backend_msg": "no backend" in out["error"],
-                "fleet": router.statz()["fleet"], "healthz": router.healthz()["ready"]}
+                "fleet": _settled(router).statz()["fleet"], "healthz": router.healthz()["ready"]}
     finally:
         router.stop(drain=False)
 
@@ -355,6 +376,7 @@ def _kind_routing(R, make):
         seq = [_seen(*_post(router.url, "/generate", {"prompt": [1, 2]})) for _ in range(3)]
         seq += [_seen(*_post(router.url, "/predict")) for _ in range(3)]
         seq.append(_seen(*_post(router.url, "/nothing")))
+        _settled(router)
         return {"seq": seq, "hits": [p.post_hits, g.post_hits], "fleet": router.statz()["fleet"]}
     finally:
         router.stop(drain=False)
@@ -369,9 +391,7 @@ def _streaming(R, make):
                             data=json.dumps({"prompt": [1], "stream": True}).encode(),
                             headers={"Content-Type": "application/json"}), timeout=30)
         body = r.read().decode()
-        # the router books the request just after its last chunk went out
-        _wait(lambda: all(b.inflight == 0 for b in router.backend_states()))
-        return {"status": r.status, "body": body, "fleet": router.statz()["fleet"]}
+        return {"status": r.status, "body": body, "fleet": _settled(router).statz()["fleet"]}
     finally:
         router.stop(drain=False)
 
@@ -390,7 +410,7 @@ def _statz_merge(R, make):
     b2.hist = {"serving/e2e_ms": hs[1].snapshot()}
     router = R(backends=[b1.url, b2.url], probe_interval_s=30).start()
     try:
-        merged = router.merged_backend_quantiles(names=("serving/e2e_ms",))
+        merged = _settled(router).merged_backend_quantiles(names=("serving/e2e_ms",))
         return {"merged": merged,
                 "statz": router.statz()["latency"]["backends_merged"]["serving/e2e_ms"]}
     finally:
@@ -409,13 +429,15 @@ def _disagg(R, make):
     try:
         body = {"prompt": [3, 4, 5], "max_new_tokens": 2}
         seq = [_post(router.url, "/generate", body) for _ in range(2)]
+        _settled(router)
         out = {"seq": [(s, o) for s, o in seq], "paths": [pre.post_paths, dec.post_paths],
                "g_hits": g.post_hits}
         dec.draining = True
         dec.post_status = 503
         out["after_decode_drained"] = _seen(*_post(router.url, "/generate", body))
-        out["fleet"] = router.statz()["fleet"]
+        out["fleet"] = _settled(router).statz()["fleet"]
         out["tail"] = _seen(*_post(router.url, "/generate", body))
+        _settled(router)
         out["g_hits_after"] = g.post_hits
         return out
     finally:
@@ -428,6 +450,7 @@ def _handoff_timeout(R, make):
     try:
         pre.post_delay_s = 1.0
         status, out = _post(router.url, "/generate", {"prompt": [1]})
+        _settled(router)
         return {"status": status, "msg": "prefill handoff" in out.get("error", ""),
                 "decode_hits": dec.post_hits, "fleet": router.statz()["fleet"]}
     finally:
@@ -441,8 +464,9 @@ def _died_mid_response(R, make):
     router = R(backends=[a.url, b.url], probe_interval_s=30).start()
     try:
         first = _post(router.url)[0]
-        states = {s.url: s for s in router.backend_states()}
+        states = {s.url: s for s in _settled(router).backend_states()}
         second = _seen(*_post(router.url))
+        _settled(router)
         return {"first": first, "a_error": states[a.url].last_error,
                 "a_in_rotation": states[a.url].in_rotation, "second": second,
                 "hits": [a.post_hits, b.post_hits], "fleet": router.statz()["fleet"]}

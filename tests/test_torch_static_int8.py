@@ -462,8 +462,8 @@ def test_device_rule_and_unported_ops(monkeypatch, port_static, tmp_path):
                                                             fetch_list=[y])[0])
     with pytest.raises(InvalidArgumentError, match="expected 1 inputs"):
         pred.run([a, a])
-    prog.global_block().append_op("while", {"X": [x.name]}, {"Out": [y.name]}, {})
-    with pytest.raises(UnimplementedError, match="while"):
+    prog.global_block().append_op("sequence_pool", {"X": [x.name]}, {"Out": [y.name]}, {})
+    with pytest.raises(UnimplementedError, match="sequence_pool"):
         exe.run(prog, feed={"x": a}, fetch_list=[y])
     with pytest.raises(InvalidArgumentError, match="neither fed"):
         exe.run(static.Program.from_dict(prog.to_dict()), feed={}, fetch_list=[x.name])

@@ -174,8 +174,7 @@ def test_backward_refuses_a_loss_without_parameters(both_static):
 
 
 def test_backward_refuses_a_loss_through_while(both_static):
-    """The taint check raises as the JAX one does, though the port has no
-    ``while`` to run."""
+    """The taint check raises as the JAX one does."""
     x = static.data("x", [None, 3], "float32")
     y = static.nn.fc(x, 3)
     block = static.default_main_program().global_block()
