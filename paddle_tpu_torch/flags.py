@@ -221,13 +221,48 @@ define_flag("generation_queue_capacity", 128,
             "max generation requests queued for decode slots before "
             "rejecting (backpressure: HTTP 429)")
 
-# generation/engine.py check_memory_budget — the engine's weights and KV
-# cache against the card's memory (torch.cuda.mem_get_info) at
-# construction: off | warn | strict.
+# static/executor.py Executor.run + analysis/verifier.py — verify the
+# program IR before it runs or is captured, raising a VerifyError naming the
+# offending op index/type/var instead of failing wherever torch fails.
+# Values: off | on | strict ("strict" promotes dead-code findings to
+# errors). The verdict is cached per program version.
+define_flag("program_verify", "on",
+            "verify program IR before lowering: off | on | strict "
+            "(strict also fails on dead ops/vars)")
+
+# static/executor.py + analysis/memory.py — static peak-memory admission:
+# before a program runs or is captured, plan its liveness footprint
+# (analysis.plan_memory) and compare the predicted peak against the card's
+# memory (torch.cuda.mem_get_info; FLAGS_device_peaks hbm_bytes= overrides
+# it). "strict" rejects over-budget programs (MemoryBudgetError naming the
+# high-water op and top tensors) and unsafe donations (DonationError);
+# "warn" warns and admits. generation/engine.py applies the same budget to
+# its weights and KV cache at construction.
 define_flag("memory_budget_check", "warn",
             "static peak-HBM admission before compile: off | warn | "
             "strict (strict rejects over-budget programs and unsafe "
             "donations with the high-water op named)")
+
+# static/executor.py Executor.run + inference/predictor.py +
+# analysis/optimizer.py — the program-IR optimizer gate, run after the
+# verify gate and before the memory gate. 0: off (programs run exactly as
+# built). 1: fusion rewrites onto the fused registry ops
+# (conv2d->batch_norm->relu onto fused_conv_bn_relu, residual-add->layer_norm
+# onto fused_layernorm_residual, dequantized-int8 matmul/mul chains onto
+# matmul_int8/mul_int8) plus side-effect-safe dead-op elimination. 2: level 1
+# plus rematerialization when the memory plan is over the budget. The
+# optimized clone caches per program version.
+define_flag("ir_opt_level", 1,
+            "program-IR optimizer level: 0 off, 1 fusion+DCE, "
+            "2 +rematerialization under memory pressure")
+
+# analysis/memory.py hbm_budget_bytes — 'hbm_bytes=<B>' overrides the card's
+# memory as the budget of the memory gate, the remat pass and the generation
+# engine; the JAX flag's other keys (flops, hbm_bw, ici_bw) are ignored: the
+# port has no utilization accounting yet.
+define_flag("device_peaks", "",
+            "override device peak throughputs for utilization accounting:"
+            " 'flops=<FLOP/s>,hbm_bw=<B/s>,ici_bw=<B/s>' (any subset)")
 
 # serving/backend.py — speculative decoding for a backend process. With a
 # draft model (the engine's draft_model=), every decode round runs the draft

@@ -86,8 +86,9 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..analysis.memory import MemoryBudgetError, _fmt_bytes, hbm_budget_bytes
 from ..device import resolve_device
-from ..errors import EnforceNotMet, InvalidArgumentError, PreconditionNotMetError
+from ..errors import InvalidArgumentError, PreconditionNotMetError
 from ..flags import flag
 from ..framework.jit import _captures, _first_run, _set_precision
 from ..monitor import counter
@@ -105,24 +106,6 @@ __all__ = ["GenerationEngine", "COMPILE_COUNTER", "MemoryBudgetError"]
 COMPILE_COUNTER = "generation::compile"
 
 _instances = itertools.count()
-
-
-class MemoryBudgetError(EnforceNotMet):
-    """The engine's weights and KV cache exceed the card's memory
-    (``FLAGS_memory_budget_check=strict``)."""
-
-    code = "MEMORY_BUDGET"
-
-    def __init__(self, message, budget_bytes=None):
-        self.budget_bytes = budget_bytes
-        super().__init__(message)
-
-
-def _fmt_bytes(n) -> str:
-    for unit in ("B", "KiB", "MiB", "GiB"):
-        if abs(n) < 1024 or unit == "GiB":
-            return f"{n:.1f} {unit}" if unit != "B" else f"{int(n)} B"
-        n /= 1024.0
 
 
 class GenerationEngine:
@@ -392,11 +375,11 @@ class GenerationEngine:
         return self.param_nbytes() + n * self.slot_nbytes(kv_cache_dtype)
 
     def _budget_bytes(self) -> int:
-        """The card's memory (``torch.cuda.mem_get_info``); 0, unknown, on
-        the CPU."""
-        if self.device.type != "cuda":
-            return 0
-        return int(torch.cuda.mem_get_info(self.device)[1])
+        """The memory budget of the engine's device
+        (``analysis.hbm_budget_bytes``: the card's memory, or
+        ``FLAGS_device_peaks`` ``hbm_bytes=``); 0, unknown, on the CPU
+        without the flag."""
+        return hbm_budget_bytes(self.device)
 
     def suggest_decode_slots(self, hbm_budget_bytes=None, kv_cache_dtype=None) -> int:
         """Decode slots that fit ``hbm_budget_bytes`` (default: the card's

@@ -1,19 +1,21 @@
-"""Load-time passes over an inference program (``paddle_tpu/inference/passes.py``).
+"""Inference IR passes: a facade over the program-IR optimizer (``paddle_tpu/inference/passes.py``).
 
-Constant folding and dead-op elimination, written directly over the
-program's global block (the JAX package delegates to its program-IR
-optimizer, which is not ported), with the same stats dictionary
-``Predictor.pass_stats`` shows: ``{ops_before, folded, dce_removed,
-ops_after}``.
+The Predictor's load-time pipeline (constant folding and dead-op
+elimination) is two of the passes registered in
+:mod:`paddle_tpu_torch.analysis.optimizer`, which ``Executor.run`` drives
+too; this module keeps the load-time API, ``IrPassManager`` and the two
+pass functions, and the legacy stats dictionary ``Predictor.pass_stats``
+shows: ``{ops_before, folded, dce_removed, ops_after}``. Folding runs the
+real kernels on the Predictor's device.
 """
 from __future__ import annotations
 
-from ..errors import NotFoundError
-from ..ops.registry import kernel
+from ..analysis import optimizer as _opt
 
 __all__ = ["IrPassManager", "constant_folding_pass", "dead_op_elimination_pass"]
 
-_BLOCK_OPS = ("while", "cond", "scan")
+# optimizer pass name -> legacy Predictor.pass_stats key
+_LEGACY_KEY = {"constant_folding": "folded", "dead_op_elimination": "dce_removed"}
 
 
 def constant_folding_pass(program, scope, feed_names, fetch_names, device=None):
@@ -24,91 +26,39 @@ def constant_folding_pass(program, scope, feed_names, fetch_names, device=None):
     real kernels, on ``device`` when one is given; its outputs become
     scope-resident persistable vars and the op leaves the block. A
     ``dequantize_static`` of an int8 weight folds this way. Returns the
-    number of ops folded.
+    number of ops folded. Delegates to the registered ``constant_folding``
+    optimizer pass.
     """
-    block = program.global_block()
-    for cname, cval in program._constants.items():
-        if not scope.has(cname):
-            scope.set(cname, cval)
-    available = set(scope.var_names())
-    feeds = set(feed_names)
-    folded = 0
-    keep = []
-    for op in block.ops:
-        ins = op.input_names()
-        outs = op.output_names()
-        foldable = (op.type not in _BLOCK_OPS + ("feed", "fetch")
-                    and not op.type.startswith("grad::") and not op.attrs.get("__rng__")
-                    and all(n in available and n not in feeds for n in ins) and any(outs))
-        if not foldable:
-            keep.append(op)
-            continue
-        attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
-        args = [scope.get(n) if device is None else scope.on(n, device) for n in ins]
-        out = kernel(op.type)(*args, **attrs)
-        results = list(out) if isinstance(out, (tuple, list)) else [out]
-        for name, value in zip(op.outputs.get("Out", []), results):
-            if not name or value is None:
-                continue
-            scope.set(name, value)
-            if block.has_var(name):
-                block.var(name).persistable = True
-            available.add(name)
-        folded += 1
-    if folded:
-        block.ops[:] = keep
-        program._version += 1
-    return folded
+    return _opt.constant_folding(
+        _opt.OptContext(program, feed_names, fetch_names, scope=scope, device=device))
 
 
 def dead_op_elimination_pass(program, fetch_names):
     """Remove global-block ops no fetch transitively depends on, to a
-    fixpoint; ops that write a persistable var or have no outputs stay.
-    Returns the number of ops removed."""
-    block = program.global_block()
-    fetches = set(fetch_names)
-    persist = {v.name for v in program.list_vars() if v.persistable}
-    removed_total = 0
-    while True:
-        uses = {}
-        for op in block.ops:
-            for n in op.input_names():
-                uses[n] = uses.get(n, 0) + 1
-        keep = []
-        for op in block.ops:
-            outs = [n for n in op.output_names() if n]
-            side_effecting = (op.type in _BLOCK_OPS or not outs
-                              or any(n in persist for n in outs))
-            if side_effecting or any(n in fetches or uses.get(n, 0) > 0 for n in outs):
-                keep.append(op)
-        removed = len(block.ops) - len(keep)
-        if not removed:
-            return removed_total
-        block.ops[:] = keep
-        program._version += 1
-        removed_total += removed
+    fixpoint; control flow, ``grad::`` replays, ``__inplace__`` ops,
+    persistable writers and ops without outputs stay. Returns the number
+    of ops removed. Delegates to the registered ``dead_op_elimination``
+    optimizer pass."""
+    return _opt.dead_op_elimination(_opt.OptContext(program, (), fetch_names))
 
 
 class IrPassManager:
-    """Ordered pass application with the legacy stats dictionary."""
-
-    _KNOWN = ("constant_folding", "dead_op_elimination")
+    """Ordered load-time pass application with the legacy stats
+    dictionary, over :class:`paddle_tpu_torch.analysis.optimizer.PassManager`
+    (which verifies the program before and after each pass that changed
+    it, and books per-pass counters)."""
 
     def __init__(self, passes=None):
-        self.passes = list(passes or self._KNOWN)
-        unknown = [p for p in self.passes if p not in self._KNOWN]
-        if unknown:
-            raise NotFoundError(f"unknown passes {unknown}; known: {list(self._KNOWN)}")
+        self.passes = list(passes or ["constant_folding", "dead_op_elimination"])
+        _opt.PassManager(self.passes)  # NotFoundError on unknown names, here
         self.stats = {}
 
     def apply(self, program, scope, feed_names, fetch_names, device=None):
         block = program.global_block()
         self.stats = {"ops_before": len(block.ops)}
-        for name in self.passes:
-            if name == "constant_folding":
-                self.stats["folded"] = constant_folding_pass(program, scope, feed_names,
-                                                             fetch_names, device)
-            else:
-                self.stats["dce_removed"] = dead_op_elimination_pass(program, fetch_names)
+        pm = _opt.PassManager(self.passes)
+        for st in pm.apply(program, feed_names, fetch_names, level=1, scope=scope,
+                           device=device):
+            self.stats[_LEGACY_KEY.get(st.name, st.name)] = st.ops_rewritten
         self.stats["ops_after"] = len(block.ops)
         return self.stats

@@ -7,7 +7,10 @@ wraps an ``nn.Module`` and the ``InputSpec``s of its positional inputs;
 :class:`ProgramPredictor`, which ``create_predictor(Config(dir))`` returns,
 loads a saved static program (``static.io.save_inference_model`` or
 ``slim`` ``save_int8_model`` of either package), runs the load-time passes
-and runs it with the static executor. Both run on the CUDA card unless
+(constant folding and dead-op elimination, ``paddle_tpu/inference/
+predictor.py:118-130``) and runs it with the static executor, whose gates
+verify it, rewrite its fusible chains onto the fused ops (and so the
+hand-written kernels) and plan its memory at each new signature. Both run on the CUDA card unless
 the caller passes ``device="cpu"``.
 
 On the card both replay a CUDA graph per input signature (a serving

@@ -2,7 +2,8 @@
 
 The hand-written CUDA kernels live in :mod:`.cuda`; the op kernels a saved
 Program names are registered in :mod:`.registry` by :mod:`.kernels` and
-:mod:`.quantize_kernels`, and the beam search pair by :mod:`.beam_search`. The functions here are the mode-aware front: under
+:mod:`.quantize_kernels`, the beam search pair by :mod:`.beam_search` and
+the IR optimizer's fused ops by :mod:`.fused_ops`. The functions here are the mode-aware front: under
 ``static.enable_static()`` a call on a symbolic ``Variable`` appends an
 ``OpDesc`` to the default program, otherwise it computes on torch tensors.
 Only the ops the ported static programs use are here.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import beam_search, kernels, quantize_kernels  # noqa: F401  (register their ops)
+from . import beam_search, fused_ops, kernels, quantize_kernels  # noqa: F401  (register their ops)
 from ..framework.dtype import dtype_name, torch_dtype
 from .registry import kernel
 

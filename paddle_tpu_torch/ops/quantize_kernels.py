@@ -26,7 +26,7 @@ from ..errors import UnimplementedError
 from ..flags import flag
 from ..framework.dtype import torch_dtype
 from .cuda.int8_matmul import int8_matmul
-from .registry import register_op
+from .registry import register_op, register_shape
 
 __all__ = []
 
@@ -111,3 +111,22 @@ def mul_int8(x, y, *, scale_x, scale_y, bit_length=8, y_bit_length=None, x_num_c
     acc = _contract(xs, ys)
     out = acc.to(torch.float32) * _dequant_constant(scale_x, scale_y, bit_length, y_bit_length)
     return out.reshape(tuple(x.shape[:x_num_col_dims]) + tuple(y.shape[y_num_col_dims:]))
+
+
+# the int8 products' shape rules: the wrapper raises on ``meta`` tensors, so
+# shape inference takes the float product of the same shapes
+
+
+@register_shape("matmul_int8")
+def _matmul_int8_shape(x, y, *, transpose_x=False, transpose_y=False, **kw):
+    if transpose_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x.float(), y.float())
+
+
+@register_shape("mul_int8")
+def _mul_int8_shape(x, y, *, x_num_col_dims=1, y_num_col_dims=1, **kw):
+    lead, tail = tuple(x.shape[:x_num_col_dims]), tuple(y.shape[y_num_col_dims:])
+    return torch.empty(lead + tail, dtype=torch.float32, device=x.device)

@@ -17,9 +17,11 @@ warmup, so a launcher polling for it never reads a half-written file or a
 backend that is not ready.
 
 ``--device`` picks the device (the card unless named; ``cpu`` is how a test
-asks for the CPU); the JAX CLI has no such flag. The JAX CLI's
-``--mesh-dp`` (ROADMAP.md Queue A item 9), its SLO install (item 10) and its
-``MemoryBudgetError`` refusal (which needs ``analysis/``) are not ported.
+asks for the CPU); the JAX CLI has no such flag. A geometry the memory
+budget refuses (``FLAGS_memory_budget_check=strict``) exits 2 with the
+``MemoryBudgetError`` on stderr, as the JAX CLI does. The JAX CLI's
+``--mesh-dp`` (ROADMAP.md Queue A item 9) and its SLO install (item 10) are
+not ported.
 """
 from __future__ import annotations
 
@@ -137,7 +139,15 @@ def _announce_port(path, port):
 
 def main(argv=None) -> int:
     args = _parse_args(argv)
-    srv = build_server(args)
+    from ..analysis import MemoryBudgetError
+
+    try:
+        srv = build_server(args)
+    except MemoryBudgetError as e:
+        # the geometry does not fit the card: refused at boot, naming the
+        # geometry that would fit
+        print(f"backend refused: {e}", file=sys.stderr, flush=True)
+        return 2
     srv.start(warmup=True)  # /healthz turns ready only after warmup
     if args.port_file:
         _announce_port(args.port_file, srv.port)

@@ -1,5 +1,21 @@
 """Static-graph executor (``paddle_tpu/static/executor.py``): an interpreter, captured once per signature on the card.
 
+Before a program runs, :meth:`Executor.run` passes it through the three
+gates of the JAX executor (``:769-826``), in its order: the verifier
+(``FLAGS_program_verify``, ``Program.verify``), the IR optimizer
+(``FLAGS_ir_opt_level``, ``analysis.optimize_program``: the fusions onto
+the fused registry ops and so onto the hand-written kernels, dead-op
+elimination, remat at level 2) and the memory budget
+(``FLAGS_memory_budget_check``, ``analysis.check_memory_budget`` against
+the card's memory). They run before anything is interpreted or captured,
+and the capture signature keys on the program they hand back, an
+optimized clone cached per program version (or the program itself where
+nothing was rewritten), so each verdict is a dictionary lookup at a
+replay. After a signature's first run on the card the measured peak closes
+the memory plan (``analysis.note_actual``). The interpreter frees each
+value of the global block after its last read (:func:`_last_reads`), the
+liveness the memory plan assumes.
+
 The interpreter (:class:`_BlockRunner`) walks the program's global block
 op by op, looks each op up in the registry and keeps the values in a
 dictionary; a control-flow op runs its sub-blocks the same way. The JAX
@@ -69,6 +85,8 @@ import itertools
 import numpy as np
 import torch
 
+from ..analysis import memory as _memory
+from ..analysis import optimizer as _iropt
 from ..device import resolve_device
 from ..errors import (FatalError, InvalidArgumentError, NotFoundError, UnimplementedError,
                       op_error_context)
@@ -85,6 +103,7 @@ from .program import OpDesc, default_main_program, default_startup_program
 __all__ = ["Scope", "global_scope", "Executor", "run_grad_op"]
 
 _BLOCK_OPS = ("while", "cond", "scan")
+_OFF = ("", "0", "off", "false", "no")
 
 _scope_tokens = itertools.count()
 
@@ -156,6 +175,7 @@ class Executor:
         self.store = GraphStore("executor")  # shared by a predictor's clones
         self._written_of = {}  # sig -> names of the written values a scanned graph returns
         self._while_of = {}  # (program token, version) -> whether it holds an unbounded while
+        self._drops_of = {}  # (program token, version, fetches) -> names freed after each op
 
     def run_startup(self, startup_program=None, scope=None):
         """Run the startup program (``paddle_tpu/static/executor.py:1101-1123``):
@@ -193,9 +213,6 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [v if isinstance(v, str) else v.name for v in (fetch_list or [])]
         block = program.global_block()
-        for cname, cval in program._constants.items():
-            if not scope.has(cname):
-                scope.set(cname, cval)
         names = list(feed)
         values = []
         for name, value in feed.items():
@@ -204,6 +221,12 @@ class Executor:
                 value = np.asarray(value)  # a 0-d feed stays 0-d
                 value = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape))
             values.append(value.to(dtype=dtype))
+        program, mem_plan = self.gate(program, names, fetch_names,
+                                      {n: tuple(v.shape) for n, v in zip(names, values)})
+        block = program.global_block()
+        for cname, cval in program._constants.items():
+            if not scope.has(cname):
+                scope.set(cname, cval)
         read = _to_host if return_numpy else clone_outputs
         scan = bool(flag("check_nan_inf"))
         written_names = []  # with scan: the names of the written values the run returns
@@ -234,7 +257,8 @@ class Executor:
                 if entry is None:
                     inputs = [v.to(self.device, copy=True) for v in values]
                     with compiled_step():
-                        out = _first_run(self.device, lambda: interpret(*inputs))
+                        with self._measured(sig, mem_plan):
+                            out = _first_run(self.device, lambda: interpret(*inputs))
                         store.capture(sig, interpret, inputs,
                                       _random.graph_generators(self.device))
                     self._written_of[sig] = list(written_names)
@@ -243,6 +267,49 @@ class Executor:
             written_names[:] = self._written_of[sig]
             return scanned(store.replay(entry, *values, read=clone_outputs))
         return store.replay(entry, *values, read=read)
+
+    def gate(self, program, feed_names, fetch_names, feed_shapes):
+        """The three gates of :meth:`run`, in the JAX executor's order
+        (``paddle_tpu/static/executor.py:769-826``): verify the program as
+        written (``FLAGS_program_verify``: off | on | strict), optimize it
+        (``FLAGS_ir_opt_level``), plan its memory against the card's
+        (``FLAGS_memory_budget_check``: off | warn | strict). Returns (the
+        program to run, its memory plan or None). Each verdict is cached on
+        the program per version, so a replay pays lookups only."""
+        feed_names = sorted(feed_names)
+        verify_level = str(flag("program_verify")).strip().lower()
+        if verify_level not in _OFF:
+            program.verify(feed_names=feed_names, fetch_list=fetch_names,
+                           level="strict" if verify_level == "strict" else "on")
+        try:
+            ir_level = int(str(flag("ir_opt_level")).strip() or "0")
+        except ValueError:
+            ir_level = 0
+        if ir_level > 0:
+            program = _iropt.optimize_program(program, feed_names, fetch_names, level=ir_level,
+                                              feed_shapes=feed_shapes, device=self.device).program
+        mem_plan = None
+        budget_level = str(flag("memory_budget_check")).strip().lower()
+        if budget_level not in _OFF:
+            mem_plan = _memory.check_memory_budget(
+                program, feed_names, fetch_names, feed_shapes=feed_shapes,
+                level="strict" if budget_level == "strict" else "warn",
+                budget_bytes=_memory.hbm_budget_bytes(self.device))
+        return program, mem_plan
+
+    @contextlib.contextmanager
+    def _measured(self, sig, plan):
+        """On the card, the device's peak allocation over the block:
+        closes ``plan`` against it (``analysis.note_actual``)."""
+        if plan is None or self.device.type != "cuda":
+            yield
+            return
+        torch.cuda.reset_peak_memory_stats(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        yield
+        actual, transient = _memory.measured_peak(
+            before, torch.cuda.max_memory_allocated(self.device), plan)
+        _memory.note_actual(_memory.MeasuredRun(sig, "executor", actual, transient), plan)
 
     def _uncapturable(self, program):
         """Whether ``program`` holds an unbounded ``while`` (looked up once
@@ -288,7 +355,11 @@ class Executor:
         capture and an uncaptured run."""
         written = {}  # persistable name -> its value after the run
         runner = _BlockRunner(block.program, scope, self.device)
-        runner.exec_block(block, env, written, ())
+        key = (block.program._identity_token, block.program._version, tuple(fetch_names))
+        drops = self._drops_of.get(key)
+        if drops is None:
+            drops = self._drops_of[key] = _last_reads(block, set(fetch_names))
+        runner.exec_block(block, env, written, (), drops)
         fetched = [runner.value(env, n) for n in fetch_names]
         if written_names is not None:
             written_names[:] = list(written)
@@ -322,11 +393,13 @@ class _BlockRunner:
         raise InvalidArgumentError(
             f"variable {name!r} is neither fed, computed by an earlier op, nor in the scope")
 
-    def exec_block(self, block, env, written, path):
+    def exec_block(self, block, env, written, path, drops=None):
         """``block``'s ops on ``env`` (updated in place); each persistable
         an op writes goes into ``written`` (None: such a write raises, as
-        in a while's condition block)."""
-        for op in block.ops:
+        in a while's condition block). ``drops`` (op index -> names) are
+        taken out of ``env`` after the op, each value after its last
+        read."""
+        for i, op in enumerate(block.ops):
             results = self._exec_op(op, env, written, path)
             for n, v in zip(op.outputs.get("Out", []), results):
                 if not n or v is None:
@@ -338,6 +411,8 @@ class _BlockRunner:
                             f"op {op.type!r} writes persistable var {n!r} inside a "
                             "while-condition block; stateful updates belong in the loop body")
                     written[n] = v
+            for n in (drops.get(i, ()) if drops else ()):
+                env.pop(n, None)
 
     def _exec_op(self, op, env, written, path):
         attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
@@ -463,6 +538,50 @@ class _BlockRunner:
             selected[n] = torch.where(pred, t, f)
         self._merge_writes(env, written, selected, op)
         return [torch.where(pred, t, f) for t, f in zip(t_outs, f_outs)]
+
+
+# a control-flow op's attributes naming what its sub-blocks hand back: a
+# branch or a body may hand back an enclosing block's name as it is
+_SUB_OUT_ATTRS = ("__cond_out__", "__body_outs__", "__carry_outs__", "__y_outs__",
+                  "__true_outs__", "__false_outs__")
+
+
+def _block_reads(program, op, seen):
+    """The names ``op`` reads: its inputs and, for a control-flow op (or
+    its ``grad::`` replay, which carries the forward's attributes), every
+    name read in its sub-blocks, nested ones included."""
+    names = [n for ns in op.inputs.values() for n in ns if n]
+    subs = [v for k, v in op.attrs.items()
+            if k in BLOCK_ATTR_KEYS and isinstance(v, int) and 0 < v < len(program.blocks)]
+    if subs:
+        for k in _SUB_OUT_ATTRS:
+            v = op.attrs.get(k) or ()
+            names.extend([v] if isinstance(v, str) else [n for n in v if n])
+    for v in subs:
+        if v not in seen:
+            seen.add(v)
+            for sub in program.blocks[v].ops:
+                names.extend(_block_reads(program, sub, seen))
+    return names
+
+
+def _last_reads(block, keep):
+    """op index -> the names of ``block`` to free after that op: each name
+    the block reads or writes, after the last op that touches it (its last
+    read, or its write when nothing reads it later); names in ``keep`` (the
+    fetches) stay. What the memory planner's intervals assume
+    (``analysis/memory.py``)."""
+    last = {}
+    for i, op in enumerate(block.ops):
+        for n in _block_reads(block.program, op, set()):
+            last[n] = i
+        for n in (n for ns in op.outputs.values() for n in ns if n):
+            last[n] = i
+    drops = {}
+    for n, i in last.items():
+        if n not in keep:
+            drops.setdefault(i, []).append(n)
+    return drops
 
 
 def _holds_unbounded_while(program, block_idxs=(0,)):

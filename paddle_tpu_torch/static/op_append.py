@@ -3,8 +3,10 @@
 The mode-aware front (:mod:`paddle_tpu_torch.ops`) calls
 :func:`append_static_op` when static mode is on. An output's shape and
 dtype come from running the registered kernel on ``meta`` tensors (the
-counterpart of ``jax.eval_shape``), so there are no hand-written shape
-rules; a dynamic (-1) axis stands in as an unusual prime and is restored.
+counterpart of ``jax.eval_shape``; ``ops/registry.py`` ``eval_meta``), so
+the only hand-written shape rules are those of the ops whose kernels
+cannot run there; a dynamic (-1) axis stands in as an unusual prime and is
+restored.
 An op without tensor inputs (a random op's ``shape`` attribute) runs there
 under ``torch.device("meta")``, so shape inference draws nothing.
 
@@ -16,13 +18,11 @@ the forward's draws.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..errors import InvalidArgumentError
-from ..ops.registry import kernel
+from ..ops.registry import eval_meta
 from ..framework.dtype import dtype_name, torch_dtype
 from .program import Variable, default_main_program
 
@@ -71,8 +71,7 @@ def append_static_op(op_type, tensors, attrs, alias_outputs=None):
                 for t in tensors]
     metas = [_meta_of(t) for t in tensors]
     try:
-        with contextlib.nullcontext() if tensors else torch.device("meta"):
-            out = kernel(op_type)(*metas, **attrs)
+        out = eval_meta(op_type, metas, attrs)
     except Exception as e:  # noqa: BLE001 — any kernel error is a shape-inference failure here
         raise InvalidArgumentError(
             f"shape inference failed for operator {op_type!r} with input shapes "

@@ -183,6 +183,63 @@ class Program:
     def global_block(self) -> Block:
         return self.blocks[0]
 
+    def verify(self, feed_names=(), fetch_list=(), level="on"):
+        """Run the program-IR verifier (``analysis/``) over this program
+        (``paddle_tpu/static/program.py:254-290``).
+
+        Returns the :class:`~paddle_tpu_torch.analysis.VerifyReport` when
+        the program is well-formed (it may carry warnings); raises
+        :class:`~paddle_tpu_torch.analysis.VerifyError` naming the
+        offending block, op index, op type and var otherwise.
+        ``level="strict"`` also fails on dead code.
+
+        The verdict is cached per (program version, variable count, feeds,
+        fetches, level): ``append_op`` and ``_create_block`` move the
+        version, and the variable count re-arms a cached verdict when a
+        variable is declared (``create_var`` moves no version), so the
+        executor's automatic call costs one dict lookup in steady state.
+        """
+        fetch_names = tuple(v if isinstance(v, str) else v.name for v in (fetch_list or ()))
+        n_vars = sum(len(b.vars) for b in self.blocks)
+        key = (self._version, n_vars, tuple(sorted(feed_names or ())), fetch_names, level)
+        # __dict__: a program built through from_dict has no cache attribute yet
+        cache = self.__dict__.setdefault("_verify_cache", {})
+        hit = cache.get(key)
+        if hit is not None:
+            cache.pop(key, None)
+            cache[key] = hit  # LRU refresh
+            if isinstance(hit, Exception):
+                # a fresh traceback each raise: the cached instance's would grow
+                raise hit.with_traceback(None)
+            return hit
+        from ..analysis import VerifyError, verify_program
+
+        try:
+            verdict = verify_program(self, key[2], fetch_names, level)
+        except VerifyError as e:
+            verdict = e
+        cache[key] = verdict
+        while len(cache) > 64:
+            try:  # replica pools verify from several threads
+                cache.pop(next(iter(cache)), None)
+            except (StopIteration, RuntimeError):
+                break
+        if isinstance(verdict, Exception):
+            raise verdict
+        return verdict
+
+    def plan_memory(self, feed_names=(), fetch_list=(), feed_shapes=None, top_k=8):
+        """Static liveness and peak-memory plan of this program
+        (:func:`paddle_tpu_torch.analysis.plan_memory`): the predicted peak
+        resident bytes, the high-water op, the per-op resident curve and the
+        top-K largest live tensors, from the IR alone. ``feed_shapes``
+        (``{name: shape}``) concretizes ``-1`` batch dims."""
+        from ..analysis import plan_memory as _plan
+
+        fetch_names = tuple(v if isinstance(v, str) else v.name for v in (fetch_list or ()))
+        return _plan(self, tuple(feed_names or ()), fetch_names, feed_shapes=feed_shapes,
+                     top_k=top_k)
+
     def current_block(self) -> Block:
         return self.blocks[_current_block_idx[-1]] if _current_block_idx else self.blocks[0]
 

@@ -23,6 +23,7 @@ from paddle_tpu.serving import backend as jbackend  # noqa: E402
 import paddle_tpu_torch as ptt  # noqa: E402
 from paddle_tpu_torch import flags as pflags  # noqa: E402
 from paddle_tpu_torch import models as pmodels  # noqa: E402
+from paddle_tpu_torch import monitor as pmon  # noqa: E402
 from paddle_tpu_torch import static  # noqa: E402
 from paddle_tpu_torch.inference import Config, create_predictor  # noqa: E402
 from paddle_tpu_torch.serving import GenerationServer, InferenceServer  # noqa: E402
@@ -71,6 +72,10 @@ def test_build_server_for_each_kind(kind, dirs):
         argv = ["--kind", kind, "--model-dir", model_dir, "--device", "cpu", "--buckets", "1,2"]
     else:
         argv = ["--kind", kind, "--gpt-dir", gpt_dir] + GEN
+    # the counter is the process's: what ran before in it may have booked captures
+    unexpected = pmon.counter("serving/unexpected_compiles" if kind == "predict"
+                              else "serving/gen_unexpected_compiles")
+    base = unexpected.value
     srv = pbackend.build_server(pbackend._parse_args(argv))
     try:
         if kind == "predict":
@@ -83,7 +88,7 @@ def test_build_server_for_each_kind(kind, dirs):
             assert e.prefill_buckets == (4, 8) and not e.speculative
         srv.start()
         lz = srv.loadz()
-        assert lz["kind"] == kind and lz["ready"] and lz["compiles"]["unexpected"] == 0
+        assert lz["kind"] == kind and lz["ready"] and lz["compiles"]["unexpected"] == base
     finally:
         srv.stop(drain=False)
 

@@ -36,6 +36,8 @@ from paddle_tpu.inference import create_predictor as jcreate_predictor  # noqa: 
 
 import paddle_tpu_torch as ptt  # noqa: E402
 from paddle_tpu_torch import convert, ops, slim, static  # noqa: E402
+from paddle_tpu_torch import flags as pflags  # noqa: E402
+from paddle_tpu_torch.analysis import VerifyError  # noqa: E402
 from paddle_tpu_torch.errors import InvalidArgumentError, UnimplementedError  # noqa: E402
 from paddle_tpu_torch.framework import serialization  # noqa: E402
 from paddle_tpu_torch.inference import Config, Predictor, ProgramPredictor  # noqa: E402
@@ -463,6 +465,14 @@ def test_device_rule_and_unported_ops(monkeypatch, port_static, tmp_path):
     with pytest.raises(InvalidArgumentError, match="expected 1 inputs"):
         pred.run([a, a])
     prog.global_block().append_op("sequence_pool", {"X": [x.name]}, {"Out": [y.name]}, {})
+    # the verifier names the unported op before anything runs ...
+    with pytest.raises(VerifyError, match="sequence_pool") as ei:
+        exe.run(prog, feed={"x": a}, fetch_list=[y])
+    assert ei.value.op_type == "sequence_pool"
+    assert any(f.op_type == "sequence_pool" and f.pass_name == "dtype-consistency"
+               and "not in the kernel registry" in f.message for f in ei.value.report.errors)
+    # ... and with it off, the interpreter's own errors stand where they did
+    monkeypatch.setattr(pflags._REGISTRY["program_verify"], "value", "off")
     with pytest.raises(UnimplementedError, match="sequence_pool"):
         exe.run(prog, feed={"x": a}, fetch_list=[y])
     with pytest.raises(InvalidArgumentError, match="neither fed"):
