@@ -306,6 +306,22 @@ Phases, each fatal on failure:
     backends' own, ``/fleetz`` grouped by kind; SIGTERM -> drain -> exit 0
     and no listener left; p50/p99 routed against direct, tokens/s unified
     against disaggregated, the phase's seconds;
+12m. Paddle's dygraph front end, as a user script (``import
+    paddle_tpu_torch as paddle`` and its public names): ResNet-50 v1.5 at
+    224 x 224 and 1,000 classes written from ``nn.Layer``, ``nn.Conv2D``,
+    ``nn.BatchNorm2D``, ``nn.ReLU``/``F.relu``, ``nn.MaxPool2D``,
+    ``nn.AdaptiveAvgPool2D``, ``paddle.add``, ``paddle.flatten`` and
+    ``nn.Linear``, its weights ``set_state_dict`` from step 8's
+    ``models.resnet50``; (a) three dygraph steps at batch 32 under
+    ``paddle.optimizer.Momentum`` with ``FLAGS_use_pallas_pool_bwd`` on,
+    the first loss against ``models.resnet50``'s, rows 14 and 16 launched;
+    (b) ``paddle.jit.save`` served by ``create_predictor`` at buckets 1, 8
+    and 32 against the dygraph eval forward, 33 fused conv + bn + relu
+    launches a forward, the optimized program's chains and pairs those of
+    11b's program, forward ms a bucket; (c) ``paddle.jit.load`` against
+    ``paddle.jit.to_static`` (one capture, then replays), and a
+    ``to_static`` function that reads the host refused; the phase's
+    seconds;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -8930,6 +8946,251 @@ def serve_fleet(card):
     return counts, r
 
 
+# -- Paddle's dygraph front end: a Paddle-style ResNet-50 (phase 12m) ------------------------
+
+DY_BATCH, DY_STEPS = 32, 3  # the dygraph steps at bench.py's ResNet batch
+DY_HEAD_OURS = ("adaptive_pool2d", "flatten", "linear")  # the head jit.save writes
+DY_HEAD_STATIC = ("reduce_mean", "mul")  # and build_static_resnet's (+ the fc's bias add)
+
+
+def paddle_style_resnet(paddle, stages=RN_STAGES, classes=RN_CLASSES):
+    """ResNet-50 v1.5 (the stride on the 3x3 conv) as a Paddle user writes it
+    with ``paddle``'s public names (either package's), its sublayers named as
+    ``models/resnet.py`` names them (``conv1``, ``layer1.0.bn2``,
+    ``layer2.0.downsample.0``, ``fc``) so a ``models.resnet50`` state dict
+    sets it."""
+    nn, F = paddle.nn, paddle.nn.functional
+
+    class Bottleneck(nn.Layer):
+        def __init__(self, inplanes, planes, stride=1, downsample=None):
+            super().__init__()
+            self.conv1 = nn.Conv2D(inplanes, planes, 1, bias_attr=False)
+            self.bn1 = nn.BatchNorm2D(planes)
+            self.conv2 = nn.Conv2D(planes, planes, 3, stride=stride, padding=1, bias_attr=False)
+            self.bn2 = nn.BatchNorm2D(planes)
+            self.conv3 = nn.Conv2D(planes, planes * 4, 1, bias_attr=False)
+            self.bn3 = nn.BatchNorm2D(planes * 4)
+            self.relu = nn.ReLU()
+            self.downsample = downsample
+
+        def forward(self, x):
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = F.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            identity = x if self.downsample is None else self.downsample(x)
+            return F.relu(paddle.add(out, identity))
+
+    class ResNet50(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2D(3, 64, 7, stride=2, padding=3, bias_attr=False)
+            self.bn1 = nn.BatchNorm2D(64)
+            self.relu = nn.ReLU()
+            self.maxpool = nn.MaxPool2D(kernel_size=3, stride=2, padding=1)
+            inplanes = 64
+            for i, blocks in enumerate(stages):
+                planes, stride = 64 * 2 ** i, 1 if i == 0 else 2
+                downsample = nn.Sequential(
+                    nn.Conv2D(inplanes, planes * 4, 1, stride=stride, bias_attr=False),
+                    nn.BatchNorm2D(planes * 4))
+                layers = [Bottleneck(inplanes, planes, stride, downsample)]
+                inplanes = planes * 4
+                layers += [Bottleneck(inplanes, planes) for _ in range(1, blocks)]
+                setattr(self, f"layer{i + 1}", nn.Sequential(*layers))
+            self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
+            self.fc = nn.Linear(inplanes, classes)
+
+        def forward(self, x):
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            for i in range(len(stages)):
+                x = getattr(self, f"layer{i + 1}")(x)
+            return self.fc(paddle.flatten(self.avgpool(x), 1))
+
+    return ResNet50()
+
+
+def _dy_rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _dy_train(paddle, net, ref):
+    """(a) ``DY_STEPS`` dygraph Momentum steps of ``net`` at batch
+    ``DY_BATCH`` with the max-pool backward kernel on; the first loss
+    against ``ref`` (``models.resnet50``, the same weights, on the card).
+    Returns (launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    F = paddle.nn.functional
+    rng = np.random.RandomState(61)
+    x = paddle.to_tensor(rng.randn(DY_BATCH, 3, RN_HW, RN_HW).astype(np.float32))
+    y = paddle.to_tensor(rng.randint(0, RN_CLASSES, (DY_BATCH,)).astype(np.int64))
+    ref.train()
+    with torch.no_grad():
+        ref_loss = float(F.cross_entropy(ref(x), y))
+    opt = paddle.optimizer.Momentum(RN_LR, RN_MOMENTUM, parameters=net.parameters())
+    net.train()
+    losses, step_ms = [], []
+    with _flags(use_pallas_pool_bwd=True):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for _ in range(DY_STEPS):
+            t0 = time.perf_counter()
+            loss = F.cross_entropy(net(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+    r = {"losses": losses, "ref_loss": ref_loss, "loss_err": abs(losses[0] - ref_loss),
+         "step_wall_ms": step_ms,
+         "launches": {k: v for k, v in counts.items() if v}}
+    log(f"dygraph ResNet-50, {DY_STEPS} Momentum steps at batch {DY_BATCH}: {r} "
+        f"(limit {RN_LOSS_ATOL})")
+    if (not np.all(np.isfinite(losses)) or r["loss_err"] > RN_LOSS_ATOL
+            or not counts["momentum_update"] or not counts["max_pool2d_backward"]):
+        raise AssertionError(f"dygraph ResNet-50 training: {r}")
+    return counts, r
+
+
+def _dy_program_types(program, feed, fetch):
+    """Op types of ``program`` as the IR gate optimizes it at bucket 1."""
+    import collections
+
+    from paddle_tpu_torch.analysis import optimize_program
+
+    res = optimize_program(program, [feed], [fetch], feed_shapes={feed: (1, 3, RN_HW, RN_HW)})
+    return collections.Counter(op.type for op in res.program.global_block().ops)
+
+
+def _dy_serve(paddle, net, dirname):
+    """(b) ``jit.save`` of ``net`` served at buckets ``RN_BUCKETS`` through
+    ``create_predictor`` against the dygraph eval forward; 33 fused launches
+    a forward; the optimized program against ``build_static_resnet``'s.
+    Returns (launches, readings, predictor)."""
+    import torch
+
+    from paddle_tpu_torch import ops, static
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    paddle.jit.save(net, dirname, input_spec=[
+        paddle.jit.InputSpec([None, 3, RN_HW, RN_HW], "float32", "image")])
+    r = {"save_s": time.perf_counter() - t0}
+    pred = create_predictor(Config(dirname))
+    fetch = pred.get_output_names()[0]
+    ours = _dy_program_types(pred._program, "image", fetch)
+    static.enable_static()
+    static.reset_default_programs()
+    try:
+        _, logits = build_static_resnet(static, ops)
+        theirs = _dy_program_types(static.default_main_program(), "image", logits.name)
+    finally:
+        static.disable_static()
+        static.reset_default_programs()
+    body = {t: n for t, n in ours.items() if t not in DY_HEAD_OURS}
+    body_static = {t: n for t, n in theirs.items() if t not in DY_HEAD_STATIC}
+    body_static["elementwise_add"] -= 1  # the fc's bias
+    r["ops"] = dict(ours)
+    r["static_ops"] = dict(theirs)
+    log(f"dygraph ResNet-50 saved in {r['save_s']:.1f} s; optimized ops {r['ops']}; 11b's "
+        f"program {r['static_ops']}")
+    if (body != body_static or ours["fused_conv_bn_relu"] != RN_TRIPLES
+            or ours["conv2d"] != RN_UNFUSED_PAIRS or ours["batch_norm"] != RN_UNFUSED_PAIRS
+            or any(ours[t] != 1 for t in DY_HEAD_OURS)):
+        raise AssertionError(f"jit.save program {dict(ours)} against {dict(theirs)}")
+    rng = np.random.RandomState(67)
+    feeds = {b: rng.randn(b, 3, RN_HW, RN_HW).astype(np.float32) for b in RN_BUCKETS}
+    net.eval()
+    with torch.no_grad():
+        want = {b: net(paddle.to_tensor(f)).numpy() for b, f in feeds.items()}
+    got = {b: pred.run([f])[0] for b, f in feeds.items()}  # the captures
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for f in feeds.values():
+        pred.run([f])
+    counts = launch_counts()
+    r["errors"] = {b: _dy_rel(got[b], want[b]) for b in RN_BUCKETS}
+    r["replay_launches"] = {k: v for k, v in counts.items() if v}
+    log(f"jit.save program served at buckets {RN_BUCKETS}: max err over the largest |logit| "
+        f"{r['errors']} (limit {RN_SERVE_RTOL}); launches over {len(feeds)} replays "
+        f"{r['replay_launches']}")
+    if (max(r["errors"].values()) > RN_SERVE_RTOL
+            or r["replay_launches"] != {"conv_bn_relu_mm_affine_relu": RN_TRIPLES * len(feeds)}
+            or any(got[b].shape != (b, RN_CLASSES) for b in RN_BUCKETS)):
+        raise AssertionError(f"jit.save program served: {r}")
+    r["forward_ms"] = _static_forward_ms(pred, RN_BUCKETS, "jit.save ResNet-50")
+    r["forward_ms_11b_pr23"] = {1: 2.0, 8: 6.05, 32: 19.5}
+    return counts, r, feeds, want
+
+
+def _dy_load_and_replay(paddle, net, dirname, feeds, want):
+    """(c) ``jit.load`` and ``to_static`` agree (the store captures once,
+    then replays), and a ``to_static`` function that reads the host
+    refuses instead of running eagerly."""
+    loaded = paddle.jit.load(dirname)
+    static_net = paddle.jit.to_static(net)
+    b = RN_BUCKETS[1]
+    x = paddle.to_tensor(feeds[b])
+    by_load = loaded(x).numpy()
+    by_static = [static_net(x).numpy() for _ in range(2)]
+    store = static_net.forward.store
+    r = {"load_vs_eager": _dy_rel(by_load, want[b]),
+         "to_static_vs_load": _dy_rel(by_static[1], by_load),
+         "to_static_replay_vs_first": _dy_rel(by_static[1], by_static[0]),
+         "captures": store.misses, "replays": store.hits}
+
+    @paddle.jit.to_static
+    def reads_host(t):
+        if paddle.sum(t) > 0:
+            return paddle.scale(t, 2.0)
+        return t
+
+    try:
+        reads_host(x)
+        r["host_read"] = "ran"
+    except Exception as e:  # noqa: BLE001 — what matters is that it refused
+        r["host_read"] = f"{type(e).__name__}: {str(e)[:120]}"
+    log(f"jit.load and to_static at bucket {b}: {r}")
+    if (max(r["load_vs_eager"], r["to_static_vs_load"]) > RN_SERVE_RTOL
+            or r["captures"] != 1 or r["replays"] < 1 or r["host_read"] == "ran"
+            or len(reads_host.store)):
+        raise AssertionError(f"jit.load / to_static: {r}")
+    return r
+
+
+def dygraph_resnet():
+    """Phase 12m. A Paddle-style ResNet-50 trained in dygraph, saved with
+    ``jit.save``, served, loaded and replayed through ``to_static``.
+    Returns (kernel launches per name over the phase, readings)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    t_phase = time.perf_counter()
+    ref = _resnet50(seed=0).to("cuda")
+    net = paddle_style_resnet(paddle)
+    missing, unexpected = net.set_state_dict(ref.state_dict())
+    if missing or unexpected:
+        raise AssertionError(f"set_state_dict: missing {missing}, unexpected {unexpected}")
+    train_counts, r = _dy_train(paddle, net, ref)
+    del ref
+    torch.cuda.empty_cache()
+    r = {"training": r}
+    with tempfile.TemporaryDirectory(prefix="ptt_jit_save_") as dirname:
+        serve_counts, r["serving"], feeds, want = _dy_serve(paddle, net, dirname)
+        r["load_replay"] = _dy_load_and_replay(paddle, net, dirname, feeds, want)
+    counts = {k: train_counts.get(k, 0) + serve_counts.get(k, 0) for k in train_counts}
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"dygraph front end: phase 12m done in {r['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return counts, r
+
+
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
@@ -9067,6 +9328,7 @@ def main() -> int:
     spec_counts, gpt_spec = serve_gpt_speculative()
     torch.cuda.empty_cache()
     fleet_counts, fleet = serve_fleet(card)
+    dygraph_counts, dygraph = dygraph_resnet()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -9086,9 +9348,12 @@ def main() -> int:
                                     + spec_counts.get(name, 0))
         # the predict backend processes of the fleet (12l), read from their /statz
         k["launches_fleet"] = fleet_counts.get(name, 0)
+        # the Paddle-style ResNet-50 of 12m: its dygraph steps and its jit.save
+        # program's replays
+        k["launches_dygraph"] = dygraph_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"]
-                         + k["launches_fleet"])
+                         + k["launches_fleet"] + k["launches_dygraph"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -9098,7 +9363,8 @@ def main() -> int:
                       "lenet_static": lenet, "ptb_lm_static": ptb, "bert_lamb": lamb,
                       "lenet_optimizers": lenet_opt,
                       "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
-                      "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet}))
+                      "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet,
+                      "dygraph_front_end": dygraph}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

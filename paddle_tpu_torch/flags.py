@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 from .errors import InvalidArgumentError, NotFoundError
 
-__all__ = ["define_flag", "set_flags", "flag"]
+__all__ = ["define_flag", "set_flags", "get_flags", "flag"]
 
 
 @dataclass
@@ -47,6 +47,11 @@ def flag(name: str):
         return _REGISTRY[name].value
     except KeyError:
         raise NotFoundError(f"unknown flag {name!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def get_flags(names):
+    """``{name: value}`` of a flag name or a list of them."""
+    return {n: flag(n) for n in ([names] if isinstance(names, str) else names)}
 
 
 def set_flags(flags_map: dict):

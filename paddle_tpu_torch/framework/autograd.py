@@ -1,4 +1,12 @@
-"""The AMP cast seam of the port's ops (``paddle_tpu/framework/autograd.py:84-104``).
+"""Gradient switches and the AMP cast seam of the port's ops
+(``paddle_tpu/framework/autograd.py``).
+
+``no_grad``, ``enable_grad``, ``is_grad_enabled`` and ``grad`` are
+``torch.autograd``'s: torch records the tape the JAX package keeps by hand
+(``:32``, ``:241``). ``no_grad`` works as a context manager and as a
+decorator.
+
+The AMP cast seam (``:84-104``):
 
 The JAX package casts an op's inputs where it dispatches the op
 (``apply_op`` consults ``_amp_hook``); the port runs torch eagerly and has
@@ -12,7 +20,33 @@ receives its gradient in f32.
 """
 from __future__ import annotations
 
-__all__ = ["set_amp_hook", "amp_cast"]
+import torch
+
+__all__ = ["set_amp_hook", "amp_cast", "no_grad", "enable_grad", "is_grad_enabled", "grad"]
+
+no_grad = torch.no_grad
+enable_grad = torch.enable_grad
+is_grad_enabled = torch.is_grad_enabled
+
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=False, allow_unused=False):
+    """The gradients of ``outputs`` with respect to ``inputs`` (a list, one
+    entry an input; None for an input ``outputs`` does not reach when
+    ``allow_unused``), leaving every ``.grad`` as it was."""
+    from .tensor import wrap
+
+    outputs = list(outputs) if isinstance(outputs, (list, tuple)) else [outputs]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    if grad_outputs is not None and not isinstance(grad_outputs, (list, tuple)):
+        grad_outputs = [grad_outputs]
+    try:
+        got = torch.autograd.grad(outputs, inputs, grad_outputs=grad_outputs,
+                                  retain_graph=retain_graph, allow_unused=allow_unused)
+    except RuntimeError as e:
+        if "not have been used in the graph" in str(e):
+            raise RuntimeError("one of the inputs has no gradient; pass allow_unused=True") from e
+        raise
+    return [None if g is None else wrap(g) for g in got]
 
 # (op_type, tensors) -> tensors; installed by paddle_tpu_torch.amp
 _amp_hook = None

@@ -60,12 +60,15 @@ def default_generator(device=None) -> torch.Generator:
 
 def seed(value: int) -> torch.Generator:
     """Set the global seed (``paddle.seed``): every default generator, made
-    or still to be made, starts over from ``value``. Returns the CPU's."""
+    or still to be made, starts over from ``value``, and so do torch's own
+    (which draw a layer's parameters when no generator is given). Returns
+    the CPU's."""
     global _seed
     with _lock:
         _seed = int(value)
         for gen in _generators.values():
             gen.manual_seed(_seed)
+    torch.manual_seed(_seed)
     return default_generator("cpu")
 
 

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 
@@ -60,7 +61,7 @@ def bert_tiny_config() -> BertConfig:
     )
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, cfg: BertConfig, generator=None, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
@@ -82,7 +83,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, cfg: BertConfig, generator=None, device=None):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size, generator=generator, device=device)
@@ -106,7 +107,7 @@ def _init_bert_weights(model, initializer_range, generator=None):
                 p.zero_()
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """``forward(input_ids, token_type_ids=None, position_ids=None,
     attention_mask=None) -> (sequence_output, pooled_output)``."""
 
@@ -135,7 +136,7 @@ class BertModel(nn.Module):
         return seq, self.pooler(seq)
 
 
-class BertLMPredictionHead(nn.Module):
+class BertLMPredictionHead(Layer):
     """MLM head whose decoder weight is the input embedding table ``[V, H]``
     (tied). The tied weight stays registered under the embeddings alone,
     so the state dict names it once, as the JAX package's does."""
@@ -159,7 +160,7 @@ class BertLMPredictionHead(nn.Module):
         return F.matmul(x, self.decoder_weight, transpose_y=True) + self.decoder_bias
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """MLM + next-sentence-prediction pretraining model:
     ``forward(input_ids, token_type_ids=None, position_ids=None,
     attention_mask=None, masked_positions=None) -> (prediction_scores,
@@ -179,7 +180,7 @@ class BertForPretraining(nn.Module):
         return self.cls(seq, masked_positions), self.seq_relationship(pooled)
 
 
-class BertPretrainingCriterion(nn.Module):
+class BertPretrainingCriterion(Layer):
     """MLM + NSP loss: the mean cross entropy of each head (``ignore_index``
     -100 masks MLM labels), the MLM term divided by ``masked_lm_scale``."""
 

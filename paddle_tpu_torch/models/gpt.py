@@ -24,10 +24,10 @@ import os
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from ..framework.serialization import load, save
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 from ..nn.layers import Dropout, Embedding, LayerList, LayerNorm
 from ..nn.transformer import TransformerDecoderLayer, causal_mask
 from .bert import _init_bert_weights
@@ -66,7 +66,7 @@ def gpt_tiny_config() -> GPTConfig:
     )
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Embeddings + pre-norm decoder-only stack + final LayerNorm."""
 
     def __init__(self, cfg: GPTConfig | None = None, generator=None, device=None, **kwargs):
@@ -109,7 +109,7 @@ class GPTModel(nn.Module):
         return x if caches is None else (x, new_caches)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """:class:`GPTModel` + the LM head tied to the word embeddings: logits
     ``[B, T, V]`` (with ``caches``, ``(logits, caches)``)."""
 

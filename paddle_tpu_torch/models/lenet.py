@@ -9,15 +9,14 @@ net is built from ``nets.simple_img_conv_pool`` and ``static.nn.fc``.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 from ..nn.layers import Conv2D, Flatten, Linear, MaxPool2D, Sequential
 
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, generator=None):
         super().__init__()
         self.features = Sequential(
@@ -41,7 +40,7 @@ class LeNet(nn.Module):
         return self.fc(self.features(x))
 
 
-class _Act(nn.Module):
+class _Act(Layer):
     def __init__(self, name):
         super().__init__()
         self._fn = getattr(F, name)

@@ -12,9 +12,8 @@ formats; random init draws from ``generator``.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 from ..nn.layers import (
     AdaptiveAvgPool2D,
     BatchNorm2D,
@@ -29,7 +28,7 @@ __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34", "r
            "resnet101", "resnet152"]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, data_format="NCHW",
@@ -52,7 +51,7 @@ class BasicBlock(nn.Module):
         return F.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, data_format="NCHW",
@@ -78,7 +77,7 @@ class BottleneckBlock(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth_cfg, num_classes=1000, with_pool=True, data_format="NCHW",
                  generator=None):
         super().__init__()

@@ -14,10 +14,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..generation.sampling import decode_loop
 from ..nn import functional as F
+from ..nn.layer_base import Layer
 from ..nn.initializer import Normal
 from ..nn.layers import Dropout, Embedding, Linear
 from ..nn.transformer import Transformer
@@ -36,7 +36,7 @@ def _positional_encoding(max_len, d_model):
     return enc.astype(np.float32)
 
 
-class TransformerSeq2Seq(nn.Module):
+class TransformerSeq2Seq(Layer):
     """Encoder-decoder MT model. ``pad_id`` source tokens are masked out of
     the attention over the source; the decoder's self-attention is causal.
     The embeddings start at N(0, d_model**-0.5), so that the ``x *

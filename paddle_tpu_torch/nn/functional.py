@@ -1,4 +1,11 @@
-"""Functional ops of the serving and training paths (``paddle_tpu/nn/functional.py``).
+"""Functional ops (``paddle_tpu/nn/functional.py``).
+
+Every name is mode-aware: given a static ``Variable`` it appends the op
+through the dygraph front (:mod:`paddle_tpu_torch.ops`), so a layer's
+forward captures into a program; given a tensor it runs eagerly, and
+returns a ``Tensor`` when it was given one. The names without an eager
+path of their own here are the front's. The eager paths of the serving
+and training names below are the port's own:
 
 Paddle's conventions on torch tensors: ``linear`` takes the ``[in, out]``
 weight Paddle stores, ``gelu`` is exact (erf), as ``jax.nn.gelu(x,
@@ -36,19 +43,211 @@ from ..framework import random as _random
 from ..framework.autograd import amp_cast
 from ..ops.cuda import pool_backward as _pool_backward
 
-__all__ = ["linear", "matmul", "mean", "gelu", "relu", "tanh", "softmax", "layer_norm", "embedding", "dropout",
-           "gather", "cross_entropy", "softmax_with_cross_entropy", "conv2d", "conv_padding",
-           "batch_norm", "max_pool2d", "adaptive_avg_pool2d", "flatten"]
+from .. import ops as _ops
+from ..framework.tensor import Tensor as _Tensor, wrap as _wrap
+from ..ops import (  # noqa: F401  (the names with no eager path of their own here)
+    accuracy,
+    adaptive_max_pool2d,
+    avg_pool2d,
+    binary_cross_entropy,
+    binary_cross_entropy_with_logits,
+    celu,
+    conv1d,
+    conv2d_transpose,
+    cosine_similarity,
+    elu,
+    group_norm,
+    hardshrink,
+    hardsigmoid,
+    hardswish,
+    hardtanh,
+    instance_norm,
+    interpolate,
+    kl_div,
+    l1_loss,
+    leaky_relu,
+    log_loss,
+    log_sigmoid,
+    log_softmax,
+    margin_ranking_loss,
+    maxout,
+    mish,
+    mse_loss,
+    nll_loss,
+    one_hot,
+    pad,
+    pixel_shuffle,
+    prelu,
+    relu6,
+    selu,
+    sigmoid,
+    silu,
+    smooth_l1_loss,
+    softplus,
+    softshrink,
+    softsign,
+    square_error_cost,
+    swish,
+    tanh_shrink,
+    unfold,
+    upsample,
+)
+
+__all__ = ["linear", "matmul", "mean", "gelu", "relu", "tanh", "softmax", "layer_norm",
+           "embedding", "dropout", "gather", "cross_entropy", "softmax_with_cross_entropy",
+           "conv2d", "conv_padding", "batch_norm", "max_pool2d", "adaptive_avg_pool2d",
+           "flatten", "accuracy", "adaptive_max_pool2d", "avg_pool2d", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "celu", "conv1d", "conv2d_transpose",
+           "cosine_similarity", "elu", "group_norm", "hardshrink", "hardsigmoid", "hardswish",
+           "hardtanh", "instance_norm", "interpolate", "kl_div", "l1_loss", "leaky_relu",
+           "log_loss", "log_sigmoid", "log_softmax", "margin_ranking_loss", "maxout", "mish",
+           "mse_loss", "nll_loss", "one_hot", "pad", "pixel_shuffle", "prelu", "relu6", "selu",
+           "sigmoid", "silu", "smooth_l1_loss", "softplus", "softshrink", "softsign",
+           "square_error_cost", "swish", "tanh_shrink", "unfold", "upsample"]
+
+
+def _out(y, x):
+    """An eager result as a ``Tensor`` when the input was one."""
+    return _wrap(y) if isinstance(x, _Tensor) else y
+
+
+# -- the mode-aware names: a Variable appends the op, a tensor runs eagerly ----------
 
 
 def linear(x, weight, bias=None):
+    """``x @ weight + bias`` with Paddle's ``[in_features, out_features]`` weight."""
+    if _ops._static(x):
+        return _ops.linear(x, weight, bias)
+    return _out(_linear(x, weight, bias), x)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    if _ops._static(x):
+        return _ops.matmul(x, y, transpose_x, transpose_y)
+    return _out(_matmul(x, y, transpose_x, transpose_y), x)
+
+
+def mean(x, axis=None, keepdim=False):
+    if _ops._static(x):
+        return _ops.mean(x, axis, keepdim)
+    return _out(_mean(x, axis, keepdim), x)
+
+
+def gelu(x, approximate=False):
+    if _ops._static(x):
+        return _ops.gelu(x, approximate)
+    return _out(_gelu(x, approximate), x)
+
+
+def relu(x, name_=None):
+    if _ops._static(x):
+        return _ops.relu(x)
+    return _out(_relu(x), x)
+
+
+def tanh(x, name_=None):
+    if _ops._static(x):
+        return _ops.tanh(x)
+    return _out(_tanh(x), x)
+
+
+def softmax(x, axis=-1):
+    if _ops._static(x):
+        return _ops.softmax(x, axis)
+    return _out(_softmax(x, axis), x)
+
+
+def layer_norm(x, normalized_shape=None, weight=None, bias=None, epsilon=1e-5):
+    if _ops._static(x):
+        return _ops.layer_norm(x, normalized_shape, weight, bias, epsilon)
+    if normalized_shape is None:
+        normalized_shape = [x.shape[-1]]
+    return _out(_layer_norm(x, normalized_shape, weight, bias, epsilon), x)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False):
+    if _ops._static(x):
+        return _ops.embedding(x, weight, padding_idx)
+    return _out(_embedding(x, weight, padding_idx), x)
+
+
+def dropout(x, p=0.5, training=True, mode="upscale_in_train", generator=None):
+    """Upscale-in-train dropout (the mask from ``generator``, by default
+    the device's); identity in eval or at ``p == 0``."""
+    if _ops._static(x) or mode != "upscale_in_train":
+        return _ops.dropout(x, p, training, mode)
+    return _out(_dropout(x, p, training, generator), x)
+
+
+def gather(x, index, axis=0):
+    if _ops._static(x):
+        return _ops.gather(x, index, axis)
+    return _out(_gather(x, index, axis), x)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1, ignore_index=-100):
+    """Per-example loss with the class axis kept (size 1)."""
+    if _ops._static(logits) or soft_label:
+        return _ops.softmax_with_cross_entropy(logits, label, soft_label, axis, ignore_index)
+    return _out(_softmax_with_cross_entropy(logits, label, axis, ignore_index), logits)
+
+
+def cross_entropy(input, label, weight=None, soft_label=False, axis=-1, ignore_index=-100,
+                  reduction="mean", use_softmax=True):
+    """Softmax cross entropy; over hard labels without weights, ``reduction``
+    ``"mean"`` divides by the valid labels (at least 1)."""
+    if _ops._static(input) or weight is not None or soft_label or not use_softmax:
+        return _ops.cross_entropy(input, label, weight, soft_label, axis, ignore_index,
+                                  reduction, use_softmax)
+    return _out(_cross_entropy(input, label, ignore_index, reduction, axis), input)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    if _ops._static(x):
+        return _ops.conv2d(x, weight, bias, stride, padding, dilation, groups, data_format)
+    return _out(_conv2d(x, weight, bias, stride, padding, dilation, groups, data_format), x)
+
+
+def batch_norm(x, running_mean, running_var, weight, bias, training=False, momentum=0.9,
+               epsilon=1e-5, data_format="NCHW"):
+    if _ops._static(x):
+        return _ops.batch_norm(x, running_mean, running_var, weight, bias, training, momentum,
+                               epsilon, data_format)
+    return _out(_batch_norm(x, running_mean, running_var, weight, bias, training, momentum,
+                            epsilon, data_format), x)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCHW"):
+    if _ops._static(x):
+        return _ops.max_pool2d(x, kernel_size, stride, padding, ceil_mode, data_format)
+    return _out(_max_pool2d(x, kernel_size, stride, padding, ceil_mode, data_format), x)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    if _ops._static(x):
+        return _ops.adaptive_avg_pool2d(x, output_size, data_format)
+    return _out(_adaptive_avg_pool2d(x, output_size, data_format), x)
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    if _ops._static(x):
+        return _ops.flatten(x, start_axis, stop_axis)
+    return _out(_flatten(x, start_axis, stop_axis), x)
+
+
+# -- the eager implementations ------------------------------------------------------
+
+
+
+def _linear(x, weight, bias=None):
     """``x @ weight + bias`` with Paddle's ``[in_features, out_features]`` weight."""
     x, weight, bias = amp_cast("linear", [x, weight, bias])
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
 
-def matmul(x, y, transpose_x=False, transpose_y=False):
+def _matmul(x, y, transpose_x=False, transpose_y=False):
     """``x @ y`` with either operand's last two axes swapped first."""
     x, y = amp_cast("matmul", [x, y])
     if transpose_x:
@@ -58,31 +257,31 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     return torch.matmul(x, y)
 
 
-def mean(x, axis=None, keepdim=False):
+def _mean(x, axis=None, keepdim=False):
     """The mean over ``axis`` (all axes when None)."""
     (x,) = amp_cast("reduce_mean", [x])
     return x.mean() if axis is None else x.mean(axis, keepdim=keepdim)
 
 
-def gelu(x, approximate=False):
+def _gelu(x, approximate=False):
     (x,) = amp_cast("gelu", [x])
     return _F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def relu(x):
+def _relu(x):
     return torch.relu(x)
 
 
-def tanh(x):
+def _tanh(x):
     return torch.tanh(x)
 
 
-def softmax(x, axis=-1):
+def _softmax(x, axis=-1):
     (x,) = amp_cast("softmax", [x])
     return torch.softmax(x, dim=axis)
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def _layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the trailing ``normalized_shape`` axes: f32 statistics,
     the output in ``x``'s dtype (``kernels.py:963``)."""
     x, weight, bias = amp_cast("layer_norm", [x, weight, bias])
@@ -94,12 +293,18 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return _F.layer_norm(f32[0], list(normalized_shape), f32[1], f32[2], epsilon).to(x.dtype)
 
 
-def embedding(x, weight, padding_idx=None):
+def _embedding(x, weight, padding_idx=None):
+    """Rows of ``weight`` at ``x``; the rows of a ``padding_idx`` (>= 0) are
+    zeros and pass no gradient, as the ``lookup_table`` kernel gives them
+    (``kernels.py:1012``)."""
     weight, x = amp_cast("lookup_table", [weight, x])
-    return _F.embedding(x, weight, padding_idx=padding_idx)
+    if padding_idx is None or padding_idx < 0:
+        return _F.embedding(x, weight)
+    out = _F.embedding(x, weight, padding_idx=padding_idx)
+    return out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
 
 
-def dropout(x, p=0.5, training=True, generator=None):
+def _dropout(x, p=0.5, training=True, generator=None):
     """Upscale-in-train dropout; identity in eval or at ``p == 0``. The
     mask comes from ``generator`` (default: the device's default
     generator)."""
@@ -111,7 +316,7 @@ def dropout(x, p=0.5, training=True, generator=None):
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
-def gather(x, index, axis=0):
+def _gather(x, index, axis=0):
     """Rows (or slices along ``axis``) of ``x`` at ``index``
     (``paddle_tpu.ops.gather``)."""
     return torch.index_select(x, axis, index.reshape(-1))
@@ -128,14 +333,14 @@ def _picked_logp(logits, label, axis, ignore_index):
     return loss, valid
 
 
-def softmax_with_cross_entropy(logits, label, axis=-1, ignore_index=-100):
+def _softmax_with_cross_entropy(logits, label, axis=-1, ignore_index=-100):
     """Per-example loss with the class axis kept (size 1)."""
     logits, label = amp_cast("softmax_with_cross_entropy", [logits, label])
     loss, _ = _picked_logp(logits, label, axis, ignore_index)
     return loss
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean", axis=-1):
+def _cross_entropy(input, label, ignore_index=-100, reduction="mean", axis=-1):
     """Softmax cross entropy over hard labels; ``reduction`` is ``"mean"``
     (over the valid labels, at least 1), ``"sum"`` or ``"none"``."""
     input, label = amp_cast("cross_entropy", [input, label])
@@ -178,8 +383,8 @@ def _same_padding(hw, kernel, stride, dilation):
     return pads
 
 
-def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW"):
+def _conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+            data_format="NCHW"):
     """2-D convolution with an OIHW ``weight`` for NCHW or NHWC ``x``. A
     ``bias`` of another dtype than the (cast) product is added after it, as
     the JAX package adds it (an f32 bias promotes a bf16 product)."""
@@ -207,8 +412,8 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
 
 
-def batch_norm(x, running_mean, running_var, weight, bias, training=False, momentum=0.9,
-               epsilon=1e-5, data_format="NCHW"):
+def _batch_norm(x, running_mean, running_var, weight, bias, training=False, momentum=0.9,
+                epsilon=1e-5, data_format="NCHW"):
     """Batch normalization over every axis but the channel one. In
     training the biased batch statistics normalize ``x`` and are blended
     into the running buffers in place (no gradient flows into them)."""
@@ -263,7 +468,7 @@ class _MaxPoolKernelBackward(torch.autograd.Function):
         return dx, None, None, None
 
 
-def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCHW"):
+def _max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCHW"):
     """Max pooling whose padding is -inf; ``ceil_mode`` pads the far edge
     as ``kernels.py:816-822`` does. With ``FLAGS_use_pallas_pool_bwd`` on,
     an admitted pool (``max_pool_backward_supported``) takes its backward
@@ -293,7 +498,7 @@ def _ceil_extra(spatial, ks, st, p, ceil_mode):
     return extra
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def _adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     """Mean over the windows ``[floor(i·H/oh), ceil((i+1)·H/oh))``, the
     windows ``kernels.py:851`` takes."""
     if data_format == "NHWC":
@@ -301,5 +506,5 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     return _F.adaptive_avg_pool2d(x, output_size)
 
 
-def flatten(x, start_axis=0, stop_axis=-1):
+def _flatten(x, start_axis=0, stop_axis=-1):
     return torch.flatten(x, start_axis, stop_axis)

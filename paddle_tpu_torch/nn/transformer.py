@@ -38,11 +38,11 @@ import copy
 from typing import Any, NamedTuple
 
 import torch
-from torch import nn
 
 from ..flags import flag
 from ..ops.cuda import flash_attention, layernorm_residual
 from . import functional as F
+from .layer_base import Layer
 from .layers import Dropout, LayerList, LayerNorm, Linear
 
 __all__ = ["FLASH_ATTENTION_MIN_SEQ", "MultiHeadAttention", "TransformerEncoderLayer",
@@ -189,7 +189,7 @@ def _ring_index(pos, t, store):
                            + torch.arange(t, device=pos.device)[None, :], store)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Scaled dot-product multi-head attention with the JAX signature: the
     plain and flash paths, and the cached paths of incremental decoding
     (a :class:`StaticCache` ring written in place, or the ``(k, v)`` concat
@@ -374,20 +374,27 @@ class MultiHeadAttention(nn.Module):
         return window(kc).to(out_dtype), window(vc).to(out_dtype), cache
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1, activation="relu",
                  attn_dropout=None, act_dropout=None, normalize_before=False,
-                 use_flash_attention=False, generator=None, device=None):
+                 weight_attr=None, bias_attr=None, use_flash_attention=False,
+                 sp_attention="none", generator=None, device=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
+        if sp_attention not in ("none", "ring", "ulysses"):
+            raise ValueError(f"sp_attention must be none|ring|ulysses, got {sp_attention!r}")
         kw = dict(generator=generator, device=device)
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout=attn_dropout,
-                                            use_flash_attention=use_flash_attention, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+                                            weight_attr=weight_attr, bias_attr=bias_attr,
+                                            use_ring_attention=sp_attention == "ring",
+                                            use_flash_attention=use_flash_attention,
+                                            use_ulysses_attention=sp_attention == "ulysses",
+                                            **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr, bias_attr, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr, bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.dropout1 = Dropout(dropout)
@@ -415,7 +422,7 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList([encoder_layer] + [copy.deepcopy(encoder_layer)
@@ -432,7 +439,7 @@ class TransformerEncoder(nn.Module):
         return out
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Decoder block: self-attention, cross-attention over ``memory`` and an
     FFN. ``with_cross_attention=False`` builds a decoder-only block: no
     cross-attention parameters exist at all, and ``memory`` may be
@@ -496,7 +503,7 @@ class TransformerDecoderLayer(nn.Module):
         return tgt if cache is None else (tgt, new_cache[0])
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList([decoder_layer] + [copy.deepcopy(decoder_layer)
@@ -513,7 +520,7 @@ class TransformerDecoder(nn.Module):
         return out
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """The encoder-decoder transformer; the defaults are Transformer-base
     (512 wide, 8 heads, 6 + 6 layers, FFN 2048). As in the JAX package each
     stack deep-copies one layer, so its layers start from equal weights."""

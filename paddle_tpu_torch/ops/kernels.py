@@ -26,7 +26,7 @@ import torch
 
 from ..framework import random as _random
 from ..framework.dtype import torch_dtype
-from .registry import register_op
+from .registry import kernel, register_op
 
 __all__ = []
 
@@ -146,8 +146,8 @@ def layer_norm(x, scale=None, bias=None, *, epsilon=1e-5, begin_norm_axis=-1):
 def conv2d(x, w, *, stride=1, padding=0, dilation=1, groups=1, data_format="NCHW"):
     from ..nn import functional as F  # nn.functional imports ops.cuda
 
-    return F.conv2d(x, w, None, stride=stride, padding=padding, dilation=dilation,
-                    groups=groups, data_format=data_format)
+    return F._conv2d(x, w, None, stride=stride, padding=padding, dilation=dilation,
+                     groups=groups, data_format=data_format)
 
 
 @register_op("pool2d")
@@ -159,13 +159,13 @@ def pool2d(x, *, kernel_size, stride=None, padding=0, pooling_type="max", ceil_m
     window sums over the zero-padded input, divided by each window's count
     of real taps when ``exclusive`` and the window meets padding, else by
     the window's size."""
-    from ..errors import UnimplementedError
     from ..nn import functional as F
 
     if adaptive:
-        raise UnimplementedError("pool2d: adaptive pooling is not ported")
+        return kernel("adaptive_pool2d")(x, output_size=kernel_size, pooling_type=pooling_type,
+                                         data_format=data_format)
     if pooling_type == "max":
-        return F.max_pool2d(x, kernel_size, stride, padding, ceil_mode, data_format)
+        return F._max_pool2d(x, kernel_size, stride, padding, ceil_mode, data_format)
     ks = F._pair(kernel_size)
     st = F._pair(stride) if stride is not None else ks
     p = F._pair(padding)

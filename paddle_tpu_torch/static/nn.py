@@ -144,12 +144,10 @@ def simple_rnn(x, hidden_size, init_h=None, time_major=False, name=None):
 def lstm(x, hidden_size, init_h=None, init_c=None, time_major=False, name=None):
     """``fluid.layers.lstm``; returns ``(out, [h_T, c_T])``."""
 
+    from ..nn.rnn import lstm_step
+
     def step(states, gates):
-        h, c = states
-        i, f, g, o = ops.split(gates, 4, axis=-1)
-        c2 = ops.add(ops.multiply(ops.sigmoid(f), c), ops.multiply(ops.sigmoid(i), ops.tanh(g)))
-        h2 = ops.multiply(ops.sigmoid(o), ops.tanh(c2))
-        return [h2, c2]
+        return list(lstm_step(gates, states[1]))
 
     inits = [init_h, init_c] if init_h is not None and init_c is not None else None
     return _recurrent(x, inits, hidden_size, 4, step, time_major,

@@ -18,6 +18,8 @@ the forward's draws.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -26,7 +28,7 @@ from ..ops.registry import eval_meta
 from ..framework.dtype import dtype_name, torch_dtype
 from .program import Variable, default_main_program
 
-__all__ = ["append_static_op", "capture_constant"]
+__all__ = ["append_static_op", "capture_constant", "named_tensors"]
 
 # the random ops of the registry (``paddle_tpu/static/op_append.py:29-32``)
 RNG_OPS = {"dropout", "uniform_random", "gaussian_random", "truncated_gaussian_random"}
@@ -35,6 +37,36 @@ RNG_OPS = {"dropout", "uniform_random", "gaussian_random", "truncated_gaussian_r
 _DYN = 83
 
 _GLOBAL_CONST_ID = [0]
+
+# id(tensor) -> (tensor, variable name) while a layer is captured by name
+_named: dict = {}
+
+
+@contextlib.contextmanager
+def named_tensors(mapping):
+    """Inside the block, an op given one of ``mapping``'s tensors (name ->
+    tensor: a layer's parameters and buffers) reads a persistable variable
+    of that name in the program's global block, made on first use, instead
+    of a captured constant: ``jit.save`` stores the values in the
+    parameters file only, under the layer's own names."""
+    _named.update({id(t): (t, name) for name, t in mapping.items()})
+    try:
+        yield
+    finally:
+        for t in mapping.values():
+            _named.pop(id(t), None)
+
+
+def _input_name(t, block):
+    hit = _named.get(id(t))
+    if hit is None or hit[0] is not t:
+        return capture_constant(t, block).name
+    name = hit[1]
+    gb = block.program.global_block()
+    if name not in gb.vars:
+        gb.create_var(name=name, shape=list(t.shape), dtype=dtype_name(t.dtype),
+                      persistable=True)
+    return name
 
 
 def _meta_of(t):
@@ -67,8 +99,7 @@ def append_static_op(op_type, tensors, attrs, alias_outputs=None):
     block = prog.current_block()
     tensors = [t if isinstance(t, (Variable, torch.Tensor)) else torch.as_tensor(t)
                for t in tensors]
-    in_names = [t.name if isinstance(t, Variable) else capture_constant(t, block).name
-                for t in tensors]
+    in_names = [t.name if isinstance(t, Variable) else _input_name(t, block) for t in tensors]
     metas = [_meta_of(t) for t in tensors]
     try:
         out = eval_meta(op_type, metas, attrs)

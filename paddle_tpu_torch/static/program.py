@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import sys
 from typing import Any, Dict, List
 
 import numpy as np
@@ -376,3 +377,8 @@ def data(name, shape, dtype="float32"):
     """``paddle.static.data``: declare a feed variable."""
     blk = default_main_program().global_block()
     return blk.create_var(name=name, shape=shape, dtype=dtype, is_data=True)
+
+
+_ops = sys.modules.get(__name__.rpartition(".")[0].rpartition(".")[0] + ".ops")
+if _ops is not None and hasattr(_ops, "_bind_static"):
+    _ops._bind_static(Variable, _static_mode)

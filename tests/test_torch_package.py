@@ -58,6 +58,21 @@ def test_scan_covers_every_generation_module():
     assert os.path.join(gen, "paging.py") in mods and mods <= set(_port_files())
 
 
+def test_scan_covers_the_dygraph_front_end():
+    """The scan above reaches every module of the dygraph front end: the
+    Tensor and the places, the op front and its kernels, the tensor and
+    linalg namespaces, ``nn``'s layers and ``jit``."""
+    rel = {os.path.relpath(p, PORT_DIR) for p in _port_files()}
+    tensor_ns = {f"tensor/{n}" for n in os.listdir(os.path.join(PORT_DIR, "tensor"))
+                 if n.endswith(".py")}
+    assert len(tensor_ns) == 10
+    assert tensor_ns | {"framework/tensor.py", "framework/place.py", "framework/dtype.py",
+                        "framework/autograd.py", "ops/__init__.py", "ops/tensor_kernels.py",
+                        "linalg.py", "device.py", "nn/layer_base.py", "nn/layers.py",
+                        "nn/functional.py", "nn/rnn.py", "nn/initializer.py",
+                        "jit_api.py"} <= rel
+
+
 def test_scan_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom paddle_tpu.flags import flag\nimport jax.numpy as jnp\n"

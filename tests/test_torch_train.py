@@ -295,7 +295,7 @@ def test_adamw_state_shape_mismatch_raises(saved):
     with pytest.raises(ValueError, match="moment1_0"):
         convert.adamw_state_from_numpy(state, to)
     del state["moment2_%d" % (n - 1)]
-    state["moment1_0"] = np.zeros(tuple(next(tm.parameters()).shape), "f4")
+    state["moment1_0"] = np.zeros(tuple(tm.parameters()[0].shape), "f4")
     with pytest.raises(KeyError, match="moment2"):
         convert.adamw_state_from_numpy(state, to)
 
