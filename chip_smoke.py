@@ -322,6 +322,23 @@ Phases, each fatal on failure:
     ``paddle.jit.to_static`` (one capture, then replays), and a
     ``to_static`` function that reads the host refused; the phase's
     seconds;
+12n. the monitor (``paddle_tpu_torch.monitor``) on the port's hot paths:
+    20 captured BERT-base AMP steps (12b's step) and 10 captured ResNet-50
+    AMP steps inside a ``TrainingMonitor``, the loss read as a float each
+    step: the line's ``mfu``, ``hbm_bw_util`` and ``roofline``, both in
+    (0, 1]; ``cost/executed_flops`` exactly the replays x the counted
+    record's FLOPs; the record within 5% of the closed form; the launches
+    those the steps launch; the same BERT step with the flight recorder,
+    tracing and the monitor on and off in turns (step and replay host
+    time); ``profile_program`` on 11b's static ResNet-50 at bucket 8,
+    ``attribute_trace`` coverage >= 0.9 on an interpreted run of it,
+    ``measure_pass_deltas`` at IR level 1 against 0; a NaN fed to a captured
+    step under ``check_nan_inf_action=dump`` (a dump
+    ``tools/debug_dump.py`` reads, with the capture's events, then the
+    raise) and a stall past the watchdog's deadline (its dump); one
+    ``/predict`` under a ``traceparent`` to an int8 predict server, its
+    spans on ``/tracez`` under that trace id, ``/costz``, ``/goodputz``,
+    ``/profilez`` and ``/sloz`` answering; the phase's seconds;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -9191,6 +9208,479 @@ def dygraph_resnet():
     return counts, r
 
 
+# -- the monitor on the port's hot paths (phase 12n) ---------------------------------------
+
+MON_BERT_STEPS, MON_RN_STEPS, MON_TIMED_STEPS = 20, 10, 40
+# each monitored step's counted FLOPs against its closed form (PERF.md section 5)
+CLOSED_FORM_RTOL = 0.05
+OPPROF_BUCKET = 8
+OPPROF_COVERAGE_MIN = 0.9
+WATCHDOG_TIMEOUT_S = 0.5
+# a replay's host time may grow by this much with the recorder, tracing
+# and the monitor on before the phase says where it goes
+OVERHEAD_NOTE_US = 5.0
+OVERHEAD_CALLS = 2000
+
+
+def _bert_closed_form(cfg, batch, seq, n_pred):
+    """A BERT pretraining step's FLOPs in closed form: 6 x the encoder's
+    matmul parameters x tokens, 12·B·H·L²·D a layer for attention (forward
+    and backward, no recomputation), the MLM head (transform and the tied
+    decoder) on the n_pred masked positions a row, the pooler and NSP head
+    on the first token."""
+    hdim, ff, layers, heads = (cfg.hidden_size, cfg.intermediate_size,
+                               cfg.num_hidden_layers, cfg.num_attention_heads)
+    encoder = layers * (4 * hdim * hdim + 2 * hdim * ff)
+    attention = layers * 12 * batch * heads * seq * seq * (hdim // heads)
+    head = 6 * (hdim * hdim + hdim * cfg.vocab_size) * batch * n_pred
+    pooled = 6 * (hdim * hdim + hdim * 2) * batch
+    return 6 * encoder * batch * seq + attention + head + pooled
+
+
+def _rn50_closed_form(model, batch):
+    """3 x the forward's conv and fc FLOPs x batch: each layer's
+    ``2·outputs·(in/groups)·kh·kw`` (fc ``2·outputs·in``) read by hooks on
+    one unfused image."""
+    import torch
+
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.nn.layers import Conv2D, Linear
+
+    fwd = []
+
+    def hook(mod, inp, out):
+        w = mod.weight  # conv [Cout, Cin/groups, kh, kw]; fc [in, out]
+        fwd.append(2 * out.numel() * (int(np.prod(w.shape[1:])) if w.dim() == 4 else w.shape[0]))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv2D, Linear))]
+    was = model.training
+    set_flags({"use_fused_conv_bn": False})
+    try:
+        with torch.no_grad():
+            model.eval()
+            model(torch.zeros(1, 3, RN_HW, RN_HW, device="cuda"))
+    finally:
+        set_flags({"use_fused_conv_bn": True})
+        model.train(was)
+        for h in handles:
+            h.remove()
+    return 3 * sum(fwd) * batch
+
+
+def _monitor_fields(line):
+    import re
+
+    m = re.search(r"step_ms=(\S+) .* mfu=(\S+) hbm_bw_util=(\S+) roofline=(\S+)$", line)
+    if m is None:
+        raise AssertionError(f"the monitor line lacks its utilization fields: {line}")
+    return {"step_ms": float(m.group(1)), "mfu": float(m.group(2)),
+            "hbm_bw_util": float(m.group(3)), "roofline": m.group(4)}
+
+
+def _monitored_run(label, step, batch, steps, examples, want_launches, closed_form):
+    """``steps`` replays of a captured step inside a TrainingMonitor, the
+    loss read as a float in each (what a training loop does; the monitor
+    adds no sync). Checks: ``cost/executed_flops`` grew by exactly steps x
+    the record's FLOPs, ``mfu`` and ``hbm_bw_util`` in (0, 1], the
+    record's FLOPs within CLOSED_FORM_RTOL of the closed form, the launch
+    counts those the steps launched before. Returns readings."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    float(step(*batch)["loss"])  # the counted eager first run, then the capture
+    (entry,) = step.store.entries().values()
+    rec = entry.record
+    if rec is None or rec.partial or not rec.flops:
+        raise AssertionError(f"{label}: the capture kept no counted cost record: {rec}")
+    lines = []
+    executed0 = monitor.counter("cost/executed_flops").value
+    bytes0 = monitor.counter("cost/executed_bytes").value
+    reset_launch_counts()
+    mon = monitor.TrainingMonitor(label, interval=steps, log_fn=lines.append)
+    losses = []
+    for _ in range(steps):
+        with mon.step(examples=examples):
+            losses.append(float(step(*batch)["loss"]))
+    mon.close()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    executed = monitor.counter("cost/executed_flops").value - executed0
+    moved = monitor.counter("cost/executed_bytes").value - bytes0
+    if len(lines) != 1:
+        raise AssertionError(f"{label}: {len(lines)} monitor lines, want 1: {lines}")
+    fields = _monitor_fields(lines[0])
+    rel = rec.flops / closed_form - 1.0
+    r = {"line": lines[0], **fields, "record_flops": rec.flops,
+         "record_bytes": rec.bytes_accessed, "closed_form_flops": closed_form,
+         "closed_form_rel": rel, "executed_flops": executed, "executed_bytes": moved,
+         "launches": counts, "losses": losses}
+    log(f"{label}: {lines[0]}")
+    log(f"{label}: a step counts {rec.flops:.6g} FLOPs and {rec.bytes_accessed:.6g} bytes; the "
+        f"closed form {closed_form:.6g} ({rel:+.4%}); executed {executed:.6g} FLOPs over {steps} "
+        f"replays; launches {counts}")
+    if executed != steps * rec.flops:
+        raise AssertionError(f"{label}: executed {executed} FLOPs, not {steps} x {rec.flops}")
+    if not (0.0 < fields["mfu"] <= 1.0 and 0.0 < fields["hbm_bw_util"] <= 1.0):
+        raise AssertionError(f"{label}: mfu {fields['mfu']} or hbm_bw_util "
+                             f"{fields['hbm_bw_util']} not in (0, 1]")
+    if abs(rel) > CLOSED_FORM_RTOL:
+        raise AssertionError(f"{label}: the counted {rec.flops:.6g} FLOPs are {rel:+.2%} off the "
+                             f"closed form {closed_form:.6g} (limit {CLOSED_FORM_RTOL:.0%})")
+    if counts != {k: v for k, v in want_launches.items() if v}:
+        raise AssertionError(f"{label}: launched {counts}, the steps launch {want_launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses not finite: {losses}")
+    return r
+
+
+def _instrumentation_us(rec, cache_key):
+    """Host us a call of each piece the instrumentation adds to a replay,
+    over OVERHEAD_CALLS calls each inside a trace: the ledger's two counter
+    adds (``note_run``), the span annotation, the graph store's cache-hit
+    counter, the watchdog's progress clock."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.monitor import cost_model, tracing
+    from paddle_tpu_torch.monitor import flight_recorder as fr
+
+    pieces = {
+        "note_run": lambda: cost_model.note_run(rec),
+        "annotate": lambda: tracing.annotate(cache_key=cache_key, flops=rec.flops,
+                                             cost_bytes=rec.bytes_accessed),
+        "cache_hit_counter": lambda: profiler.bump_counter("graph::cache_hit"),
+        "notify_progress": lambda: fr.notify_progress("train_step"),
+    }
+    out = {}
+    with tracing.start_trace("overhead::probe"):
+        for name, fn in pieces.items():
+            t0 = time.perf_counter()
+            for _ in range(OVERHEAD_CALLS):
+                fn()
+            out[name] = (time.perf_counter() - t0) / OVERHEAD_CALLS * 1e6
+    return out
+
+
+def _overhead(step, batch):
+    """The same captured step with the flight recorder, tracing and a
+    TrainingMonitor on and off, in turns (on, off, off, on, ...),
+    MON_TIMED_STEPS a side: a step's host clock (the loss read as a float)
+    and a replay's host time (the call alone, after a sync), medians; and
+    what each piece a replay adds costs a call."""
+    import torch
+
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.flags import set_flags
+
+    out = {"on": {"step_ms": [], "replay_us": []}, "off": {"step_ms": [], "replay_us": []}}
+    mon = monitor.TrainingMonitor("overhead", interval=0)
+    try:
+        for i in range(2 * MON_TIMED_STEPS):
+            side = "on" if i % 4 in (0, 3) else "off"
+            set_flags({"flight_recorder": side == "on", "trace_enabled": side == "on"})
+            ctx = mon.step() if side == "on" else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                t1 = time.perf_counter()
+                res = step(*batch)
+                t2 = time.perf_counter()
+                float(res["loss"])
+            out[side]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out[side]["replay_us"].append((t2 - t1) * 1e6)
+    finally:
+        set_flags({"flight_recorder": True, "trace_enabled": True})
+        mon.close()
+    (entry,) = step.store.entries().values()
+    r = {side: {"step_ms_median": float(np.median(v["step_ms"])),
+                "replay_host_us_median": float(np.median(v["replay_us"])),
+                "replay_host_us_quartiles": [float(q) for q in
+                                             np.percentile(v["replay_us"], [25, 75])]}
+         for side, v in out.items()}
+    r["replay_host_us_delta"] = (r["on"]["replay_host_us_median"]
+                                 - r["off"]["replay_host_us_median"])
+    r["pieces_us_a_call"] = _instrumentation_us(entry.record, entry.cache_key)
+    log(f"overhead (BERT AMP captured step, {MON_TIMED_STEPS} a side in turns): step "
+        f"{r['on']['step_ms_median']:.3f} ms on / {r['off']['step_ms_median']:.3f} ms off; a "
+        f"replay's host time {r['on']['replay_host_us_median']:.1f} us on (quartiles "
+        f"{r['on']['replay_host_us_quartiles']}) / {r['off']['replay_host_us_median']:.1f} us "
+        f"off ({r['off']['replay_host_us_quartiles']}), {r['replay_host_us_delta']:+.1f} us; "
+        f"each piece a replay adds, host us a call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in r["pieces_us_a_call"].items()))
+    if r["replay_host_us_delta"] > OVERHEAD_NOTE_US:
+        log(f"overhead: the replay's host time grew by more than {OVERHEAD_NOTE_US} us: of the "
+            "pieces above, the annotation of the step's trace span is the one the switches "
+            "turn off; the ledger and the cache counter run either way; the rest is the spread "
+            "of the samples (their quartiles)")
+    return r
+
+
+def _opprof_static_resnet():
+    """profile_program on phase 11b's static ResNet-50 (its optimized
+    program, bucket OPPROF_BUCKET); attribute_trace over a torch.profiler
+    trace of an interpreted run of it (coverage >= OPPROF_COVERAGE_MIN);
+    measure_pass_deltas at IR level 1 against level 0."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.analysis import measure_pass_deltas
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.monitor import opprof
+
+    model = _resnet50(seed=0)
+    with tempfile.TemporaryDirectory(prefix="ptt_rn_opprof_") as dirname:
+        _save_static_resnet(dirname, model)
+        pred = create_predictor(Config(dirname))
+    del model
+    fetch = pred.get_output_names()[0]
+    x = _images(np.random.RandomState(41), OPPROF_BUCKET).astype(np.float32)
+    feed = {"image": x}
+    pred.run([x])  # the served run: gates, first run, capture
+    exe, scope, dev = pred._exe, pred._scope, pred.device
+    prog = exe.gate(pred._program, ["image"], [fetch], {"image": x.shape})[0]
+    prof = opprof.profile_program(prog, feed, [fetch], scope=scope, name="resnet50_static_b8",
+                                  device=dev)
+    top = opprof.top_ops(8)
+    image = torch.from_numpy(x).to(dev)  # the feed's upload is no op's work
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="ptt_opprof_trace_") as tdir:
+        profiler.start_profiler(trace_dir=tdir)
+        try:
+            with torch.no_grad():
+                exe._interpret(prog.global_block(), {"image": image}, scope, [fetch])
+            torch.cuda.synchronize()
+        finally:
+            profiler.stop_profiler()
+        att = opprof.attribute_trace(tdir)
+    deltas = measure_pass_deltas(pred._program, feed, [fetch], level=1, scope=scope, device=dev,
+                                 warmup=1, repeats=2)
+    r = {"total_us": prof["total_us"], "replayed_ops": prof["replayed_ops"],
+         "n_ops": prof["n_ops"], "time_accuracy": prof["time_accuracy"],
+         "replay_coverage": prof["coverage"], "top_ops": top,
+         "interpreted_coverage": att["coverage"], "interpreted_total_us": att["total_us"],
+         "pass_deltas": {k: deltas[k] for k in ("before_us", "after_us", "speedup")},
+         "deltas_by_type": deltas["deltas"]}
+    log(f"opprof static ResNet-50 bucket {OPPROF_BUCKET}: {prof['replayed_ops']}/"
+        f"{prof['n_ops']} ops replayed, {prof['total_us']:.1f} us in all, time accuracy "
+        f"{prof['time_accuracy']}; top ops " + "; ".join(
+            f"{t['scope']} {t['time_us']:.1f} us ({t['share']:.1%}, mfu {t['mfu']:.4f}, "
+            f"{t['roofline']})" for t in top))
+    log(f"opprof: an interpreted run's trace attributes {att['coverage']} of "
+        f"{att['total_us']:.1f} us of kernel time to its ops; measure_pass_deltas level 1 vs 0: "
+        f"{deltas['before_us']:.1f} -> {deltas['after_us']:.1f} us (speedup "
+        f"{deltas['speedup']}); by type " + ", ".join(
+            f"{k} {v['before_us']:.0f}->{v['after_us']:.0f}" for k, v in deltas["deltas"].items()))
+    if prof["replayed_ops"] == 0 or not prof["total_us"] > 0:
+        raise AssertionError(f"opprof replayed nothing: {prof['ops'][:3]}")
+    if att["coverage"] is None or att["coverage"] < OPPROF_COVERAGE_MIN:
+        raise AssertionError(f"attribute_trace coverage {att['coverage']} of an interpreted run "
+                             f"is below {OPPROF_COVERAGE_MIN}")
+    del pred
+    return r
+
+
+def _flight_checks():
+    """A NaN fed into a captured step under check_nan_inf_action=dump
+    writes a dump (which tools/debug_dump.py reads, holding the capture's
+    events), then raises; a step stalled past the watchdog's deadline
+    trips it, and it dumps."""
+    import importlib.util
+    import io
+    import os
+
+    import torch
+
+    from paddle_tpu_torch.errors import FatalError
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.monitor import flight_recorder as fr
+    from paddle_tpu_torch.optimizer import Momentum
+
+    spec = importlib.util.spec_from_file_location(
+        "debug_dump", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                   "debug_dump.py"))
+    debug_dump = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(debug_dump)
+    r = {}
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.ReLU(), torch.nn.Linear(64, 8))
+    step = train_step(model, Momentum(learning_rate=0.01, parameters=model.parameters()),
+                      lambda m, x, t: ((m(x) - t) ** 2).mean())
+    x = torch.randn(16, 64, device="cuda")
+    t = torch.randn(16, 8, device="cuda")
+    bad = x.clone()
+    bad[3, 5] = float("nan")
+    with tempfile.TemporaryDirectory(prefix="ptt_flight_") as d:
+        set_flags({"check_nan_inf": True, "check_nan_inf_action": "dump",
+                   "flight_recorder_dump_dir": d})
+        try:
+            step(x, t)  # the checked variant's first run and capture
+            step(x, t)  # a replay
+            try:
+                step(bad, t)
+            except FatalError as e:
+                r["raised"] = str(e)[:200]
+            else:
+                raise AssertionError("a NaN in a captured checked step did not raise")
+        finally:
+            set_flags({"check_nan_inf": False, "check_nan_inf_action": "raise"})
+        (dump,) = [os.path.join(d, f) for f in os.listdir(d) if "check_nan_inf" in f]
+        with open(dump) as f:
+            snap = json.load(f)
+        kinds = [e["kind"] for e in snap["events"]]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            debug_dump.main([dump])
+        if "runtime_compile" not in kinds or kinds[-1] != "nan_inf" \
+                or "check_nan_inf" not in text.getvalue():
+            raise AssertionError(f"the NaN dump lacks the capture or the NaN event: {kinds[-8:]}")
+        r["nan_dump_events"] = len(kinds)
+        log(f"flight recorder: a NaN in a captured step raised ({r['raised'][:80]}...) after "
+            f"dumping {len(kinds)} events (runtime_compile among them); debug_dump read it")
+        set_flags({"watchdog_timeout_s": WATCHDOG_TIMEOUT_S})
+        try:
+            wd = fr.start_watchdog()
+            step(x, t)
+            stall_t0 = time.perf_counter()
+            # the stalled "step": no progress; a trip counts, then dumps
+            while wd.last_dump is None and time.perf_counter() - stall_t0 < 20 * WATCHDOG_TIMEOUT_S:
+                time.sleep(0.05)
+            trips, last = wd.trips, wd.last_dump
+        finally:
+            fr.stop_watchdog()
+            set_flags({"watchdog_timeout_s": 0.0, "flight_recorder_dump_dir": ""})
+        if trips < 1 or last is None:
+            raise AssertionError("a step stalled past the watchdog's deadline did not trip it")
+        with open(last) as f:
+            wsnap = json.load(f)
+        if not any(e["kind"] == "watchdog_trip" for e in wsnap["events"]) or not wsnap["threads"]:
+            raise AssertionError("the watchdog's dump lacks its trip or the thread stacks")
+        r["watchdog_trips"] = trips
+        r["watchdog_reason"] = wsnap["reason"]
+        log(f"flight recorder: a stall tripped the watchdog ({wsnap['reason']}), which dumped "
+            f"{len(wsnap['events'])} events and {len(wsnap['threads'])} thread stacks")
+    return r
+
+
+def _traced_predict():
+    """One /predict with a traceparent to an int8 predict server: /tracez
+    holds the request's spans under that trace id; /costz, /goodputz,
+    /profilez and /sloz answer."""
+    from urllib.request import Request, urlopen
+
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.monitor import tracing
+    from paddle_tpu_torch.serving import InferenceServer
+
+    rng = np.random.RandomState(43)
+    reqs = [{"x": np.round(rng.randn(8, Q_HIDDEN), 3)}]
+    with tempfile.TemporaryDirectory(prefix="ptt_int8_traced_") as dirname:
+        _make_int8_model(dirname, reqs)
+        pred = create_predictor(Config(dirname))
+    srv = InferenceServer(pred, port=0, buckets=(8,)).start()
+    set_flags({"trace_sample_slowest_k": 1000})  # keep every trace of this check
+    try:
+        client = tracing.SpanContext(tracing.new_trace_id(), tracing.new_span_id())
+        body = json.dumps({"inputs": {"x": reqs[0]["x"].tolist()}}).encode()
+        resp = urlopen(Request(srv.url + "/predict", data=body, headers={
+            "Content-Type": "application/json",
+            tracing.TRACEPARENT_HEADER: tracing.format_traceparent(client)}), timeout=120)
+        if resp.status != 200:
+            raise AssertionError(f"/predict answered {resp.status}")
+        # the handler closes the request's trace just after it answers
+        deadline = time.perf_counter() + 5.0
+        while True:
+            try:
+                one = json.loads(urlopen(f"{srv.url}/tracez?id={client.trace_id}",
+                                         timeout=60).read())
+                break
+            except urllib.error.HTTPError as e:
+                if e.code != 404 or time.perf_counter() > deadline:
+                    raise
+                time.sleep(0.05)
+        spans = {s["name"]: s for s in one["spans"]}
+        want = {"serving::predict", "serving::queue_wait", "serving::assemble",
+                "serving::dispatch"}
+        if not want <= set(spans) or spans["serving::predict"]["parent_id"] != client.span_id:
+            raise AssertionError(f"/tracez holds {sorted(spans)} for the request's trace")
+        routes = {}
+        for route in ("/costz", "/goodputz", "/profilez", "/sloz"):
+            routes[route] = urlopen(srv.url + route, timeout=60).status
+        if set(routes.values()) != {200}:
+            raise AssertionError(f"the monitor's routes answered {routes}")
+        costz = json.loads(urlopen(srv.url + "/costz", timeout=60).read())
+    finally:
+        set_flags({"trace_sample_slowest_k": 5})
+        srv.stop()
+    dispatch = spans["serving::dispatch"]["attrs"]
+    log(f"tracing: /predict under traceparent {client.trace_id[:8]}...: /tracez holds "
+        f"{sorted(spans)}; the dispatch span carries {sorted(dispatch)}; {routes}; /costz holds "
+        f"{len(costz['records'])} records on {costz['device_peaks']['kind']}")
+    return {"spans": sorted(spans), "dispatch_attrs": dispatch, "routes": routes,
+            "costz_records": len(costz["records"]), "peaks": costz["device_peaks"]}
+
+
+def monitored_steps():
+    """Phase 12n. The port's monitor on the captured AMP steps: 20 BERT-base
+    steps (32 x 512, AdamW) and 10 ResNet-50 steps (batch 128, Momentum,
+    the pool kernel on) inside a TrainingMonitor, their counted FLOPs held
+    to the closed forms; the instrumentation's cost on a replay; opprof on
+    the static ResNet-50; the NaN dump and the watchdog; a traced /predict.
+    Returns (kernel launches per name over the monitored steps, readings)."""
+    import torch
+
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.models import bert_base_config
+    from paddle_tpu_torch.monitor import cost_model
+
+    t_phase = time.perf_counter()
+    peaks = cost_model.device_peaks()
+    log(f"monitor: the card's peak sheet {peaks}")
+    r = {"peaks": peaks}
+    cfg = bert_base_config()
+    cfg.use_flash_attention = True
+    model, loss_fn = _pretraining(cfg, seed=1)
+    batch = [torch.from_numpy(a).cuda() for a in
+             pretraining_batch(cfg, TRAIN_B, TRAIN_SEQ, TRAIN_PRED, np.random.RandomState(9))]
+    step = _step_of(model, _amp_loss_fn(loss_fn, "O1"), jit=True)
+    r["bert_amp"] = _monitored_run(
+        "bert_amp", step, batch, MON_BERT_STEPS, TRAIN_B,
+        _amp_launches("O1", cfg.num_hidden_layers, MON_BERT_STEPS),
+        _bert_closed_form(cfg, TRAIN_B, TRAIN_SEQ, TRAIN_PRED))
+    counts = dict(r["bert_amp"]["launches"])
+    r["overhead"] = _overhead(step, batch)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(15)
+    batch = [torch.from_numpy(rng.randn(RN_B, 3, RN_HW, RN_HW).astype(np.float32)).cuda(),
+             torch.from_numpy(rng.randint(0, RN_CLASSES, (RN_B,)).astype(np.int64)).cuda()]
+    model = _resnet50(seed=1)
+    closed = _rn50_closed_form(model.cuda(), RN_B)
+    set_flags({"use_pallas_pool_bwd": True})
+    try:
+        step = _rn_step_of(model, loss_fn=_rn_amp_loss, jit=True)
+        r["resnet_amp"] = _monitored_run("resnet_amp", step, batch, MON_RN_STEPS, RN_B,
+                                         _rn_amp_step_launches(MON_RN_STEPS), closed)
+    finally:
+        set_flags({"use_pallas_pool_bwd": False})
+    for k, v in r["resnet_amp"]["launches"].items():
+        counts[k] = counts.get(k, 0) + v
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    r["parts_s"] = {"steps": time.perf_counter() - t_phase}
+    for name, fn in (("opprof", _opprof_static_resnet), ("flight_recorder", _flight_checks),
+                     ("tracing", _traced_predict)):
+        t0 = time.perf_counter()
+        r[name] = fn()
+        torch.cuda.empty_cache()
+        r["parts_s"][name] = time.perf_counter() - t0
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"monitor: the phase's parts (s) {r['parts_s']}")
+    log(f"monitor: phase 12n done in {r['phase_s']:.1f} s")
+    return counts, r
+
+
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
@@ -9329,6 +9819,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_counts, fleet = serve_fleet(card)
     dygraph_counts, dygraph = dygraph_resnet()
+    monitored_counts, monitored = monitored_steps()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -9351,9 +9842,12 @@ def main() -> int:
         # the Paddle-style ResNet-50 of 12m: its dygraph steps and its jit.save
         # program's replays
         k["launches_dygraph"] = dygraph_counts.get(name, 0)
+        # the captured AMP steps of BERT and ResNet-50 inside a TrainingMonitor (12n)
+        k["launches_monitored"] = monitored_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"]
-                         + k["launches_fleet"] + k["launches_dygraph"])
+                         + k["launches_fleet"] + k["launches_dygraph"]
+                         + k["launches_monitored"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -9364,7 +9858,7 @@ def main() -> int:
                       "lenet_optimizers": lenet_opt,
                       "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
                       "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet,
-                      "dygraph_front_end": dygraph}))
+                      "dygraph_front_end": dygraph, "monitor": monitored}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -694,51 +694,19 @@ def _subblock_peak(program, op, parent_env, batch_hint, unresolved,
 
 
 def hbm_budget_bytes(device=None) -> int:
-    """The memory budget of ``device``: ``FLAGS_device_peaks``
+    """The memory budget of ``device`` from the cost model's peak sheet
+    (``monitor.cost_model.device_peaks``): ``FLAGS_device_peaks``
     ``hbm_bytes=`` when it is set (the knob the strict-rejection tests and
     derated deployments use), else the card's memory
     (``torch.cuda.mem_get_info``); 0, unknown, on the CPU. ``device=None``
     means the current CUDA device where there is one."""
-    override = _hbm_override()
-    if override is not None:
-        return int(override)
-    if device is None:
-        if not torch.cuda.is_available():
-            return 0
+    from ..monitor import cost_model as _cost
+
+    if device is None and torch.cuda.is_available():
         device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type != "cuda":
-        return 0
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    total = _card_bytes.get(index)
-    if total is None:  # read once: a replay's gate pays a lookup
-        total = _card_bytes[index] = int(torch.cuda.mem_get_info(index)[1])
-    return total
-
-
-_card_bytes: dict = {}  # CUDA device index -> its memory
-_parse_memo = [None, None]
-
-
-def _hbm_override():
-    """``FLAGS_device_peaks``' ``hbm_bytes=`` entry, or None. The flag is
-    comma-separated ``k=v`` floats (``paddle_tpu/monitor/cost_model.py:
-    320-339``); the port reads only ``hbm_bytes``, and an unparseable entry
-    does not override."""
-    from ..flags import flag
-
-    raw = str(flag("device_peaks"))
-    if raw != _parse_memo[0]:
-        value = None
-        for part in raw.split(","):
-            k, eq, v = part.partition("=")
-            if eq and k.strip().lower() == "hbm_bytes":
-                try:
-                    value = float(v)
-                except ValueError:
-                    pass
-        _parse_memo[0], _parse_memo[1] = raw, value
-    return _parse_memo[1]
+    if device is None or torch.device(device).type != "cuda":
+        return int(_cost.peaks_override().get("hbm_bytes", 0))
+    return int(_cost.device_peaks(device=device)["hbm_bytes"])
 
 
 _CACHE_LIMIT = 64
@@ -846,10 +814,23 @@ def _cache_put(cache, key, value):
 
 
 def _record_verdict(program, verdict, plan=None, budget=None, error=None):
-    """The JAX package records each verdict as a ``memory_budget`` flight
-    event; the port has no flight recorder yet (ROADMAP.md Queue A item
-    10), so the verdict is counted by kind."""
+    """Count the verdict by kind and record it as a ``memory_budget``
+    flight event: the peak, its op and the top tensors a post-mortem needs
+    even when the run dies."""
+    from ..monitor import flight_recorder as _flight
+
     bump_counter(f"memplan::verdict::{verdict}")
+    fields = dict(program=f"{getattr(program, '_identity_token', id(program))}"
+                          f"@v{program._version}", verdict=verdict)
+    if plan is not None:
+        fields.update(peak_bytes=plan.peak_bytes, baseline_bytes=plan.baseline_bytes,
+                      peak_op_index=plan.peak_op_index, peak_op_type=plan.peak_op_type,
+                      top=plan.top_summary(3), donation_errors=len(plan.errors))
+    if budget is not None:
+        fields["budget_bytes"] = int(budget)
+    if error is not None:
+        fields["error"] = str(error)[:300]
+    _flight.record_event("memory_budget", **fields)
 
 
 # ---------------------------------------------------------------------------
@@ -909,9 +890,13 @@ def note_actual(record, plan) -> Optional[float]:
         _accuracy[entry["cache_key"]] = entry
         while len(_accuracy) > _ACC_LIMIT:
             _accuracy.pop(next(iter(_accuracy)))
+    from ..monitor import flight_recorder as _flight
     from ..monitor import registry as _reg
 
     _reg.gauge("memplan/plan_accuracy").set(ratio)
+    _flight.record_event("plan_accuracy", cache_key=str(record.key),
+                         predicted_bytes=int(plan.peak_bytes), actual_bytes=actual,
+                         ratio=round(ratio, 4))
     return ratio
 
 

@@ -45,7 +45,6 @@ import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 from .. import profiler
-from ..errors import UnimplementedError
 from .verifier import all_in_names, all_out_names, op_in_names, op_out_names
 
 __all__ = [
@@ -1040,11 +1039,59 @@ def optimize_program(program, feed_names=(), fetch_names=(), *, level=None,
 
 def measure_pass_deltas(program, feed, fetch_names=(), *, level=None,
                         passes=None, scope=None, name=None,
-                        warmup=None, repeats=None) -> dict:
+                        warmup=None, repeats=None, device=None) -> dict:
     """Replay-profile ``program`` before and after the pass pipeline and
-    report measured per-op deltas (``paddle_tpu/analysis/optimizer.py``).
-    It needs the per-op replay profiler, ``monitor/opprof.py``, which is
-    not ported (ROADMAP.md Queue A item 10)."""
-    raise UnimplementedError(
-        "measure_pass_deltas needs monitor/opprof.py (the per-op replay "
-        "profiler), which paddle_tpu_torch does not port yet")
+    report measured per-op deltas (``paddle_tpu/analysis/optimizer.py``):
+    per op type, the replayed us before and after
+    (``monitor.opprof.profile_program`` on ``device``), each pass's
+    rewrite stats and the whole program's speedup. The program must run
+    from ``scope`` (run it through the Executor once first). Both profiles
+    land in the opprof store as ``<name>@pre`` / ``<name>@post``."""
+    from ..monitor import opprof as _opprof
+
+    name = name or f"prog{getattr(program, '_identity_token', id(program))}"
+    feeds = tuple(sorted(feed or ()))
+    fetches = tuple(v if isinstance(v, str) else v.name for v in (fetch_names or ()))
+    before = _opprof.profile_program(
+        program, feed, fetches, scope=scope, name=f"{name}@pre", warmup=warmup,
+        repeats=repeats, with_trace=False, record=False, device=device)
+    result = optimize_program(
+        program, feeds, fetches, level=level, passes=passes, scope=scope,
+        feed_shapes={k: tuple(getattr(v, "shape", ()) or ()) for k, v in (feed or {}).items()},
+        device=device)
+    after = _opprof.profile_program(
+        result.program, feed, fetches, scope=scope, name=f"{name}@post", warmup=warmup,
+        repeats=repeats, with_trace=False, record=False, device=device)
+
+    def _by_type(profile):
+        agg: Dict[str, Dict[str, float]] = {}
+        for row in profile["ops"]:
+            if not row.get("replayed"):
+                continue
+            t = agg.setdefault(row["op_type"], {"time_us": 0.0, "ops": 0})
+            t["time_us"] = round(t["time_us"] + row["time_us"], 3)
+            t["ops"] += 1
+        return agg
+
+    before_by, after_by = _by_type(before), _by_type(after)
+    deltas = {}
+    for op_type in sorted(set(before_by) | set(after_by)):
+        b = before_by.get(op_type, {"time_us": 0.0, "ops": 0})
+        a = after_by.get(op_type, {"time_us": 0.0, "ops": 0})
+        deltas[op_type] = {
+            "before_us": b["time_us"], "after_us": a["time_us"],
+            "before_ops": b["ops"], "after_ops": a["ops"],
+            "delta_us": round(a["time_us"] - b["time_us"], 3),
+        }
+    return {
+        "name": name,
+        "changed": result.changed,
+        "passes": [{"name": s.name, "ops_rewritten": s.ops_rewritten,
+                    "bytes_saved": s.bytes_saved, "wall_ms": round(s.wall_ms, 3)}
+                   for s in result.stats],
+        "before_us": before["total_us"],
+        "after_us": after["total_us"],
+        "speedup": (round(before["total_us"] / after["total_us"], 4)
+                    if after["total_us"] else None),
+        "deltas": deltas,
+    }

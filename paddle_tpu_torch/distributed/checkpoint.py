@@ -28,7 +28,7 @@ tensors, so captured graphs stay valid.
 
 Not ported: a world size above 1, ``shardings`` and ``mesh`` (resharding
 goes with ``torch.distributed``, ROADMAP.md Queue A item 9), and the
-goodput, chaos and flight-recorder hooks (item 10).
+goodput, chaos and flight-recorder hooks (item 10, the part left).
 """
 from __future__ import annotations
 

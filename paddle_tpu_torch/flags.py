@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 from .errors import InvalidArgumentError, NotFoundError
 
-__all__ = ["define_flag", "set_flags", "get_flags", "flag"]
+__all__ = ["define_flag", "set_flags", "get_flags", "flag", "globals_view"]
 
 
 @dataclass
@@ -65,6 +65,15 @@ def set_flags(flags_map: dict):
         except (TypeError, ValueError) as e:
             raise InvalidArgumentError(
                 f"flag {name!r} expects {f.type.__name__}, got {value!r}") from e
+        # a flag flip is a breadcrumb a post-mortem needs
+        from .monitor import flight_recorder as _flight
+
+        _flight.record_event("flag_change", flag=name, value=repr(f.value))
+
+
+def globals_view() -> dict:
+    """Every flag's current value."""
+    return {n: f.value for n, f in _REGISTRY.items()}
 
 
 # nn/transformer.py _residual_norm — the post-norm residual-add + LayerNorm
@@ -334,3 +343,99 @@ define_flag("serving_router_request_timeout_s", 120.0,
 define_flag("metrics_max_series", 64,
             "max distinct label sets per metric family before new sets "
             "collapse into the shared 'other' overflow series")
+
+# monitor/training_monitor.py — steps between TrainingMonitor log lines
+# (step wall time, examples/s, input-wait share, MFU, HBM share, roofline
+# class). 0 silences the line; aggregation always runs.
+define_flag("monitor_interval", 100,
+            "steps between TrainingMonitor log lines (0: silent)")
+
+# monitor/flight_recorder.py — the structured-event ring buffer the
+# executor, captured steps, the router and flag changes report into;
+# dumped on an unhandled exception, SIGUSR1 or a watchdog trip.
+define_flag("flight_recorder", True,
+            "record structured runtime events into the in-memory ring "
+            "buffer for crash/hang post-mortems")
+
+# monitor/flight_recorder.py — ring capacity, read once when the recorder
+# is made (resizing a live ring would tear its seq accounting)
+define_flag("flight_recorder_capacity", 4096,
+            "flight-recorder ring buffer capacity (events)")
+
+# monitor/flight_recorder.py — where dump files land
+# (paddle_tpu_flight_rank<r>_pid<pid>.json); empty: the system temp dir
+define_flag("flight_recorder_dump_dir", "",
+            "directory for flight-recorder dump files (empty: temp dir)")
+
+# monitor/flight_recorder.py HangWatchdog — trips when no step completes
+# within the deadline; the trip dumps the recorder and every thread's
+# stack. 0 disables.
+define_flag("watchdog_timeout_s", 0.0,
+            "hang watchdog deadline in seconds (0: disabled); on trip, "
+            "dump the flight recorder + thread stacks + desync report")
+
+# monitor/debug_server.py — /healthz /metrics /flightrecorder /threadz
+# /flagz /costz /goodputz on 127.0.0.1:<port + rank>. 0 disables.
+define_flag("debug_port", 0,
+            "base port for the loopback HTTP debug endpoint "
+            "(bound at port+rank; 0: disabled)")
+
+# monitor/tracing.py — per-request trace spans, traceparent propagation
+# router -> backend, /tracez.
+define_flag("trace_enabled", True,
+            "record per-request trace spans (traceparent propagation, "
+            "/tracez, /statz slowest table)")
+
+# monitor/tracing.py TraceStore — tail sampling: flagged traces are always
+# kept, of the rest the K slowest a window
+define_flag("trace_sample_slowest_k", 5,
+            "retain the K slowest traces per sampling window in "
+            "addition to every errored/flagged trace (0: flagged only)")
+
+define_flag("trace_sample_window_s", 30.0,
+            "tail-sampling window in seconds for the slowest-K "
+            "retention race")
+
+# monitor/tracing.py TraceStore — bound on retained traces (in-flight
+# traces are bounded at 4x this)
+define_flag("trace_store_capacity", 256,
+            "maximum retained traces in the in-process trace store")
+
+# monitor/slo.py — objectives, the engine's sampling period and the
+# burn-rate alert multiple
+define_flag("slo_objectives", "",
+            "SLO definitions 'name|selector|k=v|...' joined by ';' "
+            "(fields: threshold_ms | error_ratio, target, window_s, "
+            "alert_burn); empty disables")
+
+define_flag("slo_sample_interval_s", 10.0,
+            "seconds between SLO engine good/total samples of the "
+            "metric registry")
+
+define_flag("slo_burn_alert", 14.4,
+            "error-budget burn-rate multiple at which an SLO alerts "
+            "(both windows) and the autoscaler sees up-pressure")
+
+# monitor/goodput.py — the lifetime goodput ledger's GOODPUT.json
+# directory (empty: off), its publication period and an optional
+# goodput-ratio objective
+define_flag("goodput_dir", "",
+            "directory for the training goodput ledger's GOODPUT.json "
+            "sidecar; empty disables the ledger")
+
+define_flag("goodput_publish_interval_s", 30.0,
+            "seconds between goodput sidecar publications (piggybacked "
+            "on step commits; 0 publishes every step)")
+
+define_flag("goodput_slo_target", 0.0,
+            "goodput-ratio SLO target (e.g. 0.9) installed through the "
+            "burn-rate engine; 0 disables")
+
+# monitor/opprof.py profile_program — each op warmed opprof_warmup times,
+# then timed best-of-opprof_repeats; top_ops/profilez keep opprof_topk
+define_flag("opprof_warmup", 1,
+            "per-op replay profiler: warmup runs before timing each op")
+define_flag("opprof_repeats", 3,
+            "per-op replay profiler: timed runs per op (best-of-N)")
+define_flag("opprof_topk", 10,
+            "top-K ops by device time shown on /statz and /profilez")

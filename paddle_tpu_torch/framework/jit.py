@@ -60,6 +60,7 @@ import torch.utils.checkpoint
 from ..device import resolve_device
 from ..errors import FatalError
 from ..flags import flag
+from ..monitor import flight_recorder as _flight
 from ..runtime.compiled import GraphStore, clone_outputs, compiled_step, precision_key
 from . import nan_inf
 from . import random as _random
@@ -81,6 +82,20 @@ def _set_precision():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+def _first_run(device, fn):
+    """``fn()`` on a side stream, then the device synchronized: the eager
+    first run of a signature before its capture (PyTorch's warm-up rule
+    for graphs)."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    torch.cuda.synchronize(device)
+    return out
+
+
 def _to_device(x, device):
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
@@ -99,20 +114,6 @@ def _captures(device) -> bool:
     """Whether a compiled step on ``device`` captures graphs: on a CUDA
     device; the CPU runs the step eagerly."""
     return device.type == "cuda"
-
-
-def _first_run(device, fn):
-    """``fn()`` on a side stream, then the device synchronized: the eager
-    first run of a signature before its capture (PyTorch's warm-up rule
-    for graphs)."""
-    cur = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        out = fn()
-    cur.wait_stream(side)
-    torch.cuda.synchronize(device)
-    return out
 
 
 class TrainStepFn:
@@ -192,18 +193,24 @@ class TrainStepFn:
             loss = self._compiled(variant, batch, checked)
         elif self.jit:
             with compiled_step():
-                loss = self._run(variant, batch, checked)
+                loss = self.store.run_eager(self._sig(variant, batch, checked),
+                                            lambda: self._run(variant, batch, checked), batch)
         else:
             loss = self._run(variant, batch, checked)
         if checked:
             self._judge(saved)
         self._calls_in_window = 0 if applies else self._calls_in_window + 1
+        # the hang watchdog's progress: the step's host boundary, no device sync
+        _flight.notify_progress("train_step")
         return {"loss": loss}
+
+    def _sig(self, variant, batch, checked):
+        return ((self._instance, len(self.optimizer._parameter_list), variant, checked,
+                 precision_key()) + _signature(batch))
 
     def _compiled(self, variant, batch, checked=False):
         opt = self.optimizer
-        sig = ((self._instance, len(opt._parameter_list), variant, checked, precision_key())
-               + _signature(batch))
+        sig = self._sig(variant, batch, checked)
         entry = self.store.lookup(sig)
         if entry is not None:
             out = self.store.replay(entry, *batch, read=clone_outputs)
@@ -213,7 +220,10 @@ class TrainStepFn:
             return out
         inputs = [b.clone() for b in batch]  # the graph's static inputs
         with compiled_step():
-            loss = _first_run(self.device, lambda: self._run(variant, inputs, checked))
+            loss = self.store.first_run(
+                sig, self.device,
+                lambda: _first_run(self.device, lambda: self._run(variant, inputs, checked)),
+                inputs)
             host_step, names = opt._global_step, self._nan_names
             try:
                 self.store.capture(sig, lambda *x: self._run(variant, x, checked), inputs,
@@ -456,8 +466,9 @@ class EvalStepFn:
                 batch = [_to_device(b, self.device) for b in batch]
                 if not self.jit:
                     return keep(self._run(batch))
+                sig = (self._instance, precision_key()) + _signature(batch)
                 with compiled_step():
-                    return keep(self._run(batch))
+                    return keep(self.store.run_eager(sig, lambda: self._run(batch), batch))
             batch = [torch.from_numpy(np.ascontiguousarray(b)) if isinstance(b, np.ndarray)
                      else b for b in batch]
             sig = (self._instance, precision_key()) + _signature(batch)
@@ -468,7 +479,10 @@ class EvalStepFn:
                     if entry is None:
                         inputs = [b.to(self.device, copy=True) for b in batch]
                         with compiled_step():
-                            out = _first_run(self.device, lambda: self._run(inputs))
+                            out = self.store.first_run(
+                                sig, self.device,
+                                lambda: _first_run(self.device, lambda: self._run(inputs)),
+                                inputs)
                             self.store.capture(sig, lambda *x: self._run(x), inputs,
                                                _random.graph_generators(self.device))
                         return keep(out)

@@ -26,22 +26,19 @@ blamed on the next aten op that read it.
 
 :func:`nan_event_action` is the ``FLAGS_check_nan_inf_action`` policy the
 train step and the executor share (``paddle_tpu/monitor/flight_recorder.py``
-``nan_event_action``): ``raise`` (the caller raises), ``warn`` (a
-``RuntimeWarning``, the event counted in :func:`nan_events`, the run goes
-on), ``dump`` (the flight recorder is not ported yet: ROADMAP.md Queue A
-item 10).
+``nan_event_action``): every event is counted (:func:`nan_events` and the
+registry's ``debug/nan_events``) and recorded as a ``nan_inf`` flight
+event; then ``raise`` (the caller raises), ``warn`` (a ``RuntimeWarning``,
+the run goes on) or ``dump`` (a flight-recorder snapshot is written, then
+the caller raises, as ``paddle_tpu/framework/jit.py:504-509`` does).
 """
 from __future__ import annotations
 
 import threading
-import warnings
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-
-from ..errors import InvalidArgumentError, UnimplementedError
-from ..flags import flag
 
 __all__ = ["NanCheck", "nan_event_action", "nan_events"]
 
@@ -108,23 +105,16 @@ class NanCheck(TorchDispatchMode):
 
 def nan_event_action(where, detail):
     """The ``FLAGS_check_nan_inf_action`` policy for a NaN/Inf found at
-    ``where``: counts the event, then returns None for ``warn`` (after a
-    ``RuntimeWarning``; the caller goes on) or ``"raise"`` (the caller
-    raises its own error); ``dump`` raises ``UnimplementedError``, any
-    other value ``InvalidArgumentError``."""
+    ``where`` (``monitor.flight_recorder.nan_event_action``): counts the
+    event (also in :func:`nan_events`) and records a ``nan_inf`` flight
+    event, then returns None for ``warn`` (after a ``RuntimeWarning``; the
+    caller goes on), or the action for ``raise`` and ``dump`` (the caller
+    raises its own error; for ``dump`` the flight-recorder snapshot is
+    written first); any other value raises ``InvalidArgumentError``."""
+    from ..monitor import flight_recorder as _flight
+
     global _events
-    action = flag("check_nan_inf_action")
-    if action not in ("raise", "warn", "dump"):
-        raise InvalidArgumentError(
-            f"FLAGS_check_nan_inf_action must be raise|warn|dump, got {action!r}")
+    action = _flight.nan_event_action(where, detail)
     with _events_lock:
         _events += 1
-    if action == "warn":
-        warnings.warn(f"check_nan_inf: {detail} (action=warn: continuing; "
-                      f"debug/nan_events counter bumped)", RuntimeWarning, stacklevel=3)
-        return None
-    if action == "dump":
-        raise UnimplementedError(
-            f"check_nan_inf_action=dump at {where}: the dump is a flight-recorder snapshot, "
-            "and the flight recorder is not ported yet (ROADMAP.md Queue A item 10)")
     return action

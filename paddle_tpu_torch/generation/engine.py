@@ -71,9 +71,9 @@ On the CPU (``device="cpu"``) the same bodies run eagerly at every call.
 A speculative round bumps the registry's ``generation/spec_rounds_total``,
 ``spec_proposed_total`` and ``spec_accepted_total``, and a capture after
 warmup ``serving/gen_unexpected_compiles``, as the JAX engine does. Its
-registry gauges and flight events wait for ROADMAP.md Queue A item 10; the
-accounting behind them is here (:meth:`GenerationEngine.paging_stats`,
-:meth:`GenerationEngine.spec_stats`).
+registry gauges and flight events are not wired yet (ROADMAP.md Queue A
+item 10, the part left); the accounting behind them is here
+(:meth:`GenerationEngine.paging_stats`, :meth:`GenerationEngine.spec_stats`).
 """
 from __future__ import annotations
 
@@ -224,7 +224,8 @@ class GenerationEngine:
                         for label in ("prefill", "decode", "draft", "verify")}
         self._instance = next(_instances)
         self.warmed = False
-        self.watch = CompileWatch(self.compile_count, metric="serving/gen_unexpected_compiles")
+        self.watch = CompileWatch(self.compile_count, metric="serving/gen_unexpected_compiles",
+                                  event="generation_unexpected_compile")
 
     def _check_draft(self, draft, cfg):
         """The JAX engine's draft checks: ``draft_k >= 1``, the target's
@@ -596,7 +597,9 @@ class GenerationEngine:
                     entry = store.lookup(sig)
                     if entry is None:
                         static = [x.to(self.device, copy=True) for x in inputs]
-                        out = _first_run(self.device, lambda: body(*static))
+                        out = store.first_run(
+                            sig, self.device,
+                            lambda: _first_run(self.device, lambda: body(*static)), static)
                         store.capture(sig, body, static,
                                       generators=[self._gen] if sample else [])
                         return read(out)
@@ -1236,8 +1239,8 @@ class GenerationEngine:
     def _note_prefix(self, tenant, prompt_tokens, shared_tokens, matched_pages):
         """Per-tenant prefix-reuse accounting (``paging_stats()
         ["per_tenant"]``). The JAX engine also sets its registry gauges and
-        records a ``prefix_reuse`` flight event here; those wait for the
-        monitor (ROADMAP.md Queue A item 10)."""
+        records a ``prefix_reuse`` flight event here; those are not wired
+        yet (ROADMAP.md Queue A item 10, the part left)."""
         st = self._prefix_tenants.setdefault(tenant, {"lookups": 0, "hits": 0,
                                                       "prompt_tokens": 0, "shared_tokens": 0})
         st["lookups"] += 1

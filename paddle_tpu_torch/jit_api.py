@@ -105,7 +105,9 @@ class StaticFunction:
                     inputs = [wrap(b.detach().clone()) for b in batch]
                     fn = lambda *x: self._function(*[wrap(t) for t in x], **kwargs)  # noqa: E731
                     with compiled_step():
-                        out = fjit._first_run(device, lambda: fn(*inputs))
+                        out = self.store.first_run(
+                            sig, device, lambda: fjit._first_run(device, lambda: fn(*inputs)),
+                            inputs)
                         self.store.capture(sig, fn, inputs, _random.graph_generators(device))
                     return out
         return wrap(self.store.replay(entry, *batch, read=clone_outputs))

@@ -8,10 +8,16 @@ package merges with one of the other.
 
 Labeled children (``metric.labels(kind=..., tenant=...)``) are bounded per
 family by ``FLAGS_metrics_max_series``; past it every new label set lands in
-one shared series whose values are all ``"other"``. The JAX package also
-records a flight event at the first overflow; the port has no flight
-recorder yet (ROADMAP.md Queue A item 10). The JAX registry's HBM gauges
-and ``jax.monitoring`` listeners belong to that item too.
+one shared series whose values are all ``"other"``, and the first overflow
+records a ``metric_series_overflow`` flight event.
+
+Beside the metrics: the memory gauges of each card from
+``torch.cuda.memory_stats`` (:func:`collect_hbm_gauges`, under the JAX
+package's PJRT key names), and the compile-event listener
+(:func:`install_jax_listeners`, the JAX name kept): where the JAX package
+hears XLA compiles through ``jax.monitoring``, the port's compile event is
+a graph capture (``runtime/compiled.py``), counted as ``graph/compile``
+with its duration in ``graph/compile/duration_ms``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ __all__ = [
     "registry_snapshot", "reset_registry", "all_metrics",
     "histogram_quantile", "merge_histogram_snapshots",
     "format_labels", "DEFAULT_BUCKETS", "OVERFLOW_LABEL_VALUE",
+    "STAT_INT", "STAT_FLOAT", "stat_add", "stat_reset",
+    "collect_hbm_gauges", "hbm_watermark_bytes", "install_jax_listeners",
+    "note_compile_event",
 ]
 
 _lock = threading.Lock()
@@ -74,6 +83,7 @@ class _Metric:
         self._children: dict = {}
         self._label_keys = None  # fixed by the first labels() call
         self._labels = ()        # ((k, v), ...), set on children only
+        self._overflowed = False
         self._parent = None
 
     def _new_child(self):
@@ -91,6 +101,7 @@ class _Metric:
             raise ValueError(f"metric {self.name!r}: labels() needs at least one label")
         keys = tuple(sorted(dims))
         key = tuple((k, str(dims[k])) for k in keys)
+        first_overflow = False
         with self._lock:
             if self._label_keys is None:
                 self._label_keys = keys
@@ -102,11 +113,18 @@ class _Metric:
             if child is None and len(self._children) >= _max_series():
                 key = tuple((k, OVERFLOW_LABEL_VALUE) for k in keys)
                 child = self._children.get(key)
+                first_overflow = not self._overflowed
+                self._overflowed = True
             if child is None:
                 child = self._new_child()
                 child._parent = self
                 child._labels = key
                 self._children[key] = child
+        if first_overflow:
+            from . import flight_recorder as _flight
+
+            _flight.record_event("metric_series_overflow", metric=self.name,
+                                 max_series=_max_series())
         return child
 
     def series(self) -> dict:
@@ -294,6 +312,25 @@ def histogram(name, buckets=None, help="") -> Histogram:
     return h
 
 
+def STAT_INT(name) -> Gauge:
+    """A named integer stat (``DEFINE_INT_STATUS``): a gauge added to."""
+    return gauge(f"stat/int/{name}")
+
+
+def STAT_FLOAT(name) -> Gauge:
+    return gauge(f"stat/float/{name}")
+
+
+def stat_add(name, v=1):
+    """``STAT_ADD(name, v)``: add to an integer stat by name."""
+    STAT_INT(name).add(v)
+
+
+def stat_reset(name):
+    """``STAT_RESET(name)``."""
+    STAT_INT(name).set(0)
+
+
 def histogram_quantile(h: Histogram, q: float):
     """A quantile from the bucket counts (Prometheus' ``histogram_quantile``:
     linear inside the bucket; the +Inf bucket clamps to the largest finite
@@ -374,3 +411,91 @@ def reset_registry(unregister=False):
         metrics = list(_metrics.values())
     for m in metrics:
         m._reset()
+
+
+# -- memory gauges -------------------------------------------------------------
+
+_HBM_KEYS = ("bytes_in_use", "peak_bytes_in_use", "bytes_limit",
+             "largest_free_block_bytes")
+
+
+class _Card:
+    """A CUDA device whose ``memory_stats()`` reads the caching allocator
+    under the PJRT key names the JAX package's gauges use."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def memory_stats(self) -> dict:
+        import torch
+
+        st = torch.cuda.memory_stats(self.index)
+        return {"bytes_in_use": st.get("allocated_bytes.all.current", 0),
+                "peak_bytes_in_use": st.get("allocated_bytes.all.peak", 0),
+                "bytes_limit": torch.cuda.mem_get_info(self.index)[1]}
+
+
+def _cards():
+    import torch
+
+    if not torch.cuda.is_available():
+        return []
+    return [_Card(i) for i in range(torch.cuda.device_count())]
+
+
+def collect_hbm_gauges(devices=None) -> dict:
+    """Set ``hbm/device<i>/<key>`` gauges from each device's
+    ``memory_stats()`` and return the values set; a device publishing
+    nothing (the CPU) contributes nothing, never a zero. ``devices``
+    defaults to every card, read through the caching allocator
+    (``torch.cuda.memory_stats``)."""
+    if devices is None:
+        devices = _cards()
+    out = {}
+    for i, d in enumerate(devices):
+        try:
+            stats = d.memory_stats()
+        except Exception:  # a device without the stats API publishes nothing
+            stats = None
+        if not stats:
+            continue
+        for key in _HBM_KEYS:
+            if key in stats:
+                name = f"hbm/device{i}/{key}"
+                gauge(name).set(int(stats[key]))
+                out[name] = int(stats[key])
+    return out
+
+
+def hbm_watermark_bytes(devices=None) -> int:
+    """Max ``peak_bytes_in_use`` across the devices (0 if unpublished)."""
+    vals = collect_hbm_gauges(devices)
+    peaks = [v for k, v in vals.items() if k.endswith("peak_bytes_in_use")]
+    return max(peaks) if peaks else 0
+
+
+# -- compile events ------------------------------------------------------------
+
+_listeners_installed = [False]
+
+
+def install_jax_listeners() -> bool:
+    """Route the port's compile events (a graph capture, reported through
+    :func:`note_compile_event`) into the registry: each bumps
+    ``graph/compile`` and observes ``graph/compile/duration_ms``, and
+    lands in the flight recorder. Idempotent; returns True."""
+    _listeners_installed[0] = True
+    return True
+
+
+def note_compile_event(label, duration_s):
+    """One compile event (``runtime/compiled.py`` ``GraphStore.capture``),
+    counted once the listeners are installed."""
+    if not _listeners_installed[0]:
+        return
+    counter("graph/compile").inc()
+    histogram("graph/compile/duration_ms").observe(duration_s * 1e3)
+    from . import flight_recorder as _flight
+
+    _flight.record_event("graph_compile_event", label=label,
+                         duration_ms=round(duration_s * 1e3, 3))

@@ -10,6 +10,7 @@ capturing thread.
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -17,6 +18,8 @@ from torch.utils._python_dispatch import _disable_current_modes, _get_current_di
 
 _local = threading.local()
 _by_stream: dict = {}  # a capture's stream handle -> its tally, while it records
+_work_counters = [0]  # monitor.cost_model.count_work blocks open in the process
+_work_lock = threading.Lock()
 
 
 def bump(namespace, name, n=1):
@@ -48,3 +51,31 @@ def check_outputs(namespace, name, *tensors):
             with _disable_current_modes():
                 mode.note(kernel, tensors)
             return
+
+
+def work_counters_active(n):
+    """Add ``n`` to the count of open ``monitor.cost_model.count_work``
+    blocks: while it is 0, a wrapper looks for none."""
+    with _work_lock:
+        _work_counters[0] += n
+
+
+def counted(cost):
+    """Decorate a kernel wrapper so that it reports ``cost(*args,
+    **kwargs) -> (flops, bytes)``, the work of the function it computes, to
+    the work counter active on this thread (``monitor.cost_model``
+    ``WorkCount``, found on the dispatch mode stack by ``counts_work``),
+    which then counts none of the aten ops the wrapper runs. The cost is
+    computed from the arguments, so the wrapper counts the same on a CPU
+    tensor (its plain version) as on the card."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if _work_counters[0]:
+                for mode in _get_current_dispatch_mode_stack():
+                    if getattr(mode, "counts_work", False):
+                        flops, nbytes = cost(*args, **kwargs)
+                        return mode.kernel(fn.__name__, flops, nbytes, fn, args, kwargs)
+            return fn(*args, **kwargs)
+        return inner
+    return wrap

@@ -64,7 +64,7 @@ import torch.nn.functional as _F
 
 from ...framework.autograd import amp_cast
 from . import _build
-from ._tally import bump, check_outputs
+from ._tally import bump, check_outputs, counted
 
 __all__ = ["conv_bn_relu", "mm_affine_relu", "mm_stats", "centered_sumsq", "bn_relu",
            "bn_bwd_partials", "bn_bwd_dco"]
@@ -259,6 +259,50 @@ def _mm_operands(name, p2, w2):
     return p2, (_F.pad(w2, (0, extra)) if extra else w2), (w2.shape[1] + extra,)
 
 
+def _mm_bytes(p2, w2):
+    m, k = p2.shape
+    return (m * k + k * w2.shape[1] + m * w2.shape[1]) * p2.element_size()
+
+
+def _mm_affine_relu_cost(p2, w2, scale, shift):
+    """Row 8's work: ``2·M·K·N`` FLOPs (3xTF32 counted once), the operands
+    and the two f32 vectors read, y written."""
+    return 2 * p2.shape[0] * p2.shape[1] * w2.shape[1], _mm_bytes(p2, w2) + 8 * w2.shape[1]
+
+
+def _mm_stats_cost(p2, w2):
+    """Row 9's work: ``2·M·K·N`` FLOPs, the operands read, co and its f32
+    column sums written."""
+    return 2 * p2.shape[0] * p2.shape[1] * w2.shape[1], _mm_bytes(p2, w2) + 4 * w2.shape[1]
+
+
+def _mn(co):
+    return co.numel() * co.element_size()
+
+
+def _centered_sumsq_cost(co, mean):
+    """Row 10's work: co and the mean read, the f32 sums written."""
+    return 0, _mn(co) + 8 * co.shape[1]
+
+
+def _bn_relu_cost(co, scale, shift):
+    """Row 11's work: co and the two vectors read, y written."""
+    return 0, 2 * _mn(co) + 8 * co.shape[1]
+
+
+def _bn_bwd_partials_cost(co, dy, scale, shift):
+    """Row 12's work: co, dy and the two vectors read, the two f32 sums
+    written."""
+    return 0, 2 * _mn(co) + 16 * co.shape[1]
+
+
+def _bn_bwd_dco_cost(co, dy, scale, shift, k3, b0):
+    """Row 13's work: co, dy and the four vectors read, the f32 dco
+    written."""
+    return 0, 2 * _mn(co) + 4 * co.numel() + 16 * co.shape[1]
+
+
+@counted(_mm_affine_relu_cost)
 def mm_affine_relu(p2, w2, scale, shift):
     """``relu((p2 @ w2) * scale + shift)`` for ``p2 [M, K]``, ``w2 [K, N]``
     (both float32 or both bf16; the output in their type) and float32
@@ -300,6 +344,7 @@ def mm_affine_relu(p2, w2, scale, shift):
     return y
 
 
+@counted(_mm_stats_cost)
 def mm_stats(p2, w2):
     """``(co, partial)``: ``co = p2 @ w2`` ``[M, N]`` in the operands' type
     and the float32 ``partial [tiles, N]`` whose column sums are ``co``'s
@@ -423,6 +468,7 @@ def _bn_symbol(name, co):
                  _BN_ARGS[name])
 
 
+@counted(_centered_sumsq_cost)
 def centered_sumsq(co, mean):
     """``partial [blocks, N]`` (float32) whose column sums are ``sum((co -
     mean)^2)`` per channel of ``co [M, N]``: the centred second pass of the
@@ -444,6 +490,7 @@ def centered_sumsq(co, mean):
     return partial
 
 
+@counted(_bn_relu_cost)
 def bn_relu(co, scale, shift):
     """``relu(co * scale + shift)`` for ``co [M, N]``, in ``co``'s type."""
     _check_mn("bn_relu", co)
@@ -462,6 +509,7 @@ def bn_relu(co, scale, shift):
     return y
 
 
+@counted(_bn_bwd_partials_cost)
 def bn_bwd_partials(co, dy, scale, shift):
     """``(partial_dy, partial_dyco)``, each float32 ``[blocks, N]``, whose
     column sums are ``sum(dy_relu)`` and ``sum(dy_relu * co)``, with
@@ -486,6 +534,7 @@ def bn_bwd_partials(co, dy, scale, shift):
     return pdy, pdyc
 
 
+@counted(_bn_bwd_dco_cost)
 def bn_bwd_dco(co, dy, scale, shift, k3, b0):
     """``scale * dy_relu - k3 * co - b0`` for ``co, dy [M, N]``, float32
     whatever their type (``_bn_bwd_dco``, ``:501``)."""

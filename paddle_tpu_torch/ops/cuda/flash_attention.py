@@ -53,7 +53,7 @@ import torch
 from ...framework import random as _random
 from ...framework.autograd import amp_cast
 from . import _build
-from ._tally import bump, check_outputs
+from ._tally import bump, check_outputs, counted
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_delta", "flash_attention_bwd_dkv",
@@ -377,6 +377,70 @@ def _checked(name, dtype, *outs):
     check_outputs(globals(), _KERNELS[(name, dtype)][1], *outs)
 
 
+def _pairs(lq, lk, causal):
+    """The (query, key) pairs attention computes: all of them, or under
+    ``causal`` (bottom-right aligned) those with ``i + lk - lq >= j``."""
+    if not causal:
+        return lq * lk
+    off = lk - lq
+    return sum(min(lk, max(0, i + off + 1)) for i in range(lq))
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _bias_bytes(bias):
+    """A bias operand's bytes, its broadcast dimensions counted once."""
+    if bias is None:
+        return 0
+    n = bias.element_size()
+    for size, stride in zip(bias.shape, bias.stride()):
+        n *= size if stride else 1
+    return n
+
+
+def _products(q, k, causal, count):
+    """``count`` products of ``[Lq, D]`` by ``[D, Lk]`` for every (batch,
+    head): ``2·count·B·H·pairs·D`` FLOPs."""
+    b, h, lq, d = q.shape
+    return 2 * count * b * h * _pairs(lq, k.shape[2], causal) * d
+
+
+def _fwd_cost(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0, seed=None):
+    """The forward's work (``PERF.md`` rows 3-4): ``4·B·H·L²·D`` FLOPs
+    (QKᵀ and PV, counted once also in 3xTF32); q, k, v and the bias read,
+    out and the f32 lse written; a stored dropout mask left out."""
+    return (_products(q, k, causal, 2),
+            _nbytes(q, k, v) + _bias_bytes(bias) + _nbytes(q) + 4 * q.shape[0] * q.shape[1]
+            * q.shape[2])
+
+
+def _dq_cost(q, k, v, bias, lse, delta, dout, causal=False, scale=None, dropout_rate=0.0,
+             seed=None):
+    """dQ's work (row 6): ``6·B·H·L²·D`` FLOPs (S, dP and dQ); its inputs
+    read and dq written."""
+    return (_products(q, k, causal, 3),
+            _nbytes(q, k, v, lse, delta, dout) + _bias_bytes(bias) + _nbytes(q))
+
+
+def _dq_delta_cost(q, k, v, bias, lse, out, dout, causal=False, scale=None, dropout_rate=0.0,
+                   keep=None):
+    """The bf16 dQ's work (row 6b): as :func:`_dq_cost`, reading O for
+    delta, which it writes."""
+    return (_products(q, k, causal, 3),
+            _nbytes(q, k, v, lse, out, dout) + _bias_bytes(bias) + _nbytes(q, lse))
+
+
+def _dkv_cost(q, k, v, bias, lse, delta, dout, causal=False, scale=None, dropout_rate=0.0,
+              drop=None):
+    """dK/dV's work (row 7): ``8·B·H·L²·D`` FLOPs (S, dP, dV and dK); its
+    inputs read, dk and dv written."""
+    return (_products(q, k, causal, 4),
+            _nbytes(q, k, v, lse, delta, dout) + _bias_bytes(bias) + _nbytes(k, v))
+
+
+@counted(_fwd_cost)
 def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0,
                         seed=None):
     """``(out, lse)`` on the card: ``out`` ``[B, H, Lq, D]`` in q's dtype
@@ -418,6 +482,7 @@ def _bwd_args(name, q, k, v, bias, lse, delta, dout, causal, scale, more=()):
     return head + [dout.data_ptr(), lse.data_ptr(), delta.data_ptr()], tail, bias32
 
 
+@counted(_dq_cost)
 def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=None,
                            dropout_rate=0.0, seed=None):
     """``dq`` on the card (the float32 dQ kernel) from the forward's
@@ -441,6 +506,7 @@ def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=
     return dq
 
 
+@counted(_dq_delta_cost)
 def flash_attention_bwd_dq_delta(q, k, v, bias, lse, out, dout, causal=False, scale=None,
                                  dropout_rate=0.0, keep=None):
     """``(dq, delta)`` on the card from bfloat16 operands: the bf16 dQ
@@ -468,6 +534,7 @@ def flash_attention_bwd_dq_delta(q, k, v, bias, lse, out, dout, causal=False, sc
     return dq, delta
 
 
+@counted(_dkv_cost)
 def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal=False, scale=None,
                             dropout_rate=0.0, drop=None):
     """``(dk, dv)`` on the card (the dK/dV kernel) from the forward's

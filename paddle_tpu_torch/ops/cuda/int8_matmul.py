@@ -30,7 +30,7 @@ import threading
 import torch
 
 from . import _build
-from ._tally import bump
+from ._tally import bump, counted
 
 __all__ = ["int8_matmul", "LAUNCHES", "SPLITS"]
 
@@ -76,6 +76,14 @@ def _plain_int8_matmul(x, w):
     return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
 
 
+def _cost(x, w):
+    """Row 15's work: ``2·M·K·N`` integer operations; ``M·K + K·N`` int8
+    bytes read, ``4·M·N`` int32 bytes written."""
+    (m, k), n = x.shape, w.shape[1]
+    return 2 * m * k * n, m * k + k * n + 4 * m * n
+
+
+@counted(_cost)
 @torch.no_grad()
 def int8_matmul(x, w):
     """``x [M, K] int8 @ w [K, N] int8 -> [M, N] int32``, exact."""

@@ -39,7 +39,7 @@ import torch
 
 from ...framework.autograd import amp_cast
 from . import _build
-from ._tally import bump, check_outputs
+from ._tally import bump, check_outputs, counted
 
 __all__ = ["layernorm_residual", "layernorm_residual_fwd", "layernorm_residual_bwd",
            "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "MIXED_LAUNCHES"]
@@ -190,6 +190,23 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _fwd_cost(x2, r2, w, b, eps=1e-5):
+    """The forward's work (``PERF.md`` row 1): x, the residual, w and b
+    read, y (x's type) and the f32 mean and rstd written; no products."""
+    return 0, _nbytes(x2, r2, w, b) + x2.numel() * x2.element_size() + 8 * x2.shape[0]
+
+
+def _bwd_cost(x2, r2, w, mean, rstd, dy2):
+    """The backward's work (row 2): x, the residual, w, mean, rstd and dy
+    read, da and the f32 dw and db written."""
+    return 0, _nbytes(x2, r2, w, mean, rstd, dy2) + _nbytes(x2) + 8 * x2.shape[1]
+
+
+@counted(_fwd_cost)
 def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
     """``(y, mean, rstd)`` for ``[rows, H]`` inputs, ``y`` in ``x``'s
     dtype; the residual is of ``x``'s dtype, or f32 under a bf16 ``x`` (the
@@ -224,6 +241,7 @@ def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
     return y, mean, rstd
 
 
+@counted(_bwd_cost)
 def layernorm_residual_bwd(x2, r2, w, mean, rstd, dy2):
     """``(da, dw_partial, db_partial)`` for ``[rows, H]`` inputs and the
     forward's f32 ``mean``/``rstd``: ``da`` is the gradient of both ``x``

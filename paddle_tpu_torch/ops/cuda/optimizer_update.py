@@ -41,7 +41,7 @@ import threading
 import torch
 
 from . import _build
-from ._tally import bump, check_outputs
+from ._tally import bump, check_outputs, counted
 
 __all__ = ["fused_momentum_update", "fused_momentum_update_multi", "launch_groups",
            "MAX_TENSORS", "CHUNK", "LAUNCHES", "TENSORS"]
@@ -110,6 +110,15 @@ def _entry():
     return fn
 
 
+def _update_cost(params, grads, velocities, lr, momentum=0.9, weight_decay=0.0,
+                 use_nesterov=False):
+    """Row 14's work: each param, grad and velocity read, each param and
+    velocity written (``20·P`` bytes in f32); no products."""
+    return 0, sum(t.numel() * t.element_size() * n
+                  for ts, n in ((params, 2), (grads, 1), (velocities, 2)) for t in ts)
+
+
+@counted(_update_cost)
 @torch.no_grad()
 def fused_momentum_update_multi(params, grads, velocities, lr, momentum=0.9, weight_decay=0.0,
                                 use_nesterov=False):

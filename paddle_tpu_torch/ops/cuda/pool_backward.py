@@ -38,7 +38,7 @@ import threading
 import torch
 
 from . import _build
-from ._tally import bump, check_outputs
+from ._tally import bump, check_outputs, counted
 
 __all__ = ["max_pool2d_backward", "max_pool_backward_supported", "memory_layout", "LAUNCHES",
            "BF16_LAUNCHES"]
@@ -132,6 +132,12 @@ def _pairs(kernel, stride, padding):
     return out
 
 
+def _cost(x, y, dy, kernel, stride, padding):
+    """Row 16's work: x, y and dy read, dx (x's shape) written."""
+    return 0, (2 * x.numel() + y.numel() + dy.numel()) * x.element_size()
+
+
+@counted(_cost)
 @torch.no_grad()
 def max_pool2d_backward(x, y, dy, kernel, stride, padding):
     """``dx`` like ``x`` [N, C, H, W] for ``y = max_pool2d(x)`` and ``dy``

@@ -45,9 +45,23 @@ of kernel launches from Python:
   counts stay those of executed steps, also while other threads launch
   and replay.
 
+- **Telemetry** (``paddle_tpu/runtime/compiled.py:221-339``): the eager
+  first run of a signature (:meth:`GraphStore.first_run`) is counted
+  (``monitor.cost_model.count_work``), and the capture keeps the count as
+  the entry's :class:`~paddle_tpu_torch.monitor.cost_model.CostRecord`;
+  each replay adds it to the executed-work ledger (``note_run``) and
+  tags the current trace span with the entry's ``cache_key``. A capture
+  is the goodput ledger's ``compile`` phase and the registry's compile
+  event, and records a ``runtime_compile`` flight event (a refused one
+  ``runtime_capture_refused``, the counterpart of the JAX store's
+  ``runtime_demote``; an eviction ``runtime_cache_evict``). On the CPU,
+  where a compiled step runs eagerly at every call, :meth:`GraphStore.run_eager`
+  counts a signature's first call and books every call.
+
 :class:`CompileWatch` counts the captures a store makes after a warmup
 (``paddle_tpu/runtime/compiled.py:411-461``): a serving pool captures
-every bucket at warmup and then expects none.
+every bucket at warmup and then expects none, and each capture after it
+is a flight event.
 
 While a step body runs for a compiled step (its first, eager run and its
 capture) :func:`in_compiled_step` is true: a host decision inside it, such
@@ -60,12 +74,19 @@ import contextlib
 import hashlib
 import logging
 import threading
+import time
 
 import torch
 
 from ..errors import PreconditionNotMetError
 from ..flags import flag
+from ..monitor import cost_model as _cost
+from ..monitor import flight_recorder as _flight
+from ..monitor import goodput as _goodput
+from ..monitor import registry as _registry
+from ..monitor import tracing as _tracing
 from ..ops import cuda as _kernels
+from ..profiler import bump_counter
 
 __all__ = ["CaptureError", "CapturedStep", "GraphStore", "CompileWatch", "cache_capacity",
            "compiled_step", "in_compiled_step", "clone_outputs", "precision_key"]
@@ -125,21 +146,35 @@ def clone_outputs(out):
     return out
 
 
+def _nbytes(tree) -> int:
+    """The bytes of every tensor in ``tree`` (a tensor, a sequence or a
+    dict of them)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, (tuple, list)):
+        return sum(_nbytes(t) for t in tree)
+    if isinstance(tree, dict):
+        return sum(_nbytes(t) for t in tree.values())
+    return 0
+
+
 class CapturedStep:
     """One captured step: ``graph`` replays it on ``inputs`` (static
     buffers) into ``outputs``; ``counts`` are the kernel launches one
-    replay makes; ``lock`` makes a replay and the read of its outputs one
-    unit."""
+    replay makes; ``record`` is its cost sheet (None when its first run
+    was not counted); ``lock`` makes a replay and the read of its outputs
+    one unit."""
 
-    __slots__ = ("sig", "cache_key", "graph", "inputs", "outputs", "counts", "lock")
+    __slots__ = ("sig", "cache_key", "graph", "inputs", "outputs", "counts", "record", "lock")
 
-    def __init__(self, sig, cache_key, graph, inputs, outputs, counts):
+    def __init__(self, sig, cache_key, graph, inputs, outputs, counts, record=None):
         self.sig = sig
         self.cache_key = cache_key
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.counts = counts
+        self.record = record
         self.lock = threading.Lock()
 
 
@@ -154,6 +189,8 @@ class GraphStore:
         self._lock = threading.Lock()
         self.capturing = threading.RLock()  # held from a miss to its capture
         self.hits = self.misses = self.evictions = self.uncaptured = 0
+        self._counted: dict = {}  # sig -> (work count, memory) of its first run, until captured
+        self._eager_records: dict = {}  # sig -> the record of an eagerly run signature
 
     def __len__(self):
         return len(self._entries)
@@ -186,19 +223,64 @@ class GraphStore:
             entry = self._entries.pop(sig, None)
             if entry is None:
                 self.misses += count_miss
+                if count_miss:
+                    bump_counter("graph::cache_miss")
                 return None
             self._entries[sig] = entry
             self.hits += 1
-            return entry
+        bump_counter("graph::cache_hit")
+        return entry
 
     def _insert(self, entry):
         with self._lock:
             self._entries.pop(entry.sig, None)
             self._entries[entry.sig] = entry
             cap = cache_capacity()
+            evicted = []
             while len(self._entries) > cap:
-                self._entries.pop(next(iter(self._entries)))
+                evicted.append(self._entries.pop(next(iter(self._entries))))
                 self.evictions += 1
+        for old in evicted:
+            # the next call of that signature captures again: churn from an
+            # undersized store shows here (FLAGS_compiled_cache_capacity)
+            _flight.record_event("runtime_cache_evict", label=self.label,
+                                 cache_key=old.cache_key, capacity=cap)
+
+    def first_run(self, sig, device, run, inputs=()):
+        """``run()``, the eager first run of ``sig`` before its capture
+        (``framework/jit.py`` ``_first_run``), with its work counted
+        (``monitor.cost_model.count_work``); the next :meth:`capture` of
+        ``sig`` keeps the count as the entry's cost record, with the step's
+        input and output bytes (its temporaries are not measured: reading
+        them would reset the allocator's peak other readers hold)."""
+        with _cost.count_work() as work:
+            out = run()
+        mem = {"argument_size_in_bytes": _nbytes(list(inputs)),
+               "output_size_in_bytes": _nbytes(out)}
+        with self._lock:
+            self._counted[sig] = (work, mem)
+        return out
+
+    def run_eager(self, sig, fn, inputs=()):
+        """``fn()`` for a signature that runs eagerly at every call (a
+        compiled step on the CPU): its first call is counted into a cost
+        record (``monitor.cost_model``), and every call is one run of it."""
+        with self._lock:
+            rec = self._eager_records.get(sig)
+        if rec is not None:
+            out = fn()
+            _cost.note_run(rec)
+            return out
+        with _cost.count_work() as work:
+            out = fn()
+        key = self.key_of(sig)
+        mem = {"argument_size_in_bytes": _nbytes(list(inputs)),
+               "output_size_in_bytes": _nbytes(out)}
+        rec = _cost.capture(self.label, cost=work, mem=mem, key=key, cache_key=key)
+        with self._lock:
+            self._eager_records[sig] = rec
+        _cost.note_run(rec)
+        return out
 
     def capture(self, sig, fn, inputs, generators=()):
         """Capture ``fn(*inputs)`` into a new graph, its own memory pool,
@@ -214,8 +296,9 @@ class GraphStore:
         graph = torch.cuda.CUDAGraph()
         # a stream of its own: captures of two stores may record at once
         stream = torch.cuda.Stream() if torch.cuda.is_available() else None
+        t0 = time.perf_counter()
         try:
-            with _kernels.tallied(stream) as counts:
+            with _goodput.span("compile"), _kernels.tallied(stream) as counts:
                 for gen in generators:
                     graph.register_generator_state(gen)
                 with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
@@ -224,11 +307,24 @@ class GraphStore:
             why = f"{type(e).__name__}: {e}"
             with self._lock:
                 self._refused[sig] = why
+                self._counted.pop(sig, None)
+            _flight.record_event("runtime_capture_refused", label=self.label, cache_key=key,
+                                 error=why[:500])
             raise CaptureError(f"{key}: the step could not be captured into a CUDA graph "
                                f"({why}); it is not run eagerly instead") from e
         finally:
             _kernels.add_counts(counts, -1)  # the capture launched nothing
-        entry = CapturedStep(sig, key, graph, list(inputs), outputs, counts)
+        _registry.note_compile_event(self.label, time.perf_counter() - t0)
+        with self._lock:
+            counted = self._counted.pop(sig, None)
+        record = None
+        if counted is not None:
+            work, mem = counted
+            record = _cost.capture(self.label, cost=work, mem=mem, key=key, cache_key=key)
+            _cost.note_run(record)  # the first run was a real step
+        _flight.record_event("runtime_compile", label=self.label, cache_key=key,
+                             flops=record.flops if record else 0.0)
+        entry = CapturedStep(sig, key, graph, list(inputs), outputs, counts, record)
         self._insert(entry)
         return entry
 
@@ -252,7 +348,15 @@ class GraphStore:
                 raise CaptureError(f"{entry.cache_key}: the replay failed "
                                    f"({type(e).__name__}: {e})") from e
             _kernels.add_counts(entry.counts)
-            return entry.outputs if read is None else read(entry.outputs)
+            out = entry.outputs if read is None else read(entry.outputs)
+        rec = entry.record
+        _cost.note_run(rec)
+        if rec is not None:
+            _tracing.annotate(cache_key=entry.cache_key, flops=rec.flops,
+                              cost_bytes=rec.bytes_accessed)
+        else:
+            _tracing.annotate(cache_key=entry.cache_key)
+        return out
 
 
 class CompileWatch:
@@ -260,14 +364,16 @@ class CompileWatch:
     ``CompileWatch``): :meth:`arm` after warmup snapshots ``read()`` (a
     store's ``misses``); any growth after it is an unexpected capture,
     which :meth:`note` counts into :attr:`noted` and the registry counter
-    ``metric`` and logs (the JAX package also records a flight event; the
-    port has no flight recorder yet). ``note`` is an atomic
-    read-compare-bump: workers that see the same capture count it once."""
+    ``metric``, logs and records as the flight event ``event``. ``note``
+    is an atomic read-compare-bump: workers that see the same capture
+    count it once."""
 
-    def __init__(self, read, metric="serving/unexpected_compiles"):
+    def __init__(self, read, metric="serving/unexpected_compiles",
+                 event="serving_unexpected_compile"):
         from ..monitor import counter
 
         self._read = read
+        self._event = event
         self._baseline = None
         self._seen = 0
         self.noted = 0
@@ -300,4 +406,5 @@ class CompileWatch:
             self._seen = extra
             self.noted += grew
             self._metric.inc(grew)
+            _flight.record_event(self._event, total=extra, **fields)
         _log.warning("unexpected graph capture after warmup (%d in all): %s", extra, fields)

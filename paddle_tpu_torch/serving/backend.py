@@ -19,9 +19,10 @@ backend that is not ready.
 ``--device`` picks the device (the card unless named; ``cpu`` is how a test
 asks for the CPU); the JAX CLI has no such flag. A geometry the memory
 budget refuses (``FLAGS_memory_budget_check=strict``) exits 2 with the
-``MemoryBudgetError`` on stderr, as the JAX CLI does. The JAX CLI's
-``--mesh-dp`` (ROADMAP.md Queue A item 9) and its SLO install (item 10) are
-not ported.
+``MemoryBudgetError`` on stderr, as the JAX CLI does. Objectives in
+``FLAGS_slo_objectives`` are installed before the port is announced, so
+``/sloz`` serves them. The JAX CLI's ``--mesh-dp`` (ROADMAP.md Queue A item
+9) is not ported.
 """
 from __future__ import annotations
 
@@ -148,6 +149,9 @@ def main(argv=None) -> int:
         # geometry that would fit
         print(f"backend refused: {e}", file=sys.stderr, flush=True)
         return 2
+    from ..monitor import slo as _slo
+
+    _slo.install_from_flags()
     srv.start(warmup=True)  # /healthz turns ready only after warmup
     if args.port_file:
         _announce_port(args.port_file, srv.port)

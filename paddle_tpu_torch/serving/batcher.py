@@ -34,6 +34,8 @@ from ..errors import (
 )
 from ..flags import flag
 from ..monitor import counter, gauge, histogram
+from ..monitor import flight_recorder as _flight
+from ..monitor import tracing as _tracing
 
 __all__ = ["DynamicBatcher", "QueueFullError", "DeadlineExceededError",
            "ServingClosedError", "parse_buckets"]
@@ -72,7 +74,7 @@ class _Request:
     """One submitted prediction and the event its submitter waits on."""
 
     __slots__ = ("inputs", "rows", "deadline", "t_submit", "tenant", "result", "error",
-                 "_done")
+                 "trace", "_done")
 
     def __init__(self, inputs, rows, deadline, t_submit, tenant="default"):
         self.inputs = inputs
@@ -82,6 +84,10 @@ class _Request:
         self.tenant = tenant  # a label of the stage histograms
         self.result = None
         self.error = None
+        # the submitter's trace context (the handler's request span): the
+        # queue-wait, assemble and dispatch spans worker threads record
+        # hang under it
+        self.trace = _tracing.current_context()
         self._done = threading.Event()
 
     def expired(self, now) -> bool:
@@ -256,6 +262,12 @@ class DynamicBatcher:
             self.stats["expired"] += 1
             self._m_expired.inc()
             self._m_depth.set(len(self._q))
+            _flight.record_event("serving_deadline_expired", rows=req.rows,
+                                 queued_ms=round((now - req.t_submit) * 1e3, 3))
+            # a deadline miss is a trace the tail sampler always keeps
+            _tracing.record_interval("serving::queue_wait", req.trace, req.t_submit, now,
+                                     error="deadline exceeded in queue", rows=req.rows)
+            _tracing.flag_trace(req.trace, "deadline")
             req.done(error=DeadlineExceededError(
                 f"request deadline passed after {(now - req.t_submit) * 1e3:.1f}ms in queue; "
                 "never dispatched"))
@@ -329,6 +341,9 @@ class DynamicBatcher:
             # keeps exact totals
             self._h_queue.labels(kind="predict", bucket=str(bucket), tenant=req.tenant).observe(
                 (now - req.t_submit) * 1e3)
+            _tracing.record_interval("serving::queue_wait", req.trace, req.t_submit, now,
+                                     rows=req.rows)
+        asp = _tracing.begin_span("serving::assemble")
         feed = {}
         for n in self.feed_names:
             arr = (picked[0].inputs[n] if len(picked) == 1
@@ -343,6 +358,10 @@ class DynamicBatcher:
             self.stats["slots"] += bucket
             self.stats["last_fill"] = rows / bucket
         t_ready = time.monotonic()
+        # one assembly serves every member: the span lands in each trace
+        asp.set_attributes(bucket=bucket, rows=rows, requests=len(picked),
+                           fill=round(rows / bucket, 4), padded_rows=bucket - rows)
+        _tracing.record_fanin(asp, [r.trace for r in picked])
         self._h_assemble.observe((t_ready - t_first) * 1e3)
         self._m_batches.inc()
         self._m_rows.inc(rows)
@@ -367,6 +386,7 @@ class DynamicBatcher:
     def fail(self, batch, error):
         """Complete every request of a failed dispatch with ``error``."""
         for req in batch.requests:
+            _tracing.flag_trace(req.trace, "error")
             req.done(error=error)
         self._count(errors=len(batch.requests))
 

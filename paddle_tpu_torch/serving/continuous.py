@@ -24,8 +24,8 @@ The counters of :attr:`ContinuousBatcher.stats` and the latency samples of
 the process registry under the JAX names (``serving/gen_*_total``,
 ``serving/gen_token_ms`` labeled by kind, ``gen_ttft_ms`` and
 ``gen_e2e_ms`` by kind and tenant), which ``/loadz``, ``/histz`` and
-``/metrics`` read; the JAX package's tracing spans and flight recorder are
-not ported (ROADMAP Queue A item 10).
+``/metrics`` read; the JAX batcher's per-slot tracing spans and flight
+events are not wired into it yet (ROADMAP Queue A item 10, the part left).
 """
 from __future__ import annotations
 

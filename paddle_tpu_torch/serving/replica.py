@@ -23,6 +23,8 @@ import numpy as np
 from ..errors import InvalidArgumentError
 from ..flags import flag
 from ..monitor import histogram
+from ..monitor import tracing as _tracing
+from ..profiler import RecordEvent
 from ..runtime.compiled import CompileWatch
 
 __all__ = ["ReplicaPool", "predictor_input_specs"]
@@ -123,11 +125,22 @@ class ReplicaPool:
                 if batcher.closed:
                     break  # closed and drained
                 continue
+            # one dispatch span for the whole co-batch, current while the
+            # executor runs (it tags the span with the cache disposition
+            # and the step's FLOPs), then fanned into every member's trace
+            dsp = _tracing.begin_span("serving::dispatch", bucket=batch.bucket,
+                                      rows=batch.rows, requests=len(batch.requests),
+                                      replica=idx)
             try:
-                outs = pred.run([batch.feed[n] for n in names])
+                with RecordEvent("serving::dispatch"), _tracing.use_span(dsp):
+                    outs = pred.run([batch.feed[n] for n in names])
             except Exception as e:  # noqa: BLE001 — the worker must survive
+                dsp.set_error(f"{type(e).__name__}: {e}")
+                _tracing.record_fanin(dsp, [r.trace for r in batch.requests])
                 batcher.fail(batch, e)
                 continue
+            dsp.end()
+            _tracing.record_fanin(dsp, [r.trace for r in batch.requests])
             self._h_dispatch.observe((time.monotonic() - batch.t_ready) * 1e3)
             if self.warmed:
                 self._note_unexpected_compiles(idx, batch.bucket)

@@ -34,9 +34,14 @@ own process with ``python -m paddle_tpu_torch.serving.router --backend URL
 [--backend URL ...]``: proxying is Python byte shuffling, which a busy
 client or backend process would hold behind its GIL.
 
-The JAX router also opens a trace span per attempt (the ``traceparent``
-header) and records flight events; the port has neither tracing nor a
-flight recorder yet (ROADMAP.md Queue A item 10).
+Telemetry, as the JAX router's: a ``serving::router`` trace root per
+request (under the client's ``traceparent``, if any) and a
+``serving::attempt`` span per dispatch attempt, whose context travels to
+the backend in the ``traceparent`` header, so the backend's spans hang
+under it in one trace; flight events for backends added, removed, evicted
+and readmitted, each retry, a request no backend admitted, and the
+router's start and stop. The router's own ``/tracez``, ``/sloz`` and
+``/costz`` are those of its process.
 """
 from __future__ import annotations
 
@@ -59,7 +64,9 @@ from ..monitor import (
     histogram_quantile,
     merge_histogram_snapshots,
 )
-from .server import LOADZ_SCHEMA_VERSION, _BaseHandler, _HTTPServer
+from ..monitor import flight_recorder as _flight
+from ..monitor import tracing as _tracing
+from .server import _GET_ROUTES, LOADZ_SCHEMA_VERSION, _BaseHandler, _HTTPServer
 
 __all__ = ["Router", "BackendState", "NoBackendError", "BackendUnavailableError",
            "BackendTimeoutError", "main"]
@@ -172,8 +179,7 @@ class _RouterHandler(_BaseHandler):
         elif path == "/":
             self._reply(200, {
                 "service": "paddle_tpu_torch serving router",
-                "routes": ["/predict (POST)", "/generate (POST)", "/healthz", "/statz", "/loadz",
-                           "/fleetz", "/histz", "/metrics", "/metricz"]})
+                "routes": ["/predict (POST)", "/generate (POST)", "/fleetz", *_GET_ROUTES]})
         else:
             self._reply(404, {"error": f"unknown path {path!r}"})
 
@@ -186,7 +192,9 @@ class _RouterHandler(_BaseHandler):
         if kind is None:
             self._reply(404, {"error": f"unknown path {path!r}"})
             return
-        self._proxy(path, kind, body)
+        with self._trace_request("serving::router"):
+            _tracing.annotate(kind=kind)
+            self._proxy(path, kind, body)
 
     def _proxy(self, path, kind, body):
         srv = self._srv
@@ -393,6 +401,7 @@ class Router:
             if existing is not None:
                 return existing
             self._backends[b.url] = b
+        _flight.record_event("router_backend_added", url=b.url)
         if probe:
             self._probe_backend(b)
         return b
@@ -404,6 +413,7 @@ class Router:
             b = self._backends.pop(url.rstrip("/"), None)
         self._pool_drop(url)
         if b is not None:
+            _flight.record_event("router_backend_removed", url=b.url)
             self._update_healthy_gauge()
         return b
 
@@ -421,6 +431,7 @@ class Router:
         if was:
             self._pool_drop(b.url)
             self._m_evictions.inc()
+            _flight.record_event("router_backend_evicted", url=b.url, reason=reason)
             self._update_healthy_gauge()
 
     def note_backend_died(self, b: BackendState, reason: str):
@@ -440,6 +451,7 @@ class Router:
         if not was:
             if b.evictions:
                 self._m_readmissions.inc()
+                _flight.record_event("router_backend_readmitted", url=b.url)
             self._update_healthy_gauge()
 
     # -- backend HTTP ----------------------------------------------------------
@@ -488,7 +500,8 @@ class Router:
         for conn in pool:
             conn.close()
 
-    def _dispatch_send(self, b: BackendState, path, body, content_type=None, read_timeout=None):
+    def _dispatch_send(self, b: BackendState, path, body, content_type=None, read_timeout=None,
+                       headers=None):
         """POST over a pooled keep-alive connection. A failure on a reused
         connection is tried once more on a fresh one (the backend may have
         closed the idle socket); only a fresh connection's failure raises
@@ -498,7 +511,7 @@ class Router:
             try:
                 return conn, self._request_on(conn, "POST", path, body,
                                               content_type=content_type,
-                                              read_timeout=read_timeout)
+                                              read_timeout=read_timeout, headers=headers)
             except BackendTimeoutError:
                 conn.close()
                 raise
@@ -507,7 +520,7 @@ class Router:
         conn = self._connect(b)
         try:
             return conn, self._request_on(conn, "POST", path, body, content_type=content_type,
-                                          read_timeout=read_timeout)
+                                          read_timeout=read_timeout, headers=headers)
         except BackendTimeoutError:
             conn.close()
             raise
@@ -515,13 +528,15 @@ class Router:
             conn.close()
             raise BackendUnavailableError("no_response", f"{type(e).__name__}: {e}") from None
 
-    def _request_on(self, conn, method, path, body, content_type=None, read_timeout=None):
+    def _request_on(self, conn, method, path, body, content_type=None, read_timeout=None,
+                    headers=None):
         timeout = self.request_timeout_s if read_timeout is None else float(read_timeout)
         if conn.sock is not None:
             conn.sock.settimeout(timeout)  # a pooled connection keeps its last budget
         try:
-            headers = {"Content-Type": content_type or "application/json"} if body else {}
-            conn.request(method, path, body=body, headers=headers)
+            sent = {"Content-Type": content_type or "application/json"} if body else {}
+            sent.update(headers or {})
+            conn.request(method, path, body=body, headers=sent)
             return conn.getresponse()
         except socket.timeout:
             # sent, but nothing came back in time: dispatched work (504)
@@ -576,46 +591,67 @@ class Router:
             with self._lock:
                 b.inflight += 1
                 b.admitted += 1
-            try:
-                conn, resp = self._dispatch_send(b, path, body, content_type=content_type,
-                                                 read_timeout=read_timeout)
-            except BackendTimeoutError:
-                with self._lock:
-                    b.inflight -= 1
-                raise  # dispatched: 504, never retried
-            except BackendUnavailableError as e:
-                with self._lock:
-                    b.inflight -= 1
-                # never answered: evict it and retry on the next backend
-                self._evict(b, reason=e.reason)
-                self._m_retries.inc()
-                continue
-            if resp.status == 503:
-                # refused at admission (draining or not ready): not taken
+            # an attempt span under the handler's router root, recorded
+            # whatever the outcome; its context goes to the backend
+            with _tracing.start_span("serving::attempt", backend=b.url,
+                                     attempt=len(tried)) as asp:
+                headers = ({_tracing.TRACEPARENT_HEADER: _tracing.format_traceparent(asp.context)}
+                           if asp else None)
                 try:
-                    resp.read()
-                finally:
-                    conn.close()
-                with self._lock:
-                    b.inflight -= 1
-                    b.draining = True
-                self._evict(b, reason="admission_503")
-                self._m_retries.inc()
-                continue
-            if resp.status == 404 and not kind_known:
-                # an unprobed backend won the pick for a route it does not
-                # serve: learn its kind and pick again
-                try:
-                    resp.read()
-                finally:
-                    conn.close()
-                with self._lock:
-                    b.inflight -= 1
-                self._probe_backend(b)
-                self._m_retries.inc()
-                continue
-            return b, conn, resp
+                    conn, resp = self._dispatch_send(b, path, body, content_type=content_type,
+                                                     read_timeout=read_timeout, headers=headers)
+                except BackendTimeoutError as e:
+                    with self._lock:
+                        b.inflight -= 1
+                    asp.set_error(f"read timeout: {e}")
+                    _tracing.flag_current_trace("timeout")
+                    raise  # dispatched: 504, never retried
+                except BackendUnavailableError as e:
+                    with self._lock:
+                        b.inflight -= 1
+                    # never answered: evict it and retry on the next backend
+                    asp.set_error(f"unavailable ({e.reason})")
+                    _tracing.flag_current_trace("retry")
+                    self._evict(b, reason=e.reason)
+                    self._m_retries.inc()
+                    _flight.record_event("router_retry", url=b.url, reason=e.reason, path=path)
+                    continue
+                if resp.status == 503:
+                    # refused at admission (draining or not ready): not taken
+                    try:
+                        resp.read()
+                    finally:
+                        conn.close()
+                    with self._lock:
+                        b.inflight -= 1
+                        b.draining = True
+                    asp.set_attributes(status=503, refused=True)
+                    _tracing.flag_current_trace("retry")
+                    self._evict(b, reason="admission_503")
+                    self._m_retries.inc()
+                    _flight.record_event("router_retry", url=b.url, reason="admission_503",
+                                         path=path)
+                    continue
+                if resp.status == 404 and not kind_known:
+                    # an unprobed backend won the pick for a route it does not
+                    # serve: learn its kind and pick again
+                    try:
+                        resp.read()
+                    finally:
+                        conn.close()
+                    with self._lock:
+                        b.inflight -= 1
+                    asp.set_attributes(status=404, kind_mismatch=True)
+                    _tracing.flag_current_trace("retry")
+                    self._probe_backend(b)
+                    self._m_retries.inc()
+                    _flight.record_event("router_retry", url=b.url, reason="kind_mismatch",
+                                         path=path)
+                    continue
+                asp.set_attributes(status=resp.status)
+                return b, conn, resp
         self._m_no_backend.inc()
+        _flight.record_event("router_no_backend", path=path, tried=sorted(tried))
         raise NoBackendError(f"no backend admitted the request (tried {len(tried)}, retry "
                              f"budget {self.retries})")
 
@@ -706,6 +742,8 @@ class Router:
             self._prober = threading.Thread(target=self._probe_loop, name="ptt-router-prober",
                                             daemon=True)
             self._prober.start()
+        _flight.record_event("router_start", port=self.port,
+                             backends=[b.url for b in self.backend_states()])
         return self
 
     def stop(self, drain=True, timeout=10.0):
@@ -738,6 +776,7 @@ class Router:
         self._thread = None
         for url in list(self._pools):
             self._pool_drop(url)
+        _flight.record_event("router_stop", port=self.port, drain=drain)
 
     # -- introspection ---------------------------------------------------------
 
@@ -885,6 +924,9 @@ def main(argv=None) -> int:
     p.add_argument("--retries", type=int, default=None)
     args = p.parse_args(argv)
 
+    from ..monitor import slo as _slo
+
+    _slo.install_from_flags()
     router = Router(backends=args.backend, host=args.host, port=args.port,
                     probe_interval_s=args.probe_interval_s, retries=args.retries).start()
     if args.port_file:

@@ -54,8 +54,11 @@ A prefill tier admits 4 exports at once, as the JAX tier does: the
 engine's lock serializes the device forward and the copy to the host, and
 the admitted exports pack their slabs and answer concurrently.
 
-The JAX package's ``/tracez``, ``/profilez`` and ``/sloz`` wait for ROADMAP
-Queue A item 10.
+Both kinds also serve the monitor's endpoints: ``GET /tracez`` (the
+tail-sampled request traces; an incoming ``traceparent`` header parents a
+request's span tree under the caller's), ``/profilez`` (opprof), ``/sloz``
+(objectives and burn), ``/costz`` (the counted cost of each captured step,
+the card's peaks) and ``/goodputz``.
 
 ``stop(drain=True)`` refuses new work (503), flushes what is queued, answers
 the waiting handlers, then closes.
@@ -81,6 +84,11 @@ from ..monitor import (
     prometheus_text,
     registry_snapshot,
 )
+from ..monitor import cost_model as _cost
+from ..monitor import goodput as _goodput
+from ..monitor import opprof as _opprof
+from ..monitor import slo as _slo
+from ..monitor import tracing as _tracing
 from ..ops.cuda import launch_counts
 from .batcher import DeadlineExceededError, DynamicBatcher, QueueFullError, ServingClosedError
 from .continuous import ContinuousBatcher
@@ -120,6 +128,11 @@ def _histz_payload() -> dict:
                            if m.kind == "histogram" and name.startswith("serving/")}}
 
 
+#: the GET routes both server kinds serve
+_GET_ROUTES = ["/healthz", "/statz", "/loadz", "/histz", "/metrics", "/metricz", "/tracez",
+               "/profilez", "/sloz", "/costz", "/goodputz"]
+
+
 class _HTTPServer(ThreadingHTTPServer):
     # the stdlib backlog of 5 refuses connections under a burst; refusals
     # belong to the bounded admission queue (429)
@@ -146,7 +159,10 @@ class _BaseHandler(BaseHTTPRequestHandler):
         return self.server.inference_server
 
     def _reply(self, status, payload, ctype="application/json"):
-        body = payload if isinstance(payload, str) else json.dumps(payload)
+        # the status lands on the current request span (>= 500 marks the
+        # trace errored, so the tail sampler keeps it)
+        _tracing.note_status(status)
+        body = payload if isinstance(payload, str) else json.dumps(payload, default=str)
         data = body.encode("utf-8")
         self.send_response(status)
         self.send_header("Content-Type", f"{ctype}; charset=utf-8")
@@ -158,6 +174,7 @@ class _BaseHandler(BaseHTTPRequestHandler):
             pass
 
     def _reply_raw(self, status, data, ctype):
+        _tracing.note_status(status)
         self.send_response(status)
         self.send_header("Content-Type", ctype or "application/json")
         self.send_header("Content-Length", str(len(data)))
@@ -179,6 +196,12 @@ class _BaseHandler(BaseHTTPRequestHandler):
             return None
         return self.rfile.read(length) if length > 0 else b"{}"
 
+    def _trace_request(self, name):
+        """This request's local trace root; an incoming ``traceparent``
+        (the router's attempt span) parents it under the caller's."""
+        parent = _tracing.parse_traceparent(self.headers.get(_tracing.TRACEPARENT_HEADER))
+        return _tracing.start_trace(name, parent=parent, client=self.client_address[0])
+
     def _check_ready(self, srv) -> bool:
         if not srv.ready:
             self._reply(503, {"error": "draining" if srv.draining else "not ready"})
@@ -197,6 +220,16 @@ class _BaseHandler(BaseHTTPRequestHandler):
             self._reply(200, srv.loadz())
         elif path == "/histz":
             self._reply(200, _histz_payload())
+        elif path == "/tracez":
+            self._reply(*_tracing.tracez_payload(_tracing.parse_query(self.path)))
+        elif path == "/profilez":
+            self._reply(*_opprof.profilez_payload(_tracing.parse_query(self.path)))
+        elif path == "/sloz":
+            self._reply(200, _slo.sloz_payload())
+        elif path == "/costz":
+            self._reply(200, _cost.costz_payload())
+        elif path == "/goodputz":
+            self._reply(200, _goodput.goodputz_payload())
         elif path == "/metrics":
             self._reply(200, prometheus_text(), PROMETHEUS_CONTENT_TYPE)
         elif path == "/metricz":
@@ -232,8 +265,7 @@ class _ServingHandler(_BaseHandler):
             return
         if path == "/":
             self._reply(200, {"service": "paddle_tpu_torch serving",
-                              "routes": ["/predict (POST)", "/healthz", "/statz", "/loadz",
-                                         "/histz", "/metrics", "/metricz"]})
+                              "routes": ["/predict (POST)", *_GET_ROUTES]})
         else:
             self._reply(404, {"error": f"unknown path {path!r}"})
 
@@ -245,7 +277,8 @@ class _ServingHandler(_BaseHandler):
         if path != "/predict":
             self._reply(404, {"error": f"unknown path {path!r}"})
             return
-        self._predict(raw)
+        with self._trace_request("serving::predict"):
+            self._predict(raw)
 
     def _predict(self, raw):
         srv = self._srv
@@ -439,8 +472,7 @@ class _GenerationHandler(_BaseHandler):
         if path == "/":
             self._reply(200, {"service": "paddle_tpu_torch generation", "kind": srv.kind,
                               "routes": [f"{_KIND_ROUTES[srv.kind]} (POST)",
-                                         "/prefix_known (POST)", "/healthz", "/statz", "/loadz",
-                                         "/histz", "/metrics", "/metricz"]})
+                                         "/prefix_known (POST)", *_GET_ROUTES]})
         else:
             self._reply(404, {"error": f"unknown path {path!r}"})
 
@@ -455,11 +487,14 @@ class _GenerationHandler(_BaseHandler):
             self._reply(404, {"error": f"unknown path {path!r} (this backend's kind is "
                                        f"{self._srv.kind!r})"})
         elif path == "/generate":
-            self._generate(raw)
+            with self._trace_request("serving::generate"):
+                self._generate(raw)
         elif path == "/prefill":
-            self._prefill(raw)
+            with self._trace_request("serving::prefill"):
+                self._prefill(raw)
         else:
-            self._generate_kv(raw)
+            with self._trace_request("serving::generate_kv"):
+                self._generate_kv(raw)
 
     def _prefix_known(self, raw):
         """``{"hashes": [...]}`` -> ``{"known": [...], "layout"}``: the chain
@@ -793,7 +828,7 @@ class GenerationServer:
                     running = True
                 out = fn()
                 if self.engine.watch.armed:
-                    self.engine.watch.note(kind=self.kind)
+                    self.engine.watch.note(tier=self.kind)
                 return out
         finally:
             with self._prefill_count_lock:

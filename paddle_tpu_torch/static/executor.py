@@ -95,7 +95,11 @@ from ..framework import nan_inf
 from ..framework import random as _random
 from ..framework.dtype import torch_dtype
 from ..framework.jit import _captures, _first_run, _signature
+from ..monitor import flight_recorder as _flight
+from ..monitor import tracing as _tracing
+from ..monitor.opprof import op_scope_name
 from ..ops.registry import kernel
+from ..profiler import RecordEvent, bump_counter
 from ..runtime.compiled import GraphStore, clone_outputs, compiled_step, precision_key
 from .control_flow import BLOCK_ATTR_KEYS
 from .program import OpDesc, default_main_program, default_startup_program
@@ -207,22 +211,60 @@ class Executor:
         """Run ``program``'s global block on ``feed`` (name -> array or
         tensor) and return the fetched values, numpy arrays on the host
         unless ``return_numpy=False`` (then tensors on the device, copies
-        of a graph's outputs)."""
+        of a graph's outputs).
+
+        Telemetry, as the JAX executor's (``:769-1000``): ``RecordEvent``
+        phases (the three gates, ``executor::feed``, then
+        ``executor::compile_and_run`` with ``executor::jit_compile`` for a
+        signature's first run, ``executor::run`` with
+        ``executor::dispatch`` for a replay); ``executor_run_begin`` and
+        ``executor_run_end`` (or ``executor_run_error``) flight events with
+        the cache dispositions, which also tag the current trace span; the
+        watchdog's progress clock fed at the run's end."""
         program = program or default_main_program()
         feed = feed or {}
         scope = scope or global_scope()
         fetch_names = [v if isinstance(v, str) else v.name for v in (fetch_list or [])]
         block = program.global_block()
         names = list(feed)
-        values = []
-        for name, value in feed.items():
-            dtype = torch_dtype(block.var(name).dtype) if block.has_var(name) else None
-            if not isinstance(value, torch.Tensor):
-                value = np.asarray(value)  # a 0-d feed stays 0-d
-                value = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape))
-            values.append(value.to(dtype=dtype))
+        with RecordEvent("executor::feed"):
+            values = []
+            for name, value in feed.items():
+                dtype = torch_dtype(block.var(name).dtype) if block.has_var(name) else None
+                if not isinstance(value, torch.Tensor):
+                    value = np.asarray(value)  # a 0-d feed stays 0-d
+                    value = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape))
+                values.append(value.to(dtype=dtype))
         program, mem_plan = self.gate(program, names, fetch_names,
                                       {n: tuple(v.shape) for n, v in zip(names, values)})
+        program_id = f"{program._identity_token}@v{program._version}"
+        try:
+            out = self._run(program, mem_plan, names, values, fetch_names, scope, return_numpy)
+        except Exception as e:
+            _flight.record_event("executor_run_error", program=program_id,
+                                 error=f"{type(e).__name__}: {e}"[:500])
+            raise
+        _flight.record_event("executor_run_end", program=program_id, ok=True)
+        _flight.notify_progress("executor_run")
+        return out
+
+    def _dispositions(self, program, fetch_names, disposition):
+        """The run's plan-cache disposition (whether this executor planned
+        the program's value lifetimes for these fetches before) beside its
+        graph disposition, as a flight event and trace-span tags."""
+        plan = ("hit" if (program._identity_token, program._version, tuple(fetch_names))
+                in self._drops_of else "miss")
+        bump_counter(f"executor::plan_cache_{plan}")
+        program_id = f"{program._identity_token}@v{program._version}"
+        cache_key = disposition[1]
+        _flight.record_event("executor_run_begin", program=program_id, plan_cache=plan,
+                             jit_cache=disposition[0], cache_key=cache_key)
+        _tracing.annotate(program=program_id, plan_cache=plan, jit_cache=disposition[0],
+                          cache_key=cache_key)
+
+    def _run(self, program, mem_plan, names, values, fetch_names, scope, return_numpy):
+        """The body of :meth:`run` after the gates: interpret, capture or
+        replay."""
         block = program.global_block()
         for cname, cval in program._constants.items():
             if not scope.has(cname):
@@ -245,7 +287,9 @@ class Executor:
         uncapturable = self._uncapturable(program)
         if uncapturable or not _captures(self.device):
             self.store.uncaptured += uncapturable
-            out = interpret(*[v.to(self.device) for v in values])
+            self._dispositions(program, fetch_names, ("uncaptured", None))
+            with RecordEvent("executor::run"):
+                out = interpret(*[v.to(self.device) for v in values])
             return scanned(out) if scan else read(out)
         sig = ((program._identity_token, program._version, tuple(fetch_names), tuple(names))
                + _signature(values) + (precision_key(), scope._token, scope._generation, scan))
@@ -255,18 +299,25 @@ class Executor:
             with store.capturing:
                 entry = store.lookup(sig)
                 if entry is None:
+                    self._dispositions(program, fetch_names, ("miss", store.key_of(sig)))
                     inputs = [v.to(self.device, copy=True) for v in values]
-                    with compiled_step():
+                    with RecordEvent("executor::compile_and_run"), \
+                            RecordEvent("executor::jit_compile"), compiled_step():
                         with self._measured(sig, mem_plan):
-                            out = _first_run(self.device, lambda: interpret(*inputs))
+                            out = store.first_run(
+                                sig, self.device,
+                                lambda: _first_run(self.device, lambda: interpret(*inputs)),
+                                inputs)
                         store.capture(sig, interpret, inputs,
                                       _random.graph_generators(self.device))
                     self._written_of[sig] = list(written_names)
                     return scanned(out) if scan else read(out)
-        if scan:
-            written_names[:] = self._written_of[sig]
-            return scanned(store.replay(entry, *values, read=clone_outputs))
-        return store.replay(entry, *values, read=read)
+        self._dispositions(program, fetch_names, ("hit", entry.cache_key))
+        with RecordEvent("executor::run"), RecordEvent("executor::dispatch"):
+            if scan:
+                written_names[:] = self._written_of[sig]
+                return scanned(store.replay(entry, *values, read=clone_outputs))
+            return store.replay(entry, *values, read=read)
 
     def gate(self, program, feed_names, fetch_names, feed_shapes):
         """The three gates of :meth:`run`, in the JAX executor's order
@@ -279,22 +330,26 @@ class Executor:
         feed_names = sorted(feed_names)
         verify_level = str(flag("program_verify")).strip().lower()
         if verify_level not in _OFF:
-            program.verify(feed_names=feed_names, fetch_list=fetch_names,
-                           level="strict" if verify_level == "strict" else "on")
+            with RecordEvent("executor::program_verify"):
+                program.verify(feed_names=feed_names, fetch_list=fetch_names,
+                               level="strict" if verify_level == "strict" else "on")
         try:
             ir_level = int(str(flag("ir_opt_level")).strip() or "0")
         except ValueError:
             ir_level = 0
         if ir_level > 0:
-            program = _iropt.optimize_program(program, feed_names, fetch_names, level=ir_level,
-                                              feed_shapes=feed_shapes, device=self.device).program
+            with RecordEvent("executor::ir_opt"):
+                program = _iropt.optimize_program(program, feed_names, fetch_names,
+                                                  level=ir_level, feed_shapes=feed_shapes,
+                                                  device=self.device).program
         mem_plan = None
         budget_level = str(flag("memory_budget_check")).strip().lower()
         if budget_level not in _OFF:
-            mem_plan = _memory.check_memory_budget(
-                program, feed_names, fetch_names, feed_shapes=feed_shapes,
-                level="strict" if budget_level == "strict" else "warn",
-                budget_bytes=_memory.hbm_budget_bytes(self.device))
+            with RecordEvent("executor::memory_plan"):
+                mem_plan = _memory.check_memory_budget(
+                    program, feed_names, fetch_names, feed_shapes=feed_shapes,
+                    level="strict" if budget_level == "strict" else "warn",
+                    budget_bytes=_memory.hbm_budget_bytes(self.device))
         return program, mem_plan
 
     @contextlib.contextmanager
@@ -354,7 +409,8 @@ class Executor:
         ``written_names``. The one body of a CPU run, a first run, a
         capture and an uncaptured run."""
         written = {}  # persistable name -> its value after the run
-        runner = _BlockRunner(block.program, scope, self.device)
+        runner = _BlockRunner(block.program, scope, self.device,
+                              stamps=torch.autograd._profiler_enabled())
         key = (block.program._identity_token, block.program._version, tuple(fetch_names))
         drops = self._drops_of.get(key)
         if drops is None:
@@ -379,11 +435,14 @@ class _BlockRunner:
     JAX executor hands a ``grad::`` op the forward's key
     (``_op_key(base_key, op, it)``, ``:104-108``)."""
 
-    def __init__(self, program, scope, device):
+    def __init__(self, program, scope, device, stamps=False):
         self.program = program
         self.scope = scope
         self.device = device
         self.tapes = {}
+        # under a profiler, each op runs inside its opprof stamp's range
+        # (monitor/opprof.py): what attribute_trace folds kernels onto
+        self.stamps = stamps
 
     def value(self, env, name):
         if name in env:
@@ -400,7 +459,11 @@ class _BlockRunner:
         taken out of ``env`` after the op, each value after its last
         read."""
         for i, op in enumerate(block.ops):
-            results = self._exec_op(op, env, written, path)
+            if self.stamps:
+                with torch.profiler.record_function(op_scope_name(op.type, block.idx, i)):
+                    results = self._exec_op(op, env, written, path)
+            else:
+                results = self._exec_op(op, env, written, path)
             for n, v in zip(op.outputs.get("Out", []), results):
                 if not n or v is None:
                     continue

@@ -225,6 +225,16 @@ class Program:
                 cache.pop(next(iter(cache)), None)
             except (StopIteration, RuntimeError):
                 break
+        # the verdict lands in the black box, so a rejected program is there
+        # even when the raising process dies
+        from ..monitor import flight_recorder as _flight
+
+        failed = isinstance(verdict, Exception)
+        fields = dict(program=f"{self._identity_token}@v{self._version}", ok=not failed,
+                      warnings=0 if failed else len(verdict.warnings))
+        if failed:
+            fields["error"] = str(verdict)[:500]
+        _flight.record_event("program_verify", **fields)
         if isinstance(verdict, Exception):
             raise verdict
         return verdict

@@ -1,5 +1,6 @@
 """Every signature ``tools/api_spec.txt`` pins for the top level, ``tensor``,
-``linalg``, ``nn`` and ``device`` against the port's parameter names.
+``linalg``, ``nn``, ``device`` and ``monitor`` against the port's parameter
+names.
 
 A pinned name's parameters must lead the port's, in order, by name and by
 kind (``*args``, ``**kwargs``); the port may add parameters after them
@@ -9,6 +10,7 @@ exactly the three that wait for ``distributed`` and ``hapi``."""
 import ast
 import inspect
 import os
+import re
 
 import pytest
 
@@ -18,7 +20,7 @@ import paddle_tpu_torch  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(REPO, "tools", "api_spec.txt")
-NAMESPACES = ("tensor", "linalg", "nn", "device")
+NAMESPACES = ("tensor", "linalg", "nn", "device", "monitor")
 NOT_PORTED = {"DataParallel", "Model", "summary"}
 
 
@@ -46,7 +48,8 @@ def _params(sig_text):
         if depth == 0:
             end = i
             break
-    src = sig_text[:end + 1].replace("<factory>", "None")
+    # a default's repr in angle brackets (<factory>, <built-in function ...>)
+    src = re.sub(r"<[^<>]*>", "None", sig_text[:end + 1])
     args = ast.parse(f"def f{src}: pass").body[0].args
     out = [(a.arg, "") for a in args.posonlyargs + args.args]
     if args.vararg:

@@ -36,7 +36,7 @@ from paddle_tpu_torch.analysis import (  # noqa: E402
     plan_memory,
 )
 from paddle_tpu_torch.analysis import optimizer as iropt  # noqa: E402
-from paddle_tpu_torch.errors import NotFoundError, UnimplementedError  # noqa: E402
+from paddle_tpu_torch.errors import NotFoundError  # noqa: E402
 from paddle_tpu_torch.flags import set_flags  # noqa: E402
 from paddle_tpu_torch.ops.registry import eval_meta, kernel  # noqa: E402
 
@@ -481,8 +481,3 @@ def test_fused_ops_raise_on_meta_and_infer_through_their_shape_rules():
         out = eval_meta(op, [q, w], {"scale_x": 1.0, "scale_y": 1.0})
         assert out.shape == (4, 6) and out.dtype == torch.float32
 
-
-def test_measure_pass_deltas_waits_for_the_op_profiler():
-    feeds, out = _ln_residual_net()
-    with pytest.raises(UnimplementedError, match="opprof"):
-        iropt.measure_pass_deltas(static.default_main_program(), feeds, [out.name])

@@ -5,6 +5,15 @@ The same observations go into both registries (``paddle_tpu.monitor`` and
 sums, labeled series), ``histogram_quantile`` equal, merges equal to the
 pooled golden across packages, the series cap alike, and every Prometheus
 line of a metric equal to the JAX line.
+
+The TrainingMonitor and memory-gauge tests of ``tests/test_monitor.py`` run
+twice, bodies unchanged, on the JAX monitor and on the port's (the periodic
+line and its fields, the interval flag and silence, a failed step
+discarded, a step end without a begin, the gauges of fake devices and of
+devices that publish nothing); beyond them, on the port: the compile-event
+listener counts graph captures into the line's ``compiles``, and a CPU
+train step under a monitor feeds ``mfu=``, ``hbm_bw_util=`` and
+``roofline=`` from its counted cost.
 """
 import numpy as np
 import pytest
@@ -13,6 +22,9 @@ pytest.importorskip("torch")
 
 from paddle_tpu import flags as jflags  # noqa: E402
 from paddle_tpu import monitor as jmon  # noqa: E402
+
+import _port_counterparts as counterparts  # noqa: E402
+import paddle_tpu_torch  # noqa: E402
 from paddle_tpu_torch import flags as pflags  # noqa: E402
 from paddle_tpu_torch import monitor as pmon  # noqa: E402
 
@@ -220,3 +232,74 @@ def test_special_values_and_reset():
     assert "zeroed_total" in pmon.all_metrics()
     pmon.reset_registry(unregister=True)
     assert pmon.all_metrics() == {}
+
+
+JAX_TESTS = counterparts.jax_tests("test_monitor")
+MONITOR_TESTS = [
+    "test_hbm_gauge_population", "test_hbm_gauges_skip_statless_backends",
+    "test_hbm_gauges_real_devices_never_raise", "test_training_monitor_periodic_line_fields",
+    "test_training_monitor_interval_flag_and_silence",
+    "test_training_monitor_step_end_without_begin_raises",
+    "test_training_monitor_failed_step_is_discarded",
+]
+NAMESPACES = {
+    "jax": counterparts.namespace(JAX_TESTS),
+    "port": counterparts.namespace(JAX_TESTS, monitor=pmon, paddle=paddle_tpu_torch),
+}
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+@pytest.mark.parametrize("test_name", MONITOR_TESTS)
+def test_jax_counterpart(test_name, pkg, request):
+    counterparts.call(NAMESPACES[pkg], test_name, request)
+
+
+def test_the_compile_listener_counts_graph_captures(monkeypatch):
+    import contextlib
+
+    import torch
+
+    from paddle_tpu_torch.runtime import compiled
+
+    class _Graph:
+        def register_generator_state(self, gen):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, **kw: contextlib.nullcontext(g))
+    store = compiled.GraphStore("probe")
+    lines = []
+    mon = pmon.TrainingMonitor("cap", interval=1, log_fn=lines.append)
+    with mon.step():
+        store.capture(("during",), lambda t: t, [torch.ones(1)])
+    assert pmon.counter("graph/compile").value == 1
+    assert pmon.histogram("graph/compile/duration_ms").count == 1
+    assert " compiles=1 " in lines[-1]
+    mon.close()
+
+
+def test_monitored_cpu_train_step_reports_utilization():
+    import re
+
+    import torch
+
+    from paddle_tpu_torch.framework.jit import train_step
+    from paddle_tpu_torch.optimizer import Momentum
+
+    torch.manual_seed(0)
+    model = torch.nn.Linear(8, 4)
+    step = train_step(model, Momentum(learning_rate=0.1, parameters=model.parameters()),
+                      lambda m, x, t: ((m(x) - t) ** 2).mean(), device="cpu")
+    x, t = np.ones((4, 8), "f4"), np.zeros((4, 4), "f4")
+    lines = []
+    mon = pmon.TrainingMonitor("util", interval=3, log_fn=lines.append)
+    for _ in range(3):
+        with mon.step(examples=4):
+            float(step(x, t)["loss"])
+    (line,) = lines
+    m = re.search(r"mfu=(\S+) hbm_bw_util=(\S+) roofline=(\S+)$", line)
+    assert m and float(m.group(1)) > 0 and float(m.group(2)) > 0
+    assert m.group(3) in ("compute-bound", "memory-bound")
+    rec = pmon.cost_model.latest_record("train_step")
+    assert pmon.counter("cost/executed_flops").value == 3 * rec.flops
+    mon.close()

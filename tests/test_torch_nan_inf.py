@@ -9,9 +9,9 @@
   of the largest entry after a step (XLA's fusion of the update).
 - The three actions: ``raise`` leaves parameters, accumulators and both
   step counts as before the step; ``warn`` keeps the new state, warns and
-  counts the event; ``dump`` raises ``UnimplementedError`` (the flight
-  recorder is not ported) with the state restored; any other value
-  raises ``InvalidArgumentError``.
+  counts the event; ``dump`` writes a flight-recorder snapshot, then
+  raises ``FatalError`` with the state restored; any other value raises
+  ``InvalidArgumentError``.
 - A hand-written kernel's output is checked under the kernel's name
   (through a stub wrapper on the CPU: its NaN would otherwise be blamed on
   the next aten op).
@@ -19,6 +19,8 @@
   the JAX executor's, in the same message, and leaves the scope as before
   the run.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -37,7 +39,7 @@ from paddle_tpu_torch import convert, ops, static  # noqa: E402
 from paddle_tpu_torch import flags  # noqa: E402
 from paddle_tpu_torch import nn as pnn  # noqa: E402
 from paddle_tpu_torch import optimizer as port_opt  # noqa: E402
-from paddle_tpu_torch.errors import FatalError, InvalidArgumentError, UnimplementedError  # noqa: E402
+from paddle_tpu_torch.errors import FatalError, InvalidArgumentError  # noqa: E402
 from paddle_tpu_torch.framework import nan_inf  # noqa: E402
 from paddle_tpu_torch.framework.jit import train_step  # noqa: E402
 from paddle_tpu_torch.ops.cuda import _tally  # noqa: E402
@@ -162,13 +164,19 @@ def test_warn_keeps_the_new_state_and_counts(check_on):
     assert torch.isnan(tstep.model.weight).any()
 
 
-def test_dump_waits_for_the_flight_recorder_and_restores(check_on):
+def test_dump_waits_for_the_flight_recorder_and_restores(check_on, monkeypatch, tmp_path):
+    """``dump`` writes the flight-recorder snapshot (a ``nan_inf`` event in
+    it), then raises as ``raise`` does, the state restored."""
     check_on("dump")
+    monkeypatch.setattr(flags._REGISTRY["flight_recorder_dump_dir"], "value", str(tmp_path))
     tstep = _port_step(0.1)
     w = tstep.model.weight.detach().clone()
-    with pytest.raises(UnimplementedError, match="Queue A item 10"):
+    with pytest.raises(FatalError, match="aten::mm"):
         tstep(*_batch("nan_input"))
     assert torch.equal(tstep.model.weight, w) and tstep.optimizer._global_step == 0
+    (dump,) = tmp_path.glob("paddle_tpu_flight_rank*_check_nan_inf_train_step.json")
+    events = json.loads(dump.read_text())["events"]
+    assert events[-1]["kind"] == "nan_inf" and events[-1]["action"] == "dump"
 
 
 def test_other_action_is_invalid(check_on):
