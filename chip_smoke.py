@@ -339,6 +339,23 @@ Phases, each fatal on failure:
     ``/predict`` under a ``traceparent`` to an int8 predict server, its
     spans on ``/tracez`` under that trace id, ``/costz``, ``/goodputz``,
     ``/profilez`` and ``/sloz`` answering; the phase's seconds;
+12o. value-dependent control flow under ``paddle.jit.to_static`` (the
+    AST pass, ``dygraph_to_static.py``): (a) BERT-base (flash on, L = 512)
+    under a sentence-embedding head whose ``if`` reads the data
+    (``paddle_sentence_encoder``), served at buckets 1 and 8, a padded, an
+    unpadded and a padded batch each: one CUDA graph a bucket replays
+    either branch (``misses == 2``, ``uncaptured == 0``), every answer
+    within 1e-4 of the same layer run eagerly, 24 LayerNorm + 12 flash
+    forward launches a forward; captured against eager wall ms a bucket;
+    (b) Transformer-base greedy decoding as a ``to_static`` loop with a
+    ``break`` on EOS (``paddle_greedy_decode``) at batch 64, 64 source
+    tokens, ``max_len`` 64, twice (the second run's EOS the token every
+    row of the first emits soonest, so the break fires): tokens equal
+    ``greedy_decode(stop_at_eos=True)``'s column by column, both runs
+    uncaptured and counted, 12 + 18 LayerNorm launches a step; ms a step;
+    (c) a ``to_static`` function with an early ``return`` (its flags
+    selected on the device) captured once and replayed for both signs,
+    equal to the eager function;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1204,17 +1221,21 @@ def _serve(pred, buckets, reqs, label):
 
 
 PROFILE_ATTEMPTS = 3
+TRACER_WARMUP_KERNELS = 8  # launched and waited for at the start of a checked profile
 
 
 def _tracer_warmup():
-    """A tiny kernel of its own at the start of a profile whose launches
-    are checked: the tracer now and then misses a profile's first kernels
-    (in one run three profiles in a row missed the first of ResNet-50's 33
-    bf16 conv launches), and these then fall on this one, which is no
-    kernel of the port's."""
+    """Tiny kernels of their own at the start of a profile whose launches
+    are checked, waited for: the tracer now and then misses a profile's
+    first kernels (in two runs three profiles in a row missed the first of
+    ResNet-50's 33 bf16 conv launches at batch 1, the second with one
+    warm-up kernel before them), and these then fall on the warm-up
+    kernels, which are no kernels of the port's."""
     import torch
 
-    torch.ones(1, device="cuda").add_(1)
+    for _ in range(TRACER_WARMUP_KERNELS):
+        torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
 
 
 def _profile_run(fn, feed, label):
@@ -4237,14 +4258,17 @@ S2S_GREEDY_B, S2S_BEAM_B, S2S_BEAM, S2S_DECODE_LEN = 16, 4, 4, 32
 ERNIE_MASK_ID = 3  # ERNIE 1.0's [MASK]
 
 
-def _seq2seq(seed, dropout=S2S_DROPOUT):
+def _seq2seq(seed, dropout=S2S_DROPOUT, device=None):
+    """Transformer-base from ``seed``, drawn on ``device`` (the CPU by
+    default) by a generator of that device."""
     import torch
 
     from paddle_tpu_torch.models import TransformerSeq2Seq
 
     return TransformerSeq2Seq(S2S_VOCAB, S2S_VOCAB, d_model=S2S_D, nhead=S2S_HEADS,
                               num_layers=S2S_LAYERS, dim_feedforward=S2S_FFN, dropout=dropout,
-                              generator=torch.Generator().manual_seed(seed))
+                              generator=torch.Generator(device or "cpu").manual_seed(seed),
+                              device=device)
 
 
 def s2s_batch(batch, rng):
@@ -9163,7 +9187,7 @@ def _dy_load_and_replay(paddle, net, dirname, feeds, want):
 
     @paddle.jit.to_static
     def reads_host(t):
-        if paddle.sum(t) > 0:
+        if paddle.sum(t).item() > 0:  # item() reads the host; an `if` on the tensor would not
             return paddle.scale(t, 2.0)
         return t
 
@@ -9681,6 +9705,294 @@ def monitored_steps():
     return counts, r
 
 
+
+# -- dygraph-to-static: value-dependent control flow under to_static (phase 12o) -------------
+
+TS_BUCKETS = (1, 8)  # the BERT-base sentence encoder's serving buckets
+TS_ATOL = 1e-4  # BERT serving's limit, against the same layer run eagerly
+TS_TIMED = 10  # replays a bucket and batch kind timed
+
+
+def paddle_sentence_encoder(paddle, bert, pad_id=0):
+    """A Paddle user's sentence-embedding head over ``bert`` (a ``BertModel``
+    of either package), written with ``paddle``'s public names: the mean of
+    the non-pad tokens' rows when any token of the batch is a pad, else the
+    first token's row; both ``[B, hidden]``. The ``if`` reads the data, so
+    under ``jit.to_static`` it goes through the AST pass."""
+
+    class SentenceEncoder(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.bert = bert
+
+        def forward(self, input_ids):
+            seq, _ = self.bert(input_ids)
+            if paddle.any(input_ids == pad_id):
+                keep = paddle.unsqueeze(paddle.cast(input_ids != pad_id, "float32"), -1)
+                out = paddle.sum(seq * keep, axis=1) / paddle.sum(keep, axis=1)
+            else:
+                out = seq[:, 0]
+            return out
+
+    return SentenceEncoder()
+
+
+def paddle_greedy_decode(paddle, model, max_len):
+    """A Paddle user's greedy decoding of ``model`` (a ``TransformerSeq2Seq``
+    of either package) as a ``to_static`` function ``decode(src, eos_id) ->
+    (tokens [B, max_len], columns filled)``: the logits of a fixed ``[B,
+    max_len]`` buffer (fixed, so that the loop's carries keep their shapes,
+    as ``lax.while_loop`` needs), column ``t + 1`` written with
+    ``paddle.where``, and a ``break`` once every row has emitted
+    ``eos_id``."""
+
+    @paddle.jit.to_static
+    def decode(src, eos_id):
+        memory = model.encode(src)
+        mask = model._pad_mask(src)
+        buf = paddle.full([src.shape[0], max_len], model.bos_id, "int64")
+        cols = paddle.unsqueeze(paddle.arange(max_len, dtype="int64"), 0)
+        finished = paddle.zeros([src.shape[0]], "bool")
+        for t in range(max_len - 1):
+            logits = model.decode_logits(memory, mask, buf)
+            nxt = paddle.argmax(logits[:, t], axis=-1)
+            buf = paddle.where(cols == t + 1, paddle.unsqueeze(nxt, 1), buf)
+            finished = paddle.logical_or(finished, nxt == eos_id)
+            if paddle.all(finished):
+                break
+        return buf, t + 2
+
+    return decode
+
+
+def eos_rows(tokens, last):
+    """``(token, rows, column)`` for a decode that must stop on EOS: of the
+    tokens ``[B, T]`` holds in columns 1 to ``last``, the one the most rows
+    emit there (ties: the one those rows have all emitted soonest), those
+    rows, and the column by which every one of them has emitted it. A batch
+    of those rows' sources, decoded with that token as EOS, stops there."""
+    tokens = np.asarray(tokens)[:, 1:last + 1]
+    best = (None, np.zeros(0, np.int64), last + 1)
+    for v in np.unique(tokens):
+        hit = tokens == v
+        rows = np.nonzero(hit.any(axis=1))[0]
+        col = int(hit[rows].argmax(axis=1).max()) + 1
+        if (len(rows), -col) > (len(best[1]), -best[2]):
+            best = (int(v), rows, col)
+    return best
+
+
+def _ts_ids(bucket, rng, padded, vocab, pad_id=0):
+    """Token ids ``[bucket, SEQ_LEN]``; padded: each row ends in pads from a
+    seeded place in its second half (at least one pad a row)."""
+    ids = rng.randint(1, vocab, (bucket, SEQ_LEN)).astype(np.int64)
+    if padded:
+        for r in range(bucket):
+            ids[r, rng.randint(SEQ_LEN // 2, SEQ_LEN):] = pad_id
+    return ids
+
+
+def _ts_wall_ms(fn, runs):
+    """Mean host ms of ``fn()`` over ``runs`` calls, each ended by a
+    synchronize (one warm call first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / runs
+
+
+def _ts_sentence_encoder():
+    """Phase 12o (a): BERT-base (flash on, L = 512, f32) under the
+    sentence-embedding head whose forward branches on the data, served
+    through ``paddle.jit.to_static`` at buckets 1 and 8: a padded, an
+    unpadded and a padded batch a bucket, each against the same layer run
+    eagerly (its ``if`` read on the host) within ``TS_ATOL``; one capture a
+    bucket (``misses == 2``, ``uncaptured == 0``) and 24 LayerNorm + 12
+    flash forward launches a forward. Returns (launches, readings)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import BertModel, bert_base_config
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = bert_base_config()
+    cfg.use_flash_attention = True
+    bert = BertModel(cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda").eval()
+    eager = paddle_sentence_encoder(paddle, bert)
+    static = paddle.jit.to_static(paddle_sentence_encoder(paddle, bert))
+    rng = np.random.RandomState(26)
+    batches = [(b, kind, paddle.to_tensor(_ts_ids(b, rng, kind != "unpadded", cfg.vocab_size)))
+               for b in TS_BUCKETS for kind in ("padded", "unpadded", "padded again")]
+    with torch.no_grad():
+        wants = [eager(ids) for _, _, ids in batches]
+        firsts = [bert(ids)[0][:, 0] for _, _, ids in batches]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    gots = [static(ids) for _, _, ids in batches]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    store = static.forward.store
+    r = {"checked": [], "misses": store.misses, "hits": store.hits,
+         "uncaptured": store.uncaptured, "launches": counts}
+    for (b, kind, _), got, want, first in zip(batches, gots, wants, firsts):
+        err = float((got - want).abs().max())
+        took_first = bool(torch.allclose(got, first, rtol=0, atol=TS_ATOL))
+        r["checked"].append({"bucket": b, "batch": kind, "max_abs_err": err,
+                             "first_token_branch": took_first})
+        if tuple(got.shape) != (b, cfg.hidden_size) or not err <= TS_ATOL \
+                or took_first != (kind == "unpadded"):
+            raise AssertionError(f"to_static sentence encoder, bucket {b}, {kind} batch: shape "
+                                 f"{tuple(got.shape)}, max |err| {err} against the eager layer "
+                                 f"(limit {TS_ATOL}), first-token branch {took_first}")
+    forwards = len(batches)
+    want_counts = {"layernorm_residual_fwd": 2 * cfg.num_hidden_layers * forwards,
+                   "flash_attention_fwd": cfg.num_hidden_layers * forwards}
+    if counts != want_counts or (store.misses, store.uncaptured) != (len(TS_BUCKETS), 0):
+        raise AssertionError(f"to_static sentence encoder: launches {counts} (want "
+                             f"{want_counts}), misses {store.misses}, uncaptured "
+                             f"{store.uncaptured}")
+    timing = {}
+    for b, kind, ids in batches:
+        if kind == "padded again":
+            continue
+        with torch.no_grad():
+            eager_ms = _ts_wall_ms(lambda: eager(ids), TS_TIMED)
+        captured_ms = _ts_wall_ms(lambda: static(ids), TS_TIMED)
+        timing[f"bucket {b} {kind}"] = {"captured_ms": captured_ms, "eager_ms": eager_ms}
+    r["timing"] = timing
+    log(f"to_static (a) BERT-base sentence encoder: {r}")
+    return counts, r
+
+
+def _ts_greedy_decode():
+    """Phase 12o (b): Transformer-base (the seq2seq configuration of phase
+    12d, f32 eval) decoded greedily by ``paddle_greedy_decode``, a
+    ``to_static`` function whose loop reads the host: run twice on a batch
+    of 64 sources of 64 tokens to ``max_len`` 64. The first run's EOS is the
+    model's; the second's is the token the most rows of the first run emit
+    by column ``max_len // 2`` (``eos_rows``), on a batch of those rows'
+    sources (tiled to 64 rows; with seed weights no token is in every row),
+    so that every row emits it and the ``break`` fires by that column. Each run's tokens
+    must equal ``greedy_decode(..., stop_at_eos=True)``'s column by column;
+    both runs are uncaptured and counted; 12 LayerNorm launches for the
+    encoder and 18 a step. Returns (launches, readings)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model = _seq2seq(seed=2, dropout=0.0, device="cuda").eval()
+    src = paddle.to_tensor(s2s_batch(S2S_B, np.random.RandomState(27))[0])
+    decode = paddle_greedy_decode(paddle, model, S2S_TGT)
+    eos = model.eos_id
+    runs, counts = [], {}
+    for run in range(2):
+        eos_t = paddle.to_tensor(np.asarray(eos, np.int64))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        buf, n = decode(src, eos_t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in launch_counts().items() if v}
+        counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+        n = int(n)
+        steps = n - 1
+        model.eos_id = eos
+        t0 = time.perf_counter()
+        ys = model.greedy_decode(src, max_len=S2S_TGT, stop_at_eos=True)
+        torch.cuda.synchronize()
+        greedy_ms = (time.perf_counter() - t0) * 1e3
+        tokens = buf.cpu().numpy()
+        ref = ys.cpu().numpy()
+        equal = ref.shape[1] == n and np.array_equal(tokens[:, :n], ref)
+        first_diff = None if equal else int(np.argmax((tokens[:, :ref.shape[1]] != ref).any(0)))
+        want = {"layernorm_residual_fwd": S2S_ENC_NORMS + S2S_DEC_NORMS * steps}
+        runs.append({"eos": eos, "distinct_sources": len(np.unique(src.cpu().numpy(), axis=0)),
+                     "columns": n, "steps": steps, "ms": ms, "ms_per_step": ms / steps,
+                     "greedy_decode_ms": greedy_ms, "greedy_ms_per_step": greedy_ms / steps,
+                     "tokens_equal_greedy_decode": equal, "first_differing_column": first_diff,
+                     "launches": got})
+        log(f"to_static (b) greedy decode run {run + 1}: {runs[-1]}")
+        if not equal or got != want:
+            raise AssertionError(f"to_static greedy decode run {run + 1}: tokens equal to "
+                                 f"greedy_decode: {equal} (first differing column "
+                                 f"{first_diff}, columns {n} vs {ref.shape[1]}); launches {got}, "
+                                 f"want {want}")
+        if run == 0:
+            eos, rows, col = eos_rows(tokens[:, :n], S2S_TGT // 2)
+            log(f"to_static (b): EOS {eos} for the second run, emitted by {len(rows)} of "
+                f"{S2S_B} rows by column {col}")
+            src = src[torch.from_numpy(np.resize(rows, S2S_B)).to(src.device)]
+    store = decode.store
+    r = {"runs": runs, "misses": store.misses, "uncaptured": store.uncaptured,
+         "launches": counts}
+    if not runs[1]["columns"] <= S2S_TGT // 2 + 1 \
+            or (store.misses, store.uncaptured, len(store)) != (1, 2, 0):
+        raise AssertionError(f"to_static greedy decode: the break did not fire before max_len, "
+                             f"or the runs were captured: {r}")
+    return counts, r
+
+
+def _ts_early_return():
+    """Phase 12o (c): a ``to_static`` function with an early ``return`` on
+    the data, whose rewrite selects Python flags and values on the device:
+    one graph, replayed for inputs of both signs, each answer equal to the
+    same function run eagerly (its ``if`` read on the host)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    def scaled(t):
+        if paddle.sum(t) > 0:
+            return paddle.scale(t, 2.0)
+        u = t - 1.0
+        return u * u
+
+    static = paddle.jit.to_static(scaled)
+    x = paddle.to_tensor(np.random.RandomState(28).randn(8, 768).astype(np.float32))
+    xs = [x, -x, x, -x]
+    gots = [static(v) for v in xs]
+    wants = [scaled(v) for v in xs]
+    errs = [float((g - w).abs().max()) for g, w in zip(gots, wants)]
+    store = static.store
+    r = {"max_abs_err": max(errs), "misses": store.misses, "hits": store.hits,
+         "uncaptured": store.uncaptured}
+    log(f"to_static (c) early return: {r}")
+    if max(errs) != 0.0 or (store.misses, store.hits, store.uncaptured) != (1, 3, 0):
+        raise AssertionError(f"to_static early return: {r}")
+    torch.cuda.synchronize()
+    return r
+
+
+def to_static_paths():
+    """Phase 12o: value-dependent control flow under ``paddle.jit.to_static``
+    on the card, (a) an ``if`` served as one CUDA graph a bucket, (b) a
+    loop with a ``break`` run uncaptured, (c) an early ``return`` captured.
+    Returns (kernel launches per name over (a) and (b), readings)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    counts_a, r_a = _ts_sentence_encoder()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    counts_b, r_b = _ts_greedy_decode()
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    r_c = _ts_early_return()
+    counts = {k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in set(counts_a) | set(counts_b)}
+    r = {"sentence_encoder_if": r_a, "greedy_decode_break": r_b, "early_return": r_c,
+         "parts_s": {"a": t_b - t_phase, "b": t_c - t_b, "c": time.perf_counter() - t_c},
+         "phase_s": time.perf_counter() - t_phase}
+    log(f"to_static: phase 12o done in {r['phase_s']:.1f} s ({r['parts_s']})")
+    return counts, r
+
+
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
@@ -9820,6 +10132,7 @@ def main() -> int:
     fleet_counts, fleet = serve_fleet(card)
     dygraph_counts, dygraph = dygraph_resnet()
     monitored_counts, monitored = monitored_steps()
+    to_static_counts, to_static = to_static_paths()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -9844,10 +10157,13 @@ def main() -> int:
         k["launches_dygraph"] = dygraph_counts.get(name, 0)
         # the captured AMP steps of BERT and ResNet-50 inside a TrainingMonitor (12n)
         k["launches_monitored"] = monitored_counts.get(name, 0)
+        # to_static's BERT-base `if` replayed from its graphs, and the
+        # Transformer-base decode's uncaptured loop (12o)
+        k["launches_to_static"] = to_static_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"]
                          + k["launches_fleet"] + k["launches_dygraph"]
-                         + k["launches_monitored"])
+                         + k["launches_monitored"] + k["launches_to_static"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -9858,7 +10174,8 @@ def main() -> int:
                       "lenet_optimizers": lenet_opt,
                       "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
                       "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet,
-                      "dygraph_front_end": dygraph, "monitor": monitored}))
+                      "dygraph_front_end": dygraph, "monitor": monitored,
+                      "to_static": to_static}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -434,7 +434,12 @@ class EvalStepFn:
     through a store of captured steps as the train step's; replays hand
     back copies of the outputs. Threads may call one step together (the
     clones of a ``Predictor`` do): a signature is captured once, and each
-    replay answers its own input."""
+    replay answers its own input. A signature whose first run read values
+    on the host (a ``to_static`` forward's ``while`` on a tensor, its
+    ``print`` or ``assert``: ``runtime.compiled.host_read``) is never
+    captured: each later call runs ``fn`` eagerly on the device
+    (``GraphStore.run_eager``: no capture lock, no copy of the inputs, no
+    device synchronize), and ``store.uncaptured`` counts the runs."""
 
     def __init__(self, model, fn=None, jit=True, device=None):
         self.device = resolve_device(device)
@@ -445,48 +450,57 @@ class EvalStepFn:
         self.store = GraphStore("eval_step")
         self._instance = next(_instances)
 
-    def _run(self, batch):
+    def _run(self, batch, fn=None):
+        fn = fn or self.fn
         with torch.no_grad():
-            return self.fn(self.model, *batch) if self.fn is not None else self.model(*batch)
+            return fn(self.model, *batch) if fn is not None else self.model(*batch)
 
     def __call__(self, *batch):
         return self.run(batch)
 
-    def run(self, batch, read=None):
+    def run(self, batch, read=None, key=(), fn=None):
         """The step on ``batch`` (tensors or numpy arrays), its outputs
         passed through ``read`` (a copy to the host, say; by default a
         replay's outputs are cloned and an eager run's returned as they
         are). A captured signature's inputs may stay on the host: the
-        replay copies them into its static buffers."""
+        replay copies them into its static buffers. ``fn`` (``fn(model,
+        *batch)``) replaces the step's own for this call, and ``key`` is
+        the part of the signature that only it sees (the constants a
+        ``to_static`` forward takes beside its tensors), which a captured
+        graph bakes in."""
         keep = (lambda out: out) if read is None else read
         was_training = self.model.training
         self.model.eval()
         try:
-            if not (self.jit and _captures(self.device)):
-                batch = [_to_device(b, self.device) for b in batch]
-                if not self.jit:
-                    return keep(self._run(batch))
-                sig = (self._instance, precision_key()) + _signature(batch)
-                with compiled_step():
-                    return keep(self.store.run_eager(sig, lambda: self._run(batch), batch))
+            if not self.jit:
+                return keep(self._run([_to_device(b, self.device) for b in batch], fn))
             batch = [torch.from_numpy(np.ascontiguousarray(b)) if isinstance(b, np.ndarray)
                      else b for b in batch]
-            sig = (self._instance, precision_key()) + _signature(batch)
-            entry = self.store.find(sig)
+            sig = (self._instance, precision_key()) + tuple(key) + _signature(batch)
+            store = self.store
+            entry = None
+            if _captures(self.device) and not store.runs_uncaptured(sig):
+                entry = store.find(sig)
+                if entry is None:
+                    with store.capturing:
+                        entry = store.lookup(sig)
+                        if entry is None and not store.runs_uncaptured(sig):
+                            inputs = [b.to(self.device, copy=True) for b in batch]
+                            with compiled_step():
+                                out = store.first_run(
+                                    sig, self.device,
+                                    lambda: _first_run(self.device,
+                                                       lambda: self._run(inputs, fn)),
+                                    inputs)
+                                store.capture(sig, lambda *x: self._run(x, fn), inputs,
+                                              _random.graph_generators(self.device))
+                            return keep(out)
             if entry is None:
-                with self.store.capturing:
-                    entry = self.store.lookup(sig)
-                    if entry is None:
-                        inputs = [b.to(self.device, copy=True) for b in batch]
-                        with compiled_step():
-                            out = self.store.first_run(
-                                sig, self.device,
-                                lambda: _first_run(self.device, lambda: self._run(inputs)),
-                                inputs)
-                            self.store.capture(sig, lambda *x: self._run(x), inputs,
-                                               _random.graph_generators(self.device))
-                        return keep(out)
-            return self.store.replay(entry, *batch, read=read or clone_outputs)
+                # the CPU, or a signature whose runs read the host: eagerly at every call
+                batch = [_to_device(b, self.device) for b in batch]
+                with compiled_step():
+                    return keep(store.run_eager(sig, lambda: self._run(batch, fn), batch))
+            return store.replay(entry, *batch, read=read or clone_outputs)
         finally:
             if was_training:
                 self.model.train()

@@ -1,23 +1,39 @@
 """``paddle.jit``: ``to_static``, ``save``, ``load`` (``paddle_tpu/jit_api.py``).
 
-- :func:`to_static` of a ``Layer`` routes its forward through
-  ``framework.jit.eval_step``: on the card one CUDA graph is captured per
-  input signature and replayed after (eval mode, no gradients), on the CPU
-  the forward runs eagerly as a compiled step's body.
-- :func:`to_static` of a function captures it once per input signature
-  into a ``runtime.compiled.GraphStore`` and replays the graph after. A
-  function that reads values on the host (``if x.sum() > 0:``, ``item()``)
-  raises when it is captured (:class:`~paddle_tpu_torch.framework.tensor.Tensor`'s
-  host reads refuse inside a compiled step), and is never run eagerly in
-  its place. Python control flow that depends on values needs the AST
-  pass of the JAX package (``dygraph_to_static.py``), which is not ported.
+- :func:`to_static` first rewrites the function, or a layer's bound
+  forward (its ``__func__``, bound to the layer again), through the AST
+  pass (:mod:`paddle_tpu_torch.dygraph_to_static`, ``paddle_tpu/jit_api.py:47-58``):
+  value-dependent ``if``, ``while``, ``for ... in range``, ``break``,
+  ``continue`` and ``return`` become calls of the runtime converters.
+- A layer's forward then runs through ``framework.jit.eval_step`` (eval
+  mode, no gradients); a function through a
+  ``runtime.compiled.GraphStore`` of its own (:attr:`StaticFunction.store`).
+  Every tensor of a call, also inside its tuples, lists and dicts, is an
+  input of the graph; a signature is the tensors' shapes and dtypes and
+  the values of the other arguments, which may be numbers, strings and
+  ``None`` (anything else raises ``TypeError``: a graph would bake it in);
+  a layer's keyword arguments are part of its ``eval_step`` signature.
+  On the card one CUDA graph is captured per signature after an eager
+  first run and replayed after; an ``if`` on a tensor runs both branches
+  and selects on the device, so one graph replays either branch. A
+  signature whose run reads values on the host (a ``while`` on a tensor,
+  a ``print`` or an ``assert`` of one) is never captured: each later call
+  runs it eagerly on the card (``GraphStore.run_eager``), and
+  ``store.uncaptured`` counts those runs.
+  On the CPU every call runs eagerly as a compiled step's body, with the
+  same converters. Any other read of values on the host (``item()``,
+  ``numpy()``) raises inside the compiled step
+  (:class:`~paddle_tpu_torch.framework.tensor.Tensor`'s host reads refuse
+  there).
 - :func:`save` runs the layer's forward once in static mode over
-  ``static.data`` feeds (``paddle_tpu/jit_api.py:120-168``): the
-  mode-aware ``nn.functional`` appends the program, whose parameters and
-  buffers are persistable variables under the layer's own names
-  (``conv1.weight``, ``bn1._mean``). It writes the inference-model layout
-  (``__model__``, ``__params__``), which ``static.load_inference_model``,
-  ``inference.create_predictor`` and either package's :func:`load` read.
+  ``static.data`` feeds (``paddle_tpu/jit_api.py:120-168``); a
+  ``to_static`` layer's through the converted forward, as the JAX package
+  does. The mode-aware ``nn.functional`` appends the program, whose
+  parameters and buffers are persistable variables under the layer's own
+  names (``conv1.weight``, ``bn1._mean``). It writes the inference-model
+  layout (``__model__``, ``__params__``), which
+  ``static.load_inference_model``, ``inference.create_predictor`` and
+  either package's :func:`load` read.
 - :func:`load` returns a :class:`TranslatedLayer` running the saved
   program through the static executor.
 """
@@ -58,11 +74,18 @@ def _device():
 
 
 class StaticFunction:
-    """The ``@to_static`` wrapper of a function or a layer's forward."""
+    """The ``@to_static`` wrapper of a function or a layer's forward, both
+    rewritten by ``dygraph_to_static.convert_to_static``."""
 
     def __init__(self, function, input_spec=None):
+        from .dygraph_to_static import convert_to_static
         from .runtime.compiled import GraphStore
 
+        bound_self = getattr(function, "__self__", None)
+        base = getattr(function, "__func__", function)
+        transformed = convert_to_static(base)
+        if transformed is not base:
+            function = transformed.__get__(bound_self) if bound_self is not None else transformed
         self._function = function
         self._input_spec = input_spec
         self._step = None  # a layer's eval_step
@@ -77,13 +100,16 @@ class StaticFunction:
     def _call_layer(self, layer, args, kwargs):
         from .framework import jit as fjit
 
+        tensors, key, rebuild = _split(args, kwargs)
         if self._step is None:
-            fn = self._function
-            self._step = fjit.eval_step(layer, fn=lambda m, *a: fn(*a, **kwargs),
-                                        device=_device())
+            self._step = fjit.eval_step(layer, device=_device())
             self.store = self._step.store
-        return wrap(self._step(*[a.detach() if isinstance(a, torch.Tensor) else a
-                                 for a in args]))
+
+        def fn(model, *xs):
+            a, kw = rebuild([wrap(x) for x in xs])
+            return self._function(*a, **kw)
+
+        return wrap(self._step.run([t.detach() for t in tensors], key=key, fn=fn))
 
     def _call_function(self, args, kwargs):
         from .framework import jit as fjit
@@ -91,26 +117,89 @@ class StaticFunction:
         from .runtime.compiled import clone_outputs, compiled_step, precision_key
 
         device = _device()
-        batch = [torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) else a for a in args]
-        batch = [wrap(b.to(device)) if isinstance(b, torch.Tensor) else b for b in batch]
-        if not fjit._captures(device):
-            with compiled_step():
-                return self._function(*batch, **kwargs)
-        sig = (precision_key(), repr(sorted(kwargs.items()))) + fjit._signature(batch)
-        entry = self.store.find(sig)
+        tensors, key, rebuild = _split(args, kwargs)
+        tensors = [wrap(t.to(device)) for t in tensors]
+        sig = (precision_key(),) + key + fjit._signature(tensors)
+
+        def fn(*xs):
+            a, kw = rebuild([wrap(x) for x in xs])
+            return self._function(*a, **kw)
+
+        store = self.store
+        entry = None
+        if fjit._captures(device) and not store.runs_uncaptured(sig):
+            entry = store.find(sig)
+            if entry is None:
+                with store.capturing:
+                    entry = store.lookup(sig)
+                    if entry is None and not store.runs_uncaptured(sig):
+                        inputs = [wrap(t.detach().clone()) for t in tensors]
+                        with compiled_step():
+                            out = store.first_run(
+                                sig, device,
+                                lambda: fjit._first_run(device, lambda: fn(*inputs)), inputs)
+                            store.capture(sig, fn, inputs, _random.graph_generators(device))
+                        return out
         if entry is None:
-            with self.store.capturing:
-                entry = self.store.lookup(sig)
-                if entry is None:
-                    inputs = [wrap(b.detach().clone()) for b in batch]
-                    fn = lambda *x: self._function(*[wrap(t) for t in x], **kwargs)  # noqa: E731
-                    with compiled_step():
-                        out = self.store.first_run(
-                            sig, device, lambda: fjit._first_run(device, lambda: fn(*inputs)),
-                            inputs)
-                        self.store.capture(sig, fn, inputs, _random.graph_generators(device))
-                    return out
-        return wrap(self.store.replay(entry, *batch, read=clone_outputs))
+            # the CPU, or a signature whose runs read the host: eagerly at every call
+            with compiled_step():
+                return store.run_eager(sig, lambda: fn(*tensors), tensors)
+        return wrap(store.replay(entry, *tensors, read=clone_outputs))
+
+
+# the leaves of a to_static call that are constants of its signature, keyed by value
+_CONSTANTS = (bool, int, float, str, type(None))
+
+
+def _split(args, kwargs):
+    """``(tensors, key, rebuild)`` of a ``to_static`` call: the tensors
+    anywhere in its arguments (numpy arrays made tensors), which become a
+    graph's inputs; the signature's key of everything else (the tree's
+    structure and its ``bool``, ``int``, ``float``, ``str`` and ``None``
+    leaves, by type and value), which a graph bakes in; and ``rebuild(xs)
+    -> (args, kwargs)`` with ``xs`` in the tensors' places. Any other leaf
+    (a layer, an object) raises ``TypeError``: a graph would bake it in, and
+    its value has no key."""
+    from .dygraph_to_static import _flatten, _unflatten
+
+    leaves, spec = _flatten((tuple(args), dict(kwargs)))
+    slots, tensors, key = [], [], []
+    for i, v in enumerate(leaves):
+        if isinstance(v, (np.ndarray, np.generic)):
+            v = torch.from_numpy(np.array(v))
+        if isinstance(v, torch.Tensor):
+            slots.append(i)
+            tensors.append(v)
+        elif isinstance(v, _CONSTANTS):
+            key.append((i, type(v).__name__, repr(v)))
+        else:
+            raise TypeError(f"a to_static function takes tensors, numpy arrays, Python "
+                            f"numbers, strings and None (in tuples, lists and dicts), got "
+                            f"{type(v).__name__}: a captured graph would bake it in")
+    _keyed_spec(spec)
+
+    def rebuild(xs):
+        full = list(leaves)
+        for i, x in zip(slots, xs):
+            full[i] = x
+        return _unflatten(spec, full)
+
+    return tensors, (repr(spec),) + tuple(key), rebuild
+
+
+def _keyed_spec(spec):
+    """Raises ``TypeError`` unless every dict key in ``spec`` is one of
+    :data:`_CONSTANTS`, so that the spec's ``repr`` keys its structure."""
+    if spec is None:
+        return
+    _, keys, subs = spec
+    for k in keys or ():
+        if not isinstance(k, _CONSTANTS):
+            raise TypeError(f"a to_static function's dict arguments take keys of "
+                            f"{', '.join(t.__name__ for t in _CONSTANTS)}, got "
+                            f"{type(k).__name__}")
+    for sub in subs:
+        _keyed_spec(sub)
 
 
 def to_static(function=None, input_spec=None, **kwargs):

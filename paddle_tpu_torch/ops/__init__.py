@@ -34,6 +34,8 @@ import numpy as np
 import torch
 
 from . import beam_search, fused_ops, kernels, quantize_kernels, tensor_kernels  # noqa: F401
+from . import (linalg_kernels, math_extra, metrics_kernels, nn_extra,  # noqa: F401
+               optimizer_kernels)
 from ..errors import UnimplementedError
 from ..framework import autograd as _ag
 from ..framework.dtype import convert_dtype, dtype_name, torch_dtype

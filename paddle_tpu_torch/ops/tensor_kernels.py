@@ -1060,3 +1060,59 @@ def multinomial(x, *, num_samples=1, replacement=False, generator=None):
 def poisson(x, *, generator=None):
     return _draw(x.device, generator, lambda gen: torch.poisson(x, generator=gen))
 
+
+
+# -- the rest of kernels.py: indexing, a full mean, hinge loss, loss scaling ------
+
+
+@register_op("getitem")
+def getitem(x, *, idx):
+    return x[idx]
+
+
+@register_op("mean_all")
+def mean_all(x, **kw):
+    """``operators/mean_op.cc``: the mean of every element, a scalar."""
+    return torch.mean(x)
+
+
+@register_op("hinge_loss")
+def hinge_loss(logits, label, **kw):
+    return torch.clamp(1 - logits * (2 * label - 1), min=0)
+
+
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(x, w, *, stride=1, padding=0, dilation=1, groups=None,
+                     data_format="NCHW"):
+    """``conv2d`` with one group a channel."""
+    from .registry import kernel
+
+    c = x.shape[1] if data_format == "NCHW" else x.shape[-1]
+    return kernel("conv2d")(x, w, stride=stride, padding=padding, dilation=dilation, groups=c,
+                            data_format=data_format)
+
+
+@register_op("check_finite_and_unscale", num_outputs=-1)
+def check_finite_and_unscale(*xs, scale):
+    """Each of ``xs`` divided by ``scale``, then whether any held a NaN or
+    an inf (AMP's loss-scaling check, on the device)."""
+    found_inf = torch.zeros((), dtype=torch.bool, device=scale.device
+                            if isinstance(scale, torch.Tensor) else None)
+    outs = []
+    for x in xs:
+        found_inf = found_inf | ~torch.isfinite(x).all()
+        outs.append(x / scale)
+    return tuple(outs) + (found_inf,)
+
+
+@register_op("update_loss_scaling", num_outputs=3)
+def update_loss_scaling(scale, good_steps, found_inf, *, incr_every_n_steps=2000,
+                        decr_every_n_nan_or_inf=1, incr_ratio=2.0, decr_ratio=0.5):
+    """The dynamic loss scale's update: halved (not below 1) on an inf,
+    grown after ``incr_every_n_steps`` good steps."""
+    new_good = torch.where(found_inf, torch.zeros_like(good_steps), good_steps + 1)
+    should_incr = new_good >= incr_every_n_steps
+    new_scale = torch.where(found_inf, torch.clamp(scale * decr_ratio, min=1.0),
+                            torch.where(should_incr, scale * incr_ratio, scale))
+    new_good = torch.where(should_incr, torch.zeros_like(new_good), new_good)
+    return new_scale, new_good, found_inf

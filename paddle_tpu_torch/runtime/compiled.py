@@ -15,7 +15,19 @@ of kernel launches from Python:
 - **Counters:** ``hits``, ``misses`` and ``evictions`` of each store, and
   ``uncaptured``: the runs its owner made without a graph because they
   cannot be captured (a static program holding an unbounded ``while``,
-  whose trip count the host reads).
+  whose trip count the host reads, or a step whose body read values on
+  the host).
+- **Uncaptured signatures:** a step body may read device values on the
+  host through :func:`host_read` (the ``to_static`` converters of a
+  ``while`` on a tensor, ``print`` and ``assert``). The store's first run
+  of a signature notes such reads (:meth:`GraphStore.first_run`); the
+  signature is then never captured: :meth:`GraphStore.capture` records
+  nothing for it, a lookup finds no entry and counts no miss, and callers
+  that see :meth:`GraphStore.runs_uncaptured` run each later call eagerly
+  on the device through :meth:`GraphStore.run_eager` (no capture lock, no
+  copy of the inputs, no device synchronize), where each run that reads the
+  host adds one to ``uncaptured``. A host read while a graph records raises
+  :class:`CaptureError`.
 - **Entry:** the graph (which owns its private memory pool), its static
   input buffers (the caller's batch is copied into them before each
   replay), its outputs (rewritten by each replay, so callers hand back
@@ -66,7 +78,8 @@ is a flight event.
 While a step body runs for a compiled step (its first, eager run and its
 capture) :func:`in_compiled_step` is true: a host decision inside it, such
 as ``GradScaler``'s found-inf test, raises there, as a Python ``bool`` of a
-tracer raises in the JAX step.
+tracer raises in the JAX step; only :func:`host_read` reads the host there,
+and it leaves the signature uncaptured.
 """
 from __future__ import annotations
 
@@ -89,7 +102,8 @@ from ..ops import cuda as _kernels
 from ..profiler import bump_counter
 
 __all__ = ["CaptureError", "CapturedStep", "GraphStore", "CompileWatch", "cache_capacity",
-           "compiled_step", "in_compiled_step", "clone_outputs", "precision_key"]
+           "compiled_step", "in_compiled_step", "host_read", "noting_host_reads",
+           "clone_outputs", "precision_key"]
 
 
 _log = logging.getLogger(__name__)
@@ -124,6 +138,43 @@ def compiled_step():
 def in_compiled_step() -> bool:
     """Whether a compiled step's body is running on this thread."""
     return getattr(_region, "on", False)
+
+
+def _recording() -> bool:
+    """Whether a graph records on this thread (a store's capture, or any
+    CUDA stream capture in progress)."""
+    if getattr(_region, "recording", False):
+        return True
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def host_read(what):
+    """A sanctioned read of device values on the host inside a compiled
+    step (``what``: the ``to_static`` converter that reads). Raises
+    :class:`CaptureError` while a graph records, where the value would be
+    baked into every replay; otherwise it is noted for the enclosing
+    :func:`noting_host_reads`, and the store's first run of the signature
+    then leaves it uncaptured."""
+    if _recording():
+        raise CaptureError(f"{what} reads a value on the host while a CUDA graph records: "
+                           "the value would be baked into every replay")
+    reads = getattr(_region, "reads", None)
+    if reads is not None:
+        reads.append(what)
+
+
+@contextlib.contextmanager
+def noting_host_reads():
+    """Collect the :func:`host_read` calls of the body (this thread) into
+    the list it yields; an enclosing collection sees them too."""
+    prev = getattr(_region, "reads", None)
+    _region.reads = reads = []
+    try:
+        yield reads
+    finally:
+        _region.reads = prev
+        if prev is not None:
+            prev.extend(reads)
 
 
 def precision_key() -> tuple:
@@ -191,6 +242,7 @@ class GraphStore:
         self.hits = self.misses = self.evictions = self.uncaptured = 0
         self._counted: dict = {}  # sig -> (work count, memory) of its first run, until captured
         self._eager_records: dict = {}  # sig -> the record of an eagerly run signature
+        self._uncapturable: set = set()  # the signatures whose runs read the host
 
     def __len__(self):
         return len(self._entries)
@@ -215,8 +267,16 @@ class GraphStore:
         takes :attr:`capturing` and looks again with :meth:`lookup`."""
         return self._get(sig, count_miss=False)
 
+    def runs_uncaptured(self, sig) -> bool:
+        """Whether ``sig``'s runs read values on the host, so that it is
+        never captured (:func:`host_read`)."""
+        with self._lock:
+            return sig in self._uncapturable
+
     def _get(self, sig, count_miss):
         with self._lock:
+            if sig in self._uncapturable:
+                return None  # runs eagerly at every call: not a miss
             if sig in self._refused:
                 raise CaptureError(f"{self.key_of(sig)}: its capture failed before "
                                    f"({self._refused[sig]}); it is not run eagerly instead")
@@ -252,35 +312,65 @@ class GraphStore:
         (``monitor.cost_model.count_work``); the next :meth:`capture` of
         ``sig`` keeps the count as the entry's cost record, with the step's
         input and output bytes (its temporaries are not measured: reading
-        them would reset the allocator's peak other readers hold)."""
-        with _cost.count_work() as work:
+        them would reset the allocator's peak other readers hold).
+
+        A run that reads values on the host (:func:`host_read`) leaves
+        ``sig`` uncaptured (:meth:`runs_uncaptured`): its count becomes the
+        record of an eagerly run signature, :meth:`capture` records nothing,
+        and callers send its later calls to :meth:`run_eager` (a caller
+        that comes here again is sent there too)."""
+        if self.runs_uncaptured(sig):
+            return self.run_eager(sig, run, inputs)
+        with _cost.count_work() as work, noting_host_reads() as reads:
             out = run()
         mem = {"argument_size_in_bytes": _nbytes(list(inputs)),
                "output_size_in_bytes": _nbytes(out)}
+        if not reads:
+            with self._lock:
+                self._counted[sig] = (work, mem)
+            return out
+        self._record_eager(sig, work, mem)
         with self._lock:
-            self._counted[sig] = (work, mem)
+            self._uncapturable.add(sig)
+            self.uncaptured += 1
+        _flight.record_event("runtime_uncaptured", label=self.label, cache_key=self.key_of(sig),
+                             host_reads=sorted(set(reads)))
         return out
 
     def run_eager(self, sig, fn, inputs=()):
         """``fn()`` for a signature that runs eagerly at every call (a
-        compiled step on the CPU): its first call is counted into a cost
-        record (``monitor.cost_model``), and every call is one run of it."""
+        compiled step on the CPU, or an uncaptured signature on the card):
+        its first call is counted into a cost record
+        (``monitor.cost_model``), and every call is one run of it; a call
+        whose body read the host (:func:`host_read`) adds one to
+        :attr:`uncaptured`, as it would on the card."""
         with self._lock:
             rec = self._eager_records.get(sig)
-        if rec is not None:
-            out = fn()
+        reads = []
+        try:
+            with (_cost.count_work() if rec is None else contextlib.nullcontext()) as work, \
+                    noting_host_reads() as reads:
+                out = fn()
+        finally:
+            if reads:
+                with self._lock:
+                    self.uncaptured += 1
+        if rec is None:
+            self._record_eager(sig, work, {"argument_size_in_bytes": _nbytes(list(inputs)),
+                                           "output_size_in_bytes": _nbytes(out)})
+        else:
             _cost.note_run(rec)
-            return out
-        with _cost.count_work() as work:
-            out = fn()
+        return out
+
+    def _record_eager(self, sig, work, mem):
+        """The cost record of the eagerly run ``sig`` from its first run's
+        count, booked as one run."""
         key = self.key_of(sig)
-        mem = {"argument_size_in_bytes": _nbytes(list(inputs)),
-               "output_size_in_bytes": _nbytes(out)}
         rec = _cost.capture(self.label, cost=work, mem=mem, key=key, cache_key=key)
         with self._lock:
             self._eager_records[sig] = rec
         _cost.note_run(rec)
-        return out
+        return rec
 
     def capture(self, sig, fn, inputs, generators=()):
         """Capture ``fn(*inputs)`` into a new graph, its own memory pool,
@@ -291,7 +381,10 @@ class GraphStore:
         plans. Raises :class:`CaptureError` if the capture fails, and
         remembers ``sig`` as refused. The capture runs in ``thread_local``
         error mode: another thread's CUDA calls during it (a replay, a copy
-        to the host) neither fail nor spoil it."""
+        to the host) neither fail nor spoil it. A signature whose runs read
+        the host (:meth:`first_run`) is not captured: returns None."""
+        if self.runs_uncaptured(sig):
+            return None
         key = self.key_of(sig)
         graph = torch.cuda.CUDAGraph()
         # a stream of its own: captures of two stores may record at once
@@ -302,7 +395,11 @@ class GraphStore:
                 for gen in generators:
                     graph.register_generator_state(gen)
                 with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                    outputs = fn(*inputs)
+                    _region.recording = True
+                    try:
+                        outputs = fn(*inputs)
+                    finally:
+                        _region.recording = False
         except Exception as e:
             why = f"{type(e).__name__}: {e}"
             with self._lock:

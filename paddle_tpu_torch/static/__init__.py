@@ -9,10 +9,15 @@ files (``save``/``load``, ``save_persistables``/``load_persistables``,
 the inference model). Enough to build, train, checkpoint, calibrate,
 quantize, save and serve a program with loops, branches and recurrent
 layers. A program holding an unbounded ``while`` runs uncaptured on the
-card (``Executor.store.uncaptured`` counts such runs)."""
+card (``Executor.store.uncaptured`` counts such runs). ``InputSpec`` (the
+class ``jit`` declares inputs with) and ``ExponentialMovingAverage`` (the
+optimizer wrapper, whose dygraph state works for a program's parameters
+pulled out of the scope) are exported here as in ``paddle.static``."""
 from . import io, nn, optimizer  # noqa: F401
 from .backward import append_backward, gradients  # noqa: F401
 from .control_flow import case, cond, scan, switch_case, while_loop  # noqa: F401
+from ..jit_api import InputSpec  # noqa: F401
+from ..optimizer.wrappers import ExponentialMovingAverage  # noqa: F401
 from .executor import Executor, Scope, global_scope  # noqa: F401
 from .io import (  # noqa: F401
     load,

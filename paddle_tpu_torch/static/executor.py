@@ -42,6 +42,13 @@ replacing a value (:meth:`Scope.set` of a name already there, or
 :meth:`Scope.clear`) starts a new generation and the next run captures
 again.
 
+An op's inputs are its ``X`` slot, or, where its ``__in_slots__``
+attribute names slots, those slots' variables concatenated in that order;
+its outputs likewise ``Out`` or ``__out_slots__`` (``:111-130``, the
+reference's named io slots). The interpreter and a ``grad::`` op read them
+so, so a program the JAX package wrote with named slots runs in the port
+with its gradient.
+
 Control flow (``:357-660``): ``scan`` runs its body ``length`` times;
 ``cond`` runs both branches and selects with ``torch.where`` on the
 predicate, which stays on the card; both are captured with the program. A
@@ -87,6 +94,7 @@ import torch
 
 from ..analysis import memory as _memory
 from ..analysis import optimizer as _iropt
+from ..analysis.verifier import op_in_names, op_out_names
 from ..device import resolve_device
 from ..errors import (FatalError, InvalidArgumentError, NotFoundError, UnimplementedError,
                       op_error_context)
@@ -95,6 +103,7 @@ from ..framework import nan_inf
 from ..framework import random as _random
 from ..framework.dtype import torch_dtype
 from ..framework.jit import _captures, _first_run, _signature
+from ..framework.place import to_torch_device
 from ..monitor import flight_recorder as _flight
 from ..monitor import tracing as _tracing
 from ..monitor.opprof import op_scope_name
@@ -169,11 +178,12 @@ def global_scope() -> Scope:
 
 
 class Executor:
-    """Runs programs on ``device`` (``None``: the CUDA card, or raise);
+    """Runs programs on ``place`` (``None``: the CUDA card, or raise; a
+    place, a ``torch.device`` or a name such as ``"cpu"`` or ``"gpu:0"``);
     on the card through :attr:`store`, a graph per signature."""
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, place=None):
+        self.device = resolve_device(None if place is None else to_torch_device(place))
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.store = GraphStore("executor")  # shared by a predictor's clones
@@ -190,7 +200,7 @@ class Executor:
         startup_program = startup_program or default_startup_program()
         scope = scope or global_scope()
         for op in startup_program.global_block().ops:
-            out_names = op.outputs.get("Out", [])
+            out_names = op_out_names(op)
             if op.type == "init_param":
                 if not scope.has(out_names[0]):
                     scope.set(out_names[0],
@@ -201,7 +211,7 @@ class Executor:
                 attrs["generator"] = _random.default_generator(self.device)
             with torch.device(self.device):
                 out = kernel(op.type)(*[scope.on(n, self.device)
-                                        for n in op.inputs.get("X", [])], **attrs)
+                                        for n in op_in_names(op)], **attrs)
             for n, v in zip(out_names, list(out) if isinstance(out, (tuple, list)) else [out]):
                 if n:
                     scope.set(n, v)
@@ -464,7 +474,7 @@ class _BlockRunner:
                     results = self._exec_op(op, env, written, path)
             else:
                 results = self._exec_op(op, env, written, path)
-            for n, v in zip(op.outputs.get("Out", []), results):
+            for n, v in zip(op_out_names(op), results):
                 if not n or v is None:
                     continue
                 env[n] = v
@@ -479,7 +489,7 @@ class _BlockRunner:
 
     def _exec_op(self, op, env, written, path):
         attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
-        in_names = op.inputs.get("X", [])
+        in_names = op_in_names(op)
         if op.type in _BLOCK_OPS:
             return getattr(self, f"_run_{op.type}")(op, env, written, path)
         if not op.type.startswith("grad::"):
@@ -490,7 +500,7 @@ class _BlockRunner:
         n_in = op.attrs["__n_fwd_in__"]
         fwd_in = [self.value(env, n) for n in in_names[:n_in]]
         out_grads = [env.get(n) if n else None for n in in_names[n_in:]]
-        wanted = [bool(n) for n in op.outputs.get("Out", [])]
+        wanted = [bool(n) for n in op_out_names(op)]
         if fwd_type == "while":
             raise RuntimeError(
                 "while_loop is not reverse-differentiable (unbounded trip count); build "

@@ -79,9 +79,12 @@ def load_persistables(executor, dirname, main_program=None, filename=None, scope
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor, main_program=None,
-                         model_filename=None, params_filename=None, scope=None):
+                         model_filename=None, params_filename=None, **kwargs):
     """Prune the program to what the targets need from the feeds and save
-    program and parameters. Returns the target names."""
+    program and parameters, read from ``scope=`` (a keyword; the global
+    scope by default). Returns the target names. Other keywords are
+    accepted and not kept, as in the JAX package."""
+    scope = kwargs.get("scope")
     main_program = main_program or default_main_program()
     os.makedirs(dirname, exist_ok=True)
     target_names = [v.name if hasattr(v, "name") else str(v) for v in target_vars]

@@ -383,8 +383,9 @@ def in_dynamic_mode() -> bool:
     return not _static_mode[0]
 
 
-def data(name, shape, dtype="float32"):
-    """``paddle.static.data``: declare a feed variable."""
+def data(name, shape, dtype="float32", lod_level=0):
+    """``paddle.static.data``: declare a feed variable (``lod_level`` is
+    accepted and not kept, as in the JAX package)."""
     blk = default_main_program().global_block()
     return blk.create_var(name=name, shape=shape, dtype=dtype, is_data=True)
 

@@ -1,6 +1,6 @@
 """Every signature ``tools/api_spec.txt`` pins for the top level, ``tensor``,
-``linalg``, ``nn``, ``device`` and ``monitor`` against the port's parameter
-names.
+``linalg``, ``nn``, ``device``, ``monitor`` and ``static`` against the
+port's parameter names.
 
 A pinned name's parameters must lead the port's, in order, by name and by
 kind (``*args``, ``**kwargs``); the port may add parameters after them
@@ -20,7 +20,7 @@ import paddle_tpu_torch  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(REPO, "tools", "api_spec.txt")
-NAMESPACES = ("tensor", "linalg", "nn", "device", "monitor")
+NAMESPACES = ("tensor", "linalg", "nn", "device", "monitor", "static")
 NOT_PORTED = {"DataParallel", "Model", "summary"}
 
 

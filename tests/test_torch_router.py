@@ -622,7 +622,7 @@ def test_port_router_over_port_predict_servers(model_dir):
         for a in reqs:
             assert _post(router.url, payload={"inputs": a.tolist()})[0] == 200
         assert _wait(lambda: not {b.url: b for b in router.backend_states()}[s1.url].in_rotation)
-        sz = router.statz()
+        sz = _settled(router).statz()
         assert sz["fleet"]["requests"] >= 12 and sz["backends_healthy"] == 1
         fz = router.fleetz()
         assert fz["backends_scraped"] == 1 and "serving/e2e_ms" in fz["fleet"]["predict"]

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import paddle_tpu  # noqa: E402
+from paddle_tpu.monitor import flight_recorder as jfr  # noqa: E402
 from paddle_tpu.monitor import registry as jreg  # noqa: E402
 from paddle_tpu.monitor import slo as jslo  # noqa: E402
 
@@ -47,6 +48,10 @@ def _clean():
     for mod in (slo, jslo):
         mod.reset_engine()
     monitor.reset_registry(unregister=True)
+    # the flight events of the tests that ran before in this process (another
+    # family's series overflow, say) are not this test's
+    for rec in (fr, jfr):
+        rec.reset_recorder()
     yield
     for mod in (slo, jslo):
         mod.reset_engine()
