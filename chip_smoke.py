@@ -356,6 +356,23 @@ Phases, each fatal on failure:
     (c) a ``to_static`` function with an early ``return`` (its flags
     selected on the device) captured once and replayed for both signs,
     equal to the eager function;
+12p. the rest of the op registry (the sequence, detection, compat, niche
+    and fake-quant families, ``registry_tail``): (a) every case of
+    ``tests/_torch_tail_cases.py`` run on the card and on the CPU through
+    the registry, integers exact and floats within 1e-5, the 124 op types
+    counted; (b) the Paddle book's sentiment ``convolution_net``
+    (``sentiment_conv_net``: vocabulary 5,147, embedding 128, two
+    ``sequence_conv_pool`` of 512, batch 128 x 400 tokens, lengths 100 to
+    400) trained 20 steps as a static program under Adam (lr 0.002), the
+    first three within 1e-5 relative of the CPU interpreter's, one graph
+    captured and 19 replays; ms a step captured and interpreted; (c) a
+    YOLOv3 head (80 classes, the nine anchors, masks [6,7,8] [3,4,5]
+    [0,1,2]): ``yolov3_loss`` at three scales for a 608 x 608 input at
+    batch 8, loss and gradient against the CPU, and the 416 x 416
+    post-process (``yolo_box`` at three scales, ``multiclass_nms``) as a
+    static program, uncaptured (the NMS reads the host), its rows equal to
+    a serial greedy NMS on the host over every class; none of the 16
+    kernels launched;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -9993,6 +10010,459 @@ def to_static_paths():
     return counts, r
 
 
+# -- the rest of the op registry (12p): the sequence, detection, compat, niche and --------
+# -- fake-quant families on the card, the book's sentiment conv net, a YOLOv3 head ---------
+
+TAIL_DEVICE = "cuda"  # "cpu" rehearses the phase off the card
+TAIL_RTOL = 1e-5  # a float output of the sweep, of its largest magnitude (at least 1)
+TAIL_OP_TYPES = 124  # the op types the five families added to the port's registry
+SENT_VOCAB = 5147  # words in Paddle's IMDB dictionary (paddle.dataset.imdb.word_dict())
+SENT_EMB, SENT_HID, SENT_B, SENT_T, SENT_MIN_LEN = 128, 512, 128, 400, 100
+SENT_LR = 0.002  # the book's learning rate, under static Adam (the book's Adagrad is not ported)
+SENT_STEPS = 20  # steps through the executor, the first captured and 19 replayed
+SENT_PARITY_STEPS = 3  # of them, held against the CPU interpreter from the same weights
+SENT_EAGER_STEPS = 3  # the step interpreted on the card, timed
+SENT_LOSS_RTOL = 1e-5
+SENT_SEED = 27
+YOLO_ANCHORS = (10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90, 156, 198, 373, 326)
+YOLO_MASKS = ((6, 7, 8), (3, 4, 5), (0, 1, 2))  # of the strides 32, 16, 8
+YOLO_CLASSES, YOLO_GT_SLOTS = 80, 50
+YOLO_LOSS_IN, YOLO_LOSS_B = 608, 8
+YOLO_POST_IN, YOLO_CONF, YOLO_NMS, YOLO_KEEP = 416, 0.01, 0.45, 100
+YOLO_OBJ_SHIFT, YOLO_CLS_SHIFT = -8.0, -3.0  # the logits' means: ~1,000 (box, class) pairs pass
+YOLO_TIMED = 5
+YOLO_GRAD_RTOL = 1e-5  # of the gradient's largest entry
+
+
+def sentiment_conv_net(static, ops, nets, vocab, emb, hid, seq_len, batch, lr=SENT_LR):
+    """The Paddle book's sentiment ``convolution_net`` (chapter 6,
+    understand_sentiment) as a static program over padded tokens and their
+    lengths: embedding, two ``sequence_conv_pool`` (filter sizes 3 and 4,
+    ``tanh``, ``sqrt`` pooling), a softmax ``fc`` of 2, cross entropy,
+    trained by static Adam. Returns ``(avg_cost, prediction)``; both
+    packages build it alike."""
+    words = static.data("words", [batch, seq_len], "int64")
+    lengths = static.data("lengths", [batch], "int64")
+    label = static.data("label", [batch, 1], "int64")
+    x = static.nn.embedding(words, [vocab, emb])
+    c3 = nets.sequence_conv_pool(x, lengths, hid, 3, act="tanh", pool_type="sqrt")
+    c4 = nets.sequence_conv_pool(x, lengths, hid, 4, act="tanh", pool_type="sqrt")
+    pred = static.nn.fc(ops.concat([c3, c4], axis=1), 2, activation="softmax")
+    cost = ops.mean(ops.cross_entropy(pred, label, use_softmax=False, reduction="none"))
+    static.optimizer.Adam(learning_rate=lr).minimize(cost)
+    return cost, pred
+
+
+def sentiment_batches(n, vocab, seq_len, batch, lo, seed=SENT_SEED):
+    """``n`` batches of a seeded token stream (the repository holds no IMDB
+    text): lengths drawn per row in ``[lo, seq_len]``, tokens past a row's
+    length 0, labels 0 or 1, as numpy."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = rs.randint(lo, seq_len + 1, batch).astype(np.int64)
+        words = rs.randint(1, vocab, (batch, seq_len)).astype(np.int64)
+        words[np.arange(seq_len)[None, :] >= lens[:, None]] = 0
+        out.append({"words": words, "lengths": lens,
+                    "label": rs.randint(0, 2, (batch, 1)).astype(np.int64)})
+    return out
+
+
+def yolo_post_process(static, ops, classes, input_size, keep_top_k=YOLO_KEEP,
+                      conf_thresh=YOLO_CONF, nms_threshold=YOLO_NMS):
+    """YOLOv3's inference head as a static program: ``yolo_box`` at the
+    three scales, then ``multiclass_nms`` over the concatenated boxes.
+    Returns ``(rows [keep_top_k, 6], num, boxes [M, 4], scores [C, M])``."""
+    img = static.data("img_size", [1, 2], "int32")
+    all_boxes, all_scores = [], []
+    for k, (stride, mask) in enumerate(zip((32, 16, 8), YOLO_MASKS)):
+        g = input_size // stride
+        x = static.data(f"head{k}", [1, 3 * (5 + classes), g, g], "float32")
+        anchors = [v for m in mask for v in YOLO_ANCHORS[2 * m:2 * m + 2]]
+        b, sc = ops.yolo_box(x, img, anchors, classes, conf_thresh=conf_thresh,
+                             downsample_ratio=stride)
+        all_boxes.append(b)
+        all_scores.append(sc)
+    boxes = ops.reshape(ops.concat(all_boxes, axis=1), [-1, 4])
+    scores = ops.transpose(ops.reshape(ops.concat(all_scores, axis=1), [-1, classes]), [1, 0])
+    rows, num = ops.multiclass_nms(boxes, scores, score_threshold=conf_thresh,
+                                   nms_threshold=nms_threshold, keep_top_k=keep_top_k)
+    return rows, num, boxes, scores
+
+
+def yolo_heads(classes, input_size, seed=0, obj_shift=YOLO_OBJ_SHIFT, cls_shift=YOLO_CLS_SHIFT):
+    """Seeded head logits of the three scales, the objectness and class
+    logits moved by ``obj_shift`` and ``cls_shift`` (which set how many
+    boxes pass the threshold)."""
+    rs = np.random.RandomState(seed)
+    feed = {"img_size": np.array([[input_size, input_size]], np.int32)}
+    for k, stride in enumerate((32, 16, 8)):
+        g = input_size // stride
+        x = rs.randn(1, 3, 5 + classes, g, g).astype(np.float32) * 2.0
+        x[:, :, 4] += obj_shift
+        x[:, :, 5:] += cls_shift
+        feed[f"head{k}"] = x.reshape(1, 3 * (5 + classes), g, g)
+    return feed
+
+
+def _iou_np(a, b):
+    """IoU of box ``a [4]`` with boxes ``b [K, 4]`` in the detection ops'
+    float32 expressions and order."""
+    lt = np.maximum(a[:2], b[:, :2])
+    rb = np.minimum(a[2:], b[:, 2:])
+    wh = np.clip(rb - lt, np.float32(0), None)
+    inter = wh[:, 0] * wh[:, 1]
+
+    def area(v):
+        return (np.clip(v[..., 2] - v[..., 0], np.float32(0), None)
+                * np.clip(v[..., 3] - v[..., 1], np.float32(0), None))
+
+    union = area(a) + area(b) - inter
+    return np.where(union > 0, inter / np.maximum(union, np.float32(1e-10)), np.float32(0))
+
+
+def greedy_rows(bboxes, scores, score_threshold, nms_threshold, keep_top_k, background=-1):
+    """Serial greedy NMS on the host, one box a step: every class's
+    survivors as rows ``(class, score, box)`` by score (stable: class, then
+    rank, on ties), the first ``keep_top_k``, padded with -1. Returns
+    ``(rows, count)``."""
+    rows = []
+    for cls in range(scores.shape[0]):
+        if cls == background:
+            continue
+        s = scores[cls]
+        kept = []
+        for i in np.argsort(-s, kind="stable"):
+            if s[i] < score_threshold:
+                break
+            if not kept or not (_iou_np(bboxes[i], bboxes[kept]) > nms_threshold).any():
+                kept.append(i)
+        rows += [(cls, s[i], *bboxes[i]) for i in kept]
+    rows.sort(key=lambda r: -r[1])
+    out = np.full((keep_top_k, 6), -1.0, np.float32)
+    got = np.asarray(rows[:keep_top_k], np.float32).reshape(-1, 6)
+    out[:len(got)] = got
+    return out, len(got)
+
+
+def _tail_cases():
+    """The parity cases of ``tests/_torch_tail_cases.py`` (numpy only)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "_torch_tail_cases.py")
+    spec = importlib.util.spec_from_file_location("_torch_tail_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tail_run(kernel, case, device, seed=0):
+    """``case`` through the port's registry kernel on ``device``: its
+    outputs as numpy."""
+    import torch
+
+    def conv(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    def to(a):
+        return None if a is None else [conv(v) for v in a] if isinstance(a, list) else conv(a)
+
+    attrs = {k: conv(v) if isinstance(v, np.ndarray) else v for k, v in case.attrs.items()}
+    if case.kind == "random":
+        attrs["generator"] = torch.Generator(device).manual_seed(seed)
+    out = kernel(case.op)(*[to(a) for a in case.inputs], **attrs, **case.port_attrs)
+    return [o.detach().cpu().numpy() for o in (out if isinstance(out, (tuple, list)) else [out])]
+
+
+def _random_invariants(case, out):
+    """The held parts of a drawing op's outputs on the card."""
+    if case.op == "shuffle_batch":
+        x = case.inputs[0]
+        rows, perm = out
+        return sorted(perm.tolist()) == list(range(len(x))) and np.array_equal(rows, x[perm])
+    logits, labels = case.inputs
+    samples, probs, sampled, slabels = out
+    t, c = labels.shape[1], logits.shape[1]
+    picked = np.take_along_axis(logits, samples, 1) - np.log(np.float32(1.0 / c))
+    hit = np.concatenate([np.zeros_like(labels, bool),
+                          (samples[:, None, t:] == labels[:, :, None]).any(1)], 1)
+    return (np.array_equal(samples[:, :t], labels) and ((samples >= 0) & (samples < c)).all()
+            and np.allclose(probs, 1.0 / c) and np.allclose(sampled[~hit], picked[~hit],
+                                                             rtol=TAIL_RTOL)
+            and (sampled[hit] < -1e19).all() and np.array_equal(slabels, np.tile(
+                np.arange(t), (len(labels), 1))))
+
+
+def _tail_sweep():
+    """(a) Every case of the five families once on the card, held against
+    the same op on the CPU: integers exactly, floats within ``TAIL_RTOL``
+    of the output's largest magnitude (at least 1); a drawing op by its
+    invariants. Returns the readings by family."""
+    from paddle_tpu_torch.ops.registry import kernel
+
+    tc = _tail_cases()
+    families = {"sequence": tc.SEQUENCE, "detection": tc.DETECTION, "compat": tc.COMPAT,
+                "niche": tc.NICHE, "fake_quant": tc.QUANT}
+    out, ran, bad = {}, set(), []
+    # the print op writes to stdout, whose last lines are this script's result
+    with contextlib.redirect_stdout(sys.stderr):
+        for fam, cases in families.items():
+            worst, worst_case = 0.0, None
+            for c in cases:
+                card = _tail_run(kernel, c, TAIL_DEVICE)
+                if c.kind == "random":
+                    if not _random_invariants(c, card):
+                        bad.append(c.id)
+                    ran.add(c.op)
+                    continue
+                cpu = _tail_run(kernel, c, "cpu")
+                for g, w in zip(card, cpu):
+                    if g.shape != w.shape or g.dtype != w.dtype:
+                        bad.append(f"{c.id}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+                    elif w.dtype.kind in "biu":
+                        if not np.array_equal(g, w):
+                            bad.append(f"{c.id}: integers differ")
+                    elif w.size:
+                        same = g == w  # an empty segment's max is -inf on both
+                        with np.errstate(invalid="ignore"):
+                            diff = np.where(same, 0.0, np.abs(g.astype(np.float64) - w))
+                        err = float(diff.max() / max(1.0, float(np.abs(np.where(same, 0.0,
+                                                                                w)).max())))
+                        if not err <= TAIL_RTOL:
+                            bad.append(f"{c.id}: {err:.3g}")
+                        if err >= worst:
+                            worst, worst_case = err, c.id
+                ran.add(c.op)
+            out[fam] = {"cases": len(cases), "op_types": len({c.op for c in cases}),
+                        "max_err": worst, "worst_case": worst_case}
+            log(f"ops tail sweep {fam}: {len(cases)} cases of {out[fam]['op_types']} op types on "
+                f"the card against the CPU, largest float error {worst:.3g} ({worst_case}), "
+                f"integers exact")
+    out["op_types_ran"] = len(ran)
+    if bad or len(ran) != TAIL_OP_TYPES:
+        raise AssertionError(f"ops tail sweep: {len(ran)} op types ran (want {TAIL_OP_TYPES}); "
+                             f"failed {bad}")
+    return out
+
+
+def _program_of(build):
+    """``(main, startup, outputs)`` of ``build()`` in static mode."""
+    from paddle_tpu_torch import static
+
+    main, startup = static.Program(), static.Program()
+    static.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            outs = build()
+    finally:
+        static.disable_static()
+    return main, startup, outs
+
+
+def train_sentiment_static():
+    """(b) The book's sentiment conv net trained on the card as a static
+    program: three steps held against the CPU interpreter, then the rest
+    of ``SENT_STEPS`` replayed from the executor's graph; ms a step
+    captured and interpreted."""
+    import torch
+
+    from paddle_tpu_torch import convert, nets, ops, static
+
+    main, startup, (cost, _) = _program_of(lambda: sentiment_conv_net(
+        static, ops, nets, SENT_VOCAB, SENT_EMB, SENT_HID, SENT_T, SENT_B))
+    scope = static.Scope()
+    static.Executor("cpu").run_startup(startup, scope=scope)
+    init = {n: scope.numpy(n) for n in scope.var_names()}
+    host = sentiment_batches(SENT_STEPS, SENT_VOCAB, SENT_T, SENT_B, SENT_MIN_LEN)
+    feeds = [{k: torch.from_numpy(v).cuda() for k, v in f.items()} for f in host]
+    cscope, exe = convert.scope_from_numpy(init), static.Executor()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(exe.run(main, feed=feeds[0], fetch_list=[cost], scope=cscope)[0])]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    losses += [float(exe.run(main, feed=f, fetch_list=[cost], scope=cscope)[0])
+               for f in feeds[1:SENT_PARITY_STEPS]]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(SENT_STEPS - SENT_PARITY_STEPS + 1)]
+    ev[0].record()
+    outs = []
+    for i, f in enumerate(feeds[SENT_PARITY_STEPS:]):
+        outs.append(exe.run(main, feed=f, fetch_list=[cost], scope=cscope, return_numpy=False)[0])
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+    losses += [float(o) for o in outs]
+    graphs = (len(exe.store), exe.store.misses, exe.store.hits, exe.store.uncaptured)
+    pscope = convert.scope_from_numpy(init, device="cpu")
+    pexe = static.Executor("cpu")
+    cpu = [float(pexe.run(main, feed=f, fetch_list=[cost], scope=pscope)[0])
+           for f in host[:SENT_PARITY_STEPS]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu))
+    escope = convert.scope_from_numpy(init)
+    block = main.global_block()
+    with torch.no_grad():
+        exe._interpret(block, dict(feeds[0]), escope, [cost.name])
+        torch.cuda.synchronize()
+        eev = [torch.cuda.Event(enable_timing=True) for _ in range(SENT_EAGER_STEPS + 1)]
+        eev[0].record()
+        for i in range(SENT_EAGER_STEPS):
+            exe._interpret(block, dict(feeds[i]), escope, [cost.name])
+            eev[i + 1].record()
+        torch.cuda.synchronize()
+    eager_ms = [eev[i].elapsed_time(eev[i + 1]) for i in range(SENT_EAGER_STEPS)]
+    median = float(np.median(step_ms))
+    r = {"config": {"vocab": SENT_VOCAB, "emb": SENT_EMB, "hid": SENT_HID, "batch": SENT_B,
+                    "seq_len": SENT_T, "lengths": [SENT_MIN_LEN, SENT_T], "filters": [3, 4],
+                    "optimizer": f"static Adam lr {SENT_LR}"},
+         "ops": len(block.ops), "losses": losses,
+         "parity": {"card": losses[:SENT_PARITY_STEPS], "cpu": cpu, "rel": rel,
+                    "rtol": SENT_LOSS_RTOL},
+         "graphs_captures_replays_uncaptured": graphs, "first_step_and_capture_ms": first_ms,
+         "captured_step_ms_median": median, "captured_step_ms_min": min(step_ms),
+         "interpreted_step_ms_median": float(np.median(eager_ms)),
+         "tokens_per_s": SENT_B * SENT_T / median * 1e3}
+    log(f"sentiment conv net (vocab {SENT_VOCAB}, batch {SENT_B} x {SENT_T}, hid {SENT_HID}): "
+        f"card {losses[:SENT_PARITY_STEPS]} vs CPU {cpu} (rel {rel:.3g}, rtol {SENT_LOSS_RTOL}); "
+        f"captured step {median:.3f} ms median (min {min(step_ms):.3f}) against "
+        f"{r['interpreted_step_ms_median']:.3f} ms interpreted; first step and capture "
+        f"{first_ms:.0f} ms; graphs/captures/replays/uncaptured {graphs}")
+    if not rel <= SENT_LOSS_RTOL:
+        raise AssertionError(f"sentiment: the card's losses {rel} from the CPU's")
+    if graphs != (1, 1, SENT_STEPS - 1, 0) or not np.isfinite(losses).all():
+        raise AssertionError(f"sentiment: graphs {graphs}, losses {losses}")
+    return r
+
+
+def _yolo_loss_inputs(rng):
+    """Head outputs of the three scales for a ``YOLO_LOSS_IN`` input and
+    ``YOLO_GT_SLOTS`` ground-truth slots an image (5 to 40 real, the rest
+    padding: label -1, box 0)."""
+    xs = [(rng.randn(YOLO_LOSS_B, 3 * (5 + YOLO_CLASSES), YOLO_LOSS_IN // s, YOLO_LOSS_IN // s)
+           * 0.5).astype(np.float32) for s in (32, 16, 8)]
+    gt = np.zeros((YOLO_LOSS_B, YOLO_GT_SLOTS, 4), np.float32)
+    lbl = np.full((YOLO_LOSS_B, YOLO_GT_SLOTS), -1, np.int32)
+    for b in range(YOLO_LOSS_B):
+        n = rng.randint(5, 41)
+        gt[b, :n, :2] = rng.uniform(0.05, 0.95, (n, 2))
+        gt[b, :n, 2:] = rng.uniform(0.02, 0.5, (n, 2))
+        lbl[b, :n] = rng.randint(0, YOLO_CLASSES, n)
+    return xs, gt, lbl
+
+
+def _yolo_loss(ops, xs, gt, lbl):
+    """The loss an image summed over the three scales."""
+    total = 0
+    for x, stride, mask in zip(xs, (32, 16, 8), YOLO_MASKS):
+        total = total + ops.yolov3_loss(x, gt, lbl, YOLO_ANCHORS, mask, YOLO_CLASSES,
+                                        ignore_thresh=0.7, downsample_ratio=stride)
+    return total
+
+
+def yolo_head():
+    """(c) The YOLOv3 head: its loss at three scales for a 608 x 608 input
+    at batch 8 forward and backward, against the CPU; its post-process
+    (``yolo_box`` at three scales, ``multiclass_nms``) for a 416 x 416
+    input as a static program on the card, held against a serial greedy
+    NMS on the host over every class."""
+    import torch
+
+    from paddle_tpu_torch import ops, static
+
+    xs, gt, lbl = _yolo_loss_inputs(np.random.RandomState(SENT_SEED))
+    got = {}
+    for dev in (TAIL_DEVICE, "cpu"):
+        xt = [torch.from_numpy(x).to(dev).requires_grad_(True) for x in xs]
+        loss = _yolo_loss(ops, xt, torch.from_numpy(gt).to(dev), torch.from_numpy(lbl).to(dev))
+        loss.sum().backward()
+        got[dev] = (loss.detach().cpu().numpy(), [x.grad.cpu().numpy() for x in xt])
+    card, cpu = got[TAIL_DEVICE], got["cpu"]
+    loss_rel = float(np.abs(card[0] - cpu[0]).max() / np.abs(cpu[0]).max())
+    grad_err = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(card[1], cpu[1]))
+    xt = [torch.from_numpy(x).cuda().requires_grad_(True) for x in xs]
+    gtc, lblc = torch.from_numpy(gt).cuda(), torch.from_numpy(lbl).cuda()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(YOLO_TIMED + 1)]
+    ev[0].record()
+    for i in range(YOLO_TIMED):
+        _yolo_loss(ops, xt, gtc, lblc).sum().backward()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    loss_ms = float(np.median([ev[i].elapsed_time(ev[i + 1]) for i in range(YOLO_TIMED)]))
+
+    main, _, (rows, num, boxes, scores) = _program_of(
+        lambda: yolo_post_process(static, ops, YOLO_CLASSES, YOLO_POST_IN))
+    feed = {k: torch.from_numpy(v).cuda() for k, v in yolo_heads(YOLO_CLASSES,
+                                                                  YOLO_POST_IN).items()}
+    exe = static.Executor()
+    fetch = [rows, num, boxes, scores]
+    fetched = exe.run(main, feed=feed, fetch_list=fetch)
+    run_ms = []
+    for _ in range(YOLO_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = exe.run(main, feed=feed, fetch_list=fetch)
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    want, count = greedy_rows(fetched[2], fetched[3], YOLO_CONF, YOLO_NMS, YOLO_KEEP)
+    passing = int((fetched[3] >= YOLO_CONF).sum())
+    graphs = (len(exe.store), exe.store.misses, exe.store.hits, exe.store.uncaptured)
+    r = {"loss": {"input": YOLO_LOSS_IN, "batch": YOLO_LOSS_B, "classes": YOLO_CLASSES,
+                  "gt_slots": YOLO_GT_SLOTS, "real_boxes": int((lbl >= 0).sum()),
+                  "loss_rel": loss_rel, "grad_err": grad_err, "grad_rtol": YOLO_GRAD_RTOL,
+                  "fwd_bwd_ms_median": loss_ms},
+         "post_process": {"input": YOLO_POST_IN, "boxes": int(fetched[2].shape[0]),
+                          "passing_pairs": passing, "kept": int(fetched[1]),
+                          "oracle_kept": count, "run_ms_median": float(np.median(run_ms)),
+                          "graphs_captures_replays_uncaptured": graphs}}
+    log(f"YOLOv3 head: loss at {YOLO_LOSS_IN}^2 batch {YOLO_LOSS_B} (3 scales, "
+        f"{r['loss']['real_boxes']} real boxes in {YOLO_LOSS_B} x {YOLO_GT_SLOTS} slots) card vs CPU "
+        f"loss {loss_rel:.3g}, gradient {grad_err:.3g} of its largest entry (limit "
+        f"{YOLO_GRAD_RTOL}), forward + backward {loss_ms:.3f} ms; post-process at "
+        f"{YOLO_POST_IN}^2: {passing} (box, class) pairs pass {YOLO_CONF} of "
+        f"{fetched[2].shape[0]} boxes x {YOLO_CLASSES}, {int(fetched[1])} rows kept (oracle "
+        f"{count}), {r['post_process']['run_ms_median']:.2f} ms a run uncaptured; "
+        f"graphs/captures/replays/uncaptured {graphs}")
+    if not (loss_rel <= SENT_LOSS_RTOL and grad_err <= YOLO_GRAD_RTOL):
+        raise AssertionError(f"YOLOv3 loss: card vs CPU loss {loss_rel}, gradient {grad_err}")
+    if not (np.array_equal(fetched[0], want) and int(fetched[1]) == count
+            and np.array_equal(again[0], want)):
+        raise AssertionError("YOLOv3 post-process: the card's rows are not the serial greedy "
+                             f"oracle's ({int(fetched[1])} vs {count} kept)")
+    if not 100 <= passing <= 10000 or graphs != (0, 1, 0, YOLO_TIMED + 1):
+        raise AssertionError(f"YOLOv3 post-process: {passing} passing pairs, graphs {graphs}")
+    return r
+
+
+def registry_tail():
+    """Phase 12p: the registry's last five families on the card. (a) every
+    new op type once against the CPU, (b) the book's sentiment conv net
+    trained as a static program, (c) a YOLOv3 head's loss and
+    post-process. None of the 16 kernels runs: the counts must stay 0.
+    Returns (launches per name, readings)."""
+    import torch
+
+    from paddle_tpu_torch.device import card_identity
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    r = {"card": card_identity(), "sweep": _tail_sweep()}
+    t_b = time.perf_counter()
+    r["sentiment"] = train_sentiment_static()
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    r["yolov3"] = yolo_head()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    r["launches"] = counts
+    r["parts_s"] = {"a": t_b - t_phase, "b": t_c - t_b, "c": time.perf_counter() - t_c}
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"ops tail: phase 12p done in {r['phase_s']:.1f} s ({r['parts_s']}); launches {counts}")
+    if counts:
+        raise AssertionError(f"ops tail: the phase launched {counts}; it runs none of the kernels")
+    return counts, r
+
+
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
@@ -10133,6 +10603,8 @@ def main() -> int:
     dygraph_counts, dygraph = dygraph_resnet()
     monitored_counts, monitored = monitored_steps()
     to_static_counts, to_static = to_static_paths()
+    torch.cuda.empty_cache()
+    tail_counts, ops_tail = registry_tail()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -10160,10 +10632,14 @@ def main() -> int:
         # to_static's BERT-base `if` replayed from its graphs, and the
         # Transformer-base decode's uncaptured loop (12o)
         k["launches_to_static"] = to_static_counts.get(name, 0)
+        # the registry's last families, the sentiment conv net and the
+        # YOLOv3 head (12p): none, checked
+        k["launches_ops_tail"] = tail_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"]
                          + k["launches_fleet"] + k["launches_dygraph"]
-                         + k["launches_monitored"] + k["launches_to_static"])
+                         + k["launches_monitored"] + k["launches_to_static"]
+                         + k["launches_ops_tail"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -10175,7 +10651,7 @@ def main() -> int:
                       "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
                       "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet,
                       "dygraph_front_end": dygraph, "monitor": monitored,
-                      "to_static": to_static}))
+                      "to_static": to_static, "ops_tail": ops_tail}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

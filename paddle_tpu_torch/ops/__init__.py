@@ -4,7 +4,8 @@ The hand-written CUDA kernels live in :mod:`.cuda`; the op kernels a saved
 Program names are registered in :mod:`.registry` by :mod:`.kernels`,
 :mod:`.tensor_kernels` and :mod:`.quantize_kernels`, the beam search pair
 by :mod:`.beam_search` and the IR optimizer's fused ops by
-:mod:`.fused_ops`.
+:mod:`.fused_ops`; the sequence, detection, compat and niche families by
+their files of the JAX package's names.
 
 The functions here are the mode-aware front the ``tensor``, ``linalg`` and
 top-level namespaces re-export, with the JAX package's signatures: under
@@ -21,8 +22,10 @@ default place; in static mode they make a host constant, which the first
 op that reads it captures into the program.
 
 An op whose output shape depends on the data (``unique``, ``nonzero``,
-``masked_select``, ``where`` with one argument) raises
-``UnimplementedError`` in a static program; an op type with no registry
+``masked_select``, ``where`` with one argument, ``sequence_unpad``,
+``sequence_expand``, ``sequence_erase``, ``sequence_mask``/``sequence_pad``
+without ``maxlen``, ``unique_consecutive``, ``bincount`` without
+``length``) raises ``UnimplementedError`` in a static program; an op type with no registry
 kernel raises it naming the type. Neither runs eagerly in its place.
 """
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 from . import beam_search, fused_ops, kernels, quantize_kernels, tensor_kernels  # noqa: F401
 from . import (linalg_kernels, math_extra, metrics_kernels, nn_extra,  # noqa: F401
                optimizer_kernels)
+from . import compat, detection, niche, sequence  # noqa: F401  (after the kernels they alias)
 from ..errors import UnimplementedError
 from ..framework import autograd as _ag
 from ..framework.dtype import convert_dtype, dtype_name, torch_dtype
@@ -1181,6 +1185,467 @@ def _dev_gen(x):
     from ..framework import random as _random
 
     return _random.default_generator(x.device) if isinstance(x, torch.Tensor) else None
+
+# -- sequence (ragged) family: dense [B, T, ...] + lengths [B] (ops/sequence.py) ------
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    if maxlen is None:
+        _refuse_static("sequence_mask without maxlen")
+    return _run("sequence_mask", _t(lengths), maxlen=maxlen, out_dtype=dtype_name(dtype))
+
+
+def sequence_pad(x, lengths, maxlen=None, pad_value=0.0):
+    if maxlen is None:
+        _refuse_static("sequence_pad without maxlen")
+    return _run("sequence_pad", _t(x), _t(lengths), maxlen=maxlen, pad_value=float(pad_value))
+
+
+def sequence_unpad(x, lengths):
+    _refuse_static("sequence_unpad")
+    return _run("sequence_unpad", _t(x), _t(lengths))
+
+
+def sequence_pool(x, lengths, pooltype="SUM"):
+    return _run("sequence_pool", _t(x), _t(lengths), pooltype=pooltype)
+
+
+def segment_pool(x, segment_ids, num_segments, pooltype="SUM"):
+    return _run("segment_pool", _t(x), _t(segment_ids), num_segments=int(num_segments),
+                pooltype=pooltype)
+
+
+def sequence_softmax(x, lengths):
+    return _run("sequence_softmax", _t(x), _t(lengths))
+
+
+def sequence_reverse(x, lengths):
+    return _run("sequence_reverse", _t(x), _t(lengths))
+
+
+def sequence_slice(x, offset, length, maxlen=None):
+    return _run("sequence_slice", _t(x), _t(offset), _t(length), maxlen=maxlen)
+
+
+def sequence_concat(x, xlen, y, ylen):
+    return _run("sequence_concat", _t(x), _t(xlen), _t(y), _t(ylen))
+
+
+def sequence_expand(x, rep):
+    _refuse_static("sequence_expand")
+    return _run("sequence_expand", _t(x), _t(rep))
+
+
+def sequence_enumerate(x, win_size, pad_value=0):
+    return _run("sequence_enumerate", _t(x), win_size=int(win_size), pad_value=pad_value)
+
+
+def sequence_erase(x, tokens=()):
+    _refuse_static("sequence_erase")
+    return _run("sequence_erase", _t(x), tokens=tuple(tokens))
+
+
+def sequence_conv(x, lengths, weight, context_length, context_start=None):
+    return _run("sequence_conv", _t(x), _t(lengths), _t(weight),
+                context_length=int(context_length), context_start=context_start)
+
+
+def sequence_first_step(x, lengths):
+    return _run("sequence_first_step", _t(x), _t(lengths))
+
+
+def sequence_last_step(x, lengths):
+    return _run("sequence_last_step", _t(x), _t(lengths))
+
+
+# -- beam search and metrics ------------------------------------------------------------
+
+
+def beam_search_step(log_probs, beam_scores, beam_size, end_id=None, first_step=False):
+    return _run("beam_search_step", _t(log_probs), _t(beam_scores), beam_size=int(beam_size),
+                end_id=end_id, first_step=first_step)
+
+
+def beam_search_decode(parents, tokens, final_scores, end_id=None):
+    return _run("beam_search_decode", _t(parents), _t(tokens), _t(final_scores), end_id=end_id)
+
+
+def auc(predict, label, num_thresholds=4095, stat_pos=None, stat_neg=None, curve="ROC"):
+    return _run("auc", _t(predict), _t(label), num_thresholds=num_thresholds,
+                stat_pos=None if stat_pos is None else _t(stat_pos),
+                stat_neg=None if stat_neg is None else _t(stat_neg), curve=curve)
+
+
+def precision_recall(predict, label, num_classes):
+    return _run("precision_recall", _t(predict), _t(label), num_classes=int(num_classes))
+
+
+# -- detection (ops/detection.py) -------------------------------------------------------
+
+
+def iou_similarity(x, y, box_normalized=True):
+    return _run("iou_similarity", _t(x), _t(y), box_normalized=box_normalized)
+
+
+def bbox_overlaps(x, y):
+    return _run("bbox_overlaps", _t(x), _t(y))
+
+
+def box_clip(boxes, im_info):
+    return _run("box_clip", _t(boxes), _t(im_info))
+
+
+def box_coder(prior_box, prior_box_var, target_box, code_type="encode_center_size",
+              box_normalized=True):
+    pb = _t(prior_box)
+    # prior_box_var=None is the reference's unit variance
+    var = _t(prior_box_var) if prior_box_var is not None else ones_like(pb)
+    return _run("box_coder", pb, var, _t(target_box), code_type=code_type,
+                box_normalized=box_normalized)
+
+
+def prior_box(input, image, min_sizes, max_sizes=(), aspect_ratios=(1.0,),
+              variances=(0.1, 0.1, 0.2, 0.2), flip=False, clip=False, steps=(0.0, 0.0),
+              offset=0.5):
+    return _run("prior_box", _t(input), _t(image), min_sizes=tuple(min_sizes),
+                max_sizes=tuple(max_sizes), aspect_ratios=tuple(aspect_ratios),
+                variances=tuple(variances), flip=flip, clip=clip, step_w=steps[0],
+                step_h=steps[1], offset=offset)
+
+
+def yolo_box(x, img_size, anchors, class_num, conf_thresh=0.01, downsample_ratio=32,
+             clip_bbox=True, scale_x_y=1.0):
+    return _run("yolo_box", _t(x), _t(img_size), anchors=tuple(anchors),
+                class_num=int(class_num), conf_thresh=conf_thresh,
+                downsample_ratio=downsample_ratio, clip_bbox=clip_bbox, scale_x_y=scale_x_y)
+
+
+def roi_align(x, boxes, boxes_num, output_size, spatial_scale=1.0, sampling_ratio=-1,
+              aligned=False):
+    if not isinstance(output_size, (tuple, list)):
+        output_size = (output_size, output_size)
+    return _run("roi_align", _t(x), _t(boxes), _t(boxes_num), pooled_height=output_size[0],
+                pooled_width=output_size[1], spatial_scale=spatial_scale,
+                sampling_ratio=sampling_ratio, aligned=aligned)
+
+
+def nms(boxes, scores, iou_threshold=0.5, top_k=-1):
+    return _run("nms", _t(boxes), _t(scores), iou_threshold=iou_threshold, top_k=top_k)
+
+
+def multiclass_nms(bboxes, scores, score_threshold=0.05, nms_threshold=0.3, keep_top_k=100,
+                   background_label=-1):
+    return _run("multiclass_nms", _t(bboxes), _t(scores), score_threshold=score_threshold,
+                nms_threshold=nms_threshold, keep_top_k=keep_top_k,
+                background_label=background_label)
+
+
+def sigmoid_focal_loss(x, label, fg_num, gamma=2.0, alpha=0.25):
+    return _run("sigmoid_focal_loss", _t(x), _t(label), _t(fg_num), gamma=gamma, alpha=alpha)
+
+
+def anchor_generator(x, anchor_sizes, aspect_ratios, stride, variances=(0.1, 0.1, 0.2, 0.2),
+                     offset=0.5):
+    return _run("anchor_generator", _t(x), anchor_sizes=tuple(anchor_sizes),
+                aspect_ratios=tuple(aspect_ratios), stride=tuple(stride),
+                variances=tuple(variances), offset=offset)
+
+
+def density_prior_box(x, image, densities, fixed_sizes, fixed_ratios,
+                      variances=(0.1, 0.1, 0.2, 0.2), step=(0.0, 0.0), offset=0.5, clip=False):
+    return _run("density_prior_box", _t(x), _t(image), densities=tuple(densities),
+                fixed_sizes=tuple(fixed_sizes), fixed_ratios=tuple(fixed_ratios),
+                variances=tuple(variances), step=tuple(step), offset=offset, clip=clip)
+
+
+def polygon_box_transform(x):
+    return _run("polygon_box_transform", _t(x))
+
+
+def bipartite_match(dist, match_type="bipartite", dist_threshold=0.5):
+    return _run("bipartite_match", _t(dist), match_type=match_type,
+                dist_threshold=dist_threshold)
+
+
+def target_assign(x, match_indices, neg_value=0.0):
+    return _run("target_assign", _t(x), _t(match_indices), neg_value=neg_value)
+
+
+def box_decoder_and_assign(prior_box, prior_box_var, target_box, box_score,
+                           box_clip=4.135166556742356):
+    return _run("box_decoder_and_assign", _t(prior_box),
+                _t(prior_box_var) if prior_box_var is not None else None, _t(target_box),
+                _t(box_score), box_clip=box_clip)
+
+
+def matrix_nms(bboxes, scores, score_threshold=0.05, post_threshold=0.0, nms_top_k=-1,
+               keep_top_k=100, use_gaussian=False, gaussian_sigma=2.0, background_label=0):
+    return _run("matrix_nms", _t(bboxes), _t(scores), score_threshold=score_threshold,
+                post_threshold=post_threshold, nms_top_k=nms_top_k, keep_top_k=keep_top_k,
+                use_gaussian=use_gaussian, gaussian_sigma=gaussian_sigma,
+                background_label=background_label)
+
+
+def locality_aware_nms(bboxes, scores, score_threshold=0.05, nms_threshold=0.3, keep_top_k=100):
+    return _run("locality_aware_nms", _t(bboxes), _t(scores), score_threshold=score_threshold,
+                nms_threshold=nms_threshold, keep_top_k=keep_top_k)
+
+
+def mine_hard_examples(cls_loss, match_indices, neg_pos_ratio=3.0, mining_type="max_negative",
+                       sample_size=None):
+    return _run("mine_hard_examples", _t(cls_loss), _t(match_indices),
+                neg_pos_ratio=neg_pos_ratio, mining_type=mining_type, sample_size=sample_size)
+
+
+def generate_proposals(scores, bbox_deltas, im_info, anchors, variances, pre_nms_top_n=6000,
+                       post_nms_top_n=1000, nms_thresh=0.5, min_size=0.1, eta=1.0):
+    return _run("generate_proposals", _t(scores), _t(bbox_deltas), _t(im_info), _t(anchors),
+                _t(variances), pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n,
+                nms_thresh=nms_thresh, min_size=min_size, eta=eta)
+
+
+def distribute_fpn_proposals(rois, min_level=2, max_level=5, refer_level=4, refer_scale=224):
+    return _run("distribute_fpn_proposals", _t(rois), min_level=min_level, max_level=max_level,
+                refer_level=refer_level, refer_scale=refer_scale)
+
+
+def collect_fpn_proposals(multi_rois, multi_scores, post_nms_top_n=1000):
+    return _run("collect_fpn_proposals", _t(multi_rois), _t(multi_scores),
+                post_nms_top_n=post_nms_top_n)
+
+
+def retinanet_detection_output(bboxes, scores, anchors, im_info, score_threshold=0.05,
+                               nms_top_k=1000, keep_top_k=100, nms_threshold=0.3):
+    return _run("retinanet_detection_output", _t(bboxes), _t(scores), _t(anchors), _t(im_info),
+                score_threshold=score_threshold, nms_top_k=nms_top_k, keep_top_k=keep_top_k,
+                nms_threshold=nms_threshold)
+
+
+def yolov3_loss(x, gt_box, gt_label, anchors, anchor_mask, class_num, ignore_thresh=0.7,
+                downsample_ratio=32, use_label_smooth=False):
+    return _run("yolov3_loss", _t(x), _t(gt_box), _t(gt_label), anchors=tuple(anchors),
+                anchor_mask=tuple(anchor_mask), class_num=class_num, ignore_thresh=ignore_thresh,
+                downsample_ratio=downsample_ratio, use_label_smooth=use_label_smooth)
+
+
+def rpn_target_assign(anchors, gt_boxes, rpn_batch_size_per_im=256, rpn_fg_fraction=0.5,
+                      rpn_positive_overlap=0.7, rpn_negative_overlap=0.3, use_random=True):
+    anchors = _t(anchors)
+    return _run("rpn_target_assign", anchors, _t(gt_boxes), generator=_dev_gen(anchors),
+                rpn_batch_size_per_im=rpn_batch_size_per_im, rpn_fg_fraction=rpn_fg_fraction,
+                rpn_positive_overlap=rpn_positive_overlap,
+                rpn_negative_overlap=rpn_negative_overlap, use_random=use_random)
+
+
+# -- 3-D convolution and pooling, deformable convolution, data_norm, RoI pools ---------
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW"):
+    out = _run("conv3d", _t(x), _t(weight), stride=stride, padding=padding, dilation=dilation,
+               groups=groups, data_format=data_format)
+    return out if bias is None else add(out, reshape(_t(bias), [1, -1, 1, 1, 1]))
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0, dilation=1,
+                     groups=1, data_format="NCDHW"):
+    out = _run("conv3d_transpose", _t(x), _t(weight), stride=stride, padding=padding,
+               output_padding=output_padding, dilation=dilation, groups=groups,
+               data_format=data_format)
+    return out if bias is None else add(out, reshape(_t(bias), [1, -1, 1, 1, 1]))
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False, data_format="NCDHW"):
+    return _run("pool3d", _t(x), kernel_size=kernel_size, stride=stride, padding=padding,
+                pooling_type="max", ceil_mode=ceil_mode, data_format=data_format)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False, exclusive=True,
+               data_format="NCDHW"):
+    return _run("pool3d", _t(x), kernel_size=kernel_size, stride=stride, padding=padding,
+                pooling_type="avg", ceil_mode=ceil_mode, exclusive=exclusive,
+                data_format=data_format)
+
+
+def deformable_conv(x, offset, mask, weight, bias=None, stride=1, padding=0, dilation=1,
+                    deformable_groups=1, groups=1, im2col_step=1):
+    out = _run("deformable_conv", _t(x), _t(offset), _t(mask) if mask is not None else None,
+               _t(weight), stride=stride, padding=padding, dilation=dilation,
+               deformable_groups=deformable_groups, groups=groups, im2col_step=im2col_step)
+    return out if bias is None else add(out, reshape(_t(bias), [1, -1, 1, 1]))
+
+
+def data_norm(x, batch_size, batch_sum, batch_square_sum, epsilon=1e-4):
+    return _run("data_norm", _t(x), _t(batch_size), _t(batch_sum), _t(batch_square_sum),
+                epsilon=epsilon)
+
+
+def roi_pool(x, rois, batch_indices=None, pooled_height=1, pooled_width=1, spatial_scale=1.0):
+    return _run("roi_pool", _t(x), _t(rois),
+                batch_indices=None if batch_indices is None else _t(batch_indices),
+                pooled_height=pooled_height, pooled_width=pooled_width,
+                spatial_scale=spatial_scale)
+
+
+def psroi_pool(x, rois, output_channels, pooled_height, pooled_width, spatial_scale=1.0,
+               batch_indices=None):
+    return _run("psroi_pool", _t(x), _t(rois),
+                batch_indices=None if batch_indices is None else _t(batch_indices),
+                output_channels=output_channels, pooled_height=pooled_height,
+                pooled_width=pooled_width, spatial_scale=spatial_scale)
+
+
+# -- linear algebra, statistics and pointwise extras --------------------------------------
+
+
+def cholesky_solve(b, l, upper=False):
+    return _run("cholesky_solve", _t(b), _t(l), upper=upper)
+
+
+def lu(x):
+    return _run("lu", _t(x))
+
+
+def eigvalsh(x, UPLO="L"):
+    return _run("eigvalsh", _t(x), UPLO=UPLO)
+
+
+def matrix_norm(x, p="fro", axis=(-2, -1), keepdim=False):
+    return _run("matrix_norm", _t(x), p=p, axis=tuple(axis), keepdim=keepdim)
+
+
+def cov(x, rowvar=True, ddof=True):
+    return _run("cov", _t(x), rowvar=rowvar, ddof=ddof)
+
+
+def corrcoef(x, rowvar=True):
+    return _run("corrcoef", _t(x), rowvar=rowvar)
+
+
+def householder_product(x, tau):
+    return _run("householder_product", _t(x), _t(tau))
+
+
+def multi_dot(arrays):
+    return _run("multi_dot", *[_t(a) for a in arrays])
+
+
+def bincount(x, weights=None, minlength=0, length=None):
+    if length is None:
+        _refuse_static("bincount without length")
+    return _run("bincount", _t(x), weights=None if weights is None else _t(weights),
+                minlength=minlength, length=length)
+
+
+def unique_consecutive(x, return_inverse=False, return_counts=False, axis=None):
+    _refuse_static("unique_consecutive")
+    vals, inverse, counts = _run("unique_consecutive", _t(x), return_inverse=return_inverse,
+                                 return_counts=return_counts, axis=axis)
+    res = [vals] + [r for r, want in ((inverse, return_inverse), (counts, return_counts))
+                    if want]
+    return res[0] if len(res) == 1 else tuple(res)
+
+
+def logit(x, eps=None):
+    return _run("logit", _t(x), eps=eps)
+
+
+def logaddexp(x, y):
+    return _run("logaddexp", _t(x), _t(y))
+
+
+def heaviside(x, y):
+    return _run("heaviside", _t(x), _t(y))
+
+
+def gcd(x, y):
+    return _run("gcd", _t(x), _t(y))
+
+
+def lcm(x, y):
+    return _run("lcm", _t(x), _t(y))
+
+
+def nextafter(x, y):
+    return _run("nextafter", _t(x), _t(y))
+
+
+def ldexp(x, y):
+    return _run("ldexp", _t(x), _t(y))
+
+
+def copysign(x, y):
+    return _run("copysign", _t(x), _t(y))
+
+
+def hypot(x, y):
+    return _run("hypot", _t(x), _t(y))
+
+
+def rad2deg(x):
+    return _run("rad2deg", _t(x))
+
+
+def deg2rad(x):
+    return _run("deg2rad", _t(x))
+
+
+def conj(x):
+    return _run("conj", _t(x))
+
+
+def i0(x):
+    return _run("i0", _t(x))
+
+
+def sinc(x):
+    return _run("sinc", _t(x))
+
+
+def signbit(x):
+    return _run("signbit", _t(x))
+
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    return _run("label_smooth", _t(label), epsilon=epsilon,
+                prior_dist=None if prior_dist is None else _t(prior_dist))
+
+
+def glu(x, axis=-1):
+    return _run("glu", _t(x), axis=axis)
+
+
+def rot90(x, k=1, axes=(0, 1)):
+    return _run("rot90", _t(x), k=k, axes=tuple(axes))
+
+
+def pad3d(x, paddings, mode="constant", value=0.0, data_format="NCDHW"):
+    return _run("pad3d", _t(x), paddings=tuple(paddings), mode=mode, value=value,
+                data_format=data_format)
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=True):
+    return _run("grid_sample", _t(x), _t(grid), mode=mode, padding_mode=padding_mode,
+                align_corners=align_corners)
+
+
+def affine_grid(theta, out_shape, align_corners=True):
+    return _run("affine_grid", _t(theta), out_shape=tuple(out_shape),
+                align_corners=align_corners)
+
+
+def getitem(x, idx):
+    """``x[idx]``; a tensor index goes through ``index_select`` (1-D) or
+    ``gather``, a boolean one raises (its size is the data's)."""
+    if isinstance(idx, (torch.Tensor, _Variable)):
+        if torch_dtype(idx.dtype) == torch.bool:
+            raise UnimplementedError("boolean mask indexing produces dynamic shapes; use "
+                                     "paddle_tpu_torch.where/masked_select")
+        if len(idx.shape) == 1:
+            return index_select(x, idx, axis=0)
+        return gather(x, idx, axis=0)
+    return _run("getitem", _t(x), idx=idx)
 
 
 def _bind_static(variable_cls, mode):

@@ -1,4 +1,11 @@
-"""Static-scale quantization ops (``paddle_tpu/ops/quantize_kernels.py:182-265``).
+"""The quantization ops (``paddle_tpu/ops/quantize_kernels.py``): fake quantization and the static-scale ops.
+
+The ten fake-quantization ops (``:34-182``) simulate int8 in floats: the
+quantized grid values, or quantize-then-dequantize with a scale from the
+tensor's abs-max, a running window or a moving average. The
+quant-dequant ops pass the gradient straight through
+(:class:`_QdqSTE`, the JAX kernel's ``custom_vjp``): ``dL/dx = dL/dout``,
+and the scale, an observed statistic, gets none.
 
 ``quant_dequant_static`` is the simulation op post-training quantization
 inserts while it calibrates; ``quantize_static``, ``dequantize_static``,
@@ -41,6 +48,123 @@ def _qdq(x, scale, bit_length):
     s = torch.clamp(scale, min=1e-8)
     q = torch.round(torch.clamp(x / s * bnt, -bnt, bnt))
     return q * s / bnt
+
+
+def _abs_max(x, dims=None):
+    a = torch.abs(x)
+    return torch.amax(a) if dims is None else torch.amax(a, dim=dims)
+
+
+def _grid(x, scale, bit_length):
+    """The rounded grid values ``round(clip(x / s * bnt))``."""
+    bnt = _bnt(bit_length)
+    return torch.round(torch.clamp(x / torch.clamp(scale, min=1e-8) * bnt, -bnt, bnt))
+
+
+class _QdqSTE(torch.autograd.Function):
+    """Quant-dequant with the straight-through gradient
+    (FakeQuantDequantGrad): the identity for ``x``, none for the scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bit_length):
+        return _qdq(x, scale, bit_length)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None, None
+
+
+def _moving(cur, in_scale, in_state, in_accum, moving_rate, is_test):
+    """The moving-average abs-max observer of the current abs-max ``cur``:
+    ``(scale, state, accum)``."""
+    if is_test:
+        return in_scale.reshape(()), in_state, in_accum
+    state = in_state * moving_rate + 1.0
+    accum = in_accum * moving_rate + cur
+    return (accum / torch.clamp(state, min=1e-8)).reshape(()), state, accum
+
+
+@register_op("fake_quantize_abs_max", num_outputs=2)
+def fake_quantize_abs_max(x, *, bit_length=8):
+    """``(grid values, scale)``: the rounded integers as floats, like the
+    reference's Out tensor."""
+    scale = _abs_max(x)
+    return _grid(x, scale, bit_length), scale
+
+
+@register_op("fake_quantize_dequantize_abs_max", num_outputs=2)
+def fake_quantize_dequantize_abs_max(x, *, bit_length=8):
+    """Quant-dequant with the dynamic abs-max scale, straight through."""
+    scale = _abs_max(x).detach()
+    return _QdqSTE.apply(x, scale, bit_length), scale
+
+
+@register_op("fake_quantize_range_abs_max", num_outputs=2)
+def fake_quantize_range_abs_max(x, in_scale, *, bit_length=8, window_size=10000, is_test=False):
+    """The scale is the stored one under ``is_test``, else the larger of it
+    and the current abs-max (the window folded to its steady state)."""
+    scale = (in_scale.reshape(()) if is_test
+             else torch.maximum(_abs_max(x), in_scale.reshape(())))
+    return _grid(x, scale, bit_length), scale
+
+
+@register_op("fake_quantize_moving_average_abs_max", num_outputs=4)
+def fake_quantize_moving_average_abs_max(x, in_scale, in_state, in_accum, *, bit_length=8,
+                                         moving_rate=0.9, is_test=False):
+    """The QAT activation quantizer's grid values on the moving-average
+    scale: ``(out, out_scale, out_state, out_accum)``."""
+    scale, state, accum = _moving(_abs_max(x), in_scale, in_state, in_accum, moving_rate, is_test)
+    return _grid(x, scale, bit_length), scale, state, accum
+
+
+@register_op("fake_quantize_dequantize_moving_average_abs_max", num_outputs=4)
+def fake_quantize_dequantize_moving_average_abs_max(x, in_scale, in_state, in_accum, *,
+                                                    bit_length=8, moving_rate=0.9,
+                                                    is_test=False):
+    """Quant-dequant on the moving-average scale, straight through."""
+    scale, state, accum = _moving(_abs_max(x).detach(), in_scale, in_state, in_accum,
+                                  moving_rate, is_test)
+    return _QdqSTE.apply(x, scale, bit_length), scale, state, accum
+
+
+def _channel_shape(x, quant_axis):
+    shape = [1] * x.dim()
+    shape[quant_axis] = -1
+    return shape
+
+
+@register_op("fake_channel_wise_quantize_abs_max", num_outputs=2)
+def fake_channel_wise_quantize_abs_max(x, *, bit_length=8, quant_axis=0):
+    """Per-channel abs-max grid values and ``scales [C]``."""
+    scale = _abs_max(x, tuple(d for d in range(x.dim()) if d != quant_axis))
+    return _grid(x, scale.reshape(_channel_shape(x, quant_axis)), bit_length), scale
+
+
+@register_op("fake_channel_wise_quantize_dequantize_abs_max", num_outputs=2)
+def fake_channel_wise_quantize_dequantize_abs_max(x, *, bit_length=8, quant_axis=0):
+    """Per-channel quant-dequant (the QAT weight quantizer), straight
+    through."""
+    scale = _abs_max(x, tuple(d for d in range(x.dim()) if d != quant_axis)).detach()
+    return _QdqSTE.apply(x, scale.reshape(_channel_shape(x, quant_axis)), bit_length), scale
+
+
+@register_op("moving_average_abs_max_scale", num_outputs=4)
+def moving_average_abs_max_scale(x, in_scale, in_state, in_accum, *, moving_rate=0.9,
+                                 is_test=False):
+    """The scale observer alone: ``(x, out_scale, out_state, out_accum)``."""
+    scale, state, accum = _moving(_abs_max(x), in_scale, in_state, in_accum, moving_rate, is_test)
+    return x, scale, state, accum
+
+
+@register_op("fake_dequantize_max_abs")
+def fake_dequantize_max_abs(x, scale, *, max_range):
+    """``fake_dequantize_op.cc``: ``x * scale / max_range``."""
+    return x * scale.reshape(()) / float(max_range)
+
+
+@register_op("fake_channel_wise_dequantize_max_abs")
+def fake_channel_wise_dequantize_max_abs(x, scale, *, quant_bits=(8,), quant_axis=0):
+    return x * scale.reshape(_channel_shape(x, quant_axis)) / _bnt(quant_bits[0])
 
 
 @register_op("quant_dequant_static")

@@ -24,7 +24,7 @@ import torch
 from ..errors import UnimplementedError
 
 __all__ = ["OpDef", "register_op", "register_shape", "get_op", "kernel", "has_op", "all_ops",
-           "eval_meta"]
+           "eval_meta", "host_read"]
 
 
 class OpDef(NamedTuple):
@@ -67,6 +67,15 @@ def eval_meta(name: str, metas, attrs):
     fn = _SHAPE_RULES.get(name) or kernel(name)
     with contextlib.nullcontext() if metas else torch.device("meta"):
         return fn(*metas, **attrs)
+
+
+def host_read(what: str):
+    """A kernel's sanctioned read of device values on the host
+    (``runtime.compiled.host_read``, imported here at the call: the
+    runtime imports the ops)."""
+    from ..runtime.compiled import host_read as _host_read
+
+    _host_read(what)
 
 
 def get_op(name: str) -> OpDef:

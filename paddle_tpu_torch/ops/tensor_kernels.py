@@ -845,24 +845,62 @@ def instance_norm(x, scale=None, bias=None, *, epsilon=1e-5):
     return y
 
 
+def _keys_cubic(x):
+    """Keys' cubic kernel with ``a = -0.5`` (``jax.image``'s ``cubic``)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _triangle(x):
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _resize_weights(n_in, n_out, kernel, device):
+    """``jax.image.scale_and_translate``'s weights ``[n_in, n_out]`` of one
+    axis: samples at half-pixel centres, the kernel widened by ``n_in /
+    n_out`` when shrinking (antialiasing), each output's weights summing
+    to one over the input's pixels, zero for a sample outside them."""
+    inv = n_in / n_out
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[
+        :, None]) / max(inv, 1.0)
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    return torch.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+
+
 @register_op("interpolate")
 def interpolate(x, *, size=None, scale_factor=None, mode="nearest", align_corners=False,
                 data_format="NCHW"):
-    """Resize of the spatial axes: ``nearest`` repeats, ``bilinear`` and
-    ``bicubic`` sample at half-pixel centres (``jax.image.resize``'s
-    convention for an enlargement)."""
-    if data_format == "NHWC":
-        x = x.permute(0, 3, 1, 2)
-    h, w = x.shape[2:]
+    """Resize of the spatial axes (one, two or three) as ``jax.image.resize``
+    does: ``nearest`` takes the pixel under each half-pixel centre; the
+    ``linear`` family and ``bicubic`` weigh the input by the triangle or
+    Keys' cubic kernel per axis (antialiased when shrinking, weights
+    renormalized at the border). ``align_corners=True`` takes torch's
+    corner-aligned resize of the mode instead."""
+    channels_last = data_format in ("NHWC", "NDHWC", "NWC")
+    if channels_last:
+        x = torch.movedim(x, -1, 1)
+    spatial = tuple(x.shape[2:])
     if size is None:
-        sf = _pair(scale_factor) if not isinstance(scale_factor, float) else (scale_factor,) * 2
-        size = (int(h * sf[0]), int(w * sf[1]))
+        sf = (tuple(scale_factor) if isinstance(scale_factor, (list, tuple))
+              else (scale_factor,) * len(spatial))
+        size = tuple(int(n * f) for n, f in zip(spatial, sf))
+    size = tuple(int(v) for v in size)
     if mode == "nearest":
-        y = _F.interpolate(x, size=tuple(size), mode="nearest-exact")
+        y = _F.interpolate(x, size=size, mode="nearest-exact")
+    elif align_corners:
+        y = _F.interpolate(x, size=size, mode=mode, align_corners=True)
     else:
-        y = _F.interpolate(x, size=tuple(size), mode=mode,
-                           align_corners=align_corners if align_corners else False)
-    return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+        kernel = _keys_cubic if mode == "bicubic" else _triangle
+        y = x
+        for k, (n_in, n_out) in enumerate(zip(spatial, size)):
+            w = _resize_weights(n_in, n_out, kernel, x.device).to(x.dtype)
+            y = torch.movedim(torch.movedim(y, 2 + k, -1) @ w, -1, 2 + k)
+    return torch.movedim(y, 1, -1) if channels_last else y
 
 
 @register_op("unfold")

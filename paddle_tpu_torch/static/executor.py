@@ -54,7 +54,11 @@ Control flow (``:357-660``): ``scan`` runs its body ``length`` times;
 predicate, which stays on the card; both are captured with the program. A
 ``while`` reads its predicate on the host once per iteration, so a program
 that holds one (in any block) is interpreted on the card at every run,
-never captured, and each such run adds one to ``store.uncaptured``.
+never captured, and each such run adds one to ``store.uncaptured``. So is
+a program whose first run read values on the host through an op
+(``runtime.compiled.host_read``: ``print``, ``py_func``, ``tree_conv``, the
+greedy NMS family): the store leaves its signature uncaptured, and each
+later run is interpreted and counted the same way.
 Persistables a sub-block writes (batch norm's running statistics) thread
 out to the enclosing op, a loop's carried from iteration to iteration, a
 ``cond``'s selected like its outputs, so the untaken branch's writes do not
@@ -305,6 +309,14 @@ class Executor:
                + _signature(values) + (precision_key(), scope._token, scope._generation, scan))
         store = self.store
         entry = store.find(sig)
+        if entry is None and store.runs_uncaptured(sig):
+            # a signature whose first run read the host (a host-side op, an
+            # NMS) is interpreted at every run
+            self._dispositions(program, fetch_names, ("uncaptured", store.key_of(sig)))
+            inputs = [v.to(self.device) for v in values]
+            with RecordEvent("executor::run"):
+                out = store.run_eager(sig, lambda: interpret(*inputs), inputs)
+            return scanned(out) if scan else read(out)
         if entry is None:
             with store.capturing:
                 entry = store.lookup(sig)

@@ -464,16 +464,16 @@ def test_device_rule_and_unported_ops(monkeypatch, port_static, tmp_path):
                                                             fetch_list=[y])[0])
     with pytest.raises(InvalidArgumentError, match="expected 1 inputs"):
         pred.run([a, a])
-    prog.global_block().append_op("sequence_pool", {"X": [x.name]}, {"Out": [y.name]}, {})
+    prog.global_block().append_op("warpctc", {"X": [x.name]}, {"Out": [y.name]}, {})
     # the verifier names the unported op before anything runs ...
-    with pytest.raises(VerifyError, match="sequence_pool") as ei:
+    with pytest.raises(VerifyError, match="warpctc") as ei:
         exe.run(prog, feed={"x": a}, fetch_list=[y])
-    assert ei.value.op_type == "sequence_pool"
-    assert any(f.op_type == "sequence_pool" and f.pass_name == "dtype-consistency"
+    assert ei.value.op_type == "warpctc"
+    assert any(f.op_type == "warpctc" and f.pass_name == "dtype-consistency"
                and "not in the kernel registry" in f.message for f in ei.value.report.errors)
     # ... and with it off, the interpreter's own errors stand where they did
     monkeypatch.setattr(pflags._REGISTRY["program_verify"], "value", "off")
-    with pytest.raises(UnimplementedError, match="sequence_pool"):
+    with pytest.raises(UnimplementedError, match="warpctc"):
         exe.run(prog, feed={"x": a}, fetch_list=[y])
     with pytest.raises(InvalidArgumentError, match="neither fed"):
         exe.run(static.Program.from_dict(prog.to_dict()), feed={}, fetch_list=[x.name])
