@@ -373,6 +373,28 @@ Phases, each fatal on failure:
     static program, uncaptured (the NMS reads the host), its rows equal to
     a serial greedy NMS on the host over every class; none of the 16
     kernels launched;
+12q. Paddle 2.0's data path and high-level API (``hapi_paths``): an
+    ``io.Dataset`` of 1,280 seeded uint8 256 x 256 x 3 images over 1,000
+    classes; (a) a deterministic loader (``ToTensor``, ``CenterCrop(224)``,
+    ``Normalize``; 4 workers) whose first 2 batches on the card are
+    bit-equal to its numpy batches, the images/s the workers deliver and
+    the transform's own rate in one process, then ``Model(resnet50())``
+    prepared with Momentum (0.1, 0.9, L2 1e-4), ``CrossEntropyLoss``,
+    ``Accuracy(topk=(1, 5))`` and ``amp_configs="O1"`` and ``fit`` for one
+    epoch (10 steps) from ``DataLoader(num_workers=4, batch_size=128,
+    shuffle=True, drop_last=True)`` over ``RandomCrop``,
+    ``RandomHorizontalFlip`` and ``Normalize`` with the pool kernel on: one
+    capture and 9 replays, rows 9c-13b 33 launches a step, row 14 two, row
+    16c one; ``evaluate`` on 2 batches and ``predict`` on 1 (33 f32 eval
+    launches a forward, the 33 products held at batch 128), ``save`` and
+    ``Model.load`` into a fresh ``Model`` giving the same ``predict``
+    output; fit's first loss against the bare captured ``train_step`` on
+    the same batch and weights; fit's median step, the monitor's
+    ``input_wait_ratio``, the batches carried by the ring and the queue;
+    (b) VGG-16 in f32 at batch 32, three ``train_batch`` steps launching
+    the pool kernel at its 5 pools a step, each pool shape held against the
+    plain version (row 16g); (c) MobileNetV2 and SE-ResNeXt-50 eval
+    forwards at batch 32 against the CPU's; the phase's seconds;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -4847,9 +4869,10 @@ def _lenet_programs(train):
     return main, startup, loss, acc
 
 
-def check_pool_backward_lenet(shape):
+def check_pool_backward_lenet(shape, row=None, path="MNIST LeNet static program", iters=50):
     """Rows 16e/16f: the max-pool backward kernel at one of LeNet's pools
-    (2x2, stride 2, no padding) on a relu'd input (whole windows of zeros
+    (2x2, stride 2, no padding; VGG's pools, row 16g, are the same
+    geometry) on a relu'd input (whole windows of zeros
     tie), bit-equal to its plain version and within 4 ulps of
     ``aten.max_pool2d_with_indices_backward`` (the library yardstick: the
     same first-maximum rule, another order of adding), each timed in device
@@ -4882,11 +4905,12 @@ def check_pool_backward_lenet(shape):
                              f"backward, beyond 4 ulps ({4 * ulp})")
     t_b, by = bound(4 * (2 * x.numel() + 2 * y.numel()), 4 * x.numel())
     args = [(x, y, dy, ks, st, pad)]
-    ms, host_ms = device_ms_sets(pb.max_pool2d_backward, args, 50)
-    plain_ms = device_ms_sets(pb._plain_max_pool2d_backward, args, 20)[0]
-    lib_ms = device_ms(lib_fn, 50)[0]
-    entry = {"name": "max_pool2d_backward", "row": "16e" if shape[1] == 6 else "16f",
-             "path": "MNIST LeNet static program", "shape": list(shape),
+    ms, host_ms = device_ms_sets(pb.max_pool2d_backward, args, iters)
+    plain_ms = device_ms_sets(pb._plain_max_pool2d_backward, args, max(iters // 2, 5))[0]
+    lib_ms = device_ms(lib_fn, iters)[0]
+    row = row or ("16e" if shape[1] == 6 else "16f")
+    entry = {"name": "max_pool2d_backward", "row": row,
+             "path": path, "shape": list(shape),
              "geometry": "2x2 stride 2 padding 0", "input": "relu", "layout": "nchw",
              "dtype": "float32", "max_abs_err": err,
              "tolerance": "bit-equal to the plain version", "library_max_abs_err": lib_err,
@@ -4895,7 +4919,7 @@ def check_pool_backward_lenet(shape):
              "library_ms": lib_ms,
              "library": "aten.max_pool2d_with_indices_backward at the same shape",
              "timing": "device time behind a sleep kernel"}
-    log(f"max_pool2d_backward {list(shape)} 2x2/2/0 (LeNet, row {entry['row']}): bit-equal to "
+    log(f"max_pool2d_backward {list(shape)} 2x2/2/0 ({path}, row {row}): bit-equal to "
         f"the plain version, {lib_err:.3g} from torch's backward; kernel {ms:.4f} ms device "
         f"(host {host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
         f"bound {t_b:.5f} ms ({by})")
@@ -10463,6 +10487,386 @@ def registry_tail():
     return counts, r
 
 
+# -- the data path and the high-level API (phase 12q) ------------------------------------
+
+HAPI_IMAGES, HAPI_HW, HAPI_CROP = 1280, 256, 224  # seeded uint8 images, 256 x 256 x 3
+HAPI_B, HAPI_WORKERS, HAPI_STEPS = 128, 4, 10  # 1,280 / 128 = fit's 10 steps
+HAPI_DEVICE = "cuda"  # "cpu" rehearses the phase off the card
+HAPI_EVAL_BATCHES, HAPI_PREDICT_BATCHES = 2, 1
+HAPI_PARITY_BATCHES = 2  # the deterministic loader's batches held card against host
+HAPI_SEED = 28
+HAPI_WD = 1e-4  # Momentum's L2 decay
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+VGG_B, VGG_STEPS = 32, 3
+VGG_POOLS = tuple((VGG_B, c, hw, hw) for c, hw in ((64, 224), (128, 112), (256, 56),
+                                                  (512, 28), (512, 14)))
+ZOO_B, ZOO_CPU_ROWS = 32, 4  # the eval forward's batch; its first rows also run on the CPU
+
+
+def _hapi_dataset(transform):
+    """An ``io.Dataset`` of ``HAPI_IMAGES`` seeded uint8 HWC images and int64
+    labels over ``RN_CLASSES``, each sample through ``transform``."""
+    from paddle_tpu_torch import io
+
+    class SeededImages(io.Dataset):
+        def __init__(self, images, labels, transform):
+            self.images, self.labels, self.transform = images, labels, transform
+
+        def __getitem__(self, i):
+            return self.transform(self.images[i]), self.labels[i]
+
+        def __len__(self):
+            return len(self.images)
+
+    rng = np.random.RandomState(HAPI_SEED)
+    images = rng.randint(0, 256, (HAPI_IMAGES, HAPI_HW, HAPI_HW, 3), dtype=np.uint8)
+    labels = rng.randint(0, RN_CLASSES, HAPI_IMAGES).astype(np.int64)
+    return SeededImages(images, labels, transform)
+
+
+def _io_counts():
+    from paddle_tpu_torch.monitor import registry
+
+    return {k: registry.counter(f"io/{k}").value for k in ("ring_batches", "queue_batches")}
+
+
+def _hapi_det_transform(paddle):
+    T = paddle.vision.transforms
+    return T.Compose([T.ToTensor(), T.CenterCrop(HAPI_CROP),
+                      T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+
+
+def _hapi_loader_parity(paddle, ds):
+    """The deterministic loader (``ToTensor``, ``CenterCrop``, ``Normalize``;
+    4 workers, no shuffle) over the dataset's first ``HAPI_PARITY_BATCHES``
+    batches on the card against the same loader's numpy batches
+    (``use_buffer_reader=False``): bit-equal batch for batch. The card pass
+    gives the images/s the workers deliver through the transport."""
+    import torch
+
+    ds.transform = _hapi_det_transform(paddle)
+    sub = paddle.io.Subset(ds, range(HAPI_PARITY_BATCHES * HAPI_B))
+    before = _io_counts()
+    t0 = time.perf_counter()
+    card = [(x.clone(), y.clone()) for x, y in paddle.io.DataLoader(
+        sub, batch_size=HAPI_B, num_workers=HAPI_WORKERS, shuffle=False)]
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = list(paddle.io.DataLoader(sub, batch_size=HAPI_B, num_workers=HAPI_WORKERS,
+                                     shuffle=False, use_buffer_reader=False))
+    host_s = time.perf_counter() - t0
+    after = _io_counts()
+    if len(card) != len(host) or len(card) != HAPI_PARITY_BATCHES:
+        raise AssertionError(f"loader parity: {len(card)} batches on the card, {len(host)} on "
+                             "the host")
+    for i, ((cx, cy), (hx, hy)) in enumerate(zip(card, host)):
+        if cx.device.type != HAPI_DEVICE or cx.dtype != torch.float32:
+            raise AssertionError(f"loader batch {i} is {cx.dtype} on {cx.device}")
+        if not (torch.equal(cx.cpu(), torch.from_numpy(hx))
+                and torch.equal(cy.cpu(), torch.from_numpy(hy))):
+            raise AssertionError(f"loader batch {i}: the card's batch differs from the host's")
+    n = len(sub)
+    r = {"batches": len(card), "bit_equal": True, "card_pass_s": card_s,
+         "host_pass_s": host_s, "delivered_images_per_s": n / card_s,
+         "transport": {k: after[k] - before[k] for k in after}}
+    log(f"hapi: the deterministic loader's {len(card)} batches on the card bit-equal to its "
+        f"numpy batches (card pass {card_s:.2f} s, host pass {host_s:.2f} s: "
+        f"{n / card_s:.1f} images/s delivered by {HAPI_WORKERS} workers; transport "
+        f"{r['transport']})")
+    return r
+
+
+def _hapi_transform_rate(paddle, ds):
+    """The training transform alone in this process, on ``HAPI_B`` images,
+    and the collate: images/s of one worker's work without the transport."""
+    from paddle_tpu_torch.io import default_collate_fn
+
+    tf = _hapi_train_transform(paddle)
+    t0 = time.perf_counter()
+    batch = default_collate_fn([(tf(ds.images[i]), ds.labels[i]) for i in range(HAPI_B)])
+    dt = time.perf_counter() - t0
+    r = {"images": HAPI_B, "s": dt, "images_per_s_one_process": HAPI_B / dt,
+         "batch_bytes": int(batch[0].nbytes + batch[1].nbytes)}
+    log(f"hapi: the training transform and collate run {HAPI_B / dt:.1f} images/s in one "
+        f"process; a batch is {r['batch_bytes'] / 2**20:.1f} MiB")
+    return r
+
+
+def _hapi_train_transform(paddle):
+    T = paddle.vision.transforms
+    return T.Compose([T.ToTensor(), T.RandomCrop(HAPI_CROP), T.RandomHorizontalFlip(),
+                      T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+
+
+def _hapi_model(paddle, net):
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Momentum(learning_rate=RN_LR, momentum=RN_MOMENTUM,
+                                            parameters=net.parameters(),
+                                            weight_decay=paddle.optimizer.L2Decay(HAPI_WD)),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy(topk=(1, 5)),
+                  amp_configs="O1")
+    return model
+
+
+def _hapi_fit(paddle, ds):
+    """(a) ResNet-50 through ``Model.fit`` over the 4-worker loader, then
+    ``evaluate``, ``predict``, ``save`` and ``Model.load``; the bare captured
+    step on fit's first batch from the same weights."""
+    import torch
+
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.monitor import registry
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    net = _resnet50(seed=HAPI_SEED)
+    ref_net = copy.deepcopy(net)
+    model = _hapi_model(paddle, net)
+    first = {}
+    train_batch = model.train_batch
+
+    def recording(xs, ys=None):
+        if not first:
+            first["batch"] = [xs[0].clone(), ys.clone()]
+        out = train_batch(xs, ys)
+        if "loss" not in first:
+            first["loss"] = out["loss"]
+        return out
+
+    model.train_batch = recording
+
+    class Clock(Callback):
+        def __init__(self):
+            self.t, self.losses = [time.perf_counter()], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.t.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+
+    ds.transform = _hapi_train_transform(paddle)
+    loader = paddle.io.DataLoader(ds, batch_size=HAPI_B, num_workers=HAPI_WORKERS,
+                                  shuffle=True, drop_last=True)
+    np.random.seed(HAPI_SEED)
+    clock = Clock()
+    before = _io_counts()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # ProgBarLogger's lines
+        model.fit(loader, epochs=1, verbose=1, log_freq=5, callbacks=[clock])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    transport = {k: v - before[k] for k, v in _io_counts().items()}
+    want = _rn_amp_step_launches(HAPI_STEPS)
+    if counts != want:
+        raise AssertionError(f"hapi fit: {HAPI_STEPS} steps launched {counts}; want {want}")
+    store = model._train_step.store
+    if HAPI_DEVICE == "cuda" and (store.misses != 1 or store.hits != HAPI_STEPS - 1):
+        raise AssertionError(f"hapi fit: {store.misses} captures and {store.hits} replays; want "
+                             f"1 and {HAPI_STEPS - 1}")
+    losses = clock.losses
+    if len(losses) != HAPI_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"hapi fit losses: {losses}")
+    step_ms = np.diff(clock.t)[2:] * 1e3  # the replays after the first
+    wait = registry.gauge("monitor/fit/input_wait_ratio").value
+    r = {"losses": losses, "fit_s": fit_s, "step_ms": step_ms.tolist(),
+         "step_ms_median": float(np.median(step_ms)), "input_wait_ratio": wait,
+         "transport": transport, "captures": store.misses, "replays": store.hits,
+         "launches": {k: v for k, v in counts.items() if v}}
+    log(f"hapi fit: {HAPI_STEPS} steps in {fit_s:.2f} s, losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; one capture, {store.hits} replays; median "
+        f"step {r['step_ms_median']:.2f} ms on the host clock (replays, loss read each step), "
+        f"input_wait_ratio {wait:.3f}; "
+        f"batches by the ring {transport['ring_batches']}, by the queue "
+        f"{transport['queue_batches']}; launches a step "
+        f"{ {k: v // HAPI_STEPS for k, v in counts.items() if v} }")
+
+    # evaluate and predict: eval forwards in f32, 33 fused eval launches each
+    ds.transform = _hapi_det_transform(paddle)
+    eval_ds = paddle.io.Subset(ds, range(HAPI_EVAL_BATCHES * HAPI_B))
+    pred_ds = paddle.io.Subset(ds, range(HAPI_PREDICT_BATCHES * HAPI_B))
+    reset_launch_counts()
+    ev = model.evaluate(eval_ds, batch_size=HAPI_B, num_workers=HAPI_WORKERS, verbose=0)
+    torch.cuda.synchronize()
+    ev_counts = launch_counts()
+    reset_launch_counts()
+    out = model.predict(pred_ds, batch_size=HAPI_B, num_workers=HAPI_WORKERS)
+    torch.cuda.synchronize()
+    pr_counts = launch_counts()
+    want_eval = {k: 0 for k in ev_counts}
+    want_eval["conv_bn_relu_mm_affine_relu"] = RN_TRIPLES * HAPI_EVAL_BATCHES
+    want_pred = dict(want_eval, conv_bn_relu_mm_affine_relu=RN_TRIPLES * HAPI_PREDICT_BATCHES)
+    if ev_counts != want_eval or pr_counts != want_pred:
+        raise AssertionError(f"hapi evaluate launched {ev_counts}, predict {pr_counts}; want "
+                             f"{want_eval}, {want_pred}")
+    if not (np.isfinite(ev["loss"]) and 0 <= ev["acc_top1"] <= ev["acc_top5"] <= 1):
+        raise AssertionError(f"hapi evaluate: {ev}")
+    if len(out) != 1 or out[0].shape != (HAPI_B, RN_CLASSES) or not np.isfinite(out[0]).all():
+        raise AssertionError(f"hapi predict: {[o.shape for o in out]}")
+    # save, load into a fresh Model, predict again
+    with tempfile.TemporaryDirectory(prefix="ptt_hapi_") as d:
+        model.save(f"{d}/final")
+        fresh = _hapi_model(paddle, _resnet50(seed=HAPI_SEED + 1))
+        fresh.load(f"{d}/final")
+        out2 = fresh.predict(pred_ds, batch_size=HAPI_B, num_workers=HAPI_WORKERS)
+    load_err = float(np.abs(out2[0] - out[0]).max() / np.abs(out[0]).max())
+    if load_err > RN_SERVE_RTOL:
+        raise AssertionError(f"hapi load: predict after Model.load differs by {load_err} of the "
+                             f"largest logit (limit {RN_SERVE_RTOL})")
+    r.update(evaluate=ev, predict_shape=list(out[0].shape), load_rel_err=load_err,
+             load_bit_equal=bool(np.array_equal(out2[0], out[0])),
+             eval_launches={k: v for k, v in ev_counts.items() if v},
+             predict_launches={k: v for k, v in pr_counts.items() if v})
+    log(f"hapi evaluate on {HAPI_EVAL_BATCHES} batches: {ev}; predict {list(out[0].shape)}; "
+        f"after save and Model.load the predict output is {load_err:.3g} of the largest logit "
+        f"away (bit-equal: {r['load_bit_equal']}); launches evaluate {r['eval_launches']}, "
+        f"predict {r['predict_launches']}")
+    del model, fresh
+    torch.cuda.empty_cache()
+
+    # the bare captured step on fit's first batch, from the same weights
+    ref = _hapi_model(paddle, ref_net)
+    step = ref._build_train_step()
+    bare = [float(step(*first["batch"])["loss"])]
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    for _ in range(6):
+        bare.append(float(step(*first["batch"])["loss"]))
+        t.append(time.perf_counter())
+    bare_ms = np.diff(t)[1:] * 1e3
+    err = abs(bare[0] - first["loss"])
+    r.update(bare_first_loss=bare[0], fit_first_loss=first["loss"], first_loss_err=err,
+             bare_step_ms_median=float(np.median(bare_ms)), bare_losses=bare)
+    log(f"hapi: fit's first loss {first['loss']:.6f}, the bare captured train_step's on the same "
+        f"batch and weights {bare[0]:.6f} (err {err:.3g}, limit {RN_AMP_LOSS_ATOL}); the bare "
+        f"step's replays {r['bare_step_ms_median']:.2f} ms median on the host clock with the loss "
+        f"read, fit's {r['step_ms_median']:.2f} ms")
+    if err > RN_AMP_LOSS_ATOL:
+        raise AssertionError(f"hapi: fit's first loss {first['loss']} differs from the bare step's "
+                             f"{bare[0]} by {err}")
+    del ref, step
+    torch.cuda.empty_cache()
+    return counts, ev_counts, pr_counts, r
+
+
+def _hapi_vgg(paddle):
+    """(b) VGG-16 in f32 at batch 32: three ``Model.train_batch`` steps with
+    the pool kernel launched at its five pools a step."""
+    import torch
+
+    from paddle_tpu_torch.models import vgg16
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    net = vgg16(num_classes=RN_CLASSES, generator=torch.Generator().manual_seed(HAPI_SEED))
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Momentum(learning_rate=0.01, momentum=RN_MOMENTUM,
+                                            parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss())
+    rng = np.random.RandomState(HAPI_SEED)
+    x = rng.randn(VGG_B, 3, RN_HW, RN_HW).astype(np.float32)
+    y = rng.randint(0, RN_CLASSES, VGG_B).astype(np.int64)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = [time.perf_counter()]
+    losses = []
+    for _ in range(VGG_STEPS):
+        losses.append(model.train_batch([x], [y])["loss"])
+        t.append(time.perf_counter())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["max_pool2d_backward"] != len(VGG_POOLS) * VGG_STEPS or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"VGG-16: {VGG_STEPS} steps launched {counts}, losses {losses}")
+    r = {"losses": losses, "step_s": np.diff(t).tolist(),
+         "launches": {k: v for k, v in counts.items() if v}}
+    log(f"hapi VGG-16 f32 batch {VGG_B}: {VGG_STEPS} train_batch steps, losses {losses}, "
+        f"wall {', '.join(f'{v:.2f}' for v in r['step_s'])} s; launches {r['launches']}")
+    del model, net
+    torch.cuda.empty_cache()
+    return counts, r
+
+
+def _hapi_zoo(paddle):
+    """(c) MobileNetV2 and SE-ResNeXt-50 eval forwards at batch 32 through
+    ``Model.predict_batch`` against the CPU forward of the same weights on
+    the first rows (eval batch norm is per sample)."""
+    import torch
+
+    from paddle_tpu_torch.models import mobilenet_v2, se_resnext50_32x4d
+
+    rng = np.random.RandomState(HAPI_SEED + 2)
+    x = rng.randn(ZOO_B, 3, RN_HW, RN_HW).astype(np.float32)
+    r = {}
+    for name, make in (("mobilenet_v2", mobilenet_v2), ("se_resnext50_32x4d",
+                                                         se_resnext50_32x4d)):
+        net = make(num_classes=RN_CLASSES, generator=torch.Generator().manual_seed(HAPI_SEED))
+        cpu = copy.deepcopy(net).eval()
+        model = paddle.Model(net)
+        t0 = time.perf_counter()
+        out = model.predict_batch([x]).cpu().numpy()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu(torch.from_numpy(x[:ZOO_CPU_ROWS])).numpy()
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(out[:ZOO_CPU_ROWS] - want).max() / np.abs(want).max())
+        r[name] = {"rel_err": err, "card_s": card_s, "cpu_s": cpu_s, "shape": list(out.shape)}
+        log(f"hapi {name}: eval forward at batch {ZOO_B} on the card ({card_s:.2f} s), rows "
+            f"0-{ZOO_CPU_ROWS - 1} against the CPU ({cpu_s:.2f} s): {err:.3g} of the largest "
+            f"logit (limit {RN_SERVE_RTOL})")
+        if out.shape != (ZOO_B, RN_CLASSES) or not np.isfinite(out).all() or err > RN_SERVE_RTOL:
+            raise AssertionError(f"hapi {name}: {r[name]}")
+        del model, net, cpu
+    torch.cuda.empty_cache()
+    return r
+
+
+def hapi_paths():
+    """Phase 12q: a Paddle 2.0 image-classification script on the port. (a)
+    ResNet-50 trained by ``Model.fit`` from a 4-worker ``DataLoader`` under
+    AMP with the pool kernel on, then evaluated, predicted, saved and
+    loaded; (b) VGG-16's steps through its five pools; (c) MobileNetV2 and
+    SE-ResNeXt-50 eval forwards. Returns (launches per name over the phase,
+    also-checked kernel entries by name, readings)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.flags import set_flags
+
+    t_phase = time.perf_counter()
+    set_flags({"use_pallas_pool_bwd": True})
+    try:
+        ds = _hapi_dataset(None)
+        r = {"data_s": time.perf_counter() - t_phase}
+        r["loader"] = _hapi_loader_parity(paddle, ds)
+        r["transform"] = _hapi_transform_rate(paddle, ds)
+        t_a = time.perf_counter()
+        fit_counts, ev_counts, pr_counts, r["fit"] = _hapi_fit(paddle, ds)
+        del ds
+        t_b = time.perf_counter()
+        also = {"max_pool2d_backward": [
+            check_pool_backward_lenet(s, row="16g", path="VGG-16 batch 32 (12q)", iters=10)
+            for s in VGG_POOLS]}
+        vgg_counts, r["vgg16"] = _hapi_vgg(paddle)
+        t_c = time.perf_counter()
+        r["zoo"] = _hapi_zoo(paddle)
+    finally:
+        set_flags({"use_pallas_pool_bwd": False})
+    t_d = time.perf_counter()
+    entry = check_conv_serving(HAPI_B, per_product=False)
+    entry["path"] = "12q evaluate and predict, batch 128"
+    also["conv_bn_relu_mm_affine_relu"] = [entry]
+    counts = {k: fit_counts[k] + ev_counts[k] + pr_counts[k] + vgg_counts[k] for k in fit_counts}
+    r["launches"] = {k: v for k, v in counts.items() if v}
+    r["parts_s"] = {"data_and_loaders": t_a - t_phase, "a": t_b - t_a, "b": t_c - t_b,
+                    "c": t_d - t_c, "eval_products_check": time.perf_counter() - t_d}
+    r["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    log(f"hapi: phase 12q done in {r['phase_s']:.1f} s ({r['parts_s']})")
+    return counts, also, r
+
+
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
@@ -10605,6 +11009,11 @@ def main() -> int:
     to_static_counts, to_static = to_static_paths()
     torch.cuda.empty_cache()
     tail_counts, ops_tail = registry_tail()
+    torch.cuda.empty_cache()
+    hapi_counts, hapi_also, hapi = hapi_paths()
+    for name, entries in hapi_also.items():
+        next(k for k in kernels if k["name"] == name).setdefault("also_checked", []).extend(
+            entries)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -10635,11 +11044,13 @@ def main() -> int:
         # the registry's last families, the sentiment conv net and the
         # YOLOv3 head (12p): none, checked
         k["launches_ops_tail"] = tail_counts.get(name, 0)
+        # Model.fit over the 4-worker DataLoader, evaluate, predict; VGG-16 (12q)
+        k["launches_hapi"] = hapi_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"]
                          + k["launches_fleet"] + k["launches_dygraph"]
                          + k["launches_monitored"] + k["launches_to_static"]
-                         + k["launches_ops_tail"])
+                         + k["launches_ops_tail"] + k["launches_hapi"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -10651,7 +11062,7 @@ def main() -> int:
                       "gpt_generation": gpt, "gpt_int8_paged": gpt_paged,
                       "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet,
                       "dygraph_front_end": dygraph, "monitor": monitored,
-                      "to_static": to_static, "ops_tail": ops_tail}))
+                      "to_static": to_static, "ops_tail": ops_tail, "hapi": hapi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

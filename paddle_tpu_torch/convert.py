@@ -45,7 +45,9 @@ __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_nu
            "load_seq2seq", "adamw_state_from_numpy", "resnet_state_from_numpy",
            "load_resnet", "momentum_state_from_numpy", "int8_model_from_numpy",
            "load_int8_model", "scope_from_numpy", "optimizer_state_from_numpy",
-           "gpt_state_from_numpy", "load_gpt"]
+           "gpt_state_from_numpy", "load_gpt", "vgg_state_from_numpy",
+           "mobilenet_state_from_numpy", "se_resnext_state_from_numpy",
+           "word2vec_state_from_numpy"]
 
 _TIED = ("cls.decoder_weight", "bert.embeddings.word_embeddings.weight")
 
@@ -182,6 +184,31 @@ def resnet_state_from_numpy(np_state, model) -> dict:
     """A state dict for the port's :class:`~paddle_tpu_torch.models.ResNet`
     from the ``paddle_tpu`` ResNet's state dict of numpy arrays: its
     parameters and running statistics, by name."""
+    return _state_from_numpy(np_state, model)
+
+
+def vgg_state_from_numpy(np_state, model) -> dict:
+    """A state dict for the port's :class:`~paddle_tpu_torch.models.VGG`
+    from the ``paddle_tpu`` VGG's: its parameters (and batch-norm
+    statistics with ``batch_norm=True``), by name."""
+    return _state_from_numpy(np_state, model)
+
+
+def mobilenet_state_from_numpy(np_state, model) -> dict:
+    """A state dict for the port's ``MobileNetV1``/``MobileNetV2`` from the
+    ``paddle_tpu`` model's: parameters and running statistics, by name."""
+    return _state_from_numpy(np_state, model)
+
+
+def se_resnext_state_from_numpy(np_state, model) -> dict:
+    """A state dict for the port's ``SEResNeXt`` from the ``paddle_tpu``
+    model's: parameters and running statistics, by name."""
+    return _state_from_numpy(np_state, model)
+
+
+def word2vec_state_from_numpy(np_state, model) -> dict:
+    """A state dict for the port's ``Word2Vec`` from the ``paddle_tpu``
+    model's: the embedding and the head, by name."""
     return _state_from_numpy(np_state, model)
 
 

@@ -1,4 +1,5 @@
-"""Distributed training (``paddle_tpu/distributed``): so far the checkpoints, at world size 1."""
-from . import checkpoint  # noqa: F401
+"""Distributed training (``paddle_tpu/distributed``): so far the checkpoints,
+at world size 1, and the fault-injection hooks (``chaos``)."""
+from . import chaos, checkpoint  # noqa: F401
 
-__all__ = ["checkpoint"]
+__all__ = ["chaos", "checkpoint"]

@@ -26,9 +26,14 @@ FIFO writer thread, and :func:`wait_pending` waits for them and raises the
 first failure. :func:`restore_train_step` copies into the step's live
 tensors, so captured graphs stay valid.
 
+``FLAGS_fault_injection``'s ``mid_save`` point (``distributed/chaos.py``)
+sits between the shard file and the commit record, as in the JAX writer.
+:func:`detach_refs` and :func:`submit` serve ``incubate.auto_checkpoint``'s
+epoch snapshots, which ride the same writer thread.
+
 Not ported: a world size above 1, ``shardings`` and ``mesh`` (resharding
 goes with ``torch.distributed``, ROADMAP.md Queue A item 9), and the
-goodput, chaos and flight-recorder hooks (item 10, the part left).
+goodput and flight-recorder hooks.
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ from ..framework import serialization as _ser
 
 __all__ = ["CheckpointError", "CheckpointCorruptError", "save", "save_train_step",
            "restore_train_step", "load", "validate", "latest_checkpoint", "sweep_tmp",
-           "wait_pending", "write_bytes", "write_manifest", "AsyncSaver", "MANIFEST"]
+           "wait_pending", "write_bytes", "write_manifest", "AsyncSaver", "MANIFEST",
+           "detach_refs", "submit"]
 
 MANIFEST = "MANIFEST.json"
 FORMAT_VERSION = 1
@@ -118,6 +124,20 @@ def _host_copy(leaf):
     return np.array(leaf)
 
 
+def detach_refs(obj):
+    """``obj`` (a state dict, nested) with every tensor replaced by a host
+    copy of its current value, made here on the caller's thread: training
+    updates the live tensors in place afterwards, and the writer thread
+    reads the copies."""
+    if isinstance(obj, torch.Tensor):
+        return _host_copy(obj)
+    if isinstance(obj, dict):
+        return {k: detach_refs(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(detach_refs(v) for v in obj)
+    return obj
+
+
 def save(path, state, shardings=None, *, step=None, mesh=None, keep=None, async_=None):
     """Snapshot ``state`` (``{leaf name: tensor}`` or a list of pairs) to
     ``path``. The host copy of every leaf is made here; with ``async_``
@@ -152,6 +172,9 @@ def _write_snapshot(final, names, leaves, meta, keep):
     shard_name = f"shard_r{_RANK}.pdshard"
     crc, size = write_bytes(os.path.join(tmp, shard_name),
                             _ser.dumps({"rank": _RANK, "pieces": pieces}))
+    from . import chaos
+
+    chaos.inject("mid_save")
     frag = {"rank": _RANK, "world": _WORLD, "file": shard_name, "crc32": crc, "size": size}
     write_bytes(os.path.join(tmp, f"rank_{_RANK}.json"), json.dumps(frag).encode("utf-8"))
     _fsync_dir(tmp)
@@ -411,3 +434,9 @@ _SAVER = AsyncSaver()
 def wait_pending(timeout=None, raise_errors=True):
     """Block until every queued save is durable (or failed)."""
     return _SAVER.wait_pending(timeout=timeout, raise_errors=raise_errors)
+
+
+def submit(fn, label=""):
+    """Queue durable-write work on the shared FIFO writer thread, so epoch
+    and step snapshots publish in one order."""
+    return _SAVER.submit(fn, label)

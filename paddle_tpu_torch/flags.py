@@ -159,6 +159,29 @@ define_flag("checkpoint_async", True,
             "serialize + fsync checkpoints in a background thread "
             "(off the training step critical path)")
 
+# incubate/auto_checkpoint.py — minimum seconds between periodic snapshots;
+# negative defers to the PADDLE_EDL_SAVE_CHECKPOINT_INTER env.
+define_flag("checkpoint_save_inter_s", -1.0,
+            "min seconds between auto-checkpoint snapshots "
+            "(< 0: use PADDLE_EDL_SAVE_CHECKPOINT_INTER env)")
+
+# incubate/auto_checkpoint.py — the newest N intact snapshots are kept.
+define_flag("checkpoint_keep", 2,
+            "intact snapshots kept by checkpoint rotation")
+
+# distributed/chaos.py — ';'-separated `action:key=val,...` directives
+# (kill|exit|delay|raise at step|mid_save); empty disables.
+define_flag("fault_injection", "",
+            "chaos directives: 'action:k=v,...;...' with actions "
+            "kill|exit|delay|raise at points step|mid_save (empty: off)")
+
+# io/dataloader.py _DevicePrefetcher — a background thread fetches the next
+# batches and enqueues their copies to the card while the step runs; off,
+# the consumer's __next__ refills inline.
+define_flag("io_prefetch_overlap", True,
+            "overlap dataloader H2D transfers with compute via a "
+            "background prefetch thread (double-buffered)")
+
 # generation/engine.py — capacity (tokens) of the ring KV cache of each
 # decode slot; past it the ring overwrites the oldest token (sliding-window
 # attention of this width, which the model computes when its

@@ -35,3 +35,7 @@ from .resnet import (  # noqa: F401
     resnet152,
 )
 from .seq2seq import TransformerSeq2Seq  # noqa: F401
+from .word2vec import Word2Vec  # noqa: F401
+from .vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401
+from .mobilenet import MobileNetV1, MobileNetV2, mobilenet_v1, mobilenet_v2  # noqa: F401
+from .se_resnext import SEResNeXt, se_resnext50_32x4d, se_resnext101_32x4d  # noqa: F401

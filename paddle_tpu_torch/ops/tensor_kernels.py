@@ -86,9 +86,30 @@ for _name, _fn in _UNARY.items():
     register_op(_name)(lambda x, _f=_fn, **kw: _f(x))
 
 
+def _jnp_clip(x, lo, hi):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``. On a float input the
+    gradient at a bound is 0.5, as ``jnp.maximum``'s and ``jnp.minimum``'s
+    are at a tie (``torch.clamp``'s is 1 there); values equal
+    ``torch.clamp``'s. The bounds are filled on the input's device, which a
+    graph capture allows."""
+    if not x.is_floating_point():
+        return torch.clamp(x, lo, hi)
+
+    def bound(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=x.device, dtype=x.dtype)
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    if lo is not None:
+        x = torch.maximum(x, bound(lo))
+    if hi is not None:
+        x = torch.minimum(x, bound(hi))
+    return x
+
+
 @register_op("clip")
 def clip(x, *, min=None, max=None):
-    return torch.clamp(x, min, max)
+    return _jnp_clip(x, min, max)
 
 
 @register_op("pow")
@@ -101,7 +122,7 @@ def pow_(x, *, factor=1.0):
 
 @register_op("relu6")
 def relu6(x, *, threshold=6.0):
-    return torch.clamp(x, 0.0, threshold)
+    return _jnp_clip(x, 0.0, threshold)
 
 
 @register_op("leaky_relu")

@@ -262,6 +262,49 @@ class Executor:
         _flight.notify_progress("executor_run")
         return out
 
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Run ``program`` over a Dataset's batches (``io.InMemoryDataset``,
+        ``io.QueueDataset``; fluid/executor.py:1597 train_from_dataset), one
+        :meth:`run` a batch: the parse workers stream fixed-shape batches,
+        which the DataLoader's prefetcher copies to this executor's device
+        ahead of use, so one signature is captured and the rest replay.
+        Fetched values print every ``print_period`` batches (or each with
+        ``debug``). Returns the number of batches run."""
+        if dataset is None:
+            raise ValueError("train_from_dataset needs a dataset")
+        program = program or default_main_program()
+        scope = scope or global_scope()
+        if thread:
+            dataset.set_thread(thread)
+        fetch_list = fetch_list or []
+        fetch_names = [v if isinstance(v, str) else v.name for v in fetch_list]
+        labels = fetch_info or fetch_names
+        feed_names = dataset._feed_names()
+        n = 0
+        batches = (dataset._iter_device_batches(device=self.device)
+                   if hasattr(dataset, "_iter_device_batches")
+                   else dataset._iter_batches())
+        for batch in batches:
+            feed = dict(zip(feed_names, batch))
+            fetches = self.run(program, feed=feed, fetch_list=fetch_list, scope=scope)
+            n += 1
+            if fetch_list and (debug or n % print_period == 0):
+                msg = ", ".join(f"{lbl}={np.asarray(v).ravel()[:4]}"
+                                for lbl, v in zip(labels, fetches))
+                print(f"[train_from_dataset] batch {n}: {msg}")
+        return n
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """The inference twin of :meth:`train_from_dataset`
+        (fluid/executor.py:1658): the same loop over a program without
+        optimizer ops."""
+        return self.train_from_dataset(program, dataset, scope, thread, debug, fetch_list,
+                                       fetch_info, print_period)
+
     def _dispositions(self, program, fetch_names, disposition):
         """The run's plan-cache disposition (whether this executor planned
         the program's value lifetimes for these fetches before) beside its
