@@ -416,6 +416,26 @@ Phases, each fatal on failure:
     f32, AdamW, dropout 0, ``strategy.sharding`` (ZeRO-1) and
     ``recompute``, 3 steps against the single process (losses, parameters),
     each rank holding about half of the optimizer state;
+12s. float16 autocast, ``BASELINE.json``'s fifth config as it is stated
+    (``fp16_paths``): (a) the fp16 instances of rows 1-7 against their
+    plain versions in fp16 ulps (the LayerNorm forward, its mixed instance,
+    an fp16 x on an f32 residual, and its backward at [16384, 768] and
+    [4096, 512]; the three attention kernels at [32, 12, 512, 64] with
+    dropout 0.1 and the pad bias, at rate 0, and at [8, 12, 128, 64]
+    causal), the bf16 kernel's answer on the same inputs, cast to fp16, the
+    control each limit must catch, each timed beside its bound and the fp16
+    library call; (b) one O1 fp16 step of Transformer-base and of
+    ERNIE-base (flash on) at batch 2 under a ``GradScaler`` against the
+    CPU's plain path from the same weights (loss, gradient rel L2; the bf16
+    step the control), the launches exactly the fp16 step's; (c) 10 eager
+    O1 fp16 steps of each at 12c's and 12e's shapes under a ``GradScaler``
+    started at 2**32 (a bad step divides the scale by 16, two good steps
+    double it): at least one step skipped with every parameter and
+    optimizer moment bit-equal after it, the scales the JAX rule's on the
+    run's own found-infs, at least one growth, finite losses on the steps
+    taken, exactly the fp16 launches every step (no bf16 launch), median
+    step and the device's busy share beside 12c's and 12e's bf16 eager
+    medians;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -554,9 +574,12 @@ def check_layernorm(dtype_name, rows, h=LN_H, res_dtype_name=None, mean_offset=0
                     timed=True):
     """The forward kernel at [rows, h] against the plain version: y, and
     the saved f32 mean and rstd the backward reads. ``res_dtype_name``
-    float32 under a bf16 x is the mixed instance; ``mean_offset`` and
+    float32 under a bf16 or fp16 x is a mixed instance; ``mean_offset`` and
     ``std`` shape the rows (a large mean tests the two-pass variance);
-    which variant runs (a warp a row, a block a row) follows ``h``."""
+    which variant runs (a warp a row, a block a row) follows ``h``. In
+    fp16 the output is held to ``LN_FP16_ULPS`` fp16 ulps of the plain
+    version's largest, and the bf16 kernel's answer on the same inputs,
+    cast to fp16, is the control the limit must catch."""
     import torch
     import torch.nn.functional as F
 
@@ -573,7 +596,9 @@ def check_layernorm(dtype_name, rows, h=LN_H, res_dtype_name=None, mean_offset=0
              (torch.randn(rows, h, generator=g, device=dev) * std).to(rdtype), w, b, 1e-5)
             for _ in range(6 if timed else 1)]
     x, r = sets[0][0], sets[0][1]
-    counter = ("MIXED_LAUNCHES" if mixed else "LAUNCHES" if dtype == torch.float32
+    fp16 = dtype == torch.float16
+    counter = (("FP16_" if fp16 else "") + "MIXED_LAUNCHES" if mixed
+               else "LAUNCHES" if dtype == torch.float32 else "FP16_LAUNCHES" if fp16
                else "BF16_LAUNCHES")
     before = getattr(lnr, counter)
     y, mean, rstd = lnr.layernorm_residual_fwd(x, r, w, b, 1e-5)
@@ -601,6 +626,16 @@ def check_layernorm(dtype_name, rows, h=LN_H, res_dtype_name=None, mean_offset=0
     elif dtype == torch.float32:
         ok = err <= LN_F32_ATOL and stat_err <= LN_F32_ATOL
         tol = f"y, mean atol {LN_F32_ATOL}, rstd rtol {LN_F32_ATOL}"
+    elif fp16:
+        # both add alike and round y once; the control is the bf16 kernel
+        yb = lnr.layernorm_residual_fwd(x.bfloat16(), r if mixed else r.bfloat16(), w, b,
+                                        1e-5)[0]
+        ulps = {"kernel_vs_plain_ulps": fp16_ulps(y, yp),
+                "bf16_control_ulps": fp16_ulps(yb.half(), yp)}
+        ok = (ulps["kernel_vs_plain_ulps"] <= LN_FP16_ULPS < ulps["bf16_control_ulps"]
+              and stat_err <= mean_tol)
+        tol = (f"y within {LN_FP16_ULPS} fp16 ulp of the plain version's largest, the bf16 "
+               "control beyond it; " + ", ".join(f"{k} {v:.3f}" for k, v in ulps.items()))
     else:
         # both add x + res alike (bf16: rounded to bf16; mixed: in f32) and
         # differ in the f32 order of the statistics and the affine; the
@@ -622,7 +657,7 @@ def check_layernorm(dtype_name, rows, h=LN_H, res_dtype_name=None, mean_offset=0
     t_b, by = bound(rows * h * (2 * x.element_size() + r.element_size()) + 8 * rows + 8 * h,
                     9 * rows * h)
     name = "layernorm_residual_fwd" + ("_mixed" if mixed else "" if dtype == torch.float32
-                                       else "_bf16")
+                                       else "" if fp16 else "_bf16") + ("_fp16" if fp16 else "")
     entry = {"name": name, "route": "cuda", "source": "paddle_tpu_torch/csrc/layernorm_residual.cu",
              "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:188",
              "shape": [rows, h], "dtype": dtype_name, "residual_dtype": str(rdtype)[6:],
@@ -786,7 +821,9 @@ def check_layernorm_bwd(dtype_name, rows=TRAIN_ROWS, h=LN_H, timed=True):
     default) against the plain version on the same inputs and saved
     statistics (the forward's statistics at 768 are checked by
     ``check_layernorm``), and against itself: a second run must give the
-    same ``da`` and dw/db partials bit for bit."""
+    same ``da`` and dw/db partials bit for bit. In fp16 ``da`` is held to
+    ``LN_FP16_ULPS`` fp16 ulps of the plain version's largest, and the bf16
+    kernel's on the same inputs, cast to fp16, is the control."""
     import torch
     import torch.nn.functional as F
 
@@ -814,6 +851,13 @@ def check_layernorm_bwd(dtype_name, rows=TRAIN_ROWS, h=LN_H, timed=True):
     if dtype == torch.float32:
         ok = err <= LN_F32_ATOL
         tol = f"da atol {LN_F32_ATOL}"
+    elif dtype == torch.float16:
+        dab = lnr.layernorm_residual_bwd(x.bfloat16(), r.bfloat16(), w, mean, rstd,
+                                         dy.bfloat16())[0]
+        ulps, ctl = fp16_ulps(da, pa), fp16_ulps(dab.half(), pa)
+        ok = ulps <= LN_FP16_ULPS < ctl
+        tol = (f"da within {LN_FP16_ULPS} fp16 ulp of the plain version's largest (read "
+               f"{ulps:.3f}), the bf16 control beyond it (read {ctl:.3f})")
     else:
         # both compute in f32 and round da once; near-zero outputs by
         # cancellation carry the f32 error of their terms, so the ulp is the
@@ -829,7 +873,8 @@ def check_layernorm_bwd(dtype_name, rows=TRAIN_ROWS, h=LN_H, timed=True):
         raise AssertionError(f"{label}: da err {err}, dw {dw_err}, db {db_err} beyond {tol}")
     if not repeats:
         raise AssertionError(f"{label}: a second run differs (da or the dw/db partials)")
-    entry = {"name": "layernorm_residual_bwd" + ("" if dtype == torch.float32 else "_bf16"),
+    entry = {"name": "layernorm_residual_bwd" + {torch.float32: "", torch.bfloat16: "_bf16",
+                                                  torch.float16: "_fp16"}[dtype],
              "route": "cuda",
              "source": "paddle_tpu_torch/csrc/layernorm_residual_bwd.cu",
              "replaces": "paddle_tpu/ops/pallas/layernorm_residual.py:219",
@@ -1149,10 +1194,13 @@ def make_requests(cfg, rng):
 
 _KERNEL_KINDS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
-                 "flash_attention_bwd_dkv_bf16", "layernorm_residual_fwd",
+                 "flash_attention_bwd_dkv_bf16", "flash_attention_fwd_fp16",
+                 "flash_attention_bwd_dq_fp16", "flash_attention_bwd_dkv_fp16",
+                 "layernorm_residual_fwd",
                  "layernorm_residual_bwd", "conv_mm", "conv_mm_bf16", "bn_reduce",
                  "bn_elementwise", "momentum", "int8_mm", "pool_bwd")
-# templates that take both dtypes: their bf16 instances count apart
+# templates that take several dtypes: their bf16 (and the LayerNorm's fp16)
+# instances count apart
 _TEMPLATE_KINDS = ("layernorm_residual_fwd", "layernorm_residual_bwd", "bn_reduce",
                    "bn_elementwise", "pool_bwd")
 
@@ -1162,12 +1210,19 @@ def _kernel_kind(name):
     n = n.replace("conv_mm_reduce_kernel", "conv_mm_kernel")  # split-K's second pass
     n = n.replace("pool_bwd_nchw_kernel", "pool_bwd_kernel").replace("pool_bwd_nhwc_kernel",
                                                                       "pool_bwd_kernel")
+    # the 16-bit attention kernels, one template a kernel with its type first
+    n = n.replace("_16_kernel<__nv_bfloat16", "_bf16_kernel<").replace("_16_kernel<__half",
+                                                                        "_fp16_kernel<")
     for kind in _KERNEL_KINDS:
         if f"{kind}_kernel" in n:
-            if kind not in _TEMPLATE_KINDS or "bfloat16" not in n:
+            half = "<__half" in n
+            if kind not in _TEMPLATE_KINDS or not ("bfloat16" in n or half):
                 return kind
-            # the LayerNorm forward's mixed instance: a bf16 x on an f32 residual
-            mixed = kind == "layernorm_residual_fwd" and "bfloat16, float" in n
+            # the LayerNorm forward's mixed instances: a bf16 or fp16 x on an f32 residual
+            mixed = kind == "layernorm_residual_fwd" and (
+                "bfloat16, float" in n or "__half, float" in n)
+            if half:
+                return kind + ("_mixed" if mixed else "") + "_fp16"
             return kind + ("_mixed" if mixed else "_bf16")
     if "memcpy" in n or "memset" in n:
         return "memcpy"
@@ -1784,16 +1839,32 @@ def bf16_ulps(got, want):
     return float((got.float() - want.float()).abs().max() / bf16_ulp(want.float().abs().max()))
 
 
+def fp16_ulp(v):
+    """Spacing of float16 values at |v| (11 significant bits; subnormal
+    spacing below 2**-14)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -14))) - 10)
+
+
+def fp16_ulps(got, want):
+    """max |got - want| in fp16 ulps of the largest |want|."""
+    return float((got.float() - want.float()).abs().max() / fp16_ulp(want.float().abs().max()))
+
+
 def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, timed=True,
-                     bias_kind="pad"):
-    """The three bf16 attention kernels at [batch, 12, seq, d] (keys ``lk``,
-    default ``seq``) with a bf16 pad bias (the mask in q's dtype, as under
-    AMP; ``bias_kind`` "full" takes a random f32 [B, H, Lq, Lk] bias read per
-    entry, "none" none), through the route autograd takes: the forward
-    storing its dropout mask, the dQ kernel computing delta, the dK/dV kernel
-    after it, both reading the stored mask. Against the plain versions with
-    the same seed: the output and each gradient within ``FLASH_BF16_ULPS``
-    bf16 ulps of the largest entry, lse within ``FLASH_ATOL``. Bit for bit:
+                     bias_kind="pad", dtype="bfloat16"):
+    """The three bf16 attention kernels (``dtype`` "float16": their fp16
+    instances) at [batch, 12, seq, d] (keys ``lk``, default ``seq``) with a
+    pad bias in q's dtype (the mask as under AMP; ``bias_kind`` "full" takes
+    a random f32 [B, H, Lq, Lk] bias read per entry, "none" none), through
+    the route autograd takes: the forward storing its dropout mask, the dQ
+    kernel computing delta, the dK/dV kernel after it, both reading the
+    stored mask. Against the plain versions with the same seed: the output
+    and each gradient within ``FLASH_BF16_ULPS`` bf16 ulps (fp16:
+    ``FLASH_FP16_ULPS`` fp16 ulps) of the largest entry, lse within
+    ``FLASH_ATOL``; in fp16 the bf16 kernels' answers on the same inputs,
+    cast to fp16, are the control each limit must catch. Bit for bit:
     the stored mask against ``dropout_keep_mask`` (the entries the rows can
     see) and the backward against a second run of itself. Timed, all in
     device time behind a sleep kernel: each kernel as the route runs it,
@@ -1807,14 +1878,18 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     lk = seq if lk is None else lk
+    dt = getattr(torch, dtype)
+    tag = "fp16" if dt == torch.float16 else "bf16"
+    ulps_of, limit = ((fp16_ulps, FLASH_FP16_ULPS) if dt == torch.float16
+                      else (bf16_ulps, FLASH_BF16_ULPS))
     g = torch.Generator(device="cuda").manual_seed(11)
     shape, kshape = (batch, FLASH_H, seq, d), (batch, FLASH_H, lk, d)
     scale = d ** -0.5
 
     def make():
-        q, do = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(2))
-        k, v = (torch.randn(kshape, generator=g, device="cuda").bfloat16() for _ in range(2))
-        bias = {"pad": lambda: _pad_bias(g, batch, lk).bfloat16(), "none": lambda: None,
+        q, do = (torch.randn(shape, generator=g, device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn(kshape, generator=g, device="cuda").to(dt) for _ in range(2))
+        bias = {"pad": lambda: _pad_bias(g, batch, lk).to(dt), "none": lambda: None,
                 "full": lambda: torch.randn(batch, FLASH_H, seq, lk, generator=g,
                                             device="cuda")}[bias_kind]()
         seed = fa._draw_seed(g, "cuda") if rate else None
@@ -1834,9 +1909,9 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
     plain = fa._plain_bwd(q, k, v, bias, out, lse, do, causal, scale, rate, seed)
     torch.cuda.synchronize()
     dq, dk, dv = grads
-    if not all(t.dtype == torch.bfloat16 for t in (out, dq, dk, dv)) or lse.dtype != torch.float32:
-        raise AssertionError("bf16 attention: outputs not bf16 or lse not f32")
-    label = (f"bf16 attention {list(shape)}{f' Lk {lk}' if lk != seq else ''} rate {rate}"
+    if not all(t.dtype == dt for t in (out, dq, dk, dv)) or lse.dtype != torch.float32:
+        raise AssertionError(f"{tag} attention: outputs not {tag} or lse not f32")
+    label = (f"{tag} attention {list(shape)}{f' Lk {lk}' if lk != seq else ''} rate {rate}"
              f"{' causal' if causal else ''}{f' bias {bias_kind}' if bias_kind != 'pad' else ''}")
     bits = {"repeats": all(torch.equal(a, b_) for a, b_ in zip(grads, again))}
     if rate:
@@ -1851,12 +1926,24 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
         raise AssertionError(f"{label}: bit-for-bit checks failed: {bits}")
     pairs_ = {"out": (out, pout), "dq": (dq, plain[0]), "dk": (dk, plain[1]),
               "dv": (dv, plain[2])}
-    errs = {n: bf16_ulps(a, b_) for n, (a, b_) in pairs_.items()}
+    errs = {n: ulps_of(a, b_) for n, (a, b_) in pairs_.items()}
     abs_errs = {n: float((a.float() - b_.float()).abs().max()) for n, (a, b_) in pairs_.items()}
     lse_err = float((lse - plse).abs().max())
     finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, dq, dk, dv))
-    tol = f"{FLASH_BF16_ULPS} bf16 ulps of the largest entry, lse atol {FLASH_ATOL}"
-    if not finite or max(errs.values()) > FLASH_BF16_ULPS or lse_err > FLASH_ATOL:
+    tol = f"{limit} {tag} ulps of the largest entry, lse atol {FLASH_ATOL}"
+    control = {}
+    if dt == torch.float16:
+        # the control: the bf16 kernels on the same inputs, their answers cast to fp16
+        bq, bk, bv, bdo = (t.bfloat16() for t in (q, k, v, do))
+        cout, clse, ckeep = fwd(bq, bk, bv, bias, bdo, seed)
+        cgrads = fa.flash_attention_bwd(bq, bk, bv, bias, cout, clse, bdo, causal, scale, rate,
+                                        ckeep)
+        control = {n: fp16_ulps(a.half(), pairs_[n][1])
+                   for n, a in zip(("out", "dq", "dk", "dv"), (cout, *cgrads))}
+        read = ", ".join(f"{k_} {v_:.2f}" for k_, v_ in control.items())
+        tol += f"; the bf16 control caught at each ({read})"
+    if (not finite or max(errs.values()) > limit or lse_err > FLASH_ATOL
+            or any(v_ <= limit for v_ in control.values())):
         raise AssertionError(f"{label}: ulps {errs}, lse err {lse_err}, finite {finite}; "
                              f"beyond {tol}")
     pairs = sum(max(0, min(lk, i + lk - seq + 1)) for i in range(seq)) if causal else seq * lk
@@ -1873,17 +1960,20 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
           "all": 4 * qb + 4 * kb + stats}
     ops = {"fwd": 4 * bhld, "dq": 6 * bhld, "dkv": 8 * bhld, "all": 10 * bhld}
     bounds = {n: bound(io[n], ops[n], BF16_FLOPS_PER_S) for n in io}
-    common = {"route": "cuda", "shape": list(shape), "keys": lk, "dtype": "bfloat16",
+    common = {"route": "cuda", "shape": list(shape), "keys": lk, "dtype": dtype,
               "dropout_rate": rate, "causal": causal, "bias": bias_kind, "tolerance": tol,
               "bit_for_bit": bits, "stored_mask_bytes": mask_b,
-              "bound_note": "bf16 products / 989 TFLOP/s, the bytes the function needs / "
+              "bound_note": f"{tag} products / 989 TFLOP/s, the bytes the function needs / "
                             "3.35 TB/s (not the stored mask)"}
-    entries = [dict(name="flash_attention_fwd_bf16", source=_FLASH_SRC_BF16, replaces=replaces[0],
-                    max_abs_err=abs_errs["out"], max_err_ulps=errs["out"], lse_err=lse_err,
-                    bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1], **common)]
-    for name, key, rep in (("flash_attention_bwd_dq_bf16", ("dq",), replaces[1]),
-                           ("flash_attention_bwd_dkv_bf16", ("dk", "dv"), replaces[2])):
-        b_ = bounds["dq" if name.endswith("dq_bf16") else "dkv"]
+    if control:
+        common["control_ulps"] = control
+    entries = [dict(name=f"flash_attention_fwd_{tag}", source=_FLASH_SRC_BF16,
+                    replaces=replaces[0], max_abs_err=abs_errs["out"], max_err_ulps=errs["out"],
+                    lse_err=lse_err, bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
+                    **common)]
+    for name, key, rep in ((f"flash_attention_bwd_dq_{tag}", ("dq",), replaces[1]),
+                           (f"flash_attention_bwd_dkv_{tag}", ("dk", "dv"), replaces[2])):
+        b_ = bounds["dq" if "_dq_" in name else "dkv"]
         entries.append(dict(name=name, source=_FLASH_BWD_SRC_BF16, replaces=rep,
                             max_abs_err=max(abs_errs[k_] for k_ in key),
                             max_err_ulps=max(errs[k_] for k_ in key), bound_ms=b_[0],
@@ -1920,12 +2010,12 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
     plain_bwd = timer(lambda q_, k_, v_, b_, lse_, o_, dl, do_, sd, kp:
                       fa._plain_bwd(q_, k_, v_, b_, o_, lse_, do_, causal, scale, rate, sd),
                       bsets, 5)
-    causal_mask = (torch.full((seq, lk), -1e30, device="cuda").triu(lk - seq + 1).bfloat16()
+    causal_mask = (torch.full((seq, lk), -1e30, device="cuda").triu(lk - seq + 1).to(dt)
                    if causal else None)
 
     def sdpa_mask(b_):
         if b_ is not None:
-            b_ = b_.to(torch.bfloat16)
+            b_ = b_.to(dt)
         return b_ if causal_mask is None else (causal_mask if b_ is None else b_ + causal_mask)
 
     lib_fwd = timer(lambda q, k, v, bias, do, seed: F.scaled_dot_product_attention(
@@ -1943,14 +2033,15 @@ def check_flash_bf16(batch, seq, rate, causal, replaces, lk=None, d=FLASH_D, tim
         f"dQ with delta {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f}), dK/dV {ms['dkv']:.4f} "
         f"(bound {bounds['dkv'][0]:.4f}), whole backward {ms['all']:.4f} (bound "
         f"{bounds['all'][0]:.4f}); plain forward {plain_fwd:.4f}, backward "
-        f"{plain_bwd:.4f}; library (bf16 SDPA, dropout_p {rate}, its own mask) forward "
+        f"{plain_bwd:.4f}; library ({tag} SDPA, dropout_p {rate}, its own mask) forward "
         f"{lib_fwd:.4f}, backward {lib_bwd:.4f} (median of {', '.join(f'{t:.4f}' for t in lib_bwds)})"
         f" ms; device time behind a sleep kernel; stored mask {mask_b} bytes")
     total = {"ms": ms["all"], "plain_ms": plain_bwd, "library_ms": lib_bwd,
              "library_ms_readings": lib_bwds,
-             "library": "bf16 scaled_dot_product_attention backward", "bound_ms": bounds["all"][0]}
+             "library": f"{tag} scaled_dot_product_attention backward",
+             "bound_ms": bounds["all"][0]}
     entries[0].update(ms=ms["fwd"], kernel_ms=ms["fwd"], plain_ms=plain_fwd, library_ms=lib_fwd,
-                      library=f"bf16 scaled_dot_product_attention, dropout_p {rate}")
+                      library=f"{tag} scaled_dot_product_attention, dropout_p {rate}")
     for e, key in zip(entries[1:], ("dq", "dkv")):
         e.update(ms=ms[key], kernel_ms=ms[key], plain_ms=plain_bwd, library_ms=None,
                  backward_total=total)
@@ -3650,8 +3741,11 @@ _COUNTER_KINDS = {"conv_bn_relu_mm_affine_relu": "conv_mm", "conv_bn_relu_mm_sta
 
 
 def _counter_kind(name):
-    base, bf16 = (name[:-len("_bf16")], "_bf16") if name.endswith("_bf16") else (name, "")
-    return _COUNTER_KINDS.get(base, base) + bf16
+    base, sfx = name, ""
+    for s_ in ("_bf16", "_fp16"):
+        if name.endswith(s_):
+            base, sfx = name[:-len(s_)], s_
+    return _COUNTER_KINDS.get(base, base) + sfx
 
 
 def _booked_by_kind(counts):
@@ -4845,6 +4939,384 @@ def train_seq2seq_and_ernie():
     return ({"training": add(s2s_eager, er_eager), "compiled": add(s2s_captured, er_captured),
              "serving": dec_counts},
             {"seq2seq_amp": s2s, "seq2seq_decode": dec, "ernie_amp": ernie})
+
+
+# -- float16 autocast: BASELINE.json's fifth config as it is stated (phase 12s) ---------
+
+# The fp16 instances against their plain versions (in fp16 ulps of the
+# largest entry; both round at the same points and sum in f32 in other
+# orders) and the control each limit must catch, the bf16 kernel's answer on
+# the same inputs cast to fp16. Read on an NVIDIA H100 80GB HBM3 at 700.00
+# W, first call of the fp16 kernels: attention 0.25-1.0 (control 5-15),
+# LayerNorm 0.125-0.5 (control 3-11).
+FLASH_FP16_ULPS = 2.0
+LN_FP16_ULPS = 1.0
+# The scaler of the 10-step runs: started past fp16's range, so the first
+# steps overflow and are skipped; every bad step divides the scale by 16
+# (the JAX GradScaler's decr_ratio, a parameter of its rule), so a run
+# reaches the scales fp16 holds within its 10 steps (ERNIE's NSP head, a
+# mean over 32 rows, overflows above about 2**21); two good steps in a row
+# double it.
+FP16_SCALER = dict(init_loss_scaling=2.0 ** 32, incr_ratio=2.0, decr_ratio=2.0 ** -4,
+                   incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+FP16_STEPS = 10
+# One O1 fp16 step at batch 2 on the card against the CPU's plain path
+# from the same weights (loss, the gradient's relative L2), each limit near
+# the geometric mean of the sound reading and the control's, the bf16 step
+# on the card, which must fail both. Read on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: seq2seq loss 1.81e-5 / 7.63e-5, rel L2
+# 4.75e-3 / 1.92e-2; ERNIE-base 6.75e-4 / 4.01e-3, 1.09e-2 / 7.45e-2 (relu
+# gates near 0 flip between the two devices' roundings at batch 2 x 512 and
+# move every gradient before them, as in ResNet-50's f32 parity step; the
+# worst entry of a layer reads 0.12 and 0.24, bf16 0.27 and 0.98, logged).
+FP16_PARITY_LIMITS = {"seq2seq": {"loss": 3.7e-5, "grad_rel_l2": 9.5e-3},
+                      "ernie": {"loss": 1.65e-3, "grad_rel_l2": 2.85e-2}}
+FP16_PARITY_SCALE = 32768.0  # GradScaler's default
+
+
+def check_fp16_kernels():
+    """Phase 12s (a): the fp16 instances of rows 1-7 at the fifth config's
+    shapes against their plain versions, each timed as the bf16 rows are
+    (device time behind a sleep kernel, inputs cycled past L2) beside its
+    bound and the fp16 library call (``F.layer_norm`` of the sum,
+    ``scaled_dot_product_attention`` forward and backward): the LayerNorm
+    forward, its mixed instance (an fp16 x on an f32 residual) and its
+    backward at ERNIE's [16384, 768] and the seq2seq's [4096, 512]; the
+    three attention kernels at ERNIE's [32, 12, 512, 64] with dropout 0.1
+    and the pad bias, at rate 0, and at [8, 12, 128, 64] causal (the TPU's
+    small variants, rows 4 and 5). Returns the kernel entries."""
+    ln = check_layernorm("float16", TRAIN_ROWS)
+    ln_mixed = check_layernorm("float16", TRAIN_ROWS, res_dtype_name="float32")
+    ln_bwd = check_layernorm_bwd("float16")
+    ln["also_checked"] = [check_layernorm("float16", S2S_ROWS, S2S_D)]
+    ln_mixed["also_checked"] = [check_layernorm("float16", S2S_ROWS, S2S_D,
+                                                res_dtype_name="float32")]
+    ln_bwd["also_checked"] = [check_layernorm_bwd("float16", S2S_ROWS, S2S_D)]
+    rows = (f"{_FA}:548", f"{_FA}:765", f"{_FA}:815")
+    small = (f"{_FA}:370", f"{_FA}:433", f"{_FA}:433")
+    fwd, dq, dkv = check_flash_bf16(TRAIN_B, TRAIN_SEQ, ATTN_DROPOUT, False, rows,
+                                    dtype="float16")
+    for extra in (check_flash_bf16(TRAIN_B, TRAIN_SEQ, 0.0, False, rows, dtype="float16"),
+                  check_flash_bf16(FLASH_B, 128, ATTN_DROPOUT, True, small, dtype="float16")):
+        for entry, e in zip((fwd, dq, dkv), extra):
+            entry.setdefault("also_checked", []).append(e)
+    return [ln, ln_mixed, ln_bwd, fwd, dq, dkv]
+
+
+def _fp16_launches(model_name, layers):
+    """The launches of one O1 fp16 step: every residual LayerNorm in fp16
+    but the first of each stack, the mixed case (an fp16 sublayer output on
+    the f32 embedding sum: the mixed fp16 forward, the f32 backward); ERNIE
+    also the three attention kernels a layer. No bf16 launch."""
+    if model_name == "seq2seq":
+        norms, stacks, attn = S2S_ENC_NORMS + S2S_DEC_NORMS, 2, 0
+    else:
+        norms, stacks, attn = 2 * layers, 1, layers
+    want = {"layernorm_residual_fwd_mixed_fp16": stacks, "layernorm_residual_bwd": stacks,
+            "layernorm_residual_fwd_fp16": norms - stacks,
+            "layernorm_residual_bwd_fp16": norms - stacks,
+            "flash_attention_fwd_fp16": attn, "flash_attention_bwd_dq_fp16": attn,
+            "flash_attention_bwd_dkv_fp16": attn}
+    return {k: v for k, v in want.items() if v}
+
+
+@contextlib.contextmanager
+def _cpu_fp16_products():
+    """On the CPU, ``torch.matmul`` of fp16 operands (every product of the
+    port's ``linear`` and ``matmul``) runs in f32 and rounds its output to
+    fp16 once: the card's fp16 GEMMs accumulate in f32 and round once
+    (reduced-precision reductions off), and torch's own CPU half GEMM on the
+    host of an NVIDIA H100 80GB HBM3 ran ERNIE-base's batch-2 step in 237
+    s. Autograd rounds each product's gradients to fp16 at the same point,
+    the ``float()`` casts' backward."""
+    import torch
+
+    matmul = torch.matmul
+
+    def f32_products(a, b, *args, **kwargs):
+        if torch.float16 in (a.dtype, b.dtype) and a.device.type == "cpu":
+            return matmul(a.float(), b.float(), *args, **kwargs).half()
+        return matmul(a, b, *args, **kwargs)
+
+    torch.matmul = f32_products
+    try:
+        yield
+    finally:
+        torch.matmul = matmul
+
+
+def _fp16_scaled_grads(model, loss_fn, batch, dtype):
+    """One step's forward under ``auto_cast(level="O1", dtype=dtype)``, the
+    loss scaled by a ``GradScaler`` at ``FP16_PARITY_SCALE``, its backward,
+    and ``unscale_``: the gradients on the parameters. Returns (loss,
+    found_inf)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import SGD
+
+    scaler = amp.GradScaler(init_loss_scaling=FP16_PARITY_SCALE)
+    opt = SGD(learning_rate=0.0, parameters=model.parameters())
+    with amp.auto_cast(level="O1", dtype=dtype):
+        loss = loss_fn(model, *batch)
+    scaler.scale(loss).backward()
+    scaler.unscale_(opt)
+    return float(loss.detach()), scaler._found_inf
+
+
+def _fp16_models():
+    """(name, model from a seed on the CPU, dropout 0, loss_fn, the batch at
+    2 as numpy arrays, encoder layers) of the two models."""
+    import torch
+
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_base_config
+
+    cfg = ernie_base_config()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    arrays, _ = _ernie_batch(cfg, np.random.RandomState(33), seed=34)
+    ids, types, pos, mlm, nsp = arrays
+    two = [ids[:2], types[:2], pos[:2 * TRAIN_PRED], mlm[:2 * TRAIN_PRED], nsp[:2]]
+    return [("seq2seq", lambda: _seq2seq(seed=0, dropout=0.0), _s2s_loss,
+             s2s_batch(2, np.random.RandomState(30)), S2S_LAYERS),
+            ("ernie", lambda: ErnieForPretraining(cfg, generator=torch.Generator().manual_seed(3)),
+             _ernie_loss_fn(cfg), two, cfg.num_hidden_layers)]
+
+
+def _ernie_loss_fn(cfg):
+    """ERNIE's pretraining loss (MLM + NSP, ``BertPretrainingCriterion``)."""
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+
+    def loss_fn(m, ids, types, pos, mlm, nsp):
+        pred, rel = m(ids, types, masked_positions=pos)
+        return crit(pred, rel, mlm, nsp)
+    return loss_fn
+
+
+def fp16_parity():
+    """Phase 12s (b): one O1 fp16 step of the Transformer-base seq2seq and
+    of ERNIE-base (flash on) at batch 2, dropout 0, under a ``GradScaler``,
+    on the card and on the CPU's plain path (the attention through its
+    kernels' plain versions, ``_cpu_kernel_route``, its products through f32,
+    ``_cpu_fp16_products``) from the same weights:
+    the loss, the gradient's relative L2, the worst entry of each layer and
+    the share of entries differing, every reading logged before a limit
+    fails; the same step in bf16 on the card is the control the limits must
+    catch; the card's launches exactly the fp16 step's. Returns the
+    readings."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    out = {}
+    for name, make, loss_fn, arrays, layers in _fp16_models():
+        model = make()
+        cpu = copy.deepcopy(model)
+        t0 = time.perf_counter()
+        with _cpu_kernel_route(), _cpu_fp16_products():
+            cpu_loss, cpu_inf = _fp16_scaled_grads(cpu, loss_fn,
+                                                   [torch.from_numpy(a) for a in arrays],
+                                                   "float16")
+        cpu_s = time.perf_counter() - t0
+        batch = [torch.from_numpy(a).cuda() for a in arrays]
+        card = copy.deepcopy(model).cuda()
+        reset_launch_counts()
+        loss, found = _fp16_scaled_grads(card, loss_fn, batch, "float16")
+        counts = {k: v for k, v in launch_counts().items() if v}
+        control = copy.deepcopy(model).cuda()
+        c_loss, _ = _fp16_scaled_grads(control, loss_fn, batch, "bfloat16")
+        l2, differ, worst = _grad_l2(card, cpu)
+        c_l2, c_differ, c_worst = _grad_l2(control, cpu)
+        r = {"loss": loss, "cpu_loss": cpu_loss, "loss_err": abs(loss - cpu_loss),
+             "grad_rel_l2": l2, "grad_differing": differ, "worst_entry": worst,
+             "control_loss_err": abs(c_loss - cpu_loss), "control_grad_rel_l2": c_l2,
+             "control_grad_differing": c_differ, "control_worst_entry": c_worst,
+             "found_inf": [found, cpu_inf], "cpu_step_s": cpu_s, "launches": counts,
+             "limits": FP16_PARITY_LIMITS[name], "scale": FP16_PARITY_SCALE}
+        log(f"{name} O1 fp16 parity at batch 2: card loss {loss:.6f}, CPU {cpu_loss:.6f} "
+            f"({cpu_s:.1f} s): loss err {r['loss_err']:.3g}, gradient rel L2 {l2:.3g}, "
+            f"entries differing {differ:.4f}, worst entry {worst[0]:.3g} at {worst[1]}; bf16 "
+            f"control: loss err {r['control_loss_err']:.3g}, rel L2 {c_l2:.3g}, differing "
+            f"{c_differ:.4f}, worst {c_worst[0]:.3g}; launches {counts}")
+        del model, cpu, card, control
+        torch.cuda.empty_cache()
+        out[name] = r
+    for name, r in out.items():
+        lim = r["limits"]
+        want = _fp16_launches(name, S2S_LAYERS if name == "seq2seq" else 12)
+        if r["launches"] != want:
+            raise AssertionError(f"{name} fp16 parity step launched {r['launches']}; want {want}")
+        if any(r["found_inf"]) or not (np.isfinite(r["loss"]) and r["loss_err"] <= lim["loss"]
+                                       and r["grad_rel_l2"] <= lim["grad_rel_l2"]):
+            raise AssertionError(f"{name} O1 fp16 parity step beyond its limits: {r}")
+        if not (r["control_loss_err"] > lim["loss"]
+                and r["control_grad_rel_l2"] > lim["grad_rel_l2"]):
+            raise AssertionError(f"{name} O1 fp16 parity: the bf16 control passes the limits "
+                                 f"{lim}: {r}")
+    return out
+
+
+def jax_scale_rule(found_inf, init_loss_scaling, incr_ratio, decr_ratio, incr_every_n_steps,
+                   decr_every_n_nan_or_inf):
+    """The scale after each step of a run whose steps found an inf as
+    ``found_inf`` says: ``GradScaler.update`` of the JAX package
+    (``paddle_tpu/amp/__init__.py``), copied (this script imports no JAX)."""
+    scale, good, bad, out = float(init_loss_scaling), 0, 0, []
+    for found in found_inf:
+        if found:
+            bad, good = bad + 1, 0
+            if bad >= decr_every_n_nan_or_inf:
+                scale, bad = max(scale * decr_ratio, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every_n_steps:
+                scale, good = scale * incr_ratio, 0
+        out.append(scale)
+    return out
+
+
+def _fp16_run(label, model, opt, sched, loss_fn, batch, want, bf16_median_ms):
+    """``FP16_STEPS`` eager steps under ``auto_cast(level="O1",
+    dtype="float16")`` with a ``GradScaler`` of ``FP16_SCALER``:
+    ``scaler.minimize(opt, scaler.scale(loss))``, then the schedule (if
+    any) steps. Each step's launches must be ``want``; a skipped step must
+    leave every parameter and every optimizer moment bit-equal to before
+    it; the scales must be the JAX rule's on the run's own found-infs; at
+    least one step is skipped and the scale grows at least once; the
+    losses of the steps taken are finite. The last step is profiled for the
+    device's busy share. Returns (launches, readings)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    scaler = amp.GradScaler(**FP16_SCALER)
+    found, scales, losses, step_ms, wall_ms, held = [], [], [], [], [], []
+    total = {}
+    busy = prof_wall = None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(FP16_STEPS):
+        params = [p.detach().clone() for p in model.parameters()]
+        moments = {k: [t.clone() for t in v] for k, v in opt._accumulators.items()}
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        last = i == FP16_STEPS - 1
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last else (
+            contextlib.nullcontext())
+        reset_launch_counts()
+        with prof:
+            if last:
+                _tracer_warmup()
+            t0 = time.perf_counter()
+            ev[0].record()
+            with amp.auto_cast(level="O1", dtype="float16"):
+                loss = loss_fn(model, *batch)
+            scaler.minimize(opt, scaler.scale(loss))
+            if sched is not None:
+                sched.step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts != want:
+            raise AssertionError(f"{label} fp16 step {i}: launched {counts}; want {want}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        found.append(bool(scaler._found_inf))
+        scales.append(scaler.get_loss_scaling())
+        losses.append(float(loss.detach()))
+        if found[-1]:
+            same = (all(torch.equal(a, p.detach()) for a, p in zip(params, model.parameters()))
+                    and set(moments) == set(opt._accumulators)
+                    and all(torch.equal(a, b) for k, v in opt._accumulators.items()
+                            for a, b in zip(v, moments[k])))
+            held.append(same)
+        if last:
+            by_kind, _ = _device_time_by_kind(prof)
+            busy, prof_wall = sum(by_kind.values()), wall
+            _log_profile(prof, wall, f"{label} fp16 step {i} profiled", top=8)
+        else:
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            wall_ms.append(wall)
+        del params, moments
+    replay = jax_scale_rule(found, **FP16_SCALER)
+    taken = [ms for ms, f in zip(step_ms, found) if not f]
+    r = {"found_inf": found, "scales": scales, "jax_rule_scales": replay, "losses": losses,
+         "skipped": sum(found), "growths": sum(b > a for a, b in zip([FP16_SCALER[
+             "init_loss_scaling"]] + scales, scales)),
+         "skipped_state_bit_equal": held, "step_ms": step_ms,
+         "step_ms_median_taken": float(np.median(taken)) if taken else None,
+         "step_ms_median": float(np.median(step_ms)), "host_clock_ms": wall_ms,
+         "profiled_step_wall_ms": prof_wall, "profiled_step_busy_ms": busy,
+         "busy_share": busy / prof_wall, "launches_a_step": want,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "bf16_eager_step_ms_median": bf16_median_ms, "scaler": FP16_SCALER}
+    log(f"{label} O1 fp16, {FP16_STEPS} eager steps under GradScaler{FP16_SCALER}: found inf "
+        f"{found}, scales {scales} (the JAX rule: {replay}), losses "
+        f"{[round(x, 4) for x in losses]}; median step {r['step_ms_median']:.3f} ms (of the "
+        f"steps taken {r['step_ms_median_taken']}; the bf16 eager step of the same model "
+        f"{bf16_median_ms}), busy share {r['busy_share']:.1%} of a profiled step; peak "
+        f"{r['peak_gib']:.2f} GiB; launches a step {want}")
+    if scales != replay:
+        raise AssertionError(f"{label} fp16: scales {scales}, the JAX rule gives {replay}")
+    if not r["skipped"] or not r["growths"] or not all(held):
+        raise AssertionError(f"{label} fp16: {r['skipped']} skipped, {r['growths']} growths, "
+                             f"state held on the skipped steps {held}")
+    if not all(np.isfinite(x) for x, f in zip(losses, found) if not f):
+        raise AssertionError(f"{label} fp16: a loss not finite on a step taken: {losses}")
+    return total, r
+
+
+def fp16_paths(bf16_medians):
+    """Phase 12s. (a) the fp16 kernels (``check_fp16_kernels``); (b) the
+    parity steps at batch 2 (``fp16_parity``); (c) Transformer-base
+    (phase 12c's model and batch: 64 pairs x 64 + 64 tokens, Adam(0.9,
+    0.98, 1e-9) under ``NoamDecay(512, 4000)`` from step 1000 with
+    ``ClipGradByGlobalNorm(1.0)``, dropout 0.1) and ERNIE-base (12e's: 32 x
+    512, 80 predictions a row, AdamW 1e-4, dropout 0.1, flash on), 10 eager
+    O1 fp16 steps each under the overflowing ``GradScaler`` of
+    ``FP16_SCALER`` (``_fp16_run``). ``bf16_medians`` are 12c's and 12e's
+    eager medians, logged beside. Returns (kernel entries, launches of the
+    runs, readings)."""
+    import torch
+
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_base_config
+    from paddle_tpu_torch.optimizer import Adam, AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+
+    t0 = time.perf_counter()
+    # a product's split-K sums in f32, as train_step sets it (framework/jit.py _set_precision)
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    kernels = check_fp16_kernels()
+    parity = fp16_parity()
+    torch.cuda.empty_cache()
+    model = _seq2seq(seed=1).cuda()
+    batch = [torch.from_numpy(a).cuda() for a in s2s_batch(S2S_B, np.random.RandomState(31))]
+    sched = NoamDecay(d_model=S2S_D, warmup_steps=S2S_WARMUP, learning_rate=1.0,
+                      last_epoch=S2S_NOAM_START - 1)
+    opt = Adam(learning_rate=sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+               parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(S2S_CLIP))
+    s2s_counts, s2s = _fp16_run("seq2seq", model, opt, sched, _s2s_loss, batch,
+                                _fp16_launches("seq2seq", S2S_LAYERS), bf16_medians["seq2seq"])
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    cfg = ernie_base_config()
+    cfg.use_flash_attention = True
+    model = ErnieForPretraining(cfg, generator=torch.Generator().manual_seed(3)).cuda()
+    arrays, _ = _ernie_batch(cfg, np.random.RandomState(33), seed=34)
+    batch = [torch.from_numpy(a).cuda() for a in arrays]
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    er_counts, ernie = _fp16_run("ERNIE", model, opt, None, _ernie_loss_fn(cfg), batch,
+                                 _fp16_launches("ernie", cfg.num_hidden_layers),
+                                 bf16_medians["ernie"])
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    counts = {k: s2s_counts.get(k, 0) + er_counts.get(k, 0) for k in {**s2s_counts, **er_counts}}
+    phase_s = time.perf_counter() - t0
+    log(f"phase 12s (float16): {phase_s:.1f} s")
+    return kernels, counts, {"parity": parity, "seq2seq": s2s, "ernie": ernie,
+                             "phase_s": phase_s}
 
 
 # -- BASELINE.json's first config: the MNIST LeNet as a static program, SGD --------
@@ -11515,6 +11987,11 @@ def main() -> int:
     compiled_counts, compiled = compiled_steps()
     s2s_counts, s2s = train_seq2seq_and_ernie()
     torch.cuda.empty_cache()
+    fp16_kernels, fp16_counts, fp16 = fp16_paths(
+        {"seq2seq": s2s["seq2seq_amp"]["eager"]["step_ms_median"],
+         "ernie": s2s["ernie_amp"]["eager"]["step_ms_median"]})
+    kernels += fp16_kernels
+    torch.cuda.empty_cache()
     lenet_counts, lenet = train_lenet_static()
     torch.cuda.empty_cache()
     ptb_counts, ptb = train_ptb_lm_static()
@@ -11573,12 +12050,14 @@ def main() -> int:
         # the sharded step at world 1 over NCCL and both ranks of the gloo
         # world: ResNet-50 and ZeRO-1 BERT-base (12r)
         k["launches_distributed"] = dist_counts.get(name, 0)
+        # the O1 fp16 steps of Transformer-base and ERNIE-base under a GradScaler (12s)
+        k["launches_fp16"] = fp16_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"]
                          + k["launches_fleet"] + k["launches_dygraph"]
                          + k["launches_monitored"] + k["launches_to_static"]
                          + k["launches_ops_tail"] + k["launches_hapi"]
-                         + k["launches_distributed"])
+                         + k["launches_distributed"] + k["launches_fp16"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -11591,7 +12070,7 @@ def main() -> int:
                       "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet,
                       "dygraph_front_end": dygraph, "monitor": monitored,
                       "to_static": to_static, "ops_tail": ops_tail, "hapi": hapi,
-                      "distributed": distributed}))
+                      "distributed": distributed, "fp16": fp16}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,12 +1,17 @@
-// Flash-attention forward for Hopper (sm_90a), bfloat16 operands on the
-// tensor cores by wgmma from TMA-fed shared memory: the AMP path.
+// Flash-attention forward for Hopper (sm_90a), 16-bit operands on the
+// tensor cores by wgmma from TMA-fed shared memory: the AMP path, in
+// bfloat16 and float16 (one template on the element type T; the two
+// instances are the entries ptt_flash_attention_fwd_bf16 and _f16).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py _fwd_core/_pallas_fwd
-// and _fwd_small_core/_pallas_fwd_small on bf16 q, k, v, with the TPU
+// and _fwd_small_core/_pallas_fwd_small on bf16 or fp16 q, k, v (the TPU
+// kernel takes either: its _supported has no dtype gate), with the TPU
 // kernel's rounding points: S = q k^T accumulated in f32, scaled, masked and
-// biased in f32, the online softmax in f32, the probabilities rounded to
-// bf16 before P V (p_acc.astype(vt.dtype)), the output accumulated in f32
-// and rounded to bf16 once, at the end; lse = m + log(l) in f32.
+// biased in f32, the online softmax in f32, the probabilities rounded to T
+// before P V (p_acc.astype(vt.dtype)), the output accumulated in f32 and
+// rounded to T once, at the end (to nearest even; in fp16 a value past
+// 65504 becomes inf); lse = m + log(l) in f32. The probabilities, dropped
+// and scaled by 1 / (1 - rate), stay within fp16's range.
 //
 // Bound on the H100: the two products are 4*Lq*Lk*D flops a head against
 // 989 TFLOP/s, the operands 2*(2*Lq + 2*Lk)*D bytes against 3.35 TB/s; at
@@ -23,7 +28,7 @@
 // keys into a ring of kStages stages, K's and V's on their own full barriers
 // (S can start before V lands), with the tile's bias row (a pad mask, sq ==
 // 0) staged beside them; eight consumer warps release a stage. S = q k^T is
-// one wgmma chain from shared memory; the probabilities, rounded to bf16,
+// one wgmma chain from shared memory; the probabilities, rounded to T,
 // are the register A operand of P V, whose B is the V tile as it lies
 // (MN-major). Each iteration issues S_j, then P_{j-1} V_{j-1}, then draws
 // tile j's dropout bits while both run, and waits for S_j only (FA3's
@@ -36,7 +41,7 @@
 // every row of the block sees key 0; keys and rows past Lk and Lq load as
 // zeros (the tensor maps are 3-D) and are masked. Dropout: an entry is
 // dropped where its 32 Philox bits, counted by (key column / 4, query row,
-// batch*head), fall below rate * 2^32, so the f32 and bf16 kernels drop the
+// batch*head), fall below rate * 2^32, so the f32 and 16-bit kernels drop the
 // same entries; the denominator sums the undropped probabilities. The
 // kernel stores the mask, one bit an entry (the quad's four lanes OR their
 // bits into 32-key words), so the backward reads it instead of drawing it
@@ -53,7 +58,7 @@ constexpr int kStages = 3;  // K/V ring depth: with two the next tile's loads la
 
 template <int D, int BN>
 constexpr size_t fwd_smem_bytes() {
-  return 1024 + (size_t)(2 * kBlockRows + 2 * kStages * BN) * D * sizeof(bf16) +
+  return 1024 + (size_t)(2 * kBlockRows + 2 * kStages * BN) * D * 2 +
          kStages * BN * sizeof(float) + (4 + 3 * kStages) * sizeof(uint64_t);
 }
 
@@ -68,26 +73,26 @@ __device__ __forceinline__ int fwd_tiles(int q0, int lq, int lk, int causal, int
 
 // bias_mode: 0 none, 1 a row per (batch, head) (sq == 0: staged in shared
 // memory a tile at a time), 2 anything else (read per entry)
-template <int D, int BN, bool kDrop>
+template <typename T, int D, int BN, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                                    const __grid_constant__ CUtensorMap tk,
-                                    const __grid_constant__ CUtensorMap tv,
-                                    const float* __restrict__ bias, int64_t sb, int64_t sh,
-                                    int64_t sq, int64_t sk, int bias_mode,
-                                    bf16* __restrict__ out, float* __restrict__ lse, int heads,
-                                    int lq, int lk, int row_blocks, int n_items, float scale,
-                                    int causal, const uint32_t* __restrict__ seed,
-                                    uint32_t* __restrict__ keep_out, int words,
-                                    uint32_t threshold, float inv_keep) {
+    flash_attention_fwd_16_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const float* __restrict__ bias, int64_t sb, int64_t sh,
+                                  int64_t sq, int64_t sk, int bias_mode,
+                                  T* __restrict__ out, float* __restrict__ lse, int heads,
+                                  int lq, int lk, int row_blocks, int n_items, float scale,
+                                  int causal, const uint32_t* __restrict__ seed,
+                                  uint32_t* __restrict__ keep_out, int words,
+                                  uint32_t threshold, float inv_keep) {
   using P = Panels<D>;
   constexpr int NT = BN / 8;  // 8-key blocks a tile
   constexpr int WT = BN / 32;  // 32-key words of the mask a tile row
-  constexpr int kTileBytes = BN * D * sizeof(bf16);
+  constexpr int kTileBytes = BN * D * sizeof(T);
   extern __shared__ uint8_t smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // [2][kBlockRows * D]
-  bf16* ks = qs + 2 * kBlockRows * D;                       // [kStages][BN * D]
-  bf16* vs = ks + kStages * BN * D;
+  T* qs = reinterpret_cast<T*>(align1024(smem_raw));  // [2][kBlockRows * D]
+  T* ks = qs + 2 * kBlockRows * D;                    // [kStages][BN * D]
+  T* vs = ks + kStages * BN * D;
   float* bs = reinterpret_cast<float*>(vs + kStages * BN * D);  // [kStages][BN] bias row
   uint64_t* q_full = reinterpret_cast<uint64_t*>(bs + kStages * BN);  // [2]
   uint64_t* q_empty = q_full + 2;                                     // [2]
@@ -123,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) {
           const int qb = it & 1;
           mbar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);  // the buffer's last item released
-          mbar_arrive_tx(&q_full[qb], kBlockRows * D * sizeof(bf16));
+          mbar_arrive_tx(&q_full[qb], kBlockRows * D * sizeof(T));
           tma_tile<D, kBlockRows>(qs + qb * kBlockRows * D, &tq, &q_full[qb], q0, bh);
         }
         // a tile's bias row is read a tile ahead, so the loads land while the
@@ -165,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     float o[P::kN][P::kW / 2];
     float s[BN / 2];          // S of the newest tile, then its probabilities
-    uint32_t pa[BN / 16][4];  // the probabilities P V takes, bf16
+    uint32_t pa[BN / 16][4];  // the probabilities P V takes, in T
     uint32_t kw[2][WT];  // the tile's keep bits: row h, key 32c + 8i + 2t + b at bit 8i + b
 
     int tc = 0;  // tiles consumed
@@ -184,7 +189,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         brow[h] = bias_mode == 2 ? bias + b * sb + hd * sh + (int64_t)safe * sq : nullptr;
       }
       const int qb = it & 1;
-      const bf16* qw = qs + qb * kBlockRows * D + 64 * wg * P::kW;  // this warpgroup's rows
+      const T* qw = qs + qb * kBlockRows * D + 64 * wg * P::kW;  // this warpgroup's rows
 #pragma unroll
       for (int p = 0; p < P::kN; ++p)
 #pragma unroll
@@ -314,7 +319,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       reg_fence(s);
       softmax(0, corr);
-      to_a<BN>(s, pa);
+      to_a<BN, T>(s, pa);
       for (int j = 1; j < n_tiles; ++j) {
         mbar_wait(&k_full[(tc + j) % kStages], ((tc + j) / kStages) & 1);
         issue_s(j);
@@ -333,7 +338,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int p = 0; p < P::kN; ++p)
 #pragma unroll
           for (int i = 0; i < P::kW / 2; ++i) o[p][i] *= corr[(i >> 1) & 1];
-        to_a<BN>(s, pa);
+        to_a<BN, T>(s, pa);
       }
       const int last = tc + n_tiles - 1;
       mbar_wait(&v_full[last % kStages], (last / kStages) & 1);
@@ -351,13 +356,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
         if (iq[h] >= lq) continue;
         const float lsafe = l[h] == 0.f ? 1.f : l[h];  // the TPU kernel's l == 0 guard
-        bf16* orow = out + ((int64_t)bh * lq + iq[h]) * D + 2 * t;
+        T* orow = out + ((int64_t)bh * lq + iq[h]) * D + 2 * t;
 #pragma unroll
         for (int p = 0; p < P::kN; ++p)
 #pragma unroll
           for (int c = 0; c < P::kW / 8; ++c)
             *reinterpret_cast<uint32_t*>(orow + p * P::kW + 8 * c) =
-                pack_bf16(o[p][4 * c + 2 * h] / lsafe, o[p][4 * c + 2 * h + 1] / lsafe);
+                Elem<T>::pack(o[p][4 * c + 2 * h] / lsafe, o[p][4 * c + 2 * h + 1] / lsafe);
         if (t == 0) lse[(int64_t)bh * lq + iq[h]] = m[h] + logf(lsafe);
       }
     }
@@ -365,10 +370,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 struct Args {
-  const bf16 *q, *k, *v;
+  const void *q, *k, *v;
   const float* bias;
   int64_t sb, sh, sq, sk;
-  bf16* out;
+  void* out;
   float* lse;
   int batch, heads, lq, lk;
   float scale;
@@ -379,34 +384,62 @@ struct Args {
   float inv_keep;
 };
 
-template <int D, int BN, bool kDrop>
+template <typename T, int D, int BN, bool kDrop>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D, BN>();
   const int bh = a.batch * a.heads, row_blocks = (a.lq + kBlockRows - 1) / kBlockRows;
   const int n_items = bh * row_blocks;
   CUtensorMap tq, tk, tv;
-  int e = tensor_map(&tq, a.q, bh, a.lq, D, kBlockRows);
-  if (e == 0) e = tensor_map(&tk, a.k, bh, a.lk, D, BN);
-  if (e == 0) e = tensor_map(&tv, a.v, bh, a.lk, D, BN);
+  int e = tensor_map(&tq, a.q, bh, a.lq, D, kBlockRows, Elem<T>::kMap);
+  if (e == 0) e = tensor_map(&tk, a.k, bh, a.lk, D, BN, Elem<T>::kMap);
+  if (e == 0) e = tensor_map(&tv, a.v, bh, a.lk, D, BN, Elem<T>::kMap);
   if (e != 0) return e;
   const int bias_mode = a.bias == nullptr ? 0 : a.sq == 0 ? 1 : 2;
-  auto* kernel = flash_attention_fwd_bf16_kernel<D, BN, kDrop>;
+  auto* kernel = flash_attention_fwd_16_kernel<T, D, BN, kDrop>;
   // above 48 KB a kernel's dynamic shared memory must be allowed first
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)min(n_items, sm_count()), kThreads, smem, stream>>>(
-      tq, tk, tv, a.bias, a.sb, a.sh, a.sq, a.sk, bias_mode, a.out, a.lse, a.heads, a.lq, a.lk,
+      tq, tk, tv, a.bias, a.sb, a.sh, a.sq, a.sk, bias_mode, static_cast<T*>(a.out), a.lse,
+      a.heads, a.lq, a.lk,
       row_blocks, n_items, a.scale, a.causal, a.seed, a.keep, (a.lk + 31) / 32, a.threshold,
       a.inv_keep);
   return (int)cudaGetLastError();
 }
 
 // the key tile BN of each head dim (the plain version's _KEY_TILES follows it)
-template <int D>
+template <typename T, int D>
 int launch_d(const Args& a, cudaStream_t stream) {
   constexpr int BN = D == 128 ? 64 : 128;
-  return a.seed != nullptr ? launch<D, BN, true>(a, stream) : launch<D, BN, false>(a, stream);
+  return a.seed != nullptr ? launch<T, D, BN, true>(a, stream)
+                           : launch<T, D, BN, false>(a, stream);
+}
+
+template <typename T>
+int entry(const void* q, const void* k, const void* v, const void* bias, int64_t sb, int64_t sh,
+          int64_t sq, int64_t sk, void* out, void* lse, void* keep, int batch, int heads, int lq,
+          int lk, int d, float scale, int causal, const void* seed, uint32_t threshold,
+          float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch * heads == 0 || lq == 0) return (int)cudaSuccess;
+  if (seed != nullptr && keep == nullptr) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const float*>(bias),
+               sb, sh, sq, sk,
+               out, static_cast<float*>(lse),
+               batch, heads, lq, lk, scale, causal,
+               static_cast<const uint32_t*>(seed), static_cast<uint32_t*>(keep),
+               threshold, inv_keep};
+  switch (d) {
+    case 32:
+      return launch_d<T, 32>(a, s);
+    case 64:
+      return launch_d<T, 64>(a, s);
+    case 128:
+      return launch_d<T, 128>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -427,24 +460,17 @@ extern "C" int ptt_flash_attention_fwd_bf16(const void* q, const void* k, const 
                                             int batch, int heads, int lq, int lk, int d,
                                             float scale, int causal, const void* seed,
                                             uint32_t threshold, float inv_keep, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch * heads == 0 || lq == 0) return (int)cudaSuccess;
-  if (seed != nullptr && keep == nullptr) return (int)cudaErrorInvalidValue;
-  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<const float*>(bias),
-               sb, sh, sq, sk,
-               static_cast<bf16*>(out), static_cast<float*>(lse),
-               batch, heads, lq, lk, scale, causal,
-               static_cast<const uint32_t*>(seed), static_cast<uint32_t*>(keep),
-               threshold, inv_keep};
-  switch (d) {
-    case 32:
-      return launch_d<32>(a, s);
-    case 64:
-      return launch_d<64>(a, s);
-    case 128:
-      return launch_d<128>(a, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return entry<bf16>(q, k, v, bias, sb, sh, sq, sk, out, lse, keep, batch, heads, lq, lk, d, scale,
+                     causal, seed, threshold, inv_keep, stream);
+}
+
+// The same in float16: q/k/v/out float16, everything else as above.
+extern "C" int ptt_flash_attention_fwd_f16(const void* q, const void* k, const void* v,
+                                           const void* bias, int64_t sb, int64_t sh, int64_t sq,
+                                           int64_t sk, void* out, void* lse, void* keep,
+                                           int batch, int heads, int lq, int lk, int d,
+                                           float scale, int causal, const void* seed,
+                                           uint32_t threshold, float inv_keep, void* stream) {
+  return entry<__half>(q, k, v, bias, sb, sh, sq, sk, out, lse, keep, batch, heads, lq, lk, d,
+                       scale, causal, seed, threshold, inv_keep, stream);
 }

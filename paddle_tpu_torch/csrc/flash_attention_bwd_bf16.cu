@@ -1,18 +1,21 @@
-// Flash-attention backward for Hopper (sm_90a), bfloat16 operands on the
+// Flash-attention backward for Hopper (sm_90a), 16-bit operands on the
 // tensor cores by wgmma from TMA-fed shared memory: the dQ and dK/dV kernels
-// of the AMP path.
+// of the AMP path, in bfloat16 and float16 (templates on the element type T;
+// the entries ptt_flash_attention_bwd_{dq,dkv}_bf16 and _f16).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py _pallas_bwd (_dq_core,
-// _dkv_core) and _pallas_bwd_small on bf16 q, k, v and dO, with the TPU
-// kernels' rounding points. From the forward's f32 lse and
+// _dkv_core) and _pallas_bwd_small on bf16 or fp16 q, k, v and dO, with the
+// TPU kernels' rounding points. From the forward's f32 lse and
 // delta = rowsum(dO * O) (f32) both recompute
 //   P = exp(scale * q k^T [causal-masked] + bias - lse)        (f32)
 //   dP = (dO v^T) o M,  dS = P o (dP - delta)                   (f32)
 // and then dQ = scale * round(dS) k, dK = scale * round(dS)^T q and
-// dV = round(P o M)^T dO, where round() is the bf16 rounding the TPU
+// dV = round(P o M)^T dO, where round() is the rounding to T the TPU
 // kernels apply before those products (ds.astype(kt.dtype),
 // p_v.T.astype(do.dtype)); every product accumulates in f32 and each
-// gradient is rounded to bf16 once, at the end. The dQ kernel computes
+// gradient is rounded to T once, at the end. In fp16, dO and so dP and dS
+// carry the loss scale: a dS or a gradient past 65504 rounds to inf, never
+// to a clamped value, so the loss scaler sees the overflow. The dQ kernel computes
 // delta itself, from the rows of dO and O it owns, and writes it for the
 // dK/dV kernel that follows it on the stream.
 //
@@ -33,7 +36,7 @@
 // dP^T in the dK/dV kernel, keys as rows) are two wgmma chains from shared
 // memory, issued before the tile's mask is read and while the previous
 // tile's gradient products still run. The softmax, bias, masks, dropout and
-// dS are applied on the accumulators in registers; rounded to bf16 they are
+// dS are applied on the accumulators in registers; rounded to T they are
 // the register A operand of the next products, whose B is the streamed tile
 // as it lies (MN-major). Each item writes only its own rows: no atomics, and
 // the gradients repeat bit for bit.
@@ -65,7 +68,7 @@ __host__ __device__ inline int bias_kind(const void* bias, int64_t sq) {
 
 template <int D, int BK>
 constexpr size_t dq_smem_bytes() {
-  return 1024 + (size_t)(4 * kBlockRows + 2 * stages<D>() * BK) * D * sizeof(bf16) +
+  return 1024 + (size_t)(4 * kBlockRows + 2 * stages<D>() * BK) * D * 2 +
          stages<D>() * (BK + kBlockRows * BK / 32) * sizeof(float) +
          (4 + 2 * stages<D>()) * sizeof(uint64_t);
 }
@@ -78,24 +81,24 @@ __device__ __forceinline__ int dq_tiles(int q0, int lq, int lk, int causal, int 
   return (n_keys + bk - 1) / bk;
 }
 
-template <int D, int BK, bool kDrop>
+template <typename T, int D, int BK, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_bwd_dq_bf16_kernel(
+    flash_attention_bwd_dq_16_kernel(
         const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
         const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
         const float* __restrict__ bias, int64_t sb, int64_t sh, int64_t sq, int64_t sk,
-        const bf16* __restrict__ out, const bf16* __restrict__ dout,
-        const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+        const T* __restrict__ out, const T* __restrict__ dout,
+        const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
         int heads, int lq, int lk, int row_blocks, int n_items, float scale, int causal,
         const uint32_t* __restrict__ keep_in, int words, float inv_keep) {
   using P = Panels<D>;
   constexpr int S = stages<D>(), NT = BK / 8, WT = BK / 32;
-  constexpr int kOwnBytes = 2 * kBlockRows * D * sizeof(bf16);
-  constexpr int kTileBytes = 2 * BK * D * sizeof(bf16);
+  constexpr int kOwnBytes = 2 * kBlockRows * D * sizeof(T);
+  constexpr int kTileBytes = 2 * BK * D * sizeof(T);
   extern __shared__ uint8_t smem_raw[];
-  bf16* own = reinterpret_cast<bf16*>(align1024(smem_raw));  // [2][q, dO][kBlockRows * D]
-  bf16* ks = own + 4 * kBlockRows * D;                        // [S][BK * D]
-  bf16* vs = ks + S * BK * D;
+  T* own = reinterpret_cast<T*>(align1024(smem_raw));  // [2][q, dO][kBlockRows * D]
+  T* ks = own + 4 * kBlockRows * D;                    // [S][BK * D]
+  T* vs = ks + S * BK * D;
   float* bs = reinterpret_cast<float*>(vs + S * BK * D);  // [S][BK] bias row
   // [S][kBlockRows][WT] the forward's stored mask of the tile, when given
   uint32_t* mk = reinterpret_cast<uint32_t*>(bs + S * BK);
@@ -130,7 +133,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* brow = mode == 1 ? bias + (bh / heads) * sb + (bh % heads) * sh : nullptr;
         if (lane == 0) {
           const int ib = it & 1;
-          bf16* qo = own + ib * 2 * kBlockRows * D;
+          T* qo = own + ib * 2 * kBlockRows * D;
           mbar_wait(&own_empty[ib], ((it >> 1) & 1) ^ 1);
           mbar_arrive_tx(&own_full[ib], kOwnBytes);
           tma_tile<D, kBlockRows>(qo, &tq, &own_full[ib], q0, bh);
@@ -179,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int w = (threadIdx.x / 32) % 4, g = lane >> 2, t = lane & 3;
     float acc[P::kN][P::kW / 2];
     float s[BK / 2], dp[BK / 2];  // S and dP of the newest tile; s then holds dS
-    uint32_t da[BK / 16][4];      // dS as the dQ product takes it, bf16
+    uint32_t da[BK / 16][4];      // dS as the dQ product takes it, in T
     uint32_t kw[2][WT];           // the tile's keep bits, as the forward's draw_rows lays them
 
     int tc = 0;
@@ -216,11 +219,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
 #pragma unroll
         for (int i = 0; i < kVec; ++i) {
-          const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av[i]);
-          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
+          const uint32_t a2[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+          const uint32_t o2[4] = {ov[i].x, ov[i].y, ov[i].z, ov[i].w};
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const float2 x = __bfloat1622float2(a2[c]), y = __bfloat1622float2(o2[c]);
+            const float2 x = Elem<T>::widen(a2[c]), y = Elem<T>::widen(o2[c]);
             sum = fmaf(x.x, y.x, sum);
             sum = fmaf(x.y, y.y, sum);
           }
@@ -232,8 +235,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 __shfl_sync(0xffffffffu, sum, 2 * g + 16)};
       const float lse2[2] = {lse_r[0] * kLog2e, lse_r[1] * kLog2e};
       const int ib = it & 1;
-      const bf16* qw = own + ib * 2 * kBlockRows * D + 64 * wg * P::kW;  // this warpgroup's rows
-      const bf16* dow = qw + kBlockRows * D;
+      const T* qw = own + ib * 2 * kBlockRows * D + 64 * wg * P::kW;  // this warpgroup's rows
+      const T* dow = qw + kBlockRows * D;
 #pragma unroll
       for (int p = 0; p < P::kN; ++p)
 #pragma unroll
@@ -299,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         } else {
           grad(j, false, false);
         }
-        to_a<BK>(s, da);
+        to_a<BK, T>(s, da);
         wgmma_fence();
         product_cols<D, BK>(acc, da, ks + st * BK * D);  // dQ += round(dS) k
         wgmma_commit();
@@ -315,13 +318,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (iq[h] >= lq) continue;
-        bf16* orow = dq + ((int64_t)bh * lq + iq[h]) * D + 2 * t;
+        T* orow = dq + ((int64_t)bh * lq + iq[h]) * D + 2 * t;
 #pragma unroll
         for (int p = 0; p < P::kN; ++p)
 #pragma unroll
           for (int c = 0; c < P::kW / 8; ++c)
             *reinterpret_cast<uint32_t*>(orow + p * P::kW + 8 * c) =
-                pack_bf16(acc[p][4 * c + 2 * h] * scale, acc[p][4 * c + 2 * h + 1] * scale);
+                Elem<T>::pack(acc[p][4 * c + 2 * h] * scale, acc[p][4 * c + 2 * h + 1] * scale);
       }
     }
   }
@@ -331,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D, int BQ>
 constexpr size_t dkv_smem_bytes() {
-  return 1024 + (size_t)(4 * kBlockRows + 2 * stages<D>() * BQ) * D * sizeof(bf16) +
+  return 1024 + (size_t)(4 * kBlockRows + 2 * stages<D>() * BQ) * D * 2 +
          stages<D>() * BQ * (2 + kBlockRows / 32) * sizeof(float) +
          (4 + 2 * stages<D>()) * sizeof(uint64_t);
 }
@@ -344,24 +347,24 @@ __device__ __forceinline__ int dkv_first_row(int k0, int lq, int lk, int causal,
   return causal && shift >= 0 ? max(0, k0 - shift) / bq * bq : 0;
 }
 
-template <int D, int BQ, bool kDrop>
+template <typename T, int D, int BQ, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_bwd_dkv_bf16_kernel(
+    flash_attention_bwd_dkv_16_kernel(
         const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
         const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
         const float* __restrict__ bias, int64_t sb, int64_t sh, int64_t sq, int64_t sk,
-        const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
-        bf16* __restrict__ dv, int heads, int lq, int lk, int row_blocks, int n_items,
+        const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+        T* __restrict__ dv, int heads, int lq, int lk, int row_blocks, int n_items,
         float scale, int causal, const uint32_t* __restrict__ keep_in, int words,
         float inv_keep) {
   using P = Panels<D>;
   constexpr int S = stages<D>(), NT = BQ / 8;
-  constexpr int kOwnBytes = 2 * kBlockRows * D * sizeof(bf16);
-  constexpr int kTileBytes = 2 * BQ * D * sizeof(bf16);
+  constexpr int kOwnBytes = 2 * kBlockRows * D * sizeof(T);
+  constexpr int kTileBytes = 2 * BQ * D * sizeof(T);
   extern __shared__ uint8_t smem_raw[];
-  bf16* own = reinterpret_cast<bf16*>(align1024(smem_raw));  // [2][k, v][kBlockRows * D]
-  bf16* qs = own + 4 * kBlockRows * D;                        // [S][BQ * D]
-  bf16* dos = qs + S * BQ * D;
+  T* own = reinterpret_cast<T*>(align1024(smem_raw));  // [2][k, v][kBlockRows * D]
+  T* qs = own + 4 * kBlockRows * D;                    // [S][BQ * D]
+  T* dos = qs + S * BQ * D;
   float* lts = reinterpret_cast<float*>(dos + S * BQ * D);  // [S][BQ] lse * log2(e) of the tile
   float* dlts = lts + S * BQ;                               // [S][BQ] its delta
   // [S][BQ][kBlockRows / 32] the forward's stored mask of the tile's query rows
@@ -400,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* db = delta + (int64_t)bh * lq;
         if (lane == 0) {
           const int ib = it & 1;
-          bf16* kv = own + ib * 2 * kBlockRows * D;
+          T* kv = own + ib * 2 * kBlockRows * D;
           mbar_wait(&own_empty[ib], ((it >> 1) & 1) ^ 1);
           mbar_arrive_tx(&own_full[ib], kOwnBytes);
           tma_tile<D, kBlockRows>(kv, &tk, &own_full[ib], k0, bh);
@@ -478,8 +481,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         bcol[h] = mode == 2 ? base + (int64_t)safe * sk : nullptr;
       }
       const int ib = it & 1;
-      const bf16* kw = own + ib * 2 * kBlockRows * D + 64 * wg * P::kW;  // this warpgroup's rows
-      const bf16* vw = kw + kBlockRows * D;
+      const T* kw = own + ib * 2 * kBlockRows * D + 64 * wg * P::kW;  // this warpgroup's rows
+      const T* vw = kw + kBlockRows * D;
 #pragma unroll
       for (int p = 0; p < P::kN; ++p)
 #pragma unroll
@@ -574,8 +577,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         } else {
           grad(i, false, false);
         }
-        to_a<BQ>(s, pa);
-        to_a<BQ>(dp, da);
+        to_a<BQ, T>(s, pa);
+        to_a<BQ, T>(dp, da);
         wgmma_fence();
         product_cols<D, BQ>(acc_v, pa, dos + st * BQ * D);  // dV += round(P o M)^T dO
         product_cols<D, BQ>(acc_k, da, qs + st * BQ * D);   // dK += round(dS)^T q
@@ -602,10 +605,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int c = 0; c < P::kW / 8; ++c) {
             const int col = p * P::kW + 8 * c;
-            *reinterpret_cast<uint32_t*>(dk + row + col) =
-                pack_bf16(acc_k[p][4 * c + 2 * h] * scale, acc_k[p][4 * c + 2 * h + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dk + row + col) = Elem<T>::pack(
+                acc_k[p][4 * c + 2 * h] * scale, acc_k[p][4 * c + 2 * h + 1] * scale);
             *reinterpret_cast<uint32_t*>(dv + row + col) =
-                pack_bf16(acc_v[p][4 * c + 2 * h], acc_v[p][4 * c + 2 * h + 1]);
+                Elem<T>::pack(acc_v[p][4 * c + 2 * h], acc_v[p][4 * c + 2 * h + 1]);
           }
       }
     }
@@ -615,10 +618,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // -- launches ----------------------------------------------------------------------
 
 struct Args {
-  const bf16 *q, *k, *v;
+  const void *q, *k, *v;
   const float* bias;
   int64_t sb, sh, sq, sk;
-  const bf16* dout;
+  const void* dout;
   const float* lse;
   int batch, heads, lq, lk;
   float scale;
@@ -633,134 +636,151 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D, int BK, bool kDrop>
-int launch_dq(const Args& a, const bf16* out, float* delta, bf16* dq, cudaStream_t stream) {
+template <typename T, int D, int BK, bool kDrop>
+int launch_dq(const Args& a, const void* out, float* delta, void* dq, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D, BK>();
+  constexpr CUtensorMapDataType kMap = Elem<T>::kMap;
   const int bh = a.batch * a.heads, row_blocks = (a.lq + kBlockRows - 1) / kBlockRows;
   const int n_items = bh * row_blocks;
   CUtensorMap tq, tdo, tk, tv;
-  int e = tensor_map(&tq, a.q, bh, a.lq, D, kBlockRows);
-  if (e == 0) e = tensor_map(&tdo, a.dout, bh, a.lq, D, kBlockRows);
-  if (e == 0) e = tensor_map(&tk, a.k, bh, a.lk, D, BK);
-  if (e == 0) e = tensor_map(&tv, a.v, bh, a.lk, D, BK);
+  int e = tensor_map(&tq, a.q, bh, a.lq, D, kBlockRows, kMap);
+  if (e == 0) e = tensor_map(&tdo, a.dout, bh, a.lq, D, kBlockRows, kMap);
+  if (e == 0) e = tensor_map(&tk, a.k, bh, a.lk, D, BK, kMap);
+  if (e == 0) e = tensor_map(&tv, a.v, bh, a.lk, D, BK, kMap);
   if (e != 0) return e;
-  auto* kernel = flash_attention_bwd_dq_bf16_kernel<D, BK, kDrop>;
+  auto* kernel = flash_attention_bwd_dq_16_kernel<T, D, BK, kDrop>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)min(n_items, sm_count()), kThreads, smem, stream>>>(
-      tq, tdo, tk, tv, a.bias, a.sb, a.sh, a.sq, a.sk, out, a.dout, a.lse, delta, dq, a.heads,
-      a.lq, a.lk, row_blocks, n_items, a.scale, a.causal, a.keep, (a.lk + 31) / 32,
-      a.inv_keep);
+      tq, tdo, tk, tv, a.bias, a.sb, a.sh, a.sq, a.sk, static_cast<const T*>(out),
+      static_cast<const T*>(a.dout), a.lse, delta, static_cast<T*>(dq), a.heads, a.lq, a.lk,
+      row_blocks, n_items, a.scale, a.causal, a.keep, (a.lk + 31) / 32, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BQ, bool kDrop>
-int launch_dkv(const Args& a, const float* delta, bf16* dk, bf16* dv, cudaStream_t stream) {
+template <typename T, int D, int BQ, bool kDrop>
+int launch_dkv(const Args& a, const float* delta, void* dk, void* dv, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D, BQ>();
+  constexpr CUtensorMapDataType kMap = Elem<T>::kMap;
   const int bh = a.batch * a.heads, row_blocks = (a.lk + kBlockRows - 1) / kBlockRows;
   const int n_items = bh * row_blocks;
   CUtensorMap tq, tdo, tk, tv;
-  int e = tensor_map(&tq, a.q, bh, a.lq, D, BQ);
-  if (e == 0) e = tensor_map(&tdo, a.dout, bh, a.lq, D, BQ);
-  if (e == 0) e = tensor_map(&tk, a.k, bh, a.lk, D, kBlockRows);
-  if (e == 0) e = tensor_map(&tv, a.v, bh, a.lk, D, kBlockRows);
+  int e = tensor_map(&tq, a.q, bh, a.lq, D, BQ, kMap);
+  if (e == 0) e = tensor_map(&tdo, a.dout, bh, a.lq, D, BQ, kMap);
+  if (e == 0) e = tensor_map(&tk, a.k, bh, a.lk, D, kBlockRows, kMap);
+  if (e == 0) e = tensor_map(&tv, a.v, bh, a.lk, D, kBlockRows, kMap);
   if (e != 0) return e;
-  auto* kernel = flash_attention_bwd_dkv_bf16_kernel<D, BQ, kDrop>;
+  auto* kernel = flash_attention_bwd_dkv_16_kernel<T, D, BQ, kDrop>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)min(n_items, sm_count()), kThreads, smem, stream>>>(
-      tq, tdo, tk, tv, a.bias, a.sb, a.sh, a.sq, a.sk, a.lse, delta, dk, dv, a.heads, a.lq,
-      a.lk, row_blocks, n_items, a.scale, a.causal, a.keep, (a.lk + 31) / 32, a.inv_keep);
+      tq, tdo, tk, tv, a.bias, a.sb, a.sh, a.sq, a.sk, a.lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), a.heads, a.lq, a.lk, row_blocks, n_items, a.scale, a.causal, a.keep,
+      (a.lk + 31) / 32, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
 // the streamed tile of each head dim: BK keys for dQ, BQ query rows for dK/dV
-template <int D>
-int dq_d(const Args& a, const bf16* out, float* delta, bf16* dq, cudaStream_t s) {
-  return a.keep != nullptr ? launch_dq<D, 64, true>(a, out, delta, dq, s)
-                           : launch_dq<D, 64, false>(a, out, delta, dq, s);
+template <typename T, int D>
+int dq_d(const Args& a, const void* out, float* delta, void* dq, cudaStream_t s) {
+  return a.keep != nullptr ? launch_dq<T, D, 64, true>(a, out, delta, dq, s)
+                           : launch_dq<T, D, 64, false>(a, out, delta, dq, s);
 }
-template <int D>
-int dkv_d(const Args& a, const float* delta, bf16* dk, bf16* dv, cudaStream_t s) {
+template <typename T, int D>
+int dkv_d(const Args& a, const float* delta, void* dk, void* dv, cudaStream_t s) {
   constexpr int BQ = D == 128 ? 32 : 64;
-  return a.keep != nullptr ? launch_dkv<D, BQ, true>(a, delta, dk, dv, s)
-                           : launch_dkv<D, BQ, false>(a, delta, dk, dv, s);
+  return a.keep != nullptr ? launch_dkv<T, D, BQ, true>(a, delta, dk, dv, s)
+                           : launch_dkv<T, D, BQ, false>(a, delta, dk, dv, s);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* bias, int64_t sb,
                int64_t sh, int64_t sq, int64_t sk, const void* dout, const void* lse, int batch,
                int heads, int lq, int lk, float scale, int causal, const void* keep,
                float inv_keep) {
-  return Args{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
-              static_cast<const bf16*>(v),    static_cast<const float*>(bias),
-              sb,                             sh,
-              sq,                             sk,
-              static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-              batch,                          heads,
-              lq,                             lk,
-              scale,                          causal,
+  return Args{q,     k,  v,  static_cast<const float*>(bias),
+              sb,    sh, sq, sk,
+              dout,  static_cast<const float*>(lse),
+              batch, heads,
+              lq,    lk,
+              scale, causal,
               static_cast<const uint32_t*>(keep), inv_keep};
 }
 
-}  // namespace
-
-// Shapes as the forward's: q/dout/out/dq [B*H, Lq, D], k/v/dk/dv [B*H, Lk, D]
-// bfloat16, lse/delta [B*H, Lq] float32, all contiguous; bias NULL or f32
-// addressed as bias[b*sb + h*sh + iq*sq + ik*sk]; keep NULL (no dropout) or
-// the mask the forward stored, int32 [B*H, Lq, ceil(Lk / 32)] with entry
-// (iq, ik) kept where bit ik % 32 of word ik / 32 is set, whose kept
-// probabilities are scaled by inv_keep. The dQ entry computes delta
-// = rowsum(dout * out) into `delta`; the dK/dV entry reads it. Each returns
-// cudaGetLastError() after its launch (or the error of encoding a tensor
-// map or allowing the kernel's shared memory).
-extern "C" int ptt_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                               const void* bias, int64_t sb, int64_t sh,
-                                               int64_t sq, int64_t sk, const void* dout,
-                                               const void* lse, void* delta, const void* out,
-                                               void* dq, int batch, int heads, int lq, int lk,
-                                               int d, float scale, int causal, const void* keep,
-                                               float inv_keep, void* stream) {
+template <typename T>
+int dq_entry(const void* q, const void* k, const void* v, const void* bias, int64_t sb,
+             int64_t sh, int64_t sq, int64_t sk, const void* dout, const void* lse, void* delta,
+             const void* out, void* dq, int batch, int heads, int lq, int lk, int d, float scale,
+             int causal, const void* keep, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch * heads == 0 || lq == 0 || lk == 0) return (int)cudaSuccess;
   const Args a = make_args(q, k, v, bias, sb, sh, sq, sk, dout, lse, batch, heads, lq, lk, scale,
                            causal, keep, inv_keep);
-  const bf16* o = static_cast<const bf16*>(out);
   float* dl = static_cast<float*>(delta);
-  bf16* g = static_cast<bf16*>(dq);
   switch (d) {
     case 32:
-      return dq_d<32>(a, o, dl, g, s);
+      return dq_d<T, 32>(a, out, dl, dq, s);
     case 64:
-      return dq_d<64>(a, o, dl, g, s);
+      return dq_d<T, 64>(a, out, dl, dq, s);
     case 128:
-      return dq_d<128>(a, o, dl, g, s);
+      return dq_d<T, 128>(a, out, dl, dq, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int ptt_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                                const void* bias, int64_t sb, int64_t sh,
-                                                int64_t sq, int64_t sk, const void* dout,
-                                                const void* lse, const void* delta, void* dk,
-                                                void* dv, int batch, int heads, int lq, int lk,
-                                                int d, float scale, int causal, const void* keep,
-                                                float inv_keep, void* stream) {
+template <typename T>
+int dkv_entry(const void* q, const void* k, const void* v, const void* bias, int64_t sb,
+              int64_t sh, int64_t sq, int64_t sk, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, int batch, int heads, int lq, int lk, int d,
+              float scale, int causal, const void* keep, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch * heads == 0 || lq == 0 || lk == 0) return (int)cudaSuccess;
   const Args a = make_args(q, k, v, bias, sb, sh, sq, sk, dout, lse, batch, heads, lq, lk, scale,
                            causal, keep, inv_keep);
   const float* dl = static_cast<const float*>(delta);
-  bf16* gk = static_cast<bf16*>(dk);
-  bf16* gv = static_cast<bf16*>(dv);
   switch (d) {
     case 32:
-      return dkv_d<32>(a, dl, gk, gv, s);
+      return dkv_d<T, 32>(a, dl, dk, dv, s);
     case 64:
-      return dkv_d<64>(a, dl, gk, gv, s);
+      return dkv_d<T, 64>(a, dl, dk, dv, s);
     case 128:
-      return dkv_d<128>(a, dl, gk, gv, s);
+      return dkv_d<T, 128>(a, dl, dk, dv, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+// Shapes as the forward's: q/dout/out/dq [B*H, Lq, D], k/v/dk/dv [B*H, Lk, D]
+// bfloat16 (the _f16 entries: float16), lse/delta [B*H, Lq] float32, all
+// contiguous; bias NULL or f32 addressed as bias[b*sb + h*sh + iq*sq + ik*sk];
+// keep NULL (no dropout) or the mask the forward stored, int32 [B*H, Lq,
+// ceil(Lk / 32)] with entry (iq, ik) kept where bit ik % 32 of word ik / 32
+// is set, whose kept probabilities are scaled by inv_keep. The dQ entries
+// compute delta = rowsum(dout * out) into `delta`; the dK/dV entries read
+// it. Each returns cudaGetLastError() after its launch (or the error of
+// encoding a tensor map or allowing the kernel's shared memory).
+#define PTT_DQ_ENTRY(NAME, T)                                                                   \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* bias, int64_t sb, \
+                      int64_t sh, int64_t sq, int64_t sk, const void* dout, const void* lse,     \
+                      void* delta, const void* out, void* dq, int batch, int heads, int lq,      \
+                      int lk, int d, float scale, int causal, const void* keep, float inv_keep,  \
+                      void* stream) {                                                            \
+    return dq_entry<T>(q, k, v, bias, sb, sh, sq, sk, dout, lse, delta, out, dq, batch, heads,  \
+                       lq, lk, d, scale, causal, keep, inv_keep, stream);                        \
+  }
+#define PTT_DKV_ENTRY(NAME, T)                                                                  \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* bias, int64_t sb, \
+                      int64_t sh, int64_t sq, int64_t sk, const void* dout, const void* lse,     \
+                      const void* delta, void* dk, void* dv, int batch, int heads, int lq,       \
+                      int lk, int d, float scale, int causal, const void* keep, float inv_keep,  \
+                      void* stream) {                                                            \
+    return dkv_entry<T>(q, k, v, bias, sb, sh, sq, sk, dout, lse, delta, dk, dv, batch, heads,  \
+                        lq, lk, d, scale, causal, keep, inv_keep, stream);                       \
+  }
+
+PTT_DQ_ENTRY(ptt_flash_attention_bwd_dq_bf16, bf16)
+PTT_DKV_ENTRY(ptt_flash_attention_bwd_dkv_bf16, bf16)
+PTT_DQ_ENTRY(ptt_flash_attention_bwd_dq_f16, __half)
+PTT_DKV_ENTRY(ptt_flash_attention_bwd_dkv_f16, __half)

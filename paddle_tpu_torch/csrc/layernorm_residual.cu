@@ -8,12 +8,13 @@
 // and written once (y) with ~10 flops in between, far below the ~20
 // flop/byte an f32 kernel needs to leave the memory roof.
 //
-// Three instances of one template: f32 (x, res, y f32), bf16 (all bf16;
-// the add rounds to bf16 before the f32 statistics, as the TPU kernel and
-// the unfused path do) and mixed (a bf16 x on an f32 residual, the first
-// encoder layer's case under AMP: bf16 x widened and added to the f32
-// residual in f32, f32 statistics, y rounded to bf16 once, as the JAX
-// package's _reference promotes the sum and returns x's dtype).
+// Five instances of one template: f32 (x, res, y f32), bf16 and fp16 (all
+// in the 16-bit type; the add rounds to it before the f32 statistics, as the
+// TPU kernel and the unfused path do) and mixed (a bf16 or fp16 x on an f32
+// residual, the first encoder layer's case under AMP: x widened and added
+// to the f32 residual in f32, f32 statistics, y rounded to x's type once, as
+// the JAX package's _reference promotes the sum and returns x's dtype).
+// Rounding to fp16 is to nearest even, a value past 65504 to inf.
 //
 // Two variants; the entry takes the first that fits H, and the wrapper
 // (ops/cuda/layernorm_residual.py _fwd_plan) mirrors the rule.
@@ -36,6 +37,7 @@
 // values spread over the block's threads (up to kMaxPerThread a thread),
 // the two sums block-wide.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,10 +79,17 @@ __device__ __forceinline__ float add(const bf16* x, const bf16* r, int64_t i) {
 __device__ __forceinline__ float add(const bf16* x, const float* r, int64_t i) {
   return __bfloat162float(x[i]) + r[i];
 }
+__device__ __forceinline__ float add(const __half* x, const __half* r, int64_t i) {
+  return __half2float(__hadd(x[i], r[i]));
+}
+__device__ __forceinline__ float add(const __half* x, const float* r, int64_t i) {
+  return __half2float(x[i]) + r[i];
+}
 __device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store(bf16* p, int64_t i, float v) {
   p[i] = __float2bfloat16(v);
 }
+__device__ __forceinline__ void store(__half* p, int64_t i, float v) { p[i] = __float2half_rn(v); }
 
 // -- block variant ----------------------------------------------------------------
 
@@ -199,6 +208,54 @@ struct Chunk<bf16, float> {
     }
   }
   static __device__ __forceinline__ uint4 narrow(const float* a) { return narrow_bf16(a); }
+};
+
+__device__ __forceinline__ __half2 half_pair(uint32_t u) { return *reinterpret_cast<__half2*>(&u); }
+
+__device__ __forceinline__ uint4 narrow_half(const float* a) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 v = __floats2half2_rn(a[2 * i], a[2 * i + 1]);
+    u[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+template <>
+struct Chunk<__half, __half> {
+  static constexpr int kN = 8, kRes = 1;
+  // x + res rounded to fp16 (as the block variant's __hadd), widened
+  static __device__ __forceinline__ void add(uint4 x, const uint4 (&r)[kRes], float* a) {
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, rs[4] = {r[0].x, r[0].y, r[0].z, r[0].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(__hadd2(half_pair(xs[i]), half_pair(rs[i])));
+      a[2 * i] = f.x;
+      a[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 narrow(const float* a) { return narrow_half(a); }
+};
+
+template <>
+struct Chunk<__half, float> {
+  static constexpr int kN = 8, kRes = 2;
+  // fp16 x widened, plus the f32 residual, in f32
+  static __device__ __forceinline__ void add(uint4 x, const uint4 (&r)[kRes], float* a) {
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const float rs[8] = {__uint_as_float(r[0].x), __uint_as_float(r[0].y),
+                         __uint_as_float(r[0].z), __uint_as_float(r[0].w),
+                         __uint_as_float(r[1].x), __uint_as_float(r[1].y),
+                         __uint_as_float(r[1].z), __uint_as_float(r[1].w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(half_pair(xs[i]));
+      a[2 * i] = f.x + rs[2 * i];
+      a[2 * i + 1] = f.y + rs[2 * i + 1];
+    }
+  }
+  static __device__ __forceinline__ uint4 narrow(const float* a) { return narrow_half(a); }
 };
 
 // NV chunks a lane: H = 32 * NV * kN
@@ -339,7 +396,7 @@ int launch_rows(int nv, const Args& a, cudaStream_t s) {
       case 7: return launch_row<TX, TR, 7>(a, s);
       case 8: return launch_row<TX, TR, 8>(a, s);
     }
-  } else {  // bf16 and mixed: H = 256 ... 1024
+  } else {  // bf16, fp16 and mixed: H = 256 ... 1024
     switch (nv) {
       case 1: return launch_row<TX, TR, 1>(a, s);
       case 2: return launch_row<TX, TR, 2>(a, s);
@@ -372,7 +429,8 @@ int launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // x/y [rows, H] and res [rows, H] in `dtype`: 0 = all float32, 1 = all
-// bfloat16, 2 = mixed (x and y bfloat16, res float32); w/b [H] and
+// bfloat16, 2 = mixed (x and y bfloat16, res float32), 3 = all float16, 4 =
+// mixed (x and y float16, res float32); w/b [H] and
 // mean/rstd [rows] float32; all contiguous, and 16-byte aligned where the
 // row variant takes H. Returns cudaGetLastError() after the launch.
 extern "C" int ptt_layernorm_residual_fwd(const void* x, const void* res, const void* w,
@@ -384,5 +442,7 @@ extern "C" int ptt_layernorm_residual_fwd(const void* x, const void* res, const 
   if (dtype == 0) return launch<float, float>(a, s);
   if (dtype == 1) return launch<bf16, bf16>(a, s);
   if (dtype == 2) return launch<bf16, float>(a, s);
+  if (dtype == 3) return launch<__half, __half>(a, s);
+  if (dtype == 4) return launch<__half, float>(a, s);
   return (int)cudaErrorInvalidValue;
 }

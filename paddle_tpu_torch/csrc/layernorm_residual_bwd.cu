@@ -16,7 +16,11 @@
 // the wrapper (ops/cuda/layernorm_residual.py _bwd_plan) mirrors the rule
 // to size the grid.
 //
-// Row variant (H a multiple of 128 in f32 or 256 in bf16, up to kRowMaxH):
+// Three instances of each variant: f32, bf16 and fp16 (da in the input type,
+// rounded to nearest even once; in fp16 past 65504 to inf, so an overflowing
+// loss-scaled gradient stays non-finite; the dw/db partials f32 in all).
+//
+// Row variant (H a multiple of 128 in f32 or 256 in bf16 and fp16, up to kRowMaxH):
 // one warp a row. Each lane holds H/32 columns, read and written 16 bytes
 // at a time (neighbouring lanes on neighbouring 16 bytes), and the two row
 // means are warp-shuffle sums, so the row loop has no block barrier. Each
@@ -38,6 +42,7 @@
 // Neither uses atomics: every sum is taken in one fixed order, so the
 // gradients repeat bit for bit from run to run.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,14 +82,19 @@ __device__ __forceinline__ float add_in_dtype(const __nv_bfloat16* x, const __nv
                                               int64_t i) {
   return __bfloat162float(__hadd(x[i], r[i]));
 }
+__device__ __forceinline__ float add_in_dtype(const __half* x, const __half* r, int64_t i) {
+  return __half2float(__hadd(x[i], r[i]));
+}
 __device__ __forceinline__ float load(const float* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(p[i]);
 }
+__device__ __forceinline__ float load(const __half* p, int64_t i) { return __half2float(p[i]); }
 __device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16(v);
 }
+__device__ __forceinline__ void store(__half* p, int64_t i, float v) { p[i] = __float2half_rn(v); }
 
 // -- block variant ----------------------------------------------------------------
 
@@ -212,6 +222,42 @@ struct Vec16<__nv_bfloat16> {
     for (int i = 0; i < 4; ++i) {
       const __nv_bfloat162 b = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
       u[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+
+template <>
+struct Vec16<__half> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ __half2 pair(uint32_t u) {
+    return *reinterpret_cast<__half2*>(&u);
+  }
+  // x + res rounded to fp16 (as the block variant's __hadd), widened
+  static __device__ __forceinline__ void add(uint4 x, uint4 r, float* a) {
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, rs[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(__hadd2(pair(xs[i]), pair(rs[i])));
+      a[2 * i] = f.x;
+      a[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void widen(uint4 v, float* a) {
+    const uint32_t vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(pair(vs[i]));
+      a[2 * i] = f.x;
+      a[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 narrow(const float* a) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __half2 h = __floats2half2_rn(a[2 * i], a[2 * i + 1]);
+      u[i] = *reinterpret_cast<const uint32_t*>(&h);
     }
     return make_uint4(u[0], u[1], u[2], u[3]);
   }
@@ -387,7 +433,7 @@ int launch_rows(int nv, const void* x, const void* res, const void* w, const voi
       PTT_ROW_CASE(7)
       PTT_ROW_CASE(8)
     }
-  } else {  // bf16: H = 256 ... 1024
+  } else {  // bf16 and fp16: H = 256 ... 1024
     switch (nv) {
       PTT_ROW_CASE(1)
       PTT_ROW_CASE(2)
@@ -429,7 +475,7 @@ int launch(const void* x, const void* res, const void* w, const void* mean, cons
 
 }  // namespace
 
-// x/res/dy/da [rows, H] in `dtype` (0 = float32, 1 = bfloat16), w [H] and
+// x/res/dy/da [rows, H] in `dtype` (0 = float32, 1 = bfloat16, 2 = float16), w [H] and
 // mean/rstd [rows] float32, dwp/dbp [ceil(rows / rows_per_block), H]
 // float32; all contiguous, and 16-byte aligned where the row variant takes
 // H. Returns cudaGetLastError() after the launch.
@@ -443,5 +489,7 @@ extern "C" int ptt_layernorm_residual_bwd(const void* x, const void* res, const 
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, res, w, mean, rstd, dy, da, dwp, dbp, rows, h,
                                  rows_per_block, s);
+  if (dtype == 2)
+    return launch<__half>(x, res, w, mean, rstd, dy, da, dwp, dbp, rows, h, rows_per_block, s);
   return (int)cudaErrorInvalidValue;
 }

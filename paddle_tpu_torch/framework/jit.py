@@ -74,12 +74,13 @@ _instances = itertools.count()
 
 def _set_precision():
     """float32 stays float32 on the card: no TF32 in matrix products or
-    convolutions, and no reduced-precision reduction of bf16 products, so a
-    bf16 product's split-K sums stay f32 as the JAX package's
-    ``preferred_element_type=f32`` keeps them."""
+    convolutions, and no reduced-precision reduction of bf16 or fp16
+    products, so a 16-bit product's split-K sums stay f32 as the JAX
+    package's ``preferred_element_type=f32`` keeps them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def _first_run(device, fn):

@@ -2,8 +2,10 @@
 
 Every wrapper counts its kernel's launches in a module-level integer (one
 for each dtype a kernel takes: the bf16 LayerNorm, attention, fused conv
-and max-pool backward kernels count apart from the float32 ones, and the
-LayerNorm forward's mixed instance apart from both);
+and max-pool backward kernels count apart from the float32 ones, the fp16
+LayerNorm and attention kernels apart from both, and the LayerNorm
+forward's mixed instances, a bf16 or an fp16 x on an f32 residual, apart
+from all);
 :data:`KERNEL_COUNTERS` names them, :func:`launch_counts` reads them all
 and :func:`reset_launch_counts` sets them to 0, and the counts beside them
 (:data:`OTHER_COUNTERS`: the tensors the momentum launches updated, the
@@ -41,6 +43,12 @@ KERNEL_COUNTERS = {
     "flash_attention_fwd_bf16": (flash_attention, "BF16_LAUNCHES"),
     "flash_attention_bwd_dq_bf16": (flash_attention, "BF16_DQ_LAUNCHES"),
     "flash_attention_bwd_dkv_bf16": (flash_attention, "BF16_DKV_LAUNCHES"),
+    "layernorm_residual_fwd_fp16": (layernorm_residual, "FP16_LAUNCHES"),
+    "layernorm_residual_bwd_fp16": (layernorm_residual, "FP16_BWD_LAUNCHES"),
+    "layernorm_residual_fwd_mixed_fp16": (layernorm_residual, "FP16_MIXED_LAUNCHES"),
+    "flash_attention_fwd_fp16": (flash_attention, "FP16_LAUNCHES"),
+    "flash_attention_bwd_dq_fp16": (flash_attention, "FP16_DQ_LAUNCHES"),
+    "flash_attention_bwd_dkv_fp16": (flash_attention, "FP16_DKV_LAUNCHES"),
     "conv_bn_relu_mm_affine_relu": (conv_bn_relu, "MM_AFFINE_RELU_LAUNCHES"),
     "conv_bn_relu_mm_stats": (conv_bn_relu, "MM_STATS_LAUNCHES"),
     "conv_bn_relu_centered_sumsq": (conv_bn_relu, "CENTERED_SUMSQ_LAUNCHES"),

@@ -11,21 +11,24 @@ the backward recomputes the probabilities from.
 
 On the H100 the kernels are bound by arithmetic (``4``, ``6`` and ``8 *
 B*H*Lq*Lk*D`` flops for the forward, dQ and dK/dV against a few MB of
-operands). Two sets of kernels take the two dtypes. float32: the forward
+operands). Two sets of kernels take the dtypes. float32: the forward
 (``csrc/flash_attention.cu``) and the dQ and dK/dV kernels
 (``csrc/flash_attention_bwd.cu``) run their products on the tensor cores in
 3xTF32 (f32-accurate) on ``mma.sync``, 64 rows a block, staging K/V (or
-Q/dO) tiles through shared memory. bfloat16, the AMP path: the forward
-(``csrc/flash_attention_bf16.cu``) and the dQ and dK/dV kernels
-(``csrc/flash_attention_bwd_bf16.cu``) run on ``wgmma`` from tiles that TMA
-loads into rings of shared-memory stages, persistent blocks of 128 rows,
-with the TPU kernels' rounding points: the probabilities and dS rounded to
-bf16 before the products that take them, every output rounded once;
-``lse`` and ``delta`` stay f32, and the bf16 dQ kernel computes ``delta``
-itself. Every kernel keeps the online-softmax state in registers and
+Q/dO) tiles through shared memory. bfloat16 and float16, the AMP path: the
+forward (``csrc/flash_attention_bf16.cu``) and the dQ and dK/dV kernels
+(``csrc/flash_attention_bwd_bf16.cu``), templates on the element type with
+an instance of each (entries ``*_bf16`` and ``*_f16``), run on ``wgmma``
+from tiles that TMA loads into rings of shared-memory stages, persistent
+blocks of 128 rows, with the TPU kernels' rounding points: the
+probabilities and dS rounded to the 16-bit type before the products that
+take them, every output rounded once (to nearest even; in float16 past
+65504 to inf, so an overflow under a loss scale stays non-finite); ``lse``
+and ``delta`` stay f32, and the 16-bit dQ kernels compute ``delta``
+themselves. Every kernel keeps the online-softmax state in registers and
 writes only its own rows, so no atomics. All read the bias through its
 strides (as f32), so a padding mask stays ``[B, 1, 1, Lk]``. One set of
-kernels a dtype covers both TPU variants; float16 is refused.
+kernels a dtype covers both TPU variants.
 
 Dropout: an entry ``(b, h, iq, ik)`` is dropped where its 32 random bits
 are below ``rate * 2**32`` (``_drop_threshold`` of the JAX package) and
@@ -35,8 +38,8 @@ explicit ``torch.Generator``, counted by ``(ik // 4, iq, b*H + h, 0)``,
 word ``ik % 4``: a pure function of the seed and the coordinates, so every
 f32 kernel regenerates the forward's mask whatever its tiling, and
 :func:`philox4x32_10` computes the same bits with integer tensor ops. The
-bf16 forward stores the mask it drew, one bit an entry
-(:func:`keep_words`), and the bf16 backward reads it instead of drawing it
+16-bit forward stores the mask it drew, one bit an entry
+(:func:`keep_words`), and the 16-bit backward reads it instead of drawing it
 twice more.
 
 :func:`flash_attention` takes the plain version, with autograd through it,
@@ -59,7 +62,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_delta", "flash_attention_bwd_dkv",
            "philox4x32_10", "dropout_keep_mask", "keep_words", "unpack_keep", "LAUNCHES",
            "DQ_LAUNCHES", "DKV_LAUNCHES", "BF16_LAUNCHES", "BF16_DQ_LAUNCHES",
-           "BF16_DKV_LAUNCHES"]
+           "BF16_DKV_LAUNCHES", "FP16_LAUNCHES", "FP16_DQ_LAUNCHES", "FP16_DKV_LAUNCHES"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -69,14 +72,20 @@ _HEAD_DIMS = (32, 64, 128)
 _KEY_TILES = {32: 128, 64: 128, 128: 64}
 
 #: kernel launches since the last reset (counted where each kernel launches):
-#: the float32 kernels, and the bfloat16 ones beside them
+#: the float32 kernels, and the bfloat16 and float16 instances beside them
 LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BF16_DQ_LAUNCHES = 0
 BF16_DKV_LAUNCHES = 0
+FP16_LAUNCHES = 0
+FP16_DQ_LAUNCHES = 0
+FP16_DKV_LAUNCHES = 0
 _count_lock = threading.Lock()
+# the 16-bit types of the wgmma kernels, and their entries' suffixes
+_WGMMA_SUFFIX = {torch.bfloat16: "_bf16", torch.float16: "_f16"}
+_DTYPES = (torch.float32, *_WGMMA_SUFFIX)
 # the kernels' library and count by entry and dtype
 _KERNELS = {
     ("flash_attention_fwd", torch.float32): ("flash_attention", "LAUNCHES"),
@@ -86,6 +95,10 @@ _KERNELS = {
     ("flash_attention_bwd_dq", torch.bfloat16): ("flash_attention_bwd_bf16", "BF16_DQ_LAUNCHES"),
     ("flash_attention_bwd_dkv", torch.bfloat16): ("flash_attention_bwd_bf16",
                                                    "BF16_DKV_LAUNCHES"),
+    ("flash_attention_fwd", torch.float16): ("flash_attention_bf16", "FP16_LAUNCHES"),
+    ("flash_attention_bwd_dq", torch.float16): ("flash_attention_bwd_bf16", "FP16_DQ_LAUNCHES"),
+    ("flash_attention_bwd_dkv", torch.float16): ("flash_attention_bwd_bf16",
+                                                  "FP16_DKV_LAUNCHES"),
 }
 
 # -- Philox4x32-10 on int64 tensors holding uint32 values --------------------
@@ -255,17 +268,20 @@ _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _COMMON = [_VP] * 4 + [_I64] * 4
 _SHAPE = [_I32] * 5 + [ctypes.c_float, _I32]  # batch, heads, lq, lk, d, scale, causal
 _TAIL = _SHAPE + [_VP, ctypes.c_uint32, ctypes.c_float, _VP]  # seed, threshold, 1/keep, stream
-# the bf16 backward reads the forward's stored mask in place of the seed
+# the 16-bit backward reads the forward's stored mask in place of the seed
 _TAIL_KEEP = _SHAPE + [_VP, ctypes.c_float, _VP]
 _ARGTYPES = {
     "flash_attention_fwd": _COMMON + [_VP, _VP] + _TAIL,
     "flash_attention_bwd_dq": _COMMON + [_VP] * 4 + _TAIL,
     "flash_attention_bwd_dkv": _COMMON + [_VP] * 5 + _TAIL,
-    "flash_attention_fwd_bf16": _COMMON + [_VP] * 3 + _TAIL,  # out, lse, the mask's words
-    # dout, lse, delta (written), out and dq
-    "flash_attention_bwd_dq_bf16": _COMMON + [_VP] * 5 + _TAIL_KEEP,
-    "flash_attention_bwd_dkv_bf16": _COMMON + [_VP] * 5 + _TAIL_KEEP,
 }
+for _sfx in _WGMMA_SUFFIX.values():  # the bf16 and fp16 instances take the same arguments
+    _ARGTYPES.update({
+        f"flash_attention_fwd{_sfx}": _COMMON + [_VP] * 3 + _TAIL,  # out, lse, the mask's words
+        # dout, lse, delta (written), out and dq
+        f"flash_attention_bwd_dq{_sfx}": _COMMON + [_VP] * 5 + _TAIL_KEEP,
+        f"flash_attention_bwd_dkv{_sfx}": _COMMON + [_VP] * 5 + _TAIL_KEEP,
+    })
 
 
 def _bind(lib, name):
@@ -288,7 +304,7 @@ def _check(q, k, v, bias):
 
 
 def keep_words(b, h, lq, lk, device):
-    """An empty int32 ``[b*h, lq, ceil(lk / 32)]`` tensor for the bf16
+    """An empty int32 ``[b*h, lq, ceil(lk / 32)]`` tensor for the 16-bit
     kernels' stored dropout mask: bit ``ik % 32`` of word ``ik // 32`` of
     row ``iq`` is set where entry ``(iq, ik)`` is kept."""
     return torch.empty(b * h, lq, (lk + 31) // 32, dtype=torch.int32, device=device)
@@ -306,13 +322,15 @@ def _kernel_args(name, q, k, v, bias, causal, scale, tensors, stats=()):
     outputs (q, k, v, bias and its strides) and the shape, scale and causal
     flag after them, and the f32 bias they point into, which the caller
     holds until the kernel is launched. ``tensors`` (q, k, v and dout) are
-    all float32 or all bfloat16; ``stats`` (lse, delta) float32."""
+    all float32, all bfloat16 or all float16; ``stats`` (lse, delta)
+    float32."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if (q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors)
+    if (q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors)
             or any(t.dtype != torch.float32 for t in stats)):
-        raise TypeError(f"{name}: the kernels take float32 or bfloat16 q, k, v (one dtype) and "
-                        f"float32 statistics, got {[str(t.dtype) for t in tensors + stats]}")
+        raise TypeError(f"{name}: the kernels take float32, bfloat16 or float16 q, k, v (one "
+                        f"dtype) and float32 statistics, got "
+                        f"{[str(t.dtype) for t in tensors + stats]}")
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors + stats):
         raise ValueError(f"{name}: q, k, v must be on one CUDA device")
     if d not in _HEAD_DIMS:
@@ -346,8 +364,8 @@ def _seed_args(name, q, dropout_rate, seed):
 
 
 def _keep_args(name, q, k, dropout_rate, keep):
-    """The dropout arguments of the bf16 backward kernels, which read the
-    mask the bf16 forward stored (:func:`keep_words`), and the kept
+    """The dropout arguments of the 16-bit backward kernels, which read the
+    mask the 16-bit forward stored (:func:`keep_words`), and the kept
     entries' scale."""
     rate = float(dropout_rate)
     if rate == 0.0:
@@ -355,7 +373,7 @@ def _keep_args(name, q, k, dropout_rate, keep):
     b, h, lq, _ = q.shape
     if (keep is None or keep.dtype != torch.int32 or keep.device != q.device
             or keep.shape != (b * h, lq, (k.shape[2] + 31) // 32) or not keep.is_contiguous()):
-        raise ValueError(f"{name}: the bfloat16 backward reads the dropout mask the bfloat16 "
+        raise ValueError(f"{name}: the 16-bit backward reads the dropout mask the 16-bit "
                          "forward returned, keep_words(B, H, Lq, Lk) on the device of q")
     return [keep.data_ptr(), 1.0 / (1.0 - rate)]
 
@@ -364,7 +382,7 @@ def _launch(name, dtype, args):
     """Launch the entry ``name``'s kernel for ``dtype`` on ``args`` and the
     current stream, and count it."""
     lib, counter = _KERNELS[(name, dtype)]
-    symbol = name if dtype == torch.float32 else f"{name}_bf16"
+    symbol = name + _WGMMA_SUFFIX.get(dtype, "")
     err = _bind(lib, symbol)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(err, symbol)
     with _count_lock:
@@ -426,7 +444,7 @@ def _dq_cost(q, k, v, bias, lse, delta, dout, causal=False, scale=None, dropout_
 
 def _dq_delta_cost(q, k, v, bias, lse, out, dout, causal=False, scale=None, dropout_rate=0.0,
                    keep=None):
-    """The bf16 dQ's work (row 6b): as :func:`_dq_cost`, reading O for
+    """The 16-bit dQ's work (rows 6b, 6h): as :func:`_dq_cost`, reading O for
     delta, which it writes."""
     return (_products(q, k, causal, 3),
             _nbytes(q, k, v, lse, out, dout) + _bias_bytes(bias) + _nbytes(q, lse))
@@ -444,15 +462,15 @@ def _dkv_cost(q, k, v, bias, lse, delta, dout, causal=False, scale=None, dropout
 def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0.0,
                         seed=None):
     """``(out, lse)`` on the card: ``out`` ``[B, H, Lq, D]`` in q's dtype
-    (float32 or bfloat16) and the f32 logsumexp ``lse`` ``[B*H, Lq]``; with
-    ``dropout_rate > 0`` the probabilities are dropped with the mask of
-    ``seed`` (int32 ``[2]`` on the device). bfloat16 with dropout returns
-    ``(out, lse, keep)``: the kernel also stores the mask it drew
-    (:func:`keep_words`), which the bfloat16 backward reads in place of the
-    seed. CUDA tensors only."""
+    (float32, bfloat16 or float16) and the f32 logsumexp ``lse`` ``[B*H,
+    Lq]``; with ``dropout_rate > 0`` the probabilities are dropped with the
+    mask of ``seed`` (int32 ``[2]`` on the device). bfloat16 or float16 with
+    dropout returns ``(out, lse, keep)``: the kernel also stores the mask it
+    drew (:func:`keep_words`), which the 16-bit backward reads in place of
+    the seed. CUDA tensors only."""
     _check(q, k, v, bias)
     b, h, lq, _ = q.shape
-    stores = q.dtype == torch.bfloat16 and float(dropout_rate) > 0.0
+    stores = q.dtype in _WGMMA_SUFFIX and float(dropout_rate) > 0.0
     out, lse = torch.empty_like(q), q.new_empty(b * h, lq, dtype=torch.float32)
     keep = keep_words(b, h, lq, k.shape[2], q.device) if stores else None
     if b * h and lq:  # else no query rows: nothing is launched or counted
@@ -461,7 +479,7 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None, dropout_ra
         head, tail, bias32 = _kernel_args("flash_attention_fwd", q, k, v, bias, causal, scale,
                                           (q, k, v))
         outs = [out.data_ptr(), lse.data_ptr()]
-        if q.dtype == torch.bfloat16:
+        if q.dtype in _WGMMA_SUFFIX:
             outs.append(None if keep is None else keep.data_ptr())
         tail += _seed_args("flash_attention_fwd", q, dropout_rate, seed)
         with torch.cuda.device(q.device):
@@ -487,16 +505,16 @@ def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=
                            dropout_rate=0.0, seed=None):
     """``dq`` on the card (the float32 dQ kernel) from the forward's
     ``lse``, ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) and the
-    forward's dropout ``seed``. The bfloat16 dQ kernel computes delta
-    itself: :func:`flash_attention_bwd_dq_delta`. CUDA tensors only."""
+    forward's dropout ``seed``. The 16-bit dQ kernels compute delta
+    themselves: :func:`flash_attention_bwd_dq_delta`. CUDA tensors only."""
     b, h, lq, _ = q.shape
     if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
         return torch.zeros_like(q)
     head, tail, bias32 = _bwd_args("flash_attention_bwd_dq", q, k, v, bias, lse, delta, dout,
                                    causal, scale)
     if q.dtype != torch.float32:
-        raise TypeError("flash_attention_bwd_dq: the bfloat16 dQ kernel computes delta itself; "
-                        "call flash_attention_bwd_dq_delta")
+        raise TypeError("flash_attention_bwd_dq: the 16-bit dQ kernels compute delta "
+                        "themselves; call flash_attention_bwd_dq_delta")
     tail += _seed_args("flash_attention_bwd_dq", q, dropout_rate, seed)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -509,15 +527,15 @@ def flash_attention_bwd_dq(q, k, v, bias, lse, delta, dout, causal=False, scale=
 @counted(_dq_delta_cost)
 def flash_attention_bwd_dq_delta(q, k, v, bias, lse, out, dout, causal=False, scale=None,
                                  dropout_rate=0.0, keep=None):
-    """``(dq, delta)`` on the card from bfloat16 operands: the bf16 dQ
-    kernel computes ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) for
-    the query rows it owns, uses it and returns it for the dK/dV kernel.
-    With dropout it reads the mask ``keep`` the bf16 forward returned. CUDA
-    tensors only."""
+    """``(dq, delta)`` on the card from bfloat16 or float16 operands: the
+    16-bit dQ kernel computes ``delta = rowsum(dout * out)`` (f32 ``[B*H,
+    Lq]``) for the query rows it owns, uses it and returns it for the dK/dV
+    kernel. With dropout it reads the mask ``keep`` the 16-bit forward
+    returned. CUDA tensors only."""
     b, h, lq, _ = q.shape
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_bwd_dq_delta: the fused delta takes bfloat16, got "
-                        f"{q.dtype}")
+    if q.dtype not in _WGMMA_SUFFIX:
+        raise TypeError(f"flash_attention_bwd_dq_delta: the fused delta takes bfloat16 or "
+                        f"float16, got {q.dtype}")
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("flash_attention_bwd_dq_delta: out must be shaped and typed as q")
     delta = torch.empty(b * h, lq, device=q.device, dtype=torch.float32)
@@ -540,13 +558,13 @@ def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal=False, scale
     """``(dk, dv)`` on the card (the dK/dV kernel) from the forward's
     ``lse``, ``delta = rowsum(dout * out)`` (f32 ``[B*H, Lq]``) and, with
     dropout, ``drop``: the forward's seed in float32, the mask the forward
-    returned in bfloat16. CUDA tensors only."""
+    returned in bfloat16 and float16. CUDA tensors only."""
     b, h, lq, _ = q.shape
     if b * h == 0 or lq == 0:  # no query rows: nothing is launched or counted
         return torch.zeros_like(k), torch.zeros_like(v)
     head, tail, bias32 = _bwd_args("flash_attention_bwd_dkv", q, k, v, bias, lse, delta, dout,
                                    causal, scale)
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _WGMMA_SUFFIX:
         tail += _keep_args("flash_attention_bwd_dkv", q, k, dropout_rate, drop)
     else:
         tail += _seed_args("flash_attention_bwd_dkv", q, dropout_rate, drop)
@@ -562,14 +580,14 @@ def flash_attention_bwd(q, k, v, bias, out, lse, dout, causal=False, scale=None,
                         dropout_rate=0.0, drop=None):
     """``(dq, dk, dv)`` on the card from the forward's ``out`` and ``lse``
     and the output gradient ``dout``, with dropout from ``drop`` (the
-    forward's seed in float32, the mask it returned in bfloat16): the dQ
-    kernel, then the dK/dV kernel. ``delta = rowsum(dout * out)`` (f32)
-    comes in bfloat16 from the dQ kernel itself
+    forward's seed in float32, the mask it returned in bfloat16 and
+    float16): the dQ kernel, then the dK/dV kernel. ``delta = rowsum(dout *
+    out)`` (f32) comes in the 16-bit types from the dQ kernel itself
     (:func:`flash_attention_bwd_dq_delta`) and in float32 from one torch op
     before it (as the JAX package leaves it to XLA). CUDA tensors only."""
     if out.shape != q.shape:
         raise ValueError("flash_attention_bwd: out must be shaped as q")
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _WGMMA_SUFFIX:
         dq, delta = flash_attention_bwd_dq_delta(q, k, v, bias, lse, out, dout, causal, scale,
                                                  dropout_rate, drop)
         dk, dv = flash_attention_bwd_dkv(q, k, v, bias, lse, delta, dout, causal, scale,
@@ -588,8 +606,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale, rate, seed):
-        if q.dtype == torch.bfloat16 and rate > 0.0:
-            # the bf16 forward returns the mask it drew, which its backward reads
+        if q.dtype in _WGMMA_SUFFIX and rate > 0.0:
+            # the 16-bit forward returns the mask it drew, which its backward reads
             out, lse, drop = flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed)
         else:
             (out, lse), drop = flash_attention_fwd(q, k, v, bias, causal, scale, rate, seed), seed
@@ -629,12 +647,13 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None, dropout_rate=0
     with a seed drawn once from ``generator`` (default: the device's
     default generator, ``framework.random``). CPU tensors take the plain
     version; CUDA tensors launch the kernels of their dtype (float32 or,
-    under AMP, bfloat16).
+    under AMP, bfloat16 or float16).
     """
     q, k, v, bias = amp_cast("flash_attention", [q, k, v, bias])
     _check(q, k, v, bias)
-    if q.device.type != "cpu" and q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention: the kernels take float32 or bfloat16, got {q.dtype}")
+    if q.device.type != "cpu" and q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: the kernels take float32, bfloat16 or float16, got "
+                        f"{q.dtype}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: q is on {q.device}; the kernels need a CUDA device "
                          "and the plain version the CPU")

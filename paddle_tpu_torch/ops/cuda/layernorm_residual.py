@@ -12,14 +12,15 @@ keeps each row in registers, so the sum ``x + res`` never goes to device
 memory, and takes the variance two-pass over those registers. It has two
 variants, which :func:`_fwd_plan` names by the kernel's own rule: a warp a
 row, read and written in 16-byte pieces, for the widths that fit a warp's
-registers (BERT's 768), and a block a row for the rest. Beside its f32 and
-bf16 instances it has a mixed one, a bf16 ``x`` on an f32 residual with a
-bf16 output (the first encoder layer's case under AMP), which adds in f32
-and rounds ``y`` once, with no cast pass. The
+registers (BERT's 768), and a block a row for the rest. Beside its f32,
+bf16 and fp16 instances it has mixed ones, a bf16 or fp16 ``x`` on an f32
+residual with an output in ``x``'s type (the first encoder layer's case
+under AMP), which add in f32 and round ``y`` once, with no cast pass. The
 backward (``csrc/layernorm_residual_bwd.cu``) recomputes ``x + res`` the
 same way, keeps the ``dw``/``db`` partials of a run of rows in registers
 and writes them per block; :func:`layernorm_residual` sums them, as the
-JAX package sums its per-tile partials. It has two variants, which
+JAX package sums its per-tile partials; ``da`` comes in the input type
+(f32, bf16 or fp16), the partials in f32. It has two variants, which
 :func:`_bwd_plan` picks with its grid: a warp a row for the widths that fit
 a warp's registers (BERT's 768), and a block a row for the rest. No
 atomics, so gradients repeat bit for bit.
@@ -42,13 +43,21 @@ from . import _build
 from ._tally import bump, check_outputs, counted
 
 __all__ = ["layernorm_residual", "layernorm_residual_fwd", "layernorm_residual_bwd",
-           "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "MIXED_LAUNCHES"]
+           "LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "MIXED_LAUNCHES",
+           "FP16_LAUNCHES", "FP16_BWD_LAUNCHES", "FP16_MIXED_LAUNCHES"]
 
 _MAX_H = 16384
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's instances by dtype: the C entry's `dtype`
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the 16-bit types, which also take an f32 residual (the mixed instances)
+_HALF = (torch.bfloat16, torch.float16)
 # the forward's instances by (x, residual) dtype: the C entry's `dtype`
 _FWD_DTYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
-               (torch.bfloat16, torch.float32): 2}
+               (torch.bfloat16, torch.float32): 2, (torch.float16, torch.float16): 3,
+               (torch.float16, torch.float32): 4}
+# the count's prefix by x's dtype, and the mixed instances' by x's
+_PREFIX = {torch.float32: "", torch.bfloat16: "BF16_", torch.float16: "FP16_"}
+_MIXED_PREFIX = {torch.bfloat16: "MIXED_", torch.float16: "FP16_MIXED_"}
 # the forward's row variant (a warp a row, 16-byte accesses of x): widest
 # row and warps a block (csrc/layernorm_residual.cu kRowMaxH, kRowWarps)
 _FWD_ROW_MAX_H = 1024
@@ -64,21 +73,24 @@ _ROW_WARPS = 8
 _ROW_BLOCKS_PER_SM = 1
 
 #: kernel launches since the last reset (counted where each kernel launches):
-#: float32 and, beside them, bfloat16 and the mixed forward (a bf16 x on
-#: an f32 residual)
+#: float32 and, beside them, bfloat16, float16 and the mixed forwards (a bf16
+#: or an fp16 x on an f32 residual)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BF16_BWD_LAUNCHES = 0
 MIXED_LAUNCHES = 0
+FP16_LAUNCHES = 0
+FP16_BWD_LAUNCHES = 0
+FP16_MIXED_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
 def _count(attr, dtype, res_dtype=None, outs=()):
     if res_dtype is not None and res_dtype != dtype:
-        name = f"MIXED_{attr}"
+        name = _MIXED_PREFIX[dtype] + attr
     else:
-        name = attr if dtype == torch.float32 else f"BF16_{attr}"
+        name = _PREFIX[dtype] + attr
     with _count_lock:
         bump(globals(), name)
     check_outputs(globals(), name, *outs)
@@ -114,7 +126,7 @@ def _reference_bwd(x2, r2, w, mean, rstd, dy2):
 
 def _fwd_plan(h, dtype):
     """The forward kernel's variant for rows of ``h`` values of ``x``'s
-    ``dtype`` (the mixed instance goes by its bf16 ``x``): ``"row"`` (a
+    ``dtype`` (a mixed instance goes by its 16-bit ``x``): ``"row"`` (a
     warp a row; the C entry takes it by the same rule) when ``h`` is a
     multiple of 32 lanes x 16 bytes of ``x`` and at most
     ``_FWD_ROW_MAX_H``, else ``"block"`` (a block a row). The grid is the
@@ -161,7 +173,7 @@ _BWD_ARGS = [_VP] * 9 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_in
 
 def _check(x2, r2, *params, mixed=False):
     """Shapes, and the residual's dtype: ``x``'s, or (``mixed``, the
-    forward) f32 under a bf16 ``x``."""
+    forward) f32 under a bf16 or fp16 ``x``."""
     if x2.dim() != 2 or r2.shape != x2.shape:
         raise ValueError(f"layernorm_residual: x {tuple(x2.shape)} and residual "
                          f"{tuple(r2.shape)} must be the same [rows, H]")
@@ -170,13 +182,14 @@ def _check(x2, r2, *params, mixed=False):
         raise ValueError(f"layernorm_residual: weight/bias must be [{h}], got "
                          f"{[tuple(p.shape) for p in params]}")
     if r2.dtype != x2.dtype and not (
-            mixed and (x2.dtype, r2.dtype) == (torch.bfloat16, torch.float32)):
+            mixed and x2.dtype in _HALF and r2.dtype == torch.float32):
         raise ValueError(f"layernorm_residual: x is {x2.dtype}, residual {r2.dtype}")
 
 
 def _check_kernel(x2, tensors):
     if x2.dtype not in _DTYPES:
-        raise TypeError(f"layernorm_residual: kernel takes float32/bfloat16, got {x2.dtype}")
+        raise TypeError(f"layernorm_residual: kernel takes float32/bfloat16/float16, got "
+                        f"{x2.dtype}")
     if x2.device.type != "cuda" or any(t.device != x2.device for t in tensors):
         raise ValueError("layernorm_residual: all tensors must be on one CUDA device")
     h = x2.shape[1]
@@ -209,9 +222,9 @@ def _bwd_cost(x2, r2, w, mean, rstd, dy2):
 @counted(_fwd_cost)
 def layernorm_residual_fwd(x2, r2, w, b, eps=1e-5):
     """``(y, mean, rstd)`` for ``[rows, H]`` inputs, ``y`` in ``x``'s
-    dtype; the residual is of ``x``'s dtype, or f32 under a bf16 ``x`` (the
-    mixed instance). The kernel on the card, :func:`_reference` on the
-    CPU."""
+    dtype; the residual is of ``x``'s dtype, or f32 under a bf16 or fp16
+    ``x`` (the mixed instances). The kernel on the card, :func:`_reference`
+    on the CPU."""
     _check(x2, r2, w, b, mixed=True)
     if x2.device.type == "cpu":
         return _reference(x2, r2, w, b, eps)
@@ -313,20 +326,20 @@ def layernorm_residual(x, residual, weight, bias, epsilon=1e-5):
     affine parameters ``[H]``.
 
     ``x`` and ``residual`` may differ in float dtype, as the first encoder
-    layer's do under AMP (a bf16 attention output on the f32 embedding
-    output): the sum is promoted, the statistics are f32 and the output
-    takes ``x``'s dtype (``_reference``,
-    ``paddle_tpu/ops/pallas/layernorm_residual.py:110-119``). A bf16 ``x``
-    on an f32 residual takes the mixed kernel as they are; any other mix
-    goes to the promoted dtype and the output is rounded back to ``x``'s,
-    which is the same computation. Autograd gives each input its gradient
-    in its own dtype."""
+    layer's do under AMP (a bf16 or fp16 attention output on the f32
+    embedding output): the sum is promoted, the statistics are f32 and the
+    output takes ``x``'s dtype (``_reference``,
+    ``paddle_tpu/ops/pallas/layernorm_residual.py:110-119``). A bf16 or fp16
+    ``x`` on an f32 residual takes its mixed kernel as they are; any other
+    mix goes to the promoted dtype and the output is rounded back to
+    ``x``'s, which is the same computation. Autograd gives each input its
+    gradient in its own dtype."""
     x, residual, weight, bias = amp_cast("fused_layernorm_residual",
                                          [x, residual, weight, bias])
     h = x.shape[-1]
     xt = rt = torch.promote_types(x.dtype, residual.dtype)
-    if (x.dtype, residual.dtype) == (torch.bfloat16, torch.float32):
-        xt = x.dtype  # the mixed instance: no cast
+    if x.dtype in _HALF and residual.dtype == torch.float32:
+        xt = x.dtype  # a mixed instance: no cast
     y = _LayerNormResidual.apply(x.reshape(-1, h).to(xt), residual.reshape(-1, h).to(rt),
                                  weight, bias, float(epsilon))
     return y.reshape(x.shape).to(x.dtype)

@@ -476,18 +476,21 @@ def test_stored_mask_words_unpack_to_entries():
 
 def test_bf16_reaches_the_kernel_path_and_float16_is_refused():
     """On ``meta`` tensors bf16 goes to the kernel entries, which refuse a
-    tensor off the card; float16 has no kernel and raises TypeError before
-    anything else, as does a dtype mix."""
+    tensor off the card, and so does float16, which has kernels of its own
+    since the fp16 instances (``tests/test_torch_fp16.py`` holds their
+    dispatch); float64 has no kernel and raises TypeError before anything
+    else, as does a dtype mix."""
     bf = torch.empty(1, 2, 16, 32, device="meta", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA"):
-        tfa.flash_attention(bf, bf, bf)
     stat = torch.empty(2, 16, device="meta")
-    for entry in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+    for t in (bf, bf.half()):
         with pytest.raises(ValueError, match="CUDA"):
-            entry(bf, bf, bf, None, stat, stat, bf)
-    half = bf.half()
+            tfa.flash_attention(t, t, t)
+        for entry in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match="CUDA"):
+                entry(t, t, t, None, stat, stat, t)
+    wide = bf.double()
     with pytest.raises(TypeError):
-        tfa.flash_attention(half, half, half)
+        tfa.flash_attention(wide, wide, wide)
     with pytest.raises(TypeError):
         tfa.flash_attention_fwd(bf, bf, bf.float())
     with pytest.raises(TypeError):

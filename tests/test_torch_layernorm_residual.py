@@ -435,7 +435,7 @@ def test_forward_plan_picks_the_variant(h, dtype, variant):
 
 def test_forward_plan_mirrors_the_kernel_source():
     """The forward's C entry picks the variant by the same rule: its
-    constants equal the wrapper's, and its three instances are the
+    constants equal the wrapper's, and its five instances are the
     wrapper's dtype codes."""
     import os
     import re
@@ -446,25 +446,27 @@ def test_forward_plan_mirrors_the_kernel_source():
     assert int(consts["kRowWarps"]) == tlnr._FWD_ROW_WARPS
     assert int(consts["kRowMaxH"]) == tlnr._FWD_ROW_MAX_H
     codes = re.findall(r"if \(dtype == (\d)\) return launch<(\w+), (\w+)>", src)
-    names = {torch.float32: "float", torch.bfloat16: "bf16"}
+    names = {torch.float32: "float", torch.bfloat16: "bf16", torch.float16: "__half"}
     assert {int(c): (tx, tr) for c, tx, tr in codes} == {
         code: (names[xd], names[rd]) for (xd, rd), code in tlnr._FWD_DTYPES.items()}
 
 
 def test_bf16_and_mixed_reach_the_kernel_path_and_float16_is_refused():
-    """On ``meta`` tensors bf16 and the mixed case go to the kernel
-    entries, which refuse a tensor off the card; float16 has no kernel and
-    raises TypeError first."""
+    """On ``meta`` tensors bf16, float16 (kernels of its own since the fp16
+    instances) and their mixed cases go to the kernel entries, which refuse
+    a tensor off the card; float64 has no kernel and raises TypeError
+    first."""
     w = torch.empty(128, device="meta")
     bf = torch.empty(4, 128, device="meta", dtype=torch.bfloat16)
-    for r in (bf, bf.float()):
-        with pytest.raises(ValueError, match="CUDA"):
-            tlnr.layernorm_residual(bf, r, w, w)
-    half = bf.half()
+    for x in (bf, bf.half()):
+        for r in (x, x.float()):
+            with pytest.raises(ValueError, match="CUDA"):
+                tlnr.layernorm_residual(x, r, w, w)
+    wide = bf.double()
     with pytest.raises(TypeError):
-        tlnr.layernorm_residual(half, half, w, w)
+        tlnr.layernorm_residual(wide, wide, w, w)
     with pytest.raises(TypeError):
-        tlnr.layernorm_residual_bwd(half, half, w, w[:4], w[:4], half)
+        tlnr.layernorm_residual_bwd(wide, wide, w, w[:4], w[:4], wide)
 
 
 def test_bf16_kernel_launches_count_apart():
