@@ -2,7 +2,7 @@
 //
 // Replaces four kernels of paddle_tpu/ops/pallas/conv_bn_relu.py, each a
 // pass over the conv output co [M, N] (channels last, row-major; N = Cout;
-// float32, or bf16 under AMP) with float32 per-channel vectors of length N:
+// float32, or bf16 or fp16 under AMP) with float32 per-channel vectors of length N:
 //   _centered_sumsq   (training fwd): per-block partials of sum((co - mean)^2)
 //   _bn_relu          (training fwd): y = relu(co * scale + shift)
 //   _bn_bwd_partials  (training bwd): per-block partials of sum(dy_relu) and
@@ -18,6 +18,14 @@
 // writes float32, as _bn_bwd_dco does (conv_bn_relu.py:501). Each kernel is a
 // template on the element type; the float32 instances are the kernels as they
 // were.
+//
+// fp16 (O1 float16 autocast; the _f16 entries): the TPU kernels never took
+// fp16, and the JAX package's fp16 conv goes through its unfused reference,
+// whose batch-norm backward rounds d_co to fp16 (ops/kernels.py
+// _bn_train_bwd). So the fp16 instances read and round as the bf16 ones,
+// except that bn_bwd_dco writes d_co in fp16, rounded once to nearest even.
+// Every fp16 rounding goes to inf past 65504 and is never clamped: a
+// loss-scaled gradient that overflows stays non-finite for the scaler.
 //
 // Design. The two reductions give each block 32 channels (one warp's
 // width, so a warp reads 128 contiguous bytes of a row) and a run of rows
@@ -38,6 +46,7 @@
 // in the plain version, so a pre-activation near 0 takes the same side of
 // the gate everywhere and the gradient matches the output it belongs to.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,8 +62,9 @@ __device__ __forceinline__ float pre_act(float co, float s, float b) {
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
-// V neighbouring values from p (V = 2: a bf16 pair, 4-byte aligned), widened
+// V neighbouring values from p (V = 2: a 16-bit pair, 4-byte aligned), widened
 template <int V>
 __device__ __forceinline__ void load_run(const float* p, float (&v)[V]) {
   static_assert(V == 1, "float32 lanes take one channel");
@@ -68,6 +78,16 @@ __device__ __forceinline__ void load_run(const __nv_bfloat16* p, float (&v)[V]) 
     v[V - 1] = f.y;
   } else {
     v[0] = __bfloat162float(*p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_run(const __half* p, float (&v)[V]) {
+  if (V == 2) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(p));
+    v[0] = f.x;
+    v[V - 1] = f.y;
+  } else {
+    v[0] = __half2float(*p);
   }
 }
 
@@ -175,9 +195,25 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[E]) 
     for (int e = 0; e < E; ++e) v[e] = __bfloat162float(p[e]);
   }
 }
+template <int E>
+__device__ __forceinline__ void load_vec(const __half* p, float (&v)[E]) {
+  if (E == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      v[(2 * i) % E] = f.x;
+      v[(2 * i + 1) % E] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = __half2float(p[e]);
+  }
+}
 
-// E values to p: float32 in 16-byte stores (E = 4 or 8), bf16 rounded once
-// to nearest in one 16-byte store (E = 8)
+// E values to p: float32 in 16-byte stores (E = 4 or 8), bf16 or fp16
+// rounded once to nearest even in one 16-byte store (E = 8)
 template <int E>
 __device__ __forceinline__ void store_vec(float* p, const float (&v)[E]) {
   if (E % 4 == 0) {
@@ -203,6 +239,21 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[E])
   } else {
 #pragma unroll
     for (int e = 0; e < E; ++e) p[e] = __float2bfloat16_rn(v[e]);
+  }
+}
+template <int E>
+__device__ __forceinline__ void store_vec(__half* p, const float (&v)[E]) {
+  if (E == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __half2 h = __floats2half2_rn(v[(2 * i) % E], v[(2 * i + 1) % E]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) p[e] = __float2half_rn(v[e]);
   }
 }
 
@@ -236,7 +287,7 @@ int launch_reduce(const void* co, const void* dy, int64_t m, int n, int64_t rows
                   cudaStream_t stream) {
   if (m <= 0 || n <= 0 || rows_per_block <= 0) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (m + rows_per_block - 1) / rows_per_block;
-  // bf16 lanes take a pair of channels when the pairs stay aligned
+  // 16-bit lanes take a pair of channels when the pairs stay aligned
   const bool pairs = sizeof(T) == 2 && n % 2 == 0;
   const int per_block = kCols * (pairs ? 2 : 1);
   const int col_tiles = (n + per_block - 1) / per_block;
@@ -289,7 +340,8 @@ int launch_elementwise(const void* co, const void* dy, int64_t m, int n, const v
 
 // Each entry returns cudaGetLastError() after its launch. The partials have
 // ceil(m / rows_per_block) rows of n. The _bf16 entries take bf16 co and dy
-// (bn_relu's y in bf16, bn_bwd_dco's d_co in float32).
+// (bn_relu's y in bf16, bn_bwd_dco's d_co in float32); the _f16 entries fp16
+// co and dy (y and d_co in fp16).
 extern "C" int ptt_bn_centered_sumsq(const void* co, int64_t m, int n, int64_t rows_per_block,
                                      const void* mean, void* partial, void* stream) {
   return launch_reduce<0, float>(co, nullptr, m, n, rows_per_block, mean, nullptr, partial,
@@ -342,4 +394,32 @@ extern "C" int ptt_bn_bwd_dco_bf16(const void* co, const void* dy, int64_t m, in
                                    const void* b0, void* dco, void* stream) {
   return launch_elementwise<1, __nv_bfloat16, float>(co, dy, m, n, scale, shift, k3, b0, dco,
                                                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ptt_bn_centered_sumsq_f16(const void* co, int64_t m, int n,
+                                         int64_t rows_per_block, const void* mean,
+                                         void* partial, void* stream) {
+  return launch_reduce<0, __half>(co, nullptr, m, n, rows_per_block, mean, nullptr, partial,
+                                  nullptr, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ptt_bn_bwd_partials_f16(const void* co, const void* dy, int64_t m, int n,
+                                       int64_t rows_per_block, const void* scale,
+                                       const void* shift, void* partial_dy, void* partial_dyco,
+                                       void* stream) {
+  return launch_reduce<1, __half>(co, dy, m, n, rows_per_block, scale, shift, partial_dy,
+                                  partial_dyco, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ptt_bn_relu_f16(const void* co, int64_t m, int n, const void* scale,
+                               const void* shift, void* y, void* stream) {
+  return launch_elementwise<0, __half, __half>(co, nullptr, m, n, scale, shift, nullptr, nullptr,
+                                               y, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ptt_bn_bwd_dco_f16(const void* co, const void* dy, int64_t m, int n,
+                                  const void* scale, const void* shift, const void* k3,
+                                  const void* b0, void* dco, void* stream) {
+  return launch_elementwise<1, __half, __half>(co, dy, m, n, scale, shift, k3, b0, dco,
+                                               static_cast<cudaStream_t>(stream));
 }

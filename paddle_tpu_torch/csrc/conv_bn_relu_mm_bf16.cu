@@ -1,12 +1,22 @@
-// Conv-as-matmul with a fused batch-norm epilogue in bf16, for Hopper (sm_90a).
+// Conv-as-matmul with a fused batch-norm epilogue in bf16 and fp16, for Hopper (sm_90a).
 //
 // Replaces the bf16 forms of paddle_tpu/ops/pallas/conv_bn_relu.py
 // _mm_affine_relu (eval: y = relu(bf16(p2 @ w2) * scale + shift), rounded to
 // bf16, the pre-activation never stored) and _mm_stats (training: co =
 // bf16(p2 @ w2) plus per-tile float32 channel sums of the rounded co). p2
 // [M, K] are the conv's patches (or its channels-last input for a 1x1
-// stride-1 conv) and w2 [K, N] its weight, N = Cout, both bf16 and row-major;
-// w2's rows are ldb >= N elements apart; scale and shift are float32.
+// stride-1 conv) and w2 [K, N] its weight, N = Cout, both of the element
+// type T and row-major; w2's rows are ldb >= N elements apart; scale and
+// shift are float32.
+//
+// T is bf16 (the entries ptt_conv_mm_bf16_*) or fp16 (ptt_conv_mm_f16_*,
+// O1 float16 autocast). The TPU kernels never took fp16: the JAX package
+// sends an fp16 conv to its unfused reference (conv2d, then batch_norm,
+// relu), which rounds co to fp16 once and takes the statistics from the
+// rounded co in float32, as these kernels do. The fp16 instances are the
+// same code with the .f32.f16.f16 products, fp16 tensor maps and fp16
+// roundings to nearest even (Elem<__half>): past 65504 a value becomes
+// inf, never clamped, so an overflowing conv reaches the loss scaler.
 //
 // Bound on the H100: device memory. At layer1's 3x3 conv at batch 128
 // ([401408, 576] @ [576, 64]) reading p2 once takes 0.138 ms at 3.35 TB/s and
@@ -31,22 +41,23 @@
 // above the other (256 x WN, N <= 128) or side by side (128 x 2WN, wider
 // N), so a tile covers all of ResNet-50's N = 64, 128 and 256 and p2
 // streams from device memory once (N = 512 is two column tiles, adjacent).
-// A warpgroup stages its bf16 output in shared memory (128-byte swizzled,
+// A warpgroup stages its 16-bit output in shared memory (128-byte swizzled,
 // so a warp's pairs fall on 32 distinct banks) and one thread stores it by
 // TMA: the output leaves in whole lines, where a thread's own pair stores
 // would touch 8 rows an instruction (an epilogue of several microseconds
 // an item on the H100, longer than a 64-deep item's loads).
 // The producer and the consumers split the registers by setmaxnreg.
 //
-// Rounding, as the TPU kernels round: the float32 sums are rounded to bf16
-// once (co); the channel sums add the rounded values in float32; the affine
-// rounds as __fmul_rn then __fadd_rn on the rounded co, then relu, then bf16.
+// Rounding, as the TPU kernels round (and, in fp16, the JAX reference): the
+// float32 sums are rounded to T once (co); the channel sums add the rounded
+// values in float32; the affine rounds as __fmul_rn then __fadd_rn on the
+// rounded co, then relu, then T.
 //
 // Epilogues (a template parameter); a consumer thread holds rows 16w + g
 // (+ 8) of each of its m64 products at columns 8n + 2t (+ 1), w its warp in
 // the warpgroup, lane = 4g + t:
-//   kAffineRelu: y = bf16(relu(bf16(acc) * scale + shift));
-//   kStats:      co = bf16(acc), and one [ceil(M / 128), N] row of float32
+//   kAffineRelu: y = T(relu(T(acc) * scale + shift));
+//   kStats:      co = T(acc), and one [ceil(M / 128), N] row of float32
 //                channel sums of the stored co per 128 output rows (rows >=
 //                M masked): a thread adds its 4 rows of a column, the 8 row
 //                groups of a warp meet by shuffles, the warpgroup's 4 warps
@@ -63,7 +74,7 @@
 //                memory, acquired; the launch is cooperative, so all
 //                slices are resident at once), slice z's warpgroup takes its
 //                share of those rows and adds the S slices in slice order,
-//                rounds the sum to bf16 and applies the affine + relu: one
+//                rounds the sum to T and applies the affine + relu: one
 //                reduce, in the same launch, the order fixed whatever block
 //                arrives last. The last warpgroup out sets the counters back
 //                to 0 for the next launch.
@@ -104,7 +115,7 @@ struct Tile {
   static constexpr int kStageBytes = kABytes + kBBytes;
   static constexpr int kStages = WN == 64 ? 4 : 3;  // slabs in the ring
   // a warpgroup's output staged for its TMA store: WN / 64 panels of
-  // [kWgRows][64] bf16, 128-byte swizzled
+  // [kWgRows][64] 16-bit values, 128-byte swizzled
   static constexpr int kStageOut = kWgRows * WN;
   // the ring, the two warpgroups' staged outputs, their column sums
   // ([2][4][WN] float) and affine vectors ([2][2][WN] float), the barriers,
@@ -119,9 +130,21 @@ struct Tile {
   static_assert(2 * kWgRows * kPartialLd * 4 <= kStages * kStageBytes, "partials fit the ring");
 };
 
-__device__ __forceinline__ float round_bf16(float x) {
+// x rounded to nearest even in T and widened back
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<bf16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+template <>
+__device__ __forceinline__ float round_to<__half>(float x) {
+  return __half2float(__float2half_rn(x));
+}
+
+// one value stored in T, rounded to nearest even
+__device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_one(__half* p, float v) { *p = __float2half_rn(v); }
 
 // the batch-norm pre-activation rounded as the plain version rounds it, then relu
 __device__ __forceinline__ float affine_relu(float x, float scale, float shift) {
@@ -144,38 +167,38 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-template <int WN>
+template <typename T, int WN>
 __device__ __forceinline__ void product(float (&d)[WN / 2], uint64_t a, uint64_t b, int acc) {
   if constexpr (WN == 128) {
-    wgmma_ss_n128<1>(d, a, b, acc);
+    wgmma_ss_n128<1, T>(d, a, b, acc);
   } else {
-    wgmma_ss_n64<1>(d, a, b, acc);
+    wgmma_ss_n64<1, T>(d, a, b, acc);
   }
 }
 
-// out [M, N] (float32 slice z of the workspace for kPartial, bf16
-// otherwise) of p2 [M, K] @ w2 [K, N]; items = m_tiles * n_tiles * slices;
-// kPartial writes y and keeps its counters (2 a warpgroup's rows of a tile)
-// in `counters`.
-// `staged`: the bf16 output goes through shared memory and TMA stores of
-// to's boxes (N a multiple of 8, so its rows lie 16-byte multiples apart),
-// else each thread stores its own pairs.
-template <int EPI, int WN, bool kSide>
+// out [M, N] (float32 slice z of the workspace for kPartial, T otherwise)
+// of p2 [M, K] @ w2 [K, N]; items = m_tiles * n_tiles * slices; kPartial
+// writes y and keeps its counters (2 a warpgroup's rows of a tile) in
+// `counters`.
+// `staged`: the T output goes through shared memory and TMA stores of to's
+// boxes (N a multiple of 8, so its rows lie 16-byte multiples apart), else
+// each thread stores its own pairs.
+template <typename T, int EPI, int WN, bool kSide>
 __global__ void __launch_bounds__(kThreads, 1)
-    conv_mm_bf16_kernel(const __grid_constant__ CUtensorMap ta,
-                        const __grid_constant__ CUtensorMap tb,
-                        const __grid_constant__ CUtensorMap to, int64_t m, int k, int n,
-                        int slice_slabs, int slices, int n_tiles, int items, int staged,
-                        const float* __restrict__ scale, const float* __restrict__ shift,
-                        void* __restrict__ out, float* __restrict__ partial,
-                        bf16* __restrict__ y, int* __restrict__ counters) {
-  using T = Tile<WN, kSide>;
-  constexpr int kStages = T::kStages;
+    conv_mm_16_kernel(const __grid_constant__ CUtensorMap ta,
+                      const __grid_constant__ CUtensorMap tb,
+                      const __grid_constant__ CUtensorMap to, int64_t m, int k, int n,
+                      int slice_slabs, int slices, int n_tiles, int items, int staged,
+                      const float* __restrict__ scale, const float* __restrict__ shift,
+                      void* __restrict__ out, float* __restrict__ partial,
+                      T* __restrict__ y, int* __restrict__ counters) {
+  using L = Tile<WN, kSide>;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
-  bf16* staging = reinterpret_cast<bf16*>(ring + kStages * T::kStageBytes);  // [2][kStageOut]
-  float* sums = reinterpret_cast<float*>(staging + 2 * T::kStageOut);       // [2][4][WN]
-  float* vecs = sums + 2 * 4 * WN;                                           // [2][2][WN]
+  T* staging = reinterpret_cast<T*>(ring + kStages * L::kStageBytes);  // [2][kStageOut]
+  float* sums = reinterpret_cast<float*>(staging + 2 * L::kStageOut);  // [2][4][WN]
+  float* vecs = sums + 2 * 4 * WN;                                     // [2][2][WN]
   uint64_t* full = reinterpret_cast<uint64_t*>(vecs + 2 * 2 * WN);
   uint64_t* empty = full + kStages;
   const int slabs = (k + kBK - 1) / kBK;
@@ -203,13 +226,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int s = z * slice_slabs; s < s1; ++s, ++sc) {
           const int st = sc % kStages;
           mbar_wait(&empty[st], ((sc / kStages) & 1) ^ 1);  // the stage's last slab released
-          uint8_t* a_s = ring + st * T::kStageBytes;
-          bf16* b_s = reinterpret_cast<bf16*>(a_s + T::kABytes);
-          mbar_arrive_tx(&full[st], T::kStageBytes);
-          tma_load_2d(a_s, &ta, &full[st], s * kBK, tm * T::kBM);
+          uint8_t* a_s = ring + st * L::kStageBytes;
+          T* b_s = reinterpret_cast<T*>(a_s + L::kABytes);
+          mbar_arrive_tx(&full[st], L::kStageBytes);
+          tma_load_2d(a_s, &ta, &full[st], s * kBK, tm * L::kBM);
 #pragma unroll
-          for (int p = 0; p < T::kPanels; ++p)
-            tma_load_2d(b_s + p * kPanel, &tb, &full[st], tn * T::kBN + 64 * p, s * kBK);
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_load_2d(b_s + p * kPanel, &tb, &full[st], tn * L::kBN + 64 * p, s * kBK);
         }
       }
     }
@@ -222,15 +245,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool leader = threadIdx.x % 128 == 0;  // issues the warpgroup's TMA stores
   float* wsum = sums + wg * 4 * WN;  // this warpgroup's [4][WN] column sums
   float* wvec = vecs + wg * 2 * WN;  // this warpgroup's columns of scale, then shift
-  uint8_t* out_s = reinterpret_cast<uint8_t*>(staging + wg * T::kStageOut);
-  float* part_s = reinterpret_cast<float*>(ring) + wg * kWgRows * T::kPartialLd;
+  uint8_t* out_s = reinterpret_cast<uint8_t*>(staging + wg * L::kStageOut);
+  float* part_s = reinterpret_cast<float*>(ring) + wg * kWgRows * L::kPartialLd;
   float acc[kMT][WN / 2];
   int sc = 0;  // slabs consumed
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int z = item % slices, tn = item / slices % n_tiles, tm = item / slices / n_tiles;
     const int s0 = z * slice_slabs, s1 = min(slabs, s0 + slice_slabs);
-    const int64_t row0 = (int64_t)tm * T::kBM + (kSide ? 0 : wg * kWgRows);  // this warpgroup's
-    const int col0 = tn * T::kBN + (kSide ? wg * WN : 0);
+    const int64_t row0 = (int64_t)tm * L::kBM + (kSide ? 0 : wg * kWgRows);  // this warpgroup's
+    const int col0 = tn * L::kBN + (kSide ? wg * WN : 0);
     if (EPI != kStats) {  // read while the products run; the epilogue's barrier orders them
       const int c = threadIdx.x % 128;
       if (c < WN) {
@@ -241,9 +264,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = s0; s < s1; ++s, ++sc) {
       const int st = sc % kStages;
       mbar_wait(&full[st], (sc / kStages) & 1);
-      const bf16* a_s = reinterpret_cast<const bf16*>(ring + st * T::kStageBytes) +
+      const T* a_s = reinterpret_cast<const T*>(ring + st * L::kStageBytes) +
                         (kSide ? 0 : wg * kWgRows * kBK);
-      const bf16* b_s = reinterpret_cast<const bf16*>(ring + st * T::kStageBytes + T::kABytes) +
+      const T* b_s = reinterpret_cast<const T*>(ring + st * L::kStageBytes + L::kABytes) +
                         (kSide ? wg * (WN / 64) * kPanel : 0);
 #pragma unroll
       for (int i = 0; i < kMT; ++i) reg_fence(acc[i]);
@@ -253,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint64_t db = desc_mn(b_s + kk * 16 * 64, kPanel * 2);
 #pragma unroll
         for (int i = 0; i < kMT; ++i)
-          product<WN>(acc[i], desc<128>(a_s + i * 64 * kBK + kk * 16), db, s > s0 || kk > 0);
+          product<T, WN>(acc[i], desc<128>(a_s + i * 64 * kBK + kk * 16), db, s > s0 || kk > 0);
       }
       wgmma_commit();
       if (s > s0) {  // the previous slab's products are done: release its stage
@@ -295,11 +318,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int64_t r = row0 + rr;
           const float x0 = acc[i][4 * j + 2 * h], x1 = acc[i][4 * j + 2 * h + 1];
           if (EPI == kPartial) {
-            *reinterpret_cast<float2*>(part_s + rr * T::kPartialLd + 8 * j + 2 * t) =
+            *reinterpret_cast<float2*>(part_s + rr * L::kPartialLd + 8 * j + 2 * t) =
                 make_float2(x0, x1);
             continue;
           }
-          float v0 = round_bf16(x0), v1 = round_bf16(x1);
+          float v0 = round_to<T>(x0), v1 = round_to<T>(x1);
           if (EPI == kStats) {
             if (r < m) {
               cs0 += v0;
@@ -311,14 +334,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
           if (staged) {
             *reinterpret_cast<uint32_t*>(out_s + (j / 8) * kWgRows * 128 + rr * 128 +
-                                         (((j % 8) ^ g) << 4) + 4 * t) = pack_bf16(v0, v1);
+                                         (((j % 8) ^ g) << 4) + 4 * t) = Elem<T>::pack(v0, v1);
           } else if (r < m && c < n) {
-            bf16* dst = static_cast<bf16*>(out) + r * n + c;
+            T* dst = static_cast<T*>(out) + r * n + c;
             if (pairs) {
-              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+              *reinterpret_cast<uint32_t*>(dst) = Elem<T>::pack(v0, v1);
             } else {
-              dst[0] = __float2bfloat16_rn(v0);
-              if (c + 1 < n) dst[1] = __float2bfloat16_rn(v1);
+              store_one(dst, v0);
+              if (c + 1 < n) store_one(dst + 1, v1);
             }
           }
         }
@@ -345,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int64_t r = row0 + rr;
         const int c = col0 + cc;
         if (r >= m || c >= n) continue;
-        const float4 v = *reinterpret_cast<const float4*>(part_s + rr * T::kPartialLd + cc);
+        const float4 v = *reinterpret_cast<const float4*>(part_s + rr * L::kPartialLd + cc);
         float* dst = slice + r * n + c;
         if (n % 4 == 0) {
           *reinterpret_cast<float4*>(dst) = v;
@@ -392,17 +415,17 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float* sc = wvec + cc;
           const float* sh = wvec + WN + cc;
           *reinterpret_cast<uint2*>(y + r * n + c) = make_uint2(
-              pack_bf16(affine_relu(round_bf16(v.x), sc[0], sh[0]),
-                        affine_relu(round_bf16(v.y), sc[1], sh[1])),
-              pack_bf16(affine_relu(round_bf16(v.z), sc[2], sh[2]),
-                        affine_relu(round_bf16(v.w), sc[3], sh[3])));
+              Elem<T>::pack(affine_relu(round_to<T>(v.x), sc[0], sh[0]),
+                            affine_relu(round_to<T>(v.y), sc[1], sh[1])),
+              Elem<T>::pack(affine_relu(round_to<T>(v.z), sc[2], sh[2]),
+                            affine_relu(round_to<T>(v.w), sc[3], sh[3])));
         } else {
           for (int q = 0; q < 4 && c + q < n; ++q) {
             float v = __ldcg(src + q);
 #pragma unroll 8
             for (int zz = 1; zz < slices; ++zz) v += __ldcg(src + zz * plane + q);
-            y[r * n + c + q] = __float2bfloat16_rn(
-                affine_relu(round_bf16(v), wvec[cc + q], wvec[WN + cc + q]));
+            store_one(y + r * n + c + q,
+                      affine_relu(round_to<T>(v), wvec[cc + q], wvec[WN + cc + q]));
           }
         }
       }
@@ -434,29 +457,35 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// a launch's operands; T, the element type of a, b and y, picks the instance
+template <typename T>
 struct Args {
-  const void *a, *b, *scale, *shift;
-  void *out, *partial, *y, *counters;
+  const T *a, *b;
+  const void *scale, *shift;
+  void *out, *partial;
+  T* y;
+  void* counters;
   int64_t m;
   int k, n, ldb, slices, slice_slabs;
 };
 
-template <int EPI, int WN, bool kSide>
-int launch_tile(const Args& x, cudaStream_t stream) {
-  using T = Tile<WN, kSide>;
+template <int EPI, int WN, bool kSide, typename T>
+int launch_tile(const Args<T>& x, cudaStream_t stream) {
+  using L = Tile<WN, kSide>;
+  constexpr CUtensorMapDataType kMap = Elem<T>::kMap;
   CUtensorMap ta, tb, to;
   const int staged = EPI != kPartial && x.n % 8 == 0;
-  int e = tensor_map_2d(&ta, x.a, x.m, x.k, x.k, kBK, T::kBM);
-  if (e == 0) e = tensor_map_2d(&tb, x.b, x.k, x.n, x.ldb, 64, kBK);
-  if (e == 0) e = staged ? tensor_map_2d(&to, x.out, x.m, x.n, x.n, 64, kWgRows) : 0;
+  int e = tensor_map_2d(&ta, x.a, x.m, x.k, x.k, kBK, L::kBM, kMap);
+  if (e == 0) e = tensor_map_2d(&tb, x.b, x.k, x.n, x.ldb, 64, kBK, kMap);
+  if (e == 0) e = staged ? tensor_map_2d(&to, x.out, x.m, x.n, x.n, 64, kWgRows, kMap) : 0;
   if (e != 0) return e;
-  auto* kernel = conv_mm_bf16_kernel<EPI, WN, kSide>;
+  auto* kernel = conv_mm_16_kernel<T, EPI, WN, kSide>;
   // above 48 KB a kernel's dynamic shared memory must be allowed first
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t m_tiles = (x.m + T::kBM - 1) / T::kBM;
-  const int n_tiles = (x.n + T::kBN - 1) / T::kBN;
+  const int64_t m_tiles = (x.m + L::kBM - 1) / L::kBM;
+  const int n_tiles = (x.n + L::kBN - 1) / L::kBN;
   const int64_t items = m_tiles * n_tiles * x.slices;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int blocks = (int)std::min<int64_t>(items, (int64_t)kBlocksPerSm * sm_count());
@@ -469,21 +498,21 @@ int launch_tile(const Args& x, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = T::kSmem;
+  cfg.dynamicSmemBytes = L::kSmem;
   cfg.stream = stream;
   cfg.attrs = coop;
   cfg.numAttrs = EPI == kPartial ? 1 : 0;
   const cudaError_t launched = cudaLaunchKernelEx(
       &cfg, kernel, ta, tb, staged ? to : ta, x.m, x.k, x.n, x.slice_slabs, x.slices, n_tiles,
       (int)items, staged, static_cast<const float*>(x.scale), static_cast<const float*>(x.shift),
-      x.out, static_cast<float*>(x.partial), static_cast<bf16*>(x.y),
+      x.out, static_cast<float*>(x.partial), x.y,
       static_cast<int*>(x.counters));
   return (int)(launched != cudaSuccess ? launched : cudaGetLastError());
 }
 
 // the tile for N (the wrapper's _bf16_tile mirrors it)
-template <int EPI>
-int launch(const Args& x, cudaStream_t stream) {
+template <int EPI, typename T>
+int launch(const Args<T>& x, cudaStream_t stream) {
   // TMA: bases on 16 bytes, row strides (K, ldb) multiples of 8 elements
   if (x.m <= 0 || x.k <= 0 || x.n <= 0 || x.k % 8 != 0 || x.ldb % 8 != 0 || x.ldb < x.n ||
       x.m > 0x7fffffff || !aligned16(x.a) || !aligned16(x.b) || !aligned16(x.out))
@@ -495,49 +524,61 @@ int launch(const Args& x, cudaStream_t stream) {
 
 }  // namespace
 
-// y [M, N] bf16 = relu(bf16(a [M, K] @ b [K, N]) * scale [N] + shift [N]);
-// b's rows ldb elements apart. a, b and y 16-byte aligned, K and ldb
-// multiples of 8 (else cudaErrorInvalidValue). Returns cudaGetLastError()
-// after the launch (or the error of encoding a tensor map).
-extern "C" int ptt_conv_mm_bf16_affine_relu(const void* a, const void* b, const void* scale,
-                                            const void* shift, void* y, int64_t m, int k, int n,
-                                            int ldb, void* stream) {
-  const int slabs = (k + kBK - 1) / kBK;
-  return launch<kAffineRelu>({a, b, scale, shift, y, nullptr, nullptr, nullptr, m, k, n, ldb, 1,
-                              slabs},
-                             static_cast<cudaStream_t>(stream));
-}
+// The entries, one set a type: PTT_CONV_MM_ENTRIES(ptt_conv_mm_bf16_, bf16) and
+// PTT_CONV_MM_ENTRIES(ptt_conv_mm_f16_, __half).
+//
+// <prefix>affine_relu: y [M, N] of T = relu(T(a [M, K] @ b [K, N]) * scale
+// [N] + shift [N]); b's rows ldb elements apart. a, b and y 16-byte aligned,
+// K and ldb multiples of 8 (else cudaErrorInvalidValue). Returns
+// cudaGetLastError() after the launch (or the error of encoding a tensor
+// map).
+//
+// <prefix>affine_relu_split: the same y through split-K: `slices` slices of
+// `slice_slabs` 64-deep slabs of K each (the last one shorter, none empty)
+// into the float32 ws [slices, M, N], then, in the same launch, the ordered
+// sum, its rounding to T and the affine + relu. Every work item must fit one
+// wave (tiles x slices <= the card's persistent blocks), else
+// cudaErrorInvalidValue. counters: 4 int32 a tile (2 a warpgroup), zero, and
+// zero again when the launch ends; one launch at a time may use them.
+//
+// <prefix>stats: co [M, N] of T = T(a @ b), and the float32 partial
+// [ceil(M / 128), N] holding each 128-row tile's column sums of the rounded
+// co. Returns cudaGetLastError() after the launch.
+//
+// <prefix>tile_rows: rows of one partial-sum tile, for the wrapper's
+// allocation.
+#define PTT_CONV_MM_ENTRIES(PREFIX, TYPE)                                                      \
+  extern "C" int PREFIX##affine_relu(const void* a, const void* b, const void* scale,           \
+                                     const void* shift, void* y, int64_t m, int k, int n,       \
+                                     int ldb, void* stream) {                                   \
+    const int slabs = (k + kBK - 1) / kBK;                                                      \
+    return launch<kAffineRelu>(                                                                 \
+        Args<TYPE>{static_cast<const TYPE*>(a), static_cast<const TYPE*>(b), scale, shift, y,   \
+                   nullptr, nullptr, nullptr, m, k, n, ldb, 1, slabs},                          \
+        static_cast<cudaStream_t>(stream));                                                     \
+  }                                                                                             \
+  extern "C" int PREFIX##affine_relu_split(const void* a, const void* b, const void* scale,     \
+                                           const void* shift, void* y, void* ws,                \
+                                           void* counters, int64_t m, int k, int n, int ldb,    \
+                                           int slices, int slice_slabs, void* stream) {         \
+    const int slabs = (k + kBK - 1) / kBK;                                                      \
+    if (slices < 1 || slice_slabs < 1 || (slices - 1) * slice_slabs >= slabs || !aligned16(y))  \
+      return (int)cudaErrorInvalidValue;                                                        \
+    return launch<kPartial>(                                                                    \
+        Args<TYPE>{static_cast<const TYPE*>(a), static_cast<const TYPE*>(b), scale, shift, ws,  \
+                   nullptr, static_cast<TYPE*>(y), counters, m, k, n, ldb, slices,              \
+                   slice_slabs},                                                                \
+        static_cast<cudaStream_t>(stream));                                                     \
+  }                                                                                             \
+  extern "C" int PREFIX##stats(const void* a, const void* b, void* co, void* partial,           \
+                               int64_t m, int k, int n, int ldb, void* stream) {                \
+    const int slabs = (k + kBK - 1) / kBK;                                                      \
+    return launch<kStats>(                                                                      \
+        Args<TYPE>{static_cast<const TYPE*>(a), static_cast<const TYPE*>(b), nullptr, nullptr,  \
+                   co, partial, nullptr, nullptr, m, k, n, ldb, 1, slabs},                      \
+        static_cast<cudaStream_t>(stream));                                                     \
+  }                                                                                             \
+  extern "C" int PREFIX##tile_rows() { return kTileRows; }
 
-// The same y through split-K: `slices` slices of `slice_slabs` 64-deep slabs
-// of K each (the last one shorter, none empty) into the float32 ws [slices,
-// M, N], then, in the same launch, the ordered sum, its rounding to bf16 and
-// the affine + relu. Every work item must fit one wave (tiles x slices <=
-// the card's persistent blocks), else cudaErrorInvalidValue. counters: 4
-// int32 a tile (2 a warpgroup), zero, and zero again when the launch ends;
-// one launch at a time may use them.
-extern "C" int ptt_conv_mm_bf16_affine_relu_split(const void* a, const void* b,
-                                                  const void* scale, const void* shift, void* y,
-                                                  void* ws, void* counters, int64_t m, int k,
-                                                  int n, int ldb, int slices, int slice_slabs,
-                                                  void* stream) {
-  const int slabs = (k + kBK - 1) / kBK;
-  if (slices < 1 || slice_slabs < 1 || (slices - 1) * slice_slabs >= slabs || !aligned16(y))
-    return (int)cudaErrorInvalidValue;
-  return launch<kPartial>({a, b, scale, shift, ws, nullptr, y, counters, m, k, n, ldb, slices,
-                           slice_slabs},
-                          static_cast<cudaStream_t>(stream));
-}
-
-// co [M, N] bf16 = bf16(a @ b), and the float32 partial [ceil(M / 128), N]
-// holding each 128-row tile's column sums of the rounded co. Returns
-// cudaGetLastError() after the launch.
-extern "C" int ptt_conv_mm_bf16_stats(const void* a, const void* b, void* co, void* partial,
-                                      int64_t m, int k, int n, int ldb, void* stream) {
-  const int slabs = (k + kBK - 1) / kBK;
-  return launch<kStats>({a, b, nullptr, nullptr, co, partial, nullptr, nullptr, m, k, n, ldb, 1,
-                         slabs},
-                        static_cast<cudaStream_t>(stream));
-}
-
-// Rows of one partial-sum tile, for the wrapper's allocation.
-extern "C" int ptt_conv_mm_bf16_tile_rows() { return kTileRows; }
+PTT_CONV_MM_ENTRIES(ptt_conv_mm_bf16_, bf16)
+PTT_CONV_MM_ENTRIES(ptt_conv_mm_f16_, __half)

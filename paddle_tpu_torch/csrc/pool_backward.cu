@@ -8,13 +8,15 @@
 // Bound on the H100: device memory. x, y and dy are read once and dx is
 // written once for a handful of compares an element.
 //
-// float32 or bf16 (the stem's pool under AMP): x, y, dy and dx share one type.
-// bf16 taps are compared exactly (widened to float32, which changes no value),
-// the taps an element won are added in float32 and the sum is rounded once to
-// bf16 at the store, as the TPU kernel computes in float32 and rounds at its
-// store (pool_backward.py:131-135, :196). bf16 stages its quads of 4 values
-// with 8-byte copies, and copies element by element where float32 copies 4
-// bytes (cp.async copies no 2-byte piece).
+// float32, bf16 or fp16 (the stem's pool under AMP): x, y, dy and dx share
+// one type. 16-bit taps are compared exactly (widened to float32, which
+// changes no value), the taps an element won are added in float32 and the sum
+// is rounded once to the type at the store (to nearest even; in fp16 past
+// 65504 to inf, never clamped), as the TPU kernel computes in float32 and
+// rounds at its store (pool_backward.py:131-135, :196; max_pool_backward_supported
+// admits fp16, :259-272). 16-bit types stage their quads of 4 values with
+// 8-byte copies, and copy element by element where float32 copies 4 bytes
+// (cp.async copies no 2-byte piece).
 //
 // Two layouts, one rule. x, y, dy (and the dx written) are either NCHW
 // (the JAX package's layout) or channels-last, the NCHW view of an NHWC
@@ -57,6 +59,7 @@
 // one-hot matmuls, H phase splits and -1e38 padding were work-arounds for
 // its compiler and have no counterpart here.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,18 +138,25 @@ __device__ __forceinline__ void copy_quad(float* dst, const float* src, bool in)
 __device__ __forceinline__ void copy_quad(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
   cp_async8(dst, src, in ? 8 : 0);
 }
+__device__ __forceinline__ void copy_quad(__half* dst, const __half* src, bool in) {
+  cp_async8(dst, src, in ? 8 : 0);
+}
 
-// one element, a zero where !in; cp.async has no 2-byte copy, so bf16 loads
-// and stores it
+// one element, a zero where !in; cp.async has no 2-byte copy, so a 16-bit
+// type loads and stores it
 __device__ __forceinline__ void copy_one(float* dst, const float* src, bool in) {
   cp_async4(dst, src, in ? 4 : 0);
 }
 __device__ __forceinline__ void copy_one(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
   *dst = in ? *src : __ushort_as_bfloat16(0);
 }
+__device__ __forceinline__ void copy_one(__half* dst, const __half* src, bool in) {
+  *dst = in ? *src : __ushort_as_half(0);
+}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
 // four neighbouring elements from shared memory (16- or 8-byte aligned), widened
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -156,6 +166,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
@@ -168,9 +184,15 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float
   *reinterpret_cast<uint2*>(p) =
       make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
 }
+__device__ __forceinline__ void store4(__half* p, float a, float b, float c, float d) {
+  const __half2 lo = __floats2half2_rn(a, b), hi = __floats2half2_rn(c, d);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(__half* p, float v) { *p = __float2half_rn(v); }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
@@ -539,4 +561,14 @@ extern "C" int ptt_max_pool2d_backward_bf16(const void* x, const void* y, const 
                                             int channels_last, void* stream) {
   return pool_backward<__nv_bfloat16>(x, y, dy, dx, n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw,
                                       channels_last, stream);
+}
+
+// The same with x, y, dy and dx in fp16 (O1 float16 autocast): the taps
+// compared exactly, added in float32, each element of dx rounded once.
+extern "C" int ptt_max_pool2d_backward_f16(const void* x, const void* y, const void* dy,
+                                           void* dx, int n, int c, int h, int w, int oh, int ow,
+                                           int kh, int kw, int sh, int sw, int ph, int pw,
+                                           int channels_last, void* stream) {
+  return pool_backward<__half>(x, y, dy, dx, n, c, h, w, oh, ow, kh, kw, sh, sw, ph, pw,
+                               channels_last, stream);
 }

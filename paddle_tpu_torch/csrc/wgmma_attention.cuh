@@ -1,7 +1,7 @@
 // Hopper's asynchronous machinery for the 16-bit attention kernels
 // (csrc/flash_attention_bf16.cu, the forward; csrc/flash_attention_bwd_bf16.cu,
-// dQ and dK/dV; each in bf16 and fp16) and the bf16 conv GEMM
-// (csrc/conv_bn_relu_mm_bf16.cu): TMA tile loads into shared memory
+// dQ and dK/dV; each in bf16 and fp16) and the 16-bit conv GEMM
+// (csrc/conv_bn_relu_mm_bf16.cu, bf16 and fp16): TMA tile loads into shared memory
 // completed on mbarriers, warpgroup products (wgmma) on 16-bit operands read
 // from those tiles, and the forward's dropout draws. The attention reads 3-D
 // tensor maps ([heads, rows, D]); the GEMM 2-D ones ([rows, cols] with a row
@@ -542,19 +542,20 @@ inline int tensor_map(CUtensorMap* map, const void* base, int heads, int rows, i
   return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
-// the tensor map of a row-major [rows, cols] bf16 matrix whose rows lie
-// row_elems apart (a multiple of 8), in boxes of box_cols (64: one
-// 128-byte swizzled row) x box_rows; what lies past rows or cols loads as
-// zeros. Returns a cudaError_t.
+// the tensor map of a row-major [rows, cols] matrix of 16-bit `type`
+// values whose rows lie row_elems apart (a multiple of 8), in boxes of
+// box_cols (64: one 128-byte swizzled row) x box_rows; what lies past rows
+// or cols loads as zeros. Returns a cudaError_t.
 inline int tensor_map_2d(CUtensorMap* map, const void* base, int64_t rows, int cols,
-                         int64_t row_elems, int box_cols, int box_rows) {
+                         int64_t row_elems, int box_cols, int box_rows,
+                         CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)row_elems * 2};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base),
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -2,8 +2,8 @@
 
 Every wrapper counts its kernel's launches in a module-level integer (one
 for each dtype a kernel takes: the bf16 LayerNorm, attention, fused conv
-and max-pool backward kernels count apart from the float32 ones, the fp16
-LayerNorm and attention kernels apart from both, and the LayerNorm
+and max-pool backward kernels count apart from the float32 ones, their fp16
+instances apart from both, and the LayerNorm
 forward's mixed instances, a bf16 or an fp16 x on an f32 residual, apart
 from all);
 :data:`KERNEL_COUNTERS` names them, :func:`launch_counts` reads them all
@@ -61,10 +61,17 @@ KERNEL_COUNTERS = {
     "conv_bn_relu_bn_relu_bf16": (conv_bn_relu, "BF16_BN_RELU_LAUNCHES"),
     "conv_bn_relu_bn_bwd_partials_bf16": (conv_bn_relu, "BF16_BN_BWD_PARTIALS_LAUNCHES"),
     "conv_bn_relu_bn_bwd_dco_bf16": (conv_bn_relu, "BF16_BN_BWD_DCO_LAUNCHES"),
+    "conv_bn_relu_mm_affine_relu_fp16": (conv_bn_relu, "FP16_MM_AFFINE_RELU_LAUNCHES"),
+    "conv_bn_relu_mm_stats_fp16": (conv_bn_relu, "FP16_MM_STATS_LAUNCHES"),
+    "conv_bn_relu_centered_sumsq_fp16": (conv_bn_relu, "FP16_CENTERED_SUMSQ_LAUNCHES"),
+    "conv_bn_relu_bn_relu_fp16": (conv_bn_relu, "FP16_BN_RELU_LAUNCHES"),
+    "conv_bn_relu_bn_bwd_partials_fp16": (conv_bn_relu, "FP16_BN_BWD_PARTIALS_LAUNCHES"),
+    "conv_bn_relu_bn_bwd_dco_fp16": (conv_bn_relu, "FP16_BN_BWD_DCO_LAUNCHES"),
     "momentum_update": (optimizer_update, "LAUNCHES"),
     "int8_matmul": (int8_matmul, "LAUNCHES"),
     "max_pool2d_backward": (pool_backward, "LAUNCHES"),
     "max_pool2d_backward_bf16": (pool_backward, "BF16_LAUNCHES"),
+    "max_pool2d_backward_fp16": (pool_backward, "FP16_LAUNCHES"),
 }
 
 #: counts that are not launches, set to 0 with them: (module, name)

@@ -47,14 +47,29 @@ affine, the statistics and every sum in float32, ``y`` rounded once;
 products rounded once to the operands' type (``:560-561``). bf16 rows
 reach the GEMM by TMA, whose rows must lie a multiple of 16 bytes apart, so
 :func:`_as_matmul` pads K with zeros to a multiple of 8 (the stem's 147 to
-152). float16 is refused, as the
-TPU kernels never took it.
+152).
+
+float16 (O1 float16 autocast): the TPU kernels never took it, and the JAX
+package sends an fp16 conv to its unfused reference (``_reference``,
+``:136-149``: the registered ``conv2d``, ``batch_norm``, ``relu``). The same
+sources have fp16 instances (entries ``ptt_conv_mm_f16_*`` and
+``ptt_bn_*_f16``, counted apart as ``FP16_*``) that round where that
+reference rounds: ``co`` to fp16 once, the statistics and every sum in
+float32 from the rounded ``co``, ``y`` rounded once, and ``d_co`` rounded to
+fp16 once, as ``_bn_train_bwd`` rounds it (``ops/kernels.py:918-923``). The
+reference then takes dx and dw as the conv's VJP, each one product with
+float32 sums rounded once; so in fp16 the cores fold the patches' float32
+gradients back into dx before its one rounding (:func:`_fp16_conv_grads`),
+where bf16 rounds each patch's gradient first as the TPU kernels do. fp16
+rounds past 65504 to inf and is never clamped: an overflowing conv or
+gradient stays non-finite for the loss scaler. K is padded as for bf16.
 
 A tensor on the CPU takes the plain versions (the ``_*_plain``
 functions); a tensor on the card launches the kernels or raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import threading
@@ -70,7 +85,7 @@ __all__ = ["conv_bn_relu", "mm_affine_relu", "mm_stats", "centered_sumsq", "bn_r
            "bn_bwd_partials", "bn_bwd_dco"]
 
 #: kernel launches since the last reset (counted where each kernel launches),
-#: float32 and bf16 apart
+#: float32, bf16 and fp16 apart
 MM_AFFINE_RELU_LAUNCHES = 0
 MM_STATS_LAUNCHES = 0
 CENTERED_SUMSQ_LAUNCHES = 0
@@ -83,17 +98,27 @@ BF16_CENTERED_SUMSQ_LAUNCHES = 0
 BF16_BN_RELU_LAUNCHES = 0
 BF16_BN_BWD_PARTIALS_LAUNCHES = 0
 BF16_BN_BWD_DCO_LAUNCHES = 0
+FP16_MM_AFFINE_RELU_LAUNCHES = 0
+FP16_MM_STATS_LAUNCHES = 0
+FP16_CENTERED_SUMSQ_LAUNCHES = 0
+FP16_BN_RELU_LAUNCHES = 0
+FP16_BN_BWD_PARTIALS_LAUNCHES = 0
+FP16_BN_BWD_DCO_LAUNCHES = 0
 #: calls of :func:`mm_affine_relu` that took split-K, in either type (each
 #: also counts one launch of its type)
 MM_AFFINE_RELU_SPLITS = 0
 _count_lock = threading.Lock()
+# the count's prefix by the matrices' dtype
+_PREFIX = {torch.float32: "", torch.bfloat16: "BF16_", torch.float16: "FP16_"}
+# the 16-bit GEMM's and passes' entries by dtype
+_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 # the float32 GEMM's tiles (csrc/conv_bn_relu_mm.cu kBM, kBN, kBK): output
 # rows and columns a block, and the depth of one slab of K
 _TILE_ROWS, _TILE_COLS, _SLAB = 128, 64, 32
-# bf16 rows reach the bf16 GEMM by TMA, 16-byte row strides: K a multiple
-# of 8 (:func:`_as_matmul` pads it), w2's rows padded to a multiple of 8
-# columns
+# 16-bit rows reach the 16-bit GEMM by TMA, 16-byte row strides: K a
+# multiple of 8 (:func:`_as_matmul` pads it), w2's rows padded to a multiple
+# of 8 columns
 _BF16_ALIGN = 8
 # the bf16 GEMM (csrc/conv_bn_relu_mm_bf16.cu): the depth of one slab
 # (kBK), the rows a consumer warpgroup owns (kWgRows, also the rows of one
@@ -106,7 +131,9 @@ _BF16_BLOCKS_PER_SM = 1
 # fixed cost (its first slab's wait, its epilogue) and the in-launch reduce
 # (its partial stores, the wait for every slice, a share of the rows read
 # back), in slabs a block loads; it pays off only on a card mostly left
-# empty, at most one tile for _BF16_SPLIT_SHARE of the blocks
+# empty, at most one tile for _BF16_SPLIT_SHARE of the blocks. The fp16
+# instances take the same plan unchanged: the same kernel, tiles and
+# 2-byte elements, so the same bytes and slabs (not tuned apart)
 _BF16_ITEM_SLABS = 6
 _BF16_REDUCE_SLABS = 14
 _BF16_SPLIT_SHARE = 4
@@ -125,7 +152,7 @@ _REDUCE_COLS = 32  # channels a reduction block (csrc/conv_bn_relu_bn.cu kCols)
 
 
 def _count(attr, dtype=torch.float32, outs=()):
-    name = ("BF16_" if dtype == torch.bfloat16 else "") + attr
+    name = _PREFIX[dtype] + attr
     with _count_lock:
         bump(globals(), name)
     check_outputs(globals(), name, *outs)
@@ -139,14 +166,23 @@ def _pre_act(co, scale, shift):
     return co * scale + shift
 
 
+def _product(p2, w2):
+    """``p2 @ w2`` in the operands' type; fp16 as one float32 product
+    rounded once, the fp16 kernel's rounding (torch's CPU half GEMM is
+    slow)."""
+    if p2.dtype == torch.float16:
+        return torch.matmul(p2.float(), w2.float()).half()
+    return torch.matmul(p2, w2)
+
+
 def _mm_affine_relu_plain(p2, w2, scale, shift):
-    return torch.relu(_pre_act(torch.matmul(p2, w2), scale, shift)).to(p2.dtype)
+    return torch.relu(_pre_act(_product(p2, w2), scale, shift)).to(p2.dtype)
 
 
 def _mm_stats_plain(p2, w2):
     """``(co, partial)`` with the f32 partial ``[1, N]``: one tile of every
     row."""
-    co = torch.matmul(p2, w2)
+    co = _product(p2, w2)
     return co, co.float().sum(0, keepdim=True)
 
 
@@ -168,9 +204,11 @@ def _bn_bwd_partials_plain(co, dy, scale, shift):
 
 
 def _bn_bwd_dco_plain(co, dy, scale, shift, k3, b0):
-    """float32 whatever ``co``'s type, as the TPU kernel writes it
-    (``:501``): the matrix gradients take it unrounded."""
-    return scale * _gated(co, dy, scale, shift).float() - k3 * co.float() - b0
+    """float32 for float32 and bf16 ``co``, as the TPU kernel writes it
+    (``:501``): the matrix gradients take it unrounded; fp16 rounded once to
+    fp16, as the JAX package's fp16 path rounds it (``_bn_train_bwd``)."""
+    dco = scale * _gated(co, dy, scale, shift).float() - k3 * co.float() - b0
+    return dco.half() if co.dtype == torch.float16 else dco
 
 
 # -- kernel entries -----------------------------------------------------------
@@ -190,30 +228,32 @@ def _bind(lib, symbol, argtypes):
 
 def _on_kernel(name, mats, vecs, n):
     """False for CPU tensors (the plain version runs); on the card, checks
-    what the kernels take (matrices all float32 or all bf16, the vectors
-    float32) and returns True; raises on any other device. The ``[N]``
-    vectors are checked on every device."""
+    what the kernels take (matrices all float32, all bf16 or all fp16, the
+    vectors float32) and returns True; raises on any other device. The
+    ``[N]`` vectors are checked on every device."""
     if any(tuple(v.shape) != (n,) for v in vecs):
         raise ValueError(f"{name}: per-channel vectors must be [{n}], got "
                          f"{[tuple(v.shape) for v in vecs]}")
     first = mats[0]
     if first.device.type == "cpu" and all(t.device.type == "cpu" for t in mats + vecs):
         return False
-    if first.device.type != "cuda" or any(t.device != first.device for t in mats + vecs):
-        raise ValueError(f"{name}: all tensors must be on one CUDA device")
-    if (first.dtype not in (torch.float32, torch.bfloat16)
+    if (first.dtype not in _PREFIX
             or any(t.dtype != first.dtype for t in mats)
             or any(v.dtype != torch.float32 for v in vecs)):
-        raise TypeError(f"{name}: the kernels take float32 or bf16 matrices of one type and "
+        raise TypeError(f"{name}: the kernels take float32, bf16 or fp16 matrices of one type and "
                         f"float32 vectors, got {[str(t.dtype) for t in mats]} and "
                         f"{sorted({str(v.dtype) for v in vecs})}")
+    if first.device.type != "cuda" or any(t.device != first.device for t in mats + vecs):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
     if not all(t.is_contiguous() for t in mats):
         raise ValueError(f"{name}: the [M, N] operands must be contiguous")
     return True
 
 
-def _bf16(t):
-    return t.dtype == torch.bfloat16
+def _half(t):
+    """A 16-bit type, bf16 or fp16: the wgmma GEMM's and the passes' paired
+    instances."""
+    return t.dtype in _SUFFIX
 
 
 def _stream(t):
@@ -240,20 +280,22 @@ def _check_mn(name, co, *others):
 
 def _mm_lib(p2):
     """(library, symbol prefix) of the conv GEMM for ``p2``'s type."""
-    return ("conv_bn_relu_mm_bf16", "ptt_conv_mm_bf16_") if _bf16(p2) else (
-        "conv_bn_relu_mm", "ptt_conv_mm_")
+    if _half(p2):
+        return "conv_bn_relu_mm_bf16", f"ptt_conv_mm_{_SUFFIX[p2.dtype]}_"
+    return "conv_bn_relu_mm", "ptt_conv_mm_"
 
 
 def _mm_operands(name, p2, w2):
-    """``(p2, w2, ld)`` as the GEMM copies them: bases on 16 bytes; in
-    bf16, K a multiple of 8 (raises otherwise: :func:`_as_matmul` pads it)
-    and w2's rows padded with zero columns to a multiple of 8, their length
-    in ``ld``, the bf16 entries' extra argument (empty for float32)."""
+    """``(p2, w2, ld)`` as the GEMM copies them: bases on 16 bytes; in a
+    16-bit type, K a multiple of 8 (raises otherwise: :func:`_as_matmul`
+    pads it) and w2's rows padded with zero columns to a multiple of 8,
+    their length in ``ld``, the 16-bit entries' extra argument (empty for
+    float32)."""
     p2, w2 = _aligned(p2), _aligned(w2)
-    if not _bf16(p2):
+    if not _half(p2):
         return p2, w2, ()
     if p2.shape[1] % _BF16_ALIGN:
-        raise ValueError(f"{name}: the bf16 kernel takes K a multiple of {_BF16_ALIGN}, got "
+        raise ValueError(f"{name}: the 16-bit kernel takes K a multiple of {_BF16_ALIGN}, got "
                          f"{p2.shape[1]} (pad it with zeros, as _as_matmul does)")
     extra = -w2.shape[1] % _BF16_ALIGN
     return p2, (_F.pad(w2, (0, extra)) if extra else w2), (w2.shape[1] + extra,)
@@ -297,15 +339,16 @@ def _bn_bwd_partials_cost(co, dy, scale, shift):
 
 
 def _bn_bwd_dco_cost(co, dy, scale, shift, k3, b0):
-    """Row 13's work: co, dy and the four vectors read, the f32 dco
-    written."""
-    return 0, 2 * _mn(co) + 4 * co.numel() + 16 * co.shape[1]
+    """Row 13's work: co, dy and the four vectors read, dco written (f32;
+    fp16 for fp16 co)."""
+    out = 2 if co.dtype == torch.float16 else 4
+    return 0, 2 * _mn(co) + out * co.numel() + 16 * co.shape[1]
 
 
 @counted(_mm_affine_relu_cost)
 def mm_affine_relu(p2, w2, scale, shift):
     """``relu((p2 @ w2) * scale + shift)`` for ``p2 [M, K]``, ``w2 [K, N]``
-    (both float32 or both bf16; the output in their type) and float32
+    (both float32, bf16 or fp16; the output in their type) and float32
     ``[N]`` vectors: the kernel on the card, the plain version on the
     CPU."""
     _check_mm("mm_affine_relu", p2, w2)
@@ -319,14 +362,14 @@ def mm_affine_relu(p2, w2, scale, shift):
     k = p2.shape[1]
     p2, w2, ld = _mm_operands("mm_affine_relu", p2, w2)
     lib, sym = _mm_lib(p2)
-    slices, per = (_split_k_bf16(m, k, n, _sm_count(p2.device.index)) if _bf16(p2)
+    slices, per = (_split_k_bf16(m, k, n, _sm_count(p2.device.index)) if _half(p2)
                    else _split_k(m, k, n))
     with torch.cuda.device(p2.device):
         args = (p2.data_ptr(), w2.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr())
         if slices == 1:
             err = _bind(lib, sym + "affine_relu", [_VP] * 5 + [_I64] + [_INT] * (2 + len(ld))
                         + [_VP])(*args, m, k, n, *ld, _stream(p2))
-        elif _bf16(p2):  # the ordered reduce in the same launch, on zeroed counters
+        elif _half(p2):  # the ordered reduce in the same launch, on zeroed counters
             ws = torch.empty(slices, m, n, device=p2.device, dtype=torch.float32)
             bm, bn = _bf16_tile(n)
             ctr = _counters(p2.device, 4 * -(-m // bm) * -(-n // bn))
@@ -398,14 +441,14 @@ def _bf16_tile(n):
 
 
 def _split_k_bf16(m, k, n, sm_count):
-    """``(slices, slice_slabs)`` for the bf16 eval product ``[m, k] @ [k,
-    n]`` on a card of ``sm_count`` SMs. A split runs in one wave of the
-    kernel's persistent blocks (tiles x slices of them at most: its reduce
-    waits for every slice of a tile in the same launch), so the shortest
-    slices of whole 64-deep slabs (none empty) that fit one wave; it is
-    taken where the tiles leave most of the card empty and its slices, an
-    item's fixed cost and the reduce cost fewer slabs a block than the
-    unsplit rounds of whole tiles do."""
+    """``(slices, slice_slabs)`` for the 16-bit eval product ``[m, k] @ [k,
+    n]`` (bf16 or fp16: the same plan) on a card of ``sm_count`` SMs. A
+    split runs in one wave of the kernel's persistent blocks (tiles x
+    slices of them at most: its reduce waits for every slice of a tile in
+    the same launch), so the shortest slices of whole 64-deep slabs (none
+    empty) that fit one wave; it is taken where the tiles leave most of the
+    card empty and its slices, an item's fixed cost and the reduce cost
+    fewer slabs a block than the unsplit rounds of whole tiles do."""
     bm, bn = _bf16_tile(n)
     tiles = -(-m // bm) * -(-n // bn)
     slabs = -(-k // _BF16_SLAB)
@@ -464,7 +507,8 @@ _BN_ARGS = {"centered_sumsq": [_VP, _I64, _INT, _I64, _VP, _VP, _VP],
 
 def _bn_symbol(name, co):
     """The batch-norm pass ``ptt_bn_<name>`` for ``co``'s type."""
-    return _bind("conv_bn_relu_bn", f"ptt_bn_{name}" + ("_bf16" if _bf16(co) else ""),
+    return _bind("conv_bn_relu_bn",
+                 f"ptt_bn_{name}" + (f"_{_SUFFIX[co.dtype]}" if _half(co) else ""),
                  _BN_ARGS[name])
 
 
@@ -536,14 +580,16 @@ def bn_bwd_partials(co, dy, scale, shift):
 
 @counted(_bn_bwd_dco_cost)
 def bn_bwd_dco(co, dy, scale, shift, k3, b0):
-    """``scale * dy_relu - k3 * co - b0`` for ``co, dy [M, N]``, float32
-    whatever their type (``_bn_bwd_dco``, ``:501``)."""
+    """``scale * dy_relu - k3 * co - b0`` for ``co, dy [M, N]``: float32
+    for float32 and bf16 (``_bn_bwd_dco``, ``:501``), fp16 rounded once for
+    fp16 (the JAX package's fp16 path, ``_bn_train_bwd``)."""
     _check_mn("bn_bwd_dco", co, dy)
     m, n = co.shape
     vecs = [v.contiguous() for v in (scale, shift, k3, b0)]
     if not _on_kernel("bn_bwd_dco", [co, dy], vecs, n):
         return _bn_bwd_dco_plain(co, dy, *vecs)
-    dco = torch.empty(m, n, device=co.device, dtype=torch.float32)
+    dco = torch.empty(m, n, device=co.device,
+                      dtype=torch.float16 if co.dtype == torch.float16 else torch.float32)
     if m == 0 or n == 0:  # nothing is launched or counted
         return dco
     with torch.cuda.device(co.device):
@@ -571,10 +617,14 @@ class _TrainCore(torch.autograd.Function):
     about that global mean and summed; in the backward the two channel sums
     of ``bn_bwd_partials`` are summed over the group before ``bn_bwd_dco``
     (``dgamma`` and ``dbeta`` stay this rank's: the step averages them with
-    every gradient)."""
+    every gradient).
+
+    fp16 passes the conv's input ``x`` and its :class:`_Lowering` beside a
+    ``p2`` lowered from ``x`` without autograd: the backward returns dx for
+    ``x`` itself (:func:`_fp16_conv_grads`), none for ``p2``."""
 
     @staticmethod
-    def forward(ctx, p2, w2, gamma, beta, eps, group=None):
+    def forward(ctx, p2, w2, gamma, beta, eps, group=None, x=None, lowering=None):
         m = p2.shape[0]
         co, ps = mm_stats(p2, w2)
         if group is None:
@@ -595,7 +645,7 @@ class _TrainCore(torch.autograd.Function):
         shift = beta - mean * scale
         y2 = bn_relu(co, scale, shift)
         ctx.save_for_backward(p2, w2, co, mean, rstd, scale, shift)
-        ctx.group, ctx.count = group, m
+        ctx.group, ctx.count, ctx.lowering = group, m, lowering
         ctx.mark_non_differentiable(mean, var)
         return y2, mean, var
 
@@ -618,14 +668,18 @@ class _TrainCore(torch.autograd.Function):
         else:
             k3 = scale * (dgamma / m) * rstd
         b0 = scale * (sum_dy / m) - k3 * mean
-        dco = bn_bwd_dco(co, dy, scale, shift, k3, b0)  # float32
+        dco = bn_bwd_dco(co, dy, scale, shift, k3, b0)  # float32; fp16 for fp16
+        if ctx.lowering is not None:
+            dx, dw2 = _fp16_conv_grads(p2, w2, dco, ctx.lowering, ctx.needs_input_grad[6],
+                                       ctx.needs_input_grad[1])
+            return None, dw2, dgamma, dbeta, None, None, dx, None
         # float32 products of the float32 d_co, each rounded once to its
         # operand's type (``_train_core_bwd``, ``:560-561``)
         dp2 = (torch.matmul(dco, w2.float().t()).to(p2.dtype) if ctx.needs_input_grad[0]
                else None)
         dw2 = (torch.matmul(p2.float().t(), dco).to(w2.dtype) if ctx.needs_input_grad[1]
                else None)
-        return dp2, dw2, dgamma, dbeta, None, None
+        return dp2, dw2, dgamma, dbeta, None, None, None, None
 
 
 def _eval_expr(p2, w2, gamma, beta, mean, var, eps):
@@ -638,24 +692,81 @@ def _eval_expr(p2, w2, gamma, beta, mean, var, eps):
 class _EvalCore(torch.autograd.Function):
     """``relu(batch_norm(p2 @ w2))`` with running statistics through
     :func:`mm_affine_relu`; the backward is off the training path and
-    differentiates the plain recompute (``_eval_core_bwd``, ``:590``)."""
+    differentiates the plain recompute (``_eval_core_bwd``, ``:590``).
+
+    fp16 takes ``x`` and its :class:`_Lowering` as :class:`_TrainCore` does;
+    its backward differentiates the JAX package's fp16 path, ``_reference``
+    in eval mode: ``co`` rounded to fp16, ``y`` computed in float32 from it
+    and rounded to fp16, then relu; so ``d_co`` is rounded to fp16 once
+    before the conv's gradients (:func:`_fp16_conv_grads`)."""
 
     @staticmethod
-    def forward(ctx, p2, w2, gamma, beta, mean, var, eps):
+    def forward(ctx, p2, w2, gamma, beta, mean, var, eps, x=None, lowering=None):
         rstd = torch.rsqrt(var + eps)
         scale = gamma * rstd
         y2 = mm_affine_relu(p2, w2, scale, beta - mean * scale)
         ctx.save_for_backward(p2, w2, gamma, beta, mean, var)
-        ctx.eps = eps
+        ctx.eps, ctx.lowering = eps, lowering
         return y2
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.lowering is not None:
+            p2, w2, *vecs = ctx.saved_tensors
+            with torch.enable_grad():
+                ins = [_product(p2, w2).float().requires_grad_()] + [
+                    t.detach().requires_grad_() for t in vecs]
+                co, gamma, beta, mean, var = ins
+                y2 = torch.relu(((co - mean) * torch.rsqrt(var + ctx.eps) * gamma + beta).half())
+                dco, *grads = torch.autograd.grad(y2, ins, g)
+            dx, dw2 = _fp16_conv_grads(p2, w2, dco.half(), ctx.lowering,
+                                       ctx.needs_input_grad[7], ctx.needs_input_grad[1])
+            return (None, dw2, *grads, None, dx, None)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             y2 = _eval_expr(*ins, ctx.eps)
             grads = torch.autograd.grad(y2, ins, g)
-        return (*grads, None)
+        return (*grads, None, None, None)
+
+
+#: how an fp16 conv's input became its patches: the input's shape, the
+#: window, the stride, ``[(top, bottom), (left, right)]`` and the layout
+_Lowering = collections.namedtuple("_Lowering", "shape kernel stride pad data_format")
+
+
+def _patch_grad(dp2, lo):
+    """dx (float32, in the input's shape and layout) from the patch
+    gradient ``dp2 [M, K']`` (K padding columns past ``K`` dropped): the
+    overlapping patches' gradients added in float32, as XLA's VJP of the
+    JAX lowering adds them; a pointwise conv's patches are its input."""
+    if lo.data_format == "NHWC":
+        n, h, wd, cin = lo.shape
+    else:
+        n, cin, h, wd = lo.shape
+    kh, kw = lo.kernel
+    sh, sw = lo.stride
+    (top, bottom), (left, right) = lo.pad
+    k = cin * kh * kw
+    dp2 = dp2[:, :k]
+    if (kh, kw) == (1, 1) and (sh, sw) == (1, 1) and lo.pad == [(0, 0), (0, 0)]:
+        dx = dp2.reshape(n, h, wd, cin)
+        return dx if lo.data_format == "NHWC" else dx.permute(0, 3, 1, 2)
+    hp, wp = h + top + bottom, wd + left + right
+    oh, ow = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    dp = dp2.reshape(n, oh * ow, k).transpose(1, 2)
+    dx = _F.fold(dp, (hp, wp), (kh, kw), stride=(sh, sw))[:, :, top:top + h, left:left + wd]
+    return dx.permute(0, 2, 3, 1) if lo.data_format == "NHWC" else dx
+
+
+def _fp16_conv_grads(p2, w2, dco, lowering, need_dx, need_dw):
+    """``(dx, dw2)`` of an fp16 conv from its fp16 ``d_co``, as the JAX
+    package's fp16 path takes them (the VJP of ``_reference``'s conv): each
+    one product with float32 sums, rounded once to fp16; dx's overlapping
+    patches added in float32 before that rounding (:func:`_patch_grad`)."""
+    d = dco.float()
+    dx = _patch_grad(torch.matmul(d, w2.float().t()), lowering).half() if need_dx else None
+    dw2 = torch.matmul(p2.float().t(), d).half() if need_dw else None
+    return dx, dw2
 
 
 # -- lowering and the op ------------------------------------------------------------
@@ -723,7 +834,7 @@ class _Unfold(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dp):
         size, kernel, padding, stride = ctx.geom
-        if dp.device.type == "cpu" and _bf16(dp):
+        if dp.device.type == "cpu" and dp.dtype == torch.bfloat16:
             dx = _F.fold(dp.float(), size, kernel, padding=padding, stride=stride).bfloat16()
         else:
             dx = _F.fold(dp, size, kernel, padding=padding, stride=stride)
@@ -764,18 +875,24 @@ def conv_bn_relu(x, weight, gamma, beta, running_mean, running_var, *, stride=1,
               eps=float(epsilon), data_format=data_format)
     if not _supported(x, weight, padding, data_format):
         return _reference(x, weight, gamma, beta, running_mean, running_var, **kw)
-    p2, w2, (n, oh, ow) = _as_matmul(x, weight, stride, _norm_padding(padding), data_format,
-                                     k_multiple=_BF16_ALIGN if _bf16(x) else 1)
+    pad = _norm_padding(padding)
+    # fp16: the patches lowered without autograd; the cores fold their
+    # float32 gradient into dx for x itself (:func:`_fp16_conv_grads`)
+    fp16 = x.dtype == torch.float16
+    p2, w2, (n, oh, ow) = _as_matmul(x.detach() if fp16 else x, weight, stride, pad, data_format,
+                                     k_multiple=_BF16_ALIGN if _half(x) else 1)
+    fold = (x, _Lowering(tuple(x.shape), tuple(weight.shape[2:]), _pair(stride), pad,
+                         data_format)) if fp16 else ()
     gf, bf = gamma.float(), beta.float()
     if training:
         from ...distributed.collective import stats_group
 
-        y2, bmean, bvar = _TrainCore.apply(p2, w2, gf, bf, float(epsilon), stats_group())
+        y2, bmean, bvar = _TrainCore.apply(p2, w2, gf, bf, float(epsilon), stats_group(), *fold)
         new_mean = momentum * running_mean + (1 - momentum) * bmean.to(running_mean.dtype)
         new_var = momentum * running_var + (1 - momentum) * bvar.to(running_var.dtype)
     else:
         y2 = _EvalCore.apply(p2, w2, gf, bf, running_mean.float(), running_var.float(),
-                             float(epsilon))
+                             float(epsilon), *fold)
         new_mean, new_var = running_mean, running_var
     y = y2.reshape(n, oh, ow, weight.shape[0])
     return (y.permute(0, 3, 1, 2) if data_format == "NCHW" else y), new_mean, new_var

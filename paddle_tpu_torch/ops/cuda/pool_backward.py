@@ -23,12 +23,14 @@ route moves no tensor to another layout.
 on the CPU and on CUDA alike), so torch's own backward routes ties the same
 way; the port's rule does not rest on that.
 
-float32 or bf16 (the stem under AMP): the taps are compared in the type
-they come in (a bf16 ``x == y`` is exact), added in float32 and rounded
-once to the type at the store, as the TPU kernel does
-(``pool_backward.py:131-135``, ``:196``); bf16 launches count apart from
-float32's. A tensor on the CPU takes the plain version; a tensor on the
-card launches the kernel or raises.
+float32, bf16 or fp16 (the stem under AMP; the TPU gate
+``max_pool_backward_supported`` admits fp16, ``:259-272``): the taps are
+compared in the type they come in (a 16-bit ``x == y`` is exact), added in
+float32 and rounded once to the type at the store (fp16 past 65504 to inf,
+never clamped), as the TPU kernel does (``pool_backward.py:131-135``,
+``:196``); bf16 and fp16 launches count apart from float32's. A tensor on
+the CPU takes the plain version; a tensor on the card launches the kernel
+or raises.
 """
 from __future__ import annotations
 
@@ -41,13 +43,18 @@ from . import _build
 from ._tally import bump, check_outputs, counted
 
 __all__ = ["max_pool2d_backward", "max_pool_backward_supported", "memory_layout", "LAUNCHES",
-           "BF16_LAUNCHES"]
+           "BF16_LAUNCHES", "FP16_LAUNCHES"]
 
 #: kernel launches since the last reset (counted where the kernel launches),
-#: float32 and bf16 apart
+#: float32, bf16 and fp16 apart
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+FP16_LAUNCHES = 0
 _count_lock = threading.Lock()
+# each type's C entry and count
+_ENTRIES = {torch.float32: ("ptt_max_pool2d_backward", "LAUNCHES"),
+            torch.bfloat16: ("ptt_max_pool2d_backward_bf16", "BF16_LAUNCHES"),
+            torch.float16: ("ptt_max_pool2d_backward_f16", "FP16_LAUNCHES")}
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _INT_MAX = 2 ** 31 - 1
@@ -132,6 +139,12 @@ def _pairs(kernel, stride, padding):
     return out
 
 
+def _on_card(x, tensors):
+    """Raise unless every tensor lies on ``x``'s CUDA device."""
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError("max_pool2d_backward: all tensors must be on one CUDA device")
+
+
 def _cost(x, y, dy, kernel, stride, padding):
     """Row 16's work: x, y and dy read, dx (x's shape) written."""
     return 0, (2 * x.numel() + y.numel() + dy.numel()) * x.element_size()
@@ -162,19 +175,17 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
             memory_format=fmt)
     if x.numel() == 0 or y.numel() == 0:  # nothing is launched or counted
         return torch.zeros_like(x, memory_format=fmt)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError("max_pool2d_backward: all tensors must be on one CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x.dtype for t in tensors):
-        raise TypeError(f"max_pool2d_backward: the kernel takes float32 or bf16, one type for "
-                        f"x, y and dy, got {[str(t.dtype) for t in tensors]}")
-    bf16 = x.dtype == torch.bfloat16
+    if x.dtype not in _ENTRIES or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError(f"max_pool2d_backward: the kernel takes float32, bf16 or fp16, one type "
+                        f"for x, y and dy, got {[str(t.dtype) for t in tensors]}")
+    _on_card(x, tensors)
+    symbol, count = _ENTRIES[x.dtype]
     if max(kernel) > 64 or max(n, c, h, w) > _INT_MAX or x.numel() // n > _INT_MAX:
         raise ValueError(f"max_pool2d_backward: the kernel takes windows up to 64 x 64 and "
                          f"extents and images below 2**31; got {kernel} over {tuple(x.shape)}")
     dx = torch.empty_like(x, memory_format=fmt)
     with torch.cuda.device(x.device):
-        lib = _build.library("pool_backward")
-        fn = lib.ptt_max_pool2d_backward_bf16 if bf16 else lib.ptt_max_pool2d_backward
+        fn = getattr(_build.library("pool_backward"), symbol)
         if fn.argtypes is None:
             fn.argtypes = _ARGS
             fn.restype = ctypes.c_int
@@ -183,6 +194,6 @@ def max_pool2d_backward(x, y, dy, kernel, stride, padding):
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "max_pool2d_backward")
     with _count_lock:
-        bump(globals(), "BF16_LAUNCHES" if bf16 else "LAUNCHES")
-    check_outputs(globals(), "BF16_LAUNCHES" if bf16 else "LAUNCHES", dx)
+        bump(globals(), count)
+    check_outputs(globals(), count, dx)
     return dx

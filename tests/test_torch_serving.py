@@ -115,7 +115,11 @@ def test_predict_matches_predictor_run_and_padding_is_inert(server, predictor):
         "conv_bn_relu_bn_bwd_dco_bf16", "max_pool2d_backward_bf16",
         "layernorm_residual_fwd_fp16", "layernorm_residual_bwd_fp16",
         "layernorm_residual_fwd_mixed_fp16", "flash_attention_fwd_fp16",
-        "flash_attention_bwd_dq_fp16", "flash_attention_bwd_dkv_fp16"}
+        "flash_attention_bwd_dq_fp16", "flash_attention_bwd_dkv_fp16",
+        "conv_bn_relu_mm_affine_relu_fp16", "conv_bn_relu_mm_stats_fp16",
+        "conv_bn_relu_centered_sumsq_fp16", "conv_bn_relu_bn_relu_fp16",
+        "conv_bn_relu_bn_bwd_partials_fp16", "conv_bn_relu_bn_bwd_dco_fp16",
+        "max_pool2d_backward_fp16"}
 
 
 def test_concurrent_requests_share_batches(server, predictor):

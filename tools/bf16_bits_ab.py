@@ -7,13 +7,15 @@
 ``git archive <commit> paddle_tpu_torch/csrc | tar -x -C build/parent``, in
 a directory ``.gitignore`` lists). On a card with ``nvcc``, this builds the
 bf16 sources that include ``csrc/wgmma_attention.cuh`` (the attention
-forward and backward, the bf16 conv GEMM) and the residual LayerNorm
-sources from both trees with the flags of ``ops/cuda/_build.py``, runs each
-tree's libraries through this tree's wrappers on the same seeded inputs
-(the attention with dropout and a pad bias, causal with ragged rows, the
-LayerNorm forward in bf16 and in its mixed instance and its backward,
-``mm_stats`` and ``mm_affine_relu``), and prints one JSON line: whether
-every output is bit-equal. Exits 1 when one is not.
+forward and backward, the 16-bit conv GEMM), the residual LayerNorm
+sources, the batch-norm passes and the max-pool backward from both trees
+with the flags of ``ops/cuda/_build.py``, runs each tree's libraries
+through this tree's wrappers on the same seeded inputs (the attention with
+dropout and a pad bias, causal with ragged rows, the LayerNorm forward in
+bf16 and in its mixed instance and its backward, ``mm_stats`` and
+``mm_affine_relu`` with and without split-K, the four batch-norm passes,
+the pool backward channels-last), and prints one JSON line: whether every
+output is bit-equal. Exits 1 when one is not.
 """
 import ctypes
 import json
@@ -30,9 +32,10 @@ from paddle_tpu_torch.ops.cuda import _build  # noqa: E402
 from paddle_tpu_torch.ops.cuda import conv_bn_relu as cbr  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.cuda import layernorm_residual as lnr  # noqa: E402
+from paddle_tpu_torch.ops.cuda import pool_backward as pb  # noqa: E402
 
 SOURCES = ("flash_attention_bf16", "flash_attention_bwd_bf16", "conv_bn_relu_mm_bf16",
-           "layernorm_residual", "layernorm_residual_bwd")
+           "layernorm_residual", "layernorm_residual_bwd", "conv_bn_relu_bn", "pool_backward")
 
 
 def build(trees, out_dir):
@@ -75,14 +78,31 @@ def outputs():
     p2 = torch.randn(12544, 576, generator=g, device=dev).bfloat16()
     w2 = torch.randn(576, 64, generator=g, device=dev).bfloat16()
     co, part = cbr.mm_stats(p2, w2)
-    yy = cbr.mm_affine_relu(p2, w2, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    one, zero = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    yy = cbr.mm_affine_relu(p2, w2, one, zero)
+    # layer4's 3x3 conv at batch 1: the planner splits K
+    p2k = torch.randn(49, 4608, generator=g, device=dev).bfloat16()
+    w2k = torch.randn(4608, 512, generator=g, device=dev).bfloat16()
+    ys = cbr.mm_affine_relu(p2k, w2k, torch.ones(512, device=dev), torch.zeros(512, device=dev))
+    gy = torch.randn(12544, 64, generator=g, device=dev).bfloat16()
+    vec = torch.randn(64, generator=g, device=dev)
+    bn = {"bn_sumsq": cbr.centered_sumsq(co, vec), "bn_y": cbr.bn_relu(co, one, vec),
+          "bn_partials": torch.cat(cbr.bn_bwd_partials(co, gy, one, vec)),
+          "bn_dco": cbr.bn_bwd_dco(co, gy, one, vec, vec * 1e-3, vec * 1e-3)}
+    x4 = torch.relu(torch.randn(8, 32, 32, 64, generator=g, device=dev)).bfloat16()
+    x4 = x4.permute(0, 3, 1, 2)
+    y4 = torch.nn.functional.max_pool2d(x4, 3, 2, 1).contiguous(memory_format=torch.channels_last)
+    dy4 = torch.randn(y4.shape, generator=g, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    pool = pb.max_pool2d_backward(x4, y4, dy4, (3, 3), (2, 2), (1, 1))
     torch.cuda.synchronize()
     return {"attention_out": o, "attention_lse": lse, "attention_mask": keep,
             "attention_dq": grads[0], "attention_dk": grads[1], "attention_dv": grads[2],
             "causal_out": oc, "causal_lse": lc, "causal_dq": gc[0], "causal_dk": gc[1],
             "causal_dv": gc[2], "layernorm_y": y, "layernorm_mean": mean, "layernorm_rstd": rstd,
             "layernorm_mixed_y": ym, "layernorm_da": ln_bwd[0], "layernorm_dw": ln_bwd[1],
-            "layernorm_db": ln_bwd[2], "conv_co": co, "conv_sums": part, "conv_y": yy}
+            "layernorm_db": ln_bwd[2], "conv_co": co, "conv_sums": part, "conv_y": yy,
+            "conv_y_split": ys, **bn, "pool_dx": pool}
 
 
 def main():
