@@ -457,6 +457,30 @@ Phases, each fatal on failure:
     beside the bf16 O1 eager step; (d) the eval forward under
     ``auto_cast(dtype="float16")`` at batches 1 (split-K) and 32 against
     the CPU (the bf16 forward the control), 33 fp16 eval launches each;
+12u. the single-card API (``single_card_api``): (a) phase 11b's static
+    ResNet-50, saved as it saves it, served through ``AnalysisConfig`` ->
+    ``create_predictor`` -> ``get_input_handle(...).copy_from_cpu`` ->
+    ``run()`` -> ``copy_to_cpu`` at batches 1 and 32, bit-equal to
+    ``ProgramPredictor.run`` and within 11b's limit of the CPU's plain path,
+    33 row-8 launches a forward, a clone's handles its own; (b) a
+    cross-attention ``MultiHeadAttention(512, 8, kdim=768, vdim=768)`` with
+    flash on at queries [8, 512, 512] over memory [8, 512, 768], a forward
+    and a backward launching rows 3, 6 and 7 once each, held against the
+    plain path; with ``need_weights`` the weights [8, 8, 512, 512] and no
+    attention launch; (c) ``hapi_text.TransformerEncoder`` at BERT-base
+    widths (12 post-norm layers, flash on) on [8, 512]: 24 row-1 and 12
+    row-3 launches, held against the CPU's plain path; (d)
+    ``SequenceTagging`` at LAC's widths trained by ``Model.fit`` (batch 64,
+    3 epochs, Adam 0.01) on Conll05st's 192 synthetic sentences: the loss
+    falls by 30%, Viterbi beats the majority class, the first loss within
+    1e-4 of the CPU's; (e) ``utils.run_check()`` on the card; (f) the JAX
+    custom-op test's C++ library built with ``g++`` and loaded, its ops on
+    tensors on the card equal to the CPU's, forward and gradient, and a step
+    calling one run uncaptured; (g) ``model_stat.memory_usage`` of the
+    ResNet-50 program at batch 32 beside the card's peak over that forward;
+    (h) the BERT-base O1 step with ``FLAGS_benchmark`` off and on; (i) 1M
+    draws each of ``Normal`` and ``Categorical`` on the card, their moments
+    within 5 standard errors; the phase's seconds;
 13. print the card line, then one JSON line with every kernel's numbers;
 14. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -12282,6 +12306,504 @@ def distributed_paths():
     return counts, r
 
 
+# -- phase 12u: the single-card API ------------------------------------------------------------
+
+API_DEVICE = "cuda"  # "cpu" rehearses the phase off the card
+API_BATCHES = (1, 32)  # (a): the handles' buckets
+API_CPU_ROWS = 4  # (a): rows of the batch-32 answer also computed on the CPU
+API_MHA = dict(embed_dim=512, num_heads=8, kdim=768, vdim=768)  # (b)
+API_MHA_B, API_MHA_L = 8, 512
+API_ENC = dict(d_model=768, nhead=12, dim_feedforward=3072, layers=12)  # (c): BERT-base widths
+API_ENC_B, API_ENC_L, API_ENC_CPU_ROWS = 8, 512, 2
+API_LAC = dict(word_emb_dim=128, hidden_size=128)  # (d): LAC's published widths
+API_LAC_B, API_LAC_EPOCHS, API_LAC_LR = 64, 3, 0.01
+API_LAC_FALL = 0.7  # the JAX test's criterion: the last loss below 70% of the first
+API_LAC_LOSS_RTOL = 1e-4  # the first step's loss against the CPU's from the same weights
+API_BENCH_STEPS = 10  # (h): BERT-base O1 steps timed with FLAGS_benchmark off and on
+API_SAMPLES = 1_000_000  # (i): draws of each distribution
+API_SE = 5.0  # (i): moments within 5 standard errors
+_USER_OP_TEST = "tests/test_custom_op.py"
+
+
+def _api_card_sync():
+    import torch
+
+    if API_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _api_launches():
+    """The kernel launches since the last ``reset_launch_counts()``."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+def _api_handles(tmp):
+    """(a) ResNet-50's static program served through Paddle's handles.
+    Returns (launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.incubate import memory_usage
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.ops.cuda import reset_launch_counts
+
+    t0 = time.perf_counter()
+    model = _resnet50(seed=0)
+    dirname = f"{tmp}/resnet50"
+    _save_static_resnet(dirname, model)
+    del model
+    cfg = AnalysisConfig(dirname)
+    if API_DEVICE == "cuda":
+        cfg.enable_use_gpu(100, 0)
+    else:
+        cfg.disable_gpu()
+    pred = create_predictor(cfg)
+    cpu_cfg = AnalysisConfig(dirname)
+    cpu_cfg.disable_gpu()
+    cpu_pred = create_predictor(cpu_cfg)
+    r = {"build_s": time.perf_counter() - t0, "device": str(pred.device)}
+    name_in, name_out = pred.get_input_names()[0], pred.get_output_names()[0]
+    reset_launch_counts()
+    forwards = 0
+    r["errors"], r["peak_mib"] = {}, {}
+    for b in API_BATCHES:
+        x = _rn_feed(b, 70 + b)[0]
+        if b == API_BATCHES[-1] and API_DEVICE == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        handle = pred.get_input_handle(name_in)
+        handle.copy_from_cpu(x)
+        if handle.shape() != list(x.shape):
+            raise AssertionError(f"12u (a): staged {handle.shape()}, fed {list(x.shape)}")
+        pred.run()
+        got = pred.get_output_handle(name_out).copy_to_cpu()
+        if b == API_BATCHES[-1] and API_DEVICE == "cuda":
+            r["peak_mib"][b] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        direct = pred.run([x])[0]
+        forwards += 2
+        if got.shape != (b, RN_CLASSES) or not np.array_equal(got, direct):
+            raise AssertionError(f"12u (a) batch {b}: handles {got.shape} not bit-equal to "
+                                 "ProgramPredictor.run")
+        rows = min(b, API_CPU_ROWS)
+        want = cpu_pred.run([x[:rows]])[0]
+        err = float(np.abs(got[:rows] - want).max() / np.abs(want).max())
+        r["errors"][b] = err
+        log(f"12u (a) batch {b}: handles bit-equal to ProgramPredictor.run; {rows} rows against "
+            f"the CPU: max err over the largest |logit| {err:.3g} (limit {RN_SERVE_RTOL})")
+        if not np.isfinite(got).all() or err > RN_SERVE_RTOL:
+            raise AssertionError(f"12u (a) batch {b}: err {err}")
+    # a clone's handles are its own: each stages and reads its own batch
+    twin = pred.clone()
+    xa, xb = _rn_feed(1, 81)[0], _rn_feed(1, 82)[0]
+    pred.get_input_handle(name_in).copy_from_cpu(xa)
+    twin.get_input_handle(name_in).copy_from_cpu(xb)
+    pred.run()
+    twin.run()
+    forwards += 2
+    ga = pred.get_output_handle(name_out).copy_to_cpu()
+    gb = twin.get_output_handle(name_out).copy_to_cpu()
+    wa, wb = pred.run([xa])[0], pred.run([xb])[0]
+    forwards += 2
+    if not (np.array_equal(ga, wa) and np.array_equal(gb, wb)) or np.array_equal(ga, gb):
+        raise AssertionError("12u (a): a clone's handles are not its own")
+    counts = _api_launches()
+    want = {"conv_bn_relu_mm_affine_relu": RN_TRIPLES * forwards}
+    if API_DEVICE == "cuda" and counts != want:
+        raise AssertionError(f"12u (a): {counts} over {forwards} forwards; want {want}")
+    r["forwards"], r["graphs"] = forwards, len(pred.store)
+    # (g) the program's memory estimate beside the card's measured peak of a forward
+    low, high, unit = memory_usage(pred._program, API_BATCHES[-1])
+    r["memory_usage"] = {"low": low, "high": high, "unit": unit}
+    log(f"12u (a): {forwards} forwards, {counts}; clones independent; (g) memory_usage at batch "
+        f"{API_BATCHES[-1]}: {low:.1f}-{high:.1f} {unit}; the card's peak over the first "
+        f"batch-{API_BATCHES[-1]} forward (run and capture) {r['peak_mib']} MiB")
+    del pred, twin, cpu_pred
+    return counts, r
+
+
+def _api_mha():
+    """(b) A cross-attention whose keys and values have their own widths:
+    the flash forward, dQ and dK/dV launched once each, held against the
+    plain path; ``need_weights`` launches none. Returns (launches,
+    readings)."""
+    import torch
+
+    from paddle_tpu_torch.nn.transformer import MultiHeadAttention
+    from paddle_tpu_torch.ops.cuda import reset_launch_counts
+
+    g = torch.Generator().manual_seed(33)
+    mha = MultiHeadAttention(**API_MHA, use_flash_attention=True, generator=g).to(API_DEVICE)
+    dg = torch.Generator(device=API_DEVICE).manual_seed(34)
+    b, l = API_MHA_B, API_MHA_L
+    q0 = torch.randn(b, l, API_MHA["embed_dim"], generator=dg, device=API_DEVICE)
+    m0 = torch.randn(b, l, API_MHA["kdim"], generator=dg, device=API_DEVICE)
+    dout = torch.randn(b, l, API_MHA["embed_dim"], generator=dg, device=API_DEVICE)
+
+    def run(flash):
+        mha.use_flash_attention = flash
+        q, m = q0.clone().requires_grad_(), m0.clone().requires_grad_()
+        mha.zero_grad()
+        out = mha(q, m, m)
+        out.backward(dout)
+        return [out.detach(), q.grad, m.grad, mha.k_proj.weight.grad.clone()]
+
+    reset_launch_counts()
+    got = run(True)
+    _api_card_sync()
+    counts = _api_launches()
+    want = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+    if API_DEVICE == "cuda" and counts != want:
+        raise AssertionError(f"12u (b): {counts}; want {want}")
+    plain = run(False)
+    names = ("out", "d_query", "d_memory", "d_k_proj.weight")
+    errs = {}
+    for n, a, p in zip(names, got, plain):
+        errs[n] = float((a - p).abs().max() / max(1.0, float(p.abs().max())))
+    log(f"12u (b) MHA {API_MHA} at [{b}, {l}]: launches {counts}; against the plain path, max "
+        f"err over max(1, largest |value|) {errs} (limit {FLASH_ATOL}, rows 3, 6, 7)")
+    if max(errs.values()) > FLASH_ATOL:
+        raise AssertionError(f"12u (b): {errs}")
+    mha.need_weights, mha.use_flash_attention = True, True
+    reset_launch_counts()
+    with torch.no_grad():
+        out, weights = mha(q0, m0, m0)
+    _api_card_sync()
+    nw_counts = _api_launches()
+    sums = weights.sum(-1)
+    werr = float((out - plain[0]).abs().max() / max(1.0, float(plain[0].abs().max())))
+    if (tuple(weights.shape) != (b, API_MHA["num_heads"], l, l) or nw_counts
+            or float((sums - 1).abs().max()) > 1e-5 or werr > FLASH_ATOL):
+        raise AssertionError(f"12u (b) need_weights: {tuple(weights.shape)}, {nw_counts}, "
+                             f"row sums off by {float((sums - 1).abs().max())}, out err {werr}")
+    log(f"12u (b) need_weights: weights {list(weights.shape)}, no kernel launched, out err "
+        f"{werr:.3g}")
+    return counts, {"launches": counts, "errors": errs, "need_weights_out_err": werr,
+                    "need_weights_shape": list(weights.shape)}
+
+
+def _api_encoder():
+    """(c) ``hapi_text.TransformerEncoder`` at BERT-base widths, a forward:
+    the post-norm layers' 2 residual LayerNorms and 1 attention each.
+    Returns (launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.incubate.hapi_text import TransformerEncoder, TransformerEncoderLayer
+    from paddle_tpu_torch.ops.cuda import reset_launch_counts
+
+    w = API_ENC
+    g = torch.Generator().manual_seed(35)
+    layer = TransformerEncoderLayer(w["d_model"], w["nhead"], w["dim_feedforward"],
+                                    use_flash_attention=True, generator=g)
+    enc = TransformerEncoder(layer, w["layers"]).eval()
+    cpu_enc = copy.deepcopy(enc)
+    enc = enc.to(API_DEVICE)
+    x = torch.randn(API_ENC_B, API_ENC_L, w["d_model"], generator=torch.Generator().manual_seed(36))
+    reset_launch_counts()
+    with torch.no_grad():
+        out = enc(x.to(API_DEVICE))
+    _api_card_sync()
+    counts = _api_launches()
+    want = {"layernorm_residual_fwd": 2 * w["layers"], "flash_attention_fwd": w["layers"]}
+    if API_DEVICE == "cuda" and counts != want:
+        raise AssertionError(f"12u (c): {counts}; want {want}")
+    with torch.no_grad():
+        ref = cpu_enc(x[:API_ENC_CPU_ROWS])
+    err = float((out[:API_ENC_CPU_ROWS].cpu() - ref).abs().max())
+    log(f"12u (c) TransformerEncoder {w} on [{API_ENC_B}, {API_ENC_L}]: launches {counts}; "
+        f"{API_ENC_CPU_ROWS} rows against the CPU's plain path: max err {err:.3g} (limit "
+        f"{SEQ_ATOL})")
+    if not torch.isfinite(out).all() or err > SEQ_ATOL:
+        raise AssertionError(f"12u (c): err {err}")
+    return counts, {"launches": counts, "max_abs_err": err}
+
+
+def _conll_arrays():
+    from paddle_tpu_torch.text import Conll05st
+
+    ds = Conll05st(mode="train")
+    t = max(len(s[0]) for s in ds.samples)
+    n = len(ds.samples)
+    words, labels = np.zeros((n, t), np.int64), np.zeros((n, t), np.int64)
+    lengths = np.zeros(n, np.int64)
+    for i, (w, _, _, lab) in enumerate(ds.samples):
+        words[i, :len(w)], labels[i, :len(lab)], lengths[i] = w, lab, len(w)
+    return ds, words, labels, lengths
+
+
+def _api_lac():
+    """(d) ``SequenceTagging`` at LAC's widths trained by ``Model.fit`` on
+    Conll05st's synthetic training set. Returns (launches, readings)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.framework.place import building_on
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate.hapi_text import SequenceTagging
+    from paddle_tpu_torch.ops.cuda import reset_launch_counts
+
+    ds, words, labels, lengths = _conll_arrays()
+
+    class Tagged(io.Dataset):
+        def __len__(self):
+            return len(words)
+
+        def __getitem__(self, i):
+            return words[i], lengths[i], labels[i]
+
+    class Net(paddle.nn.Layer):
+        """The tagger's emission beside the lengths: the loss reads both."""
+
+        def __init__(self, tagger):
+            super().__init__()
+            self.tagger = tagger
+
+        def forward(self, w, n):
+            return self.tagger._emission(w), n
+
+    class Losses(Callback):
+        def __init__(self):
+            self.seen = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.seen.append(logs["loss"])
+
+    paddle.seed(37)
+    with building_on(torch.device("cpu")):  # the same draws as the CPU reference's
+        tagger = SequenceTagging(ds.vocab_size, ds.num_labels, **API_LAC)
+    cpu_tagger = copy.deepcopy(tagger)
+    first = cpu_tagger(words[:API_LAC_B], labels[:API_LAC_B], lengths[:API_LAC_B])
+    cpu_first = float(first)
+    model = paddle.Model(Net(tagger))
+    model.prepare(paddle.optimizer.Adam(learning_rate=API_LAC_LR,
+                                        parameters=model.parameters()),
+                  loss=lambda out, y: tagger.crf(out[0], y, out[1]).mean())
+    cb = Losses()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(Tagged(), batch_size=API_LAC_B, epochs=API_LAC_EPOCHS, shuffle=False, verbose=0,
+              callbacks=[cb])
+    fit_s = time.perf_counter() - t0
+    counts = _api_launches()
+    losses = cb.seen
+    rel = abs(losses[0] - cpu_first) / abs(cpu_first)
+    paths = tagger.decode(words, lengths).cpu().numpy()
+    mask = np.arange(words.shape[1])[None, :] < lengths[:, None]
+    acc = float((paths == labels)[mask].mean())
+    majority = float(max((labels[mask] == k).mean() for k in range(ds.num_labels)))
+    step = model._train_step
+    r = {"losses": losses, "first_vs_cpu_rel": rel, "accuracy": acc, "majority": majority,
+         "fit_s": fit_s, "steps": len(losses), "graphs": len(step.store),
+         "vocab_size": ds.vocab_size, "num_labels": ds.num_labels, "launches": counts}
+    log(f"12u (d) SequenceTagging {API_LAC} (vocab {ds.vocab_size}, {ds.num_labels} labels) by "
+        f"Model.fit, {len(losses)} steps of {API_LAC_B} in {fit_s:.2f} s ({len(step.store)} "
+        f"captured graph(s)): losses {[round(v, 4) for v in losses]}; the first against the "
+        f"CPU's {cpu_first:.6f}: rel {rel:.3g} (limit {API_LAC_LOSS_RTOL}); Viterbi accuracy "
+        f"{acc:.3f} against the majority class's {majority:.3f}")
+    if (len(losses) != API_LAC_EPOCHS * len(words) // API_LAC_B or not np.isfinite(losses).all()
+            or losses[-1] >= API_LAC_FALL * losses[0] or rel > API_LAC_LOSS_RTOL
+            or acc <= majority):
+        raise AssertionError(f"12u (d): {r}")
+    return counts, r
+
+
+def _api_run_check():
+    """(e) ``utils.run_check()`` on the card, its lines sent to stderr."""
+    import io as _io
+
+    from paddle_tpu_torch import utils
+
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        utils.run_check(device=None if API_DEVICE == "cuda" else "cpu")
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"12u (e) run_check: {line}")
+    if lines[-1] != "paddle_tpu_torch is installed successfully!":
+        raise AssertionError(f"12u (e): {lines}")
+    return {"lines": lines}
+
+
+def _user_op_source():
+    """``USER_OP_SRC`` of the JAX custom-op test, read from its source text
+    (the test imports JAX; this script does not)."""
+    import ast
+
+    with open(_USER_OP_TEST) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == "USER_OP_SRC"):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{_USER_OP_TEST} holds no USER_OP_SRC")
+
+
+def _api_custom_op():
+    """(f) The JAX custom-op test's library built with ``g++`` into
+    ``build/`` and loaded; its op on tensors on the card, forward and
+    gradient, equal to the CPU's; a step calling it runs uncaptured. Returns
+    readings."""
+    import os
+    import subprocess
+
+    import torch
+
+    from paddle_tpu_torch.framework import jit as fjit
+    from paddle_tpu_torch.framework.op_library import load_op_library
+    from paddle_tpu_torch.ops.registry import kernel
+
+    d = os.path.join("build", "paddle_tpu_torch", "custom_op")
+    os.makedirs(d, exist_ok=True)
+    src, so = os.path.join(d, "user_ops.cpp"), os.path.abspath(os.path.join(d, "libuser_ops.so"))
+    with open(src, "w") as f:
+        f.write(_user_op_source())
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", so], check=True,
+                   capture_output=True, timeout=300)
+    build_s = time.perf_counter() - t0
+    names = load_op_library(so)
+    if names != ["my_relu6", "my_double"] or load_op_library(so) != names:
+        raise AssertionError(f"12u (f): loaded {names}")
+    x_cpu = torch.linspace(-3.0, 9.0, 4097)
+    out = {}
+    for dev in (API_DEVICE, "cpu"):
+        x = x_cpu.to(dev).requires_grad_()
+        y = kernel("my_relu6")(x)
+        (y * y).sum().backward()
+        out[dev] = (y.detach(), x.grad, kernel("my_double")(x.detach()))
+    card, cpu = out[API_DEVICE], out["cpu"]
+    if card[0].device.type != API_DEVICE or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+        raise AssertionError("12u (f): the custom op on the card differs from the CPU's")
+    step = fjit.eval_step(torch.nn.Identity(), fn=lambda m, v: kernel("my_double")(v),
+                          device=API_DEVICE)
+    v = x_cpu[:16].to(API_DEVICE)
+    for _ in range(3):
+        got = step(v)
+    uncaptured = step.store.uncaptured
+    if API_DEVICE == "cuda" and (len(step.store) != 0 or uncaptured != 3
+                                 or not torch.equal(got.cpu(), 2 * x_cpu[:16])):
+        raise AssertionError(f"12u (f): a step calling the op: {len(step.store)} graphs, "
+                             f"{uncaptured} uncaptured runs")
+    log(f"12u (f) custom ops {names} built in {build_s:.2f} s: forward, gradient and my_double on "
+        f"[4097] on {API_DEVICE} equal to the CPU's; an eval step calling one ran uncaptured "
+        f"{uncaptured} times, captured {len(step.store)} graphs")
+    return {"ops": names, "build_s": build_s, "uncaptured_runs": uncaptured}
+
+
+def _api_benchmark_flag():
+    """(h) The BERT-base O1 step, captured, with ``FLAGS_benchmark`` off and
+    on: the host's ms a call and the wall of the steps; with the flag on
+    every call returns with the stream idle. Returns (launches, readings)."""
+    import torch
+
+    from paddle_tpu_torch.models import bert_base_config
+    from paddle_tpu_torch.ops.cuda import reset_launch_counts
+
+    cfg = bert_base_config()
+    cfg.use_flash_attention = True
+    model, loss_fn = _pretraining(cfg, seed=38)
+    step = _step_of(model.to(API_DEVICE), _amp_loss_fn(loss_fn, "O1"), device=API_DEVICE,
+                    jit=True)
+    batch = [torch.from_numpy(a).to(API_DEVICE) for a in
+             pretraining_batch(cfg, TRAIN_B, TRAIN_SEQ, TRAIN_PRED, np.random.RandomState(39))]
+    step(*batch)  # the eager first step and the capture
+    _api_card_sync()
+    reset_launch_counts()
+    r = {}
+    for on in (False, True):
+        with _flags(benchmark=on):
+            call_ms, idle = [], []
+            t0 = time.perf_counter()
+            for _ in range(API_BENCH_STEPS):
+                t = time.perf_counter()
+                step(*batch)
+                call_ms.append((time.perf_counter() - t) * 1e3)
+                idle.append(API_DEVICE != "cuda" or torch.cuda.current_stream().query())
+            _api_card_sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        key = "on" if on else "off"
+        r[key] = {"call_ms": call_ms, "call_ms_median": float(np.median(call_ms)),
+                  "wall_ms": wall, "idle_after_call": sum(idle)}
+        log(f"12u (h) BERT-base O1 step at {TRAIN_B} x {TRAIN_SEQ}, FLAGS_benchmark {key}: "
+            f"median {r[key]['call_ms_median']:.3f} host ms a call, {wall:.1f} ms for "
+            f"{API_BENCH_STEPS} steps, stream idle after {sum(idle)} of the calls")
+        if on and sum(idle) != API_BENCH_STEPS:
+            raise AssertionError(f"12u (h): a call returned with work queued: {idle}")
+    counts = _api_launches()
+    del step, model
+    return counts, r
+
+
+def _api_distributions():
+    """(i) 1M draws each of ``Normal`` and ``Categorical`` on the card from
+    seeded generators, their moments within 5 standard errors."""
+    import torch
+
+    from paddle_tpu_torch.distribution import Categorical, Normal
+
+    g = torch.Generator(device=API_DEVICE).manual_seed(40)
+    loc, scale = torch.tensor(3.0, device=API_DEVICE), torch.tensor(0.5, device=API_DEVICE)
+    s = Normal(loc, scale).sample([API_SAMPLES], generator=g).double()
+    n = API_SAMPLES
+    mean, var = float(s.mean()), float(s.var())
+    p = torch.tensor([0.1, 0.2, 0.3, 0.4], device=API_DEVICE)
+    c = Categorical(torch.log(p)).sample([API_SAMPLES], generator=g)
+    freq = torch.bincount(c, minlength=4).double().cpu().numpy() / n
+    pn = p.double().cpu().numpy()
+    z = {"normal_mean": float(abs(mean - 3.0) / (0.5 / np.sqrt(n))),
+         "normal_var": float(abs(var - 0.25) / (0.25 * np.sqrt(2.0 / n))),
+         "categorical": float(max(abs(freq - pn) / np.sqrt(pn * (1 - pn) / n)))}
+    off = {k: round(v, 2) for k, v in z.items()}
+    log(f"12u (i) {n} draws on {s.device}: Normal(3, 0.5) mean {mean:.5f} var {var:.5f}; "
+        f"Categorical{pn.tolist()} frequencies {freq.round(5).tolist()}; standard errors off "
+        f"{off} (limit {API_SE})")
+    if s.device.type != API_DEVICE or c.device.type != API_DEVICE or max(z.values()) > API_SE:
+        raise AssertionError(f"12u (i): {z}")
+    return {"z": z, "normal": [mean, var], "categorical": freq.tolist()}
+
+
+def single_card_api():
+    """Phase 12u: the single-card API (see the module docstring). Returns
+    (launches per name over the phase, readings)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts, r, counts = {}, {}, {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[key] = time.perf_counter() - t
+        if isinstance(out, tuple):
+            for k, v in out[0].items():
+                counts[k] = counts.get(k, 0) + v
+            out = out[1]
+        r[key] = out
+        if API_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="ptt_api_") as tmp:
+        part("a_handles_g_memory", _api_handles, tmp)
+    part("b_mha_kdim", _api_mha)
+    part("c_encoder", _api_encoder)
+    part("d_lac_fit", _api_lac)
+    part("e_run_check", _api_run_check)
+    part("f_custom_op", _api_custom_op)
+    part("h_benchmark_flag", _api_benchmark_flag)
+    part("i_distributions", _api_distributions)
+    r["launches"] = {k: v for k, v in counts.items() if v}
+    r["parts_s"] = parts
+    r["phase_s"] = time.perf_counter() - t_phase
+    rounded = {k: round(v, 1) for k, v in parts.items()}
+    log(f"api: phase 12u done in {r['phase_s']:.1f} s ({rounded})")
+    return counts, r
+
+
 # the sources rewritten last, whose registers and spills the run logs
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
                  "flash_attention_bwd_bf16", "layernorm_residual", "layernorm_residual_bwd",
@@ -12439,6 +12961,8 @@ def main() -> int:
             entries)
     torch.cuda.empty_cache()
     dist_counts, distributed = distributed_paths()
+    torch.cuda.empty_cache()
+    api_counts, api = single_card_api()
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = (sum(c[name] for c in served.values()) + rn_amp_served[name]
@@ -12477,12 +13001,16 @@ def main() -> int:
         # the O1 fp16 steps of Transformer-base and ERNIE-base under a GradScaler
         # (12s); ResNet-50's O1 fp16 steps and its fp16 eval forwards (12t)
         k["launches_fp16"] = fp16_counts.get(name, 0) + rn_fp16_counts.get(name, 0)
+        # the single-card API (12u): ResNet-50 through the inference handles, the
+        # kdim/vdim cross-attention, hapi_text's encoder, the O1 steps of (h)
+        k["launches_api"] = api_counts.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"] + k["launches_compiled"]
                          + k["launches_static"] + k["launches_generation"]
                          + k["launches_fleet"] + k["launches_dygraph"]
                          + k["launches_monitored"] + k["launches_to_static"]
                          + k["launches_ops_tail"] + k["launches_hapi"]
-                         + k["launches_distributed"] + k["launches_fp16"])
+                         + k["launches_distributed"] + k["launches_fp16"]
+                         + k["launches_api"])
         src = k["source"].rsplit("/", 1)[-1][:-len(".cu")]
         if src in registers:
             k["ptxas"] = registers[src]
@@ -12495,7 +13023,8 @@ def main() -> int:
                       "gpt_speculative_handoff": gpt_spec, "serving_fleet": fleet,
                       "dygraph_front_end": dygraph, "monitor": monitored,
                       "to_static": to_static, "ops_tail": ops_tail, "hapi": hapi,
-                      "distributed": distributed, "fp16": fp16, "fp16_resnet": rn_fp16}))
+                      "distributed": distributed, "fp16": fp16, "fp16_resnet": rn_fp16,
+                      "single_card_api": api}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -24,6 +24,8 @@ bf16, ``GradScaler``, ``decorate``); trains static programs
 (``static.append_backward``, ``static.optimizer``); and generates text
 (``generation``, ``serving``).
 """
+__version__ = "0.1.0"  # the JAX package's
+
 from . import amp  # noqa: F401
 from .flags import flag, get_flags, set_flags  # noqa: F401
 from .framework import load, save, seed  # noqa: F401
@@ -218,4 +220,5 @@ from . import incubate, io, metric, reader, text, vision  # noqa: F401,E402
 from .hapi import Model  # noqa: F401,E402
 from .hapi.model import summary  # noqa: F401,E402
 from . import distributed, parallel  # noqa: F401,E402
+from . import distribution, errors, utils  # noqa: F401,E402
 from .distributed import DataParallel  # noqa: F401,E402

@@ -23,9 +23,13 @@ interprets or captures it, in the JAX package's order
   ``FLAGS_memory_budget_check``; :func:`note_actual` closes the plan
   against the card's measured peak.
 
-The JAX package's AST lint (``lint``, ``waivers``) holds rules about
-``jax.jit`` tracing; rules for CUDA-graph capture take their place in a
-later slice (ROADMAP.md).
+- :mod:`lint` / :mod:`waivers`: the JAX package's five AST lint rules
+  (GL001-GL005), retargeted at CUDA-graph capture (a flag read or a host
+  tensor made inside a captured body, a host sync or a whole-cache pull in
+  a decode or dispatch loop, an unlocked counter in a threaded class), and
+  the reviewed waivers. The gate: ``python -m
+  paddle_tpu_torch.analysis.graphlint --check`` over the port's package
+  with ``analysis/graphlint_waivers.txt``.
 """
 from .verifier import (  # noqa: F401
     Finding,
@@ -46,6 +50,13 @@ from .memory import (  # noqa: F401
     note_actual,
     plan_memory,
 )
+from .lint import (  # noqa: F401
+    LintFinding,
+    lint_file,
+    lint_paths,
+    lint_rules,
+    lint_source,
+)
 from .optimizer import (  # noqa: F401
     OptResult,
     PassManager,
@@ -56,6 +67,7 @@ from .optimizer import (  # noqa: F401
     optimizer_stats,
     register_opt_pass,
 )
+from .waivers import Waiver, load_waivers, match_waiver  # noqa: F401
 
 __all__ = [
     "DonationError",
@@ -81,4 +93,12 @@ __all__ = [
     "register_pass",
     "verifier_passes",
     "verify_program",
+    "LintFinding",
+    "lint_file",
+    "lint_paths",
+    "lint_rules",
+    "lint_source",
+    "Waiver",
+    "load_waivers",
+    "match_waiver",
 ]

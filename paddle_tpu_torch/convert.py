@@ -47,7 +47,8 @@ __all__ = ["bert_state_from_numpy", "load_bert", "bert_pretraining_state_from_nu
            "load_int8_model", "scope_from_numpy", "optimizer_state_from_numpy",
            "gpt_state_from_numpy", "load_gpt", "vgg_state_from_numpy",
            "mobilenet_state_from_numpy", "se_resnext_state_from_numpy",
-           "word2vec_state_from_numpy"]
+           "word2vec_state_from_numpy", "attention_state_from_numpy",
+           "sequence_tagging_state_from_numpy"]
 
 _TIED = ("cls.decoder_weight", "bert.embeddings.word_embeddings.weight")
 
@@ -59,13 +60,16 @@ _WEIGHT_SHAPES = {
 }
 
 
-def _state_from_numpy(np_state, model) -> dict:
+def _state_from_numpy(np_state, model, tied=None) -> dict:
     """A state dict for ``model`` from a ``paddle_tpu`` state dict of numpy
     arrays (as ``paddle_tpu.load(..., return_numpy=True)`` returns it):
-    every name must be one of the model's, every shape fit."""
+    every name must be one of the model's, every shape fit. ``tied`` maps a
+    name of the port's state dict that the JAX one lists under another
+    (a module registered twice) to that other name."""
+    tied = tied or {}
     modules = dict(model.named_modules())
     own = model.state_dict()
-    missing = sorted(set(own) - set(np_state))
+    missing = sorted(set(own) - set(np_state) - set(tied))
     extra = sorted(set(np_state) - set(own))
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {missing[:5]}, unexpected {extra[:5]}")
@@ -82,6 +86,8 @@ def _state_from_numpy(np_state, model) -> dict:
             raise ValueError(f"{name}: shape {shape} does not fit {type(mod).__name__} "
                              f"(wants {want})")
         out[name] = torch.as_tensor(np.asarray(arr), dtype=own[name].dtype)
+    for name, source in tied.items():
+        out[name] = out[source]
     return out
 
 
@@ -210,6 +216,22 @@ def word2vec_state_from_numpy(np_state, model) -> dict:
     """A state dict for the port's ``Word2Vec`` from the ``paddle_tpu``
     model's: the embedding and the head, by name."""
     return _state_from_numpy(np_state, model)
+
+
+def attention_state_from_numpy(np_state, model) -> dict:
+    """A state dict for the port's ``MultiHeadAttention`` (or a layer holding
+    some) from the ``paddle_tpu`` layer's: the four projections by name, a
+    ``kdim``/``vdim`` projection's ``[kdim, embed_dim]`` weight checked
+    against its ``Linear``."""
+    return _state_from_numpy(np_state, model)
+
+
+def sequence_tagging_state_from_numpy(np_state, model) -> dict:
+    """A state dict for the port's ``incubate.hapi_text.SequenceTagging``
+    from the ``paddle_tpu`` model's. The CRF's transition is the decoder's
+    too: the JAX state dict lists it once, as ``crf.transition``, and the
+    port's under that name and ``decoder.crf.transition``."""
+    return _state_from_numpy(np_state, model, tied={"decoder.crf.transition": "crf.transition"})
 
 
 def load_resnet(path, model_fn=resnet50, device=None, **kwargs):

@@ -3,10 +3,14 @@
 Counterpart of ``paddle_tpu/errors.py``: the same names and codes for the
 errors the serving path raises. Each carries a ``code`` from the
 reference's error_codes.proto taxonomy; one raised about a static op
-carries its ``op_context`` (type, inputs, outputs), formatted as the JAX
-package formats it at its default ``FLAGS_call_stack_level`` of 1.
+carries its ``op_context`` (type, inputs, outputs). The message follows
+``FLAGS_call_stack_level`` as the JAX package formats it
+(``paddle_tpu/errors.py:47-66``): 0 the message, 1 (the default) with the
+op context, 2 with the Python call stack too.
 """
 from __future__ import annotations
+
+import traceback
 
 __all__ = [
     "EnforceNotMet",
@@ -30,14 +34,28 @@ class EnforceNotMet(RuntimeError):
     def __init__(self, message, op_context=None):
         self.raw_message = str(message)
         self.op_context = op_context
+        super().__init__(self._format())
+
+    def _format(self):
+        # flags imports this module: the flag is read when an error is made
+        from .flags import flag
+
+        try:
+            level = int(flag("call_stack_level"))
+        except Exception:
+            level = 1
         parts = [f"[{self.code}] {self.raw_message}"]
-        if op_context:
+        ctx = self.op_context
+        if level >= 1 and ctx:
             io = ""
-            if op_context.get("inputs") is not None:
-                io = (f" inputs={list(op_context['inputs'])}"
-                      f" outputs={list(op_context.get('outputs', []))}")
-            parts.append(f"  [operator < {op_context.get('op_type', '?')} > error]{io}")
-        super().__init__("\n".join(parts))
+            if ctx.get("inputs") is not None:
+                io = (f" inputs={list(ctx['inputs'])}"
+                      f" outputs={list(ctx.get('outputs', []))}")
+            parts.append(f"  [operator < {ctx.get('op_type', '?')} > error]{io}")
+        if level >= 2:
+            stack = "".join(traceback.format_stack()[:-3])
+            parts.append("  [python call stack]\n" + stack)
+        return "\n".join(parts)
 
 
 class InvalidArgumentError(EnforceNotMet):

@@ -148,6 +148,17 @@ define_flag("serving_default_deadline_ms", 0.0,
 define_flag("check_nan_inf", False,
             "scan step outputs for NaN/Inf and name the producing op")
 
+# framework/jit.py TrainStepFn — platform/flags.cc benchmark: a step returns
+# only after its work on the card is done (a stream sync, no copy to the
+# host), so a host clock around it times the step.
+define_flag("benchmark", False,
+            "synchronous step dispatch for exact per-step timing")
+
+# errors.py — platform/enforce.h FLAGS_call_stack_level: 0 the message, 1 +
+# the op context, 2 + the Python call stack.
+define_flag("call_stack_level", 1,
+            "error verbosity: 0 message, 1 +op context, 2 +python stack")
+
 # framework/nan_inf.py — what a NaN/Inf found under check_nan_inf does.
 define_flag("check_nan_inf_action", "raise",
             "on NaN/Inf detection: raise | warn (count+log, continue) | "

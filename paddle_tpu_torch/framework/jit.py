@@ -33,6 +33,9 @@ The optimizer's accumulators are made when the step is built, as the JAX
 step's ``init_opt_state`` makes them (``:205-248``), so the state has its
 full shape from the start.
 
+``FLAGS_benchmark`` (``:455-457``): with the flag on, a call returns only
+after the card has run the step (:func:`_wait_for_step`).
+
 ``FLAGS_check_nan_inf`` (``:445-518``): with the flag on, a call runs the
 ``checked`` variant of the step, a graph of its own, in which every op
 (and every hand-written kernel) is tested for NaN (``framework/nan_inf.py``).
@@ -51,6 +54,7 @@ no graph is captured again.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 
 import numpy as np
@@ -83,6 +87,24 @@ def _set_precision():
     torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
+@contextlib.contextmanager
+def _conv_algorithms(deterministic):
+    """cuDNN's choice of convolution algorithms while a train step runs
+    (and captures): its deterministic ones when ``deterministic``, so the
+    step repeats its bits run to run as the JAX package's compiled step
+    does; the caller's setting comes back after. The default backward
+    algorithms add in an order that varies between runs, and a trajectory
+    that passes near a kink (a ReLU input within rounding of zero) then
+    takes either side of it from one run to the next
+    (``tools/lenet_repeat.py``)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def _first_run(device, fn):
     """``fn()`` on a side stream, then the device synchronized: the eager
     first run of a signature before its capture (PyTorch's warm-up rule
@@ -95,6 +117,15 @@ def _first_run(device, fn):
     cur.wait_stream(side)
     torch.cuda.synchronize(device)
     return out
+
+
+def _wait_for_step(device):
+    """``FLAGS_benchmark`` (``paddle_tpu/framework/jit.py:455-457``): the step
+    returns once the card has finished its work, so that a host clock
+    around it times the step. A sync of the step's stream, with no copy to
+    the host; nothing to wait for on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _to_device(x, device):
@@ -135,7 +166,13 @@ class TrainStepFn:
     as the JAX step's ``lax.cond`` does (``:391-405``); compiled, the two
     kinds of call are two captured variants chosen by the call count.
     ``donate`` is accepted for the JAX signature and not kept: the state is
-    updated in place, which is what donation buys there."""
+    updated in place, which is what donation buys there.
+
+    ``deterministic`` (True): the convolutions' backward takes cuDNN's
+    deterministic algorithms during each call (:func:`_conv_algorithms`;
+    cuDNN's forward algorithms repeat their bits anyway); set it before
+    the first call, since a captured graph keeps the algorithms it was
+    captured with."""
 
     def __init__(self, model, optimizer, loss_fn, jit=True, donate=True, recompute=False,
                  grad_accum_steps=1, grad_accum_avg=True, device=None):
@@ -150,6 +187,7 @@ class TrainStepFn:
         if self.grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         self.grad_accum_avg = bool(grad_accum_avg)
+        self.deterministic = True
         if self.jit:
             optimizer._use_device_scalars(self.device)
         self._calls_in_window = 0  # calls since the optimizer last applied
@@ -181,6 +219,10 @@ class TrainStepFn:
         return self._step(batch, capture=False)
 
     def _step(self, batch, capture):
+        with _conv_algorithms(self.deterministic):
+            return self._step_body(batch, capture)
+
+    def _step_body(self, batch, capture):
         batch = [_to_device(b, self.device) for b in batch]
         applies = self._calls_in_window + 1 >= self.grad_accum_steps
         variant = self._variant(applies)
@@ -199,6 +241,8 @@ class TrainStepFn:
             loss = self._run(variant, batch, checked)
         if checked:
             self._judge(saved)
+        if flag("benchmark"):
+            _wait_for_step(self.device)
         self._calls_in_window = 0 if applies else self._calls_in_window + 1
         # the hang watchdog's progress: the step's host boundary, no device sync
         _flight.notify_progress("train_step")

@@ -29,8 +29,13 @@ writes the engine's persistent buffers. A cached call never takes the
 flash kernel (the JAX package's rule), and a pre-norm block runs plain
 LayerNorms: the GPT path launches none of the hand-written kernels, and
 the quantized and paged reads and writes are plain PyTorch, as the JAX
-package's are plain ``jnp``. ``kdim``/``vdim``, ``need_weights`` and
-ring/Ulysses attention are not ported yet.
+package's are plain ``jnp``.
+
+``kdim``/``vdim`` give the key and value projections their own input
+widths (``paddle_tpu/nn/transformer.py:238-242``); ``need_weights`` takes
+the plain path, never the flash kernel, and returns the attention weights
+after dropout beside the output (``:290-337``). Ring and Ulysses attention
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -193,24 +198,24 @@ class MultiHeadAttention(Layer):
     """Scaled dot-product multi-head attention with the JAX signature: the
     plain and flash paths, and the cached paths of incremental decoding
     (a :class:`StaticCache` ring written in place, or the ``(k, v)`` concat
-    cache), the int8 and the paged caches. What is not ported raises:
-    ``kdim``/``vdim`` other than ``embed_dim``, ``need_weights``, ring and
-    Ulysses attention."""
+    cache), the int8 and the paged caches. ``kdim``/``vdim`` are the widths
+    of ``key``/``value`` (``embed_dim`` by default); with ``need_weights``
+    the forward returns ``(out, weights)``, ``weights`` ``[B, H, Lq, Lk]``
+    after dropout, and ``new_cache`` last when a cache is given. Ring and
+    Ulysses attention raise: they are not ported."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None, vdim=None,
                  need_weights=False, weight_attr=None, bias_attr=None, use_ring_attention=False,
                  use_flash_attention=False, use_ulysses_attention=False, generator=None,
                  device=None):
         super().__init__()
-        if (kdim or embed_dim) != embed_dim or (vdim or embed_dim) != embed_dim:
-            raise NotImplementedError("MultiHeadAttention: kdim/vdim other than embed_dim are "
-                                      "not ported yet")
-        if need_weights or use_ring_attention or use_ulysses_attention:
-            raise NotImplementedError("MultiHeadAttention: need_weights, ring and Ulysses "
-                                      "attention are not ported")
+        if use_ring_attention or use_ulysses_attention:
+            raise NotImplementedError("MultiHeadAttention: ring and Ulysses attention are not "
+                                      "ported")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.dropout = dropout
+        self.need_weights = need_weights
         self.use_flash_attention = use_flash_attention
         self.head_dim = embed_dim // num_heads
         if self.head_dim * num_heads != embed_dim:
@@ -218,8 +223,8 @@ class MultiHeadAttention(Layer):
         kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, generator=generator,
                   device=device)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(embed_dim, embed_dim, **kw)
-        self.v_proj = Linear(embed_dim, embed_dim, **kw)
+        self.k_proj = Linear(kdim or embed_dim, embed_dim, **kw)
+        self.v_proj = Linear(vdim or embed_dim, embed_dim, **kw)
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
     def _shape(self, x):
@@ -228,7 +233,8 @@ class MultiHeadAttention(Layer):
         return x.reshape(b, l, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
 
     def forward(self, query, key=None, value=None, attn_mask=None, cache=None):
-        """``out``, or ``(out, new_cache)`` when ``cache`` is given: the same
+        """``out``, with ``weights`` after it under ``need_weights`` and
+        ``new_cache`` last when ``cache`` is given: the same
         :class:`StaticCache` (its tensors written in place) or the grown
         ``(k, v)``."""
         key = query if key is None else key
@@ -247,7 +253,7 @@ class MultiHeadAttention(Layer):
         scale = float(self.head_dim) ** -0.5
         # in q's dtype, bf16 under AMP, as the JAX package makes it
         mask = _convert_attention_mask(attn_mask, q.dtype)
-        if (self.use_flash_attention and cache is None
+        if (self.use_flash_attention and not self.need_weights and cache is None
                 and k.shape[2] >= FLASH_ATTENTION_MIN_SEQ):
             out = flash_attention.flash_attention(
                 q, k, v, bias=mask, scale=scale,
@@ -262,7 +268,12 @@ class MultiHeadAttention(Layer):
             out = F.matmul(weights, v)
         b, l = out.shape[0], out.shape[2]
         out = self.out_proj(out.transpose(1, 2).reshape(b, l, self.embed_dim))
-        return out if cache is None else (out, new_cache)
+        results = [out]
+        if self.need_weights:
+            results.append(weights)
+        if cache is not None:
+            results.append(new_cache)
+        return out if len(results) == 1 else tuple(results)
 
     def gen_cache(self, key, value=None, type=None):
         """An empty concat cache ``(k, v)``, each ``[B, H, 0, D]``."""

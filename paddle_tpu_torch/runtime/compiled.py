@@ -101,9 +101,9 @@ from ..monitor import tracing as _tracing
 from ..ops import cuda as _kernels
 from ..profiler import bump_counter
 
-__all__ = ["CaptureError", "CapturedStep", "GraphStore", "CompileWatch", "cache_capacity",
-           "compiled_step", "in_compiled_step", "host_read", "noting_host_reads",
-           "clone_outputs", "precision_key"]
+__all__ = ["CaptureError", "CapturedStep", "GraphStore", "CompiledStore", "CompiledEntry",
+           "CompileWatch", "any_deleted", "cache_capacity", "compiled_step", "in_compiled_step",
+           "host_read", "noting_host_reads", "clone_outputs", "precision_key"]
 
 
 _log = logging.getLogger(__name__)
@@ -118,6 +118,19 @@ def cache_capacity() -> int:
     """The bound of every store (``FLAGS_compiled_cache_capacity``), read
     at insert time so ``set_flags`` applies to live stores."""
     return max(1, int(flag("compiled_cache_capacity")))
+
+
+def any_deleted(arrays) -> bool:
+    """Whether any tensor of ``arrays`` has had its storage released
+    (resized to no bytes) while it still has elements: the port's
+    counterpart of a donated JAX array (``paddle_tpu/runtime/compiled.py``
+    ``any_deleted``). Entries that are not tensors, and tensors on
+    ``meta``, are skipped."""
+    for t in arrays:
+        if (isinstance(t, torch.Tensor) and t.device.type != "meta" and t.numel() > 0
+                and t.untyped_storage().nbytes() == 0):
+            return True
+    return False
 
 
 _region = threading.local()
@@ -229,9 +242,25 @@ class CapturedStep:
         self.lock = threading.Lock()
 
 
+class CompiledEntry(CapturedStep):
+    """:class:`CapturedStep` under the JAX package's ``CompiledEntry``
+    constructor: ``jitted`` is the entry's graph (its inputs, outputs and
+    launch counts filled by a capture), ``meta`` whatever the caller attaches
+    and ``refresh_gen`` the JAX package's rebuild count."""
+
+    __slots__ = ("meta", "refresh_gen")
+
+    def __init__(self, sig, cache_key, jitted, meta, refresh_gen=0):
+        super().__init__(sig, cache_key, jitted, [], None, {})
+        self.meta = meta
+        self.refresh_gen = refresh_gen
+
+
 class GraphStore:
     """LRU store of :class:`CapturedStep` entries. ``label`` prefixes the
-    cache keys."""
+    cache keys and names the cost records."""
+
+    hit_counter, miss_counter = "graph::cache_hit", "graph::cache_miss"
 
     def __init__(self, label):
         self.label = label
@@ -255,6 +284,12 @@ class GraphStore:
     def key_of(self, sig) -> str:
         """The stable ``<label>#<hex>`` name of ``sig``."""
         return f"{self.label}#{hashlib.sha1(repr(sig).encode()).hexdigest()[:10]}"
+
+    def _capacity(self) -> int:
+        return cache_capacity()
+
+    def _cost_label(self) -> str:
+        return self.label
 
     def lookup(self, sig):
         """The entry of ``sig`` (made the most recently used), counted as a
@@ -284,18 +319,18 @@ class GraphStore:
             if entry is None:
                 self.misses += count_miss
                 if count_miss:
-                    bump_counter("graph::cache_miss")
+                    bump_counter(self.miss_counter)
                 return None
             self._entries[sig] = entry
             self.hits += 1
-        bump_counter("graph::cache_hit")
+        bump_counter(self.hit_counter)
         return entry
 
     def _insert(self, entry):
         with self._lock:
             self._entries.pop(entry.sig, None)
             self._entries[entry.sig] = entry
-            cap = cache_capacity()
+            cap = self._capacity()
             evicted = []
             while len(self._entries) > cap:
                 evicted.append(self._entries.pop(next(iter(self._entries))))
@@ -366,7 +401,7 @@ class GraphStore:
         """The cost record of the eagerly run ``sig`` from its first run's
         count, booked as one run."""
         key = self.key_of(sig)
-        rec = _cost.capture(self.label, cost=work, mem=mem, key=key, cache_key=key)
+        rec = _cost.capture(self._cost_label(), cost=work, mem=mem, key=key, cache_key=key)
         with self._lock:
             self._eager_records[sig] = rec
         _cost.note_run(rec)
@@ -417,7 +452,7 @@ class GraphStore:
         record = None
         if counted is not None:
             work, mem = counted
-            record = _cost.capture(self.label, cost=work, mem=mem, key=key, cache_key=key)
+            record = _cost.capture(self._cost_label(), cost=work, mem=mem, key=key, cache_key=key)
             _cost.note_run(record)  # the first run was a real step
         _flight.record_event("runtime_compile", label=self.label, cache_key=key,
                              flops=record.flops if record else 0.0)
@@ -454,6 +489,28 @@ class GraphStore:
         else:
             _tracing.annotate(cache_key=entry.cache_key)
         return out
+
+
+class CompiledStore(GraphStore):
+    """:class:`GraphStore` under the JAX package's ``CompiledStore``
+    constructor (``paddle_tpu/runtime/compiled.py:136-155``): the cost
+    records go under ``cost_label`` (``label`` by default), ``capacity``
+    bounds the store in place of ``FLAGS_compiled_cache_capacity``, and a
+    lookup bumps ``hit_counter`` / ``miss_counter``."""
+
+    def __init__(self, label, *, cost_label=None, capacity=None, hit_counter=None,
+                 miss_counter=None):
+        super().__init__(label)
+        self.cost_label = cost_label or label
+        self.capacity = capacity
+        self.hit_counter = hit_counter or GraphStore.hit_counter
+        self.miss_counter = miss_counter or GraphStore.miss_counter
+
+    def _capacity(self) -> int:
+        return cache_capacity() if self.capacity is None else max(1, int(self.capacity))
+
+    def _cost_label(self) -> str:
+        return self.cost_label
 
 
 class CompileWatch:

@@ -469,10 +469,21 @@ def branches(d):
     return out
 
 
+def run_check(d):
+    """``utils.run_check`` in this world: its printed lines (the sharded
+    branch runs in a world above one)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        paddle.utils.run_check(device="cpu")
+    return {"run_check": buf.getvalue().splitlines()}
+
+
 SCENARIOS = {"train": train, "collectives": collectives, "desync": desync,
              "clusterz": clusterz, "checkpoint": checkpoint, "retry_save": retry_save,
              "mesh": mesh,
-             "branches": branches}
+             "branches": branches, "run_check": run_check}
 
 
 def main():

@@ -1,6 +1,7 @@
 """Every signature ``tools/api_spec.txt`` pins for the top level, ``tensor``,
 ``linalg``, ``nn``, ``device``, ``monitor``, ``static``, ``io``, ``metric``,
-``reader``, ``text``, ``incubate.auto_checkpoint``, ``distributed``,
+``reader``, ``text``, ``incubate`` (``auto_checkpoint`` and ``hapi_text``),
+``analysis``, ``inference``, ``runtime``, ``distributed``,
 ``distributed.fleet``, ``parallel`` and the model zoo's VGG, MobileNet,
 SE-ResNeXt and Word2Vec names against the port's parameter names. Of
 ``distributed`` and ``parallel``, the names of later slices are left out
@@ -11,7 +12,11 @@ A pinned name's parameters must lead the port's, in order, by name and by
 kind (``*args``, ``**kwargs``); the port may add parameters after them
 only with defaults (``generator=``, ``device=``). A class is compared by
 its constructor; a name pinned as ``(...)`` (an exception class) only
-resolves. The port has every name of these."""
+resolves. The port has every name of these. A name whose port object is
+another API keeps its pin on its counterpart (``COUNTERPART``): the port's
+``inference.Predictor`` serves an ``nn.Module``, and the JAX package's
+``Predictor(config)`` is the port's ``ProgramPredictor``, which
+``create_predictor`` returns."""
 import ast
 import inspect
 import os
@@ -26,13 +31,15 @@ import paddle_tpu_torch  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(REPO, "tools", "api_spec.txt")
 NAMESPACES = ("tensor", "linalg", "nn", "device", "monitor", "static", "io", "metric",
-              "reader", "text", "incubate.auto_checkpoint", "distributed", "parallel")
+              "reader", "text", "incubate", "analysis", "inference", "runtime", "distributed",
+              "parallel")
 LATER = {"elastic", "ps", "quantized_all_reduce", "GPipe", "PipelineParallel",
          "pipeline_schedule", "ring_attention", "ulysses_attention", "MoELayer", "SwitchFFN"}
 ZOO = {"VGG", "vgg11", "vgg13", "vgg16", "vgg19", "MobileNetV1", "MobileNetV2",
        "mobilenet_v1", "mobilenet_v2", "SEResNeXt", "se_resnext50_32x4d",
        "se_resnext101_32x4d", "Word2Vec"}
 NOT_PORTED = set()
+COUNTERPART = {"inference.Predictor": "inference.ProgramPredictor"}
 
 
 def _pins():
@@ -96,7 +103,7 @@ PINS = [p for p in _pins() if p[0].split(".")[-1] not in NOT_PORTED]
 
 @pytest.mark.parametrize("dotted,sig", PINS, ids=[p[0] for p in PINS])
 def test_pinned_signature_leads_the_ports(dotted, sig):
-    obj = _resolve(dotted)
+    obj = _resolve(COUNTERPART.get(dotted, dotted))
     assert obj is not None, f"paddle_tpu_torch.{dotted} is missing"
     if sig.startswith("(...)"):
         return

@@ -322,10 +322,11 @@ def _flag_defaults(path):
 
 
 def test_every_port_flag_has_the_jax_default():
-    """The port's flags (the four of this slice among them, and the two of
+    """The port's flags (the four of this slice among them, the two of
     ``monitor/cluster.py``: ``straggler_threshold``,
-    ``cluster_metrics_interval_s``) exist in the JAX package's ``flags.py``
-    with the same default."""
+    ``cluster_metrics_interval_s``, and ``benchmark`` and
+    ``call_stack_level``) exist in the JAX package's ``flags.py`` with the
+    same default."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     port = _flag_defaults(os.path.join(root, "paddle_tpu_torch", "flags.py"))
     jax_flags = _flag_defaults(os.path.join(root, "paddle_tpu", "flags.py"))
@@ -333,4 +334,5 @@ def test_every_port_flag_has_the_jax_default():
             "checkpoint_save_inter_s", "checkpoint_async"} <= set(port)
     assert {k: v for k, v in port.items() if jax_flags.get(k, object()) != v} == {}
     assert {"straggler_threshold", "cluster_metrics_interval_s"} <= set(port)
-    assert len(port) == 63
+    assert {"benchmark", "call_stack_level"} <= set(port)
+    assert len(port) == 65

@@ -73,6 +73,17 @@ def test_scan_covers_the_dygraph_front_end():
                         "jit_api.py"} <= rel
 
 
+def test_scan_covers_the_single_card_api():
+    """The scan reaches the lint and its gate, the hapi text layers, the
+    program statistics, the custom op loader, the utilities and the
+    distributions."""
+    rel = {os.path.relpath(p, PORT_DIR) for p in _port_files()}
+    assert {"analysis/lint.py", "analysis/waivers.py", "analysis/graphlint.py",
+            "incubate/hapi_text.py", "incubate/model_stat.py", "framework/op_library.py",
+            "utils/download.py", "utils/install_check.py", "distribution.py",
+            "inference/predictor.py", "runtime/compiled.py"} <= rel
+
+
 def test_scan_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom paddle_tpu.flags import flag\nimport jax.numpy as jnp\n"

@@ -183,7 +183,8 @@ def test_transformer_base_defaults_and_embedding_init():
 def test_kv_cache_and_missing_memory_raise():
     """The int8 and paged caches run through a decoder layer's
     self-attention (once they raised): the paged one as the ring does, bit
-    for bit. A layer without its memory and ``kdim`` still raise."""
+    for bit. A layer without its memory, and ring attention, still raise;
+    ``kdim`` (once it raised) gives the key projection its own width."""
     from paddle_tpu_torch.nn.transformer import (
         PagedStaticCache,
         QuantizedStaticCache,
@@ -208,8 +209,9 @@ def test_kv_cache_and_missing_memory_raise():
     assert bool(q.k.any()) and torch.equal(paged, ring)
     with pytest.raises(ValueError, match="with_cross_attention=False"):
         layer(x)
-    with pytest.raises(NotImplementedError, match="kdim"):
-        port_nn.MultiHeadAttention(D, HEADS, kdim=16)
+    assert tuple(port_nn.MultiHeadAttention(D, HEADS, kdim=16).k_proj.weight.shape) == (16, D)
+    with pytest.raises(NotImplementedError, match="ring"):
+        port_nn.MultiHeadAttention(D, HEADS, use_ring_attention=True)
 
 
 # -- the decoder layer ---------------------------------------------------------------
